@@ -1,0 +1,90 @@
+"""Time the PyTorch port's two CUDA kernels at chip_smoke.py's serving shapes.
+
+    python scripts/time_torch_kernels.py [PORT_ROOT ...]
+
+Each PORT_ROOT is a directory that holds a copy of `tacotron2_tpu_torch/`
+(default: this repository), so two versions of the kernels can be timed in
+turns on the same GPU (A, B, B, A). For each root, one process: build the
+kernels, load the r5 checkpoints, run the memory pass of 8 held-out texts,
+then report the median CUDA-event time of 5 runs of the whole decode
+(480 steps, early stop per 64-step block) and of the sampler over the
+first 512 samples, with checksums of both outputs. Needs one CUDA device.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_one(root):
+    sys.path.insert(0, root)
+    sys.path.insert(1, REPO)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import tacotron2_tpu_torch
+    from tacotron2_tpu_torch.convert import load_checkpoints
+    from tacotron2_tpu_torch.models.tacotron.decoder import drop_masks
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
+    from tacotron2_tpu_torch.text import text_to_sequence
+
+    assert tacotron2_tpu_torch.__file__.startswith(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cs.r5_config()
+    B, dev = len(cs.HELD_ROWS), "cuda"
+    tp, st, wp = load_checkpoints(os.path.join(cs.R5, "taco_ckpt.msgpack"),
+                                  os.path.join(cs.R5, "wn_ckpt.msgpack"))
+    prog = TextToWavProgram(cfg, tp, st, wp, batch=B, steps=cs.MAX_STEPS,
+                            t_in=cs.T_IN, device=dev)
+    held = cs.held_out_texts()
+    seqs = [text_to_sequence(held[i - 128], cfg.data.cleaners)
+            for i in cs.HELD_ROWS]
+    ids = np.zeros((B, cs.T_IN), np.int64)
+    for i, s in enumerate(seqs):
+        ids[i, :len(s)] = s
+    lens = torch.as_tensor([len(s) for s in seqs], device=dev)
+    refs = torch.as_tensor(np.stack([
+        np.load(os.path.join(cs.R5, "corpus", "mels", f"mel-{i}.npy"))
+        [:cs.T_REF] for i in cs.HELD_ROWS]), device=dev)
+    g = torch.Generator(dev).manual_seed(0)
+    W, K = cs.SAMPLER_WINDOW, cfg.tacotron.early_stop_block
+    with torch.no_grad():
+        keys, mem, mask, _, _ = prog.taco.synthesis_memory_ext(
+            torch.as_tensor(ids, device=dev), lens, refs, refs)
+        drop = drop_masks(cfg, B, cs.MAX_STEPS, g, dev)
+        dec = lambda: dk.decode(prog.dec_params, cfg, keys, mem, mask, drop,
+                                steps=cs.MAX_STEPS, early_stop_block=K,
+                                kernel_weights=prog.dec_kernel)
+        frames, _ = dec()
+        _, mel = prog.taco.postnet_pass(frames)
+        c = (torch.clamp(mel, -4.0, 4.0) + 4.0) / 8.0
+        c_up = prog.wavenet.upsample(c)[:, :W].contiguous()
+        z = torch.randn(B, W, generator=g, device=dev)
+        smp = lambda: wk.sample(prog.sampler_params, cfg, c_up, z,
+                                kernel_weights=prog.sampler_kernel)
+        y = smp()
+        torch.cuda.synchronize()
+        out = {"root": root, "decoder_ms": cs.cuda_ms(dec, 5),
+               f"sampler_ms_{W}": cs.cuda_ms(smp, 5),
+               "frames_sum": float(frames.sum()), "samples_sum": float(y.sum())}
+    print(json.dumps(out), flush=True)
+
+
+def main(argv):
+    if len(argv) == 2 and argv[0] == "--one":
+        time_one(os.path.abspath(argv[1]))
+        return 0
+    for root in argv or [REPO]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+                        root], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

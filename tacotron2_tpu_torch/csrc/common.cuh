@@ -1,0 +1,236 @@
+// Shared device helpers for the port's CUDA kernels (decoder.cu, sampler.cu).
+//
+// Both kernels are latency-bound loops of matrix-vector products: each
+// batch row walks every decode step / sample inside one CTA or one cluster,
+// with its state in shared memory and the weights read from global memory
+// (they stay resident in the 50 MB L2 across steps). `matvec` spreads the
+// output columns over the CTA in 16-byte vectors and splits the reduction
+// dimension over the remaining threads, then sums the splits through
+// shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace taco {
+
+template <typename W>
+struct Pack;
+
+// 16 bytes of weights: `Raw` is what one load brings in, `cvt` widens it
+// to V floats.
+template <>
+struct Pack<float> {
+  static constexpr int V = 4;
+  using Raw = float4;
+  __device__ __forceinline__ static Raw ld(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ static void cvt(const Raw& q, float* v) {
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+};
+
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int V = 8;
+  using Raw = uint4;
+  __device__ __forceinline__ static Raw ld(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static void cvt(const Raw& q, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// The product loop issues DEPTH 16-byte weight loads per thread before it
+// consumes the first, which is what hides the latency of L2 in these
+// one-row-at-a-time products; DEPTH trades registers for bytes in flight.
+
+// out[n] = bias[n] + sum_k x[k] * w[k * N + n] for n < N.
+// w: [K, N] row-major in global memory, N % V == 0, N / V <= blockDim.x,
+// rows 16-byte aligned. x, out, part: shared memory; part holds
+// blockDim.x * V floats; out must not alias x. Every thread of the block
+// must call it; it ends with __syncthreads().
+template <int DEPTH, typename W>
+__device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
+                       const float* x, int K, int N, float* out,
+                       float* part) {
+  using P = Pack<W>;
+  constexpr int V = P::V;
+  const int groups = N / V;
+  const int splits = blockDim.x / groups;
+  const int g = threadIdx.x % groups;
+  const int s = threadIdx.x / groups;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  if (s < splits) {
+    const W* col = w + g * V;
+    int k = s;
+    for (; k + (DEPTH - 1) * splits < K; k += DEPTH * splits) {
+      typename P::Raw raw[DEPTH];
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j)
+        raw[j] = P::ld(col + (size_t)(k + j * splits) * N);
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        float wv[V];
+        P::cvt(raw[j], wv);
+        const float xk = x[k + j * splits];
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = fmaf(xk, wv[i], acc[i]);
+      }
+    }
+    if (k < K) {  // fewer than DEPTH rows left: one predicated batch, so
+                  // their loads are in flight together too
+      typename P::Raw raw[DEPTH];
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        const int kj = k + j * splits;
+        raw[j] = kj < K ? P::ld(col + (size_t)kj * N) : typename P::Raw{};
+      }
+#pragma unroll
+      for (int j = 0; j < DEPTH; ++j) {
+        const int kj = k + j * splits;
+        if (kj < K) {
+          float wv[V];
+          P::cvt(raw[j], wv);
+          const float xk = x[kj];
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = fmaf(xk, wv[i], acc[i]);
+        }
+      }
+    }
+  }
+  // Narrow products split the reduction many ways; when a warp holds
+  // several splits of each column group, add them with shuffles first so
+  // that one partial per warp, not per split, goes through shared memory.
+  int nparts = splits;
+  if (groups < 32 && 32 % groups == 0) {  // then every thread is in a split
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      for (int off = groups; off < 32; off <<= 1)
+        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+    const int lane = threadIdx.x & 31;
+    if (lane < groups) {
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        part[(threadIdx.x >> 5) * N + g * V + i] = acc[i];
+    }
+    nparts = blockDim.x >> 5;
+  } else if (s < splits) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) part[s * N + g * V + i] = acc[i];
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float sum = bias ? bias[n] : 0.f;
+    for (int j = 0; j < nparts; ++j) sum += part[j * N + n];
+    out[n] = sum;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reductions; `red` is 32 floats of shared memory. Every thread
+// gets the result. blockDim.x must be a multiple of 32.
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+    v = warp_sum(v);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : -INFINITY;
+    v = warp_max(v);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// Index of the largest value, the smallest index among equals (argmax
+// semantics of torch/jnp). `red` is 32 floats, `ired` 32 ints.
+__device__ int block_argmax(float v, int idx, float* red, int* ired) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+    if (ov > v || (ov == v && oi < idx)) {
+      v = ov;
+      idx = oi;
+    }
+  }
+  if (lane == 0) {
+    red[warp] = v;
+    ired[warp] = idx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool ok = lane < (int)(blockDim.x >> 5);
+    v = ok ? red[lane] : -INFINITY;
+    idx = ok ? ired[lane] : 0x7fffffff;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+      if (ov > v || (ov == v && oi < idx)) {
+        v = ov;
+        idx = oi;
+      }
+    }
+    if (lane == 0) ired[0] = idx;
+  }
+  __syncthreads();
+  const int r = ired[0];
+  __syncthreads();
+  return r;
+}
+
+}  // namespace taco

@@ -1,0 +1,66 @@
+"""Location-sensitive attention, one decode step (PyTorch).
+
+Counterpart of tacotron2_tpu/models/tacotron/attention.py:25-103:
+
+    e = v_a · tanh(keys + W_q(q) + W_loc(conv_k(cum_align) + b_conv) + b_a)
+
+with the encoder-padding mask, the synthesis-time window constraint and
+cumulative weights. The keys (memory projection) are computed once per
+utterance outside the loop; the location conv and its projection are
+folded into one [K, A] tap matrix (`wp = loc_k @ wloc`), with the constant
+part (`b_a + loc_b @ wloc`) folded into the keys — the same algebra as the
+TPU decode kernel (`_attention_operands`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -(2.0 ** 32) + 1.0  # reference padding value (attention.py:214)
+
+
+def fold_location(loc_k, loc_b, wloc, b_a):
+    """[K, F] taps, [F] bias, [F, A] projection, [A] bias ->
+    (wp [K, A], b_eff [A]) in f32."""
+    wloc = wloc.float()
+    return loc_k.float() @ wloc, b_a.float() + loc_b.float() @ wloc
+
+
+def location_features(cum, wp):
+    """SAME correlation of cum [B, T] with taps wp [K, A] -> [B, T, A]."""
+    K = wp.shape[0]
+    pad = (K - 1) // 2
+    w = wp.t()[:, None, :]                                  # [A, 1, K]
+    loc = F.conv1d(F.pad(cum[:, None, :], (pad, K - 1 - pad)), w)
+    return loc.transpose(1, 2)
+
+
+def window_forbidden(T: int, pmax, win: int, ctype: str):
+    """[B, T] bool: positions the synthesis constraint rules out
+    (reference attention.py:202-215)."""
+    idx = torch.arange(T, device=pmax.device)[None, :]
+    p = pmax[:, None]
+    if ctype == "monotonic":
+        return (idx < p) | (idx >= p + win)
+    back = win // 2 + win % 2
+    return (idx < p - back) | (idx >= p + win // 2)
+
+
+def attention_step(q, keys_eff, memory, mask, cum, pmax, wp, v_a, *,
+                   constraint: bool, ctype: str, win: int):
+    """One step. q [B, A] (already projected), keys_eff [B, T, A] (keys with
+    the folded bias), memory [B, T, M], mask [B, T] float 1/0, cum [B, T],
+    pmax [B] long. Returns (context [B, M], align [B, T], cum, pmax)."""
+    loc = location_features(cum, wp)
+    energy = torch.tanh(keys_eff + q[:, None, :] + loc) @ v_a.float()
+    if constraint:
+        energy = energy.masked_fill(
+            window_forbidden(energy.shape[1], pmax, win, ctype), NEG_INF)
+    energy = torch.where(mask > 0, energy, torch.full_like(energy, NEG_INF))
+    ex = torch.exp(energy - energy.max(-1, keepdim=True).values) * mask
+    align = ex / ex.sum(-1, keepdim=True)
+    if constraint:
+        pmax = torch.argmax(align, dim=-1)
+    context = torch.bmm(align[:, None, :], memory)[:, 0]
+    return context, align, cum + align, pmax

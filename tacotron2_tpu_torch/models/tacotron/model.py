@@ -1,0 +1,116 @@
+"""Tacotron-2 with GST style conditioning — the inference passes (PyTorch).
+
+Counterpart of tacotron2_tpu/models/tacotron/model.py for what serving
+runs around the decode: `synthesis_memory_ext` (:255) — character
+embedding, conv + zoneout-BiLSTM encoder, both reference encoders, GST
+multi-head style attention, the `se_concat` join and the attention keys —
+and `postnet_pass` (:278). The autoregressive decode between them is
+`models/tacotron/decoder.py` / the CUDA decode kernel.
+
+Ported for the default family: `gst.use_gst=True` with two reference
+encoders (not AdaIN, not `emt_attn`, not `emt_only`), `se_concat=True`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...config import Config
+from ...text.symbols import symbols
+from .modules import (BiLSTMEncoder, Dense, EncoderConvStack,
+                      MultiheadStyleAttention, Postnet, ReferenceEncoder)
+
+
+class Tacotron(nn.Module):
+    """Inference-side Tacotron; weights come from `convert.py`."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        tc, gst, au = cfg.tacotron, cfg.gst, cfg.audio
+        assert gst.use_gst and not gst.adain and not gst.emt_attn, \
+            "the port covers the default GST family"
+        assert gst.se_concat, "style embeddings concatenate to the encoder"
+        self.cfg = cfg
+        bf16 = tc.compute_dtype == "bfloat16"
+        self.embedding = nn.Parameter(
+            torch.zeros(len(symbols), tc.embedding_dim), requires_grad=False)
+        self.encoder_conv = EncoderConvStack(
+            tc.embedding_dim, tc.enc_conv_num_layers, tc.enc_conv_channels,
+            tc.enc_conv_kernel_size, tc.batch_norm_position, bf16)
+        self.encoder_lstm = BiLSTMEncoder(
+            tc.enc_conv_channels, tc.encoder_lstm_units, tc.zoneout_rate)
+        self.refnet_emt = ReferenceEncoder(
+            au.num_mels, tuple(gst.reference_filters), gst.reference_depth)
+        self.refnet_spk = ReferenceEncoder(
+            au.num_mels, tuple(gst.reference_filters), gst.reference_depth)
+        tok_dim = gst.style_embed_depth // gst.num_heads
+        self.style_tokens_emt = nn.Parameter(
+            torch.zeros(gst.num_gst, tok_dim), requires_grad=False)
+        self.style_tokens_spk = nn.Parameter(
+            torch.zeros(gst.num_gst, tok_dim), requires_grad=False)
+        self.gst_attn_emt = MultiheadStyleAttention(
+            128, tok_dim, gst.num_heads, gst.style_att_dim, gst.style_att_type)
+        self.gst_attn_spk = MultiheadStyleAttention(
+            128, tok_dim, gst.num_heads, gst.style_att_dim, gst.style_att_type)
+        enc_width = 2 * tc.encoder_lstm_units
+        self.memory_width = enc_width + 2 * gst.num_heads * tok_dim
+        self.memory_layer = Dense(self.memory_width, tc.attention_dim,
+                                  use_bias=False)
+        self.postnet = Postnet(au.num_mels, tc.postnet_num_layers,
+                               tc.postnet_channels, tc.postnet_kernel_size,
+                               tc.batch_norm_position, bf16)
+        self.postnet_projection = Dense(tc.postnet_channels, au.num_mels)
+
+    # ------------------------------------------------------------- parts
+
+    def encode(self, inputs, input_lengths):
+        """Character ids [B, T_in] -> encoder states [B, T_in, 2·units]."""
+        x = self.embedding[inputs.long()]
+        return self.encoder_lstm(self.encoder_conv(x), input_lengths)
+
+    def style_embeddings(self, ref_mel_emt, ref_mel_spk):
+        """Reference mels -> style embedding [B, 1, S]."""
+        B = ref_mel_emt.shape[0]
+        parts = []
+        for refnet, tokens, attn, ref in (
+                (self.refnet_emt, self.style_tokens_emt, self.gst_attn_emt,
+                 ref_mel_emt),
+                (self.refnet_spk, self.style_tokens_spk, self.gst_attn_spk,
+                 ref_mel_spk)):
+            value = torch.tanh(tokens)[None].expand(B, -1, -1)
+            parts.append(attn(refnet(ref)[:, None, :], value))
+        return torch.cat(parts, dim=-1)
+
+    def _clip(self, x):
+        tc, au = self.cfg.tacotron, self.cfg.audio
+        if not tc.clip_outputs:
+            return x
+        lo = (-au.max_abs_value if au.symmetric_mels else 0.0) \
+            - tc.lower_bound_decay
+        return torch.clamp(x, lo, au.max_abs_value)
+
+    # ---------------------------------------------------------- passes
+
+    @torch.no_grad()
+    def synthesis_memory_ext(self, inputs, input_lengths, ref_mel_emt,
+                             ref_mel_spk):
+        """-> (keys [B,T,A], memory [B,T,M], mask [B,T] bool, None, None);
+        the last two are the emt_attn operands, absent in this family."""
+        enc = self.encode(inputs, input_lengths)
+        style = self.style_embeddings(ref_mel_emt, ref_mel_spk)
+        B, T = enc.shape[:2]
+        memory = torch.cat([enc, style.expand(B, T, style.shape[-1])], -1)
+        if self.cfg.tacotron.mask_encoder:
+            mask = torch.arange(T, device=enc.device)[None, :] \
+                < input_lengths.to(enc.device)[:, None]
+        else:
+            mask = torch.ones(B, T, dtype=torch.bool, device=enc.device)
+        return self.memory_layer(memory), memory, mask, None, None
+
+    @torch.no_grad()
+    def postnet_pass(self, frames):
+        """Clip + postnet residual + clip -> (decoder_output, mel)."""
+        dec = self._clip(frames.float())
+        mel = self._clip(dec + self.postnet_projection(self.postnet(dec)))
+        return dec, mel

@@ -1,0 +1,303 @@
+"""Tacotron building blocks (PyTorch, inference side).
+
+Counterparts of tacotron2_tpu/models/tacotron/modules.py. Layouts follow the
+JAX package at every public function: sequences are [B, T, C] and dense
+kernels are stored as flax keeps them, [in, out], so `convert.py` copies
+them without transposes. Convolutions keep PyTorch's weight layout
+([out, in, k...]); the converter transposes those once.
+
+Only what inference needs is ported: BatchNorm runs on its running
+statistics, encoder/postnet dropout is off, zoneout is the deterministic
+EMA mix, and the prenet (whose dropout stays on) lives in the decoder's
+parameter tuple (`models/tacotron/decoder.py`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+
+
+def _zeros(*shape):
+    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """y = x @ kernel + bias with a flax-layout kernel [in, out]."""
+
+    def __init__(self, d_in: int, d_out: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = _zeros(d_in, d_out)
+        self.bias = _zeros(d_out) if use_bias else None
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y + self.bias if self.bias is not None else y
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last axis (flax epsilon 1e-3)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = _zeros(channels)
+        self.bias = _zeros(channels)
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        x = x.float()
+        return (x - self.mean) * torch.rsqrt(self.var + BN_EPS) * self.scale \
+            + self.bias
+
+
+def _same_pad(size: int, k: int, stride: int):
+    """flax/XLA 'SAME' padding (lo, hi) for one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvBlock(nn.Module):
+    """conv1d → (activation, BatchNorm in 'after' order) over [B, T, C].
+
+    Reference: tacotron2_tpu ConvBlock (modules.py:30). Under
+    `compute_dtype="bfloat16"` the conv runs in bf16 and BatchNorm in f32,
+    as in the JAX package.
+    """
+
+    def __init__(self, c_in: int, channels: int, kernel_size: int,
+                 activation: Optional[str] = "relu", bnorm: str = "after",
+                 bf16: bool = False):
+        super().__init__()
+        self.weight = _zeros(channels, c_in, kernel_size)   # torch layout
+        self.conv_bias = _zeros(channels)
+        self.bn = BatchNorm(channels)
+        self.activation, self.bnorm, self.bf16 = activation, bnorm, bf16
+        self.kernel_size = kernel_size
+
+    def _act(self, x):
+        if self.activation == "relu":
+            return F.relu(x)
+        if self.activation == "tanh":
+            return torch.tanh(x)
+        return x
+
+    def forward(self, x):
+        lo, hi = _same_pad(x.shape[1], self.kernel_size, 1)
+        h = F.pad(x.transpose(1, 2), (lo, hi))
+        w, b = self.weight, self.conv_bias
+        if self.bf16:
+            h, w, b = h.bfloat16(), w.bfloat16(), b.bfloat16()
+        h = F.conv1d(h, w, b).transpose(1, 2).float()
+        if self.bnorm == "after":
+            return self.bn(self._act(h))
+        return self._act(self.bn(h))
+
+
+class EncoderConvStack(nn.Module):
+    """N× conv1d(k, C) + ReLU + BN (reference modules.py:67)."""
+
+    def __init__(self, c_in: int, num_layers: int, channels: int,
+                 kernel_size: int, bnorm: str = "after", bf16: bool = False):
+        super().__init__()
+        dims = [c_in] + [channels] * num_layers
+        self.layers = nn.ModuleList(
+            ConvBlock(dims[i], channels, kernel_size, "relu", bnorm, bf16)
+            for i in range(num_layers))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class Postnet(nn.Module):
+    """(N-1)× conv1d+tanh and one linear conv, each with BN
+    (reference modules.py:258)."""
+
+    def __init__(self, c_in: int, num_layers: int, channels: int,
+                 kernel_size: int, bnorm: str = "after", bf16: bool = False):
+        super().__init__()
+        dims = [c_in] + [channels] * num_layers
+        acts = ["tanh"] * (num_layers - 1) + [None]
+        self.layers = nn.ModuleList(
+            ConvBlock(dims[i], channels, kernel_size, acts[i], bnorm, bf16)
+            for i in range(num_layers))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+# --------------------------------------------------------------------- LSTM
+
+
+def lstm_step(kernel, bias, x, c, h):
+    """One LSTM step in TF LSTMCell gate order (i, j, f, o).
+
+    `bias` already holds the folded forget bias (+1 on the f block;
+    reference modules.py:89 adds it inside the step). Returns (c, h).
+    """
+    z = torch.cat([x, h], dim=-1) @ kernel + bias
+    i, j, f, o = z.chunk(4, dim=-1)
+    new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(j)
+    new_h = torch.sigmoid(o) * torch.tanh(new_c)
+    return new_c, new_h
+
+
+class ZoneoutLSTMCell(nn.Module):
+    """Zoneout LSTM at inference: (1-z)·new + z·prev on c and h
+    (reference modules.py:101)."""
+
+    def __init__(self, d_in: int, units: int, zoneout: float):
+        super().__init__()
+        self.kernel = _zeros(d_in + units, 4 * units)
+        self.bias = _zeros(4 * units)
+        self.units, self.zoneout = units, zoneout
+
+    def forward(self, c, h, x):
+        new_c, new_h = lstm_step(self.kernel, self.bias, x, c, h)
+        z = self.zoneout
+        if z > 0:
+            new_c = (1 - z) * new_c + z * c
+            new_h = (1 - z) * new_h + z * h
+        return new_c, new_h
+
+
+def reverse_sequence(x, lengths):
+    """Per-row reversal of the first `lengths` steps (TF reverse_sequence);
+    padding stays in place. x: [B, T, D], lengths: [B]."""
+    T = x.shape[1]
+    t = torch.arange(T, device=x.device)[None, :]
+    ln = lengths.to(x.device).long()[:, None]
+    idx = torch.where(t < ln, ln - 1 - t, t)
+    return torch.gather(x, 1, idx[:, :, None].expand_as(x))
+
+
+class BiLSTMEncoder(nn.Module):
+    """Bidirectional zoneout LSTM with length-aware reversal; outputs past
+    each length are zero (reference modules.py:137,148)."""
+
+    def __init__(self, d_in: int, units: int, zoneout: float):
+        super().__init__()
+        self.fw = ZoneoutLSTMCell(d_in, units, zoneout)
+        self.bw = ZoneoutLSTMCell(d_in, units, zoneout)
+        self.units = units
+
+    def _run(self, cell, seq):
+        B, T, _ = seq.shape
+        c = seq.new_zeros(B, self.units)
+        h = seq.new_zeros(B, self.units)
+        ys = []
+        for t in range(T):
+            c, h = cell(c, h, seq[:, t])
+            ys.append(h)
+        return torch.stack(ys, dim=1)
+
+    def forward(self, x, lengths):
+        x = x.float()
+        fw = self._run(self.fw, x)
+        bw = reverse_sequence(self._run(self.bw, reverse_sequence(x, lengths)),
+                              lengths)
+        out = torch.cat([fw, bw], dim=-1)
+        T = x.shape[1]
+        mask = torch.arange(T, device=x.device)[None, :] \
+            < lengths.to(x.device)[:, None]
+        return out * mask[:, :, None]
+
+
+class GRUCell(nn.Module):
+    """TF-layout GRU cell: gates (r, z) then candidate on [x, r·h]."""
+
+    def __init__(self, d_in: int, units: int):
+        super().__init__()
+        self.gates_kernel = _zeros(d_in + units, 2 * units)
+        self.gates_bias = _zeros(2 * units)
+        self.candidate_kernel = _zeros(d_in + units, units)
+        self.candidate_bias = _zeros(units)
+
+    def forward(self, h, x):
+        g = torch.sigmoid(torch.cat([x, h], -1) @ self.gates_kernel
+                          + self.gates_bias)
+        r, z = g.chunk(2, dim=-1)
+        n = torch.tanh(torch.cat([x, r * h], -1) @ self.candidate_kernel
+                       + self.candidate_bias)
+        return z * h + (1 - z) * n
+
+
+class ReferenceEncoder(nn.Module):
+    """6× conv2d(3×3, stride 2, SAME) + BN + ReLU over the ref mel, a
+    GRU over time, and Dense(128, tanh) on its last output
+    (reference modules.py:367, `all_outputs=False`)."""
+
+    def __init__(self, num_mels: int, filters: Sequence[int], depth: int):
+        super().__init__()
+        chans = [1] + list(filters)
+        self.convs = nn.ParameterList(
+            _zeros(chans[i + 1], chans[i], 3, 3) for i in range(len(filters)))
+        self.conv_biases = nn.ParameterList(
+            _zeros(c) for c in filters)
+        self.bns = nn.ModuleList(BatchNorm(c) for c in filters)
+        f = num_mels
+        for _ in filters:
+            f = -(-f // 2)
+        self.gru = GRUCell(f * filters[-1], depth)
+        self.dense = Dense(depth, 128)
+        self.depth = depth
+
+    def forward(self, mel):
+        x = mel.float()[:, None]                        # [B, 1, T, mels]
+        for w, b, bn in zip(self.convs, self.conv_biases, self.bns):
+            t_lo, t_hi = _same_pad(x.shape[2], 3, 2)
+            f_lo, f_hi = _same_pad(x.shape[3], 3, 2)
+            x = F.conv2d(F.pad(x, (f_lo, f_hi, t_lo, t_hi)), w, b, stride=2)
+            x = F.relu(bn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2))
+        B, C, T, Fq = x.shape
+        # flax NHWC reshape(B, T, F*C): feature index = f*C + c
+        seq = x.permute(0, 2, 3, 1).reshape(B, T, Fq * C)
+        h = seq.new_zeros(B, self.depth)
+        for t in range(T):
+            h = self.gru(h, seq[:, t])
+        return torch.tanh(self.dense(h))
+
+
+class MultiheadStyleAttention(nn.Module):
+    """GST multi-head attention with the normalized-mlp scorer (the default
+    `style_att_type`); values are tiled per head, not projected (reference
+    modules.py:472)."""
+
+    def __init__(self, d_query: int, d_value: int, num_heads: int,
+                 num_units: int, attention_type: str = "mlp_attention"):
+        super().__init__()
+        assert attention_type == "mlp_attention", \
+            "the port covers the normalized mlp scorer"
+        assert num_units % num_heads == 0
+        hd = num_units // num_heads
+        self.q_proj = Dense(d_query, num_units)
+        self.k_proj = Dense(d_value, num_units)
+        self.attention_v = _zeros(hd)
+        self.attention_g = _zeros(())
+        self.attention_b = _zeros(hd)
+        self.num_heads, self.hd = num_heads, hd
+
+    def forward(self, query, value):
+        # query [B, Tq, Dq], value [B, Tv, Dv] -> [B, Tq, H*Dv]
+        q, k = self.q_proj(query), self.k_proj(value)
+        B, Tq, _ = q.shape
+        Tv, H, hd = value.shape[1], self.num_heads, self.hd
+        qs = q.reshape(B, Tq, H, hd).transpose(1, 2)       # [B, H, Tq, hd]
+        ks = k.reshape(B, Tv, H, hd).transpose(1, 2)       # [B, H, Tv, hd]
+        v = self.attention_v
+        normed_v = self.attention_g * v * torch.rsqrt(torch.sum(v * v))
+        add = torch.sum(normed_v * torch.tanh(
+            ks[:, :, None] + qs[:, :, :, None] + self.attention_b), -1)
+        w = torch.softmax(add, dim=-1)                     # [B, H, Tq, Tv]
+        ctx = w @ value[:, None]                           # [B, H, Tq, Dv]
+        return ctx.transpose(1, 2).reshape(B, Tq, -1)

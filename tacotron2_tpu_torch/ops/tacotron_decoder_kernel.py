@@ -1,0 +1,255 @@
+"""The whole autoregressive Tacotron decode as one CUDA kernel.
+
+Port of tacotron2_tpu/ops/tacotron_decoder_kernel.py: `extract_decoder_
+params` (:94) flattens the flax decoder subtree; `decode` runs the decode
+through `csrc/decoder.cu` for CUDA tensors and through its plain version,
+`models/tacotron/decoder.py:autoregressive`, for CPU tensors. The kernel
+takes its weights in its own per-CTA layout, which `pack_weights` builds
+once per set of weights (at load time, not per call). The kernel's design
+and its bound are in the note at the top of `csrc/decoder.cu`.
+
+The TPU kernel's `energy_mode` / `context_mode` variants are TPU layout
+choices and have no counterpart. The CUDA kernel takes bf16 decode weights
+(`tacotron.fused_decoder_dtype="bfloat16"`, the default); the plain version
+takes bf16 or f32. Prenet dropout arrives as multipliers drawn by the caller
+(`models/tacotron/decoder.py:drop_masks`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..models.tacotron.attention import fold_location
+from ..models.tacotron.decoder import DecoderParams, autoregressive
+
+# kernel launches made by `decode` (the count a run reads to show that its
+# main path went through the CUDA kernel)
+launches = 0
+
+_SMEM_LIMIT = 232448
+# CTAs per row: `CS` in csrc/decoder.cu (checked at launch)
+CLUSTER_SIZE = 8
+_argtypes_set = False
+
+
+def decode_weight_dtype(cfg: Config) -> torch.dtype:
+    return (torch.bfloat16 if cfg.tacotron.fused_decoder_dtype == "bfloat16"
+            else torch.float32)
+
+
+def extract_decoder_params(params, cfg: Config, *, device="cuda",
+                           weight_dtype=None) -> DecoderParams:
+    """Flax Tacotron params (numpy leaves) -> DecoderParams.
+
+    Layout of models/tacotron/decoder.py: cell/{prenet, lstm1, lstm2,
+    attention, frame_projection, stop_projection}. LSTM kernels are
+    [(x_dim + U), 4U] with x = [prenet | context]; the forget bias of 1.0
+    is folded into the f-gate bias. Matmul weights are cast to
+    `weight_dtype` (default: the config's decode dtype).
+    """
+    tc, gst = cfg.tacotron, cfg.gst
+    assert not gst.emt_attn, "emt_attn decoding is not in the port yet"
+    assert not tc.smoothing, "the port decodes with softmax attention only"
+    wd = weight_dtype or decode_weight_dtype(cfg)
+    U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
+    assert tuple(tc.prenet_layers) == (P, P), "kernel wants 2 equal prenet FCs"
+    r, mels = tc.outputs_per_step, cfg.audio.num_mels
+    cell = params["decoder"]["cell"]
+    f32 = lambda a: np.asarray(a, np.float32)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                            dtype=dtype)
+
+    l1k, l2k = f32(cell["lstm1"]["kernel"]), f32(cell["lstm2"]["kernel"])
+    l1b, l2b = f32(cell["lstm1"]["bias"]).copy(), f32(cell["lstm2"]["bias"]).copy()
+    l1b[2 * U:3 * U] += 1.0
+    l2b[2 * U:3 * U] += 1.0
+    M = l1k.shape[0] - P - U
+    assert l2k.shape[0] == 2 * U, l2k.shape
+    att = cell["attention"]
+    fp, sp = cell["frame_projection"]["Dense_0"], cell["stop_projection"]["Dense_0"]
+    proj_w = np.concatenate([f32(fp["kernel"]), f32(sp["kernel"])], axis=1)
+    proj_b = np.concatenate([f32(fp["bias"]), f32(sp["bias"])])
+    assert proj_w.shape == (U + M, r * mels + r), proj_w.shape
+    pre = cell["prenet"]
+    return DecoderParams(
+        pre_w0=t(pre["Dense_0"]["kernel"], wd), pre_b0=t(pre["Dense_0"]["bias"]),
+        pre_w1=t(pre["Dense_1"]["kernel"], wd), pre_b1=t(pre["Dense_1"]["bias"]),
+        l1_wp=t(l1k[:P], wd), l1_wc=t(l1k[P:P + M], wd), l1_wh=t(l1k[P + M:], wd),
+        l1_b=t(l1b), l2_wx=t(l2k[:U], wd), l2_wh=t(l2k[U:], wd), l2_b=t(l2b),
+        wq=t(att["query_layer"]["kernel"], wd),
+        loc_k=t(f32(att["location_features_convolution"]["kernel"])[:, 0]),
+        loc_b=t(att["location_features_convolution"]["bias"]),
+        wloc=t(att["location_features_layer"]["kernel"]),
+        v_a=t(f32(att["attention_variable_projection"])[:, 0]),
+        b_a=t(att["attention_bias"]),
+        proj_wo=t(proj_w[:U], wd), proj_wc=t(proj_w[U:], wd), proj_b=t(proj_b))
+
+
+class KernelWeights(NamedTuple):
+    """The decode kernel's weight operands, laid out for a cluster of `cs`
+    CTAs (built once by `pack_weights`)."""
+
+    pre_w0: torch.Tensor   # [mels, P] bf16
+    pre_b0: torch.Tensor   # [P]
+    pre_w1: torch.Tensor   # [P, P] bf16
+    pre_b1: torch.Tensor   # [P]
+    l1_w: torch.Tensor     # [cs, P+M+U, 4U/cs] bf16, see split_gates
+    l1_b: torch.Tensor     # [cs, 4U/cs]
+    l2_w: torch.Tensor     # [cs, 2U, 4U/cs] bf16
+    l2_b: torch.Tensor     # [cs, 4U/cs]
+    wq: torch.Tensor       # [U, A] bf16
+    wp: torch.Tensor       # [K, A] folded location taps
+    b_eff: torch.Tensor    # [A] folded attention bias, added to the keys
+    v_a: torch.Tensor      # [A]
+    proj_w: torch.Tensor   # [U+M, fop] bf16, columns padded to fop
+    proj_b: torch.Tensor   # [fop]
+    fop: int
+    cs: int
+
+
+def decode_plain(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
+                 steps: int, early_stop_block: int = 0):
+    """The kernel's plain PyTorch version (same contract as `decode`)."""
+    return autoregressive(dp, cfg, keys, memory, mask, steps, drop,
+                          early_stop_block)
+
+
+def decode(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
+           steps: int, early_stop_block: int = 0,
+           kernel_weights: KernelWeights | None = None):
+    """Decode `steps` steps. keys [B, T, A], memory [B, T, M], mask [B, T],
+    drop [B, steps, 2, P]. Returns (frames [B, steps*r, mels], stop_probs
+    [B, steps*r]). CPU tensors take the plain version with `dp`; CUDA
+    tensors launch the kernel with `kernel_weights` (`pack_weights(dp)`) or
+    raise."""
+    if memory.device.type == "cpu":
+        return decode_plain(dp, cfg, keys, memory, mask, drop, steps=steps,
+                            early_stop_block=early_stop_block)
+    if kernel_weights is None:
+        raise ValueError("the decode kernel takes kernel_weights="
+                         "pack_weights(dp), built once per set of weights")
+    return _decode_cuda(kernel_weights, cfg, keys, memory, mask, drop, steps,
+                        early_stop_block)
+
+
+def _lib():
+    from ..native import build
+    global _argtypes_set
+    lib = build.load("decoder")
+    if not _argtypes_set:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.taco_decoder_launch.argtypes = [vp] * 18 + [ci] * 16 + \
+            [ctypes.c_float, vp]
+        lib.taco_decoder_launch.restype = ci
+        lib.taco_decoder_smem_bytes.argtypes = [ci] * 8
+        lib.taco_decoder_smem_bytes.restype = ctypes.c_size_t
+        lib.taco_decoder_cluster_size.argtypes = []
+        lib.taco_decoder_cluster_size.restype = ci
+        _argtypes_set = True
+    return lib
+
+
+def split_gates(w, cs: int):
+    """LSTM kernel [K, 4U] (or bias [4U]) in (i, j, f, o) order ->
+    [cs, K, 4U/cs] (or [cs, 4U/cs]): slice c holds the i, j, f, o columns
+    of units [c·U/cs, (c+1)·U/cs), the gate columns one CTA of the
+    kernel's cluster computes."""
+    lead = w.shape[:-1]
+    U = w.shape[-1] // 4
+    w = w.reshape(*lead, 4, cs, U // cs)
+    w = w.movedim(-2, 0)                  # [cs, *lead, 4, U/cs]
+    return w.reshape(cs, *lead, 4 * (U // cs)).contiguous()
+
+
+def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE) -> KernelWeights:
+    """DecoderParams -> the kernel's operands: stacked LSTM kernels split
+    into per-CTA gate columns, the projection padded to a multiple of 8
+    columns, the folded location taps and attention bias."""
+    fo = dp.proj_b.shape[0]
+    fop = -(-fo // 8) * 8
+    proj_w = torch.cat([dp.proj_wo, dp.proj_wc], 0)
+    wp, b_eff = fold_location(dp.loc_k, dp.loc_b, dp.wloc, dp.b_a)
+    c = lambda x: x.contiguous()
+    return KernelWeights(
+        pre_w0=c(dp.pre_w0), pre_b0=c(dp.pre_b0), pre_w1=c(dp.pre_w1),
+        pre_b1=c(dp.pre_b1),
+        l1_w=split_gates(torch.cat([dp.l1_wp, dp.l1_wc, dp.l1_wh], 0), cs),
+        l1_b=split_gates(dp.l1_b, cs),
+        l2_w=split_gates(torch.cat([dp.l2_wx, dp.l2_wh], 0), cs),
+        l2_b=split_gates(dp.l2_b, cs),
+        wq=c(dp.wq), wp=c(wp), b_eff=c(b_eff), v_a=c(dp.v_a),
+        proj_w=c(torch.nn.functional.pad(proj_w, (0, fop - fo))),
+        proj_b=c(torch.nn.functional.pad(dp.proj_b, (0, fop - fo))),
+        fop=fop, cs=cs)
+
+
+def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
+                 early_stop_block):
+    global launches
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    B, T, M = memory.shape
+    U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
+    A, KW = kw.wq.shape[1], kw.wp.shape[0]
+    dev = memory.device
+    for name in ("pre_w0", "pre_w1", "l1_w", "l2_w", "wq", "proj_w"):
+        w = getattr(kw, name)
+        if w.dtype != torch.bfloat16 or w.device != dev:
+            raise ValueError(f"decode kernel wants bf16 {name} on {dev}, "
+                             f"got {w.dtype} on {w.device}")
+    if memory.dtype != torch.float32 or keys.shape != (B, T, A):
+        raise ValueError("memory must be f32 [B, T, M] and keys [B, T, A]")
+    if drop.shape != (B, steps, 2, P) or drop.device != dev:
+        raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
+    if kw.l1_w.shape[1] != P + M + U:
+        raise ValueError("kernel_weights do not match the memory width")
+    lib = _lib()
+    cs = lib.taco_decoder_cluster_size()
+    if kw.cs != cs:
+        raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
+                         f"the kernel runs {cs}")
+    if U % (2 * cs) or M % cs or (4 * U // cs) // 8 > 512 or A % 8 or P % 8:
+        raise ValueError("widths outside the kernel's envelope")
+    K = int(early_stop_block)
+    if K <= 0 or K >= steps:
+        K = 0
+    smem = lib.taco_decoder_smem_bytes(T, mels, P, U, M, A, KW, kw.fop)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"decode kernel needs {smem} B of shared memory")
+    keys = (keys.float() + kw.b_eff).contiguous()
+    memory = memory.contiguous()
+    maskf = mask.to(device=dev, dtype=torch.float32).contiguous()
+    drop = drop.to(torch.float32).contiguous()
+    FO = r * mels + r
+    out = torch.empty(B, steps, FO, device=dev)
+    out[..., :r * mels] = 0.0
+    out[..., r * mels:] = 1.0
+    win = int(tc.attention_win_size)
+    monotonic = tc.synthesis_constraint_type == "monotonic"
+    back = 0 if monotonic else win // 2 + win % 2
+    fwd = win if monotonic else win // 2
+    # Operands made here are freed when this returns, maybe before the
+    # kernel ends; PyTorch's caching allocator reuses a freed block only for
+    # work queued later on the same stream, so they outlive the kernel.
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    rc = lib.taco_decoder_launch(
+        ptr(keys), ptr(memory), ptr(maskf), ptr(drop),
+        ptr(kw.pre_w0), ptr(kw.pre_b0), ptr(kw.pre_w1), ptr(kw.pre_b1),
+        ptr(kw.l1_w), ptr(kw.l1_b), ptr(kw.l2_w), ptr(kw.l2_b),
+        ptr(kw.wq), ptr(kw.wp), ptr(kw.v_a), ptr(kw.proj_w), ptr(kw.proj_b),
+        ptr(out), B, T, steps, mels, P, U, M, A, KW, r, kw.fop, K,
+        int(bool(tc.synthesis_constraint)), back, fwd,
+        int(bool(tc.stop_at_any)), float(tc.zoneout_rate),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    from ..native.build import check
+    check(rc, "taco_decoder_launch")
+    launches += 1
+    return (out[..., :r * mels].reshape(B, steps * r, mels),
+            out[..., r * mels:].reshape(B, steps * r))

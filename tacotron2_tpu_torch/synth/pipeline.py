@@ -1,0 +1,198 @@
+"""Single-program text→waveform serving chain (PyTorch/CUDA).
+
+Port of tacotron2_tpu/synth/pipeline.py `TextToWavProgram` (:47): Tacotron
+memory pass → the CUDA decode kernel → postnet → stop-length recovery and
+silence masking (:194-207) → [0, 1] rescale (:215-220) → SubPixel
+conditioning upsample → the CUDA sampler kernel, on one device with no host
+round trip between the stages. CPU tensors run the same chain through the
+kernels' plain versions (that is how the tests hold it against the JAX
+program). Each stage runs once over the whole batch: the decode kernel
+runs one thread-block cluster per row, so the TPU program's split into
+decode chunks of at most 64 rows has no counterpart.
+
+Random numbers come from one `torch.Generator` on the program's device,
+reseeded per call from a counter: the prenet dropout multipliers of every
+decode step and the sampler's standard normals are drawn up front and
+passed into the kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import convert
+from ..config import Config
+from ..models.tacotron.decoder import drop_masks
+from ..models.wavenet.sampler import extract_sampler_params
+from ..ops import tacotron_decoder_kernel as dk
+from ..ops import wavenet_kernel as wk
+
+
+def inv_mulaw(y, mu: int = 255):
+    """Inverse μ-law companding: sign(y)·((1+μ)^|y| − 1)/μ."""
+    return np.sign(y) * (1.0 / mu) * ((1.0 + mu) ** np.abs(y) - 1.0)
+
+
+class TextToWavProgram:
+    """Padded text ids → waveform samples for one (batch, t_in, steps)
+    serving bucket. Eligibility mirrors the JAX program: no `emt_attn`,
+    equal-width prenet, padded text ≤ 256, Gaussian head on scalar input.
+
+    `keep_intermediates=True` keeps the last call's kernel inputs
+    (keys, memory, mask, dropout multipliers, conditioning, noise) in
+    `self.intermediates`, so a check can replay each kernel against its
+    plain version on the same numbers. On a CUDA device the kernels'
+    operands (`dec_kernel`, `sampler_kernel`) are laid out once, here.
+    """
+
+    def __init__(self, cfg: Config, taco_params, batch_stats, wn_params, *,
+                 batch: int, steps: int, t_in: int, t_ref: int = 64,
+                 device="cuda", seed: int = 0,
+                 keep_intermediates: bool = False):
+        tc, au = cfg.tacotron, cfg.audio
+        assert not cfg.gst.emt_attn, "emt_attn is not in the port yet"
+        assert len(set(tc.prenet_layers)) == 1, "kernel wants equal prenet FCs"
+        assert t_in <= 256, "long inputs (> 256 padded chars) are not ported"
+        self.cfg, self.device = cfg, torch.device(device)
+        self.batch, self.steps, self.t_in, self.t_ref = batch, steps, t_in, t_ref
+        self.hop = au.effective_hop
+        self.frames = steps * tc.outputs_per_step
+        self.t_audio = self.frames * self.hop
+
+        self.taco = convert.tacotron_from_flax(cfg, taco_params,
+                                               batch_stats or {}, device)
+        self.wavenet = convert.wavenet_from_flax(cfg, wn_params, device)
+        self.dec_params = dk.extract_decoder_params(taco_params, cfg,
+                                                    device=device)
+        self.sampler_params = extract_sampler_params(wn_params, cfg, device)
+        cuda = self.device.type == "cuda"
+        self.dec_kernel = (dk.pack_weights(self.dec_params) if cuda
+                           else None)
+        self.sampler_kernel = (wk.pack_weights(self.sampler_params, cfg)
+                               if cuda else None)
+        self.memory_width = self.taco.memory_width
+        self.generator = torch.Generator(device=self.device)
+        self._seed = seed
+        self.keep_intermediates = keep_intermediates
+        self.intermediates = {}
+
+    # ------------------------------------------------------------ program
+
+    @torch.no_grad()
+    def _forward(self, inputs, input_lengths, refs_emt, refs_spk):
+        cfg, au = self.cfg, self.cfg.audio
+        tc = cfg.tacotron
+        r, B = tc.outputs_per_step, self.batch
+        g = self.generator
+        keys, memory, mask, _, _ = self.taco.synthesis_memory_ext(
+            inputs, input_lengths, refs_emt, refs_spk)
+        drop = drop_masks(cfg, B, self.steps, g, self.device)
+        frames, stops = dk.decode(
+            self.dec_params, cfg, keys, memory, mask, drop, steps=self.steps,
+            early_stop_block=tc.early_stop_block,
+            kernel_weights=self.dec_kernel)
+        _, mel = self.taco.postnet_pass(frames)     # [B, frames, mels]
+
+        # stop-length recovery (first frame whose stop prob rounds to 1,
+        # else the full length; at least one reduction group)
+        fired = stops >= 0.5
+        first = torch.argmax(fired.float(), dim=1)
+        mel_len = torch.where(fired.any(1), first,
+                              torch.full_like(first, self.frames))
+        mel_len = torch.clamp(mel_len, min=r)
+
+        # mask the tail to normalized silence
+        lo = -au.max_abs_value if au.symmetric_mels else 0.0
+        pad_val = lo if au.signal_normalization else \
+            (au.min_level_db - au.ref_level_db)
+        idx = torch.arange(self.frames, device=mel.device)[None, :, None]
+        mel = torch.where(idx < mel_len[:, None, None], mel,
+                          torch.full_like(mel, pad_val))
+
+        c = mel
+        if au.clip_for_wavenet:
+            c = torch.clamp(c, lo, au.max_abs_value)
+        if au.normalize_for_wavenet:
+            c = (c - lo) / (au.max_abs_value - lo)
+        c_up = self.wavenet.upsample(c)
+        z = torch.randn(B, self.t_audio, generator=g, device=self.device)
+        samples = wk.sample(self.sampler_params, cfg, c_up, z,
+                            kernel_weights=self.sampler_kernel)
+        if self.keep_intermediates:
+            self.intermediates = dict(keys=keys, memory=memory, mask=mask,
+                                      drop=drop, c_up=c_up, z=z)
+        return samples, mel_len * self.hop, mel, stops, mel_len
+
+    # ------------------------------------------------------------- public
+
+    def __call__(self, inputs, input_lengths, refs_emt, refs_spk):
+        """Run the program. Returns (samples [B, t_audio], wav_lengths [B],
+        mel [B, frames, mels], stop_probs [B, frames], mel_lengths [B]) as
+        tensors on the program's device. Trim with
+        `samples[i, :wav_lengths[i]]`."""
+        nm = self.cfg.audio.num_mels
+        dev = self.device
+        inputs = torch.as_tensor(np.asarray(inputs), device=dev).long()
+        lengths = torch.as_tensor(np.asarray(input_lengths), device=dev).long()
+        refs_emt = torch.as_tensor(np.asarray(refs_emt, np.float32), device=dev)
+        refs_spk = torch.as_tensor(np.asarray(refs_spk, np.float32), device=dev)
+        if tuple(inputs.shape) != (self.batch, self.t_in):
+            raise ValueError(f"expected {(self.batch, self.t_in)}, got "
+                             f"{tuple(inputs.shape)}")
+        for name, ref in (("refs_emt", refs_emt), ("refs_spk", refs_spk)):
+            if tuple(ref.shape) != (self.batch, self.t_ref, nm):
+                raise ValueError(f"{name} must be "
+                                 f"{(self.batch, self.t_ref, nm)}, got "
+                                 f"{tuple(ref.shape)}")
+        self._seed += 1
+        self.generator.manual_seed(self._seed)
+        return self._forward(inputs, lengths, refs_emt, refs_spk)
+
+    def synthesize(self, texts, ref_mels_emt, ref_mels_spk):
+        """Texts and reference mels -> list of trimmed float32 wavs.
+
+        Batches shorter than the bucket are filled with repeats of their
+        rows and trimmed after; longer ones run in several calls."""
+        from ..text import text_to_sequence
+        n = len(texts)
+        if not (n > 0 and len(ref_mels_emt) == n and len(ref_mels_spk) == n):
+            raise ValueError("need one emt and one spk reference per text")
+        seqs = [np.asarray(text_to_sequence(t, self.cfg.data.cleaners),
+                           np.int64) for t in texts]
+        lengths = np.asarray([len(s) for s in seqs], np.int64)
+        if int(lengths.max()) > self.t_in:
+            raise ValueError(f"text longer than the program's "
+                             f"t_in={self.t_in} bucket")
+        inputs = np.stack([np.pad(s, (0, self.t_in - len(s))) for s in seqs])
+        pad_val = -self.cfg.audio.max_abs_value
+
+        def pad_ref(m):
+            m = np.asarray(m, np.float32)[:self.t_ref]
+            return np.pad(m, ((0, self.t_ref - len(m)), (0, 0)),
+                          constant_values=pad_val)
+
+        refs_e = np.stack([pad_ref(m) for m in ref_mels_emt])
+        refs_s = np.stack([pad_ref(m) for m in ref_mels_spk])
+        samples_l, wav_len_l = [], []
+        for i in range(0, n, self.batch):
+            sl = slice(i, i + self.batch)
+            ii, ll, re_, rs = inputs[sl], lengths[sl], refs_e[sl], refs_s[sl]
+            short = self.batch - len(ii)
+            if short:                      # fill the bucket with row repeats
+                fill = np.arange(short) % len(ii)
+                ii, ll = np.concatenate([ii, ii[fill]]), np.concatenate(
+                    [ll, ll[fill]])
+                re_, rs = np.concatenate([re_, re_[fill]]), np.concatenate(
+                    [rs, rs[fill]])
+            s, wl, _, _, _ = self(ii, ll, re_, rs)
+            take = self.batch - short
+            samples_l.append(s.cpu().numpy()[:take])
+            wav_len_l.append(wl.cpu().numpy()[:take])
+        samples = np.concatenate(samples_l)
+        wav_len = np.concatenate(wav_len_l)
+        wavs = [samples[i, :wav_len[i]] for i in range(n)]
+        if self.cfg.wavenet.input_type == "mulaw":
+            q = self.cfg.wavenet.quantize_channels - 1
+            wavs = [np.asarray(inv_mulaw(w, q), np.float32) for w in wavs]
+        return wavs

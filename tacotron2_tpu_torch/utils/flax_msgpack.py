@@ -1,0 +1,127 @@
+"""Pure-Python reader for flax's msgpack checkpoint format.
+
+`flax.serialization.to_bytes` writes a msgpack map tree whose array leaves
+are msgpack ext type 1, the payload being itself a msgpack array
+`(shape, dtype name, raw C-order bytes)`. This reader decodes exactly that
+subset (maps, arrays, str, bin, ints, floats, nil, bools, ext 1) into a
+nested dict of numpy arrays, so the port needs neither `msgpack` nor
+`flax`. Anything else raises ValueError.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Any, Dict, Tuple
+
+import numpy as np
+
+_EXT_NDARRAY = 1
+
+
+class _Reader:
+    def __init__(self, buf: bytes):
+        self.buf = memoryview(buf)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated msgpack data")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def value(self) -> Any:
+        b = self.unpack(">B")
+        if b <= 0x7F:                       # positive fixint
+            return b
+        if b >= 0xE0:                       # negative fixint
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self.str(b & 0x1F)
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        if b in (0xC4, 0xC5, 0xC6):         # bin 8/16/32
+            n = self.unpack({0xC4: ">B", 0xC5: ">H", 0xC6: ">I"}[b])
+            return bytes(self.take(n))
+        if b in (0xC7, 0xC8, 0xC9):         # ext 8/16/32
+            n = self.unpack({0xC7: ">B", 0xC8: ">H", 0xC9: ">I"}[b])
+            return self.ext(self.unpack(">b"), n)
+        if 0xD4 <= b <= 0xD8:               # fixext 1/2/4/8/16
+            n = 1 << (b - 0xD4)
+            return self.ext(self.unpack(">b"), n)
+        fixed = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
+                 0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+        if b in fixed:
+            return self.unpack(fixed[b])
+        if b in (0xD9, 0xDA, 0xDB):         # str 8/16/32
+            return self.str(self.unpack({0xD9: ">B", 0xDA: ">H",
+                                         0xDB: ">I"}[b]))
+        if b in (0xDC, 0xDD):               # array 16/32
+            return self.array(self.unpack(">H" if b == 0xDC else ">I"))
+        if b in (0xDE, 0xDF):               # map 16/32
+            return self.map(self.unpack(">H" if b == 0xDE else ">I"))
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def str(self, n: int) -> str:
+        return bytes(self.take(n)).decode("utf-8")
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> Dict[Any, Any]:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def ext(self, code: int, n: int) -> np.ndarray:
+        if code != _EXT_NDARRAY:
+            raise ValueError(f"unsupported msgpack ext type {code}")
+        return _ndarray(bytes(self.take(n)))
+
+
+def _ndarray(payload: bytes) -> np.ndarray:
+    r = _Reader(payload)
+    tpl = r.value()
+    if r.pos != len(payload) or not (isinstance(tpl, list) and len(tpl) == 3):
+        raise ValueError("malformed ndarray ext payload")
+    shape, dtype, raw = tpl
+    if isinstance(dtype, bytes):
+        dtype = dtype.decode()
+    if dtype == "bfloat16":
+        raise ValueError("bfloat16 leaves are not supported by this reader")
+    arr = np.frombuffer(raw, dtype=np.dtype(dtype))
+    return arr.reshape(tuple(shape), order="C")
+
+
+def loads(data: bytes) -> Any:
+    """Decode one flax msgpack blob into dicts / lists / numpy arrays."""
+    r = _Reader(data)
+    out = r.value()
+    if r.pos != len(data):
+        raise ValueError("trailing bytes after msgpack object")
+    return out
+
+
+def load(path: str) -> Any:
+    """Read a flax msgpack checkpoint file (e.g. `taco_ckpt.msgpack`)."""
+    with open(path, "rb") as f:
+        return loads(f.read())
+
+
+def flatten(tree: Any, prefix: Tuple[str, ...] = ()):
+    """Yield (path tuple, leaf) pairs of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flatten(tree[k], prefix + (str(k),))
+    else:
+        yield prefix, tree

@@ -1,0 +1,57 @@
+"""The port stands alone: neither `tacotron2_tpu_torch` nor `chip_smoke.py`
+imports JAX, flax, msgpack or anything of the JAX package, and importing
+the port pulls none of them in."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|msgpack|tacotron2_tpu)(?:[.\s]|$)",
+    re.M)
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "tacotron2_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_port_files_exist():
+    files = _port_files()
+    assert os.path.exists(files[0]) and len(files) > 20
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_imports(path):
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(src)]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_pattern_catches_forbidden_forms():
+    for line in ("import jax", "import jax.numpy as jnp", "from flax import x",
+                 "  import msgpack", "from tacotron2_tpu.config import C",
+                 "import tacotron2_tpu"):
+        assert FORBIDDEN.search(line), line
+    for line in ("from tacotron2_tpu_torch.config import C",
+                 "import tacotron2_tpu_torch", "# jax.checkpoint is not used"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, importlib, pkgutil, tacotron2_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'msgpack', 'tacotron2_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   env={**os.environ, "PYTHONPATH": ROOT})
