@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's text→wav serving path on one NVIDIA GPU (H100).
+"""Run the PyTorch port's serving and Tacotron-synthesis paths on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
 Phases, each printing its wall seconds:
 
 1. the device, and its name and power limit as nvidia-smi reports them;
-2. build both CUDA kernels (`csrc/decoder.cu`, `csrc/sampler.cu`) with
-   nvcc for sm_90a, in parallel;
+2. build the three CUDA kernels (`csrc/decoder.cu`, `csrc/sampler.cu`,
+   `csrc/griffin_lim.cu`) with nvcc for sm_90a, in parallel;
 3. load the trained r5 checkpoints (artifacts/e2e_demo_r5/*.msgpack) with
    the port's own msgpack reader and weight bridge, in the configuration
    scripts/train_e2e_demo_r5_tpu.py trained them with;
@@ -18,9 +19,24 @@ Phases, each printing its wall seconds:
    trimming, their audio seconds and the realtime factor; check stop
    steps, wav lengths, finiteness, and the free-run mel against the
    ground-truth mel;
-5. hold each kernel against its plain PyTorch version on the serve run's
-   own inputs and random numbers;
-6. time each kernel and its plain version and print the `kernels` line.
+5. hold the decode and sampler kernels against their plain PyTorch
+   versions on the serve run's own inputs and random numbers;
+6. time both and their plain versions;
+7. the quality of phase 4's served wavs, as the r5 script measures it
+   (`text_to_wav_mel_corr`, `vocoder_fidelity_corr`), next to the TPU
+   run's numbers in report.json;
+8. Tacotron eval synthesis (`TacotronSynthesizer.synthesize` →
+   `mels_to_wavs`, the decode kernel's whole-decode route and the
+   Griffin-Lim kernel) of the same 8 texts: stops, alignment diagonality,
+   free-run mel, a bit-exact rerun of the decode;
+9. long inputs: 4 texts of more than 256 padded characters through the
+   decode kernel's block route, held against the plain block decode; the
+   `synthesize --mode eval` command line on a short and a long text;
+10. Griffin-Lim: the kernel against its plain version (iters 0, 4, 60),
+    a 440 Hz tone, and `TextToWavProgram(vocoder="griffin_lim")`;
+11. time the block decode and Griffin-Lim (kernel, plain, a cuFFT
+    Griffin-Lim built on torch.stft / torch.istft as the library yardstick)
+    and print the `kernels` line.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero before it. Without a CUDA device it exits with code 2 and
@@ -32,7 +48,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import wave
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 R5 = os.path.join(ROOT, "artifacts", "e2e_demo_r5")
@@ -42,10 +60,20 @@ T_IN, T_REF = 128, 64
 # per char / r) with chars_hi=80, char_dur=0.06 s, 16 kHz, hop 200, r=1
 MAX_STEPS = int(1.25 * 80 * (0.06 * 16000 / 200) / 1)
 SAMPLER_WINDOW = 512
+# report.json's quality numbers on these rows (held-out indices 0-7)
+TPU_T2W_MEAN = 0.841
+TPU_VOC_MEAN = 0.843
+# Griffin-Lim kernel vs plain on the eval batch after 4 iterations: the
+# largest sample difference, and the kernel's distance from a float64
+# reconstruction against the plain version's, both as root mean squares
+# (PERF.md gives the readings they were set from)
+GL_ITERS4_ATOL = 2e-2
+GL_ITERS4_F64_RATIO = 1.5
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 # scripts/make_tiny_dataset.py:53-100 draws the corpus texts this way
@@ -116,18 +144,120 @@ def cuda_ms(fn, reps):
 
 
 def first_fire(stops, r, K, steps):
-    """Per row: the step the sticky stop flag first fires (or None) and the
-    steps the early-stop rule runs."""
+    """Per row: the step its sticky stop flag first fires (or None), and
+    the steps every row runs under the batch-wide early-stop rule (until
+    the first K-step boundary at which all rows have fired)."""
     import numpy as np
     s = stops.reshape(stops.shape[0], steps, r)
     fired = (s > 0.5).all(-1)
-    out = []
-    for row in fired:
-        hit = np.nonzero(row)[0]
-        f = int(hit[0]) if len(hit) else None
-        run = steps if f is None else min(steps, (f // K + 1) * K)
-        out.append((f, run))
-    return out
+    first = [int(np.nonzero(row)[0][0]) if row.any() else None
+             for row in fired]
+    run = (steps if any(f is None for f in first)
+           else min(steps, (max(first) // K + 1) * K))
+    return [(f, run) for f in first]
+
+
+def diagonality(a):
+    """scripts/train_e2e_demo_r5_tpu.py:397-404: correlation of the
+    attention's mean input position with the diagonal."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    a = a / np.maximum(a.sum(axis=0, keepdims=True), 1e-8)
+    pos = (np.arange(a.shape[0])[:, None] * a).sum(axis=0)
+    ideal = np.linspace(0, a.shape[0] - 1, a.shape[1])
+    c = np.corrcoef(pos, ideal)[0, 1]
+    return float(0.0 if np.isnan(c) else c)
+
+
+def wav_quality(wav, free_mel, gt, audio):
+    """scripts/train_e2e_demo_r5_tpu.py:410-428: the mel of the
+    preemphasised, rescaled wav against the ground truth after pace
+    normalisation (text_to_wav_mel_corr) and against the free-run mel that
+    conditioned it (vocoder_fidelity_corr)."""
+    import numpy as np
+    from tacotron2_tpu_torch.data import audio as host_audio
+    pre = host_audio.preemphasis(np.asarray(wav, np.float32),
+                                 audio.preemphasis, audio.preemphasize)
+    if audio.rescale:
+        pre = pre / max(np.abs(pre).max(), 1e-9) * audio.rescaling_max
+    mel_re = np.asarray(host_audio.mel_spectrogram(pre, audio))
+    t2w = float(np.corrcoef(time_resample(mel_re, len(gt)).ravel(),
+                            np.asarray(gt).ravel())[0, 1])
+    n = min(len(mel_re), len(free_mel))
+    voc = float(np.corrcoef(mel_re[:n].ravel(),
+                            np.asarray(free_mel)[:n].ravel())[0, 1])
+    return t2w, voc
+
+
+def decode_bound_s(dp, cfg, B, T, M, steps_total, row_steps, align):
+    """Least seconds the card could take for a decode: the larger of its
+    bytes (weights, keys, memory, mask, dropout multipliers read once,
+    frames/stops and optionally alignments written once) over HBM and its
+    operations (bf16 products at the tensor-core rate, the f32 attention
+    at the f32 rate) for the row-steps this run's data needs. Returns
+    (seconds, "bytes" or "operations")."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
+    A, KW = dp.wq.shape[1], dp.loc_k.shape[0]
+    FO = r * mels + r
+    w_bytes = sum(t.numel() * t.element_size() for t in dp)
+    d_bytes = (w_bytes + 4 * B * T * (A + M + 1) + row_steps * 2 * P * 4
+               + B * steps_total * (FO + (T if align else 0)) * 4)
+    mac_bf16 = (mels * P + P * P + (P + M + U) * 4 * U + 2 * U * 4 * U
+                + U * A + (U + M) * FO)
+    op_f32 = T * A * (2 * KW + 4) + 2 * T * M + 6 * T + 20 * U
+    ops_s = row_steps * (2 * mac_bf16 / BF16_FLOPS + op_f32 / F32_FLOPS)
+    bytes_s = d_bytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                 else "bytes")
+
+
+def griffin_lim_flops(B, F, n_fft, win, iters):
+    """Operations Griffin-Lim needs on [B, F, n_fft//2+1]: 2·iters+1
+    real transforms of n_fft points a frame (2.5·n·log2(n) each, the usual
+    real-FFT count), a window multiply-add over the win-sample support of
+    each, and iters magnitude projections of ~8 operations a bin."""
+    import math
+    K = n_fft // 2 + 1
+    per_frame = ((2 * iters + 1) * (2.5 * n_fft * math.log2(n_fft) + 2 * win)
+                 + iters * 8 * K)
+    return B * F * per_frame
+
+
+def gl_magnitudes(mels, audio, device):
+    """Mels [B, F, mels] -> Griffin-Lim target |S|^power [B, F, K], as
+    ops/griffin_lim.py:inv_mel_spectrogram builds it."""
+    import torch
+    from tacotron2_tpu_torch.ops import stft as tst
+    mel = torch.as_tensor(mels, device=device)
+    D = tst.denormalize_db(mel, audio)
+    S = tst.db_to_amp(D + audio.ref_level_db) ** (1.0 / audio.magnitude_power)
+    return tst.mel_to_linear(S, audio) ** audio.power
+
+
+def library_griffin_lim(S, n_fft, hop, win, iters, re0=None, im0=None):
+    """The same reconstruction through cuFFT (torch.stft / torch.istft,
+    librosa's centring and window-sum-square normalisation), from (re0,
+    im0) or the zero-phase start, in S's dtype (float64 makes it the
+    reference the f32 versions are measured against): the yardstick a later
+    kernel is timed against. Never used by the port."""
+    import torch
+    window = torch.hann_window(win, periodic=True, device=S.device,
+                               dtype=S.dtype)
+    length = hop * (S.shape[1] - 1)
+    St = S.transpose(1, 2)
+    if re0 is None:
+        re0, im0 = S, torch.zeros_like(S)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=win, window=window,
+              center=True)
+    y = torch.istft(torch.complex(re0, im0).transpose(1, 2), length=length,
+                    **kw)
+    for _ in range(iters):
+        est = torch.stft(y, pad_mode="constant", return_complex=True, **kw)
+        est = est / torch.clamp(est.abs(), min=1e-8) * St
+        y = torch.istft(est, length=length, **kw)
+    return y
 
 
 def main():
@@ -138,11 +268,17 @@ def main():
         return 2
     import numpy as np
 
+    from tacotron2_tpu_torch import cli
     from tacotron2_tpu_torch.convert import load_checkpoints
+    from tacotron2_tpu_torch.data import audio as host_audio
     from tacotron2_tpu_torch.native import build
+    from tacotron2_tpu_torch.ops import griffin_lim as gl
+    from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
+    from tacotron2_tpu_torch.ops import stft as tst
     from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
     from tacotron2_tpu_torch.ops import wavenet_kernel as wk
     from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
+    from tacotron2_tpu_torch.synth.tacotron_synth import TacotronSynthesizer
     from tacotron2_tpu_torch.text import text_to_sequence
 
     t_start = time.time()
@@ -164,9 +300,9 @@ def main():
           flush=True)
     done(1, t0)
 
-    # ---- 2. build both kernels, one nvcc each, started together
+    # ---- 2. build the kernels, one nvcc each, started together
     t0 = phase(2, "build kernels (nvcc, sm_90a)")
-    paths = build.build(["decoder", "sampler"])
+    paths = build.build(["decoder", "sampler", "griffin_lim"])
     for name, path in paths.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}")
         for line in build.build_logs.get(name, "").splitlines():
@@ -257,9 +393,9 @@ def main():
     r, K = tc.outputs_per_step, tc.early_stop_block
     dargs = (prog.dec_params, cfg, im["keys"], im["memory"], im["mask"],
              im["drop"])
-    dkw = dict(steps=MAX_STEPS, early_stop_block=K)
-    f_k, s_k = dk.decode(*dargs, **dkw, kernel_weights=prog.dec_kernel)
-    f_p, s_p = dk.decode_plain(*dargs, **dkw)
+    dkw = dict(steps=MAX_STEPS, early_stop_block=K, emit_alignments=False)
+    f_k, s_k, _ = dk.decode(*dargs, **dkw, kernel_weights=prog.dec_kernel)
+    f_p, s_p, _ = dk.decode_plain(*dargs, **dkw)
     torch.cuda.synchronize()
     f_k, s_k, f_p, s_p = (x.cpu().numpy() for x in (f_k, s_k, f_p, s_p))
     n32 = 32 * r
@@ -316,22 +452,12 @@ def main():
         lambda: wk.sample_plain(prog.sampler_params, cfg, c_w, z_w), 1)
 
     # decoder bound: each input read once, the output written once, and
-    # the operations of the steps each row runs under the early-stop rule
+    # the operations of the steps the batch-wide early-stop rule runs
     dp = prog.dec_params
     T, M = im["memory"].shape[1:]
-    U, P, mels = tc.decoder_lstm_units, tc.prenet_layers[-1], cfg.audio.num_mels
-    A, KW = dp.wq.shape[1], dp.loc_k.shape[0]
-    FO = r * mels + r
     steps_run = sum(run for _, run in fk)
-    w_bytes = sum(t.numel() * t.element_size() for t in dp)
-    d_bytes = (w_bytes + sum(im[k].numel() * 4 for k in ("keys", "memory",
-                                                          "mask"))
-               + steps_run * 2 * P * 4 + B * MAX_STEPS * FO * 4)
-    mac_bf16 = (mels * P + P * P + (P + M + U) * 4 * U + 2 * U * 4 * U
-                + U * A + (U + M) * FO)
-    op_f32 = T * A * (2 * KW + 4) + 2 * T * M + 6 * T + 20 * U
-    d_ops_s = steps_run * (2 * mac_bf16 / BF16_FLOPS + op_f32 / F32_FLOPS)
-    d_bytes_s = d_bytes / HBM_BYTES_PER_S
+    dec_bound_s, dec_bound_by = decode_bound_s(
+        dp, cfg, B, T, M, MAX_STEPS, steps_run, align=False)
 
     # sampler bound over the timed window
     wn = cfg.wavenet
@@ -353,10 +479,9 @@ def main():
         {"name": "tacotron_decoder", "route": "cuda",
          "source": "tacotron2_tpu_torch/csrc/decoder.cu",
          "replaces": "tacotron2_tpu/ops/tacotron_decoder_kernel.py:842",
-         "launches": launches["tacotron_decoder"], "max_abs_err": dec_err,
+         "launches": None, "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms,
-         "bound_ms": 1e3 * max(d_ops_s, d_bytes_s),
-         "bound_by": "operations" if d_ops_s >= d_bytes_s else "bytes",
+         "bound_ms": 1e3 * dec_bound_s, "bound_by": dec_bound_by,
          "library_ms": None},
         {"name": "wavenet_sampler", "route": "cuda",
          "source": "tacotron2_tpu_torch/csrc/sampler.cu",
@@ -368,9 +493,309 @@ def main():
          "library_ms": None},
     ]
     print(f"decoder timed on the serve inputs: B={B}, T_in={T}, "
-          f"{MAX_STEPS} steps, {steps_run} row-steps run; sampler timed "
-          f"on the first {W} samples of the serve inputs, B={B}")
+          f"{MAX_STEPS} steps, {steps_run} row-steps run: kernel "
+          f"{dec_ms:.3f} ms, plain {dec_plain_ms:.3f} ms; sampler timed on "
+          f"the first {W} samples of the serve inputs, B={B}: kernel "
+          f"{smp_ms:.3f} ms, plain {smp_plain_ms:.3f} ms")
     done(6, t0)
+    by_name = {k["name"]: k for k in kernels}
+
+    # ---- 7. quality of the served wavs, as the r5 script measures it
+    t0 = phase(7, "quality of the served wavs")
+    a = cfg.audio
+    m = a.max_abs_value
+    rows = [i - 128 for i in HELD_ROWS]
+    tpu_t2w = [report["text_to_wav_mel_corr"][i] for i in rows]
+    tpu_voc = [report["vocoder_fidelity_corr"][i] for i in rows]
+    assert abs(np.mean(tpu_t2w) - TPU_T2W_MEAN) < 5e-4
+    assert abs(np.mean(tpu_voc) - TPU_VOC_MEAN) < 5e-4
+    t2w, voc = [], []
+    for b in range(B):
+        free = np.clip(mel[b, :int(mel_len[b])], -m, m)
+        q = wav_quality(samples[b, :int(wav_len[b])], free, gt[b], a)
+        t2w.append(q[0])
+        voc.append(q[1])
+        print(f"row {HELD_ROWS[b]}: text_to_wav_mel_corr {q[0]:.4f} (TPU run "
+              f"{tpu_t2w[b]}) vocoder_fidelity_corr {q[1]:.4f} (TPU run "
+              f"{tpu_voc[b]})")
+    print(f"text_to_wav_mel_corr mean {np.mean(t2w):.4f} (TPU run "
+          f"{np.mean(tpu_t2w):.4f}); vocoder_fidelity_corr mean "
+          f"{np.mean(voc):.4f} (TPU run {np.mean(tpu_voc):.4f})")
+    # The TPU run's rows lie in 0.752-0.886. WaveNet draws other noise
+    # here, so each row may move; a vocoder or mel wiring fault drops the
+    # correlations far below 0.7.
+    assert min(t2w) >= 0.70 and min(voc) >= 0.70, (t2w, voc)
+    assert abs(np.mean(t2w) - TPU_T2W_MEAN) <= 0.05, t2w
+    assert abs(np.mean(voc) - TPU_VOC_MEAN) <= 0.05, voc
+    done(7, t0)
+
+    # ---- 8. Tacotron eval synthesis: synthesize -> mels_to_wavs
+    t0 = phase(8, f"Tacotron eval synthesis of the {B} texts")
+    synth = TacotronSynthesizer(cfg, tparams, stats, device="cuda",
+                                seed=1234, keep_intermediates=True)
+    ref_list = [g[:T_REF] for g in gt]
+    dk.launches = 0
+    glk.launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    out8 = synth.synthesize(texts, ref_list, ref_list, max_steps=MAX_STEPS)
+    wavs8 = synth.mels_to_wavs(out8["mels"])
+    torch.cuda.synchronize()
+    eval_s = time.time() - ts
+    eval_launches = {"tacotron_decoder": dk.launches,
+                     "griffin_lim": glk.launches}
+    im8 = synth.intermediates
+    audio8 = sum(len(w) for w in wavs8) / a.sample_rate
+    print(f"eval: {eval_s:.3f} s for {B} utterances ({audio8:.4f} s of "
+          f"audio, realtime factor {audio8 / eval_s:.4f}); route "
+          f"{im8['route']}; launches {eval_launches}")
+    assert all(n > 0 for n in eval_launches.values()), eval_launches
+    assert im8["route"] == "fused"
+    hop = a.effective_hop
+    diags, t2w_gl = [], []
+    for b in range(B):
+        L, mel_b = out8["lengths"][b], out8["mels"][b]
+        d = diagonality(out8["alignments"][b])
+        c = float(np.corrcoef(time_resample(mel_b, len(gt[b])).ravel(),
+                              gt[b].ravel())[0, 1])
+        q = wav_quality(wavs8[b], mel_b, gt[b], a)
+        diags.append(d)
+        t2w_gl.append(q[0])
+        print(f"row {HELD_ROWS[b]}: stop step {L} diagonality {d:.4f} (TPU "
+              f"run {report['heldout_free_run_diagonality'][rows[b]]}) "
+              f"free-run mel corr {c:.4f} Griffin-Lim wav {len(wavs8[b])} "
+              f"samples text_to_wav_mel_corr {q[0]:.4f} "
+              f"vocoder_fidelity_corr {q[1]:.4f}")
+        assert L < MAX_STEPS * r, f"row {b}: stop never fired"
+        assert d >= 0.95 and c >= 0.9, (b, d, c)
+        assert len(wavs8[b]) == hop * (mel_b.shape[0] - 1)
+        assert np.isfinite(wavs8[b]).all() and np.isfinite(mel_b).all()
+    print(f"Griffin-Lim route text_to_wav_mel_corr: min {min(t2w_gl):.4f} "
+          f"mean {np.mean(t2w_gl):.4f}")
+    # the same chain of launches on the same inputs repeats the stop
+    # probabilities bit for bit
+    _, s_re, _ = dk.decode(synth.dec_params, cfg, im8["keys"], im8["memory"],
+                           im8["mask"], im8["drop"], steps=MAX_STEPS,
+                           early_stop_block=K,
+                           kernel_weights=synth.dec_kernel)
+    assert np.array_equal(s_re.cpu().numpy(), out8["stop_tokens"]), \
+        "decode kernel is not deterministic"
+    done(8, t0)
+
+    # ---- 9. long inputs through the block route; the command line
+    t0 = phase(9, "long inputs (> 256 padded characters), block route")
+    long_texts = []
+    for i in range(4):
+        parts = []
+        while len(text_to_sequence(" ".join(parts), cfg.data.cleaners)) \
+                <= 256:
+            parts.append(held[(8 * i + len(parts)) % len(held)])
+        long_texts.append(" ".join(parts))
+    dk.launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    out9 = synth.synthesize(long_texts, ref_list[:4], ref_list[:4])
+    torch.cuda.synchronize()
+    long_s = time.time() - ts
+    long_launches = dk.launches
+    im9 = synth.intermediates
+    B9, T9, M9 = im9["memory"].shape
+    kf = im9["k"]
+    print(f"long: {long_s:.3f} s for 4 utterances of padded length {T9}; "
+          f"route {im9['route']} in blocks of {kf} steps; decode launches "
+          f"{long_launches}")
+    assert im9["route"] == "block" and T9 > 256 and long_launches > 0
+    for b in range(4):
+        d = diagonality(out9["alignments"][b])
+        print(f"long row {b}: {len(long_texts[b])} chars, stop step "
+              f"{out9['lengths'][b]}, diagonality {d:.4f} (not gated: the "
+              f"r5 model saw 40-80 characters)")
+        assert np.isfinite(out9["mels"][b]).all()
+    # kernel vs plain: one 32-step block from the zero state, on the run's
+    # inputs and dropout multipliers
+    st0 = dk.init_decoder_state(cfg, B9, T9, M9, "cuda")
+    d32 = im9["drop"][:, :32].contiguous()
+    blk_args = (synth.dec_params, cfg, im9["keys"], im9["memory"], im9["mask"])
+    f_k, s_k, a_k, st_k = dk.decode_block(*blk_args, st0, d32,
+                                          kernel_weights=synth.dec_kernel)
+    f_p, s_p, a_p, st_p = dk.decode_block_plain(*blk_args, st0, d32)
+    torch.cuda.synchronize()
+    errs = {n: float((x - y).abs().max()) for n, x, y in (
+        ("frames", f_k, f_p), ("stops", s_k, s_p), ("alignments", a_k, a_p))}
+    errs.update({f"state.{n}": float((getattr(st_k, n).float()
+                                      - getattr(st_p, n).float()).abs().max())
+                 for n in st_k._fields})
+    blk_err = max(errs.values())
+    print(f"block kernel vs plain over 32 steps at T_in={T9}: max |diff| "
+          f"{blk_err:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())})")
+    # bf16 weights upcast on both sides, f32 sums in another order (see
+    # phase 5); an argmax that moved would show as state.pmax >= 1
+    assert blk_err <= 1e-3, errs
+    with tempfile.TemporaryDirectory() as tmp:
+        tl = os.path.join(tmp, "texts.txt")
+        with open(tl, "w", encoding="utf-8") as f:
+            f.write(f"{texts[0]}\n{long_texts[0]}\n")
+        ref_path = os.path.join(tmp, "ref.npy")
+        np.save(ref_path, ref_list[0])
+        ts = time.time()
+        map_path = cli.main([
+            "--hparams", "tacotron.compute_dtype=bfloat16,"
+            "audio.trim_silence=false", "synthesize", "--model", "Tacotron",
+            "--mode", "eval", "--checkpoint",
+            os.path.join(R5, "taco_ckpt.msgpack"), "--ref-mel-emt", ref_path,
+            "--text-list", tl, "--output-dir", os.path.join(tmp, "out")])
+        rows_cli = open(map_path, encoding="utf-8").read().splitlines()
+        assert len(rows_cli) == 2
+        for i, row in enumerate(rows_cli):
+            mel_i = np.load(row.split("|")[0])
+            wav_path = os.path.join(os.path.dirname(map_path), "wavs",
+                                    f"wav-eval-{i}.wav")
+            with wave.open(wav_path, "rb") as f:
+                pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+            print(f"cli synthesize row {i}: {len(row.split('|')[1])} chars, "
+                  f"mel {mel_i.shape}, wav {len(pcm)} samples")
+            assert np.isfinite(mel_i).all() and len(pcm) > a.sample_rate // 2
+        print(f"cli synthesize: {time.time() - ts:.3f} s")
+    done(9, t0)
+
+    # ---- 10. Griffin-Lim: kernel vs plain, a tone, the G-L program
+    t0 = phase(10, "Griffin-Lim kernel")
+    n_fft, win, iters = a.n_fft, a.win_size, a.griffin_lim_iters
+    Fg = -(-max(x.shape[0] for x in out8["mels"]) // 64) * 64 + 1
+    batch = np.stack([np.pad(x, ((0, Fg - x.shape[0]), (0, 0)),
+                             constant_values=-m) for x in out8["mels"]])
+    S = gl_magnitudes(batch.astype(np.float32), a, "cuda")
+    zeros = torch.zeros_like(S)
+    y_k0 = glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win, 0)
+    y_p0 = glk.griffin_lim_plain(S, S, zeros, n_fft, hop, win, 0)
+    y_k4 = glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win, 4)
+    y_p4 = glk.griffin_lim_plain(S, S, zeros, n_fft, hop, win, 4)
+    y_k = glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win, iters)
+    y_p = glk.griffin_lim_plain(S, S, zeros, n_fft, hop, win, iters)
+    torch.cuda.synchronize()
+    y_d4 = library_griffin_lim(S.double(), n_fft, hop, win, 4)
+    gl_err = float((y_k0 - y_p0).abs().max())
+    gl_err4 = float((y_k4 - y_p4).abs().max())
+    rms = lambda d: float(d.double().pow(2).mean().sqrt())
+    rms_k4, rms_p4 = rms(y_k4 - y_d4), rms(y_p4 - y_d4)
+
+    def consistency(y):
+        return float((tst.stft_mag(y.contiguous(), n_fft, hop, win)
+                      - S).abs().mean())
+
+    c_k, c_p = consistency(y_k), consistency(y_p)
+    print(f"griffin-lim [B={S.shape[0]}, F={Fg}, K={S.shape[2]}]: iters 0 "
+          f"max |kernel - plain| {gl_err:.3e} (samples up to "
+          f"{float(y_p0.abs().max()):.3e}); iters 4 max |kernel - plain| "
+          f"{gl_err4:.3e} (samples up to {float(y_p4.abs().max()):.3e}), "
+          f"rms distance from float64 kernel {rms_k4:.3e} plain "
+          f"{rms_p4:.3e}; "
+          f"{iters} iterations spectral consistency kernel {c_k:.6f} plain "
+          f"{c_p:.6f} (ratio {c_k / c_p:.7f})")
+    # iters 0 is one iSTFT: sums of 2,050 3xTF32 products in another order
+    assert gl_err <= 1e-4, gl_err
+    # iters 4 runs every part of the kernel (the analysis product over all
+    # tiles, the magnitude projection); on these mels the f32 plain version
+    # itself lies ~1e-2 from float64 there (phases of bins near zero follow
+    # rounding noise), so the kernel's distance from float64 is also held
+    # to within 1.5× the plain version's
+    assert gl_err4 <= GL_ITERS4_ATOL, gl_err4
+    assert rms_k4 <= GL_ITERS4_F64_RATIO * rms_p4, (rms_k4, rms_p4)
+    # 60 iterations: the spectral consistency (tests/test_pallas_kernels.py
+    # :237's measure), within 1% of the plain version's
+    assert c_k <= 1.01 * c_p, (c_k, c_p)
+    y_k = y_k.cpu().numpy()
+    for b, x in enumerate(out8["mels"]):
+        n = hop * (x.shape[0] - 1)
+        same = host_audio.inv_preemphasis(y_k[b, :n], a.preemphasis,
+                                          a.preemphasize)
+        assert np.array_equal(same, wavs8[b]), "G-L kernel not deterministic"
+    sr = a.sample_rate
+    tone = (0.2 * np.sin(2 * np.pi * 440 * np.arange(sr) / sr)).astype(
+        np.float32)
+    mel_tone = host_audio.mel_spectrogram(
+        host_audio.preemphasis(tone, a.preemphasis, a.preemphasize), a)
+    y_tone = host_audio.inv_preemphasis(gl.inv_mel_spectrogram(
+        torch.as_tensor(mel_tone, device="cuda"), a).cpu().numpy(),
+        a.preemphasis, a.preemphasize)
+    spec = np.abs(np.fft.rfft(y_tone))
+    peak = float(np.fft.rfftfreq(len(y_tone), 1.0 / sr)[spec.argmax()])
+    print(f"440 Hz tone through mel -> Griffin-Lim: peak at {peak:.2f} Hz")
+    assert abs(peak - 440.0) < 5.0, peak
+    prog_gl = TextToWavProgram(cfg, tparams, stats, None, batch=B,
+                               steps=MAX_STEPS, t_in=T_IN, t_ref=T_REF,
+                               device="cuda", seed=1234,
+                               vocoder="griffin_lim")
+    dk.launches = 0
+    glk.launches = 0
+    wavs_gl = prog_gl.synthesize(texts, ref_list, ref_list)
+    torch.cuda.synchronize()
+    gl_prog_launches = {"tacotron_decoder": dk.launches,
+                        "griffin_lim": glk.launches}
+    q_gl = [wav_quality(w, np.clip(out8["mels"][b], -m, m), gt[b], a)[0]
+            for b, w in enumerate(wavs_gl)]
+    print(f"TextToWavProgram(vocoder=griffin_lim): launches "
+          f"{gl_prog_launches}; text_to_wav_mel_corr per row "
+          f"{[round(x, 4) for x in q_gl]}")
+    assert all(n > 0 for n in gl_prog_launches.values())
+    assert all(len(w) and np.isfinite(w).all() for w in wavs_gl)
+    done(10, t0)
+
+    # ---- 11. time the block decode and Griffin-Lim
+    t0 = phase(11, "time the block decode and Griffin-Lim")
+    drop_blk = im9["drop"]
+    blk_ms = cuda_ms(lambda: dk.decode_block(
+        *blk_args, st0, drop_blk, kernel_weights=synth.dec_kernel), 3)
+    blk_plain_ms = cuda_ms(lambda: dk.decode_block_plain(
+        *blk_args, st0, drop_blk), 1)
+    blk_bound_s, blk_bound_by = decode_bound_s(
+        synth.dec_params, cfg, B9, T9, M9, kf, B9 * kf, align=True)
+    gl_ms = cuda_ms(lambda: glk.fused_griffin_lim(
+        S, S, zeros, n_fft, hop, win, iters), 3)
+    gl_plain_ms = cuda_ms(lambda: glk.griffin_lim_plain(
+        S, S, zeros, n_fft, hop, win, iters), 1)
+    gl_lib_ms = cuda_ms(lambda: library_griffin_lim(
+        S, n_fft, hop, win, iters), 3)
+    lib_err = float((library_griffin_lim(S, n_fft, hop, win, 0)
+                     - y_p0).abs().max())
+    Bg, Fg, Kg = S.shape
+    gl_ops_s = griffin_lim_flops(Bg, Fg, n_fft, win, iters) / F32_FLOPS
+    gl_bytes_s = (3 * Bg * Fg * Kg + Bg * hop * (Fg - 1)) * 4 / HBM_BYTES_PER_S
+    # what this kernel's design costs at best: its 2·iters+1 dense DFT
+    # products over the support, three TF32 products each (3xTF32)
+    gl_dft_s = 3 * Bg * (2 * iters + 1) * 2 * Fg * win * 2 * Kg / TF32_FLOPS
+    print(f"block decode timed on the long inputs: B={B9}, T_in={T9}, one "
+          f"{kf}-step block: kernel {blk_ms:.3f} ms, plain "
+          f"{blk_plain_ms:.3f} ms; griffin-lim timed on the eval batch "
+          f"[{Bg}, {Fg}, {Kg}], {iters} iterations: kernel {gl_ms:.3f} ms, "
+          f"plain {gl_plain_ms:.3f} ms, torch.stft/istft {gl_lib_ms:.3f} ms "
+          f"(iters 0 vs plain {lib_err:.1e}); bounds decode block "
+          f"{1e3 * blk_bound_s:.3f} ms, griffin-lim "
+          f"{1e3 * max(gl_ops_s, gl_bytes_s):.4f} ms (transforms as FFTs "
+          f"at the f32 rate {1e3 * gl_ops_s:.4f} ms, bytes "
+          f"{1e3 * gl_bytes_s:.4f} ms); the kernel's dense 3xTF32 DFT "
+          f"products at the TF32 rate {1e3 * gl_dft_s:.3f} ms")
+    by_name["tacotron_decoder"]["launches"] = \
+        eval_launches["tacotron_decoder"]
+    kernels[1:1] = [
+        {"name": "tacotron_decoder_block", "route": "cuda",
+         "source": "tacotron2_tpu_torch/csrc/decoder.cu",
+         "replaces": "tacotron2_tpu/ops/tacotron_decoder_kernel.py:321",
+         "launches": long_launches, "max_abs_err": blk_err,
+         "ms": blk_ms, "plain_ms": blk_plain_ms,
+         "bound_ms": 1e3 * blk_bound_s, "bound_by": blk_bound_by,
+         "library_ms": None}]
+    kernels.append(
+        {"name": "griffin_lim", "route": "cuda",
+         "source": "tacotron2_tpu_torch/csrc/griffin_lim.cu",
+         "replaces": "tacotron2_tpu/ops/griffin_lim_kernel.py:108",
+         "launches": eval_launches["griffin_lim"], "max_abs_err": gl_err,
+         "ms": gl_ms, "plain_ms": gl_plain_ms,
+         "bound_ms": 1e3 * max(gl_ops_s, gl_bytes_s),
+         "bound_by": "operations" if gl_ops_s >= gl_bytes_s else "bytes",
+         "library_ms": gl_lib_ms})
+    assert all(k["launches"] for k in kernels), kernels
+    done(11, t0)
     print(f"total {time.time() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,13 @@ t_in 128, 480 decode steps), runs one warm-up call, then runs the stages of
 around each: memory pass, decode kernel, postnet + stop-length + silence
 mask + rescale, upsample, sampler kernel over the full length; and the
 load-time re-layout of each kernel's weights (`pack_weights`), which the
-program does once when it is built. Prints one JSON line with each stage's milliseconds and the device's busy share over
-the whole call from a torch.profiler trace (the sum of the CUDA kernels'
-times over the wall time), or null where the profiler reports no device
-time.
+program does once when it is built. The Griffin-Lim route
+(`TextToWavProgram(vocoder="griffin_lim")`) shares the stages up to the
+silence mask and then inverts the masked mel through the Griffin-Lim
+kernel (`griffin_lim` stage). Prints one JSON line with each stage's
+milliseconds and, for a call of each program, the device's busy share
+from a torch.profiler trace (the sum of the CUDA kernels' times over the
+wall time), or null where the profiler reports no device time.
 """
 
 import json
@@ -31,6 +34,7 @@ def main():
     import chip_smoke as cs
     from tacotron2_tpu_torch.convert import load_checkpoints
     from tacotron2_tpu_torch.models.tacotron.decoder import drop_masks
+    from tacotron2_tpu_torch.ops import griffin_lim as gl
     from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
     from tacotron2_tpu_torch.ops import wavenet_kernel as wk
     from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
@@ -61,17 +65,29 @@ def main():
     prog(ids, lens, refs, refs)                      # warm-up
     torch.cuda.synchronize()
 
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prog(ids, lens, refs, refs)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.time() - t0)
     from torch.autograd import DeviceType
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    busy = dev_us / 1e3 / wall_ms if dev_us else None
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_share(program):
+        """(wall ms, device busy share) of one profiled call."""
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            program(ids, lens, refs, refs)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+        return wall_ms, (dev_us / 1e3 / wall_ms if dev_us else None)
+
+    wall_ms, busy = busy_share(prog)
+    prog_gl = TextToWavProgram(cfg, tp, st, None, batch=B,
+                               steps=cs.MAX_STEPS, t_in=cs.T_IN,
+                               t_ref=cs.T_REF, device=dev,
+                               vocoder="griffin_lim")
+    prog_gl(ids, lens, refs, refs)                   # warm-up
+    torch.cuda.synchronize()
+    gl_wall_ms, gl_busy = busy_share(prog_gl)
 
     ms = {}
 
@@ -96,10 +112,10 @@ def main():
             prog.taco.synthesis_memory_ext(t(ids), t(lens), t(refs),
                                            t(refs))))
         drop = drop_masks(cfg, B, cs.MAX_STEPS, g, dev)
-        frames, stops = stage("decode_kernel", lambda: dk.decode(
+        frames, stops, _ = stage("decode_kernel", lambda: dk.decode(
             prog.dec_params, cfg, keys, mem, mask, drop,
             steps=cs.MAX_STEPS, early_stop_block=tc.early_stop_block,
-            kernel_weights=prog.dec_kernel))
+            emit_alignments=False, kernel_weights=prog.dec_kernel))
 
         def tail():
             _, mel = prog.taco.postnet_pass(frames)
@@ -112,9 +128,10 @@ def main():
             lo = -au.max_abs_value
             mel = torch.where(idx < n[:, None, None], mel,
                               torch.full_like(mel, lo))
-            return (torch.clamp(mel, lo, au.max_abs_value) - lo) / (
+            return mel, (torch.clamp(mel, lo, au.max_abs_value) - lo) / (
                 au.max_abs_value - lo)
-        c = stage("postnet_mask_rescale", tail)
+        mel, c = stage("postnet_mask_rescale", tail)
+        stage("griffin_lim", lambda: gl.inv_mel_spectrogram(mel, au))
         c_up = stage("upsample", lambda: prog.wavenet.upsample(c))
         z = torch.randn(B, prog.t_audio, generator=g, device=dev)
         stage("sampler_kernel", lambda: wk.sample(
@@ -125,7 +142,10 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"device": smi, "batch": B, "t_audio": prog.t_audio,
                       "stage_ms": ms, "profiled_call_wall_ms": wall_ms,
-                      "device_busy_share": busy}), flush=True)
+                      "device_busy_share": busy,
+                      "griffin_lim_program": {
+                          "profiled_call_wall_ms": gl_wall_ms,
+                          "device_busy_share": gl_busy}}), flush=True)
     return 0
 
 

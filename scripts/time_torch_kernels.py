@@ -7,10 +7,15 @@ Each PORT_ROOT is a directory that holds a copy of `tacotron2_tpu_torch/`
 turns on the same GPU (A, B, B, A). For each root, one process: build the
 kernels, load the r5 checkpoints, run the memory pass of 8 held-out texts,
 then report the median CUDA-event time of 5 runs of the whole decode
-(480 steps, early stop per 64-step block) and of the sampler over the
-first 512 samples, with checksums of both outputs. Needs one CUDA device.
+(480 steps, early stop per 64-step block), of the decode of 320 steps
+without early stop (every version then runs the same row-steps), and of
+the sampler over the first 512 samples, and (where the copy has it) of
+the Griffin-Lim kernel's 60 iterations on the decoded mels (the
+`TextToWavProgram(vocoder="griffin_lim")` shape, [8, 480, 1025]), with
+checksums of the outputs. Needs one CUDA device.
 """
 
+import inspect
 import json
 import os
 import subprocess
@@ -61,7 +66,14 @@ def time_one(root):
         dec = lambda: dk.decode(prog.dec_params, cfg, keys, mem, mask, drop,
                                 steps=cs.MAX_STEPS, early_stop_block=K,
                                 kernel_weights=prog.dec_kernel)
-        frames, _ = dec()
+        # versions that can return alignments are asked not to
+        no_align = ({"emit_alignments": False} if "emit_alignments" in
+                    inspect.signature(dk.decode).parameters else {})
+        drop320 = drop[:, :320].contiguous()
+        dec320 = lambda: dk.decode(prog.dec_params, cfg, keys, mem, mask,
+                                   drop320, steps=320, early_stop_block=0,
+                                   kernel_weights=prog.dec_kernel, **no_align)
+        frames = dec()[0]   # (frames, stops[, alignments])
         _, mel = prog.taco.postnet_pass(frames)
         c = (torch.clamp(mel, -4.0, 4.0) + 4.0) / 8.0
         c_up = prog.wavenet.upsample(c)[:, :W].contiguous()
@@ -70,9 +82,23 @@ def time_one(root):
                                 kernel_weights=prog.sampler_kernel)
         y = smp()
         torch.cuda.synchronize()
+        gl_ms = gl_sum = None
+        if os.path.exists(os.path.join(root, "tacotron2_tpu_torch", "ops",
+                                       "griffin_lim_kernel.py")):
+            from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
+            a = cfg.audio
+            S = cs.gl_magnitudes(mel, a, dev)
+            zeros = torch.zeros_like(S)
+            gl = lambda: glk.fused_griffin_lim(
+                S, S, zeros, a.n_fft, a.effective_hop, a.win_size,
+                a.griffin_lim_iters)
+            gl_sum = float(gl().sum())
+            gl_ms = cs.cuda_ms(gl, 3)
         out = {"root": root, "decoder_ms": cs.cuda_ms(dec, 5),
+               "decoder_ms_320_steps_no_early_stop": cs.cuda_ms(dec320, 5),
                f"sampler_ms_{W}": cs.cuda_ms(smp, 5),
-               "frames_sum": float(frames.sum()), "samples_sum": float(y.sum())}
+               "frames_sum": float(frames.sum()), "samples_sum": float(y.sum()),
+               "griffin_lim_ms_60_iters": gl_ms, "griffin_lim_sum": gl_sum}
     print(json.dumps(out), flush=True)
 
 

@@ -1,16 +1,29 @@
-"""Command line of the PyTorch port: `python -m tacotron2_tpu_torch.cli serve`.
+"""Command line of the PyTorch port: `python -m tacotron2_tpu_torch.cli
+serve | synthesize`.
 
-Port of tacotron2_tpu/cli.py `serve` (:382): text → wav through one
-`TextToWavProgram` per padded-text bucket, built on first use and cached.
-Weights are the JAX package's flax msgpack checkpoints (Tacotron
-{params, batch_stats}, WaveNet EMA params), read without flax. Sentences
+`serve`, port of tacotron2_tpu/cli.py `serve` (:382): text → wav through
+one `TextToWavProgram` per padded-text bucket, built on first use and
+cached; `--vocoder griffin_lim` swaps WaveNet for Griffin-Lim. Sentences
 come from --text-list / --sentence, or from stdin, one per line; wavs land
 in <output-dir>/serve/speech-NNNNN.wav.
+
+`synthesize --model Tacotron --mode eval`, port of cli.py `synthesize`
+(:232-285) in eval mode: sentences (--text-list / --sentence, else the
+reference's eval sentences) → `TacotronSynthesizer` → mels, map.txt and
+Griffin-Lim wavs under <output-dir>/eval/. The other modes and
+`--model WaveNet` / `Tacotron-2` are not ported yet and say so.
+
+Weights are the JAX package's flax msgpack checkpoints (Tacotron
+{params, batch_stats}, WaveNet EMA params), read without flax; reference
+mels are `.npy` files. Everything runs on `--device` (default cuda).
 
     python -m tacotron2_tpu_torch.cli serve \
         --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
         --wavenet-checkpoint artifacts/e2e_demo_r5/wn_ckpt.msgpack \
         --ref-mel-emt ref.npy --sentence "abcdefg hij"
+    python -m tacotron2_tpu_torch.cli synthesize --model Tacotron \
+        --mode eval --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
+        --ref-mel-emt ref.npy --text-list texts.txt --output-dir out
 """
 
 from __future__ import annotations
@@ -20,30 +33,12 @@ import glob
 import os
 import sys
 import time
-import wave
 
 import numpy as np
 
 from .config import get_config
-
-
-def log(msg: str) -> None:
-    print(f"[tacotron2_tpu_torch] {msg}", flush=True)
-
-
-def save_wav(wav: np.ndarray, path: str, sr: int) -> None:
-    """Peak-normalize to int16 and write a mono wav (the JAX package's
-    data/audio.py save_wav semantics, with the stdlib writer)."""
-    wav = np.asarray(wav, np.float32)
-    if wav.size == 0:
-        wav = np.zeros(1, np.float32)
-    pcm = (wav * (32767 / max(0.01, float(np.max(np.abs(wav)))))).astype(
-        "<i2")
-    with wave.open(path, "wb") as f:
-        f.setnchannels(1)
-        f.setsampwidth(2)
-        f.setframerate(sr)
-        f.writeframes(pcm.tobytes())
+from .data.audio import save_wav
+from .utils import log
 
 
 def make_serve_fn(args):
@@ -56,6 +51,8 @@ def make_serve_fn(args):
     cfg = get_config(args.preset, args.hparams)
     out_dir = os.path.join(args.output_dir, "serve")
     os.makedirs(out_dir, exist_ok=True)
+    if args.vocoder == "wavenet" and not args.wavenet_checkpoint:
+        raise SystemExit("serve --vocoder wavenet needs --wavenet-checkpoint")
     tparams, stats, wparams = load_checkpoints(args.checkpoint,
                                                args.wavenet_checkpoint)
     nm = cfg.audio.num_mels
@@ -75,7 +72,7 @@ def make_serve_fn(args):
             programs[t_in] = TextToWavProgram(
                 cfg, tparams, stats, wparams, batch=args.serve_batch,
                 steps=args.steps, t_in=t_in, t_ref=args.t_ref,
-                device=args.device, seed=args.seed)
+                device=args.device, seed=args.seed, vocoder=args.vocoder)
             log(f"serve: built bucket t_in={t_in} batch={args.serve_batch} "
                 f"steps={args.steps} in {time.time() - t0:.1f}s")
         return programs[t_in]
@@ -107,16 +104,49 @@ def make_serve_fn(args):
 
 def cmd_serve(args):
     run, _ = make_serve_fn(args)
-    if args.text_list:
-        with open(args.text_list, encoding="utf-8") as f:
-            run([line.strip() for line in f if line.strip()])
-    elif args.sentence:
-        run([args.sentence])
+    if args.text_list or args.sentence:
+        run(_sentences(args))
     else:
         for line in sys.stdin:
             if not line.strip():
                 break
             run([line.strip()])
+
+
+def _sentences(args):
+    if args.text_list:
+        with open(args.text_list, encoding="utf-8") as f:
+            return [line.strip() for line in f if line.strip()]
+    if args.sentence:
+        return [args.sentence]
+    from .data.eval_sentences import EVAL_SENTENCES
+    return list(EVAL_SENTENCES)
+
+
+def cmd_synthesize(args):
+    if args.model != "Tacotron":
+        raise SystemExit(f"synthesize --model {args.model} is not ported "
+                         "yet (the port synthesizes --model Tacotron)")
+    if args.mode != "eval":
+        raise SystemExit(f"synthesize --mode {args.mode} is not ported yet "
+                         "(the port runs --mode eval)")
+    from .convert import load_checkpoints
+    from .synth.tacotron_synth import TacotronSynthesizer, run_eval
+
+    cfg = get_config(args.preset, args.hparams)
+    tparams, stats, _ = load_checkpoints(args.checkpoint)
+    ref = (np.load(args.ref_mel_emt) if args.ref_mel_emt
+           else np.zeros((40, cfg.audio.num_mels), np.float32))
+    ref_spk = np.load(args.ref_mel_spk) if args.ref_mel_spk else ref
+    sentences = _sentences(args)
+    t0 = time.time()
+    synth = TacotronSynthesizer(cfg, tparams, stats, device=args.device,
+                                seed=args.seed)
+    map_path = run_eval(synth, sentences, [ref] * len(sentences),
+                        [ref_spk] * len(sentences), args.output_dir)
+    log(f"tacotron synthesis of {len(sentences)} sentences in "
+        f"{time.time() - t0:.2f}s -> {map_path}")
+    return map_path
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -128,8 +158,11 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser("serve", help="text -> wav through TextToWavProgram")
     sv.add_argument("--checkpoint", required=True,
                     help="Tacotron flax msgpack ({params, batch_stats})")
-    sv.add_argument("--wavenet-checkpoint", required=True,
-                    help="WaveNet flax msgpack (EMA params)")
+    sv.add_argument("--wavenet-checkpoint", default=None,
+                    help="WaveNet flax msgpack (EMA params); needed with "
+                         "--vocoder wavenet")
+    sv.add_argument("--vocoder", default="wavenet",
+                    choices=("wavenet", "griffin_lim"))
     sv.add_argument("--output-dir", default=".")
     sv.add_argument("--text-list", default=None)
     sv.add_argument("--sentence", default=None)
@@ -142,12 +175,30 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default="cuda")
     sv.add_argument("--seed", type=int, default=0)
     sv.set_defaults(func=cmd_serve)
+
+    sy = sub.add_parser("synthesize", help="Tacotron eval synthesis: "
+                        "text -> mels, map.txt, Griffin-Lim wavs")
+    sy.add_argument("--model", default="Tacotron",
+                    choices=("Tacotron", "WaveNet", "Tacotron-2"))
+    sy.add_argument("--mode", default="eval",
+                    choices=("eval", "gta", "synthesis", "synthesis_random",
+                             "synthesis_multiple", "style_embs"))
+    sy.add_argument("--checkpoint", required=True,
+                    help="Tacotron flax msgpack ({params, batch_stats})")
+    sy.add_argument("--output-dir", default="tacotron_output")
+    sy.add_argument("--text-list", default=None)
+    sy.add_argument("--sentence", default=None)
+    sy.add_argument("--ref-mel-emt", default=None)
+    sy.add_argument("--ref-mel-spk", default=None)
+    sy.add_argument("--device", default="cuda")
+    sy.add_argument("--seed", type=int, default=0)
+    sy.set_defaults(func=cmd_synthesize)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.func(args)
+    return args.func(args)
 
 
 if __name__ == "__main__":

@@ -128,9 +128,10 @@ def wavenet_from_flax(cfg: Config, params: Mapping, device="cuda") -> WaveNet:
     return m.to(device).eval()
 
 
-def load_checkpoints(taco_path: str, wn_path: str) -> Any:
+def load_checkpoints(taco_path: str, wn_path: str | None = None) -> Any:
     """Read the JAX package's msgpack checkpoints: returns (taco params,
-    taco batch_stats, wavenet params) as nested dicts of numpy arrays."""
+    taco batch_stats, wavenet params or None) as nested dicts of numpy
+    arrays."""
     taco = flax_msgpack.load(taco_path)
     return taco["params"], taco.get("batch_stats", {}), \
-        flax_msgpack.load(wn_path)
+        (flax_msgpack.load(wn_path) if wn_path else None)

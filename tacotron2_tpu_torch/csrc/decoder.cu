@@ -1,33 +1,49 @@
-// Whole autoregressive Tacotron decode, one thread-block cluster per row.
+// Tacotron autoregressive decode, a block of steps from explicit state, one
+// thread-block cluster per row.
 //
-// Replaces the TPU kernel tacotron2_tpu/ops/tacotron_decoder_kernel.py
-// `build_decoder_kernel` (pallas_call at :1105). Semantics are those of
+// Replaces two TPU kernels of tacotron2_tpu/ops/tacotron_decoder_kernel.py:
+// `build_decoder_kernel` (the whole decode, pallas_call at :1105) and
+// `build_decoder_block_kernel` (K steps from carried state, pallas_call at
+// :700), without the in-kernel emt_attn scorers. Semantics are those of
 // Decoder.autoregressive with the stop sigmoid on, as the plain version
-// `tacotron2_tpu_torch/models/tacotron/decoder.py:autoregressive` states
+// `tacotron2_tpu_torch/models/tacotron/decoder.py:decode_block` states
 // them: per step, prenet 2×FC with the caller's dropout multipliers, zoneout
 // LSTM1 on [prenet | ctx | h1], LSTM2 on [h1 | h2], location-sensitive
-// attention (31-tap location conv folded with its projection into wp [K, A],
-// its constant part folded into the keys by the wrapper), window constraint,
-// masked softmax, cumulative weights, context, and the fused frame + stop
-// projection. With early_stop_block=K a row leaves the loop at the first
-// K-step boundary after its stop fired; the wrapper pre-fills the output
-// with frames 0 / stop 1.0, which is what skipped steps read as.
+// attention (the location conv folded with its projection into wp [K, A],
+// its constant part folded into the keys by the wrapper), window
+// constraint, masked softmax, cumulative weights, context, and the fused
+// frame + stop projection.
+//
+// One launch runs `nsteps` steps (global steps t0 .. t0+nsteps-1 of arrays
+// laid out for s_total steps) from the state (xprev, c1, h1, c2, h2, ctx,
+// cum, pmax) in global memory and writes the state after them, the frames
+// and stop probabilities, optionally the alignments, and the row's sticky
+// stop flag (set once all r stop probabilities of a step exceed 0.5, or any
+// with stop_at_any). The TPU kernels' early stop — skip the rest once every
+// row of the batch has fired at a block boundary — is a chain of launches on
+// one stream: each launch counts its fired rows into a fresh slot; given
+// fired_in, a launch first reads the previous launch's count and returns
+// at once if all rows have fired (counting them forward), and the
+// wrapper has pre-filled the outputs with what a skipped step reads as
+// (frames 0, stop 1.0, alignments 0). Stream order
+// makes the previous launch's flags visible; no launch waits on another
+// CTA outside its own cluster. State in and out may alias: every read of it
+// precedes the first cluster.sync(), every write follows the last.
 //
 // Design. A cluster of CS=8 CTAs (`__cluster_dims__`, co-scheduled by the
-// hardware) runs all steps of one row in a loop with a static trip count.
+// hardware) runs the steps of one row in a loop with a static trip count.
 // CTA `rank` owns U/CS units of each LSTM — the 4 gate columns of those
 // units, re-laid contiguously by the wrapper — and M/CS columns of the
 // context; after each of those products it writes its slice into every
 // CTA's shared memory (distributed shared memory) and the cluster meets at
 // cluster.sync(). The prenet, the attention energies, softmax and the
 // projection are small and computed by every CTA on identical data, in the
-// same order; rank 0 alone writes the output and decides the early stop,
-// and broadcasts that flag before the step's last cluster.sync(), so every
-// CTA of a cluster leaves the loop at the same step. No CTA waits on
-// anything but its own __syncthreads() and its cluster's hardware barrier.
-// The bf16 weights (~36 MB at the default width) are read from global
-// memory every step and stay resident in the 50 MB L2; activations and sums
-// are f32.
+// same order; rank 0 alone writes the outputs and the state it shares with
+// the cluster. No CTA waits on anything but its own __syncthreads() and its
+// cluster's hardware barrier. The bf16 weights (~36 MB at the default
+// width) are read from global memory every step and stay resident in the
+// 50 MB L2; activations and sums are f32. The attention works at any input
+// length T that fits shared memory (one warp per input position).
 //
 // Bound: the kernel is latency-bound on the L2 reads of each step's LSTM
 // weights (per row, each CTA streams 1/CS of them) and on the cluster
@@ -35,11 +51,12 @@
 // sharing each weight tile between the rows of a batch (wgmma on a tile of
 // rows) is the next step.
 //
-// Shared memory per CTA (floats, default width, T = padded input length):
+// Shared memory per CTA (floats, default width, T = input length):
 // xprev mels + prenet 2P + [hpre P | ctx M | h1 U | h2 U | ctx2 M] + own c1,
 // c2, new h slice 3·U/CS + gates 4U/CS + new ctx slice M/CS + matvec
 // partials 512·8 + q A + cum, align 2T + proj FOp + wp K·A + 32
-// ≈ 13.5k + 2T floats ≈ 55 KB + 8T bytes, under the 227 KB a CTA may use.
+// ≈ 13.5k + 2T floats ≈ 55 KB + 8T bytes, under the 227 KB a CTA may use
+// up to T ≈ 22,000.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -53,11 +70,25 @@ constexpr int CS = 8;                      // CTAs per row (one cluster)
 constexpr int DEPTH = 16;                  // weight loads in flight a thread
 constexpr float NEG_INF = -4294967295.0f;  // -(2^32) + 1, attention.py:214
 
+// Pointer and integer operands, in the order the C entry point takes them.
+enum Ptr {
+  P_KEYS, P_MEMORY, P_MASK, P_DROP,
+  P_PRE_W0, P_PRE_B0, P_PRE_W1, P_PRE_B1, P_L1_W, P_L1_B, P_L2_W, P_L2_B,
+  P_WQ, P_WP, P_V_A, P_PROJ_W, P_PROJ_B,
+  P_STATE_IN, P_CUM_IN, P_PMAX_IN, P_STATE_OUT, P_CUM_OUT, P_PMAX_OUT,
+  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, N_PTR
+};
+enum Int {
+  I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
+  I_FOP, I_CONSTRAINT, I_WIN_BACK, I_WIN_FWD, I_STOP_AT_ANY,
+  N_INT
+};
+
 struct DecArgs {
   const float* keys;    // [B, T, A] keys + folded attention bias
   const float* memory;  // [B, T, M]
   const float* mask;    // [B, T] 1/0
-  const float* drop;    // [B, steps, 2, P] prenet dropout multipliers
+  const float* drop;    // [B, s_total, 2, P] prenet dropout multipliers
   const __nv_bfloat16* pre_w0;  // [mels, P]
   const float* pre_b0;          // [P]
   const __nv_bfloat16* pre_w1;  // [P, P]
@@ -71,9 +102,23 @@ struct DecArgs {
   const float* v_a;             // [A]
   const __nv_bfloat16* proj_w;  // [U + M, FOp] rows [h2 | ctx]
   const float* proj_b;          // [FOp]
-  float* out;                   // [B, steps, FO]
-  int T, steps, mels, P, U, M, A, KW, r, FOp;
-  int early_stop_block, constraint, win_back, win_fwd, stop_at_any;
+  // state in / out: each row's vector [xprev | hp0 | hpre | ctx | h1 | h2 |
+  // ctx2 | (c1, c2 of rank 0) | ... | (c1, c2 of rank CS-1)], laid out as
+  // the head of the CTA's shared memory (`taco_decoder_state_floats`), so
+  // one loop copies it; cum [B, T]; pmax [B]
+  const float* state_in;
+  const float* cum_in;
+  const int* pmax_in;
+  float* state_out;
+  float* cum_out;
+  int* pmax_out;
+  const int* fired_in;  // [B + 1] sticky stop flags before this launch and
+                        // their count at [B], or null
+  int* fired_out;       // [B + 1] after it (the count starts at 0), or null
+  float* out;           // [B, s_total, FO] frames | stop probabilities
+  float* align;         // [B, s_total, T] alignments, or null
+  int T, t0, nsteps, s_total, mels, P, U, M, A, KW, r, FOp;
+  int B, constraint, win_back, win_fwd, stop_at_any;
   float zoneout;
 };
 
@@ -108,6 +153,20 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   const int Uc = U / CS, Mc = M / CS;
   const int FO = a.r * mels + a.r;
   const int K1 = P + M + U;
+  __shared__ int ired[32];
+  __shared__ int s_pmax, s_fired;
+
+  // ---- early stop: every row fired in an earlier launch -> nothing to do.
+  // fired_in[B] counts the rows fired after the previous launch; every CTA
+  // of the cluster reads it and they leave together, before any
+  // cluster-wide access.
+  if (a.fired_in && a.fired_in[a.B] == a.B) {
+    if (rank == 0 && tid == 0 && a.fired_out) {
+      a.fired_out[b] = 1;
+      atomicAdd(a.fired_out + a.B, 1);
+    }
+    return;
+  }
 
   float* xprev = sm;
   float* hp0 = xprev + mels;
@@ -129,37 +188,37 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* proj = al + T;
   float* wp = proj + a.FOp;
   float* red = wp + a.KW * A;
-  __shared__ int ired[32];
-  __shared__ int s_pmax, s_fired;
 
   const float* keys = a.keys + (size_t)b * T * A;
   const float* mem = a.memory + (size_t)b * T * M;
   const float* mask = a.mask + (size_t)b * T;
-  const float* drop = a.drop + (size_t)b * a.steps * 2 * P;
-  float* out = a.out + (size_t)b * a.steps * FO;
+  const float* drop = a.drop + (size_t)b * a.s_total * 2 * P;
+  float* out = a.out + (size_t)b * a.s_total * FO;
   const __nv_bfloat16* l1_w = a.l1_w + (size_t)rank * K1 * 4 * Uc;
   const __nv_bfloat16* l2_w = a.l2_w + (size_t)rank * 2 * U * 4 * Uc;
   const float* l1_b = a.l1_b + rank * 4 * Uc;
   const float* l2_b = a.l2_b + rank * 4 * Uc;
 
-  const int n_state = (int)(hnew - sm);
-  for (int i = tid; i < n_state; i += NT) sm[i] = 0.f;
-  for (int i = tid; i < T; i += NT) cum[i] = 0.f;
+  // ---- load the carried state: every CTA its full copy, c its own units
+  const int n_head = (int)(c1 - sm);  // xprev .. ctx2
+  const float* st_in = a.state_in + (size_t)b * (n_head + 2 * U);
+  for (int i = tid; i < n_head; i += NT) sm[i] = st_in[i];
+  for (int i = tid; i < 2 * Uc; i += NT)
+    c1[i] = st_in[n_head + rank * 2 * Uc + i];  // c1 | c2 of this rank
+  for (int i = tid; i < T; i += NT) cum[i] = a.cum_in[(size_t)b * T + i];
   for (int i = tid; i < a.KW * A; i += NT) wp[i] = a.wp[i];
   if (tid == 0) {
-    s_pmax = 0;
-    s_fired = 0;
+    s_pmax = a.pmax_in[b];
+    s_fired = a.fired_in ? a.fired_in[b] : 0;
   }
-  cluster.sync();  // all CTAs initialised before any remote write
+  cluster.sync();  // all CTAs loaded before any remote write
 
-  const int K = a.early_stop_block;
   const int pad = (a.KW - 1) / 2;
   const float zo = a.zoneout;
   const int lane = tid & 31, warp = tid >> 5;
 
-  for (int t = 0; t < a.steps; ++t) {
-    // s_fired is rank 0's flag, broadcast before the last cluster.sync()
-    if (K > 0 && t > 0 && t % K == 0 && s_fired) break;
+  for (int s = 0; s < a.nsteps; ++s) {
+    const int t = a.t0 + s;  // global step: drop, out and align index
 
     // ---- prenet: 2x (FC + ReLU + dropout multiplier), on every CTA
     taco::matvec<DEPTH>(a.pre_w0, a.pre_b0, xprev, mels, P, hp0, part);
@@ -186,8 +245,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       for (int aa = lane; aa < A; aa += 32) {
         float loc = 0.f;
         for (int k = 0; k < a.KW; ++k) {
-          const int s = tt + k - pad;
-          if (s >= 0 && s < T) loc = fmaf(cum[s], wp[k * A + aa], loc);
+          const int si = tt + k - pad;
+          if (si >= 0 && si < T) loc = fmaf(cum[si], wp[k * A + aa], loc);
         }
         acc = fmaf(a.v_a[aa], tanhf(keys[(size_t)tt * A + aa] + q[aa] + loc),
                    acc);
@@ -205,17 +264,17 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     float m = -INFINITY;
     for (int i = tid; i < T; i += NT) m = fmaxf(m, al[i]);
     m = taco::block_max(m, red);
-    float s = 0.f;
+    float sum = 0.f;
     for (int i = tid; i < T; i += NT) {
       const float e = expf(al[i] - m) * mask[i];
       al[i] = e;
-      s += e;
+      sum += e;
     }
-    s = taco::block_sum(s, red);
+    sum = taco::block_sum(sum, red);
     float best = -INFINITY;
     int best_i = 0x7fffffff;
     for (int i = tid; i < T; i += NT) {
-      const float v = al[i] / s;
+      const float v = al[i] / sum;
       al[i] = v;
       cum[i] += v;
       if (v > best) {
@@ -225,6 +284,9 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     }
     const int amax = taco::block_argmax(best, best_i, red, ired);
     if (tid == 0 && a.constraint) s_pmax = amax;
+    if (a.align && rank == 0)
+      for (int i = tid; i < T; i += NT)
+        a.align[((size_t)b * a.s_total + t) * T + i] = al[i];
 
     // ---- this rank's context columns, shared with the cluster. Nobody
     // reads ctx between the last LSTM exchange and here, so the writes
@@ -254,18 +316,32 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
         out[(size_t)t * FO + nf + i] = taco::sigmoidf(proj[nf + i]);
     }
     for (int i = tid; i < mels; i += NT) xprev[i] = proj[(a.r - 1) * mels + i];
-    if (rank == 0 && tid == 0 && K > 0) {
+    if (rank == 0 && tid == 0) {
       float lo = 1.f, hi = 0.f;
       for (int i = 0; i < a.r; ++i) {
         const float sp = taco::sigmoidf(proj[nf + i]);
         lo = fminf(lo, sp);
         hi = fmaxf(hi, sp);
       }
-      if ((a.stop_at_any ? hi : lo) > 0.5f)
-        for (int r2 = 0; r2 < CS; ++r2)
-          *cluster.map_shared_rank(&s_fired, r2) = 1;
+      if ((a.stop_at_any ? hi : lo) > 0.5f) s_fired = 1;
     }
     cluster.sync();
+  }
+
+  // ---- the state after the block; rank 0 writes what every CTA holds
+  float* st_out = a.state_out + (size_t)b * (n_head + 2 * U);
+  for (int i = tid; i < 2 * Uc; i += NT)
+    st_out[n_head + rank * 2 * Uc + i] = c1[i];
+  if (rank == 0) {
+    for (int i = tid; i < n_head; i += NT) st_out[i] = sm[i];
+    for (int i = tid; i < T; i += NT) a.cum_out[(size_t)b * T + i] = cum[i];
+    if (tid == 0) {
+      a.pmax_out[b] = s_pmax;
+      if (a.fired_out) {
+        a.fired_out[b] = s_fired;
+        if (s_fired) atomicAdd(a.fired_out + a.B, 1);
+      }
+    }
   }
   cluster.sync();  // no CTA leaves while another may still address it
 }
@@ -273,6 +349,13 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
 }  // namespace
 
 extern "C" int taco_decoder_cluster_size() { return CS; }
+extern "C" int taco_decoder_n_ptr() { return N_PTR; }
+extern "C" int taco_decoder_n_int() { return N_INT; }
+
+// Floats of one row's state vector (see DecArgs::state_in).
+extern "C" int taco_decoder_state_floats(int mels, int P, int U, int M) {
+  return mels + 2 * P + 2 * M + 2 * U + 2 * U;
+}
 
 extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
                                           int M, int A, int KW, int FOp) {
@@ -282,54 +365,66 @@ extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
   return floats * sizeof(float);
 }
 
-extern "C" int taco_decoder_launch(
-    const void* keys, const void* memory, const void* mask, const void* drop,
-    const void* pre_w0, const void* pre_b0, const void* pre_w1,
-    const void* pre_b1, const void* l1_w, const void* l1_b, const void* l2_w,
-    const void* l2_b, const void* wq, const void* wp, const void* v_a,
-    const void* proj_w, const void* proj_b, void* out, int B, int T,
-    int steps, int mels, int P, int U, int M, int A, int KW, int r, int FOp,
-    int early_stop_block, int constraint, int win_back, int win_fwd,
-    int stop_at_any, float zoneout, void* stream) {
+// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out and align
+// may be null); ints: N_INT values in `Int` order. Returns a CUDA error
+// code, or 0.
+extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
+                                   const int* ints, int n_int, float zoneout,
+                                   void* stream) {
+  if (n_ptr != N_PTR || n_int != N_INT) return (int)cudaErrorInvalidValue;
   DecArgs a;
-  a.keys = (const float*)keys;
-  a.memory = (const float*)memory;
-  a.mask = (const float*)mask;
-  a.drop = (const float*)drop;
-  a.pre_w0 = (const __nv_bfloat16*)pre_w0;
-  a.pre_b0 = (const float*)pre_b0;
-  a.pre_w1 = (const __nv_bfloat16*)pre_w1;
-  a.pre_b1 = (const float*)pre_b1;
-  a.l1_w = (const __nv_bfloat16*)l1_w;
-  a.l1_b = (const float*)l1_b;
-  a.l2_w = (const __nv_bfloat16*)l2_w;
-  a.l2_b = (const float*)l2_b;
-  a.wq = (const __nv_bfloat16*)wq;
-  a.wp = (const float*)wp;
-  a.v_a = (const float*)v_a;
-  a.proj_w = (const __nv_bfloat16*)proj_w;
-  a.proj_b = (const float*)proj_b;
-  a.out = (float*)out;
-  a.T = T;
-  a.steps = steps;
-  a.mels = mels;
-  a.P = P;
-  a.U = U;
-  a.M = M;
-  a.A = A;
-  a.KW = KW;
-  a.r = r;
-  a.FOp = FOp;
-  a.early_stop_block = early_stop_block;
-  a.constraint = constraint;
-  a.win_back = win_back;
-  a.win_fwd = win_fwd;
-  a.stop_at_any = stop_at_any;
+  a.keys = (const float*)ptrs[P_KEYS];
+  a.memory = (const float*)ptrs[P_MEMORY];
+  a.mask = (const float*)ptrs[P_MASK];
+  a.drop = (const float*)ptrs[P_DROP];
+  a.pre_w0 = (const __nv_bfloat16*)ptrs[P_PRE_W0];
+  a.pre_b0 = (const float*)ptrs[P_PRE_B0];
+  a.pre_w1 = (const __nv_bfloat16*)ptrs[P_PRE_W1];
+  a.pre_b1 = (const float*)ptrs[P_PRE_B1];
+  a.l1_w = (const __nv_bfloat16*)ptrs[P_L1_W];
+  a.l1_b = (const float*)ptrs[P_L1_B];
+  a.l2_w = (const __nv_bfloat16*)ptrs[P_L2_W];
+  a.l2_b = (const float*)ptrs[P_L2_B];
+  a.wq = (const __nv_bfloat16*)ptrs[P_WQ];
+  a.wp = (const float*)ptrs[P_WP];
+  a.v_a = (const float*)ptrs[P_V_A];
+  a.proj_w = (const __nv_bfloat16*)ptrs[P_PROJ_W];
+  a.proj_b = (const float*)ptrs[P_PROJ_B];
+  a.state_in = (const float*)ptrs[P_STATE_IN];
+  a.cum_in = (const float*)ptrs[P_CUM_IN];
+  a.pmax_in = (const int*)ptrs[P_PMAX_IN];
+  a.state_out = (float*)ptrs[P_STATE_OUT];
+  a.cum_out = (float*)ptrs[P_CUM_OUT];
+  a.pmax_out = (int*)ptrs[P_PMAX_OUT];
+  a.fired_in = (const int*)ptrs[P_FIRED_IN];
+  a.fired_out = (int*)ptrs[P_FIRED_OUT];
+  a.out = (float*)ptrs[P_OUT];
+  a.align = (float*)ptrs[P_ALIGN];
+  a.B = ints[I_B];
+  a.T = ints[I_T];
+  a.t0 = ints[I_T0];
+  a.nsteps = ints[I_NSTEPS];
+  a.s_total = ints[I_STOTAL];
+  a.mels = ints[I_MELS];
+  a.P = ints[I_P];
+  a.U = ints[I_U];
+  a.M = ints[I_M];
+  a.A = ints[I_A];
+  a.KW = ints[I_KW];
+  a.r = ints[I_R];
+  a.FOp = ints[I_FOP];
+  a.constraint = ints[I_CONSTRAINT];
+  a.win_back = ints[I_WIN_BACK];
+  a.win_fwd = ints[I_WIN_FWD];
+  a.stop_at_any = ints[I_STOP_AT_ANY];
   a.zoneout = zoneout;
-  const size_t smem = taco_decoder_smem_bytes(T, mels, P, U, M, A, KW, FOp);
+  if (a.nsteps < 1 || a.t0 < 0 || a.t0 + a.nsteps > a.s_total)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp);
   cudaError_t err = cudaFuncSetAttribute(
       decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decoder_kernel<<<B * CS, NT, smem, (cudaStream_t)stream>>>(a);
+  decoder_kernel<<<a.B * CS, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,25 +1,21 @@
 """Tacotron autoregressive decoder (PyTorch, eager).
 
-Counterpart of tacotron2_tpu/models/tacotron/decoder.py: `decoder_step` is
-`DecoderCell` (:48) at synthesis — prenet with dropout always on, two
-zoneout LSTMs (EMA mix), location-sensitive attention with the window
-constraint, fused frame + stop projection with the stop sigmoid — and
-`autoregressive` is `Decoder.autoregressive` (:367) run as a Python loop.
+Counterpart of tacotron2_tpu/models/tacotron/decoder.py at synthesis:
+prenet with dropout always on, two zoneout LSTMs (EMA mix),
+location-sensitive attention with the window constraint, fused frame +
+stop projection with the stop sigmoid. `decode_block` runs K steps from an
+explicit `DecoderKernelState` (Decoder.autoregressive with
+initial_state / return_state, :367); `autoregressive` is a loop of blocks.
 
-This eager loop is the plain version of the CUDA decode kernel
-(`ops/tacotron_decoder_kernel.py`, `csrc/decoder.cu`) and follows its
+These are the plain version of the CUDA decode kernel
+(`ops/tacotron_decoder_kernel.py`, `csrc/decoder.cu`) and follow its
 contract exactly:
 
 - prenet dropout comes in as multipliers `drop [B, steps, 2, P]`
   (0 or 1/keep, drawn by the caller), so kernel and plain see the same
   random numbers;
-- `early_stop_block=K > 0` applies the TPU kernel's block rule per row:
-  after each K steps a row whose sticky stop flag has fired (all r stop
-  probs > 0.5, or any with `stop_at_any`) stops; its later steps read as
-  frames 0 and stop probability 1.0, as the TPU kernel writes skipped steps.
-  The TPU kernel stops a block only when every row has fired; per row, the
-  rows still decoding are unchanged and a stopped row's tail is what the
-  TPU kernel would have written had the whole batch stopped.
+- `early_stop_block=K` applies the TPU kernel's batch-wide block rule
+  (see `autoregressive`).
 """
 
 from __future__ import annotations
@@ -88,41 +84,59 @@ def stop_fired(stop_probs, stop_at_any: bool):
     return sp > 0.5
 
 
-def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
-                   steps: int, drop, early_stop_block: int = 0):
-    """Free-running decode. keys [B, T, A], memory [B, T, M], mask [B, T]
-    (bool or 1/0), drop [B, steps, 2, P]. Returns (frames [B, steps*r,
-    mels] f32, stop_probs [B, steps*r] f32)."""
+
+
+class DecoderKernelState(NamedTuple):
+    """The decoder's carried state between blocks (JAX
+    `DecoderKernelState`, ops/tacotron_decoder_kernel.py:239, without the
+    emt_attn context and without the TPU's lane padding)."""
+
+    xprev: torch.Tensor  # [B, mels] f32 last frame of the previous step
+    c1: torch.Tensor     # [B, U] f32
+    h1: torch.Tensor     # [B, U] f32
+    c2: torch.Tensor     # [B, U] f32
+    h2: torch.Tensor     # [B, U] f32
+    ctx: torch.Tensor    # [B, M] f32 attention context
+    cum: torch.Tensor    # [B, T] f32 cumulative alignments
+    pmax: torch.Tensor   # [B] int32 previous argmax (window constraint)
+
+
+def init_decoder_state(cfg: Config, batch: int, T: int, M: int,
+                       device="cuda") -> DecoderKernelState:
+    """Zero carry for a fresh batch (JAX `init_decoder_state`,
+    ops/tacotron_decoder_kernel.py:258)."""
+    U, mels = cfg.tacotron.decoder_lstm_units, cfg.audio.num_mels
+    z = lambda *s: torch.zeros(*s, device=device)
+    return DecoderKernelState(
+        xprev=z(batch, mels), c1=z(batch, U), h1=z(batch, U),
+        c2=z(batch, U), h2=z(batch, U), ctx=z(batch, M), cum=z(batch, T),
+        pmax=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
+                 state: DecoderKernelState, drop):
+    """K = drop.shape[1] free-running steps from `state`. keys [B, T, A],
+    memory [B, T, M], mask [B, T] (bool or 1/0), drop [B, K, 2, P].
+    Returns (frames [B, K*r, mels], stop_probs [B, K*r], alignments
+    [B, T, K], the state after the block), all f32."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, _ = memory.shape
-    U, zo = tc.decoder_lstm_units, float(tc.zoneout_rate)
-    K = int(early_stop_block)
-    if K <= 0 or K >= steps:
-        K = 0
-    dev = memory.device
+    K = drop.shape[1]
+    zo = float(tc.zoneout_rate)
     w = {k: v.float() for k, v in dp._asdict().items()}
     wp, b_eff = fold_location(dp.loc_k, dp.loc_b, dp.wloc, dp.b_a)
     keys_eff = keys.float() + b_eff
     memory = memory.float()
-    maskf = mask.float().to(dev)
+    maskf = mask.float().to(memory.device)
     l1_w = torch.cat([w["l1_wp"], w["l1_wc"], w["l1_wh"]], 0)
     l2_w = torch.cat([w["l2_wx"], w["l2_wh"]], 0)
     proj_w = torch.cat([w["proj_wo"], w["proj_wc"]], 0)
 
-    z = lambda *s: torch.zeros(*s, device=dev)
-    c1, h1, c2, h2 = z(B, U), z(B, U), z(B, U), z(B, U)
-    ctx, cum, xprev = z(B, memory.shape[2]), z(B, T), z(B, mels)
-    pmax = torch.zeros(B, dtype=torch.long, device=dev)
-    frames_out = z(B, steps, r * mels)
-    stops_out = torch.ones(B, steps, r, device=dev)
-    active = torch.ones(B, dtype=torch.bool, device=dev)
-    fired = torch.zeros(B, dtype=torch.bool, device=dev)
-    for t in range(steps):
-        if K and t % K == 0 and t > 0:
-            active = active & ~fired
-            if not bool(active.any()):
-                break
+    xprev, c1, h1, c2, h2, ctx, cum, pmax = state
+    pmax = pmax.long()
+    frames_l, stops_l, aligns_l = [], [], []
+    for t in range(K):
         hp = torch.relu(xprev @ w["pre_w0"] + w["pre_b0"]) * drop[:, t, 0]
         hp = torch.relu(hp @ w["pre_w1"] + w["pre_b1"]) * drop[:, t, 1]
         c1, h1 = _lstm(torch.cat([hp, ctx, h1], -1) @ l1_w + w["l1_b"],
@@ -130,17 +144,54 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
         c2, h2 = _lstm(torch.cat([h1, h2], -1) @ l2_w + w["l2_b"],
                        c2, h2, zo)
         q = h2 @ w["wq"]
-        ctx, _, cum, pmax = attention_step(
+        ctx, align, cum, pmax = attention_step(
             q, keys_eff, memory, maskf, cum, pmax, wp, w["v_a"],
             constraint=tc.synthesis_constraint,
             ctype=tc.synthesis_constraint_type, win=tc.attention_win_size)
         proj = torch.cat([h2, ctx], -1) @ proj_w + w["proj_b"]
-        frames, sp = proj[:, :r * mels], torch.sigmoid(proj[:, r * mels:])
-        keep = active[:, None]
-        frames_out[:, t] = torch.where(keep, frames, frames_out[:, t])
-        stops_out[:, t] = torch.where(keep, sp, stops_out[:, t])
-        xprev = frames[:, (r - 1) * mels:]
-        if K:
-            fired = fired | stop_fired(sp, tc.stop_at_any)
-    return (frames_out.reshape(B, steps * r, mels),
-            stops_out.reshape(B, steps * r))
+        frames_l.append(proj[:, :r * mels])
+        stops_l.append(torch.sigmoid(proj[:, r * mels:]))
+        aligns_l.append(align)
+        xprev = proj[:, (r - 1) * mels:r * mels]
+    new_state = DecoderKernelState(xprev, c1, h1, c2, h2, ctx, cum,
+                                   pmax.to(torch.int32))
+    return (torch.stack(frames_l, 1).reshape(B, K * r, mels),
+            torch.stack(stops_l, 1).reshape(B, K * r),
+            torch.stack(aligns_l, 2), new_state)
+
+
+def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
+                   steps: int, drop, early_stop_block: int = 0,
+                   emit_alignments: bool = True):
+    """Free-running decode of `steps` steps as a loop of `decode_block`.
+
+    early_stop_block=K (0 < K < steps) applies the TPU kernel's rule
+    (tacotron_decoder_kernel.py:1053-1070): every row decodes until the
+    first K-step boundary at which every row's sticky stop flag has fired
+    (all r stop probs > 0.5, or any with `stop_at_any`); the steps after it
+    read as frames 0, stop probability 1.0 and alignments 0. Returns
+    (frames [B, steps*r, mels], stop_probs [B, steps*r], alignments
+    [B, T, steps] or None)."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    B, T, M = memory.shape
+    K = int(early_stop_block)
+    if K <= 0 or K >= steps:
+        K = steps
+    dev = memory.device
+    state = init_decoder_state(cfg, B, T, M, dev)
+    frames = torch.zeros(B, steps * r, mels, device=dev)
+    stops = torch.ones(B, steps * r, device=dev)
+    aligns = torch.zeros(B, T, steps, device=dev)
+    fired = torch.zeros(B, dtype=torch.bool, device=dev)
+    for t0 in range(0, steps, K):
+        n = min(K, steps - t0)
+        f, s, a, state = decode_block(dp, cfg, keys, memory, mask, state,
+                                      drop[:, t0:t0 + n])
+        frames[:, t0 * r:(t0 + n) * r] = f
+        stops[:, t0 * r:(t0 + n) * r] = s
+        aligns[:, :, t0:t0 + n] = a
+        fired |= stop_fired(s.reshape(B, n, r), tc.stop_at_any).any(1)
+        if K < steps and bool(fired.all()):
+            break
+    return frames, stops, (aligns if emit_alignments else None)

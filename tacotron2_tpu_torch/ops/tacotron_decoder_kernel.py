@@ -1,18 +1,26 @@
-"""The whole autoregressive Tacotron decode as one CUDA kernel.
+"""The autoregressive Tacotron decode as a CUDA block kernel.
 
-Port of tacotron2_tpu/ops/tacotron_decoder_kernel.py: `extract_decoder_
-params` (:94) flattens the flax decoder subtree; `decode` runs the decode
-through `csrc/decoder.cu` for CUDA tensors and through its plain version,
-`models/tacotron/decoder.py:autoregressive`, for CPU tensors. The kernel
-takes its weights in its own per-CTA layout, which `pack_weights` builds
-once per set of weights (at load time, not per call). The kernel's design
-and its bound are in the note at the top of `csrc/decoder.cu`.
+Port of tacotron2_tpu/ops/tacotron_decoder_kernel.py without the emt_attn
+scorers: `extract_decoder_params` (:94) flattens the flax decoder subtree;
+`DecoderKernelState` / `init_decoder_state` (:239, :258) are the carried
+state; `decode_block` is `build_decoder_block_kernel` (:321), K steps from
+explicit state; `decode` is `build_decoder_kernel` (:842), the whole decode
+with the batch-wide early stop, run as a chain of block launches. Both go
+through `csrc/decoder.cu` for CUDA tensors and through the plain versions
+(`models/tacotron/decoder.py:decode_block`, `autoregressive`) for CPU
+tensors. The kernel takes its weights in its own per-CTA layout, which
+`pack_weights` builds once per set of weights (at load time, not per
+call). The kernel's design and its bound are in the note at the top of
+`csrc/decoder.cu`.
 
-The TPU kernel's `energy_mode` / `context_mode` variants are TPU layout
-choices and have no counterpart. The CUDA kernel takes bf16 decode weights
+The TPU kernels' `energy_mode` / `context_mode` variants and their 128-wide
+tiles of the location operands are TPU layout choices and have no
+counterpart: the kernel works at any input length that fits shared memory.
+The CUDA kernel takes bf16 decode weights
 (`tacotron.fused_decoder_dtype="bfloat16"`, the default); the plain version
 takes bf16 or f32. Prenet dropout arrives as multipliers drawn by the caller
-(`models/tacotron/decoder.py:drop_masks`).
+(`models/tacotron/decoder.py:drop_masks`). Alignments come out in f32 (the
+TPU kernels store them in bf16).
 """
 
 from __future__ import annotations
@@ -25,10 +33,12 @@ import torch
 
 from ..config import Config
 from ..models.tacotron.attention import fold_location
-from ..models.tacotron.decoder import DecoderParams, autoregressive
+from ..models.tacotron.decoder import (DecoderKernelState, DecoderParams,
+                                      autoregressive, init_decoder_state)
+from ..models.tacotron.decoder import decode_block as decode_block_plain
 
-# kernel launches made by `decode` (the count a run reads to show that its
-# main path went through the CUDA kernel)
+# kernel launches made by `decode` and `decode_block` (the count a run
+# reads to show that its main path went through the CUDA kernel)
 launches = 0
 
 _SMEM_LIMIT = 232448
@@ -115,28 +125,50 @@ class KernelWeights(NamedTuple):
 
 
 def decode_plain(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
-                 steps: int, early_stop_block: int = 0):
+                 steps: int, early_stop_block: int = 0,
+                 emit_alignments: bool = True):
     """The kernel's plain PyTorch version (same contract as `decode`)."""
     return autoregressive(dp, cfg, keys, memory, mask, steps, drop,
-                          early_stop_block)
+                          early_stop_block, emit_alignments)
 
 
 def decode(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
            steps: int, early_stop_block: int = 0,
+           emit_alignments: bool = True,
            kernel_weights: KernelWeights | None = None):
     """Decode `steps` steps. keys [B, T, A], memory [B, T, M], mask [B, T],
     drop [B, steps, 2, P]. Returns (frames [B, steps*r, mels], stop_probs
-    [B, steps*r]). CPU tensors take the plain version with `dp`; CUDA
-    tensors launch the kernel with `kernel_weights` (`pack_weights(dp)`) or
-    raise."""
+    [B, steps*r], alignments [B, T, steps] or None). With
+    `early_stop_block=K` every row decodes until the first K-step boundary
+    at which all rows have fired; later steps read frames 0, stop 1.0,
+    alignments 0 (the TPU kernel's rule). CPU tensors take the plain
+    version with `dp`; CUDA tensors launch the kernel with `kernel_weights`
+    (`pack_weights(dp)`) or raise."""
     if memory.device.type == "cpu":
         return decode_plain(dp, cfg, keys, memory, mask, drop, steps=steps,
-                            early_stop_block=early_stop_block)
+                            early_stop_block=early_stop_block,
+                            emit_alignments=emit_alignments)
     if kernel_weights is None:
         raise ValueError("the decode kernel takes kernel_weights="
                          "pack_weights(dp), built once per set of weights")
     return _decode_cuda(kernel_weights, cfg, keys, memory, mask, drop, steps,
-                        early_stop_block)
+                        early_stop_block, emit_alignments)
+
+
+def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
+                 state: DecoderKernelState, drop, *,
+                 kernel_weights: KernelWeights | None = None):
+    """K = drop.shape[1] steps from `state`. Returns (frames [B, K*r,
+    mels], stop_probs [B, K*r], alignments [B, T, K], new state). CPU
+    tensors take `decode_block_plain`; CUDA tensors launch the kernel with
+    `kernel_weights` or raise."""
+    if memory.device.type == "cpu":
+        return decode_block_plain(dp, cfg, keys, memory, mask, state, drop)
+    if kernel_weights is None:
+        raise ValueError("the decode kernel takes kernel_weights="
+                         "pack_weights(dp), built once per set of weights")
+    return _decode_block_cuda(kernel_weights, cfg, keys, memory, mask, state,
+                              drop)
 
 
 def _lib():
@@ -145,13 +177,16 @@ def _lib():
     lib = build.load("decoder")
     if not _argtypes_set:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.taco_decoder_launch.argtypes = [vp] * 18 + [ci] * 16 + \
-            [ctypes.c_float, vp]
+        lib.taco_decoder_launch.argtypes = [vp, ci, vp, ci, ctypes.c_float,
+                                            vp]
         lib.taco_decoder_launch.restype = ci
         lib.taco_decoder_smem_bytes.argtypes = [ci] * 8
         lib.taco_decoder_smem_bytes.restype = ctypes.c_size_t
-        lib.taco_decoder_cluster_size.argtypes = []
-        lib.taco_decoder_cluster_size.restype = ci
+        for fn in ("cluster_size", "n_ptr", "n_int"):
+            getattr(lib, f"taco_decoder_{fn}").argtypes = []
+            getattr(lib, f"taco_decoder_{fn}").restype = ci
+        lib.taco_decoder_state_floats.argtypes = [ci] * 4
+        lib.taco_decoder_state_floats.restype = ci
         _argtypes_set = True
     return lib
 
@@ -190,11 +225,20 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE) -> KernelWeights:
         fop=fop, cs=cs)
 
 
-def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
-                 early_stop_block):
-    global launches
+class _Launch(NamedTuple):
+    """What every launch of one decode shares: operands checked and laid
+    out once."""
+
+    lib: ctypes.CDLL
+    kw: KernelWeights
+    keys: torch.Tensor    # keys + folded attention bias, contiguous f32
+    memory: torch.Tensor
+    mask: torch.Tensor    # f32 1/0
+    ints: dict
+
+
+def _prepare(kw: KernelWeights, cfg: Config, keys, memory, mask) -> _Launch:
     tc, mels = cfg.tacotron, cfg.audio.num_mels
-    r = tc.outputs_per_step
     B, T, M = memory.shape
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
     A, KW = kw.wq.shape[1], kw.wp.shape[0]
@@ -206,8 +250,6 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
                              f"got {w.dtype} on {w.device}")
     if memory.dtype != torch.float32 or keys.shape != (B, T, A):
         raise ValueError("memory must be f32 [B, T, M] and keys [B, T, A]")
-    if drop.shape != (B, steps, 2, P) or drop.device != dev:
-        raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
     if kw.l1_w.shape[1] != P + M + U:
         raise ValueError("kernel_weights do not match the memory width")
     lib = _lib()
@@ -217,39 +259,157 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
                          f"the kernel runs {cs}")
     if U % (2 * cs) or M % cs or (4 * U // cs) // 8 > 512 or A % 8 or P % 8:
         raise ValueError("widths outside the kernel's envelope")
-    K = int(early_stop_block)
-    if K <= 0 or K >= steps:
-        K = 0
     smem = lib.taco_decoder_smem_bytes(T, mels, P, U, M, A, KW, kw.fop)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"decode kernel needs {smem} B of shared memory")
-    keys = (keys.float() + kw.b_eff).contiguous()
-    memory = memory.contiguous()
-    maskf = mask.to(device=dev, dtype=torch.float32).contiguous()
-    drop = drop.to(torch.float32).contiguous()
-    FO = r * mels + r
-    out = torch.empty(B, steps, FO, device=dev)
-    out[..., :r * mels] = 0.0
-    out[..., r * mels:] = 1.0
+        raise ValueError(f"decode kernel needs {smem} B of shared memory "
+                         f"at T_in={T}")
     win = int(tc.attention_win_size)
     monotonic = tc.synthesis_constraint_type == "monotonic"
-    back = 0 if monotonic else win // 2 + win % 2
-    fwd = win if monotonic else win // 2
-    # Operands made here are freed when this returns, maybe before the
-    # kernel ends; PyTorch's caching allocator reuses a freed block only for
-    # work queued later on the same stream, so they outlive the kernel.
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    ints = dict(B=B, T=T, mels=mels, P=P, U=U, M=M, A=A, KW=KW,
+                r=tc.outputs_per_step, FOp=kw.fop,
+                constraint=int(bool(tc.synthesis_constraint)),
+                win_back=0 if monotonic else win // 2 + win % 2,
+                win_fwd=win if monotonic else win // 2,
+                stop_at_any=int(bool(tc.stop_at_any)))
+    return _Launch(lib, kw, (keys.float() + kw.b_eff).contiguous(),
+                   memory.contiguous(),
+                   mask.to(device=dev, dtype=torch.float32).contiguous(),
+                   ints)
+
+
+_INT_ORDER = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M", "A",
+              "KW", "r", "FOp", "constraint", "win_back", "win_fwd",
+              "stop_at_any")
+
+
+def pack_state(state: DecoderKernelState, P: int,
+               cs: int = CLUSTER_SIZE):
+    """DecoderKernelState -> the kernel's (vector [B, n], cum [B, T], pmax
+    [B]): each row's vector is [xprev | 0 (P) | 0 (P) | ctx | h1 | h2 | ctx
+    | c1, c2 units of CTA 0 | ... | of CTA cs-1], the head of the kernel's
+    shared memory, so that one loop copies it in or out."""
+    B, U = state.c1.shape
+    c = torch.stack([state.c1.reshape(B, cs, U // cs),
+                     state.c2.reshape(B, cs, U // cs)], 2).reshape(B, 2 * U)
+    vec = torch.cat([state.xprev, state.xprev.new_zeros(B, 2 * P), state.ctx,
+                     state.h1, state.h2, state.ctx, c], 1)
+    return (vec.float().contiguous(), state.cum.float().contiguous(),
+            state.pmax.to(torch.int32).contiguous())
+
+
+def unpack_state(vec, cum, pmax, mels: int, P: int, M: int,
+                 cs: int = CLUSTER_SIZE) -> DecoderKernelState:
+    """The inverse of `pack_state`."""
+    B = vec.shape[0]
+    o = mels + 2 * P
+    U = (vec.shape[1] - o - 2 * M) // 4
+    c = vec[:, o + 2 * M + 2 * U:].reshape(B, cs, 2, U // cs)
+    return DecoderKernelState(
+        xprev=vec[:, :mels].contiguous(), c1=c[:, :, 0].reshape(B, U),
+        h1=vec[:, o + M:o + M + U].contiguous(),
+        c2=c[:, :, 1].reshape(B, U),
+        h2=vec[:, o + M + U:o + M + 2 * U].contiguous(),
+        ctx=vec[:, o:o + M].contiguous(), cum=cum, pmax=pmax)
+
+
+def _launch(L: _Launch, cfg: Config, drop, state_in, state_out, out, align,
+            fired_in, fired_out, *, t0: int, nsteps: int, s_total: int):
+    """One launch: steps t0 .. t0+nsteps-1 of arrays laid out for s_total
+    steps; state_in / state_out are `pack_state` triples. Operands made by
+    the caller are freed after it returns, maybe before the kernel ends;
+    PyTorch's caching allocator reuses a freed block only for work queued
+    later on the same stream, so they outlive the kernel."""
+    global launches
+    kw = L.kw
+    nul = ctypes.c_void_p(None)
+    p = lambda x: nul if x is None else ctypes.c_void_p(x.data_ptr())
+    ptrs = [L.keys, L.memory, L.mask, drop, kw.pre_w0, kw.pre_b0, kw.pre_w1,
+            kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, kw.wp,
+            kw.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
+            fired_out, out, align]
+    ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
+    lib = L.lib
+    n = lib.taco_decoder_state_floats(ints["mels"], ints["P"], ints["U"],
+                                      ints["M"])
+    assert state_in[0].shape[1] == state_out[0].shape[1] == n
+    assert len(ptrs) == lib.taco_decoder_n_ptr()
+    assert len(_INT_ORDER) == lib.taco_decoder_n_int()
+    dev = L.memory.device
     rc = lib.taco_decoder_launch(
-        ptr(keys), ptr(memory), ptr(maskf), ptr(drop),
-        ptr(kw.pre_w0), ptr(kw.pre_b0), ptr(kw.pre_w1), ptr(kw.pre_b1),
-        ptr(kw.l1_w), ptr(kw.l1_b), ptr(kw.l2_w), ptr(kw.l2_b),
-        ptr(kw.wq), ptr(kw.wp), ptr(kw.v_a), ptr(kw.proj_w), ptr(kw.proj_b),
-        ptr(out), B, T, steps, mels, P, U, M, A, KW, r, kw.fop, K,
-        int(bool(tc.synthesis_constraint)), back, fwd,
-        int(bool(tc.stop_at_any)), float(tc.zoneout_rate),
+        (ctypes.c_void_p * len(ptrs))(*[p(x) for x in ptrs]), len(ptrs),
+        (ctypes.c_int * len(_INT_ORDER))(*[ints[k] for k in _INT_ORDER]),
+        len(_INT_ORDER), float(cfg.tacotron.zoneout_rate),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     from ..native.build import check
     check(rc, "taco_decoder_launch")
     launches += 1
-    return (out[..., :r * mels].reshape(B, steps * r, mels),
-            out[..., r * mels:].reshape(B, steps * r))
+
+
+def _check_state(state: DecoderKernelState, B, T, M, U, mels, dev):
+    want = dict(xprev=(B, mels), c1=(B, U), h1=(B, U), c2=(B, U), h2=(B, U),
+                ctx=(B, M), cum=(B, T), pmax=(B,))
+    for name, shape in want.items():
+        x = getattr(state, name)
+        dtype = torch.int32 if name == "pmax" else torch.float32
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != dev:
+            raise ValueError(f"state.{name} must be {dtype} {shape} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
+                 early_stop_block, emit_alignments):
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    B, T, M = memory.shape
+    P = tc.prenet_layers[-1]
+    dev = memory.device
+    if drop.shape != (B, steps, 2, P) or drop.device != dev:
+        raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
+    L = _prepare(kw, cfg, keys, memory, mask)
+    drop = drop.to(torch.float32).contiguous()
+    K = int(early_stop_block)
+    if K <= 0 or K >= steps:
+        K = steps
+    FO = r * mels + r
+    # what a skipped step reads as: frames 0, stop 1.0, alignments 0
+    out = torch.zeros(B, steps, FO, device=dev)
+    out[..., r * mels:] = 1.0
+    align = (torch.zeros(B, steps, T, device=dev) if emit_alignments
+             else None)
+    state = pack_state(init_decoder_state(cfg, B, T, M, dev), P)
+    # row i: the sticky stop flags after launch i and their count at [B]
+    starts = range(0, steps, K)
+    fired = torch.zeros(len(starts) + 1, B + 1, dtype=torch.int32,
+                        device=dev)
+    for i, t0 in enumerate(starts):
+        _launch(L, cfg, drop, state, state, out, align, fired[i],
+                fired[i + 1], t0=t0, nsteps=min(K, steps - t0),
+                s_total=steps)
+    frames = out[..., :r * mels].reshape(B, steps * r, mels)
+    stops = out[..., r * mels:].reshape(B, steps * r)
+    return frames, stops, (align.transpose(1, 2) if emit_alignments
+                           else None)
+
+
+def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
+                       drop):
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    B, T, M = memory.shape
+    P = tc.prenet_layers[-1]
+    dev = memory.device
+    K = drop.shape[1]
+    if drop.shape != (B, K, 2, P) or drop.device != dev or K < 1:
+        raise ValueError(f"drop must be [B, K, 2, P] on {dev}")
+    _check_state(state, B, T, M, tc.decoder_lstm_units, mels, dev)
+    L = _prepare(kw, cfg, keys, memory, mask)
+    state_in = pack_state(state, P, kw.cs)
+    state_out = tuple(torch.empty_like(x) for x in state_in)
+    FO = r * mels + r
+    out = torch.empty(B, K, FO, device=dev)
+    align = torch.empty(B, K, T, device=dev)
+    _launch(L, cfg, drop.to(torch.float32).contiguous(), state_in, state_out,
+            out, align, None, None, t0=0, nsteps=K, s_total=K)
+    return (out[..., :r * mels].reshape(B, K * r, mels),
+            out[..., r * mels:].reshape(B, K * r), align.transpose(1, 2),
+            unpack_state(*state_out, mels, P, M, kw.cs))

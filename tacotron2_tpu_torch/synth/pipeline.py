@@ -4,7 +4,9 @@ Port of tacotron2_tpu/synth/pipeline.py `TextToWavProgram` (:47): Tacotron
 memory pass → the CUDA decode kernel → postnet → stop-length recovery and
 silence masking (:194-207) → [0, 1] rescale (:215-220) → SubPixel
 conditioning upsample → the CUDA sampler kernel, on one device with no host
-round trip between the stages. CPU tensors run the same chain through the
+round trip between the stages. With `vocoder="griffin_lim"` (:209-213) the
+masked mel goes through Griffin-Lim (the CUDA Griffin-Lim kernel) instead
+of the upsample and the sampler. CPU tensors run the same chain through the
 kernels' plain versions (that is how the tests hold it against the JAX
 program). Each stage runs once over the whole batch: the decode kernel
 runs one thread-block cluster per row, so the TPU program's split into
@@ -25,6 +27,7 @@ from .. import convert
 from ..config import Config
 from ..models.tacotron.decoder import drop_masks
 from ..models.wavenet.sampler import extract_sampler_params
+from ..ops import griffin_lim
 from ..ops import tacotron_decoder_kernel as dk
 from ..ops import wavenet_kernel as wk
 
@@ -38,6 +41,7 @@ class TextToWavProgram:
     """Padded text ids → waveform samples for one (batch, t_in, steps)
     serving bucket. Eligibility mirrors the JAX program: no `emt_attn`,
     equal-width prenet, padded text ≤ 256, Gaussian head on scalar input.
+    `vocoder` is "wavenet" or "griffin_lim" (then `wn_params` may be None).
 
     `keep_intermediates=True` keeps the last call's kernel inputs
     (keys, memory, mask, dropout multipliers, conditioning, noise) in
@@ -49,8 +53,11 @@ class TextToWavProgram:
     def __init__(self, cfg: Config, taco_params, batch_stats, wn_params, *,
                  batch: int, steps: int, t_in: int, t_ref: int = 64,
                  device="cuda", seed: int = 0,
-                 keep_intermediates: bool = False):
+                 keep_intermediates: bool = False,
+                 vocoder: str = "wavenet"):
         tc, au = cfg.tacotron, cfg.audio
+        assert vocoder in ("wavenet", "griffin_lim"), vocoder
+        self.vocoder = vocoder
         assert not cfg.gst.emt_attn, "emt_attn is not in the port yet"
         assert len(set(tc.prenet_layers)) == 1, "kernel wants equal prenet FCs"
         assert t_in <= 256, "long inputs (> 256 padded chars) are not ported"
@@ -58,19 +65,23 @@ class TextToWavProgram:
         self.batch, self.steps, self.t_in, self.t_ref = batch, steps, t_in, t_ref
         self.hop = au.effective_hop
         self.frames = steps * tc.outputs_per_step
-        self.t_audio = self.frames * self.hop
+        # Griffin-Lim gives hop·(frames-1) samples (mels_to_wavs' trim)
+        self.t_audio = self.hop * (self.frames - (vocoder == "griffin_lim"))
 
         self.taco = convert.tacotron_from_flax(cfg, taco_params,
                                                batch_stats or {}, device)
-        self.wavenet = convert.wavenet_from_flax(cfg, wn_params, device)
         self.dec_params = dk.extract_decoder_params(taco_params, cfg,
                                                     device=device)
-        self.sampler_params = extract_sampler_params(wn_params, cfg, device)
         cuda = self.device.type == "cuda"
         self.dec_kernel = (dk.pack_weights(self.dec_params) if cuda
                            else None)
-        self.sampler_kernel = (wk.pack_weights(self.sampler_params, cfg)
-                               if cuda else None)
+        self.wavenet = self.sampler_params = self.sampler_kernel = None
+        if vocoder == "wavenet":
+            self.wavenet = convert.wavenet_from_flax(cfg, wn_params, device)
+            self.sampler_params = extract_sampler_params(wn_params, cfg,
+                                                         device)
+            self.sampler_kernel = (wk.pack_weights(self.sampler_params, cfg)
+                                   if cuda else None)
         self.memory_width = self.taco.memory_width
         self.generator = torch.Generator(device=self.device)
         self._seed = seed
@@ -88,9 +99,9 @@ class TextToWavProgram:
         keys, memory, mask, _, _ = self.taco.synthesis_memory_ext(
             inputs, input_lengths, refs_emt, refs_spk)
         drop = drop_masks(cfg, B, self.steps, g, self.device)
-        frames, stops = dk.decode(
+        frames, stops, _ = dk.decode(
             self.dec_params, cfg, keys, memory, mask, drop, steps=self.steps,
-            early_stop_block=tc.early_stop_block,
+            early_stop_block=tc.early_stop_block, emit_alignments=False,
             kernel_weights=self.dec_kernel)
         _, mel = self.taco.postnet_pass(frames)     # [B, frames, mels]
 
@@ -109,6 +120,15 @@ class TextToWavProgram:
         idx = torch.arange(self.frames, device=mel.device)[None, :, None]
         mel = torch.where(idx < mel_len[:, None, None], mel,
                           torch.full_like(mel, pad_val))
+        if self.keep_intermediates:
+            self.intermediates = dict(keys=keys, memory=memory, mask=mask,
+                                      drop=drop)
+
+        if self.vocoder == "griffin_lim":
+            samples = griffin_lim.inv_mel_spectrogram(mel, au)
+            samples = samples[:, :self.t_audio]
+            wav_len = torch.clamp(mel_len * self.hop, max=self.t_audio)
+            return samples, wav_len, mel, stops, mel_len
 
         c = mel
         if au.clip_for_wavenet:
@@ -120,8 +140,7 @@ class TextToWavProgram:
         samples = wk.sample(self.sampler_params, cfg, c_up, z,
                             kernel_weights=self.sampler_kernel)
         if self.keep_intermediates:
-            self.intermediates = dict(keys=keys, memory=memory, mask=mask,
-                                      drop=drop, c_up=c_up, z=z)
+            self.intermediates.update(c_up=c_up, z=z)
         return samples, mel_len * self.hop, mel, stops, mel_len
 
     # ------------------------------------------------------------- public
@@ -192,7 +211,14 @@ class TextToWavProgram:
         samples = np.concatenate(samples_l)
         wav_len = np.concatenate(wav_len_l)
         wavs = [samples[i, :wav_len[i]] for i in range(n)]
-        if self.cfg.wavenet.input_type == "mulaw":
+        if self.vocoder == "griffin_lim":
+            # the host undoes the preemphasis, as the reference does
+            # (tacotron/train.py:660)
+            from ..data import audio as host_audio
+            a = self.cfg.audio
+            wavs = [host_audio.inv_preemphasis(w, a.preemphasis,
+                                               a.preemphasize) for w in wavs]
+        elif self.cfg.wavenet.input_type == "mulaw":
             q = self.cfg.wavenet.quantize_channels - 1
             wavs = [np.asarray(inv_mulaw(w, q), np.float32) for w in wavs]
         return wavs

@@ -11,7 +11,13 @@ on, live sampler noise), so both sides see the same inputs. The plain
 versions run on the same card with TF32 off. Tolerances: the
 decode kernel and its plain version both upcast the bf16 weights and sum
 in f32, differing in summation order only (frames atol 1e-3 over 8
-steps); the sampler is f32 throughout (atol 1e-4 over 64 fed-back samples).
+steps, stop probabilities and alignments 1e-4); the sampler is f32
+throughout (atol 1e-4 over 64 fed-back samples); Griffin-Lim's DFT
+products over the 800-sample window support run as 3xTF32 tensor-core
+products, each 8-deep step added in f32, in another sum order (samples atol
+1e-4 at iters 0 and GL_ITERS4_ATOL after 4 iterations, and the
+spectral-consistency error, tests/test_pallas_kernels.py:237's measure,
+within 1% of the plain version's).
 """
 
 import dataclasses
@@ -22,11 +28,18 @@ import torch
 
 from tacotron2_tpu_torch.models.tacotron.decoder import drop_masks
 from tacotron2_tpu_torch.models.wavenet.sampler import extract_sampler_params
-from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
 from tacotron2_tpu_torch.config import Config
+from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
+from tacotron2_tpu_torch.ops import stft as tst
+from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
 from tacotron2_tpu_torch.ops import wavenet_kernel as wk
 
 MELS, P, U, A, F, KW, M, R = 20, 16, 32, 16, 8, 7, 48, 2
+# Griffin-Lim kernel vs plain after 4 iterations on the noise below, by
+# start: the readings were 2.7e-4 from the zero-phase start (where plain f32
+# itself lies 3.1e-4 from float64) and 3.8e-6 from random phases, on an
+# H100 (scripts/griffin_lim_accuracy.py)
+GL_ITERS4_ATOL = {"zero-phase": 1e-3, "random-phase": 2e-5}
 
 
 def torch_cfg():
@@ -111,15 +124,140 @@ def test_decoder_kernel_matches_plain(dev):
     dp = dk.extract_decoder_params(tparams, cfg, device=dev)
     drop = drop_masks(cfg, B, steps, torch.Generator(dev).manual_seed(1), dev)
     before = dk.launches
-    f_k, s_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
-                         early_stop_block=4,
-                         kernel_weights=dk.pack_weights(dp))
-    assert dk.launches == before + 1
-    f_p, s_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
-                               steps=steps, early_stop_block=4)
+    f_k, s_k, a_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                              early_stop_block=4,
+                              kernel_weights=dk.pack_weights(dp))
+    assert dk.launches == before + 2          # one launch per 4-step block
+    f_p, s_p, a_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
+                                    steps=steps, early_stop_block=4)
     torch.cuda.synchronize()
     np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
     np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
+    assert a_k.shape == (B, T, steps)
+    np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
+
+
+def _decoder_case(dev, B, T, steps, seed=0):
+    cfg = torch_cfg()
+    cfg = cfg.replace(tacotron=dataclasses.replace(
+        cfg.tacotron, dropout_rate=0.5, fused_decoder_dtype="bfloat16"))
+    rng = np.random.default_rng(seed)
+    memory = torch.as_tensor(rng.normal(size=(B, T, M)), dtype=torch.float32,
+                             device=dev)
+    keys = torch.as_tensor(rng.normal(size=(B, T, A)) * 0.3,
+                           dtype=torch.float32, device=dev)
+    lens = torch.as_tensor([T - 7 * i for i in range(B)], device=dev)
+    mask = torch.arange(T, device=dev)[None] < lens[:, None]
+    dp = dk.extract_decoder_params(decoder_tree(seed), cfg, device=dev)
+    drop = drop_masks(cfg, B, steps, torch.Generator(dev).manual_seed(1), dev)
+    return cfg, dp, keys, memory, mask, drop
+
+
+def test_decoder_early_stop_waits_for_every_row(dev):
+    """Rows that fire in different blocks: the chained launches stop the
+    batch at the first boundary where all rows have fired, as the plain
+    version (and the TPU kernel) do."""
+    B, T, steps, K = 3, 24, 32, 4
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, steps)
+    r = cfg.tacotron.outputs_per_step
+    # stop projection weights ×10: the stop logits wander over a wider
+    # range, so rows cross a threshold at well separated steps
+    fo = r * cfg.audio.num_mels
+    dp = dp._replace(proj_wo=dp.proj_wo.clone(), proj_wc=dp.proj_wc.clone())
+    dp.proj_wo[:, fo:] *= 10
+    dp.proj_wc[:, fo:] *= 10
+    _, s_full, _ = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
+                                   steps=steps)
+    p = s_full.reshape(B, steps, r).min(-1).values.cpu().numpy()
+    logit = np.log(p / (1 - p))
+
+    def first_fire(shift):
+        return [int(np.argmax(row + shift > 0)) if (row + shift > 0).any()
+                else steps for row in logit]
+
+    # a stop-bias shift (the stop logits do not feed back) half-way between
+    # two logits at least 0.004 apart (kernel and plain stop probabilities
+    # differ by ~1e-5), under which the rows fire in different blocks and
+    # the batch stops before the last block
+    vals = np.sort(logit.ravel())
+    picks = [-(a + b) / 2 for a, b in zip(vals[:-1], vals[1:])
+             if b - a > 0.004]
+    ok = [sh for sh in picks if len({f // K for f in first_fire(sh)}) > 1
+          and max(first_fire(sh)) < steps - K]
+    assert ok, np.array2string(logit, precision=3, threshold=10 ** 4)
+    shift = ok[0]
+    first = first_fire(shift)
+    stop_at = K * (max(first) // K + 1)
+    dp = dp._replace(proj_b=dp.proj_b.clone())
+    dp.proj_b[-r:] += float(shift)
+    before = dk.launches
+    f_k, s_k, a_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                              early_stop_block=K,
+                              kernel_weights=dk.pack_weights(dp))
+    assert dk.launches == before + steps // K
+    f_p, s_p, a_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
+                                    steps=steps, early_stop_block=K)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
+    assert torch.all(s_k[:, stop_at * r:] == 1.0)
+    assert torch.all(f_k[:, stop_at * r:] == 0.0)
+    assert torch.all(f_k[:, (stop_at - 1) * r:stop_at * r] != 0.0)
+
+
+@pytest.mark.parametrize("T", [300, 1000])
+def test_decode_block_matches_plain_past_256(dev, T):
+    """K-step blocks from explicit state past the TPU's 256-character
+    monolithic envelope: two chained blocks, outputs and carried state."""
+    B, K = 2, 4
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, 2 * K)
+    kw = dk.pack_weights(dp)
+    st_k = st_p = dk.init_decoder_state(cfg, B, T, M, dev)
+    for blk in range(2):
+        d = drop[:, blk * K:(blk + 1) * K]
+        f_k, s_k, a_k, st_k = dk.decode_block(dp, cfg, keys, memory, mask,
+                                              st_k, d, kernel_weights=kw)
+        f_p, s_p, a_p, st_p = dk.decode_block_plain(dp, cfg, keys, memory,
+                                                    mask, st_p, d)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
+        np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
+        for name in st_k._fields:
+            x, y = getattr(st_k, name), getattr(st_p, name)
+            if name == "pmax":
+                assert torch.equal(x, y)
+            else:
+                np.testing.assert_allclose(x.cpu(), y.cpu(), atol=1e-3,
+                                           rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("iters", [0, 4])
+def test_griffin_lim_kernel_matches_plain(dev, iters):
+    n_fft, hop, win, B, F = 2048, 200, 800, 2, 33
+    g = torch.Generator(dev).manual_seed(0)
+    y = torch.randn(B, hop * (F - 1), generator=g, device=dev)
+    S = tst.stft_mag(y, n_fft, hop, win)
+    phase = torch.rand(S.shape, generator=g, device=dev) * 6.2831855
+    for start, (re0, im0) in (
+            ("zero-phase", (S, torch.zeros_like(S))),
+            ("random-phase", (S * torch.cos(phase), S * torch.sin(phase)))):
+        before = glk.launches
+        y_k = glk.fused_griffin_lim(S, re0, im0, n_fft, hop, win, iters)
+        assert glk.launches == before + 1
+        y_p = glk.griffin_lim_plain(S, re0, im0, n_fft, hop, win, iters)
+        torch.cuda.synchronize()
+        assert y_k.shape == y_p.shape == (B, hop * (F - 1))
+        # samples up to ~5: iters 0 is one iSTFT (f32 sums in another
+        # order); after 4 iterations phases of bins near zero carry the
+        # rounding noise forward
+        np.testing.assert_allclose(
+            y_k.cpu(), y_p.cpu(), rtol=0,
+            atol=1e-4 if iters == 0 else GL_ITERS4_ATOL[start], err_msg=start)
+        err = lambda x: float((tst.stft_mag(x.contiguous(), n_fft, hop, win)
+                               - S).abs().mean())
+        assert err(y_k) <= 1.01 * err(y_p), (err(y_k), err(y_p))
 
 
 def test_sampler_kernel_matches_plain(dev):
@@ -148,6 +286,17 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
     for kw in (dk.pack_weights(dp), None):     # f32 weights; none packed
         with pytest.raises(ValueError):
             dk.decode(dp, cfg, *args, steps=2, kernel_weights=kw)
+    cfg_b = cfg.replace(tacotron=dataclasses.replace(
+        cfg.tacotron, fused_decoder_dtype="bfloat16"))
+    dp_b = dk.extract_decoder_params(tparams, cfg_b, device=dev)
+    state = dk.init_decoder_state(cfg_b, 1, 4, M, dev)
+    bad = state._replace(pmax=state.pmax.long())
+    with pytest.raises(ValueError):
+        dk.decode_block(dp_b, cfg_b, *args[:3], bad, args[3],
+                        kernel_weights=dk.pack_weights(dp_b))
+    S = torch.ones(1, 3, 100, device=dev)       # K is not n_fft//2+1
+    with pytest.raises(ValueError):
+        glk.fused_griffin_lim(S, S, S, 2048, 200, 800, 1)
     sp = extract_sampler_params(wparams, cfg, device=dev)
     c_up, z = torch.zeros(1, 8, MELS, device=dev), torch.zeros(1, 8, device=dev)
     with pytest.raises(ValueError):

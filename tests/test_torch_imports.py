@@ -25,6 +25,11 @@ def _port_files():
 def test_port_files_exist():
     files = _port_files()
     assert os.path.exists(files[0]) and len(files) > 20
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    for mod in ("ops/stft.py", "ops/griffin_lim.py",
+                "ops/griffin_lim_kernel.py", "data/audio.py",
+                "synth/tacotron_synth.py"):
+        assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 
 @pytest.mark.parametrize("path", _port_files(),
