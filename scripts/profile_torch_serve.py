@@ -6,7 +6,8 @@ Builds the program chip_smoke.py builds (r5 checkpoints, 8 held-out texts,
 t_in 128, 480 decode steps), runs one warm-up call, then runs the stages of
 `TextToWavProgram._forward` one by one on the same inputs with a CUDA event
 around each: memory pass, decode kernel, postnet + stop-length + silence
-mask + rescale, upsample, sampler kernel over the full length; and the
+mask + rescale, upsample, sampler kernel over the full length (the
+program's bf16 cache and weights, then f32 for comparison); and the
 load-time re-layout of each kernel's weights (`pack_weights`), which the
 program does once when it is built. The Griffin-Lim route
 (`TextToWavProgram(vocoder="griffin_lim")`) shares the stages up to the
@@ -107,7 +108,9 @@ def main():
         # load-time work, done once when the program is built
         stage("decoder_pack_weights", lambda: dk.pack_weights(prog.dec_params))
         stage("sampler_pack_weights", lambda: wk.pack_weights(
-            prog.sampler_params, cfg))
+            prog.sampler_params, cfg, cache_dtype=prog.cache_dtype,
+            weight_dtype=prog.weight_dtype))
+        kw32 = wk.pack_weights(prog.sampler_params, cfg)
         keys, mem, mask, _, _ = stage("memory_pass", lambda: (
             prog.taco.synthesis_memory_ext(t(ids), t(lens), t(refs),
                                            t(refs))))
@@ -137,10 +140,14 @@ def main():
         stage("sampler_kernel", lambda: wk.sample(
             prog.sampler_params, cfg, c_up, z,
             kernel_weights=prog.sampler_kernel))
+        stage("sampler_kernel_f32", lambda: wk.sample(
+            prog.sampler_params, cfg, c_up, z, kernel_weights=kw32))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"device": smi, "batch": B, "t_audio": prog.t_audio,
+                      "sampler_dtypes": [str(prog.cache_dtype),
+                                         str(prog.weight_dtype)],
                       "stage_ms": ms, "profiled_call_wall_ms": wall_ms,
                       "device_busy_share": busy,
                       "griffin_lim_program": {

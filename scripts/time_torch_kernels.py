@@ -9,7 +9,8 @@ kernels, load the r5 checkpoints, run the memory pass of 8 held-out texts,
 then report the median CUDA-event time of 5 runs of the whole decode
 (480 steps, early stop per 64-step block), of the decode of 320 steps
 without early stop (every version then runs the same row-steps), and of
-the sampler over the first 512 samples, and (where the copy has it) of
+the sampler over the first 512 samples (f32, and bf16 cache and weights
+where the copy has them), and (where the copy has it) of
 the Griffin-Lim kernel's 60 iterations on the decoded mels (the
 `TextToWavProgram(vocoder="griffin_lim")` shape, [8, 480, 1025]), with
 checksums of the outputs. Needs one CUDA device.
@@ -78,9 +79,17 @@ def time_one(root):
         c = (torch.clamp(mel, -4.0, 4.0) + 4.0) / 8.0
         c_up = prog.wavenet.upsample(c)[:, :W].contiguous()
         z = torch.randn(B, W, generator=g, device=dev)
-        smp = lambda: wk.sample(prog.sampler_params, cfg, c_up, z,
-                                kernel_weights=prog.sampler_kernel)
-        y = smp()
+        sp = prog.sampler_params
+        # the f32 sampler, and the bf16 one in versions that have it
+        samplers = {"": wk.pack_weights(sp, cfg)}
+        if "weight_dtype" in inspect.signature(wk.pack_weights).parameters:
+            bf = torch.bfloat16
+            samplers["_bf16"] = wk.pack_weights(sp, cfg, cache_dtype=bf,
+                                                weight_dtype=bf)
+        smp = {k: (lambda kw=kw: wk.sample(sp, cfg, c_up, z,
+                                           kernel_weights=kw))
+               for k, kw in samplers.items()}
+        y = {k: float(f().sum()) for k, f in smp.items()}
         torch.cuda.synchronize()
         gl_ms = gl_sum = None
         if os.path.exists(os.path.join(root, "tacotron2_tpu_torch", "ops",
@@ -96,8 +105,10 @@ def time_one(root):
             gl_ms = cs.cuda_ms(gl, 3)
         out = {"root": root, "decoder_ms": cs.cuda_ms(dec, 5),
                "decoder_ms_320_steps_no_early_stop": cs.cuda_ms(dec320, 5),
-               f"sampler_ms_{W}": cs.cuda_ms(smp, 5),
-               "frames_sum": float(frames.sum()), "samples_sum": float(y.sum()),
+               **{f"sampler_ms_{W}{k}": cs.cuda_ms(f, 5)
+                  for k, f in smp.items()},
+               "frames_sum": float(frames.sum()),
+               **{f"samples_sum{k}": v for k, v in y.items()},
                "griffin_lim_ms_60_iters": gl_ms, "griffin_lim_sum": gl_sum}
     print(json.dumps(out), flush=True)
 

@@ -7,11 +7,17 @@ cached; `--vocoder griffin_lim` swaps WaveNet for Griffin-Lim. Sentences
 come from --text-list / --sentence, or from stdin, one per line; wavs land
 in <output-dir>/serve/speech-NNNNN.wav.
 
-`synthesize --model Tacotron --mode eval`, port of cli.py `synthesize`
-(:232-285) in eval mode: sentences (--text-list / --sentence, else the
-reference's eval sentences) → `TacotronSynthesizer` → mels, map.txt and
-Griffin-Lim wavs under <output-dir>/eval/. The other modes and
-`--model WaveNet` / `Tacotron-2` are not ported yet and say so.
+`synthesize`, port of cli.py `synthesize` (:232-298) in eval mode:
+- `--model Tacotron`: sentences (--text-list / --sentence, else the
+  reference's eval sentences) → `TacotronSynthesizer` → mels, map.txt and
+  Griffin-Lim wavs under <output-dir>/eval/;
+- `--model WaveNet`: the mels a map.txt names (--mels-map, else
+  <output-dir>/eval/map.txt; --limit rows) → `WaveNetSynthesizer` →
+  <output-dir>/wavenet/wavs/wavenet-<mel name>.wav, in batches of
+  `train.wavenet_synthesis_batch_size`;
+- `--model Tacotron-2` (the default, as in the reference): the first, then
+  the second on the map.txt it wrote.
+The other modes are not ported yet and say so.
 
 Weights are the JAX package's flax msgpack checkpoints (Tacotron
 {params, batch_stats}, WaveNet EMA params), read without flax; reference
@@ -23,6 +29,10 @@ mels are `.npy` files. Everything runs on `--device` (default cuda).
         --ref-mel-emt ref.npy --sentence "abcdefg hij"
     python -m tacotron2_tpu_torch.cli synthesize --model Tacotron \
         --mode eval --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
+        --ref-mel-emt ref.npy --text-list texts.txt --output-dir out
+    python -m tacotron2_tpu_torch.cli synthesize --model Tacotron-2 \
+        --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
+        --wavenet-checkpoint artifacts/e2e_demo_r5/wn_ckpt.msgpack \
         --ref-mel-emt ref.npy --text-list texts.txt --output-dir out
 """
 
@@ -124,29 +134,50 @@ def _sentences(args):
 
 
 def cmd_synthesize(args):
-    if args.model != "Tacotron":
-        raise SystemExit(f"synthesize --model {args.model} is not ported "
-                         "yet (the port synthesizes --model Tacotron)")
+    """Returns the map.txt path for --model Tacotron, else the paths of the
+    WaveNet wavs."""
     if args.mode != "eval":
         raise SystemExit(f"synthesize --mode {args.mode} is not ported yet "
                          "(the port runs --mode eval)")
-    from .convert import load_checkpoints
-    from .synth.tacotron_synth import TacotronSynthesizer, run_eval
+    if args.model != "Tacotron" and not args.wavenet_checkpoint:
+        raise SystemExit(f"synthesize --model {args.model} needs "
+                         "--wavenet-checkpoint")
+    from . import convert
 
     cfg = get_config(args.preset, args.hparams)
-    tparams, stats, _ = load_checkpoints(args.checkpoint)
-    ref = (np.load(args.ref_mel_emt) if args.ref_mel_emt
-           else np.zeros((40, cfg.audio.num_mels), np.float32))
-    ref_spk = np.load(args.ref_mel_spk) if args.ref_mel_spk else ref
-    sentences = _sentences(args)
+    if args.model in ("Tacotron", "Tacotron-2"):
+        from .synth.tacotron_synth import TacotronSynthesizer, run_eval
+
+        if not args.checkpoint:
+            raise SystemExit(f"synthesize --model {args.model} needs "
+                             "--checkpoint")
+        tparams, stats, _ = convert.load_checkpoints(args.checkpoint)
+        ref = (np.load(args.ref_mel_emt) if args.ref_mel_emt
+               else np.zeros((40, cfg.audio.num_mels), np.float32))
+        ref_spk = np.load(args.ref_mel_spk) if args.ref_mel_spk else ref
+        sentences = _sentences(args)
+        t0 = time.time()
+        synth = TacotronSynthesizer(cfg, tparams, stats, device=args.device,
+                                    seed=args.seed)
+        map_path = run_eval(synth, sentences, [ref] * len(sentences),
+                            [ref_spk] * len(sentences), args.output_dir)
+        log(f"tacotron synthesis of {len(sentences)} sentences in "
+            f"{time.time() - t0:.2f}s -> {map_path}")
+        if args.model == "Tacotron":
+            return map_path
+    from .synth.wavenet_synth import WaveNetSynthesizer, run_synthesis
+
+    map_path = args.mels_map or os.path.join(args.output_dir, "eval",
+                                             "map.txt")
     t0 = time.time()
-    synth = TacotronSynthesizer(cfg, tparams, stats, device=args.device,
-                                seed=args.seed)
-    map_path = run_eval(synth, sentences, [ref] * len(sentences),
-                        [ref_spk] * len(sentences), args.output_dir)
-    log(f"tacotron synthesis of {len(sentences)} sentences in "
-        f"{time.time() - t0:.2f}s -> {map_path}")
-    return map_path
+    synth_wn = WaveNetSynthesizer(
+        cfg, convert.load_wavenet(args.wavenet_checkpoint),
+        device=args.device, seed=args.seed)
+    wav_out = os.path.join(args.output_dir, "wavenet")
+    paths = run_synthesis(synth_wn, map_path, wav_out, limit=args.limit)
+    log(f"wavenet synthesis: {len(paths)} wavs in {time.time() - t0:.2f}s "
+        f"-> {wav_out}")
+    return paths
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -176,15 +207,25 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--seed", type=int, default=0)
     sv.set_defaults(func=cmd_serve)
 
-    sy = sub.add_parser("synthesize", help="Tacotron eval synthesis: "
-                        "text -> mels, map.txt, Griffin-Lim wavs")
-    sy.add_argument("--model", default="Tacotron",
+    sy = sub.add_parser("synthesize", help="eval synthesis: text -> mels, "
+                        "map.txt, Griffin-Lim wavs (Tacotron), mels -> "
+                        "WaveNet wavs (WaveNet), or both (Tacotron-2)")
+    sy.add_argument("--model", default="Tacotron-2",
                     choices=("Tacotron", "WaveNet", "Tacotron-2"))
     sy.add_argument("--mode", default="eval",
                     choices=("eval", "gta", "synthesis", "synthesis_random",
                              "synthesis_multiple", "style_embs"))
-    sy.add_argument("--checkpoint", required=True,
-                    help="Tacotron flax msgpack ({params, batch_stats})")
+    sy.add_argument("--checkpoint", default=None,
+                    help="Tacotron flax msgpack ({params, batch_stats}); "
+                         "needed with --model Tacotron / Tacotron-2")
+    sy.add_argument("--wavenet-checkpoint", default=None,
+                    help="WaveNet flax msgpack (EMA params); needed with "
+                         "--model WaveNet / Tacotron-2")
+    sy.add_argument("--mels-map", default=None,
+                    help="map.txt of the mels to vocode (default "
+                         "<output-dir>/eval/map.txt)")
+    sy.add_argument("--limit", type=int, default=None,
+                    help="vocode only the first N rows of the map")
     sy.add_argument("--output-dir", default="tacotron_output")
     sy.add_argument("--text-list", default=None)
     sy.add_argument("--sentence", default=None)

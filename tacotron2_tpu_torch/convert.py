@@ -11,7 +11,8 @@ Takes what the JAX package trains and checkpoints — the Tacotron
   reference encoders (conv2d [kh, kw, in, out] -> [out, in, kh, kw]), GST
   tokens and attention, the attention memory layer, postnet and its
   projection;
-- `WaveNet` (models/wavenet/model.py): the SubPixel upsample convs;
+- `WaveNet` (models/wavenet/model.py): the SubPixel upsample convs and
+  the teacher-forced conv stack;
 - the decoder and sampler parameter tuples through
   `ops/tacotron_decoder_kernel.extract_decoder_params` and
   `models/wavenet/sampler.extract_sampler_params` (weight norm
@@ -30,6 +31,7 @@ import torch
 from .config import Config
 from .models.tacotron.model import Tacotron
 from .models.wavenet.model import WaveNet
+from .models.wavenet.modules import conv1x1_params, effective_kernel
 from .utils import flax_msgpack
 
 
@@ -119,12 +121,34 @@ def tacotron_from_flax(cfg: Config, params: Mapping, batch_stats: Mapping,
 
 
 def wavenet_from_flax(cfg: Config, params: Mapping, device="cuda") -> WaveNet:
-    """Build the port's WaveNet upsampler from flax WaveNet params."""
+    """Build the port's WaveNet from flax WaveNet params: the SubPixel
+    upsample convs ([kh, kw, 1, scale] -> [scale, 1, kh, kw]) and the conv
+    stack, weight norm materialised (`modules.effective_kernel`), causal
+    convs [kw, R, G] -> torch's [G, R, kw], missing biases zero."""
     m = WaveNet(cfg)
     for i, layer in enumerate(m.upsample_network.layers):
         conv = params["upsample_network"][f"up_{i}"]["Conv_0"]
         _set(layer.weight, _np(conv["kernel"]).transpose(3, 2, 0, 1))
         _set(layer.bias, conv["bias"])
+
+    def dense(w, b, p):
+        k, bias = conv1x1_params(p)
+        _set(w, k)
+        _set(b, np.zeros(w.shape[1], np.float32) if bias is None else bias)
+
+    dense(m.first_w, m.first_b, params["input_convolution"])
+    for i, blk in enumerate(m.blocks):
+        p = params[f"residual_block_{i}"]
+        cc = p["causal_conv"]
+        cc = cc["Conv_0"] if "Conv_0" in cc else cc
+        _set(blk.conv_w, effective_kernel(cc).transpose(2, 1, 0))
+        _set(blk.conv_b, cc["bias"] if "bias" in cc
+             else np.zeros(blk.conv_b.shape, np.float32))
+        dense(blk.cin_w, blk.cin_b, p["cin_conv"])
+        dense(blk.skip_w, blk.skip_b, p["skip_conv"])
+        dense(blk.out_w, blk.out_b, p["out_conv"])
+    dense(m.final1_w, m.final1_b, params["final_convolution_1"])
+    dense(m.final2_w, m.final2_b, params["final_convolution_2"])
     return m.to(device).eval()
 
 
@@ -135,3 +159,9 @@ def load_checkpoints(taco_path: str, wn_path: str | None = None) -> Any:
     taco = flax_msgpack.load(taco_path)
     return taco["params"], taco.get("batch_stats", {}), \
         (flax_msgpack.load(wn_path) if wn_path else None)
+
+
+def load_wavenet(path: str) -> Any:
+    """Read a WaveNet (EMA) params msgpack checkpoint as a nested dict of
+    numpy arrays."""
+    return flax_msgpack.load(path)

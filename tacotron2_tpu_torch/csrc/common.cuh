@@ -54,20 +54,40 @@ struct Pack<__nv_bfloat16> {
   }
 };
 
-// The product loop issues DEPTH 16-byte weight loads per thread before it
+// 8 bytes of bf16 weights (V = 4): the same column groups and splits as
+// Pack<float> with half the bytes. The sampler's narrow per-CTA products
+// (32 columns) run ~15% faster with it than with 16-byte bf16 loads, whose
+// 4 column groups leave each thread ~4 rows and more partials to sum.
+struct PackBf16x4 {
+  static constexpr int V = 4;
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw ld(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ static void cvt(const Raw& q, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// The product loop issues DEPTH weight loads per thread before it
 // consumes the first, which is what hides the latency of L2 in these
 // one-row-at-a-time products; DEPTH trades registers for bytes in flight.
 
 // out[n] = bias[n] + sum_k x[k] * w[k * N + n] for n < N.
 // w: [K, N] row-major in global memory, N % V == 0, N / V <= blockDim.x,
-// rows 16-byte aligned. x, out, part: shared memory; part holds
+// rows aligned to P's load. x, out, part: shared memory; part holds
 // blockDim.x * V floats; out must not alias x. Every thread of the block
 // must call it; it ends with __syncthreads().
-template <int DEPTH, typename W>
+template <int DEPTH, typename W, typename P = Pack<W>>
 __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
                        const float* x, int K, int N, float* out,
                        float* part) {
-  using P = Pack<W>;
   constexpr int V = P::V;
   const int groups = N / V;
   const int splits = blockDim.x / groups;

@@ -5,14 +5,20 @@ params` (:72) flattens the flax WaveNet tree into matmul-ready tensors and
 `incremental_sample` (:110) runs the sample loop with one ring buffer of
 width (kw-1)·d + 1 per layer. Per sample and layer: the kw=3 dilated conv
 over the ring taps, the 1×1 conditioning projection, the tanh·σ gate, the
-skip and residual 1×1s with √0.5 scaling; then the ReLU head and the
-Gaussian draw (distributions.py:110):
+skip and residual 1×1s with √0.5 scaling; then the ReLU head and a draw
+from the config's output head (`distributions.py`): Gaussian, mixture of
+logistics, or categorical (mulaw-quantize, whose input is the one-hot of
+the previous class and starts at class 127). The random numbers come from
+the caller as noise planes [planes, B, T], so this loop and the CUDA
+sampler kernel (its plain version's contract, `ops/wavenet_kernel.py`) see
+the same ones.
 
-    sample = clip(mean + exp(max(log_s, log_scale_min_gauss)) · z, -1, 1)
-
-fed back as the next input. The standard normals `z [B, T]` come from the
-caller, so this loop and the CUDA sampler kernel (its plain version's
-contract, `ops/wavenet_kernel.py`) see the same random numbers.
+`cache_dtype` / `weight_dtype` = torch.bfloat16 put the rounding where the
+TPU kernel puts it (ops/wavenet_kernel.py:248-285): the ring holds x in
+the cache dtype; the taps, x, the conditioning c_t and the gate output h
+enter the layer products rounded to the weight dtype, against weights
+rounded to it, with f32 sums; biases, the residual and skip sums and the
+head stay f32 (the categorical first conv gathers a rounded row).
 """
 
 from __future__ import annotations
@@ -23,8 +29,9 @@ import numpy as np
 import torch
 
 from ...config import Config
+from .distributions import (gaussian_sample, head_kind, inverse_cdf_pick,
+                            mol_sample)
 from .modules import conv1x1_params, effective_kernel
-
 
 class LayerParams(NamedTuple):
     conv_w: torch.Tensor     # [kw·R, G] taps oldest -> newest
@@ -38,7 +45,7 @@ class LayerParams(NamedTuple):
 
 
 class SamplerParams(NamedTuple):
-    first_w: torch.Tensor    # [1, R] (scalar input)
+    first_w: torch.Tensor    # [1, R] scalar input, [Q, R] categorical
     first_b: torch.Tensor    # [R]
     layers: Tuple[LayerParams, ...]
     final1_w: torch.Tensor   # [S, S]
@@ -49,8 +56,7 @@ class SamplerParams(NamedTuple):
 
 def _check_family(cfg: Config):
     wn = cfg.wavenet
-    assert wn.input_type in ("raw", "mulaw") and wn.out_channels == 2, \
-        "the port covers the Gaussian head on scalar input"
+    head_kind(cfg)                       # raises for a config without one
     assert wn.kernel_size == 3 and wn.gin_channels <= 0 and \
         wn.cin_channels > 0, "kw=3, local conditioning only"
 
@@ -61,7 +67,8 @@ def extract_sampler_params(params, cfg: Config, device="cuda"
 
     CausalConv1D kernels are [kw, R, G] (tap j multiplies x_{t-(kw-1-j)d}),
     so flattening in j order lists the taps oldest -> newest. Weight norm is
-    materialised; missing biases become zeros.
+    materialised; missing biases become zeros. The first conv is [in, R]:
+    [1, R] for scalar input, [Q, R] for the one-hot categorical input.
     """
     _check_family(cfg)
     wn = cfg.wavenet
@@ -95,39 +102,75 @@ def extract_sampler_params(params, cfg: Config, device="cuda"
                          t(f2w), opt(f2b, f2w.shape[1]))
 
 
-def gaussian_sample(y_hat, z, log_scale_min: float):
-    """y_hat [B, 2] (mean, log_scale), z [B] -> clipped sample [B]."""
-    log_s = torch.clamp(y_hat[:, 1], min=log_scale_min)
-    return torch.clamp(y_hat[:, 0] + torch.exp(log_s) * z, -1.0, 1.0)
+def _rounder(dtype):
+    """v -> v rounded to `dtype` and back to f32 (identity for f32)."""
+    if dtype in (None, torch.float32):
+        return lambda v: v
+    return lambda v: v.to(dtype).to(torch.float32)
 
 
-def incremental_sample(sp: SamplerParams, cfg: Config, c_up, z,
-                       initial_input: Optional[torch.Tensor] = None):
-    """Generate samples. c_up [B, T, cin] upsampled conditioning, z [B, T]
-    standard normals. Returns samples [B, T] f32."""
+def first_input(cfg: Config, B: int, device) -> torch.Tensor:
+    """The first step's input: 0 for scalar input, the one-hot of class 127
+    (the mulaw zero point) for the categorical head (sampler.py:134-137)."""
+    wn = cfg.wavenet
+    if head_kind(cfg)[0] != "categorical":
+        return torch.zeros(B, 1, device=device)
+    x0 = torch.zeros(B, wn.quantize_channels, device=device)
+    if wn.quantize_channels > 127:
+        x0[:, 127] = 1.0
+    return x0
+
+
+def incremental_sample(sp: SamplerParams, cfg: Config, c_up, noise,
+                       initial_input: Optional[torch.Tensor] = None,
+                       test_inputs: Optional[torch.Tensor] = None, *,
+                       cache_dtype=torch.float32, weight_dtype=torch.float32,
+                       return_y_hat: bool = False):
+    """Generate samples. c_up [B, T, cin] upsampled conditioning; noise
+    [planes, B, T] (or [B, T] for one plane): standard normals for the
+    Gaussian head, (0, 1) uniforms for the mixture (pick, logistic) and
+    categorical (pick) heads. test_inputs [B, T, in] overrides each step's
+    fed-back input (teacher forcing, sampler.py:216-218). Returns samples
+    [B, T] f32 (the class index for the categorical head), and y_hat
+    [B, T, out] with return_y_hat."""
     _check_family(cfg)
     wn = cfg.wavenet
+    kind, planes = head_kind(cfg)
     B, T, _ = c_up.shape
+    if noise.dim() == 2:
+        noise = noise[None]
+    if tuple(noise.shape) != (planes, B, T):
+        raise ValueError(f"the {kind} head takes noise [{planes}, {B}, {T}],"
+                         f" got {tuple(noise.shape)}")
     R = wn.residual_channels
     dils = wn.dilations
     widths = [(wn.kernel_size - 1) * d + 1 for d in dils]
     scale = float(np.sqrt(np.float32(0.5)))
     dev = c_up.device
-    rings = [torch.zeros(B, w, R, device=dev) for w in widths]
-    x_in = (torch.zeros(B, 1, device=dev) if initial_input is None
+    rw = _rounder(weight_dtype)
+    layers = [lp._replace(conv_w=rw(lp.conv_w), cin_w=rw(lp.cin_w),
+                          skip_w=rw(lp.skip_w), out_w=rw(lp.out_w))
+              for lp in sp.layers]
+    first_w = rw(sp.first_w) if kind == "categorical" else sp.first_w
+    rings = [torch.zeros(B, w, R, device=dev, dtype=cache_dtype)
+             for w in widths]
+    x_in = (first_input(cfg, B, dev) if initial_input is None
             else initial_input.float())
-    c_up, z = c_up.float(), z.float()
+    c_up, noise = c_up.float(), noise.float()
     out = torch.empty(B, T, device=dev)
+    y_hats = []
     for t in range(T):
-        x = x_in @ sp.first_w + sp.first_b
+        x = x_in @ first_w + sp.first_b
+        ct = rw(c_up[:, t])
         skips = None
-        for lp, ring, d, w in zip(sp.layers, rings, dils, widths):
-            ring[:, t % w] = x
-            taps = torch.cat([ring[:, (t - 2 * d) % w], ring[:, (t - d) % w],
-                              x], dim=-1)
-            g = taps @ lp.conv_w + lp.conv_b + c_up[:, t] @ lp.cin_w + lp.cin_b
+        for lp, ring, d, w in zip(layers, rings, dils, widths):
+            ring[:, t % w] = x.to(cache_dtype)
+            taps = torch.cat([rw(ring[:, (t - 2 * d) % w].float()),
+                              rw(ring[:, (t - d) % w].float()), rw(x)],
+                             dim=-1)
+            g = taps @ lp.conv_w + lp.conv_b + ct @ lp.cin_w + lp.cin_b
             a, b = g.chunk(2, dim=-1)
-            h = torch.tanh(a) * torch.sigmoid(b)
+            h = rw(torch.tanh(a) * torch.sigmoid(b))
             s = h @ lp.skip_w + lp.skip_b
             o = h @ lp.out_w + lp.out_b
             x = (x + o) * scale if wn.residual_legacy else x + o
@@ -140,7 +183,24 @@ def incremental_sample(sp: SamplerParams, cfg: Config, c_up, z,
         y = torch.relu(skips)
         y = torch.relu(y @ sp.final1_w + sp.final1_b)
         y_hat = y @ sp.final2_w + sp.final2_b
-        sample = gaussian_sample(y_hat, z[:, t], wn.log_scale_min_gauss)
+        if return_y_hat:
+            y_hats.append(y_hat)
+        if kind == "gaussian":
+            sample = gaussian_sample(y_hat, noise[0, :, t],
+                                     wn.log_scale_min_gauss)
+            x_in = sample[:, None]
+        elif kind == "mol":
+            sample = mol_sample(y_hat, noise[0, :, t], noise[1, :, t],
+                                wn.log_scale_min)
+            x_in = sample[:, None]
+        else:
+            idx = inverse_cdf_pick(y_hat, noise[0, :, t])
+            sample = idx.to(torch.float32)
+            x_in = torch.nn.functional.one_hot(
+                idx, wn.quantize_channels).to(torch.float32)
         out[:, t] = sample
-        x_in = sample[:, None]
+        if test_inputs is not None:
+            x_in = test_inputs[:, t].float()
+    if return_y_hat:
+        return out, torch.stack(y_hats, 1)
     return out

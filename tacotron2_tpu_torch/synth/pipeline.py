@@ -4,7 +4,12 @@ Port of tacotron2_tpu/synth/pipeline.py `TextToWavProgram` (:47): Tacotron
 memory pass → the CUDA decode kernel → postnet → stop-length recovery and
 silence masking (:194-207) → [0, 1] rescale (:215-220) → SubPixel
 conditioning upsample → the CUDA sampler kernel, on one device with no host
-round trip between the stages. With `vocoder="griffin_lim"` (:209-213) the
+round trip between the stages. The sampler takes whichever output head the
+config names (Gaussian, mixture of logistics, categorical), with the JAX
+program's dtype rule (:127-140): `sampler_bf16=None` runs a bf16 delay
+cache and bf16 weights on a CUDA device and f32 on the CPU;
+`wavenet.sampler_cache_dtype` / `sampler_weight_dtype` = "bfloat16" force
+bf16 for either. With `vocoder="griffin_lim"` (:209-213) the
 masked mel goes through Griffin-Lim (the CUDA Griffin-Lim kernel) instead
 of the upsample and the sampler. CPU tensors run the same chain through the
 kernels' plain versions (that is how the tests hold it against the JAX
@@ -14,8 +19,8 @@ decode chunks of at most 64 rows has no counterpart.
 
 Random numbers come from one `torch.Generator` on the program's device,
 reseeded per call from a counter: the prenet dropout multipliers of every
-decode step and the sampler's standard normals are drawn up front and
-passed into the kernels.
+decode step and the sampler's noise planes (`distributions.draw_noise`)
+are drawn up front and passed into the kernels.
 """
 
 from __future__ import annotations
@@ -26,22 +31,20 @@ import torch
 from .. import convert
 from ..config import Config
 from ..models.tacotron.decoder import drop_masks
+from ..models.wavenet.distributions import draw_noise
 from ..models.wavenet.sampler import extract_sampler_params
 from ..ops import griffin_lim
 from ..ops import tacotron_decoder_kernel as dk
 from ..ops import wavenet_kernel as wk
-
-
-def inv_mulaw(y, mu: int = 255):
-    """Inverse μ-law companding: sign(y)·((1+μ)^|y| − 1)/μ."""
-    return np.sign(y) * (1.0 / mu) * ((1.0 + mu) ** np.abs(y) - 1.0)
+from ..ops.mulaw import inv_mulaw, inv_mulaw_quantize
 
 
 class TextToWavProgram:
     """Padded text ids → waveform samples for one (batch, t_in, steps)
     serving bucket. Eligibility mirrors the JAX program: no `emt_attn`,
-    equal-width prenet, padded text ≤ 256, Gaussian head on scalar input.
-    `vocoder` is "wavenet" or "griffin_lim" (then `wn_params` may be None).
+    equal-width prenet, padded text ≤ 256, kernel_size 3. `vocoder` is
+    "wavenet" or "griffin_lim" (then `wn_params` may be None).
+    `sampler_bf16` is the JAX program's switch (see the module note).
 
     `keep_intermediates=True` keeps the last call's kernel inputs
     (keys, memory, mask, dropout multipliers, conditioning, noise) in
@@ -54,8 +57,9 @@ class TextToWavProgram:
                  batch: int, steps: int, t_in: int, t_ref: int = 64,
                  device="cuda", seed: int = 0,
                  keep_intermediates: bool = False,
+                 sampler_bf16: bool | None = None,
                  vocoder: str = "wavenet"):
-        tc, au = cfg.tacotron, cfg.audio
+        tc, au, wn = cfg.tacotron, cfg.audio, cfg.wavenet
         assert vocoder in ("wavenet", "griffin_lim"), vocoder
         self.vocoder = vocoder
         assert not cfg.gst.emt_attn, "emt_attn is not in the port yet"
@@ -76,12 +80,21 @@ class TextToWavProgram:
         self.dec_kernel = (dk.pack_weights(self.dec_params) if cuda
                            else None)
         self.wavenet = self.sampler_params = self.sampler_kernel = None
+        if sampler_bf16 is None:
+            sampler_bf16 = cuda
+        sdt = torch.bfloat16 if sampler_bf16 else torch.float32
+        bf = lambda name: torch.bfloat16 if name == "bfloat16" else sdt
+        self.cache_dtype = bf(wn.sampler_cache_dtype)
+        self.weight_dtype = bf(wn.sampler_weight_dtype)
         if vocoder == "wavenet":
             self.wavenet = convert.wavenet_from_flax(cfg, wn_params, device)
             self.sampler_params = extract_sampler_params(wn_params, cfg,
                                                          device)
-            self.sampler_kernel = (wk.pack_weights(self.sampler_params, cfg)
-                                   if cuda else None)
+            self.sampler_kernel = (
+                wk.pack_weights(self.sampler_params, cfg,
+                                cache_dtype=self.cache_dtype,
+                                weight_dtype=self.weight_dtype)
+                if cuda else None)
         self.memory_width = self.taco.memory_width
         self.generator = torch.Generator(device=self.device)
         self._seed = seed
@@ -136,11 +149,13 @@ class TextToWavProgram:
         if au.normalize_for_wavenet:
             c = (c - lo) / (au.max_abs_value - lo)
         c_up = self.wavenet.upsample(c)
-        z = torch.randn(B, self.t_audio, generator=g, device=self.device)
-        samples = wk.sample(self.sampler_params, cfg, c_up, z,
-                            kernel_weights=self.sampler_kernel)
+        noise = draw_noise(cfg, B, self.t_audio, g, self.device)
+        samples = wk.sample(self.sampler_params, cfg, c_up, noise,
+                            kernel_weights=self.sampler_kernel,
+                            cache_dtype=self.cache_dtype,
+                            weight_dtype=self.weight_dtype)
         if self.keep_intermediates:
-            self.intermediates.update(c_up=c_up, z=z)
+            self.intermediates.update(c_up=c_up, noise=noise)
         return samples, mel_len * self.hop, mel, stops, mel_len
 
     # ------------------------------------------------------------- public
@@ -221,4 +236,10 @@ class TextToWavProgram:
         elif self.cfg.wavenet.input_type == "mulaw":
             q = self.cfg.wavenet.quantize_channels - 1
             wavs = [np.asarray(inv_mulaw(w, q), np.float32) for w in wavs]
+        elif self.cfg.wavenet.input_type == "mulaw-quantize":
+            # class indices -> waveform, as the per-stage synthesizer does
+            # (the JAX program returns the indices)
+            q = self.cfg.wavenet.quantize_channels - 1
+            wavs = [np.asarray(inv_mulaw_quantize(w.astype(np.int32), q),
+                               np.float32) for w in wavs]
         return wavs

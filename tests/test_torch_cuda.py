@@ -11,8 +11,16 @@ on, live sampler noise), so both sides see the same inputs. The plain
 versions run on the same card with TF32 off. Tolerances: the
 decode kernel and its plain version both upcast the bf16 weights and sum
 in f32, differing in summation order only (frames atol 1e-3 over 8
-steps, stop probabilities and alignments 1e-4); the sampler is f32
-throughout (atol 1e-4 over 64 fed-back samples); Griffin-Lim's DFT
+steps, stop probabilities and alignments 1e-4); the sampler's Gaussian
+head in f32 throughout (atol 1e-4 over 64 fed-back samples), and every
+head and dtype by the teacher-forced oracle of tests/test_pallas_kernels.py
+:142 (the plain version replays the kernel's own trajectory): each draw is
+the plain version's — the class its logits pick by inverse CDF at the
+same uniform, or the MoL sample of that component within
+SAMPLER_REPLAY_ATOL — except at ties, u·total within 1e-5 relative of a
+cumulative boundary (in bf16, where another f32 sum order may move a bf16
+rounding of x or h by one step, ~0.4%, for at most 5% of the draws, as
+chip_smoke.py holds them); Griffin-Lim's DFT
 products over the 800-sample window support run as 3xTF32 tensor-core
 products, each 8-deep step added in f32, in another sum order (samples atol
 1e-4 at iters 0 and GL_ITERS4_ATOL after 4 iterations, and the
@@ -27,6 +35,10 @@ import pytest
 import torch
 
 from tacotron2_tpu_torch.models.tacotron.decoder import drop_masks
+from tacotron2_tpu_torch.models.wavenet.distributions import (
+    draw_noise, inverse_cdf_pick)
+
+Q = 256
 from tacotron2_tpu_torch.models.wavenet.sampler import extract_sampler_params
 from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
@@ -40,6 +52,10 @@ MELS, P, U, A, F, KW, M, R = 20, 16, 32, 16, 8, 7, 48, 2
 # itself lies 3.1e-4 from float64) and 3.8e-6 from random phases, on an
 # H100 (scripts/griffin_lim_accuracy.py)
 GL_ITERS4_ATOL = {"zero-phase": 1e-3, "random-phase": 2e-5}
+# kernel vs the plain version replaying its trajectory, one step at a time:
+# f32 differs in sum order only; bf16 also where that moves a rounding
+SAMPLER_REPLAY_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+SAMPLER_BF16_MOVED = 0.05
 
 
 def torch_cfg():
@@ -79,9 +95,13 @@ def decoder_tree(seed=0):
 
 
 def sampler_tree(cfg, seed=1):
+    """Random WaveNet weights for `cfg`'s head: the Gaussian head keeps its
+    samples off the ±1 clip; mixture and categorical logits spread the
+    picks over many components and classes."""
     rng = np.random.default_rng(seed)
     wn = cfg.wavenet
     Rc, G, S = wn.residual_channels, wn.gate_channels, wn.skip_out_channels
+    n_in = wn.quantize_channels if wn.input_type == "mulaw-quantize" else 1
     d = lambda i, o: {"Dense_0": {"kernel": _w(rng, i, o),
                                   "bias": _w(rng, o)}}
     tree = {f"residual_block_{i}": {
@@ -89,12 +109,26 @@ def sampler_tree(cfg, seed=1):
                                    "bias": _w(rng, G)}},
         "cin_conv": d(MELS, G), "skip_conv": d(G // 2, S),
         "out_conv": d(G // 2, Rc)} for i in range(wn.layers)}
-    tree.update(input_convolution=d(1, Rc), final_convolution_1=d(S, S),
-                final_convolution_2=d(S, 2))
-    head = tree["final_convolution_2"]["Dense_0"]     # keep samples off
-    head["kernel"] *= 0.1                              # the ±1 clip
-    head["bias"][:] = (0.0, -3.0)
+    tree.update(input_convolution=d(n_in, Rc), final_convolution_1=d(S, S),
+                final_convolution_2=d(S, wn.out_channels))
+    head = tree["final_convolution_2"]["Dense_0"]
+    if wn.out_channels == 2:                           # keep samples off
+        head["kernel"] *= 0.1                          # the ±1 clip
+        head["bias"][:] = (0.0, -3.0)
+    elif wn.input_type != "mulaw-quantize":            # MoL: means and
+        nr = wn.out_channels // 3                      # scales off the clip
+        head["kernel"][:, nr:] *= 0.1
+        head["bias"][2 * nr:] = -3.0
     return tree
+
+
+def head_cfg(kind, **extra):
+    cfg = torch_cfg()
+    heads = {"gaussian": dict(out_channels=2), "mol": dict(out_channels=30),
+             "categorical": dict(out_channels=256, quantize_channels=256,
+                                 input_type="mulaw-quantize")}
+    return cfg.replace(wavenet=dataclasses.replace(
+        cfg.wavenet, **heads[kind], **extra))
 
 pytestmark = pytest.mark.cuda
 
@@ -277,6 +311,52 @@ def test_sampler_kernel_matches_plain(dev):
     np.testing.assert_allclose(y_k.cpu(), y_p.cpu(), atol=1e-4, rtol=0)
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("kind,cd,wd", [
+    ("gaussian", BF16, BF16), ("gaussian", BF16, F32), ("mol", F32, F32),
+    ("mol", BF16, BF16), ("categorical", F32, F32),
+    ("categorical", BF16, BF16)],
+    ids=lambda v: str(v).replace("torch.", "") if not isinstance(v, str)
+    else v)
+def test_sampler_kernel_heads_match_plain(dev, kind, cd, wd):
+    cfg = head_cfg(kind)
+    sp = extract_sampler_params(sampler_tree(cfg), cfg, device=dev)
+    B, T = 2, 64
+    g = torch.Generator(dev).manual_seed(2)
+    c_up = torch.rand(B, T, MELS, generator=g, device=dev)
+    noise = draw_noise(cfg, B, T, g, dev)
+    kw = wk.pack_weights(sp, cfg, cache_dtype=cd, weight_dtype=wd)
+    before = wk.launches
+    y_k = wk.sample(sp, cfg, c_up, noise, kernel_weights=kw)
+    assert wk.launches == before + 1
+    y_r, y_hat = wk.teacher_forced_replay(sp, cfg, c_up, noise, y_k,
+                                          cache_dtype=cd, weight_dtype=wd)
+    torch.cuda.synchronize()
+    atol = SAMPLER_REPLAY_ATOL[wd]
+    err = (y_k - y_r).abs()
+    if kind == "gaussian":
+        print(f"{kind} {cd}/{wd}: max |kernel - replay| {err.max():.3e}")
+        assert float(err.max()) <= atol
+        return
+    nl = cfg.wavenet.out_channels // 3 if kind == "mol" else Q
+    want = inverse_cdf_pick(y_hat[..., :nl].reshape(B * T, -1),
+                            noise[0].reshape(-1)).reshape(B, T)
+    # the kernel's draw is the plain version's: the same class, or for MoL
+    # the sample of the component the plain logits pick (the same uniforms)
+    same = (y_k == y_r) if kind == "categorical" else err <= atol
+    ties = wk.pick_ties(y_hat[..., :nl], noise[0], 1e-5)
+    moved = int((~same & ~ties).sum())
+    print(f"{kind} {cd}/{wd}: {int((~same).sum())} draws differ ({moved} "
+          f"off a tie), {int(ties.sum())} ties, "
+          f"{len(torch.unique(want))} distinct picks; max |kernel - "
+          f"replay| where they agree {float(err[same].max()):.3e}")
+    assert moved <= (SAMPLER_BF16_MOVED * B * T if wd == BF16 else 0)
+    assert len(torch.unique(want)) > 4
+    assert float(err[same].max()) <= (atol if kind == "mol" else 0.0)
+
+
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
     cfg = torch_cfg()                      # f32 decode weights
     tparams, wparams = decoder_tree(), sampler_tree(cfg)
@@ -304,3 +384,26 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
                   kernel_weights=wk.pack_weights(sp, cfg))
     with pytest.raises(ValueError):
         wk.sample(sp, cfg, c_up, z)
+    kw = wk.pack_weights(sp, cfg)
+    for bad in (dict(cache_dtype=torch.bfloat16),      # packed for f32
+                dict(weight_dtype=torch.float16)):
+        with pytest.raises(ValueError):
+            wk.sample(sp, cfg, c_up, z, kernel_weights=kw, **bad)
+    with pytest.raises(ValueError):                    # two planes
+        wk.sample(sp, cfg, c_up, torch.zeros(2, 1, 8, device=dev),
+                  kernel_weights=kw)
+    with pytest.raises(ValueError):
+        wk.pack_weights(sp, cfg, cache_dtype=torch.float16)
+    mol = head_cfg("mol")
+    sp_m = extract_sampler_params(sampler_tree(mol), mol, device=dev)
+    with pytest.raises(ValueError):                    # another head
+        wk.sample(sp_m, mol, c_up, torch.zeros(2, 1, 8, device=dev),
+                  kernel_weights=kw)
+    # R = 120: (S + R) / 8 = 31 skip and residual columns a CTA, not a
+    # whole number of the kernel's 4-column loads
+    narrow = head_cfg("gaussian", residual_channels=120)
+    sp_n = extract_sampler_params(sampler_tree(narrow), narrow, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError):
+            wk.sample(sp_n, narrow, c_up, z, kernel_weights=wk.pack_weights(
+                sp_n, narrow, cache_dtype=dt, weight_dtype=dt))

@@ -28,7 +28,9 @@ def test_port_files_exist():
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
                 "ops/griffin_lim_kernel.py", "data/audio.py",
-                "synth/tacotron_synth.py"):
+                "synth/tacotron_synth.py", "ops/mulaw.py",
+                "data/wavenet_feeder.py", "models/wavenet/distributions.py",
+                "synth/wavenet_synth.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 

@@ -123,8 +123,10 @@ def test_intermediates_are_kept():
     ids, lengths, refs = inputs()
     tp(ids, lengths, refs, refs)
     im = tp.intermediates
-    assert set(im) == {"keys", "memory", "mask", "drop", "c_up", "z"}
-    assert im["keys"].shape[0] == B and im["z"].shape == (B, tp.t_audio)
+    assert set(im) == {"keys", "memory", "mask", "drop", "c_up", "noise"}
+    # the Gaussian head's one plane of standard normals
+    assert im["keys"].shape[0] == B and \
+        im["noise"].shape == (1, B, tp.t_audio)
 
 
 def test_cli_serve_writes_wavs(tmp_path, monkeypatch):

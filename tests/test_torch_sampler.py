@@ -118,7 +118,9 @@ def test_stack_weights_layout(cs):
 def test_pack_weights_holds_the_stacked_operands():
     """`pack_weights` lays the sampler kernel's operands out once: the
     stacked per-CTA weights of `stack_weights`, the ring layout, and a
-    refusal of heads other than the Gaussian one."""
+    refusal of weights that do not make the config's head (here MoL
+    outputs under the Gaussian config) and of dtypes the kernel does not
+    take."""
     _, _, wparams = flax_weights()
     cfg = torch_cfg()
     sp = extract_sampler_params(wparams, cfg, device="cpu")
@@ -129,6 +131,10 @@ def test_pack_weights_holds_the_stacked_operands():
     assert kw.dil.tolist() == list(dil) and kw.offs.tolist() == list(offs)
     assert kw.rows == rows and kw.cs == 8
     assert torch.equal(kw.final1_w, sp.final1_w)
+    assert kw.head == "gaussian" and kw.n_out == 2
+    assert kw.cache_dtype == kw.weight_dtype == torch.float32
     mol = sp._replace(final2_w=torch.zeros(sp.final2_w.shape[0], 30))
     with pytest.raises(ValueError):
         wk.pack_weights(mol, cfg)
+    with pytest.raises(ValueError):
+        wk.pack_weights(sp, cfg, weight_dtype=torch.float16)

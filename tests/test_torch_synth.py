@@ -167,9 +167,11 @@ def test_cli_synthesize_eval(tmp_path, monkeypatch):
     for i in range(2):
         assert (out / "eval" / "mels" / f"mel-eval-{i}.npy").exists()
         assert (out / "eval" / "wavs" / f"wav-eval-{i}.wav").exists()
-    for extra in (["--mode", "gta"], ["--model", "WaveNet"]):
+    # other modes are not ported; the WaveNet stage needs its weights
+    for extra, msg in ((["--mode", "gta"], "not ported yet"),
+                       (["--model", "WaveNet"], "wavenet-checkpoint")):
         args = cli.build_parser().parse_args(base + extra)
-        with pytest.raises(SystemExit, match="not ported yet"):
+        with pytest.raises(SystemExit, match=msg):
             args.func(args)
 
 
