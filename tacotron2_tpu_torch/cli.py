@@ -7,17 +7,29 @@ cached; `--vocoder griffin_lim` swaps WaveNet for Griffin-Lim. Sentences
 come from --text-list / --sentence, or from stdin, one per line; wavs land
 in <output-dir>/serve/speech-NNNNN.wav.
 
-`synthesize`, port of cli.py `synthesize` (:232-298) in eval mode:
-- `--model Tacotron`: sentences (--text-list / --sentence, else the
-  reference's eval sentences) → `TacotronSynthesizer` → mels, map.txt and
-  Griffin-Lim wavs under <output-dir>/eval/;
+`synthesize`, port of cli.py `synthesize` (:232-298):
+- `--model Tacotron`, by `--mode`:
+  - `eval` (the default): sentences (--text-list / --sentence, else the
+    reference's eval sentences) → `TacotronSynthesizer` → mels, map.txt
+    and Griffin-Lim wavs under <output-dir>/eval/;
+  - `gta`: the train.txt rows of --input-path (--limit rows), teacher-
+    forced on their own mels → <output-dir>/gta/mels and map.txt;
+  - `synthesis`: each row of --synth-metadata (else --input-path) with
+    its emotion and speaker references, resolved under --input-dir (else
+    the metadata's directory), swapped by --flip-spk-emt →
+    <output-dir>/natural/;
+  - `synthesis_random` (--paired), `synthesis_multiple` (--flip-spk-emt)
+    and `style_embs` (--n-spk, --n-per-spk) on the train.txt of
+    --input-path → <output-dir>/random/, multiple/, embeddings/;
 - `--model WaveNet`: the mels a map.txt names (--mels-map, else
-  <output-dir>/eval/map.txt; --limit rows) → `WaveNetSynthesizer` →
+  <output-dir>/gta/map.txt with --mode gta and <output-dir>/eval/map.txt
+  otherwise; --limit rows) → `WaveNetSynthesizer` →
   <output-dir>/wavenet/wavs/wavenet-<mel name>.wav, in batches of
   `train.wavenet_synthesis_batch_size`;
 - `--model Tacotron-2` (the default, as in the reference): the first, then
-  the second on the map.txt it wrote.
-The other modes are not ported yet and say so.
+  the second on the map.txt it wrote; after `synthesis_random`,
+  `synthesis_multiple` and `style_embs` it stops before WaveNet, as the
+  JAX command does.
 
 Weights are the JAX package's flax msgpack checkpoints (Tacotron
 {params, batch_stats}, WaveNet EMA params), read without flax; reference
@@ -34,6 +46,11 @@ mels are `.npy` files. Everything runs on `--device` (default cuda).
         --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
         --wavenet-checkpoint artifacts/e2e_demo_r5/wn_ckpt.msgpack \
         --ref-mel-emt ref.npy --text-list texts.txt --output-dir out
+    python -m tacotron2_tpu_torch.cli synthesize --model Tacotron-2 \
+        --mode gta --input-path data/train.txt --limit 8 \
+        --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
+        --wavenet-checkpoint artifacts/e2e_demo_r5/wn_ckpt.msgpack \
+        --output-dir out
 """
 
 from __future__ import annotations
@@ -133,42 +150,75 @@ def _sentences(args):
     return list(EVAL_SENTENCES)
 
 
+# the modes whose output WaveNet does not vocode (JAX cli.py:286-288)
+EXPORT_MODES = ("synthesis_random", "synthesis_multiple", "style_embs")
+
+
+def _run_tacotron_mode(synth, args, out_dir: str) -> str:
+    """One Tacotron-stage mode; returns its map.txt or output directory."""
+    from .synth import tacotron_synth as ts
+
+    input_dir = args.input_dir or os.path.dirname(args.input_path or "")
+    if args.mode != "eval" and not (args.input_path or (
+            args.mode == "synthesis" and args.synth_metadata)):
+        raise SystemExit(f"synthesize --mode {args.mode} needs --input-path")
+    if args.mode == "gta":
+        return ts.run_gta_synthesis(synth, args.input_path, out_dir,
+                                    limit=args.limit)
+    if args.mode == "synthesis":
+        return ts.run_style_transfer(
+            synth, args.synth_metadata or args.input_path, input_dir,
+            out_dir, flip_spk_emt=args.flip_spk_emt, limit=args.limit)
+    if args.mode == "synthesis_random":
+        return ts.run_synthesis_random(synth, args.input_path, input_dir,
+                                       out_dir, paired=args.paired)
+    if args.mode == "synthesis_multiple":
+        return ts.run_synthesis_multiple(synth, args.input_path, input_dir,
+                                         out_dir,
+                                         flip_spk_emt=args.flip_spk_emt)
+    if args.mode == "style_embs":
+        return ts.run_style_embs(synth, args.input_path, input_dir, out_dir,
+                                 n_spk=args.n_spk, n_per_spk=args.n_per_spk)
+    cfg = synth.cfg
+    ref = (np.load(args.ref_mel_emt) if args.ref_mel_emt
+           else np.zeros((40, cfg.audio.num_mels), np.float32))
+    ref_spk = np.load(args.ref_mel_spk) if args.ref_mel_spk else ref
+    sentences = _sentences(args)
+    return ts.run_eval(synth, sentences, [ref] * len(sentences),
+                       [ref_spk] * len(sentences), out_dir)
+
+
 def cmd_synthesize(args):
-    """Returns the map.txt path for --model Tacotron, else the paths of the
+    """Returns the map.txt path (or the output directory) of the Tacotron
+    stage for --model Tacotron and the export modes, else the paths of the
     WaveNet wavs."""
-    if args.mode != "eval":
-        raise SystemExit(f"synthesize --mode {args.mode} is not ported yet "
-                         "(the port runs --mode eval)")
-    if args.model != "Tacotron" and not args.wavenet_checkpoint:
+    vocode = args.model == "WaveNet" or (args.model == "Tacotron-2"
+                                         and args.mode not in EXPORT_MODES)
+    if vocode and not args.wavenet_checkpoint:
         raise SystemExit(f"synthesize --model {args.model} needs "
                          "--wavenet-checkpoint")
     from . import convert
 
     cfg = get_config(args.preset, args.hparams)
     if args.model in ("Tacotron", "Tacotron-2"):
-        from .synth.tacotron_synth import TacotronSynthesizer, run_eval
+        from .synth.tacotron_synth import TacotronSynthesizer
 
         if not args.checkpoint:
             raise SystemExit(f"synthesize --model {args.model} needs "
                              "--checkpoint")
         tparams, stats, _ = convert.load_checkpoints(args.checkpoint)
-        ref = (np.load(args.ref_mel_emt) if args.ref_mel_emt
-               else np.zeros((40, cfg.audio.num_mels), np.float32))
-        ref_spk = np.load(args.ref_mel_spk) if args.ref_mel_spk else ref
-        sentences = _sentences(args)
         t0 = time.time()
         synth = TacotronSynthesizer(cfg, tparams, stats, device=args.device,
                                     seed=args.seed)
-        map_path = run_eval(synth, sentences, [ref] * len(sentences),
-                            [ref_spk] * len(sentences), args.output_dir)
-        log(f"tacotron synthesis of {len(sentences)} sentences in "
-            f"{time.time() - t0:.2f}s -> {map_path}")
-        if args.model == "Tacotron":
-            return map_path
+        out = _run_tacotron_mode(synth, args, args.output_dir)
+        log(f"tacotron synthesis --mode {args.mode} in "
+            f"{time.time() - t0:.2f}s -> {out}")
+        if args.model == "Tacotron" or args.mode in EXPORT_MODES:
+            return out
     from .synth.wavenet_synth import WaveNetSynthesizer, run_synthesis
 
-    map_path = args.mels_map or os.path.join(args.output_dir, "eval",
-                                             "map.txt")
+    map_path = args.mels_map or os.path.join(
+        args.output_dir, "gta" if args.mode == "gta" else "eval", "map.txt")
     t0 = time.time()
     synth_wn = WaveNetSynthesizer(
         cfg, convert.load_wavenet(args.wavenet_checkpoint),
@@ -207,9 +257,10 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--seed", type=int, default=0)
     sv.set_defaults(func=cmd_serve)
 
-    sy = sub.add_parser("synthesize", help="eval synthesis: text -> mels, "
-                        "map.txt, Griffin-Lim wavs (Tacotron), mels -> "
-                        "WaveNet wavs (WaveNet), or both (Tacotron-2)")
+    sy = sub.add_parser("synthesize", help="Tacotron synthesis by --mode "
+                        "(text -> mels, map.txt, Griffin-Lim wavs; GTA "
+                        "mels; style modes), mels -> WaveNet wavs "
+                        "(WaveNet), or both (Tacotron-2)")
     sy.add_argument("--model", default="Tacotron-2",
                     choices=("Tacotron", "WaveNet", "Tacotron-2"))
     sy.add_argument("--mode", default="eval",
@@ -223,9 +274,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "--model WaveNet / Tacotron-2")
     sy.add_argument("--mels-map", default=None,
                     help="map.txt of the mels to vocode (default "
+                         "<output-dir>/gta/map.txt with --mode gta, else "
                          "<output-dir>/eval/map.txt)")
     sy.add_argument("--limit", type=int, default=None,
-                    help="vocode only the first N rows of the map")
+                    help="only the first N rows of the GTA or synthesis "
+                         "metadata, and of the map to vocode")
+    sy.add_argument("--input-path", default=None,
+                    help="train.txt (gta, synthesis_random, "
+                         "synthesis_multiple, style_embs)")
+    sy.add_argument("--synth-metadata", default=None,
+                    help="synthesis-mode metadata (train.txt schema and "
+                         "reference columns 12/14)")
+    sy.add_argument("--input-dir", default=None,
+                    help="preprocessed data root the reference mels are "
+                         "resolved under (default: the input's directory)")
+    sy.add_argument("--flip-spk-emt", action="store_true")
+    sy.add_argument("--paired", action="store_true")
+    sy.add_argument("--n-spk", type=int, default=8)
+    sy.add_argument("--n-per-spk", type=int, default=8)
     sy.add_argument("--output-dir", default="tacotron_output")
     sy.add_argument("--text-list", default=None)
     sy.add_argument("--sentence", default=None)

@@ -75,6 +75,11 @@ struct PackBf16x4 {
   }
 };
 
+// v rounded to bf16 (to nearest even) and back to f32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 // The product loop issues DEPTH weight loads per thread before it
 // consumes the first, which is what hides the latency of L2 in these
 // one-row-at-a-time products; DEPTH trades registers for bytes in flight.
@@ -82,9 +87,10 @@ struct PackBf16x4 {
 // out[n] = bias[n] + sum_k x[k] * w[k * N + n] for n < N.
 // w: [K, N] row-major in global memory, N % V == 0, N / V <= blockDim.x,
 // rows aligned to P's load. x, out, part: shared memory; part holds
-// blockDim.x * V floats; out must not alias x. Every thread of the block
-// must call it; it ends with __syncthreads().
-template <int DEPTH, typename W, typename P = Pack<W>>
+// blockDim.x * V floats; out must not alias x. RX rounds each x[k] to bf16
+// as it enters the product. Every thread of the block must call it; it
+// ends with __syncthreads().
+template <int DEPTH, typename W, typename P = Pack<W>, bool RX = false>
 __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
                        const float* x, int K, int N, float* out,
                        float* part) {
@@ -108,7 +114,8 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
       for (int j = 0; j < DEPTH; ++j) {
         float wv[V];
         P::cvt(raw[j], wv);
-        const float xk = x[k + j * splits];
+        const float xk = RX ? round_bf16(x[k + j * splits])
+                            : x[k + j * splits];
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = fmaf(xk, wv[i], acc[i]);
       }
@@ -127,7 +134,7 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
         if (kj < K) {
           float wv[V];
           P::cvt(raw[j], wv);
-          const float xk = x[kj];
+          const float xk = RX ? round_bf16(x[kj]) : x[kj];
 #pragma unroll
           for (int i = 0; i < V; ++i) acc[i] = fmaf(xk, wv[i], acc[i]);
         }

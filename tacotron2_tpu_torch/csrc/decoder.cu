@@ -1,10 +1,13 @@
-// Tacotron autoregressive decode, a block of steps from explicit state, one
-// thread-block cluster per row.
+// Tacotron decode, autoregressive (a block of steps from explicit state) or
+// teacher-forced, one thread-block cluster per row.
 //
-// Replaces two TPU kernels of tacotron2_tpu/ops/tacotron_decoder_kernel.py:
+// Replaces three TPU kernels: of tacotron2_tpu/ops/tacotron_decoder_kernel.py
 // `build_decoder_kernel` (the whole decode, pallas_call at :1105) and
 // `build_decoder_block_kernel` (K steps from carried state, pallas_call at
-// :700), without the in-kernel emt_attn scorers. Semantics are those of
+// :700), without the in-kernel emt_attn scorers; and of
+// tacotron2_tpu/ops/tacotron_train_kernel.py the eval-mode forward of
+// `build_train_fwd` (train_zoneout=False, pallas_call at :325), below.
+// Semantics of the autoregressive mode are those of
 // Decoder.autoregressive with the stop sigmoid on, as the plain version
 // `tacotron2_tpu_torch/models/tacotron/decoder.py:decode_block` states
 // them: per step, prenet 2×FC with the caller's dropout multipliers, zoneout
@@ -29,6 +32,30 @@
 // makes the previous launch's flags visible; no launch waits on another
 // CTA outside its own cluster. State in and out may alias: every read of it
 // precedes the first cluster.sync(), every write follows the last.
+//
+// Teacher-forced mode (`decoder_kernel<true>`, the template's other
+// instantiation; the wrapper is tacotron2_tpu_torch/ops/
+// tacotron_train_kernel.py, the plain version models/tacotron/decoder.py:
+// teacher_forced). It is the same step, so it is a launch mode of this
+// kernel and not a copy: the two modes differ in five places, each a
+// compile-time branch, and the autoregressive instantiation compiles as
+// before. (1) Step t's input frame is teacher[t] ([steps, B, mels]) where
+// coins[t] is set, else the previous step's last frame (one coin per step,
+// shared by the batch, as JAX's Decoder.teacher_forced draws them). (2) The
+// stop head writes logits, no sigmoid. (3) No sticky stop flag and no early
+// stop: the wrapper runs every step in one launch (t0 = 0, nsteps = steps)
+// with the window constraint off. (4) Alignments are always written.
+// (5) Every activation is rounded to bf16 where it enters a product — the
+// matvec inputs, the cumulative weights of the location features, the
+// alignment of the context — as the TPU train kernel does with bf16
+// weights (the wrapper rounds the memory and the location taps once);
+// sums and the carried state stay f32. Zoneout is the EMA mix
+// (train_zoneout=False). The training forward's per-step residuals (gate
+// pre-activations z1/z2, h0d, hpre, ctx, h1, c1, h2, c2, cum before the
+// step) would be written where this loop computes them — after the prenet,
+// after each LSTM product and update, after the context exchange — by
+// rank 0 for the vectors every CTA holds and by each rank for its own gate
+// columns and cell units; that is the training forward's work.
 //
 // Design. A cluster of CS=8 CTAs (`__cluster_dims__`, co-scheduled by the
 // hardware) runs the steps of one row in a loop with a static trip count.
@@ -76,12 +103,12 @@ enum Ptr {
   P_PRE_W0, P_PRE_B0, P_PRE_W1, P_PRE_B1, P_L1_W, P_L1_B, P_L2_W, P_L2_B,
   P_WQ, P_WP, P_V_A, P_PROJ_W, P_PROJ_B,
   P_STATE_IN, P_CUM_IN, P_PMAX_IN, P_STATE_OUT, P_CUM_OUT, P_PMAX_OUT,
-  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, N_PTR
+  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, P_TEACHER, P_COINS, N_PTR
 };
 enum Int {
   I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
   I_FOP, I_CONSTRAINT, I_WIN_BACK, I_WIN_FWD, I_STOP_AT_ANY,
-  N_INT
+  I_TEACHER_FORCED, N_INT
 };
 
 struct DecArgs {
@@ -116,11 +143,24 @@ struct DecArgs {
                         // their count at [B], or null
   int* fired_out;       // [B + 1] after it (the count starts at 0), or null
   float* out;           // [B, s_total, FO] frames | stop probabilities
+                        // (stop logits when teacher-forced)
   float* align;         // [B, s_total, T] alignments, or null
+  const float* teacher;  // [s_total, B, mels] teacher frames, or null
+  const int* coins;      // [s_total] 1: step t takes teacher[t], or null
   int T, t0, nsteps, s_total, mels, P, U, M, A, KW, r, FOp;
-  int B, constraint, win_back, win_fwd, stop_at_any;
+  int B, constraint, win_back, win_fwd, stop_at_any, teacher_forced;
   float zoneout;
 };
+
+// This rank's product on x in shared memory; the teacher-forced mode
+// rounds x to bf16 as it enters (see the note).
+template <bool TF>
+__device__ __forceinline__ void mv(const __nv_bfloat16* w, const float* bias,
+                                   const float* x, int K, int N, float* out,
+                                   float* part) {
+  taco::matvec<DEPTH, __nv_bfloat16, taco::Pack<__nv_bfloat16>, TF>(
+      w, bias, x, K, N, out, part);
+}
 
 // Zoneout LSTM update of this rank's Uc units: gates z = [i | j | f | o]
 // (Uc each), own cell state c, the full previous h; the new h slice goes to
@@ -143,6 +183,7 @@ __device__ void lstm_update_and_share(cg::cluster_group& cluster, int rank,
   cluster.sync();  // the new h is complete everywhere
 }
 
+template <bool TF>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     decoder_kernel(const DecArgs a) {
   extern __shared__ float sm[];
@@ -220,25 +261,36 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   for (int s = 0; s < a.nsteps; ++s) {
     const int t = a.t0 + s;  // global step: drop, out and align index
 
+    // ---- teacher-forced: the input frame is the teacher's where the coin
+    // is set. The last step's final cluster.sync() ordered every read of
+    // xprev before this write.
+    if constexpr (TF) {
+      if (a.coins[t]) {
+        const float* tf = a.teacher + ((size_t)t * a.B + b) * mels;
+        for (int i = tid; i < mels; i += NT) xprev[i] = tf[i];
+      }
+      __syncthreads();
+    }
+
     // ---- prenet: 2x (FC + ReLU + dropout multiplier), on every CTA
-    taco::matvec<DEPTH>(a.pre_w0, a.pre_b0, xprev, mels, P, hp0, part);
+    mv<TF>(a.pre_w0, a.pre_b0, xprev, mels, P, hp0, part);
     for (int i = tid; i < P; i += NT)
       hp0[i] = fmaxf(hp0[i], 0.f) * drop[(size_t)(2 * t) * P + i];
     __syncthreads();
-    taco::matvec<DEPTH>(a.pre_w1, a.pre_b1, hp0, P, P, hpre, part);
+    mv<TF>(a.pre_w1, a.pre_b1, hp0, P, P, hpre, part);
     for (int i = tid; i < P; i += NT)
       hpre[i] = fmaxf(hpre[i], 0.f) * drop[(size_t)(2 * t + 1) * P + i];
     __syncthreads();
 
     // ---- zoneout LSTM1 on [hpre | ctx | h1], LSTM2 on [h1 | h2]; this
     // rank's gate columns, then the new h slices are shared
-    taco::matvec<DEPTH>(l1_w, l1_b, vec, K1, 4 * Uc, z, part);
+    mv<TF>(l1_w, l1_b, vec, K1, 4 * Uc, z, part);
     lstm_update_and_share(cluster, rank, z, c1, h1, hnew, Uc, zo);
-    taco::matvec<DEPTH>(l2_w, l2_b, h1, 2 * U, 4 * Uc, z, part);
+    mv<TF>(l2_w, l2_b, h1, 2 * U, 4 * Uc, z, part);
     lstm_update_and_share(cluster, rank, z, c2, h2, hnew, Uc, zo);
 
     // ---- location-sensitive energies, one warp per input position
-    taco::matvec<DEPTH>(a.wq, (const float*)nullptr, h2, U, A, q, part);
+    mv<TF>(a.wq, nullptr, h2, U, A, q, part);
     const int pmax = s_pmax;
     for (int tt = warp; tt < T; tt += NT / 32) {
       float acc = 0.f;
@@ -246,7 +298,9 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
         float loc = 0.f;
         for (int k = 0; k < a.KW; ++k) {
           const int si = tt + k - pad;
-          if (si >= 0 && si < T) loc = fmaf(cum[si], wp[k * A + aa], loc);
+          if (si >= 0 && si < T)
+            loc = fmaf(TF ? taco::round_bf16(cum[si]) : cum[si],
+                       wp[k * A + aa], loc);
         }
         acc = fmaf(a.v_a[aa], tanhf(keys[(size_t)tt * A + aa] + q[aa] + loc),
                    acc);
@@ -296,7 +350,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       float acc = 0.f;
 #pragma unroll 8
       for (int tt = 0; tt < T; ++tt)
-        acc = fmaf(al[tt], mem[(size_t)tt * M + col], acc);
+        acc = fmaf(TF ? taco::round_bf16(al[tt]) : al[tt],
+                   mem[(size_t)tt * M + col], acc);
       cnew[mm] = acc;
     }
     __syncthreads();
@@ -308,15 +363,16 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     cluster.sync();
 
     // ---- fused frame + stop projection on [h2 | ctx], on every CTA
-    taco::matvec<DEPTH>(a.proj_w, a.proj_b, h2, U + M, a.FOp, proj, part);
+    mv<TF>(a.proj_w, a.proj_b, h2, U + M, a.FOp, proj, part);
     const int nf = a.r * mels;
     if (rank == 0) {
       for (int i = tid; i < nf; i += NT) out[(size_t)t * FO + i] = proj[i];
       for (int i = tid; i < a.r; i += NT)
-        out[(size_t)t * FO + nf + i] = taco::sigmoidf(proj[nf + i]);
+        out[(size_t)t * FO + nf + i] =
+            TF ? proj[nf + i] : taco::sigmoidf(proj[nf + i]);
     }
     for (int i = tid; i < mels; i += NT) xprev[i] = proj[(a.r - 1) * mels + i];
-    if (rank == 0 && tid == 0) {
+    if (!TF && rank == 0 && tid == 0) {
       float lo = 1.f, hi = 0.f;
       for (int i = 0; i < a.r; ++i) {
         const float sp = taco::sigmoidf(proj[nf + i]);
@@ -365,8 +421,9 @@ extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
   return floats * sizeof(float);
 }
 
-// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out and align
-// may be null); ints: N_INT values in `Int` order. Returns a CUDA error
+// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out, align,
+// teacher and coins may be null; the teacher-forced mode needs teacher,
+// coins and align); ints: N_INT values in `Int` order. Returns a CUDA error
 // code, or 0.
 extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
                                    const int* ints, int n_int, float zoneout,
@@ -400,6 +457,8 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.fired_out = (int*)ptrs[P_FIRED_OUT];
   a.out = (float*)ptrs[P_OUT];
   a.align = (float*)ptrs[P_ALIGN];
+  a.teacher = (const float*)ptrs[P_TEACHER];
+  a.coins = (const int*)ptrs[P_COINS];
   a.B = ints[I_B];
   a.T = ints[I_T];
   a.t0 = ints[I_T0];
@@ -417,14 +476,23 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.win_back = ints[I_WIN_BACK];
   a.win_fwd = ints[I_WIN_FWD];
   a.stop_at_any = ints[I_STOP_AT_ANY];
+  a.teacher_forced = ints[I_TEACHER_FORCED];
   a.zoneout = zoneout;
   if (a.nsteps < 1 || a.t0 < 0 || a.t0 + a.nsteps > a.s_total)
     return (int)cudaErrorInvalidValue;
+  // teacher-forced: teacher, coins and alignments given, no stop flags and
+  // no window constraint
+  if (a.teacher_forced &&
+      (!a.teacher || !a.coins || !a.align || a.fired_in || a.fired_out ||
+       a.constraint))
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(const DecArgs) =
+      a.teacher_forced ? decoder_kernel<true> : decoder_kernel<false>;
   const size_t smem =
       taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp);
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decoder_kernel<<<a.B * CS, NT, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<a.B * CS, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -47,12 +47,18 @@ def window_forbidden(T: int, pmax, win: int, ctype: str):
     return (idx < p - back) | (idx >= p + win // 2)
 
 
+def identity(x):
+    return x
+
+
 def attention_step(q, keys_eff, memory, mask, cum, pmax, wp, v_a, *,
-                   constraint: bool, ctype: str, win: int):
+                   constraint: bool, ctype: str, win: int, rnd=identity):
     """One step. q [B, A] (already projected), keys_eff [B, T, A] (keys with
     the folded bias), memory [B, T, M], mask [B, T] float 1/0, cum [B, T],
-    pmax [B] long. Returns (context [B, M], align [B, T], cum, pmax)."""
-    loc = location_features(cum, wp)
+    pmax [B] long. `rnd` rounds the cumulative weights and the alignment
+    where they enter a product (see decoder.py:_step). Returns (context
+    [B, M], align [B, T], cum, pmax)."""
+    loc = location_features(rnd(cum), wp)
     energy = torch.tanh(keys_eff + q[:, None, :] + loc) @ v_a.float()
     if constraint:
         energy = energy.masked_fill(
@@ -62,5 +68,5 @@ def attention_step(q, keys_eff, memory, mask, cum, pmax, wp, v_a, *,
     align = ex / ex.sum(-1, keepdim=True)
     if constraint:
         pmax = torch.argmax(align, dim=-1)
-    context = torch.bmm(align[:, None, :], memory)[:, 0]
+    context = torch.bmm(rnd(align)[:, None, :], memory)[:, 0]
     return context, align, cum + align, pmax

@@ -1,11 +1,14 @@
 """Tacotron-2 with GST style conditioning — the inference passes (PyTorch).
 
-Counterpart of tacotron2_tpu/models/tacotron/model.py for what serving
+Counterpart of tacotron2_tpu/models/tacotron/model.py for what synthesis
 runs around the decode: `synthesis_memory_ext` (:255) — character
 embedding, conv + zoneout-BiLSTM encoder, both reference encoders, GST
 multi-head style attention, the `se_concat` join and the attention keys —
 and `postnet_pass` (:278). The autoregressive decode between them is
-`models/tacotron/decoder.py` / the CUDA decode kernel.
+`models/tacotron/decoder.py` / the CUDA decode kernel. `gta_pass` is
+`Tacotron.__call__` (:287) with train=False, gta=True: the same memory
+pass, the teacher-forced decode the caller hands in, the postnet, and
+with `synth_embeddings` the reference encoders run on the output mel.
 
 Ported for the default family: `gst.use_gst=True` with two reference
 encoders (not AdaIN, not `emt_attn`, not `emt_only`), `se_concat=True`.
@@ -18,6 +21,7 @@ from torch import nn
 
 from ...config import Config
 from ...text.symbols import symbols
+from .decoder import teacher_inputs
 from .modules import (BiLSTMEncoder, Dense, EncoderConvStack,
                       MultiheadStyleAttention, Postnet, ReferenceEncoder)
 
@@ -70,17 +74,19 @@ class Tacotron(nn.Module):
         return self.encoder_lstm(self.encoder_conv(x), input_lengths)
 
     def style_embeddings(self, ref_mel_emt, ref_mel_spk):
-        """Reference mels -> style embedding [B, 1, S]."""
+        """Reference mels -> (style embedding [B, 1, S], the emotion and the
+        speaker reference encoders' outputs [B, 128])."""
         B = ref_mel_emt.shape[0]
-        parts = []
+        parts, refs = [], []
         for refnet, tokens, attn, ref in (
                 (self.refnet_emt, self.style_tokens_emt, self.gst_attn_emt,
                  ref_mel_emt),
                 (self.refnet_spk, self.style_tokens_spk, self.gst_attn_spk,
                  ref_mel_spk)):
             value = torch.tanh(tokens)[None].expand(B, -1, -1)
-            parts.append(attn(refnet(ref)[:, None, :], value))
-        return torch.cat(parts, dim=-1)
+            refs.append(refnet(ref))
+            parts.append(attn(refs[-1][:, None, :], value))
+        return torch.cat(parts, dim=-1), refs[0], refs[1]
 
     def _clip(self, x):
         tc, au = self.cfg.tacotron, self.cfg.audio
@@ -98,7 +104,13 @@ class Tacotron(nn.Module):
         """-> (keys [B,T,A], memory [B,T,M], mask [B,T] bool, None, None);
         the last two are the emt_attn operands, absent in this family."""
         enc = self.encode(inputs, input_lengths)
-        style = self.style_embeddings(ref_mel_emt, ref_mel_spk)
+        style = self.style_embeddings(ref_mel_emt, ref_mel_spk)[0]
+        keys, memory, mask = self._keys_memory_mask(enc, style, input_lengths)
+        return keys, memory, mask, None, None
+
+    def _keys_memory_mask(self, enc, style, input_lengths):
+        """Encoder states + style -> (keys, memory, mask), as
+        `_decode_pass` (:215-226) joins them."""
         B, T = enc.shape[:2]
         memory = torch.cat([enc, style.expand(B, T, style.shape[-1])], -1)
         if self.cfg.tacotron.mask_encoder:
@@ -106,7 +118,7 @@ class Tacotron(nn.Module):
                 < input_lengths.to(enc.device)[:, None]
         else:
             mask = torch.ones(B, T, dtype=torch.bool, device=enc.device)
-        return self.memory_layer(memory), memory, mask, None, None
+        return self.memory_layer(memory), memory, mask
 
     @torch.no_grad()
     def postnet_pass(self, frames):
@@ -114,3 +126,35 @@ class Tacotron(nn.Module):
         dec = self._clip(frames.float())
         mel = self._clip(dec + self.postnet_projection(self.postnet(dec)))
         return dec, mel
+
+    @torch.no_grad()
+    def gta_pass(self, inputs, input_lengths, mel_targets, ref_mel_emt,
+                 ref_mel_spk, decode, *, synth_embeddings: bool = False):
+        """The eval forward with ground-truth-aligned teacher forcing
+        (JAX `Tacotron.__call__(gta=True, train=False)`, model.py:287-345):
+        encoder, style embeddings, memory and keys as `_decode_pass`
+        (:215-245) builds them, then `decode(keys, memory, mask, teacher)`
+        — the teacher-forced decode with every coin set, `teacher` [steps,
+        B, mels] from the targets [B, T_out, mels] — then the postnet
+        between two clips. Returns a dict of decoder_output and mel_outputs
+        [B, T_out, mels], stop_token_prediction (logits) [B, T_out],
+        alignments [B, T_in, steps], refnet_out_emt / refnet_out_spk [B,
+        128], and with `synth_embeddings` refnet_out_mel_emt /
+        refnet_out_mel_spk, the reference encoders on mel_outputs
+        (:338-341)."""
+        r = self.cfg.tacotron.outputs_per_step
+        enc = self.encode(inputs, input_lengths)
+        style, ref_emt, ref_spk = self.style_embeddings(ref_mel_emt,
+                                                        ref_mel_spk)
+        keys, memory, mask = self._keys_memory_mask(enc, style,
+                                                    input_lengths)
+        frames, stops, aligns = decode(keys, memory, mask,
+                                       teacher_inputs(mel_targets, r))
+        dec, mel = self.postnet_pass(frames)
+        out = dict(decoder_output=dec, mel_outputs=mel,
+                   stop_token_prediction=stops, alignments=aligns,
+                   refnet_out_emt=ref_emt, refnet_out_spk=ref_spk)
+        if synth_embeddings:
+            out.update(refnet_out_mel_emt=self.refnet_emt(mel),
+                       refnet_out_mel_spk=self.refnet_spk(mel))
+        return out

@@ -225,9 +225,9 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE) -> KernelWeights:
         fop=fop, cs=cs)
 
 
-class _Launch(NamedTuple):
+class Launch(NamedTuple):
     """What every launch of one decode shares: operands checked and laid
-    out once."""
+    out once (by `prepare_launch`)."""
 
     lib: ctypes.CDLL
     kw: KernelWeights
@@ -237,7 +237,10 @@ class _Launch(NamedTuple):
     ints: dict
 
 
-def _prepare(kw: KernelWeights, cfg: Config, keys, memory, mask) -> _Launch:
+def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
+                   teacher_forced: bool = False) -> Launch:
+    """Check the operands against the kernel's envelope and lay them out;
+    the teacher-forced mode runs without the window constraint."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     B, T, M = memory.shape
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
@@ -267,11 +270,13 @@ def _prepare(kw: KernelWeights, cfg: Config, keys, memory, mask) -> _Launch:
     monotonic = tc.synthesis_constraint_type == "monotonic"
     ints = dict(B=B, T=T, mels=mels, P=P, U=U, M=M, A=A, KW=KW,
                 r=tc.outputs_per_step, FOp=kw.fop,
-                constraint=int(bool(tc.synthesis_constraint)),
+                constraint=int(bool(tc.synthesis_constraint)
+                               and not teacher_forced),
                 win_back=0 if monotonic else win // 2 + win % 2,
                 win_fwd=win if monotonic else win // 2,
-                stop_at_any=int(bool(tc.stop_at_any)))
-    return _Launch(lib, kw, (keys.float() + kw.b_eff).contiguous(),
+                stop_at_any=int(bool(tc.stop_at_any)),
+                teacher_forced=int(teacher_forced))
+    return Launch(lib, kw, (keys.float() + kw.b_eff).contiguous(),
                    memory.contiguous(),
                    mask.to(device=dev, dtype=torch.float32).contiguous(),
                    ints)
@@ -279,7 +284,7 @@ def _prepare(kw: KernelWeights, cfg: Config, keys, memory, mask) -> _Launch:
 
 _INT_ORDER = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M", "A",
               "KW", "r", "FOp", "constraint", "win_back", "win_fwd",
-              "stop_at_any")
+              "stop_at_any", "teacher_forced")
 
 
 def pack_state(state: DecoderKernelState, P: int,
@@ -312,21 +317,23 @@ def unpack_state(vec, cum, pmax, mels: int, P: int, M: int,
         ctx=vec[:, o:o + M].contiguous(), cum=cum, pmax=pmax)
 
 
-def _launch(L: _Launch, cfg: Config, drop, state_in, state_out, out, align,
-            fired_in, fired_out, *, t0: int, nsteps: int, s_total: int):
+def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
+           fired_in, fired_out, *, t0: int, nsteps: int, s_total: int,
+           teacher=None, coins=None):
     """One launch: steps t0 .. t0+nsteps-1 of arrays laid out for s_total
-    steps; state_in / state_out are `pack_state` triples. Operands made by
-    the caller are freed after it returns, maybe before the kernel ends;
-    PyTorch's caching allocator reuses a freed block only for work queued
-    later on the same stream, so they outlive the kernel."""
-    global launches
+    steps; state_in / state_out are `pack_state` triples; teacher [s_total,
+    B, mels] f32 and coins [s_total] int32 in the teacher-forced mode.
+    Operands made by the caller are freed after it returns, maybe before
+    the kernel ends; PyTorch's caching allocator reuses a freed block only
+    for work queued later on the same stream, so they outlive the kernel.
+    The caller counts the launch."""
     kw = L.kw
     nul = ctypes.c_void_p(None)
     p = lambda x: nul if x is None else ctypes.c_void_p(x.data_ptr())
     ptrs = [L.keys, L.memory, L.mask, drop, kw.pre_w0, kw.pre_b0, kw.pre_w1,
             kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, kw.wp,
             kw.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
-            fired_out, out, align]
+            fired_out, out, align, teacher, coins]
     ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
     lib = L.lib
     n = lib.taco_decoder_state_floats(ints["mels"], ints["P"], ints["U"],
@@ -342,7 +349,6 @@ def _launch(L: _Launch, cfg: Config, drop, state_in, state_out, out, align,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     from ..native.build import check
     check(rc, "taco_decoder_launch")
-    launches += 1
 
 
 def _check_state(state: DecoderKernelState, B, T, M, U, mels, dev):
@@ -358,6 +364,7 @@ def _check_state(state: DecoderKernelState, B, T, M, U, mels, dev):
 
 def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
                  early_stop_block, emit_alignments):
+    global launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
@@ -365,7 +372,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
     dev = memory.device
     if drop.shape != (B, steps, 2, P) or drop.device != dev:
         raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
-    L = _prepare(kw, cfg, keys, memory, mask)
+    L = prepare_launch(kw, cfg, keys, memory, mask)
     drop = drop.to(torch.float32).contiguous()
     K = int(early_stop_block)
     if K <= 0 or K >= steps:
@@ -382,9 +389,10 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
     fired = torch.zeros(len(starts) + 1, B + 1, dtype=torch.int32,
                         device=dev)
     for i, t0 in enumerate(starts):
-        _launch(L, cfg, drop, state, state, out, align, fired[i],
-                fired[i + 1], t0=t0, nsteps=min(K, steps - t0),
-                s_total=steps)
+        launch(L, cfg, drop, state, state, out, align, fired[i],
+               fired[i + 1], t0=t0, nsteps=min(K, steps - t0),
+               s_total=steps)
+        launches += 1
     frames = out[..., :r * mels].reshape(B, steps * r, mels)
     stops = out[..., r * mels:].reshape(B, steps * r)
     return frames, stops, (align.transpose(1, 2) if emit_alignments
@@ -393,6 +401,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
 
 def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
                        drop):
+    global launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
@@ -402,14 +411,15 @@ def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
     if drop.shape != (B, K, 2, P) or drop.device != dev or K < 1:
         raise ValueError(f"drop must be [B, K, 2, P] on {dev}")
     _check_state(state, B, T, M, tc.decoder_lstm_units, mels, dev)
-    L = _prepare(kw, cfg, keys, memory, mask)
+    L = prepare_launch(kw, cfg, keys, memory, mask)
     state_in = pack_state(state, P, kw.cs)
     state_out = tuple(torch.empty_like(x) for x in state_in)
     FO = r * mels + r
     out = torch.empty(B, K, FO, device=dev)
     align = torch.empty(B, K, T, device=dev)
-    _launch(L, cfg, drop.to(torch.float32).contiguous(), state_in, state_out,
-            out, align, None, None, t0=0, nsteps=K, s_total=K)
+    launch(L, cfg, drop.to(torch.float32).contiguous(), state_in, state_out,
+           out, align, None, None, t0=0, nsteps=K, s_total=K)
+    launches += 1
     return (out[..., :r * mels].reshape(B, K * r, mels),
             out[..., r * mels:].reshape(B, K * r), align.transpose(1, 2),
             unpack_state(*state_out, mels, P, M, kw.cs))

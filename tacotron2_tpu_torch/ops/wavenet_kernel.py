@@ -273,7 +273,7 @@ def _sample_cuda(kw: KernelWeights, cfg: Config, c_up, noise):
             kw.offs, ring, out]
     assert len(ptrs) == lib.taco_sampler_n_ptr()
     assert len(_INT_ORDER) == lib.taco_sampler_n_int()
-    # the operands made here outlive the kernel: see _launch in
+    # the operands made here outlive the kernel: see `launch` in
     # ops/tacotron_decoder_kernel.py
     rc = lib.taco_sampler_launch(
         (ctypes.c_void_p * len(ptrs))(*[x.data_ptr() for x in ptrs]),

@@ -1,10 +1,14 @@
 """Tacotron synthesizer: checkpointed weights -> mels, alignments, wavs.
 
-Port of tacotron2_tpu/synth/tacotron_synth.py for the eval mode:
-`TacotronSynthesizer` with `prepare_inputs` (:273), `_pad_refs` (:283),
-`get_output_lengths` (:290), `synthesize` (:299, not GTA), `mel_to_wav`,
-`mels_to_wavs` (:388) and `gl_pad_value` (:36), and `run_eval` (:453)
-without its plots.
+Port of tacotron2_tpu/synth/tacotron_synth.py: `TacotronSynthesizer` with
+`prepare_inputs` (:273), `_pad_refs` (:283), `get_output_lengths` (:290),
+`synthesize` (:311, eval and GTA), `mel_to_wav`, `mels_to_wavs` (:388),
+`embed` (:427) and `gl_pad_value` (:36); and the drivers of every
+`synthesize --mode` of the Tacotron stage, without their plots:
+`run_eval` (:453), `run_gta_synthesis` (:497), `run_style_transfer`
+(:578), `run_synthesis_random` (:631), `run_synthesis_multiple` (:692)
+and `run_style_embs` (:780), with `_read_meta` (:534) and `_resolve_refs`
+(:540). Their numpy RNG picks the same rows as the JAX drivers'.
 
 The decode takes the routes the JAX synthesizer takes on the TPU
 (:350-365), both through the CUDA decode kernel (`ops/tacotron_decoder_
@@ -19,6 +23,12 @@ kernel.py`) on a CUDA device and through its plain version on the CPU:
   stopping once every row has fired (:241-246);
 - longer text without an early stop decodes all steps in one chain, as
   the JAX package's one-shot scan does.
+
+GTA synthesis and `embed` run `Tacotron.gta_pass`, whose teacher-forced
+decode takes every coin as 1 (`ops/tacotron_train_kernel.py`: the
+teacher-forced mode of the decode kernel on a CUDA device, its plain
+version on the CPU), with weights in `tacotron.fused_train_dtype`; it
+returns stop logits, as the JAX GTA route does.
 
 There is no VMEM gate: the kernel raises where a width does not fit its
 shared memory. Prenet dropout multipliers come from the synthesizer's
@@ -40,6 +50,7 @@ from ..data import audio as host_audio
 from ..models.tacotron.decoder import drop_masks, stop_fired
 from ..ops import griffin_lim
 from ..ops import tacotron_decoder_kernel as dk
+from ..ops import tacotron_train_kernel as tk
 from ..text import text_to_sequence
 from ..utils import log
 
@@ -60,8 +71,9 @@ class TacotronSynthesizer:
     """Tacotron weights (flax trees of numpy arrays) bound for batched
     synthesis on `device`. `keep_intermediates=True` keeps the last
     decode's inputs (keys, memory, mask, the first block's dropout
-    multipliers, the route) in `self.intermediates`, so a check can replay
-    the kernel against its plain version on the same numbers."""
+    multipliers, the route; for GTA the teacher and the coins) in
+    `self.intermediates`, so a check can replay the kernel against its
+    plain version on the same numbers."""
 
     def __init__(self, cfg: Config, params, batch_stats=None, *,
                  device="cuda", seed: int = 0,
@@ -76,6 +88,8 @@ class TacotronSynthesizer:
                                                     device=device)
         self.dec_kernel = (dk.pack_weights(self.dec_params)
                            if self.device.type == "cuda" else None)
+        self._params = params
+        self._tf_weights = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.keep_intermediates = keep_intermediates
@@ -110,6 +124,48 @@ class TacotronSynthesizer:
         return out
 
     # ------------------------------------------------------------- decode
+
+    def teacher_forced_weights(self):
+        """(DecoderParams, KernelWeights or None) of the teacher-forced
+        decode in `fused_train_dtype`: the autoregressive decode's own
+        where the two dtypes agree, else extracted once."""
+        if self._tf_weights is None:
+            if tk.train_weight_dtype(self.cfg) == dk.decode_weight_dtype(
+                    self.cfg):
+                self._tf_weights = (self.dec_params, self.dec_kernel)
+            else:
+                dp = tk.extract_params(self._params, self.cfg,
+                                       device=self.device)
+                self._tf_weights = (dp, dk.pack_weights(dp)
+                                    if self.device.type == "cuda" else None)
+        return self._tf_weights
+
+    def _gta_decode(self, keys, memory, mask, teacher):
+        """The teacher-forced decode with every coin 1 (GTA's ratio)."""
+        B, steps = memory.shape[0], teacher.shape[0]
+        drop = drop_masks(self.cfg, B, steps, self.generator, self.device)
+        coins = torch.ones(steps, dtype=torch.int32, device=self.device)
+        if self.keep_intermediates:
+            self.intermediates = dict(route="teacher_forced", keys=keys,
+                                      memory=memory, mask=mask,
+                                      teacher=teacher, coins=coins,
+                                      drop=drop)
+        dp, kw = self.teacher_forced_weights()
+        return tk.teacher_forced_fwd(dp, self.cfg, keys, memory, mask,
+                                     teacher, coins, drop, kernel_weights=kw)
+
+    def _gta_pass(self, texts, refs_emt, refs_spk, targets,
+                  synth_embeddings=False):
+        """Padded refs and targets (numpy) -> `Tacotron.gta_pass`'s dict and
+        the input lengths."""
+        inputs, input_lengths = self.prepare_inputs(texts)
+        t = lambda x, dt: torch.as_tensor(x, device=self.device, dtype=dt)
+        out = self.taco.gta_pass(
+            t(inputs, torch.long), t(input_lengths, torch.long),
+            t(targets, torch.float32), t(refs_emt, torch.float32),
+            t(refs_spk, torch.float32), self._gta_decode,
+            synth_embeddings=synth_embeddings)
+        return out, input_lengths
 
     def _memory(self, inputs, input_lengths, refs_emt, refs_spk):
         t = lambda x, dt=None: torch.as_tensor(x, device=self.device,
@@ -162,14 +218,29 @@ class TacotronSynthesizer:
     def synthesize(self, texts: Sequence[str],
                    ref_mels_emt: Sequence[np.ndarray],
                    ref_mels_spk: Sequence[np.ndarray],
-                   max_steps: Optional[int] = None
+                   mel_targets: Optional[Sequence[np.ndarray]] = None,
+                   gta: bool = False, max_steps: Optional[int] = None
                    ) -> Dict[str, object]:
         """Batch synthesis: trimmed mels, alignments [T_in, steps], the raw
-        stop probabilities and the lengths."""
+        stop tokens and the lengths. Eval: free-running decode, stop
+        probabilities, lengths from the stops. GTA (`gta=True`, the
+        targets [T_i, mels] given): teacher-forced on the targets padded
+        with -max_abs_value to a multiple of max(r, 64) frames, stop
+        logits, the targets' lengths."""
         tc = self.cfg.tacotron
-        inputs, input_lengths = self.prepare_inputs(texts)
         refs_emt = self._pad_refs(ref_mels_emt)
         refs_spk = self._pad_refs(ref_mels_spk)
+        if gta:
+            if mel_targets is None:
+                raise ValueError("GTA synthesis needs mel_targets")
+            targets = self._pad_refs(mel_targets,
+                                     max(tc.outputs_per_step, 64))
+            out, input_lengths = self._gta_pass(texts, refs_emt, refs_spk,
+                                                targets)
+            return self._trim(out["mel_outputs"], out["alignments"],
+                              out["stop_token_prediction"].cpu().numpy(),
+                              [len(m) for m in mel_targets], input_lengths)
+        inputs, input_lengths = self.prepare_inputs(texts)
         steps = max_steps or tc.max_iters
         k = tc.early_stop_block
         keys, memory, mask = self._memory(inputs, input_lengths, refs_emt,
@@ -185,17 +256,36 @@ class TacotronSynthesizer:
                                                       steps)
         _, mels = self.taco.postnet_pass(frames)
         stops = stops.cpu().numpy()
-        lengths = self.get_output_lengths(stops)
+        return self._trim(mels, aligns, stops,
+                          self.get_output_lengths(stops), input_lengths)
+
+    def _trim(self, mels, aligns, stops, lengths, input_lengths):
+        """Each row's mel to its length, clipped to ±max_abs_value, and its
+        alignments to its text and steps."""
+        r = self.cfg.tacotron.outputs_per_step
         mels, aligns = mels.cpu().numpy(), aligns.cpu().numpy()
         m = self.cfg.audio.max_abs_value
         out_mels, out_aligns = [], []
         for i, L in enumerate(lengths):
             L = max(int(L), 1)
             out_mels.append(np.clip(mels[i, :L], -m, m))
-            out_aligns.append(aligns[i, :input_lengths[i],
-                                     :max(1, L // tc.outputs_per_step)])
+            out_aligns.append(aligns[i, :input_lengths[i], :max(1, L // r)])
         return dict(mels=out_mels, alignments=out_aligns, stop_tokens=stops,
                     lengths=lengths)
+
+    def embed(self, texts: Sequence[str], mel_refs: Sequence[np.ndarray]
+              ) -> Dict[str, np.ndarray]:
+        """The embed-only pass: teacher-forced on the reference mels
+        themselves (padded to a multiple of 64 frames), which are also both
+        style references; returns the reference encoders' embeddings of the
+        references and of the output mel, [B, 128] each."""
+        refs = self._pad_refs(mel_refs)
+        out, _ = self._gta_pass(texts, refs, refs, refs,
+                                synth_embeddings=True)
+        return {k: out[v].cpu().numpy() for k, v in (
+            ("emb_emt", "refnet_out_emt"), ("emb_spk", "refnet_out_spk"),
+            ("emb_mo_emt", "refnet_out_mel_emt"),
+            ("emb_mo_spk", "refnet_out_mel_spk"))}
 
     # -------------------------------------------------------------- vocode
 
@@ -269,3 +359,312 @@ def run_eval(synth: TacotronSynthesizer, sentences: Sequence[str],
         f.write("\n".join(map_rows) + "\n")
     log(f"wrote eval synthesis for {len(sentences)} sentences -> {eval_dir}")
     return map_path
+
+
+def run_gta_synthesis(synth: TacotronSynthesizer, metadata_path: str,
+                      output_dir: str, batch_size: int = 32,
+                      limit: Optional[int] = None) -> str:
+    """Teacher-forced GTA mels for a corpus's train.txt rows, in batches of
+    `batch_size`: <output_dir>/gta/mels/gta-<mel name> and a map.txt of
+    rows `audio|gt_mel|gta_mel|time_steps|text` (the reference's
+    tacotron_output/gta/map.txt, which WaveNet synthesis and training
+    read). Returns the path of map.txt."""
+    gta_dir = os.path.abspath(os.path.join(output_dir, "gta"))
+    os.makedirs(os.path.join(gta_dir, "mels"), exist_ok=True)
+    data_dir = os.path.abspath(os.path.dirname(metadata_path))
+    with open(metadata_path, encoding="utf-8") as f:
+        meta = [line.strip().split("|") for line in f if line.strip()]
+    if limit:
+        meta = meta[:limit]
+    map_rows = []
+    for start in range(0, len(meta), batch_size):
+        rows = meta[start:start + batch_size]
+        texts = [r[7] for r in rows]
+        mels = [np.load(os.path.join(data_dir, r[0], "mels", r[2]))
+                for r in rows]
+        result = synth.synthesize(texts, mels, mels, mel_targets=mels,
+                                  gta=True)
+        for r, mel_out in zip(rows, result["mels"]):
+            out_path = os.path.join(gta_dir, "mels", f"gta-{r[2]}")
+            np.save(out_path, mel_out, allow_pickle=False)
+            audio_path = os.path.join(data_dir, r[0], "audio", r[1])
+            gt_mel_path = os.path.join(data_dir, r[0], "mels", r[2])
+            map_rows.append(f"{audio_path}|{gt_mel_path}|{out_path}|{r[5]}|"
+                            f"{r[7]}")
+        log(f"GTA synthesis {min(start + batch_size, len(meta))}/{len(meta)}")
+    map_path = os.path.join(gta_dir, "map.txt")
+    with open(map_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(map_rows) + "\n")
+    log(f"wrote GTA map -> {map_path}")
+    return map_path
+
+
+def _read_meta(path: str) -> List[List[str]]:
+    with open(path, encoding="utf-8") as f:
+        return [line.strip().split("|") for line in f
+                if line.strip() and not line.startswith("#")]
+
+
+def _resolve_refs(meta: List[List[str]], input_dir: str,
+                  flip_spk_emt: bool = False):
+    """Per-row texts, own mel paths, emotion and speaker reference mel
+    paths, output basenames and labels of a synthesis metadata file: the
+    train.txt schema with two columns appended, [12] the emotion reference
+    and [14] the speaker reference, each 'same' (the row's own mel) or
+    'dataset/mel-file.npy'; [13] tags the basename. `flip_spk_emt` swaps
+    the two reference lists."""
+    texts, mel_paths, refs_emt, refs_spk, basenames = [], [], [], [], []
+    emt_labels, spk_labels = [], []
+    for m in meta:
+        own = os.path.join(input_dir, m[0], "mels", m[2])
+        texts.append(m[7])
+        mel_paths.append(own)
+
+        def ref_path(spec):
+            if spec == "same":
+                return own
+            ds, _, fname = spec.partition("/")
+            return os.path.join(input_dir, ds, "mels", fname)
+
+        refs_emt.append(ref_path(m[12] if len(m) > 12 else "same"))
+        refs_spk.append(ref_path(m[14] if len(m) > 14 else "same"))
+        ref_tag = m[13] if len(m) > 13 else "same"
+        basenames.append(f"{m[10].split('.')[0]}_{ref_tag}")
+        emt_labels.append(int(m[8]))
+        spk_labels.append(int(m[9]))
+    if flip_spk_emt:
+        refs_emt, refs_spk = refs_spk, refs_emt
+    return (texts, mel_paths, refs_emt, refs_spk, basenames, emt_labels,
+            spk_labels)
+
+
+def _synthesize_and_save(synth: TacotronSynthesizer, texts, refs_emt,
+                         refs_spk, mel_path, wav_path, batch_size: int,
+                         save_wavs: bool = True, on_batch=None):
+    """Synthesize `texts` with the reference mels at the given paths in
+    batches, saving mel i to mel_path(i) and its Griffin-Lim wav to
+    wav_path(i); on_batch(start, end, result) runs after each batch."""
+    sr = synth.cfg.audio.sample_rate
+    for start in range(0, len(texts), batch_size):
+        sl = slice(start, start + batch_size)
+        result = synth.synthesize(texts[sl],
+                                  [np.load(p) for p in refs_emt[sl]],
+                                  [np.load(p) for p in refs_spk[sl]])
+        wavs = synth.mels_to_wavs(result["mels"]) if save_wavs else []
+        for j, mel in enumerate(result["mels"]):
+            np.save(mel_path(start + j), mel, allow_pickle=False)
+            if save_wavs:
+                host_audio.save_wav(wavs[j], wav_path(start + j), sr)
+        if on_batch:
+            on_batch(start, start + len(result["mels"]), result)
+
+
+def run_style_transfer(synth: TacotronSynthesizer, synth_metadata_path: str,
+                       input_dir: str, output_dir: str, *,
+                       flip_spk_emt: bool = False, batch_size: int = 16,
+                       save_wavs: bool = True,
+                       limit: Optional[int] = None) -> str:
+    """The 'synthesis' mode: each row's text with its emotion and speaker
+    references (`_resolve_refs`) -> <output_dir>/natural/{mels/mel-<base>.npy,
+    wavs/wav-<base>.wav} and a map.txt of rows
+    `mel_path|text|emt_label|spk_label`. Returns the path of map.txt."""
+    synth_dir = os.path.abspath(os.path.join(output_dir, "natural"))
+    for sub in ("mels", "wavs"):
+        os.makedirs(os.path.join(synth_dir, sub), exist_ok=True)
+    meta = _read_meta(synth_metadata_path)
+    if limit:
+        meta = meta[:limit]
+    (texts, _, refs_emt, refs_spk, basenames, emt_labels,
+     spk_labels) = _resolve_refs(meta, input_dir, flip_spk_emt)
+    a = synth.cfg.audio
+    hours = sum(int(m[6]) for m in meta) * a.effective_hop / a.sample_rate \
+        / 3600
+    log(f"style-transfer synthesis: {len(meta)} rows ({hours:.2f} h)")
+    mel_path = lambda i: os.path.join(synth_dir, "mels",
+                                      f"mel-{basenames[i]}.npy")
+    map_rows = []
+
+    def on_batch(start, end, _):
+        map_rows.extend(f"{mel_path(i)}|{texts[i]}|{emt_labels[i]}|"
+                        f"{spk_labels[i]}" for i in range(start, end))
+        log(f"style transfer {end}/{len(texts)}")
+
+    _synthesize_and_save(
+        synth, texts, refs_emt, refs_spk, mel_path,
+        lambda i: os.path.join(synth_dir, "wavs", f"wav-{basenames[i]}.wav"),
+        batch_size, save_wavs, on_batch)
+    map_path = os.path.join(synth_dir, "map.txt")
+    with open(map_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(map_rows) + "\n")
+    return map_path
+
+
+def run_synthesis_random(synth: TacotronSynthesizer, train_txt: str,
+                         input_dir: str, output_dir: str, *,
+                         n_per_emotion: int = 5, paired: bool = False,
+                         emt_dataset: Optional[str] = None, seed: int = 2,
+                         batch_size: int = 16) -> str:
+    """The 'synthesis_random' mode: per emotion class (the emt_label
+    column; only the first with `paired`) `n_per_emotion` rows chosen by a
+    numpy RNG seeded with `seed`, each synthesized with a random
+    same-emotion reference (its own mel with `paired`) and its own mel as
+    the speaker reference -> <output_dir>/random/{mel,wav}-<base>.* and a
+    meta.csv of what was used. Returns the directory."""
+    rng = np.random.default_rng(seed)
+    synth_dir = os.path.join(output_dir, "random")
+    os.makedirs(synth_dir, exist_ok=True)
+    emt_rows: Dict[int, list] = {}
+    for m in _read_meta(train_txt):
+        if emt_dataset is None or m[0] == emt_dataset:
+            emt_rows.setdefault(int(m[8]), []).append(m)
+    n_emt = 1 if paired else len(emt_rows)
+    texts, refs_emt, refs_spk, basenames = [], [], [], []
+    meta_rows = ["basename,text,emt_label,spk_label,ref_mel"]
+    for emt in sorted(emt_rows)[:n_emt]:
+        rows = emt_rows[emt]
+        for ci in rng.choice(len(rows), min(n_per_emotion, len(rows)),
+                             replace=False):
+            row = rows[ci]
+            own = os.path.join(input_dir, row[0], "mels", row[2])
+            if paired:
+                ref = own
+            else:
+                ref_row = rows[int(rng.choice(len(rows)))]
+                ref = os.path.join(input_dir, ref_row[0], "mels", ref_row[2])
+            texts.append(row[7])
+            refs_emt.append(ref)
+            refs_spk.append(own)
+            base = f"{row[10].split('.')[0]}_e{emt}"
+            basenames.append(base)
+            meta_rows.append(
+                f"{base},{row[7]!r},{emt},{row[9]},{os.path.basename(ref)}")
+    with open(os.path.join(synth_dir, "meta.csv"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(meta_rows) + "\n")
+    _synthesize_and_save(
+        synth, texts, refs_emt, refs_spk,
+        lambda i: os.path.join(synth_dir, f"mel-{basenames[i]}.npy"),
+        lambda i: os.path.join(synth_dir, f"wav-{basenames[i]}.wav"),
+        batch_size)
+    log(f"random-experiment synthesis: {len(texts)} samples -> {synth_dir}")
+    return synth_dir
+
+
+# VCTK accent display names (the reference's tacotron/synthesize.py:264-265)
+ACCENT_NAMES = ["American", "Australian", "Canadian", "English", "Indian",
+                "Irish", "NewZealand", "NorthernIrish", "Scottish",
+                "SouthAfrican", "Welsh"]
+
+
+def run_synthesis_multiple(synth: TacotronSynthesizer, train_txt: str,
+                           input_dir: str, output_dir: str, *,
+                           accents: Optional[Sequence[int]] = None,
+                           n_spk_per_accent: int = 2, n_text_per_spk: int = 5,
+                           min_frames: int = 200, seed: int = 0,
+                           flip_spk_emt: bool = False, batch_size: int = 16,
+                           acc_names: Optional[Sequence[str]] = None) -> str:
+    """The 'synthesis_multiple' mode (accents crossed): among rows longer
+    than `min_frames`, per accent group (the emt_label column; the first
+    two unless `accents` names them) `n_spk_per_accent` speakers and per
+    speaker `n_text_per_spk` texts, chosen by a numpy RNG seeded with
+    `seed`; each text is synthesized once per chosen accent with a random
+    utterance of that accent as the emotion reference and its own mel as
+    the speaker reference (swapped by `flip_spk_emt`) ->
+    <output_dir>/multiple/{mels,wavs}/. Returns the directory."""
+    acc_names = ACCENT_NAMES if acc_names is None else acc_names
+    rng = np.random.default_rng(seed)
+    synth_dir = os.path.abspath(os.path.join(output_dir, "multiple"))
+    for sub in ("mels", "wavs"):
+        os.makedirs(os.path.join(synth_dir, sub), exist_ok=True)
+    by_acc: Dict[int, list] = {}
+    for m in _read_meta(train_txt):
+        if int(m[6]) > min_frames:
+            by_acc.setdefault(int(m[8]), []).append(m)
+    if accents is None:
+        accents = sorted(by_acc)[:2]
+    accents = [a for a in accents if a in by_acc]
+
+    def _name(a: int) -> str:
+        return acc_names[a][:2] if a < len(acc_names) else str(a)
+
+    texts, refs_emt, refs_spk, basenames = [], [], [], []
+    for acc in accents:
+        rows = by_acc[acc]
+        spks = sorted({int(m[9]) for m in rows})
+        for spk in rng.choice(spks, min(n_spk_per_accent, len(spks)),
+                              replace=False):
+            spk_rows = [m for m in rows if int(m[9]) == int(spk)]
+            for ti in rng.choice(len(spk_rows),
+                                 min(n_text_per_spk, len(spk_rows)),
+                                 replace=False):
+                row = spk_rows[int(ti)]
+                own = os.path.join(input_dir, row[0], "mels", row[2])
+                for acc_ref in accents:
+                    ref_row = by_acc[acc_ref][
+                        int(rng.choice(len(by_acc[acc_ref])))]
+                    texts.append(row[7])
+                    refs_spk.append(own)
+                    refs_emt.append(os.path.join(input_dir, ref_row[0],
+                                                 "mels", ref_row[2]))
+                    sex = row[11] if len(row) > 11 else ""
+                    basenames.append(f"{row[10].split('.')[0]}_{_name(acc)}"
+                                     f"_{sex}_{_name(acc_ref)}")
+    if flip_spk_emt:
+        refs_emt, refs_spk = refs_spk, refs_emt
+    log(f"synthesis_multiple: {len(texts)} samples ({len(accents)} accents "
+        f"x {n_spk_per_accent} spk x {n_text_per_spk})")
+    _synthesize_and_save(
+        synth, texts, refs_emt, refs_spk,
+        lambda i: os.path.join(synth_dir, "mels", f"mel-{basenames[i]}.npy"),
+        lambda i: os.path.join(synth_dir, "wavs", f"wav-{basenames[i]}.wav"),
+        batch_size, on_batch=lambda _, end, __: log(
+            f"synthesis_multiple {end}/{len(texts)}"))
+    return synth_dir
+
+
+def run_style_embs(synth: TacotronSynthesizer, train_txt: str, input_dir: str,
+                   output_dir: str, *, n_spk: int = 8, n_per_spk: int = 8,
+                   seed: int = 0, batch_size: int = 16) -> str:
+    """The 'style_embs' mode: `n_spk` speakers and `n_per_spk` utterances
+    each, chosen by a numpy RNG seeded with `seed`, through `embed` ->
+    <output_dir>/embeddings/{emb_emt.tsv, emb_spk.tsv} (the references'
+    embeddings, then the output mels') and meta.tsv labelling the rows
+    real / synth. Returns the directory."""
+    rng = np.random.default_rng(seed)
+    emb_dir = os.path.join(output_dir, "embeddings")
+    os.makedirs(emb_dir, exist_ok=True)
+    by_spk: Dict[int, list] = {}
+    for m in _read_meta(train_txt):
+        by_spk.setdefault(int(m[9]), []).append(m)
+    spk_ids = sorted(by_spk)
+    rows = []
+    for sid in sorted(rng.choice(spk_ids, min(n_spk, len(spk_ids)),
+                                 replace=False)):
+        cand = by_spk[sid]
+        for ci in rng.choice(len(cand), min(n_per_spk, len(cand)),
+                             replace=False):
+            rows.append(cand[int(ci)])
+    embs = {k: [] for k in ("emb_emt", "emb_spk", "emb_mo_emt",
+                            "emb_mo_spk")}
+    for start in range(0, len(rows), batch_size):
+        batch = rows[start:start + batch_size]
+        out = synth.embed([m[7] for m in batch],
+                          [np.load(os.path.join(input_dir, m[0], "mels",
+                                                m[2])) for m in batch])
+        for k, v in out.items():
+            embs[k].append(v)
+    for name, real, syn in (("emb_emt.tsv", "emb_emt", "emb_mo_emt"),
+                            ("emb_spk.tsv", "emb_spk", "emb_mo_spk")):
+        np.savetxt(os.path.join(emb_dir, name),
+                   np.vstack(embs[real] + embs[syn]), delimiter="\t",
+                   fmt="%.6f")
+    lines = ["dataset\tmel_filename\tmel_frames\temt_label\tspk_label\t"
+             "basename\tsex\treal"]
+    for tag in ("real", "synth"):
+        for m in rows:
+            lines.append("\t".join([m[0], m[2], m[6], m[8], m[9], m[10],
+                                    m[11] if len(m) > 11 else "", tag]))
+    with open(os.path.join(emb_dir, "meta.tsv"), "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    log(f"style embeddings for {len(rows)} utterances -> {emb_dir}")
+    return emb_dir

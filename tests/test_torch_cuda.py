@@ -11,7 +11,11 @@ on, live sampler noise), so both sides see the same inputs. The plain
 versions run on the same card with TF32 off. Tolerances: the
 decode kernel and its plain version both upcast the bf16 weights and sum
 in f32, differing in summation order only (frames atol 1e-3 over 8
-steps, stop probabilities and alignments 1e-4); the sampler's Gaussian
+steps, stop probabilities and alignments 1e-4); the teacher-forced mode
+of the same kernel and its plain version also round each activation to
+bf16 where it enters a product, so another sum order may move one such
+rounding by a step (~0.4%) (frames atol 1e-3, stop logits 1e-3 times
+max(1, |logit|), alignments 1e-4, chip_smoke.py's gates); the sampler's Gaussian
 head in f32 throughout (atol 1e-4 over 64 fed-back samples), and every
 head and dtype by the teacher-forced oracle of tests/test_pallas_kernels.py
 :142 (the plain version replays the kernel's own trajectory): each draw is
@@ -44,6 +48,7 @@ from tacotron2_tpu_torch.config import Config
 from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
 from tacotron2_tpu_torch.ops import stft as tst
 from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
 from tacotron2_tpu_torch.ops import wavenet_kernel as wk
 
 MELS, P, U, A, F, KW, M, R = 20, 16, 32, 16, 8, 7, 48, 2
@@ -267,6 +272,54 @@ def test_decode_block_matches_plain_past_256(dev, T):
                                            rtol=0, err_msg=name)
 
 
+def _teacher_forced_case(dev, B, T, steps, coins, seed=0):
+    """Teacher-forced kernel and plain version on the same inputs: returns
+    ((frames, stop logits, alignments) of each, launches made)."""
+    cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed)
+    dp = tk.extract_params(decoder_tree(seed), cfg, device=dev)
+    assert dp.l1_wp.dtype == torch.bfloat16
+    rng = np.random.default_rng(seed + 1)
+    teacher = torch.as_tensor(rng.uniform(-4, 4, (steps, B, MELS)),
+                              dtype=torch.float32, device=dev)
+    coins = torch.as_tensor(coins, dtype=torch.int32)
+    args = (dp, cfg, keys, memory, mask, teacher, coins, drop)
+    before = tk.launches
+    got = tk.teacher_forced_fwd(*args, kernel_weights=dk.pack_weights(dp))
+    n = tk.launches - before
+    want = tk.teacher_forced_fwd_plain(*args)
+    torch.cuda.synchronize()
+    return got, want, n
+
+
+def _teacher_forced_close(got, want):
+    (f_k, s_k, a_k), (f_p, s_p, a_p) = got, want
+    assert f_k.shape == f_p.shape and a_k.shape == a_p.shape
+    np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
+    assert bool(((s_k - s_p).abs() <= 1e-3 * s_p.abs().clamp(min=1)).all())
+    np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("coins", ["ones", "mixed"])
+def test_teacher_forced_kernel_matches_plain(dev, coins):
+    """Small widths, prenet dropout on, stop logits (not probabilities):
+    one launch for all steps; the mixed coins feed the kernel's own frames
+    back on some steps."""
+    B, T, steps = 3, 24, 12
+    pick = {"ones": [1] * steps, "mixed": [1, 0, 0, 1, 1, 0] * 2}[coins]
+    got, want, n = _teacher_forced_case(dev, B, T, steps, pick)
+    assert n == 1
+    assert got[2].shape == (B, T, steps)
+    _teacher_forced_close(got, want)
+    # logits, not probabilities
+    assert float(got[1].min()) < 0 or float(got[1].max()) > 1
+
+
+def test_teacher_forced_kernel_past_256(dev):
+    got, want, n = _teacher_forced_case(dev, 2, 300, 8, [1, 1, 0, 1] * 2)
+    assert n == 1
+    _teacher_forced_close(got, want)
+
+
 @pytest.mark.parametrize("iters", [0, 4])
 def test_griffin_lim_kernel_matches_plain(dev, iters):
     n_fft, hop, win, B, F = 2048, 200, 800, 2, 33
@@ -374,6 +427,25 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         dk.decode_block(dp_b, cfg_b, *args[:3], bad, args[3],
                         kernel_weights=dk.pack_weights(dp_b))
+    # the teacher-forced kernel: bf16 weights only, packed weights, the
+    # teacher [steps, B, mels], coins [steps]; no emt_attn
+    tf_args = (args[0], args[1], args[2], torch.zeros(2, 1, MELS, device=dev),
+               torch.ones(2, dtype=torch.int32), args[3])
+    dp_t = tk.extract_params(tparams, cfg_b, device=dev)
+    kw_t = dk.pack_weights(dp_t)
+    with pytest.raises(ValueError):
+        tk.teacher_forced_fwd(dp, cfg, *tf_args,
+                              kernel_weights=dk.pack_weights(dp))
+    with pytest.raises(ValueError):
+        tk.teacher_forced_fwd(dp_t, cfg_b, *tf_args)
+    for i, bad in ((3, torch.zeros(2, 2, MELS, device=dev)),
+                   (4, torch.ones(3, dtype=torch.int32))):
+        with pytest.raises(ValueError):
+            tk.teacher_forced_fwd(dp_t, cfg_b, *tf_args[:i], bad,
+                                  *tf_args[i + 1:], kernel_weights=kw_t)
+    emt = cfg_b.replace(gst=dataclasses.replace(cfg_b.gst, emt_attn=True))
+    with pytest.raises(ValueError):
+        tk.teacher_forced_fwd(dp_t, emt, *tf_args, kernel_weights=kw_t)
     S = torch.ones(1, 3, 100, device=dev)       # K is not n_fft//2+1
     with pytest.raises(ValueError):
         glk.fused_griffin_lim(S, S, S, 2048, 200, 800, 1)

@@ -30,7 +30,8 @@ def test_port_files_exist():
                 "ops/griffin_lim_kernel.py", "data/audio.py",
                 "synth/tacotron_synth.py", "ops/mulaw.py",
                 "data/wavenet_feeder.py", "models/wavenet/distributions.py",
-                "synth/wavenet_synth.py"):
+                "synth/wavenet_synth.py", "ops/tacotron_train_kernel.py",
+                "ops/tacotron_decoder_kernel.py", "models/tacotron/model.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 

@@ -167,8 +167,10 @@ def test_cli_synthesize_eval(tmp_path, monkeypatch):
     for i in range(2):
         assert (out / "eval" / "mels" / f"mel-eval-{i}.npy").exists()
         assert (out / "eval" / "wavs" / f"wav-eval-{i}.wav").exists()
-    # other modes are not ported; the WaveNet stage needs its weights
-    for extra, msg in ((["--mode", "gta"], "not ported yet"),
+    # the metadata-driven modes need their train.txt; the WaveNet stage
+    # needs its weights
+    for extra, msg in ((["--model", "Tacotron", "--mode", "gta"],
+                        "needs --input-path"),
                        (["--model", "WaveNet"], "wavenet-checkpoint")):
         args = cli.build_parser().parse_args(base + extra)
         with pytest.raises(SystemExit, match=msg):

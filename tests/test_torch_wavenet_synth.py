@@ -230,7 +230,8 @@ def test_cli_synthesize_tacotron2(tmp_path, cli_weights):
 def test_cli_synthesize_wavenet(tmp_path, cli_weights):
     """--model WaveNet vocodes an existing map (--mels-map, --limit) and
     needs --wavenet-checkpoint; --model Tacotron still needs --checkpoint;
-    other modes still say they are not ported."""
+    with --mode gta the default map is <output-dir>/gta/map.txt, whose
+    rows name the GTA mel in column 2 (JAX cli.py:290-291)."""
     _, _, wparams = cli_weights
     for i in range(3):
         np.save(tmp_path / f"m{i}.npy", _mels(3, seed=i)[i][:, :20])
@@ -244,9 +245,17 @@ def test_cli_synthesize_wavenet(tmp_path, cli_weights):
                                                     "wavenet-m1.wav"]
     for bad, msg in ((base, "wavenet-checkpoint"),
                      (["synthesize", "--model", "Tacotron"], "--checkpoint"),
-                     (base + ["--mode", "gta"], "not ported yet")):
+                     (base + ["--mode", "gta"], "wavenet-checkpoint")):
         with pytest.raises(SystemExit, match=msg):
             cli.main(bad)
+    gta = tmp_path / "o2" / "gta"
+    gta.mkdir(parents=True)
+    (gta / "map.txt").write_text(
+        f"a.npy|gt.npy|{tmp_path / 'm2.npy'}|12|t2\n")
+    paths = cli.main(base[:5] + ["--output-dir", str(tmp_path / "o2"),
+                                 "--mode", "gta", "--wavenet-checkpoint",
+                                 "y"])
+    assert [os.path.basename(p) for p in paths] == ["wavenet-m2.wav"]
 
 
 # ------------------------------------------------------- serving program
