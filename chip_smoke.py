@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, Tacotron-synthesis (eval, GTA, style
-modes) and WaveNet-synthesis paths on one NVIDIA GPU (H100).
+modes), WaveNet-synthesis and Tacotron-training paths on one NVIDIA GPU
+(H100).
 
     python3 chip_smoke.py
 
 Phases, each printing its wall seconds:
 
 1. the device, and its name and power limit as nvidia-smi reports them;
-2. build the three CUDA kernels (`csrc/decoder.cu`, `csrc/sampler.cu`,
-   `csrc/griffin_lim.cu`) with nvcc for sm_90a, in parallel;
+2. build the four CUDA kernels (`csrc/decoder.cu`, `csrc/decoder_bwd.cu`,
+   `csrc/sampler.cu`, `csrc/griffin_lim.cu`) with nvcc for sm_90a, in
+   parallel;
 3. load the trained r5 checkpoints (artifacts/e2e_demo_r5/*.msgpack) with
    the port's own msgpack reader and weight bridge, in the configuration
    scripts/train_e2e_demo_r5_tpu.py trained them with;
@@ -64,8 +66,21 @@ Phases, each printing its wall seconds:
     kernel at B=8; then `synthesize --model Tacotron-2 --mode gta --limit
     8` (GTA map, WaveNet wavs and their `vocoder_fidelity_corr`), and the
     `style_embs` and `synthesis` modes on a train.txt over the r5 mels;
-    then the `kernels` line, one entry for every kernel, sampler head and
-    dtype.
+16. (i) Tacotron training at the r5 script's shapes (batch 16 of the
+    train split, text padded to 96, 448 steps, bf16, scheduled teacher
+    forcing): kernel 4a's train mode against its plain version on the r5
+    weights with the same dropout and zoneout masks and tfr-0.5 coins
+    (free run, and the plain step replayed on the kernel's trajectory);
+    kernel 4b against its plain version on the kernel's residuals, and
+    `weight_grads` of each; one whole train step through the kernels
+    against autograd through the plain decode; 32 steps from
+    `init_tacotron` with every launch counter set to 0 just before and
+    read just after, the loss falling, the step's time split (memory
+    pass, kernel 4a, kernel 4b, weight_grads, the rest of backward, the
+    optimizer); the r5 checkpoint's natural eval on the 32 held-out rows
+    (masked_mel_mae beside the TPU run's); `cli train` for 3 steps;
+then the `kernels` line, one entry for every kernel, sampler head, dtype
+and mode.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero before it. Without a CUDA device it exits with code 2 and
@@ -743,6 +758,355 @@ def gta_phase(cfg, tparams, stats, seed):
             "library_ms": None}
 
 
+# phase 16: the r5 script's Tacotron training, at its padded shapes
+# (--taco-batch 16, text padded to 96 as phase 15, mels to 448 frames);
+# its scheduled teacher forcing (hold 1.0 for a third of its 12,000 steps)
+TRAIN_BATCH, TRAIN_STEPS, TAKO_STEPS = 16, 32, 12000
+PAD_TEXT, PAD_MEL = 96, 448
+# taco_curve.jsonl's held_mel_mae at step 12000 and this run's gate
+TPU_HELD_MAE, HELD_MAE_MAX = 0.0188, 0.0235
+# kernel 4a's train mode against its plain version (dropout and zoneout
+# masks and tfr-0.5 coins the same on both). Both round each activation
+# to bf16 where it enters a product, and another f32 sum order moves an
+# isolated rounding by a step (phase 15). Free run: the outputs held as
+# phase 15 holds them (TF_WITHIN shares, and a mean frame difference at
+# most 0.1x that of the plain version with f32 activations), and every
+# residual's mean difference at most 0.1x that of the f32-activation
+# version: where the kernel's own frames are fed back, a moved rounding
+# carries on through the recurrent state. Replay: the plain step replayed
+# on the kernel's own trajectory one step at a time (nothing carries), each
+# output and residual within its tolerance (the states, gates, prenet
+# outputs and frames as phase 15's frames; alignments and cumulative
+# alignments as its alignments) for >= REPLAY_WITHIN of the elements
+RES_TOL = dict(out=1e-3, align=1e-4, cum_pre=1e-4, q=1e-3, z1=1e-3,
+               z2=1e-3, h0d=1e-3, hpre=1e-3, ctx=1e-3, h1=1e-3, c1=1e-3,
+               h2=1e-3, c2=1e-3)
+REPLAY_WITHIN = 0.999
+# kernel 4b against its plain version on the kernel's own residuals: the
+# same rounded operands and f32 gradients in another sum order, each
+# gradient within this share of its largest magnitude (the prediction;
+# the first reading at these shapes was at most 2.1e-6)
+BWD_RTOL = 1e-4
+# one whole train step, FusedTeacherForced (kernels 4a, 4b) against
+# autograd through the plain decode, at the schedule's ratio 1.0: the
+# forwards differ where another sum order moves an isolated bf16 rounding
+# (phase 15: ~0.2% of frames, up to 3e-2), which moves the gradients at
+# those steps. The cosine of all gradients flattened, and each tensor's
+# largest difference as a share of its largest gradient, that floored at
+# STEP_FLOOR of the largest gradient of any tensor: the reference
+# encoders' conv biases feed BatchNorm directly, which cancels them, so
+# their gradient is 0 up to rounding and has no scale of its own
+STEP_COSINE = 0.999
+STEP_RTOL = 5e-2
+STEP_FLOOR = 1e-3
+
+
+def rel_err(x, y):
+    return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+
+def train_config():
+    """r5_config() with the r5 script's scheduled teacher forcing."""
+    cfg = r5_config()
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, tacotron_teacher_forcing_mode="scheduled",
+        tacotron_teacher_forcing_init_ratio=1.0,
+        tacotron_teacher_forcing_start_decay=TAKO_STEPS // 3,
+        tacotron_teacher_forcing_decay_steps=TAKO_STEPS))
+
+
+def train_bound_s(dp, cfg, B, T, M, S, backward):
+    """Least seconds of the train forward (backward=False: decode_bound_s
+    plus the teacher, the masks and the residuals written) or the
+    backward: its bytes (weights once; per row-step the residuals, masks,
+    multipliers and incoming gradients read and the activation gradients
+    written; keys and memory once, the per-row sums once) and its
+    operations — the transposed products with f32 gradients at the f32
+    rate, the attention's recompute and gradient sums at the f32 rate."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
+    A, KW = dp.wq.shape[1], dp.loc_k.shape[0]
+    FO = r * mels + r
+    rows = B * S
+    res = T + A + 12 * U + 2 * P + M          # cum, q, z1, z2, c, h, prenet, ctx
+    if not backward:
+        extra = 4 * S * B * mels + rows * (4 * U + 4 * res)
+        return decode_bound_s(dp, cfg, B, T, M, S, rows, align=True,
+                              in_bytes=extra)
+    w_bytes = sum(t.numel() * t.element_size() for t in dp)
+    d_bytes = (w_bytes + 4 * B * T * (2 * A + M) + 4 * B * 8 * (KW + 1) * A
+               + rows * (4 * (2 * T + A + 10 * U + 4 * P + FO + T)
+                         + 4 * U
+                         + 4 * (8 * U + 2 * P + FO + M + A)))
+    macs = (mels * P + P * P + (P + M + U) * 4 * U + 2 * U * 4 * U + U * A
+            + (U + M) * FO + T * M)
+    att = T * A * (3 * KW + 12) + 10 * T + 30 * U
+    ops_s = rows * (2 * macs + att) / F32_FLOPS
+    bytes_s = d_bytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                 else "bytes")
+
+
+def training_phase(tparams, stats, seed):
+    """Phase 16: Tacotron training at the r5 shapes. Returns the `kernels`
+    entries of kernel 4a's train mode and kernel 4b."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import cli
+    from tacotron2_tpu_torch.convert import (flax_named_parameters,
+                                             load_tacotron)
+    from tacotron2_tpu_torch.eval.convergence import (alignment_diagonality,
+                                                      batch_from_rows,
+                                                      masked_mel_mae)
+    from tacotron2_tpu_torch.models.tacotron.decoder import (
+        drop_masks, teacher_forced_replay, teacher_inputs, zoneout_masks)
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    from tacotron2_tpu_torch.train.tacotron_step import (StepTimer,
+                                                         TacotronTrainer)
+    cfg = train_config()
+    t0 = phase(16, f"(i) Tacotron training: B={TRAIN_BATCH}, T_in "
+               f"{PAD_TEXT}, {PAD_MEL} steps, the r5 train split")
+    texts = corpus_texts()
+    mel_dir = os.path.join(R5, "corpus", "mels")
+    rows = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
+            for i, t in enumerate(texts)]
+    batch = lambda rs: batch_from_rows(rs, mel_dir, cfg, pad_text_to=PAD_TEXT,
+                                       pad_mel_to=PAD_MEL)
+    first = batch(rows[:TRAIN_BATCH])
+    assert first["inputs"].shape == (TRAIN_BATCH, PAD_TEXT)
+    assert first["mel_targets"].shape[1] == PAD_MEL
+    dev = torch.device("cuda")
+
+    # ---- (1) kernel 4a, train mode, against its plain version: the r5
+    # weights, the first batch's keys and memory, the same masks
+    model = load_tacotron(Tacotron(cfg), tparams, stats).to(dev)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in first.items()}
+    with torch.no_grad():
+        keys, memory, mask, _, _ = model.synthesis_memory_ext(
+            tb["inputs"], tb["input_lengths"], tb["ref_mel_emt"],
+            tb["ref_mel_spk"])
+        dp = tk.cast_params(tk.extract_params_traced(model.decoder, cfg),
+                            torch.bfloat16)
+    kw = dk.pack_weights(dp)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, T, M = memory.shape
+    S = PAD_MEL // cfg.tacotron.outputs_per_step
+    teacher = teacher_inputs(tb["mel_targets"], cfg.tacotron.outputs_per_step)
+    coins = (torch.rand(S, generator=g, device=dev) < 0.5).to(torch.int32)
+    drop = drop_masks(cfg, B, S, g, dev)
+    zmask = zoneout_masks(cfg, B, S, g, dev)
+    fargs = (dp, cfg, keys, memory, mask, teacher, coins, drop, zmask)
+    k_f = tk.teacher_forced_train_fwd(*fargs, kernel_weights=kw)
+    p_f = tk.teacher_forced_train_fwd_plain(*fargs)
+    f_f = tk.teacher_forced_train_fwd_plain(
+        type(dp)(*[t.float() for t in dp]), *fargs[1:])
+    torch.cuda.synchronize()
+    print(f"kernel 4a train mode: {int(coins.sum())} of {S} coins set, "
+          f"zoneout masks {float(zmask.float().mean()):.4f} kept, prenet "
+          f"dropout {float((drop > 0).float().mean()):.4f} kept")
+    spread = {n: tf_spread(x[:3], p_f[:3]) for n, x in (
+        ("kernel", k_f), ("plain with f32 activations", f_f))}
+    for n, d in spread.items():
+        print(f"train forward, {n} vs plain: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in d.items()))
+    errs = spread["kernel"]
+    replay = teacher_forced_replay(*fargs, k_f[3])
+    free, rep_share = {}, {}
+    for name, tol in RES_TOL.items():
+        k, p, f = k_f[3][name], p_f[3][name], f_f[3][name]
+        free[name] = (float((k - p).abs().mean()),
+                      float((f - p).abs().mean()))
+        d = (k - replay[name]).abs()
+        rep_share[name] = float((d <= tol).float().mean())
+        print(f"  {name}: free run mean |kernel - plain| {free[name][0]:.3e}"
+              f" (f32 activations {free[name][1]:.3e}); replay max "
+              f"{float(d.max()):.3e}, within {tol:g}: {rep_share[name]:.6f}")
+    del replay
+    assert min(errs[k] for k in TF_WITHIN) >= 0.99, errs
+    assert errs["frames mean"] <= 0.1 * spread[
+        "plain with f32 activations"]["frames mean"], spread
+    assert all(k <= 0.1 * f for k, f in free.values()), free
+    assert min(rep_share.values()) >= REPLAY_WITHIN, rep_share
+
+    # ---- (2) kernel 4b against its plain version, both on the kernel's
+    # residuals; then weight_grads of each
+    res = k_f[3]
+    gd = torch.Generator(device=dev).manual_seed(seed + 1)
+    FO = k_f[3]["out"].shape[-1]
+    dout = torch.randn(B, S, FO, generator=gd, device=dev) * 1e-3
+    dalign = torch.randn(B, S, T, generator=gd, device=dev) * 1e-3
+    bargs = (dp, cfg, res, keys, memory, mask, coins, drop, zmask, dout,
+             dalign)
+    k_b = tk.teacher_forced_bwd(*bargs, kernel_weights=kw)
+    p_b = tk.teacher_forced_bwd_plain(*bargs)
+    k_w = tk.weight_grads(cfg, dp, res, k_b, teacher, coins)
+    p_w = tk.weight_grads(cfg, dp, res, p_b, teacher, coins)
+    torch.cuda.synchronize()
+    bwd_err = {n: rel_err(k_b[n], p_b[n]) for n in p_b}
+    bwd_err.update({f"d{n}": rel_err(x, y) for n, x, y in zip(
+        dp._fields, k_w[0], p_w[0])})
+    bwd_err.update(dkeys_input=rel_err(k_w[1], p_w[1]),
+                   dmemory=rel_err(k_w[2], p_w[2]))
+    print("kernel 4b vs plain, max |difference| / max |plain| per "
+          "gradient: " + ", ".join(f"{n} {v:.2e}"
+                                   for n, v in bwd_err.items()))
+    assert max(bwd_err.values()) <= BWD_RTOL, bwd_err
+    bwd_abs = max(float((k_b[n] - p_b[n]).abs().max()) for n in p_b)
+
+    tf_ms = cuda_ms(lambda: tk.teacher_forced_train_fwd(
+        *fargs, kernel_weights=kw), 3)
+    tf_plain_ms = cuda_ms(lambda: tk.teacher_forced_train_fwd_plain(*fargs), 1)
+    bwd_ms = cuda_ms(lambda: tk.teacher_forced_bwd(*bargs, kernel_weights=kw),
+                     3)
+    bwd_plain_ms = cuda_ms(lambda: tk.teacher_forced_bwd_plain(*bargs), 1)
+    wg_ms = cuda_ms(lambda: tk.weight_grads(cfg, dp, res, k_b, teacher,
+                                            coins), 3)
+    fb = train_bound_s(dp, cfg, B, T, M, S, backward=False)
+    bb = train_bound_s(dp, cfg, B, T, M, S, backward=True)
+    print(f"at B={B}, T_in={T}, {S} steps: kernel 4a train {tf_ms:.3f} ms "
+          f"(plain {tf_plain_ms:.3f}, bound {1e3 * fb[0]:.4f} ms, {fb[1]}); "
+          f"kernel 4b {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, bound "
+          f"{1e3 * bb[0]:.4f} ms, {bb[1]}); weight_grads {wg_ms:.3f} ms")
+    del k_f, p_f, f_f, k_b, p_b, k_w, p_w, res
+
+    # ---- (3) one whole train step: every parameter gradient through
+    # FusedTeacherForced against autograd through the plain decode, the
+    # same weights, batch and random draws (the schedule's ratio 1.0)
+    trainer = TacotronTrainer(cfg)
+    state = trainer.init_state(model=model)
+    bufs = {n: b.clone() for n, b in model.named_buffers()}
+    out = {}
+    for route in ("fused", "autograd"):
+        for n, b in model.named_buffers():
+            b.copy_(bufs[n])
+        terms, params, grads, tfr = trainer.gradients(
+            state, first, torch.Generator(device=dev).manual_seed(seed),
+            decode=route)
+        out[route] = (float(terms["loss"].detach()),
+                      [x.detach() for x in grads])
+    names = [n for n, _ in flax_named_parameters(model)]
+    gf, ga = out["fused"][1], out["autograd"][1]
+    floor = STEP_FLOOR * max(float(y.abs().max()) for y in ga)
+    rels = {n: float((x - y).abs().max()) / max(float(y.abs().max()), floor)
+            for n, x, y in zip(names, gf, ga)}
+    cos = float(torch.nn.functional.cosine_similarity(
+        torch.cat([x.flatten() for x in gf]),
+        torch.cat([y.flatten() for y in ga]), dim=0))
+    worst = sorted(rels.items(), key=lambda kv: -kv[1])[:6]
+    print(f"whole step at tfr {tfr}: loss fused {out['fused'][0]:.6f} "
+          f"autograd {out['autograd'][0]:.6f}; gradient cosine {cos:.6f}; "
+          f"largest per-tensor max|d| / max(max|g|, {floor:.3e}): " + ", ".join(
+              f"{n} {v:.2e}" for n, v in worst))
+    assert abs(out["fused"][0] - out["autograd"][0]) <= 1e-3 * abs(
+        out["autograd"][0]), out
+    assert cos >= STEP_COSINE, cos
+    assert max(rels.values()) <= STEP_RTOL, worst
+    for n, b in model.named_buffers():
+        b.copy_(bufs[n])
+    del out, gf, ga, grads, params
+
+    # ---- (4) training from init_tacotron: the main path's counts
+    trainer = TacotronTrainer(cfg)
+    state = trainer.init_state(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    n_b = N_TRAIN // TRAIN_BATCH
+    batches = [batch(rows[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(n_b)]
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    order, losses, split = [], [], {}
+    tk.train_launches = tk.bwd_launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    for i in range(TRAIN_STEPS):
+        if not order:
+            order = list(rng.permutation(n_b))
+        timed = 4 <= i < 8
+        trainer.timer = StepTimer() if timed else None
+        torch.cuda.synchronize()
+        t_step = time.time()
+        state, m = trainer.train_step(state, batches[order.pop()], gen)
+        losses.append(float(m["loss"]))
+        if timed:
+            for k, v in trainer.timer.totals().items():
+                split[k] = split.get(k, 0.0) + v / 4
+            split["step (host clock)"] = split.get(
+                "step (host clock)", 0.0) + 1e3 * (time.time() - t_step) / 4
+    torch.cuda.synchronize()
+    train_s = time.time() - ts
+    launches = (tk.train_launches, tk.bwd_launches)
+    trainer.timer = None
+    print(f"{TRAIN_STEPS} train steps from init_tacotron: {train_s:.3f} s; "
+          f"kernel launches 4a {launches[0]}, 4b {launches[1]}; loss "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print("ms per step (mean of steps 5-8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    split["rest of backward"] = (split["backward"]
+                                 - split["backward (kernel 4b)"]
+                                 - split["weight_grads"])
+    print(f"  rest of backward {split['rest of backward']:.3f} ms")
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    assert launches == (TRAIN_STEPS, TRAIN_STEPS), launches
+
+    # ---- (5) the r5 checkpoint's natural eval on the 32 held-out rows
+    state = TacotronTrainer(cfg).init_state(model=model)
+    held = batch(rows[N_TRAIN:])
+    out, terms = trainer.eval_step(
+        state, held, torch.Generator(device=dev).manual_seed(123))
+    mae = masked_mel_mae(out["mel_outputs"].float().cpu().numpy(), held)
+    diag = float(np.mean(alignment_diagonality(
+        out["alignments"].float().cpu().numpy(), held["input_lengths"],
+        held["targets_lengths"], cfg.tacotron.outputs_per_step)))
+    print(f"r5 checkpoint eval_step on {len(rows) - N_TRAIN} held-out rows: "
+          f"masked_mel_mae {mae:.4f} (TPU run {TPU_HELD_MAE} at step "
+          f"12000; gate {HELD_MAE_MAX}), held_tf_diag {diag:.3f}, loss "
+          f"{float(terms['loss']):.4f}")
+    assert mae <= HELD_MAE_MAX, mae
+
+    # ---- the command line: cli train, 3 steps, on a train.txt over the
+    # r5 mels
+    with tempfile.TemporaryDirectory() as tmp:
+        os.symlink(os.path.join(R5, "corpus"), os.path.join(tmp, "corpus"))
+        train_txt = os.path.join(tmp, "train.txt")
+        hop = cfg.audio.effective_hop
+        with open(train_txt, "w", encoding="utf-8") as f:
+            for i, t in enumerate(texts[:N_TRAIN]):
+                n = len(t) * int(0.06 * cfg.audio.sample_rate) // hop + 1
+                f.write(f"corpus|audio-{i}.npy|mel-{i}.npy|l|e|{n * hop}|"
+                        f"{n}|{t}|0|{i % 2}|utt{i}.wav|F\n")
+        hp = ("tacotron.compute_dtype=bfloat16,audio.trim_silence=false")
+        tk.train_launches = 0
+        ckpt_dir = cli.main(["--hparams", hp, "train", "--model", "Tacotron",
+                             "--input-path", train_txt, "--base-dir", tmp,
+                             "--train-steps", "3", "--batch-size",
+                             str(TRAIN_BATCH), "--eval-interval", "0"])
+        saved = sorted(os.listdir(ckpt_dir))
+        curve = open(os.path.join(os.path.dirname(ckpt_dir),
+                                  "taco_curve.jsonl")).read().splitlines()
+        print(f"cli train --train-steps 3: checkpoints {saved}, "
+              f"{len(curve)} curve lines, last {curve[-1]}, train-forward "
+              f"launches {tk.train_launches}")
+        assert saved == ["ckpt-3.msgpack"] and len(curve) == 3
+        assert tk.train_launches == 3
+    done(16, t0)
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        dict(common, name="tacotron_teacher_forced_train",
+             source="tacotron2_tpu_torch/csrc/decoder.cu",
+             replaces="tacotron2_tpu/ops/tacotron_train_kernel.py:118",
+             launches=launches[0], max_abs_err=errs["frames max"],
+             ms=tf_ms, plain_ms=tf_plain_ms, bound_ms=1e3 * fb[0],
+             bound_by=fb[1]),
+        dict(common, name="tacotron_bptt",
+             source="tacotron2_tpu_torch/csrc/decoder_bwd.cu",
+             replaces="tacotron2_tpu/ops/tacotron_train_kernel.py:371",
+             launches=launches[1], max_abs_err=bwd_abs, ms=bwd_ms,
+             plain_ms=bwd_plain_ms, bound_ms=1e3 * bb[0], bound_by=bb[1])]
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -790,7 +1154,8 @@ def main(argv=None):
 
     # ---- 2. build the kernels, one nvcc each, started together
     t0 = phase(2, "build kernels (nvcc, sm_90a)")
-    paths = build.build(["decoder", "sampler", "griffin_lim"])
+    paths = build.build(["decoder", "decoder_bwd", "sampler",
+                         "griffin_lim"])
     for name, path in paths.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}")
         for line in build.build_logs.get(name, "").splitlines():
@@ -1434,6 +1799,10 @@ def main(argv=None):
 
     # ---- 15. (h) GTA of the r5 train split, then the command line
     kernels.insert(-1, gta_phase(cfg, tparams, stats, seed))
+
+    # ---- 16. (i) Tacotron training at the r5 shapes
+    for entry in training_phase(tparams, stats, seed):
+        kernels.insert(-1, entry)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: `python -m tacotron2_tpu_torch.cli
-serve | synthesize`.
+serve | synthesize | train`.
 
 `serve`, port of tacotron2_tpu/cli.py `serve` (:382): text → wav through
 one `TextToWavProgram` per padded-text bucket, built on first use and
@@ -31,6 +31,13 @@ in <output-dir>/serve/speech-NNNNN.wav.
   `synthesis_multiple` and `style_embs` it stops before WaveNet, as the
   JAX command does.
 
+`train --model Tacotron`, port of cli.py `train` (:73, :545): the
+Tacotron trainer (`train/tacotron_train.py`) on the train.txt of
+--input-path, logging and checkpointing under <base-dir>/logs-Tacotron
+(checkpoints in taco_pretrained/, the curve in taco_curve.jsonl); the
+default trainer only (the fork's training flags raise), and WaveNet and
+Tacotron-2 training are not in the port.
+
 Weights are the JAX package's flax msgpack checkpoints (Tacotron
 {params, batch_stats}, WaveNet EMA params), read without flax; reference
 mels are `.npy` files. Everything runs on `--device` (default cuda).
@@ -51,6 +58,8 @@ mels are `.npy` files. Everything runs on `--device` (default cuda).
         --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
         --wavenet-checkpoint artifacts/e2e_demo_r5/wn_ckpt.msgpack \
         --output-dir out
+    python -m tacotron2_tpu_torch.cli train --model Tacotron \
+        --input-path data/train.txt --base-dir runs --train-steps 1000
 """
 
 from __future__ import annotations
@@ -230,6 +239,34 @@ def cmd_synthesize(args):
     return paths
 
 
+TRAIN_FLAGS = ("emt-only", "intercross-both", "unpaired", "adv-emb-disc",
+               "nat-gan", "opt-ref-no-mo", "pretrained-emb-disc",
+               "pretrained-emb-disc-all", "remove-long-samps", "test-inputs",
+               "test-max-len")
+
+
+def cmd_train(args):
+    """Train Tacotron; returns the checkpoint directory."""
+    from .train.tacotron_train import tacotron_train
+    if args.model != "Tacotron":
+        raise SystemExit(f"train --model {args.model} is not in the port "
+                         "(Tacotron only)")
+    on = [f for f in TRAIN_FLAGS if getattr(args, f.replace("-", "_"))]
+    if on or args.pretrained_disc_emt or args.pretrained_disc_spk:
+        raise SystemExit(f"train: {on or ['--pretrained-disc-*']} is not in "
+                         "the port (the default trainer only)")
+    cfg = get_config(args.preset, args.hparams)
+    log_dir = os.path.join(args.base_dir, f"logs-{args.model}")
+    os.makedirs(log_dir, exist_ok=True)
+    log(f"Training {args.model} on {args.device}")
+    ckpt_dir, _ = tacotron_train(
+        cfg, args.input_path, log_dir, train_steps=args.train_steps,
+        restore=args.restore, batch_size=args.batch_size,
+        device=args.device, checkpoint_interval=args.checkpoint_interval,
+        eval_interval=args.eval_interval)
+    return ckpt_dir
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tacotron2_tpu_torch")
     p.add_argument("--preset", default="default")
@@ -300,6 +337,23 @@ def build_parser() -> argparse.ArgumentParser:
     sy.add_argument("--device", default="cuda")
     sy.add_argument("--seed", type=int, default=0)
     sy.set_defaults(func=cmd_synthesize)
+
+    tr = sub.add_parser("train", help="Tacotron training on a train.txt")
+    tr.add_argument("--model", default="Tacotron",
+                    choices=("Tacotron", "WaveNet", "Tacotron-2"))
+    tr.add_argument("--input-path", required=True, help="train.txt")
+    tr.add_argument("--base-dir", default=".")
+    tr.add_argument("--train-steps", type=int, default=None)
+    tr.add_argument("--batch-size", type=int, default=None)
+    tr.add_argument("--restore", action="store_true")
+    tr.add_argument("--checkpoint-interval", type=int, default=None)
+    tr.add_argument("--eval-interval", type=int, default=None)
+    tr.add_argument("--pretrained-disc-emt", default=None)
+    tr.add_argument("--pretrained-disc-spk", default=None)
+    for flag in TRAIN_FLAGS:
+        tr.add_argument(f"--{flag}", action="store_true")
+    tr.add_argument("--device", default="cuda")
+    tr.set_defaults(func=cmd_train)
     return p
 
 

@@ -1,16 +1,19 @@
-"""Weight bridge: flax param trees (numpy leaves) -> the port's modules.
+"""Weight bridge: flax param trees (numpy leaves) <-> the port's modules.
 
 Takes what the JAX package trains and checkpoints — the Tacotron
 `params` and `batch_stats` trees and the WaveNet (EMA) params, as read by
 `utils/flax_msgpack.py` or handed over as arrays in tests — and fills:
 
-- `Tacotron` (models/tacotron/model.py): embedding, encoder convs (flax
+- `Tacotron` (models/tacotron/model.py), by one table of flax paths
+  (`flax_path`) that also runs the other way (`tacotron_to_flax`, for the
+  port's checkpoints and the parity tests): embedding, encoder convs (flax
   [k, in, out] -> torch [out, in, k]) with BatchNorm statistics, the
   BiLSTM (TF gate order kept; the forget bias of 1.0 that the JAX
   `lstm_step` adds each step is folded into the f-gate bias here), both
   reference encoders (conv2d [kh, kw, in, out] -> [out, in, kh, kw]), GST
-  tokens and attention, the attention memory layer, postnet and its
-  projection;
+  tokens and attention, the decoder (flax layout as it is), postnet and
+  its projection, the style classifier heads; `init_tacotron` draws a
+  fresh one from the flax initialisers' distributions;
 - `WaveNet` (models/wavenet/model.py): the SubPixel upsample convs and
   the teacher-forced conv stack;
 - the decoder and sampler parameter tuples through
@@ -23,6 +26,7 @@ Dense kernels keep flax's [in, out] layout (the port computes x @ kernel).
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -48,76 +52,177 @@ def _set(param: torch.Tensor, value) -> None:
         param.copy_(value)
 
 
-def _conv1d_block(block, p: Mapping, stats: Mapping) -> None:
-    _set(block.weight, _np(p["Conv_0"]["kernel"]).transpose(2, 1, 0))
-    _set(block.conv_bias, p["Conv_0"]["bias"])
-    _bn(block.bn, p["BatchNorm_0"], stats["BatchNorm_0"])
+# The port's Tacotron parameter and buffer names -> their flax paths, by
+# rule (the flax trees as models/tacotron/model.py's JAX Tacotron builds
+# them). Conv kernels change layout on the way (`_LAYOUT`); the encoder
+# LSTM biases carry the folded forget bias (`_lstm_offset`).
+_RULES = [
+    (r"embedding", "inputs_embedding/embedding"),
+    (r"(encoder_conv|postnet)\.layers\.(\d+)\.weight",
+     r"\1/ConvBlock_\2/Conv_0/kernel"),
+    (r"(encoder_conv|postnet)\.layers\.(\d+)\.conv_bias",
+     r"\1/ConvBlock_\2/Conv_0/bias"),
+    (r"(encoder_conv|postnet)\.layers\.(\d+)\.bn\.(\w+)",
+     r"\1/ConvBlock_\2/BatchNorm_0/\3"),
+    (r"encoder_lstm\.(fw|bw)\.(kernel|bias)", r"encoder_lstm/\1/\2"),
+    (r"(refnet_\w+?)\.convs\.(\d+)", r"\1/conv2d_\2/kernel"),
+    (r"(refnet_\w+?)\.conv_biases\.(\d+)", r"\1/conv2d_\2/bias"),
+    (r"(refnet_\w+?)\.bns\.(\d+)\.(\w+)", r"\1/BatchNorm_\2/\3"),
+    (r"(refnet_\w+?)\.gru\.(\w+)", r"\1/GRU_0/GRUCell_0/\2"),
+    (r"(refnet_\w+?)\.dense\.(\w+)", r"\1/Dense_0/\2"),
+    (r"(gst_attn_\w+?)\.(q_proj|k_proj)\.(\w+)", r"\1/\2/\3"),
+    (r"(gst_attn_\w+?)\.(attention_\w)", r"\1/\2"),
+    (r"(style_tokens_\w+)", r"\1"),
+    (r"decoder\.(.+)", lambda m: "decoder/cell/" + m.group(1).replace(".", "/")),
+    (r"(postnet_projection|style_disc_\w+?)\.(kernel|bias)",
+     r"\1/Dense_0/\2"),
+]
+# flax layout of a torch conv weight: [out, in, k] -> [k, in, out];
+# [out, in, kh, kw] -> [kh, kw, in, out]
+_LAYOUT = {3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
-def _bn(bn, p: Mapping, stats: Mapping) -> None:
-    _set(bn.scale, p["scale"])
-    _set(bn.bias, p["bias"])
-    _set(bn.mean, stats["mean"])
-    _set(bn.var, stats["var"])
+def flax_path(name: str) -> str:
+    """The flax path ("encoder_conv/ConvBlock_0/Conv_0/kernel") of one of
+    the port Tacotron's parameter or buffer names; BatchNorm's mean and
+    var buffers lie in the batch_stats tree."""
+    for pat, rep in _RULES:
+        m = re.fullmatch(pat, name)
+        if m:
+            return m.expand(rep) if isinstance(rep, str) else rep(m)
+    raise KeyError(f"no flax path for the port's {name!r}")
 
 
-def _dense(dense, p: Mapping) -> None:
-    _set(dense.kernel, p["kernel"])
-    if dense.bias is not None:
-        _set(dense.bias, p["bias"])
+def _is_conv(name: str) -> bool:
+    return name.endswith(".weight") or ".convs." in name
 
 
-def _lstm(cell, p: Mapping) -> None:
-    U = cell.units
-    bias = _np(p["bias"]).copy()
-    bias[2 * U:3 * U] += 1.0            # folded forget bias (TF LSTMCell)
-    _set(cell.kernel, p["kernel"])
-    _set(cell.bias, bias)
+def _lstm_offset(name: str, shape) -> np.ndarray | None:
+    """+1 on the f block of an encoder LSTM bias (TF LSTMCell's forget
+    bias, added each step by the JAX `lstm_step`, folded here)."""
+    if not re.fullmatch(r"encoder_lstm\.(fw|bw)\.bias", name):
+        return None
+    U = shape[0] // 4
+    off = np.zeros(shape, np.float32)
+    off[2 * U:3 * U] = 1.0
+    return off
 
 
-def _refnet(ref, p: Mapping, stats: Mapping) -> None:
-    for i in range(len(ref.convs)):
-        _set(ref.convs[i], _np(p[f"conv2d_{i}"]["kernel"]).transpose(3, 2, 0, 1))
-        _set(ref.conv_biases[i], p[f"conv2d_{i}"]["bias"])
-        _bn(ref.bns[i], p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])
-    g = p["GRU_0"]["GRUCell_0"]
-    for name in ("gates_kernel", "gates_bias", "candidate_kernel",
-                 "candidate_bias"):
-        _set(getattr(ref.gru, name), g[name])
-    _dense(ref.dense, p["Dense_0"])
+def to_flax_array(name: str, x: torch.Tensor, *, offset: bool = True
+                  ) -> np.ndarray:
+    """A port tensor in its flax layout (numpy f32); `offset=False` for
+    tensors that are not the parameter itself (its Adam moments)."""
+    a = x.detach().float().cpu().numpy()
+    if _is_conv(name):
+        a = a.transpose(_LAYOUT[a.ndim])
+    off = _lstm_offset(name, a.shape) if offset else None
+    return np.array(a - off if off is not None else a, np.float32, order="C")
 
 
-def _style_attention(attn, p: Mapping) -> None:
-    _dense(attn.q_proj, p["q_proj"])
-    _dense(attn.k_proj, p["k_proj"])
-    _set(attn.attention_v, p["attention_v"])
-    _set(attn.attention_g, p["attention_g"])
-    _set(attn.attention_b, p["attention_b"])
+def from_flax_array(name: str, a, *, offset: bool = True) -> np.ndarray:
+    """The inverse of `to_flax_array`."""
+    a = _np(a)
+    off = _lstm_offset(name, a.shape) if offset else None
+    if off is not None:
+        a = a + off
+    if _is_conv(name):
+        a = a.transpose(np.argsort(_LAYOUT[a.ndim]))
+    return np.array(a, np.float32, order="C")
+
+
+def flax_named_parameters(model: torch.nn.Module):
+    """[(flax path, parameter)] of every trainable tensor, in the module's
+    order."""
+    return [(flax_path(n), p) for n, p in model.named_parameters()]
+
+
+def tree_get(tree: Mapping, path: str):
+    """The leaf of a nested dict at a "/"-joined path."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def tree_set(tree: dict, path: str, value) -> None:
+    """Set the leaf at a "/"-joined path, making the dicts on the way."""
+    *head, last = path.split("/")
+    for key in head:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def tacotron_to_flax(model: Tacotron):
+    """The port Tacotron's parameters and BatchNorm statistics -> (params,
+    batch_stats), flax-named trees of numpy f32 arrays, as the JAX
+    package's checkpoints hold them (the inverse of `tacotron_from_flax`)."""
+    params, stats = {}, {}
+    for name, p in model.named_parameters():
+        tree_set(params, flax_path(name), to_flax_array(name, p))
+    for name, b in model.named_buffers():
+        tree_set(stats, flax_path(name), to_flax_array(name, b))
+    return params, stats
+
+
+def load_tacotron(model: Tacotron, params: Mapping,
+                  batch_stats: Mapping) -> Tacotron:
+    """Fill the port Tacotron from flax `params`/`batch_stats` trees."""
+    for name, p in model.named_parameters():
+        _set(p, from_flax_array(name, tree_get(params, flax_path(name))))
+    for name, b in model.named_buffers():
+        _set(b, _np(tree_get(batch_stats, flax_path(name))))
+    return model
 
 
 def tacotron_from_flax(cfg: Config, params: Mapping, batch_stats: Mapping,
                        device="cuda") -> Tacotron:
-    """Build the port's Tacotron (eval) from flax `params`/`batch_stats`."""
-    m = Tacotron(cfg)
-    _set(m.embedding, params["inputs_embedding"]["embedding"])
-    for i, block in enumerate(m.encoder_conv.layers):
-        _conv1d_block(block, params["encoder_conv"][f"ConvBlock_{i}"],
-                      batch_stats["encoder_conv"][f"ConvBlock_{i}"])
-    _lstm(m.encoder_lstm.fw, params["encoder_lstm"]["fw"])
-    _lstm(m.encoder_lstm.bw, params["encoder_lstm"]["bw"])
-    for side in ("emt", "spk"):
-        _refnet(getattr(m, f"refnet_{side}"), params[f"refnet_{side}"],
-                batch_stats[f"refnet_{side}"])
-        _set(getattr(m, f"style_tokens_{side}"), params[f"style_tokens_{side}"])
-        _style_attention(getattr(m, f"gst_attn_{side}"),
-                         params[f"gst_attn_{side}"])
-    _set(m.memory_layer.kernel,
-         params["decoder"]["cell"]["attention"]["memory_layer"]["kernel"])
-    for i, block in enumerate(m.postnet.layers):
-        _conv1d_block(block, params["postnet"][f"ConvBlock_{i}"],
-                      batch_stats["postnet"][f"ConvBlock_{i}"])
-    _dense(m.postnet_projection, params["postnet_projection"]["Dense_0"])
-    return m.to(device).eval()
+    """Build the port's Tacotron for inference (eval mode, parameters
+    frozen) from flax `params`/`batch_stats`."""
+    m = load_tacotron(Tacotron(cfg), params, batch_stats)
+    return m.to(device).eval().requires_grad_(False)
+
+
+def _glorot(shape, g) -> torch.Tensor:
+    """flax glorot_uniform: U(±sqrt(6 / (fan_in + fan_out))), fans over
+    the receptive field of a conv kernel."""
+    rf = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+    fan_in, fan_out = shape[-2] * rf, shape[-1] * rf
+    lim = (6.0 / (fan_in + fan_out)) ** 0.5
+    return (torch.rand(shape, generator=g) * 2.0 - 1.0) * lim
+
+
+def init_tacotron(cfg: Config, generator=None, device="cuda") -> Tacotron:
+    """A freshly initialised Tacotron, drawn from the distributions of the
+    JAX package's flax initialisers (not their values): glorot-uniform
+    kernels and embedding, zero biases, GRU gate biases 1, BatchNorm scale
+    1, style tokens truncated-normal(0.5) within ±2σ, the GST scorer's v
+    uniform ±sqrt(6/hd) and g sqrt(1/hd); BatchNorm statistics (0, 1), as
+    the module starts them."""
+    g = generator if generator is not None else torch.Generator()
+    model = Tacotron(cfg)
+    params, stats = tacotron_to_flax(model)
+    new = {}
+    for name, _ in model.named_parameters():
+        path = flax_path(name)
+        shape = tree_get(params, path).shape
+        leaf = path.split("/")[-1]
+        if leaf == "gates_bias" or (leaf == "scale" and "BatchNorm" in path):
+            v = torch.ones(shape)
+        elif leaf in ("bias", "candidate_bias", "attention_b",
+                      "attention_bias"):
+            v = torch.zeros(shape)
+        elif leaf.startswith("style_tokens"):
+            v = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0,
+                                            -2.0, 2.0, generator=g) * 0.5
+        elif leaf == "attention_v":
+            lim = (6.0 / shape[0]) ** 0.5
+            v = (torch.rand(shape, generator=g) * 2.0 - 1.0) * lim
+        elif leaf == "attention_g":
+            hd = cfg.gst.style_att_dim // cfg.gst.num_heads
+            v = torch.full(shape, (1.0 / hd) ** 0.5)
+        else:
+            v = _glorot(shape, g)
+        tree_set(new, path, v.numpy())
+    return load_tacotron(model, new, stats).to(device)
 
 
 def wavenet_from_flax(cfg: Config, params: Mapping, device="cuda") -> WaveNet:
@@ -165,3 +270,4 @@ def load_wavenet(path: str) -> Any:
     """Read a WaveNet (EMA) params msgpack checkpoint as a nested dict of
     numpy arrays."""
     return flax_msgpack.load(path)
+

@@ -5,8 +5,9 @@
 // `build_decoder_kernel` (the whole decode, pallas_call at :1105) and
 // `build_decoder_block_kernel` (K steps from carried state, pallas_call at
 // :700), without the in-kernel emt_attn scorers; and of
-// tacotron2_tpu/ops/tacotron_train_kernel.py the eval-mode forward of
-// `build_train_fwd` (train_zoneout=False, pallas_call at :325), below.
+// tacotron2_tpu/ops/tacotron_train_kernel.py `build_train_fwd` (pallas_call
+// at :325) in its eval mode (train_zoneout=False) and its train mode,
+// below. Its backward is csrc/decoder_bwd.cu.
 // Semantics of the autoregressive mode are those of
 // Decoder.autoregressive with the stop sigmoid on, as the plain version
 // `tacotron2_tpu_torch/models/tacotron/decoder.py:decode_block` states
@@ -50,12 +51,21 @@
 // alignment of the context — as the TPU train kernel does with bf16
 // weights (the wrapper rounds the memory and the location taps once);
 // sums and the carried state stay f32. Zoneout is the EMA mix
-// (train_zoneout=False). The training forward's per-step residuals (gate
-// pre-activations z1/z2, h0d, hpre, ctx, h1, c1, h2, c2, cum before the
-// step) would be written where this loop computes them — after the prenet,
-// after each LSTM product and update, after the context exchange — by
-// rank 0 for the vectors every CTA holds and by each rank for its own gate
-// columns and cell units; that is the training forward's work.
+// (train_zoneout=False) in eval mode.
+//
+// Train mode (the same instantiation, a runtime mode: the wrapper passes
+// zoneout masks and residual buffers; wrapper tacotron_train_kernel.py:
+// teacher_forced_train_fwd, plain version decoder.py:teacher_forced_train;
+// replaces build_train_fwd with train_zoneout=True). Zoneout is Bernoulli
+// from masks the caller drew, zmask [B, s_total, 4, U] uint8 for (c1, h1,
+// c2, h2), 1 where the new value is taken: c = m ? new : previous, and the
+// same for h (JAX :212-236, whose masks come from the TPU PRNG; the
+// backward reads the same tensor). Each step writes the residuals the
+// backward reads, f32 [B, s_total, ·], where this loop computes them:
+// rank 0 the vectors every CTA holds (the cumulative alignments before the
+// step, the prenet outputs h0d and hpre, the query q), each rank its own
+// gate columns of z1 and z2 in their natural (i, j, f, o) x U order, its
+// own units of c1, h1, c2, h2 and its own context columns.
 //
 // Design. A cluster of CS=8 CTAs (`__cluster_dims__`, co-scheduled by the
 // hardware) runs the steps of one row in a loop with a static trip count.
@@ -103,7 +113,9 @@ enum Ptr {
   P_PRE_W0, P_PRE_B0, P_PRE_W1, P_PRE_B1, P_L1_W, P_L1_B, P_L2_W, P_L2_B,
   P_WQ, P_WP, P_V_A, P_PROJ_W, P_PROJ_B,
   P_STATE_IN, P_CUM_IN, P_PMAX_IN, P_STATE_OUT, P_CUM_OUT, P_PMAX_OUT,
-  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, P_TEACHER, P_COINS, N_PTR
+  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, P_TEACHER, P_COINS, P_ZMASK,
+  P_RES_CUM, P_RES_Q, P_RES_Z1, P_RES_Z2, P_RES_H0D, P_RES_HPRE, P_RES_CTX,
+  P_RES_H1, P_RES_C1, P_RES_H2, P_RES_C2, N_PTR
 };
 enum Int {
   I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
@@ -147,6 +159,11 @@ struct DecArgs {
   float* align;         // [B, s_total, T] alignments, or null
   const float* teacher;  // [s_total, B, mels] teacher frames, or null
   const int* coins;      // [s_total] 1: step t takes teacher[t], or null
+  // train mode (all given) or eval (all null): zoneout masks [B, s_total,
+  // 4, U] and the residuals [B, s_total, T | A | 4U | 4U | P | P | M | U x4]
+  const uint8_t* zmask;
+  float *res_cum, *res_q, *res_z1, *res_z2, *res_h0d, *res_hpre, *res_ctx,
+      *res_h1, *res_c1, *res_h2, *res_c2;
   int T, t0, nsteps, s_total, mels, P, U, M, A, KW, r, FOp;
   int B, constraint, win_back, win_fwd, stop_at_any, teacher_forced;
   float zoneout;
@@ -162,18 +179,41 @@ __device__ __forceinline__ void mv(const __nv_bfloat16* w, const float* bias,
       w, bias, x, K, N, out, part);
 }
 
+// Residual rows of one step (train mode): z [4U], c and h [U], or null.
+struct LstmRes {
+  float* z;
+  float* c;
+  float* h;
+};
+
 // Zoneout LSTM update of this rank's Uc units: gates z = [i | j | f | o]
 // (Uc each), own cell state c, the full previous h; the new h slice goes to
-// hnew. Then every CTA of the cluster receives it at h[rank*Uc ...].
+// hnew. Zoneout is the EMA mix, or with m ([c | h] masks of all U units)
+// the Bernoulli select; train mode writes the residual rows. Then every CTA
+// of the cluster receives the new h at h[rank*Uc ...].
 __device__ void lstm_update_and_share(cg::cluster_group& cluster, int rank,
                                       const float* z, float* c, float* h,
-                                      float* hnew, int Uc, float zo) {
+                                      float* hnew, int Uc, float zo,
+                                      const uint8_t* m, LstmRes res) {
+  const int U = Uc * CS;
   for (int u = threadIdx.x; u < Uc; u += NT) {
     const float nc = taco::sigmoidf(z[2 * Uc + u]) * c[u] +
                      taco::sigmoidf(z[u]) * tanhf(z[Uc + u]);
     const float nh = taco::sigmoidf(z[3 * Uc + u]) * tanhf(nc);
-    c[u] = (1.f - zo) * nc + zo * c[u];
-    hnew[u] = (1.f - zo) * nh + zo * h[rank * Uc + u];
+    const int unit = rank * Uc + u;
+    if (m) {
+      c[u] = m[unit] ? nc : c[u];
+      hnew[u] = m[U + unit] ? nh : h[unit];
+    } else {
+      c[u] = (1.f - zo) * nc + zo * c[u];
+      hnew[u] = (1.f - zo) * nh + zo * h[unit];
+    }
+    if (res.z) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) res.z[g * U + unit] = z[g * Uc + u];
+      res.c[unit] = c[u];
+      res.h[unit] = hnew[u];
+    }
   }
   cluster.sync();  // every CTA is done reading the previous h
   for (int i = threadIdx.x; i < CS * Uc; i += NT) {
@@ -260,6 +300,17 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
 
   for (int s = 0; s < a.nsteps; ++s) {
     const int t = a.t0 + s;  // global step: drop, out and align index
+    // train mode: this step's masks and residual rows
+    const size_t row = (size_t)b * a.s_total + t;
+    const bool train = TF && a.zmask;
+    const uint8_t* zm = train ? a.zmask + row * 4 * U : nullptr;
+    LstmRes res1{nullptr, nullptr, nullptr}, res2 = res1;
+    if (train) {
+      res1 = {a.res_z1 + row * 4 * U, a.res_c1 + row * U, a.res_h1 + row * U};
+      res2 = {a.res_z2 + row * 4 * U, a.res_c2 + row * U, a.res_h2 + row * U};
+      if (rank == 0)
+        for (int i = tid; i < T; i += NT) a.res_cum[row * T + i] = cum[i];
+    }
 
     // ---- teacher-forced: the input frame is the teacher's where the coin
     // is set. The last step's final cluster.sync() ordered every read of
@@ -278,19 +329,27 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       hp0[i] = fmaxf(hp0[i], 0.f) * drop[(size_t)(2 * t) * P + i];
     __syncthreads();
     mv<TF>(a.pre_w1, a.pre_b1, hp0, P, P, hpre, part);
-    for (int i = tid; i < P; i += NT)
+    for (int i = tid; i < P; i += NT) {
       hpre[i] = fmaxf(hpre[i], 0.f) * drop[(size_t)(2 * t + 1) * P + i];
+      if (train && rank == 0) {
+        a.res_h0d[row * P + i] = hp0[i];
+        a.res_hpre[row * P + i] = hpre[i];
+      }
+    }
     __syncthreads();
 
     // ---- zoneout LSTM1 on [hpre | ctx | h1], LSTM2 on [h1 | h2]; this
     // rank's gate columns, then the new h slices are shared
     mv<TF>(l1_w, l1_b, vec, K1, 4 * Uc, z, part);
-    lstm_update_and_share(cluster, rank, z, c1, h1, hnew, Uc, zo);
+    lstm_update_and_share(cluster, rank, z, c1, h1, hnew, Uc, zo, zm, res1);
     mv<TF>(l2_w, l2_b, h1, 2 * U, 4 * Uc, z, part);
-    lstm_update_and_share(cluster, rank, z, c2, h2, hnew, Uc, zo);
+    lstm_update_and_share(cluster, rank, z, c2, h2, hnew, Uc, zo,
+                          zm ? zm + 2 * U : nullptr, res2);
 
     // ---- location-sensitive energies, one warp per input position
     mv<TF>(a.wq, nullptr, h2, U, A, q, part);
+    if (train && rank == 0)
+      for (int i = tid; i < A; i += NT) a.res_q[row * A + i] = q[i];
     const int pmax = s_pmax;
     for (int tt = warp; tt < T; tt += NT / 32) {
       float acc = 0.f;
@@ -353,6 +412,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
         acc = fmaf(TF ? taco::round_bf16(al[tt]) : al[tt],
                    mem[(size_t)tt * M + col], acc);
       cnew[mm] = acc;
+      if (train) a.res_ctx[row * M + col] = acc;
     }
     __syncthreads();
     for (int i = tid; i < CS * Mc; i += NT) {
@@ -422,8 +482,9 @@ extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
 }
 
 // ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out, align,
-// teacher and coins may be null; the teacher-forced mode needs teacher,
-// coins and align); ints: N_INT values in `Int` order. Returns a CUDA error
+// teacher, coins, zmask and the residuals may be null; the teacher-forced
+// mode needs teacher, coins and align, its train mode also zmask and every
+// residual); ints: N_INT values in `Int` order. Returns a CUDA error
 // code, or 0.
 extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
                                    const int* ints, int n_int, float zoneout,
@@ -459,6 +520,15 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.align = (float*)ptrs[P_ALIGN];
   a.teacher = (const float*)ptrs[P_TEACHER];
   a.coins = (const int*)ptrs[P_COINS];
+  a.zmask = (const uint8_t*)ptrs[P_ZMASK];
+  float** res[] = {&a.res_cum, &a.res_q,   &a.res_z1, &a.res_z2,
+                   &a.res_h0d, &a.res_hpre, &a.res_ctx, &a.res_h1,
+                   &a.res_c1,  &a.res_h2,  &a.res_c2};
+  int n_res = 0;
+  for (int i = 0; i < 11; ++i) {
+    *res[i] = (float*)ptrs[P_RES_CUM + i];
+    n_res += *res[i] != nullptr;
+  }
   a.B = ints[I_B];
   a.T = ints[I_T];
   a.t0 = ints[I_T0];
@@ -485,6 +555,12 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   if (a.teacher_forced &&
       (!a.teacher || !a.coins || !a.align || a.fired_in || a.fired_out ||
        a.constraint))
+    return (int)cudaErrorInvalidValue;
+  // train mode: the teacher-forced mode with the masks and every residual
+  // buffer, all steps in one launch
+  if ((a.zmask || n_res) &&
+      (!a.teacher_forced || !a.zmask || n_res != 11 || a.t0 != 0 ||
+       a.nsteps != a.s_total))
     return (int)cudaErrorInvalidValue;
   void (*kernel)(const DecArgs) =
       a.teacher_forced ? decoder_kernel<true> : decoder_kernel<false>;

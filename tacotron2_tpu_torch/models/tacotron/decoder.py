@@ -1,24 +1,28 @@
 """Tacotron decoder (PyTorch, eager): the autoregressive and the
-teacher-forced decode.
+teacher-forced decode, and the teacher-forced decode's backward.
 
-Counterpart of tacotron2_tpu/models/tacotron/decoder.py at synthesis:
-prenet with dropout always on, two zoneout LSTMs (EMA mix),
-location-sensitive attention, fused frame + stop projection.
-`decode_block` runs K free-running steps, with the window constraint and
-the stop sigmoid, from an explicit `DecoderKernelState`
-(Decoder.autoregressive with initial_state / return_state, :367);
-`autoregressive` is a loop of blocks. `teacher_forced` is
-Decoder.teacher_forced with train=False (:299): each step's input frame
-comes from the teacher or the previous step by a per-step coin, no window
-constraint, stop logits.
+Counterpart of tacotron2_tpu/models/tacotron/decoder.py: prenet with
+dropout always on, two zoneout LSTMs, location-sensitive attention, fused
+frame + stop projection. `decode_block` runs K free-running steps, with
+the window constraint and the stop sigmoid, from an explicit
+`DecoderKernelState` (Decoder.autoregressive with initial_state /
+return_state, :367); `autoregressive` is a loop of blocks.
+`teacher_forced` is Decoder.teacher_forced with train=False (:299): each
+step's input frame comes from the teacher or the previous step by a
+per-step coin, no window constraint, stop logits, EMA zoneout;
+`teacher_forced_train` the same in train mode (Bernoulli zoneout, and the
+per-step residuals), and `teacher_forced_bwd_plain` its reverse-time
+backward. `Decoder` holds the decoder's parameters in flax layout.
 
-These are the plain versions of the CUDA decode kernel
+These are the plain versions of the CUDA kernels
 (`ops/tacotron_decoder_kernel.py`, `ops/tacotron_train_kernel.py`,
-`csrc/decoder.cu`) and follow its contract exactly:
+`csrc/decoder.cu`, `csrc/decoder_bwd.cu`) and follow their contract
+exactly:
 
 - prenet dropout comes in as multipliers `drop [B, steps, 2, P]`
-  (0 or 1/keep, drawn by the caller), so kernel and plain see the same
-  random numbers;
+  (0 or 1/keep, drawn by the caller), and train-mode zoneout as masks
+  `zmask [B, steps, 4, U]` (`zoneout_masks`), so kernel and plain see the
+  same random numbers;
 - `early_stop_block=K` applies the TPU kernel's batch-wide block rule
   (see `autoregressive`).
 """
@@ -28,9 +32,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from ...config import Config
-from .attention import attention_step, fold_location, identity
+from .attention import (attention_step, fold_location, identity,
+                        location_features)
+from .modules import Dense
 
 
 class DecoderParams(NamedTuple):
@@ -76,11 +84,48 @@ def drop_masks(cfg: Config, batch: int, steps: int, generator=None,
     return (u < keep).float() * (1.0 / keep)
 
 
-def _lstm(z, c, h, zo: float):
+def zoneout_masks(cfg: Config, batch: int, steps: int, generator=None,
+                  device="cuda") -> torch.Tensor:
+    """Train-mode zoneout masks [B, steps, 4, U] bool for (c1, h1, c2, h2):
+    True (the new state is taken) where a uniform draw is below 1 - z, as
+    the TPU train kernel draws them (tacotron_train_kernel.py:212-236); all
+    True at zoneout_rate 0."""
+    U = cfg.tacotron.decoder_lstm_units
+    zo = float(cfg.tacotron.zoneout_rate)
+    shape = (batch, steps, 4, U)
+    if zo <= 0.0:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - zo
+
+
+def _lstm(z, c, h, zo: float, m=None):
+    """LSTM update from gates z (i, j, f, o); zoneout is the EMA mix, or
+    with masks m [B, 2, U] (c, h) the Bernoulli select of train mode."""
     i, j, f, o = z.chunk(4, dim=-1)
     nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(j)
     nh = torch.sigmoid(o) * torch.tanh(nc)
+    if m is not None:
+        return torch.where(m[:, 0], nc, c), torch.where(m[:, 1], nh, h)
     return (1 - zo) * nc + zo * c, (1 - zo) * nh + zo * h
+
+
+def _lstm_bwd(z, c_prev, dh, dc, m):
+    """Backward of one train-mode `_lstm` (JAX `build_train_bwd`'s
+    lstm_bwd, :506-528) from its gates z and previous cell c_prev, with
+    the gradients dh, dc of its outputs and its masks m [B, 2, U]. Returns
+    (dz, dh_prev, dc_prev), dh_prev the part that zoned out."""
+    i, j, f, o = z.chunk(4, dim=-1)
+    si, sf, so, tj = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), \
+        torch.tanh(j)
+    tnc = torch.tanh(sf * c_prev + si * tj)
+    m_c, m_h = m[:, 0].float(), m[:, 1].float()
+    dnh = dh * m_h
+    dnc = dc * m_c + dnh * so * (1.0 - tnc * tnc)
+    dz = torch.cat([dnc * tj * si * (1.0 - si),
+                    dnc * si * (1.0 - tj * tj),
+                    dnc * c_prev * sf * (1.0 - sf),
+                    dnh * tnc * so * (1.0 - so)], -1)
+    return dz, dh * (1.0 - m_h), dc * (1.0 - m_c) + dnc * sf
 
 
 def stop_fired(stop_probs, stop_at_any: bool):
@@ -134,8 +179,12 @@ class _Cell(NamedTuple):
 
 
 def round_bf16(x):
-    """x rounded to bf16 (to nearest even), kept in f32."""
-    return x.to(torch.bfloat16).float()
+    """x rounded to bf16 (to nearest even), kept in f32. Where x needs a
+    gradient the rounding passes it through unchanged (x + (r - x) is r
+    exactly: r - x is exact for neighbours), as the CUDA backward takes
+    it."""
+    r = x.to(torch.bfloat16).float()
+    return x + (r - x).detach() if x.requires_grad else r
 
 
 def _cell(dp: DecoderParams, keys, memory, mask,
@@ -151,12 +200,14 @@ def _cell(dp: DecoderParams, keys, memory, mask,
 
 
 def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
-          constraint: bool):
+          constraint: bool, zm_t=None):
     """One decoder step on input frame x [B, mels] with prenet multipliers
-    drop_t [B, 2, P]: prenet, both zoneout LSTMs (EMA mix), attention, the
-    fused frame + stop projection. Returns (proj [B, r*mels + r] with the
-    stop logits last, align [B, T], the state after the step, whose xprev
-    is the step's last frame).
+    drop_t [B, 2, P]: prenet, both zoneout LSTMs (EMA mix, or with train
+    masks zm_t [B, 4, U] the Bernoulli select), attention, the fused frame
+    + stop projection. Returns (proj [B, r*mels + r] with the stop logits
+    last, align [B, T], the state after the step, whose xprev is the
+    step's last frame, and the step's prenet outputs h0d, hpre, gates z1,
+    z2 and query q, which the backward reads).
 
     `cell.rnd` rounds every activation where it enters a product — the
     frame, both prenet inputs, the LSTM inputs, the query's and the
@@ -169,21 +220,22 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     zo = float(tc.zoneout_rate)
     w, rnd = cell.w, cell.rnd
     _, c1, h1, c2, h2, ctx, cum, pmax = state
-    hp = torch.relu(rnd(x) @ w["pre_w0"] + w["pre_b0"]) * drop_t[:, 0]
-    hp = torch.relu(rnd(hp) @ w["pre_w1"] + w["pre_b1"]) * drop_t[:, 1]
-    c1, h1 = _lstm(rnd(torch.cat([hp, ctx, h1], -1)) @ cell.l1_w
-                   + w["l1_b"], c1, h1, zo)
-    c2, h2 = _lstm(rnd(torch.cat([h1, h2], -1)) @ cell.l2_w + w["l2_b"],
-                   c2, h2, zo)
+    h0d = torch.relu(rnd(x) @ w["pre_w0"] + w["pre_b0"]) * drop_t[:, 0]
+    hpre = torch.relu(rnd(h0d) @ w["pre_w1"] + w["pre_b1"]) * drop_t[:, 1]
+    z1 = rnd(torch.cat([hpre, ctx, h1], -1)) @ cell.l1_w + w["l1_b"]
+    c1, h1 = _lstm(z1, c1, h1, zo, None if zm_t is None else zm_t[:, :2])
+    z2 = rnd(torch.cat([h1, h2], -1)) @ cell.l2_w + w["l2_b"]
+    c2, h2 = _lstm(z2, c2, h2, zo, None if zm_t is None else zm_t[:, 2:])
+    q = rnd(h2) @ w["wq"]
     ctx, align, cum, pmax = attention_step(
-        rnd(h2) @ w["wq"], cell.keys_eff, cell.memory, cell.mask, cum, pmax,
-        cell.wp, w["v_a"], constraint=constraint,
-        ctype=tc.synthesis_constraint_type, win=tc.attention_win_size,
-        rnd=rnd)
+        q, cell.keys_eff, cell.memory, cell.mask, cum, pmax, cell.wp,
+        w["v_a"], constraint=constraint, ctype=tc.synthesis_constraint_type,
+        win=tc.attention_win_size, rnd=rnd)
     proj = rnd(torch.cat([h2, ctx], -1)) @ cell.proj_w + w["proj_b"]
     xprev = proj[:, (r - 1) * mels:r * mels]
-    return proj, align, DecoderKernelState(xprev, c1, h1, c2, h2, ctx, cum,
-                                           pmax)
+    return (proj, align,
+            DecoderKernelState(xprev, c1, h1, c2, h2, ctx, cum, pmax),
+            dict(h0d=h0d, hpre=hpre, z1=z1, z2=z2, q=q))
 
 
 def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
@@ -200,8 +252,8 @@ def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
     state = state._replace(pmax=state.pmax.long())
     frames_l, stops_l, aligns_l = [], [], []
     for t in range(K):
-        proj, align, state = _step(cell, cfg, state.xprev, drop[:, t], state,
-                                   tc.synthesis_constraint)
+        proj, align, state, _ = _step(cell, cfg, state.xprev, drop[:, t],
+                                      state, tc.synthesis_constraint)
         frames_l.append(proj[:, :r * mels])
         stops_l.append(torch.sigmoid(proj[:, r * mels:]))
         aligns_l.append(align)
@@ -273,22 +325,236 @@ def teacher_forced(dp: DecoderParams, cfg: Config, keys, memory, mask,
     kernel `build_train_fwd` does (see `_step`). Returns (frames [B,
     steps*r, mels], stop logits [B, steps*r], alignments [B, T, steps]),
     all f32."""
+    return _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins,
+                           drop, None)[:3]
+
+
+def teacher_forced_train(dp: DecoderParams, cfg: Config, keys, memory,
+                         mask, teacher, coins, drop, zmask,
+                         bf16_inputs: bool | None = None):
+    """`teacher_forced` in train mode, the plain version of the train
+    forward (JAX `build_train_fwd` with train_zoneout=True, :118):
+    Bernoulli zoneout from zmask [B, steps, 4, U] bool (`zoneout_masks`),
+    and the residuals the backward reads. Returns (frames, stop logits,
+    alignments, res); res holds, all f32 and [B, steps, ·]: out (the
+    projection: frames | stop logits), align, cum_pre (the cumulative
+    alignments before the step), q (the attention query), z1, z2 (LSTM
+    gates, forget bias folded), h0d, hpre (prenet outputs after dropout),
+    ctx, h1, c1, h2, c2 (the state after the step). Differentiable in dp,
+    keys and memory: autograd through it is the reference the fused
+    backward is held to. `bf16_inputs` rounds the activations as with bf16
+    weights (default: when dp's weights are bf16), for f32 weights that
+    hold bf16 values and need f32 gradients."""
+    return _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins,
+                           drop, zmask, bf16_inputs)
+
+
+def _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins, drop,
+                    zmask, bf16_inputs=None):
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
     steps = teacher.shape[0]
-    cell = _cell(dp, keys, memory, mask,
-                 round_inputs=dp.l1_wp.dtype == torch.bfloat16)
+    if bf16_inputs is None:
+        bf16_inputs = dp.l1_wp.dtype == torch.bfloat16
+    cell = _cell(dp, keys, memory, mask, round_inputs=bf16_inputs)
     state = init_decoder_state(cfg, B, T, M, memory.device)
     state = state._replace(pmax=state.pmax.long())
     teacher = teacher.float()
-    frames_l, stops_l, aligns_l = [], [], []
+    keep = ("out", "align", "cum_pre", "q", "z1", "z2", "h0d", "hpre", "ctx",
+            "h1", "c1", "h2", "c2")
+    res = {k: [] for k in keep}
     for t, coin in enumerate(coins.tolist()):
         x = teacher[t] if coin else state.xprev
-        proj, align, state = _step(cell, cfg, x, drop[:, t], state, False)
-        frames_l.append(proj[:, :r * mels])
-        stops_l.append(proj[:, r * mels:])
-        aligns_l.append(align)
-    return (torch.stack(frames_l, 1).reshape(B, steps * r, mels),
-            torch.stack(stops_l, 1).reshape(B, steps * r),
-            torch.stack(aligns_l, 2))
+        cum_pre = state.cum
+        proj, align, state, step_res = _step(
+            cell, cfg, x, drop[:, t], state, False,
+            None if zmask is None else zmask[:, t])
+        res["out"].append(proj)
+        res["align"].append(align)
+        if zmask is not None:
+            step_res.update(cum_pre=cum_pre, ctx=state.ctx, h1=state.h1,
+                            c1=state.c1, h2=state.h2, c2=state.c2)
+            for k, v in step_res.items():
+                res[k].append(v)
+    res = {k: torch.stack(v, 1) for k, v in res.items() if v}
+    out = res["out"]
+    frames = out[..., :r * mels].reshape(B, steps * r, mels)
+    stops = out[..., r * mels:].reshape(B, steps * r)
+    return frames, stops, res["align"].transpose(1, 2), res
+
+
+def teacher_forced_replay(dp: DecoderParams, cfg: Config, keys, memory,
+                          mask, teacher, coins, drop, zmask, res,
+                          chunk: int = 64):
+    """The plain train step replayed on a given trajectory, one step at a
+    time: step t starts from `res`'s state after step t-1 (c1, h1, c2, h2,
+    ctx, the cumulative alignments `cum_pre[t]`, and where coins[t] is 0
+    the last frame of out[t-1]) with its own masks, so each step is held
+    on its own and a difference cannot feed forward. `res` is the train
+    forward's residual dict (e.g. the kernel's); returns the same keys
+    recomputed, [B, steps, ·]. Steps go `chunk` at a time as one batch of
+    chunk·B rows."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    B, S = res["out"].shape[:2]
+    names = ("out", "align", "cum_pre", "q", "z1", "z2", "h0d", "hpre",
+             "ctx", "h1", "c1", "h2", "c2")
+    got = {k: [] for k in names}
+    bf16 = dp.l1_wp.dtype == torch.bfloat16
+    coins = coins.to(memory.device).bool()
+    teacher = teacher.float()
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        ts = torch.arange(t0, t0 + n, device=memory.device)
+        rows = lambda x: x.transpose(0, 1).reshape(n * B, *x.shape[2:])
+        rep = lambda x: x[None].expand(n, *x.shape).reshape(n * B,
+                                                             *x.shape[1:])
+
+        def prev(name):
+            x = res[name][:, (ts - 1).clamp(min=0)]
+            return rows(torch.where((ts > 0)[None, :, None], x,
+                                    torch.zeros_like(x)))
+
+        xprev = prev("out")[:, (r - 1) * mels:r * mels]
+        x = torch.where(rows(coins[ts][None, :, None].expand(B, n, 1)),
+                        rows(teacher[ts].transpose(0, 1)), xprev)
+        state = DecoderKernelState(
+            xprev, prev("c1"), prev("h1"), prev("c2"), prev("h2"),
+            prev("ctx"), rows(res["cum_pre"][:, ts]),
+            torch.zeros(n * B, dtype=torch.long, device=memory.device))
+        cell = _cell(dp, rep(keys), rep(memory), rep(mask),
+                     round_inputs=bf16)
+        proj, align, st, sres = _step(cell, cfg, x, rows(drop[:, ts]), state,
+                                      False, rows(zmask[:, ts]))
+        sres.update(out=proj, align=align, cum_pre=state.cum, ctx=st.ctx,
+                    h1=st.h1, c1=st.c1, h2=st.h2, c2=st.c2)
+        for k in names:
+            got[k].append(sres[k].reshape(n, B, -1).transpose(0, 1))
+    return {k: torch.cat(v, 1) for k, v in got.items()}
+
+
+def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
+                             memory, mask, coins, drop, zmask, dout,
+                             dalign):
+    """The plain version of the BPTT backward (CUDA `csrc/decoder_bwd.cu`;
+    JAX `build_train_bwd`, tacotron_train_kernel.py:371-600): an explicit
+    reverse-time chain through the projection, the location-sensitive
+    attention (softmax, masked positions, the cumulative-alignment
+    gradient carried across steps, the location conv's transpose), both
+    zoneout LSTMs, the prenet with its dropout and the scheduled-sampling
+    feedback: where coins[t] is 0, step t's input was step t-1's last
+    frame, so its gradient adds into step t-1's projection gradient.
+
+    res: `teacher_forced_train`'s residuals; dout [B, steps, r*mels + r]
+    the gradient of the projection (frames | stop logits), dalign [B,
+    steps, T] that of the alignments. Activations enter each product as in
+    the forward (rounded to bf16 with bf16 weights); gradients stay f32.
+    Returns the per-step activation gradients dz1, dz2 [B, steps, 4U],
+    da0, da1 [B, steps, P] (prenet pre-activations), dproj [B, steps,
+    r*mels + r] (with the feedback), dctx [B, steps, M], dq [B, steps, A],
+    and summed over the steps: dkeys [B, T, A] (of the keys with the folded
+    attention bias), dwp [K, A] (of the folded location taps), dva [A]."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    B, T, M = memory.shape
+    S = dout.shape[1]
+    cell = _cell(dp, keys, memory, mask,
+                 round_inputs=dp.l1_wp.dtype == torch.bfloat16)
+    w, rnd, wp = cell.w, cell.rnd, cell.wp
+    U, P = w["l2_wh"].shape[0], w["pre_b0"].shape[0]
+    K, A = wp.shape
+    pad = (K - 1) // 2
+    z = lambda *s: memory.new_zeros(*s)
+    dh1, dc1, dh2, dc2 = z(B, U), z(B, U), z(B, U), z(B, U)
+    dctx_c, dcum, dxprev = z(B, M), z(B, T), z(B, mels)
+    dkeys, dwp, dva = z(B, T, A), z(K, A), z(A)
+    keys_out = ("dz1", "dz2", "da0", "da1", "dproj", "dctx", "dq")
+    outs = {k: [None] * S for k in keys_out}
+    coins = coins.tolist()
+    proj_wo_t, proj_wc_t = w["proj_wo"].t(), w["proj_wc"].t()
+    for t in reversed(range(S)):
+        dproj = dout[:, t].clone()
+        dproj[:, (r - 1) * mels:r * mels] += dxprev
+        dh2_out = dproj @ proj_wo_t
+        dctx = dproj @ proj_wc_t + dctx_c
+        # attention: context, softmax, energies, location features
+        align = res["align"][:, t]
+        dal = (torch.bmm(dctx[:, None, :], cell.memory.transpose(1, 2))[:, 0]
+               + dalign[:, t] + dcum)
+        den = align * (dal - (dal * align).sum(-1, keepdim=True))
+        rc = rnd(res["cum_pre"][:, t])
+        e = torch.tanh(cell.keys_eff + res["q"][:, t][:, None, :]
+                       + location_features(rc, wp))
+        de = den[..., None] * w["v_a"] * (1.0 - e * e)         # [B, T, A]
+        dkeys += de
+        dva += (e * den[..., None]).sum((0, 1))
+        taps = F.pad(rc, (pad, K - 1 - pad)).unfold(1, K, 1)   # [B, T, K]
+        dwp += torch.einsum("btk,bta->ka", taps, de)
+        dcum = dcum + F.conv_transpose1d(
+            de.transpose(1, 2), wp.t()[:, None, :], padding=pad)[:, 0, :T]
+        dq = de.sum(1)
+        # LSTM2, LSTM1 (dz @ W^T: the transposed products)
+        c_prev = lambda n: res[n][:, t - 1] if t else z(B, U)
+        dz2, dh2_z, dc2 = _lstm_bwd(res["z2"][:, t], c_prev("c2"),
+                                    dh2_out + dq @ w["wq"].t() + dh2, dc2,
+                                    zmask[:, t, 2:])
+        dx2 = dz2 @ w["l2_wx"].t()
+        dh2 = dh2_z + dz2 @ w["l2_wh"].t()
+        dz1, dh1_z, dc1 = _lstm_bwd(res["z1"][:, t], c_prev("c1"),
+                                    dx2 + dh1, dc1, zmask[:, t, :2])
+        g1 = dz1 @ cell.l1_w.t()
+        dhpre, dctx_c, dh1 = g1[:, :P], g1[:, P:P + M], dh1_z + g1[:, P + M:]
+        # prenet: relu and dropout through the saved outputs' sign and the
+        # multipliers
+        da1 = dhpre * drop[:, t, 1] * (res["hpre"][:, t] > 0)
+        da0 = (da1 @ w["pre_w1"].t()) * drop[:, t, 0] * (res["h0d"][:, t] > 0)
+        dxprev = da0 @ w["pre_w0"].t() if coins[t] == 0 else z(B, mels)
+        for k, v in zip(keys_out, (dz1, dz2, da0, da1, dproj, dctx, dq)):
+            outs[k][t] = v
+    out = {k: torch.stack(v, 1) for k, v in outs.items()}
+    out.update(dkeys=dkeys, dwp=dwp, dva=dva)
+    return out
+
+
+class _Leaf(nn.Module):
+    """Parameters under their flax names."""
+
+    def __init__(self, **shapes):
+        super().__init__()
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(torch.zeros(*shape)))
+
+
+class Decoder(nn.Module):
+    """The decoder's parameters in flax layout, named as JAX's
+    `DecoderCell` (decoder/cell/...: prenet, lstm1, lstm2, attention with
+    its memory_layer, frame_projection, stop_projection); LSTM biases
+    without the folded forget bias. `ops/tacotron_train_kernel.py:
+    extract_params_traced` makes the matmul-ready `DecoderParams` of them,
+    differentiably."""
+
+    def __init__(self, cfg: Config, memory_width: int):
+        super().__init__()
+        tc, mels = cfg.tacotron, cfg.audio.num_mels
+        U, A, r = tc.decoder_lstm_units, tc.attention_dim, tc.outputs_per_step
+        dims = [mels] + list(tc.prenet_layers)
+        M = memory_width
+        self.prenet = nn.ModuleDict({
+            f"Dense_{i}": Dense(dims[i], dims[i + 1])
+            for i in range(len(tc.prenet_layers))})
+        self.lstm1 = _Leaf(kernel=(dims[-1] + M + U, 4 * U), bias=(4 * U,))
+        self.lstm2 = _Leaf(kernel=(2 * U, 4 * U), bias=(4 * U,))
+        self.attention = _Leaf(attention_variable_projection=(A, 1),
+                               attention_bias=(A,))
+        att = self.attention
+        att.query_layer = Dense(U, A, use_bias=False)
+        att.memory_layer = Dense(M, A, use_bias=False)
+        att.location_features_convolution = _Leaf(
+            kernel=(tc.attention_kernel, 1, tc.attention_filters),
+            bias=(tc.attention_filters,))
+        att.location_features_layer = Dense(tc.attention_filters, A,
+                                            use_bias=False)
+        self.frame_projection = nn.ModuleDict(
+            {"Dense_0": Dense(U + M, r * mels)})
+        self.stop_projection = nn.ModuleDict({"Dense_0": Dense(U + M, r)})

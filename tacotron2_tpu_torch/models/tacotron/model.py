@@ -1,33 +1,43 @@
-"""Tacotron-2 with GST style conditioning — the inference passes (PyTorch).
+"""Tacotron-2 with GST style conditioning (PyTorch).
 
-Counterpart of tacotron2_tpu/models/tacotron/model.py for what synthesis
-runs around the decode: `synthesis_memory_ext` (:255) — character
-embedding, conv + zoneout-BiLSTM encoder, both reference encoders, GST
-multi-head style attention, the `se_concat` join and the attention keys —
-and `postnet_pass` (:278). The autoregressive decode between them is
-`models/tacotron/decoder.py` / the CUDA decode kernel. `gta_pass` is
-`Tacotron.__call__` (:287) with train=False, gta=True: the same memory
-pass, the teacher-forced decode the caller hands in, the postnet, and
-with `synth_embeddings` the reference encoders run on the output mel.
+Counterpart of tacotron2_tpu/models/tacotron/model.py. For synthesis:
+`synthesis_memory_ext` (:255) — character embedding, conv + zoneout-BiLSTM
+encoder, both reference encoders, GST multi-head style attention, the
+`se_concat` join and the attention keys — and `postnet_pass` (:278); the
+autoregressive decode between them is `models/tacotron/decoder.py` / the
+CUDA decode kernel. `gta_pass` is `Tacotron.__call__` (:287) with
+train=False, gta=True: the same memory pass, the teacher-forced decode the
+caller hands in, the postnet, and with `synth_embeddings` the reference
+encoders run on the output mel. `forward` is `__call__` (:287-352) for
+training and its natural eval: the same passes in train mode (dropout,
+zoneout, BatchNorm on batch statistics), the teacher-forced decode with
+scheduled-sampling coins, and the style classifier heads.
 
-Ported for the default family: `gst.use_gst=True` with two reference
-encoders (not AdaIN, not `emt_attn`, not `emt_only`), `se_concat=True`.
+The decoder's parameters live in `Decoder` (flax layout and names,
+decoder/cell/...), the attention's memory layer among them. Ported for the
+default family: `gst.use_gst=True` with two reference encoders (not AdaIN,
+not `emt_attn`, not `emt_only`), `se_concat=True`, the `style_disc_emt` /
+`style_disc_spk` heads of `use_style_emb_disc`.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import torch
 from torch import nn
 
 from ...config import Config
 from ...text.symbols import symbols
-from .decoder import teacher_inputs
+from .decoder import (Decoder, drop_masks, round_bf16, teacher_forced_train,
+                      teacher_inputs, zoneout_masks)
 from .modules import (BiLSTMEncoder, Dense, EncoderConvStack,
                       MultiheadStyleAttention, Postnet, ReferenceEncoder)
 
 
 class Tacotron(nn.Module):
-    """Inference-side Tacotron; weights come from `convert.py`."""
+    """Tacotron-2 with GST; weights come from `convert.py`
+    (`tacotron_from_flax`, `init_tacotron`)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -38,10 +48,11 @@ class Tacotron(nn.Module):
         self.cfg = cfg
         bf16 = tc.compute_dtype == "bfloat16"
         self.embedding = nn.Parameter(
-            torch.zeros(len(symbols), tc.embedding_dim), requires_grad=False)
+            torch.zeros(len(symbols), tc.embedding_dim))
         self.encoder_conv = EncoderConvStack(
             tc.embedding_dim, tc.enc_conv_num_layers, tc.enc_conv_channels,
-            tc.enc_conv_kernel_size, tc.batch_norm_position, bf16)
+            tc.enc_conv_kernel_size, tc.batch_norm_position, bf16,
+            tc.dropout_rate)
         self.encoder_lstm = BiLSTMEncoder(
             tc.enc_conv_channels, tc.encoder_lstm_units, tc.zoneout_rate)
         self.refnet_emt = ReferenceEncoder(
@@ -49,31 +60,41 @@ class Tacotron(nn.Module):
         self.refnet_spk = ReferenceEncoder(
             au.num_mels, tuple(gst.reference_filters), gst.reference_depth)
         tok_dim = gst.style_embed_depth // gst.num_heads
-        self.style_tokens_emt = nn.Parameter(
-            torch.zeros(gst.num_gst, tok_dim), requires_grad=False)
-        self.style_tokens_spk = nn.Parameter(
-            torch.zeros(gst.num_gst, tok_dim), requires_grad=False)
+        self.style_tokens_emt = nn.Parameter(torch.zeros(gst.num_gst, tok_dim))
+        self.style_tokens_spk = nn.Parameter(torch.zeros(gst.num_gst, tok_dim))
         self.gst_attn_emt = MultiheadStyleAttention(
             128, tok_dim, gst.num_heads, gst.style_att_dim, gst.style_att_type)
         self.gst_attn_spk = MultiheadStyleAttention(
             128, tok_dim, gst.num_heads, gst.style_att_dim, gst.style_att_type)
         enc_width = 2 * tc.encoder_lstm_units
         self.memory_width = enc_width + 2 * gst.num_heads * tok_dim
-        self.memory_layer = Dense(self.memory_width, tc.attention_dim,
-                                  use_bias=False)
+        self.decoder = Decoder(cfg, self.memory_width)
         self.postnet = Postnet(au.num_mels, tc.postnet_num_layers,
                                tc.postnet_channels, tc.postnet_kernel_size,
-                               tc.batch_norm_position, bf16)
+                               tc.batch_norm_position, bf16, tc.dropout_rate)
         self.postnet_projection = Dense(tc.postnet_channels, au.num_mels)
+        if gst.use_style_emb_disc:
+            self.style_disc_emt = Dense(128, gst.n_emt)
+            self.style_disc_spk = Dense(128, gst.n_spk)
+
+    @property
+    def memory_layer(self):
+        """The attention's memory layer (decoder/cell/attention/
+        memory_layer): memory -> keys."""
+        return self.decoder.attention.memory_layer
 
     # ------------------------------------------------------------- parts
 
-    def encode(self, inputs, input_lengths):
+    def encode(self, inputs, input_lengths, train: bool = False,
+               generator=None):
         """Character ids [B, T_in] -> encoder states [B, T_in, 2·units]."""
         x = self.embedding[inputs.long()]
-        return self.encoder_lstm(self.encoder_conv(x), input_lengths)
+        return self.encoder_lstm(
+            self.encoder_conv(x, train, generator), input_lengths, train,
+            generator)
 
-    def style_embeddings(self, ref_mel_emt, ref_mel_spk):
+    def style_embeddings(self, ref_mel_emt, ref_mel_spk,
+                         train: bool = False):
         """Reference mels -> (style embedding [B, 1, S], the emotion and the
         speaker reference encoders' outputs [B, 128])."""
         B = ref_mel_emt.shape[0]
@@ -84,7 +105,7 @@ class Tacotron(nn.Module):
                 (self.refnet_spk, self.style_tokens_spk, self.gst_attn_spk,
                  ref_mel_spk)):
             value = torch.tanh(tokens)[None].expand(B, -1, -1)
-            refs.append(refnet(ref))
+            refs.append(refnet(ref, train))
             parts.append(attn(refs[-1][:, None, :], value))
         return torch.cat(parts, dim=-1), refs[0], refs[1]
 
@@ -158,3 +179,84 @@ class Tacotron(nn.Module):
             out.update(refnet_out_mel_emt=self.refnet_emt(mel),
                        refnet_out_mel_spk=self.refnet_spk(mel))
         return out
+
+    # ---------------------------------------------------------- training
+
+    def forward(self, inputs, input_lengths, mel_targets, ref_mel_emt,
+                ref_mel_spk, *, teacher_forcing_ratio: float = 1.0,
+                generator=None, train: bool = True, decode: str = "fused",
+                timer=None):
+        """The train forward (JAX `Tacotron.__call__(train=True)` for the
+        default flags, :287-352), or with train=False its eval forward
+        (dropout off but the prenet's, zoneout the EMA mix, BatchNorm on
+        the running statistics). Encoder, style embeddings, memory and keys,
+        the teacher-forced decode — step t takes the target frame where
+        its coin (one per step, a uniform draw below the ratio) is set,
+        else its own previous frame — the postnet between two clips, and
+        the style classifier heads. Random draws (dropout, zoneout, coins)
+        come from `generator`.
+
+        In train mode `decode` is "fused" (`FusedTeacherForced`: the CUDA
+        train forward and backward kernels on a CUDA device, their plain
+        versions on the CPU) or "autograd" (autograd through the plain
+        decode, the reference the fused route is held to); the eval
+        forward runs the eval kernel, without gradient. `timer(name)`, a
+        context manager (`train/tacotron_step.py:StepTimer`), times the
+        memory pass and the decode's kernels when given.
+
+        Returns the dict `compute_losses` reads: decoder_output,
+        mel_outputs [B, T_out, mels], stop_token_prediction (logits) [B,
+        T_out], alignments [B, T_in, steps], refnet_out_emt /
+        refnet_out_spk [B, 128], style_emb_logit_emt / _spk."""
+        from ...ops import tacotron_decoder_kernel as dk
+        from ...ops import tacotron_train_kernel as tk
+        if decode not in ("fused", "autograd"):
+            raise ValueError(f"decode={decode!r}")
+        cfg = self.cfg
+        r = cfg.tacotron.outputs_per_step
+        dev = mel_targets.device
+        B, T_out = mel_targets.shape[:2]
+        steps = T_out // r
+        g = generator
+        with timer("memory pass forward") if timer else nullcontext():
+            enc = self.encode(inputs, input_lengths, train, g)
+            style, ref_emt, ref_spk = self.style_embeddings(
+                ref_mel_emt, ref_mel_spk, train)
+            keys, memory, mask = self._keys_memory_mask(enc, style,
+                                                        input_lengths)
+        teacher = teacher_inputs(mel_targets, r)
+        coins = (torch.rand(steps, generator=g, device=dev)
+                 < teacher_forcing_ratio).to(torch.int32)
+        drop = drop_masks(cfg, B, steps, g, dev)
+        dp = tk.extract_params_traced(self.decoder, cfg)
+        if not train:
+            with torch.no_grad():
+                dpw = tk.cast_params(dp, tk.train_weight_dtype(cfg))
+                kw = dk.pack_weights(dpw) if dev.type == "cuda" else None
+                frames, stops, aligns = tk.teacher_forced_fwd(
+                    dpw, cfg, keys, memory, mask, teacher, coins, drop,
+                    kernel_weights=kw)
+        else:
+            zmask = zoneout_masks(cfg, B, steps, g, dev)
+            if decode == "fused":
+                frames, stops, aligns = tk.FusedTeacherForced.apply(
+                    cfg, timer, keys, memory, mask, teacher, coins, drop,
+                    zmask, *dp)
+            else:
+                bf16 = tk.train_weight_dtype(cfg) == torch.bfloat16
+                dpr = type(dp)(*[round_bf16(v) if bf16 and k in tk.MATMUL
+                                 else v for k, v in dp._asdict().items()])
+                frames, stops, aligns, _ = teacher_forced_train(
+                    dpr, cfg, keys, memory, mask, teacher, coins, drop,
+                    zmask, bf16_inputs=bf16)
+        dec = self._clip(frames)
+        mel = self._clip(dec + self.postnet_projection(
+            self.postnet(dec, train, g)))
+        out = dict(decoder_output=dec, mel_outputs=mel,
+                   stop_token_prediction=stops, alignments=aligns,
+                   refnet_out_emt=ref_emt, refnet_out_spk=ref_spk)
+        if self.cfg.gst.use_style_emb_disc:
+            out.update(style_emb_logit_emt=self.style_disc_emt(ref_emt),
+                       style_emb_logit_spk=self.style_disc_spk(ref_spk))
+        return out
+

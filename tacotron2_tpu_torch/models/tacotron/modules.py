@@ -1,4 +1,4 @@
-"""Tacotron building blocks (PyTorch, inference side).
+"""Tacotron building blocks (PyTorch).
 
 Counterparts of tacotron2_tpu/models/tacotron/modules.py. Layouts follow the
 JAX package at every public function: sequences are [B, T, C] and dense
@@ -6,10 +6,16 @@ kernels are stored as flax keeps them, [in, out], so `convert.py` copies
 them without transposes. Convolutions keep PyTorch's weight layout
 ([out, in, k...]); the converter transposes those once.
 
-Only what inference needs is ported: BatchNorm runs on its running
-statistics, encoder/postnet dropout is off, zoneout is the deterministic
-EMA mix, and the prenet (whose dropout stays on) lives in the decoder's
-parameter tuple (`models/tacotron/decoder.py`).
+Inference (the default, `train=False`): BatchNorm on its running
+statistics, no encoder/postnet dropout, zoneout the deterministic EMA mix.
+Train mode (`train=True`, with a `torch.Generator` for the random draws):
+BatchNorm on the batch statistics, updating the running ones as flax does
+(`ra = m·ra + (1-m)·batch`, m = BN_MOMENTUM, biased variance in both,
+epsilon 1e-3; torch's BatchNorm1d keeps the inverse momentum and an
+unbiased running variance, so it is not used), conv dropout in the
+encoder and postnet, and Bernoulli zoneout in the encoder's BiLSTM. The
+prenet (whose dropout is always on) lives in the decoder
+(`models/tacotron/decoder.py`).
 """
 
 from __future__ import annotations
@@ -21,10 +27,21 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def _zeros(*shape):
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(*shape))
+
+
+def dropout(x, rate: float, generator):
+    """Inverted dropout with a uniform draw from `generator` (flax
+    nn.Dropout in train mode)."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class Dense(nn.Module):
@@ -41,7 +58,10 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis (flax epsilon 1e-3)."""
+    """BatchNorm over the last axis (flax nn.BatchNorm, epsilon 1e-3). In
+    train mode it normalises with the batch's mean and biased variance
+    over every other axis (flax's fast variance, E[x²] - E[x]²) and moves
+    the running statistics toward them in place."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -50,10 +70,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = x.float()
-        return (x - self.mean) * torch.rsqrt(self.var + BN_EPS) * self.scale \
-            + self.bias
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.mean.mul_(m).add_((1.0 - m) * mean)
+                self.var.mul_(m).add_((1.0 - m) * var)
+        return (x - mean) * torch.rsqrt(var + BN_EPS) * self.scale + self.bias
 
 
 def _same_pad(size: int, k: int, stride: int):
@@ -64,7 +93,8 @@ def _same_pad(size: int, k: int, stride: int):
 
 
 class ConvBlock(nn.Module):
-    """conv1d → (activation, BatchNorm in 'after' order) over [B, T, C].
+    """conv1d → (activation, BatchNorm in 'after' order) → dropout (train
+    mode) over [B, T, C].
 
     Reference: tacotron2_tpu ConvBlock (modules.py:30). Under
     `compute_dtype="bfloat16"` the conv runs in bf16 and BatchNorm in f32,
@@ -73,13 +103,13 @@ class ConvBlock(nn.Module):
 
     def __init__(self, c_in: int, channels: int, kernel_size: int,
                  activation: Optional[str] = "relu", bnorm: str = "after",
-                 bf16: bool = False):
+                 bf16: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.weight = _zeros(channels, c_in, kernel_size)   # torch layout
         self.conv_bias = _zeros(channels)
         self.bn = BatchNorm(channels)
         self.activation, self.bnorm, self.bf16 = activation, bnorm, bf16
-        self.kernel_size = kernel_size
+        self.kernel_size, self.drop_rate = kernel_size, drop_rate
 
     def _act(self, x):
         if self.activation == "relu":
@@ -88,7 +118,7 @@ class ConvBlock(nn.Module):
             return torch.tanh(x)
         return x
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
         lo, hi = _same_pad(x.shape[1], self.kernel_size, 1)
         h = F.pad(x.transpose(1, 2), (lo, hi))
         w, b = self.weight, self.conv_bias
@@ -96,24 +126,28 @@ class ConvBlock(nn.Module):
             h, w, b = h.bfloat16(), w.bfloat16(), b.bfloat16()
         h = F.conv1d(h, w, b).transpose(1, 2).float()
         if self.bnorm == "after":
-            return self.bn(self._act(h))
-        return self._act(self.bn(h))
+            h = self.bn(self._act(h), train)
+        else:
+            h = self._act(self.bn(h, train))
+        return dropout(h, self.drop_rate, generator) if train else h
 
 
 class EncoderConvStack(nn.Module):
     """N× conv1d(k, C) + ReLU + BN (reference modules.py:67)."""
 
     def __init__(self, c_in: int, num_layers: int, channels: int,
-                 kernel_size: int, bnorm: str = "after", bf16: bool = False):
+                 kernel_size: int, bnorm: str = "after", bf16: bool = False,
+                 drop_rate: float = 0.0):
         super().__init__()
         dims = [c_in] + [channels] * num_layers
         self.layers = nn.ModuleList(
-            ConvBlock(dims[i], channels, kernel_size, "relu", bnorm, bf16)
+            ConvBlock(dims[i], channels, kernel_size, "relu", bnorm, bf16,
+                      drop_rate)
             for i in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, train, generator)
         return x
 
 
@@ -122,17 +156,19 @@ class Postnet(nn.Module):
     (reference modules.py:258)."""
 
     def __init__(self, c_in: int, num_layers: int, channels: int,
-                 kernel_size: int, bnorm: str = "after", bf16: bool = False):
+                 kernel_size: int, bnorm: str = "after", bf16: bool = False,
+                 drop_rate: float = 0.0):
         super().__init__()
         dims = [c_in] + [channels] * num_layers
         acts = ["tanh"] * (num_layers - 1) + [None]
         self.layers = nn.ModuleList(
-            ConvBlock(dims[i], channels, kernel_size, acts[i], bnorm, bf16)
+            ConvBlock(dims[i], channels, kernel_size, acts[i], bnorm, bf16,
+                      drop_rate)
             for i in range(num_layers))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, train, generator)
         return x
 
 
@@ -153,8 +189,9 @@ def lstm_step(kernel, bias, x, c, h):
 
 
 class ZoneoutLSTMCell(nn.Module):
-    """Zoneout LSTM at inference: (1-z)·new + z·prev on c and h
-    (reference modules.py:101)."""
+    """Zoneout LSTM (reference modules.py:101): at inference (1-z)·new +
+    z·prev on c and h; in train mode, with masks m = (m_c, m_h) bool [B,
+    U], the new value where m is set and the previous one elsewhere."""
 
     def __init__(self, d_in: int, units: int, zoneout: float):
         super().__init__()
@@ -162,9 +199,11 @@ class ZoneoutLSTMCell(nn.Module):
         self.bias = _zeros(4 * units)
         self.units, self.zoneout = units, zoneout
 
-    def forward(self, c, h, x):
+    def forward(self, c, h, x, m=None):
         new_c, new_h = lstm_step(self.kernel, self.bias, x, c, h)
         z = self.zoneout
+        if m is not None:
+            return torch.where(m[0], new_c, c), torch.where(m[1], new_h, h)
         if z > 0:
             new_c = (1 - z) * new_c + z * c
             new_h = (1 - z) * new_h + z * h
@@ -191,21 +230,30 @@ class BiLSTMEncoder(nn.Module):
         self.bw = ZoneoutLSTMCell(d_in, units, zoneout)
         self.units = units
 
-    def _run(self, cell, seq):
+    def _run(self, cell, seq, masks):
         B, T, _ = seq.shape
         c = seq.new_zeros(B, self.units)
         h = seq.new_zeros(B, self.units)
         ys = []
         for t in range(T):
-            c, h = cell(c, h, seq[:, t])
+            c, h = cell(c, h, seq[:, t], None if masks is None else masks[t])
             ys.append(h)
         return torch.stack(ys, dim=1)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, train: bool = False, generator=None):
+        """In train mode with zoneout > 0 each direction's masks [T, 2, B,
+        U] (c, h) are Bernoulli(1 - z) draws from `generator`."""
         x = x.float()
-        fw = self._run(self.fw, x)
-        bw = reverse_sequence(self._run(self.bw, reverse_sequence(x, lengths)),
-                              lengths)
+        B, T, _ = x.shape
+        masks = [None, None]
+        if train and self.fw.zoneout > 0:
+            keep = 1.0 - self.fw.zoneout
+            masks = [torch.rand(T, 2, B, self.units, generator=generator,
+                                device=x.device) < keep for _ in range(2)]
+        fw = self._run(self.fw, x, masks[0])
+        bw = reverse_sequence(
+            self._run(self.bw, reverse_sequence(x, lengths), masks[1]),
+            lengths)
         out = torch.cat([fw, bw], dim=-1)
         T = x.shape[1]
         mask = torch.arange(T, device=x.device)[None, :] \
@@ -252,13 +300,13 @@ class ReferenceEncoder(nn.Module):
         self.dense = Dense(depth, 128)
         self.depth = depth
 
-    def forward(self, mel):
+    def forward(self, mel, train: bool = False):
         x = mel.float()[:, None]                        # [B, 1, T, mels]
         for w, b, bn in zip(self.convs, self.conv_biases, self.bns):
             t_lo, t_hi = _same_pad(x.shape[2], 3, 2)
             f_lo, f_hi = _same_pad(x.shape[3], 3, 2)
             x = F.conv2d(F.pad(x, (f_lo, f_hi, t_lo, t_hi)), w, b, stride=2)
-            x = F.relu(bn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2))
+            x = F.relu(bn(x.permute(0, 2, 3, 1), train).permute(0, 3, 1, 2))
         B, C, T, Fq = x.shape
         # flax NHWC reshape(B, T, F*C): feature index = f*C + c
         seq = x.permute(0, 2, 3, 1).reshape(B, T, Fq * C)

@@ -319,10 +319,13 @@ def unpack_state(vec, cum, pmax, mels: int, P: int, M: int,
 
 def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
            fired_in, fired_out, *, t0: int, nsteps: int, s_total: int,
-           teacher=None, coins=None):
+           teacher=None, coins=None, zmask=None, res=None):
     """One launch: steps t0 .. t0+nsteps-1 of arrays laid out for s_total
     steps; state_in / state_out are `pack_state` triples; teacher [s_total,
-    B, mels] f32 and coins [s_total] int32 in the teacher-forced mode.
+    B, mels] f32 and coins [s_total] int32 in the teacher-forced mode, and
+    in its train mode zmask [B, s_total, 4, U] uint8 and the residual
+    buffers `res` (f32 [B, s_total, ·] in `tacotron_train_kernel.RES_NAMES`
+    order).
     Operands made by the caller are freed after it returns, maybe before
     the kernel ends; PyTorch's caching allocator reuses a freed block only
     for work queued later on the same stream, so they outlive the kernel.
@@ -333,7 +336,8 @@ def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
     ptrs = [L.keys, L.memory, L.mask, drop, kw.pre_w0, kw.pre_b0, kw.pre_w1,
             kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, kw.wp,
             kw.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
-            fired_out, out, align, teacher, coins]
+            fired_out, out, align, teacher, coins, zmask,
+            *(res or [None] * 11)]
     ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
     lib = L.lib
     n = lib.taco_decoder_state_floats(ints["mels"], ints["P"], ints["U"],

@@ -1,30 +1,44 @@
-"""The teacher-forced Tacotron decode, eval mode, as a CUDA kernel.
+"""The teacher-forced Tacotron decode as CUDA kernels: the eval forward,
+the train forward and its BPTT backward.
 
-Port of tacotron2_tpu/ops/tacotron_train_kernel.py's `build_train_fwd`
-(:118, pallas_call at :325) with `train_zoneout=False`, as
-`_fused_teacher_forced_fn` (models/tacotron/decoder.py:183-221) runs it for
-GTA synthesis and `embed`: frames and stop logits, and the alignments.
-The per-step residuals feed only the backward, which JAX drops in eval
-(:207-217); they come with Tacotron training, as do the Bernoulli zoneout
-and `build_train_bwd`.
+Port of tacotron2_tpu/ops/tacotron_train_kernel.py:
 
-- `teacher_forced_fwd` launches the teacher-forced mode of
-  `csrc/decoder.cu` (`decoder_kernel<true>`, its note has the design) for
-  CUDA tensors, all steps in one launch, and raises if it cannot;
-- `teacher_forced_fwd_plain` is its plain version,
-  `models/tacotron/decoder.py:teacher_forced`; CPU tensors take it.
+- `teacher_forced_fwd` is `build_train_fwd` (:118, pallas_call at :325)
+  with `train_zoneout=False`, as `_fused_teacher_forced_fn`
+  (models/tacotron/decoder.py:183-221) runs it for GTA synthesis and
+  `embed`: frames, stop logits and alignments, zoneout the EMA mix;
+- `teacher_forced_train_fwd` is `build_train_fwd` in train mode:
+  Bernoulli zoneout from masks the caller draws, and the per-step
+  residuals the backward reads;
+- `teacher_forced_bwd` is `build_train_bwd` (:371, pallas_call at :622):
+  the reverse-time chain, emitting per-step activation gradients;
+- `weight_grads` (:667) turns them into the parameter, key and memory
+  gradients with library products, as JAX leaves them to XLA;
+- `FusedTeacherForced` is `make_fused_teacher_forced` (:768): the
+  autograd glue, and `extract_params_traced` (:844) the differentiable
+  extraction of the decoder's parameters.
 
-The weights are `ops/tacotron_decoder_kernel.py`'s: `extract_params` casts
-them to `tacotron.fused_train_dtype` (bf16 by default; the kernel takes
-bf16, the plain version either) and `pack_weights` lays them out for the
-cluster once. With bf16 weights both round every activation to bf16
-where it enters a product and sum in f32, as `build_train_fwd` does.
-Prenet dropout arrives as multipliers drawn by the caller
-(`models/tacotron/decoder.py:drop_masks`).
+The three launch `csrc/decoder.cu` (`decoder_kernel<true>`, eval or train
+mode; its note has the design) and `csrc/decoder_bwd.cu` for CUDA tensors,
+and raise if they cannot; CPU tensors take the plain versions in
+models/tacotron/decoder.py (`teacher_forced`, `teacher_forced_train`,
+`teacher_forced_bwd_plain`). Each counts its launches.
 
-On a CUDA device the kernel runs whatever `use_fused_train_decoder` says:
+The weights are `ops/tacotron_decoder_kernel.py`'s: matmul weights in
+`tacotron.fused_train_dtype` (bf16 by default; the kernels take bf16, the
+plain versions either), laid out for the cluster by `pack_weights`. With
+bf16 weights every activation is rounded to bf16 where it enters a
+product and sums are f32, as in `build_train_fwd`. Prenet dropout
+(`drop_masks`) and zoneout (`zoneout_masks`) come from the caller: the
+TPU kernels draw them from the TPU PRNG per (seed, step) and draw them
+again in the backward; the port draws them once, from a torch.Generator,
+and forward and backward read the same tensors. The residuals are f32
+(JAX keeps them in the weights' dtype) and gradients are not rounded: the
+backward's products take f32 gradients against the bf16 weights.
+
+On a CUDA device the kernels run whatever `use_fused_train_decoder` says:
 that flag chooses between two TPU implementations of one function (the
-Pallas kernel or the flax scan), as `use_fused_decoder` does for the
+Pallas kernels or the flax scan), as `use_fused_decoder` does for the
 autoregressive decode, which the port ignores alike. What the JAX dispatch
 sends to the scan instead (`decoder.py:312-315`: `emt_attn`, smoothing
 attention, unequal prenet widths) the port refuses.
@@ -32,16 +46,30 @@ attention, unequal prenet widths) the port refuses.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+
 import torch
 
 from ..config import Config
+from ..models.tacotron.attention import identity
 from ..models.tacotron.decoder import (DecoderParams, init_decoder_state,
-                                      round_bf16, teacher_forced)
+                                      round_bf16, teacher_forced,
+                                      teacher_forced_bwd_plain,
+                                      teacher_forced_train)
 from . import tacotron_decoder_kernel as dk
 
-# kernel launches made by `teacher_forced_fwd` (the count a run reads to
-# show that its main path went through the CUDA kernel)
+# kernel launches (the counts a run reads to show that its main path went
+# through the CUDA kernels): the eval forward (`teacher_forced_fwd`), the
+# train forward (`teacher_forced_train_fwd`) and the backward
+# (`teacher_forced_bwd`)
 launches = 0
+train_launches = 0
+bwd_launches = 0
+_bwd_argtypes_set = False
+# the residuals the train forward writes, in csrc/decoder.cu's order
+RES_NAMES = ("cum_pre", "q", "z1", "z2", "h0d", "hpre", "ctx", "h1", "c1",
+             "h2", "c2")
 
 
 def train_weight_dtype(cfg: Config) -> torch.dtype:
@@ -95,18 +123,19 @@ def teacher_forced_fwd(dp: DecoderParams, cfg: Config, keys, memory, mask,
     if kernel_weights is None:
         raise ValueError("the teacher-forced kernel takes kernel_weights="
                          "pack_weights(dp), built once per set of weights")
-    return _teacher_forced_cuda(kernel_weights, cfg, keys, memory, mask,
-                                teacher, coins, drop)
-
-
-def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
-                         mask, teacher, coins, drop):
     global launches
+    out = _teacher_forced_cuda(kernel_weights, cfg, keys, memory, mask,
+                               teacher, coins, drop)
+    launches += 1
+    return out
+
+
+def _check_tf_operands(cfg, memory, teacher, coins, drop):
     tc, mels = cfg.tacotron, cfg.audio.num_mels
-    r, P = tc.outputs_per_step, tc.prenet_layers[-1]
-    B, T, M = memory.shape
+    B, _, _ = memory.shape
     dev = memory.device
     steps = teacher.shape[0]
+    P = tc.prenet_layers[-1]
     if steps < 1 or teacher.shape != (steps, B, mels) or teacher.device != dev:
         raise ValueError(f"teacher must be [steps, B, mels] on {dev}, got "
                          f"{tuple(teacher.shape)} on {teacher.device}")
@@ -114,6 +143,18 @@ def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
         raise ValueError(f"coins must be [{steps}], got {tuple(coins.shape)}")
     if drop.shape != (B, steps, 2, P) or drop.device != dev:
         raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
+    return steps
+
+
+def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
+                         mask, teacher, coins, drop, zmask=None):
+    """One launch of all steps; with zmask [B, steps, 4, U] the train mode,
+    which also returns the residuals."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r, P, U = tc.outputs_per_step, tc.prenet_layers[-1], tc.decoder_lstm_units
+    B, T, M = memory.shape
+    dev = memory.device
+    steps = _check_tf_operands(cfg, memory, teacher, coins, drop)
     # the memory and the location taps enter their products in bf16, as
     # in the TPU kernel; the kernel rounds the activations itself
     kw = kw._replace(wp=round_bf16(kw.wp))
@@ -122,10 +163,309 @@ def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
     state = dk.pack_state(init_decoder_state(cfg, B, T, M, dev), P, kw.cs)
     out = torch.empty(B, steps, r * mels + r, device=dev)
     align = torch.empty(B, steps, T, device=dev)
+    res = None
+    if zmask is not None:
+        if zmask.shape != (B, steps, 4, U) or zmask.device != dev:
+            raise ValueError(f"zmask must be [B, steps, 4, U] on {dev}")
+        A = kw.wq.shape[1]
+        width = dict(cum_pre=T, q=A, z1=4 * U, z2=4 * U, h0d=P, hpre=P,
+                     ctx=M, h1=U, c1=U, h2=U, c2=U)
+        res = {k: torch.empty(B, steps, width[k], device=dev)
+               for k in RES_NAMES}
     dk.launch(L, cfg, drop.to(torch.float32).contiguous(), state, state, out,
               align, None, None, t0=0, nsteps=steps, s_total=steps,
               teacher=teacher.to(torch.float32).contiguous(),
-              coins=coins.to(device=dev, dtype=torch.int32).contiguous())
-    launches += 1
-    return (out[..., :r * mels].reshape(B, steps * r, mels),
-            out[..., r * mels:].reshape(B, steps * r), align.transpose(1, 2))
+              coins=coins.to(device=dev, dtype=torch.int32).contiguous(),
+              zmask=(None if zmask is None
+                     else zmask.to(torch.uint8).contiguous()),
+              res=None if res is None else [res[k] for k in RES_NAMES])
+    frames = out[..., :r * mels].reshape(B, steps * r, mels)
+    stops = out[..., r * mels:].reshape(B, steps * r)
+    if res is None:
+        return frames, stops, align.transpose(1, 2)
+    res.update(out=out, align=align)
+    return frames, stops, align.transpose(1, 2), res
+
+
+def teacher_forced_train_fwd_plain(dp: DecoderParams, cfg: Config, keys,
+                                   memory, mask, teacher, coins, drop,
+                                   zmask):
+    """The train forward's plain PyTorch version (same contract as
+    `teacher_forced_train_fwd`)."""
+    check_config(cfg)
+    return teacher_forced_train(dp, cfg, keys, memory, mask, teacher, coins,
+                                drop, zmask)
+
+
+def teacher_forced_train_fwd(dp: DecoderParams, cfg: Config, keys, memory,
+                             mask, teacher, coins, drop, zmask, *,
+                             kernel_weights: dk.KernelWeights | None = None):
+    """The train forward: `teacher_forced_fwd`'s operands and zoneout masks
+    zmask [B, steps, 4, U] bool (`zoneout_masks`). Returns (frames, stop
+    logits, alignments, res), res the residuals of
+    `models/tacotron/decoder.py:teacher_forced_train`. CPU tensors take
+    the plain version; CUDA tensors launch the kernel's train mode with
+    `kernel_weights` or raise."""
+    check_config(cfg)
+    if memory.device.type == "cpu":
+        return teacher_forced_train(dp, cfg, keys, memory, mask, teacher,
+                                    coins, drop, zmask)
+    if kernel_weights is None:
+        raise ValueError("the teacher-forced kernel takes kernel_weights="
+                         "pack_weights(dp), built once per set of weights")
+    global train_launches
+    out = _teacher_forced_cuda(kernel_weights, cfg, keys, memory, mask,
+                               teacher, coins, drop, zmask)
+    train_launches += 1
+    return out
+
+
+def teacher_forced_bwd(dp: DecoderParams, cfg: Config, res, keys, memory,
+                       mask, coins, drop, zmask, dout, dalign, *,
+                       kernel_weights: dk.KernelWeights | None = None):
+    """The BPTT backward of the train forward: res its residuals, dout
+    [B, steps, r*mels + r] the gradient of its projection (frames | stop
+    logits), dalign [B, steps, T] that of its alignments. Returns the dict
+    of `models/tacotron/decoder.py:teacher_forced_bwd_plain`. CPU tensors
+    take that plain version; CUDA tensors launch `csrc/decoder_bwd.cu`
+    with `kernel_weights` or raise."""
+    check_config(cfg)
+    if memory.device.type == "cpu":
+        return teacher_forced_bwd_plain(dp, cfg, res, keys, memory, mask,
+                                        coins, drop, zmask, dout, dalign)
+    if kernel_weights is None:
+        raise ValueError("the backward kernel takes kernel_weights="
+                         "pack_weights(dp), built once per set of weights")
+    global bwd_launches
+    out = _bwd_cuda(kernel_weights, cfg, res, keys, memory, coins, drop,
+                    zmask, dout, dalign)
+    bwd_launches += 1
+    return out
+
+
+def _bwd_lib():
+    from ..native import build
+    global _bwd_argtypes_set
+    lib = build.load("decoder_bwd")
+    if not _bwd_argtypes_set:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.taco_decoder_bwd_launch.argtypes = [vp, ci, vp, ci, vp]
+        lib.taco_decoder_bwd_launch.restype = ci
+        lib.taco_decoder_bwd_smem_bytes.argtypes = [ci] * 9
+        lib.taco_decoder_bwd_smem_bytes.restype = ctypes.c_size_t
+        for fn in ("cluster_size", "n_ptr", "n_int"):
+            getattr(lib, f"taco_decoder_bwd_{fn}").argtypes = []
+            getattr(lib, f"taco_decoder_bwd_{fn}").restype = ci
+        _bwd_argtypes_set = True
+    return lib
+
+
+_BWD_INTS = ("B", "T", "S", "mels", "P", "U", "M", "A", "KW", "r", "FOp")
+
+
+def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
+              drop, zmask, dout, dalign):
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r, P, U = tc.outputs_per_step, tc.prenet_layers[-1], tc.decoder_lstm_units
+    B, T, M = memory.shape
+    S = dout.shape[1]
+    A, KW = kw.wq.shape[1], kw.wp.shape[0]
+    FO = r * mels + r
+    dev = memory.device
+    lib = _bwd_lib()
+    cs = lib.taco_decoder_bwd_cluster_size()
+    if kw.cs != cs:
+        raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
+                         f"the backward runs {cs}")
+    for name in ("pre_w0", "pre_w1", "l1_w", "l2_w", "wq", "proj_w"):
+        w = getattr(kw, name)
+        if w.dtype != torch.bfloat16 or w.device != dev:
+            raise ValueError(f"backward kernel wants bf16 {name} on {dev}")
+    if U % cs or M % cs or (4 * U // cs) % 8 or P % 8 or A % 8:
+        raise ValueError("widths outside the backward kernel's envelope")
+    want = dict(align=T, cum_pre=T, q=A, z1=4 * U, z2=4 * U, c1=U, c2=U,
+                h0d=P, hpre=P)
+    for k, n in want.items():
+        if res[k].shape != (B, S, n) or res[k].dtype != torch.float32:
+            raise ValueError(f"residual {k} must be f32 [B, S, {n}]")
+    if dout.shape != (B, S, FO) or dalign.shape != (B, S, T):
+        raise ValueError("dout must be [B, S, r*mels + r], dalign [B, S, T]")
+    if (drop.shape != (B, S, 2, P) or zmask.shape != (B, S, 4, U)
+            or coins.shape != (S,)):
+        raise ValueError("drop, zmask or coins do not match the residuals")
+    smem = lib.taco_decoder_bwd_smem_bytes(T, mels, P, U, M, A, KW, kw.fop,
+                                           r)
+    if smem > dk._SMEM_LIMIT:
+        raise ValueError(f"backward kernel needs {smem} B of shared memory "
+                         f"at T_in={T}")
+    wp = round_bf16(kw.wp)
+    keys_eff = (keys.float() + kw.b_eff).contiguous()
+    f32 = lambda x: x.to(device=dev, dtype=torch.float32).contiguous()
+    e = lambda *shape: torch.empty(*shape, device=dev)
+    out = dict(dz1=e(B, S, 4 * U), dz2=e(B, S, 4 * U), da0=e(B, S, P),
+               da1=e(B, S, P), dproj=e(B, S, FO), dctx=e(B, S, M),
+               dq=e(B, S, A), dkeys=e(B, T, A), dwp=e(B, cs, KW, A),
+               dva=e(B, cs, A))
+    ptrs = [keys_eff, f32(round_bf16(memory)), f32(wp), f32(kw.v_a),
+            kw.pre_w0, kw.pre_w1, kw.l1_w, kw.l2_w, kw.wq, kw.proj_w,
+            *[f32(res[k]) for k in ("align", "cum_pre", "q", "z1", "z2",
+                                    "c1", "c2", "h0d", "hpre")],
+            f32(drop), zmask.to(device=dev, dtype=torch.uint8).contiguous(),
+            coins.to(device=dev, dtype=torch.int32).contiguous(),
+            f32(dout), f32(dalign),
+            *[out[k] for k in ("dz1", "dz2", "da0", "da1", "dproj", "dctx",
+                               "dq", "dkeys", "dwp", "dva")]]
+    ints = dict(B=B, T=T, S=S, mels=mels, P=P, U=U, M=M, A=A, KW=KW, r=r,
+                FOp=kw.fop)
+    assert len(ptrs) == lib.taco_decoder_bwd_n_ptr()
+    assert len(_BWD_INTS) == lib.taco_decoder_bwd_n_int()
+    rc = lib.taco_decoder_bwd_launch(
+        (ctypes.c_void_p * len(ptrs))(*[ctypes.c_void_p(x.data_ptr())
+                                        for x in ptrs]), len(ptrs),
+        (ctypes.c_int * len(_BWD_INTS))(*[ints[k] for k in _BWD_INTS]),
+        len(_BWD_INTS),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    from ..native.build import check
+    check(rc, "taco_decoder_bwd_launch")
+    # the per-CTA partial sums, added in a fixed order
+    out["dwp"] = out["dwp"].sum((0, 1))
+    out["dva"] = out["dva"].sum((0, 1))
+    return out
+
+
+def _f32(x):
+    return x.float()
+
+
+def weight_grads(cfg: Config, dp: DecoderParams, res, bwd, teacher, coins):
+    """The parameter, key and memory gradients from the backward's per-step
+    activation gradients (JAX `weight_grads`, :667-765): f32 products over
+    the stacked steps, each activation entering as it entered the forward
+    product (rounded to bf16 with bf16 weights). teacher [steps, B, mels].
+    Returns (DecoderParams of gradients, dkeys [B, T, A], dmemory [B, T,
+    M])."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    r = tc.outputs_per_step
+    rnd = round_bf16 if dp.l1_wp.dtype == torch.bfloat16 else identity
+    B, S = res["z1"].shape[:2]
+
+    def mm(x, g):
+        """sum over (b, s) of rnd(x)ᵀ g, in f32."""
+        x = rnd(_f32(x))
+        return x.reshape(B * S, -1).t() @ _f32(g).reshape(B * S, -1)
+
+    def shift1(x):
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+
+    sum_bs = lambda g: _f32(g).sum((0, 1))
+    prev = shift1(res["out"][..., (r - 1) * mels:r * mels])
+    x_in = torch.where(coins.to(prev.device).bool()[None, :, None],
+                       teacher.to(prev).transpose(0, 1), prev)
+    da0, da1, dz1, dz2 = bwd["da0"], bwd["da1"], bwd["dz1"], bwd["dz2"]
+    dproj, dkeys = bwd["dproj"], bwd["dkeys"]
+    d_beff = dkeys.sum((0, 1))
+    loc_k, loc_b, wloc = _f32(dp.loc_k), _f32(dp.loc_b), _f32(dp.wloc)
+    grads = DecoderParams(
+        pre_w0=mm(x_in, da0), pre_b0=sum_bs(da0),
+        pre_w1=mm(res["h0d"], da1), pre_b1=sum_bs(da1),
+        l1_wp=mm(res["hpre"], dz1), l1_wc=mm(shift1(res["ctx"]), dz1),
+        l1_wh=mm(shift1(res["h1"]), dz1), l1_b=sum_bs(dz1),
+        l2_wx=mm(res["h1"], dz2), l2_wh=mm(shift1(res["h2"]), dz2),
+        l2_b=sum_bs(dz2), wq=mm(res["h2"], bwd["dq"]),
+        loc_k=bwd["dwp"] @ wloc.t(), loc_b=wloc @ d_beff,
+        wloc=loc_k.t() @ bwd["dwp"] + torch.outer(loc_b, d_beff),
+        v_a=bwd["dva"], b_a=d_beff,
+        proj_wo=mm(res["h2"], dproj), proj_wc=mm(res["ctx"], dproj),
+        proj_b=sum_bs(dproj))
+    dmem = torch.einsum("bst,bsm->btm", rnd(_f32(res["align"])),
+                        _f32(bwd["dctx"]))
+    return grads, dkeys, dmem
+
+
+def extract_params_traced(dec, cfg: Config) -> DecoderParams:
+    """The decoder module's flax-layout parameters (models/tacotron/
+    decoder.py:Decoder) -> DecoderParams in f32, differentiably, so that
+    gradients reach the flax-named parameters (JAX `extract_decoder_
+    params_traced`, :844): the LSTM kernels split by input, the forget
+    bias folded, frame and stop projections joined."""
+    tc = cfg.tacotron
+    U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
+    pre, att = dec.prenet, dec.attention
+    l1k, l2k = dec.lstm1.kernel, dec.lstm2.kernel
+    M = l1k.shape[0] - P - U
+    fold = torch.zeros(4 * U, device=l1k.device)
+    fold[2 * U:3 * U] = 1.0
+    fp, sp = dec.frame_projection["Dense_0"], dec.stop_projection["Dense_0"]
+    proj_w = torch.cat([fp.kernel, sp.kernel], 1)
+    conv = att.location_features_convolution
+    return DecoderParams(
+        pre_w0=pre["Dense_0"].kernel, pre_b0=pre["Dense_0"].bias,
+        pre_w1=pre["Dense_1"].kernel, pre_b1=pre["Dense_1"].bias,
+        l1_wp=l1k[:P], l1_wc=l1k[P:P + M], l1_wh=l1k[P + M:],
+        l1_b=dec.lstm1.bias + fold, l2_wx=l2k[:U], l2_wh=l2k[U:],
+        l2_b=dec.lstm2.bias + fold, wq=att.query_layer.kernel,
+        loc_k=conv.kernel[:, 0], loc_b=conv.bias,
+        wloc=att.location_features_layer.kernel,
+        v_a=att.attention_variable_projection[:, 0], b_a=att.attention_bias,
+        proj_wo=proj_w[:U], proj_wc=proj_w[U:],
+        proj_b=torch.cat([fp.bias, sp.bias]))
+
+
+MATMUL = ("pre_w0", "pre_w1", "l1_wp", "l1_wc", "l1_wh", "l2_wx", "l2_wh",
+           "wq", "proj_wo", "proj_wc")
+
+
+def cast_params(dp: DecoderParams, weight_dtype) -> DecoderParams:
+    """Matmul weights in `weight_dtype`, the rest f32 (the layout of
+    `ops/tacotron_decoder_kernel.extract_decoder_params`)."""
+    return DecoderParams(*[
+        v.detach().to(weight_dtype if k in MATMUL else torch.float32)
+        for k, v in dp._asdict().items()])
+
+
+class FusedTeacherForced(torch.autograd.Function):
+    """The teacher-forced decode with the fused backward (JAX
+    `make_fused_teacher_forced`, :768): forward `teacher_forced_train_fwd`,
+    backward `teacher_forced_bwd` + `weight_grads`. apply(cfg, timer, keys
+    [B, T, A], memory [B, T, M], mask [B, T], teacher [steps, B, mels],
+    coins [steps], drop [B, steps, 2, P], zmask [B, steps, 4, U], *dp)
+    with dp the f32 DecoderParams of `extract_params_traced` and timer
+    None or a `StepTimer` (train/tacotron_step.py) that times the two
+    kernels and weight_grads -> (frames [B,
+    steps*r, mels], stop logits [B, steps*r], alignments [B, T, steps]),
+    with gradients for keys, memory and every field of dp. The weights are
+    cast to `fused_train_dtype` inside; their gradients come back f32. The
+    teacher frames, mask, coins and masks get none (:832-839)."""
+
+    @staticmethod
+    def forward(ctx, cfg, timer, keys, memory, mask, teacher, coins, drop,
+                zmask, *dp):
+        time = timer or (lambda name: contextlib.nullcontext())
+        dpw = cast_params(DecoderParams(*dp), train_weight_dtype(cfg))
+        kw = dk.pack_weights(dpw) if memory.device.type == "cuda" else None
+        with time("train forward (kernel 4a)"):
+            frames, stops, aligns, res = teacher_forced_train_fwd(
+                dpw, cfg, keys, memory, mask, teacher, coins, drop, zmask,
+                kernel_weights=kw)
+        ctx.saved = (cfg, time, dpw, kw, res, keys, memory, mask, teacher,
+                     coins, drop, zmask)
+        return frames, stops, aligns
+
+    @staticmethod
+    def backward(ctx, dframes, dstops, daligns):
+        (cfg, time, dpw, kw, res, keys, memory, mask, teacher, coins, drop,
+         zmask) = ctx.saved
+        del ctx.saved
+        B, S = res["out"].shape[:2]
+        dout = torch.cat([dframes.reshape(B, S, -1),
+                          dstops.reshape(B, S, -1)], -1)
+        with time("backward (kernel 4b)"):
+            bwd = teacher_forced_bwd(dpw, cfg, res, keys, memory, mask,
+                                     coins, drop, zmask, dout,
+                                     daligns.transpose(1, 2),
+                                     kernel_weights=kw)
+        with time("weight_grads"):
+            grads, dkeys, dmem = weight_grads(cfg, dpw, res, bwd, teacher,
+                                              coins)
+        return (None, None, dkeys, dmem, None, None, None, None, None,
+                *grads)

@@ -1,0 +1,127 @@
+"""Tacotron training checkpoints: save, restore, partial restore.
+
+Counterpart of tacotron2_tpu/train/checkpoint.py (orbax there). The port
+writes one flax-msgpack file a checkpoint (`utils/flax_msgpack.py`), a map
+of:
+
+- "params": the flax-named parameter tree (`convert.tacotron_to_flax`),
+  the layout of the JAX package's own checkpoints, so that
+  `TacotronSynthesizer` and `cli synthesize --checkpoint` read it as they
+  read `taco_ckpt.msgpack`;
+- "batch_stats": the BatchNorm statistics, likewise;
+- "opt_state": {"count": updates made, "mu", "nu": the Adam moments as
+  flax-named trees in the parameters' layout, of the masked-on
+  parameters};
+- "step": the train step.
+
+`CheckpointManager` keeps `<dir>/ckpt-<step>.msgpack`, the newest
+`max_to_keep`; `partial_restore` keeps fresh values for the subtrees a
+predicate names (the reference's filtered savers).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+from typing import Any, Callable, Optional
+
+from .. import convert
+from ..utils import flax_msgpack
+from .tacotron_step import TrainState
+
+
+def state_tree(state: TrainState) -> dict:
+    """The checkpoint's tree of a TrainState."""
+    params, stats = convert.tacotron_to_flax(state.model)
+    mu, nu = {}, {}
+    for (name, _), m, v in zip(state.model.named_parameters(), state.opt.mu,
+                               state.opt.nu):
+        if m is not None:
+            path = convert.flax_path(name)
+            convert.tree_set(mu, path, convert.to_flax_array(
+                name, m, offset=False))
+            convert.tree_set(nu, path, convert.to_flax_array(
+                name, v, offset=False))
+    return dict(params=params, batch_stats=stats,
+                opt_state=dict(count=int(state.opt.count), mu=mu, nu=nu),
+                step=int(state.step))
+
+
+def load_state_tree(state: TrainState, tree: dict) -> TrainState:
+    """Fill a TrainState (its model and optimizer) from a checkpoint's
+    tree."""
+    import torch
+    convert.load_tacotron(state.model, tree["params"], tree["batch_stats"])
+    opt = tree["opt_state"]
+    with torch.no_grad():
+        for i, (name, p) in enumerate(state.model.named_parameters()):
+            if state.opt.mu[i] is None:
+                continue
+            path = convert.flax_path(name)
+            for mom, key in ((state.opt.mu, "mu"), (state.opt.nu, "nu")):
+                mom[i].copy_(torch.from_numpy(convert.from_flax_array(
+                    name, convert.tree_get(opt[key], path), offset=False)))
+    state.opt.count = int(opt["count"])
+    state.step = int(tree["step"])
+    return state
+
+
+def save(path: str, state: TrainState) -> None:
+    flax_msgpack.save(path, state_tree(state))
+
+
+def restore(path: str, state: TrainState) -> TrainState:
+    return load_state_tree(state, flax_msgpack.load(path))
+
+
+class CheckpointManager:
+    """Checkpoints `<directory>/ckpt-<step>.msgpack`, the newest
+    `max_to_keep` kept."""
+
+    def __init__(self, directory: str, max_to_keep: int = 50):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max(1, max_to_keep)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt-{step}.msgpack")
+
+    def steps(self):
+        found = []
+        for p in glob.glob(os.path.join(self.directory, "ckpt-*.msgpack")):
+            m = re.fullmatch(r"ckpt-(\d+)\.msgpack", os.path.basename(p))
+            if m:
+                found.append(int(m.group(1)))
+        return sorted(found)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState) -> str:
+        path = self.path(step)
+        save(path, state)
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+        return path
+
+    def restore(self, state: TrainState, step: Optional[int] = None
+                ) -> TrainState:
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return restore(self.path(step), state)
+
+
+def partial_restore(restored: Any, fresh: Any,
+                    skip_predicate: Callable[[str], bool], _path: str = ""
+                    ) -> Any:
+    """The restored tree, but fresh values for the leaves whose
+    lower-case path `skip_predicate` names (e.g. "pretrained" subtrees on
+    restart, tacotron/train.py:274-288)."""
+    if isinstance(restored, dict):
+        return {k: partial_restore(restored[k], fresh[k], skip_predicate,
+                                   f"{_path}/{k}" if _path else str(k))
+                for k in restored}
+    return fresh if skip_predicate(_path.lower()) else restored

@@ -1,0 +1,148 @@
+"""Schedules, parameter masks and the masked Adam of Tacotron training.
+
+Counterpart of tacotron2_tpu/train/optim.py for the default trainer:
+`tacotron_lr_schedule` (tf.train.exponential_decay clipped to [final,
+init]), `teacher_forcing_schedule` (constant, or 'scheduled': the narrow
+exponential decay after `start_decay`), `make_mask`,
+`main_update_predicate`, and the main optimizer of
+`make_tacotron_optimizer` (:147-173): optax's
+`masked_only(chain(clip_by_global_norm(1.0), adam(lr, b1, b2, eps)))`,
+written out as plain tensor arithmetic so that it follows optax's
+operations: the global norm over the masked-on gradients, scaling by
+1/norm when it is at least 1; moments (1-b)·g + b·m; bias correction by
+1 - b^count; eps outside the square root; the step's learning rate at the
+count before the update; no update, and no moments, off the mask. The
+refnet and nat-GAN optimizers (`opt_ref_no_mo`, `nat_gan`) and the
+WaveNet optimizer and EMA are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Sequence
+
+import torch
+
+from ..config import Config
+
+
+def exponential_decay(init: float, start_decay: int, decay_steps: int,
+                      decay_rate: float, lo=None, hi=None) -> Callable:
+    """init · rate^((step - start) / steps), clipped to [lo, hi]."""
+
+    def schedule(step):
+        lr = init * decay_rate ** ((float(step) - start_decay) / decay_steps)
+        if lo is not None:
+            lr = max(lr, lo)
+        if hi is not None:
+            lr = min(lr, hi)
+        return lr
+
+    return schedule
+
+
+def tacotron_lr_schedule(cfg: Config) -> Callable:
+    t = cfg.train
+    if not t.tacotron_decay_learning_rate:
+        return lambda step: t.tacotron_initial_learning_rate
+    return exponential_decay(
+        t.tacotron_initial_learning_rate, t.tacotron_start_decay,
+        t.tacotron_decay_steps, t.tacotron_decay_rate,
+        lo=t.tacotron_final_learning_rate,
+        hi=t.tacotron_initial_learning_rate)
+
+
+def teacher_forcing_schedule(cfg: Config) -> Callable:
+    """The teacher-forcing ratio as a function of the step
+    (helpers.py:140-179)."""
+    t = cfg.train
+    if t.tacotron_teacher_forcing_mode == "constant":
+        return lambda step: t.tacotron_teacher_forcing_ratio
+    init = t.tacotron_teacher_forcing_init_ratio
+    decay = exponential_decay(init, t.tacotron_teacher_forcing_start_decay,
+                              t.tacotron_teacher_forcing_decay_steps, 0.1)
+
+    def schedule(step):
+        if step < t.tacotron_teacher_forcing_start_decay:
+            return init
+        return decay(step)
+
+    return schedule
+
+
+def is_refnet_var(name: str) -> bool:
+    """The 'optimizer_r' variable set (tacotron.py:1064)."""
+    return "refnet" in name or "style_disc" in name
+
+
+def is_nat_gan_var(name: str) -> bool:
+    return "nat_gan" in name
+
+
+def is_pretrained_var(name: str) -> bool:
+    return "pretrained" in name
+
+
+def main_update_predicate(opt_ref_no_mo: bool, pretrained_emb_disc_all: bool,
+                          fine_tuning: bool) -> Callable[[str], bool]:
+    """The main optimizer's variable filter (tacotron.py:1047-1050)."""
+
+    def pred(name: str) -> bool:
+        if is_pretrained_var(name) or is_nat_gan_var(name):
+            return False
+        if (opt_ref_no_mo or pretrained_emb_disc_all) and is_refnet_var(name):
+            return False
+        if fine_tuning and ("inputs_embedding" in name or "encoder_" in name
+                            or name.startswith("encoder")):
+            return False
+        return True
+
+    return pred
+
+
+def make_mask(names: Sequence[str], predicate) -> List[bool]:
+    """predicate of each (lower-case) flax path."""
+    return [bool(predicate(n.lower())) for n in names]
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(Σ ‖x‖²) over the tensors (optax.global_norm)."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+class MaskedAdam:
+    """`masked_only(chain(clip_by_global_norm(1.0), adam(...)))` on a list
+    of parameters, updated in place. `mu`, `nu` hold the moments of the
+    masked-on parameters (None off the mask), `count` the updates made."""
+
+    def __init__(self, cfg: Config, params: Sequence[torch.Tensor],
+                 mask: Sequence[bool]):
+        t = cfg.train
+        self.lr = tacotron_lr_schedule(cfg)
+        self.b1, self.b2 = t.tacotron_adam_beta1, t.tacotron_adam_beta2
+        self.eps = t.tacotron_adam_epsilon
+        self.clip = t.tacotron_clip_gradients
+        self.mask = list(mask)
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) if m else None
+                   for p, m in zip(params, self.mask)]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) if m else None
+                   for p, m in zip(params, self.mask)]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor],
+             grads: Sequence[torch.Tensor]) -> None:
+        on = [i for i, m in enumerate(self.mask) if m]
+        g = {i: grads[i].float() for i in on}
+        if self.clip:
+            norm = global_norm(g.values())
+            if float(norm) >= 1.0:
+                g = {i: v / norm for i, v in g.items()}
+        lr = self.lr(self.count)
+        self.count += 1
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        for i, gi in g.items():
+            self.mu[i].mul_(self.b1).add_((1.0 - self.b1) * gi)
+            self.nu[i].mul_(self.b2).add_((1.0 - self.b2) * (gi * gi))
+            upd = (self.mu[i] / c1) / (torch.sqrt(self.nu[i] / c2) + self.eps)
+            params[i].sub_(lr * upd)

@@ -1,15 +1,18 @@
-"""Pure-Python reader for flax's msgpack checkpoint format.
+"""Pure-Python reader and writer of flax's msgpack checkpoint format.
 
 `flax.serialization.to_bytes` writes a msgpack map tree whose array leaves
 are msgpack ext type 1, the payload being itself a msgpack array
-`(shape, dtype name, raw C-order bytes)`. This reader decodes exactly that
+`(shape, dtype name, raw C-order bytes)`. `loads` decodes exactly that
 subset (maps, arrays, str, bin, ints, floats, nil, bools, ext 1) into a
-nested dict of numpy arrays, so the port needs neither `msgpack` nor
-`flax`. Anything else raises ValueError.
+nested dict of numpy arrays, and `dumps` writes it (numpy arrays and
+numpy scalars as ext 1, as flax does), so the port needs neither `msgpack`
+nor `flax` and what it writes `flax.serialization.msgpack_restore` reads.
+Anything else raises ValueError.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Dict, Tuple
 
@@ -125,3 +128,76 @@ def flatten(tree: Any, prefix: Tuple[str, ...] = ()):
             yield from flatten(tree[k], prefix + (str(k),))
     else:
         yield prefix, tree
+
+
+def _header(out: bytearray, n: int, fix: int, fix_max: int, codes) -> None:
+    """A map/array/str/bin/ext length header: the fix form below fix_max,
+    else the 8/16/32-bit forms that `codes` lists (None: absent)."""
+    if fix is not None and n < fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, lim in zip(codes, (">B", ">H", ">I"), (1 << 8, 1 << 16,
+                                                          1 << 32)):
+        if code is not None and n < lim:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(x: Any, out: bytearray) -> None:
+    if isinstance(x, dict):
+        _header(out, len(x), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in x.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(x, (list, tuple)):
+        _header(out, len(x), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in x:
+            _pack(v, out)
+    elif isinstance(x, (np.ndarray, np.generic)):
+        a = np.asarray(x)
+        payload = bytearray()
+        _pack([list(a.shape), a.dtype.name, a.tobytes("C")], payload)
+        _header(out, len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+        out.append(_EXT_NDARRAY)
+        out += payload
+    elif x is None:
+        out.append(0xC0)
+    elif isinstance(x, bool):
+        out.append(0xC3 if x else 0xC2)
+    elif isinstance(x, int):
+        if 0 <= x < 128:
+            out.append(x)
+        elif -32 <= x < 0:
+            out.append(x & 0xFF)
+        else:
+            out.append(0xD3)
+            out += struct.pack(">q", x)
+    elif isinstance(x, float):
+        out.append(0xCB)
+        out += struct.pack(">d", x)
+    elif isinstance(x, str):
+        b = x.encode("utf-8")
+        _header(out, len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(x, (bytes, bytearray)):
+        _header(out, len(x), None, 0, (0xC4, 0xC5, 0xC6))
+        out += x
+    else:
+        raise ValueError(f"cannot write {type(x).__name__} as msgpack")
+
+
+def dumps(tree: Any) -> bytes:
+    """Encode dicts / lists / numpy arrays / scalars as flax's msgpack."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
+def save(path: str, tree: Any) -> None:
+    """Write `tree` to `path` (through a temporary file, then renamed)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(dumps(tree))
+    os.replace(tmp, path)

@@ -29,7 +29,13 @@ products over the 800-sample window support run as 3xTF32 tensor-core
 products, each 8-deep step added in f32, in another sum order (samples atol
 1e-4 at iters 0 and GL_ITERS4_ATOL after 4 iterations, and the
 spectral-consistency error, tests/test_pallas_kernels.py:237's measure,
-within 1% of the plain version's).
+within 1% of the plain version's). The train mode of the
+teacher-forced kernel (Bernoulli zoneout from injected masks) is held as
+its eval mode, each residual at the frames' tolerance (the alignments'
+and cumulative alignments' at theirs); the backward kernel against its
+plain version on the same (the kernel's) residuals, each gradient within
+BWD_RTOL of its largest magnitude: both take the same rounded operands and
+f32 gradients, in another sum order.
 """
 
 import dataclasses
@@ -38,7 +44,8 @@ import numpy as np
 import pytest
 import torch
 
-from tacotron2_tpu_torch.models.tacotron.decoder import drop_masks
+from tacotron2_tpu_torch.models.tacotron.decoder import (drop_masks,
+                                                         zoneout_masks)
 from tacotron2_tpu_torch.models.wavenet.distributions import (
     draw_noise, inverse_cdf_pick)
 
@@ -61,6 +68,7 @@ GL_ITERS4_ATOL = {"zero-phase": 1e-3, "random-phase": 2e-5}
 # f32 differs in sum order only; bf16 also where that moves a rounding
 SAMPLER_REPLAY_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 SAMPLER_BF16_MOVED = 0.05
+BWD_RTOL = 1e-3
 
 
 def torch_cfg():
@@ -318,6 +326,61 @@ def test_teacher_forced_kernel_past_256(dev):
     got, want, n = _teacher_forced_case(dev, 2, 300, 8, [1, 1, 0, 1] * 2)
     assert n == 1
     _teacher_forced_close(got, want)
+
+
+def _train_case(dev, B, T, steps, coins, seed=0):
+    """The train forward (kernel and plain, same masks), then the backward
+    (kernel and plain) on the kernel's residuals."""
+    cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed)
+    cfg = cfg.replace(tacotron=dataclasses.replace(cfg.tacotron,
+                                                   zoneout_rate=0.1))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    zmask = zoneout_masks(cfg, B, steps, g, device=dev)
+    dp = tk.extract_params(decoder_tree(seed), cfg, device=dev)
+    kw = dk.pack_weights(dp)
+    rng = np.random.default_rng(seed + 1)
+    teacher = torch.as_tensor(rng.uniform(-4, 4, (steps, B, MELS)),
+                              dtype=torch.float32, device=dev)
+    coins = torch.as_tensor(coins, dtype=torch.int32)
+    args = (dp, cfg, keys, memory, mask, teacher, coins, drop, zmask)
+    n0 = (tk.train_launches, tk.bwd_launches)
+    got = tk.teacher_forced_train_fwd(*args, kernel_weights=kw)
+    want = tk.teacher_forced_train_fwd_plain(*args)
+    res = got[3]
+    FO = R * MELS + R
+    dout = torch.as_tensor(rng.normal(size=(B, steps, FO)),
+                           dtype=torch.float32, device=dev)
+    dalign = torch.as_tensor(rng.normal(size=(B, steps, T)) * 0.1,
+                             dtype=torch.float32, device=dev)
+    bargs = (dp, cfg, res, keys, memory, mask, coins, drop, zmask, dout,
+             dalign)
+    b_k = tk.teacher_forced_bwd(*bargs, kernel_weights=kw)
+    b_p = tk.teacher_forced_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    n = (tk.train_launches - n0[0], tk.bwd_launches - n0[1])
+    return got, want, b_k, b_p, n
+
+
+@pytest.mark.parametrize("coins", ["ones", "mixed"])
+def test_train_kernels_match_plain(dev, coins):
+    """Kernel 4a's train mode (outputs and every residual) and kernel 4b
+    (every activation gradient and per-row sum) against their plain
+    versions, zoneout 0.1 and prenet dropout on injected masks."""
+    B, T, steps = 3, 24, 12
+    pick = {"ones": [1] * steps, "mixed": [1, 0, 0, 1, 1, 0] * 2}[coins]
+    got, want, b_k, b_p, n = _train_case(dev, B, T, steps, pick)
+    assert n == (1, 1)
+    _teacher_forced_close(got[:3], want[:3])
+    for name in tk.RES_NAMES:
+        atol = 1e-4 if name == "cum_pre" else 1e-3
+        np.testing.assert_allclose(got[3][name].cpu(), want[3][name].cpu(),
+                                   atol=atol, rtol=0, err_msg=name)
+    assert set(b_k) == set(b_p)
+    for name, x in b_k.items():
+        y = b_p[name]
+        assert x.shape == y.shape, name
+        err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-6)
+        assert err <= BWD_RTOL, (name, err)
 
 
 @pytest.mark.parametrize("iters", [0, 4])

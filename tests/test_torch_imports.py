@@ -24,14 +24,20 @@ def _port_files():
 
 def test_port_files_exist():
     files = _port_files()
-    assert os.path.exists(files[0]) and len(files) > 20
+    assert os.path.exists(files[0]) and len(files) > 30
+    csrc = os.path.join(ROOT, "tacotron2_tpu_torch", "csrc")
+    assert os.path.exists(os.path.join(csrc, "decoder_bwd.cu"))
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
                 "ops/griffin_lim_kernel.py", "data/audio.py",
                 "synth/tacotron_synth.py", "ops/mulaw.py",
                 "data/wavenet_feeder.py", "models/wavenet/distributions.py",
                 "synth/wavenet_synth.py", "ops/tacotron_train_kernel.py",
-                "ops/tacotron_decoder_kernel.py", "models/tacotron/model.py"):
+                "ops/tacotron_decoder_kernel.py", "models/tacotron/model.py",
+                "models/tacotron/losses.py", "data/feeder.py",
+                "eval/convergence.py", "train/optim.py",
+                "train/tacotron_step.py", "train/checkpoint.py",
+                "train/eval_guard.py", "train/tacotron_train.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 
