@@ -79,6 +79,23 @@ Phases, each printing its wall seconds:
     pass, kernel 4a, kernel 4b, weight_grads, the rest of backward, the
     optimizer); the r5 checkpoint's natural eval on the 32 held-out rows
     (masked_mel_mae beside the TPU run's); `cli train` for 3 steps;
+17. (j) `Tacotron_emt_attn` eval synthesis at the full default width, on
+    seeded random weights from `init_tacotron` grafted with the r5
+    checkpoint's tensors where shapes agree (and LSTM1's r5 rows), of the
+    8 held-out texts with their corpus references, up to 512 steps: the
+    `simple` and `multihead` variants through the decode kernel's emt mode
+    (block route), `style_tokens` through the plain decode (route
+    "plain", as the JAX package scans it) with emotion labels. Per kernel
+    variant: one 32-step block of the kernel against its plain version on
+    the run's inputs (every state field, context_emt too), the run's first
+    block repeated bit for bit, other emotion references (and labels)
+    moving the frames; times of one 256-step block, emt and not, in turns;
+    then `synthesize --mode eval --hparams gst.emt_attn=true,...` on a
+    checkpoint written by `train/checkpoint.py`;
+18. (k) the `paper` preset (no GST: memory 768 wide; the MoL head, bf16
+    sampler) served through `TextToWavProgram` on random weights, B=2,
+    t_in 64, 64 decode steps: finite wavs of mel length x hop samples, a
+    bit-exact rerun, the realtime factor;
 then the `kernels` line, one entry for every kernel, sampler head, dtype
 and mode.
 
@@ -271,13 +288,17 @@ def wav_quality(wav, free_mel, gt, audio):
 
 
 def decode_bound_s(dp, cfg, B, T, M, steps_total, row_steps, align,
-                   in_bytes=0):
+                   in_bytes=0, emt=None):
     """Least seconds the card could take for a decode: the larger of its
     bytes (weights, keys, memory, mask, dropout multipliers and `in_bytes`
     of other inputs read once, frames/stops and optionally alignments
     written once) over HBM and its operations (bf16 products at the
     tensor-core rate, the f32 attention at the f32 rate) for the row-steps
-    this run's data needs. Returns (seconds, "bytes" or "operations")."""
+    this run's data needs. Under emt_attn (`emt`, the call's EmtOperands)
+    also the emt weights and operands read once, LSTM1's E extra rows and
+    the scorer's query product (and multihead's output Dense) at the bf16
+    rate, its tanh energies, softmax and contexts at the f32 rate. Returns
+    (seconds, "bytes" or "operations")."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
@@ -289,6 +310,14 @@ def decode_bound_s(dp, cfg, B, T, M, steps_total, row_steps, align,
     mac_bf16 = (mels * P + P * P + (P + M + U) * 4 * U + 2 * U * 4 * U
                 + U * A + (U + M) * FO)
     op_f32 = T * A * (2 * KW + 4) + 2 * T * M + 6 * T + 20 * U
+    if emt is not None:
+        Te, A2 = emt.ekeys.shape[1:]
+        NH, V, E = emt.score.shape[0], emt.emem.shape[2], emt.l1_we.shape[0]
+        d_bytes += sum(t.numel() * t.element_size() for t in emt
+                       if t is not None)
+        mac_bf16 += E * 4 * U + U * A2 + (0 if emt.out_w is None
+                                          else NH * V * E)
+        op_f32 += Te * A2 * (2 + 2 * NH) + 2 * NH * Te * V + 6 * NH * Te
     ops_s = row_steps * (2 * mac_bf16 / BF16_FLOPS + op_f32 / F32_FLOPS)
     bytes_s = d_bytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
@@ -1107,6 +1136,305 @@ def training_phase(tparams, stats, seed):
              plain_ms=bwd_plain_ms, bound_ms=1e3 * bb[0], bound_by=bb[1])]
 
 
+# phase 17: the emt_attn variants and their decode steps at most (blocks
+# of `fused_block_steps` = 256 on the block route); the kernel is held
+# against its plain version over the first block at phase 9's gate
+EMT_TYPES = ("simple", "multihead", "style_tokens")
+EMT_MAX_STEPS = 512
+# phase 18: the paper preset's serving bucket
+PAPER_BATCH, PAPER_T_IN, PAPER_STEPS = 2, 64, 64
+
+
+def _leaves(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, f"{pre}{k}/") if isinstance(v, dict)
+                   else {pre + k: v})
+    return out
+
+
+def emt_weights(cfg, tparams, stats, seed):
+    """Random weights for `cfg` from `init_tacotron` (seeded), grafted with
+    the r5 checkpoint's tensors where path and shape agree, and LSTM1's
+    rows that the r5 model has (prenet, context, hidden) — the emt rows
+    stay random. Returns (params, batch_stats, grafted, fresh) with the
+    counts of leaves taken from r5 and left random."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import convert
+    model = convert.init_tacotron(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+    params, bstats = convert.tacotron_to_flax(model)
+    grafted, fresh = 0, 0
+    for tree, r5 in ((params, tparams), (bstats, stats)):
+        r5_leaves = _leaves(r5)
+        for path, leaf in _leaves(tree).items():
+            want = r5_leaves.get(path)
+            if want is not None and np.shape(want) == leaf.shape:
+                convert.tree_set(tree, path, np.asarray(want, np.float32))
+                grafted += 1
+            else:
+                fresh += 1
+    l1 = convert.tree_get(params, "decoder/cell/lstm1/kernel").copy()
+    r5l1 = np.asarray(convert.tree_get(tparams, "decoder/cell/lstm1/kernel"))
+    U = cfg.tacotron.decoder_lstm_units
+    keep = r5l1.shape[0] - U                  # prenet | context rows
+    l1[:keep], l1[-U:] = r5l1[:keep], r5l1[-U:]
+    convert.tree_set(params, "decoder/cell/lstm1/kernel", l1)
+    return params, bstats, grafted, fresh
+
+
+def emt_phase(texts, ref_list, tparams, stats, seed, base_synth, base_im):
+    """Phase 17: Tacotron_emt_attn eval synthesis, the texts' whole corpus
+    mels as their references (`ref_list`: Te = ceil(frames / 64) emt
+    positions). Returns the `kernels` entries of kernel 3's emt scorers."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import cli
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.synth.tacotron_synth import TacotronSynthesizer
+    from tacotron2_tpu_torch.train import checkpoint
+    from tacotron2_tpu_torch.train.optim import MaskedAdam
+    from tacotron2_tpu_torch.train.tacotron_step import TrainState
+    B = len(texts)
+    t0 = phase(17, f"(j) emt_attn eval synthesis of the {B} held-out texts "
+               f"({', '.join(EMT_TYPES)}), up to {EMT_MAX_STEPS} steps")
+    rolled = ref_list[1:] + ref_list[:1]
+    entries, timed = [], {}
+    for kind in EMT_TYPES:
+        cfg = r5_config()
+        cfg = cfg.replace(gst=dataclasses.replace(
+            cfg.gst, emt_attn=True, emt_attn_type=kind))
+        r = cfg.tacotron.outputs_per_step
+        params, bstats, ng, nf = emt_weights(cfg, tparams, stats, seed)
+        synth = TacotronSynthesizer(cfg, params, bstats, device="cuda",
+                                    seed=seed, keep_intermediates=True)
+        labels = ([i % cfg.gst.n_emt for i in range(B)]
+                  if kind == "style_tokens" else None)
+        dk.launches = 0
+        torch.cuda.synchronize()
+        ts = time.time()
+        out = synth.synthesize(texts, ref_list, ref_list,
+                               max_steps=EMT_MAX_STEPS, emt_labels=labels)
+        torch.cuda.synchronize()
+        syn_s = time.time() - ts
+        n_launch = dk.launches
+        im = synth.intermediates
+        emt = im["emt"]
+        Bm, T, M = im["memory"].shape
+        print(f"{kind}: {ng} tensors from r5, {nf} random; memory width "
+              f"{M}, emt memory {tuple(emt.emem.shape)}, context_emt "
+              f"{emt.l1_we.shape[0]} wide; route {im['route']}; "
+              f"{syn_s:.3f} s; decode launches {n_launch}; stop steps "
+              f"{[int(x) for x in out['lengths']]}")
+        assert all(np.isfinite(m_).all() for m_ in out["mels"])
+        if kind == "style_tokens":
+            assert im["route"] == "plain" and n_launch == 0
+        else:
+            assert im["route"] == "block" and n_launch > 0
+        # other emotion references (and labels) move the frames
+        moved = []
+        for refs_e, lab in ((rolled, labels),) + (
+                (((ref_list, [(x + 1) % cfg.gst.n_emt for x in labels]),)
+                 if labels else ())):
+            out2 = synth.synthesize(texts, refs_e, ref_list,
+                                    max_steps=EMT_MAX_STEPS, emt_labels=lab)
+            moved.append(max(float(np.abs(
+                a_[:min(len(a_), len(b_))] - b_[:min(len(a_), len(b_))]
+            ).max()) for a_, b_ in zip(out["mels"], out2["mels"])))
+        print(f"{kind}: other emotion references move the mels by up to "
+              f"{moved[0]:.3e}" + (f", other labels by {moved[1]:.3e}"
+                                   if len(moved) > 1 else ""))
+        assert min(moved) > 1e-3, moved
+        if kind == "style_tokens":
+            continue
+        # kernel vs plain over the run's first kf-step block from the zero
+        # state, on the run's inputs, dropout multipliers and emt operands
+        kf = im["k"]
+        args = (synth.dec_params, cfg, im["keys"], im["memory"], im["mask"])
+        st0 = dk.init_decoder_state(cfg, Bm, T, M, "cuda")
+        drop_k = im["drop"]
+        blk = (lambda a=args, s0=st0, d=drop_k, kw=synth.dec_kernel, e=emt:
+               dk.decode_block(*a, s0, d, kernel_weights=kw, emt=e))
+        got = blk()
+        want = dk.decode_block_plain(*args, st0, drop_k, emt)
+        torch.cuda.synchronize()
+        errs = {n: float((x - y).abs().max()) for n, x, y in zip(
+            ("frames", "stops", "alignments"), got[:3], want[:3])}
+        errs.update({f"state.{n}": float((getattr(got[3], n).float()
+                                          - getattr(want[3], n).float())
+                                         .abs().max())
+                     for n in got[3]._fields})
+        err = max(errs.values())
+        print(f"{kind}: kernel vs plain over the {kf}-step block: max |diff| "
+              f"{err:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())})")
+        # bf16 weights upcast on both sides, f32 sums in another order (the
+        # emt scorer too): phase 9's gate; a moved argmax shows as pmax >= 1
+        assert err <= 1e-3, errs
+        # the run's first block, repeated bit for bit
+        assert np.array_equal(got[1].cpu().numpy(),
+                              out["stop_tokens"][:, :kf * r]), \
+            f"{kind}: decode kernel is not deterministic"
+        timed[kind] = dict(
+            launches=n_launch, err=err, blk=blk,
+            plain=lambda a=args, e=emt, d=drop_k, s0=st0:
+            dk.decode_block_plain(*a, s0, d, e),
+            bound=decode_bound_s(synth.dec_params, cfg, Bm, T, M, kf,
+                                 Bm * kf, align=True, emt=emt), kf=kf,
+            drop=drop_k)
+        if kind == "simple":
+            cli_case = (cfg, params, bstats)
+    # times of one block, in turns: the non-emt block (phase 8's r5 weights
+    # on the same texts), simple, multihead, the non-emt block again
+    base_cfg = base_synth.cfg
+    kf = timed["simple"]["kf"]
+    bargs = (base_synth.dec_params, base_cfg, base_im["keys"],
+             base_im["memory"], base_im["mask"])
+    Bb, Tb, Mb = base_im["memory"].shape
+    st_b = dk.init_decoder_state(base_cfg, Bb, Tb, Mb, "cuda")
+    drop_b = timed["simple"]["drop"]
+    base = lambda: dk.decode_block(*bargs, st_b, drop_b,
+                                   kernel_weights=base_synth.dec_kernel)
+    base()
+    ms = {"base": [cuda_ms(base, 3)]}
+    for kind in ("simple", "multihead"):
+        ms[kind] = cuda_ms(timed[kind]["blk"], 3)
+        timed[kind]["plain_ms"] = cuda_ms(timed[kind]["plain"], 1)
+    ms["base"].append(cuda_ms(base, 3))
+    print(f"one {kf}-step block at B={Bb}, T_in={Tb}: non-emt kernel "
+          f"{ms['base'][0]:.3f} ms then {ms['base'][1]:.3f} ms; simple "
+          f"{ms['simple']:.3f} ms (plain {timed['simple']['plain_ms']:.3f} "
+          f"ms, bound {1e3 * timed['simple']['bound'][0]:.3f} ms, "
+          f"{timed['simple']['bound'][1]}); multihead {ms['multihead']:.3f} "
+          f"ms (plain {timed['multihead']['plain_ms']:.3f} ms, bound "
+          f"{1e3 * timed['multihead']['bound'][0]:.3f} ms, "
+          f"{timed['multihead']['bound'][1]}); emt over non-emt per step: "
+          f"simple x{ms['simple'] / np.mean(ms['base']):.3f}, multihead "
+          f"x{ms['multihead'] / np.mean(ms['base']):.3f}")
+    for kind in ("simple", "multihead"):
+        t_ = timed[kind]
+        entries.append(dict(
+            name=f"3-emt-{kind}", route="cuda",
+            source="tacotron2_tpu_torch/csrc/decoder.cu",
+            replaces="tacotron2_tpu/ops/tacotron_decoder_kernel.py:508",
+            launches=t_["launches"], max_abs_err=t_["err"], ms=ms[kind],
+            plain_ms=t_["plain_ms"], bound_ms=1e3 * t_["bound"][0],
+            bound_by=t_["bound"][1], library_ms=None))
+
+    # the command line on a checkpoint written by train/checkpoint.py
+    cfg, params, bstats = cli_case
+    from tacotron2_tpu_torch import convert
+    model = convert.tacotron_from_flax(cfg, params, bstats, "cpu")
+    ps = list(model.parameters())
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt-0.msgpack")
+        checkpoint.save(ckpt, TrainState(step=0, model=model, opt=MaskedAdam(
+            cfg, ps, [True] * len(ps))))
+        tl = os.path.join(tmp, "texts.txt")
+        with open(tl, "w", encoding="utf-8") as f:
+            f.write(f"{texts[0]}\n{texts[1]}\n")
+        ref_path = os.path.join(tmp, "ref.npy")
+        np.save(ref_path, ref_list[0])
+        dk.launches = 0
+        ts = time.time()
+        map_path = cli.main([
+            "--hparams", "tacotron.compute_dtype=bfloat16,"
+            "audio.trim_silence=false,gst.emt_attn=true,"
+            f"gst.emt_attn_type=simple,tacotron.max_iters={EMT_MAX_STEPS}",
+            "synthesize", "--model", "Tacotron", "--mode", "eval",
+            "--checkpoint", ckpt, "--ref-mel-emt", ref_path, "--text-list",
+            tl, "--output-dir", os.path.join(tmp, "out")])
+        rows_cli = open(map_path, encoding="utf-8").read().splitlines()
+        mels_cli = [np.load(row.split("|")[0]) for row in rows_cli]
+        print(f"cli synthesize --hparams gst.emt_attn=true,"
+              f"gst.emt_attn_type=simple: {len(rows_cli)} rows, mels "
+              f"{[m_.shape for m_ in mels_cli]}, decode launches "
+              f"{dk.launches}, {time.time() - ts:.3f} s")
+        assert len(rows_cli) == 2 and dk.launches > 0
+        assert all(np.isfinite(m_).all() for m_ in mels_cli)
+    done(17, t0)
+    return entries
+
+
+def paper_phase(texts, gt, seed):
+    """Phase 18: the paper preset (no GST, the MoL head) served through
+    TextToWavProgram on random weights."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.config import get_config
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
+    from tacotron2_tpu_torch.text import text_to_sequence
+    cfg = get_config("paper")
+    Bp = PAPER_BATCH
+    t0 = phase(18, f"(k) the paper preset served: B={Bp}, t_in "
+               f"{PAPER_T_IN}, {PAPER_STEPS} decode steps, random weights")
+    model = convert.init_tacotron(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+    params, bstats = convert.tacotron_to_flax(model)
+    prog = TextToWavProgram(cfg, params, bstats,
+                            random_wavenet_tree(cfg, seed), batch=Bp,
+                            steps=PAPER_STEPS, t_in=PAPER_T_IN, t_ref=T_REF,
+                            device="cuda", seed=seed,
+                            keep_intermediates=True)
+    assert prog.memory_width == 768, prog.memory_width
+    seqs = [text_to_sequence(t[:PAPER_T_IN - 8], cfg.data.cleaners)
+            for t in texts[:Bp]]
+    ids = np.zeros((Bp, PAPER_T_IN), np.int64)
+    for i, sq in enumerate(seqs):
+        ids[i, :len(sq)] = sq
+    lengths = np.asarray([len(sq) for sq in seqs])
+    refs = np.stack([g[:T_REF] for g in gt[:Bp]]).astype(np.float32)
+    first = prog._seed
+    dk.launches = wk.launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    samples, wav_len, mel, stops, mel_len = prog(ids, lengths, refs, refs)
+    torch.cuda.synchronize()
+    serve_s = time.time() - ts
+    launches = {"tacotron_decoder": dk.launches, "wavenet_sampler": wk.launches}
+    # the decode kernel against its plain version at this preset's shapes
+    # (memory width 768, no GST), on the served call's own inputs
+    im = prog.intermediates
+    dargs = (prog.dec_params, cfg, im["keys"], im["memory"], im["mask"],
+             im["drop"])
+    dkw = dict(steps=PAPER_STEPS, early_stop_block=cfg.tacotron.early_stop_block)
+    got = dk.decode(*dargs, **dkw, kernel_weights=prog.dec_kernel)
+    want = dk.decode_plain(*dargs, **dkw)
+    torch.cuda.synchronize()
+    errs = {n: float((x - y).abs().max()) for n, x, y in zip(
+        ("frames", "stops", "alignments"), got, want)}
+    print(f"paper: decode kernel vs plain over {PAPER_STEPS} steps: max "
+          f"|diff| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}")
+    # phase 9's readings: frames to ~2e-5, stops and alignments to ~1e-6
+    # (bf16 weights upcast on both sides, f32 sums in another order)
+    assert errs["frames"] <= 1e-3 and errs["stops"] <= 1e-4 \
+        and errs["alignments"] <= 1e-4, errs
+    # the served call's stop probabilities, repeated bit for bit
+    assert torch.equal(got[1], stops), "decode kernel is not deterministic"
+    prog._seed = first                    # the same generator seed again
+    again = prog(ids, lengths, refs, refs)[0]
+    torch.cuda.synchronize()
+    samples, wav_len = samples.cpu().numpy(), wav_len.cpu().numpy()
+    mel_len = mel_len.cpu().numpy()
+    audio_s = float(wav_len.sum()) / cfg.audio.sample_rate
+    print(f"paper: memory width {prog.memory_width}, hop "
+          f"{prog.hop}, {prog.t_audio} samples a row; {serve_s:.3f} s for "
+          f"{Bp} utterances, {audio_s:.4f} s of audio at "
+          f"{cfg.audio.sample_rate} Hz, realtime factor "
+          f"{audio_s / serve_s:.4f}; mel lengths {mel_len.tolist()}; "
+          f"launches {launches}")
+    assert all(n > 0 for n in launches.values()), launches
+    assert np.isfinite(samples).all() and np.isfinite(mel.cpu()).all()
+    assert samples.shape == (Bp, prog.t_audio)
+    assert np.array_equal(wav_len, mel_len * prog.hop)
+    assert np.array_equal(again.cpu().numpy(), samples), \
+        "the paper program is not deterministic"
+    done(18, t0)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1493,7 +1821,7 @@ def main(argv=None):
         ("frames", f_k, f_p), ("stops", s_k, s_p), ("alignments", a_k, a_p))}
     errs.update({f"state.{n}": float((getattr(st_k, n).float()
                                       - getattr(st_p, n).float()).abs().max())
-                 for n in st_k._fields})
+                 for n in st_k._fields if getattr(st_k, n) is not None})
     blk_err = max(errs.values())
     print(f"block kernel vs plain over 32 steps at T_in={T9}: max |diff| "
           f"{blk_err:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())})")
@@ -1803,6 +2131,11 @@ def main(argv=None):
     # ---- 16. (i) Tacotron training at the r5 shapes
     for entry in training_phase(tparams, stats, seed):
         kernels.insert(-1, entry)
+
+    # ---- 17. (j) emt_attn synthesis; 18. (k) the paper preset served
+    at = 1 + [k["name"] for k in kernels].index("tacotron_decoder_block")
+    kernels[at:at] = emt_phase(texts, gt, tparams, stats, seed, synth, im8)
+    paper_phase(held, gt, seed)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -8,7 +8,8 @@ turns on the same GPU (A, B, B, A). For each root, one process: build the
 kernels, load the r5 checkpoints, run the memory pass of 8 held-out texts,
 then report the median CUDA-event time of 5 runs of the whole decode
 (480 steps, early stop per 64-step block), of the decode of 320 steps
-without early stop (every version then runs the same row-steps), and of
+without early stop (every version then runs the same row-steps), of one
+256-step block from the zero state (the block route's launch), and of
 the sampler over the first 512 samples (f32, and bf16 cache and weights
 where the copy has them), and (where the copy has it) of
 the Griffin-Lim kernel's 60 iterations on the decoded mels (the
@@ -74,6 +75,11 @@ def time_one(root):
         dec320 = lambda: dk.decode(prog.dec_params, cfg, keys, mem, mask,
                                    drop320, steps=320, early_stop_block=0,
                                    kernel_weights=prog.dec_kernel, **no_align)
+        st0 = dk.init_decoder_state(cfg, B, keys.shape[1], mem.shape[2], dev)
+        drop256 = drop[:, :256].contiguous()
+        blk256 = lambda: dk.decode_block(prog.dec_params, cfg, keys, mem,
+                                         mask, st0, drop256,
+                                         kernel_weights=prog.dec_kernel)
         frames = dec()[0]   # (frames, stops[, alignments])
         _, mel = prog.taco.postnet_pass(frames)
         c = (torch.clamp(mel, -4.0, 4.0) + 4.0) / 8.0
@@ -105,6 +111,7 @@ def time_one(root):
             gl_ms = cs.cuda_ms(gl, 3)
         out = {"root": root, "decoder_ms": cs.cuda_ms(dec, 5),
                "decoder_ms_320_steps_no_early_stop": cs.cuda_ms(dec320, 5),
+               "decoder_block_ms_256_steps": cs.cuda_ms(blk256, 5),
                **{f"sampler_ms_{W}{k}": cs.cuda_ms(f, 5)
                   for k, f in smp.items()},
                "frames_sum": float(frames.sum()),

@@ -9,11 +9,13 @@ Takes what the JAX package trains and checkpoints — the Tacotron
   port's checkpoints and the parity tests): embedding, encoder convs (flax
   [k, in, out] -> torch [out, in, k]) with BatchNorm statistics, the
   BiLSTM (TF gate order kept; the forget bias of 1.0 that the JAX
-  `lstm_step` adds each step is folded into the f-gate bias here), both
-  reference encoders (conv2d [kh, kw, in, out] -> [out, in, kh, kw]), GST
-  tokens and attention, the decoder (flax layout as it is), postnet and
-  its projection, the style classifier heads; `init_tacotron` draws a
-  fresh one from the flax initialisers' distributions;
+  `lstm_step` adds each step is folded into the f-gate bias here), the
+  reference encoders (conv2d [kh, kw, in, out] -> [out, in, kh, kw]; the
+  emt_attn variant's BiGRU or 8 GRU heads), GST tokens and attention, the
+  decoder (flax layout as it is, with the emt attention's W1/W2/V or
+  q_proj/k_proj/attention_* and attn_emt_out), postnet and its
+  projection, the style classifier heads; `init_tacotron` draws a fresh
+  one from the flax initialisers' distributions;
 - `WaveNet` (models/wavenet/model.py): the SubPixel upsample convs and
   the teacher-forced conv stack;
 - the decoder and sampler parameter tuples through
@@ -70,6 +72,9 @@ _RULES = [
     (r"(refnet_\w+?)\.bns\.(\d+)\.(\w+)", r"\1/BatchNorm_\2/\3"),
     (r"(refnet_\w+?)\.gru\.(\w+)", r"\1/GRU_0/GRUCell_0/\2"),
     (r"(refnet_\w+?)\.dense\.(\w+)", r"\1/Dense_0/\2"),
+    (r"(refnet_\w+?)\.bigru\.(fw|bw)\.(\w+)", r"\1/BiGRU_0/\2/GRUCell_0/\3"),
+    (r"(refnet_\w+?)\.grus\.(\d+)\.(\w+)", r"\1/gru_\2/GRUCell_0/\3"),
+    (r"(refnet_\w+?)\.denses\.(\d+)\.(\w+)", r"\1/dense_\2/\3"),
     (r"(gst_attn_\w+?)\.(q_proj|k_proj)\.(\w+)", r"\1/\2/\3"),
     (r"(gst_attn_\w+?)\.(attention_\w)", r"\1/\2"),
     (r"(style_tokens_\w+)", r"\1"),
@@ -174,10 +179,10 @@ def load_tacotron(model: Tacotron, params: Mapping,
 
 
 def tacotron_from_flax(cfg: Config, params: Mapping, batch_stats: Mapping,
-                       device="cuda") -> Tacotron:
+                       device="cuda", emt_only: bool = False) -> Tacotron:
     """Build the port's Tacotron for inference (eval mode, parameters
     frozen) from flax `params`/`batch_stats`."""
-    m = load_tacotron(Tacotron(cfg), params, batch_stats)
+    m = load_tacotron(Tacotron(cfg, emt_only), params, batch_stats)
     return m.to(device).eval().requires_grad_(False)
 
 
@@ -190,7 +195,8 @@ def _glorot(shape, g) -> torch.Tensor:
     return (torch.rand(shape, generator=g) * 2.0 - 1.0) * lim
 
 
-def init_tacotron(cfg: Config, generator=None, device="cuda") -> Tacotron:
+def init_tacotron(cfg: Config, generator=None, device="cuda",
+                  emt_only: bool = False) -> Tacotron:
     """A freshly initialised Tacotron, drawn from the distributions of the
     JAX package's flax initialisers (not their values): glorot-uniform
     kernels and embedding, zero biases, GRU gate biases 1, BatchNorm scale
@@ -198,7 +204,7 @@ def init_tacotron(cfg: Config, generator=None, device="cuda") -> Tacotron:
     uniform ±sqrt(6/hd) and g sqrt(1/hd); BatchNorm statistics (0, 1), as
     the module starts them."""
     g = generator if generator is not None else torch.Generator()
-    model = Tacotron(cfg)
+    model = Tacotron(cfg, emt_only)
     params, stats = tacotron_to_flax(model)
     new = {}
     for name, _ in model.named_parameters():

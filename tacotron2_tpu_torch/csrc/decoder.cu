@@ -4,7 +4,7 @@
 // Replaces three TPU kernels: of tacotron2_tpu/ops/tacotron_decoder_kernel.py
 // `build_decoder_kernel` (the whole decode, pallas_call at :1105) and
 // `build_decoder_block_kernel` (K steps from carried state, pallas_call at
-// :700), without the in-kernel emt_attn scorers; and of
+// :700), with its in-kernel emt_attn scorers (:508-553, below); and of
 // tacotron2_tpu/ops/tacotron_train_kernel.py `build_train_fwd` (pallas_call
 // at :325) in its eval mode (train_zoneout=False) and its train mode,
 // below. Its backward is csrc/decoder_bwd.cu.
@@ -34,7 +34,7 @@
 // CTA outside its own cluster. State in and out may alias: every read of it
 // precedes the first cluster.sync(), every write follows the last.
 //
-// Teacher-forced mode (`decoder_kernel<true>`, the template's other
+// Teacher-forced mode (`decoder_kernel<true, false>`, the template's other
 // instantiation; the wrapper is tacotron2_tpu_torch/ops/
 // tacotron_train_kernel.py, the plain version models/tacotron/decoder.py:
 // teacher_forced). It is the same step, so it is a launch mode of this
@@ -67,6 +67,30 @@
 // gate columns of z1 and z2 in their natural (i, j, f, o) x U order, its
 // own units of c1, h1, c2, h2 and its own context columns.
 //
+// emt_attn mode (`decoder_kernel<false, true>`, a third instantiation: the
+// two others compile as before). The Tacotron_emt_attn variant attends,
+// besides the text, over the emotion reference's sequence: Te positions of
+// V values (the emt memory, Te = ceil(T_ref / 64), 16 at a 1,000-frame
+// reference). LSTM1 takes [hpre | ctx | ctx_emt | h1] (E more rows of its
+// gate columns) and its bias as a per-row operand (`l1_brow`, [B, CS,
+// 4U/CS]: the wrapper folds ref_spk's addend in where it is fed). After
+// LSTM2 each CTA computes the next ctx_emt from h2 (the plain version is
+// models/tacotron/decoder.py:_step, `emt_context`):
+// qe = h2 · W2e ([U, A2]); per position t and score row h, e_h[t] =
+// score[h] · tanh(ekeys[t] + qe), every constant of the keys folded in by
+// the wrapper; a softmax over t per row; the row's context, the weighted sum
+// of the emt memory rows. `simple` has one score row (v) and its context is
+// ctx_emt (E = V); `multihead` has H rows, row h the normed v in head h's
+// columns and 0 elsewhere (one tanh for all heads, as the TPU kernel does),
+// and its H contexts [H·V] go through the attn_emt_out Dense [H·V, E] + b.
+// The emt keys, memory and score rows are loaded into shared memory once a
+// launch. Every CTA computes the scorer on identical data, as it does the
+// location attention, so no barrier or exchange is added; that reads W2e
+// (512 KB bf16 for simple at the default width) and attn_emt_out (256 KB)
+// in every CTA every step, ~25% more than the LSTM weights each CTA reads.
+// Splitting both by columns over the 8 ranks, their slices riding the
+// existing DSMEM exchanges, is the next step.
+//
 // Design. A cluster of CS=8 CTAs (`__cluster_dims__`, co-scheduled by the
 // hardware) runs the steps of one row in a loop with a static trip count.
 // CTA `rank` owns U/CS units of each LSTM — the 4 gate columns of those
@@ -89,11 +113,12 @@
 // rows) is the next step.
 //
 // Shared memory per CTA (floats, default width, T = input length):
-// xprev mels + prenet 2P + [hpre P | ctx M | h1 U | h2 U | ctx2 M] + own c1,
-// c2, new h slice 3·U/CS + gates 4U/CS + new ctx slice M/CS + matvec
-// partials 512·8 + q A + cum, align 2T + proj FOp + wp K·A + 32
+// xprev mels + prenet 2P + [hpre P | ctx M | ctx_emt E | h1 U | h2 U | ctx2
+// M] + own c1, c2, new h slice 3·U/CS + gates 4U/CS + new ctx slice M/CS +
+// matvec partials 512·8 + q A + cum, align 2T + proj FOp + wp K·A + 32
 // ≈ 13.5k + 2T floats ≈ 55 KB + 8T bytes, under the 227 KB a CTA may use
-// up to T ≈ 22,000.
+// up to T ≈ 22,000. emt_attn adds E + Te·(A2 + V) + NH·(A2 + Te + V) + A2
+// floats (≈ 43 KB at Te = 16, A2 = V = 256).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -105,6 +130,7 @@ namespace {
 constexpr int NT = 512;
 constexpr int CS = 8;                      // CTAs per row (one cluster)
 constexpr int DEPTH = 16;                  // weight loads in flight a thread
+constexpr int MAXH = 8;                    // emt score rows (heads) at most
 constexpr float NEG_INF = -4294967295.0f;  // -(2^32) + 1, attention.py:214
 
 // Pointer and integer operands, in the order the C entry point takes them.
@@ -115,12 +141,13 @@ enum Ptr {
   P_STATE_IN, P_CUM_IN, P_PMAX_IN, P_STATE_OUT, P_CUM_OUT, P_PMAX_OUT,
   P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, P_TEACHER, P_COINS, P_ZMASK,
   P_RES_CUM, P_RES_Q, P_RES_Z1, P_RES_Z2, P_RES_H0D, P_RES_HPRE, P_RES_CTX,
-  P_RES_H1, P_RES_C1, P_RES_H2, P_RES_C2, N_PTR
+  P_RES_H1, P_RES_C1, P_RES_H2, P_RES_C2,
+  P_EKEYS, P_ESCORE, P_EMEM, P_L1_BROW, P_W2E, P_EOUT_W, P_EOUT_B, N_PTR
 };
 enum Int {
   I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
   I_FOP, I_CONSTRAINT, I_WIN_BACK, I_WIN_FWD, I_STOP_AT_ANY,
-  I_TEACHER_FORCED, N_INT
+  I_TEACHER_FORCED, I_E, I_TE, I_A2, I_EV, I_NH, N_INT
 };
 
 struct DecArgs {
@@ -132,7 +159,8 @@ struct DecArgs {
   const float* pre_b0;          // [P]
   const __nv_bfloat16* pre_w1;  // [P, P]
   const float* pre_b1;          // [P]
-  const __nv_bfloat16* l1_w;    // [CS, P + M + U, 4U/CS] per-rank gate cols
+  const __nv_bfloat16* l1_w;    // [CS, P + M + E + U, 4U/CS] per-rank gate
+                                // columns, rows [prenet | ctx | ctx_emt | h1]
   const float* l1_b;            // [CS, 4U/CS] (forget bias folded)
   const __nv_bfloat16* l2_w;    // [CS, 2U, 4U/CS]
   const float* l2_b;            // [CS, 4U/CS]
@@ -141,8 +169,9 @@ struct DecArgs {
   const float* v_a;             // [A]
   const __nv_bfloat16* proj_w;  // [U + M, FOp] rows [h2 | ctx]
   const float* proj_b;          // [FOp]
-  // state in / out: each row's vector [xprev | hp0 | hpre | ctx | h1 | h2 |
-  // ctx2 | (c1, c2 of rank 0) | ... | (c1, c2 of rank CS-1)], laid out as
+  // state in / out: each row's vector [xprev | hp0 | hpre | ctx | ctx_emt
+  // | h1 | h2 | ctx2 | (c1, c2 of rank 0) | ... | (c1, c2 of rank CS-1)],
+  // laid out as
   // the head of the CTA's shared memory (`taco_decoder_state_floats`), so
   // one loop copies it; cum [B, T]; pmax [B]
   const float* state_in;
@@ -164,8 +193,20 @@ struct DecArgs {
   const uint8_t* zmask;
   float *res_cum, *res_q, *res_z1, *res_z2, *res_h0d, *res_hpre, *res_ctx,
       *res_h1, *res_c1, *res_h2, *res_c2;
+  // emt_attn mode (E > 0; all null otherwise): keys with their constants
+  // folded [B, Te, A2], score rows [NH, A2], emt memory [B, Te, EV], the
+  // per-row LSTM1 bias [B, CS, 4U/CS] (replaces l1_b; may be null), the
+  // query weight [U, A2], and for multihead the output Dense [NH·EV, E], [E]
+  const float* ekeys;
+  const float* escore;
+  const float* emem;
+  const float* l1_brow;
+  const __nv_bfloat16* w2e;
+  const __nv_bfloat16* eout_w;
+  const float* eout_b;
   int T, t0, nsteps, s_total, mels, P, U, M, A, KW, r, FOp;
   int B, constraint, win_back, win_fwd, stop_at_any, teacher_forced;
+  int E, Te, A2, EV, NH;
   float zoneout;
 };
 
@@ -223,7 +264,67 @@ __device__ void lstm_update_and_share(cg::cluster_group& cluster, int rank,
   cluster.sync();  // the new h is complete everywhere
 }
 
-template <bool TF>
+// The emt attention of one step (emt_attn mode, see the note): qe = h2 ·
+// W2e, the NH score rows' energies over the Te positions, a softmax per
+// row, the contexts over the emt memory, and for multihead the output
+// Dense; the next ctx_emt lands in `cte`. Every thread of the CTA calls it.
+__device__ void emt_attention(const DecArgs& a, const float* h2,
+                              const float* ekeys, const float* escore,
+                              const float* emem, float* qe, float* een,
+                              float* ctxmh, float* cte, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Te = a.Te, A2 = a.A2, NH = a.NH, EV = a.EV;
+  mv<false>(a.w2e, nullptr, h2, a.U, A2, qe, part);
+  // one warp per position: one tanh per column, NH dot products
+  for (int tt = warp; tt < Te; tt += NT / 32) {
+    float acc[MAXH];
+#pragma unroll
+    for (int h = 0; h < MAXH; ++h) acc[h] = 0.f;
+    for (int aa = lane; aa < A2; aa += 32) {
+      const float th = tanhf(ekeys[tt * A2 + aa] + qe[aa]);
+#pragma unroll
+      for (int h = 0; h < MAXH; ++h)
+        if (h < NH) acc[h] = fmaf(escore[h * A2 + aa], th, acc[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < MAXH; ++h) {
+      if (h < NH) {  // NH is uniform: the whole warp shuffles
+        const float v = taco::warp_sum(acc[h]);
+        if (lane == 0) een[h * Te + tt] = v;
+      }
+    }
+  }
+  __syncthreads();
+  // softmax over the positions, one warp per score row
+  for (int h = warp; h < NH; h += NT / 32) {
+    float* e = een + h * Te;
+    float m = -INFINITY;
+    for (int i = lane; i < Te; i += 32) m = fmaxf(m, e[i]);
+    m = taco::warp_max(m);
+    float sum = 0.f;
+    for (int i = lane; i < Te; i += 32) {
+      const float x = expf(e[i] - m);
+      e[i] = x;
+      sum += x;
+    }
+    sum = taco::warp_sum(sum);
+    for (int i = lane; i < Te; i += 32) e[i] /= sum;
+  }
+  __syncthreads();
+  // each row's context over the emt memory
+  float* dst = a.eout_w ? ctxmh : cte;
+  for (int i = threadIdx.x; i < NH * EV; i += NT) {
+    const float* al = een + (i / EV) * Te;
+    const int v = i % EV;
+    float acc = 0.f;
+    for (int tt = 0; tt < Te; ++tt) acc = fmaf(al[tt], emem[tt * EV + v], acc);
+    dst[i] = acc;
+  }
+  __syncthreads();
+  if (a.eout_w) mv<false>(a.eout_w, a.eout_b, ctxmh, NH * EV, a.E, cte, part);
+}
+
+template <bool TF, bool EMT>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     decoder_kernel(const DecArgs a) {
   extern __shared__ float sm[];
@@ -233,7 +334,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   const int T = a.T, P = a.P, U = a.U, M = a.M, A = a.A, mels = a.mels;
   const int Uc = U / CS, Mc = M / CS;
   const int FO = a.r * mels + a.r;
-  const int K1 = P + M + U;
+  const int E = EMT ? a.E : 0;  // ctx_emt width
+  const int K1 = P + M + E + U;
   __shared__ int ired[32];
   __shared__ int s_pmax, s_fired;
 
@@ -251,10 +353,11 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
 
   float* xprev = sm;
   float* hp0 = xprev + mels;
-  float* vec = hp0 + P;  // [hpre | ctx | h1 | h2 | ctx2]
+  float* vec = hp0 + P;  // [hpre | ctx | ctx_emt | h1 | h2 | ctx2]
   float* hpre = vec;
   float* ctx = hpre + P;
-  float* h1 = ctx + M;
+  float* cte = ctx + M;
+  float* h1 = cte + E;
   float* h2 = h1 + U;
   float* ctx2 = h2 + U;
   float* c1 = ctx2 + M;
@@ -269,6 +372,13 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* proj = al + T;
   float* wp = proj + a.FOp;
   float* red = wp + a.KW * A;
+  // emt_attn: keys, memory, score rows, qe, energies, head contexts
+  float* ekeys = red + 32;
+  float* emem = ekeys + (EMT ? a.Te * a.A2 : 0);
+  float* escore = emem + (EMT ? a.Te * a.EV : 0);
+  float* qe = escore + (EMT ? a.NH * a.A2 : 0);
+  float* een = qe + (EMT ? a.A2 : 0);
+  float* ctxmh = een + (EMT ? a.NH * a.Te : 0);
 
   const float* keys = a.keys + (size_t)b * T * A;
   const float* mem = a.memory + (size_t)b * T * M;
@@ -277,7 +387,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* out = a.out + (size_t)b * a.s_total * FO;
   const __nv_bfloat16* l1_w = a.l1_w + (size_t)rank * K1 * 4 * Uc;
   const __nv_bfloat16* l2_w = a.l2_w + (size_t)rank * 2 * U * 4 * Uc;
-  const float* l1_b = a.l1_b + rank * 4 * Uc;
+  const float* l1_b = EMT ? a.l1_brow + ((size_t)b * CS + rank) * 4 * Uc
+                          : a.l1_b + rank * 4 * Uc;
   const float* l2_b = a.l2_b + rank * 4 * Uc;
 
   // ---- load the carried state: every CTA its full copy, c its own units
@@ -288,6 +399,12 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     c1[i] = st_in[n_head + rank * 2 * Uc + i];  // c1 | c2 of this rank
   for (int i = tid; i < T; i += NT) cum[i] = a.cum_in[(size_t)b * T + i];
   for (int i = tid; i < a.KW * A; i += NT) wp[i] = a.wp[i];
+  if constexpr (EMT) {
+    const int nk = a.Te * a.A2, nm = a.Te * a.EV;
+    for (int i = tid; i < nk; i += NT) ekeys[i] = a.ekeys[(size_t)b * nk + i];
+    for (int i = tid; i < nm; i += NT) emem[i] = a.emem[(size_t)b * nm + i];
+    for (int i = tid; i < a.NH * a.A2; i += NT) escore[i] = a.escore[i];
+  }
   if (tid == 0) {
     s_pmax = a.pmax_in[b];
     s_fired = a.fired_in ? a.fired_in[b] : 0;
@@ -345,6 +462,11 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     mv<TF>(l2_w, l2_b, h1, 2 * U, 4 * Uc, z, part);
     lstm_update_and_share(cluster, rank, z, c2, h2, hnew, Uc, zo,
                           zm ? zm + 2 * U : nullptr, res2);
+
+    // ---- emt attention: the next step's ctx_emt, on every CTA. LSTM1's
+    // reads of ctx_emt ended before the first exchange above.
+    if constexpr (EMT)
+      emt_attention(a, h2, ekeys, escore, emem, qe, een, ctxmh, cte, part);
 
     // ---- location-sensitive energies, one warp per input position
     mv<TF>(a.wq, nullptr, h2, U, A, q, part);
@@ -469,23 +591,30 @@ extern "C" int taco_decoder_n_ptr() { return N_PTR; }
 extern "C" int taco_decoder_n_int() { return N_INT; }
 
 // Floats of one row's state vector (see DecArgs::state_in).
-extern "C" int taco_decoder_state_floats(int mels, int P, int U, int M) {
-  return mels + 2 * P + 2 * M + 2 * U + 2 * U;
+extern "C" int taco_decoder_state_floats(int mels, int P, int U, int M,
+                                         int E) {
+  return mels + 2 * P + 2 * M + E + 2 * U + 2 * U;
 }
 
+// E, Te, A2, EV, NH: the emt_attn widths (all 0 without emt_attn).
 extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
-                                          int M, int A, int KW, int FOp) {
+                                          int M, int A, int KW, int FOp,
+                                          int E, int Te, int A2, int EV,
+                                          int NH) {
   const int Uc = U / CS, Mc = M / CS;
-  const size_t floats = (size_t)mels + 2 * P + 2 * M + 2 * U + 3 * Uc +
-                        4 * Uc + Mc + NT * 8 + A + 2 * T + FOp + KW * A + 32;
+  size_t floats = (size_t)mels + 2 * P + 2 * M + E + 2 * U + 3 * Uc +
+                  4 * Uc + Mc + NT * 8 + A + 2 * T + FOp + KW * A + 32;
+  if (E)
+    floats += (size_t)Te * (A2 + EV) + (size_t)NH * (A2 + Te + EV) + A2;
   return floats * sizeof(float);
 }
 
 // ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out, align,
 // teacher, coins, zmask and the residuals may be null; the teacher-forced
 // mode needs teacher, coins and align, its train mode also zmask and every
-// residual); ints: N_INT values in `Int` order. Returns a CUDA error
-// code, or 0.
+// residual; emt_attn (E > 0, autoregressive only) needs ekeys, escore,
+// emem, l1_brow and w2e, eout_w and eout_b for multihead);
+// ints: N_INT values in `Int` order. Returns a CUDA error code, or 0.
 extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
                                    const int* ints, int n_int, float zoneout,
                                    void* stream) {
@@ -529,6 +658,13 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
     *res[i] = (float*)ptrs[P_RES_CUM + i];
     n_res += *res[i] != nullptr;
   }
+  a.ekeys = (const float*)ptrs[P_EKEYS];
+  a.escore = (const float*)ptrs[P_ESCORE];
+  a.emem = (const float*)ptrs[P_EMEM];
+  a.l1_brow = (const float*)ptrs[P_L1_BROW];
+  a.w2e = (const __nv_bfloat16*)ptrs[P_W2E];
+  a.eout_w = (const __nv_bfloat16*)ptrs[P_EOUT_W];
+  a.eout_b = (const float*)ptrs[P_EOUT_B];
   a.B = ints[I_B];
   a.T = ints[I_T];
   a.t0 = ints[I_T0];
@@ -547,6 +683,11 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.win_fwd = ints[I_WIN_FWD];
   a.stop_at_any = ints[I_STOP_AT_ANY];
   a.teacher_forced = ints[I_TEACHER_FORCED];
+  a.E = ints[I_E];
+  a.Te = ints[I_TE];
+  a.A2 = ints[I_A2];
+  a.EV = ints[I_EV];
+  a.NH = ints[I_NH];
   a.zoneout = zoneout;
   if (a.nsteps < 1 || a.t0 < 0 || a.t0 + a.nsteps > a.s_total)
     return (int)cudaErrorInvalidValue;
@@ -562,10 +703,27 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
       (!a.teacher_forced || !a.zmask || n_res != 11 || a.t0 != 0 ||
        a.nsteps != a.s_total))
     return (int)cudaErrorInvalidValue;
+  // emt_attn: its operands, autoregressive only; simple (no output
+  // Dense) has one score row and E = EV; the output Dense's width E and
+  // the products' widths are multiples of 8 (16-byte weight loads)
+  const bool emt_ptrs = a.ekeys || a.escore || a.emem || a.l1_brow ||
+                        a.w2e || a.eout_w || a.eout_b;
+  if (a.E) {
+    if (a.teacher_forced || !a.ekeys || !a.escore || !a.emem ||
+        !a.l1_brow || !a.w2e ||
+        !a.eout_w != !a.eout_b || a.Te < 1 || a.NH < 1 || a.NH > MAXH ||
+        a.A2 % 8 || a.E % 8 || (!a.eout_w && (a.NH != 1 || a.EV != a.E)))
+      return (int)cudaErrorInvalidValue;
+  } else if (emt_ptrs) {
+    return (int)cudaErrorInvalidValue;
+  }
   void (*kernel)(const DecArgs) =
-      a.teacher_forced ? decoder_kernel<true> : decoder_kernel<false>;
+      a.teacher_forced ? decoder_kernel<true, false>
+                       : (a.E ? decoder_kernel<false, true>
+                              : decoder_kernel<false, false>);
   const size_t smem =
-      taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp);
+      taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp,
+                              a.E, a.Te, a.A2, a.EV, a.NH);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

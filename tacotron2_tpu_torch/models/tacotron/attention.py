@@ -10,12 +10,20 @@ utterance outside the loop; the location conv and its projection are
 folded into one [K, A] tap matrix (`wp = loc_k @ wloc`), with the constant
 part (`b_a + loc_b @ wloc`) folded into the keys — the same algebra as the
 TPU decode kernel (`_attention_operands`).
+
+`SimpleBahdanauAttention` (:104) is the emt_attn variant's attention over
+the emotion reference; `emt_context` is the step of that attention and of
+the multi-head one in the folded form the TPU block kernel computes
+(tacotron_decoder_kernel.py:508-553).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from .modules import Dense
 
 NEG_INF = -(2.0 ** 32) + 1.0  # reference padding value (attention.py:214)
 
@@ -70,3 +78,34 @@ def attention_step(q, keys_eff, memory, mask, cum, pmax, wp, v_a, *,
         pmax = torch.argmax(align, dim=-1)
     context = torch.bmm(rnd(align)[:, None, :], memory)[:, 0]
     return context, align, cum + align, pmax
+
+
+class SimpleBahdanauAttention(nn.Module):
+    """Additive attention of a query [B, Q] over values [B, T, V]:
+    softmax over T of V(tanh(W1 values + W2 query)), the weighted sum of
+    the values (JAX attention.py:104-121; flax names W1, W2, V)."""
+
+    def __init__(self, d_query: int, d_value: int, units: int):
+        super().__init__()
+        self.W1 = Dense(d_value, units)
+        self.W2 = Dense(d_query, units)
+        self.V = Dense(units, 1)
+
+    def forward(self, query, values):
+        """-> (context [B, V], weights [B, T])."""
+        score = self.V(torch.tanh(self.W1(values)
+                                  + self.W2(query)[:, None, :]))[..., 0]
+        w = torch.softmax(score, dim=1)
+        return torch.bmm(w[:, None, :], values)[:, 0], w
+
+
+def emt_context(qe, ekeys, score, emem):
+    """One step of the emt attention in folded form: qe [B, A2] the
+    projected query, ekeys [B, Te, A2] the keys with every constant folded
+    in, score [nh, A2] the score rows, emem [B, Te, V] the values. Head h
+    scores e_h = score[h] · tanh(ekeys + qe) over the Te positions and
+    takes the softmax-weighted sum of the values; returns the nh contexts
+    joined, [B, nh·V]."""
+    e = torch.tanh(ekeys + qe[:, None, :])                 # [B, Te, A2]
+    w = torch.softmax(torch.einsum("bta,ha->bht", e, score.float()), -1)
+    return torch.bmm(w, emem).reshape(emem.shape[0], -1)

@@ -14,6 +14,13 @@ per-step coin, no window constraint, stop logits, EMA zoneout;
 per-step residuals), and `teacher_forced_bwd_plain` its reverse-time
 backward. `Decoder` holds the decoder's parameters in flax layout.
 
+The `Tacotron_emt_attn` variant (`gst.emt_attn`) adds a second attention,
+over the emotion reference's sequence (`emt_memory`), whose context feeds
+LSTM1 at the next step (JAX decoder.py:97-129): `EmtParams` holds its
+weights, `emt_operands` lays out one call's operands, and the free-running
+decode (`decode_block`, `autoregressive`) takes them as `emt`. Only eval
+synthesis runs it; the teacher-forced decode and training do not.
+
 These are the plain versions of the CUDA kernels
 (`ops/tacotron_decoder_kernel.py`, `ops/tacotron_train_kernel.py`,
 `csrc/decoder.cu`, `csrc/decoder_bwd.cu`) and follow their contract
@@ -36,13 +43,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import Config
-from .attention import (attention_step, fold_location, identity,
+from .attention import (SimpleBahdanauAttention, attention_step,
+                        emt_context, fold_location, identity,
                         location_features)
-from .modules import Dense
+from .modules import REF_EMB, Dense, MultiheadStyleAttention
 
 
 class DecoderParams(NamedTuple):
-    """Matmul-ready decoder weights (JAX `DecoderParams` minus emt_attn).
+    """Matmul-ready decoder weights (JAX `DecoderParams` without its
+    emt_attn fields, which are `EmtParams`).
 
     Matmul weights carry the decode weight dtype (bf16 or f32); biases and
     attention vectors are f32. `l1_b`/`l2_b` hold the folded forget bias.
@@ -68,6 +77,131 @@ class DecoderParams(NamedTuple):
     proj_wo: torch.Tensor  # [U, FO]  FO = r*mels + r ([frames | stops])
     proj_wc: torch.Tensor  # [M, FO]
     proj_b: torch.Tensor   # [FO]
+
+
+class EmtParams(NamedTuple):
+    """The emt_attn decoder's own weights (the emt fields of JAX
+    `DecoderParams`, ops/tacotron_decoder_kernel.py:68-91, and the
+    style_tokens variant's, which the TPU kernel does not run). Matmul
+    weights carry the decode weight dtype; the rest is f32. Fields of
+    another variant are None.
+
+    simple (SimpleBahdanauAttention, attention.py:104): emt_w1/emt_b1 on
+    the emt memory, emt_w2/emt_b2 on the query, emt_v the score vector.
+    multihead and style_tokens (GST MultiheadStyleAttention with the mlp
+    scorer, the query LSTM2's output, for style_tokens joined with the
+    one-hot emotion label): mh_q_w [Q, units], mh_k_w [V, units], their
+    biases, the score vector mh_v [hd], gain mh_g and bias mh_b; multihead
+    then the attn_emt_out Dense mh_out_w [H*V, 128], mh_out_b.
+    """
+
+    l1_we: torch.Tensor            # [E, 4U] context_emt rows of LSTM1
+    l1_wr: torch.Tensor = None     # [R, 4U] ref_spk rows (simple,
+                                   # style_tokens; None with emt_only)
+    emt_w1: torch.Tensor = None    # [V, A2]
+    emt_b1: torch.Tensor = None    # [A2]
+    emt_w2: torch.Tensor = None    # [U, A2]
+    emt_b2: torch.Tensor = None    # [A2]
+    emt_v: torch.Tensor = None     # [A2]
+    mh_q_w: torch.Tensor = None    # [U (+ n_emt), units]
+    mh_q_b: torch.Tensor = None    # [units]
+    mh_k_w: torch.Tensor = None    # [V, units]
+    mh_k_b: torch.Tensor = None    # [units]
+    mh_v: torch.Tensor = None      # [hd]
+    mh_g: torch.Tensor = None      # []
+    mh_b: torch.Tensor = None      # [hd]
+    mh_out_w: torch.Tensor = None  # [H*V, 128]
+    mh_out_b: torch.Tensor = None  # [128]
+
+
+class EmtOperands(NamedTuple):
+    """One call's emt-attention operands (`emt_operands`), f32 unless
+    stated: the keys with every constant folded in, the score rows, the
+    values, and the weights the step loop reads."""
+
+    ekeys: torch.Tensor    # [B, Te, A2]
+    score: torch.Tensor    # [nh, A2] nh = 1 (simple) or H masked rows
+    emem: torch.Tensor     # [B, Te, V]
+    rs_add: torch.Tensor   # [B, 4U] ref_spk's LSTM1 addend, or None
+    l1_we: torch.Tensor    # [E, 4U] decode weight dtype
+    wq: torch.Tensor       # [U, A2] query weight, decode weight dtype
+    out_w: torch.Tensor    # [H*V, 128] (multihead) or None
+    out_b: torch.Tensor    # [128] or None
+
+
+def emt_context_width(cfg: Config) -> int:
+    """E, the width of context_emt (JAX `DecoderCell.emt_context_size`,
+    decoder.py:77): 2·reference_depth for simple, 128 (the attn_emt_out
+    Dense) for multihead, num_heads·2·reference_depth for style_tokens;
+    0 without emt_attn."""
+    gst = cfg.gst
+    if not gst.emt_attn:
+        return 0
+    if gst.emt_attn_type == "simple":
+        return 2 * gst.reference_depth
+    if gst.emt_attn_type == "multihead":
+        return REF_EMB
+    return gst.num_heads * 2 * gst.reference_depth
+
+
+def ref_rows(cfg: Config, emt_only: bool = False) -> int:
+    """R, LSTM1's ref_spk rows: under emt_attn the 128-wide speaker
+    embedding joins LSTM1's input (simple, style_tokens) unless emt_only;
+    multihead adds it to context_emt instead (JAX decoder.py:97-106)."""
+    gst = cfg.gst
+    return (REF_EMB if gst.emt_attn and not emt_only
+            and gst.emt_attn_type != "multihead" else 0)
+
+
+def emt_operands(ep: EmtParams, cfg: Config, emt_memory, ref_spk=None,
+                 labels=None) -> EmtOperands:
+    """Per call, the constants of the emt attention folded as the TPU block
+    kernel folds them (tacotron_decoder_kernel.py:733-779): simple's keys
+    emt_memory @ W1 + b1 + b2, without the score bias V.b (it shifts every
+    energy alike, which the softmax cancels); multihead's key projection
+    plus k_b + q_b + the score bias tiled over the heads, and H score rows,
+    row h the normed v (g·v/|v|) in head h's columns and 0 elsewhere;
+    style_tokens the same with the label's query rows (constant over the
+    decode) also in the keys. ref_spk [B, R] enters LSTM1 through its own
+    rows (simple, style_tokens) or added to context_emt (multihead): either
+    way a constant addend rs_add [B, 4U]. labels: [B] emotion ids
+    (style_tokens)."""
+    gst = cfg.gst
+    emem = emt_memory.float().contiguous()
+    f = lambda x: x.float()
+    rs_add = None
+    if ep.emt_w1 is not None:
+        ekeys = emem @ f(ep.emt_w1) + f(ep.emt_b1) + f(ep.emt_b2)
+        score = f(ep.emt_v)[None]
+        wq, out_w, out_b = ep.emt_w2, None, None
+        if ep.l1_wr is not None and ref_spk is not None:
+            rs_add = ref_spk.float() @ f(ep.l1_wr)
+    else:
+        H = gst.num_heads
+        units = ep.mh_k_w.shape[1]
+        hd = units // H
+        U = cfg.tacotron.decoder_lstm_units
+        ekeys = (emem @ f(ep.mh_k_w) + f(ep.mh_k_b) + f(ep.mh_q_b)
+                 + f(ep.mh_b).repeat(H))
+        if ep.mh_out_w is None:            # style_tokens: the label query
+            if labels is None:
+                raise ValueError("emt_attn_type=style_tokens decodes with "
+                                 "emotion labels")
+            onehot = torch.nn.functional.one_hot(
+                labels.long().to(emem.device), gst.n_emt).float()
+            ekeys = ekeys + (onehot @ f(ep.mh_q_w[U:]))[:, None, :]
+        v = f(ep.mh_v)
+        nv = f(ep.mh_g) * v * torch.rsqrt(torch.sum(v * v))
+        score = emem.new_zeros(H, units)
+        for h in range(H):
+            score[h, h * hd:(h + 1) * hd] = nv
+        wq, out_w, out_b = ep.mh_q_w[:U], ep.mh_out_w, ep.mh_out_b
+        if ref_spk is not None:
+            rows = ep.l1_we if out_w is not None else ep.l1_wr
+            if rows is not None:
+                rs_add = ref_spk.float() @ f(rows)
+    return EmtOperands(ekeys.contiguous(), score.contiguous(), emem, rs_add,
+                       ep.l1_we, wq.contiguous(), out_w, out_b)
 
 
 def drop_masks(cfg: Config, batch: int, steps: int, generator=None,
@@ -139,7 +273,7 @@ def stop_fired(stop_probs, stop_at_any: bool):
 class DecoderKernelState(NamedTuple):
     """The decoder's carried state between blocks (JAX
     `DecoderKernelState`, ops/tacotron_decoder_kernel.py:239, without the
-    emt_attn context and without the TPU's lane padding)."""
+    TPU's lane padding). ctx_emt is None without emt_attn."""
 
     xprev: torch.Tensor  # [B, mels] f32 last frame of the previous step
     c1: torch.Tensor     # [B, U] f32
@@ -149,18 +283,21 @@ class DecoderKernelState(NamedTuple):
     ctx: torch.Tensor    # [B, M] f32 attention context
     cum: torch.Tensor    # [B, T] f32 cumulative alignments
     pmax: torch.Tensor   # [B] int32 previous argmax (window constraint)
+    ctx_emt: torch.Tensor | None = None  # [B, E] f32 emt-attention context
 
 
 def init_decoder_state(cfg: Config, batch: int, T: int, M: int,
                        device="cuda") -> DecoderKernelState:
     """Zero carry for a fresh batch (JAX `init_decoder_state`,
-    ops/tacotron_decoder_kernel.py:258)."""
+    ops/tacotron_decoder_kernel.py:258); ctx_emt [B, E] under emt_attn."""
     U, mels = cfg.tacotron.decoder_lstm_units, cfg.audio.num_mels
+    E = emt_context_width(cfg)
     z = lambda *s: torch.zeros(*s, device=device)
     return DecoderKernelState(
         xprev=z(batch, mels), c1=z(batch, U), h1=z(batch, U),
         c2=z(batch, U), h2=z(batch, U), ctx=z(batch, M), cum=z(batch, T),
-        pmax=torch.zeros(batch, dtype=torch.int32, device=device))
+        pmax=torch.zeros(batch, dtype=torch.int32, device=device),
+        ctx_emt=z(batch, E) if E else None)
 
 
 class _Cell(NamedTuple):
@@ -176,6 +313,7 @@ class _Cell(NamedTuple):
     memory: torch.Tensor
     mask: torch.Tensor
     rnd: object
+    emt: EmtOperands | None = None
 
 
 def round_bf16(x):
@@ -188,15 +326,22 @@ def round_bf16(x):
 
 
 def _cell(dp: DecoderParams, keys, memory, mask,
-          round_inputs: bool = False) -> _Cell:
+          round_inputs: bool = False, emt: EmtOperands | None = None
+          ) -> _Cell:
     w = {k: v.float() for k, v in dp._asdict().items()}
     wp, b_eff = fold_location(dp.loc_k, dp.loc_b, dp.wloc, dp.b_a)
     rnd = round_bf16 if round_inputs else identity
-    return _Cell(w, torch.cat([w["l1_wp"], w["l1_wc"], w["l1_wh"]], 0),
+    # LSTM1's rows [prenet | context | context_emt | hidden]
+    l1 = [w["l1_wp"], w["l1_wc"], w["l1_wh"]]
+    if emt is not None:
+        l1.insert(2, emt.l1_we.float())
+        emt = emt._replace(wq=emt.wq.float(), out_w=(
+            None if emt.out_w is None else emt.out_w.float()))
+    return _Cell(w, torch.cat(l1, 0),
                  torch.cat([w["l2_wx"], w["l2_wh"]], 0),
                  torch.cat([w["proj_wo"], w["proj_wc"]], 0), rnd(wp),
                  keys.float() + b_eff, rnd(memory.float()),
-                 mask.float().to(memory.device), rnd)
+                 mask.float().to(memory.device), rnd, emt)
 
 
 def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
@@ -214,18 +359,30 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     projection's, the cumulative weights of the location features, the
     alignment of the context — as the TPU train kernel does with bf16
     weights (the memory and the location taps are rounded once in
-    `_cell`); sums and the carried state stay f32."""
+    `_cell`); sums and the carried state stay f32.
+
+    Under emt_attn (`cell.emt`) LSTM1 also takes the previous step's
+    context_emt (and ref_spk, as the constant rs_add), and after LSTM2 the
+    emt attention gives the next one (JAX decoder.py:97-129)."""
     tc = cfg.tacotron
     r, mels = tc.outputs_per_step, cfg.audio.num_mels
     zo = float(tc.zoneout_rate)
-    w, rnd = cell.w, cell.rnd
-    _, c1, h1, c2, h2, ctx, cum, pmax = state
+    w, rnd, emt = cell.w, cell.rnd, cell.emt
+    c1, h1, c2, h2 = state.c1, state.h1, state.c2, state.h2
+    ctx, cum, pmax, ctx_emt = state.ctx, state.cum, state.pmax, state.ctx_emt
     h0d = torch.relu(rnd(x) @ w["pre_w0"] + w["pre_b0"]) * drop_t[:, 0]
     hpre = torch.relu(rnd(h0d) @ w["pre_w1"] + w["pre_b1"]) * drop_t[:, 1]
-    z1 = rnd(torch.cat([hpre, ctx, h1], -1)) @ cell.l1_w + w["l1_b"]
+    x1 = [hpre, ctx, h1] if emt is None else [hpre, ctx, ctx_emt, h1]
+    z1 = rnd(torch.cat(x1, -1)) @ cell.l1_w + w["l1_b"]
+    if emt is not None and emt.rs_add is not None:
+        z1 = z1 + emt.rs_add
     c1, h1 = _lstm(z1, c1, h1, zo, None if zm_t is None else zm_t[:, :2])
     z2 = rnd(torch.cat([h1, h2], -1)) @ cell.l2_w + w["l2_b"]
     c2, h2 = _lstm(z2, c2, h2, zo, None if zm_t is None else zm_t[:, 2:])
+    if emt is not None:
+        ctx_emt = emt_context(h2 @ emt.wq, emt.ekeys, emt.score, emt.emem)
+        if emt.out_w is not None:
+            ctx_emt = ctx_emt @ emt.out_w + emt.out_b.float()
     q = rnd(h2) @ w["wq"]
     ctx, align, cum, pmax = attention_step(
         q, cell.keys_eff, cell.memory, cell.mask, cum, pmax, cell.wp,
@@ -234,21 +391,27 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     proj = rnd(torch.cat([h2, ctx], -1)) @ cell.proj_w + w["proj_b"]
     xprev = proj[:, (r - 1) * mels:r * mels]
     return (proj, align,
-            DecoderKernelState(xprev, c1, h1, c2, h2, ctx, cum, pmax),
+            DecoderKernelState(xprev, c1, h1, c2, h2, ctx, cum, pmax,
+                               ctx_emt),
             dict(h0d=h0d, hpre=hpre, z1=z1, z2=z2, q=q))
 
 
 def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
-                 state: DecoderKernelState, drop):
+                 state: DecoderKernelState, drop,
+                 emt: EmtOperands | None = None):
     """K = drop.shape[1] free-running steps from `state`. keys [B, T, A],
-    memory [B, T, M], mask [B, T] (bool or 1/0), drop [B, K, 2, P].
-    Returns (frames [B, K*r, mels], stop_probs [B, K*r], alignments
-    [B, T, K], the state after the block), all f32."""
+    memory [B, T, M], mask [B, T] (bool or 1/0), drop [B, K, 2, P], and
+    under emt_attn `emt` (`emt_operands`). Returns (frames [B, K*r, mels],
+    stop_probs [B, K*r], alignments [B, T, K], the state after the block),
+    all f32."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B = memory.shape[0]
     K = drop.shape[1]
-    cell = _cell(dp, keys, memory, mask)
+    if (emt is None) != (state.ctx_emt is None):
+        raise ValueError("an emt_attn decode needs both emt operands and "
+                         "state.ctx_emt; any other decode neither")
+    cell = _cell(dp, keys, memory, mask, emt=emt)
     state = state._replace(pmax=state.pmax.long())
     frames_l, stops_l, aligns_l = [], [], []
     for t in range(K):
@@ -265,16 +428,17 @@ def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
 
 def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
                    steps: int, drop, early_stop_block: int = 0,
-                   emit_alignments: bool = True):
+                   emit_alignments: bool = True,
+                   emt: EmtOperands | None = None):
     """Free-running decode of `steps` steps as a loop of `decode_block`.
 
     early_stop_block=K (0 < K < steps) applies the TPU kernel's rule
     (tacotron_decoder_kernel.py:1053-1070): every row decodes until the
     first K-step boundary at which every row's sticky stop flag has fired
     (all r stop probs > 0.5, or any with `stop_at_any`); the steps after it
-    read as frames 0, stop probability 1.0 and alignments 0. Returns
-    (frames [B, steps*r, mels], stop_probs [B, steps*r], alignments
-    [B, T, steps] or None)."""
+    read as frames 0, stop probability 1.0 and alignments 0. `emt`: as
+    `decode_block`. Returns (frames [B, steps*r, mels], stop_probs
+    [B, steps*r], alignments [B, T, steps] or None)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
@@ -290,7 +454,7 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
     for t0 in range(0, steps, K):
         n = min(K, steps - t0)
         f, s, a, state = decode_block(dp, cfg, keys, memory, mask, state,
-                                      drop[:, t0:t0 + n])
+                                      drop[:, t0:t0 + n], emt)
         frames[:, t0 * r:(t0 + n) * r] = f
         stops[:, t0 * r:(t0 + n) * r] = s
         aligns[:, :, t0:t0 + n] = a
@@ -529,21 +693,27 @@ class _Leaf(nn.Module):
 class Decoder(nn.Module):
     """The decoder's parameters in flax layout, named as JAX's
     `DecoderCell` (decoder/cell/...: prenet, lstm1, lstm2, attention with
-    its memory_layer, frame_projection, stop_projection); LSTM biases
-    without the folded forget bias. `ops/tacotron_train_kernel.py:
+    its memory_layer, frame_projection, stop_projection, and under
+    emt_attn attention_emt and, for multihead, attn_emt_out); LSTM biases
+    without the folded forget bias. LSTM1's kernel has the rows [prenet |
+    context | context_emt (E) | ref_spk (`ref_width`) | hidden];
+    `emt_value_width` is the emt memory's. `ops/tacotron_train_kernel.py:
     extract_params_traced` makes the matmul-ready `DecoderParams` of them,
     differentiably."""
 
-    def __init__(self, cfg: Config, memory_width: int):
+    def __init__(self, cfg: Config, memory_width: int,
+                 emt_value_width: int = 0, ref_width: int = 0):
         super().__init__()
-        tc, mels = cfg.tacotron, cfg.audio.num_mels
+        tc, gst, mels = cfg.tacotron, cfg.gst, cfg.audio.num_mels
         U, A, r = tc.decoder_lstm_units, tc.attention_dim, tc.outputs_per_step
         dims = [mels] + list(tc.prenet_layers)
         M = memory_width
+        E = emt_context_width(cfg)
         self.prenet = nn.ModuleDict({
             f"Dense_{i}": Dense(dims[i], dims[i + 1])
             for i in range(len(tc.prenet_layers))})
-        self.lstm1 = _Leaf(kernel=(dims[-1] + M + U, 4 * U), bias=(4 * U,))
+        self.lstm1 = _Leaf(kernel=(dims[-1] + M + E + ref_width + U, 4 * U),
+                           bias=(4 * U,))
         self.lstm2 = _Leaf(kernel=(2 * U, 4 * U), bias=(4 * U,))
         self.attention = _Leaf(attention_variable_projection=(A, 1),
                                attention_bias=(A,))
@@ -558,3 +728,16 @@ class Decoder(nn.Module):
         self.frame_projection = nn.ModuleDict(
             {"Dense_0": Dense(U + M, r * mels)})
         self.stop_projection = nn.ModuleDict({"Dense_0": Dense(U + M, r)})
+        if gst.emt_attn:
+            V = emt_value_width
+            if gst.emt_attn_type == "simple":
+                self.attention_emt = SimpleBahdanauAttention(
+                    U, V, 2 * gst.reference_depth)
+            else:
+                q = U + (gst.n_emt if gst.emt_attn_type == "style_tokens"
+                         else 0)
+                self.attention_emt = MultiheadStyleAttention(
+                    q, V, gst.num_heads, gst.style_att_dim,
+                    gst.style_att_type)
+                if gst.emt_attn_type == "multihead":
+                    self.attn_emt_out = Dense(gst.num_heads * V, REF_EMB)

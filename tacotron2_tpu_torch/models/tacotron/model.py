@@ -14,10 +14,18 @@ zoneout, BatchNorm on batch statistics), the teacher-forced decode with
 scheduled-sampling coins, and the style classifier heads.
 
 The decoder's parameters live in `Decoder` (flax layout and names,
-decoder/cell/...), the attention's memory layer among them. Ported for the
-default family: `gst.use_gst=True` with two reference encoders (not AdaIN,
-not `emt_attn`, not `emt_only`), `se_concat=True`, the `style_disc_emt` /
-`style_disc_spk` heads of `use_style_emb_disc`.
+decoder/cell/...), the attention's memory layer among them. Ported: the
+GST family (`gst.use_gst`) and without GST (`use_gst=False`, the `paper`
+preset: the raw reference embeddings join the encoder states), each with
+two reference encoders or, with `emt_only`, the emotion one alone; the
+`Tacotron_emt_attn` variant (`gst.emt_attn`, the three `emt_attn_type`s
+and `emt_ref_gru` modes), whose emotion reference encoder returns a
+sequence that the decoder attends over and whose mean feeds the style
+attention (JAX model.py:174-277); `se_concat=True`; the `style_disc_emt` /
+`style_disc_spk` heads of `use_style_emb_disc`. Not ported: AdaIN,
+`se_concat=False`. GTA and training refuse `emt_attn`: their decode is
+the teacher-forced kernel, which does not run the emt attention (the JAX
+package takes its XLA scan there).
 """
 
 from __future__ import annotations
@@ -29,23 +37,30 @@ from torch import nn
 
 from ...config import Config
 from ...text.symbols import symbols
-from .decoder import (Decoder, drop_masks, round_bf16, teacher_forced_train,
-                      teacher_inputs, zoneout_masks)
-from .modules import (BiLSTMEncoder, Dense, EncoderConvStack,
+from .decoder import (Decoder, drop_masks, emt_context_width, ref_rows,
+                      round_bf16, teacher_forced_train, teacher_inputs,
+                      zoneout_masks)
+from .modules import (REF_EMB, BiLSTMEncoder, Dense, EncoderConvStack,
                       MultiheadStyleAttention, Postnet, ReferenceEncoder)
 
 
 class Tacotron(nn.Module):
-    """Tacotron-2 with GST; weights come from `convert.py`
-    (`tacotron_from_flax`, `init_tacotron`)."""
+    """Tacotron-2 with style conditioning; weights come from `convert.py`
+    (`tacotron_from_flax`, `init_tacotron`). `emt_only` mirrors the flax
+    attribute: no speaker reference encoder."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, emt_only: bool = False):
         super().__init__()
         tc, gst, au = cfg.tacotron, cfg.gst, cfg.audio
-        assert gst.use_gst and not gst.adain and not gst.emt_attn, \
-            "the port covers the default GST family"
-        assert gst.se_concat, "style embeddings concatenate to the encoder"
-        self.cfg = cfg
+        if gst.adain:
+            raise ValueError("gst.adain is not in the port")
+        if not gst.se_concat:
+            raise ValueError("the port concatenates the style embedding to "
+                             "the encoder states (gst.se_concat)")
+        if gst.emt_attn and gst.emt_attn_type not in (
+                "simple", "multihead", "style_tokens"):
+            raise ValueError(f"emt_attn_type={gst.emt_attn_type!r}")
+        self.cfg, self.emt_only = cfg, emt_only
         bf16 = tc.compute_dtype == "bfloat16"
         self.embedding = nn.Parameter(
             torch.zeros(len(symbols), tc.embedding_dim))
@@ -55,27 +70,53 @@ class Tacotron(nn.Module):
             tc.dropout_rate)
         self.encoder_lstm = BiLSTMEncoder(
             tc.enc_conv_channels, tc.encoder_lstm_units, tc.zoneout_rate)
-        self.refnet_emt = ReferenceEncoder(
-            au.num_mels, tuple(gst.reference_filters), gst.reference_depth)
-        self.refnet_spk = ReferenceEncoder(
-            au.num_mels, tuple(gst.reference_filters), gst.reference_depth)
-        tok_dim = gst.style_embed_depth // gst.num_heads
-        self.style_tokens_emt = nn.Parameter(torch.zeros(gst.num_gst, tok_dim))
-        self.style_tokens_spk = nn.Parameter(torch.zeros(gst.num_gst, tok_dim))
-        self.gst_attn_emt = MultiheadStyleAttention(
-            128, tok_dim, gst.num_heads, gst.style_att_dim, gst.style_att_type)
-        self.gst_attn_spk = MultiheadStyleAttention(
-            128, tok_dim, gst.num_heads, gst.style_att_dim, gst.style_att_type)
+        refs = (au.num_mels, tuple(gst.reference_filters),
+                gst.reference_depth)
+        self.refnet_emt = ReferenceEncoder(*refs, all_outputs=gst.emt_attn,
+                                           emt_ref_gru=gst.emt_ref_gru)
+        # the emotion embedding: under emt_attn the mean of its sequence
+        w_emt = self.refnet_emt.out_width
+        if not emt_only:
+            self.refnet_spk = ReferenceEncoder(*refs)
+        if gst.use_gst:
+            tok_dim = gst.style_embed_depth // gst.num_heads
+            self.style_tokens_emt = nn.Parameter(
+                torch.zeros(gst.num_gst, tok_dim))
+            self.style_tokens_spk = nn.Parameter(
+                torch.zeros(gst.num_gst, tok_dim))
+            self.gst_attn_emt = MultiheadStyleAttention(
+                w_emt, tok_dim, gst.num_heads, gst.style_att_dim,
+                gst.style_att_type)
+            if not emt_only:
+                self.gst_attn_spk = MultiheadStyleAttention(
+                    REF_EMB, tok_dim, gst.num_heads, gst.style_att_dim,
+                    gst.style_att_type)
+            style_width = gst.num_heads * tok_dim
+            style_width *= 1 if emt_only else 2
+        else:
+            style_width = w_emt + (0 if emt_only else REF_EMB)
         enc_width = 2 * tc.encoder_lstm_units
-        self.memory_width = enc_width + 2 * gst.num_heads * tok_dim
-        self.decoder = Decoder(cfg, self.memory_width)
+        self.memory_width = enc_width + style_width
+        E = emt_context_width(cfg)
+        if gst.emt_attn and gst.emt_attn_type != "multihead" and \
+                E != w_emt * (gst.num_heads
+                              if gst.emt_attn_type == "style_tokens" else 1):
+            raise ValueError(
+                f"emt_attn_type={gst.emt_attn_type} carries a context_emt "
+                f"of {E} features (JAX emt_context_size) but the emotion "
+                f"reference gives {w_emt} a position (emt_ref_gru="
+                f"{gst.emt_ref_gru!r}): they must agree")
+        self.decoder = Decoder(cfg, self.memory_width,
+                               emt_value_width=w_emt if gst.emt_attn else 0,
+                               ref_width=ref_rows(cfg, emt_only))
         self.postnet = Postnet(au.num_mels, tc.postnet_num_layers,
                                tc.postnet_channels, tc.postnet_kernel_size,
                                tc.batch_norm_position, bf16, tc.dropout_rate)
         self.postnet_projection = Dense(tc.postnet_channels, au.num_mels)
         if gst.use_style_emb_disc:
-            self.style_disc_emt = Dense(128, gst.n_emt)
-            self.style_disc_spk = Dense(128, gst.n_spk)
+            self.style_disc_emt = Dense(w_emt, gst.n_emt)
+            if not emt_only:
+                self.style_disc_spk = Dense(REF_EMB, gst.n_spk)
 
     @property
     def memory_layer(self):
@@ -96,18 +137,31 @@ class Tacotron(nn.Module):
     def style_embeddings(self, ref_mel_emt, ref_mel_spk,
                          train: bool = False):
         """Reference mels -> (style embedding [B, 1, S], the emotion and the
-        speaker reference encoders' outputs [B, 128])."""
+        speaker reference encoders' embeddings [B, ·] (the speaker one None
+        with emt_only), and under emt_attn the emotion reference's sequence
+        `emt_memory` [B, T', V], else None) — JAX `_style_embeddings`
+        (model.py:174-205): with GST each embedding queries its tokens,
+        without it the embeddings join as they are."""
         B = ref_mel_emt.shape[0]
-        parts, refs = [], []
-        for refnet, tokens, attn, ref in (
-                (self.refnet_emt, self.style_tokens_emt, self.gst_attn_emt,
-                 ref_mel_emt),
-                (self.refnet_spk, self.style_tokens_spk, self.gst_attn_spk,
-                 ref_mel_spk)):
-            value = torch.tanh(tokens)[None].expand(B, -1, -1)
-            refs.append(refnet(ref, train))
-            parts.append(attn(refs[-1][:, None, :], value))
-        return torch.cat(parts, dim=-1), refs[0], refs[1]
+        ref_emt = self.refnet_emt(ref_mel_emt, train)
+        emt_memory = None
+        if self.cfg.gst.emt_attn:
+            emt_memory, ref_emt = ref_emt, ref_emt.mean(1)
+        ref_spk = (None if self.emt_only
+                   else self.refnet_spk(ref_mel_spk, train))
+        parts = []
+        for ref, tokens, name in ((ref_emt, "style_tokens_emt", "emt"),
+                                  (ref_spk, "style_tokens_spk", "spk")):
+            if ref is None:
+                continue
+            if self.cfg.gst.use_gst:
+                value = torch.tanh(getattr(self, tokens))[None].expand(
+                    B, -1, -1)
+                parts.append(getattr(self, f"gst_attn_{name}")(
+                    ref[:, None, :], value))
+            else:
+                parts.append(ref[:, None, :])
+        return torch.cat(parts, dim=-1), ref_emt, ref_spk, emt_memory
 
     def _clip(self, x):
         tc, au = self.cfg.tacotron, self.cfg.audio
@@ -122,12 +176,17 @@ class Tacotron(nn.Module):
     @torch.no_grad()
     def synthesis_memory_ext(self, inputs, input_lengths, ref_mel_emt,
                              ref_mel_spk):
-        """-> (keys [B,T,A], memory [B,T,M], mask [B,T] bool, None, None);
-        the last two are the emt_attn operands, absent in this family."""
+        """-> (keys [B,T,A], memory [B,T,M], mask [B,T] bool, emt_memory
+        [B, T', V], ref_spk [B, 128]); the last two are the emt_attn
+        decoder's operands (JAX model.py:245-276): emt_memory None without
+        emt_attn, ref_spk None unless emt_attn without emt_only."""
         enc = self.encode(inputs, input_lengths)
-        style = self.style_embeddings(ref_mel_emt, ref_mel_spk)[0]
+        style, _, ref_spk, emt_memory = self.style_embeddings(ref_mel_emt,
+                                                              ref_mel_spk)
         keys, memory, mask = self._keys_memory_mask(enc, style, input_lengths)
-        return keys, memory, mask, None, None
+        feed = ref_spk if self.cfg.gst.emt_attn and not self.emt_only \
+            else None
+        return keys, memory, mask, emt_memory, feed
 
     def _keys_memory_mask(self, enc, style, input_lengths):
         """Encoder states + style -> (keys, memory, mask), as
@@ -164,9 +223,10 @@ class Tacotron(nn.Module):
         refnet_out_mel_spk, the reference encoders on mel_outputs
         (:338-341)."""
         r = self.cfg.tacotron.outputs_per_step
+        self._refuse_emt_attn("GTA and embed")
         enc = self.encode(inputs, input_lengths)
-        style, ref_emt, ref_spk = self.style_embeddings(ref_mel_emt,
-                                                        ref_mel_spk)
+        style, ref_emt, ref_spk, _ = self.style_embeddings(ref_mel_emt,
+                                                           ref_mel_spk)
         keys, memory, mask = self._keys_memory_mask(enc, style,
                                                     input_lengths)
         frames, stops, aligns = decode(keys, memory, mask,
@@ -177,8 +237,17 @@ class Tacotron(nn.Module):
                    refnet_out_emt=ref_emt, refnet_out_spk=ref_spk)
         if synth_embeddings:
             out.update(refnet_out_mel_emt=self.refnet_emt(mel),
-                       refnet_out_mel_spk=self.refnet_spk(mel))
+                       refnet_out_mel_spk=(None if self.emt_only
+                                           else self.refnet_spk(mel)))
         return out
+
+    def _refuse_emt_attn(self, what: str):
+        gst = self.cfg.gst
+        if gst.emt_attn:
+            raise ValueError(
+                f"{what} under emt_attn (Tacotron_emt_attn, emt_attn_type="
+                f"{gst.emt_attn_type}) are not in the port: their "
+                "teacher-forced decode kernel does not run the emt attention")
 
     # ---------------------------------------------------------- training
 
@@ -212,6 +281,7 @@ class Tacotron(nn.Module):
         from ...ops import tacotron_train_kernel as tk
         if decode not in ("fused", "autograd"):
             raise ValueError(f"decode={decode!r}")
+        self._refuse_emt_attn("training and its eval forward")
         cfg = self.cfg
         r = cfg.tacotron.outputs_per_step
         dev = mel_targets.device
@@ -220,7 +290,7 @@ class Tacotron(nn.Module):
         g = generator
         with timer("memory pass forward") if timer else nullcontext():
             enc = self.encode(inputs, input_lengths, train, g)
-            style, ref_emt, ref_spk = self.style_embeddings(
+            style, ref_emt, ref_spk, _ = self.style_embeddings(
                 ref_mel_emt, ref_mel_spk, train)
             keys, memory, mask = self._keys_memory_mask(enc, style,
                                                         input_lengths)
@@ -256,7 +326,8 @@ class Tacotron(nn.Module):
                    stop_token_prediction=stops, alignments=aligns,
                    refnet_out_emt=ref_emt, refnet_out_spk=ref_spk)
         if self.cfg.gst.use_style_emb_disc:
-            out.update(style_emb_logit_emt=self.style_disc_emt(ref_emt),
-                       style_emb_logit_spk=self.style_disc_spk(ref_spk))
+            out.update(style_emb_logit_emt=self.style_disc_emt(ref_emt))
+            if not self.emt_only:
+                out.update(style_emb_logit_spk=self.style_disc_spk(ref_spk))
         return out
 

@@ -280,12 +280,50 @@ class GRUCell(nn.Module):
         return z * h + (1 - z) * n
 
 
+def gru(cell: GRUCell, seq):
+    """The GRU over seq [B, T, D] from a zero state -> outputs [B, T, U]
+    (JAX `GRU`, modules.py:206)."""
+    h = seq.new_zeros(seq.shape[0], cell.candidate_bias.shape[0])
+    ys = []
+    for t in range(seq.shape[1]):
+        h = cell(h, seq[:, t])
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+class BiGRU(nn.Module):
+    """Bidirectional GRU over the whole sequence: [forward | backward
+    over the time-reversed input, reversed back] -> [B, T, 2·units]
+    (JAX `BiGRU` without lengths, modules.py:221)."""
+
+    def __init__(self, d_in: int, units: int):
+        super().__init__()
+        self.fw = GRUCell(d_in, units)
+        self.bw = GRUCell(d_in, units)
+
+    def forward(self, x):
+        bw = gru(self.bw, x.flip(1)).flip(1)
+        return torch.cat([gru(self.fw, x), bw], dim=-1)
+
+
+# the reference encoders' embedding width (the Dense(128) of
+# modules.py:411): also the width of the speaker embedding that the
+# emt_attn decoder takes in (`ref_spk`)
+REF_EMB = 128
+
+
 class ReferenceEncoder(nn.Module):
     """6× conv2d(3×3, stride 2, SAME) + BN + ReLU over the ref mel, a
     GRU over time, and Dense(128, tanh) on its last output
-    (reference modules.py:367, `all_outputs=False`)."""
+    (reference modules.py:367, `all_outputs=False`). With
+    `all_outputs=True` (the emt_attn variant's emotion reference) it
+    returns a sequence by `emt_ref_gru`: "gru" a BiGRU over the conv
+    features [B, T', 2·depth]; "gru_multi" 8 GRU heads, each a tanh
+    Dense(128) on its last output, [B, 8, 128]; "none" the conv features
+    themselves [B, T', F·C]. `out_width` is the last dimension."""
 
-    def __init__(self, num_mels: int, filters: Sequence[int], depth: int):
+    def __init__(self, num_mels: int, filters: Sequence[int], depth: int,
+                 all_outputs: bool = False, emt_ref_gru: str = "gru"):
         super().__init__()
         chans = [1] + list(filters)
         self.convs = nn.ParameterList(
@@ -296,8 +334,24 @@ class ReferenceEncoder(nn.Module):
         f = num_mels
         for _ in filters:
             f = -(-f // 2)
-        self.gru = GRUCell(f * filters[-1], depth)
-        self.dense = Dense(depth, 128)
+        feat = f * filters[-1]
+        self.mode = emt_ref_gru if all_outputs else "last"
+        if self.mode == "last":
+            self.gru = GRUCell(feat, depth)
+            self.dense = Dense(depth, REF_EMB)
+            self.out_width = REF_EMB
+        elif self.mode == "gru":
+            self.bigru = BiGRU(feat, depth)
+            self.out_width = 2 * depth
+        elif self.mode == "gru_multi":
+            self.grus = nn.ModuleList(GRUCell(feat, depth) for _ in range(8))
+            self.denses = nn.ModuleList(Dense(depth, REF_EMB)
+                                        for _ in range(8))
+            self.out_width = REF_EMB
+        elif self.mode == "none":
+            self.out_width = feat
+        else:
+            raise ValueError(f"emt_ref_gru={emt_ref_gru!r}")
         self.depth = depth
 
     def forward(self, mel, train: bool = False):
@@ -310,6 +364,13 @@ class ReferenceEncoder(nn.Module):
         B, C, T, Fq = x.shape
         # flax NHWC reshape(B, T, F*C): feature index = f*C + c
         seq = x.permute(0, 2, 3, 1).reshape(B, T, Fq * C)
+        if self.mode == "gru":
+            return self.bigru(seq)
+        if self.mode == "gru_multi":
+            return torch.stack([torch.tanh(d(gru(g, seq)[:, -1]))
+                                for g, d in zip(self.grus, self.denses)], 1)
+        if self.mode == "none":
+            return seq
         h = seq.new_zeros(B, self.depth)
         for t in range(T):
             h = self.gru(h, seq[:, t])

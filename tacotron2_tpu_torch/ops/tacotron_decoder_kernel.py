@@ -1,7 +1,8 @@
 """The autoregressive Tacotron decode as a CUDA block kernel.
 
-Port of tacotron2_tpu/ops/tacotron_decoder_kernel.py without the emt_attn
-scorers: `extract_decoder_params` (:94) flattens the flax decoder subtree;
+Port of tacotron2_tpu/ops/tacotron_decoder_kernel.py: `extract_decoder_
+params` (:94) flattens the flax decoder subtree (`extract_emt_params` its
+emt_attn attention);
 `DecoderKernelState` / `init_decoder_state` (:239, :258) are the carried
 state; `decode_block` is `build_decoder_block_kernel` (:321), K steps from
 explicit state; `decode` is `build_decoder_kernel` (:842), the whole decode
@@ -12,6 +13,16 @@ tensors. The kernel takes its weights in its own per-CTA layout, which
 `pack_weights` builds once per set of weights (at load time, not per
 call). The kernel's design and its bound are in the note at the top of
 `csrc/decoder.cu`.
+
+Under `gst.emt_attn` the decode also runs the emt attention of the TPU
+block kernel (:508-553) — the `simple` and `multihead` scorers — and
+LSTM1's feed of its context: `decode` and `decode_block` take the call's
+`emt` operands (`models/tacotron/decoder.py:emt_operands`, the emt keys
+with their constants folded, the score rows, the emt memory and ref_spk's
+constant addend), `pack_weights` the emt weights, and the carried state
+its context_emt. The `style_tokens` variant, which the JAX package decodes
+with its XLA scan and no kernel, decodes through the plain version; the
+kernel refuses it.
 
 The TPU kernels' `energy_mode` / `context_mode` variants and their 128-wide
 tiles of the location operands are TPU layout choices and have no
@@ -34,7 +45,9 @@ import torch
 from ..config import Config
 from ..models.tacotron.attention import fold_location
 from ..models.tacotron.decoder import (DecoderKernelState, DecoderParams,
-                                      autoregressive, init_decoder_state)
+                                      EmtOperands, EmtParams, autoregressive,
+                                      emt_context_width, init_decoder_state,
+                                      ref_rows)
 from ..models.tacotron.decoder import decode_block as decode_block_plain
 
 # kernel launches made by `decode` and `decode_block` (the count a run
@@ -53,17 +66,19 @@ def decode_weight_dtype(cfg: Config) -> torch.dtype:
 
 
 def extract_decoder_params(params, cfg: Config, *, device="cuda",
-                           weight_dtype=None) -> DecoderParams:
+                           weight_dtype=None,
+                           emt_only: bool = False) -> DecoderParams:
     """Flax Tacotron params (numpy leaves) -> DecoderParams.
 
     Layout of models/tacotron/decoder.py: cell/{prenet, lstm1, lstm2,
     attention, frame_projection, stop_projection}. LSTM kernels are
-    [(x_dim + U), 4U] with x = [prenet | context]; the forget bias of 1.0
-    is folded into the f-gate bias. Matmul weights are cast to
-    `weight_dtype` (default: the config's decode dtype).
+    [(x_dim + U), 4U] with x = [prenet | context] (under emt_attn [prenet |
+    context | context_emt (E) | ref_spk (R)], whose emt rows
+    `extract_emt_params` takes); the forget bias of 1.0 is folded into the
+    f-gate bias. Matmul weights are cast to `weight_dtype` (default: the
+    config's decode dtype).
     """
-    tc, gst = cfg.tacotron, cfg.gst
-    assert not gst.emt_attn, "emt_attn decoding is not in the port yet"
+    tc = cfg.tacotron
     assert not tc.smoothing, "the port decodes with softmax attention only"
     wd = weight_dtype or decode_weight_dtype(cfg)
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
@@ -80,7 +95,8 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
     l1b, l2b = f32(cell["lstm1"]["bias"]).copy(), f32(cell["lstm2"]["bias"]).copy()
     l1b[2 * U:3 * U] += 1.0
     l2b[2 * U:3 * U] += 1.0
-    M = l1k.shape[0] - P - U
+    E, R = emt_context_width(cfg), ref_rows(cfg, emt_only)
+    M = l1k.shape[0] - P - U - E - R
     assert l2k.shape[0] == 2 * U, l2k.shape
     att = cell["attention"]
     fp, sp = cell["frame_projection"]["Dense_0"], cell["stop_projection"]["Dense_0"]
@@ -91,7 +107,8 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
     return DecoderParams(
         pre_w0=t(pre["Dense_0"]["kernel"], wd), pre_b0=t(pre["Dense_0"]["bias"]),
         pre_w1=t(pre["Dense_1"]["kernel"], wd), pre_b1=t(pre["Dense_1"]["bias"]),
-        l1_wp=t(l1k[:P], wd), l1_wc=t(l1k[P:P + M], wd), l1_wh=t(l1k[P + M:], wd),
+        l1_wp=t(l1k[:P], wd), l1_wc=t(l1k[P:P + M], wd),
+        l1_wh=t(l1k[P + M + E + R:], wd),
         l1_b=t(l1b), l2_wx=t(l2k[:U], wd), l2_wh=t(l2k[U:], wd), l2_b=t(l2b),
         wq=t(att["query_layer"]["kernel"], wd),
         loc_k=t(f32(att["location_features_convolution"]["kernel"])[:, 0]),
@@ -100,6 +117,57 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
         v_a=t(f32(att["attention_variable_projection"])[:, 0]),
         b_a=t(att["attention_bias"]),
         proj_wo=t(proj_w[:U], wd), proj_wc=t(proj_w[U:], wd), proj_b=t(proj_b))
+
+
+def extract_emt_params(params, cfg: Config, *, device="cuda",
+                       weight_dtype=None, emt_only: bool = False
+                       ) -> EmtParams | None:
+    """The emt_attn attention's weights (JAX `extract_decoder_params`'s emt
+    fields, :121-147, and style_tokens'): LSTM1's context_emt rows
+    `l1_we` and ref_spk rows `l1_wr`, and cell/attention_emt (W1, W2, V for
+    simple; q_proj, k_proj, attention_v/g/b for multihead and
+    style_tokens) with cell/attn_emt_out (multihead). The weights that the
+    step loop multiplies (l1_we, W2 or q_proj, attn_emt_out) are cast to
+    `weight_dtype`, the rest, which `emt_operands` folds once per call,
+    stay f32. None without emt_attn."""
+    gst = cfg.gst
+    if not gst.emt_attn:
+        return None
+    wd = weight_dtype or decode_weight_dtype(cfg)
+    U, P = cfg.tacotron.decoder_lstm_units, cfg.tacotron.prenet_layers[-1]
+    cell = params["decoder"]["cell"]
+    f32 = lambda a: np.asarray(a, np.float32)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                            dtype=dtype)
+
+    l1k = f32(cell["lstm1"]["kernel"])
+    E, R = emt_context_width(cfg), ref_rows(cfg, emt_only)
+    M = l1k.shape[0] - P - U - E - R
+    ae = cell["attention_emt"]
+    ep = dict(l1_we=t(l1k[P + M:P + M + E], wd),
+              l1_wr=t(l1k[P + M + E:P + M + E + R]) if R else None)
+    if gst.emt_attn_type == "simple":
+        ep.update(emt_w1=t(ae["W1"]["kernel"]), emt_b1=t(ae["W1"]["bias"]),
+                  emt_w2=t(ae["W2"]["kernel"], wd),
+                  emt_b2=t(ae["W2"]["bias"]),
+                  emt_v=t(f32(ae["V"]["kernel"])[:, 0]))
+    else:
+        if gst.style_att_type != "mlp_attention":
+            raise ValueError("the port's multi-head emt attention is the "
+                             "mlp scorer (style_att_type=mlp_attention)")
+        ep.update(mh_q_w=t(ae["q_proj"]["kernel"], wd),
+                  mh_q_b=t(ae["q_proj"]["bias"]),
+                  mh_k_w=t(ae["k_proj"]["kernel"]),
+                  mh_k_b=t(ae["k_proj"]["bias"]),
+                  mh_v=t(ae["attention_v"]), mh_g=t(ae["attention_g"]),
+                  mh_b=t(ae["attention_b"]))
+        if gst.emt_attn_type == "multihead":
+            out = cell["attn_emt_out"]
+            ep.update(mh_out_w=t(out["kernel"], wd),
+                      mh_out_b=t(out["bias"]))
+    return EmtParams(**ep)
 
 
 class KernelWeights(NamedTuple):
@@ -122,53 +190,64 @@ class KernelWeights(NamedTuple):
     proj_b: torch.Tensor   # [fop]
     fop: int
     cs: int
+    # emt_attn (E > 0): the query weight of the emt attention [U, A2] bf16
+    # (W2 or q_proj) and multihead's attn_emt_out [H*V, E] bf16, [E]
+    w2e: torch.Tensor = None
+    emt_out_w: torch.Tensor = None
+    emt_out_b: torch.Tensor = None
+    E: int = 0
 
 
 def decode_plain(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
                  steps: int, early_stop_block: int = 0,
-                 emit_alignments: bool = True):
+                 emit_alignments: bool = True,
+                 emt: EmtOperands | None = None):
     """The kernel's plain PyTorch version (same contract as `decode`)."""
     return autoregressive(dp, cfg, keys, memory, mask, steps, drop,
-                          early_stop_block, emit_alignments)
+                          early_stop_block, emit_alignments, emt)
 
 
 def decode(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
            steps: int, early_stop_block: int = 0,
            emit_alignments: bool = True,
-           kernel_weights: KernelWeights | None = None):
+           kernel_weights: KernelWeights | None = None,
+           emt: EmtOperands | None = None):
     """Decode `steps` steps. keys [B, T, A], memory [B, T, M], mask [B, T],
-    drop [B, steps, 2, P]. Returns (frames [B, steps*r, mels], stop_probs
+    drop [B, steps, 2, P], and under emt_attn `emt` (the call's
+    `emt_operands`). Returns (frames [B, steps*r, mels], stop_probs
     [B, steps*r], alignments [B, T, steps] or None). With
     `early_stop_block=K` every row decodes until the first K-step boundary
     at which all rows have fired; later steps read frames 0, stop 1.0,
     alignments 0 (the TPU kernel's rule). CPU tensors take the plain
     version with `dp`; CUDA tensors launch the kernel with `kernel_weights`
-    (`pack_weights(dp)`) or raise."""
+    (`pack_weights(dp, emt=...)`) or raise."""
     if memory.device.type == "cpu":
         return decode_plain(dp, cfg, keys, memory, mask, drop, steps=steps,
                             early_stop_block=early_stop_block,
-                            emit_alignments=emit_alignments)
+                            emit_alignments=emit_alignments, emt=emt)
     if kernel_weights is None:
         raise ValueError("the decode kernel takes kernel_weights="
                          "pack_weights(dp), built once per set of weights")
     return _decode_cuda(kernel_weights, cfg, keys, memory, mask, drop, steps,
-                        early_stop_block, emit_alignments)
+                        early_stop_block, emit_alignments, emt)
 
 
 def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
                  state: DecoderKernelState, drop, *,
-                 kernel_weights: KernelWeights | None = None):
-    """K = drop.shape[1] steps from `state`. Returns (frames [B, K*r,
-    mels], stop_probs [B, K*r], alignments [B, T, K], new state). CPU
-    tensors take `decode_block_plain`; CUDA tensors launch the kernel with
-    `kernel_weights` or raise."""
+                 kernel_weights: KernelWeights | None = None,
+                 emt: EmtOperands | None = None):
+    """K = drop.shape[1] steps from `state`, with `emt` under emt_attn.
+    Returns (frames [B, K*r, mels], stop_probs [B, K*r], alignments [B, T,
+    K], new state). CPU tensors take `decode_block_plain`; CUDA tensors
+    launch the kernel with `kernel_weights` or raise."""
     if memory.device.type == "cpu":
-        return decode_block_plain(dp, cfg, keys, memory, mask, state, drop)
+        return decode_block_plain(dp, cfg, keys, memory, mask, state, drop,
+                                  emt)
     if kernel_weights is None:
         raise ValueError("the decode kernel takes kernel_weights="
                          "pack_weights(dp), built once per set of weights")
     return _decode_block_cuda(kernel_weights, cfg, keys, memory, mask, state,
-                              drop)
+                              drop, emt)
 
 
 def _lib():
@@ -180,12 +259,12 @@ def _lib():
         lib.taco_decoder_launch.argtypes = [vp, ci, vp, ci, ctypes.c_float,
                                             vp]
         lib.taco_decoder_launch.restype = ci
-        lib.taco_decoder_smem_bytes.argtypes = [ci] * 8
+        lib.taco_decoder_smem_bytes.argtypes = [ci] * 13
         lib.taco_decoder_smem_bytes.restype = ctypes.c_size_t
         for fn in ("cluster_size", "n_ptr", "n_int"):
             getattr(lib, f"taco_decoder_{fn}").argtypes = []
             getattr(lib, f"taco_decoder_{fn}").restype = ci
-        lib.taco_decoder_state_floats.argtypes = [ci] * 4
+        lib.taco_decoder_state_floats.argtypes = [ci] * 5
         lib.taco_decoder_state_floats.restype = ci
         _argtypes_set = True
     return lib
@@ -203,26 +282,39 @@ def split_gates(w, cs: int):
     return w.reshape(cs, *lead, 4 * (U // cs)).contiguous()
 
 
-def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE) -> KernelWeights:
-    """DecoderParams -> the kernel's operands: stacked LSTM kernels split
-    into per-CTA gate columns, the projection padded to a multiple of 8
-    columns, the folded location taps and attention bias."""
+def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
+                 emt: EmtParams | None = None) -> KernelWeights:
+    """DecoderParams (and under emt_attn its EmtParams) -> the kernel's
+    operands: stacked LSTM kernels split into per-CTA gate columns (LSTM1's
+    rows [prenet | context | context_emt | hidden]), the projection padded
+    to a multiple of 8 columns, the folded location taps and attention
+    bias, and the emt attention's query weight and output Dense."""
     fo = dp.proj_b.shape[0]
     fop = -(-fo // 8) * 8
     proj_w = torch.cat([dp.proj_wo, dp.proj_wc], 0)
     wp, b_eff = fold_location(dp.loc_k, dp.loc_b, dp.wloc, dp.b_a)
     c = lambda x: x.contiguous()
+    l1 = [dp.l1_wp, dp.l1_wc, dp.l1_wh]
+    emt_kw = {}
+    if emt is not None:
+        U = dp.l1_wh.shape[0]
+        l1.insert(2, emt.l1_we)
+        w2e = emt.emt_w2 if emt.emt_w1 is not None else emt.mh_q_w[:U]
+        emt_kw = dict(
+            w2e=c(w2e), E=emt.l1_we.shape[0],
+            emt_out_w=None if emt.mh_out_w is None else c(emt.mh_out_w),
+            emt_out_b=None if emt.mh_out_b is None else c(emt.mh_out_b))
     return KernelWeights(
         pre_w0=c(dp.pre_w0), pre_b0=c(dp.pre_b0), pre_w1=c(dp.pre_w1),
         pre_b1=c(dp.pre_b1),
-        l1_w=split_gates(torch.cat([dp.l1_wp, dp.l1_wc, dp.l1_wh], 0), cs),
+        l1_w=split_gates(torch.cat(l1, 0), cs),
         l1_b=split_gates(dp.l1_b, cs),
         l2_w=split_gates(torch.cat([dp.l2_wx, dp.l2_wh], 0), cs),
         l2_b=split_gates(dp.l2_b, cs),
         wq=c(dp.wq), wp=c(wp), b_eff=c(b_eff), v_a=c(dp.v_a),
         proj_w=c(torch.nn.functional.pad(proj_w, (0, fop - fo))),
         proj_b=c(torch.nn.functional.pad(dp.proj_b, (0, fop - fo))),
-        fop=fop, cs=cs)
+        fop=fop, cs=cs, **emt_kw)
 
 
 class Launch(NamedTuple):
@@ -235,12 +327,55 @@ class Launch(NamedTuple):
     memory: torch.Tensor
     mask: torch.Tensor    # f32 1/0
     ints: dict
+    # emt_attn: keys [B, Te, A2], score rows [nh, A2], emt memory [B, Te,
+    # V] (f32), LSTM1's per-row bias [B, cs, 4U/cs] (l1_b, plus ref_spk's
+    # addend where it is fed); all None without emt_attn
+    emt: tuple
+
+
+def _emt_launch_operands(kw: KernelWeights, emt, B, U, dev):
+    """Check a call's EmtOperands against the kernel weights; -> (the
+    Launch's emt tensors, their ints)."""
+    if (emt is None) != (kw.E == 0):
+        raise ValueError("emt_attn decodes need kernel weights packed with "
+                         "the emt weights and the call's emt operands; "
+                         "other decodes neither")
+    if emt is None:
+        return (None, None, None, None), dict(E=0, Te=0, A2=0, EV=0, NH=0)
+    Te, A2 = emt.ekeys.shape[1:]
+    nh, V = emt.score.shape[0], emt.emem.shape[2]
+    if kw.emt_out_w is None and nh != 1:
+        raise ValueError("the decode kernel runs the simple and multihead "
+                         "emt scorers; style_tokens decodes through the "
+                         "plain version")
+    want_e = kw.emt_out_w.shape[1] if kw.emt_out_w is not None else V
+    for name, x, shape in (("ekeys", emt.ekeys, (B, Te, A2)),
+                           ("score", emt.score, (nh, A2)),
+                           ("emem", emt.emem, (B, Te, V))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32 \
+                or x.device != dev:
+            raise ValueError(f"emt.{name} must be f32 {shape} on {dev}")
+    if kw.w2e.shape != (U, A2) or kw.E != want_e or (
+            kw.emt_out_w is not None and kw.emt_out_w.shape[0] != nh * V):
+        raise ValueError("emt operands do not match the kernel weights")
+    if A2 % 8 or kw.E % 8 or nh > 8 or Te < 1:
+        raise ValueError("emt widths outside the kernel's envelope")
+    brow = kw.l1_b[None].expand(B, -1, -1)
+    if emt.rs_add is not None:
+        if emt.rs_add.shape != (B, 4 * U):
+            raise ValueError("emt.rs_add must be [B, 4U]")
+        brow = brow + split_gates(emt.rs_add.float(), kw.cs).transpose(0, 1)
+    return ((emt.ekeys.contiguous(), emt.score.contiguous(),
+             emt.emem.contiguous(), brow.contiguous()),
+            dict(E=kw.E, Te=Te, A2=A2, EV=V, NH=nh))
 
 
 def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
-                   teacher_forced: bool = False) -> Launch:
+                   teacher_forced: bool = False,
+                   emt: EmtOperands | None = None) -> Launch:
     """Check the operands against the kernel's envelope and lay them out;
-    the teacher-forced mode runs without the window constraint."""
+    the teacher-forced mode runs without the window constraint and without
+    emt_attn."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     B, T, M = memory.shape
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
@@ -253,8 +388,11 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
                              f"got {w.dtype} on {w.device}")
     if memory.dtype != torch.float32 or keys.shape != (B, T, A):
         raise ValueError("memory must be f32 [B, T, M] and keys [B, T, A]")
-    if kw.l1_w.shape[1] != P + M + U:
+    if teacher_forced and (emt is not None or kw.E):
+        raise ValueError("the teacher-forced decode does not run emt_attn")
+    if kw.l1_w.shape[1] != P + M + kw.E + U:
         raise ValueError("kernel_weights do not match the memory width")
+    emt_ops, emt_ints = _emt_launch_operands(kw, emt, B, U, dev)
     lib = _lib()
     cs = lib.taco_decoder_cluster_size()
     if kw.cs != cs:
@@ -262,7 +400,8 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
                          f"the kernel runs {cs}")
     if U % (2 * cs) or M % cs or (4 * U // cs) // 8 > 512 or A % 8 or P % 8:
         raise ValueError("widths outside the kernel's envelope")
-    smem = lib.taco_decoder_smem_bytes(T, mels, P, U, M, A, KW, kw.fop)
+    smem = lib.taco_decoder_smem_bytes(
+        T, mels, P, U, M, A, KW, kw.fop, *(emt_ints[k] for k in _EMT_INTS))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"decode kernel needs {smem} B of shared memory "
                          f"at T_in={T}")
@@ -275,46 +414,52 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
                 win_back=0 if monotonic else win // 2 + win % 2,
                 win_fwd=win if monotonic else win // 2,
                 stop_at_any=int(bool(tc.stop_at_any)),
-                teacher_forced=int(teacher_forced))
+                teacher_forced=int(teacher_forced), **emt_ints)
     return Launch(lib, kw, (keys.float() + kw.b_eff).contiguous(),
-                   memory.contiguous(),
-                   mask.to(device=dev, dtype=torch.float32).contiguous(),
-                   ints)
+                  memory.contiguous(),
+                  mask.to(device=dev, dtype=torch.float32).contiguous(),
+                  ints, emt_ops)
 
 
+_EMT_INTS = ("E", "Te", "A2", "EV", "NH")
 _INT_ORDER = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M", "A",
               "KW", "r", "FOp", "constraint", "win_back", "win_fwd",
-              "stop_at_any", "teacher_forced")
+              "stop_at_any", "teacher_forced", *_EMT_INTS)
 
 
 def pack_state(state: DecoderKernelState, P: int,
                cs: int = CLUSTER_SIZE):
     """DecoderKernelState -> the kernel's (vector [B, n], cum [B, T], pmax
-    [B]): each row's vector is [xprev | 0 (P) | 0 (P) | ctx | h1 | h2 | ctx
-    | c1, c2 units of CTA 0 | ... | of CTA cs-1], the head of the kernel's
-    shared memory, so that one loop copies it in or out."""
+    [B]): each row's vector is [xprev | 0 (P) | 0 (P) | ctx | ctx_emt (E,
+    under emt_attn) | h1 | h2 | ctx | c1, c2 units of CTA 0 | ... | of CTA
+    cs-1], the head of the kernel's shared memory, so that one loop copies
+    it in or out."""
     B, U = state.c1.shape
     c = torch.stack([state.c1.reshape(B, cs, U // cs),
                      state.c2.reshape(B, cs, U // cs)], 2).reshape(B, 2 * U)
+    emt = [] if state.ctx_emt is None else [state.ctx_emt.float()]
     vec = torch.cat([state.xprev, state.xprev.new_zeros(B, 2 * P), state.ctx,
-                     state.h1, state.h2, state.ctx, c], 1)
+                     *emt, state.h1, state.h2, state.ctx, c], 1)
     return (vec.float().contiguous(), state.cum.float().contiguous(),
             state.pmax.to(torch.int32).contiguous())
 
 
 def unpack_state(vec, cum, pmax, mels: int, P: int, M: int,
-                 cs: int = CLUSTER_SIZE) -> DecoderKernelState:
-    """The inverse of `pack_state`."""
+                 cs: int = CLUSTER_SIZE, E: int = 0) -> DecoderKernelState:
+    """The inverse of `pack_state` (E: the width of ctx_emt, 0 without
+    emt_attn)."""
     B = vec.shape[0]
     o = mels + 2 * P
-    U = (vec.shape[1] - o - 2 * M) // 4
-    c = vec[:, o + 2 * M + 2 * U:].reshape(B, cs, 2, U // cs)
+    U = (vec.shape[1] - o - 2 * M - E) // 4
+    h = o + M + E                       # h1 | h2 | ctx | c
+    c = vec[:, h + 2 * U + M:].reshape(B, cs, 2, U // cs)
     return DecoderKernelState(
         xprev=vec[:, :mels].contiguous(), c1=c[:, :, 0].reshape(B, U),
-        h1=vec[:, o + M:o + M + U].contiguous(),
+        h1=vec[:, h:h + U].contiguous(),
         c2=c[:, :, 1].reshape(B, U),
-        h2=vec[:, o + M + U:o + M + 2 * U].contiguous(),
-        ctx=vec[:, o:o + M].contiguous(), cum=cum, pmax=pmax)
+        h2=vec[:, h + U:h + 2 * U].contiguous(),
+        ctx=vec[:, o:o + M].contiguous(), cum=cum, pmax=pmax,
+        ctx_emt=vec[:, o + M:h].contiguous() if E else None)
 
 
 def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
@@ -337,11 +482,12 @@ def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
             kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, kw.wp,
             kw.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
             fired_out, out, align, teacher, coins, zmask,
-            *(res or [None] * 11)]
+            *(res or [None] * 11), *L.emt, kw.w2e, kw.emt_out_w,
+            kw.emt_out_b]
     ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
     lib = L.lib
     n = lib.taco_decoder_state_floats(ints["mels"], ints["P"], ints["U"],
-                                      ints["M"])
+                                      ints["M"], ints["E"])
     assert state_in[0].shape[1] == state_out[0].shape[1] == n
     assert len(ptrs) == lib.taco_decoder_n_ptr()
     assert len(_INT_ORDER) == lib.taco_decoder_n_int()
@@ -355,9 +501,14 @@ def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
     check(rc, "taco_decoder_launch")
 
 
-def _check_state(state: DecoderKernelState, B, T, M, U, mels, dev):
+def _check_state(state: DecoderKernelState, B, T, M, U, mels, E, dev):
     want = dict(xprev=(B, mels), c1=(B, U), h1=(B, U), c2=(B, U), h2=(B, U),
                 ctx=(B, M), cum=(B, T), pmax=(B,))
+    if (state.ctx_emt is None) != (E == 0):
+        raise ValueError("state.ctx_emt must be given exactly under "
+                         "emt_attn")
+    if E:
+        want["ctx_emt"] = (B, E)
     for name, shape in want.items():
         x = getattr(state, name)
         dtype = torch.int32 if name == "pmax" else torch.float32
@@ -367,7 +518,7 @@ def _check_state(state: DecoderKernelState, B, T, M, U, mels, dev):
 
 
 def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
-                 early_stop_block, emit_alignments):
+                 early_stop_block, emit_alignments, emt):
     global launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
@@ -376,7 +527,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
     dev = memory.device
     if drop.shape != (B, steps, 2, P) or drop.device != dev:
         raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
-    L = prepare_launch(kw, cfg, keys, memory, mask)
+    L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt)
     drop = drop.to(torch.float32).contiguous()
     K = int(early_stop_block)
     if K <= 0 or K >= steps:
@@ -387,7 +538,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
     out[..., r * mels:] = 1.0
     align = (torch.zeros(B, steps, T, device=dev) if emit_alignments
              else None)
-    state = pack_state(init_decoder_state(cfg, B, T, M, dev), P)
+    state = pack_state(init_decoder_state(cfg, B, T, M, dev), P, kw.cs)
     # row i: the sticky stop flags after launch i and their count at [B]
     starts = range(0, steps, K)
     fired = torch.zeros(len(starts) + 1, B + 1, dtype=torch.int32,
@@ -404,7 +555,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
 
 
 def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
-                       drop):
+                       drop, emt):
     global launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
@@ -414,8 +565,8 @@ def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
     K = drop.shape[1]
     if drop.shape != (B, K, 2, P) or drop.device != dev or K < 1:
         raise ValueError(f"drop must be [B, K, 2, P] on {dev}")
-    _check_state(state, B, T, M, tc.decoder_lstm_units, mels, dev)
-    L = prepare_launch(kw, cfg, keys, memory, mask)
+    _check_state(state, B, T, M, tc.decoder_lstm_units, mels, kw.E, dev)
+    L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt)
     state_in = pack_state(state, P, kw.cs)
     state_out = tuple(torch.empty_like(x) for x in state_in)
     FO = r * mels + r
@@ -426,4 +577,4 @@ def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
     launches += 1
     return (out[..., :r * mels].reshape(B, K * r, mels),
             out[..., r * mels:].reshape(B, K * r), align.transpose(1, 2),
-            unpack_state(*state_out, mels, P, M, kw.cs))
+            unpack_state(*state_out, mels, P, M, kw.cs, kw.E))

@@ -41,9 +41,12 @@ from ..ops.mulaw import inv_mulaw, inv_mulaw_quantize
 
 class TextToWavProgram:
     """Padded text ids → waveform samples for one (batch, t_in, steps)
-    serving bucket. Eligibility mirrors the JAX program: no `emt_attn`,
-    equal-width prenet, padded text ≤ 256, kernel_size 3. `vocoder` is
-    "wavenet" or "griffin_lim" (then `wn_params` may be None).
+    serving bucket. Eligibility mirrors the JAX program (:47-75): no
+    `emt_attn` (the JAX program refuses it: its variants go through the
+    per-stage synthesizer), equal-width prenet, padded text ≤ 256,
+    kernel_size 3; with or without GST (`gst.use_gst=False`, the `paper`
+    preset) and with `emt_only` (no speaker reference encoder). `vocoder`
+    is "wavenet" or "griffin_lim" (then `wn_params` may be None).
     `sampler_bf16` is the JAX program's switch (see the module note).
 
     `keep_intermediates=True` keeps the last call's kernel inputs
@@ -58,11 +61,13 @@ class TextToWavProgram:
                  device="cuda", seed: int = 0,
                  keep_intermediates: bool = False,
                  sampler_bf16: bool | None = None,
-                 vocoder: str = "wavenet"):
+                 vocoder: str = "wavenet", emt_only: bool = False):
         tc, au, wn = cfg.tacotron, cfg.audio, cfg.wavenet
         assert vocoder in ("wavenet", "griffin_lim"), vocoder
         self.vocoder = vocoder
-        assert not cfg.gst.emt_attn, "emt_attn is not in the port yet"
+        if cfg.gst.emt_attn:
+            raise ValueError("TextToWavProgram refuses emt_attn, as the JAX "
+                             "program does: TacotronSynthesizer serves it")
         assert len(set(tc.prenet_layers)) == 1, "kernel wants equal prenet FCs"
         assert t_in <= 256, "long inputs (> 256 padded chars) are not ported"
         self.cfg, self.device = cfg, torch.device(device)
@@ -73,9 +78,11 @@ class TextToWavProgram:
         self.t_audio = self.hop * (self.frames - (vocoder == "griffin_lim"))
 
         self.taco = convert.tacotron_from_flax(cfg, taco_params,
-                                               batch_stats or {}, device)
+                                               batch_stats or {}, device,
+                                               emt_only)
         self.dec_params = dk.extract_decoder_params(taco_params, cfg,
-                                                    device=device)
+                                                    device=device,
+                                                    emt_only=emt_only)
         cuda = self.device.type == "cuda"
         self.dec_kernel = (dk.pack_weights(self.dec_params) if cuda
                            else None)

@@ -24,6 +24,18 @@ kernel.py`) on a CUDA device and through its plain version on the CPU:
 - longer text without an early stop decodes all steps in one chain, as
   the JAX package's one-shot scan does.
 
+Under `gst.emt_attn` (the Tacotron_emt_attn variant) the routes are the
+JAX synthesizer's for it (:345-365): `simple` and `multihead` run the
+block route whenever 0 < early_stop_block < max_steps, whatever the text's
+length (on the TPU its block kernel with the emt scorers; here the CUDA
+kernel's emt mode), and else one chain of blocks without an early stop
+(route "fused"); `style_tokens`, which the JAX package decodes with its XLA
+scan and no kernel on every device, decodes through the plain version on
+every device (route "plain"), all steps, with the emotion labels
+(`synthesize(emt_labels=...)`, label 0 when none are given). GTA and
+`embed` refuse emt_attn (their teacher-forced decode kernel does not run
+the emt attention).
+
 GTA synthesis and `embed` run `Tacotron.gta_pass`, whose teacher-forced
 decode takes every coin as 1 (`ops/tacotron_train_kernel.py`: the
 teacher-forced mode of the decode kernel on a CUDA device, its plain
@@ -47,7 +59,7 @@ import torch
 from .. import convert
 from ..config import Config
 from ..data import audio as host_audio
-from ..models.tacotron.decoder import drop_masks, stop_fired
+from ..models.tacotron.decoder import drop_masks, emt_operands, stop_fired
 from ..ops import griffin_lim
 from ..ops import tacotron_decoder_kernel as dk
 from ..ops import tacotron_train_kernel as tk
@@ -77,17 +89,24 @@ class TacotronSynthesizer:
 
     def __init__(self, cfg: Config, params, batch_stats=None, *,
                  device="cuda", seed: int = 0,
-                 keep_intermediates: bool = False):
+                 keep_intermediates: bool = False, emt_only: bool = False):
         tc = cfg.tacotron
-        assert not cfg.gst.emt_attn, "emt_attn is not in the port yet"
         assert len(set(tc.prenet_layers)) == 1, "kernel wants equal prenet FCs"
         self.cfg, self.device = cfg, torch.device(device)
         self.taco = convert.tacotron_from_flax(cfg, params, batch_stats or {},
-                                               device)
+                                               device, emt_only)
         self.dec_params = dk.extract_decoder_params(params, cfg,
-                                                    device=device)
-        self.dec_kernel = (dk.pack_weights(self.dec_params)
-                           if self.device.type == "cuda" else None)
+                                                    device=device,
+                                                    emt_only=emt_only)
+        self.emt_params = dk.extract_emt_params(params, cfg, device=device,
+                                                emt_only=emt_only)
+        # style_tokens decodes through the plain version: no kernel weights
+        self.plain_decode = (cfg.gst.emt_attn
+                             and cfg.gst.emt_attn_type == "style_tokens")
+        self.dec_kernel = (dk.pack_weights(self.dec_params,
+                                           emt=self.emt_params)
+                           if self.device.type == "cuda"
+                           and not self.plain_decode else None)
         self._params = params
         self._tf_weights = None
         self.generator = torch.Generator(device=self.device)
@@ -168,13 +187,14 @@ class TacotronSynthesizer:
         return out, input_lengths
 
     def _memory(self, inputs, input_lengths, refs_emt, refs_spk):
+        """-> (keys, memory, mask, emt_memory, ref_spk)."""
         t = lambda x, dt=None: torch.as_tensor(x, device=self.device,
                                                dtype=dt)
         return self.taco.synthesis_memory_ext(
             t(inputs, torch.long), t(input_lengths, torch.long),
-            t(refs_emt, torch.float32), t(refs_spk, torch.float32))[:3]
+            t(refs_emt, torch.float32), t(refs_spk, torch.float32))
 
-    def _fused_synth(self, keys, memory, mask, steps: int):
+    def _fused_synth(self, keys, memory, mask, steps: int, emt=None):
         """The whole decode, with the batch-wide early stop."""
         B = memory.shape[0]
         drop = drop_masks(self.cfg, B, steps, self.generator, self.device)
@@ -183,10 +203,21 @@ class TacotronSynthesizer:
         frames, stops, aligns = dk.decode(
             self.dec_params, self.cfg, keys, memory, mask, drop, steps=steps,
             early_stop_block=self.cfg.tacotron.early_stop_block,
-            kernel_weights=self.dec_kernel)
+            kernel_weights=self.dec_kernel, emt=emt)
         return frames, stops, aligns
 
-    def _fused_block_synth(self, keys, memory, mask, steps: int, k: int):
+    def _plain_synth(self, keys, memory, mask, steps: int, emt):
+        """style_tokens: every step through the plain decode, as the JAX
+        package's XLA scan decodes that variant (on every device)."""
+        B = memory.shape[0]
+        drop = drop_masks(self.cfg, B, steps, self.generator, self.device)
+        if self.keep_intermediates:
+            self.intermediates.update(route="plain", drop=drop)
+        return dk.decode_plain(self.dec_params, self.cfg, keys, memory, mask,
+                               drop, steps=steps, emt=emt)
+
+    def _fused_block_synth(self, keys, memory, mask, steps: int, k: int,
+                           emt=None):
         """Blocks of k steps from explicit state; the host stops once every
         row has fired (the reference dynamic_decode exit)."""
         tc = self.cfg.tacotron
@@ -201,7 +232,7 @@ class TacotronSynthesizer:
                 self.intermediates.update(route="block", drop=drop, k=k)
             frames, stops, aligns, state = dk.decode_block(
                 self.dec_params, self.cfg, keys, memory, mask, state, drop,
-                kernel_weights=self.dec_kernel)
+                kernel_weights=self.dec_kernel, emt=emt)
             frames_l.append(frames)
             stops_l.append(stops)
             aligns_l.append(aligns)
@@ -219,15 +250,18 @@ class TacotronSynthesizer:
                    ref_mels_emt: Sequence[np.ndarray],
                    ref_mels_spk: Sequence[np.ndarray],
                    mel_targets: Optional[Sequence[np.ndarray]] = None,
-                   gta: bool = False, max_steps: Optional[int] = None
+                   gta: bool = False, max_steps: Optional[int] = None,
+                   emt_labels: Optional[Sequence[int]] = None
                    ) -> Dict[str, object]:
         """Batch synthesis: trimmed mels, alignments [T_in, steps], the raw
         stop tokens and the lengths. Eval: free-running decode, stop
         probabilities, lengths from the stops. GTA (`gta=True`, the
         targets [T_i, mels] given): teacher-forced on the targets padded
         with -max_abs_value to a multiple of max(r, 64) frames, stop
-        logits, the targets' lengths."""
-        tc = self.cfg.tacotron
+        logits, the targets' lengths. `emt_labels` (one emotion id a text)
+        drive the style_tokens emt_attn variant's attention query; it takes
+        label 0 without them (JAX :319-321)."""
+        tc, gst = self.cfg.tacotron, self.cfg.gst
         refs_emt = self._pad_refs(ref_mels_emt)
         refs_spk = self._pad_refs(ref_mels_spk)
         if gta:
@@ -243,17 +277,31 @@ class TacotronSynthesizer:
         inputs, input_lengths = self.prepare_inputs(texts)
         steps = max_steps or tc.max_iters
         k = tc.early_stop_block
-        keys, memory, mask = self._memory(inputs, input_lengths, refs_emt,
-                                          refs_spk)
+        keys, memory, mask, emt_memory, ref_spk = self._memory(
+            inputs, input_lengths, refs_emt, refs_spk)
+        emt = None
+        if gst.emt_attn:
+            labels = None
+            if gst.emt_attn_type == "style_tokens":
+                labels = torch.as_tensor(
+                    np.zeros(len(texts), np.int64) if emt_labels is None
+                    else np.asarray(emt_labels, np.int64),
+                    device=self.device)
+            emt = emt_operands(self.emt_params, self.cfg, emt_memory,
+                               ref_spk, labels)
         if self.keep_intermediates:
-            self.intermediates = dict(keys=keys, memory=memory, mask=mask)
-        if inputs.shape[1] > 256 and 0 < k < steps:
-            kf = min(max(tc.fused_block_steps, 1), steps)
+            self.intermediates = dict(keys=keys, memory=memory, mask=mask,
+                                      emt=emt)
+        kf = min(max(tc.fused_block_steps, 1), steps)
+        if self.plain_decode:
+            frames, stops, aligns = self._plain_synth(keys, memory, mask,
+                                                      steps, emt)
+        elif (gst.emt_attn or inputs.shape[1] > 256) and 0 < k < steps:
             frames, stops, aligns = self._fused_block_synth(
-                keys, memory, mask, steps, kf)
+                keys, memory, mask, steps, kf, emt)
         else:
             frames, stops, aligns = self._fused_synth(keys, memory, mask,
-                                                      steps)
+                                                      steps, emt)
         _, mels = self.taco.postnet_pass(frames)
         stops = stops.cpu().numpy()
         return self._trim(mels, aligns, stops,

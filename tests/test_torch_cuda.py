@@ -11,7 +11,9 @@ on, live sampler noise), so both sides see the same inputs. The plain
 versions run on the same card with TF32 off. Tolerances: the
 decode kernel and its plain version both upcast the bf16 weights and sum
 in f32, differing in summation order only (frames atol 1e-3 over 8
-steps, stop probabilities and alignments 1e-4); the teacher-forced mode
+steps, stop probabilities and alignments 1e-4; the same under emt_attn,
+whose scorer the kernel also computes in another sum order, for every
+state field, context_emt too); the teacher-forced mode
 of the same kernel and its plain version also round each activation to
 bf16 where it enters a product, so another sum order may move one such
 rounding by a step (~0.4%) (frames atol 1e-3, stop logits 1e-3 times
@@ -45,6 +47,7 @@ import pytest
 import torch
 
 from tacotron2_tpu_torch.models.tacotron.decoder import (drop_masks,
+                                                         emt_operands,
                                                          zoneout_masks)
 from tacotron2_tpu_torch.models.wavenet.distributions import (
     draw_noise, inverse_cdf_pick)
@@ -271,6 +274,85 @@ def test_decode_block_matches_plain_past_256(dev, T):
         np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
         np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
         np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
+        assert st_k.ctx_emt is None and st_p.ctx_emt is None
+        for name in st_k._fields[:-1]:
+            x, y = getattr(st_k, name), getattr(st_p, name)
+            if name == "pmax":
+                assert torch.equal(x, y)
+            else:
+                np.testing.assert_allclose(x.cpu(), y.cpu(), atol=1e-3,
+                                           rtol=0, err_msg=name)
+
+
+EMT_CASES = {"simple": ("simple", True), "simple-no-ref": ("simple", False),
+             "multihead": ("multihead", True)}
+
+
+def emt_case(dev, kind, with_ref, B=3, T=24, Te=5, seed=3):
+    """A decoder under emt_attn (reference_depth 8: V = 16; multihead with
+    2 heads of 8 and the 128-wide attn_emt_out) with random weights in the
+    flax layout, prenet dropout on, bf16 decode weights: (cfg, dp, kernel
+    weights, keys, memory, mask, emt operands)."""
+    cfg = torch_cfg()
+    cfg = cfg.replace(
+        tacotron=dataclasses.replace(cfg.tacotron, dropout_rate=0.5,
+                                     fused_decoder_dtype="bfloat16"),
+        gst=dataclasses.replace(cfg.gst, emt_attn=True, emt_attn_type=kind,
+                                reference_depth=8, num_heads=2,
+                                style_att_dim=16))
+    V, E = 16, 16 if kind == "simple" else 128
+    Rr = 128 if kind == "simple" and with_ref else 0
+    rng = np.random.default_rng(seed)
+    tree = decoder_tree(seed)
+    cell = tree["decoder"]["cell"]
+    cell["lstm1"]["kernel"] = _w(rng, P + M + E + Rr + U, 4 * U)
+    d = lambda i, o: {"kernel": _w(rng, i, o), "bias": _w(rng, o)}
+    if kind == "simple":
+        cell["attention_emt"] = {"W1": d(V, 16), "W2": d(U, 16),
+                                 "V": d(16, 1)}
+    else:
+        cell["attention_emt"] = {
+            "q_proj": d(U, 16), "k_proj": d(V, 16),
+            "attention_v": _w(rng, 8), "attention_g": np.float32(0.35),
+            "attention_b": _w(rng, 8)}
+        cell["attn_emt_out"] = d(2 * V, 128)
+    emt_only = kind == "simple" and not with_ref
+    dp = dk.extract_decoder_params(tree, cfg, device=dev, emt_only=emt_only)
+    ep = dk.extract_emt_params(tree, cfg, device=dev, emt_only=emt_only)
+    t = lambda *s: torch.as_tensor(rng.normal(size=s) * 0.5,
+                                   dtype=torch.float32, device=dev)
+    memory, keys = t(B, T, M), t(B, T, A) * 0.6
+    lens = torch.as_tensor([T - 7 * i for i in range(B)], device=dev)
+    mask = torch.arange(T, device=dev)[None] < lens[:, None]
+    emt = emt_operands(ep, cfg, t(B, Te, V), t(B, 128) if with_ref else None)
+    return (cfg, dp, dk.pack_weights(dp, emt=ep), keys, memory, mask, emt)
+
+
+@pytest.mark.parametrize("case", list(EMT_CASES))
+def test_emt_decode_block_matches_plain(dev, case):
+    """Kernel 3's emt scorers: two chained 4-step blocks from the zero
+    state under emt_attn, against the plain version — frames, stops,
+    alignments and every state field, ctx_emt too (the tolerances of the
+    non-emt block test); then the whole-decode chain with the batch-wide
+    early stop."""
+    cfg, dp, kw, keys, memory, mask, emt = emt_case(dev, *EMT_CASES[case])
+    B, T = memory.shape[:2]
+    K = 4
+    drop = drop_masks(cfg, B, 2 * K, torch.Generator(dev).manual_seed(1), dev)
+    st_k = st_p = dk.init_decoder_state(cfg, B, T, M, dev)
+    assert st_k.ctx_emt.shape == (B, kw.E)
+    before = dk.launches
+    for blk in range(2):
+        d = drop[:, blk * K:(blk + 1) * K]
+        f_k, s_k, a_k, st_k = dk.decode_block(dp, cfg, keys, memory, mask,
+                                              st_k, d, kernel_weights=kw,
+                                              emt=emt)
+        f_p, s_p, a_p, st_p = dk.decode_block_plain(dp, cfg, keys, memory,
+                                                    mask, st_p, d, emt)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
+        np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
+        np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
         for name in st_k._fields:
             x, y = getattr(st_k, name), getattr(st_p, name)
             if name == "pmax":
@@ -278,6 +360,35 @@ def test_decode_block_matches_plain_past_256(dev, T):
             else:
                 np.testing.assert_allclose(x.cpu(), y.cpu(), atol=1e-3,
                                            rtol=0, err_msg=name)
+    assert dk.launches == before + 2
+    assert float(st_p.ctx_emt.abs().max()) > 1e-3   # the scorer ran
+    f_k, s_k, _ = dk.decode(dp, cfg, keys, memory, mask, drop, steps=2 * K,
+                            early_stop_block=K, kernel_weights=kw, emt=emt)
+    f_p, s_p, _ = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
+                                  steps=2 * K, early_stop_block=K, emt=emt)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
+
+
+def test_emt_kernel_refuses_what_it_does_not_take(dev):
+    """No emt operands with emt kernel weights or the other way round, and
+    no style_tokens (the plain version decodes it)."""
+    cfg, dp, kw, keys, memory, mask, emt = emt_case(dev, "multihead", True)
+    B, T = memory.shape[:2]
+    drop = drop_masks(cfg, B, 2, None, dev)
+    st = dk.init_decoder_state(cfg, B, T, M, dev)
+    with pytest.raises(ValueError):
+        dk.decode_block(dp, cfg, keys, memory, mask, st, drop,
+                        kernel_weights=kw)
+    with pytest.raises(ValueError):
+        dk.decode_block(dp, cfg, keys, memory, mask, st, drop,
+                        kernel_weights=kw, emt=emt._replace(
+                            score=emt.score[:1].contiguous()))
+    kw_plain = dk.pack_weights(dp)
+    with pytest.raises(ValueError):
+        dk.decode(dp, cfg, keys, memory, mask, drop, steps=2,
+                  kernel_weights=kw_plain, emt=emt)
 
 
 def _teacher_forced_case(dev, B, T, steps, coins, seed=0):

@@ -332,7 +332,8 @@ def test_pack_weights_layout(setup, cs):
 def test_pack_state_round_trip(cs):
     """The decode kernel's per-row state vector (`pack_state`): the head of
     its shared memory [xprev | 0 | 0 | ctx | h1 | h2 | ctx] and then each
-    CTA's c1, c2 units; `unpack_state` inverts it."""
+    CTA's c1, c2 units; `unpack_state` inverts it. Under emt_attn ctx_emt
+    follows the first ctx; without it ctx_emt is None both ways."""
     g = torch.Generator().manual_seed(0)
     Bs, mels, P, Mw, U, T = 3, 20, 16, 48, 32, 7
     r = lambda *s: torch.randn(*s, generator=g)
@@ -353,5 +354,15 @@ def test_pack_state_round_trip(cs):
                                else vec[:, c0:c0 + U],
                                st.c1[:, uc:2 * uc] if cs > 1 else st.c1)
     back = dk.unpack_state(vec, cum, pmax, mels, P, Mw, cs)
+    assert st.ctx_emt is None and back.ctx_emt is None
+    for name in st._fields[:-1]:
+        assert torch.equal(getattr(back, name), getattr(st, name)), name
+    E = 16
+    st = st._replace(ctx_emt=r(Bs, E))
+    vec, cum, pmax = dk.pack_state(st, P, cs)
+    assert vec.shape == (Bs, mels + 2 * P + 2 * Mw + E + 4 * U)
+    torch.testing.assert_close(vec[:, o + Mw:o + Mw + E], st.ctx_emt)
+    torch.testing.assert_close(vec[:, o + Mw + E:o + Mw + E + U], st.h1)
+    back = dk.unpack_state(vec, cum, pmax, mels, P, Mw, cs, E)
     for name in st._fields:
         assert torch.equal(getattr(back, name), getattr(st, name)), name
