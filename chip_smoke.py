@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's serving, Tacotron-synthesis (eval, GTA, style
-modes), WaveNet-synthesis and Tacotron-training paths on one NVIDIA GPU
-(H100).
+modes), WaveNet-synthesis, Tacotron-training and WaveNet-training paths on
+one NVIDIA GPU (H100).
 
     python3 chip_smoke.py
 
 Phases, each printing its wall seconds:
 
 1. the device, and its name and power limit as nvidia-smi reports them;
-2. build the four CUDA kernels (`csrc/decoder.cu`, `csrc/decoder_bwd.cu`,
-   `csrc/sampler.cu`, `csrc/griffin_lim.cu`) with nvcc for sm_90a, in
-   parallel;
+2. build the five CUDA sources (`csrc/decoder.cu`, `csrc/decoder_bwd.cu`,
+   `csrc/sampler.cu`, `csrc/griffin_lim.cu`, `csrc/wavenet_train.cu`) with
+   nvcc for sm_90a, in parallel;
 3. load the trained r5 checkpoints (artifacts/e2e_demo_r5/*.msgpack) with
    the port's own msgpack reader and weight bridge, in the configuration
    scripts/train_e2e_demo_r5_tpu.py trained them with;
@@ -96,6 +96,20 @@ Phases, each printing its wall seconds:
     sampler) served through `TextToWavProgram` on random weights, B=2,
     t_in 64, 64 decode steps: finite wavs of mel length x hop samples, a
     bit-exact rerun, the realtime factor;
+19. (l) WaveNet training at the r5 script's shapes (the `r5_config()`
+    WaveNet: bf16 stack, `use_fused_train_stack`; B 16 crops of 8,000
+    samples of the r5 train split's rows 0-15 with their ground-truth
+    mels): kernels 5a and 5b against their plain versions on the r5 EMA
+    weights with dropout from one seed (the skip sum, every gradient, the
+    cosine of all of them, bit-exact reruns) and their times beside the
+    plain versions', autograd of the plain stack and the bounds; 32
+    `train_step`s from `init_wavenet` with every launch counter set to 0
+    just before and read just after, the loss falling, the first 12
+    losses against the same steps through the f32 layer loop, the step's
+    time split; the r5 EMA checkpoint's `eval_step` loss on fixed crops in
+    f32 and bf16 against the JAX package's values; `cli train --model
+    WaveNet` for 3 steps, its checkpoint through `cli synthesize --model
+    WaveNet`, and `cli train --model Tacotron-2` (2 steps a stage);
 then the `kernels` line, one entry for every kernel, sampler head, dtype
 and mode.
 
@@ -214,6 +228,66 @@ def r5_config():
                                     use_fused_train_stack=True,
                                     sampler_hbm_delay_threshold=0),
         audio=dataclasses.replace(cfg.audio, trim_silence=False))
+
+
+# phase 19: WaveNet training at the r5 script's shapes
+# (train_e2e_demo_r5_tpu.py:63,69: --wn-batch 16, --crop 8000): B 16 crops
+# of 40 frames (8,000 samples at hop 200) of the r5 train split's rows
+# 0-15, their ground-truth mels as conditioning (hop-aligned, trimmed to
+# n_f = min(mel frames, samples // hop) as the script trims, :270-277)
+WN_ROWS = tuple(range(16))
+WN_CROP_FRAMES = 40
+WN_STEPS = 32
+# the r5 EMA checkpoint's eval loss on the fixed crops of
+# `r5_parity_batch`, computed by the JAX package on the CPU in f32 and
+# with the r5 config's bf16 stack (tests/test_torch_wavenet_train.py::
+# test_r5_ema_loss_matches_jax checks these values against the JAX
+# model); the card's f32 eval_step is held to the first within
+# R5_EMA_RTOL, its bf16 one to the second within R5_EMA_BF16_RTOL
+R5_EMA_LOSS_JAX = -5.523944854736328
+R5_EMA_LOSS_JAX_BF16 = -5.253201961517334
+R5_EMA_RTOL = 1e-4
+R5_EMA_BF16_RTOL = 5e-3
+PARITY_ROWS, PARITY_START = (0, 1, 2, 3), 100
+
+
+def r5_wavenet_rows(corpus, rows):
+    """(audio, mel) of r5 corpus rows, trimmed to whole hops."""
+    import numpy as np
+    out = []
+    for i in rows:
+        a = np.load(os.path.join(corpus, "audio", f"audio-{i}.npy"))
+        m = np.load(os.path.join(corpus, "mels", f"mel-{i}.npy"))
+        n_f = min(len(m), len(a) // 200)
+        out.append((a[:n_f * 200].astype(np.float32),
+                    m[:n_f].astype(np.float32)))
+    return out
+
+
+def wavenet_batch(pairs, starts, frames=WN_CROP_FRAMES):
+    """Crops of `frames` frames from the given start frames: the feeder's
+    batch (x [B, T, 1], y, c clipped and rescaled to [0, 1],
+    input_lengths)."""
+    import numpy as np
+    from tacotron2_tpu_torch.config import Config
+    from tacotron2_tpu_torch.data.wavenet_feeder import interp_to_unit
+    cfg = Config()
+    mx, hop = cfg.audio.max_abs_value, cfg.audio.effective_hop
+    xs, cs = [], []
+    for (a, m), s in zip(pairs, starts):
+        xs.append(a[s * hop:(s + frames) * hop])
+        cs.append(interp_to_unit(np.clip(m[s:s + frames], -mx, mx), cfg))
+    x = np.stack(xs).astype(np.float32)
+    return dict(x=x[..., None], y=x.copy(),
+                c=np.stack(cs).astype(np.float32),
+                input_lengths=np.full(len(xs), frames * hop, np.int32))
+
+
+def r5_parity_batch(corpus):
+    """The fixed crops the r5 EMA loss is held on: rows PARITY_ROWS from
+    frame PARITY_START."""
+    return wavenet_batch(r5_wavenet_rows(corpus, PARITY_ROWS),
+                         [PARITY_START] * len(PARITY_ROWS))
 
 
 def phase(n, name):
@@ -1435,6 +1509,301 @@ def paper_phase(texts, gt, seed):
     done(18, t0)
 
 
+# phase 19: kernels 5a and 5b against their plain versions on the r5
+# EMA weights, the same bf16 operands and dropout masks (one seed), f32
+# sums in another order, which moves isolated bf16 roundings (of h, dy, a
+# saved activation) by one step; those carry on through the residual
+# path. Gates: the skip sum within WN_FWD_RTOL of its largest value and
+# its mean difference at most WN_MEAN_SHARE of the plain version's own
+# distance from the same stack with f32 weights; each gradient (weights,
+# x0, c) on the kernel's saved activations within WN_BWD_RTOL of its
+# largest value, the cosine of all of them >= WN_COSINE; reruns bit-exact
+WN_FWD_RTOL = 1e-2
+WN_MEAN_SHARE = 0.5
+WN_BWD_RTOL = 1e-2
+WN_COSINE = 0.9999
+# the training run: every loss finite, the lowest at least 0.5 under the
+# first, the second half's mean under the first five's (the loss from a
+# fresh init swings: the f32 layer loop, no kernel in it, swings alike),
+# and the first WN_TRAJ_STEPS losses within WN_TRAJ_ATOL of those of the
+# same steps through the f32 layer loop
+WN_TRAJ_STEPS, WN_TRAJ_ATOL = 12, 1e-2
+
+
+def stack_bound_s(plan, N, backward):
+    """Least seconds of kernel 5a (backward=False) or 5b at N rows: the
+    products at the bf16 rate against the bytes (inputs once, outputs
+    once: x0, c, weights; skip and the saved activations; in the backward
+    those, dskip, dx0, dc and f32 weight gradients)."""
+    L, C, G, S, Ci, Ch = plan.L, plan.C, plan.G, plan.S, plan.Ci, plan.Ch
+    w = L * (3 * C * G + Ci * G + Ch * (S + C))
+    acts = L * 3 * N * C * 2
+    if not backward:
+        macs = N * w
+        nbytes = N * (C + Ci) * 4 + 2 * w + N * S * 4 + acts
+    else:
+        macs = 2 * N * w
+        nbytes = (acts + N * (Ci + S) * 4 + 2 * w + N * (C + Ci) * 4
+                  + 4 * w)
+    ops_s, bytes_s = 2 * macs / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
+                                 else "bytes")
+
+
+def wavenet_training_phase(wparams, seed):
+    """Phase 19: WaveNet training at the r5 shapes. Returns the `kernels`
+    entries of kernels 5a and 5b."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import cli, convert
+    from tacotron2_tpu_torch.models.wavenet.model import compute_wavenet_loss
+    from tacotron2_tpu_torch.models.wavenet.modules import round_bf16
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.train.tacotron_step import StepTimer
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    cfg = r5_config()
+    B, F = len(WN_ROWS), WN_CROP_FRAMES
+    t0 = phase(19, f"(l) WaveNet training: B={B} crops of {F * 200} "
+               f"samples, {cfg.wavenet.layers} layers, the r5 train split")
+    corpus = os.path.join(R5, "corpus")
+    pairs = r5_wavenet_rows(corpus, WN_ROWS)
+    rng = np.random.default_rng(seed)
+
+    def crops():
+        return wavenet_batch(pairs, [int(rng.integers(0, len(m) - F + 1))
+                                     for _, m in pairs])
+
+    dev = torch.device("cuda")
+    first = crops()
+
+    # ---- (1) kernels 5a and 5b against their plain versions: the r5 EMA
+    # weights, the first batch's stack input, dropout from one seed
+    model = convert.wavenet_from_flax(cfg, wparams, dev, trainable=True)
+    b = WaveNetTrainer(cfg).batch_to_device(first)
+    with torch.no_grad():
+        c_up = model.upsample(b["c"])
+        x0 = model.input_convolution(round_bf16(b["x"]), round_bf16)
+        c32 = round_bf16(c_up)
+    T = x0.shape[1]
+    N = T * B
+    x2 = x0.transpose(0, 1).reshape(N, -1).contiguous()
+    c2 = c32.transpose(0, 1).reshape(N, -1).contiguous()
+    plan = wtk.make_plan(cfg, B)
+    plan32 = dataclasses.replace(plan, weight_bf16=False)
+    sp = wtk.StackParams(*(t.detach() for t in wtk.extract_stack_params(
+        model.residual_blocks, cfg)))
+    k_s, k_a = wtk.stack_fwd_cuda(plan, sp, x2, c2, seed)
+    p_s, p_a = wtk.stack_fwd_plain(plan, sp, x2, c2, seed)
+    f_s, _ = wtk.stack_fwd_plain(plan32, sp, x2, c2, seed)
+    # dskip: the loss's own gradient at the kernel's skip sum
+    skip = k_s.reshape(T, B, -1).transpose(0, 1).detach().requires_grad_()
+    y = model.final_convolution_2(torch.relu(model.final_convolution_1(
+        torch.relu(skip))))
+    loss = compute_wavenet_loss(y, b["y"], b["input_lengths"], cfg)["loss"]
+    dskip = torch.autograd.grad(loss, skip)[0].transpose(0, 1).reshape(
+        N, -1).contiguous()
+    k_b = wtk.stack_bwd_cuda(plan, sp, k_a, c2, dskip, seed)
+    p_b = wtk.stack_bwd_plain(plan, sp, k_a, c2, dskip, seed)
+    torch.cuda.synchronize()
+    fwd_err = rel_err(k_s, p_s)
+    fwd_abs = float((k_s - p_s).abs().max())
+    mean_k = float((k_s - p_s).abs().mean())
+    mean_f = float((f_s - p_s).abs().mean())
+    acts_moved = float((k_a != p_a).float().mean())
+    names = list(wtk.StackParams._fields) + ["dx0", "dc"]
+    kg, pg = [*k_b[0], k_b[1], k_b[2]], [*p_b[0], p_b[1], p_b[2]]
+    bwd_err = {n: rel_err(x, y_) for n, x, y_ in zip(names, kg, pg)}
+    bwd_abs = max(float((x - y_).abs().max()) for x, y_ in zip(kg, pg))
+    cos = float(torch.nn.functional.cosine_similarity(
+        torch.cat([x.flatten() for x in kg]),
+        torch.cat([y_.flatten() for y_ in pg]), dim=0))
+    print(f"kernel 5a vs plain at N={N}: skip max|d| {fwd_abs:.3e} "
+          f"({fwd_err:.2e} of its max), mean {mean_k:.3e} (plain bf16 vs "
+          f"f32 weights: {mean_f:.3e}); saved activations moved by a "
+          f"rounding step: {acts_moved:.4f}")
+    print("kernel 5b vs plain, max|d| / max|plain| per gradient: " + ", ".join(
+        f"{n} {v:.2e}" for n, v in bwd_err.items()) + f"; cosine {cos:.7f}")
+    assert fwd_err <= WN_FWD_RTOL, fwd_err
+    assert mean_k <= WN_MEAN_SHARE * mean_f, (mean_k, mean_f)
+    assert max(bwd_err.values()) <= WN_BWD_RTOL, bwd_err
+    assert cos >= WN_COSINE, cos
+    k_s2, _ = wtk.stack_fwd_cuda(plan, sp, x2, c2, seed)
+    k_b2 = wtk.stack_bwd_cuda(plan, sp, k_a, c2, dskip, seed)
+    torch.cuda.synchronize()
+    exact = torch.equal(k_s, k_s2) and all(
+        torch.equal(x, y_) for x, y_ in zip(kg, [*k_b2[0], k_b2[1], k_b2[2]]))
+    print(f"reruns bit-exact: {exact}")
+    assert exact
+    del p_a, p_b, k_b2, f_s
+
+    fwd_ms = cuda_ms(lambda: wtk.stack_fwd_cuda(plan, sp, x2, c2, seed), 3)
+    fwd_plain_ms = cuda_ms(lambda: wtk.stack_fwd_plain(plan, sp, x2, c2,
+                                                       seed), 1)
+    bwd_ms = cuda_ms(lambda: wtk.stack_bwd_cuda(plan, sp, k_a, c2, dskip,
+                                                seed), 3)
+    bwd_plain_ms = cuda_ms(lambda: wtk.stack_bwd_plain(plan, sp, k_a, c2,
+                                                       dskip, seed), 1)
+    leaves = [t.clone().requires_grad_() for t in (*sp, x2, c2)]
+
+    def autograd_stack():
+        s_, _ = wtk.stack_fwd_plain(plan, wtk.StackParams(*leaves[:8]),
+                                    leaves[8], leaves[9], seed)
+        torch.autograd.grad(s_, leaves, dskip)
+
+    autograd_stack()        # the warm-up (its buffers allocated)
+    autograd_ms = cuda_ms(autograd_stack, 1)
+    fb = stack_bound_s(plan, N, backward=False)
+    bb = stack_bound_s(plan, N, backward=True)
+    print(f"at B={B}, T={T} (N={N}): kernel 5a {fwd_ms:.3f} ms (plain "
+          f"{fwd_plain_ms:.3f}, bound {1e3 * fb[0]:.4f} ms, {fb[1]}); "
+          f"kernel 5b {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, bound "
+          f"{1e3 * bb[0]:.4f} ms, {bb[1]}); autograd of the plain stack, "
+          f"forward and backward, {autograd_ms:.3f} ms")
+    del k_a, k_b, leaves, dskip
+    torch.cuda.empty_cache()
+
+    # ---- (2) 32 steps from init_wavenet: the main path's counts
+    trainer = WaveNetTrainer(cfg)
+    state = trainer.init_state(torch.Generator().manual_seed(seed), first)
+    gen = torch.Generator().manual_seed(seed + 1)
+    batches = [crops() for _ in range(WN_STEPS)]
+    losses, split = [], {}
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    for i, batch in enumerate(batches):
+        timed = 4 <= i < 8
+        trainer.timer = StepTimer() if timed else None
+        torch.cuda.synchronize()
+        t_step = time.time()
+        state, m = trainer.train_step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        if timed:
+            for k, v in trainer.timer.totals().items():
+                split[k] = split.get(k, 0.0) + v / 4
+            split["step (host clock)"] = split.get(
+                "step (host clock)", 0.0) + 1e3 * (time.time() - t_step) / 4
+    torch.cuda.synchronize()
+    train_s = time.time() - ts
+    launches = (wtk.fwd_launches, wtk.bwd_launches)
+    trainer.timer = None
+    print(f"{WN_STEPS} train steps from init_wavenet: {train_s:.3f} s; "
+          f"kernel launches 5a {launches[0]}, 5b {launches[1]}; loss "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print("ms per step (mean of steps 5-8): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    assert launches == (WN_STEPS, WN_STEPS), launches
+    # the same steps through the layer loop in f32 (no stack kernels;
+    # cuDNN and autograd): the trajectories agree until they part where
+    # bf16 roundings grow, and the loss's later swings are the model's
+    ref_cfg = cfg.replace(wavenet=dataclasses.replace(
+        cfg.wavenet, use_fused_train_stack=False, compute_dtype="float32"))
+    ref = WaveNetTrainer(ref_cfg)
+    ref_state = ref.init_state(torch.Generator().manual_seed(seed), first)
+    ref_gen = torch.Generator().manual_seed(seed + 1)
+    ref_losses = [float(ref.train_step(ref_state, b_, ref_gen)[1]["loss"])
+                  for b_ in batches[:WN_TRAJ_STEPS]]
+    traj = max(abs(x - y_) for x, y_ in zip(losses, ref_losses))
+    print(f"first {WN_TRAJ_STEPS} losses against the f32 layer loop's: "
+          f"max |difference| {traj:.3e}")
+    assert all(np.isfinite(losses)), losses
+    assert traj <= WN_TRAJ_ATOL, (losses, ref_losses)
+    assert min(losses) < losses[0] - 0.5, losses
+    assert np.mean(losses[WN_STEPS // 2:]) < np.mean(losses[:5]), losses
+    del ref_state
+
+    # ---- (3) the r5 EMA checkpoint's eval loss on the fixed crops, f32
+    # and the r5 config's bf16 stack, against the JAX package's values
+    held = r5_parity_batch(corpus)
+    for dt, want, rtol in (("float32", R5_EMA_LOSS_JAX, R5_EMA_RTOL),
+                           ("bfloat16", R5_EMA_LOSS_JAX_BF16,
+                            R5_EMA_BF16_RTOL)):
+        c_ = cfg.replace(wavenet=dataclasses.replace(cfg.wavenet,
+                                                     compute_dtype=dt))
+        tr = WaveNetTrainer(c_)
+        st = tr.init_state(model=convert.wavenet_from_flax(
+            c_, wparams, dev, trainable=True))
+        got = float(tr.eval_step(st, held)[1]["loss"])
+        print(f"r5 EMA eval_step, {dt}: loss {got:.6f} (JAX on the CPU "
+              f"{want:.6f}; gate {rtol:g} relative)")
+        assert abs(got - want) <= rtol * abs(want), (dt, got, want)
+
+    # ---- (4) the command lines: train --model WaveNet (3 steps), its
+    # checkpoint through synthesize --model WaveNet; train --model
+    # Tacotron-2 (2 steps a stage) on the 16 rows
+    hp = ("tacotron.compute_dtype=bfloat16,wavenet.compute_dtype=bfloat16,"
+          "wavenet.use_fused_train_stack=true,audio.trim_silence=false,"
+          f"train.max_time_steps={F * 200}")
+    with tempfile.TemporaryDirectory() as tmp:
+        map_txt = os.path.join(tmp, "map.txt")
+        with open(map_txt, "w", encoding="utf-8") as f:
+            for i in WN_ROWS:
+                a = os.path.join(corpus, "audio", f"audio-{i}.npy")
+                m = os.path.join(corpus, "mels", f"mel-{i}.npy")
+                f.write(f"{a}|{m}|{m}|0|text\n")
+        wtk.fwd_launches = 0
+        ckpt_dir = cli.main(["--hparams", hp, "train", "--model", "WaveNet",
+                             "--input-path", map_txt, "--base-dir", tmp,
+                             "--train-steps", "3", "--batch-size", str(B),
+                             "--eval-interval", "0"])
+        saved = sorted(os.listdir(ckpt_dir))
+        print(f"cli train --model WaveNet --train-steps 3: checkpoints "
+              f"{saved}, stack forward launches {wtk.fwd_launches}")
+        assert saved == ["ckpt-3.msgpack"] and wtk.fwd_launches == 3
+        mel = os.path.join(tmp, "mel-8.npy")
+        np.save(mel, pairs[0][1][:8])
+        one = os.path.join(tmp, "one.txt")
+        with open(one, "w", encoding="utf-8") as f:
+            f.write(f"a.npy|{mel}|{mel}|0|text\n")
+        out = cli.main(["--hparams", hp, "synthesize", "--model", "WaveNet",
+                        "--wavenet-checkpoint",
+                        os.path.join(ckpt_dir, saved[0]), "--mels-map", one,
+                        "--output-dir", os.path.join(tmp, "out")])
+        with wave.open(out[0]) as w:
+            n_wav = w.getnframes()
+        print(f"synthesize --model WaveNet on its checkpoint: {n_wav} "
+              f"samples for 8 frames")
+        assert n_wav == 8 * 200
+
+        os.symlink(corpus, os.path.join(tmp, "corpus"))
+        train_txt = os.path.join(tmp, "train.txt")
+        texts = corpus_texts()
+        with open(train_txt, "w", encoding="utf-8") as f:
+            for i in WN_ROWS:
+                n = len(pairs[i][1])
+                f.write(f"corpus|audio-{i}.npy|mel-{i}.npy|l|e|{n * 200}|"
+                        f"{n}|{texts[i]}|0|{i % 2}|utt{i}.wav|F\n")
+        base = os.path.join(tmp, "t2")
+        wtk.fwd_launches = 0
+        wave_dir = cli.main(["--hparams", hp, "train", "--model",
+                             "Tacotron-2", "--input-path", train_txt,
+                             "--base-dir", base, "--train-steps", "2",
+                             "--batch-size", str(B), "--wavenet-batch-size",
+                             "8", "--eval-interval", "0"])
+        state_log = open(os.path.join(base, "state_log")).read()
+        gta = open(os.path.join(base, "tacotron_output", "gta",
+                                "map.txt")).read().splitlines()
+        print(f"cli train --model Tacotron-2: state_log '{state_log}', "
+              f"{len(gta)} GTA rows, WaveNet checkpoints "
+              f"{sorted(os.listdir(wave_dir))}, stack forward launches "
+              f"{wtk.fwd_launches}")
+        assert state_log == "1 1 1" and len(gta) == B
+        assert os.listdir(wave_dir) == ["ckpt-2.msgpack"]
+        assert wtk.fwd_launches == 2
+    done(19, t0)
+    common = {"route": "cuda", "library_ms": None,
+              "source": "tacotron2_tpu_torch/csrc/wavenet_train.cu"}
+    return [
+        dict(common, name="wavenet_stack_fwd",
+             replaces="tacotron2_tpu/ops/wavenet_train_kernel.py:133",
+             launches=launches[0], max_abs_err=fwd_abs, ms=fwd_ms,
+             plain_ms=fwd_plain_ms, bound_ms=1e3 * fb[0], bound_by=fb[1]),
+        dict(common, name="wavenet_stack_bwd",
+             replaces="tacotron2_tpu/ops/wavenet_train_kernel.py:261",
+             launches=launches[1], max_abs_err=bwd_abs, ms=bwd_ms,
+             plain_ms=bwd_plain_ms, bound_ms=1e3 * bb[0], bound_by=bb[1])]
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1483,7 +1852,7 @@ def main(argv=None):
     # ---- 2. build the kernels, one nvcc each, started together
     t0 = phase(2, "build kernels (nvcc, sm_90a)")
     paths = build.build(["decoder", "decoder_bwd", "sampler",
-                         "griffin_lim"])
+                         "griffin_lim", "wavenet_train"])
     for name, path in paths.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}")
         for line in build.build_logs.get(name, "").splitlines():
@@ -2136,6 +2505,9 @@ def main(argv=None):
     at = 1 + [k["name"] for k in kernels].index("tacotron_decoder_block")
     kernels[at:at] = emt_phase(texts, gt, tparams, stats, seed, synth, im8)
     paper_phase(held, gt, seed)
+
+    # ---- 19. (l) WaveNet training at the r5 shapes
+    kernels.extend(wavenet_training_phase(wparams, seed))
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -31,12 +31,20 @@ in <output-dir>/serve/speech-NNNNN.wav.
   `synthesis_multiple` and `style_embs` it stops before WaveNet, as the
   JAX command does.
 
-`train --model Tacotron`, port of cli.py `train` (:73, :545): the
-Tacotron trainer (`train/tacotron_train.py`) on the train.txt of
---input-path, logging and checkpointing under <base-dir>/logs-Tacotron
-(checkpoints in taco_pretrained/, the curve in taco_curve.jsonl); the
-default trainer only (the fork's training flags raise), and WaveNet and
-Tacotron-2 training are not in the port.
+`train`, port of cli.py `train` (:73, :111-175), logging and
+checkpointing under <base-dir>/logs-<model>:
+- `--model Tacotron`: the Tacotron trainer (`train/tacotron_train.py`) on
+  the train.txt of --input-path (checkpoints in taco_pretrained/, the
+  curve in taco_curve.jsonl); the default trainer only (the fork's
+  training flags raise);
+- `--model WaveNet`: the vocoder trainer (`train/wavenet_train.py`) on a
+  GTA map.txt (or a train.txt with --no-gta) of (audio, mel) pairs
+  (checkpoints in wave_pretrained/, which `synthesize
+  --wavenet-checkpoint` reads, the curve in wavenet_curve.jsonl);
+- `--model Tacotron-2`: the sequencer: Tacotron training, GTA synthesis
+  of the train.txt into <base-dir>/tacotron_output/gta/, then WaveNet
+  training on its map.txt (--wavenet-train-steps, --wavenet-batch-size),
+  resumable through <base-dir>/state_log.
 
 Weights are the JAX package's flax msgpack checkpoints (Tacotron
 {params, batch_stats}, WaveNet EMA params), read without flax; reference
@@ -60,6 +68,8 @@ mels are `.npy` files. Everything runs on `--device` (default cuda).
         --output-dir out
     python -m tacotron2_tpu_torch.cli train --model Tacotron \
         --input-path data/train.txt --base-dir runs --train-steps 1000
+    python -m tacotron2_tpu_torch.cli train --model WaveNet \
+        --input-path runs/tacotron_output/gta/map.txt --base-dir runs
 """
 
 from __future__ import annotations
@@ -245,12 +255,26 @@ TRAIN_FLAGS = ("emt-only", "intercross-both", "unpaired", "adv-emb-disc",
                "test-max-len")
 
 
+STATE_ORDER = ("taco", "GTA", "wave")
+
+
+def save_seq(path: str, completed) -> None:
+    """The Tacotron-2 sequencer's stage file (reference train.py:16-22)."""
+    with open(path, "w") as f:
+        f.write(" ".join("1" if s in completed else "0" for s in STATE_ORDER))
+
+
+def read_seq(path: str) -> set:
+    if os.path.exists(path):
+        with open(path) as f:
+            flags = f.read().split()
+        return {s for s, fl in zip(STATE_ORDER, flags) if fl == "1"}
+    return set()
+
+
 def cmd_train(args):
-    """Train Tacotron; returns the checkpoint directory."""
-    from .train.tacotron_train import tacotron_train
-    if args.model != "Tacotron":
-        raise SystemExit(f"train --model {args.model} is not in the port "
-                         "(Tacotron only)")
+    """Train Tacotron, WaveNet, or both with GTA synthesis between; returns
+    the last stage's checkpoint directory."""
     on = [f for f in TRAIN_FLAGS if getattr(args, f.replace("-", "_"))]
     if on or args.pretrained_disc_emt or args.pretrained_disc_spk:
         raise SystemExit(f"train: {on or ['--pretrained-disc-*']} is not in "
@@ -259,11 +283,72 @@ def cmd_train(args):
     log_dir = os.path.join(args.base_dir, f"logs-{args.model}")
     os.makedirs(log_dir, exist_ok=True)
     log(f"Training {args.model} on {args.device}")
+    if args.model == "Tacotron":
+        return _train_tacotron(cfg, args, log_dir)
+    if args.model == "WaveNet":
+        return _train_wavenet(cfg, args, log_dir, args.input_path,
+                              args.train_steps, args.batch_size,
+                              gta=not args.no_gta)
+    return _train_sequencer(cfg, args, log_dir)
+
+
+def _train_tacotron(cfg, args, log_dir):
+    from .train.tacotron_train import tacotron_train
     ckpt_dir, _ = tacotron_train(
         cfg, args.input_path, log_dir, train_steps=args.train_steps,
         restore=args.restore, batch_size=args.batch_size,
         device=args.device, checkpoint_interval=args.checkpoint_interval,
         eval_interval=args.eval_interval)
+    return ckpt_dir
+
+
+def _train_wavenet(cfg, args, log_dir, input_path, steps, batch_size, gta):
+    from .train.wavenet_train import wavenet_train
+    ckpt_dir, _ = wavenet_train(
+        cfg, input_path, log_dir, train_steps=steps, restore=args.restore,
+        gta=gta, batch_size=batch_size, device=args.device,
+        checkpoint_interval=args.checkpoint_interval,
+        eval_interval=args.eval_interval)
+    return ckpt_dir
+
+
+def _train_sequencer(cfg, args, log_dir):
+    """Tacotron training -> GTA synthesis -> WaveNet training (reference
+    train.py:43-90), each stage recorded in <base-dir>/state_log so that
+    a rerun resumes after the last finished one."""
+    from .synth.tacotron_synth import TacotronSynthesizer, run_gta_synthesis
+    from .train.checkpoint import CheckpointManager
+    from .utils import flax_msgpack
+
+    state_path = os.path.join(args.base_dir, "state_log")
+    done = read_seq(state_path)
+    out_dir = os.path.join(args.base_dir, "tacotron_output")
+    taco_dir = os.path.join(log_dir, "taco_pretrained")
+    if "taco" not in done:
+        log("Tacotron Train")
+        taco_dir = _train_tacotron(cfg, args, log_dir)
+        done.add("taco")
+        save_seq(state_path, done)
+    if "GTA" not in done:
+        log("GTA Synthesis")
+        mgr = CheckpointManager(taco_dir)
+        tree = flax_msgpack.load(mgr.path(mgr.latest_step()))
+        synth = TacotronSynthesizer(cfg, tree["params"], tree["batch_stats"],
+                                    device=args.device)
+        run_gta_synthesis(synth, args.input_path, out_dir,
+                          batch_size=args.batch_size or 32)
+        done.add("GTA")
+        save_seq(state_path, done)
+    ckpt_dir = os.path.join(log_dir, "wave_pretrained")
+    if "wave" not in done:
+        log("WaveNet Train")
+        ckpt_dir = _train_wavenet(
+            cfg, args, log_dir, os.path.join(out_dir, "gta", "map.txt"),
+            args.wavenet_train_steps or args.train_steps,
+            args.wavenet_batch_size, gta=True)
+        done.add("wave")
+        save_seq(state_path, done)
+    log("Tacotron-2 pipeline complete")
     return ckpt_dir
 
 
@@ -338,13 +423,24 @@ def build_parser() -> argparse.ArgumentParser:
     sy.add_argument("--seed", type=int, default=0)
     sy.set_defaults(func=cmd_synthesize)
 
-    tr = sub.add_parser("train", help="Tacotron training on a train.txt")
+    tr = sub.add_parser("train", help="Tacotron training on a train.txt, "
+                        "WaveNet training on a GTA map.txt, or both "
+                        "(Tacotron-2)")
     tr.add_argument("--model", default="Tacotron",
                     choices=("Tacotron", "WaveNet", "Tacotron-2"))
-    tr.add_argument("--input-path", required=True, help="train.txt")
+    tr.add_argument("--input-path", required=True,
+                    help="train.txt (Tacotron, Tacotron-2) or map.txt "
+                         "(WaveNet)")
     tr.add_argument("--base-dir", default=".")
     tr.add_argument("--train-steps", type=int, default=None)
+    tr.add_argument("--wavenet-train-steps", type=int, default=None,
+                    help="WaveNet steps of --model Tacotron-2 (default "
+                         "--train-steps)")
     tr.add_argument("--batch-size", type=int, default=None)
+    tr.add_argument("--wavenet-batch-size", type=int, default=None,
+                    help="WaveNet batch of --model Tacotron-2")
+    tr.add_argument("--no-gta", action="store_true",
+                    help="--model WaveNet on a train.txt's own mels")
     tr.add_argument("--restore", action="store_true")
     tr.add_argument("--checkpoint-interval", type=int, default=None)
     tr.add_argument("--eval-interval", type=int, default=None)

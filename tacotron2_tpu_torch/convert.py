@@ -16,8 +16,10 @@ Takes what the JAX package trains and checkpoints — the Tacotron
   q_proj/k_proj/attention_* and attn_emt_out), postnet and its
   projection, the style classifier heads; `init_tacotron` draws a fresh
   one from the flax initialisers' distributions;
-- `WaveNet` (models/wavenet/model.py): the SubPixel upsample convs and
-  the teacher-forced conv stack;
+- `WaveNet` (models/wavenet/model.py), both ways (`wavenet_from_flax`,
+  `wavenet_to_flax`): the SubPixel upsample convs and the conv stack,
+  weight-normed convs as their `v`, `g` and `bias`; `init_wavenet` draws
+  a fresh one;
 - the decoder and sampler parameter tuples through
   `ops/tacotron_decoder_kernel.extract_decoder_params` and
   `models/wavenet/sampler.extract_sampler_params` (weight norm
@@ -37,7 +39,7 @@ import torch
 from .config import Config
 from .models.tacotron.model import Tacotron
 from .models.wavenet.model import WaveNet
-from .models.wavenet.modules import conv1x1_params, effective_kernel
+from .models.wavenet.modules import effective_kernel
 from .utils import flax_msgpack
 
 
@@ -231,36 +233,137 @@ def init_tacotron(cfg: Config, generator=None, device="cuda",
     return load_tacotron(model, new, stats).to(device)
 
 
-def wavenet_from_flax(cfg: Config, params: Mapping, device="cuda") -> WaveNet:
-    """Build the port's WaveNet from flax WaveNet params: the SubPixel
-    upsample convs ([kh, kw, 1, scale] -> [scale, 1, kh, kw]) and the conv
-    stack, weight norm materialised (`modules.effective_kernel`), causal
-    convs [kw, R, G] -> torch's [G, R, kw], missing biases zero."""
-    m = WaveNet(cfg)
-    for i, layer in enumerate(m.upsample_network.layers):
-        conv = params["upsample_network"][f"up_{i}"]["Conv_0"]
-        _set(layer.weight, _np(conv["kernel"]).transpose(3, 2, 0, 1))
-        _set(layer.bias, conv["bias"])
+def _wavenet_convs(model: WaveNet):
+    """(flax prefix, module, kind) of every conv of the port's WaveNet:
+    kind "up" (a SubPixel conv), "conv" (causal) or "dense" (1×1)."""
+    for i, layer in enumerate(model.upsample_network.layers):
+        yield f"upsample_network/up_{i}", layer, "up"
+    yield "input_convolution", model.input_convolution, "dense"
+    for i, blk in enumerate(model.residual_blocks):
+        p = f"residual_block_{i}"
+        yield f"{p}/causal_conv", blk.causal_conv, "conv"
+        for name in ("cin_conv", "skip_conv", "out_conv"):
+            yield f"{p}/{name}", getattr(blk, name), "dense"
+    for name in ("final_convolution_1", "final_convolution_2"):
+        yield name, getattr(model, name), "dense"
 
-    def dense(w, b, p):
-        k, bias = conv1x1_params(p)
-        _set(w, k)
-        _set(b, np.zeros(w.shape[1], np.float32) if bias is None else bias)
 
-    dense(m.first_w, m.first_b, params["input_convolution"])
-    for i, blk in enumerate(m.blocks):
-        p = params[f"residual_block_{i}"]
-        cc = p["causal_conv"]
-        cc = cc["Conv_0"] if "Conv_0" in cc else cc
-        _set(blk.conv_w, effective_kernel(cc).transpose(2, 1, 0))
-        _set(blk.conv_b, cc["bias"] if "bias" in cc
-             else np.zeros(blk.conv_b.shape, np.float32))
-        dense(blk.cin_w, blk.cin_b, p["cin_conv"])
-        dense(blk.skip_w, blk.skip_b, p["skip_conv"])
-        dense(blk.out_w, blk.out_b, p["out_conv"])
-    dense(m.final1_w, m.final1_b, params["final_convolution_1"])
-    dense(m.final2_w, m.final2_b, params["final_convolution_2"])
-    return m.to(device).eval()
+def _wavenet_leaves(model: WaveNet):
+    """(flax path, attribute, module, kind) of every WaveNet parameter, in
+    the module's order: plain convs nest under Conv_0 / Dense_0, weight-
+    normed ones hold v, g and bias directly (the JAX modules' trees)."""
+    for prefix, mod, kind in _wavenet_convs(model):
+        if kind == "up":
+            yield f"{prefix}/Conv_0/kernel", "weight", mod, kind
+            yield f"{prefix}/Conv_0/bias", "bias", mod, kind
+            continue
+        if mod.is_weight_normed:
+            names, inner = ("v", "g", "bias"), prefix
+        else:
+            names = ("kernel", "bias")
+            inner = f"{prefix}/{'Conv_0' if kind == 'conv' else 'Dense_0'}"
+        for n in names:
+            if getattr(mod, n) is not None:
+                yield f"{inner}/{n}", n, mod, kind
+
+
+def wavenet_flax_array(path: str, x: torch.Tensor) -> np.ndarray:
+    """A WaveNet tensor (a parameter or its Adam moment) in its flax
+    layout: SubPixel kernels [scale, 1, kh, kw] -> [kh, kw, 1, scale]."""
+    a = x.detach().float().cpu().numpy()
+    if path.startswith("upsample_network") and path.endswith("kernel"):
+        a = a.transpose(2, 3, 1, 0)
+    return np.array(a, np.float32, order="C")
+
+
+def wavenet_port_array(path: str, a) -> np.ndarray:
+    """The inverse of `wavenet_flax_array`."""
+    a = _np(a)
+    if path.startswith("upsample_network") and path.endswith("kernel"):
+        a = a.transpose(3, 2, 0, 1)
+    return np.array(a, np.float32, order="C")
+
+
+def wavenet_named_parameters(model: WaveNet):
+    """[(flax path, parameter)] of every WaveNet parameter."""
+    return [(path, getattr(mod, attr))
+            for path, attr, mod, _ in _wavenet_leaves(model)]
+
+
+def wavenet_to_flax(model: WaveNet) -> dict:
+    """The port WaveNet's parameters -> a flax-named tree of numpy f32
+    arrays, the layout `WaveNetSynthesizer`, `cli synthesize
+    --wavenet-checkpoint` and the JAX package read."""
+    tree = {}
+    for path, p in wavenet_named_parameters(model):
+        tree_set(tree, path, wavenet_flax_array(path, p))
+    return tree
+
+
+def load_wavenet_params(model: WaveNet, params: Mapping) -> WaveNet:
+    """Fill the port WaveNet from flax WaveNet params. A plain module
+    takes a weight-normed tree's materialised kernel
+    (`modules.effective_kernel`); a bias the tree lacks is zero."""
+    for prefix, mod, kind in _wavenet_convs(model):
+        sub = tree_get(params, prefix)
+        if kind == "up":
+            conv = sub["Conv_0"]
+            _set(mod.weight, wavenet_port_array(f"{prefix}/Conv_0/kernel",
+                                                conv["kernel"]))
+            _set(mod.bias, conv["bias"])
+            continue
+        inner = sub.get("Conv_0", sub.get("Dense_0", sub))
+        if mod.is_weight_normed:
+            if "v" not in inner:
+                raise ValueError(f"{prefix}: the config wants weight norm, "
+                                 "the checkpoint holds a plain kernel")
+            _set(mod.v, inner["v"])
+            _set(mod.g, inner["g"])
+        else:
+            _set(mod.kernel, effective_kernel(inner))
+        if mod.bias is not None:
+            _set(mod.bias, inner["bias"] if "bias" in inner
+                 else np.zeros(mod.bias.shape, np.float32))
+    return model
+
+
+def wavenet_from_flax(cfg: Config, params: Mapping, device="cuda", *,
+                      trainable: bool = False) -> WaveNet:
+    """Build the port's WaveNet from flax WaveNet params: for inference
+    (eval mode, parameters frozen), or `trainable`."""
+    m = load_wavenet_params(WaveNet(cfg), params).to(device)
+    return m if trainable else m.eval().requires_grad_(False)
+
+
+def init_wavenet(cfg: Config, generator=None, device="cuda") -> WaveNet:
+    """A freshly initialised WaveNet, drawn from the distributions of the
+    JAX package's flax initialisers: glorot-uniform kernels (and v, with
+    g = ‖v‖ · init_scale per output channel), zero biases, and the
+    SubPixel convs' nn_init kernel (`wavenet.nn_init`, scaled by
+    nn_scaler^(1/layers)) or glorot."""
+    g = generator if generator is not None else torch.Generator()
+    wn = cfg.wavenet
+    model = WaveNet(cfg)
+    pow_scaler = wn.nn_scaler ** (1.0 / len(wn.upsample_scales))
+    with torch.no_grad():
+        for _, mod, kind in _wavenet_convs(model):
+            if kind == "up":
+                if wn.nn_init:
+                    mod.nn_init(pow_scaler)
+                else:
+                    flax_shape = mod.weight.permute(2, 3, 1, 0).shape
+                    mod.weight.copy_(_glorot(flax_shape, g).permute(3, 2, 0, 1))
+                    mod.bias.zero_()
+                continue
+            if mod.is_weight_normed:
+                mod.v.copy_(_glorot(mod.v.shape, g))
+                mod.g.copy_(torch.sqrt((mod.v ** 2).sum(
+                    tuple(range(mod.v.dim() - 1)))) * wn.init_scale)
+            else:
+                mod.kernel.copy_(_glorot(mod.kernel.shape, g))
+            if mod.bias is not None:
+                mod.bias.zero_()
+    return model.to(device)
 
 
 def load_checkpoints(taco_path: str, wn_path: str | None = None) -> Any:
@@ -273,7 +376,9 @@ def load_checkpoints(taco_path: str, wn_path: str | None = None) -> Any:
 
 
 def load_wavenet(path: str) -> Any:
-    """Read a WaveNet (EMA) params msgpack checkpoint as a nested dict of
-    numpy arrays."""
-    return flax_msgpack.load(path)
-
+    """Read WaveNet weights for synthesis from a msgpack file: an EMA
+    params tree (as the JAX package writes wn_ckpt.msgpack), or a
+    training checkpoint of `train/checkpoint.py`, whose `ema_params` it
+    returns. Nested dicts of numpy arrays."""
+    tree = flax_msgpack.load(path)
+    return tree["ema_params"] if "ema_params" in tree else tree

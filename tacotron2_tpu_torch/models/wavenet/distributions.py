@@ -1,4 +1,11 @@
-"""WaveNet output heads: draw a sample from a predicted distribution.
+"""WaveNet output heads: the training losses, and a draw from a predicted
+distribution.
+
+The losses, in f32 and differentiable, are the port of
+tacotron2_tpu/models/wavenet/distributions.py's `log_sum_exp` (:19),
+`discretized_mix_logistic_loss` (:26), `gaussian_mle_loss` (:88, with
+`use_cdf`), `masked_cross_entropy_loss` (:118) and
+`masked_distribution_loss` (:131); [B, T, C] layout.
 
 The port's counterparts of tacotron2_tpu/models/wavenet/distributions.py
 (`sample_from_gaussian` :110, `sample_from_discretized_mix_logistic` :65)
@@ -18,9 +25,11 @@ scaled by 2^-24 and offset by 2^-25, so never 0 and never 1.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...config import Config
 from ...ops.mulaw import is_scalar_input
@@ -113,3 +122,92 @@ def sample_from_discretized_mix_logistic(y, temp, u,
                         min=log_scale_min)
     x = mean + torch.exp(log_s) * (torch.log(u) - torch.log(1 - u))
     return torch.clamp(x, -1.0, 1.0)
+
+
+# ------------------------------------------------------------------ losses
+
+
+def log_sum_exp(x):
+    """Stable log-sum-exp over the last axis (mixture.py:5-10)."""
+    m = x.max(-1).values
+    return m + torch.log(torch.exp(x - m[..., None]).sum(-1))
+
+
+def discretized_mix_logistic_loss(y_hat, y, num_classes: int = 65536,
+                                  log_scale_min: float = -32.23619130191664,
+                                  reduce: bool = True):
+    """MoL negative log-likelihood (mixture.py:18-77): y_hat [B, T, 3·nr]
+    (logits, means, log scales), y [B, T, 1] in [-1, 1]."""
+    nr = y_hat.shape[-1] // 3
+    logit_probs = y_hat[..., :nr]
+    means = y_hat[..., nr:2 * nr]
+    log_scales = torch.clamp(y_hat[..., 2 * nr:3 * nr], min=log_scale_min)
+    y = y.expand(*y.shape[:-1], nr)
+    centered = y - means
+    inv_stdv = torch.exp(-log_scales)
+    plus_in = inv_stdv * (centered + 1.0 / (num_classes - 1))
+    min_in = inv_stdv * (centered - 1.0 / (num_classes - 1))
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(min_in)
+    mid_in = inv_stdv * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+    log_probs = torch.where(
+        y < -0.999, log_cdf_plus,
+        torch.where(y > 0.999, log_one_minus_cdf_min,
+                    torch.where(cdf_delta > 1e-5,
+                                torch.log(torch.clamp(cdf_delta, min=1e-12)),
+                                log_pdf_mid
+                                - math.log((num_classes - 1) / 2))))
+    log_probs = log_probs + torch.log_softmax(logit_probs, -1)
+    nll = -log_sum_exp(log_probs)
+    return nll.sum() if reduce else nll[..., None]
+
+
+def gaussian_mle_loss(y_hat, y, log_scale_min_gauss=-16.11809565095832,
+                      num_classes: int = 65536, use_cdf: bool = False,
+                      reduce: bool = True):
+    """Gaussian negative log-likelihood (gaussian.py:5-37): y_hat [B, T, 2]
+    (mean, log scale), y [B, T, 1]; with `use_cdf` the mass of the
+    quantisation bin."""
+    mean = y_hat[..., 0]
+    log_scale = torch.clamp(y_hat[..., 1], min=log_scale_min_gauss)
+    y = y[..., 0]
+    if use_cdf:
+        scale = torch.exp(log_scale)
+        half_bin = 1.0 / (num_classes - 1)
+
+        def cdf(v):
+            return 0.5 * (1.0 + torch.erf((v - mean)
+                                          / (scale * math.sqrt(2.0))))
+        log_prob = torch.log(torch.clamp(cdf(y + half_bin) - cdf(y - half_bin),
+                                         min=1e-12))
+    else:
+        log_prob = -0.5 * (math.log(2.0 * math.pi) + 2.0 * log_scale
+                           + (y - mean) ** 2 * torch.exp(-2.0 * log_scale))
+    return -log_prob.sum() if reduce else -log_prob[..., None]
+
+
+def _length_mask(T: int, lengths, device):
+    return (torch.arange(T, device=device)[None, :]
+            < torch.as_tensor(lengths, device=device)[:, None]).float()
+
+
+def masked_cross_entropy_loss(outputs, targets, lengths):
+    """Softmax cross entropy of the mulaw-quantize head (modules.py:
+    781-798): outputs [B, T, Q] logits, targets [B, T] class ids; the mean
+    over the nonzero masked terms."""
+    mask = _length_mask(outputs.shape[1], lengths, outputs.device)
+    losses = -torch.gather(torch.log_softmax(outputs, -1), -1,
+                           targets.long()[..., None])[..., 0]
+    masked = losses * mask
+    return masked.sum() / torch.clamp((masked != 0).float().sum(), min=1.0)
+
+
+def masked_distribution_loss(loss_fn, y_hat, y, lengths):
+    """Sequence-masked mean of a per-sample NLL (modules.py:800-836);
+    loss_fn(y_hat, y) -> [B, T, 1]."""
+    per = loss_fn(y_hat, y)
+    mask = _length_mask(y.shape[1], lengths, y_hat.device)[..., None]
+    mask = mask.expand_as(per)
+    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)

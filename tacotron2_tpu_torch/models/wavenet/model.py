@@ -1,38 +1,55 @@
-"""WaveNet vocoder (PyTorch): conditioning upsample and the teacher-forced
-eval forward.
+"""WaveNet vocoder (PyTorch): conditioning upsample, the teacher-forced
+forward for synthesis and for training, the loss and the data-dependent
+init.
 
 Counterpart of tacotron2_tpu/models/wavenet/model.py: `WaveNet.upsample`
-(:85), `body` (:166) and `__call__` (:205) with train=False — first 1×1
-conv, L gated residual blocks (dilated causal conv, 1×1 conditioning, tanh·σ
-gate, skip and residual 1×1s with √0.5 scalings), skip sum, and the f32
-relu/1×1/relu/1×1 head. The JAX package runs this forward without a Pallas
-kernel (its fused stack is training-only, model.py:102-118), so it is
-plain PyTorch here, in f32. `wavenet.compute_dtype="bfloat16"` (the
-training stack's mixed precision) is not applied: where bf16 rounds
-inside flax's stack depends on XLA's fusions, so no op-by-op bf16 stack
-reproduces it; tests/test_torch_wavenet.py holds the f32 forward within
-bf16's error of flax's bf16 output. The autoregressive sample loop is
-`models/wavenet/sampler.py` (plain) / the CUDA sampler kernel.
-Weights come from `convert.py`. On a CUDA device the convolutions run with
-cuDNN's TF32 off (`_f32_convs`), so f32 means f32 as in the JAX package.
+(:85), `body` (:166) in both modes, `__call__` (:205), the fused-stack
+gate `_use_fused_stack` (:102-118) and `_fused_stack` (:120-164) on one
+device, `compute_wavenet_loss` (:222) and `data_dependent_init` (:250).
+Parameters keep flax's names and layouts (`modules.py`); `convert.py`
+bridges them.
+
+Two forwards:
+
+- `forward(x, c)`: the teacher-forced eval forward that synthesis uses
+  (`WaveNetSynthesizer.synthesize_debug`), without gradients and in f32
+  whatever `wavenet.compute_dtype` says: where bf16 rounds inside flax's
+  stack depends on XLA's fusions, so no op-by-op bf16 stack reproduces
+  it; tests/test_torch_wavenet.py holds it within bf16's error of flax's
+  bf16 output.
+- `train_forward(x, c, train=..., seed=...)`: what `WaveNetTrainer`
+  runs, with gradients and the compute dtype. In bf16 the input and the
+  conditioning are rounded, the first 1×1 conv computes in bf16, and then
+  either the fused stack takes them as f32 (model.py:136, :173-179) or
+  the layer loop computes each op in bf16 as flax's modules do; the skip
+  sum goes to f32 for the head, which stays f32 (:198-201). Dropout (train
+  mode) draws its keep mask from `seed` through the stack kernel's hash
+  (`ops/wavenet_train_kernel.keep_bits`) on both routes, so the fused
+  stack and the layer loop drop the same elements.
+
+The fused stack runs when the JAX gate is open: training,
+`use_fused_train_stack`, a supported config, and, for "the backend is a
+TPU", tensors on a CUDA device. There it launches kernels 5a and 5b; the
+multi-device branch is not ported. On a CUDA device the convolutions run
+with cuDNN's TF32 off (`_f32_convs`), so f32 means f32 as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import contextlib
+from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...config import Config
-from ...ops.mulaw import is_scalar_input
-from .modules import UpsampleNetwork
-
-
-def _p(*shape):
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+from ...ops import wavenet_train_kernel as wtk
+from ...ops.mulaw import is_mulaw_quantize, is_scalar_input
+from . import distributions as D
+from .modules import (Conv1x1, ResidualConv1DGLU, UpsampleNetwork,
+                      _WeightNormed, no_round, rounding)
 
 
 @contextlib.contextmanager
@@ -47,20 +64,9 @@ def _f32_convs():
         torch.backends.cudnn.allow_tf32 = prev
 
 
-class ResidualBlock(nn.Module):
-    """Weights of one gated residual block (flax ResidualConv1DGLU)."""
-
-    def __init__(self, R: int, G: int, S: int, C: int, kw: int, dilation: int):
-        super().__init__()
-        self.dilation, self.kw = dilation, kw
-        self.conv_w, self.conv_b = _p(G, R, kw), _p(G)   # torch conv layout
-        self.cin_w, self.cin_b = _p(C, G), _p(G)
-        self.skip_w, self.skip_b = _p(G // 2, S), _p(S)
-        self.out_w, self.out_b = _p(G // 2, R), _p(R)
-
-
 class WaveNet(nn.Module):
-    """Upsample network and conv stack; weights come from `convert.py`."""
+    """Upsample network, first 1×1 conv, the gated residual blocks and the
+    relu/1×1/relu/1×1 head, with flax's module names."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -69,62 +75,162 @@ class WaveNet(nn.Module):
             "the port covers the SubPixel-conditioned vocoder"
         assert wn.gin_channels <= 0, "global conditioning is not ported"
         self.cfg = cfg
+        wnorm = wn.weight_normalization
+        R, G, S = wn.residual_channels, wn.gate_channels, wn.skip_out_channels
+        n_in = 1 if is_scalar_input(wn.input_type) else wn.quantize_channels
         self.upsample_network = UpsampleNetwork(
             tuple(wn.upsample_scales), wn.freq_axis_kernel_size,
             wn.upsample_activation, wn.leaky_alpha)
-        R, G, S = wn.residual_channels, wn.gate_channels, wn.skip_out_channels
-        n_in = 1 if is_scalar_input(wn.input_type) else wn.quantize_channels
-        self.first_w, self.first_b = _p(n_in, R), _p(R)
-        self.blocks = nn.ModuleList(
-            ResidualBlock(R, G, S, wn.cin_channels, wn.kernel_size, d)
+        self.input_convolution = Conv1x1(n_in, R, True, wnorm)
+        self.residual_blocks = nn.ModuleList(
+            ResidualConv1DGLU(R, G, wn.kernel_size, S, d, wn.cin_channels,
+                              wn.use_bias, wn.residual_legacy, wnorm)
             for d in wn.dilations)
-        self.final1_w, self.final1_b = _p(S, S), _p(S)
-        self.final2_w, self.final2_b = _p(S, wn.out_channels), \
-            _p(wn.out_channels)
+        self.final_convolution_1 = Conv1x1(S, S, True, wnorm)
+        self.final_convolution_2 = Conv1x1(S, wn.out_channels, True, wnorm)
 
-    @torch.no_grad()
     def upsample(self, c):
         """Mel [B, T_mel, M] -> sample-rate features [B, T_mel·hop, M]."""
         with _f32_convs():
             return self.upsample_network(c)
 
-    @torch.no_grad()
-    def body(self, x, c_up):
-        """Teacher-forced conv stack: x [B, T, in], c_up [B, T, cin] ->
-        y_hat [B, T, out_channels] f32."""
-        wn = self.cfg.wavenet
-        half = float(np.sqrt(np.float32(0.5)))
-        x = x @ self.first_w + self.first_b
-        skips = None
-        for blk in self.blocks:
-            residual = x
-            pad = (blk.kw - 1) * blk.dilation
-            with _f32_convs():
-                y = F.conv1d(F.pad(x.transpose(1, 2), (pad, 0)), blk.conv_w,
-                             blk.conv_b, dilation=blk.dilation).transpose(1, 2)
-            a, b = y.chunk(2, -1)
-            ca, cb = (c_up @ blk.cin_w + blk.cin_b).chunk(2, -1)
-            h = torch.tanh(a + ca) * torch.sigmoid(b + cb)
-            s = h @ blk.skip_w + blk.skip_b
-            o = h @ blk.out_w + blk.out_b
-            x = (o + residual) * half if wn.residual_legacy else o + residual
-            if skips is None:
-                skips = s
-            else:
-                skips = skips + s
-                if wn.legacy:
-                    skips = skips * half
-        y = torch.relu(skips)
-        y = torch.relu(y @ self.final1_w + self.final1_b)
-        return y @ self.final2_w + self.final2_b
+    # ------------------------------------------------------------- helpers
 
-    @torch.no_grad()
-    def forward(self, x, c):
-        """Teacher-forced forward (train=False): x [B, T, 1] waveform or
-        [B, T, Q] one-hot, c [B, T_mel, cin] mels -> (y_hat [B, T, out],
-        c_up [B, T, cin])."""
+    def use_fused_stack(self, train: bool, x) -> bool:
+        """The JAX gate (model.py:102-118) on one device: training,
+        `use_fused_train_stack`, a supported config, a CUDA tensor."""
+        wn = self.cfg.wavenet
+        return bool(train and wn.use_fused_train_stack
+                    and wtk.stack_supported(self.cfg) and x.is_cuda)
+
+    def _layer_loop(self, x, c, rnd, seed: Optional[int]):
+        wn = self.cfg.wavenet
+        B, T, R = x.shape
+        keep = 1.0 - wn.dropout
+        half = rnd(torch.tensor(np.sqrt(0.5), dtype=torch.float32,
+                                device=x.device))
+        res_rnd = rnd
+        skips = None
+        for l, blk in enumerate(self.residual_blocks):
+            kept = None
+            if seed is not None and wn.dropout > 0:
+                kept = wtk.keep_bits(wtk.layer_key(seed, l), 0, T * B, R,
+                                     keep, x.device)
+                kept = kept.reshape(T, B, R).transpose(0, 1)
+            x, h = blk(x, c, kept=kept, keep=keep, rnd=rnd, res_rnd=res_rnd)
+            if wn.residual_legacy:
+                res_rnd = no_round      # the block output is f32 from here
+            if skips is None:
+                skips = h
+            else:
+                skips = rnd(skips + h)
+                if wn.legacy:
+                    skips = rnd(skips * half)
+        return skips
+
+    def _body(self, x, c, *, rnd, train: bool, seed: Optional[int]):
+        x, c = rnd(x.float()), rnd(c.float())
+        x = self.input_convolution(x, rnd)
+        if self.use_fused_stack(train, x):
+            sp = wtk.extract_stack_params(self.residual_blocks, self.cfg)
+            skips = wtk.fused_stack_apply(self.cfg, sp, x, c, seed)
+        else:
+            skips = self._layer_loop(x, c, rnd, seed if train else None)
+        y = torch.relu(skips.float())
+        y = torch.relu(self.final_convolution_1(y))
+        return self.final_convolution_2(y)
+
+    def body(self, x, c_up, *, train: bool = False,
+             seed: Optional[int] = None):
+        """Conv stack: x [B, T, in], c_up [B, T, cin] -> y_hat [B, T,
+        out_channels] f32, in the compute dtype; `seed` draws the dropout
+        masks in train mode."""
+        if train and seed is None:
+            raise ValueError("train mode draws its dropout from a seed")
+        with _f32_convs():
+            return self._body(x, c_up, rnd=rounding(
+                self.cfg.wavenet.compute_dtype), train=train, seed=seed)
+
+    def _upsampled(self, x, c):
         c_up = self.upsample(c)
         if c_up.shape[1] != x.shape[1]:
             raise ValueError(f"upsampled conditioning {tuple(c_up.shape)} "
                              f"does not match the input {tuple(x.shape)}")
-        return self.body(x.float(), c_up), c_up
+        return c_up
+
+    def train_forward(self, x, c, *, train: bool,
+                      seed: Optional[int] = None):
+        """The training forward (model.__call__): x [B, T, 1] waveform or
+        [B, T, Q] one-hot, c [B, T_mel, cin] mels -> (y_hat, c_up)."""
+        c_up = self._upsampled(x, c)
+        return self.body(x, c_up, train=train, seed=seed), c_up
+
+    @torch.no_grad()
+    def forward(self, x, c):
+        """Teacher-forced eval forward for synthesis, in f32: x [B, T, 1]
+        or [B, T, Q], c [B, T_mel, cin] -> (y_hat [B, T, out], c_up)."""
+        c_up = self._upsampled(x, c)
+        with _f32_convs():
+            y = self._body(x, c_up, rnd=no_round, train=False, seed=None)
+        return y, c_up
+
+
+def compute_wavenet_loss(y_hat, y_target, lengths,
+                         cfg: Config) -> Dict[str, torch.Tensor]:
+    """Next-sample loss (wavenet.py:476-519): y_hat[:, :-1] against
+    y[:, 1:], masked by lengths - 1; f32."""
+    wn = cfg.wavenet
+    y_hat = y_hat[:, :-1].float()
+    lengths = torch.as_tensor(lengths, device=y_hat.device) - 1
+    if is_mulaw_quantize(wn.input_type):
+        loss = D.masked_cross_entropy_loss(y_hat, y_target[:, 1:].long(),
+                                           lengths)
+        return {"loss": loss}
+    y = y_target[:, 1:].float()
+    if y.dim() == 2:
+        y = y[..., None]
+    if wn.out_channels == 2:
+        def fn(yh, yy):
+            return D.gaussian_mle_loss(
+                yh, yy, log_scale_min_gauss=wn.log_scale_min_gauss,
+                num_classes=wn.quantize_channels, use_cdf=wn.cdf_loss,
+                reduce=False)
+    else:
+        def fn(yh, yy):
+            return D.discretized_mix_logistic_loss(
+                yh, yy, num_classes=wn.quantize_channels,
+                log_scale_min=wn.log_scale_min, reduce=False)
+    return {"loss": D.masked_distribution_loss(fn, y_hat, y, lengths)}
+
+
+@torch.no_grad()
+def data_dependent_init(model: WaveNet, x, c, *, init_scale: float = 1.0
+                        ) -> WaveNet:
+    """Salimans-Kingma data-dependent init of the weight-normed convs, in
+    place (reference WeightNorm._data_dep_init, modules.py:110-126): for
+    each one IN EXECUTION ORDER, the per-channel mean m and variance v of
+    its output on this batch (eval mode), then g <- g · init_scale /
+    sqrt(v + 1e-10) and bias <- -m · that scale. Sequential, one forward a
+    conv, so each sees the ones before it initialised."""
+    convs = [m for m in model.modules()
+             if isinstance(m, _WeightNormed) and m.is_weight_normed]
+
+    def run(targets):
+        for m in convs:
+            m.capture = m in targets
+        model.train_forward(x, c, train=False)
+
+    run(convs)
+    for target in sorted(convs, key=lambda m: m.call_seq):
+        run([target])
+        out = target.wn_out.float()
+        flat = out.reshape(-1, out.shape[-1])
+        mean = flat.mean(0)
+        var = flat.var(0, unbiased=False)
+        scale = init_scale / torch.sqrt(var + 1e-10)
+        target.g.mul_(scale)
+        if target.bias is not None:
+            target.bias.copy_(-mean * scale)
+    for m in convs:
+        m.capture, m.wn_out = False, None
+    return model

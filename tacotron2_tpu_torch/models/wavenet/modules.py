@@ -1,20 +1,34 @@
-"""WaveNet building blocks for synthesis (PyTorch).
+"""WaveNet building blocks (PyTorch), batch-time-channel layout.
 
 Counterparts of tacotron2_tpu/models/wavenet/modules.py: weight norm
-(`weight_normed`, :28), the pointwise conv's effective kernel (Conv1x1,
-:80) and the SubPixel conditioning upsampler (`SubPixelUpsample` :180,
-`UpsampleNetwork` :286). The dilated causal conv, gate and residual/skip
-1×1s run inside the sampler (`models/wavenet/sampler.py`).
+(`weight_normed`, :28; the numpy one reads flax trees for the sampler and
+the bridge, `weight_norm` is the differentiable one), `CausalConv1D`
+(:39) and `Conv1x1` (:82), plain or weight-normed, `ResidualConv1DGLU`
+(:110), and the SubPixel conditioning upsampler with its checkerboard-free
+init (`_nn_init_kernel_2d` :167, `SubPixelUpsample` :180,
+`UpsampleNetwork` :286). Parameters keep the flax layouts and leaf names
+(`kernel`, or `v` and `g`, and `bias`), so the bridge is a rename.
+
+Each conv takes `rnd`, the compute dtype's rounding: identity in f32; in
+bf16 (`wavenet.compute_dtype`) the input, the kernel and the bias are
+rounded and so is each output, as flax's `dtype=bfloat16` modules compute
+(bf16 operands, a bf16 result). Rounded values stay f32 tensors, so every
+op also runs where bf16 kernels do not; `round_bf16`'s backward rounds
+the gradient too, as the bf16 values' gradients are bf16 in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import itertools
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+Rounding = Callable[[torch.Tensor], torch.Tensor]
+_calls = itertools.count()
 
 
 def weight_normed(v: np.ndarray, g: np.ndarray) -> np.ndarray:
@@ -41,17 +55,178 @@ def conv1x1_params(p):
                                  np.asarray(b, np.float32))
 
 
+def weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """W = g · v / ‖v‖ per output channel (the last axis), differentiable."""
+    axes = tuple(range(v.dim() - 1))
+    norm = torch.sqrt(torch.sum(v * v, dim=axes, keepdim=True) + 1e-12)
+    return v * (g / norm)
+
+
+class _RoundBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (kept f32); the gradient is rounded alike."""
+    return _RoundBf16.apply(x)
+
+
+def no_round(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def rounding(compute_dtype: str) -> Rounding:
+    return round_bf16 if compute_dtype == "bfloat16" else no_round
+
+
+class _WeightNormed(nn.Module):
+    """A kernel of shape [..., in, out] held plain (`kernel`) or as
+    weight norm's `v` and `g`, and an optional `bias`. With `capture` set,
+    `wn_out` keeps the last output and `call_seq` when it was made (the
+    data-dependent init reads both)."""
+
+    def __init__(self, shape: Tuple[int, ...], use_bias: bool,
+                 weight_norm: bool):
+        super().__init__()
+        self.is_weight_normed = weight_norm
+        if weight_norm:
+            self.v = nn.Parameter(torch.zeros(shape))
+            self.g = nn.Parameter(torch.zeros(shape[-1]))
+        else:
+            self.kernel = nn.Parameter(torch.zeros(shape))
+        self.bias = nn.Parameter(torch.zeros(shape[-1])) if use_bias else None
+        self.capture = False
+        self.wn_out = None
+        self.call_seq = -1
+
+    def weight(self) -> torch.Tensor:
+        if self.is_weight_normed:
+            return weight_norm(self.v, self.g)
+        return self.kernel
+
+    def _finish(self, y, rnd: Rounding):
+        if self.bias is not None:
+            y = rnd(y + rnd(self.bias))
+        if self.capture:
+            self.wn_out, self.call_seq = y.detach(), next(_calls)
+        return y
+
+
+class Conv1x1(_WeightNormed):
+    """Pointwise conv: x [..., in] @ kernel [in, out] (+ bias)."""
+
+    def __init__(self, in_c: int, out_c: int, use_bias: bool = True,
+                 weight_norm: bool = False):
+        super().__init__((in_c, out_c), use_bias, weight_norm)
+
+    def forward(self, x, rnd: Rounding = no_round):
+        return self._finish(rnd(rnd(x) @ rnd(self.weight())), rnd)
+
+
+class CausalConv1D(_WeightNormed):
+    """Dilated causal conv over [B, T, C]: left pad (kw-1)·dilation, VALID;
+    the kernel is flax's [kw, in, out]."""
+
+    def __init__(self, in_c: int, out_c: int, kernel_size: int,
+                 dilation: int = 1, use_bias: bool = True,
+                 weight_norm: bool = False):
+        super().__init__((kernel_size, in_c, out_c), use_bias, weight_norm)
+        self.kernel_size, self.dilation = kernel_size, dilation
+
+    def forward(self, x, rnd: Rounding = no_round):
+        pad = (self.kernel_size - 1) * self.dilation
+        k = rnd(self.weight()).permute(2, 1, 0)          # [out, in, kw]
+        y = F.conv1d(F.pad(rnd(x).transpose(1, 2), (pad, 0)), k,
+                     dilation=self.dilation).transpose(1, 2)
+        return self._finish(rnd(y), rnd)
+
+
+class ResidualConv1DGLU(nn.Module):
+    """Gated residual block (reference modules.py:392-521): returns
+    (residual out [B, T, R], skip [B, T, S])."""
+
+    def __init__(self, residual_channels: int, gate_channels: int,
+                 kernel_size: int, skip_out_channels: int, dilation: int,
+                 cin_channels: int, use_bias: bool = True,
+                 residual_legacy: bool = True, weight_norm: bool = False):
+        super().__init__()
+        R, G = residual_channels, gate_channels
+        self.residual_legacy = residual_legacy
+        self.causal_conv = CausalConv1D(R, G, kernel_size, dilation,
+                                        use_bias, weight_norm)
+        self.cin_conv = Conv1x1(cin_channels, G, use_bias, weight_norm)
+        self.skip_conv = Conv1x1(G // 2, skip_out_channels, use_bias,
+                                 weight_norm)
+        self.out_conv = Conv1x1(G // 2, R, use_bias, weight_norm)
+
+    def forward(self, x, c, *, kept: Optional[torch.Tensor] = None,
+                keep: float = 1.0, rnd: Rounding = no_round,
+                res_rnd: Rounding = no_round):
+        """`kept` [B, T, R] (bool) is the block input's dropout keep mask in
+        train mode: kept elements are x / keep, the rest 0. `res_rnd`
+        rounds the residual sum: flax adds in bf16 while the block input
+        is bf16 (the first block's, and every block's without the legacy
+        scaling)."""
+        residual = x
+        if kept is not None:
+            x = torch.where(kept, rnd(x / keep), x.new_zeros(()))
+        y = self.causal_conv(x, rnd)
+        a, b = y.chunk(2, -1)
+        ca, cb = self.cin_conv(c, rnd).chunk(2, -1)
+        a, b = rnd(a + ca), rnd(b + cb)
+        h = rnd(rnd(torch.tanh(a)) * rnd(torch.sigmoid(b)))
+        s = self.skip_conv(h, rnd)
+        o = self.out_conv(h, rnd)
+        if self.residual_legacy:
+            # flax multiplies by numpy's float64 √0.5, which promotes the
+            # sum to f32: the block output is not rounded
+            return res_rnd(o + residual) * float(np.sqrt(0.5)), s
+        return res_rnd(o + residual), s
+
+
+# ------------------------------------------------------------------ upsample
+
+
+def _nn_init_kernel_2d(kernel_size: Tuple[int, int], time_overlap: int,
+                       scaler: float, in_c: int, out_c: int) -> np.ndarray:
+    """Checkerboard-free init (reference SubPixel _init_kernel), flax's
+    [kh, kw, in, out]."""
+    kh, kw = kernel_size
+    k = np.zeros((kh, kw), dtype=np.float32)
+    i = kh // 2
+    js = [kw // 2 - 1, kw // 2] if kw % 2 == 0 else [kw // 2]
+    for j in js:
+        k[i, j] = 1.0 / max(time_overlap, 1.0) if kw % 2 == 0 else 1.0
+    k = k * scaler
+    return np.tile(k[:, :, None, None], (1, 1, in_c, out_c))
+
+
 class SubPixelUpsample(nn.Module):
     """3×3 SAME conv over the [freq, time] mel image with `scale` output
-    channels, then the time-axis periodic shuffle (t, k) -> t·scale + k."""
+    channels, then the time-axis periodic shuffle (t, k) -> t·scale + k.
+    `weight` is torch's [scale, 1, kh, kw]."""
 
     def __init__(self, scale: int, freq_kernel: int = 3, time_kernel: int = 3):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.zeros(scale, 1, freq_kernel, time_kernel),
-            requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(scale), requires_grad=False)
+            torch.zeros(scale, 1, freq_kernel, time_kernel))
+        self.bias = nn.Parameter(torch.zeros(scale))
         self.scale = scale
+
+    def nn_init(self, pow_scaler: float) -> None:
+        """The reference's nn_init kernel (bias zero)."""
+        _, _, kf, kt = self.weight.shape
+        k = _nn_init_kernel_2d((kf, kt), kt // self.scale, pow_scaler, 1,
+                               self.scale)
+        with torch.no_grad():
+            self.weight.copy_(torch.from_numpy(k.transpose(3, 2, 0, 1)))
+            self.bias.zero_()
 
     def forward(self, img):
         # img [B, 1, F, T] -> [B, 1, F, T*scale]

@@ -1,0 +1,529 @@
+"""The WaveNet training stack as CUDA kernels: the gated residual layers'
+forward (kernel 5a) and backward (kernel 5b).
+
+Port of tacotron2_tpu/ops/wavenet_train_kernel.py: `StackParams` (:55),
+`extract_stack_params` (:72, differentiable through weight norm),
+`_skip_scales` (:112), `stack_supported` (:474), `make_fused_stack`'s
+custom VJP (:483-556) as the `FusedStack` autograd function, and
+`fused_stack_apply` (:559). The kernels, `_build_stack_fwd` (:133) and
+`_build_stack_bwd` (:261), are `csrc/wavenet_train.cu` (its note has the
+design); `stack_fwd_plain` and `stack_bwd_plain` are their plain PyTorch
+versions, which CPU tensors take. CUDA tensors launch the kernels or
+raise. Each wrapper counts its calls (`fwd_launches`, `bwd_launches`),
+one a pass over the whole stack (L layer launches).
+
+Layout: activations are [N = T·B, channels] with row = t·B + b, so a
+dilation shift of d samples is a shift of d·B rows. T need not be a
+multiple of any tile (the JAX function pads T to its time tile; the port
+has none).
+
+Rounding. With `wavenet.compute_dtype="bfloat16"` the weights are bf16
+and every product takes bf16 operands with f32 sums, rounded where the
+TPU kernel rounds: the dropped-out block input of the taps (:192), the
+conditioning (:172), h before the skip and out products (:208), and in
+the backward c_res·dres, the scaled skip gradient and dy before their
+products (:345-363) and the dropped-out input (:400). With f32 compute
+nothing is rounded but the saved activations (x, tanh a, σ b), which are
+bf16 unless `acts_dtype_name="float32"`. The kernels take bf16 weights
+and activations at R 128, G 256, S 128, cin 80 (the default and r5
+widths) and raise on anything else.
+
+Dropout. The TPU kernel draws from its on-core PRNG per (tile, layer),
+which nothing off the TPU reproduces. The port's mask is a counter-based
+hash of (seed, layer, row, channel) (`keep_bits`), evaluated by the
+kernels and the plain versions alike (int64 tensor ops here, uint32 in
+CUDA), so both draw bit-identical masks whatever the tile; the backward
+regenerates it instead of storing it. A kept element is scaled by
+1/keep, as in the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+
+# calls of the CUDA forward and backward (each runs every layer)
+fwd_launches = 0
+bwd_launches = 0
+_argtypes_set = False
+
+M32 = 0xFFFFFFFF
+# rows a CTA of the weight-gradient kernel sums before the fixed-order
+# reduction of the partials
+WGRAD_ROWS = 1024
+
+
+class StackParams(NamedTuple):
+    """Materialized (post weight-norm) stack weights, layer-stacked: L
+    layers, C residual, G gate (2·Ch), S skip, Ci conditioning channels."""
+
+    conv_w: torch.Tensor   # [L*3*C, G]  rows (l, tap k, c)
+    conv_b: torch.Tensor   # [L, G]
+    cin_w: torch.Tensor    # [L*Ci, G]
+    cin_b: torch.Tensor    # [L, G]
+    skip_w: torch.Tensor   # [L*Ch, S]
+    skip_b: torch.Tensor   # [L, S]
+    out_w: torch.Tensor    # [L*Ch, C]
+    out_b: torch.Tensor    # [L, C]
+
+
+def extract_stack_params(blocks: Sequence, cfg: Config) -> StackParams:
+    """The port's `ResidualConv1DGLU` blocks -> StackParams, differentiable
+    (weight norm applied; missing biases are zeros)."""
+    def wb(conv):
+        w = conv.weight()
+        b = conv.bias if conv.bias is not None else w.new_zeros(w.shape[-1])
+        return w, b
+
+    parts = {f: [] for f in StackParams._fields}
+    for blk in blocks:
+        for name, conv in (("conv", blk.causal_conv), ("cin", blk.cin_conv),
+                           ("skip", blk.skip_conv), ("out", blk.out_conv)):
+            w, b = wb(conv)
+            parts[f"{name}_w"].append(w.reshape(-1, w.shape[-1]))
+            parts[f"{name}_b"].append(b)
+    return StackParams(**{f: (torch.cat(v, 0) if f.endswith("_w")
+                              else torch.stack(v)) for f, v in parts.items()})
+
+
+def _skip_scales(cfg: Config):
+    """Each layer's multiplier of its skip term in the final sum: with the
+    legacy √0.5 after every later layer, c^(L-1) for layer 0 and c^(L-l)
+    for layer l >= 1."""
+    L = len(cfg.wavenet.dilations)
+    if not cfg.wavenet.legacy:
+        return [1.0] * L
+    c = float(np.sqrt(0.5))
+    return [c ** (L - 1)] + [c ** (L - l) for l in range(1, L)]
+
+
+def stack_supported(cfg: Config) -> bool:
+    wn = cfg.wavenet
+    return (wn.kernel_size == 3 and wn.cin_channels > 0
+            and wn.gin_channels <= 0
+            and wn.gate_channels == 2 * (wn.gate_channels // 2)
+            and len(wn.dilations) >= 2)
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    """The stack's constants for one config and batch."""
+
+    B: int
+    C: int
+    G: int
+    S: int
+    Ci: int
+    dil: Tuple[int, ...]
+    scales: Tuple[float, ...]
+    c_res: float
+    drop: float
+    weight_bf16: bool
+    acts_dtype: torch.dtype
+
+    @property
+    def L(self) -> int:
+        return len(self.dil)
+
+    @property
+    def Ch(self) -> int:
+        return self.G // 2
+
+    @property
+    def keep(self) -> float:
+        return 1.0 - self.drop
+
+
+def make_plan(cfg: Config, B: int, acts_dtype_name: str = "bfloat16"
+              ) -> StackPlan:
+    wn = cfg.wavenet
+    return StackPlan(
+        B=B, C=wn.residual_channels, G=wn.gate_channels,
+        S=wn.skip_out_channels, Ci=wn.cin_channels,
+        dil=tuple(int(d) for d in wn.dilations),
+        scales=tuple(_skip_scales(cfg)),
+        c_res=float(np.sqrt(0.5)) if wn.residual_legacy else 1.0,
+        drop=float(wn.dropout), weight_bf16=wn.compute_dtype == "bfloat16",
+        acts_dtype=(torch.float32 if acts_dtype_name == "float32"
+                    else torch.bfloat16))
+
+
+# ------------------------------------------------------------------ dropout
+
+
+def _fmix32(h):
+    """murmur3's finalizer on uint32 values (python ints or int64 tensors
+    holding them); products kept below 2^63 by 16-bit halves."""
+    def mul(x, c):
+        return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & M32
+    h = h ^ (h >> 16)
+    h = mul(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = mul(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def layer_key(seed: int, layer: int) -> int:
+    """The dropout key of one layer of one draw."""
+    return _fmix32(_fmix32((layer + 0x632BE5AB) & M32) ^ (seed & M32))
+
+
+def keep_threshold(keep: float) -> int:
+    """An element is kept when the top 24 bits of its hash are below
+    this: floor(keep · 2^24)."""
+    return int(keep * (1 << 24))
+
+
+def keep_bits(key: int, row0: int, rows: int, C: int, keep: float,
+              device="cpu") -> torch.Tensor:
+    """Keep mask [rows, C] (bool) of rows row0 .. row0 + rows - 1."""
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
+    k = (r[:, None] * C + torch.arange(C, dtype=torch.int64,
+                                       device=device)) & M32
+    v = _fmix32(k ^ key)
+    v = _fmix32((v + key) & M32)
+    return (v >> 8) < keep_threshold(keep)
+
+
+def dropout_multiplier(plan: StackPlan, seed: int, layer: int, N: int,
+                       device) -> torch.Tensor:
+    """[N, C] f32: 1/keep where kept, else 0."""
+    kept = keep_bits(layer_key(seed, layer), 0, N, plan.C, plan.keep, device)
+    return kept.to(torch.float32) * float(np.float32(1.0 / plan.keep))
+
+
+# ------------------------------------------------------------------- plain
+
+
+def _rounder(plan: StackPlan):
+    if plan.weight_bf16:
+        return lambda t: t.to(torch.bfloat16).to(torch.float32)
+    return lambda t: t
+
+
+def _shift_down(x, s: int):
+    """out[r] = x[r - s], zero for r < s (the causal left pad)."""
+    if s == 0:
+        return x
+    s = min(s, x.shape[0])
+    return torch.cat([x.new_zeros(s, x.shape[1]), x[:x.shape[0] - s]], 0)
+
+
+def _shift_up(x, s: int):
+    """out[r] = x[r + s], zero past the last row."""
+    if s == 0:
+        return x
+    s = min(s, x.shape[0])
+    return torch.cat([x[s:], x.new_zeros(s, x.shape[1])], 0)
+
+
+def _layer(sp: StackParams, plan: StackPlan, l: int, rnd):
+    """Layer l's weights, in the compute dtype's values (f32 tensors)."""
+    C, Ci, Ch = plan.C, plan.Ci, plan.Ch
+    return dict(
+        conv=[rnd(sp.conv_w[(3 * l + k) * C:(3 * l + k + 1) * C])
+              for k in range(3)],
+        cin=rnd(sp.cin_w[l * Ci:(l + 1) * Ci]),
+        skip=rnd(sp.skip_w[l * Ch:(l + 1) * Ch]),
+        out=rnd(sp.out_w[l * Ch:(l + 1) * Ch]))
+
+
+def stack_fwd_plain(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
+    """Kernel 5a's plain version: x0 [N, C], c2 [N, Ci] f32 -> (skip sum
+    [N, S] f32, saved activations [L, 3, N, C] in plan.acts_dtype: x,
+    tanh a, σ b of every layer)."""
+    rnd = _rounder(plan)
+    N, B, Ch = x0.shape[0], plan.B, plan.Ch
+    cm = rnd(c2)
+    x = x0
+    skip = None
+    acts = []
+    for l, d in enumerate(plan.dil):
+        w = _layer(sp, plan, l, rnd)
+        if plan.drop > 0:
+            kept = keep_bits(layer_key(seed, l), 0, N, plan.C, plan.keep,
+                             x.device)
+            xd = torch.where(kept, x * float(np.float32(1.0 / plan.keep)),
+                             x.new_zeros(()))
+        else:
+            xd = x
+        xdw = rnd(xd)
+        y = sp.conv_b[l] + sp.cin_b[l]
+        for k in range(3):
+            y = y + _shift_down(xdw, (2 - k) * d * B) @ w["conv"][k]
+        y = y + cm @ w["cin"]
+        ta, sb = torch.tanh(y[:, :Ch]), torch.sigmoid(y[:, Ch:])
+        acts.append(torch.stack([x, ta, sb]).to(plan.acts_dtype))
+        h = rnd(ta * sb)
+        s = plan.scales[l] * (h @ w["skip"] + sp.skip_b[l])
+        skip = s if skip is None else skip + s
+        x = plan.c_res * (h @ w["out"] + sp.out_b[l] + x)
+    return skip, torch.stack(acts)
+
+
+def stack_bwd_plain(plan: StackPlan, sp: StackParams, acts, c2, dskip,
+                    seed: int):
+    """Kernel 5b's plain version: the saved activations, c2 and dskip [N,
+    S] -> (StackParams of f32 weight gradients, dx0 [N, C], dc2 [N, Ci])."""
+    rnd = _rounder(plan)
+    N, B, Ch, L = c2.shape[0], plan.B, plan.Ch, plan.L
+    cm = rnd(c2)
+    dres = torch.zeros(N, plan.C, device=c2.device)
+    dc = torch.zeros_like(c2)
+    g = {f: [None] * L for f in StackParams._fields}
+    for l in reversed(range(L)):
+        d = plan.dil[l]
+        w = _layer(sp, plan, l, rnd)
+        x, ta, sb = (a.to(torch.float32) for a in acts[l])
+        hw = rnd(ta * sb)
+        gr = plan.c_res * dres
+        gk = plan.scales[l] * dskip
+        grw, gkw = rnd(gr), rnd(gk)
+        g["out_w"][l], g["out_b"][l] = hw.t() @ grw, gr.sum(0)
+        g["skip_w"][l], g["skip_b"][l] = hw.t() @ gkw, gk.sum(0)
+        dh = grw @ w["out"].t() + gkw @ w["skip"].t()
+        da = dh * sb * (1.0 - ta * ta)
+        db = dh * ta * sb * (1.0 - sb)
+        dysum = torch.cat([da.sum(0), db.sum(0)])
+        g["conv_b"][l], g["cin_b"][l] = dysum, dysum.clone()
+        dyw = rnd(torch.cat([da, db], 1))
+        g["cin_w"][l] = cm.t() @ dyw
+        dc = dc + dyw @ w["cin"].t()
+        mult = (dropout_multiplier(plan, seed, l, N, c2.device)
+                if plan.drop > 0 else None)
+        xdw = rnd(x * mult if mult is not None else x)
+        dxd = torch.zeros_like(dres)
+        dconv = []
+        for k in range(3):
+            dy_k = _shift_up(dyw, (2 - k) * d * B)
+            dconv.append(xdw.t() @ dy_k)
+            dxd = dxd + dy_k @ w["conv"][k].t()
+        g["conv_w"][l] = torch.cat(dconv, 0)
+        if mult is not None:
+            dxd = dxd * mult
+        dres = gr + dxd
+    d_sp = StackParams(**{f: torch.cat(v, 0) if f.endswith("_w")
+                          else torch.stack(v) for f, v in g.items()})
+    return d_sp, dres, dc
+
+
+# -------------------------------------------------------------------- CUDA
+
+
+def _lib():
+    from ..native import build
+    global _argtypes_set
+    lib = build.load("wavenet_train")
+    if not _argtypes_set:
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        cu, cf = ctypes.c_uint32, ctypes.c_float
+        lib.wn_fwd_layer.argtypes = ([vp] * 10 + [cl, ci, ci, cu, cu, cf, ci,
+                                                  cf, cf, ci, vp])
+        lib.wn_bwd_gate.argtypes = ([vp] * 12 + [cl, cu, cu, cf, ci, cf, cf,
+                                                 ci, vp])
+        lib.wn_bwd_dx.argtypes = [vp] * 4 + [cl, ci, ci, cu, cu, cf, ci, cf,
+                                             vp]
+        lib.wn_wgrad.argtypes = [vp, ci, ci, vp, ci, ci, cl, cl, cl, vp, vp,
+                                 vp]
+        for fn in (lib.wn_fwd_layer, lib.wn_bwd_gate, lib.wn_bwd_dx,
+                   lib.wn_wgrad):
+            fn.restype = ci
+        _argtypes_set = True
+    return lib
+
+
+def _check_cuda(plan: StackPlan, *tensors, widths=()):
+    """Raise on what the kernels do not take: other dtypes or widths, or
+    operands whose shapes are not [N, width] of one N = T·B."""
+    if not plan.weight_bf16 or plan.acts_dtype != torch.bfloat16:
+        raise ValueError("the CUDA stack kernels take bf16 weights and "
+                         "saved activations (wavenet.compute_dtype="
+                         "bfloat16)")
+    if (plan.C, plan.G, plan.S, plan.Ci) != (128, 256, 128, 80):
+        raise ValueError("the CUDA stack kernels take R 128, G 256, S 128, "
+                         f"cin 80, not R {plan.C}, G {plan.G}, S {plan.S}, "
+                         f"cin {plan.Ci}")
+    dev, N = tensors[0].device, tensors[0].shape[0]
+    for t, w in zip(tensors, widths):
+        if t.device != dev or not t.is_contiguous() or \
+                t.dtype != torch.float32:
+            raise ValueError("the stack kernels take contiguous f32 tensors "
+                             f"on one device, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != (N, w):
+            raise ValueError(f"the stack kernels take [N, {w}] operands, "
+                             f"got {tuple(t.shape)} with N = {N}")
+    if N % plan.B:
+        raise ValueError(f"N = {N} rows is not T·B for B = {plan.B}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _keep_args(plan: StackPlan):
+    keep = plan.keep
+    return (keep_threshold(keep), float(np.float32(1.0 / keep)),
+            int(plan.drop > 0))
+
+
+def stack_fwd_cuda(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
+    """Kernel 5a: the same contract as `stack_fwd_plain`, on CUDA tensors."""
+    from ..native.build import check
+    global fwd_launches
+    _check_cuda(plan, x0, c2, widths=(plan.C, plan.Ci))
+    lib, dev, L, N = _lib(), x0.device, plan.L, x0.shape[0]
+    bf = torch.bfloat16
+    C, Ci, Ch = plan.C, plan.Ci, plan.Ch
+    cb = c2.to(bf)
+    conv = sp.conv_w.reshape(L, 3 * C, plan.G)
+    w1t = torch.cat([conv, sp.cin_w.reshape(L, Ci, plan.G)], 1).to(bf) \
+        .transpose(1, 2).contiguous()
+    w2t = torch.cat([sp.skip_w.reshape(L, Ch, plan.S),
+                     sp.out_w.reshape(L, Ch, C)], 2).to(bf) \
+        .transpose(1, 2).contiguous()
+    b1 = (sp.conv_b + sp.cin_b).float().contiguous()
+    skip_b, out_b = sp.skip_b.float().contiguous(), sp.out_b.float().contiguous()
+    skip = torch.empty(N, plan.S, device=dev)
+    acts = torch.empty(L, 3, N, C, dtype=bf, device=dev)
+    bufs = (torch.empty_like(x0), torch.empty_like(x0))
+    keep24, inv_keep, drop = _keep_args(plan)
+    x_in = x0
+    for l, d in enumerate(plan.dil):
+        x_out = bufs[l % 2] if l < L - 1 else None
+        check(lib.wn_fwd_layer(
+            _ptr(x_in), _ptr(x_out), _ptr(cb), _ptr(acts[l]), _ptr(skip),
+            _ptr(w1t[l]), _ptr(b1[l]), _ptr(w2t[l]), _ptr(skip_b[l]),
+            _ptr(out_b[l]), N, plan.B, d, layer_key(seed, l), keep24,
+            inv_keep, drop, plan.scales[l], plan.c_res, int(l == 0),
+            _stream(dev)), "wn_fwd_layer")
+        x_in = x_out
+    fwd_launches += 1
+    return skip, acts
+
+
+def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
+                   seed: int):
+    """Kernel 5b: the same contract as `stack_bwd_plain`, on CUDA
+    tensors."""
+    from ..native.build import check
+    global bwd_launches
+    _check_cuda(plan, c2, dskip, widths=(plan.Ci, plan.S))
+    if acts.dtype != torch.bfloat16 or not acts.is_contiguous() or \
+            tuple(acts.shape) != (plan.L, 3, c2.shape[0], plan.C):
+        raise ValueError("the saved activations must be contiguous bf16 "
+                         f"[L, 3, N, C], got {acts.dtype} "
+                         f"{tuple(acts.shape)}")
+    lib, dev, L, N = _lib(), c2.device, plan.L, c2.shape[0]
+    bf = torch.bfloat16
+    C, G, S, Ci, Ch = plan.C, plan.G, plan.S, plan.Ci, plan.Ch
+    cb = c2.to(bf)
+    wos = torch.cat([sp.out_w.reshape(L, Ch, C), sp.skip_w.reshape(L, Ch, S)],
+                    2).to(bf).contiguous()
+    wcin = sp.cin_w.reshape(L, Ci, G).to(bf).contiguous()
+    wconv = sp.conv_w.reshape(L, 3, C, G).to(bf).contiguous()
+    go = torch.empty(N, C + S, dtype=bf, device=dev)
+    dy = torch.empty(N, G, dtype=bf, device=dev)
+    xd = torch.empty(N, C, dtype=bf, device=dev)
+    h = torch.empty(N, Ch, dtype=bf, device=dev)
+    dc = torch.empty(N, Ci, device=dev)
+    tiles = (N + 127) // 128
+    part = torch.empty(tiles, G + C + S, device=dev)
+    sums = torch.empty(L, G + C + S, device=dev)
+    splits = (N + WGRAD_ROWS - 1) // WGRAD_ROWS
+    wpart = torch.empty(splits * 128 * 256, device=dev)
+    d_conv = torch.empty(L, 3, C, G, device=dev)
+    d_cin = torch.empty(L, Ci, G, device=dev)
+    d_os = torch.empty(L, Ch, C + S, device=dev)
+    bufs = (torch.empty(N, C, device=dev), torch.empty(N, C, device=dev))
+    keep24, inv_keep, drop = _keep_args(plan)
+    st = _stream(dev)
+
+    def wgrad(P, Q, qoff, out):
+        check(lib.wn_wgrad(_ptr(P), P.shape[1], P.shape[1], _ptr(Q),
+                           Q.shape[1], Q.shape[1], qoff, N, WGRAD_ROWS,
+                           _ptr(wpart), _ptr(out), st), "wn_wgrad")
+
+    dres = None
+    for l in reversed(range(L)):
+        d, key = plan.dil[l], layer_key(seed, l)
+        check(lib.wn_bwd_gate(
+            _ptr(dres), _ptr(dskip), _ptr(acts[l]), _ptr(wos[l]),
+            _ptr(wcin[l]), _ptr(go), _ptr(dy), _ptr(xd), _ptr(h), _ptr(dc),
+            _ptr(part), _ptr(sums[l]), N, key, keep24, inv_keep, drop,
+            plan.scales[l], plan.c_res, int(l < L - 1), st), "wn_bwd_gate")
+        out = bufs[l % 2]
+        check(lib.wn_bwd_dx(_ptr(dy), _ptr(wconv[l]), _ptr(dres), _ptr(out),
+                            N, plan.B, d, key, keep24, inv_keep, drop,
+                            plan.c_res, st), "wn_bwd_dx")
+        for k in range(3):
+            wgrad(xd, dy, (2 - k) * d * plan.B, d_conv[l, k])
+        wgrad(cb, dy, 0, d_cin[l])
+        wgrad(h, go, 0, d_os[l])
+        dres = out
+    bwd_launches += 1
+    dysum = sums[:, :G]
+    d_sp = StackParams(
+        conv_w=d_conv.reshape(L * 3 * C, G), conv_b=dysum.clone(),
+        cin_w=d_cin.reshape(L * Ci, G), cin_b=dysum.clone(),
+        skip_w=d_os[:, :, C:].reshape(L * Ch, S),
+        skip_b=sums[:, G + C:].clone(),
+        out_w=d_os[:, :, :C].reshape(L * Ch, C),
+        out_b=sums[:, G:G + C].clone())
+    return d_sp, dres, dc
+
+
+def stack_fwd(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
+    """CPU tensors take the plain version, CUDA tensors the kernel."""
+    if x0.device.type == "cpu":
+        return stack_fwd_plain(plan, sp, x0, c2, seed)
+    return stack_fwd_cuda(plan, sp, x0, c2, seed)
+
+
+def stack_bwd(plan: StackPlan, sp: StackParams, acts, c2, dskip, seed: int):
+    if c2.device.type == "cpu":
+        return stack_bwd_plain(plan, sp, acts, c2, dskip, seed)
+    return stack_bwd_cuda(plan, sp, acts, c2, dskip, seed)
+
+
+class FusedStack(torch.autograd.Function):
+    """skip = stack(x0, c2) with the backward of kernel 5b: gradients of
+    the eight StackParams tensors, x0 and c2 (the seed and plan get
+    none). The saved activations are the forward's; the dropout mask is
+    drawn again from the seed."""
+
+    @staticmethod
+    def forward(ctx, plan, seed, x0, c2, *weights):
+        sp = StackParams(*(w.detach() for w in weights))
+        skip, acts = stack_fwd(plan, sp, x0.detach(), c2.detach(), seed)
+        ctx.plan, ctx.seed = plan, seed
+        ctx.save_for_backward(c2, acts, *weights)
+        return skip
+
+    @staticmethod
+    def backward(ctx, dskip):
+        c2, acts, *weights = ctx.saved_tensors
+        d_sp, dx0, dc2 = stack_bwd(ctx.plan, StackParams(*weights), acts,
+                                   c2, dskip.contiguous(), ctx.seed)
+        return (None, None, dx0, dc2, *d_sp)
+
+
+def fused_stack_apply(cfg: Config, sp: StackParams, x0, c_up, seed: int, *,
+                      acts_dtype_name: str = "bfloat16"):
+    """[B, T, C] interface: to the kernels' [T·B, *] layout and back;
+    returns the skip sum [B, T, S] f32."""
+    B, T, C = x0.shape
+    plan = make_plan(cfg, B, acts_dtype_name)
+    x2 = x0.float().transpose(0, 1).reshape(T * B, C).contiguous()
+    c2 = c_up.float().transpose(0, 1).reshape(T * B, -1).contiguous()
+    skip = FusedStack.apply(plan, int(seed), x2, c2, *sp)
+    return skip.reshape(T, B, -1).transpose(0, 1)

@@ -1,4 +1,5 @@
-"""Tacotron training checkpoints: save, restore, partial restore.
+"""Training checkpoints (Tacotron and WaveNet): save, restore, partial
+restore.
 
 Counterpart of tacotron2_tpu/train/checkpoint.py (orbax there). The port
 writes one flax-msgpack file a checkpoint (`utils/flax_msgpack.py`), a map
@@ -13,6 +14,12 @@ of:
   flax-named trees in the parameters' layout, of the masked-on
   parameters};
 - "step": the train step.
+
+A WaveNet training state is a map of "params" and "ema_params" (flax-
+named trees of `convert.wavenet_to_flax`: `convert.load_wavenet` hands
+the EMA tree to `WaveNetSynthesizer` and `cli synthesize
+--wavenet-checkpoint`), "opt_state" {"count", "mu", "nu"} in the same
+layout, and "step".
 
 `CheckpointManager` keeps `<dir>/ckpt-<step>.msgpack`, the newest
 `max_to_keep`; `partial_restore` keeps fresh values for the subtrees a
@@ -29,6 +36,7 @@ from typing import Any, Callable, Optional
 from .. import convert
 from ..utils import flax_msgpack
 from .tacotron_step import TrainState
+from .wavenet_step import WaveNetTrainState
 
 
 def state_tree(state: TrainState) -> dict:
@@ -67,12 +75,49 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     return state
 
 
-def save(path: str, state: TrainState) -> None:
-    flax_msgpack.save(path, state_tree(state))
+def wavenet_state_tree(state: WaveNetTrainState) -> dict:
+    """The checkpoint's tree of a WaveNetTrainState."""
+    mu, nu = {}, {}
+    for (path, _), m, v in zip(convert.wavenet_named_parameters(state.model),
+                               state.opt.mu, state.opt.nu):
+        convert.tree_set(mu, path, convert.wavenet_flax_array(path, m))
+        convert.tree_set(nu, path, convert.wavenet_flax_array(path, v))
+    return dict(params=convert.wavenet_to_flax(state.model),
+                ema_params=convert.wavenet_to_flax(state.ema),
+                opt_state=dict(count=int(state.opt.count), mu=mu, nu=nu),
+                step=int(state.step))
 
 
-def restore(path: str, state: TrainState) -> TrainState:
-    return load_state_tree(state, flax_msgpack.load(path))
+def load_wavenet_state_tree(state: WaveNetTrainState, tree: dict
+                            ) -> WaveNetTrainState:
+    """Fill a WaveNetTrainState from a checkpoint's tree."""
+    import torch
+    convert.load_wavenet_params(state.model, tree["params"])
+    convert.load_wavenet_params(state.ema, tree["ema_params"])
+    opt = tree["opt_state"]
+    with torch.no_grad():
+        for (path, _), m, v in zip(
+                convert.wavenet_named_parameters(state.model), state.opt.mu,
+                state.opt.nu):
+            for mom, key in ((m, "mu"), (v, "nu")):
+                mom.copy_(torch.from_numpy(convert.wavenet_port_array(
+                    path, convert.tree_get(opt[key], path))))
+    state.opt.count = int(opt["count"])
+    state.step = int(tree["step"])
+    return state
+
+
+def save(path: str, state) -> None:
+    tree = (wavenet_state_tree(state) if isinstance(state, WaveNetTrainState)
+            else state_tree(state))
+    flax_msgpack.save(path, tree)
+
+
+def restore(path: str, state):
+    tree = flax_msgpack.load(path)
+    if isinstance(state, WaveNetTrainState):
+        return load_wavenet_state_tree(state, tree)
+    return load_state_tree(state, tree)
 
 
 class CheckpointManager:
@@ -99,15 +144,14 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState) -> str:
+    def save(self, step: int, state) -> str:
         path = self.path(step)
         save(path, state)
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
         return path
 
-    def restore(self, state: TrainState, step: Optional[int] = None
-                ) -> TrainState:
+    def restore(self, state, step: Optional[int] = None):
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")

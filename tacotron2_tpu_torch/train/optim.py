@@ -12,8 +12,14 @@ operations: the global norm over the masked-on gradients, scaling by
 1/norm when it is at least 1; moments (1-b)·g + b·m; bias correction by
 1 - b^count; eps outside the square root; the step's learning rate at the
 count before the update; no update, and no moments, off the mask. The
-refnet and nat-GAN optimizers (`opt_ref_no_mo`, `nat_gan`) and the
-WaveNet optimizer and EMA are not ported.
+refnet and nat-GAN optimizers (`opt_ref_no_mo`, `nat_gan`) are not
+ported.
+
+WaveNet: `wavenet_lr_schedule` (:73, exponential or noam) and
+`make_wavenet_optimizer` (:176) as `WaveNetAdam`, optax's chain in its
+order: `clip_by_global_norm(wavenet_gradient_max_norm)` (t / norm · max
+when the norm is not below max), `clip(wavenet_gradient_max_value)` by
+value, then Adam as above with the WaveNet betas and eps.
 """
 
 from __future__ import annotations
@@ -67,6 +73,21 @@ def teacher_forcing_schedule(cfg: Config) -> Callable:
         return decay(step)
 
     return schedule
+
+
+def wavenet_lr_schedule(cfg: Config) -> Callable:
+    t = cfg.train
+    if t.wavenet_lr_schedule == "noam":
+        warmup = t.wavenet_warmup
+
+        def schedule(step):
+            step = max(float(step), 1.0)
+            return (t.wavenet_learning_rate * warmup ** 0.5
+                    * min(step * warmup ** -1.5, step ** -0.5))
+
+        return schedule
+    return exponential_decay(t.wavenet_learning_rate, 0,
+                             t.wavenet_decay_steps, t.wavenet_decay_rate)
 
 
 def is_refnet_var(name: str) -> bool:
@@ -146,3 +167,46 @@ class MaskedAdam:
             self.nu[i].mul_(self.b2).add_((1.0 - self.b2) * (gi * gi))
             upd = (self.mu[i] / c1) / (torch.sqrt(self.nu[i] / c2) + self.eps)
             params[i].sub_(lr * upd)
+
+
+class WaveNetAdam:
+    """`make_wavenet_optimizer`'s chain on a list of parameters, updated in
+    place; `mu`, `nu` hold the Adam moments, `count` the updates made."""
+
+    def __init__(self, cfg: Config, params: Sequence[torch.Tensor]):
+        t = cfg.train
+        self.lr = wavenet_lr_schedule(cfg)
+        self.b1, self.b2 = t.wavenet_adam_beta1, t.wavenet_adam_beta2
+        self.eps = t.wavenet_adam_epsilon
+        self.clip = t.wavenet_clip_gradients
+        self.max_norm = t.wavenet_gradient_max_norm
+        self.max_value = t.wavenet_gradient_max_value
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor],
+             grads: Sequence[torch.Tensor]) -> None:
+        """One update, as multi-tensor (foreach) ops over the parameters."""
+        params = list(params)
+        g = [x.float() for x in grads]
+        if self.clip:
+            norm = float(global_norm(g))
+            if norm >= self.max_norm:
+                g = torch._foreach_mul(torch._foreach_div(g, norm),
+                                       self.max_norm)
+            g = torch._foreach_clamp_max(
+                torch._foreach_clamp_min(g, -self.max_value), self.max_value)
+        lr = self.lr(self.count)
+        self.count += 1
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, c2))
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(torch._foreach_div(self.mu, c1), denom)
+        torch._foreach_add_(params, upd, alpha=-lr)

@@ -1,0 +1,164 @@
+"""WaveNet training host loop.
+
+Counterpart of tacotron2_tpu/train/wavenet_train.py (:30-124): the feeder
+(`data/wavenet_feeder.py`), `WaveNetTrainer` steps with the EMA shadow,
+rolling loss and time windows and the per-step log line, the
+loss-explosion abort (NaN or > 100), checkpoints under
+<log_dir>/wave_pretrained/ every `checkpoint_interval` steps and at the
+last (params, EMA, optimizer, step: `train/checkpoint.py`), and every
+`eval_interval` steps `_eval_losses` (:150: the EMA weights on the
+held-out split) and `_eval_generation` (:174: the EMA weights through
+`WaveNetSynthesizer`, which runs the sampler kernel on the card, on the
+first batch's first mel; the wav lands in <log_dir>/wave_eval/), each
+behind an `EvalFailureGuard`. The wave and mel plots need matplotlib and
+are not written. The speaker-embedding export is a no-op: global
+conditioning is not ported (`WaveNetTrainer` refuses it). The curve goes
+to <log_dir>/wavenet_curve.jsonl, one JSON object a step: step, loss,
+grad_norm, elapsed_s, and at eval steps eval_loss.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..convert import wavenet_to_flax
+from ..data.audio import save_wav
+from ..data.wavenet_feeder import WaveNetFeeder
+from ..utils import log
+from .checkpoint import CheckpointManager
+from .eval_guard import EvalFailureGuard
+from .tacotron_train import ValueWindow
+from .wavenet_step import WaveNetTrainer
+
+
+def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
+                  train_steps: Optional[int] = None, restore: bool = False,
+                  gta: bool = True, batch_size: Optional[int] = None,
+                  device="cuda", checkpoint_interval: Optional[int] = None,
+                  eval_interval: Optional[int] = None):
+    """Train the vocoder on the (audio, mel) pairs of the map.txt or
+    train.txt at `input_path`; returns (checkpoint directory, final
+    WaveNetTrainState)."""
+    t = cfg.train
+    steps = train_steps or t.wavenet_train_steps
+    ckpt_interval = checkpoint_interval or t.checkpoint_interval
+    eval_interval = t.eval_interval if eval_interval is None else eval_interval
+    bs = batch_size or t.wavenet_batch_size
+    ckpt_dir = os.path.join(log_dir, "wave_pretrained")
+    eval_dir = os.path.join(log_dir, "wave_eval")
+    os.makedirs(eval_dir, exist_ok=True)
+
+    feeder = WaveNetFeeder(cfg, input_path, gta=gta)
+    batches = iter(feeder.train_batches(bs))
+    trainer = WaveNetTrainer(cfg, device=device)
+    try:
+        first = next(batches)
+    except (IOError, FileNotFoundError) as e:
+        raise RuntimeError(
+            f"WaveNet feeder could not load its first batch ({e}): vocoder "
+            "training needs the audio .npy beside each mel") from e
+    mgr = CheckpointManager(ckpt_dir, t.max_checkpoints_to_keep)
+    will_restore = restore and mgr.latest_step() is not None
+    state = trainer.init_state(
+        torch.Generator().manual_seed(t.wavenet_random_seed), first,
+        skip_data_dependent_init=will_restore)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    rf = cfg.wavenet.receptive_field
+    log(f"Initialized WaveNet model. Receptive field {rf} samples "
+        f"({rf / cfg.audio.sample_rate * 1000:.1f} ms). WaveNet Parameters "
+        f"{n_params / 1e6:.3f} Million.")
+    if will_restore:
+        state = mgr.restore(state)
+        log(f"Restored checkpoint at step {state.step}")
+
+    loss_window, time_window = ValueWindow(100), ValueWindow(100)
+    loss_guard = EvalFailureGuard("wavenet eval losses")
+    gen_guard = EvalFailureGuard("wavenet eval generation")
+    gen = torch.Generator().manual_seed(t.wavenet_random_seed + 1)
+    t_start = time.time()
+    with open(os.path.join(log_dir, "wavenet_curve.jsonl"), "a",
+              encoding="utf-8") as curve:
+        for batch in batches:
+            if state.step >= steps:
+                break
+            t0 = time.time()
+            state, metrics = trainer.train_step(state, batch, gen)
+            loss = float(metrics["loss"])
+            time_window.append(time.time() - t0)
+            loss_window.append(loss)
+            step = state.step
+            rec = dict(step=step, loss=round(loss, 5),
+                       grad_norm=round(float(metrics["grad_norm"]), 4),
+                       elapsed_s=round(time.time() - t_start, 1))
+            if step % 10 == 0 or step < 5:
+                log(f"Step {step:7d} [{time_window.average:.3f} sec/step, "
+                    f"loss={loss:.5f}, avg_loss={loss_window.average:.5f}]")
+            if math.isnan(loss) or loss > 100.0:
+                log(f"Loss exploded to {loss:.5f} at step {step}")
+                raise RuntimeError(f"Loss exploded to {loss} at step {step}")
+            if (ckpt_interval > 0 and step % ckpt_interval == 0) \
+                    or step == steps:
+                mgr.save(step, state)
+                log(f"Saved checkpoint at step {step} (params + EMA shadow)")
+            if eval_interval and step % eval_interval == 0:
+                rec.update(_eval_losses(trainer, state, feeder, bs, step,
+                                        loss_guard))
+                _eval_generation(cfg, state, first, eval_dir, step, gen_guard,
+                                 trainer.device)
+            curve.write(json.dumps(rec) + "\n")
+            curve.flush()
+    if mgr.latest_step() != state.step:
+        mgr.save(state.step, state)
+    log(f"WaveNet training complete at step {state.step}")
+    return ckpt_dir, state
+
+
+def _eval_losses(trainer, state, feeder, batch_size, step, guard,
+                 max_batches: int = 2) -> dict:
+    """The EMA weights' loss on the held-out split (reference wavenet eval
+    scalars, train.py:41-64); {} when there is no held-out batch."""
+    try:
+        eval_bs = min(batch_size, max(1, len(feeder.test_meta)))
+        batches = feeder.test_batches(eval_bs)[:max_batches]
+        if not batches:
+            return {}
+        loss = float(np.mean([float(trainer.eval_step(state, b)[1]["loss"])
+                              for b in batches]))
+        log(f"Eval step {step}: loss={loss:.5f}")
+        guard.success()
+        return {"eval_loss": round(loss, 5)}
+    except Exception as e:  # a transient failure must not kill training
+        guard.failure(step, e, log=log)
+        return {}
+
+
+def _eval_generation(cfg, state, batch, eval_dir, step, guard, device):
+    """Vocode the first batch's first mel with the EMA weights
+    (train.py:89-126) into wave_eval/step-<step>-pred.wav."""
+    from ..synth.wavenet_synth import WaveNetSynthesizer
+    try:
+        t0 = time.time()
+        hop = cfg.audio.effective_hop
+        frames = max(4, int(batch["input_lengths"][0]) // hop)
+        mel01 = np.asarray(batch["c"][0][:frames])
+        # undo the [0, 1] rescale: the synthesizer applies it again
+        lo = -cfg.audio.max_abs_value if cfg.audio.symmetric_mels else 0.0
+        mel = mel01 * (cfg.audio.max_abs_value - lo) + lo
+        synth = WaveNetSynthesizer(cfg, wavenet_to_flax(state.ema),
+                                   device=device)
+        wav = synth.synthesize([mel])[0]
+        rate = len(wav) / hop / max(time.time() - t0, 1e-9)
+        log(f"eval generation: {len(wav)} samples, {rate:.1f} frames/sec")
+        save_wav(wav, os.path.join(eval_dir, f"step-{step}-pred.wav"),
+                 cfg.audio.sample_rate)
+        guard.success()
+    except Exception as e:  # a transient failure must not kill training
+        guard.failure(step, e, log=log)

@@ -37,7 +37,10 @@ its eval mode, each residual at the frames' tolerance (the alignments'
 and cumulative alignments' at theirs); the backward kernel against its
 plain version on the same (the kernel's) residuals, each gradient within
 BWD_RTOL of its largest magnitude: both take the same rounded operands and
-f32 gradients, in another sum order.
+f32 gradients, in another sum order. The WaveNet stack kernels (5a, 5b)
+against their plain versions within STACK_RTOL of each output's largest
+value, and a train step through them against the layer loop by the
+cosine of all gradients.
 """
 
 import dataclasses
@@ -653,3 +656,81 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             wk.sample(sp_n, narrow, c_up, z, kernel_weights=wk.pack_weights(
                 sp_n, narrow, cache_dtype=dt, weight_dtype=dt))
+
+
+# kernels 5a and 5b against their plain versions: the same bf16 operands,
+# f32 sums in another order, which may move an isolated bf16 rounding (of
+# h, dy or a saved activation) by one step (~0.4%); those carry on through
+# the residual path, so each output is held to 1e-2 of its largest value
+# (chip_smoke.py's phase 19 gates at the r5 shapes)
+STACK_RTOL = 1e-2
+
+
+def _wavenet_stack_case(dev, B=4, T=300, layers=4):
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    cfg = Config()
+    cfg = cfg.replace(wavenet=dataclasses.replace(
+        cfg.wavenet, layers=layers, stacks=2, compute_dtype="bfloat16",
+        use_fused_train_stack=True))
+    m = convert.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
+    sp = wtk.StackParams(*(t.detach() for t in wtk.extract_stack_params(
+        m.residual_blocks, cfg)))
+    g = torch.Generator(dev).manual_seed(1)
+    x0 = torch.randn(B * T, 128, generator=g, device=dev) * 0.5
+    c2 = torch.rand(B * T, 80, generator=g, device=dev)
+    dskip = torch.randn(B * T, 128, generator=g, device=dev)
+    return cfg, wtk, wtk.make_plan(cfg, B), sp, x0, c2, dskip
+
+
+def test_wavenet_stack_kernels_match_plain(dev):
+    """Kernel 5a (skip sum, saved activations) and 5b (every weight
+    gradient, dx0, dc) against stack_fwd_plain / stack_bwd_plain at the
+    r5 widths, 4 layers, dropout 0.05 from one seed; a rerun is bit-exact;
+    each wrapper counts its call."""
+    cfg, wtk, plan, sp, x0, c2, dskip = _wavenet_stack_case(dev)
+    n0 = (wtk.fwd_launches, wtk.bwd_launches)
+    ks, ka = wtk.stack_fwd_cuda(plan, sp, x0, c2, 7)
+    ps, pa = wtk.stack_fwd_plain(plan, sp, x0, c2, 7)
+    kb = wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, 7)
+    pb = wtk.stack_bwd_plain(plan, sp, ka, c2, dskip, 7)
+    again = wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, 7)
+    torch.cuda.synchronize()
+    assert (wtk.fwd_launches - n0[0], wtk.bwd_launches - n0[1]) == (1, 2)
+    rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
+    assert rel(ks, ps) <= STACK_RTOL
+    assert float((ka.float() - pa.float()).abs().max()) <= 2 ** -6
+    for name, a, b in zip(list(wtk.StackParams._fields) + ["dx0", "dc"],
+                          [*kb[0], kb[1], kb[2]], [*pb[0], pb[1], pb[2]]):
+        assert rel(a, b) <= STACK_RTOL, name
+    for a, b in zip([*kb[0], kb[1], kb[2]], [*again[0], again[1], again[2]]):
+        assert torch.equal(a, b)
+
+
+def test_wavenet_train_step_takes_the_kernels(dev):
+    """A train step with the gate open (CUDA, use_fused_train_stack)
+    launches kernels 5a and 5b, and its gradients agree with the layer
+    loop's (the gate closed) at dropout 0: cosine >= 0.999."""
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    cfg, *_ = _wavenet_stack_case(dev)
+    cfg = cfg.replace(wavenet=dataclasses.replace(cfg.wavenet, dropout=0.0),
+                      audio=dataclasses.replace(cfg.audio, hop_size=200))
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-0.5, 0.5, (2, 2000, 1)).astype(np.float32)
+    batch = dict(x=x, y=x[..., 0], c=rng.uniform(0, 1, (2, 10, 80)).astype(
+        np.float32), input_lengths=np.full(2, 2000, np.int32))
+    grads = []
+    for fused in (True, False):
+        c = cfg.replace(wavenet=dataclasses.replace(
+            cfg.wavenet, use_fused_train_stack=fused))
+        tr = WaveNetTrainer(c)
+        state = tr.init_state(torch.Generator().manual_seed(0), batch)
+        n0 = (wtk.fwd_launches, wtk.bwd_launches)
+        _, _, gr = tr.gradients(state, batch, seed=3)
+        torch.cuda.synchronize()
+        n = (wtk.fwd_launches - n0[0], wtk.bwd_launches - n0[1])
+        assert n == ((1, 1) if fused else (0, 0))
+        grads.append(torch.cat([t.flatten() for t in gr]))
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1], dim=0)
+    assert float(cos) >= 0.999

@@ -26,7 +26,8 @@ def test_port_files_exist():
     files = _port_files()
     assert os.path.exists(files[0]) and len(files) > 30
     csrc = os.path.join(ROOT, "tacotron2_tpu_torch", "csrc")
-    assert os.path.exists(os.path.join(csrc, "decoder_bwd.cu"))
+    for src in ("decoder_bwd.cu", "wavenet_train.cu"):
+        assert os.path.exists(os.path.join(csrc, src)), src
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
                 "ops/griffin_lim_kernel.py", "data/audio.py",
@@ -37,7 +38,9 @@ def test_port_files_exist():
                 "models/tacotron/losses.py", "data/feeder.py",
                 "eval/convergence.py", "train/optim.py",
                 "train/tacotron_step.py", "train/checkpoint.py",
-                "train/eval_guard.py", "train/tacotron_train.py"):
+                "train/eval_guard.py", "train/tacotron_train.py",
+                "ops/wavenet_train_kernel.py", "train/wavenet_step.py",
+                "train/wavenet_train.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 
