@@ -87,10 +87,9 @@ __device__ __forceinline__ float round_bf16(float v) {
 // out[n] = bias[n] + sum_k x[k] * w[k * N + n] for n < N.
 // w: [K, N] row-major in global memory, N % V == 0, N / V <= blockDim.x,
 // rows aligned to P's load. x, out, part: shared memory; part holds
-// blockDim.x * V floats; out must not alias x. RX rounds each x[k] to bf16
-// as it enters the product. Every thread of the block must call it; it
-// ends with __syncthreads().
-template <int DEPTH, typename W, typename P = Pack<W>, bool RX = false>
+// blockDim.x * V floats; out must not alias x. Every thread of the block
+// must call it; it ends with __syncthreads().
+template <int DEPTH, typename W, typename P = Pack<W>>
 __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
                        const float* x, int K, int N, float* out,
                        float* part) {
@@ -114,8 +113,7 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
       for (int j = 0; j < DEPTH; ++j) {
         float wv[V];
         P::cvt(raw[j], wv);
-        const float xk = RX ? round_bf16(x[k + j * splits])
-                            : x[k + j * splits];
+        const float xk = x[k + j * splits];
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = fmaf(xk, wv[i], acc[i]);
       }
@@ -134,7 +132,7 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
         if (kj < K) {
           float wv[V];
           P::cvt(raw[j], wv);
-          const float xk = RX ? round_bf16(x[kj]) : x[kj];
+          const float xk = x[kj];
 #pragma unroll
           for (int i = 0; i < V; ++i) acc[i] = fmaf(xk, wv[i], acc[i]);
         }

@@ -34,23 +34,38 @@
 // CTA outside its own cluster. State in and out may alias: every read of it
 // precedes the first cluster.sync(), every write follows the last.
 //
-// Teacher-forced mode (`decoder_kernel<true, false>`, the template's other
-// instantiation; the wrapper is tacotron2_tpu_torch/ops/
-// tacotron_train_kernel.py, the plain version models/tacotron/decoder.py:
-// teacher_forced). It is the same step, so it is a launch mode of this
-// kernel and not a copy: the two modes differ in five places, each a
-// compile-time branch, and the autoregressive instantiation compiles as
-// before. (1) Step t's input frame is teacher[t] ([steps, B, mels]) where
-// coins[t] is set, else the previous step's last frame (one coin per step,
-// shared by the batch, as JAX's Decoder.teacher_forced draws them). (2) The
-// stop head writes logits, no sigmoid. (3) No sticky stop flag and no early
-// stop: the wrapper runs every step in one launch (t0 = 0, nsteps = steps)
-// with the window constraint off. (4) Alignments are always written.
-// (5) Every activation is rounded to bf16 where it enters a product — the
+// Weights and rounding. The kernel is a template on the weight type W of
+// every matmul weight (`__nv_bfloat16` or `float`, one type for all,
+// `tacotron.fused_decoder_dtype` / `fused_train_dtype`). With bf16 weights
+// every activation is rounded to bf16 where it enters a product — the
 // matvec inputs, the cumulative weights of the location features, the
-// alignment of the context — as the TPU train kernel does with bf16
-// weights (the wrapper rounds the memory and the location taps once);
-// sums and the carried state stay f32. Zoneout is the EMA mix
+// alignment of the context, the emt alignment — as the TPU kernels do
+// (`x.astype(weight_dtype)`); the wrapper rounds the memory, the location
+// taps, the emt keys and memory once, and as the route's TPU kernel does
+// the keys (autoregressive) and v_a (block route); the energies' tanh is
+// rounded at runtime flag `tanh_bf16` (the block kernel's default "vmat"
+// energy mode without emt_attn). Each such value is rounded once, where it
+// is made, into a copy in shared memory that the products read (`put`), not
+// once per column group inside the product loop. Sums and the carried
+// state stay f32. With f32 weights nothing is rounded and the products run on the FP32 cores
+// (no tensor cores, no TF32: JAX's f32 kernel is the scan's function up to
+// op order). `smoothing` (runtime) normalises the masked sigmoids of the
+// energies in place of the softmax, as both TPU kernels do (:1012-1014,
+// :598-600); the argmax, the cumulative sum and the context are shared.
+//
+// Teacher-forced mode (`decoder_kernel<W, true, false>`; the wrapper is
+// tacotron2_tpu_torch/ops/tacotron_train_kernel.py, the plain version
+// models/tacotron/decoder.py:teacher_forced). It is the same step, so it
+// is a launch mode of this kernel and not a copy: the two modes differ in
+// four places, each a compile-time branch. (1) Step t's input frame is
+// teacher[t] ([steps, B, mels]) where coins[t] is set, else the previous
+// step's last frame (one coin per step, shared by the batch, as JAX's
+// Decoder.teacher_forced draws them). (2) The stop head writes logits, no
+// sigmoid. (3) No sticky stop flag and no early stop: the wrapper runs
+// every step in one launch (t0 = 0, nsteps = steps) with the window
+// constraint off and softmax attention (build_train_fwd asserts it). (4)
+// Alignments are always written. The wrapper rounds neither the keys nor
+// v_a there (build_train_fwd keeps both f32). Zoneout is the EMA mix
 // (train_zoneout=False) in eval mode.
 //
 // Train mode (the same instantiation, a runtime mode: the wrapper passes
@@ -67,8 +82,9 @@
 // gate columns of z1 and z2 in their natural (i, j, f, o) x U order, its
 // own units of c1, h1, c2, h2 and its own context columns.
 //
-// emt_attn mode (`decoder_kernel<false, true>`, a third instantiation: the
-// two others compile as before). The Tacotron_emt_attn variant attends,
+// emt_attn mode (`decoder_kernel<W, false, true>`). Six instantiations are
+// launched: autoregressive x {bf16, f32} x {without, with emt_attn} and
+// teacher-forced x {bf16, f32}. The Tacotron_emt_attn variant attends,
 // besides the text, over the emotion reference's sequence: Te positions of
 // V values (the emt memory, Te = ceil(T_ref / 64), 16 at a 1,000-frame
 // reference). LSTM1 takes [hpre | ctx | ctx_emt | h1] (E more rows of its
@@ -103,7 +119,11 @@
 // the cluster. No CTA waits on anything but its own __syncthreads() and its
 // cluster's hardware barrier. The bf16 weights (~36 MB at the default
 // width) are read from global memory every step and stay resident in the
-// 50 MB L2; activations and sums are f32. The attention works at any input
+// 50 MB L2; activations and sums are f32. The f32 weights (~73 MB) do not
+// fit it: the same cluster split is kept (each CTA streams its 1/CS of the
+// gate columns, 4 f32 weights a 16-byte load), so every step reads the part
+// the L2 does not hold from HBM again, shared by the rows that step
+// together (PERF.md §6 has its cost). The attention works at any input
 // length T that fits shared memory (one warp per input position).
 //
 // Bound: the kernel is latency-bound on the L2 reads of each step's LSTM
@@ -115,11 +135,15 @@
 // Shared memory per CTA (floats, default width, T = input length):
 // xprev mels + prenet 2P + [hpre P | ctx M | ctx_emt E | h1 U | h2 U | ctx2
 // M] + own c1, c2, new h slice 3·U/CS + gates 4U/CS + new ctx slice M/CS +
-// matvec partials 512·8 + q A + cum, align 2T + proj FOp + wp K·A + 32
-// ≈ 13.5k + 2T floats ≈ 55 KB + 8T bytes, under the 227 KB a CTA may use
-// up to T ≈ 22,000. emt_attn adds E + Te·(A2 + V) + NH·(A2 + Te + V) + A2
-// floats (≈ 43 KB at Te = 16, A2 = V = 256).
+// matvec partials 512·8 + q A + cum, align 2T + proj FOp + wp K·A + 32,
+// and the rounded copies of the head, cum and align (mels + 2P + 2M + E +
+// 2U + 2T; the f32 kernel reserves them too) ≈ 17.2k + 4T floats ≈ 69 KB
+// + 16T bytes, under the 227 KB a CTA may use up to T ≈ 9,800. emt_attn
+// adds E + Te·(A2 + V) + NH·(A2 + Te + V) + A2 floats (≈ 43 KB at Te = 16,
+// A2 = V = 256).
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -147,27 +171,30 @@ enum Ptr {
 enum Int {
   I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
   I_FOP, I_CONSTRAINT, I_WIN_BACK, I_WIN_FWD, I_STOP_AT_ANY,
-  I_TEACHER_FORCED, I_E, I_TE, I_A2, I_EV, I_NH, N_INT
+  I_TEACHER_FORCED, I_E, I_TE, I_A2, I_EV, I_NH, I_F32_WEIGHTS, I_SMOOTHING,
+  I_TANH_BF16, N_INT
 };
 
+// The matmul weights (`const void*`) are of the kernel's weight type W:
+// __nv_bfloat16 or float (f32_weights), one type for all of them.
 struct DecArgs {
   const float* keys;    // [B, T, A] keys + folded attention bias
   const float* memory;  // [B, T, M]
   const float* mask;    // [B, T] 1/0
   const float* drop;    // [B, s_total, 2, P] prenet dropout multipliers
-  const __nv_bfloat16* pre_w0;  // [mels, P]
+  const void* pre_w0;           // [mels, P]
   const float* pre_b0;          // [P]
-  const __nv_bfloat16* pre_w1;  // [P, P]
+  const void* pre_w1;           // [P, P]
   const float* pre_b1;          // [P]
-  const __nv_bfloat16* l1_w;    // [CS, P + M + E + U, 4U/CS] per-rank gate
+  const void* l1_w;             // [CS, P + M + E + U, 4U/CS] per-rank gate
                                 // columns, rows [prenet | ctx | ctx_emt | h1]
   const float* l1_b;            // [CS, 4U/CS] (forget bias folded)
-  const __nv_bfloat16* l2_w;    // [CS, 2U, 4U/CS]
+  const void* l2_w;             // [CS, 2U, 4U/CS]
   const float* l2_b;            // [CS, 4U/CS]
-  const __nv_bfloat16* wq;      // [U, A]
+  const void* wq;               // [U, A]
   const float* wp;              // [KW, A] location taps x projection
   const float* v_a;             // [A]
-  const __nv_bfloat16* proj_w;  // [U + M, FOp] rows [h2 | ctx]
+  const void* proj_w;           // [U + M, FOp] rows [h2 | ctx]
   const float* proj_b;          // [FOp]
   // state in / out: each row's vector [xprev | hp0 | hpre | ctx | ctx_emt
   // | h1 | h2 | ctx2 | (c1, c2 of rank 0) | ... | (c1, c2 of rank CS-1)],
@@ -201,23 +228,40 @@ struct DecArgs {
   const float* escore;
   const float* emem;
   const float* l1_brow;
-  const __nv_bfloat16* w2e;
-  const __nv_bfloat16* eout_w;
+  const void* w2e;
+  const void* eout_w;
   const float* eout_b;
   int T, t0, nsteps, s_total, mels, P, U, M, A, KW, r, FOp;
   int B, constraint, win_back, win_fwd, stop_at_any, teacher_forced;
   int E, Te, A2, EV, NH;
+  int smoothing;  // normalised sigmoids in place of the softmax
+  int tanh_bf16;  // round the energies' tanh where it meets v_a
   float zoneout;
 };
 
-// This rank's product on x in shared memory; the teacher-forced mode
-// rounds x to bf16 as it enters (see the note).
-template <bool TF>
-__device__ __forceinline__ void mv(const __nv_bfloat16* w, const float* bias,
+// With bf16 weights every activation is rounded to bf16 where it enters a
+// product (see the note); with f32 weights nothing is.
+template <typename W>
+__host__ __device__ constexpr bool rounds() {
+  return std::is_same<W, __nv_bfloat16>::value;
+}
+
+// p[i] = v, and with bf16 weights its rounded copy pr[i] = bf16(v): each
+// value that enters a product is rounded once, where it is made, and the
+// products read the copy (with f32 weights pr is p and nothing is copied).
+template <typename W>
+__device__ __forceinline__ void put(float* p, float* pr, int i, float v) {
+  p[i] = v;
+  if constexpr (rounds<W>()) pr[i] = taco::round_bf16(v);
+}
+
+// This rank's product on x in shared memory (a rounded copy with bf16
+// weights).
+template <typename W>
+__device__ __forceinline__ void mv(const void* w, const float* bias,
                                    const float* x, int K, int N, float* out,
                                    float* part) {
-  taco::matvec<DEPTH, __nv_bfloat16, taco::Pack<__nv_bfloat16>, TF>(
-      w, bias, x, K, N, out, part);
+  taco::matvec<DEPTH, W>(static_cast<const W*>(w), bias, x, K, N, out, part);
 }
 
 // Residual rows of one step (train mode): z [4U], c and h [U], or null.
@@ -231,11 +275,14 @@ struct LstmRes {
 // (Uc each), own cell state c, the full previous h; the new h slice goes to
 // hnew. Zoneout is the EMA mix, or with m ([c | h] masks of all U units)
 // the Bernoulli select; train mode writes the residual rows. Then every CTA
-// of the cluster receives the new h at h[rank*Uc ...].
+// of the cluster receives the new h at h[rank*Uc ...] and its rounded copy
+// at hr (see `put`).
+template <typename W>
 __device__ void lstm_update_and_share(cg::cluster_group& cluster, int rank,
                                       const float* z, float* c, float* h,
-                                      float* hnew, int Uc, float zo,
-                                      const uint8_t* m, LstmRes res) {
+                                      float* hr, float* hnew, int Uc,
+                                      float zo, const uint8_t* m,
+                                      LstmRes res) {
   const int U = Uc * CS;
   for (int u = threadIdx.x; u < Uc; u += NT) {
     const float nc = taco::sigmoidf(z[2 * Uc + u]) * c[u] +
@@ -257,24 +304,27 @@ __device__ void lstm_update_and_share(cg::cluster_group& cluster, int rank,
     }
   }
   cluster.sync();  // every CTA is done reading the previous h
-  for (int i = threadIdx.x; i < CS * Uc; i += NT) {
-    float* dst = cluster.map_shared_rank(h, i / Uc);
-    dst[rank * Uc + i % Uc] = hnew[i % Uc];
-  }
+  for (int i = threadIdx.x; i < CS * Uc; i += NT)
+    put<W>(cluster.map_shared_rank(h, i / Uc),
+           cluster.map_shared_rank(hr, i / Uc), rank * Uc + i % Uc,
+           hnew[i % Uc]);
   cluster.sync();  // the new h is complete everywhere
 }
 
 // The emt attention of one step (emt_attn mode, see the note): qe = h2 ·
-// W2e, the NH score rows' energies over the Te positions, a softmax per
-// row, the contexts over the emt memory, and for multihead the output
-// Dense; the next ctx_emt lands in `cte`. Every thread of the CTA calls it.
-__device__ void emt_attention(const DecArgs& a, const float* h2,
+// W2e (h2r: h2's rounded copy), the NH score rows' energies over the Te
+// positions, a softmax per row, the contexts over the emt memory, and for
+// multihead the output Dense; the next ctx_emt lands in `cte`, its rounded
+// copy in `cter`. Every thread of the CTA calls it.
+template <typename W>
+__device__ void emt_attention(const DecArgs& a, const float* h2r,
                               const float* ekeys, const float* escore,
                               const float* emem, float* qe, float* een,
-                              float* ctxmh, float* cte, float* part) {
+                              float* ctxmh, float* cte, float* cter,
+                              float* part) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int Te = a.Te, A2 = a.A2, NH = a.NH, EV = a.EV;
-  mv<false>(a.w2e, nullptr, h2, a.U, A2, qe, part);
+  mv<W>(a.w2e, nullptr, h2r, a.U, A2, qe, part);
   // one warp per position: one tanh per column, NH dot products
   for (int tt = warp; tt < Te; tt += NT / 32) {
     float acc[MAXH];
@@ -295,7 +345,8 @@ __device__ void emt_attention(const DecArgs& a, const float* h2,
     }
   }
   __syncthreads();
-  // softmax over the positions, one warp per score row
+  // softmax over the positions, one warp per score row; the weights only
+  // enter the contexts' product, so they are kept rounded (see `put`)
   for (int h = warp; h < NH; h += NT / 32) {
     float* e = een + h * Te;
     float m = -INFINITY;
@@ -308,23 +359,31 @@ __device__ void emt_attention(const DecArgs& a, const float* h2,
       sum += x;
     }
     sum = taco::warp_sum(sum);
-    for (int i = lane; i < Te; i += 32) e[i] /= sum;
+    for (int i = lane; i < Te; i += 32) put<W>(e, e, i, e[i] / sum);
   }
   __syncthreads();
-  // each row's context over the emt memory
-  float* dst = a.eout_w ? ctxmh : cte;
+  // each row's context over the emt memory (multihead's joined contexts
+  // only enter the output Dense: kept rounded)
   for (int i = threadIdx.x; i < NH * EV; i += NT) {
     const float* al = een + (i / EV) * Te;
     const int v = i % EV;
     float acc = 0.f;
-    for (int tt = 0; tt < Te; ++tt) acc = fmaf(al[tt], emem[tt * EV + v], acc);
-    dst[i] = acc;
+    for (int tt = 0; tt < Te; ++tt)
+      acc = fmaf(al[tt], emem[tt * EV + v], acc);
+    if (a.eout_w)
+      put<W>(ctxmh, ctxmh, i, acc);
+    else
+      put<W>(cte, cter, i, acc);
   }
   __syncthreads();
-  if (a.eout_w) mv<false>(a.eout_w, a.eout_b, ctxmh, NH * EV, a.E, cte, part);
+  if (a.eout_w) {
+    mv<W>(a.eout_w, a.eout_b, ctxmh, NH * EV, a.E, cte, part);
+    // LSTM1 reads the copy at the next step, past this step's barriers
+    for (int i = threadIdx.x; i < a.E; i += NT) put<W>(cte, cter, i, cte[i]);
+  }
 }
 
-template <bool TF, bool EMT>
+template <typename W, bool TF, bool EMT>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     decoder_kernel(const DecArgs a) {
   extern __shared__ float sm[];
@@ -379,25 +438,33 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* qe = escore + (EMT ? a.NH * a.A2 : 0);
   float* een = qe + (EMT ? a.A2 : 0);
   float* ctxmh = een + (EMT ? a.NH * a.Te : 0);
+  // with bf16 weights the rounded copies of what enters a product (see
+  // `put`): of the head xprev .. ctx2 at the same offsets (R), of cum and
+  // of the alignments; with f32 weights the copies are the values
+  const int n_head = (int)(c1 - sm);  // xprev .. ctx2
+  float* const smr = rounds<W>() ? ctxmh + (EMT ? a.NH * a.EV : 0) : sm;
+  float* const cumr = rounds<W>() ? smr + n_head : cum;
+  float* const alr = rounds<W>() ? cumr + T : al;
+  const auto R = [&](float* p) { return smr + (p - sm); };
 
   const float* keys = a.keys + (size_t)b * T * A;
   const float* mem = a.memory + (size_t)b * T * M;
   const float* mask = a.mask + (size_t)b * T;
   const float* drop = a.drop + (size_t)b * a.s_total * 2 * P;
   float* out = a.out + (size_t)b * a.s_total * FO;
-  const __nv_bfloat16* l1_w = a.l1_w + (size_t)rank * K1 * 4 * Uc;
-  const __nv_bfloat16* l2_w = a.l2_w + (size_t)rank * 2 * U * 4 * Uc;
+  const W* l1_w = static_cast<const W*>(a.l1_w) + (size_t)rank * K1 * 4 * Uc;
+  const W* l2_w = static_cast<const W*>(a.l2_w) + (size_t)rank * 2 * U * 4 * Uc;
   const float* l1_b = EMT ? a.l1_brow + ((size_t)b * CS + rank) * 4 * Uc
                           : a.l1_b + rank * 4 * Uc;
   const float* l2_b = a.l2_b + rank * 4 * Uc;
 
   // ---- load the carried state: every CTA its full copy, c its own units
-  const int n_head = (int)(c1 - sm);  // xprev .. ctx2
   const float* st_in = a.state_in + (size_t)b * (n_head + 2 * U);
-  for (int i = tid; i < n_head; i += NT) sm[i] = st_in[i];
+  for (int i = tid; i < n_head; i += NT) put<W>(sm, smr, i, st_in[i]);
   for (int i = tid; i < 2 * Uc; i += NT)
     c1[i] = st_in[n_head + rank * 2 * Uc + i];  // c1 | c2 of this rank
-  for (int i = tid; i < T; i += NT) cum[i] = a.cum_in[(size_t)b * T + i];
+  for (int i = tid; i < T; i += NT)
+    put<W>(cum, cumr, i, a.cum_in[(size_t)b * T + i]);
   for (int i = tid; i < a.KW * A; i += NT) wp[i] = a.wp[i];
   if constexpr (EMT) {
     const int nk = a.Te * a.A2, nm = a.Te * a.EV;
@@ -435,19 +502,21 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     if constexpr (TF) {
       if (a.coins[t]) {
         const float* tf = a.teacher + ((size_t)t * a.B + b) * mels;
-        for (int i = tid; i < mels; i += NT) xprev[i] = tf[i];
+        for (int i = tid; i < mels; i += NT) put<W>(xprev, R(xprev), i, tf[i]);
       }
       __syncthreads();
     }
 
     // ---- prenet: 2x (FC + ReLU + dropout multiplier), on every CTA
-    mv<TF>(a.pre_w0, a.pre_b0, xprev, mels, P, hp0, part);
+    mv<W>(a.pre_w0, a.pre_b0, R(xprev), mels, P, hp0, part);
     for (int i = tid; i < P; i += NT)
-      hp0[i] = fmaxf(hp0[i], 0.f) * drop[(size_t)(2 * t) * P + i];
+      put<W>(hp0, R(hp0), i,
+             fmaxf(hp0[i], 0.f) * drop[(size_t)(2 * t) * P + i]);
     __syncthreads();
-    mv<TF>(a.pre_w1, a.pre_b1, hp0, P, P, hpre, part);
+    mv<W>(a.pre_w1, a.pre_b1, R(hp0), P, P, hpre, part);
     for (int i = tid; i < P; i += NT) {
-      hpre[i] = fmaxf(hpre[i], 0.f) * drop[(size_t)(2 * t + 1) * P + i];
+      put<W>(hpre, R(hpre), i,
+             fmaxf(hpre[i], 0.f) * drop[(size_t)(2 * t + 1) * P + i]);
       if (train && rank == 0) {
         a.res_h0d[row * P + i] = hp0[i];
         a.res_hpre[row * P + i] = hpre[i];
@@ -457,19 +526,21 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
 
     // ---- zoneout LSTM1 on [hpre | ctx | h1], LSTM2 on [h1 | h2]; this
     // rank's gate columns, then the new h slices are shared
-    mv<TF>(l1_w, l1_b, vec, K1, 4 * Uc, z, part);
-    lstm_update_and_share(cluster, rank, z, c1, h1, hnew, Uc, zo, zm, res1);
-    mv<TF>(l2_w, l2_b, h1, 2 * U, 4 * Uc, z, part);
-    lstm_update_and_share(cluster, rank, z, c2, h2, hnew, Uc, zo,
-                          zm ? zm + 2 * U : nullptr, res2);
+    mv<W>(l1_w, l1_b, R(vec), K1, 4 * Uc, z, part);
+    lstm_update_and_share<W>(cluster, rank, z, c1, h1, R(h1), hnew, Uc, zo,
+                             zm, res1);
+    mv<W>(l2_w, l2_b, R(h1), 2 * U, 4 * Uc, z, part);
+    lstm_update_and_share<W>(cluster, rank, z, c2, h2, R(h2), hnew, Uc, zo,
+                             zm ? zm + 2 * U : nullptr, res2);
 
     // ---- emt attention: the next step's ctx_emt, on every CTA. LSTM1's
     // reads of ctx_emt ended before the first exchange above.
     if constexpr (EMT)
-      emt_attention(a, h2, ekeys, escore, emem, qe, een, ctxmh, cte, part);
+      emt_attention<W>(a, R(h2), ekeys, escore, emem, qe, een, ctxmh, cte,
+                       R(cte), part);
 
     // ---- location-sensitive energies, one warp per input position
-    mv<TF>(a.wq, nullptr, h2, U, A, q, part);
+    mv<W>(a.wq, nullptr, R(h2), U, A, q, part);
     if (train && rank == 0)
       for (int i = tid; i < A; i += NT) a.res_q[row * A + i] = q[i];
     const int pmax = s_pmax;
@@ -479,12 +550,11 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
         float loc = 0.f;
         for (int k = 0; k < a.KW; ++k) {
           const int si = tt + k - pad;
-          if (si >= 0 && si < T)
-            loc = fmaf(TF ? taco::round_bf16(cum[si]) : cum[si],
-                       wp[k * A + aa], loc);
+          if (si >= 0 && si < T) loc = fmaf(cumr[si], wp[k * A + aa], loc);
         }
-        acc = fmaf(a.v_a[aa], tanhf(keys[(size_t)tt * A + aa] + q[aa] + loc),
-                   acc);
+        float e = tanhf(keys[(size_t)tt * A + aa] + q[aa] + loc);
+        if (a.tanh_bf16) e = taco::round_bf16(e);
+        acc = fmaf(a.v_a[aa], e, acc);
       }
       acc = taco::warp_sum(acc);
       if (lane == 0) {
@@ -495,13 +565,17 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     }
     __syncthreads();
 
-    // ---- masked softmax, cumulative weights, window position
+    // ---- masked softmax (or with smoothing the masked sigmoids; a
+    // forbidden energy's sigmoid is 0), cumulative weights, window position
     float m = -INFINITY;
-    for (int i = tid; i < T; i += NT) m = fmaxf(m, al[i]);
-    m = taco::block_max(m, red);
+    if (!a.smoothing) {
+      for (int i = tid; i < T; i += NT) m = fmaxf(m, al[i]);
+      m = taco::block_max(m, red);
+    }
     float sum = 0.f;
     for (int i = tid; i < T; i += NT) {
-      const float e = expf(al[i] - m) * mask[i];
+      const float e =
+          (a.smoothing ? taco::sigmoidf(al[i]) : expf(al[i] - m)) * mask[i];
       al[i] = e;
       sum += e;
     }
@@ -510,8 +584,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     int best_i = 0x7fffffff;
     for (int i = tid; i < T; i += NT) {
       const float v = al[i] / sum;
-      al[i] = v;
-      cum[i] += v;
+      put<W>(al, alr, i, v);
+      put<W>(cum, cumr, i, cum[i] + v);
       if (v > best) {
         best = v;
         best_i = i;
@@ -531,21 +605,22 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       float acc = 0.f;
 #pragma unroll 8
       for (int tt = 0; tt < T; ++tt)
-        acc = fmaf(TF ? taco::round_bf16(al[tt]) : al[tt],
-                   mem[(size_t)tt * M + col], acc);
+        acc = fmaf(alr[tt], mem[(size_t)tt * M + col], acc);
       cnew[mm] = acc;
       if (train) a.res_ctx[row * M + col] = acc;
     }
     __syncthreads();
     for (int i = tid; i < CS * Mc; i += NT) {
       const int dst_rank = i / Mc, col = rank * Mc + i % Mc;
-      cluster.map_shared_rank(ctx, dst_rank)[col] = cnew[i % Mc];
-      cluster.map_shared_rank(ctx2, dst_rank)[col] = cnew[i % Mc];
+      put<W>(cluster.map_shared_rank(ctx, dst_rank),
+             cluster.map_shared_rank(R(ctx), dst_rank), col, cnew[i % Mc]);
+      put<W>(cluster.map_shared_rank(ctx2, dst_rank),
+             cluster.map_shared_rank(R(ctx2), dst_rank), col, cnew[i % Mc]);
     }
     cluster.sync();
 
     // ---- fused frame + stop projection on [h2 | ctx], on every CTA
-    mv<TF>(a.proj_w, a.proj_b, h2, U + M, a.FOp, proj, part);
+    mv<W>(a.proj_w, a.proj_b, R(h2), U + M, a.FOp, proj, part);
     const int nf = a.r * mels;
     if (rank == 0) {
       for (int i = tid; i < nf; i += NT) out[(size_t)t * FO + i] = proj[i];
@@ -553,7 +628,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
         out[(size_t)t * FO + nf + i] =
             TF ? proj[nf + i] : taco::sigmoidf(proj[nf + i]);
     }
-    for (int i = tid; i < mels; i += NT) xprev[i] = proj[(a.r - 1) * mels + i];
+    for (int i = tid; i < mels; i += NT)
+      put<W>(xprev, R(xprev), i, proj[(a.r - 1) * mels + i]);
     if (!TF && rank == 0 && tid == 0) {
       float lo = 1.f, hi = 0.f;
       for (int i = 0; i < a.r; ++i) {
@@ -602,8 +678,11 @@ extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
                                           int E, int Te, int A2, int EV,
                                           int NH) {
   const int Uc = U / CS, Mc = M / CS;
-  size_t floats = (size_t)mels + 2 * P + 2 * M + E + 2 * U + 3 * Uc +
-                  4 * Uc + Mc + NT * 8 + A + 2 * T + FOp + KW * A + 32;
+  const size_t head = (size_t)mels + 2 * P + 2 * M + E + 2 * U;
+  // the head, c1 .. red, and the rounded copies of the head, cum and the
+  // alignments (bf16 weights; the f32 kernel leaves them unused)
+  size_t floats = head + 3 * Uc + 4 * Uc + Mc + NT * 8 + A + 2 * T + FOp +
+                  KW * A + 32 + head + 2 * T;
   if (E)
     floats += (size_t)Te * (A2 + EV) + (size_t)NH * (A2 + Te + EV) + A2;
   return floats * sizeof(float);
@@ -624,18 +703,18 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.memory = (const float*)ptrs[P_MEMORY];
   a.mask = (const float*)ptrs[P_MASK];
   a.drop = (const float*)ptrs[P_DROP];
-  a.pre_w0 = (const __nv_bfloat16*)ptrs[P_PRE_W0];
+  a.pre_w0 = ptrs[P_PRE_W0];
   a.pre_b0 = (const float*)ptrs[P_PRE_B0];
-  a.pre_w1 = (const __nv_bfloat16*)ptrs[P_PRE_W1];
+  a.pre_w1 = ptrs[P_PRE_W1];
   a.pre_b1 = (const float*)ptrs[P_PRE_B1];
-  a.l1_w = (const __nv_bfloat16*)ptrs[P_L1_W];
+  a.l1_w = ptrs[P_L1_W];
   a.l1_b = (const float*)ptrs[P_L1_B];
-  a.l2_w = (const __nv_bfloat16*)ptrs[P_L2_W];
+  a.l2_w = ptrs[P_L2_W];
   a.l2_b = (const float*)ptrs[P_L2_B];
-  a.wq = (const __nv_bfloat16*)ptrs[P_WQ];
+  a.wq = ptrs[P_WQ];
   a.wp = (const float*)ptrs[P_WP];
   a.v_a = (const float*)ptrs[P_V_A];
-  a.proj_w = (const __nv_bfloat16*)ptrs[P_PROJ_W];
+  a.proj_w = ptrs[P_PROJ_W];
   a.proj_b = (const float*)ptrs[P_PROJ_B];
   a.state_in = (const float*)ptrs[P_STATE_IN];
   a.cum_in = (const float*)ptrs[P_CUM_IN];
@@ -662,8 +741,8 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.escore = (const float*)ptrs[P_ESCORE];
   a.emem = (const float*)ptrs[P_EMEM];
   a.l1_brow = (const float*)ptrs[P_L1_BROW];
-  a.w2e = (const __nv_bfloat16*)ptrs[P_W2E];
-  a.eout_w = (const __nv_bfloat16*)ptrs[P_EOUT_W];
+  a.w2e = ptrs[P_W2E];
+  a.eout_w = ptrs[P_EOUT_W];
   a.eout_b = (const float*)ptrs[P_EOUT_B];
   a.B = ints[I_B];
   a.T = ints[I_T];
@@ -688,15 +767,21 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.A2 = ints[I_A2];
   a.EV = ints[I_EV];
   a.NH = ints[I_NH];
+  a.smoothing = ints[I_SMOOTHING];
+  a.tanh_bf16 = ints[I_TANH_BF16];
+  const bool f32w = ints[I_F32_WEIGHTS] != 0;
   a.zoneout = zoneout;
   if (a.nsteps < 1 || a.t0 < 0 || a.t0 + a.nsteps > a.s_total)
     return (int)cudaErrorInvalidValue;
-  // teacher-forced: teacher, coins and alignments given, no stop flags and
-  // no window constraint
+  // teacher-forced: teacher, coins and alignments given, no stop flags, no
+  // window constraint and softmax attention (as build_train_fwd)
   if (a.teacher_forced &&
       (!a.teacher || !a.coins || !a.align || a.fired_in || a.fired_out ||
-       a.constraint))
+       a.constraint || a.smoothing))
     return (int)cudaErrorInvalidValue;
+  // f32 weights: 16-byte loads of 4 of them, so every product's width and
+  // row stride is a multiple of 4; the tanh is rounded only with bf16
+  if (f32w && a.tanh_bf16) return (int)cudaErrorInvalidValue;
   // train mode: the teacher-forced mode with the masks and every residual
   // buffer, all steps in one launch
   if ((a.zmask || n_res) &&
@@ -717,10 +802,15 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   } else if (emt_ptrs) {
     return (int)cudaErrorInvalidValue;
   }
+  using bf16 = __nv_bfloat16;
   void (*kernel)(const DecArgs) =
-      a.teacher_forced ? decoder_kernel<true, false>
-                       : (a.E ? decoder_kernel<false, true>
-                              : decoder_kernel<false, false>);
+      a.teacher_forced
+          ? (f32w ? decoder_kernel<float, true, false>
+                  : decoder_kernel<bf16, true, false>)
+          : a.E ? (f32w ? decoder_kernel<float, false, true>
+                        : decoder_kernel<bf16, false, true>)
+                : (f32w ? decoder_kernel<float, false, false>
+                        : decoder_kernel<bf16, false, false>);
   const size_t smem =
       taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp,
                               a.E, a.Te, a.A2, a.EV, a.NH);

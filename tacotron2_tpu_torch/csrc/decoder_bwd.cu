@@ -16,17 +16,22 @@
 // (with the folded attention bias), of the folded location taps wp [K, A]
 // and of v_a. The weight gradients are products outside the kernel
 // (`weight_grads`, as JAX leaves them to XLA). Activations enter each
-// product as they entered the forward's (the cumulative weights and the
-// memory rounded to bf16); gradients are f32 and are not rounded.
+// product as they entered the forward's (with bf16 weights the cumulative
+// weights and the memory rounded to bf16; with f32 weights nothing is
+// rounded); gradients are f32 and are not rounded. The kernel is a
+// template on the weight type W (`__nv_bfloat16` or `float`, one type for
+// every matmul weight); the transposed products load 16 bytes a lane (8
+// bf16 or 4 f32 weights).
 //
 // Carried from step t to t-1: the gradients of h1, c1, h2, c2 (each CTA
 // its own units), of the context (its own columns), of the cumulative
 // alignments (every CTA the whole [T]) and of the step's input frame,
 // which goes into step t-1's projection gradient where coins[t] is 0.
 //
-// Design. The forward's cluster split of the bf16 weights is kept (the
-// same `pack_weights` operands, ~36 MB at the default width, read from L2
-// every step): CTA `rank` of CS=8 owns the 4 gate columns of U/CS units of
+// Design. The forward's cluster split of the weights is kept (the same
+// `pack_weights` operands, ~36 MB in bf16 at the default width, read from
+// L2 every step; ~73 MB in f32, part of which every step reads from HBM
+// again): CTA `rank` of CS=8 owns the 4 gate columns of U/CS units of
 // each LSTM. So it forms the gate gradients dz of its own units locally,
 // and the transposed products dx = Wᵀ·dz — which sum over all 4U gate
 // columns, spread over the cluster — each CTA forms as a partial over its
@@ -59,6 +64,8 @@
 // + 4P + mels + 32 ≈ 23k floats (~91 KB) at the default width and T = 96.
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -75,19 +82,24 @@ enum Ptr {
   P_DROP, P_ZMASK, P_COINS, P_DOUT, P_DALIGN, P_DZ1, P_DZ2, P_DA0, P_DA1,
   P_DPROJ, P_DCTX, P_DQ, P_DKEYS, P_DWP, P_DVA, N_PTR
 };
-enum Int { I_B, I_T, I_S, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R, I_FOP, N_INT };
+enum Int {
+  I_B, I_T, I_S, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R, I_FOP, I_F32_WEIGHTS,
+  N_INT
+};
 
+// The matmul weights (`const void*`) are of the kernel's weight type W,
+// __nv_bfloat16 or float (f32_weights), one type for all of them.
 struct BwdArgs {
   const float* keys;    // [B, T, A] keys + folded attention bias
   const float* memory;  // [B, T, M] rounded to bf16 with bf16 weights
   const float* wp;      // [KW, A] folded location taps (rounded likewise)
   const float* v_a;     // [A]
-  const __nv_bfloat16* pre_w0;  // [mels, P]
-  const __nv_bfloat16* pre_w1;  // [P, P]
-  const __nv_bfloat16* l1_w;    // [CS, P + M + U, 4U/CS] per-rank gate cols
-  const __nv_bfloat16* l2_w;    // [CS, 2U, 4U/CS]
-  const __nv_bfloat16* wq;      // [U, A]
-  const __nv_bfloat16* proj_w;  // [U + M, FOp] rows [h2 | ctx]
+  const void* pre_w0;   // [mels, P]
+  const void* pre_w1;   // [P, P]
+  const void* l1_w;     // [CS, P + M + U, 4U/CS] per-rank gate cols
+  const void* l2_w;     // [CS, 2U, 4U/CS]
+  const void* wq;       // [U, A]
+  const void* proj_w;   // [U + M, FOp] rows [h2 | ctx]
   // residuals [B, S, ·]
   const float *align, *cum, *q, *z1, *z2, *c1, *c2, *h0d, *hpre;
   const float* drop;     // [B, S, 2, P] prenet dropout multipliers
@@ -108,36 +120,40 @@ struct BwdArgs {
 };
 
 // out[k] = (accumulate ? out[k] : 0) + sum_n w[k * N + n] * x[n], k < K:
-// w [K, N] bf16 row-major in global memory (N % 8 == 0, rows 16-byte
+// w [K, N] of type W row-major in global memory (N % 8 == 0, rows 16-byte
 // aligned), x and out in shared memory. One warp a row, ROWS rows in
-// flight a warp, lanes over 8-column chunks; fixed summation order. Every
-// thread of the block calls it; it ends with __syncthreads(). Out of line:
-// its six inlined copies crowded the kernel's 128 registers into spills
-// (native/time_bwd_variants.py times the variants).
-__device__ __noinline__ void rowdot(const __nv_bfloat16* __restrict__ w, const float* x,
-                       int K, int N, float* out, bool accumulate) {
-  using Pk = taco::Pack<__nv_bfloat16>;
+// flight a warp, lanes over V-column chunks (one 16-byte load: 8 bf16 or
+// 4 f32); fixed summation order. Every thread of the block calls it; it
+// ends with __syncthreads(). Out of line: its six inlined copies crowded
+// the kernel's 128 registers into spills (native/time_bwd_variants.py
+// times the variants).
+template <typename W>
+__device__ __noinline__ void rowdot(const void* wv_, const float* x, int K,
+                                    int N, float* out, bool accumulate) {
+  using Pk = taco::Pack<W>;
+  constexpr int V = Pk::V;
+  const W* __restrict__ w = static_cast<const W*>(wv_);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5, nc = N / 8;
+  const int nw = blockDim.x >> 5, nc = N / V;
   for (int k0 = warp * ROWS; k0 < K; k0 += nw * ROWS) {
     float acc[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
     for (int c = lane; c < nc; c += 32) {
-      Pk::Raw raw[ROWS];
+      typename Pk::Raw raw[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
-        raw[r] = k0 + r < K ? Pk::ld(w + (size_t)(k0 + r) * N + c * 8)
-                            : Pk::Raw{};
-      float xv[8];
+        raw[r] = k0 + r < K ? Pk::ld(w + (size_t)(k0 + r) * N + c * V)
+                            : typename Pk::Raw{};
+      float xv[V];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) xv[i] = x[c * 8 + i];
+      for (int i = 0; i < V; ++i) xv[i] = x[c * V + i];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        float wv[8];
+        float wv[V];
         Pk::cvt(raw[r], wv);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r] = fmaf(wv[i], xv[i], acc[r]);
+        for (int i = 0; i < V; ++i) acc[r] = fmaf(wv[i], xv[i], acc[r]);
       }
     }
 #pragma unroll
@@ -194,8 +210,10 @@ __device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
   return s;
 }
 
+template <typename W>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     decoder_bwd_kernel(const BwdArgs a) {
+  constexpr bool kBf16 = std::is_same<W, __nv_bfloat16>::value;
   extern __shared__ float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -249,8 +267,8 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* red = dx + mels;
 
   const float* mem = a.memory + (size_t)b * T * M;
-  const __nv_bfloat16* l1_w = a.l1_w + (size_t)rank * K1 * 4 * Uc;
-  const __nv_bfloat16* l2_w = a.l2_w + (size_t)rank * 2 * U * 4 * Uc;
+  const W* l1_w = static_cast<const W*>(a.l1_w) + (size_t)rank * K1 * 4 * Uc;
+  const W* l2_w = static_cast<const W*>(a.l2_w) + (size_t)rank * 2 * U * 4 * Uc;
 
   for (int i = tid; i < KW * A; i += NT) {
     wp[i] = a.wp[i];
@@ -284,15 +302,17 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     }
     for (int i = tid; i < T; i += NT) {
       align[i] = a.align[row * T + i];
-      cum[i] = taco::round_bf16(a.cum[row * T + i]);
+      const float c = a.cum[row * T + i];
+      cum[i] = kBf16 ? taco::round_bf16(c) : c;
     }
     for (int i = tid; i < A; i += NT) q[i] = a.q[row * A + i];
     __syncthreads();
 
     // ---- the projection's transpose for own units and context columns
-    rowdot(a.proj_w + (size_t)rank * Uc * FOp, dproj, Uc, FOp, dh2, false);
-    rowdot(a.proj_w + (size_t)(U + rank * Mc) * FOp, dproj, Mc, FOp, dctx,
-           false);
+    const W* proj_w = static_cast<const W*>(a.proj_w);
+    rowdot<W>(proj_w + (size_t)rank * Uc * FOp, dproj, Uc, FOp, dh2, false);
+    rowdot<W>(proj_w + (size_t)(U + rank * Mc) * FOp, dproj, Mc, FOp, dctx,
+              false);
     for (int i = tid; i < Mc; i += NT) {
       dctx[i] += dctx_c[i];
       a.dctx[row * M + rank * Mc + i] = dctx[i];
@@ -381,13 +401,14 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     __syncthreads();
 
     // ---- LSTM2: dh = projection + attention query + carried
-    rowdot(a.wq + (size_t)rank * Uc * A, dq, Uc, A, dh2, true);
+    rowdot<W>(static_cast<const W*>(a.wq) + (size_t)rank * Uc * A, dq, Uc, A,
+              dh2, true);
     for (int i = tid; i < Uc; i += NT) dh2[i] += dh2c[i];
     __syncthreads();
     const uint8_t* zm = a.zmask + row * 4 * U;
     lstm_bwd(rank, Uc, a.z2 + row * 4 * U, t ? a.c2 + (row - 1) * U : nullptr,
              zm + 2 * U, dh2, dc2c, dz, dhz, a.dz2 + row * 4 * U);
-    rowdot(l2_w, dz, 2 * U, 4 * Uc, part2, false);
+    rowdot<W>(l2_w, dz, 2 * U, 4 * Uc, part2, false);
     cluster.sync();  // S3: the W2ᵀ·dz2 partials are complete
     for (int u = tid; u < Uc; u += NT) {
       const int unit = rank * Uc + u;
@@ -399,7 +420,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     // ---- LSTM1
     lstm_bwd(rank, Uc, a.z1 + row * 4 * U, t ? a.c1 + (row - 1) * U : nullptr,
              zm, dh1, dc1c, dz, dhz, a.dz1 + row * 4 * U);
-    rowdot(l1_w, dz, K1, 4 * Uc, part1, false);
+    rowdot<W>(l1_w, dz, K1, 4 * Uc, part1, false);
     cluster.sync();  // S4: the W1ᵀ·dz1 partials are complete
     for (int i = tid; i < P; i += NT) dhpre[i] = cluster_sum(cluster, part1, i);
     for (int i = tid; i < Mc; i += NT)
@@ -416,7 +437,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       if (rank == 0) a.da1[row * P + i] = da1[i];
     }
     __syncthreads();
-    rowdot(a.pre_w1, da1, P, P, dh0d, false);
+    rowdot<W>(a.pre_w1, da1, P, P, dh0d, false);
     for (int i = tid; i < P; i += NT) {
       da0[i] = a.h0d[row * P + i] > 0.f ? dh0d[i] * drop[i] : 0.f;
       if (rank == 0) a.da0[row * P + i] = da0[i];
@@ -426,7 +447,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       for (int i = tid; i < mels; i += NT) dx[i] = 0.f;
       __syncthreads();
     } else {
-      rowdot(a.pre_w0, da0, mels, P, dx, false);
+      rowdot<W>(a.pre_w0, da0, mels, P, dx, false);
     }
   }
 
@@ -471,12 +492,12 @@ extern "C" int taco_decoder_bwd_launch(const void* const* ptrs, int n_ptr,
   a.memory = (const float*)ptrs[P_MEMORY];
   a.wp = (const float*)ptrs[P_WP];
   a.v_a = (const float*)ptrs[P_V_A];
-  a.pre_w0 = (const __nv_bfloat16*)ptrs[P_PRE_W0];
-  a.pre_w1 = (const __nv_bfloat16*)ptrs[P_PRE_W1];
-  a.l1_w = (const __nv_bfloat16*)ptrs[P_L1_W];
-  a.l2_w = (const __nv_bfloat16*)ptrs[P_L2_W];
-  a.wq = (const __nv_bfloat16*)ptrs[P_WQ];
-  a.proj_w = (const __nv_bfloat16*)ptrs[P_PROJ_W];
+  a.pre_w0 = ptrs[P_PRE_W0];
+  a.pre_w1 = ptrs[P_PRE_W1];
+  a.l1_w = ptrs[P_L1_W];
+  a.l2_w = ptrs[P_L2_W];
+  a.wq = ptrs[P_WQ];
+  a.proj_w = ptrs[P_PROJ_W];
   a.align = (const float*)ptrs[P_ALIGN];
   a.cum = (const float*)ptrs[P_CUM];
   a.q = (const float*)ptrs[P_Q];
@@ -517,10 +538,12 @@ extern "C" int taco_decoder_bwd_launch(const void* const* ptrs, int n_ptr,
     return (int)cudaErrorInvalidValue;
   const size_t smem = taco_decoder_bwd_smem_bytes(
       a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp, a.r);
+  void (*kernel)(const BwdArgs) = ints[I_F32_WEIGHTS]
+                                      ? decoder_bwd_kernel<float>
+                                      : decoder_bwd_kernel<__nv_bfloat16>;
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decoder_bwd_kernel<<<a.B * CS, NT, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<a.B * CS, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -60,19 +60,27 @@ def identity(x):
 
 
 def attention_step(q, keys_eff, memory, mask, cum, pmax, wp, v_a, *,
-                   constraint: bool, ctype: str, win: int, rnd=identity):
+                   constraint: bool, ctype: str, win: int, rnd=identity,
+                   rnd_tanh=identity, smoothing: bool = False):
     """One step. q [B, A] (already projected), keys_eff [B, T, A] (keys with
     the folded bias), memory [B, T, M], mask [B, T] float 1/0, cum [B, T],
     pmax [B] long. `rnd` rounds the cumulative weights and the alignment
-    where they enter a product (see decoder.py:_step). Returns (context
-    [B, M], align [B, T], cum, pmax)."""
+    where they enter a product, `rnd_tanh` the energies' tanh where it
+    meets v_a (see decoder.py:_step). With `smoothing` the alignments are
+    the masked sigmoids of the energies over their sum (JAX
+    attention.py:91-95) in place of the softmax. Returns (context [B, M],
+    align [B, T], cum, pmax)."""
     loc = location_features(rnd(cum), wp)
-    energy = torch.tanh(keys_eff + q[:, None, :] + loc) @ v_a.float()
+    energy = rnd_tanh(torch.tanh(keys_eff + q[:, None, :] + loc)) \
+        @ v_a.float()
     if constraint:
         energy = energy.masked_fill(
             window_forbidden(energy.shape[1], pmax, win, ctype), NEG_INF)
     energy = torch.where(mask > 0, energy, torch.full_like(energy, NEG_INF))
-    ex = torch.exp(energy - energy.max(-1, keepdim=True).values) * mask
+    if smoothing:
+        ex = torch.sigmoid(energy) * mask
+    else:
+        ex = torch.exp(energy - energy.max(-1, keepdim=True).values) * mask
     align = ex / ex.sum(-1, keepdim=True)
     if constraint:
         pmax = torch.argmax(align, dim=-1)
@@ -99,13 +107,13 @@ class SimpleBahdanauAttention(nn.Module):
         return torch.bmm(w[:, None, :], values)[:, 0], w
 
 
-def emt_context(qe, ekeys, score, emem):
+def emt_context(qe, ekeys, score, emem, rnd=identity):
     """One step of the emt attention in folded form: qe [B, A2] the
     projected query, ekeys [B, Te, A2] the keys with every constant folded
     in, score [nh, A2] the score rows, emem [B, Te, V] the values. Head h
     scores e_h = score[h] · tanh(ekeys + qe) over the Te positions and
-    takes the softmax-weighted sum of the values; returns the nh contexts
-    joined, [B, nh·V]."""
+    takes the softmax-weighted sum of the values (`rnd` rounds the weights
+    where they enter it); returns the nh contexts joined, [B, nh·V]."""
     e = torch.tanh(ekeys + qe[:, None, :])                 # [B, Te, A2]
     w = torch.softmax(torch.einsum("bta,ha->bht", e, score.float()), -1)
-    return torch.bmm(w, emem).reshape(emem.shape[0], -1)
+    return torch.bmm(rnd(w), emem).reshape(emem.shape[0], -1)

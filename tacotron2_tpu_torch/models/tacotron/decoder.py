@@ -82,9 +82,10 @@ class DecoderParams(NamedTuple):
 class EmtParams(NamedTuple):
     """The emt_attn decoder's own weights (the emt fields of JAX
     `DecoderParams`, ops/tacotron_decoder_kernel.py:68-91, and the
-    style_tokens variant's, which the TPU kernel does not run). Matmul
-    weights carry the decode weight dtype; the rest is f32. Fields of
-    another variant are None.
+    style_tokens variant's, which the TPU kernel does not run). The
+    products of the step loop (emt_w2, mh_q_w, mh_out_w) carry the decode
+    weight dtype; the rest is f32, l1_we too (`emt_operands` casts its
+    step-loop copy). Fields of another variant are None.
 
     simple (SimpleBahdanauAttention, attention.py:104): emt_w1/emt_b1 on
     the emt memory, emt_w2/emt_b2 on the query, emt_v the score vector.
@@ -201,7 +202,7 @@ def emt_operands(ep: EmtParams, cfg: Config, emt_memory, ref_spk=None,
             if rows is not None:
                 rs_add = ref_spk.float() @ f(rows)
     return EmtOperands(ekeys.contiguous(), score.contiguous(), emem, rs_add,
-                       ep.l1_we, wq.contiguous(), out_w, out_b)
+                       ep.l1_we.to(wq.dtype), wq.contiguous(), out_w, out_b)
 
 
 def drop_masks(cfg: Config, batch: int, steps: int, generator=None,
@@ -300,6 +301,30 @@ def init_decoder_state(cfg: Config, batch: int, T: int, M: int,
         ctx_emt=z(batch, E) if E else None)
 
 
+class Casts(NamedTuple):
+    """What a route rounds to bf16 with bf16 weights besides every product
+    input, the memory and the location taps (which every route rounds):
+    the keys with their folded bias, v_a, and the energies' tanh where it
+    meets v_a. Each route follows the TPU kernel it stands for."""
+
+    keys: bool
+    v_a: bool
+    tanh: bool
+
+
+# the teacher-forced routes (`build_train_fwd`: f32 keys and v_a, :345-346)
+TEACHER_FORCED = Casts(False, False, False)
+# the whole decode (`build_decoder_kernel`, its default energy_mode "vpu":
+# keys cast, v_a a f32 row, _attention_operands :229-236)
+WHOLE = Casts(True, False, False)
+# the block kernel (`build_decoder_block_kernel`, keys and v_a cast,
+# `_tiled_attention_operands` :305-318) at the energy_mode JAX resolves
+# (:399-406): "vmat" without emt_attn, which also rounds the tanh before
+# its v_a product (:561-571), and "vpu" with it
+BLOCK = Casts(True, True, True)
+BLOCK_EMT = Casts(True, True, False)
+
+
 class _Cell(NamedTuple):
     """One decode step's operands, in f32 (weights upcast once), and the
     rounding of a product's inputs (see `_step`)."""
@@ -313,6 +338,8 @@ class _Cell(NamedTuple):
     memory: torch.Tensor
     mask: torch.Tensor
     rnd: object
+    v_a: torch.Tensor
+    rnd_tanh: object
     emt: EmtOperands | None = None
 
 
@@ -326,22 +353,26 @@ def round_bf16(x):
 
 
 def _cell(dp: DecoderParams, keys, memory, mask,
-          round_inputs: bool = False, emt: EmtOperands | None = None
-          ) -> _Cell:
+          round_inputs: bool = False, emt: EmtOperands | None = None,
+          casts: Casts = TEACHER_FORCED) -> _Cell:
     w = {k: v.float() for k, v in dp._asdict().items()}
     wp, b_eff = fold_location(dp.loc_k, dp.loc_b, dp.wloc, dp.b_a)
     rnd = round_bf16 if round_inputs else identity
+    rc = lambda on, x: rnd(x) if on else x
     # LSTM1's rows [prenet | context | context_emt | hidden]
     l1 = [w["l1_wp"], w["l1_wc"], w["l1_wh"]]
     if emt is not None:
         l1.insert(2, emt.l1_we.float())
-        emt = emt._replace(wq=emt.wq.float(), out_w=(
-            None if emt.out_w is None else emt.out_w.float()))
+        emt = emt._replace(
+            wq=emt.wq.float(), ekeys=rnd(emt.ekeys), emem=rnd(emt.emem),
+            out_w=None if emt.out_w is None else emt.out_w.float())
     return _Cell(w, torch.cat(l1, 0),
                  torch.cat([w["l2_wx"], w["l2_wh"]], 0),
                  torch.cat([w["proj_wo"], w["proj_wc"]], 0), rnd(wp),
-                 keys.float() + b_eff, rnd(memory.float()),
-                 mask.float().to(memory.device), rnd, emt)
+                 rc(casts.keys, keys.float() + b_eff), rnd(memory.float()),
+                 mask.float().to(memory.device), rnd,
+                 rc(casts.v_a, w["v_a"]), rnd if casts.tanh else identity,
+                 emt)
 
 
 def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
@@ -357,9 +388,13 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     `cell.rnd` rounds every activation where it enters a product — the
     frame, both prenet inputs, the LSTM inputs, the query's and the
     projection's, the cumulative weights of the location features, the
-    alignment of the context — as the TPU train kernel does with bf16
-    weights (the memory and the location taps are rounded once in
-    `_cell`); sums and the carried state stay f32.
+    alignment of the context, and under emt_attn the emt query's input,
+    the emt alignment and multihead's joined contexts — as the TPU kernels
+    do with bf16 weights (the memory, the location taps and the emt keys
+    and memory are rounded once in `_cell`, and the keys, v_a and the
+    energies' tanh as the route's `Casts` say); sums and the carried state
+    stay f32. With f32 weights nothing is rounded. The alignments are the
+    softmax, or with `tacotron.smoothing` the normalised sigmoids.
 
     Under emt_attn (`cell.emt`) LSTM1 also takes the previous step's
     context_emt (and ref_spk, as the constant rs_add), and after LSTM2 the
@@ -380,14 +415,16 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     z2 = rnd(torch.cat([h1, h2], -1)) @ cell.l2_w + w["l2_b"]
     c2, h2 = _lstm(z2, c2, h2, zo, None if zm_t is None else zm_t[:, 2:])
     if emt is not None:
-        ctx_emt = emt_context(h2 @ emt.wq, emt.ekeys, emt.score, emt.emem)
+        ctx_emt = emt_context(rnd(h2) @ emt.wq, emt.ekeys, emt.score,
+                              emt.emem, rnd)
         if emt.out_w is not None:
-            ctx_emt = ctx_emt @ emt.out_w + emt.out_b.float()
+            ctx_emt = rnd(ctx_emt) @ emt.out_w + emt.out_b.float()
     q = rnd(h2) @ w["wq"]
     ctx, align, cum, pmax = attention_step(
         q, cell.keys_eff, cell.memory, cell.mask, cum, pmax, cell.wp,
-        w["v_a"], constraint=constraint, ctype=tc.synthesis_constraint_type,
-        win=tc.attention_win_size, rnd=rnd)
+        cell.v_a, constraint=constraint, ctype=tc.synthesis_constraint_type,
+        win=tc.attention_win_size, rnd=rnd, rnd_tanh=cell.rnd_tanh,
+        smoothing=tc.smoothing)
     proj = rnd(torch.cat([h2, ctx], -1)) @ cell.proj_w + w["proj_b"]
     xprev = proj[:, (r - 1) * mels:r * mels]
     return (proj, align,
@@ -398,20 +435,25 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
 
 def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
                  state: DecoderKernelState, drop,
-                 emt: EmtOperands | None = None):
+                 emt: EmtOperands | None = None, *,
+                 casts: Casts | None = None):
     """K = drop.shape[1] free-running steps from `state`. keys [B, T, A],
     memory [B, T, M], mask [B, T] (bool or 1/0), drop [B, K, 2, P], and
     under emt_attn `emt` (`emt_operands`). Returns (frames [B, K*r, mels],
     stop_probs [B, K*r], alignments [B, T, K], the state after the block),
-    all f32."""
+    all f32. With bf16 weights it rounds what `casts` says (default: the
+    TPU block kernel at its default energy_mode, `BLOCK` or `BLOCK_EMT`;
+    `WHOLE` steps the whole decode's function)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
+    casts = casts or (BLOCK if emt is None else BLOCK_EMT)
     r = tc.outputs_per_step
     B = memory.shape[0]
     K = drop.shape[1]
     if (emt is None) != (state.ctx_emt is None):
         raise ValueError("an emt_attn decode needs both emt operands and "
                          "state.ctx_emt; any other decode neither")
-    cell = _cell(dp, keys, memory, mask, emt=emt)
+    cell = _cell(dp, keys, memory, mask, dp.l1_wp.dtype == torch.bfloat16,
+                 emt, casts)
     state = state._replace(pmax=state.pmax.long())
     frames_l, stops_l, aligns_l = [], [], []
     for t in range(K):
@@ -437,7 +479,8 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
     first K-step boundary at which every row's sticky stop flag has fired
     (all r stop probs > 0.5, or any with `stop_at_any`); the steps after it
     read as frames 0, stop probability 1.0 and alignments 0. `emt`: as
-    `decode_block`. Returns (frames [B, steps*r, mels], stop_probs
+    `decode_block`. With bf16 weights it rounds as the TPU whole-decode
+    kernel does (`WHOLE`). Returns (frames [B, steps*r, mels], stop_probs
     [B, steps*r], alignments [B, T, steps] or None)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
@@ -454,7 +497,7 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
     for t0 in range(0, steps, K):
         n = min(K, steps - t0)
         f, s, a, state = decode_block(dp, cfg, keys, memory, mask, state,
-                                      drop[:, t0:t0 + n], emt)
+                                      drop[:, t0:t0 + n], emt, casts=WHOLE)
         frames[:, t0 * r:(t0 + n) * r] = f
         stops[:, t0 * r:(t0 + n) * r] = s
         aligns[:, :, t0:t0 + n] = a
@@ -462,6 +505,16 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
         if K < steps and bool(fired.all()):
             break
     return frames, stops, (aligns if emit_alignments else None)
+
+
+def teacher_forced_route(cfg: Config) -> str:
+    """The route of the teacher-forced decode (training, its eval forward,
+    GTA, `embed`), chosen from the config before anything is launched:
+    "plain" (`teacher_forced` / `teacher_forced_train`, on any device) under
+    `tacotron.smoothing`, as the JAX package sends smoothing to its flax
+    scan and not to a kernel (tacotron2_tpu/models/tacotron/decoder.py:
+    312-315); else "kernel" (ops/tacotron_train_kernel.py)."""
+    return "plain" if cfg.tacotron.smoothing else "kernel"
 
 
 def teacher_inputs(targets, r: int):
@@ -620,6 +673,10 @@ def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
     and summed over the steps: dkeys [B, T, A] (of the keys with the folded
     attention bias), dwp [K, A] (of the folded location taps), dva [A]."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
+    if tc.smoothing:
+        raise ValueError("the BPTT backward takes softmax attention; under "
+                         "tacotron.smoothing the decode trains by autograd "
+                         "through its plain version")
     r = tc.outputs_per_step
     B, T, M = memory.shape
     S = dout.shape[1]

@@ -38,8 +38,8 @@ from torch import nn
 from ...config import Config
 from ...text.symbols import symbols
 from .decoder import (Decoder, drop_masks, emt_context_width, ref_rows,
-                      round_bf16, teacher_forced_train, teacher_inputs,
-                      zoneout_masks)
+                      round_bf16, teacher_forced, teacher_forced_route,
+                      teacher_forced_train, teacher_inputs, zoneout_masks)
 from .modules import (REF_EMB, BiLSTMEncoder, Dense, EncoderConvStack,
                       MultiheadStyleAttention, Postnet, ReferenceEncoder)
 
@@ -269,7 +269,10 @@ class Tacotron(nn.Module):
         train forward and backward kernels on a CUDA device, their plain
         versions on the CPU) or "autograd" (autograd through the plain
         decode, the reference the fused route is held to); the eval
-        forward runs the eval kernel, without gradient. `timer(name)`, a
+        forward runs the eval kernel, without gradient. Under
+        `tacotron.smoothing` both take the plain decode whatever `decode`
+        says (`teacher_forced_route`: JAX scans it), so no teacher-forced
+        kernel launches. `timer(name)`, a
         context manager (`train/tacotron_step.py:StepTimer`), times the
         memory pass and the decode's kernels when given.
 
@@ -299,16 +302,21 @@ class Tacotron(nn.Module):
                  < teacher_forcing_ratio).to(torch.int32)
         drop = drop_masks(cfg, B, steps, g, dev)
         dp = tk.extract_params_traced(self.decoder, cfg)
+        kernel = teacher_forced_route(cfg) == "kernel"
         if not train:
             with torch.no_grad():
                 dpw = tk.cast_params(dp, tk.train_weight_dtype(cfg))
-                kw = dk.pack_weights(dpw) if dev.type == "cuda" else None
-                frames, stops, aligns = tk.teacher_forced_fwd(
-                    dpw, cfg, keys, memory, mask, teacher, coins, drop,
-                    kernel_weights=kw)
+                if kernel:
+                    kw = dk.pack_weights(dpw) if dev.type == "cuda" else None
+                    frames, stops, aligns = tk.teacher_forced_fwd(
+                        dpw, cfg, keys, memory, mask, teacher, coins, drop,
+                        kernel_weights=kw)
+                else:
+                    frames, stops, aligns = teacher_forced(
+                        dpw, cfg, keys, memory, mask, teacher, coins, drop)
         else:
             zmask = zoneout_masks(cfg, B, steps, g, dev)
-            if decode == "fused":
+            if decode == "fused" and kernel:
                 frames, stops, aligns = tk.FusedTeacherForced.apply(
                     cfg, timer, keys, memory, mask, teacher, coins, drop,
                     zmask, *dp)

@@ -24,12 +24,20 @@ its context_emt. The `style_tokens` variant, which the JAX package decodes
 with its XLA scan and no kernel, decodes through the plain version; the
 kernel refuses it.
 
-The TPU kernels' `energy_mode` / `context_mode` variants and their 128-wide
-tiles of the location operands are TPU layout choices and have no
-counterpart: the kernel works at any input length that fits shared memory.
-The CUDA kernel takes bf16 decode weights
-(`tacotron.fused_decoder_dtype="bfloat16"`, the default); the plain version
-takes bf16 or f32. Prenet dropout arrives as multipliers drawn by the caller
+The TPU kernels' `context_mode` variants and their 128-wide tiles of the
+location operands are TPU layout choices and have no counterpart: the
+kernel works at any input length that fits shared memory. Kernel and plain
+version take the decode weights in `tacotron.fused_decoder_dtype`, bf16
+(the default) or f32, one type for every matmul weight. With bf16 weights
+both round what the TPU kernels round (`models/tacotron/decoder.py:
+Casts`): every product input, the memory, the location taps and the keys,
+and on the block route v_a and, at the block kernel's default
+`energy_mode` ("vmat" without emt_attn), the energies' tanh;
+`decode_block` takes the `casts` to round (default the block kernel's,
+`BLOCK` / `BLOCK_EMT`; `WHOLE` the whole decode's). With f32 weights nothing is
+rounded and the products run on the FP32 cores. `tacotron.smoothing`
+normalises sigmoids in place of the softmax, as both TPU kernels do.
+Prenet dropout arrives as multipliers drawn by the caller
 (`models/tacotron/decoder.py:drop_masks`). Alignments come out in f32 (the
 TPU kernels store them in bf16).
 """
@@ -43,11 +51,13 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..models.tacotron.attention import fold_location
-from ..models.tacotron.decoder import (DecoderKernelState, DecoderParams,
-                                      EmtOperands, EmtParams, autoregressive,
+from ..models.tacotron.attention import fold_location, identity
+from ..models.tacotron.decoder import (BLOCK, BLOCK_EMT, TEACHER_FORCED,
+                                      WHOLE, Casts, DecoderKernelState,
+                                      DecoderParams, EmtOperands, EmtParams,
+                                      autoregressive,
                                       emt_context_width, init_decoder_state,
-                                      ref_rows)
+                                      ref_rows, round_bf16)
 from ..models.tacotron.decoder import decode_block as decode_block_plain
 
 # kernel launches made by `decode` and `decode_block` (the count a run
@@ -76,13 +86,16 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
     context | context_emt (E) | ref_spk (R)], whose emt rows
     `extract_emt_params` takes); the forget bias of 1.0 is folded into the
     f-gate bias. Matmul weights are cast to `weight_dtype` (default: the
-    config's decode dtype).
+    config's decode dtype). Two prenet layers of equal width, or
+    ValueError.
     """
     tc = cfg.tacotron
-    assert not tc.smoothing, "the port decodes with softmax attention only"
     wd = weight_dtype or decode_weight_dtype(cfg)
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
-    assert tuple(tc.prenet_layers) == (P, P), "kernel wants 2 equal prenet FCs"
+    if tuple(tc.prenet_layers) != (P, P):
+        raise ValueError("the decode takes two prenet layers of equal width, "
+                         f"not tacotron.prenet_layers="
+                         f"{tuple(tc.prenet_layers)}")
     r, mels = tc.outputs_per_step, cfg.audio.num_mels
     cell = params["decoder"]["cell"]
     f32 = lambda a: np.asarray(a, np.float32)
@@ -125,11 +138,13 @@ def extract_emt_params(params, cfg: Config, *, device="cuda",
     """The emt_attn attention's weights (JAX `extract_decoder_params`'s emt
     fields, :121-147, and style_tokens'): LSTM1's context_emt rows
     `l1_we` and ref_spk rows `l1_wr`, and cell/attention_emt (W1, W2, V for
-    simple; q_proj, k_proj, attention_v/g/b for multihead and
     style_tokens) with cell/attn_emt_out (multihead). The weights that the
-    step loop multiplies (l1_we, W2 or q_proj, attn_emt_out) are cast to
+    step loop multiplies (W2 or q_proj, attn_emt_out) are cast to
     `weight_dtype`, the rest, which `emt_operands` folds once per call,
-    stay f32. None without emt_attn."""
+    stay f32; so does `l1_we`, whose step-loop copy `emt_operands` and
+    `pack_weights` cast to the decode dtype (multihead's ref_spk addend
+    reads it in f32, as the TPU block kernel does, :758). None without
+    emt_attn."""
     gst = cfg.gst
     if not gst.emt_attn:
         return None
@@ -146,7 +161,7 @@ def extract_emt_params(params, cfg: Config, *, device="cuda",
     E, R = emt_context_width(cfg), ref_rows(cfg, emt_only)
     M = l1k.shape[0] - P - U - E - R
     ae = cell["attention_emt"]
-    ep = dict(l1_we=t(l1k[P + M:P + M + E], wd),
+    ep = dict(l1_we=t(l1k[P + M:P + M + E]),
               l1_wr=t(l1k[P + M + E:P + M + E + R]) if R else None)
     if gst.emt_attn_type == "simple":
         ep.update(emt_w1=t(ae["W1"]["kernel"]), emt_b1=t(ae["W1"]["bias"]),
@@ -172,26 +187,27 @@ def extract_emt_params(params, cfg: Config, *, device="cuda",
 
 class KernelWeights(NamedTuple):
     """The decode kernel's weight operands, laid out for a cluster of `cs`
-    CTAs (built once by `pack_weights`)."""
+    CTAs (built once by `pack_weights`). "wd": the decode weight dtype,
+    bf16 or f32; the rest f32."""
 
-    pre_w0: torch.Tensor   # [mels, P] bf16
+    pre_w0: torch.Tensor   # [mels, P] wd
     pre_b0: torch.Tensor   # [P]
-    pre_w1: torch.Tensor   # [P, P] bf16
+    pre_w1: torch.Tensor   # [P, P] wd
     pre_b1: torch.Tensor   # [P]
-    l1_w: torch.Tensor     # [cs, P+M+U, 4U/cs] bf16, see split_gates
+    l1_w: torch.Tensor     # [cs, P+M+U, 4U/cs] wd, see split_gates
     l1_b: torch.Tensor     # [cs, 4U/cs]
-    l2_w: torch.Tensor     # [cs, 2U, 4U/cs] bf16
+    l2_w: torch.Tensor     # [cs, 2U, 4U/cs] wd
     l2_b: torch.Tensor     # [cs, 4U/cs]
-    wq: torch.Tensor       # [U, A] bf16
+    wq: torch.Tensor       # [U, A] wd
     wp: torch.Tensor       # [K, A] folded location taps
     b_eff: torch.Tensor    # [A] folded attention bias, added to the keys
     v_a: torch.Tensor      # [A]
-    proj_w: torch.Tensor   # [U+M, fop] bf16, columns padded to fop
+    proj_w: torch.Tensor   # [U+M, fop] wd, columns padded to fop
     proj_b: torch.Tensor   # [fop]
     fop: int
     cs: int
-    # emt_attn (E > 0): the query weight of the emt attention [U, A2] bf16
-    # (W2 or q_proj) and multihead's attn_emt_out [H*V, E] bf16, [E]
+    # emt_attn (E > 0): the query weight of the emt attention [U, A2] wd
+    # (W2 or q_proj) and multihead's attn_emt_out [H*V, E] wd, [E]
     w2e: torch.Tensor = None
     emt_out_w: torch.Tensor = None
     emt_out_b: torch.Tensor = None
@@ -235,19 +251,24 @@ def decode(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
 def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
                  state: DecoderKernelState, drop, *,
                  kernel_weights: KernelWeights | None = None,
-                 emt: EmtOperands | None = None):
-    """K = drop.shape[1] steps from `state`, with `emt` under emt_attn.
-    Returns (frames [B, K*r, mels], stop_probs [B, K*r], alignments [B, T,
-    K], new state). CPU tensors take `decode_block_plain`; CUDA tensors
-    launch the kernel with `kernel_weights` or raise."""
+                 emt: EmtOperands | None = None,
+                 casts: Casts | None = None):
+    """K = drop.shape[1] steps from `state`, with `emt` under emt_attn;
+    `casts`: what bf16 rounds (default: `build_decoder_block_kernel` at its
+    default energy_mode, `BLOCK` / `BLOCK_EMT`; `WHOLE` the whole
+    decode's). Returns (frames [B, K*r, mels], stop_probs [B,
+    K*r], alignments [B, T, K], new state). CPU tensors take
+    `decode_block_plain`; CUDA tensors launch the kernel with
+    `kernel_weights` or raise."""
+    casts = casts or (BLOCK if emt is None else BLOCK_EMT)
     if memory.device.type == "cpu":
         return decode_block_plain(dp, cfg, keys, memory, mask, state, drop,
-                                  emt)
+                                  emt, casts=casts)
     if kernel_weights is None:
         raise ValueError("the decode kernel takes kernel_weights="
                          "pack_weights(dp), built once per set of weights")
     return _decode_block_cuda(kernel_weights, cfg, keys, memory, mask, state,
-                              drop, emt)
+                              drop, emt, casts)
 
 
 def _lib():
@@ -298,7 +319,7 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
     emt_kw = {}
     if emt is not None:
         U = dp.l1_wh.shape[0]
-        l1.insert(2, emt.l1_we)
+        l1.insert(2, emt.l1_we.to(dp.l1_wp.dtype))
         w2e = emt.emt_w2 if emt.emt_w1 is not None else emt.mh_q_w[:U]
         emt_kw = dict(
             w2e=c(w2e), E=emt.l1_we.shape[0],
@@ -319,13 +340,16 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
 
 class Launch(NamedTuple):
     """What every launch of one decode shares: operands checked and laid
-    out once (by `prepare_launch`)."""
+    out once (by `prepare_launch`), each rounded to bf16 where the route
+    rounds it with bf16 weights."""
 
     lib: ctypes.CDLL
     kw: KernelWeights
     keys: torch.Tensor    # keys + folded attention bias, contiguous f32
     memory: torch.Tensor
     mask: torch.Tensor    # f32 1/0
+    wp: torch.Tensor      # folded location taps
+    v_a: torch.Tensor
     ints: dict
     # emt_attn: keys [B, Te, A2], score rows [nh, A2], emt memory [B, Te,
     # V] (f32), LSTM1's per-row bias [B, cs, 4U/cs] (l1_b, plus ref_spk's
@@ -333,9 +357,9 @@ class Launch(NamedTuple):
     emt: tuple
 
 
-def _emt_launch_operands(kw: KernelWeights, emt, B, U, dev):
+def _emt_launch_operands(kw: KernelWeights, emt, B, U, dev, rnd):
     """Check a call's EmtOperands against the kernel weights; -> (the
-    Launch's emt tensors, their ints)."""
+    Launch's emt tensors, keys and memory through `rnd`, their ints)."""
     if (emt is None) != (kw.E == 0):
         raise ValueError("emt_attn decodes need kernel weights packed with "
                          "the emt weights and the call's emt operands; "
@@ -365,40 +389,64 @@ def _emt_launch_operands(kw: KernelWeights, emt, B, U, dev):
         if emt.rs_add.shape != (B, 4 * U):
             raise ValueError("emt.rs_add must be [B, 4U]")
         brow = brow + split_gates(emt.rs_add.float(), kw.cs).transpose(0, 1)
-    return ((emt.ekeys.contiguous(), emt.score.contiguous(),
-             emt.emem.contiguous(), brow.contiguous()),
+    return ((rnd(emt.ekeys).contiguous(), emt.score.contiguous(),
+             rnd(emt.emem).contiguous(), brow.contiguous()),
             dict(E=kw.E, Te=Te, A2=A2, EV=V, NH=nh))
+
+
+def weight_type(kw: KernelWeights, dev) -> torch.dtype:
+    """The one dtype of the kernel's matmul weights (bf16 or f32) on
+    `dev`, or ValueError: before any library is loaded."""
+    names = ["pre_w0", "pre_w1", "l1_w", "l2_w", "wq", "proj_w"]
+    names += [n for n in ("w2e", "emt_out_w") if getattr(kw, n) is not None]
+    types = {getattr(kw, n).dtype for n in names}
+    wd = kw.l1_w.dtype
+    if len(types) != 1 or wd not in (torch.bfloat16, torch.float32):
+        raise ValueError("the decode kernels take every matmul weight in one "
+                         "type, bf16 or f32, got " + ", ".join(
+                             f"{n} {getattr(kw, n).dtype}" for n in names))
+    for n in names:
+        if getattr(kw, n).device != dev:
+            raise ValueError(f"kernel weight {n} is on "
+                             f"{getattr(kw, n).device}, not {dev}")
+    return wd
 
 
 def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
                    teacher_forced: bool = False,
-                   emt: EmtOperands | None = None) -> Launch:
+                   emt: EmtOperands | None = None,
+                   casts: Casts = WHOLE) -> Launch:
     """Check the operands against the kernel's envelope and lay them out;
-    the teacher-forced mode runs without the window constraint and without
-    emt_attn."""
+    the teacher-forced mode runs without the window constraint, without
+    emt_attn and without smoothing, and rounds neither the keys nor v_a
+    (`casts` is the autoregressive route's)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     B, T, M = memory.shape
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
     A, KW = kw.wq.shape[1], kw.wp.shape[0]
     dev = memory.device
-    for name in ("pre_w0", "pre_w1", "l1_w", "l2_w", "wq", "proj_w"):
-        w = getattr(kw, name)
-        if w.dtype != torch.bfloat16 or w.device != dev:
-            raise ValueError(f"decode kernel wants bf16 {name} on {dev}, "
-                             f"got {w.dtype} on {w.device}")
+    bf16 = weight_type(kw, dev) == torch.bfloat16
     if memory.dtype != torch.float32 or keys.shape != (B, T, A):
         raise ValueError("memory must be f32 [B, T, M] and keys [B, T, A]")
     if teacher_forced and (emt is not None or kw.E):
         raise ValueError("the teacher-forced decode does not run emt_attn")
+    if teacher_forced and tc.smoothing:
+        raise ValueError("the teacher-forced decode takes softmax attention "
+                         "only, not smoothing")
     if kw.l1_w.shape[1] != P + M + kw.E + U:
         raise ValueError("kernel_weights do not match the memory width")
-    emt_ops, emt_ints = _emt_launch_operands(kw, emt, B, U, dev)
+    rnd = round_bf16 if bf16 else identity
+    casts = TEACHER_FORCED if teacher_forced else casts
+    rc = lambda on, x: rnd(x) if on else x
+    emt_ops, emt_ints = _emt_launch_operands(kw, emt, B, U, dev, rnd)
     lib = _lib()
     cs = lib.taco_decoder_cluster_size()
     if kw.cs != cs:
         raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
                          f"the kernel runs {cs}")
-    if U % (2 * cs) or M % cs or (4 * U // cs) // 8 > 512 or A % 8 or P % 8:
+    lanes = 8 if bf16 else 4                 # weights a 16-byte load holds
+    if U % (2 * cs) or M % cs or (4 * U // cs) // lanes > 512 or A % 8 \
+            or P % 8:
         raise ValueError("widths outside the kernel's envelope")
     smem = lib.taco_decoder_smem_bytes(
         T, mels, P, U, M, A, KW, kw.fop, *(emt_ints[k] for k in _EMT_INTS))
@@ -414,17 +462,22 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
                 win_back=0 if monotonic else win // 2 + win % 2,
                 win_fwd=win if monotonic else win // 2,
                 stop_at_any=int(bool(tc.stop_at_any)),
-                teacher_forced=int(teacher_forced), **emt_ints)
-    return Launch(lib, kw, (keys.float() + kw.b_eff).contiguous(),
-                  memory.contiguous(),
+                teacher_forced=int(teacher_forced),
+                f32_weights=int(not bf16), smoothing=int(bool(tc.smoothing)),
+                tanh_bf16=int(bf16 and casts.tanh), **emt_ints)
+    return Launch(lib, kw,
+                  rc(casts.keys, keys.float() + kw.b_eff).contiguous(),
+                  rnd(memory).contiguous(),
                   mask.to(device=dev, dtype=torch.float32).contiguous(),
+                  rnd(kw.wp).contiguous(), rc(casts.v_a, kw.v_a).contiguous(),
                   ints, emt_ops)
 
 
 _EMT_INTS = ("E", "Te", "A2", "EV", "NH")
 _INT_ORDER = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M", "A",
               "KW", "r", "FOp", "constraint", "win_back", "win_fwd",
-              "stop_at_any", "teacher_forced", *_EMT_INTS)
+              "stop_at_any", "teacher_forced", *_EMT_INTS, "f32_weights",
+              "smoothing", "tanh_bf16")
 
 
 def pack_state(state: DecoderKernelState, P: int,
@@ -479,8 +532,8 @@ def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
     nul = ctypes.c_void_p(None)
     p = lambda x: nul if x is None else ctypes.c_void_p(x.data_ptr())
     ptrs = [L.keys, L.memory, L.mask, drop, kw.pre_w0, kw.pre_b0, kw.pre_w1,
-            kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, kw.wp,
-            kw.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
+            kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, L.wp,
+            L.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
             fired_out, out, align, teacher, coins, zmask,
             *(res or [None] * 11), *L.emt, kw.w2e, kw.emt_out_w,
             kw.emt_out_b]
@@ -555,7 +608,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
 
 
 def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
-                       drop, emt):
+                       drop, emt, casts: Casts):
     global launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
@@ -566,7 +619,7 @@ def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
     if drop.shape != (B, K, 2, P) or drop.device != dev or K < 1:
         raise ValueError(f"drop must be [B, K, 2, P] on {dev}")
     _check_state(state, B, T, M, tc.decoder_lstm_units, mels, kw.E, dev)
-    L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt)
+    L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt, casts=casts)
     state_in = pack_state(state, P, kw.cs)
     state_out = tuple(torch.empty_like(x) for x in state_in)
     FO = r * mels + r

@@ -18,17 +18,19 @@ Port of tacotron2_tpu/ops/tacotron_train_kernel.py:
   autograd glue, and `extract_params_traced` (:844) the differentiable
   extraction of the decoder's parameters.
 
-The three launch `csrc/decoder.cu` (`decoder_kernel<true>`, eval or train
+The three launch `csrc/decoder.cu` (`decoder_kernel<W, true, false>`, eval or train
 mode; its note has the design) and `csrc/decoder_bwd.cu` for CUDA tensors,
 and raise if they cannot; CPU tensors take the plain versions in
 models/tacotron/decoder.py (`teacher_forced`, `teacher_forced_train`,
 `teacher_forced_bwd_plain`). Each counts its launches.
 
 The weights are `ops/tacotron_decoder_kernel.py`'s: matmul weights in
-`tacotron.fused_train_dtype` (bf16 by default; the kernels take bf16, the
-plain versions either), laid out for the cluster by `pack_weights`. With
-bf16 weights every activation is rounded to bf16 where it enters a
-product and sums are f32, as in `build_train_fwd`. Prenet dropout
+`tacotron.fused_train_dtype`, bf16 (the default) or f32, one type for all
+(kernels and plain versions alike), laid out for the cluster by
+`pack_weights`. With bf16 weights every activation is rounded to bf16
+where it enters a product (the memory and the location taps too, not the
+keys or v_a) and sums are f32, as in `build_train_fwd`; with f32 weights
+nothing is rounded. Prenet dropout
 (`drop_masks`) and zoneout (`zoneout_masks`) come from the caller: the
 TPU kernels draw them from the TPU PRNG per (seed, step) and draw them
 again in the backward; the port draws them once, from a torch.Generator,
@@ -40,8 +42,11 @@ On a CUDA device the kernels run whatever `use_fused_train_decoder` says:
 that flag chooses between two TPU implementations of one function (the
 Pallas kernels or the flax scan), as `use_fused_decoder` does for the
 autoregressive decode, which the port ignores alike. What the JAX dispatch
-sends to the scan instead (`decoder.py:312-315`: `emt_attn`, smoothing
-attention, unequal prenet widths) the port refuses.
+sends to the scan instead (`decoder.py:312-315`) these kernels refuse
+(`check_config`): `emt_attn` and unequal prenet widths, which the port
+does not train, and smoothing attention, which the model sends to the
+plain teacher-forced decode as JAX sends it to the scan
+(`models/tacotron/decoder.py:teacher_forced_route`).
 """
 
 from __future__ import annotations
@@ -155,11 +160,7 @@ def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
     B, T, M = memory.shape
     dev = memory.device
     steps = _check_tf_operands(cfg, memory, teacher, coins, drop)
-    # the memory and the location taps enter their products in bf16, as
-    # in the TPU kernel; the kernel rounds the activations itself
-    kw = kw._replace(wp=round_bf16(kw.wp))
-    L = dk.prepare_launch(kw, cfg, keys, round_bf16(memory), mask,
-                          teacher_forced=True)
+    L = dk.prepare_launch(kw, cfg, keys, memory, mask, teacher_forced=True)
     state = dk.pack_state(init_decoder_state(cfg, B, T, M, dev), P, kw.cs)
     out = torch.empty(B, steps, r * mels + r, device=dev)
     align = torch.empty(B, steps, T, device=dev)
@@ -260,7 +261,8 @@ def _bwd_lib():
     return lib
 
 
-_BWD_INTS = ("B", "T", "S", "mels", "P", "U", "M", "A", "KW", "r", "FOp")
+_BWD_INTS = ("B", "T", "S", "mels", "P", "U", "M", "A", "KW", "r", "FOp",
+             "f32_weights")
 
 
 def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
@@ -272,15 +274,15 @@ def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
     A, KW = kw.wq.shape[1], kw.wp.shape[0]
     FO = r * mels + r
     dev = memory.device
+    if kw.E:
+        raise ValueError("the backward takes no emt_attn weights")
+    bf16 = dk.weight_type(kw, dev) == torch.bfloat16
+    rnd = round_bf16 if bf16 else identity
     lib = _bwd_lib()
     cs = lib.taco_decoder_bwd_cluster_size()
     if kw.cs != cs:
         raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
                          f"the backward runs {cs}")
-    for name in ("pre_w0", "pre_w1", "l1_w", "l2_w", "wq", "proj_w"):
-        w = getattr(kw, name)
-        if w.dtype != torch.bfloat16 or w.device != dev:
-            raise ValueError(f"backward kernel wants bf16 {name} on {dev}")
     if U % cs or M % cs or (4 * U // cs) % 8 or P % 8 or A % 8:
         raise ValueError("widths outside the backward kernel's envelope")
     want = dict(align=T, cum_pre=T, q=A, z1=4 * U, z2=4 * U, c1=U, c2=U,
@@ -298,7 +300,7 @@ def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
     if smem > dk._SMEM_LIMIT:
         raise ValueError(f"backward kernel needs {smem} B of shared memory "
                          f"at T_in={T}")
-    wp = round_bf16(kw.wp)
+    wp = rnd(kw.wp)
     keys_eff = (keys.float() + kw.b_eff).contiguous()
     f32 = lambda x: x.to(device=dev, dtype=torch.float32).contiguous()
     e = lambda *shape: torch.empty(*shape, device=dev)
@@ -306,7 +308,7 @@ def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
                da1=e(B, S, P), dproj=e(B, S, FO), dctx=e(B, S, M),
                dq=e(B, S, A), dkeys=e(B, T, A), dwp=e(B, cs, KW, A),
                dva=e(B, cs, A))
-    ptrs = [keys_eff, f32(round_bf16(memory)), f32(wp), f32(kw.v_a),
+    ptrs = [keys_eff, f32(rnd(memory)), f32(wp), f32(kw.v_a),
             kw.pre_w0, kw.pre_w1, kw.l1_w, kw.l2_w, kw.wq, kw.proj_w,
             *[f32(res[k]) for k in ("align", "cum_pre", "q", "z1", "z2",
                                     "c1", "c2", "h0d", "hpre")],
@@ -316,7 +318,7 @@ def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
             *[out[k] for k in ("dz1", "dz2", "da0", "da1", "dproj", "dctx",
                                "dq", "dkeys", "dwp", "dva")]]
     ints = dict(B=B, T=T, S=S, mels=mels, P=P, U=U, M=M, A=A, KW=KW, r=r,
-                FOp=kw.fop)
+                FOp=kw.fop, f32_weights=int(not bf16))
     assert len(ptrs) == lib.taco_decoder_bwd_n_ptr()
     assert len(_BWD_INTS) == lib.taco_decoder_bwd_n_int()
     rc = lib.taco_decoder_bwd_launch(

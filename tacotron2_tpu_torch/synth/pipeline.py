@@ -63,13 +63,16 @@ class TextToWavProgram:
                  sampler_bf16: bool | None = None,
                  vocoder: str = "wavenet", emt_only: bool = False):
         tc, au, wn = cfg.tacotron, cfg.audio, cfg.wavenet
-        assert vocoder in ("wavenet", "griffin_lim"), vocoder
+        if vocoder not in ("wavenet", "griffin_lim"):
+            raise ValueError(f"vocoder={vocoder!r}: wavenet or griffin_lim")
         self.vocoder = vocoder
         if cfg.gst.emt_attn:
             raise ValueError("TextToWavProgram refuses emt_attn, as the JAX "
                              "program does: TacotronSynthesizer serves it")
-        assert len(set(tc.prenet_layers)) == 1, "kernel wants equal prenet FCs"
-        assert t_in <= 256, "long inputs (> 256 padded chars) are not ported"
+        if t_in > 256:
+            raise ValueError(f"t_in={t_in}: the program serves up to 256 "
+                             "padded characters, as the JAX program's "
+                             "whole-decode kernel does")
         self.cfg, self.device = cfg, torch.device(device)
         self.batch, self.steps, self.t_in, self.t_ref = batch, steps, t_in, t_ref
         self.hop = au.effective_hop

@@ -39,8 +39,16 @@ the emt attention).
 GTA synthesis and `embed` run `Tacotron.gta_pass`, whose teacher-forced
 decode takes every coin as 1 (`ops/tacotron_train_kernel.py`: the
 teacher-forced mode of the decode kernel on a CUDA device, its plain
-version on the CPU), with weights in `tacotron.fused_train_dtype`; it
-returns stop logits, as the JAX GTA route does.
+version on the CPU; route "teacher_forced"), with weights in
+`tacotron.fused_train_dtype`; it returns stop logits, as the JAX GTA route
+does. Under `tacotron.smoothing` that decode is the plain version on every
+device (route "teacher_forced_plain"), as the JAX package scans it
+(`models/tacotron/decoder.py:teacher_forced_route`).
+
+Every route reads its weight dtype from the config (`fused_decoder_dtype`
+for the free-running decode, `fused_train_dtype` for the teacher-forced
+one; bf16 or f32, never cast down behind the caller's back) and its
+attention (softmax or `tacotron.smoothing`).
 
 There is no VMEM gate: the kernel raises where a width does not fit its
 shared memory. Prenet dropout multipliers come from the synthesizer's
@@ -59,7 +67,8 @@ import torch
 from .. import convert
 from ..config import Config
 from ..data import audio as host_audio
-from ..models.tacotron.decoder import drop_masks, emt_operands, stop_fired
+from ..models.tacotron.decoder import (drop_masks, emt_operands, stop_fired,
+                                      teacher_forced, teacher_forced_route)
 from ..ops import griffin_lim
 from ..ops import tacotron_decoder_kernel as dk
 from ..ops import tacotron_train_kernel as tk
@@ -90,8 +99,6 @@ class TacotronSynthesizer:
     def __init__(self, cfg: Config, params, batch_stats=None, *,
                  device="cuda", seed: int = 0,
                  keep_intermediates: bool = False, emt_only: bool = False):
-        tc = cfg.tacotron
-        assert len(set(tc.prenet_layers)) == 1, "kernel wants equal prenet FCs"
         self.cfg, self.device = cfg, torch.device(device)
         self.taco = convert.tacotron_from_flax(cfg, params, batch_stats or {},
                                                device, emt_only)
@@ -147,16 +154,20 @@ class TacotronSynthesizer:
     def teacher_forced_weights(self):
         """(DecoderParams, KernelWeights or None) of the teacher-forced
         decode in `fused_train_dtype`: the autoregressive decode's own
-        where the two dtypes agree, else extracted once."""
+        where the two dtypes agree, else extracted once (kernel weights on
+        the kernel route on a CUDA device only)."""
         if self._tf_weights is None:
             if tk.train_weight_dtype(self.cfg) == dk.decode_weight_dtype(
                     self.cfg):
                 self._tf_weights = (self.dec_params, self.dec_kernel)
             else:
-                dp = tk.extract_params(self._params, self.cfg,
-                                       device=self.device)
-                self._tf_weights = (dp, dk.pack_weights(dp)
-                                    if self.device.type == "cuda" else None)
+                dp = dk.extract_decoder_params(
+                    self._params, self.cfg, device=self.device,
+                    weight_dtype=tk.train_weight_dtype(self.cfg))
+                kernel = (self.device.type == "cuda"
+                          and teacher_forced_route(self.cfg) == "kernel")
+                self._tf_weights = (dp, dk.pack_weights(dp) if kernel
+                                    else None)
         return self._tf_weights
 
     def _gta_decode(self, keys, memory, mask, teacher):
@@ -164,12 +175,16 @@ class TacotronSynthesizer:
         B, steps = memory.shape[0], teacher.shape[0]
         drop = drop_masks(self.cfg, B, steps, self.generator, self.device)
         coins = torch.ones(steps, dtype=torch.int32, device=self.device)
+        kernel = teacher_forced_route(self.cfg) == "kernel"
         if self.keep_intermediates:
-            self.intermediates = dict(route="teacher_forced", keys=keys,
-                                      memory=memory, mask=mask,
-                                      teacher=teacher, coins=coins,
-                                      drop=drop)
+            self.intermediates = dict(
+                route="teacher_forced" if kernel else "teacher_forced_plain",
+                keys=keys, memory=memory, mask=mask, teacher=teacher,
+                coins=coins, drop=drop)
         dp, kw = self.teacher_forced_weights()
+        if not kernel:
+            return teacher_forced(dp, self.cfg, keys, memory, mask, teacher,
+                                  coins, drop)
         return tk.teacher_forced_fwd(dp, self.cfg, keys, memory, mask,
                                      teacher, coins, drop, kernel_weights=kw)
 

@@ -16,7 +16,10 @@ FusedTeacherForced`), on the CPU their plain versions.
 Random draws — dropout, zoneout, the scheduled-sampling coins — come from
 the `torch.Generator` each step is given. `eval_step` is the natural eval
 (`tacotron_natural_eval`: ratio 0, every step takes its own previous
-frame) in eval mode through the eval forward's kernel.
+frame) in eval mode through the eval forward's kernel. Under
+`tacotron.smoothing` the decode trains by autograd through its plain
+version, as the JAX trainer scans it (`models/tacotron/decoder.py:
+teacher_forced_route`).
 
 What the port refuses raises ValueError with the option's name: the
 unpaired/intercross pass, nat-GAN, the adversarial heads, pretrained
@@ -39,7 +42,6 @@ from ..convert import flax_named_parameters, init_tacotron
 from ..models.tacotron.losses import compute_losses
 from ..models.tacotron.decoder import round_bf16
 from ..models.tacotron.model import Tacotron
-from ..ops import tacotron_train_kernel as tk
 from .optim import (MaskedAdam, global_norm, main_update_predicate,
                     make_mask, teacher_forcing_schedule)
 
@@ -63,10 +65,12 @@ def check_trainable(cfg: Config, **flags) -> None:
     for name, bad in (("gst.emt_attn", gst.emt_attn), ("gst.adain", gst.adain),
                       ("gst.use_gst=False", not gst.use_gst),
                       ("gst.se_concat=False", not gst.se_concat),
-                      ("tacotron.predict_linear", tc.predict_linear)):
+                      ("tacotron.predict_linear", tc.predict_linear),
+                      (f"tacotron.prenet_layers={tuple(tc.prenet_layers)} "
+                       "(two of equal width)", len(tc.prenet_layers) != 2
+                       or len(set(tc.prenet_layers)) != 1)):
         if bad:
             raise ValueError(f"{name} training is not in the port")
-    tk.check_config(cfg)
 
 
 @dataclass

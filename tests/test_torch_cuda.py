@@ -49,7 +49,8 @@ import numpy as np
 import pytest
 import torch
 
-from tacotron2_tpu_torch.models.tacotron.decoder import (drop_masks,
+from tacotron2_tpu_torch.models.tacotron.decoder import (BLOCK, Casts,
+                                                         drop_masks,
                                                          emt_operands,
                                                          zoneout_masks)
 from tacotron2_tpu_torch.models.wavenet.distributions import (
@@ -190,10 +191,11 @@ def test_decoder_kernel_matches_plain(dev):
     np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
 
 
-def _decoder_case(dev, B, T, steps, seed=0):
+def _decoder_case(dev, B, T, steps, seed=0, wd="bfloat16", **tc):
     cfg = torch_cfg()
     cfg = cfg.replace(tacotron=dataclasses.replace(
-        cfg.tacotron, dropout_rate=0.5, fused_decoder_dtype="bfloat16"))
+        cfg.tacotron, dropout_rate=0.5, fused_decoder_dtype=wd,
+        fused_train_dtype=wd, **tc))
     rng = np.random.default_rng(seed)
     memory = torch.as_tensor(rng.normal(size=(B, T, M)), dtype=torch.float32,
                              device=dev)
@@ -287,19 +289,103 @@ def test_decode_block_matches_plain_past_256(dev, T):
                                            rtol=0, err_msg=name)
 
 
+# (weights, smoothing): the envelope beyond bf16 softmax, which the tests
+# above hold
+ENVELOPE = {"f32": ("float32", False), "f32-smoothing": ("float32", True),
+            "bf16-smoothing": ("bfloat16", True)}
+
+
+@pytest.mark.parametrize("case", list(ENVELOPE))
+def test_decoder_envelope_matches_plain(dev, case):
+    """Kernel 1 (the whole-decode chain with the batch-wide early stop) and
+    kernel 3 (two chained blocks past 256 input positions, at the block
+    kernel's default energy_mode and at "vpu") with f32 weights and under
+    smoothing, against the plain version: the tolerances of the bf16
+    softmax tests above (f32 sums in another order)."""
+    wd, smoothing = ENVELOPE[case]
+    B, T, steps, K = 3, 24, 8, 4
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, wd=wd,
+                                                      smoothing=smoothing)
+    kw = dk.pack_weights(dp)
+    assert kw.l1_w.dtype == getattr(torch, wd)
+    before = dk.launches
+    f_k, s_k, a_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                              early_stop_block=K, kernel_weights=kw)
+    assert dk.launches == before + steps // K
+    f_p, s_p, a_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
+                                    steps=steps, early_stop_block=K)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
+    if smoothing:         # the sigmoids, not the softmax
+        _, _, a_soft = dk.decode_plain(dp, cfg.replace(
+            tacotron=dataclasses.replace(cfg.tacotron, smoothing=False)),
+            keys, memory, mask, drop, steps=steps)
+        assert float((a_soft - a_p).abs().max()) > 1e-2
+    T2 = 300
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, 2, T2, 2 * K,
+                                                      wd=wd,
+                                                      smoothing=smoothing)
+    kw = dk.pack_weights(dp)
+    # the default energy_mode ("vmat") and "vpu" (the tanh kept f32)
+    for casts in (BLOCK, Casts(True, True, False)):
+        st_k = st_p = dk.init_decoder_state(cfg, 2, T2, M, dev)
+        for blk in range(2):
+            d = drop[:, blk * K:(blk + 1) * K]
+            f_k, s_k, a_k, st_k = dk.decode_block(
+                dp, cfg, keys, memory, mask, st_k, d, kernel_weights=kw,
+                casts=casts)
+            f_p, s_p, a_p, st_p = dk.decode_block_plain(
+                dp, cfg, keys, memory, mask, st_p, d, casts=casts)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(f_k.cpu(), f_p.cpu(), atol=1e-3,
+                                       rtol=0)
+            np.testing.assert_allclose(s_k.cpu(), s_p.cpu(), atol=1e-4,
+                                       rtol=0)
+            np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4,
+                                       rtol=0)
+            for name in st_k._fields[:-1]:
+                x, y = getattr(st_k, name), getattr(st_p, name)
+                if name == "pmax":
+                    assert torch.equal(x, y)
+                else:
+                    np.testing.assert_allclose(x.cpu(), y.cpu(), atol=1e-3,
+                                               rtol=0, err_msg=name)
+
+
+def test_bf16_decode_rounds_where_the_tpu_kernels_round(dev):
+    """The bf16 autoregressive kernel computes the rounded function: it
+    lies far closer to the plain version with the roundings than to the
+    same weights in f32 without them."""
+    B, T, steps = 3, 24, 8
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, steps)
+    f_k, _, _ = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                          kernel_weights=dk.pack_weights(dp))
+    f_p, _, _ = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
+                                steps=steps)
+    cfg32 = cfg.replace(tacotron=dataclasses.replace(
+        cfg.tacotron, fused_decoder_dtype="float32"))
+    f_u, _, _ = dk.decode_plain(tk.cast_params(dp, torch.float32), cfg32,
+                                keys, memory, mask, drop, steps=steps)
+    torch.cuda.synchronize()
+    near, far = float((f_k - f_p).abs().max()), float((f_k - f_u).abs().max())
+    assert near <= 1e-3 and far > 10 * near, (near, far)
+
+
 EMT_CASES = {"simple": ("simple", True), "simple-no-ref": ("simple", False),
              "multihead": ("multihead", True)}
 
 
-def emt_case(dev, kind, with_ref, B=3, T=24, Te=5, seed=3):
+def emt_case(dev, kind, with_ref, B=3, T=24, Te=5, seed=3, wd="bfloat16"):
     """A decoder under emt_attn (reference_depth 8: V = 16; multihead with
     2 heads of 8 and the 128-wide attn_emt_out) with random weights in the
-    flax layout, prenet dropout on, bf16 decode weights: (cfg, dp, kernel
-    weights, keys, memory, mask, emt operands)."""
+    flax layout, prenet dropout on, decode weights in `wd`: (cfg, dp,
+    kernel weights, keys, memory, mask, emt operands)."""
     cfg = torch_cfg()
     cfg = cfg.replace(
         tacotron=dataclasses.replace(cfg.tacotron, dropout_rate=0.5,
-                                     fused_decoder_dtype="bfloat16"),
+                                     fused_decoder_dtype=wd),
         gst=dataclasses.replace(cfg.gst, emt_attn=True, emt_attn_type=kind,
                                 reference_depth=8, num_heads=2,
                                 style_att_dim=16))
@@ -331,14 +417,17 @@ def emt_case(dev, kind, with_ref, B=3, T=24, Te=5, seed=3):
     return (cfg, dp, dk.pack_weights(dp, emt=ep), keys, memory, mask, emt)
 
 
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
 @pytest.mark.parametrize("case", list(EMT_CASES))
-def test_emt_decode_block_matches_plain(dev, case):
+def test_emt_decode_block_matches_plain(dev, case, wd):
     """Kernel 3's emt scorers: two chained 4-step blocks from the zero
     state under emt_attn, against the plain version — frames, stops,
     alignments and every state field, ctx_emt too (the tolerances of the
     non-emt block test); then the whole-decode chain with the batch-wide
-    early stop."""
-    cfg, dp, kw, keys, memory, mask, emt = emt_case(dev, *EMT_CASES[case])
+    early stop. bf16 and f32 decode weights."""
+    cfg, dp, kw, keys, memory, mask, emt = emt_case(dev, *EMT_CASES[case],
+                                                    wd=wd)
+    assert kw.l1_w.dtype == kw.w2e.dtype == getattr(torch, wd)
     B, T = memory.shape[:2]
     K = 4
     drop = drop_masks(cfg, B, 2 * K, torch.Generator(dev).manual_seed(1), dev)
@@ -394,12 +483,14 @@ def test_emt_kernel_refuses_what_it_does_not_take(dev):
                   kernel_weights=kw_plain, emt=emt)
 
 
-def _teacher_forced_case(dev, B, T, steps, coins, seed=0):
-    """Teacher-forced kernel and plain version on the same inputs: returns
-    ((frames, stop logits, alignments) of each, launches made)."""
-    cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed)
+def _teacher_forced_case(dev, B, T, steps, coins, seed=0, wd="bfloat16"):
+    """Teacher-forced kernel and plain version on the same inputs, train
+    weights in `wd`: returns ((frames, stop logits, alignments) of each,
+    launches made)."""
+    cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed,
+                                                     wd)
     dp = tk.extract_params(decoder_tree(seed), cfg, device=dev)
-    assert dp.l1_wp.dtype == torch.bfloat16
+    assert dp.l1_wp.dtype == getattr(torch, wd)
     rng = np.random.default_rng(seed + 1)
     teacher = torch.as_tensor(rng.uniform(-4, 4, (steps, B, MELS)),
                               dtype=torch.float32, device=dev)
@@ -421,14 +512,15 @@ def _teacher_forced_close(got, want):
     np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
 @pytest.mark.parametrize("coins", ["ones", "mixed"])
-def test_teacher_forced_kernel_matches_plain(dev, coins):
+def test_teacher_forced_kernel_matches_plain(dev, coins, wd):
     """Small widths, prenet dropout on, stop logits (not probabilities):
     one launch for all steps; the mixed coins feed the kernel's own frames
-    back on some steps."""
+    back on some steps. bf16 and f32 train weights."""
     B, T, steps = 3, 24, 12
     pick = {"ones": [1] * steps, "mixed": [1, 0, 0, 1, 1, 0] * 2}[coins]
-    got, want, n = _teacher_forced_case(dev, B, T, steps, pick)
+    got, want, n = _teacher_forced_case(dev, B, T, steps, pick, wd=wd)
     assert n == 1
     assert got[2].shape == (B, T, steps)
     _teacher_forced_close(got, want)
@@ -442,10 +534,11 @@ def test_teacher_forced_kernel_past_256(dev):
     _teacher_forced_close(got, want)
 
 
-def _train_case(dev, B, T, steps, coins, seed=0):
+def _train_case(dev, B, T, steps, coins, seed=0, wd="bfloat16"):
     """The train forward (kernel and plain, same masks), then the backward
-    (kernel and plain) on the kernel's residuals."""
-    cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed)
+    (kernel and plain) on the kernel's residuals; train weights in `wd`."""
+    cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed,
+                                                     wd)
     cfg = cfg.replace(tacotron=dataclasses.replace(cfg.tacotron,
                                                    zoneout_rate=0.1))
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -475,14 +568,16 @@ def _train_case(dev, B, T, steps, coins, seed=0):
     return got, want, b_k, b_p, n
 
 
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
 @pytest.mark.parametrize("coins", ["ones", "mixed"])
-def test_train_kernels_match_plain(dev, coins):
+def test_train_kernels_match_plain(dev, coins, wd):
     """Kernel 4a's train mode (outputs and every residual) and kernel 4b
     (every activation gradient and per-row sum) against their plain
-    versions, zoneout 0.1 and prenet dropout on injected masks."""
+    versions, zoneout 0.1 and prenet dropout on injected masks; bf16 and
+    f32 train weights."""
     B, T, steps = 3, 24, 12
     pick = {"ones": [1] * steps, "mixed": [1, 0, 0, 1, 1, 0] * 2}[coins]
-    got, want, b_k, b_p, n = _train_case(dev, B, T, steps, pick)
+    got, want, b_k, b_p, n = _train_case(dev, B, T, steps, pick, wd=wd)
     assert n == (1, 1)
     _teacher_forced_close(got[:3], want[:3])
     for name in tk.RES_NAMES:
@@ -593,7 +688,11 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
     dp = dk.extract_decoder_params(tparams, cfg, device=dev)
     args = (torch.zeros(1, 4, A, device=dev), torch.zeros(1, 4, M, device=dev),
             torch.ones(1, 4, device=dev), torch.ones(1, 2, 2, P, device=dev))
-    for kw in (dk.pack_weights(dp), None):     # f32 weights; none packed
+    # weights of two types (the f32 ones with a bf16 projection); none
+    # packed
+    kw32 = dk.pack_weights(dp)
+    mixed = kw32._replace(proj_w=kw32.proj_w.to(torch.bfloat16))
+    for kw in (mixed, None):
         with pytest.raises(ValueError):
             dk.decode(dp, cfg, *args, steps=2, kernel_weights=kw)
     cfg_b = cfg.replace(tacotron=dataclasses.replace(
@@ -604,15 +703,18 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         dk.decode_block(dp_b, cfg_b, *args[:3], bad, args[3],
                         kernel_weights=dk.pack_weights(dp_b))
-    # the teacher-forced kernel: bf16 weights only, packed weights, the
-    # teacher [steps, B, mels], coins [steps]; no emt_attn
+    # the teacher-forced kernel: weights of one type, packed weights, the
+    # teacher [steps, B, mels], coins [steps]; no emt_attn, no smoothing
     tf_args = (args[0], args[1], args[2], torch.zeros(2, 1, MELS, device=dev),
                torch.ones(2, dtype=torch.int32), args[3])
     dp_t = tk.extract_params(tparams, cfg_b, device=dev)
     kw_t = dk.pack_weights(dp_t)
     with pytest.raises(ValueError):
-        tk.teacher_forced_fwd(dp, cfg, *tf_args,
-                              kernel_weights=dk.pack_weights(dp))
+        tk.teacher_forced_fwd(dp, cfg, *tf_args, kernel_weights=mixed)
+    smooth = cfg_b.replace(tacotron=dataclasses.replace(cfg_b.tacotron,
+                                                        smoothing=True))
+    with pytest.raises(ValueError):
+        tk.teacher_forced_fwd(dp_t, smooth, *tf_args, kernel_weights=kw_t)
     with pytest.raises(ValueError):
         tk.teacher_forced_fwd(dp_t, cfg_b, *tf_args)
     for i, bad in ((3, torch.zeros(2, 2, MELS, device=dev)),

@@ -28,6 +28,9 @@ def test_port_files_exist():
     csrc = os.path.join(ROOT, "tacotron2_tpu_torch", "csrc")
     for src in ("decoder_bwd.cu", "wavenet_train.cu"):
         assert os.path.exists(os.path.join(csrc, src)), src
+    # the decode kernels' envelope (bf16 rounding, smoothing, f32 weights)
+    assert os.path.exists(os.path.join(ROOT, "tests",
+                                       "test_torch_decode_envelope.py"))
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
                 "ops/griffin_lim_kernel.py", "data/audio.py",
