@@ -136,6 +136,24 @@ Phases, each printing its wall seconds:
     4 smoothing train steps through the plain route with no teacher-forced
     launch; `synthesize`, `serve` and `train` on the command line with the
     flags;
+21. (n) the WaveNet stack kernels' envelope: f32 weights (the default
+    `wavenet.compute_dtype`) with bf16 and with f32 saved activations at
+    phase 19's shapes on the r5 EMA weights: kernels 5a and 5b against
+    their plain versions (the skip sum within 1e-5 of max(1, its max),
+    each gradient within 1e-4 of its max), with phase 19's bf16 kernel on
+    the same inputs as a control that must fail that gate, bit-exact
+    reruns, times beside the plain versions' and the 3xTF32 bounds; four
+    width sets (the r5 widths, 20 layers; R 8 G 16 S 8 cin 10; R 24 G 40
+    S 16 cin 12; R 256 G 512 S 256 cin 80, 20 layers) at B 4 x 2,000
+    samples in both weight types on random weights (the f32 gate, or
+    phase 19's bf16 gates on the largest differences and the cosine, its
+    mean share printed); 8 f32 train steps from
+    `init_wavenet` with the launch counters zeroed just before and read
+    just after (8 and 8), the loss falling and within phase 19's 1e-2 of
+    the f32 layer loop's, the step's split; `fused_stack_apply` with f32
+    saved activations through autograd twice; one `paper` preset train
+    step; `cli train --model WaveNet` at the default dtype for 3 steps and
+    its checkpoint through `cli synthesize --model WaveNet`;
 then the `kernels` line, one entry for every kernel, sampler head, dtype
 and mode.
 
@@ -147,6 +165,7 @@ prints no result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1671,20 +1690,25 @@ WN_TRAJ_STEPS, WN_TRAJ_ATOL = 12, 1e-2
 
 def stack_bound_s(plan, N, backward):
     """Least seconds of kernel 5a (backward=False) or 5b at N rows: the
-    products at the bf16 rate against the bytes (inputs once, outputs
-    once: x0, c, weights; skip and the saved activations; in the backward
-    those, dskip, dx0, dc and f32 weight gradients)."""
+    products at the bf16 rate, or with f32 weights at the rate of the
+    fastest way to the f32 function, three TF32 products (TF32_FLOPS / 3,
+    above the FP32 cores' F32_FLOPS), against the bytes (inputs once,
+    outputs once: x0, c, weights; skip and the saved activations, x, tanh
+    a and σ b; in the backward those, dskip, dx0, dc and f32 weight
+    gradients)."""
     L, C, G, S, Ci, Ch = plan.L, plan.C, plan.G, plan.S, plan.Ci, plan.Ch
     w = L * (3 * C * G + Ci * G + Ch * (S + C))
-    acts = L * 3 * N * C * 2
+    wb = 2 if plan.weight_bf16 else 4
+    acts = L * N * (C + 2 * Ch) * plan.acts_dtype.itemsize
     if not backward:
         macs = N * w
-        nbytes = N * (C + Ci) * 4 + 2 * w + N * S * 4 + acts
+        nbytes = N * (C + Ci) * 4 + wb * w + N * S * 4 + acts
     else:
         macs = 2 * N * w
-        nbytes = (acts + N * (Ci + S) * 4 + 2 * w + N * (C + Ci) * 4
+        nbytes = (acts + N * (Ci + S) * 4 + wb * w + N * (C + Ci) * 4
                   + 4 * w)
-    ops_s, bytes_s = 2 * macs / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    rate = BF16_FLOPS if plan.weight_bf16 else TF32_FLOPS / 3
+    ops_s, bytes_s = 2 * macs / rate, nbytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
                                  else "bytes")
 
@@ -2484,6 +2508,368 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     return entries
 
 
+# phase 21: the WaveNet stack kernels' envelope. f32 weights (the model's
+# default compute dtype, the JAX model's f32 route) with bf16 or f32 saved
+# activations: nothing rounded but those, the products 3xTF32 in another
+# sum order, so the skip sum is held within WN_F32_FWD of max(1, its
+# largest value) and each gradient within WN_F32_BWD of its own largest
+# value (on the kernel's saved activations), with phase 19's bf16 kernel on
+# the same inputs as a control that must fail the same gate; bf16 weights
+# at other widths are held to phase 19's gates on the largest differences
+# and the cosine. Its mean gate (WN_MEAN_SHARE of the bf16-vs-f32
+# distance) is printed there, not applied: on these random weights at
+# depth 20 the default widths' kernel, bit for bit the one phase 19 holds
+# to it on the r5 weights (share 0.46), reads ~0.55 (the "r5" set, printed
+# beside the others): a moved rounding carries through the residual path
+# about as far as bf16 moves the output. The f32 gate holds the kernels'
+# arithmetic at each width. Widths: R, G, S, cin, layers, stacks, at B
+# WN_ENV_B crops of WN_ENV_T samples.
+WN_F32_FWD, WN_F32_BWD = 1e-5, 1e-4
+WN_ENV_WIDTHS = {"r5": (128, 256, 128, 80, 20, 2),
+                 "jax-tests": (8, 16, 8, 10, 4, 2),
+                 "uneven": (24, 40, 16, 12, 3, 1),
+                 "wide": (256, 512, 256, 80, 20, 2)}
+WN_ENV_B, WN_ENV_T = 4, 2000
+WN_ENV_STEPS = 8
+
+
+def stack_outputs(k_s, k_b):
+    import torch
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    out = {"skip": k_s}
+    out.update(zip(list(wtk.StackParams._fields) + ["dx0", "dc"],
+                   [*k_b[0], k_b[1], k_b[2]]))
+    return {k: v.float() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+def f32_stack_gate(name, got, want, control=None):
+    """The f32 gate on {"skip": .., gradient name: ..} against `want`;
+    prints the readings, raises if `got` fails it or `control` (optional)
+    passes it. Returns the largest absolute difference."""
+    def check(x):
+        rows, bad, worst = [], [], 0.0
+        for n, y in want.items():
+            err = float((x[n] - y).abs().max())
+            worst = max(worst, err)
+            lim = (WN_F32_FWD * max(1.0, float(y.abs().max())) if n == "skip"
+                   else WN_F32_BWD * float(y.abs().max()))
+            rows.append(f"{n} {err:.2e} (limit {lim:.2g})")
+            if not err <= lim:  # NaN fails
+                bad.append(n)
+        return rows, bad, worst
+
+    rows, bad, worst = check(got)
+    print(f"{name}: " + ", ".join(rows))
+    assert not bad, (name, bad)
+    if control is not None:
+        c_rows, c_bad, _ = check(control)
+        print(f"{name}, control (the bf16 kernel on the same inputs): "
+              + ", ".join(c_rows) + f"; fails on {c_bad}")
+        assert c_bad, f"{name}: the gate does not tell the control apart"
+    return worst
+
+
+def bf16_stack_gate(name, got, want, f32_skip):
+    """Phase 19's gates on {"skip": .., gradient name: ..}: the skip sum
+    within WN_FWD_RTOL of its largest value, each gradient within
+    WN_BWD_RTOL of its largest value, the cosine of all of them >=
+    WN_COSINE; the skip sum's mean difference printed beside the plain
+    f32-weight stack's (phase 19's mean share, not applied here). Returns
+    the largest absolute difference."""
+    import torch
+    errs = {n: float((got[n] - y).abs().max()) / float(y.abs().max())
+            for n, y in want.items()}
+    mean_k = float((got["skip"] - want["skip"]).abs().mean())
+    mean_f = float((f32_skip - want["skip"]).abs().mean())
+    grads = [n for n in want if n != "skip"]
+    cos = float(torch.nn.functional.cosine_similarity(
+        torch.cat([got[n].flatten() for n in grads]),
+        torch.cat([want[n].flatten() for n in grads]), dim=0))
+    print(f"{name}: max|d| / max|plain| " + ", ".join(
+        f"{n} {v:.2e}" for n, v in errs.items()) + f"; skip mean {mean_k:.3e}"
+          f" (plain bf16 vs f32 weights {mean_f:.3e}, share "
+          f"{mean_k / mean_f:.4f}); cosine {cos:.7f}")
+    assert errs["skip"] <= WN_FWD_RTOL, errs
+    assert max(errs[n] for n in grads) <= WN_BWD_RTOL, errs
+    assert cos >= WN_COSINE, cos
+    return max(float((got[n] - y).abs().max()) for n, y in want.items())
+
+
+def stack_envelope_phase(wparams, seed):
+    """Phase 21: kernels 5a and 5b in f32 weights with bf16 and f32 saved
+    activations at the r5 shapes, at four width sets in both weight
+    types, f32 training through the kernels and the command line at the
+    default dtype. Returns the `kernels` entries of kernels 5a and 5b in
+    f32 (bf16 and f32 saved activations)."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import cli, convert
+    from tacotron2_tpu_torch.config import Config, get_config
+    from tacotron2_tpu_torch.models.wavenet.model import compute_wavenet_loss
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.train.tacotron_step import StepTimer
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    cfg_bf = r5_config()
+    cfg = cfg_bf.replace(wavenet=dataclasses.replace(
+        cfg_bf.wavenet, compute_dtype="float32"))
+    B, F = len(WN_ROWS), WN_CROP_FRAMES
+    t0 = phase(21, f"(n) the WaveNet stack kernels' envelope: f32 weights "
+               f"with bf16 and f32 saved activations at B={B} crops of "
+               f"{F * 200} samples, four width sets, f32 training")
+    corpus = os.path.join(R5, "corpus")
+    pairs = r5_wavenet_rows(corpus, WN_ROWS)
+    rng = np.random.default_rng(seed)
+
+    def crops():
+        return wavenet_batch(pairs, [int(rng.integers(0, len(m) - F + 1))
+                                     for _, m in pairs])
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    first = crops()
+    common = {"route": "cuda", "library_ms": None,
+              "source": "tacotron2_tpu_torch/csrc/wavenet_train.cu"}
+
+    # ---- (1), (2) the r5 EMA weights in f32 on the first batch's stack
+    # input; dskip the loss's own gradient at the kernel's skip sum
+    model = convert.wavenet_from_flax(cfg, wparams, dev, trainable=True)
+    b = WaveNetTrainer(cfg).batch_to_device(first)
+    with torch.no_grad():
+        c_up = model.upsample(b["c"])
+        x0 = model.input_convolution(b["x"].float(), lambda t: t)
+    T = x0.shape[1]
+    N = T * B
+    x2 = x0.transpose(0, 1).reshape(N, -1).contiguous()
+    c2 = c_up.float().transpose(0, 1).reshape(N, -1).contiguous()
+    sp = wtk.StackParams(*(t.detach() for t in wtk.extract_stack_params(
+        model.residual_blocks, cfg)))
+    plan_bf = wtk.make_plan(cfg_bf, B)
+    readings = {}
+    for acts in ("bfloat16", "float32"):
+        plan = wtk.make_plan(cfg, B, acts)
+        k_s, k_a = wtk.stack_fwd_cuda(plan, sp, x2, c2, seed)
+        p_s, _ = wtk.stack_fwd_plain(plan, sp, x2, c2, seed)
+        skip = k_s.reshape(T, B, -1).transpose(0, 1).detach() \
+            .requires_grad_()
+        y = model.final_convolution_2(torch.relu(model.final_convolution_1(
+            torch.relu(skip))))
+        loss = compute_wavenet_loss(y, b["y"], b["input_lengths"],
+                                    cfg)["loss"]
+        dskip = torch.autograd.grad(loss, skip)[0].transpose(0, 1).reshape(
+            N, -1).contiguous()
+        k_b = wtk.stack_bwd_cuda(plan, sp, k_a, c2, dskip, seed)
+        p_b = wtk.stack_bwd_plain(plan, sp, k_a, c2, dskip, seed)
+        c_s, c_a = wtk.stack_fwd_cuda(plan_bf, sp, x2, c2, seed)
+        c_b = wtk.stack_bwd_cuda(plan_bf, sp, c_a, c2, dskip, seed)
+        sync()
+        err = f32_stack_gate(
+            f"kernels 5a/5b, f32 weights, {acts} saved activations, vs "
+            f"plain at N={N}", stack_outputs(k_s, k_b),
+            stack_outputs(p_s, p_b), control=stack_outputs(c_s, c_b))
+        del c_s, c_a, c_b, p_b
+        k_s2, _ = wtk.stack_fwd_cuda(plan, sp, x2, c2, seed)
+        k_b2 = wtk.stack_bwd_cuda(plan, sp, k_a, c2, dskip, seed)
+        sync()
+        exact = torch.equal(k_s, k_s2) and all(torch.equal(x, y_) for x, y_
+                                               in zip([*k_b[0], k_b[1],
+                                                       k_b[2]],
+                                                      [*k_b2[0], k_b2[1],
+                                                       k_b2[2]]))
+        print(f"{acts} saved activations: reruns bit-exact: {exact}")
+        assert exact
+        del k_s2, k_b2, k_b
+        fwd_ms = cuda_ms(lambda: wtk.stack_fwd_cuda(plan, sp, x2, c2, seed),
+                         3)
+        fwd_plain = cuda_ms(lambda: wtk.stack_fwd_plain(plan, sp, x2, c2,
+                                                        seed), 1)
+        bwd_ms = cuda_ms(lambda: wtk.stack_bwd_cuda(plan, sp, k_a, c2, dskip,
+                                                    seed), 3)
+        bwd_plain = cuda_ms(lambda: wtk.stack_bwd_plain(plan, sp, k_a, c2,
+                                                        dskip, seed), 1)
+        fb = stack_bound_s(plan, N, backward=False)
+        bb = stack_bound_s(plan, N, backward=True)
+        print(f"f32 weights, {acts} saved activations, at B={B}, T={T} "
+              f"(N={N}): kernel 5a {fwd_ms:.3f} ms (plain {fwd_plain:.3f}, "
+              f"bound {1e3 * fb[0]:.4f} ms, {fb[1]}); kernel 5b "
+              f"{bwd_ms:.3f} ms (plain {bwd_plain:.3f}, bound "
+              f"{1e3 * bb[0]:.4f} ms, {bb[1]})")
+        readings[acts] = dict(err=err, fwd=(fwd_ms, fwd_plain, fb),
+                              bwd=(bwd_ms, bwd_plain, bb))
+        del k_s, k_a, p_s, dskip
+        torch.cuda.empty_cache()
+    del model
+
+    # ---- (3) widths, both weight types, random init_wavenet weights
+    for wname, (R, G, S, Ci, layers, stacks) in WN_ENV_WIDTHS.items():
+        wcfg = Config()
+        wcfg = wcfg.replace(wavenet=dataclasses.replace(
+            wcfg.wavenet, layers=layers, stacks=stacks, residual_channels=R,
+            gate_channels=G, skip_out_channels=S, cin_channels=Ci))
+        m = convert.init_wavenet(wcfg, torch.Generator().manual_seed(seed),
+                                 dev)
+        wsp = wtk.StackParams(*(t.detach() for t in
+                                wtk.extract_stack_params(
+                                    m.residual_blocks, wcfg)))
+        g = torch.Generator(dev).manual_seed(seed)
+        Nw = WN_ENV_B * WN_ENV_T
+        xw = torch.randn(Nw, R, generator=g, device=dev) * 0.5
+        cw = torch.rand(Nw, Ci, generator=g, device=dev)
+        dw = torch.randn(Nw, S, generator=g, device=dev) * 1e-2
+        for wd in ("float32", "bfloat16"):
+            plan = wtk.make_plan(wcfg.replace(wavenet=dataclasses.replace(
+                wcfg.wavenet, compute_dtype=wd)), WN_ENV_B)
+            k_s, k_a = wtk.stack_fwd_cuda(plan, wsp, xw, cw, seed)
+            p_s, _ = wtk.stack_fwd_plain(plan, wsp, xw, cw, seed)
+            k_b = wtk.stack_bwd_cuda(plan, wsp, k_a, cw, dw, seed)
+            p_b = wtk.stack_bwd_plain(plan, wsp, k_a, cw, dw, seed)
+            sync()
+            name = (f"{wname} widths R {R} G {G} S {S} cin {Ci}, {layers} "
+                    f"layers, {wd} weights, N={Nw}")
+            if wd == "float32":
+                f32_stack_gate(name, stack_outputs(k_s, k_b),
+                               stack_outputs(p_s, p_b))
+            else:
+                f_s, _ = wtk.stack_fwd_plain(dataclasses.replace(
+                    plan, weight_bf16=False), wsp, xw, cw, seed)
+                bf16_stack_gate(name, stack_outputs(k_s, k_b),
+                                stack_outputs(p_s, p_b), f_s)
+        del m, wsp
+
+    # ---- (4) f32 training from init_wavenet: the main path's counts
+    trainer = WaveNetTrainer(cfg)
+    state = trainer.init_state(torch.Generator().manual_seed(seed), first)
+    gen = torch.Generator().manual_seed(seed + 1)
+    batches = [crops() for _ in range(WN_ENV_STEPS)]
+    losses, split = [], {}
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    sync()
+    for i, batch in enumerate(batches):
+        timed = i >= WN_ENV_STEPS // 2
+        trainer.timer = StepTimer() if timed else None
+        sync()
+        t_step = time.time()
+        state, m_ = trainer.train_step(state, batch, gen)
+        losses.append(float(m_["loss"]))
+        if timed:
+            k = WN_ENV_STEPS - WN_ENV_STEPS // 2
+            for n, v in trainer.timer.totals().items():
+                split[n] = split.get(n, 0.0) + v / k
+            split["step (host clock)"] = split.get(
+                "step (host clock)", 0.0) + 1e3 * (time.time() - t_step) / k
+    sync()
+    launches = (wtk.fwd_launches, wtk.bwd_launches)
+    trainer.timer = None
+    print(f"{WN_ENV_STEPS} f32 train steps from init_wavenet: kernel "
+          f"launches 5a {launches[0]}, 5b {launches[1]}; loss "
+          + " ".join(f"{x:.4f}" for x in losses))
+    print(f"f32 ms per step (mean of steps {WN_ENV_STEPS // 2 + 1}-"
+          f"{WN_ENV_STEPS}): " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in split.items()))
+    assert launches == (WN_ENV_STEPS, WN_ENV_STEPS), launches
+    ref = WaveNetTrainer(cfg.replace(wavenet=dataclasses.replace(
+        cfg.wavenet, use_fused_train_stack=False)))
+    ref_state = ref.init_state(torch.Generator().manual_seed(seed), first)
+    ref_gen = torch.Generator().manual_seed(seed + 1)
+    ref_losses = [float(ref.train_step(ref_state, b_, ref_gen)[1]["loss"])
+                  for b_ in batches]
+    traj = max(abs(x - y_) for x, y_ in zip(losses, ref_losses))
+    print(f"the {WN_ENV_STEPS} losses against the f32 layer loop's: max "
+          f"|difference| {traj:.3e}")
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    assert traj <= WN_TRAJ_ATOL, (losses, ref_losses)
+    del state, ref_state, trainer, ref
+    # f32 saved activations through the user-facing function: autograd
+    # of fused_stack_apply(acts_dtype_name="float32"), twice
+    model = convert.wavenet_from_flax(cfg, wparams, dev, trainable=True)
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    for _ in range(2):
+        xa = x0.detach().requires_grad_()
+        sk = wtk.fused_stack_apply(
+            cfg, wtk.extract_stack_params(model.residual_blocks, cfg), xa,
+            c_up, seed, acts_dtype_name="float32")
+        sk.square().mean().backward()
+    sync()
+    launches32 = (wtk.fwd_launches, wtk.bwd_launches)
+    print(f"fused_stack_apply with f32 saved activations, forward and "
+          f"backward twice: launches 5a {launches32[0]}, 5b "
+          f"{launches32[1]}; finite gradients "
+          f"{bool(torch.isfinite(xa.grad).all())}")
+    assert launches32 == (2, 2) and torch.isfinite(xa.grad).all()
+    del model, xa, sk
+    # the paper preset's stack (legacy=False, residual_legacy=False, f32)
+    # on random weights and inputs: one train step through the kernels
+    pcfg = get_config("paper", "wavenet.use_fused_train_stack=true")
+    hop = pcfg.audio.effective_hop
+    prng = np.random.default_rng(seed)
+    xp = prng.uniform(-0.5, 0.5, (2, 10 * hop, 1)).astype(np.float32)
+    pbatch = dict(x=xp, y=xp[..., 0].copy(), c=prng.uniform(
+        0, 1, (2, 10, pcfg.audio.num_mels)).astype(np.float32),
+        input_lengths=np.full(2, 10 * hop, np.int32))
+    ptr = WaveNetTrainer(pcfg)
+    pst = ptr.init_state(torch.Generator().manual_seed(seed), pbatch)
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    pst, pm = ptr.train_step(pst, pbatch, torch.Generator().manual_seed(1))
+    sync()
+    print(f"paper preset train step: launches 5a {wtk.fwd_launches}, 5b "
+          f"{wtk.bwd_launches}; loss {float(pm['loss']):.4f}")
+    assert (wtk.fwd_launches, wtk.bwd_launches) == (1, 1)
+    assert np.isfinite(float(pm["loss"]))
+    del ptr, pst
+
+    # ---- (5) the command line at the default dtype: train --model
+    # WaveNet (3 steps), its checkpoint through synthesize --model WaveNet
+    hp = ("wavenet.use_fused_train_stack=true,audio.trim_silence=false,"
+          f"train.max_time_steps={F * 200}")
+    assert Config().wavenet.compute_dtype == "float32"
+    with tempfile.TemporaryDirectory() as tmp:
+        map_txt = os.path.join(tmp, "map.txt")
+        with open(map_txt, "w", encoding="utf-8") as f:
+            for i in WN_ROWS:
+                a = os.path.join(corpus, "audio", f"audio-{i}.npy")
+                m = os.path.join(corpus, "mels", f"mel-{i}.npy")
+                f.write(f"{a}|{m}|{m}|0|text\n")
+        wtk.fwd_launches = wtk.bwd_launches = 0
+        ckpt_dir = cli.main(["--hparams", hp, "train", "--model", "WaveNet",
+                             "--input-path", map_txt, "--base-dir", tmp,
+                             "--train-steps", "3", "--batch-size", str(B),
+                             "--eval-interval", "0"])
+        saved = sorted(os.listdir(ckpt_dir))
+        n_cli = (wtk.fwd_launches, wtk.bwd_launches)
+        mel = os.path.join(tmp, "mel-8.npy")
+        np.save(mel, pairs[0][1][:8])
+        one = os.path.join(tmp, "one.txt")
+        with open(one, "w", encoding="utf-8") as f:
+            f.write(f"a.npy|{mel}|{mel}|0|text\n")
+        out = cli.main(["--hparams", hp, "synthesize", "--model", "WaveNet",
+                        "--wavenet-checkpoint",
+                        os.path.join(ckpt_dir, saved[0]), "--mels-map", one,
+                        "--output-dir", os.path.join(tmp, "out")])
+        with wave.open(out[0]) as w:
+            n_wav = w.getnframes()
+        print(f"cli train --model WaveNet at the default dtype (f32), 3 "
+              f"steps: checkpoints {saved}, launches 5a {n_cli[0]}, 5b "
+              f"{n_cli[1]}; synthesize --model WaveNet on it: {n_wav} "
+              f"samples for 8 frames")
+        assert saved == ["ckpt-3.msgpack"] and n_cli == (3, 3)
+        assert n_wav == 8 * 200
+    done(21, t0)
+    entries = []
+    for acts, suffix, n in (("bfloat16", "_f32", launches),
+                            ("float32", "_f32_acts", launches32)):
+        r = readings[acts]
+        for i, (name, line) in enumerate((("fwd", 133), ("bwd", 261))):
+            ms, plain_ms, (bound_s, bound_by) = r[name]
+            entries.append(dict(
+                common, name=f"wavenet_stack_{name}{suffix}",
+                replaces=f"tacotron2_tpu/ops/wavenet_train_kernel.py:{line}",
+                launches=n[i], max_abs_err=r["err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=1e3 * bound_s,
+                bound_by=bound_by))
+    return entries
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2536,9 +2922,14 @@ def main(argv=None):
                          "griffin_lim", "wavenet_train"])
     for name, path in paths.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}")
+        entry = ""
         for line in build.build_logs.get(name, "").splitlines():
+            if "Function properties for" in line:
+                # the mangled entry without its anonymous-namespace prefix
+                entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+",
+                               "", line.split()[-1])
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+                print(f"  ptxas {name} {entry}: {line.strip()}")
     done(2, t0)
 
     # ---- 3. r5 checkpoints through the port's reader and bridge
@@ -3193,6 +3584,9 @@ def main(argv=None):
     # ---- 20. (m) the decode kernels' envelope: f32, smoothing
     kernels.extend(envelope_phase(cfg, tparams, stats, prog, texts, gt,
                                   long_texts, out8, seed))
+
+    # ---- 21. (n) the WaveNet stack kernels' envelope: f32, widths
+    kernels.extend(stack_envelope_phase(wparams, seed))
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -15,6 +15,14 @@ where the copy has them), and (where the copy has it) of
 the Griffin-Lim kernel's 60 iterations on the decoded mels (the
 `TextToWavProgram(vocoder="griffin_lim")` shape, [8, 480, 1025]), with
 checksums of the outputs. Needs one CUDA device.
+
+    python scripts/time_torch_kernels.py --stack [PORT_ROOT ...]
+
+times the WaveNet training stack instead (kernels 5a and 5b, chip_smoke.py
+phase 19's shapes: B 16 crops of 8,000 samples of the r5 train split, the
+r5 EMA weights): the median of 5 runs of each, in bf16 weights and, where
+the copy takes them, f32, with checksums of the outputs (equal checksums
+across roots: the same bits).
 """
 
 import inspect
@@ -120,12 +128,76 @@ def time_one(root):
     print(json.dumps(out), flush=True)
 
 
+def time_stack(root):
+    sys.path.insert(0, root)
+    sys.path.insert(1, REPO)
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import tacotron2_tpu_torch
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.convert import load_checkpoints
+    from tacotron2_tpu_torch.models.wavenet.modules import round_bf16
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+
+    assert tacotron2_tpu_torch.__file__.startswith(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, dev = cs.r5_config(), torch.device("cuda")
+    _, _, wp = load_checkpoints(os.path.join(cs.R5, "taco_ckpt.msgpack"),
+                                os.path.join(cs.R5, "wn_ckpt.msgpack"))
+    B, F = len(cs.WN_ROWS), cs.WN_CROP_FRAMES
+    pairs = cs.r5_wavenet_rows(os.path.join(cs.R5, "corpus"), cs.WN_ROWS)
+    rng = np.random.default_rng(cs.SEED)
+    batch = cs.wavenet_batch(pairs, [int(rng.integers(0, len(m) - F + 1))
+                                     for _, m in pairs])
+    model = convert.wavenet_from_flax(cfg, wp, dev, trainable=True)
+    b = WaveNetTrainer(cfg).batch_to_device(batch)
+    with torch.no_grad():
+        c_up = model.upsample(b["c"])
+        x0 = model.input_convolution(round_bf16(b["x"]), round_bf16)
+    T = x0.shape[1]
+    x2 = x0.transpose(0, 1).reshape(T * B, -1).contiguous()
+    c2 = round_bf16(c_up).transpose(0, 1).reshape(T * B, -1).contiguous()
+    sp = wtk.StackParams(*(t.detach() for t in wtk.extract_stack_params(
+        model.residual_blocks, cfg)))
+    g = torch.Generator(dev).manual_seed(0)
+    dskip = torch.randn(T * B, cfg.wavenet.skip_out_channels, generator=g,
+                        device=dev) * 1e-3
+    out = {"root": root}
+    for dt in ("bfloat16", "float32"):
+        plan = wtk.make_plan(cfg.replace(wavenet=dataclasses.replace(
+            cfg.wavenet, compute_dtype=dt)), B)
+        try:
+            ks, ka = wtk.stack_fwd_cuda(plan, sp, x2, c2, cs.SEED)
+        except ValueError:      # a copy that takes bf16 weights only
+            continue
+        kb = wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, cs.SEED)
+        torch.cuda.synchronize()
+        out[f"fwd_ms_{dt}"] = cs.cuda_ms(
+            lambda: wtk.stack_fwd_cuda(plan, sp, x2, c2, cs.SEED), 5)
+        out[f"bwd_ms_{dt}"] = cs.cuda_ms(
+            lambda: wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, cs.SEED), 5)
+        out[f"skip_sum_{dt}"] = float(ks.double().sum())
+        out[f"grad_sum_{dt}"] = float(sum(t.double().sum()
+                                          for t in [*kb[0], kb[1], kb[2]]))
+    print(json.dumps(out), flush=True)
+
+
 def main(argv):
-    if len(argv) == 2 and argv[0] == "--one":
-        time_one(os.path.abspath(argv[1]))
+    if len(argv) == 2 and argv[0] in ("--one", "--one-stack"):
+        (time_one if argv[0] == "--one" else time_stack)(
+            os.path.abspath(argv[1]))
         return 0
+    mode = "--one"
+    if argv[:1] == ["--stack"]:
+        mode, argv = "--one-stack", argv[1:]
     for root in argv or [REPO]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+        subprocess.run([sys.executable, os.path.abspath(__file__), mode,
                         root], check=True)
     return 0
 

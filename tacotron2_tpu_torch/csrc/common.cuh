@@ -1,4 +1,5 @@
-// Shared device helpers for the port's CUDA kernels (decoder.cu, sampler.cu).
+// Shared device helpers for the port's CUDA kernels (decoder.cu, sampler.cu;
+// the 3xTF32 products of griffin_lim.cu and wavenet_train.cu).
 //
 // Both kernels are latency-bound loops of matrix-vector products: each
 // batch row walks every decode step / sample inside one CTA or one cluster,
@@ -166,6 +167,42 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
     out[n] = sum;
   }
   __syncthreads();
+}
+
+// Split x into two TF32 values with x ≈ hi + lo (hi keeps 10 mantissa
+// bits, lo the next 11): the products hi·hi + hi·lo + lo·hi on tensor
+// cores ("3xTF32"; lo·lo, ~2^-22 of the product, is dropped).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// d += a · b for one 16×8×8 TF32 tile, f32 accumulation (mma.sync; the
+// fragment layouts are those of the PTX ISA for m16n8k8 .tf32).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a · b in f32 from split operands: the three TF32 products go into a
+// zeroed fragment that f32 adds (round to nearest) add to d; summed in the
+// tensor cores, whose accumulation truncates, long sums drift.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah,
+                                           const uint32_t* al,
+                                           const uint32_t* bh,
+                                           const uint32_t* bl) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(part, al, bh);
+  mma_tf32(part, ah, bl);
+  mma_tf32(part, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += part[e];
 }
 
 __device__ __forceinline__ float sigmoidf(float x) {

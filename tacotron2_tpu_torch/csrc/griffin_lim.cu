@@ -51,9 +51,7 @@
 // the first, f32-FMA tiling (14% before the f32 adds); fetching the next slice into registers during
 // the products cost a CTA per SM and was 40% slower (PERF.md). An
 // async-copy pipeline with the projection in its own pass is the next step.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -88,27 +86,6 @@ struct AnaA {
     return y[(size_t)b * total + (size_t)f * hop + lpad + j];
   }
 };
-
-// Split x into two TF32 values with x ≈ hi + lo (hi keeps 10 mantissa
-// bits, lo the next 11): the products hi·hi + hi·lo + lo·hi on tensor
-// cores ("3xTF32"; lo·lo, ~2^-22 of the product, is dropped).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-// d += a · b for one 16×8×8 TF32 tile, f32 accumulation (mma.sync; the
-// fragment layouts are those of the PTX ISA for m16n8k8 .tf32).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // C[b] (M×N) = A[b] (M×Kd, through the loader) · Bm (Kd×N, row-major).
 // A CTA of 8 warps computes a 128×128 tile from 16-deep slices of A and B
@@ -152,26 +129,20 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = wn + j * 8 + g;
-        split_tf32(Bs[k8 + t][n], bh[j][0], bl[j][0]);
-        split_tf32(Bs[k8 + t + 4][n], bh[j][1], bl[j][1]);
+        taco::split_tf32(Bs[k8 + t][n], bh[j][0], bl[j][0]);
+        taco::split_tf32(Bs[k8 + t + 4][n], bh[j][1], bl[j][1]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int m = wm + i * 16 + g;
         uint32_t ah[4], alo[4];
-        split_tf32(As[k8 + t][m], ah[0], alo[0]);
-        split_tf32(As[k8 + t][m + 8], ah[1], alo[1]);
-        split_tf32(As[k8 + t + 4][m], ah[2], alo[2]);
-        split_tf32(As[k8 + t + 4][m + 8], ah[3], alo[3]);
+        taco::split_tf32(As[k8 + t][m], ah[0], alo[0]);
+        taco::split_tf32(As[k8 + t][m + 8], ah[1], alo[1]);
+        taco::split_tf32(As[k8 + t + 4][m], ah[2], alo[2]);
+        taco::split_tf32(As[k8 + t + 4][m + 8], ah[3], alo[3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(part, alo, bh[j]);
-          mma_tf32(part, ah, bl[j]);
-          mma_tf32(part, ah, bh[j]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
-        }
+        for (int j = 0; j < 4; ++j)
+          taco::mma_3xtf32(acc[i][j], ah, alo, bh[j], bl[j]);
       }
     }
     __syncthreads();

@@ -29,10 +29,13 @@ Two forwards:
 
 The fused stack runs when the JAX gate is open: training,
 `use_fused_train_stack`, a supported config, and, for "the backend is a
-TPU", tensors on a CUDA device. There it launches kernels 5a and 5b; the
-multi-device branch is not ported. On a CUDA device the convolutions run
-with cuDNN's TF32 off (`_f32_convs`), so f32 means f32 as in the JAX
-package.
+TPU", tensors on a CUDA device. There it launches kernels 5a and 5b in
+the compute dtype: bf16 weights, or at the default f32 compute (the
+`paper` preset's too) f32 weights, with bf16 saved activations either way,
+as the JAX model calls `fused_stack_apply` (model.py:164), at any width
+`stack_supported` admits; the multi-device branch is not ported. On a
+CUDA device the convolutions run with cuDNN's TF32 off (`_f32_convs`), so
+f32 means f32 as in the JAX package.
 """
 
 from __future__ import annotations

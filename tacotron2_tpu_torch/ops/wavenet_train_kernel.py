@@ -23,10 +23,25 @@ TPU kernel rounds: the dropped-out block input of the taps (:192), the
 conditioning (:172), h before the skip and out products (:208), and in
 the backward c_res·dres, the scaled skip gradient and dy before their
 products (:345-363) and the dropped-out input (:400). With f32 compute
-nothing is rounded but the saved activations (x, tanh a, σ b), which are
-bf16 unless `acts_dtype_name="float32"`. The kernels take bf16 weights
-and activations at R 128, G 256, S 128, cin 80 (the default and r5
-widths) and raise on anything else.
+(the config's default) nothing is rounded but the saved activations (x,
+tanh a, σ b), which are bf16 unless `acts_dtype_name="float32"`, as in
+the JAX model. The kernels take both weight types and both activation
+types at every width `stack_supported` admits.
+
+Widths. The kernels run R, Ch = G/2 and S in column passes of 128 and
+every product in 16-deep steps, so the CUDA wrappers zero-pad the
+operands to those multiples (`pad_plan`, `pad_params`; each gate half on
+its own, so Ch stays the split point) and slice the results back; the
+default and r5 widths (R 128, G 256, S 128, cin 80) need no padding. A
+padded plan keeps the true R as `hash_width`: the dropout hash counts
+channels by it (trap: hashing by the padded R would draw other masks).
+Zero columns stay zero through every layer (tanh 0 = 0, so h is 0 there
+whatever σ 0 is), so the padded stack computes the same function.
+
+Saved activations are [L, 3, N, max(R, Ch)]: x, tanh a, σ b of every
+layer, each zero-padded to the wider of R and Ch. (The JAX kernel stores
+them in R-wide slots and so raises when G != 2R, which `stack_supported`
+admits; the port computes the layer loop's function there.)
 
 Dropout. The TPU kernel draws from its on-core PRNG per (tile, layer),
 which nothing off the TPU reproduces. The port's mask is a counter-based
@@ -40,6 +55,7 @@ regenerates it instead of storing it. A kept element is scaled by
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence, Tuple
 
@@ -126,6 +142,10 @@ class StackPlan:
     drop: float
     weight_bf16: bool
     acts_dtype: torch.dtype
+    supported: bool = True
+    # the residual width the dropout hash counts channels by; 0: C (a
+    # padded plan keeps the true R here)
+    hash_width: int = 0
 
     @property
     def L(self) -> int:
@@ -134,6 +154,15 @@ class StackPlan:
     @property
     def Ch(self) -> int:
         return self.G // 2
+
+    @property
+    def hash_C(self) -> int:
+        return self.hash_width or self.C
+
+    @property
+    def AW(self) -> int:
+        """Width of a saved-activation slot."""
+        return max(self.C, self.Ch)
 
     @property
     def keep(self) -> float:
@@ -151,7 +180,107 @@ def make_plan(cfg: Config, B: int, acts_dtype_name: str = "bfloat16"
         c_res=float(np.sqrt(0.5)) if wn.residual_legacy else 1.0,
         drop=float(wn.dropout), weight_bf16=wn.compute_dtype == "bfloat16",
         acts_dtype=(torch.float32 if acts_dtype_name == "float32"
-                    else torch.bfloat16))
+                    else torch.bfloat16),
+        supported=stack_supported(cfg))
+
+
+# ----------------------------------------------------------------- padding
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pad_plan(plan: StackPlan) -> StackPlan:
+    """The kernels' widths: R, Ch and S up to multiples of 128 (their
+    column passes), cin up to 16 (a product step); the true R stays the
+    hash width."""
+    return dataclasses.replace(
+        plan, C=_up(plan.C, 128), G=2 * _up(plan.Ch, 128),
+        S=_up(plan.S, 128), Ci=_up(plan.Ci, 16), hash_width=plan.hash_C)
+
+
+def _widths(plan: StackPlan):
+    return plan.C, plan.Ch, plan.S, plan.Ci
+
+
+def pad_cols(x, n: int):
+    """x [..., m] zero-padded to [..., n] (x itself when m == n)."""
+    m = x.shape[-1]
+    return x if m == n else torch.nn.functional.pad(x, (0, n - m))
+
+
+def _gate_pad(t, Ch: int, Chp: int):
+    """[..., 2·Ch] -> [..., 2·Chp]: each gate half padded on its own."""
+    return torch.cat([pad_cols(t[..., :Ch], Chp), pad_cols(t[..., Ch:], Chp)],
+                     -1)
+
+
+def _gate_unpad(t, Ch: int, Chp: int):
+    return torch.cat([t[..., :Ch], t[..., Chp:Chp + Ch]], -1)
+
+
+def _rows_pad(t, n: int):
+    """[L, m, k] -> [L, n, k] with zero rows."""
+    m = t.shape[1]
+    return t if m == n else torch.nn.functional.pad(t, (0, 0, 0, n - m))
+
+
+def pad_params(plan: StackPlan, pp: StackPlan, sp: StackParams
+               ) -> StackParams:
+    """`sp` at the padded plan's widths: zero rows and columns."""
+    if _widths(plan) == _widths(pp):
+        return sp
+    L, (C, Ch, S, Ci), (Cp, Chp, Sp, Cip) = plan.L, _widths(plan), \
+        _widths(pp)
+    gate = lambda t: _gate_pad(t, Ch, Chp)
+    conv = _rows_pad(gate(sp.conv_w.reshape(L * 3, C, 2 * Ch)), Cp)
+    cin = _rows_pad(gate(sp.cin_w.reshape(L, Ci, 2 * Ch)), Cip)
+    skip = _rows_pad(pad_cols(sp.skip_w.reshape(L, Ch, S), Sp), Chp)
+    out = _rows_pad(pad_cols(sp.out_w.reshape(L, Ch, C), Cp), Chp)
+    return StackParams(
+        conv_w=conv.reshape(L * 3 * Cp, 2 * Chp), conv_b=gate(sp.conv_b),
+        cin_w=cin.reshape(L * Cip, 2 * Chp), cin_b=gate(sp.cin_b),
+        skip_w=skip.reshape(L * Chp, Sp), skip_b=pad_cols(sp.skip_b, Sp),
+        out_w=out.reshape(L * Chp, Cp), out_b=pad_cols(sp.out_b, Cp))
+
+
+def unpad_params(plan: StackPlan, pp: StackPlan, d: StackParams
+                 ) -> StackParams:
+    """Padded-width gradients -> the plan's widths."""
+    if _widths(plan) == _widths(pp):
+        return d
+    L, (C, Ch, S, Ci), (Cp, Chp, Sp, Cip) = plan.L, _widths(plan), \
+        _widths(pp)
+    gate = lambda t: _gate_unpad(t, Ch, Chp)
+    c = lambda t: t.contiguous()
+    return StackParams(
+        conv_w=c(gate(d.conv_w.reshape(L * 3, Cp, -1)[:, :C]).reshape(
+            L * 3 * C, 2 * Ch)),
+        conv_b=c(gate(d.conv_b)),
+        cin_w=c(gate(d.cin_w.reshape(L, Cip, -1)[:, :Ci]).reshape(
+            L * Ci, 2 * Ch)),
+        cin_b=c(gate(d.cin_b)),
+        skip_w=c(d.skip_w.reshape(L, Chp, Sp)[:, :Ch, :S].reshape(
+            L * Ch, S)),
+        skip_b=c(d.skip_b[:, :S]),
+        out_w=c(d.out_w.reshape(L, Chp, Cp)[:, :Ch, :C].reshape(L * Ch, C)),
+        out_b=c(d.out_b[:, :C]))
+
+
+def pad_acts(pp: StackPlan, acts):
+    """Saved activations [L, 3, N, AW] -> [L, 3, N, pp.AW], contiguous."""
+    return pad_cols(acts, pp.AW).contiguous()
+
+
+def unpad_acts(plan: StackPlan, pp: StackPlan, acts):
+    """Saved activations at the padded widths -> [L, 3, N, plan.AW]: the
+    padded σ b columns (σ 0 = 1/2) zeroed, as the plain version pads."""
+    if pp.AW == plan.AW:
+        return acts
+    acts = acts[..., :plan.AW].contiguous()
+    acts[:, 2, :, plan.Ch:] = 0
+    return acts
 
 
 # ------------------------------------------------------------------ dropout
@@ -191,10 +320,19 @@ def keep_bits(key: int, row0: int, rows: int, C: int, keep: float,
     return (v >> 8) < keep_threshold(keep)
 
 
+def stack_keep(plan: StackPlan, seed: int, layer: int, N: int, device
+               ) -> torch.Tensor:
+    """Keep mask [N, C] of one layer, hashed over `plan.hash_C` channels
+    (the columns past it, a padded plan's, are never kept)."""
+    kept = keep_bits(layer_key(seed, layer), 0, N, plan.hash_C, plan.keep,
+                     device)
+    return pad_cols(kept, plan.C)
+
+
 def dropout_multiplier(plan: StackPlan, seed: int, layer: int, N: int,
                        device) -> torch.Tensor:
     """[N, C] f32: 1/keep where kept, else 0."""
-    kept = keep_bits(layer_key(seed, layer), 0, N, plan.C, plan.keep, device)
+    kept = stack_keep(plan, seed, layer, N, device)
     return kept.to(torch.float32) * float(np.float32(1.0 / plan.keep))
 
 
@@ -236,8 +374,8 @@ def _layer(sp: StackParams, plan: StackPlan, l: int, rnd):
 
 def stack_fwd_plain(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
     """Kernel 5a's plain version: x0 [N, C], c2 [N, Ci] f32 -> (skip sum
-    [N, S] f32, saved activations [L, 3, N, C] in plan.acts_dtype: x,
-    tanh a, σ b of every layer)."""
+    [N, S] f32, saved activations [L, 3, N, AW] in plan.acts_dtype: x,
+    tanh a, σ b of every layer, zero-padded to AW = max(C, Ch))."""
     rnd = _rounder(plan)
     N, B, Ch = x0.shape[0], plan.B, plan.Ch
     cm = rnd(c2)
@@ -247,8 +385,7 @@ def stack_fwd_plain(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
     for l, d in enumerate(plan.dil):
         w = _layer(sp, plan, l, rnd)
         if plan.drop > 0:
-            kept = keep_bits(layer_key(seed, l), 0, N, plan.C, plan.keep,
-                             x.device)
+            kept = stack_keep(plan, seed, l, N, x.device)
             xd = torch.where(kept, x * float(np.float32(1.0 / plan.keep)),
                              x.new_zeros(()))
         else:
@@ -259,7 +396,8 @@ def stack_fwd_plain(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
             y = y + _shift_down(xdw, (2 - k) * d * B) @ w["conv"][k]
         y = y + cm @ w["cin"]
         ta, sb = torch.tanh(y[:, :Ch]), torch.sigmoid(y[:, Ch:])
-        acts.append(torch.stack([x, ta, sb]).to(plan.acts_dtype))
+        acts.append(torch.stack([pad_cols(v, plan.AW) for v in (x, ta, sb)])
+                    .to(plan.acts_dtype))
         h = rnd(ta * sb)
         s = plan.scales[l] * (h @ w["skip"] + sp.skip_b[l])
         skip = s if skip is None else skip + s
@@ -281,6 +419,7 @@ def stack_bwd_plain(plan: StackPlan, sp: StackParams, acts, c2, dskip,
         d = plan.dil[l]
         w = _layer(sp, plan, l, rnd)
         x, ta, sb = (a.to(torch.float32) for a in acts[l])
+        x, ta, sb = x[:, :plan.C], ta[:, :Ch], sb[:, :Ch]
         hw = rnd(ta * sb)
         gr = plan.c_res * dres
         gk = plan.scales[l] * dskip
@@ -323,14 +462,18 @@ def _lib():
     if not _argtypes_set:
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cu, cf = ctypes.c_uint32, ctypes.c_float
-        lib.wn_fwd_layer.argtypes = ([vp] * 10 + [cl, ci, ci, cu, cu, cf, ci,
-                                                  cf, cf, ci, vp])
-        lib.wn_bwd_gate.argtypes = ([vp] * 12 + [cl, cu, cu, cf, ci, cf, cf,
-                                                 ci, vp])
-        lib.wn_bwd_dx.argtypes = [vp] * 4 + [cl, ci, ci, cu, cu, cf, ci, cf,
-                                             vp]
+        # widths: R (the hash's), then the padded R, Ch, S, cin
+        wid = [ci] * 5
+        lib.wn_fwd_layer.argtypes = ([vp] * 11 + [cl, ci, ci] + wid
+                                     + [cu, cu, cf, ci, cf, cf, ci, ci, ci,
+                                        vp])
+        lib.wn_bwd_gate.argtypes = ([vp] * 12 + [cl] + wid
+                                    + [cu, cu, cf, ci, cf, cf, ci, ci, ci,
+                                       vp])
+        lib.wn_bwd_dx.argtypes = ([vp] * 4 + [cl, ci, ci, ci, ci, ci]
+                                  + [cu, cu, cf, ci, cf, ci, vp])
         lib.wn_wgrad.argtypes = [vp, ci, ci, vp, ci, ci, cl, cl, cl, vp, vp,
-                                 vp]
+                                 ci, vp]
         for fn in (lib.wn_fwd_layer, lib.wn_bwd_gate, lib.wn_bwd_dx,
                    lib.wn_wgrad):
             fn.restype = ci
@@ -338,17 +481,20 @@ def _lib():
     return lib
 
 
-def _check_cuda(plan: StackPlan, *tensors, widths=()):
-    """Raise on what the kernels do not take: other dtypes or widths, or
-    operands whose shapes are not [N, width] of one N = T·B."""
-    if not plan.weight_bf16 or plan.acts_dtype != torch.bfloat16:
-        raise ValueError("the CUDA stack kernels take bf16 weights and "
-                         "saved activations (wavenet.compute_dtype="
-                         "bfloat16)")
-    if (plan.C, plan.G, plan.S, plan.Ci) != (128, 256, 128, 80):
-        raise ValueError("the CUDA stack kernels take R 128, G 256, S 128, "
-                         f"cin 80, not R {plan.C}, G {plan.G}, S {plan.S}, "
-                         f"cin {plan.Ci}")
+def _check_cuda(plan: StackPlan, *tensors, widths=(), weights=None):
+    """Raise on what the kernels do not take: a config `stack_supported`
+    refuses, weights of more than one type, or operands that are not
+    contiguous f32 [N, width] tensors of one N = T·B on one device. Runs
+    before any library loads."""
+    if not plan.supported:
+        raise ValueError("stack_supported refuses this config (kernel_size "
+                         "3, cin > 0, no global conditioning, an even gate "
+                         "width and at least 2 layers)")
+    if weights is not None:
+        types = {w.dtype for w in weights}
+        if len(types) != 1 or not next(iter(types)).is_floating_point:
+            raise ValueError("the stack's weights must share one floating "
+                             f"type, got {sorted(map(str, types))}")
     dev, N = tensors[0].device, tensors[0].shape[0]
     for t, w in zip(tensors, widths):
         if t.device != dev or not t.is_contiguous() or \
@@ -358,6 +504,8 @@ def _check_cuda(plan: StackPlan, *tensors, widths=()):
         if tuple(t.shape) != (N, w):
             raise ValueError(f"the stack kernels take [N, {w}] operands, "
                              f"got {tuple(t.shape)} with N = {N}")
+    if weights is not None and any(w.device != dev for w in weights):
+        raise ValueError("the stack's weights lie on another device")
     if N % plan.B:
         raise ValueError(f"N = {N} rows is not T·B for B = {plan.B}")
 
@@ -376,39 +524,58 @@ def _keep_args(plan: StackPlan):
             int(plan.drop > 0))
 
 
+def _types(plan: StackPlan):
+    """(weight dtype, its flag, the activation flag) for the C ABI."""
+    wd = torch.bfloat16 if plan.weight_bf16 else torch.float32
+    return wd, int(not plan.weight_bf16), int(plan.acts_dtype ==
+                                              torch.float32)
+
+
+def _width_args(plan: StackPlan, pp: StackPlan):
+    return (plan.C, pp.C, pp.Ch, pp.S, pp.Ci)
+
+
 def stack_fwd_cuda(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
     """Kernel 5a: the same contract as `stack_fwd_plain`, on CUDA tensors."""
     from ..native.build import check
     global fwd_launches
-    _check_cuda(plan, x0, c2, widths=(plan.C, plan.Ci))
+    _check_cuda(plan, x0, c2, widths=(plan.C, plan.Ci), weights=sp)
     lib, dev, L, N = _lib(), x0.device, plan.L, x0.shape[0]
-    bf = torch.bfloat16
-    C, Ci, Ch = plan.C, plan.Ci, plan.Ch
-    cb = c2.to(bf)
-    conv = sp.conv_w.reshape(L, 3 * C, plan.G)
-    w1t = torch.cat([conv, sp.cin_w.reshape(L, Ci, plan.G)], 1).to(bf) \
+    pp = pad_plan(plan)
+    spp = pad_params(plan, pp, sp)
+    wd, w_f32, a_f32 = _types(plan)
+    C, G, S, Ci, Ch = pp.C, pp.G, pp.S, pp.Ci, pp.Ch
+    x_in = pad_cols(x0, C)
+    cb = pad_cols(c2, Ci).to(wd).contiguous()
+    conv = spp.conv_w.reshape(L, 3 * C, G)
+    w1t = torch.cat([conv, spp.cin_w.reshape(L, Ci, G)], 1).to(wd) \
         .transpose(1, 2).contiguous()
-    w2t = torch.cat([sp.skip_w.reshape(L, Ch, plan.S),
-                     sp.out_w.reshape(L, Ch, C)], 2).to(bf) \
+    w2t = torch.cat([spp.skip_w.reshape(L, Ch, S),
+                     spp.out_w.reshape(L, Ch, C)], 2).to(wd) \
         .transpose(1, 2).contiguous()
-    b1 = (sp.conv_b + sp.cin_b).float().contiguous()
-    skip_b, out_b = sp.skip_b.float().contiguous(), sp.out_b.float().contiguous()
-    skip = torch.empty(N, plan.S, device=dev)
-    acts = torch.empty(L, 3, N, C, dtype=bf, device=dev)
-    bufs = (torch.empty_like(x0), torch.empty_like(x0))
+    b1 = (spp.conv_b + spp.cin_b).float().contiguous()
+    skip_b = spp.skip_b.float().contiguous()
+    out_b = spp.out_b.float().contiguous()
+    skip = torch.empty(N, S, device=dev)
+    acts = torch.empty(L, 3, N, pp.AW, dtype=plan.acts_dtype, device=dev)
+    h = torch.empty(N, Ch, dtype=wd, device=dev)
+    bufs = (torch.empty(N, C, device=dev), torch.empty(N, C, device=dev))
     keep24, inv_keep, drop = _keep_args(plan)
-    x_in = x0
+    wid = _width_args(plan, pp)
     for l, d in enumerate(plan.dil):
         x_out = bufs[l % 2] if l < L - 1 else None
         check(lib.wn_fwd_layer(
             _ptr(x_in), _ptr(x_out), _ptr(cb), _ptr(acts[l]), _ptr(skip),
-            _ptr(w1t[l]), _ptr(b1[l]), _ptr(w2t[l]), _ptr(skip_b[l]),
-            _ptr(out_b[l]), N, plan.B, d, layer_key(seed, l), keep24,
-            inv_keep, drop, plan.scales[l], plan.c_res, int(l == 0),
-            _stream(dev)), "wn_fwd_layer")
+            _ptr(h), _ptr(w1t[l]), _ptr(b1[l]), _ptr(w2t[l]),
+            _ptr(skip_b[l]), _ptr(out_b[l]), N, plan.B, d, *wid,
+            layer_key(seed, l), keep24, inv_keep, drop, plan.scales[l],
+            plan.c_res, int(l == 0), w_f32, a_f32, _stream(dev)),
+            "wn_fwd_layer")
         x_in = x_out
     fwd_launches += 1
-    return skip, acts
+    if S != plan.S:
+        skip = skip[:, :plan.S].contiguous()
+    return skip, unpad_acts(plan, pp, acts)
 
 
 def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
@@ -417,41 +584,48 @@ def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
     tensors."""
     from ..native.build import check
     global bwd_launches
-    _check_cuda(plan, c2, dskip, widths=(plan.Ci, plan.S))
-    if acts.dtype != torch.bfloat16 or not acts.is_contiguous() or \
-            tuple(acts.shape) != (plan.L, 3, c2.shape[0], plan.C):
-        raise ValueError("the saved activations must be contiguous bf16 "
-                         f"[L, 3, N, C], got {acts.dtype} "
-                         f"{tuple(acts.shape)}")
+    _check_cuda(plan, c2, dskip, widths=(plan.Ci, plan.S), weights=sp)
+    want = (plan.L, 3, c2.shape[0], plan.AW)
+    if acts.dtype != plan.acts_dtype or not acts.is_contiguous() or \
+            tuple(acts.shape) != want or acts.device != c2.device:
+        raise ValueError(f"the saved activations must be contiguous "
+                         f"{plan.acts_dtype} {list(want)} on {c2.device}, "
+                         f"got {acts.dtype} {tuple(acts.shape)}")
     lib, dev, L, N = _lib(), c2.device, plan.L, c2.shape[0]
-    bf = torch.bfloat16
-    C, G, S, Ci, Ch = plan.C, plan.G, plan.S, plan.Ci, plan.Ch
-    cb = c2.to(bf)
-    wos = torch.cat([sp.out_w.reshape(L, Ch, C), sp.skip_w.reshape(L, Ch, S)],
-                    2).to(bf).contiguous()
-    wcin = sp.cin_w.reshape(L, Ci, G).to(bf).contiguous()
-    wconv = sp.conv_w.reshape(L, 3, C, G).to(bf).contiguous()
-    go = torch.empty(N, C + S, dtype=bf, device=dev)
-    dy = torch.empty(N, G, dtype=bf, device=dev)
-    xd = torch.empty(N, C, dtype=bf, device=dev)
-    h = torch.empty(N, Ch, dtype=bf, device=dev)
+    pp = pad_plan(plan)
+    spp = pad_params(plan, pp, sp)
+    wd, w_f32, a_f32 = _types(plan)
+    C, G, S, Ci, Ch = pp.C, pp.G, pp.S, pp.Ci, pp.Ch
+    acts = pad_acts(pp, acts)
+    dskip = pad_cols(dskip, S)
+    cb = pad_cols(c2, Ci).to(wd).contiguous()
+    wos = torch.cat([spp.out_w.reshape(L, Ch, C),
+                     spp.skip_w.reshape(L, Ch, S)], 2).to(wd).contiguous()
+    wcin = spp.cin_w.reshape(L, Ci, G).to(wd).contiguous()
+    wconv = spp.conv_w.reshape(L, 3, C, G).to(wd).contiguous()
+    go = torch.empty(N, C + S, dtype=wd, device=dev)
+    dy = torch.empty(N, G, dtype=wd, device=dev)
+    xd = torch.empty(N, C, dtype=wd, device=dev)
+    h = torch.empty(N, Ch, dtype=wd, device=dev)
     dc = torch.empty(N, Ci, device=dev)
     tiles = (N + 127) // 128
     part = torch.empty(tiles, G + C + S, device=dev)
     sums = torch.empty(L, G + C + S, device=dev)
     splits = (N + WGRAD_ROWS - 1) // WGRAD_ROWS
-    wpart = torch.empty(splits * 128 * 256, device=dev)
+    wpart = torch.empty(splits * max(C * G, Ci * G, Ch * (C + S)),
+                        device=dev)
     d_conv = torch.empty(L, 3, C, G, device=dev)
     d_cin = torch.empty(L, Ci, G, device=dev)
     d_os = torch.empty(L, Ch, C + S, device=dev)
     bufs = (torch.empty(N, C, device=dev), torch.empty(N, C, device=dev))
     keep24, inv_keep, drop = _keep_args(plan)
+    wid = _width_args(plan, pp)
     st = _stream(dev)
 
     def wgrad(P, Q, qoff, out):
         check(lib.wn_wgrad(_ptr(P), P.shape[1], P.shape[1], _ptr(Q),
                            Q.shape[1], Q.shape[1], qoff, N, WGRAD_ROWS,
-                           _ptr(wpart), _ptr(out), st), "wn_wgrad")
+                           _ptr(wpart), _ptr(out), w_f32, st), "wn_wgrad")
 
     dres = None
     for l in reversed(range(L)):
@@ -459,12 +633,14 @@ def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
         check(lib.wn_bwd_gate(
             _ptr(dres), _ptr(dskip), _ptr(acts[l]), _ptr(wos[l]),
             _ptr(wcin[l]), _ptr(go), _ptr(dy), _ptr(xd), _ptr(h), _ptr(dc),
-            _ptr(part), _ptr(sums[l]), N, key, keep24, inv_keep, drop,
-            plan.scales[l], plan.c_res, int(l < L - 1), st), "wn_bwd_gate")
+            _ptr(part), _ptr(sums[l]), N, *wid, key, keep24, inv_keep, drop,
+            plan.scales[l], plan.c_res, int(l < L - 1), w_f32, a_f32, st),
+            "wn_bwd_gate")
         out = bufs[l % 2]
         check(lib.wn_bwd_dx(_ptr(dy), _ptr(wconv[l]), _ptr(dres), _ptr(out),
-                            N, plan.B, d, key, keep24, inv_keep, drop,
-                            plan.c_res, st), "wn_bwd_dx")
+                            N, plan.B, d, plan.C, C, Ch, key, keep24,
+                            inv_keep, drop, plan.c_res, w_f32, st),
+              "wn_bwd_dx")
         for k in range(3):
             wgrad(xd, dy, (2 - k) * d * plan.B, d_conv[l, k])
         wgrad(cb, dy, 0, d_cin[l])
@@ -479,6 +655,11 @@ def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
         skip_b=sums[:, G + C:].clone(),
         out_w=d_os[:, :, :C].reshape(L * Ch, C),
         out_b=sums[:, G:G + C].clone())
+    d_sp = unpad_params(plan, pp, d_sp)
+    if C != plan.C:
+        dres = dres[:, :plan.C].contiguous()
+    if Ci != plan.Ci:
+        dc = dc[:, :plan.Ci].contiguous()
     return d_sp, dres, dc
 
 

@@ -9,7 +9,8 @@ grad_norm of the raw gradients) and `eval_step` (:97, the EMA weights by
 default). Each train step draws one dropout seed from the generator it is
 given; the model takes its masks from it (`models/wavenet/model.py`). On
 a CUDA device with `wavenet.use_fused_train_stack` the gated stack runs
-kernels 5a and 5b (`ops/wavenet_train_kernel.py`); `timer`, a
+kernels 5a and 5b (`ops/wavenet_train_kernel.py`) in either compute dtype
+and at any width `stack_supported` admits; `timer`, a
 `train/tacotron_step.StepTimer`,
 splits a step's time into the forward, the backward and the optimizer.
 """

@@ -760,37 +760,55 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
                 sp_n, narrow, cache_dtype=dt, weight_dtype=dt))
 
 
-# kernels 5a and 5b against their plain versions: the same bf16 operands,
-# f32 sums in another order, which may move an isolated bf16 rounding (of
-# h, dy or a saved activation) by one step (~0.4%); those carry on through
-# the residual path, so each output is held to 1e-2 of its largest value
-# (chip_smoke.py's phase 19 gates at the r5 shapes)
+# kernels 5a and 5b against their plain versions. bf16 weights: the same
+# bf16 operands, f32 sums in another order, which may move an isolated bf16
+# rounding (of h, dy or a saved activation) by one step (~0.4%); those
+# carry on through the residual path, so each output is held to 1e-2 of
+# its largest value (chip_smoke.py's phase 19 gates at the r5 shapes). f32
+# weights: nothing rounded but the saved activations, products as 3xTF32
+# in another sum order: the skip sum within STACK_F32_FWD of max(1, its
+# largest value), each gradient within STACK_F32_BWD of its largest value
+# (chip_smoke.py's phase 21 gates)
 STACK_RTOL = 1e-2
+STACK_F32_FWD, STACK_F32_BWD = 1e-5, 1e-4
+# R, G, S, cin, layers, stacks: the r5 widths, the JAX kernel tests', an
+# uneven set (no width a multiple of a tile, G != 2R), a wide one
+STACK_WIDTHS = {"r5": (128, 256, 128, 80, 4, 2),
+                "jax-tests": (8, 16, 8, 10, 4, 2),
+                "uneven": (24, 40, 16, 12, 3, 1),
+                "wide": (256, 512, 256, 80, 4, 2)}
 
 
-def _wavenet_stack_case(dev, B=4, T=300, layers=4):
+def _wavenet_stack_case(dev, B=4, T=300, widths="r5", wd="bfloat16",
+                        acts="bfloat16"):
     from tacotron2_tpu_torch import convert
     from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    R, G, S, Ci, layers, stacks = STACK_WIDTHS[widths]
     cfg = Config()
     cfg = cfg.replace(wavenet=dataclasses.replace(
-        cfg.wavenet, layers=layers, stacks=2, compute_dtype="bfloat16",
-        use_fused_train_stack=True))
+        cfg.wavenet, layers=layers, stacks=stacks, residual_channels=R,
+        gate_channels=G, skip_out_channels=S, cin_channels=Ci,
+        compute_dtype=wd, use_fused_train_stack=True))
     m = convert.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
     sp = wtk.StackParams(*(t.detach() for t in wtk.extract_stack_params(
         m.residual_blocks, cfg)))
     g = torch.Generator(dev).manual_seed(1)
-    x0 = torch.randn(B * T, 128, generator=g, device=dev) * 0.5
-    c2 = torch.rand(B * T, 80, generator=g, device=dev)
-    dskip = torch.randn(B * T, 128, generator=g, device=dev)
-    return cfg, wtk, wtk.make_plan(cfg, B), sp, x0, c2, dskip
+    x0 = torch.randn(B * T, R, generator=g, device=dev) * 0.5
+    c2 = torch.rand(B * T, Ci, generator=g, device=dev)
+    dskip = torch.randn(B * T, S, generator=g, device=dev)
+    return cfg, wtk, wtk.make_plan(cfg, B, acts), sp, x0, c2, dskip
 
 
-def test_wavenet_stack_kernels_match_plain(dev):
+@pytest.mark.parametrize("acts", ["bfloat16", "float32"])
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("widths", list(STACK_WIDTHS))
+def test_wavenet_stack_kernels_match_plain(dev, widths, wd, acts):
     """Kernel 5a (skip sum, saved activations) and 5b (every weight
-    gradient, dx0, dc) against stack_fwd_plain / stack_bwd_plain at the
-    r5 widths, 4 layers, dropout 0.05 from one seed; a rerun is bit-exact;
-    each wrapper counts its call."""
-    cfg, wtk, plan, sp, x0, c2, dskip = _wavenet_stack_case(dev)
+    gradient, dx0, dc) against stack_fwd_plain / stack_bwd_plain, dropout
+    0.05 from one seed, per weight type, saved-activation type and width
+    set; a rerun is bit-exact; each wrapper counts its call."""
+    cfg, wtk, plan, sp, x0, c2, dskip = _wavenet_stack_case(
+        dev, widths=widths, wd=wd, acts=acts)
     n0 = (wtk.fwd_launches, wtk.bwd_launches)
     ks, ka = wtk.stack_fwd_cuda(plan, sp, x0, c2, 7)
     ps, pa = wtk.stack_fwd_plain(plan, sp, x0, c2, 7)
@@ -799,23 +817,39 @@ def test_wavenet_stack_kernels_match_plain(dev):
     again = wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, 7)
     torch.cuda.synchronize()
     assert (wtk.fwd_launches - n0[0], wtk.bwd_launches - n0[1]) == (1, 2)
+    assert ka.dtype == pa.dtype and ka.shape == pa.shape
     rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
-    assert rel(ks, ps) <= STACK_RTOL
-    assert float((ka.float() - pa.float()).abs().max()) <= 2 ** -6
+    scale = lambda b: max(1.0, float(b.abs().max()))
+    if wd == "bfloat16":
+        fwd_tol, bwd_tol = STACK_RTOL * float(ps.abs().max()), STACK_RTOL
+    else:
+        fwd_tol, bwd_tol = STACK_F32_FWD * scale(ps), STACK_F32_BWD
+    assert float((ks - ps).abs().max()) <= fwd_tol
+    # saved activations: bf16 weights as phase 19 reads them; f32 weights
+    # one bf16 step of their scale, or f32 sum order
+    if wd == "bfloat16":
+        act_tol = 2 ** -6
+    else:
+        act_tol = (2 ** -7 if acts == "bfloat16" else 1e-5) * scale(
+            pa.float())
+    assert float((ka.float() - pa.float()).abs().max()) <= act_tol
     for name, a, b in zip(list(wtk.StackParams._fields) + ["dx0", "dc"],
                           [*kb[0], kb[1], kb[2]], [*pb[0], pb[1], pb[2]]):
-        assert rel(a, b) <= STACK_RTOL, name
+        assert a.shape == b.shape, name
+        assert rel(a, b) <= bwd_tol, name
     for a, b in zip([*kb[0], kb[1], kb[2]], [*again[0], again[1], again[2]]):
         assert torch.equal(a, b)
 
 
-def test_wavenet_train_step_takes_the_kernels(dev):
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+def test_wavenet_train_step_takes_the_kernels(dev, wd):
     """A train step with the gate open (CUDA, use_fused_train_stack)
-    launches kernels 5a and 5b, and its gradients agree with the layer
-    loop's (the gate closed) at dropout 0: cosine >= 0.999."""
+    launches kernels 5a and 5b in either weight type, and its gradients
+    agree with the layer loop's (the gate closed) at dropout 0: cosine >=
+    0.999."""
     from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
     from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
-    cfg, *_ = _wavenet_stack_case(dev)
+    cfg, *_ = _wavenet_stack_case(dev, wd=wd)
     cfg = cfg.replace(wavenet=dataclasses.replace(cfg.wavenet, dropout=0.0),
                       audio=dataclasses.replace(cfg.audio, hop_size=200))
     rng = np.random.default_rng(0)

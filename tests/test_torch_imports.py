@@ -29,8 +29,10 @@ def test_port_files_exist():
     for src in ("decoder_bwd.cu", "wavenet_train.cu"):
         assert os.path.exists(os.path.join(csrc, src)), src
     # the decode kernels' envelope (bf16 rounding, smoothing, f32 weights)
-    assert os.path.exists(os.path.join(ROOT, "tests",
-                                       "test_torch_decode_envelope.py"))
+    # and the WaveNet stack kernels' (f32, f32 activations, every width)
+    for name in ("test_torch_decode_envelope.py",
+                 "test_torch_wavenet_stack_envelope.py"):
+        assert os.path.exists(os.path.join(ROOT, "tests", name))
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
                 "ops/griffin_lim_kernel.py", "data/audio.py",

@@ -241,23 +241,45 @@ def test_mask_bits_do_not_depend_on_the_tile(tile):
 
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
-    """The kernels take bf16 weights and activations at R 128, G 256, S
-    128, cin 80, and [N, width] operands of one N = T·B; anything else
-    raises before a launch."""
+    """The kernels take bf16 or f32 weights and saved activations at every
+    width `stack_supported` admits, and [N, width] operands of one N =
+    T·B; a config `stack_supported` refuses, weights of more than one
+    type and malformed operands raise before a launch."""
     cfg = TorchConfig()
     x = torch.zeros(4, 128)
-    with pytest.raises(ValueError, match="bf16"):
-        wtk._check_cuda(wtk.make_plan(cfg, 2), x)
-    bf = cfg.replace(wavenet=dataclasses.replace(
-        cfg.wavenet, compute_dtype="bfloat16"))
-    wtk._check_cuda(wtk.make_plan(bf, 2), x)
-    narrow = bf.replace(wavenet=dataclasses.replace(
-        bf.wavenet, residual_channels=64))
-    with pytest.raises(ValueError, match="R 64"):
-        wtk._check_cuda(wtk.make_plan(narrow, 2), x)
-    plan = wtk.make_plan(bf, 2)
+    sp = lambda dt: wtk.StackParams(*(torch.zeros(2, 2, dtype=dt)
+                                      for _ in wtk.StackParams._fields))
+    wn = lambda c, **kw: c.replace(wavenet=dataclasses.replace(c.wavenet,
+                                                               **kw))
+    # f32 weights (the default) with bf16 or f32 activations, bf16 weights
+    for c, acts in ((cfg, "bfloat16"), (cfg, "float32"),
+                    (wn(cfg, compute_dtype="bfloat16"), "bfloat16"),
+                    (wn(cfg, compute_dtype="bfloat16"), "float32")):
+        plan = wtk.make_plan(c, 2, acts)
+        wtk._check_cuda(plan, x, torch.zeros(4, 80), widths=(128, 80),
+                        weights=sp(torch.float32))
+    # other widths: narrow, uneven (Ch != R), wide
+    for R, G, S, Ci in ((64, 128, 64, 80), (24, 40, 16, 12),
+                        (256, 512, 256, 80)):
+        plan = wtk.make_plan(wn(cfg, residual_channels=R, gate_channels=G,
+                                skip_out_channels=S, cin_channels=Ci), 2)
+        wtk._check_cuda(plan, torch.zeros(4, R), torch.zeros(4, Ci),
+                        widths=(R, Ci), weights=sp(torch.bfloat16))
+    plan = wtk.make_plan(cfg, 2)
+    mixed = sp(torch.float32)._replace(skip_w=torch.zeros(2, 2,
+                                                          dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="one floating type"):
+        wtk._check_cuda(plan, x, weights=mixed)
+    for bad in (dict(kernel_size=2), dict(gin_channels=16),
+                dict(gate_channels=255), dict(layers=1, stacks=1),
+                dict(cin_channels=0)):
+        assert not wtk.stack_supported(wn(cfg, **bad)), bad
+        with pytest.raises(ValueError, match="stack_supported"):
+            wtk._check_cuda(wtk.make_plan(wn(cfg, **bad), 2), x)
     wtk._check_cuda(plan, x, torch.zeros(4, 80), widths=(128, 80))
     with pytest.raises(ValueError, match=r"\[N, 80\]"):
         wtk._check_cuda(plan, x, torch.zeros(4, 10), widths=(128, 80))
+    with pytest.raises(ValueError, match="contiguous f32"):
+        wtk._check_cuda(plan, x.to(torch.bfloat16), widths=(128,))
     with pytest.raises(ValueError, match="T·B"):
-        wtk._check_cuda(wtk.make_plan(bf, 3), x, widths=(128,))
+        wtk._check_cuda(wtk.make_plan(cfg, 3), x, widths=(128,))
