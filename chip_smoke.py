@@ -154,8 +154,16 @@ Phases, each printing its wall seconds:
     saved activations through autograd twice; one `paper` preset train
     step; `cli train --model WaveNet` at the default dtype for 3 steps and
     its checkpoint through `cli synthesize --model WaveNet`;
-then the `kernels` line, one entry for every kernel, sampler head, dtype
-and mode.
+22. (o) the redesigned kernels' other routes and shapes: the Griffin-Lim
+    DFT route (a non-power-of-two n_fft, 1,000) against its plain version
+    as phase 10 holds the FFT route, with its times; the sampler at B=1,
+    16 and 32 (1, 2 and 4 clusters, each on the serve call's rows over its
+    own window of samples) against its plain version (f32 within
+    SAMPLER_F32_ATOL, bf16 by phase 5's replay gate), each row bit for bit
+    the B=8 run's on its window; the Griffin-Lim launches by route on the eval
+    and Griffin-Lim serving paths (FFT only at n_fft 2,048);
+then the `kernels` line, one entry for every kernel, sampler head, dtype,
+mode and Griffin-Lim route.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero before it. Without a CUDA device it exits with code 2 and
@@ -542,6 +550,14 @@ def sampler_bound_s(sp, cfg, B, W, weight_bf16):
                                  else "bytes")
 
 
+def chain_us(ms, W, cfg):
+    """A sampler time over W samples as µs a sample and µs a layer: a
+    diagnostic of its serial chain, not part of any bound."""
+    us = 1e3 * ms / W
+    return (f"{us:.2f} us a sample, {us / cfg.wavenet.layers:.3f} us a "
+            f"layer")
+
+
 def random_wavenet_tree(cfg, seed):
     """Random WaveNet weights for `cfg` in the flax param tree's layout
     (what `convert.wavenet_from_flax` and `extract_sampler_params` read):
@@ -675,7 +691,8 @@ def check_head(name, ws, cfg, W, wavs):
                                    **dts), 3)
     bound_s, bound_by = sampler_bound_s(sp, cfg, B, W, wd == "bfloat16")
     print(f"{name}: kernel {ms:.3f} ms, plain (the replay) {plain_ms:.3f} "
-          f"ms, bound {1e3 * bound_s:.4f} ms ({bound_by})")
+          f"ms, bound {1e3 * bound_s:.4f} ms ({bound_by}); "
+          f"{chain_us(ms, W, cfg)}")
     return {"name": name, "route": "cuda",
             "source": "tacotron2_tpu_torch/csrc/sampler.cu",
             "replaces": "tacotron2_tpu/ops/wavenet_kernel.py:180",
@@ -2870,6 +2887,154 @@ def stack_envelope_phase(wparams, seed):
     return entries
 
 
+# phase 22: the redesigned kernels' other routes and shapes (Griffin-Lim's
+# DFT route at a non-power-of-two n_fft; the sampler at B=1, 16 and 32), and
+# the Griffin-Lim launches by route on the main paths
+GL_DFT_NFFT = 1000
+
+
+def routes_phase(cfg, prog, batch, gl_routes, y_k8, y_kb8, W):
+    """Returns the `kernels` entry of the Griffin-Lim DFT route."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.data import audio as host_audio
+    from tacotron2_tpu_torch.ops import griffin_lim as gl
+    from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
+    from tacotron2_tpu_torch.ops import stft as tst
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    t0 = phase(22, f"(o) Griffin-Lim's DFT route (n_fft {GL_DFT_NFFT}), the "
+                   f"sampler at B=1, 16 and 32, launches by route")
+    # ---- (1) the DFT route against its plain version, as phase 10 holds
+    # the FFT route, on the eval mels re-analysed for n_fft 1,000
+    cfg_d = cfg.with_overrides(f"audio.n_fft={GL_DFT_NFFT}")
+    a = cfg_d.audio
+    n_fft, hop, win, iters = a.n_fft, a.effective_hop, a.win_size, \
+        a.griffin_lim_iters
+    assert glk.route(n_fft) == "dft" and glk.route(cfg.audio.n_fft) == "fft"
+    S = gl_magnitudes(batch, a, "cuda")
+    zeros = torch.zeros_like(S)
+    glk.launches = glk.launches_fft = glk.launches_dft = 0
+    y_k0 = glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win, 0)
+    y_k4 = glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win, 4)
+    y_k = glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win, iters)
+    assert (glk.launches_fft, glk.launches_dft) == (0, 3), \
+        (glk.launches_fft, glk.launches_dft)
+    y_p0 = glk.griffin_lim_plain(S, S, zeros, n_fft, hop, win, 0)
+    y_p4 = glk.griffin_lim_plain(S, S, zeros, n_fft, hop, win, 4)
+    y_p = glk.griffin_lim_plain(S, S, zeros, n_fft, hop, win, iters)
+    y_d4 = library_griffin_lim(S.double(), n_fft, hop, win, 4)
+    torch.cuda.synchronize()
+    err0 = float((y_k0 - y_p0).abs().max())
+    err4 = float((y_k4 - y_p4).abs().max())
+    rms = lambda d: float(d.double().pow(2).mean().sqrt())
+    rms_k4, rms_p4 = rms(y_k4 - y_d4), rms(y_p4 - y_d4)
+    cons = lambda y: float((tst.stft_mag(y.contiguous(), n_fft, hop, win)
+                            - S).abs().mean())
+    c_k, c_p = cons(y_k), cons(y_p)
+    print(f"DFT route [B={S.shape[0]}, F={S.shape[1]}, K={S.shape[2]}]: iters "
+          f"0 max |kernel - plain| {err0:.3e}; iters 4 {err4:.3e}, rms from "
+          f"float64 kernel {rms_k4:.3e} plain {rms_p4:.3e}; {iters} iterations "
+          f"consistency kernel {c_k:.6f} plain {c_p:.6f}")
+    assert err0 <= 1e-4, err0
+    assert err4 <= GL_ITERS4_ATOL, err4
+    assert rms_k4 <= GL_ITERS4_F64_RATIO * rms_p4, (rms_k4, rms_p4)
+    assert c_k <= 1.01 * c_p, (c_k, c_p)
+    # the user-facing path at this n_fft: a 440 Hz tone through
+    # inv_mel_spectrogram, counted by route
+    sr = a.sample_rate
+    tone = (0.2 * np.sin(2 * np.pi * 440 * np.arange(sr) / sr)).astype(
+        np.float32)
+    mel_tone = host_audio.mel_spectrogram(
+        host_audio.preemphasis(tone, a.preemphasis, a.preemphasize), a)
+    glk.launches = glk.launches_fft = glk.launches_dft = 0
+    y_tone = host_audio.inv_preemphasis(gl.inv_mel_spectrogram(
+        torch.as_tensor(mel_tone, device="cuda"), a).cpu().numpy(),
+        a.preemphasis, a.preemphasize)
+    dft_launches = glk.launches_dft
+    spec = np.abs(np.fft.rfft(y_tone))
+    peak = float(np.fft.rfftfreq(len(y_tone), 1.0 / sr)[spec.argmax()])
+    print(f"440 Hz tone through inv_mel_spectrogram at n_fft {n_fft}: peak "
+          f"{peak:.2f} Hz; launches by route fft {glk.launches_fft} dft "
+          f"{dft_launches}")
+    assert abs(peak - 440.0) < 5.0, peak
+    assert glk.launches_fft == 0 and dft_launches > 0
+    ms = cuda_ms(lambda: glk.fused_griffin_lim(S, S, zeros, n_fft, hop, win,
+                                               iters), 3)
+    plain_ms = cuda_ms(lambda: glk.griffin_lim_plain(S, S, zeros, n_fft, hop,
+                                                     win, iters), 1)
+    lib_ms = cuda_ms(lambda: library_griffin_lim(S, n_fft, hop, win, iters),
+                     3)
+    Bg, Fg, Kg = S.shape
+    ops_s = griffin_lim_flops(Bg, Fg, n_fft, win, iters) / F32_FLOPS
+    bytes_s = (3 * Bg * Fg * Kg + Bg * hop * (Fg - 1)) * 4 / HBM_BYTES_PER_S
+    print(f"DFT route timed: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.stft/istft {lib_ms:.3f} ms, bound "
+          f"{1e3 * max(ops_s, bytes_s):.4f} ms")
+    entry = {"name": "griffin_lim_dft", "route": "cuda", "gl_route": "dft",
+             "source": "tacotron2_tpu_torch/csrc/griffin_lim.cu",
+             "replaces": "tacotron2_tpu/ops/griffin_lim_kernel.py:108",
+             "launches": dft_launches, "max_abs_err": err0, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": 1e3 * max(ops_s, bytes_s),
+             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+             "library_ms": lib_ms}
+    # ---- (2) the sampler at B=1, 16 and 32 (1, 2 and 4 clusters) on
+    # distinct rows: cluster k runs the serve call's 8 rows over samples
+    # kW .. (k+1)W (their own conditioning and noise), against the plain
+    # version; every row is the B=8 run's on the same window bit for bit
+    # (a row's arithmetic does not see the others; window 0's B=8 runs are
+    # phase 5's)
+    im = prog.intermediates
+    sp = prog.sampler_params
+    assert im["c_up"].shape[1] >= 4 * W, im["c_up"].shape
+    windows = [(im["c_up"][:, k * W:(k + 1) * W].contiguous(),
+                im["noise"][:, :, k * W:(k + 1) * W].contiguous())
+               for k in range(4)]
+    bf16 = dict(cache_dtype=torch.bfloat16, weight_dtype=torch.bfloat16)
+    kw32 = wk.pack_weights(sp, cfg)
+    ref32, refb = [y_k8], [y_kb8]
+    for c_k, n_k in windows[1:]:
+        ref32.append(wk.sample(sp, cfg, c_k, n_k,
+                               kernel_weights=kw32).cpu().numpy())
+        refb.append(wk.sample(sp, cfg, c_k, n_k,
+                              kernel_weights=prog.sampler_kernel)
+                    .cpu().numpy())
+    for B in (1, 16, 32):
+        k = max(1, B // 8)
+        c_b = torch.cat([c for c, _ in windows[:k]])[:B].contiguous()
+        n_b = torch.cat([n for _, n in windows[:k]], 1)[:, :B].contiguous()
+        wk.launches = 0
+        y32 = wk.sample(sp, cfg, c_b, n_b, kernel_weights=kw32)
+        yb = wk.sample(sp, cfg, c_b, n_b, kernel_weights=prog.sampler_kernel)
+        assert wk.launches == 2, wk.launches
+        p32 = wk.sample_plain(sp, cfg, c_b, n_b)
+        r16, _ = wk.teacher_forced_replay(sp, cfg, c_b, n_b, yb, **bf16)
+        r32, _ = wk.teacher_forced_replay(sp, cfg, c_b, n_b, yb)
+        torch.cuda.synchronize()
+        y32, yb, p32, r16, r32 = (x.cpu().numpy() for x in (y32, yb, p32,
+                                                            r16, r32))
+        err = float(np.abs(y32 - p32).max())
+        bf_err = float(np.abs(yb - r16).max())
+        bf_err32 = float(np.abs(yb - r32).max())
+        rows = np.concatenate(ref32[:k])[:B]
+        rows_b = np.concatenate(refb[:k])[:B]
+        same = bool(np.array_equal(y32, rows) and np.array_equal(yb, rows_b))
+        distinct = B == 1 or not np.array_equal(y32[:8], y32[8:16])
+        print(f"sampler B={B} ({k} cluster(s), distinct rows {distinct}): "
+              f"f32 max |kernel - plain| {err:.3e}; bf16 max |kernel - "
+              f"replay| {bf_err:.3e} (against the f32 replay "
+              f"{bf_err32:.3e}); every row the B=8 run's on its window bit "
+              f"for bit: {same}")
+        assert err <= SAMPLER_F32_ATOL, err
+        assert bf_err <= SAMPLER_REPLAY_ATOL["bfloat16"], bf_err
+        assert bf_err <= 0.5 * bf_err32, (bf_err, bf_err32)
+        assert same and distinct, B
+    # ---- (3) launches by route on the main paths
+    print(f"Griffin-Lim launches by route (fft, dft): {gl_routes}")
+    assert all(f > 0 and d == 0 for f, d in gl_routes.values()), gl_routes
+    done(22, t0)
+    return entry
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3064,6 +3229,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     y_k, y_p, y_r, y_r32, y_k32, y_p32 = (x.cpu().numpy() for x in (
         y_k, y_p, y_r, y_r32, y_k32, y_p32))
+    smp8 = (y_k32, y_k)  # phase 22 holds B=1, 16 and 32 to these rows
     smp_err = float(np.abs(y_k32 - y_p32).max())
     bf_free = float(np.abs(y_k - y_p).max())
     bf_err = float(np.abs(y_k - y_r).max())
@@ -3137,7 +3303,8 @@ def main(argv=None):
           f"kernel {smp_ms:.3f} ms, plain {smp_plain_ms:.3f} ms, bound "
           f"{1e3 * s_bound_s:.4f} ms ({s_bound_by}); bf16 kernel "
           f"{bf_ms:.3f} ms, plain {bf_plain_ms:.3f} ms, bound "
-          f"{1e3 * bf_bound_s:.4f} ms ({bf_bound_by})")
+          f"{1e3 * bf_bound_s:.4f} ms ({bf_bound_by}); {chain_us(smp_ms, W, cfg)} "
+          f"(f32), {chain_us(bf_ms, W, cfg)} (bf16)")
     done(6, t0)
     by_name = {k["name"]: k for k in kernels}
 
@@ -3176,7 +3343,7 @@ def main(argv=None):
                                 seed=1234, keep_intermediates=True)
     ref_list = [g[:T_REF] for g in gt]
     dk.launches = 0
-    glk.launches = 0
+    glk.launches = glk.launches_fft = glk.launches_dft = 0
     torch.cuda.synchronize()
     ts = time.time()
     out8 = synth.synthesize(texts, ref_list, ref_list, max_steps=MAX_STEPS)
@@ -3185,6 +3352,7 @@ def main(argv=None):
     eval_s = time.time() - ts
     eval_launches = {"tacotron_decoder": dk.launches,
                      "griffin_lim": glk.launches}
+    gl_routes = {"eval": (glk.launches_fft, glk.launches_dft)}
     im8 = synth.intermediates
     audio8 = sum(len(w) for w in wavs8) / a.sample_rate
     print(f"eval: {eval_s:.3f} s for {B} utterances ({audio8:.4f} s of "
@@ -3365,11 +3533,12 @@ def main(argv=None):
                                device="cuda", seed=1234,
                                vocoder="griffin_lim")
     dk.launches = 0
-    glk.launches = 0
+    glk.launches = glk.launches_fft = glk.launches_dft = 0
     wavs_gl = prog_gl.synthesize(texts, ref_list, ref_list)
     torch.cuda.synchronize()
     gl_prog_launches = {"tacotron_decoder": dk.launches,
                         "griffin_lim": glk.launches}
+    gl_routes["griffin_lim serve"] = (glk.launches_fft, glk.launches_dft)
     q_gl = [wav_quality(w, np.clip(out8["mels"][b], -m, m), gt[b], a)[0]
             for b, w in enumerate(wavs_gl)]
     print(f"TextToWavProgram(vocoder=griffin_lim): launches "
@@ -3399,19 +3568,20 @@ def main(argv=None):
     Bg, Fg, Kg = S.shape
     gl_ops_s = griffin_lim_flops(Bg, Fg, n_fft, win, iters) / F32_FLOPS
     gl_bytes_s = (3 * Bg * Fg * Kg + Bg * hop * (Fg - 1)) * 4 / HBM_BYTES_PER_S
-    # what this kernel's design costs at best: its 2·iters+1 dense DFT
+    # what the DFT route's design costs at best: its 2·iters+1 dense DFT
     # products over the support, three TF32 products each (3xTF32)
     gl_dft_s = 3 * Bg * (2 * iters + 1) * 2 * Fg * win * 2 * Kg / TF32_FLOPS
     print(f"block decode timed on the long inputs: B={B9}, T_in={T9}, one "
           f"{kf}-step block: kernel {blk_ms:.3f} ms, plain "
           f"{blk_plain_ms:.3f} ms; griffin-lim timed on the eval batch "
           f"[{Bg}, {Fg}, {Kg}], {iters} iterations: kernel {gl_ms:.3f} ms, "
-          f"plain {gl_plain_ms:.3f} ms, torch.stft/istft {gl_lib_ms:.3f} ms "
+          f"({glk.route(n_fft)} route), plain {gl_plain_ms:.3f} ms, "
+          f"torch.stft/istft {gl_lib_ms:.3f} ms "
           f"(iters 0 vs plain {lib_err:.1e}); bounds decode block "
           f"{1e3 * blk_bound_s:.3f} ms, griffin-lim "
           f"{1e3 * max(gl_ops_s, gl_bytes_s):.4f} ms (transforms as FFTs "
           f"at the f32 rate {1e3 * gl_ops_s:.4f} ms, bytes "
-          f"{1e3 * gl_bytes_s:.4f} ms); the kernel's dense 3xTF32 DFT "
+          f"{1e3 * gl_bytes_s:.4f} ms); the DFT route's dense 3xTF32 "
           f"products at the TF32 rate {1e3 * gl_dft_s:.3f} ms")
     by_name["tacotron_decoder"]["launches"] = \
         eval_launches["tacotron_decoder"]
@@ -3424,7 +3594,7 @@ def main(argv=None):
          "bound_ms": 1e3 * blk_bound_s, "bound_by": blk_bound_by,
          "library_ms": None}]
     kernels.append(
-        {"name": "griffin_lim", "route": "cuda",
+        {"name": "griffin_lim", "route": "cuda", "gl_route": glk.route(n_fft),
          "source": "tacotron2_tpu_torch/csrc/griffin_lim.cu",
          "replaces": "tacotron2_tpu/ops/griffin_lim_kernel.py:108",
          "launches": eval_launches["griffin_lim"], "max_abs_err": gl_err,
@@ -3587,6 +3757,10 @@ def main(argv=None):
 
     # ---- 21. (n) the WaveNet stack kernels' envelope: f32, widths
     kernels.extend(stack_envelope_phase(wparams, seed))
+
+    # ---- 22. (o) Griffin-Lim's DFT route; the sampler at B=1, 16, 32
+    kernels.append(routes_phase(cfg, prog, batch.astype(np.float32),
+                                gl_routes, *smp8, W))
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

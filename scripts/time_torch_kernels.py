@@ -9,9 +9,11 @@ kernels, load the r5 checkpoints, run the memory pass of 8 held-out texts,
 then report the median CUDA-event time of 5 runs of the whole decode
 (480 steps, early stop per 64-step block), of the decode of 320 steps
 without early stop (every version then runs the same row-steps), of one
-256-step block from the zero state (the block route's launch), and of
-the sampler over the first 512 samples (f32, and bf16 cache and weights
-where the copy has them), and (where the copy has it) of
+256-step block from the zero state (the block route's launch), of the
+sampler over the first 512 samples (f32, and bf16 cache and weights
+where the copy has them), of the mixture-of-logistics (`paper` preset) and
+categorical heads over 512 samples of 8 rows on chip_smoke.py's random
+weights, f32 and bf16, and (where the copy has it) of
 the Griffin-Lim kernel's 60 iterations on the decoded mels (the
 `TextToWavProgram(vocoder="griffin_lim")` shape, [8, 480, 1025]), with
 checksums of the outputs. Needs one CUDA device.
@@ -103,6 +105,31 @@ def time_one(root):
         smp = {k: (lambda kw=kw: wk.sample(sp, cfg, c_up, z,
                                            kernel_weights=kw))
                for k, kw in samplers.items()}
+        # the other heads on random weights (chip_smoke.py's), f32 and bf16
+        from tacotron2_tpu_torch.config import get_config
+        from tacotron2_tpu_torch.models.wavenet.distributions import \
+            draw_noise
+        from tacotron2_tpu_torch.models.wavenet.sampler import \
+            extract_sampler_params
+        for name, cfg_h in (
+                ("mol", get_config("paper")),
+                ("categorical", get_config(
+                    "default", "wavenet.input_type=mulaw-quantize,"
+                    "wavenet.quantize_channels=256,wavenet.out_channels=256"))):
+            sp_h = extract_sampler_params(cs.random_wavenet_tree(cfg_h,
+                                                                 cs.SEED),
+                                          cfg_h, device=dev)
+            g_h = torch.Generator(dev).manual_seed(1)
+            c_h = torch.rand(B, W, cfg_h.wavenet.cin_channels, generator=g_h,
+                             device=dev)
+            n_h = draw_noise(cfg_h, B, W, g_h, dev)
+            for dt, suf in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+                kw_h = wk.pack_weights(sp_h, cfg_h, cache_dtype=dt,
+                                       weight_dtype=dt)
+                smp[f"_{name}{suf}"] = (
+                    lambda sp_h=sp_h, cfg_h=cfg_h, c_h=c_h, n_h=n_h,
+                    kw_h=kw_h: wk.sample(sp_h, cfg_h, c_h, n_h,
+                                         kernel_weights=kw_h))
         y = {k: float(f().sum()) for k, f in smp.items()}
         torch.cuda.synchronize()
         gl_ms = gl_sum = None

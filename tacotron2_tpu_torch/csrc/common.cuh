@@ -1,10 +1,11 @@
-// Shared device helpers for the port's CUDA kernels (decoder.cu, sampler.cu;
-// the 3xTF32 products of griffin_lim.cu and wavenet_train.cu).
+// Shared device helpers for the port's CUDA kernels (decoder.cu and the
+// sampler's head in sampler.cu; the 3xTF32 split of griffin_lim.cu,
+// wavenet_train.cu and sampler.cu).
 //
-// Both kernels are latency-bound loops of matrix-vector products: each
-// batch row walks every decode step / sample inside one CTA or one cluster,
-// with its state in shared memory and the weights read from global memory
-// (they stay resident in the 50 MB L2 across steps). `matvec` spreads the
+// The decoder is a latency-bound loop of matrix-vector products: each
+// batch row walks every decode step inside one cluster, with its state in
+// shared memory and the weights read from global memory (they stay
+// resident in the 50 MB L2 across steps). `matvec` spreads the
 // output columns over the CTA in 16-byte vectors and splits the reduction
 // dimension over the remaining threads, then sums the splits through
 // shared memory.
@@ -55,27 +56,6 @@ struct Pack<__nv_bfloat16> {
   }
 };
 
-// 8 bytes of bf16 weights (V = 4): the same column groups and splits as
-// Pack<float> with half the bytes. The sampler's narrow per-CTA products
-// (32 columns) run ~15% faster with it than with 16-byte bf16 loads, whose
-// 4 column groups leave each thread ~4 rows and more partials to sum.
-struct PackBf16x4 {
-  static constexpr int V = 4;
-  using Raw = uint2;
-  __device__ __forceinline__ static Raw ld(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ static void cvt(const Raw& q, float* v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-};
-
 // v rounded to bf16 (to nearest even) and back to f32.
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -85,16 +65,17 @@ __device__ __forceinline__ float round_bf16(float v) {
 // consumes the first, which is what hides the latency of L2 in these
 // one-row-at-a-time products; DEPTH trades registers for bytes in flight.
 
-// out[n] = bias[n] + sum_k x[k] * w[k * N + n] for n < N.
-// w: [K, N] row-major in global memory, N % V == 0, N / V <= blockDim.x,
+// out[n] = bias[n] + sum_k x[k] * w[k * ld + n] for n < N (ld 0: N).
+// w: [K, ld] row-major in global memory, N % V == 0, N / V <= blockDim.x,
 // rows aligned to P's load. x, out, part: shared memory; part holds
 // blockDim.x * V floats; out must not alias x. Every thread of the block
 // must call it; it ends with __syncthreads().
 template <int DEPTH, typename W, typename P = Pack<W>>
 __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
                        const float* x, int K, int N, float* out,
-                       float* part) {
+                       float* part, int ld = 0) {
   constexpr int V = P::V;
+  const size_t st = ld ? ld : N;
   const int groups = N / V;
   const int splits = blockDim.x / groups;
   const int g = threadIdx.x % groups;
@@ -109,7 +90,7 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
       typename P::Raw raw[DEPTH];
 #pragma unroll
       for (int j = 0; j < DEPTH; ++j)
-        raw[j] = P::ld(col + (size_t)(k + j * splits) * N);
+        raw[j] = P::ld(col + (k + j * splits) * st);
 #pragma unroll
       for (int j = 0; j < DEPTH; ++j) {
         float wv[V];
@@ -125,7 +106,7 @@ __device__ void matvec(const W* __restrict__ w, const float* __restrict__ bias,
 #pragma unroll
       for (int j = 0; j < DEPTH; ++j) {
         const int kj = k + j * splits;
-        raw[j] = kj < K ? P::ld(col + (size_t)kj * N) : typename P::Raw{};
+        raw[j] = kj < K ? P::ld(col + kj * st) : typename P::Raw{};
       }
 #pragma unroll
       for (int j = 0; j < DEPTH; ++j) {

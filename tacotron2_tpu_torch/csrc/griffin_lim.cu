@@ -13,44 +13,58 @@
 // The TPU kernel folded overlap-add and re-framing into 0/1 shift matrices
 // because Mosaic has no offset slices; here they are index arithmetic.
 //
-// Design. Every iteration is two f32 products over the window's support
-// (W = win samples of each n_fft frame; the padded window is zero outside
-// it, so this is exact), each one launch of one tiled GEMM kernel:
+// Bound: the function needs 2·iters+1 real transforms of n_fft points a
+// frame; as FFTs (~2.5·n·log2(n) operations each, `griffin_lim_flops` in
+// chip_smoke.py) at the f32 rate, which the bytes (S, the start and the
+// waveform once) undercut. Two routes, chosen by shape alone:
+//
+// FFT route (n_fft a power of two: every preset). Each transform is a real
+// FFT of n_fft points in shared memory, one CTA a frame: an M = n_fft/2
+// point complex FFT (Stockham passes, radix 4, and one radix-2 pass when
+// log2(M) is odd) plus the real-input twiddle step, in f32, with the
+// twiddles e^{-2πi t/n_fft} from one table made in float64 on the host and
+// rounded to f32 once. Two launches an iteration:
+//
+//   analysis   for each frame: its W = win support samples of y, each the
+//              overlap-add of the <= ceil(W/hop) synthesized frames that
+//              cover it (in increasing frame order, times g = the inverse
+//              window-sum-square inside the centre-trimmed span, 0
+//              outside), so no y pass exists; times the window, zero-padded
+//              to n_fft; the forward real FFT; the magnitude projection
+//              S · X / max(|X|, 1e-8) as its epilogue; the projected
+//              spectrum [B, F, 2K] (re | im) written;
+//   synthesis  for each frame: that spectrum (or the start), the inverse
+//              real FFT, the window over the support; [B, F, W] written.
+//
+// The last synthesis is followed by one overlap-add into y (the same
+// per-sample sum, so its samples are those the analysis saw). The working
+// set (frames and spectra, ~29 MB at [8, 321, 1025]) stays in the 50 MB L2;
+// every sum has a fixed order and there are no atomics, so reruns repeat
+// bit for bit. Per frame a transform costs ~5 shared-memory passes of
+// n_fft/8 butterflies a thread pair, far below the dense products below.
+//
+// DFT route (any other n_fft). Every iteration is two f32 products over the
+// window's support (W = win samples of each n_fft frame; the padded window
+// is zero outside it, so this is exact), each one launch of one tiled GEMM
+// kernel:
 //
 //   synthesis  frames[b, f, j] = sum_kk A[b, f, kk] · Bsyn[kk, j]
 //              A = [re | im] (2K columns); with `project` set, A is made
 //              while the tile is loaded: S·est/max(|est|, 1e-8) from the
 //              previous analysis (the magnitude projection costs no pass);
 //              Bsyn = [window·ci ; -window·si] restricted to the support;
-//   overlap-add  y[b, n] = g[n] · sum_f frames[b, f, n - f·hop - lpad],
-//              g = 1/window-sum-square inside the centre-trimmed span and 0
-//              outside it (the next STFT re-pads with zeros there);
+//   overlap-add  y[b, n] = g[n] · sum_f frames[b, f, n - f·hop - lpad];
 //   analysis   est[b, f, kk] = sum_j y[b, f·hop + lpad + j] · Bana[j, kk],
 //              Bana = [window·cos | -window·sin] over the support, so the
 //              re-framing is the A tile's load.
 //
 // The GEMM runs on the tensor cores in TF32 with each f32 operand split
 // into two TF32 parts ("3xTF32": hi·hi + hi·lo + lo·hi), which keeps each
-// operand to ~2^-22 of itself (one TF32 product alone keeps ~3 digits, too
-// few against the f32 plain version): 128×128 tiles a CTA of 8 warps,
-// mma.sync m16n8k8. Each 8-deep step's three products go into a zeroed
-// fragment that an f32 add (round to nearest) adds to the running sum: the
-// tensor cores' own accumulation rounds toward zero, and summed in them
-// over the 257 steps of a 2K-deep product the samples lay ~20× farther
-// from float64 than the f32 plain version's; with the adds, ~2× (PERF.md).
-//
-// Bound: the function needs 2·iters+1 real transforms of n_fft points a
-// frame; as FFTs (~2.5·n·log2(n) operations each) that is under 1/50 of
-// the dense DFT products here, so its floor lies far below this design's:
-// 2·iters+1 products of 2·F·W·2K operations a row, three TF32 products
-// each, at the tensor cores' TF32 rate (chip_smoke.py prints both). A
-// per-frame FFT is the design that reaches for the first. This version is
-// latency-bound besides: each 16-deep slice is loaded (through the
-// projection for A), stored and synchronised before its products, and
-// only the other CTA on the SM overlaps that wait. It is 7% faster than
-// the first, f32-FMA tiling (14% before the f32 adds); fetching the next slice into registers during
-// the products cost a CTA per SM and was 40% slower (PERF.md). An
-// async-copy pipeline with the projection in its own pass is the next step.
+// operand to ~2^-22 of itself: 128×128 tiles a CTA of 8 warps, mma.sync
+// m16n8k8, each 8-deep step's three products added in f32 (round to
+// nearest; the tensor cores' own accumulation truncates). Its dense
+// products are 2·iters+1 of 2·F·W·2K operations a row, over 50× the
+// transforms as FFTs, and its tile loop is latency-bound (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -164,8 +178,24 @@ __global__ void __launch_bounds__(NT, 2)
     }
 }
 
-// y[b, n] = g[n] · sum over the frames f covering n of frames[b, f, n -
-// f·hop - lpad], in increasing f.
+// g[n] · sum over the frames f covering sample n of the padded signal of
+// frames[f, n - f·hop - lpad] (fb: one row's [F, W] frames), in increasing
+// f: the overlap-add of both routes, and of the FFT route's analysis.
+__device__ __forceinline__ float ola_at(const float* __restrict__ fb,
+                                        const float* __restrict__ g, int n,
+                                        int F, int W, int hop, int lpad) {
+  const float gn = g[n];
+  const int rel = n - lpad;  // n - f·hop - lpad must lie in [0, W)
+  float s = 0.f;
+  if (gn != 0.f && rel >= 0) {
+    const int f_lo = rel - W + 1 <= 0 ? 0 : (rel - W + 1 + hop - 1) / hop;
+    const int f_hi = min(rel / hop, F - 1);
+    for (int f = f_lo; f <= f_hi; ++f) s += fb[(size_t)f * W + (rel - f * hop)];
+  }
+  return s * gn;
+}
+
+// y[b, n] = ola_at(frames[b], n) for every sample n of the padded signal.
 __global__ void __launch_bounds__(NT)
     overlap_add_kernel(const float* __restrict__ frames,
                        const float* __restrict__ g, float* __restrict__ y,
@@ -173,17 +203,154 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.y;
   const int n = blockIdx.x * NT + threadIdx.x;
   if (n >= total) return;
-  float s = 0.f;
-  const int rel = n - lpad;  // n - f·hop - lpad must lie in [0, W)
-  if (g[n] != 0.f && rel >= 0) {
-    int f_lo = rel - W + 1 <= 0 ? 0 : (rel - W + 1 + hop - 1) / hop;
-    int f_hi = rel / hop;
-    if (f_hi > F - 1) f_hi = F - 1;
-    const float* fb = frames + (size_t)b * F * W;
-    for (int f = f_lo; f <= f_hi; ++f)
-      s += fb[(size_t)f * W + (rel - f * hop)];
+  y[(size_t)b * total + n] =
+      ola_at(frames + (size_t)b * F * W, g, n, F, W, hop, lpad);
+}
+
+// ------------------------------------------------------------ FFT route
+
+constexpr int FT = 256;  // threads of an FFT CTA (one frame)
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// Forward DFT of M = 2^m points held in `a` (Z[k] = sum_j z[j]
+// e^{-2πi jk/M}) by Stockham passes: radix 4 while 4 divides the
+// remaining length n, then one radix-2 pass if m is odd; pass p reads one
+// buffer and writes the other (a, b: M points each). tw[t] = e^{-2πi t /
+// (2M)}, so w_n^p = e^{-2πi p s / M} = tw[2ps] with s = M/n. Called by
+// every thread of the CTA; returns the buffer that holds the result, after
+// a __syncthreads().
+__device__ float2* fft_forward(float2* a, float2* b, int M,
+                               const float2* __restrict__ tw) {
+  int n = M, s = 1, ls = 0;  // s = 2^ls
+  while (n > 1) {
+    if (n >= 4) {
+      const int n4 = n >> 2;
+      for (int i = threadIdx.x; i < (M >> 2); i += FT) {
+        const int p = i >> ls, q = i & (s - 1);
+        const float2 A = a[q + s * p], B = a[q + s * (p + n4)];
+        const float2 C = a[q + s * (p + 2 * n4)], D = a[q + s * (p + 3 * n4)];
+        const float2 apc = make_float2(A.x + C.x, A.y + C.y);
+        const float2 amc = make_float2(A.x - C.x, A.y - C.y);
+        const float2 bpd = make_float2(B.x + D.x, B.y + D.y);
+        // -i·(B - D)
+        const float2 jb = make_float2(B.y - D.y, D.x - B.x);
+        const int e = 2 * p * s;
+        b[q + s * 4 * p] = make_float2(apc.x + bpd.x, apc.y + bpd.y);
+        b[q + s * (4 * p + 1)] =
+            cmul(tw[e], make_float2(amc.x + jb.x, amc.y + jb.y));
+        b[q + s * (4 * p + 2)] =
+            cmul(tw[2 * e], make_float2(apc.x - bpd.x, apc.y - bpd.y));
+        b[q + s * (4 * p + 3)] =
+            cmul(tw[3 * e], make_float2(amc.x - jb.x, amc.y - jb.y));
+      }
+      n = n4;
+      s <<= 2;
+      ls += 2;
+    } else {  // n == 2
+      for (int i = threadIdx.x; i < (M >> 1); i += FT) {
+        const int p = i >> ls, q = i & (s - 1);
+        const float2 A = a[q + s * p], B = a[q + s * (p + 1)];
+        b[q + s * 2 * p] = make_float2(A.x + B.x, A.y + B.y);
+        b[q + s * (2 * p + 1)] =
+            cmul(tw[2 * p * s], make_float2(A.x - B.x, A.y - B.y));
+      }
+      n = 1;
+    }
+    __syncthreads();
+    float2* t = a;
+    a = b;
+    b = t;
   }
-  y[(size_t)b * total + n] = s * g[n];
+  return a;
+}
+
+// One frame's inverse real FFT: spec [B, F, 2K] (re | im; Im X[0] and
+// Im X[M] are dropped, as irfft drops them) -> the window's support of the
+// frame times the window, frames [B, F, W]. With X = DFT_{2M}(x):
+// E[k] = (X[k] + conj X[M-k]) / 2 and O[k] = (X[k] - conj X[M-k]) ·
+// e^{+2πik/2M} / 2 are the DFTs of x's even and odd samples, so z = x_even
+// + i·x_odd = IFFT_M(E + iO) = conj(FFT_M(conj(E + iO))) / M.
+__global__ void __launch_bounds__(FT)
+    gl_synthesis_kernel(const float* __restrict__ spec,
+                        const float* __restrict__ win,
+                        const float2* __restrict__ tw,
+                        float* __restrict__ frames, int F, int K, int W,
+                        int lpad, int M) {
+  extern __shared__ float2 fsm[];
+  float2* A = fsm;           // M + 1 points
+  float2* Bf = fsm + M + 1;  // M points
+  const int f = blockIdx.x, b = blockIdx.y;
+  const float* row = spec + ((size_t)b * F + f) * 2 * K;
+  for (int k = threadIdx.x; k <= M; k += FT)
+    A[k] = make_float2(row[k], (k == 0 || k == M) ? 0.f : row[K + k]);
+  __syncthreads();
+  for (int k = threadIdx.x; k < M; k += FT) {
+    const float2 xk = A[k], xm = A[M - k];  // conj(X[M-k]) = (xm.x, -xm.y)
+    const float2 E = make_float2(0.5f * (xk.x + xm.x), 0.5f * (xk.y - xm.y));
+    const float2 D = make_float2(0.5f * (xk.x - xm.x), 0.5f * (xk.y + xm.y));
+    const float2 w = tw[k];
+    const float2 O = cmul(D, make_float2(w.x, -w.y));
+    // conj(E + i·O)
+    Bf[k] = make_float2(E.x - O.y, -(E.y + O.x));
+  }
+  __syncthreads();
+  const float2* z = fft_forward(Bf, A, M, tw);
+  const float inv = 1.f / (float)M;
+  float* fr = frames + ((size_t)b * F + f) * W;
+  for (int j = threadIdx.x; j < W; j += FT) {
+    const int n = lpad + j;
+    const float2 v = z[n >> 1];
+    fr[j] = ((n & 1) ? -v.y : v.x) * inv * win[j];
+  }
+}
+
+// One frame's analysis: its support samples of y gathered from the
+// synthesized frames (ola_at), windowed and zero-padded to 2M, the forward
+// real FFT (z = x_even + i·x_odd, Z = FFT_M(z), X[k] = E[k] + e^{-2πik/2M}
+// O[k] with E = (Z[k] + conj Z[M-k]) / 2, O = (Z[k] - conj Z[M-k]) / 2i),
+// then the magnitude projection with S; spec [B, F, 2K] written.
+__global__ void __launch_bounds__(FT)
+    gl_analysis_kernel(const float* __restrict__ frames,
+                       const float* __restrict__ g,
+                       const float* __restrict__ win,
+                       const float2* __restrict__ tw,
+                       const float* __restrict__ S, float* __restrict__ spec,
+                       int F, int K, int W, int hop, int lpad, int M) {
+  extern __shared__ float2 fsm[];
+  float2* A = fsm;
+  float2* Bf = fsm + M + 1;
+  const int f = blockIdx.x, b = blockIdx.y;
+  const float* fb = frames + (size_t)b * F * W;
+  for (int m = threadIdx.x; m < M; m += FT) {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 2 * m + e - lpad;
+      v[e] = (j >= 0 && j < W)
+                 ? win[j] * ola_at(fb, g, f * hop + 2 * m + e, F, W, hop, lpad)
+                 : 0.f;
+    }
+    A[m] = make_float2(v[0], v[1]);
+  }
+  __syncthreads();
+  const float2* Z = fft_forward(A, Bf, M, tw);
+  const float* Sr = S + ((size_t)b * F + f) * K;
+  float* out = spec + ((size_t)b * F + f) * 2 * K;
+  for (int k = threadIdx.x; k <= M; k += FT) {
+    const float2 zk = Z[k & (M - 1)], zm = Z[(M - k) & (M - 1)];
+    const float2 E = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+    const float2 D = make_float2(0.5f * (zk.x - zm.x), 0.5f * (zk.y + zm.y));
+    const float2 O = make_float2(D.y, -D.x);  // D / i
+    const float2 t = cmul(tw[k], O);
+    const float xr = E.x + t.x, xi = E.y + t.y;
+    const float mag = fmaxf(sqrtf(xr * xr + xi * xi), 1e-8f);
+    const float sk = Sr[k];
+    out[k] = sk * xr / mag;
+    out[K + k] = sk * xi / mag;
+  }
 }
 
 int launch_synthesis(const float* est, const float* S, int project,
@@ -205,7 +372,7 @@ int launch_ola(const float* frames, const float* g, float* y, int B, int F,
 
 }  // namespace
 
-// One call runs the whole reconstruction on `stream`:
+// The DFT route: one call runs the whole reconstruction on `stream`:
 //   reim0 [B, F, 2K] initial (re | im); S [B, F, K]; bsyn [2K, W];
 //   bana [W, 2K]; g [total]; scratch frames [B, F, W], est [B, F, 2K];
 //   y [B, total] (total = n_fft + hop·(F-1)) receives the last
@@ -239,4 +406,51 @@ extern "C" int taco_griffin_lim_launch(
     if (rc) return rc;
   }
   return 0;
+}
+
+// The FFT route (n_fft = 2M a power of two), on `stream`:
+//   reim0 [B, F, 2K] initial (re | im); S [B, F, K]; win [W] the window
+//   over its support; tw [2M] complex e^{-2πi t/2M}; g [total]; scratch
+//   frames [B, F, W], spec [B, F, 2K]; y [B, total] as above.
+// 2·iters + 2 launches. Returns the first CUDA error code, or 0.
+extern "C" int taco_griffin_lim_fft_launch(
+    const void* reim0, const void* S, const void* win, const void* tw,
+    const void* g, void* frames, void* spec, void* y, int B, int F, int K,
+    int W, int hop, int lpad, int n_fft, int iters, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int M = n_fft / 2, total = n_fft + hop * (F - 1);
+  if (n_fft < 4 || (n_fft & (n_fft - 1)) || K != M + 1 || W > n_fft)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * M + 1) * sizeof(float2);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gl_synthesis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(gl_analysis_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const float* Sf = (const float*)S;
+  const float* wf = (const float*)win;
+  const float2* t2 = (const float2*)tw;
+  const float* gf = (const float*)g;
+  float* fr = (float*)frames;
+  float* sp = (float*)spec;
+  const dim3 grid(F, B);
+  gl_synthesis_kernel<<<grid, FT, smem, st>>>((const float*)reim0, wf, t2, fr,
+                                              F, K, W, lpad, M);
+  int rc = (int)cudaGetLastError();
+  for (int it = 0; it < iters && !rc; ++it) {
+    gl_analysis_kernel<<<grid, FT, smem, st>>>(fr, gf, wf, t2, Sf, sp, F, K,
+                                               W, hop, lpad, M);
+    rc = (int)cudaGetLastError();
+    if (rc) break;
+    gl_synthesis_kernel<<<grid, FT, smem, st>>>(sp, wf, t2, fr, F, K, W,
+                                                lpad, M);
+    rc = (int)cudaGetLastError();
+  }
+  if (rc) return rc;
+  return launch_ola(fr, gf, (float*)y, B, F, W, hop, lpad, total, st);
 }

@@ -8,10 +8,15 @@ tensors launch `csrc/griffin_lim.cu` (its design and bound are in the note
 at its top); CPU tensors take the plain version, `griffin_lim_plain`, the
 same iterations as DFT products through `ops/stft.py`.
 
-The kernel's operands are the window-folded synthesis and analysis bases
-over the window's support (`kernel_bases`, built once per (n_fft, hop, win,
-device): they do not depend on the frame count) and the overlap-add
-normalisation `g` (`overlap_add_norm`, made for each call's frame count).
+The kernel has two routes, chosen by shape alone (`route`): a power-of-two
+n_fft (every preset) takes per-frame real FFTs in shared memory, whose
+operands are the window over its support and one twiddle table made in
+float64 and rounded to f32 once (`fft_operands`; the passes: `fft_plan`);
+any other n_fft takes the dense DFT products, whose operands are the
+window-folded synthesis and analysis bases over the support
+(`kernel_bases`). Both are built once per (n_fft, hop, win, device); the
+overlap-add normalisation `g` (`overlap_add_norm`) is made for each call's
+frame count.
 """
 
 from __future__ import annotations
@@ -24,8 +29,14 @@ import torch
 
 from . import stft as _stft
 
-# kernel calls made by `fused_griffin_lim` (one per batch reconstruction)
+# kernel calls made by `fused_griffin_lim` (one per batch reconstruction),
+# in all and by route
 launches = 0
+launches_fft = 0
+launches_dft = 0
+# the largest n_fft of the FFT route (its two buffers, 16·n_fft bytes of
+# shared memory a CTA)
+FFT_MAX = 16384
 
 _argtypes_set = False
 
@@ -72,6 +83,48 @@ def kernel_bases(n_fft: int, hop: int, win_size: int,
     return _bases[key]
 
 
+def route(n_fft: int) -> str:
+    """"fft" for a power-of-two n_fft up to FFT_MAX, else "dft"."""
+    return "fft" if 4 <= n_fft <= FFT_MAX and n_fft & (n_fft - 1) == 0 \
+        else "dft"
+
+
+def fft_plan(n_fft: int) -> list:
+    """The radices of the kernel's Stockham passes over M = n_fft/2
+    points, in order: 4 while 4 divides what is left, then one 2."""
+    n, plan = n_fft // 2, []
+    while n > 1:
+        r = 4 if n % 4 == 0 else 2
+        plan.append(r)
+        n //= r
+    return plan
+
+
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """[n_fft, 2] f32: e^{-2πi t/n_fft} (cos, -sin), made in float64 and
+    rounded once."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], 1).astype(np.float32)
+
+
+class FftOperands(NamedTuple):
+    win: torch.Tensor  # [W] the window over its support
+    tw: torch.Tensor   # [n_fft, 2] fft_twiddles
+    lpad: int
+
+
+_fft_ops: Dict[tuple, FftOperands] = {}
+
+
+def fft_operands(n_fft: int, win_size: int, device) -> FftOperands:
+    key = (n_fft, win_size, str(device))
+    if key not in _fft_ops:
+        lpad, window = _stft.support(n_fft, win_size)
+        _fft_ops[key] = FftOperands(_to(window, device),
+                                    _to(fft_twiddles(n_fft), device), lpad)
+    return _fft_ops[key]
+
+
 def overlap_add_norm(n_fft: int, hop: int, win_size: int, F: int,
                      device) -> torch.Tensor:
     """g [n_fft + hop·(F-1)]: 1/window-sum-square inside the centre-trimmed
@@ -89,8 +142,9 @@ def _lib():
     lib = build.load("griffin_lim")
     if not _argtypes_set:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.taco_griffin_lim_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
-        lib.taco_griffin_lim_launch.restype = ci
+        for fn in ("taco_griffin_lim_launch", "taco_griffin_lim_fft_launch"):
+            getattr(lib, fn).argtypes = [vp] * 8 + [ci] * 8 + [vp]
+            getattr(lib, fn).restype = ci
         _argtypes_set = True
     return lib
 
@@ -105,7 +159,7 @@ def fused_griffin_lim(S, re0, im0, n_fft: int, hop: int, win_size: int,
 
 
 def _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters):
-    global launches
+    global launches, launches_fft, launches_dft
     if S.dim() != 3:
         raise ValueError(f"S must be [B, F, K], got {tuple(S.shape)}")
     B, F, K = S.shape
@@ -121,23 +175,34 @@ def _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters):
     if iters < 0:
         raise ValueError("iters must be >= 0")
     dev = S.device
-    ops = kernel_bases(n_fft, hop, win_size, dev)
     g = overlap_add_norm(n_fft, hop, win_size, F, dev)
-    W = ops.bana.shape[0]
     total = n_fft + hop * (F - 1)
     S = S.contiguous()
     reim0 = torch.cat([re0, im0], -1).contiguous()
+    kind = route(n_fft)
+    if kind == "fft":
+        ops = fft_operands(n_fft, win_size, dev)
+        W, fn = ops.win.shape[0], "taco_griffin_lim_fft_launch"
+        a, b = ops.win, ops.tw
+    else:
+        ops = kernel_bases(n_fft, hop, win_size, dev)
+        W, fn = ops.bana.shape[0], "taco_griffin_lim_launch"
+        a, b = ops.bsyn, ops.bana
     frames = torch.empty(B, F, W, device=dev)
     est = torch.empty(B, F, 2 * K, device=dev)
     y = torch.empty(B, total, device=dev)
     lib = _lib()
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    rc = lib.taco_griffin_lim_launch(
-        ptr(reim0), ptr(S), ptr(ops.bsyn), ptr(ops.bana), ptr(g),
-        ptr(frames), ptr(est), ptr(y), B, F, K, W, hop, ops.lpad, n_fft,
-        int(iters), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    rc = getattr(lib, fn)(
+        ptr(reim0), ptr(S), ptr(a), ptr(b), ptr(g), ptr(frames), ptr(est),
+        ptr(y), B, F, K, W, hop, ops.lpad, n_fft, int(iters),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     from ..native.build import check
-    check(rc, "taco_griffin_lim_launch")
+    check(rc, fn)
     launches += 1
+    if kind == "fft":
+        launches_fft += 1
+    else:
+        launches_dft += 1
     pad = n_fft // 2
     return y[:, pad: pad + hop * (F - 1)]

@@ -7,10 +7,12 @@ Gaussian, mixture-of-logistics and categorical heads (`_HeadPlan`, :56),
 each with an f32 or bf16 delay cache and f32 or bf16 layer weights
 (`cache_dtype` / `weight_dtype`, as the TPU kernel takes them). CUDA
 tensors launch the kernel; CPU tensors take its plain version,
-`models/wavenet/sampler.py:incremental_sample`. The kernel takes its
-weights stacked and split per CTA, which `pack_weights` builds once per set
-of weights and dtypes (at load time, not per call). The kernel's design
-and bound are in the note at the top of `csrc/sampler.cu`. The TPU
+`models/wavenet/sampler.py:incremental_sample`. One cluster of the kernel
+runs 8 rows of the batch (`row_plan`). It takes each CTA's columns of each
+layer as one slice of mma A-fragment tiles and biases (`stack_weights`,
+`slice_layout`), which `pack_weights` builds once per set of weights and
+dtypes (at load time, not per call). The kernel's design and bound are in
+the note at the top of `csrc/sampler.cu`. The TPU
 kernel's `sampler_hbm_delay_threshold` and `sampler_window` place its
 delay lines in VMEM or HBM without changing the samples; they have no
 counterpart here.
@@ -38,53 +40,175 @@ from ..models.wavenet.sampler import SamplerParams, incremental_sample
 launches = 0
 
 _argtypes_set = False
-# CTAs per row: `CS` in csrc/sampler.cu (checked at launch)
-CLUSTER_SIZE = 8
+# CTAs a cluster by weight dtype and batch rows a cluster: `CS`, `CS_F32`
+# and `RB` in csrc/sampler.cu (checked at launch)
+CLUSTER_SIZES = {torch.bfloat16: 8, torch.float32: 16}
+ROWS_PER_CLUSTER = 8
 # the kernel's `Head` codes
 HEADS = {"gaussian": 0, "mol": 1, "categorical": 2}
 DTYPES = (torch.float32, torch.bfloat16)
-# dynamic shared memory a CTA may use on the H100
-MAX_SMEM = 232448
 _INT_ORDER = ("B", "T", "L", "R", "G", "S", "C", "ring_rows", "legacy",
               "residual_legacy", "head", "n_out", "NO", "first_idx",
-              "weight_bf16", "cache_bf16")
+              "weight_bf16", "cache_bf16", "slice_bytes")
+# bytes of one A-fragment tile: 32 lanes x 16 bytes
+TILE = 512
 
 
-def _per_rank(w, cs: int):
-    """[..., cs·n] -> [cs, ..., n]: column block c goes to CTA c."""
-    w = w.reshape(*w.shape[:-1], cs, w.shape[-1] // cs)
-    return w.movedim(-2, 0)
+class RowPlan(NamedTuple):
+    clusters: int    # ceil(B / ROWS_PER_CLUSTER)
+    rows: int        # clusters · ROWS_PER_CLUSTER: the ring's rows
+    padded: int      # rows that run on zero inputs and are never written
 
 
-def stack_weights(sp: SamplerParams, cfg: Config, cs: int = 1,
+def row_plan(B: int) -> RowPlan:
+    """Batch row b runs as row b % 8 of cluster b // 8; the last cluster's
+    missing rows take zero conditioning and noise."""
+    clusters = -(-B // ROWS_PER_CLUSTER)
+    rows = clusters * ROWS_PER_CLUSTER
+    return RowPlan(clusters, rows, rows - B)
+
+
+class SliceLayout(NamedTuple):
+    """A CTA's share of a layer: gc gate units, sc skip and rc residual
+    columns; c16 the conditioning width padded to 16; ks the depth of one
+    mma step (16 for bf16 weights, 8 for f32 as TF32); the m-tiles of the
+    gate products (mtg, 8 units each: their a columns in rows 0-7, b in
+    8-15) and their k-tiles over the x_t rows (ktx, depth R) and over the
+    x_{t-2d}, x_{t-d} and c_t rows (kto, depth 2R + c16); the skip|out
+    product's (mts, kts)."""
+
+    gc: int
+    sc: int
+    rc: int
+    c16: int
+    ks: int
+    mtg: int
+    ktx: int
+    kto: int
+    mts: int
+    kts: int
+
+    @property
+    def tiles_x(self) -> int:
+        return TILE * self.mtg * self.ktx
+
+    @property
+    def tiles_o(self) -> int:
+        return TILE * self.mtg * self.kto
+
+    @property
+    def tiles_s(self) -> int:
+        return TILE * self.mts * self.kts
+
+    @property
+    def bytes(self) -> int:
+        return (self.tiles_x + self.tiles_o + self.tiles_s
+                + 64 * (self.mtg + self.mts))
+
+
+def cluster_size(weight_dtype) -> int:
+    return CLUSTER_SIZES[weight_dtype]
+
+
+def slice_layout(cfg: Config, cs: int | None = None,
+                 weight_dtype=torch.float32) -> SliceLayout:
+    cs = cs or cluster_size(weight_dtype)
+    wn = cfg.wavenet
+    R, G, S, C = (wn.residual_channels, wn.gate_channels,
+                  wn.skip_out_channels, wn.cin_channels)
+    # what the packing itself needs (whole k-tiles, an even split over the
+    # CTAs); the kernel's envelope is `taco_sampler_supported`
+    if R % 16 or (G // 2) % 16 or G % (2 * cs) or S % cs or R % cs:
+        raise ValueError(f"the sampler kernel's tiles do not divide R {R}, "
+                         f"G {G}, S {S} over {cs} CTAs")
+    gc, sc, rc = G // 2 // cs, S // cs, R // cs
+    c16 = -(-C // 16) * 16
+    ks = 16 if weight_dtype == torch.bfloat16 else 8
+    return SliceLayout(gc, sc, rc, c16, ks, -(-gc // 8), R // ks,
+                       (2 * R + c16) // ks, -(-(sc + rc) // 16), G // 2 // ks)
+
+
+def frag_index(ks: int) -> np.ndarray:
+    """[32, 16·ks/32]: the flat index m·ks + k of each value that lane (g,
+    t) = (lane // 4, lane % 4) holds of a 16 × ks A operand of mma.sync
+    m16n8k{ks}, in register order (bf16 pairs for ks 16, TF32 for 8)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    if ks == 16:
+        mk = [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1),
+              (g, 2 * t + 8), (g, 2 * t + 9), (g + 8, 2 * t + 8),
+              (g + 8, 2 * t + 9)]
+    else:
+        mk = [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
+    return np.stack([m * ks + k for m, k in mk], 1)
+
+
+def _tiles(w, ks: int) -> torch.Tensor:
+    """w [..., 16·MT, ks·KT] -> bytes [..., MT·KT·512]: tiles (mt, kt) in
+    that order, each its 32 lanes' fragments."""
+    *lead, mp, kp = w.shape
+    mt, kt = mp // 16, kp // ks
+    x = w.reshape(*lead, mt, 16, kt, ks).movedim(-3, -2).reshape(
+        *lead, mt, kt, 16 * ks)
+    x = x[..., torch.as_tensor(frag_index(ks).reshape(-1))]
+    return x.contiguous().view(torch.uint8).reshape(*lead, -1)
+
+
+def _pad_to(w, dim: int, n: int):
+    pad = [0, 0] * (w.dim() - 1 - dim % w.dim()) + [0, n - w.shape[dim]]
+    return torch.nn.functional.pad(w, pad)
+
+
+def stack_weights(sp: SamplerParams, cfg: Config, cs: int | None = None,
                   weight_dtype=torch.float32):
-    """SamplerParams -> the kernel's stacked operands, split over the `cs`
-    CTAs of a cluster:
-    czw [cs, L, 3R+C, 2·gc]: taps ++ cin rows, the (a | b) gate columns of
-      CTA c's gc = G/(2·cs) units; czb [cs, L, 2·gc] = conv_b + cin_b;
-    sow [cs, L, G/2, S/cs + R/cs]: CTA c's skip ++ out columns; sob alike;
-    and the head with its output columns zero-padded to a multiple of 4.
-    czw and sow are in `weight_dtype`, the rest f32."""
-    czw = torch.stack([torch.cat([lp.conv_w, lp.cin_w], 0)
-                       for lp in sp.layers])
-    czb = torch.stack([lp.conv_b + lp.cin_b for lp in sp.layers])
-    L, K, G = czw.shape
-    czw = _per_rank(czw.reshape(L, K, 2, G // 2), cs).reshape(
-        cs, L, K, G // cs).to(weight_dtype).contiguous()
-    czb = _per_rank(czb.reshape(L, 2, G // 2), cs).reshape(
-        cs, L, G // cs).contiguous()
-    sow = torch.cat([_per_rank(torch.stack([lp.skip_w for lp in sp.layers]),
-                               cs),
-                     _per_rank(torch.stack([lp.out_w for lp in sp.layers]),
-                               cs)], -1).to(weight_dtype).contiguous()
-    sob = torch.cat([_per_rank(torch.stack([lp.skip_b for lp in sp.layers]),
-                               cs),
-                     _per_rank(torch.stack([lp.out_b for lp in sp.layers]),
-                               cs)], -1).contiguous()
+    """SamplerParams -> (slices, f2w, f2b). slices: bytes [cs, L, bytes of
+    `slice_layout`], CTA c's operands of layer l, in `weight_dtype`: the
+    gate product's A tiles over the x_t rows, then over the x_{t-2d},
+    x_{t-d} and c_t rows (zero-padded to c16), m-tile mt holding units
+    c·gc + 8mt .. + 7 (a columns in rows 0-7, b in 8-15, zero past gc); the
+    skip|out product's (skip columns c·sc .., out columns c·rc .., depth
+    G/2); then their biases in f32 (conv_b + cin_b in the gate rows' order;
+    skip_b | out_b). The head's output columns are zero-padded to a
+    multiple of 4."""
+    wn = cfg.wavenet
+    R, G = wn.residual_channels, wn.gate_channels
+    cs = cs or cluster_size(weight_dtype)
+    lay = slice_layout(cfg, cs, weight_dtype)
+    st = lambda name: torch.stack([getattr(lp, name) for lp in sp.layers])
+    conv = st("conv_w")                                    # [L, 3R, G]
+    old = _pad_to(torch.cat([conv[:, :2 * R], st("cin_w")], 1), 1,
+                  2 * R + lay.c16).transpose(1, 2)         # [L, G, 2R + c16]
+    xw = conv[:, 2 * R:].transpose(1, 2)                   # [L, G, R]
+    czb = st("conv_b") + st("cin_b")
+    # gate rows: per CTA c and m-tile mt, units 8mt .. 8mt + 7 of c's gc
+    # (a columns, then their b columns); units past gc are zero rows
+    i = torch.arange(8)
+    unit = torch.arange(lay.mtg)[:, None] * 8 + i                 # [mtg, 8]
+    cols = torch.arange(cs)[:, None, None] * lay.gc + unit        # [cs, mtg, 8]
+    cols = torch.cat([cols, G // 2 + cols], -1).reshape(cs, -1)   # [cs, 16 mtg]
+    live = (unit < lay.gc).repeat(1, 2).reshape(-1).to(conv)      # [16 mtg]
+    cols = cols.clamp(max=G - 1)
+    gate = lambda w: w[:, cols] * live[:, None]            # [L, cs, 16 mtg, K]
+    bg = czb[:, cols] * live
+    c = torch.arange(cs)[:, None]
+    scols = torch.arange(lay.sc)[None, :] + c * lay.sc
+    rcols = torch.arange(lay.rc)[None, :] + c * lay.rc
+    ws = torch.cat([st("skip_w").transpose(1, 2)[:, scols],
+                    st("out_w").transpose(1, 2)[:, rcols]], 2)
+    ws = _pad_to(ws, 2, 16 * lay.mts)                     # [L, cs, ., G/2]
+    bs = _pad_to(torch.cat([st("skip_b")[:, scols], st("out_b")[:, rcols]],
+                           2), 2, 16 * lay.mts)
+    f32 = lambda x: x.to(torch.float32).contiguous().view(torch.uint8)
+    wd = lambda x: x.to(weight_dtype)
+    slices = torch.cat([_tiles(wd(gate(xw)), lay.ks),
+                        _tiles(wd(gate(old)), lay.ks),
+                        _tiles(wd(ws), lay.ks), f32(bg), f32(bs)],
+                       -1).transpose(0, 1).contiguous()
+    assert slices.shape[-1] == lay.bytes
     pad = -sp.final2_w.shape[1] % 4
     f2w = torch.nn.functional.pad(sp.final2_w, (0, pad)).contiguous()
     f2b = torch.nn.functional.pad(sp.final2_b, (0, pad)).contiguous()
-    return czw, czb, sow, sob, f2w, f2b
+    return slices, f2w, f2b
 
 
 def ring_layout(cfg: Config):
@@ -100,10 +224,7 @@ class KernelWeights(NamedTuple):
     and one pair of dtypes (built once by `pack_weights`; see
     `stack_weights` for the layout)."""
 
-    czw: torch.Tensor
-    czb: torch.Tensor
-    sow: torch.Tensor
-    sob: torch.Tensor
+    slices: torch.Tensor   # bytes [cs, L, slice]
     f2w: torch.Tensor
     f2b: torch.Tensor
     first_w: torch.Tensor  # [1, R] or [Q, R] (rounded to the weight dtype)
@@ -128,11 +249,13 @@ def _check_dtypes(cache_dtype, weight_dtype):
                              f"bfloat16, not {dt}")
 
 
-def pack_weights(sp: SamplerParams, cfg: Config, cs: int = CLUSTER_SIZE, *,
+def pack_weights(sp: SamplerParams, cfg: Config, cs: int | None = None, *,
                  cache_dtype=torch.float32,
                  weight_dtype=torch.float32) -> KernelWeights:
-    """SamplerParams -> the kernel's operands for the config's head."""
+    """SamplerParams -> the kernel's operands for the config's head, split
+    over `cs` CTAs (by default the kernel's cluster for the weight dtype)."""
     _check_dtypes(cache_dtype, weight_dtype)
+    cs = cs or cluster_size(weight_dtype)
     kind, _ = head_kind(cfg)
     wn = cfg.wavenet
     n_out = sp.final2_w.shape[1]
@@ -205,11 +328,15 @@ def _lib():
         lib.taco_sampler_launch.argtypes = [vp, ci, vp, ci, ctypes.c_float,
                                             vp]
         lib.taco_sampler_launch.restype = ci
-        lib.taco_sampler_smem_bytes.argtypes = [ci] * 6
-        lib.taco_sampler_smem_bytes.restype = ctypes.c_size_t
-        for fn in ("cluster_size", "n_ptr", "n_int"):
+        lib.taco_sampler_layout.argtypes = [ci] * 7 + [vp]
+        lib.taco_sampler_layout.restype = None
+        lib.taco_sampler_supported.argtypes = [ci] * 9
+        lib.taco_sampler_supported.restype = ci
+        for fn in ("rows_per_cluster", "n_ptr", "n_int"):
             getattr(lib, f"taco_sampler_{fn}").argtypes = []
             getattr(lib, f"taco_sampler_{fn}").restype = ci
+        lib.taco_sampler_cluster_size.argtypes = [ci]
+        lib.taco_sampler_cluster_size.restype = ci
         _argtypes_set = True
     return lib
 
@@ -228,34 +355,42 @@ def _sample_cuda(kw: KernelWeights, cfg: Config, c_up, noise):
             noise.device != dev:
         raise ValueError(f"c_up must be f32 [B, T, C] and noise "
                          f"[{planes}, B, T] on its device")
-    if kw.czw.device != dev or kw.czw.dtype != kw.weight_dtype:
-        raise ValueError(f"sampler weights must be {kw.weight_dtype} on "
-                         f"{dev}")
+    if kw.slices.device != dev:
+        raise ValueError(f"sampler weights must be on {dev}")
     if kw.head != kind or kw.n_out != wn.out_channels:
         raise ValueError(f"kernel_weights hold a {kw.head} head with "
                          f"{kw.n_out} outputs, the config a {kind} head "
                          f"with {wn.out_channels}")
-    if kw.czw.shape[1] != L:
-        raise ValueError(f"kernel_weights hold {kw.czw.shape[1]} layers, "
+    if kw.slices.shape[1] != L:
+        raise ValueError(f"kernel_weights hold {kw.slices.shape[1]} layers, "
                          f"the config {L}")
     if wn.kernel_size != 3 or wn.gin_channels > 0:
         raise ValueError("the sampler kernel takes kernel_size 3 and no "
                          "global conditioning")
     lib = _lib()
-    cs = lib.taco_sampler_cluster_size()
+    wbf = int(kw.weight_dtype == torch.bfloat16)
+    cs = lib.taco_sampler_cluster_size(wbf)
     if kw.cs != cs:
         raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
                          f"the kernel runs {cs}")
-    if C != wn.cin_channels or G % (8 * cs) or S % (4 * cs) or \
-            R % (4 * cs) or (S + R) // cs % 4:
-        raise ValueError("widths outside the sampler kernel's envelope")
+    if lib.taco_sampler_rows_per_cluster() != ROWS_PER_CLUSTER:
+        raise ValueError("the kernel runs another number of rows a cluster")
     NO = kw.f2w.shape[1]
-    smem = lib.taco_sampler_smem_bytes(L, R, G, S, C, NO)
-    if smem > MAX_SMEM:
-        raise ValueError(f"the sampler kernel needs {smem} bytes of shared "
-                         f"memory a CTA, more than {MAX_SMEM}")
-    ring = torch.zeros(B, cs, kw.rows, R, device=dev,
-                       dtype=kw.cache_dtype)      # a copy per CTA
+    if C != wn.cin_channels:
+        raise ValueError(f"c_up has {C} channels, the config {wn.cin_channels}")
+    if not lib.taco_sampler_supported(L, R, G, S, C, NO, kw.n_out,
+                                      HEADS[kind], wbf):
+        raise ValueError(f"the sampler kernel does not take R {R}, G {G}, "
+                         f"S {S}, C {C}, {kw.n_out} outputs with "
+                         f"{kw.weight_dtype} weights")
+    lay = (ctypes.c_int * 3)()
+    lib.taco_sampler_layout(L, R, G, S, C, NO, wbf, lay)
+    if lay[0] != kw.slices.shape[2]:
+        raise ValueError(f"kernel_weights hold {kw.slices.shape[2]}-byte "
+                         f"slices, the kernel takes {lay[0]}")
+    plan = row_plan(B)
+    ring = torch.zeros(plan.rows, kw.rows, R, device=dev,
+                       dtype=kw.cache_dtype)
     out = torch.empty(B, T, device=dev)
     c_up = c_up.contiguous()
     noise = noise.to(torch.float32).contiguous()
@@ -265,12 +400,12 @@ def _sample_cuda(kw: KernelWeights, cfg: Config, c_up, noise):
                 head=HEADS[kind], n_out=kw.n_out, NO=NO,
                 # the one-hot start, class 127 (models/wavenet/sampler.py)
                 first_idx=127 if wn.quantize_channels > 127 else -1,
-                weight_bf16=int(kw.weight_dtype == torch.bfloat16),
-                cache_bf16=int(kw.cache_dtype == torch.bfloat16))
+                weight_bf16=wbf,
+                cache_bf16=int(kw.cache_dtype == torch.bfloat16),
+                slice_bytes=lay[0])
     lsm = wn.log_scale_min_gauss if kind == "gaussian" else wn.log_scale_min
-    ptrs = [c_up, noise, kw.czw, kw.czb, kw.sow, kw.sob, kw.first_w,
-            kw.first_b, kw.final1_w, kw.final1_b, kw.f2w, kw.f2b, kw.dil,
-            kw.offs, ring, out]
+    ptrs = [c_up, noise, kw.slices, kw.first_w, kw.first_b, kw.final1_w,
+            kw.final1_b, kw.f2w, kw.f2b, kw.dil, kw.offs, ring, out]
     assert len(ptrs) == lib.taco_sampler_n_ptr()
     assert len(_INT_ORDER) == lib.taco_sampler_n_int()
     # the operands made here outlive the kernel: see `launch` in

@@ -26,9 +26,11 @@ same uniform, or the MoL sample of that component within
 SAMPLER_REPLAY_ATOL — except at ties, u·total within 1e-5 relative of a
 cumulative boundary (in bf16, where another f32 sum order may move a bf16
 rounding of x or h by one step, ~0.4%, for at most 5% of the draws, as
-chip_smoke.py holds them); Griffin-Lim's DFT
-products over the 800-sample window support run as 3xTF32 tensor-core
-products, each 8-deep step added in f32, in another sum order (samples atol
+chip_smoke.py holds them), at batch sizes that span the kernel's 8-row
+clusters; Griffin-Lim on both routes, the per-frame f32 FFTs (n_fft a power
+of two) and the DFT products over the 800-sample window support as 3xTF32
+tensor-core products, each 8-deep step added in f32 (any other n_fft),
+both in another sum order than the plain version's products (samples atol
 1e-4 at iters 0 and GL_ITERS4_ATOL after 4 iterations, and the
 spectral-consistency error, tests/test_pallas_kernels.py:237's measure,
 within 1% of the plain version's). The train mode of the
@@ -592,9 +594,11 @@ def test_train_kernels_match_plain(dev, coins, wd):
         assert err <= BWD_RTOL, (name, err)
 
 
+@pytest.mark.parametrize("route,n_fft", [("fft", 2048), ("dft", 2000)])
 @pytest.mark.parametrize("iters", [0, 4])
-def test_griffin_lim_kernel_matches_plain(dev, iters):
-    n_fft, hop, win, B, F = 2048, 200, 800, 2, 33
+def test_griffin_lim_kernel_matches_plain(dev, iters, route, n_fft):
+    hop, win, B, F = 200, 800, 2, 33
+    assert glk.route(n_fft) == route
     g = torch.Generator(dev).manual_seed(0)
     y = torch.randn(B, hop * (F - 1), generator=g, device=dev)
     S = tst.stft_mag(y, n_fft, hop, win)
@@ -602,9 +606,11 @@ def test_griffin_lim_kernel_matches_plain(dev, iters):
     for start, (re0, im0) in (
             ("zero-phase", (S, torch.zeros_like(S))),
             ("random-phase", (S * torch.cos(phase), S * torch.sin(phase)))):
-        before = glk.launches
+        before = (glk.launches, glk.launches_fft, glk.launches_dft)
         y_k = glk.fused_griffin_lim(S, re0, im0, n_fft, hop, win, iters)
-        assert glk.launches == before + 1
+        fft = int(route == "fft")
+        assert (glk.launches, glk.launches_fft, glk.launches_dft) == (
+            before[0] + 1, before[1] + fft, before[2] + 1 - fft)
         y_p = glk.griffin_lim_plain(S, re0, im0, n_fft, hop, win, iters)
         torch.cuda.synchronize()
         assert y_k.shape == y_p.shape == (B, hop * (F - 1))
@@ -619,21 +625,83 @@ def test_griffin_lim_kernel_matches_plain(dev, iters):
         assert err(y_k) <= 1.01 * err(y_p), (err(y_k), err(y_p))
 
 
-def test_sampler_kernel_matches_plain(dev):
+# R, G, S besides the default widths (R 128, G 256, S 128), each one the
+# kernel before the 8-row clusters took too: a CTA's h units and residual
+# columns 16 or 8 bytes a row, padded m-tiles; several m-tiles a CTA and
+# fewer chain warps than m-tiles (R 256); weight slices too large for
+# shared memory, read from global memory (R 512)
+SAMPLER_WIDTHS = {"R64-G128-S64": (64, 128, 64), "R32-G64-S32": (32, 64, 32),
+                  "R256-G512-S256": (256, 512, 256),
+                  "R512-G1024-S512": (512, 1024, 512)}
+
+
+@pytest.mark.parametrize("B,widths,wd", [
+    *[(b, "default", torch.float32) for b in (1, 3, 8, 9)],
+    *[(9, w, dt) for w in SAMPLER_WIDTHS
+      for dt in (torch.float32, torch.bfloat16)]],
+    ids=lambda v: str(v).replace("torch.", ""))
+def test_sampler_kernel_matches_plain(dev, B, widths, wd):
+    """B spans the kernel's 8-row clusters: one with missing rows, one
+    full, two. f32 weights against the plain version; bf16 weights (at
+    the other widths) against the plain version replaying the kernel's
+    trajectory."""
     cfg = torch_cfg()
+    if widths != "default":
+        Rw, G, S = SAMPLER_WIDTHS[widths]
+        cfg = cfg.replace(wavenet=dataclasses.replace(
+            cfg.wavenet, residual_channels=Rw, gate_channels=G,
+            skip_out_channels=S))
     wparams = sampler_tree(cfg)
-    B, T = 2, 64
+    T = 64
     sp = extract_sampler_params(wparams, cfg, device=dev)
     g = torch.Generator(dev).manual_seed(2)
     c_up = torch.rand(B, T, MELS, generator=g, device=dev)
     z = torch.randn(B, T, generator=g, device=dev)
+    kw = wk.pack_weights(sp, cfg, cache_dtype=wd, weight_dtype=wd)
     before = wk.launches
-    y_k = wk.sample(sp, cfg, c_up, z,
-                    kernel_weights=wk.pack_weights(sp, cfg))
+    y_k = wk.sample(sp, cfg, c_up, z, kernel_weights=kw)
     assert wk.launches == before + 1
-    y_p = wk.sample_plain(sp, cfg, c_up, z)
+    if wd == torch.float32:
+        y_p = wk.sample_plain(sp, cfg, c_up, z)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(y_k.cpu(), y_p.cpu(), atol=1e-4, rtol=0)
+        return
+    y_r, _ = wk.teacher_forced_replay(sp, cfg, c_up, z, y_k, cache_dtype=wd,
+                                      weight_dtype=wd)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(y_k.cpu(), y_p.cpu(), atol=1e-4, rtol=0)
+    assert float(y_k.abs().max()) > 1e-2
+    assert float((y_k - y_r).abs().max()) <= SAMPLER_REPLAY_ATOL[wd]
+
+
+def test_sampler_envelope_holds_the_previous_kernels(dev):
+    """Every width the sampler kernel took before its 8-row clusters (one
+    cluster of 8 CTAs a row: G a multiple of 64, R and S of 32, (S + R)/8
+    of 4, its taps [L, 3R + C] and vectors in 227 KB of shared memory, S
+    and the head's columns in one pass of its 512 threads) it still takes,
+    in both weight types, at R ≤ 1024, G ≤ 2048, S ≤ 2048."""
+    lib = wk._lib()
+    C, NO, n_out = 80, 4, 2
+
+    def previous(L, R, G, S):
+        gc, sc, rc = G // 16, S // 8, R // 8
+        floats = (L * (3 * R + C) + R + G // 2 + 2 * gc + sc + rc + 3 * S
+                  + NO + 4 + 512 * 4)
+        return (G % 64 == 0 and S % 32 == 0 and R % 32 == 0
+                and (S + R) // 8 % 4 == 0 and floats * 4 <= 232448
+                and S // 4 <= 512)
+
+    taken = missed = 0
+    for L in (2, 8, 20, 30):
+        for R in range(32, 1025, 32):
+            for G in range(64, 2049, 64):
+                for S in (32, 64, 96, 128, 256, 512, 1024, 2048):
+                    if not previous(L, R, G, S):
+                        continue
+                    for wbf in (0, 1):
+                        taken += 1
+                        missed += not lib.taco_sampler_supported(
+                            L, R, G, S, C, NO, n_out, 0, wbf)
+    assert taken > 10000 and missed == 0, (taken, missed)
 
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -645,10 +713,11 @@ F32, BF16 = torch.float32, torch.bfloat16
     ("categorical", BF16, BF16)],
     ids=lambda v: str(v).replace("torch.", "") if not isinstance(v, str)
     else v)
-def test_sampler_kernel_heads_match_plain(dev, kind, cd, wd):
+@pytest.mark.parametrize("B", [1, 3, 8, 9])
+def test_sampler_kernel_heads_match_plain(dev, kind, cd, wd, B):
     cfg = head_cfg(kind)
     sp = extract_sampler_params(sampler_tree(cfg), cfg, device=dev)
-    B, T = 2, 64
+    T = 64
     g = torch.Generator(dev).manual_seed(2)
     c_up = torch.rand(B, T, MELS, generator=g, device=dev)
     noise = draw_noise(cfg, B, T, g, dev)
@@ -750,8 +819,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                    # another head
         wk.sample(sp_m, mol, c_up, torch.zeros(2, 1, 8, device=dev),
                   kernel_weights=kw)
-    # R = 120: (S + R) / 8 = 31 skip and residual columns a CTA, not a
-    # whole number of the kernel's 4-column loads
+    # R = 120: not a whole number of the products' 16-deep k-tiles
     narrow = head_cfg("gaussian", residual_channels=120)
     sp_n = extract_sampler_params(sampler_tree(narrow), narrow, device=dev)
     for dt in (torch.float32, torch.bfloat16):

@@ -57,7 +57,7 @@ from tacotron2_tpu_torch.models.wavenet.sampler import (
     extract_sampler_params, incremental_sample as port_sample)
 from tacotron2_tpu_torch.ops import mulaw
 from tacotron2_tpu_torch.ops import wavenet_kernel as wk
-from torch_port_helpers import to_numpy
+from torch_port_helpers import gate_units, to_numpy, unpack_sampler_slices
 
 B, FRAMES, MELS, Q = 2, 12, 80, 256
 T = FRAMES * 4
@@ -397,8 +397,8 @@ def test_pack_weights_layout_for_heads_and_dtypes(kind, dtype):
     wn = cfg.wavenet
     R, G, S = wn.residual_channels, wn.gate_channels, wn.skip_out_channels
     assert kw.head == kind and kw.n_out == wn.out_channels
-    assert kw.czw.dtype == kw.sow.dtype == dtype
-    assert kw.czb.dtype == kw.f2w.dtype == kw.first_w.dtype == torch.float32
+    assert kw.slices.dtype == torch.uint8
+    assert kw.f2w.dtype == kw.first_w.dtype == torch.float32
     assert kw.f2w.shape == (S, -(-wn.out_channels // 4) * 4)
     assert torch.equal(kw.f2w[:, :wn.out_channels], sp.final2_w)
     assert torch.all(kw.f2w[:, wn.out_channels:] == 0)
@@ -407,20 +407,26 @@ def test_pack_weights_layout_for_heads_and_dtypes(kind, dtype):
     assert kw.first_w.shape == (n_in, R)
     assert torch.equal(kw.first_w, rd(sp.first_w) if kind == "categorical"
                        else sp.first_w)
+    lay = wk.slice_layout(cfg, 8, dtype)
+    wx, wo, ws, bg, bs = unpack_sampler_slices(kw.slices, lay, dtype)
+    gc, sc = G // 16, S // 8
     g = torch.Generator().manual_seed(0)
     v = torch.randn(3 * R + MELS, generator=g)
+    v_old = torch.nn.functional.pad(torch.cat([v[:2 * R], v[3 * R:]]),
+                                    (0, lay.c16 - MELS))
     hv = torch.randn(G // 2, generator=g)
     for l, lp in enumerate(sp.layers):
         full = v @ rd(torch.cat([lp.conv_w, lp.cin_w], 0)) + lp.conv_b + \
             lp.cin_b
-        parts = [v @ kw.czw[c, l].float() + kw.czb[c, l] for c in range(8)]
-        a = torch.cat([p[:G // 16] for p in parts])
-        b = torch.cat([p[G // 16:] for p in parts])
+        parts = [gate_units(wx[c, l] @ v[2 * R:3 * R] + wo[c, l] @ v_old
+                            + bg[c, l], gc) for c in range(8)]
+        a = torch.cat([p[0] for p in parts])
+        b = torch.cat([p[1] for p in parts])
         torch.testing.assert_close(torch.cat([a, b]), full)
-        so = [hv @ kw.sow[c, l].float() + kw.sob[c, l] for c in range(8)]
-        torch.testing.assert_close(torch.cat([p[:S // 8] for p in so]),
+        so = [ws[c, l] @ hv + bs[c, l] for c in range(8)]
+        torch.testing.assert_close(torch.cat([p[:sc] for p in so]),
                                    hv @ rd(lp.skip_w) + lp.skip_b)
-        torch.testing.assert_close(torch.cat([p[S // 8:] for p in so]),
+        torch.testing.assert_close(torch.cat([p[sc:sc + R // 8] for p in so]),
                                    hv @ rd(lp.out_w) + lp.out_b)
     other = "gaussian" if kind != "gaussian" else "mol"
     with pytest.raises(ValueError):               # weights of another head

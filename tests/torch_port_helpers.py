@@ -117,3 +117,62 @@ def flax_weights(pin_stop: float = -30.0, pin_noise: bool = True):
 
 def torch_cfg():
     return small_cfg(TorchConfig)
+
+
+def mma_a_positions(ks):
+    """(row, col) of each value lane l holds of a 16 × ks A operand of
+    mma.sync, in register order (PTX ISA, "Matrix Fragments for mma.m16n8k16
+    with floating point type" (bf16, ks 16) and "... mma.m16n8k8" (.tf32,
+    ks 8)): groupID = l >> 2, threadID_in_group = l % 4; bf16 registers
+    a0..a7 at rows (g, g, g+8, g+8, g, g, g+8, g+8) and columns (2t, 2t+1,
+    2t, 2t+1, 2t+8, 2t+9, 2t+8, 2t+9); tf32 a0..a3 at rows (g, g+8, g,
+    g+8), columns (t, t, t+4, t+4)."""
+    out = []
+    for lane in range(32):
+        g, t = lane >> 2, lane % 4
+        if ks == 16:
+            rows = (g, g, g + 8, g + 8, g, g, g + 8, g + 8)
+            cols = (2 * t, 2 * t + 1, 2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9,
+                    2 * t + 8, 2 * t + 9)
+        else:
+            rows, cols = (g, g + 8, g, g + 8), (t, t, t + 4, t + 4)
+        out.append(list(zip(rows, cols)))
+    return out
+
+
+def unpack_sampler_slices(slices, lay, dtype):
+    """The sampler kernel's packed operands (`ops/wavenet_kernel.py:
+    stack_weights`), bytes [cs, L, slice], read back as the kernel's warps
+    read them: the gate product's A tiles over the x_t rows [cs, L, 16·mtg,
+    R] and over the older taps' and c_t rows [cs, L, 16·mtg, 2R + c16], the
+    skip|out product's [cs, L, 16·mts, G/2] (in `dtype`, as f32), then the
+    biases [cs, L, 16·mtg] and [cs, L, 16·mts]."""
+    import torch
+    cs, L, _ = slices.shape
+    E = 8 if lay.ks == 16 else 4
+    pos = mma_a_positions(lay.ks)
+
+    def tiles(raw, mt, kt):
+        v = raw.contiguous().view(dtype).float().reshape(cs, L, mt, kt, 32, E)
+        w = torch.zeros(cs, L, mt, 16, kt, lay.ks)
+        for lane in range(32):
+            for e, (m, k) in enumerate(pos[lane]):
+                w[:, :, :, m, :, k] = v[..., lane, e]
+        return w.reshape(cs, L, 16 * mt, kt * lay.ks)
+
+    o1 = lay.tiles_x
+    o2 = o1 + lay.tiles_o
+    o3 = o2 + lay.tiles_s
+    wx = tiles(slices[..., :o1], lay.mtg, lay.ktx)
+    wo = tiles(slices[..., o1:o2], lay.mtg, lay.kto)
+    ws = tiles(slices[..., o2:o3], lay.mts, lay.kts)
+    bias = slices[..., o3:].contiguous().view(torch.float32)
+    return wx, wo, ws, bias[..., :16 * lay.mtg], bias[..., 16 * lay.mtg:]
+
+
+def gate_units(z, gc):
+    """[..., 16·mtg] gate rows (m-tile mt: a of units 8mt .. 8mt+7, then
+    their b) -> (a [..., gc], b [..., gc])."""
+    z = z.reshape(*z.shape[:-1], -1, 2, 8)
+    return (z[..., 0, :].flatten(-2)[..., :gc],
+            z[..., 1, :].flatten(-2)[..., :gc])
