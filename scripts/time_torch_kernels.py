@@ -25,6 +25,14 @@ phase 19's shapes: B 16 crops of 8,000 samples of the r5 train split, the
 r5 EMA weights): the median of 5 runs of each, in bf16 weights and, where
 the copy takes them, f32, with checksums of the outputs (equal checksums
 across roots: the same bits).
+
+    python scripts/time_torch_kernels.py --bwd [PORT_ROOT ...]
+
+times the Tacotron BPTT backward (kernel 4b) at chip_smoke.py phase 16's
+shapes (B 16, T_in 96, 448 steps; the r5 weights and the first train
+batch's memory, kernel 4a's residuals, seeded masks and gradients): the
+median of 5 runs of the wrapper (with its weight packing) in bf16 and f32
+weights, with a checksum of every output both versions write.
 """
 
 import inspect
@@ -215,14 +223,81 @@ def time_stack(root):
     print(json.dumps(out), flush=True)
 
 
+def time_bwd(root):
+    sys.path.insert(0, root)
+    sys.path.insert(1, REPO)
+    import torch
+
+    import chip_smoke as cs
+    import tacotron2_tpu_torch
+    from tacotron2_tpu_torch.convert import load_checkpoints, load_tacotron
+    from tacotron2_tpu_torch.eval.convergence import batch_from_rows
+    from tacotron2_tpu_torch.models.tacotron.decoder import (
+        drop_masks, teacher_inputs, zoneout_masks)
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+
+    assert tacotron2_tpu_torch.__file__.startswith(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, dev = cs.train_config(), torch.device("cuda")
+    tp, st, _ = load_checkpoints(os.path.join(cs.R5, "taco_ckpt.msgpack"),
+                                 os.path.join(cs.R5, "wn_ckpt.msgpack"))
+    rows = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
+            for i, t in enumerate(cs.corpus_texts())]
+    first = batch_from_rows(rows[:cs.TRAIN_BATCH],
+                            os.path.join(cs.R5, "corpus", "mels"), cfg,
+                            pad_text_to=cs.PAD_TEXT, pad_mel_to=cs.PAD_MEL)
+    model = load_tacotron(Tacotron(cfg), tp, st).to(dev)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in first.items()}
+    r = cfg.tacotron.outputs_per_step
+    with torch.no_grad():
+        keys, memory, mask, _, _ = model.synthesis_memory_ext(
+            tb["inputs"], tb["input_lengths"], tb["ref_mel_emt"],
+            tb["ref_mel_spk"])
+        dp32 = tk.extract_params_traced(model.decoder, cfg)
+    B, T, _ = memory.shape
+    S = cs.PAD_MEL // r
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    teacher = teacher_inputs(tb["mel_targets"], r)
+    coins = (torch.rand(S, generator=g, device=dev) < 0.5).to(torch.int32)
+    drop = drop_masks(cfg, B, S, g, dev)
+    zmask = zoneout_masks(cfg, B, S, g, dev)
+    names = ("dz1", "dz2", "da0", "da1", "dproj", "dctx", "dq", "dkeys",
+             "dwp", "dva")
+    out = {"root": root}
+    for dt in (torch.bfloat16, torch.float32):
+        with torch.no_grad():
+            dp = tk.cast_params(dp32, dt)
+        kw = dk.pack_weights(dp)
+        res = tk.teacher_forced_train_fwd(dp, cfg, keys, memory, mask,
+                                          teacher, coins, drop, zmask,
+                                          kernel_weights=kw)[3]
+        gd = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+        dout = torch.randn(B, S, res["out"].shape[-1], generator=gd,
+                           device=dev) * 1e-3
+        dalign = torch.randn(B, S, T, generator=gd, device=dev) * 1e-3
+        args = (dp, cfg, res, keys, memory, mask, coins, drop, zmask, dout,
+                dalign)
+        k = tk.teacher_forced_bwd(*args, kernel_weights=kw)
+        torch.cuda.synchronize()
+        name = str(dt).replace("torch.", "")
+        out[f"bwd_ms_{name}"] = cs.cuda_ms(
+            lambda: tk.teacher_forced_bwd(*args, kernel_weights=kw), 5)
+        out[f"bwd_sum_{name}"] = float(sum(k[n].double().abs().sum()
+                                           for n in names))
+    print(json.dumps(out), flush=True)
+
+
 def main(argv):
-    if len(argv) == 2 and argv[0] in ("--one", "--one-stack"):
-        (time_one if argv[0] == "--one" else time_stack)(
-            os.path.abspath(argv[1]))
+    modes = {"--one": time_one, "--one-stack": time_stack,
+             "--one-bwd": time_bwd}
+    if len(argv) == 2 and argv[0] in modes:
+        modes[argv[0]](os.path.abspath(argv[1]))
         return 0
     mode = "--one"
-    if argv[:1] == ["--stack"]:
-        mode, argv = "--one-stack", argv[1:]
+    if argv[:1] in (["--stack"], ["--bwd"]):
+        mode, argv = f"--one-{argv[0][2:]}", argv[1:]
     for root in argv or [REPO]:
         subprocess.run([sys.executable, os.path.abspath(__file__), mode,
                         root], check=True)

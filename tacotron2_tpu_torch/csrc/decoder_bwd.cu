@@ -1,5 +1,5 @@
 // Tacotron teacher-forced decode, backward: the reverse-time (BPTT) chain of
-// the train forward, one thread-block cluster per row.
+// the train forward, one thread-block cluster for 8 rows of the batch.
 //
 // Replaces tacotron2_tpu/ops/tacotron_train_kernel.py `build_train_bwd`
 // (pallas_call at :622). The wrapper is tacotron2_tpu_torch/ops/
@@ -7,61 +7,96 @@
 // models/tacotron/decoder.py:teacher_forced_bwd_plain, whose docstring
 // states the function. From the train forward's residuals (csrc/decoder.cu
 // in train mode: gates z1, z2, cells c1, c2, prenet outputs h0d, hpre, the
-// query q, the alignments and the cumulative alignments before each step,
-// all f32) and the gradients of the frames | stop logits (dout) and of the
+// query q, the alignments and the cumulative alignments before each step)
+// and the gradients of the frames | stop logits (dout) and of the
 // alignments, it walks the steps from the last to the first and writes the
 // per-step activation gradients dz1, dz2 (gates), da0, da1 (prenet
-// pre-activations), dproj (with the scheduled-sampling feedback), dctx and
-// dq, and per row the sums over the steps of the gradients of the keys
-// (with the folded attention bias), of the folded location taps wp [K, A]
-// and of v_a. The weight gradients are products outside the kernel
-// (`weight_grads`, as JAX leaves them to XLA). Activations enter each
-// product as they entered the forward's (with bf16 weights the cumulative
-// weights and the memory rounded to bf16; with f32 weights nothing is
-// rounded); gradients are f32 and are not rounded. The kernel is a
-// template on the weight type W (`__nv_bfloat16` or `float`, one type for
-// every matmul weight); the transposed products load 16 bytes a lane (8
-// bf16 or 4 f32 weights).
+// pre-activations), dproj (with the scheduled-sampling feedback), dctx, dq
+// and the cumulative alignments' gradient carried into the step (dcum);
+// the sums over the steps of the gradients of the keys (with the folded
+// attention bias); and partial sums of the gradients of the folded
+// location taps wp [K, A] (per cluster and CTA) and of v_a (per row and
+// CTA). The weight gradients are products outside the kernel
+// (`weight_grads`, as JAX leaves them to XLA).
 //
-// Carried from step t to t-1: the gradients of h1, c1, h2, c2 (each CTA
-// its own units), of the context (its own columns), of the cumulative
-// alignments (every CTA the whole [T]) and of the step's input frame,
-// which goes into step t-1's projection gradient where coins[t] is 0.
+// Rounding. The kernel is a template on the weight type W (`__nv_bfloat16`
+// or `float`, one type for every matmul weight). With bf16 weights it
+// rounds where `build_train_bwd` rounds: the activations enter each
+// product as they entered the forward's (the cumulative weights, the memory
+// and the taps rounded), the gates and cells are read rounded as JAX
+// stores them, and every gradient is rounded to bf16 where it enters a
+// product (dproj, the summed dctx, the energies' gradient in the taps' sum
+// and the cumulative-alignment chain, dq, dz2, dz1, da1, da0); the
+// per-step outputs are those rounded values. The products are then
+// bf16 × bf16 with f32 sums: mma.sync m16n8k16. dkeys, the v_a sums, the
+// LSTM cell chain and the carried dh and dcum sums stay f32. With f32
+// weights nothing is rounded and the products are 3xTF32 (m16n8k8, each
+// operand split into two TF32 values, lo·lo dropped).
 //
-// Design. The forward's cluster split of the weights is kept (the same
-// `pack_weights` operands, ~36 MB in bf16 at the default width, read from
-// L2 every step; ~73 MB in f32, part of which every step reads from HBM
-// again): CTA `rank` of CS=8 owns the 4 gate columns of U/CS units of
-// each LSTM. So it forms the gate gradients dz of its own units locally,
-// and the transposed products dx = Wᵀ·dz — which sum over all 4U gate
-// columns, spread over the cluster — each CTA forms as a partial over its
-// own columns (one warp a weight row: the rows of its slice are
-// contiguous). The cluster then reduces the partials over distributed
-// shared memory as a reduce-scatter: each CTA adds, in rank order 0..CS-1,
-// the partials of the units (and context columns) it owns; only the
-// prenet's input gradient, which every CTA needs, is all-reduced. The
-// projection's transpose is split by output rows the same way (own units,
-// own context columns). The attention backward splits the input positions:
-// CTA `rank` recomputes the energies' tanh for its T/CS positions (from the
-// saved query and cumulative alignments: nothing [S, B, T, A]-sized is
-// stored), and keeps the sums over the steps of the keys', taps' and v_a's
-// gradients for them in shared memory; the partials of the dalign · memory
-// product, of dq and of the location conv's transpose (a [T] vector) are
-// all-reduced. Four cluster.sync() a step order every exchange; a CTA
-// writes a partial buffer again only after a barrier that every reader of
-// it has passed. Every sum goes in a fixed order, so the results are
-// deterministic. No CTA waits on anything outside its own cluster.
+// Design. A cluster of CS CTAs (16 at a non-portable size where the
+// widths split 16 ways, else 8; `bwd_cluster_size`) runs RB = 8 rows
+// through every step; ceil(B/8) clusters, all resident at once at B = 16,
+// and a missing row reads zeros and is never written back. CTA `rank`
+// owns the four gate columns of U/CS units of each LSTM, as the forward
+// does, so it forms its units' gate gradients dz locally; every
+// transposed product is out[m][n] = sum_k A[m][k] · G[n][k] with the 8
+// rows as mma's n, so each weight tile, read once a step, serves all 8:
 //
-// Bound: like the forward, latency-bound on the per-step L2 reads of the
-// LSTM weights (each CTA streams its 1/CS once a step, one pass each of
-// W1ᵀ and W2ᵀ, as many bytes as the forward) and on the four barriers;
-// its bytes and operations bound is far below that.
+//   proj  A = the projection's rows of own units and own context columns,
+//         k over the frames | stop logits (G = dproj);
+//   wq    A = the query weight's rows of own units, k over A (G = dq);
+//   W2ᵀ   A = this CTA's gate columns of [l2_wx; l2_wh], k over its 4U/CS
+//         gate columns (G = dz2): a partial over the cluster;
+//   W1ᵀ   likewise [l1_wp; l1_wc; l1_wh] (G = dz1);
+//   pre1  A = pre_w1, k over P (G = da1), and pre0 A = pre_w0 (G = da0):
+//         every CTA the whole prenet, whose input gradient every CTA's
+//         next step needs.
 //
-// Shared memory per CTA (floats; Tc = ceil(T/CS), Uc = U/CS, Mc = M/CS):
-// FOp + 5T (align, cum, dalign, denergy, dcum) + 3A (q, v_a, dq) + 2·K·A
-// (taps, their gradient) + 4·Tc·A (own keys, their gradient, two scratch)
-// + Tc·K + A + 2T + A (partials) + Uc + 3·Mc + 6·Uc + 4·Uc + 2U + (P+M+U)
-// + 4P + mels + 32 ≈ 23k floats (~91 KB) at the default width and T = 96.
+// The weight stream. The wrapper packs each CTA's tiles of its four own
+// products, in that order, then once the prenet's, which every CTA reads,
+// as mma A fragments (`bwd_stream`: 512 bytes a 16-row tile, 16 bytes a
+// lane, m-tiles in groups of the 16 compute warps, k-tiles KC a warp in
+// each 32 KB chunk); the weights change every train step, so it packs
+// them on every call. A producer warp keeps a ring of chunks in shared
+// memory full with cp.async.bulk (TMA) copies that complete on a slot's
+// mbarrier; each compute warp waits for a chunk's bytes, takes its tiles
+// and arrives on the slot's "empty" barrier, and the producer refills a
+// slot once all 16 have, so no compute warp waits for another. The stream
+// runs on across products and steps: while the cluster exchanges partials
+// or works on the attention, the next product's first chunks are in
+// flight. The producer takes its part in the cluster barriers (every
+// thread of a cluster arrives at each): before barrier k it issues only
+// the chunks the compute warps take before it, and a ring's worth past
+// them. Each k-step's product comes from zero and is added in f32 in step
+// order (the tensor cores' own accumulation truncates).
+//
+// Exchanges go through global memory (L2), not shared memory, so that no
+// width of the envelope has to fit in a CTA: each CTA writes its partials
+// (W2ᵀ and W1ᵀ over its gate columns, the dalign · memory product over its
+// context columns, dq and the location conv's transpose over its input
+// positions), a cluster barrier (release / acquire at cluster scope)
+// orders them, and each CTA adds, in rank order 0..CS-1, what it needs
+// (reads `__ldcg`, from L2): a reduce-scatter for the LSTM states and the
+// context, an all-reduce for the prenet's input gradient, the alignment
+// gradient and the cumulative-alignment chain. Four cluster barriers a
+// step; every partial buffer is written again only after a barrier that
+// each of its readers passed after reading it. The attention backward
+// splits the input positions: CTA `rank` recomputes the energies' tanh for
+// its ceil(T/CS) positions of all 8 rows (from the saved query and
+// cumulative alignments: nothing [S, B, T, A]-sized is stored) and keeps
+// the sums over the steps of the keys', taps' and v_a's gradients for
+// them. Every sum goes in a fixed order, so reruns repeat every bit.
+//
+// Shared memory: the ring (at least MIN_SLOTS chunks) and, in a fixed
+// priority, the mma B operands, the product outputs, the carried states
+// and the attention's vectors and sums; what does not fit lives in a
+// global scratch of the CTA instead (`layout`), so every width and T_in
+// runs. At the default widths, CS 16 and T_in 96 everything fits.
+//
+// Bound: the bytes of the weight stream, once a cluster a step (~2.6 MB a
+// CTA in bf16, ~5.2 MB in f32 at the default widths and CS 16), at what
+// one SM draws from L2 through the ring; the operations are far below.
+// scripts/profile_taco_bwd.py times each phase of the step.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -72,34 +107,156 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 512;
-constexpr int CS = 8;     // CTAs per row: the forward's split
-constexpr int ROWS = 8;   // weight rows a warp has in flight in rowdot
+using bf16 = __nv_bfloat16;
+
+constexpr int NW = 16;                 // compute warps a CTA
+constexpr int NT = NW * 32;            // compute threads
+constexpr int NTP = NT + 32;           // and the producer warp
+constexpr int RB = 8;                  // rows a cluster: mma's n
+constexpr int KC = 4;                  // k-tiles a warp in each chunk
+constexpr int TILE = 512;              // bytes of one A-fragment tile
+constexpr int CHUNK = NW * KC * TILE;  // bytes of one ring slot
+constexpr int MIN_SLOTS = 2, MAX_SLOTS = 6;
+constexpr int BAR_BYTES = 128;         // the slots' mbarriers
+constexpr int SMEM_MAX = 232448;
 
 enum Ptr {
-  P_KEYS, P_MEMORY, P_WP, P_V_A, P_PRE_W0, P_PRE_W1, P_L1_W, P_L2_W, P_WQ,
-  P_PROJ_W, P_ALIGN, P_CUM, P_Q, P_Z1, P_Z2, P_C1, P_C2, P_H0D, P_HPRE,
-  P_DROP, P_ZMASK, P_COINS, P_DOUT, P_DALIGN, P_DZ1, P_DZ2, P_DA0, P_DA1,
-  P_DPROJ, P_DCTX, P_DQ, P_DKEYS, P_DWP, P_DVA, N_PTR
+  P_STREAM, P_KEYS, P_MEMORY, P_WP, P_V_A, P_ALIGN, P_CUM, P_Q, P_Z1, P_Z2,
+  P_C1, P_C2, P_H0D, P_HPRE, P_DROP, P_ZMASK, P_COINS, P_DOUT, P_DALIGN,
+  P_DZ1, P_DZ2, P_DA0, P_DA1, P_DPROJ, P_DCTX, P_DQ, P_DCUM, P_DKEYS, P_DWP,
+  P_DVA, P_SCRATCH, N_PTR
 };
 enum Int {
   I_B, I_T, I_S, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R, I_FOP, I_F32_WEIGHTS,
-  N_INT
+  I_CS, N_INT
+};
+enum Prod { PR_PROJ, PR_WQ, PR_W2, PR_W1, PR_PRE1, PR_PRE0, N_PROD };
+// Buffers of a CTA, in the order they claim shared memory: the B operands
+// (type W, pitched), the product outputs, the carried and per-step state,
+// the attention's vectors and scratch.
+enum Buf {
+  B_GPROJ, B_GQ, B_GZ, B_GA1, B_GA0, B_OPROJ, B_OWQ, B_OPRE1, B_OPRE0,
+  B_DH1C, B_DC1C, B_DH2C, B_DC2C, B_DHZ, B_DCTXC, B_DCTXR, B_DX, B_CUMR,
+  B_Q, B_VA, B_WP, B_DCUM, B_DEN, B_G, B_SDVA, B_SDWP, B_DE, B_SDKEYS,
+  N_BUF
 };
 
-// The matmul weights (`const void*`) are of the kernel's weight type W,
-// __nv_bfloat16 or float (f32_weights), one type for all of them.
+__host__ __device__ inline long long up(long long v, long long a) {
+  return (v + a - 1) / a * a;
+}
+
+// The least p >= words with p = 4 (mod 8): a row pitch (32-bit words) at
+// which the 8 rows' B-fragment loads hit 32 different banks.
+__host__ __device__ inline int pitch_words(int words) {
+  return words + (12 - words % 8) % 8;
+}
+
+// Where everything goes, the same on the host and in every CTA (it rides
+// in the kernel's arguments).
+struct Layout {
+  int cs, KS, Uc, Mc, Tc, K1;
+  int rows[N_PROD], kp[N_PROD], ng[N_PROD], nck[N_PROD];
+  int c0[N_PROD];    // a product's first chunk in the step
+  int gp[5];         // B operands' pitches (elements of W)
+  int nch, npriv;    // chunks a step; of them, the CTA's own (the rest,
+                     // the prenet's, every CTA of the cluster shares)
+  long long stream, shared;  // bytes of a CTA's own stream, of the shared
+  long long off[N_BUF];
+  unsigned char sm[N_BUF];  // 1: in shared memory, 0: in the CTA's spill
+  int ns, o_slots, smem;  // ring slots, their offset; bytes in all
+  long long cta_spill;  // bytes of global scratch a CTA
+  long long o_pt, o_pc, o_pq, o_ex2, o_ex1, o_cta, cluster;  // a cluster's
+};
+
+__host__ __device__ inline Layout layout(int T, int mels, int P, int U, int M,
+                                         int A, int KW, int FOp, int cs,
+                                         int f32) {
+  Layout y;
+  const int es = f32 ? 4 : 2;
+  y.cs = cs;
+  y.KS = f32 ? 8 : 16;
+  y.Uc = U / cs;
+  y.Mc = M / cs;
+  y.Tc = (T + cs - 1) / cs;
+  y.K1 = P + M + U;
+  const int rows[N_PROD] = {y.Uc + y.Mc, y.Uc, 2 * U, y.K1, P, mels};
+  const int ks[N_PROD] = {FOp, A, 4 * y.Uc, 4 * y.Uc, P, P};
+  y.nch = y.npriv = 0;
+  for (int p = 0; p < N_PROD; ++p) {
+    y.rows[p] = rows[p];
+    y.kp[p] = (int)up(ks[p], y.KS * KC);
+    y.ng[p] = (int)((up(rows[p], 16) / 16 + NW - 1) / NW);
+    y.nck[p] = y.kp[p] / (y.KS * KC);
+    y.c0[p] = y.nch;
+    y.nch += y.ng[p] * y.nck[p];
+    if (p < PR_PRE1) y.npriv = y.nch;
+  }
+  y.stream = (long long)y.npriv * CHUNK;
+  y.shared = (long long)(y.nch - y.npriv) * CHUNK;
+  const int gk[5] = {y.kp[PR_PROJ], y.kp[PR_WQ], y.kp[PR_W2], y.kp[PR_PRE1],
+                     y.kp[PR_PRE0]};
+  long long sz[N_BUF];
+  for (int i = 0; i < 5; ++i) {
+    y.gp[i] = pitch_words(gk[i] * es / 4) * 4 / es;
+    sz[i] = (long long)RB * y.gp[i] * es;
+  }
+  const long long f = 4 * RB;  // a float for each row
+  sz[B_OPROJ] = f * (y.Uc + y.Mc);
+  sz[B_OWQ] = f * y.Uc;
+  sz[B_OPRE1] = f * P;
+  sz[B_OPRE0] = f * mels;
+  sz[B_DH1C] = sz[B_DC1C] = sz[B_DH2C] = sz[B_DC2C] = sz[B_DHZ] = f * y.Uc;
+  sz[B_DCTXC] = sz[B_DCTXR] = f * y.Mc;
+  sz[B_DX] = f * mels;
+  sz[B_CUMR] = f * T;
+  sz[B_Q] = f * A;
+  sz[B_VA] = 4LL * A;
+  sz[B_WP] = 4LL * KW * (A + 1);
+  sz[B_DCUM] = f * T;
+  sz[B_DEN] = f * y.Tc;
+  sz[B_G] = f * y.Tc * KW;
+  sz[B_SDVA] = f * A;
+  sz[B_SDWP] = 4LL * KW * A;
+  sz[B_DE] = f * y.Tc * A;
+  sz[B_SDKEYS] = f * y.Tc * A;
+  long long used = BAR_BYTES, spill = 0;
+  const long long budget = SMEM_MAX - (long long)MIN_SLOTS * CHUNK;
+  for (int i = 0; i < N_BUF; ++i) {
+    const long long b = up(sz[i], 16);
+    if (used + b <= budget) {
+      y.sm[i] = 1;
+      y.off[i] = used;
+      used += b;
+    } else {
+      y.sm[i] = 0;
+      y.off[i] = spill;
+      spill += b;
+    }
+  }
+  y.o_slots = (int)up(used, 128);
+  y.ns = (int)((SMEM_MAX - y.o_slots) / CHUNK);
+  if (y.ns > MAX_SLOTS) y.ns = MAX_SLOTS;
+  y.smem = y.o_slots + y.ns * CHUNK;
+  y.cta_spill = up(spill, 256);
+  const long long part = 4LL * cs * RB;  // a float for each rank and row
+  y.o_pt = 0;
+  y.o_pc = y.o_pt + up(part * T, 256);
+  y.o_pq = y.o_pc + up(part * T, 256);
+  y.o_ex2 = y.o_pq + up(part * A, 256);
+  y.o_ex1 = y.o_ex2 + up(part * 2 * U, 256);
+  y.o_cta = y.o_ex1 + up(part * y.K1, 256);
+  y.cluster = y.o_cta + (long long)cs * y.cta_spill;
+  return y;
+}
+
 struct BwdArgs {
+  // `bwd_stream`: [cs, layout.stream] bytes, each CTA's own products,
+  // then the prenet's chunks, which every CTA reads
+  const unsigned char* stream;
   const float* keys;    // [B, T, A] keys + folded attention bias
-  const float* memory;  // [B, T, M] rounded to bf16 with bf16 weights
+  const void* memory;   // [B, T, M] in the weight type
   const float* wp;      // [KW, A] folded location taps (rounded likewise)
   const float* v_a;     // [A]
-  const void* pre_w0;   // [mels, P]
-  const void* pre_w1;   // [P, P]
-  const void* l1_w;     // [CS, P + M + U, 4U/CS] per-rank gate cols
-  const void* l2_w;     // [CS, 2U, 4U/CS]
-  const void* wq;       // [U, A]
-  const void* proj_w;   // [U + M, FOp] rows [h2 | ctx]
   // residuals [B, S, ·]
   const float *align, *cum, *q, *z1, *z2, *c1, *c2, *h0d, *hpre;
   const float* drop;     // [B, S, 2, P] prenet dropout multipliers
@@ -113,370 +270,805 @@ struct BwdArgs {
   float* dproj;          // [B, S, FO]
   float* dctx;           // [B, S, M]
   float* dq;             // [B, S, A]
+  float* dcum;           // [B, S, T] the cumulative alignments' gradient
+                         // carried into each step
   float* dkeys;          // [B, T, A]
-  float* dwp;            // [B, CS, KW, A] per-CTA partial sums
-  float* dva;            // [B, CS, A]
+  float* dwp;            // [clusters, cs, KW, A] per-CTA partial sums
+  float* dva;            // [B, cs, A]
+  unsigned char* scratch;  // [clusters, layout.cluster] bytes
   int B, T, S, mels, P, U, M, A, KW, r, FOp;
+  Layout y;
 };
 
-// out[k] = (accumulate ? out[k] : 0) + sum_n w[k * N + n] * x[n], k < K:
-// w [K, N] of type W row-major in global memory (N % 8 == 0, rows 16-byte
-// aligned), x and out in shared memory. One warp a row, ROWS rows in
-// flight a warp, lanes over V-column chunks (one 16-byte load: 8 bf16 or
-// 4 f32); fixed summation order. Every thread of the block calls it; it
-// ends with __syncthreads(). Out of line: its six inlined copies crowded
-// the kernel's 128 registers into spills (native/time_bwd_variants.py
-// times the variants).
-template <typename W>
-__device__ __noinline__ void rowdot(const void* wv_, const float* x, int K,
-                                    int N, float* out, bool accumulate) {
-  using Pk = taco::Pack<W>;
-  constexpr int V = Pk::V;
-  const W* __restrict__ w = static_cast<const W*>(wv_);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5, nc = N / V;
-  for (int k0 = warp * ROWS; k0 < K; k0 += nw * ROWS) {
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int c = lane; c < nc; c += 32) {
-      typename Pk::Raw raw[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        raw[r] = k0 + r < K ? Pk::ld(w + (size_t)(k0 + r) * N + c * V)
-                            : typename Pk::Raw{};
-      float xv[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) xv[i] = x[c * V + i];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float wv[V];
-        Pk::cvt(raw[r], wv);
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[r] = fmaf(wv[i], xv[i], acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = taco::warp_sum(acc[r]);
-    if (lane == 0)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        if (k0 + r < K) out[k0 + r] = (accumulate ? out[k0 + r] : 0.f) + acc[r];
+// ------------------------------------------ TMA bulk copies and mbarriers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
-  __syncthreads();
 }
 
-// Backward of one train-mode zoneout LSTM for this rank's Uc units (the
-// plain version's _lstm_bwd): gates zr [4U] (natural order), previous cell
-// cp [U] (null at the first step), masks m ([c | h] of all U units), the
-// gradients dh (own units) and dc (own units, updated to the previous
-// cell's). Writes dz (own, [i | j | f | o] x Uc) to shared memory and to
-// dz_out [4U], and dhz, the part of dh that zoned out.
-__device__ void lstm_bwd(int rank, int Uc, const float* zr, const float* cp,
-                         const uint8_t* m, const float* dh, float* dc,
-                         float* dz, float* dhz, float* dz_out) {
-  const int U = Uc * CS;
-  for (int u = threadIdx.x; u < Uc; u += NT) {
-    const int unit = rank * Uc + u;
-    const float si = taco::sigmoidf(zr[unit]), tj = tanhf(zr[U + unit]);
-    const float sf = taco::sigmoidf(zr[2 * U + unit]);
-    const float so = taco::sigmoidf(zr[3 * U + unit]);
-    const float c_prev = cp ? cp[unit] : 0.f;
-    const float tnc = tanhf(sf * c_prev + si * tj);
-    const float mc = m[unit] ? 1.f : 0.f, mh = m[U + unit] ? 1.f : 0.f;
-    const float dnh = dh[u] * mh;
-    const float dnc = dc[u] * mc + dnh * so * (1.f - tnc * tnc);
-    const float g[4] = {dnc * tj * si * (1.f - si), dnc * si * (1.f - tj * tj),
-                        dnc * c_prev * sf * (1.f - sf),
-                        dnh * tnc * so * (1.f - so)};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      dz[k * Uc + u] = g[k];
-      dz_out[k * U + unit] = g[k];
-    }
-    dhz[u] = dh[u] * (1.f - mh);
-    dc[u] = dc[u] * (1.f - mc) + dnc * sf;
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// The ring of weight chunks: slot q % ns holds chunk q of the whole run
+// (step-major), whose bytes are chunk q % nch of the stream: the CTA's own
+// chunks, then the shared ones.
+struct Ring {
+  unsigned char* slots;
+  uint64_t* full;   // [ns] the copy's bytes arrived
+  uint64_t* empty;  // [ns] every compute warp is done with the slot
+  const unsigned char* own;
+  const unsigned char* shared;
+  int ns, nch, npriv;
+  long long total;
+};
+
+// Chunk q into its slot once the slot's last chunk is consumed (the
+// producer warp's lane 0).
+__device__ __forceinline__ void issue(const Ring& r, long long q) {
+  const int s = (int)(q % r.ns);
+  if (q >= r.ns)
+    mbar_wait(smem_u32(r.empty + s), (uint32_t)((q / r.ns - 1) & 1));
+  const int c = (int)(q % r.nch);
+  const unsigned char* src = c < r.npriv
+                                 ? r.own + (size_t)c * CHUNK
+                                 : r.shared + (size_t)(c - r.npriv) * CHUNK;
+  const uint32_t bar = smem_u32(r.full + s);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(CHUNK)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(r.slots + (size_t)s * CHUNK)),
+      "l"(src), "r"(CHUNK), "r"(bar)
+      : "memory");
+}
+
+// the compute warps' barrier (the producer warp takes no part)
+__device__ __forceinline__ void sync_compute() {
+  asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
+}
+
+// ------------------------------------------------------------- products
+
+// (not volatile: no side effects, so independent k-steps may interleave)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k-step of a warp: `load` takes the lane's A fragment (16 × KS) and
+// brings B = rows n of G (pitch gp), columns k0 .. k0 + KS, into registers;
+// `run` gives their product in d, from zero.
+template <typename W>
+struct Step;
+
+template <>
+struct Step<bf16> {
+  struct Frag {
+    uint32_t a[4], b[2];
+  };
+  __device__ __forceinline__ static void load(Frag& f, const uint4& v,
+                                              const bf16* G, int gp, int k0,
+                                              int g, int t) {
+    f.a[0] = v.x;
+    f.a[1] = v.y;
+    f.a[2] = v.z;
+    f.a[3] = v.w;
+    const bf16* p = G + g * gp + k0 + 2 * t;
+    f.b[0] = *reinterpret_cast<const uint32_t*>(p);
+    f.b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
   }
-  __syncthreads();
+  __device__ __forceinline__ static void run(float* d, const Frag& f) {
+    d[0] = d[1] = d[2] = d[3] = 0.f;
+    mma_bf16(d, f.a, f.b);
+  }
+};
+
+template <>
+struct Step<float> {
+  struct Frag {
+    uint4 a;
+    float b[2];
+  };
+  __device__ __forceinline__ static void load(Frag& f, const uint4& v,
+                                              const float* G, int gp, int k0,
+                                              int g, int t) {
+    f.a = v;
+    const float* p = G + g * gp + k0 + t;
+    f.b[0] = p[0];
+    f.b[1] = p[4];
+  }
+  // three TF32 products, each from zero, added in f32: (lo·hi + hi·lo) +
+  // hi·hi
+  __device__ __forceinline__ static void run(float* d, const Frag& f) {
+    uint32_t bh[2], bl[2], ah[4], al[4];
+    taco::split_tf32(f.b[0], bh[0], bl[0]);
+    taco::split_tf32(f.b[1], bh[1], bl[1]);
+    taco::split_tf32(__uint_as_float(f.a.x), ah[0], al[0]);
+    taco::split_tf32(__uint_as_float(f.a.y), ah[1], al[1]);
+    taco::split_tf32(__uint_as_float(f.a.z), ah[2], al[2]);
+    taco::split_tf32(__uint_as_float(f.a.w), ah[3], al[3]);
+    float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
+    d[0] = d[1] = d[2] = d[3] = 0.f;
+    mma_tf32(p1, al, bh);
+    mma_tf32(p2, ah, bl);
+    mma_tf32(d, ah, bh);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += p1[e] + p2[e];
+  }
+};
+
+// out[n * ldo + m] = sum_k A[m][k] · G[n][k] for m < rows, n < RB: the
+// product's ng groups of 16 m-tiles (warp w takes m-tile 16·group + w),
+// nck chunks of KC k-tiles a group, taken from the ring from chunk q on
+// (q advances past them). Every compute warp calls it; none waits for
+// another, only for the chunks' bytes.
+template <typename W>
+__device__ __noinline__ void product(const Ring& r, long long& q, int ng,
+                                     int nck, const W* G, int gp, float* out,
+                                     int ldo, int rows) {
+  constexpr int KS = std::is_same<W, bf16>::value ? 16 : 8;
+  using St = Step<W>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  for (int gi = 0; gi < ng; ++gi) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < nck; ++c, ++q) {
+      const int s = (int)(q % r.ns);
+      mbar_wait(smem_u32(r.full + s), (uint32_t)((q / r.ns) & 1));
+      const uint4* A = reinterpret_cast<const uint4*>(
+                           r.slots + (size_t)s * CHUNK + warp * KC * TILE) +
+                       lane;
+      typename St::Frag fr[KC];
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+        St::load(fr[kk], A[kk * 32], G, gp, (c * KC + kk) * KS, g8, t4);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(r.empty + s));
+      float d[KC][4];
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) St::run(d[kk], fr[kk]);
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += d[kk][e];
+    }
+    const int m = (gi * NW + warp) * 16 + g8;
+    if (m < rows) {
+      out[(2 * t4) * ldo + m] = acc[0];
+      out[(2 * t4 + 1) * ldo + m] = acc[1];
+    }
+    if (m + 8 < rows) {
+      out[(2 * t4) * ldo + m + 8] = acc[2];
+      out[(2 * t4 + 1) * ldo + m + 8] = acc[3];
+    }
+  }
 }
 
-// sum over the cluster's CTAs, in rank order, of buf[i] in each CTA's
-// shared memory
-__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
-                                             float* buf, int i) {
-  float s = 0.f;
-#pragma unroll
-  for (int r = 0; r < CS; ++r) s += cluster.map_shared_rank(buf, r)[i];
-  return s;
+// The producer warp: lane 0 keeps the ring full, and the warp takes its
+// part in the cluster barriers of every step (all threads of a cluster
+// arrive at each). Before barrier k it issues only the chunks the compute
+// warps consume before it, and ns past them, so it never waits for a slot
+// that only a later barrier frees.
+__device__ void produce(const Ring& r, const Layout& y, int S,
+                        cg::cluster_group& cluster) {
+  const int lane = threadIdx.x & 31;
+  // chunks of a step consumed before S1, S3 and S4 (S2: as S1) and at its end
+  const int ends[5] = {y.c0[PR_WQ], y.c0[PR_WQ], y.c0[PR_W1], y.c0[PR_PRE1],
+                       y.nch};
+  long long q = 0;
+  for (int t = 0; t < S; ++t) {
+    for (int k = 0; k < 5; ++k) {
+      const long long lim = (long long)t * y.nch + ends[k] + r.ns;
+      if (lane == 0)
+        for (; q < lim && q < r.total; ++q) issue(r, q);
+      __syncwarp();
+      if (k < 4) cluster.sync();
+    }
+  }
+}
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
 }
 
 template <typename W>
-__global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
+__device__ __forceinline__ void put(W* p, float v);
+template <>
+__device__ __forceinline__ void put<float>(float* p, float v) {
+  *p = v;
+}
+template <>
+__device__ __forceinline__ void put<bf16>(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Backward of one train-mode zoneout LSTM unit (the plain version's
+// _lstm_bwd) from its gates z (natural order, already rounded as the route
+// reads them), previous cell cp, masks mc, mh, the gradient dh and the
+// carried dc (updated to the previous cell's). Writes the gate gradients
+// to g[4] and returns the part of dh that zoned out.
+__device__ __forceinline__ float lstm_unit_bwd(const float* z, float cp,
+                                               float mc, float mh, float dh,
+                                               float& dc, float* g) {
+  const float si = taco::sigmoidf(z[0]), tj = tanhf(z[1]);
+  const float sf = taco::sigmoidf(z[2]), so = taco::sigmoidf(z[3]);
+  const float tnc = tanhf(sf * cp + si * tj);
+  const float dnh = dh * mh;
+  const float dnc = dc * mc + dnh * so * (1.f - tnc * tnc);
+  g[0] = dnc * tj * si * (1.f - si);
+  g[1] = dnc * si * (1.f - tj * tj);
+  g[2] = dnc * cp * sf * (1.f - sf);
+  g[3] = dnh * tnc * so * (1.f - so);
+  dc = dc * (1.f - mc) + dnc * sf;
+  return dh * (1.f - mh);
+}
+
+// Built with -DTACO_BWD_PROFILE, thread 0 of the first CTA adds up the
+// clock cycles of each phase of the step and writes them, as long longs,
+// over the start of the scratch when it ends (a measuring build only).
+#ifdef TACO_BWD_PROFILE
+#define PHASE(i)                    \
+  if (tid == 0 && blockIdx.x == 0) { \
+    const long long now = clock64(); \
+    prof[i] += now - prof_t;         \
+    prof_t = now;                    \
+  }
+#else
+#define PHASE(i)
+#endif
+
+template <typename W, int CSX>
+__global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NTP, 1)
     decoder_bwd_kernel(const BwdArgs a) {
-  constexpr bool kBf16 = std::is_same<W, __nv_bfloat16>::value;
-  extern __shared__ float sm[];
+  constexpr bool kBf16 = std::is_same<W, bf16>::value;
+  extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
+  const Layout& y = a.y;
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / CS, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = NT / 32;
+  const int cb = blockIdx.x / CSX, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int T = a.T, S = a.S, P = a.P, U = a.U, M = a.M, A = a.A, KW = a.KW;
-  const int mels = a.mels, FOp = a.FOp;
-  const int FO = a.r * mels + a.r, fb0 = (a.r - 1) * mels;
-  const int Uc = U / CS, Mc = M / CS, K1 = P + M + U;
-  const int Tc = (T + CS - 1) / CS, tp0 = rank * Tc;
+  const int mels = a.mels, FO = a.r * mels + a.r, fb0 = (a.r - 1) * mels;
+  const int Uc = y.Uc, Mc = y.Mc, Tc = y.Tc, K1 = y.K1;
+  const int tp0 = rank * Tc;
   const int nT = max(0, min(Tc, T - tp0));  // this CTA's input positions
   const int pad = (KW - 1) / 2;
+  const int b0 = cb * RB, nb = min(RB, a.B - b0);  // rows of this cluster
+  auto rg = [](float v) { return kBf16 ? taco::round_bf16(v) : v; };
 
-  float* dproj = sm;
-  float* align = dproj + FOp;
-  float* cum = align + T;      // rounded as the location features take it
-  float* dal = cum + T;
-  float* den = dal + T;
-  float* dcum = den + T;       // gradient of the cumulative alignments
-  float* q = dcum + T;
-  float* va = q + A;
-  float* dq = va + A;
-  float* wp = dq + A;
-  float* dwp = wp + KW * A;    // own positions' sum over steps
-  float* keys = dwp + KW * A;  // own positions
-  float* dkeys = keys + Tc * A;
-  float* de = dkeys + Tc * A;
-  float* ed = de + Tc * A;
-  float* g = ed + Tc * A;      // [Tc, KW] de · taps
-  float* dva = g + Tc * KW;
-  float* part_t = dva + A;     // partials read by the whole cluster
-  float* part_cum = part_t + T;
-  float* part_q = part_cum + T;
-  float* dh2 = part_q + A;     // own units: dh2_out, then the LSTM2 total
-  float* dctx = dh2 + Uc;      // own columns, this step
-  float* dctx_c = dctx + Mc;   // own columns, carried from step t+1
-  float* dh1c = dctx_c + Mc;   // carried: dh1, dc1, dh2, dc2 (own units)
-  float* dc1c = dh1c + Uc;
-  float* dh2c = dc1c + Uc;
-  float* dc2c = dh2c + Uc;
-  float* dhz = dc2c + Uc;
-  float* dh1 = dhz + Uc;
-  float* dz = dh1 + Uc;        // own gate columns
-  float* part2 = dz + 4 * Uc;  // [2U]
-  float* part1 = part2 + 2 * U;  // [P + M + U]
-  float* dhpre = part1 + K1;
-  float* da1 = dhpre + P;
-  float* dh0d = da1 + P;
-  float* da0 = dh0d + P;
-  float* dx = da0 + P;         // gradient of the step's input frame
-  float* red = dx + mels;
+  unsigned char* gcl = a.scratch + (size_t)cb * y.cluster;
+  unsigned char* gcta = gcl + y.o_cta + (size_t)rank * y.cta_spill;
+  auto buf = [&](int i) -> void* {
+    return y.sm[i] ? (void*)(smem + y.off[i]) : (void*)(gcta + y.off[i]);
+  };
+  W* gproj = (W*)buf(B_GPROJ);
+  W* gq = (W*)buf(B_GQ);
+  W* gz = (W*)buf(B_GZ);
+  W* ga1 = (W*)buf(B_GA1);
+  W* ga0 = (W*)buf(B_GA0);
+  float* oproj = (float*)buf(B_OPROJ);  // [RB][Uc + Mc]: dh2 out | dctx
+  float* owq = (float*)buf(B_OWQ);      // [RB][Uc]
+  float* opre1 = (float*)buf(B_OPRE1);  // [RB][P]
+  float* opre0 = (float*)buf(B_OPRE0);  // [RB][mels]
+  float* dh1c = (float*)buf(B_DH1C);    // [RB][Uc] carried, own units
+  float* dc1c = (float*)buf(B_DC1C);
+  float* dh2c = (float*)buf(B_DH2C);
+  float* dc2c = (float*)buf(B_DC2C);
+  float* dhz = (float*)buf(B_DHZ);      // [RB][Uc] the zoned-out dh
+  float* dctxc = (float*)buf(B_DCTXC);  // [RB][Mc] carried, own columns
+  float* dctxr = (float*)buf(B_DCTXR);  // [RB][Mc] this step's, rounded
+  float* dx = (float*)buf(B_DX);        // [RB][mels] the input frame's
+  float* cumr = (float*)buf(B_CUMR);    // [RB][T] rounded as the forward
+  float* qv = (float*)buf(B_Q);         // [RB][A]
+  float* va = (float*)buf(B_VA);        // [A]
+  // [KW][A + 1]: the pitch A + 1 keeps a warp's lanes on different banks
+  // both along a row (the location features) and down a column (de · taps)
+  float* wp = (float*)buf(B_WP);
+  const int WPP = A + 1;
+  float* dcum = (float*)buf(B_DCUM);    // [RB][T] the carried chain
+  float* den = (float*)buf(B_DEN);      // [RB][Tc] own positions
+  float* gk = (float*)buf(B_G);         // [RB][Tc][KW] de · taps
+  float* sdva = (float*)buf(B_SDVA);    // [RB][A] v_a's sum, own positions
+  float* sdwp = (float*)buf(B_SDWP);    // [KW][A] the taps' sum, alike
+  float* de = (float*)buf(B_DE);        // [RB][Tc][A] rounded de
+  float* sdkeys = (float*)buf(B_SDKEYS);  // [RB][Tc][A] dkeys' sum
+  const W* memw = static_cast<const W*>(a.memory);
+  // partials a cluster exchanges, [cs][RB][·]
+  float* pt = (float*)(gcl + y.o_pt);
+  float* pc = (float*)(gcl + y.o_pc);
+  float* pq = (float*)(gcl + y.o_pq);
+  float* ex2 = (float*)(gcl + y.o_ex2);
+  float* ex1 = (float*)(gcl + y.o_ex1);
+  const int gp0 = y.gp[0], gp1 = y.gp[1], gp2 = y.gp[2], gp3 = y.gp[3],
+            gp4 = y.gp[4];
 
-  const float* mem = a.memory + (size_t)b * T * M;
-  const W* l1_w = static_cast<const W*>(a.l1_w) + (size_t)rank * K1 * 4 * Uc;
-  const W* l2_w = static_cast<const W*>(a.l2_w) + (size_t)rank * 2 * U * 4 * Uc;
+  Ring ring;
+  ring.slots = smem + y.o_slots;
+  ring.full = reinterpret_cast<uint64_t*>(smem);
+  ring.empty = ring.full + MAX_SLOTS;
+  ring.own = a.stream + (size_t)rank * y.stream;
+  ring.shared = a.stream + (size_t)CSX * y.stream;
+  ring.ns = y.ns;
+  ring.nch = y.nch;
+  ring.npriv = y.npriv;
+  ring.total = (long long)S * y.nch;
+  long long q = 0;  // the next chunk a compute warp takes
+  auto prod = [&](int p, const W* G, int gp, float* out, int ldo) {
+    product<W>(ring, q, y.ng[p], y.nck[p], G, gp, out, ldo, y.rows[p]);
+  };
 
-  for (int i = tid; i < KW * A; i += NT) {
-    wp[i] = a.wp[i];
-    dwp[i] = 0.f;
+  // ---- set-up: zero the B operands (their padding stays zero), the
+  // carried state; the attention's constants
+  if (tid < NT) {
+    for (int i = tid; i < RB * gp0; i += NT) put<W>(gproj + i, 0.f);
+    for (int i = tid; i < RB * gp1; i += NT) put<W>(gq + i, 0.f);
+    for (int i = tid; i < RB * gp2; i += NT) put<W>(gz + i, 0.f);
+    for (int i = tid; i < RB * gp3; i += NT) put<W>(ga1 + i, 0.f);
+    for (int i = tid; i < RB * gp4; i += NT) put<W>(ga0 + i, 0.f);
+    for (int i = tid; i < RB * Uc; i += NT)
+      dh1c[i] = dc1c[i] = dh2c[i] = dc2c[i] = 0.f;
+    for (int i = tid; i < RB * Mc; i += NT) dctxc[i] = 0.f;
+    for (int i = tid; i < RB * mels; i += NT) dx[i] = 0.f;
+    for (int i = tid; i < RB * T; i += NT) dcum[i] = 0.f;
+    for (int i = tid; i < KW * A; i += NT) {
+      wp[(i / A) * WPP + i % A] = a.wp[i];
+      sdwp[i] = 0.f;
+    }
+    for (int i = tid; i < A; i += NT) va[i] = a.v_a[i];
+    for (int i = tid; i < RB * A; i += NT) sdva[i] = 0.f;
+    for (int i = tid; i < RB * Tc * A; i += NT) sdkeys[i] = 0.f;
   }
-  for (int i = tid; i < A; i += NT) {
-    va[i] = a.v_a[i];
-    dva[i] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < y.ns; ++s) {
+      mbar_init(smem_u32(ring.full + s), 1);
+      mbar_init(smem_u32(ring.empty + s), NW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < nT * A; i += NT) {
-    keys[i] = a.keys[((size_t)b * T + tp0) * A + i];
-    dkeys[i] = 0.f;
+  __syncthreads();
+  if (warp == NW) {  // the producer warp
+    produce(ring, y, S, cluster);
+    return;
   }
-  for (int i = tid; i < T; i += NT) dcum[i] = 0.f;
-  for (int i = tid; i < Uc; i += NT)
-    dh1c[i] = dc1c[i] = dh2c[i] = dc2c[i] = 0.f;
-  for (int i = tid; i < Mc; i += NT) dctx_c[i] = 0.f;
-  for (int i = tid; i < mels; i += NT) dx[i] = 0.f;
-  cluster.sync();  // all CTAs initialised before any remote access
+#ifdef TACO_BWD_PROFILE
+  long long prof[21] = {0}, prof_t = clock64();
+#endif
 
   for (int t = S - 1; t >= 0; --t) {
-    const size_t row = (size_t)b * S + t;
+    auto row = [&](int n) { return (size_t)(b0 + n) * S + t; };
 
     // ---- the projection's gradient, with the feedback into its last
-    // frame; this step's residual vectors
-    for (int i = tid; i < FOp; i += NT) {
-      float v = i < FO ? a.dout[row * FO + i] : 0.f;
-      if (i >= fb0 && i < fb0 + mels) v += dx[i - fb0];
-      dproj[i] = v;
-      if (rank == 0 && i < FO) a.dproj[row * FO + i] = v;
+    // frame; this step's cumulative alignments and query
+    for (int i = tid; i < RB * y.kp[PR_PROJ]; i += NT) {
+      const int n = i / y.kp[PR_PROJ], f = i % y.kp[PR_PROJ];
+      if (f >= FO) continue;
+      float v = n < nb ? a.dout[row(n) * FO + f] : 0.f;
+      if (f >= fb0 && f < fb0 + mels) v += dx[n * mels + f - fb0];
+      v = rg(v);
+      put<W>(gproj + n * gp0 + f, v);
+      if (rank == 0 && n < nb) a.dproj[row(n) * FO + f] = v;
     }
-    for (int i = tid; i < T; i += NT) {
-      align[i] = a.align[row * T + i];
-      const float c = a.cum[row * T + i];
-      cum[i] = kBf16 ? taco::round_bf16(c) : c;
+    for (int i = tid; i < RB * T; i += NT) {
+      const int n = i / T;
+      cumr[i] = n < nb ? rg(a.cum[row(n) * T + i % T]) : 0.f;
     }
-    for (int i = tid; i < A; i += NT) q[i] = a.q[row * A + i];
-    __syncthreads();
+    for (int i = tid; i < RB * A; i += NT) {
+      const int n = i / A;
+      qv[i] = n < nb ? a.q[row(n) * A + i % A] : 0.f;
+    }
+    sync_compute();
+    PHASE(0)
 
-    // ---- the projection's transpose for own units and context columns
-    const W* proj_w = static_cast<const W*>(a.proj_w);
-    rowdot<W>(proj_w + (size_t)rank * Uc * FOp, dproj, Uc, FOp, dh2, false);
-    rowdot<W>(proj_w + (size_t)(U + rank * Mc) * FOp, dproj, Mc, FOp, dctx,
-              false);
-    for (int i = tid; i < Mc; i += NT) {
-      dctx[i] += dctx_c[i];
-      a.dctx[row * M + rank * Mc + i] = dctx[i];
+    // ---- the projection's transpose: own units (dh2), own context
+    // columns (dctx)
+    prod(PR_PROJ, gproj, gp0, oproj, Uc + Mc);
+    sync_compute();
+    PHASE(1)
+    for (int i = tid; i < RB * Mc; i += NT) {
+      const int n = i / Mc, m = i % Mc;
+      const float v = rg(oproj[n * (Uc + Mc) + Uc + m] + dctxc[i]);
+      dctxr[i] = v;
+      if (n < nb) a.dctx[row(n) * M + rank * Mc + m] = v;
     }
-    __syncthreads();
+    sync_compute();
+    PHASE(2)
 
-    // ---- dalign = memory · dctx, this CTA's columns; all-reduced
-    for (int tt = warp; tt < T; tt += nw) {
-      float acc = 0.f;
-      for (int m = lane; m < Mc; m += 32)
-        acc = fmaf(dctx[m], mem[(size_t)tt * M + rank * Mc + m], acc);
-      acc = taco::warp_sum(acc);
-      if (lane == 0) part_t[tt] = acc;
+    // ---- dalign = memory · dctx over this CTA's columns: partials
+    // a thread a (row, position): its columns in 16-byte loads, four in
+    // flight (scalar loads where the columns are not 16-byte aligned)
+    {
+      using Pk = taco::Pack<W>;
+      constexpr int V = Pk::V;
+      const bool vec = Mc % V == 0 && M % V == 0;
+      for (int p = tid; p < RB * T; p += NT) {
+        const int n = p / T, tt = p % T;
+        float acc = 0.f;
+        if (n < nb) {
+          const W* mr = memw + ((size_t)(b0 + n) * T + tt) * M + rank * Mc;
+          const float* x = dctxr + n * Mc;
+          if (vec) {
+            for (int m0 = 0; m0 < Mc; m0 += 4 * V) {
+              typename Pk::Raw raw[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                raw[u] = m0 + u * V < Mc ? Pk::ld(mr + m0 + u * V)
+                                         : typename Pk::Raw{};
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                if (m0 + u * V >= Mc) break;
+                float v[V];
+                Pk::cvt(raw[u], v);
+#pragma unroll
+                for (int e = 0; e < V; ++e)
+                  acc = fmaf(x[m0 + u * V + e], v[e], acc);
+              }
+            }
+          } else {
+            for (int m = 0; m < Mc; ++m) acc = fmaf(x[m], ld(mr + m), acc);
+          }
+        }
+        pt[(rank * RB + n) * T + tt] = acc;
+      }
     }
+    PHASE(3)
     cluster.sync();  // S1: the dalign partials are complete
-    for (int i = tid; i < T; i += NT)
-      dal[i] = cluster_sum(cluster, part_t, i) + a.dalign[row * T + i] +
-               dcum[i];
-    __syncthreads();
+    PHASE(4)
 
-    // ---- softmax backward (masked positions have align 0: no gradient)
-    float dot = 0.f;
-    for (int i = tid; i < T; i += NT) dot = fmaf(dal[i], align[i], dot);
-    dot = taco::block_sum(dot, red);
-    for (int i = tid; i < T; i += NT) den[i] = align[i] * (dal[i] - dot);
-    __syncthreads();
-
-    // ---- own positions: the energies' tanh again, its gradient
-    for (int idx = tid; idx < nT * A; idx += NT) {
-      const int i = idx / A, aa = idx % A, tt = tp0 + i;
-      float loc = 0.f;
-      for (int k = 0; k < KW; ++k) {
-        const int si = tt + k - pad;
-        if (si >= 0 && si < T) loc = fmaf(cum[si], wp[k * A + aa], loc);
+    // ---- softmax backward, a warp a row (masked positions have align 0:
+    // no gradient); den for own positions
+    if (warp < RB) {
+      const int n = warp;
+      float dot = 0.f;
+      for (int i = lane; i < T; i += 32) {
+        float dal = 0.f;
+        for (int r = 0; r < CSX; ++r) dal += __ldcg(pt + (r * RB + n) * T + i);
+        if (n < nb) dal += a.dalign[row(n) * T + i];
+        const float dc = dcum[n * T + i];
+        if (rank == 0 && n < nb) a.dcum[row(n) * T + i] = dc;
+        dal += dc;
+        const float al = n < nb ? a.align[row(n) * T + i] : 0.f;
+        dot = fmaf(dal, al, dot);
+        if (i >= tp0 && i < tp0 + nT) den[n * Tc + i - tp0] = dal;
       }
-      const float e = tanhf(keys[idx] + q[aa] + loc);
-      const float d = den[tt] * va[aa] * (1.f - e * e);
-      de[idx] = d;
-      ed[idx] = e * den[tt];
-      dkeys[idx] += d;
+      dot = taco::warp_sum(dot);
+      __syncwarp();
+      for (int i = tp0 + lane; i < tp0 + nT; i += 32) {
+        const float al = n < nb ? a.align[row(n) * T + i] : 0.f;
+        den[n * Tc + i - tp0] = al * (den[n * Tc + i - tp0] - dot);
+      }
     }
-    __syncthreads();
-    // dq and dv_a over own positions; the taps' gradient; de · taps
-    for (int aa = tid; aa < A; aa += NT) {
+    sync_compute();
+    PHASE(5)
+
+    // ---- own positions: the energies' tanh again and its gradient; dkeys,
+    // the rounded gradient, dq's partial, v_a's sum
+    for (int p = tid; p < RB * A; p += NT) {
+      const int n = p / A, aa = p % A;
+      const float vaa = va[aa], qa = qv[p];
+      const float* cr = cumr + n * T;
       float sq = 0.f, sv = 0.f;
-      for (int i = 0; i < nT; ++i) {
-        sq += de[i * A + aa];
-        sv += ed[i * A + aa];
+      for (int i0 = 0; i0 < nT; i0 += 4) {
+        // four positions at once: their keys in flight, each tap's weight
+        // loaded once for the four location features
+        float key[4], loc[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          key[j] = n < nb && i0 + j < nT
+                       ? a.keys[((size_t)(b0 + n) * T + tp0 + i0 + j) * A + aa]
+                       : 0.f;
+          loc[j] = 0.f;
+        }
+        for (int k = 0; k < KW; ++k) {
+          const float w = wp[k * WPP + aa];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int si = tp0 + i0 + j + k - pad;
+            if (si >= 0 && si < T) loc[j] = fmaf(cr[si], w, loc[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = i0 + j;
+          if (i >= nT) break;
+          const float e = tanhf(key[j] + qa + loc[j]);
+          const float dn = den[n * Tc + i];
+          const float d = dn * vaa * (1.f - e * e);
+          sdkeys[(n * Tc + i) * A + aa] += d;
+          de[(n * Tc + i) * A + aa] = rg(d);
+          sq += d;
+          sv += e * dn;
+        }
       }
-      part_q[aa] = sq;
-      dva[aa] += sv;
+      pq[(rank * RB + n) * A + aa] = sq;
+      sdva[p] += sv;
     }
-    for (int idx = tid; idx < KW * A; idx += NT) {
-      const int k = idx / A, aa = idx % A;
+    sync_compute();
+    PHASE(6)
+    // the taps' gradient over the rows and own positions (each tap's
+    // positions in range hoisted out of the loop); de · taps, a lane a tap
+    for (int p = tid; p < KW * A; p += NT) {
+      const int k = p / A, aa = p % A;
+      const int i_lo = max(0, pad - k - tp0), i_hi = min(nT, T + pad - k - tp0);
       float acc = 0.f;
-      for (int i = 0; i < nT; ++i) {
-        const int si = tp0 + i + k - pad;
-        if (si >= 0 && si < T) acc = fmaf(cum[si], de[i * A + aa], acc);
+      for (int n = 0; n < RB; ++n) {
+        const float* cr = cumr + n * T + tp0 + k - pad;
+        const float* dr = de + n * Tc * A + aa;
+#pragma unroll 4
+        for (int i = i_lo; i < i_hi; ++i) acc = fmaf(cr[i], dr[i * A], acc);
       }
-      dwp[idx] += acc;
+      sdwp[p] += acc;
     }
-    for (int p = warp; p < nT * KW; p += nw) {
-      const int i = p / KW, k = p % KW;
-      float acc = 0.f;
-      for (int aa = lane; aa < A; aa += 32)
-        acc = fmaf(de[i * A + aa], wp[k * A + aa], acc);
-      acc = taco::warp_sum(acc);
-      if (lane == 0) g[p] = acc;
+    PHASE(20)
+    for (int task = warp; task < RB * nT; task += NW) {
+      const int n = task / nT, i = task % nT;
+      const float* dr = de + (n * Tc + i) * A;
+      for (int k = lane; k < KW; k += 32) {
+        float acc = 0.f;
+#pragma unroll 4
+        for (int aa = 0; aa < A; ++aa) acc = fmaf(dr[aa], wp[k * WPP + aa], acc);
+        gk[(n * Tc + i) * KW + k] = acc;
+      }
     }
-    __syncthreads();
+    sync_compute();
+    PHASE(7)
     // the location conv's transpose: position s takes g[i, s - tt_i + pad]
-    for (int s = tid; s < T; s += NT) {
+    for (int p = tid; p < RB * T; p += NT) {
+      const int n = p / T, s = p % T;
       float acc = 0.f;
       for (int i = 0; i < nT; ++i) {
         const int k = s - (tp0 + i) + pad;
-        if (k >= 0 && k < KW) acc += g[i * KW + k];
+        if (k >= 0 && k < KW) acc += gk[(n * Tc + i) * KW + k];
       }
-      part_cum[s] = acc;
+      pc[(rank * RB + n) * T + s] = acc;
     }
+    PHASE(8)
     cluster.sync();  // S2: dq and dcum partials are complete
-    for (int i = tid; i < A; i += NT) {
-      dq[i] = cluster_sum(cluster, part_q, i);
-      if (rank == 0) a.dq[row * A + i] = dq[i];
+    PHASE(9)
+    for (int p = tid; p < RB * A; p += NT) {
+      const int n = p / A, aa = p % A;
+      float v = 0.f;
+      for (int r = 0; r < CSX; ++r) v += __ldcg(pq + (r * RB + n) * A + aa);
+      v = rg(v);
+      put<W>(gq + n * gp1 + aa, v);
+      if (rank == 0 && n < nb) a.dq[row(n) * A + aa] = v;
     }
-    for (int i = tid; i < T; i += NT) dcum[i] += cluster_sum(cluster, part_cum, i);
-    __syncthreads();
+    for (int p = tid; p < RB * T; p += NT) {
+      const int n = p / T, s = p % T;
+      float v = 0.f;
+      for (int r = 0; r < CSX; ++r) v += __ldcg(pc + (r * RB + n) * T + s);
+      dcum[p] += v;
+    }
+    sync_compute();
+    PHASE(10)
 
     // ---- LSTM2: dh = projection + attention query + carried
-    rowdot<W>(static_cast<const W*>(a.wq) + (size_t)rank * Uc * A, dq, Uc, A,
-              dh2, true);
-    for (int i = tid; i < Uc; i += NT) dh2[i] += dh2c[i];
-    __syncthreads();
-    const uint8_t* zm = a.zmask + row * 4 * U;
-    lstm_bwd(rank, Uc, a.z2 + row * 4 * U, t ? a.c2 + (row - 1) * U : nullptr,
-             zm + 2 * U, dh2, dc2c, dz, dhz, a.dz2 + row * 4 * U);
-    rowdot<W>(l2_w, dz, 2 * U, 4 * Uc, part2, false);
-    cluster.sync();  // S3: the W2ᵀ·dz2 partials are complete
-    for (int u = tid; u < Uc; u += NT) {
-      const int unit = rank * Uc + u;
-      dh2c[u] = dhz[u] + cluster_sum(cluster, part2, U + unit);
-      dh1[u] = cluster_sum(cluster, part2, unit) + dh1c[u];
+    prod(PR_WQ, gq, gp1, owq, Uc);
+    sync_compute();
+    PHASE(11)
+    for (int p = tid; p < RB * Uc; p += NT) {
+      const int n = p / Uc, u = p % Uc, unit = rank * Uc + u;
+      const float dh = oproj[n * (Uc + Mc) + u] + owq[p] + dh2c[p];
+      float z[4], cp = 0.f, mc = 0.f, mh = 0.f;
+      for (int k = 0; k < 4; ++k) z[k] = 0.f;
+      if (n < nb) {
+        for (int k = 0; k < 4; ++k) z[k] = rg(a.z2[row(n) * 4 * U + k * U + unit]);
+        if (t) cp = rg(a.c2[(row(n) - 1) * U + unit]);
+        const uint8_t* zm = a.zmask + row(n) * 4 * U;
+        mc = zm[2 * U + unit] ? 1.f : 0.f;
+        mh = zm[3 * U + unit] ? 1.f : 0.f;
+      }
+      float g[4];
+      dhz[p] = lstm_unit_bwd(z, cp, mc, mh, dh, dc2c[p], g);
+      for (int k = 0; k < 4; ++k) {
+        const float v = rg(g[k]);
+        put<W>(gz + n * gp2 + k * Uc + u, v);
+        if (n < nb) a.dz2[row(n) * 4 * U + k * U + unit] = v;
+      }
     }
-    __syncthreads();
+    sync_compute();
+    PHASE(12)
+    prod(PR_W2, gz, gp2, ex2 + rank * RB * 2 * U, 2 * U);
+    PHASE(13)
+    cluster.sync();  // S3: the W2ᵀ·dz2 partials are complete
+    PHASE(14)
 
     // ---- LSTM1
-    lstm_bwd(rank, Uc, a.z1 + row * 4 * U, t ? a.c1 + (row - 1) * U : nullptr,
-             zm, dh1, dc1c, dz, dhz, a.dz1 + row * 4 * U);
-    rowdot<W>(l1_w, dz, K1, 4 * Uc, part1, false);
+    for (int p = tid; p < RB * Uc; p += NT) {
+      const int n = p / Uc, u = p % Uc, unit = rank * Uc + u;
+      float s1 = 0.f, s2 = 0.f;
+      for (int r = 0; r < CSX; ++r) {
+        const float* e2 = ex2 + (r * RB + n) * 2 * U;
+        s1 += __ldcg(e2 + unit);
+        s2 += __ldcg(e2 + U + unit);
+      }
+      dh2c[p] = dhz[p] + s2;
+      const float dh = s1 + dh1c[p];
+      float z[4], cp = 0.f, mc = 0.f, mh = 0.f;
+      for (int k = 0; k < 4; ++k) z[k] = 0.f;
+      if (n < nb) {
+        for (int k = 0; k < 4; ++k) z[k] = rg(a.z1[row(n) * 4 * U + k * U + unit]);
+        if (t) cp = rg(a.c1[(row(n) - 1) * U + unit]);
+        const uint8_t* zm = a.zmask + row(n) * 4 * U;
+        mc = zm[unit] ? 1.f : 0.f;
+        mh = zm[U + unit] ? 1.f : 0.f;
+      }
+      float g[4];
+      dhz[p] = lstm_unit_bwd(z, cp, mc, mh, dh, dc1c[p], g);
+      for (int k = 0; k < 4; ++k) {
+        const float v = rg(g[k]);
+        put<W>(gz + n * gp2 + k * Uc + u, v);
+        if (n < nb) a.dz1[row(n) * 4 * U + k * U + unit] = v;
+      }
+    }
+    sync_compute();
+    PHASE(15)
+    prod(PR_W1, gz, gp2, ex1 + rank * RB * K1, K1);
+    PHASE(16)
     cluster.sync();  // S4: the W1ᵀ·dz1 partials are complete
-    for (int i = tid; i < P; i += NT) dhpre[i] = cluster_sum(cluster, part1, i);
-    for (int i = tid; i < Mc; i += NT)
-      dctx_c[i] = cluster_sum(cluster, part1, P + rank * Mc + i);
-    for (int u = tid; u < Uc; u += NT)
-      dh1c[u] = dhz[u] + cluster_sum(cluster, part1, P + M + rank * Uc + u);
-    __syncthreads();
-
-    // ---- prenet (every CTA): relu and dropout through the saved outputs'
-    // sign and the multipliers; the input frame's gradient feeds step t-1
-    const float* drop = a.drop + row * 2 * P;
-    for (int i = tid; i < P; i += NT) {
-      da1[i] = a.hpre[row * P + i] > 0.f ? dhpre[i] * drop[P + i] : 0.f;
-      if (rank == 0) a.da1[row * P + i] = da1[i];
+    PHASE(17)
+    for (int p = tid; p < RB * P; p += NT) {
+      const int n = p / P, i = p % P;
+      float v = 0.f;
+      for (int r = 0; r < CSX; ++r) v += __ldcg(ex1 + (r * RB + n) * K1 + i);
+      // prenet (every CTA): relu and dropout through the saved outputs'
+      // sign and the multipliers
+      v = n < nb && a.hpre[row(n) * P + i] > 0.f
+              ? v * a.drop[row(n) * 2 * P + P + i]
+              : 0.f;
+      v = rg(v);
+      put<W>(ga1 + n * gp3 + i, v);
+      if (rank == 0 && n < nb) a.da1[row(n) * P + i] = v;
     }
-    __syncthreads();
-    rowdot<W>(a.pre_w1, da1, P, P, dh0d, false);
-    for (int i = tid; i < P; i += NT) {
-      da0[i] = a.h0d[row * P + i] > 0.f ? dh0d[i] * drop[i] : 0.f;
-      if (rank == 0) a.da0[row * P + i] = da0[i];
+    for (int p = tid; p < RB * Mc; p += NT) {
+      const int n = p / Mc, m = p % Mc;
+      float v = 0.f;
+      for (int r = 0; r < CSX; ++r)
+        v += __ldcg(ex1 + (r * RB + n) * K1 + P + rank * Mc + m);
+      dctxc[p] = v;
     }
-    __syncthreads();
-    if (a.coins[t]) {
-      for (int i = tid; i < mels; i += NT) dx[i] = 0.f;
-      __syncthreads();
-    } else {
-      rowdot<W>(a.pre_w0, da0, mels, P, dx, false);
+    for (int p = tid; p < RB * Uc; p += NT) {
+      const int n = p / Uc, u = p % Uc;
+      float v = 0.f;
+      for (int r = 0; r < CSX; ++r)
+        v += __ldcg(ex1 + (r * RB + n) * K1 + P + M + rank * Uc + u);
+      dh1c[p] = dhz[p] + v;
     }
+    sync_compute();
+    PHASE(18)
+    prod(PR_PRE1, ga1, gp3, opre1, P);
+    sync_compute();
+    for (int p = tid; p < RB * P; p += NT) {
+      const int n = p / P, i = p % P;
+      float v = n < nb && a.h0d[row(n) * P + i] > 0.f
+                    ? opre1[p] * a.drop[row(n) * 2 * P + i]
+                    : 0.f;
+      v = rg(v);
+      put<W>(ga0 + n * gp4 + i, v);
+      if (rank == 0 && n < nb) a.da0[row(n) * P + i] = v;
+    }
+    sync_compute();
+    // the input frame's gradient feeds step t-1's projection where
+    // coins[t] is 0
+    prod(PR_PRE0, ga0, gp4, opre0, mels);
+    sync_compute();
+    const bool coin = a.coins[t] != 0;
+    for (int p = tid; p < RB * mels; p += NT) dx[p] = coin ? 0.f : opre0[p];
+    sync_compute();
+    PHASE(19)
   }
 
   // ---- the sums over the steps
-  for (int i = tid; i < nT * A; i += NT)
-    a.dkeys[((size_t)b * T + tp0) * A + i] = dkeys[i];
-  float* dwp_out = a.dwp + ((size_t)b * CS + rank) * KW * A;
-  for (int i = tid; i < KW * A; i += NT) dwp_out[i] = dwp[i];
-  for (int i = tid; i < A; i += NT)
-    a.dva[((size_t)b * CS + rank) * A + i] = dva[i];
-  cluster.sync();  // no CTA leaves while another may still read it
+  for (int i = tid; i < RB * nT * A; i += NT) {
+    const int n = i / (nT * A), r = i % (nT * A);
+    if (n < nb)
+      a.dkeys[((size_t)(b0 + n) * T + tp0) * A + r] =
+          sdkeys[(n * Tc) * A + r];
+  }
+  for (int i = tid; i < KW * A; i += NT)
+    a.dwp[((size_t)cb * CSX + rank) * KW * A + i] = sdwp[i];
+  for (int i = tid; i < RB * A; i += NT) {
+    const int n = i / A;
+    if (n < nb)
+      a.dva[((size_t)(b0 + n) * CSX + rank) * A + i % A] = sdva[i];
+  }
+#ifdef TACO_BWD_PROFILE
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < 21; ++i) reinterpret_cast<long long*>(a.scratch)[i] = prof[i];
+#endif
+}
+
+// The kernel's envelope: the widths its layout takes (the shared memory
+// spills what does not fit, so T_in and the widths have no bound of
+// their own here). The one statement of it, for every entry point.
+bool supported(int T, int mels, int P, int U, int M, int A, int KW, int FOp,
+               int r, int cs) {
+  return (cs == 8 || cs == 16) && T >= 1 && mels >= 1 && P >= 1 && KW >= 1 &&
+         A >= 1 && U >= cs && M >= cs && U % cs == 0 && M % cs == 0 &&
+         (4 * U / cs) % 8 == 0 && P % 8 == 0 && A % 8 == 0 && FOp % 8 == 0 &&
+         FOp >= r * mels + r && r >= 1;
+}
+
+template <typename W, int CSX>
+int launch(BwdArgs& a, cudaStream_t stream) {
+  void (*kernel)(const BwdArgs) = decoder_bwd_kernel<W, CSX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.y.smem);
+  if (err == cudaSuccess && CSX > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  const int clusters = (a.B + RB - 1) / RB;
+  kernel<<<clusters * CSX, NTP, a.y.smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int taco_decoder_bwd_cluster_size() { return CS; }
+extern "C" int taco_decoder_bwd_rows() { return RB; }
 extern "C" int taco_decoder_bwd_n_ptr() { return N_PTR; }
 extern "C" int taco_decoder_bwd_n_int() { return N_INT; }
 
-extern "C" size_t taco_decoder_bwd_smem_bytes(int T, int mels, int P, int U,
-                                              int M, int A, int KW, int FOp,
-                                              int r) {
-  (void)r;
-  const int Uc = U / CS, Mc = M / CS, Tc = (T + CS - 1) / CS;
-  const size_t floats = (size_t)FOp + 5 * T + 3 * A + 2 * KW * A +
-                        4 * Tc * A + Tc * KW + A + 2 * T + A + Uc + 2 * Mc +
-                        4 * Uc + 2 * Uc + 4 * Uc + 2 * U + (P + M + U) +
-                        4 * P + mels + 32;
-  return floats * sizeof(float);
+extern "C" int taco_decoder_bwd_supported(int T, int mels, int P, int U,
+                                          int M, int A, int KW, int FOp,
+                                          int r, int cs) {
+  return supported(T, mels, P, U, M, A, KW, FOp, r, cs) ? 1 : 0;
+}
+
+// The plan of a launch: out = {shared memory bytes, bytes of a CTA's own
+// weight stream, bytes of the stream every CTA reads, bytes of global
+// scratch a cluster, bytes a CTA spills, buffers in shared memory, ring
+// slots}.
+// Returns 0, or -1 outside the envelope.
+extern "C" int taco_decoder_bwd_plan(int T, int mels, int P, int U, int M,
+                                     int A, int KW, int FOp, int r, int cs,
+                                     int f32, long long* out) {
+  if (!supported(T, mels, P, U, M, A, KW, FOp, r, cs)) return -1;
+  const Layout y = layout(T, mels, P, U, M, A, KW, FOp, cs, f32);
+  int in_smem = 0;
+  for (int i = 0; i < N_BUF; ++i) in_smem += y.sm[i];
+  out[0] = y.smem;
+  out[1] = y.stream;
+  out[2] = y.shared;
+  out[3] = y.cluster;
+  out[4] = y.cta_spill;
+  out[5] = in_smem;
+  out[6] = y.ns;
+  return 0;
 }
 
 // ptrs: N_PTR device pointers in `Ptr` order; ints: N_INT values in `Int`
@@ -488,16 +1080,11 @@ extern "C" int taco_decoder_bwd_launch(const void* const* ptrs, int n_ptr,
   for (int i = 0; i < N_PTR; ++i)
     if (!ptrs[i]) return (int)cudaErrorInvalidValue;
   BwdArgs a;
+  a.stream = (const unsigned char*)ptrs[P_STREAM];
   a.keys = (const float*)ptrs[P_KEYS];
-  a.memory = (const float*)ptrs[P_MEMORY];
+  a.memory = ptrs[P_MEMORY];
   a.wp = (const float*)ptrs[P_WP];
   a.v_a = (const float*)ptrs[P_V_A];
-  a.pre_w0 = ptrs[P_PRE_W0];
-  a.pre_w1 = ptrs[P_PRE_W1];
-  a.l1_w = ptrs[P_L1_W];
-  a.l2_w = ptrs[P_L2_W];
-  a.wq = ptrs[P_WQ];
-  a.proj_w = ptrs[P_PROJ_W];
   a.align = (const float*)ptrs[P_ALIGN];
   a.cum = (const float*)ptrs[P_CUM];
   a.q = (const float*)ptrs[P_Q];
@@ -519,9 +1106,11 @@ extern "C" int taco_decoder_bwd_launch(const void* const* ptrs, int n_ptr,
   a.dproj = (float*)ptrs[P_DPROJ];
   a.dctx = (float*)ptrs[P_DCTX];
   a.dq = (float*)ptrs[P_DQ];
+  a.dcum = (float*)ptrs[P_DCUM];
   a.dkeys = (float*)ptrs[P_DKEYS];
   a.dwp = (float*)ptrs[P_DWP];
   a.dva = (float*)ptrs[P_DVA];
+  a.scratch = (unsigned char*)ptrs[P_SCRATCH];
   a.B = ints[I_B];
   a.T = ints[I_T];
   a.S = ints[I_S];
@@ -533,17 +1122,13 @@ extern "C" int taco_decoder_bwd_launch(const void* const* ptrs, int n_ptr,
   a.KW = ints[I_KW];
   a.r = ints[I_R];
   a.FOp = ints[I_FOP];
-  if (a.S < 1 || a.U % CS || a.M % CS || (4 * a.U / CS) % 8 || a.P % 8 ||
-      a.A % 8 || a.FOp % 8 || a.FOp < a.r * a.mels + a.r)
+  const int f32 = ints[I_F32_WEIGHTS], cs = ints[I_CS];
+  if (a.S < 1 || a.B < 1 ||
+      !supported(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp, a.r, cs))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = taco_decoder_bwd_smem_bytes(
-      a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp, a.r);
-  void (*kernel)(const BwdArgs) = ints[I_F32_WEIGHTS]
-                                      ? decoder_bwd_kernel<float>
-                                      : decoder_bwd_kernel<__nv_bfloat16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<a.B * CS, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.y = layout(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp, cs, f32);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cs == 16)
+    return f32 ? launch<float, 16>(a, st) : launch<bf16, 16>(a, st);
+  return f32 ? launch<float, 8>(a, st) : launch<bf16, 8>(a, st);
 }

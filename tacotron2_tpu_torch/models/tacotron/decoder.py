@@ -653,7 +653,8 @@ def teacher_forced_replay(dp: DecoderParams, cfg: Config, keys, memory,
 
 def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
                              memory, mask, coins, drop, zmask, dout,
-                             dalign):
+                             dalign, round_gradients: bool | None = None,
+                             replay: dict | None = None):
     """The plain version of the BPTT backward (CUDA `csrc/decoder_bwd.cu`;
     JAX `build_train_bwd`, tacotron_train_kernel.py:371-600): an explicit
     reverse-time chain through the projection, the location-sensitive
@@ -665,13 +666,31 @@ def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
 
     res: `teacher_forced_train`'s residuals; dout [B, steps, r*mels + r]
     the gradient of the projection (frames | stop logits), dalign [B,
-    steps, T] that of the alignments. Activations enter each product as in
-    the forward (rounded to bf16 with bf16 weights); gradients stay f32.
+    steps, T] that of the alignments. With bf16 weights it rounds as
+    `build_train_bwd` does (:445-569): activations enter each product as in
+    the forward, and it reads the gates z1, z2 and cells c1, c2 rounded as
+    `build_train_fwd` stores them; every gradient is rounded to bf16 where
+    it enters a product (dproj, the summed dctx, the energies' gradient de
+    in the taps' sum and the cumulative-alignment chain, dq, dz2, dz1, da1,
+    da0), and the per-step outputs are those rounded values (f32 tensors).
+    dkeys, the v_a sums, the LSTM cell chain and the carried dh and dcum
+    sums stay f32 and unrounded. With f32 weights nothing is rounded.
+    `round_gradients=False` keeps the bf16 route's gradients and the gates
+    and cells it reads unrounded (a control for the rounding's size).
+    `replay`, another backward's outputs (e.g. the kernel's), replays it
+    one step at a time: each per-step gradient, and the cumulative
+    alignments' gradient carried into the step, is computed, returned, and
+    replaced by replay's before anything downstream takes it, so every
+    step starts from that backward's own values and a rounding that
+    another sum order moved cannot feed forward (the other carried f32
+    sums follow from those gradients).
     Returns the per-step activation gradients dz1, dz2 [B, steps, 4U],
     da0, da1 [B, steps, P] (prenet pre-activations), dproj [B, steps,
     r*mels + r] (with the feedback), dctx [B, steps, M], dq [B, steps, A],
-    and summed over the steps: dkeys [B, T, A] (of the keys with the folded
-    attention bias), dwp [K, A] (of the folded location taps), dva [A]."""
+    dcum [B, steps, T] (the cumulative alignments' gradient carried into
+    each step from the later ones), and summed over the steps: dkeys [B,
+    T, A] (of the keys with the folded attention bias), dwp [K, A] (of the
+    folded location taps), dva [A]."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     if tc.smoothing:
         raise ValueError("the BPTT backward takes softmax attention; under "
@@ -680,9 +699,12 @@ def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
     r = tc.outputs_per_step
     B, T, M = memory.shape
     S = dout.shape[1]
-    cell = _cell(dp, keys, memory, mask,
-                 round_inputs=dp.l1_wp.dtype == torch.bfloat16)
+    bf16 = dp.l1_wp.dtype == torch.bfloat16
+    cell = _cell(dp, keys, memory, mask, round_inputs=bf16)
     w, rnd, wp = cell.w, cell.rnd, cell.wp
+    if round_gradients is None:
+        round_gradients = bf16
+    rg = round_bf16 if round_gradients else identity
     U, P = w["l2_wh"].shape[0], w["pre_b0"].shape[0]
     K, A = wp.shape
     pad = (K - 1) // 2
@@ -690,17 +712,23 @@ def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
     dh1, dc1, dh2, dc2 = z(B, U), z(B, U), z(B, U), z(B, U)
     dctx_c, dcum, dxprev = z(B, M), z(B, T), z(B, mels)
     dkeys, dwp, dva = z(B, T, A), z(K, A), z(A)
-    keys_out = ("dz1", "dz2", "da0", "da1", "dproj", "dctx", "dq")
+    keys_out = ("dz1", "dz2", "da0", "da1", "dproj", "dctx", "dq", "dcum")
     outs = {k: [None] * S for k in keys_out}
     coins = coins.tolist()
     proj_wo_t, proj_wc_t = w["proj_wo"].t(), w["proj_wc"].t()
     for t in reversed(range(S)):
+        def out(name, v):
+            """v is step t's `name`; downstream takes replay's, if any"""
+            outs[name][t] = v
+            return v if replay is None else replay[name][:, t]
         dproj = dout[:, t].clone()
         dproj[:, (r - 1) * mels:r * mels] += dxprev
+        dproj = out("dproj", rg(dproj))
         dh2_out = dproj @ proj_wo_t
-        dctx = dproj @ proj_wc_t + dctx_c
+        dctx = out("dctx", rg(dproj @ proj_wc_t + dctx_c))
         # attention: context, softmax, energies, location features
         align = res["align"][:, t]
+        dcum = out("dcum", dcum)
         dal = (torch.bmm(dctx[:, None, :], cell.memory.transpose(1, 2))[:, 0]
                + dalign[:, t] + dcum)
         den = align * (dal - (dal * align).sum(-1, keepdim=True))
@@ -710,29 +738,31 @@ def teacher_forced_bwd_plain(dp: DecoderParams, cfg: Config, res, keys,
         de = den[..., None] * w["v_a"] * (1.0 - e * e)         # [B, T, A]
         dkeys += de
         dva += (e * den[..., None]).sum((0, 1))
+        rde = rg(de)
         taps = F.pad(rc, (pad, K - 1 - pad)).unfold(1, K, 1)   # [B, T, K]
-        dwp += torch.einsum("btk,bta->ka", taps, de)
+        dwp += torch.einsum("btk,bta->ka", taps, rde)
         dcum = dcum + F.conv_transpose1d(
-            de.transpose(1, 2), wp.t()[:, None, :], padding=pad)[:, 0, :T]
-        dq = de.sum(1)
+            rde.transpose(1, 2), wp.t()[:, None, :], padding=pad)[:, 0, :T]
+        dq = out("dq", rg(de.sum(1)))
         # LSTM2, LSTM1 (dz @ W^T: the transposed products)
-        c_prev = lambda n: res[n][:, t - 1] if t else z(B, U)
-        dz2, dh2_z, dc2 = _lstm_bwd(res["z2"][:, t], c_prev("c2"),
+        c_prev = lambda n: rg(res[n][:, t - 1]) if t else z(B, U)
+        dz2, dh2_z, dc2 = _lstm_bwd(rg(res["z2"][:, t]), c_prev("c2"),
                                     dh2_out + dq @ w["wq"].t() + dh2, dc2,
                                     zmask[:, t, 2:])
+        dz2 = out("dz2", rg(dz2))
         dx2 = dz2 @ w["l2_wx"].t()
         dh2 = dh2_z + dz2 @ w["l2_wh"].t()
-        dz1, dh1_z, dc1 = _lstm_bwd(res["z1"][:, t], c_prev("c1"),
+        dz1, dh1_z, dc1 = _lstm_bwd(rg(res["z1"][:, t]), c_prev("c1"),
                                     dx2 + dh1, dc1, zmask[:, t, :2])
+        dz1 = out("dz1", rg(dz1))
         g1 = dz1 @ cell.l1_w.t()
         dhpre, dctx_c, dh1 = g1[:, :P], g1[:, P:P + M], dh1_z + g1[:, P + M:]
         # prenet: relu and dropout through the saved outputs' sign and the
         # multipliers
-        da1 = dhpre * drop[:, t, 1] * (res["hpre"][:, t] > 0)
-        da0 = (da1 @ w["pre_w1"].t()) * drop[:, t, 0] * (res["h0d"][:, t] > 0)
+        da1 = out("da1", rg(dhpre * drop[:, t, 1] * (res["hpre"][:, t] > 0)))
+        da0 = out("da0", rg((da1 @ w["pre_w1"].t()) * drop[:, t, 0]
+                            * (res["h0d"][:, t] > 0)))
         dxprev = da0 @ w["pre_w0"].t() if coins[t] == 0 else z(B, mels)
-        for k, v in zip(keys_out, (dz1, dz2, da0, da1, dproj, dctx, dq)):
-            outs[k][t] = v
     out = {k: torch.stack(v, 1) for k, v in outs.items()}
     out.update(dkeys=dkeys, dwp=dwp, dva=dva)
     return out

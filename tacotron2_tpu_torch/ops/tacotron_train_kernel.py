@@ -35,8 +35,11 @@ nothing is rounded. Prenet dropout
 TPU kernels draw them from the TPU PRNG per (seed, step) and draw them
 again in the backward; the port draws them once, from a torch.Generator,
 and forward and backward read the same tensors. The residuals are f32
-(JAX keeps them in the weights' dtype) and gradients are not rounded: the
-backward's products take f32 gradients against the bf16 weights.
+(JAX keeps them in the weights' dtype); with bf16 weights the backward
+reads the gates and cells rounded as JAX stores them, and rounds every
+gradient to bf16 where it enters a product, as `build_train_bwd` does
+(see `teacher_forced_bwd_plain`): its products are bf16 × bf16 with f32
+sums.
 
 On a CUDA device the kernels run whatever `use_fused_train_decoder` says:
 that flag chooses between two TPU implementations of one function (the
@@ -223,13 +226,16 @@ def teacher_forced_train_fwd(dp: DecoderParams, cfg: Config, keys, memory,
 
 def teacher_forced_bwd(dp: DecoderParams, cfg: Config, res, keys, memory,
                        mask, coins, drop, zmask, dout, dalign, *,
-                       kernel_weights: dk.KernelWeights | None = None):
+                       kernel_weights: dk.KernelWeights | None = None,
+                       cs: int | None = None):
     """The BPTT backward of the train forward: res its residuals, dout
     [B, steps, r*mels + r] the gradient of its projection (frames | stop
     logits), dalign [B, steps, T] that of its alignments. Returns the dict
     of `models/tacotron/decoder.py:teacher_forced_bwd_plain`. CPU tensors
     take that plain version; CUDA tensors launch `csrc/decoder_bwd.cu`
-    with `kernel_weights` or raise."""
+    with `kernel_weights` (whose matmul weights `bwd_stream` packs on
+    every call) at cluster size `cs` (default `bwd_cluster_size`) or
+    raise."""
     check_config(cfg)
     if memory.device.type == "cpu":
         return teacher_forced_bwd_plain(dp, cfg, res, keys, memory, mask,
@@ -239,7 +245,7 @@ def teacher_forced_bwd(dp: DecoderParams, cfg: Config, res, keys, memory,
                          "pack_weights(dp), built once per set of weights")
     global bwd_launches
     out = _bwd_cuda(kernel_weights, cfg, res, keys, memory, coins, drop,
-                    zmask, dout, dalign)
+                    zmask, dout, dalign, cs)
     bwd_launches += 1
     return out
 
@@ -252,9 +258,11 @@ def _bwd_lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.taco_decoder_bwd_launch.argtypes = [vp, ci, vp, ci, vp]
         lib.taco_decoder_bwd_launch.restype = ci
-        lib.taco_decoder_bwd_smem_bytes.argtypes = [ci] * 9
-        lib.taco_decoder_bwd_smem_bytes.restype = ctypes.c_size_t
-        for fn in ("cluster_size", "n_ptr", "n_int"):
+        lib.taco_decoder_bwd_supported.argtypes = [ci] * 10
+        lib.taco_decoder_bwd_supported.restype = ci
+        lib.taco_decoder_bwd_plan.argtypes = [ci] * 11 + [vp]
+        lib.taco_decoder_bwd_plan.restype = ci
+        for fn in ("rows", "n_ptr", "n_int"):
             getattr(lib, f"taco_decoder_bwd_{fn}").argtypes = []
             getattr(lib, f"taco_decoder_bwd_{fn}").restype = ci
         _bwd_argtypes_set = True
@@ -262,11 +270,101 @@ def _bwd_lib():
 
 
 _BWD_INTS = ("B", "T", "S", "mels", "P", "U", "M", "A", "KW", "r", "FOp",
-             "f32_weights")
+             "f32_weights", "cs")
+# csrc/decoder_bwd.cu's stream: a product's m-tiles go in groups of BWD_NW
+# (its compute warps, one each), BWD_KC k-tiles a warp in each 32 KB chunk
+BWD_NW, BWD_KC = 16, 4
+
+
+def bwd_widths(cfg: Config, kw: dk.KernelWeights, memory_width: int,
+               T: int):
+    """(T, mels, P, U, M, A, KW, FOp, r): the backward kernel's widths."""
+    tc = cfg.tacotron
+    return (T, cfg.audio.num_mels, tc.prenet_layers[-1],
+            tc.decoder_lstm_units, memory_width, kw.wq.shape[1],
+            kw.wp.shape[0], kw.fop, tc.outputs_per_step)
+
+
+def bwd_supported(widths, cs: int) -> bool:
+    """Whether kernel 4b takes these widths (`bwd_widths`) at cluster size
+    cs: csrc/decoder_bwd.cu's `supported`, the one statement of its
+    envelope."""
+    return bool(_bwd_lib().taco_decoder_bwd_supported(*widths, cs))
+
+
+def bwd_cluster_size(widths) -> int:
+    """The backward kernel's cluster size at these widths: 16 CTAs (each
+    SM streams half the weight bytes of 8) where it takes them, else 8."""
+    return 16 if bwd_supported(widths, 16) else 8
+
+
+def bwd_plan(widths, cs: int, f32: bool) -> dict:
+    """The launch's plan (csrc/decoder_bwd.cu `layout`), in bytes: shared
+    memory, a CTA's own weight stream and the shared one (the prenet's),
+    the global scratch of a cluster and what a CTA spills to it; and the
+    buffers that sit in shared memory and the ring's slots."""
+    out = (ctypes.c_longlong * 7)()
+    if _bwd_lib().taco_decoder_bwd_plan(*widths, cs, int(f32),
+                                        ctypes.cast(out, ctypes.c_void_p)):
+        raise ValueError(f"widths {widths} outside the backward kernel's "
+                         f"envelope at cluster size {cs}")
+    keys = ("smem", "stream", "shared", "scratch", "spill", "in_smem",
+            "slots")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+def _stream_tiles(w, ks: int):
+    """w [cs, rows, K] -> [cs, bytes]: mma A fragments of 16 × ks tiles,
+    m-tiles in groups of BWD_NW (one a warp), BWD_KC k-tiles a warp in each
+    chunk, in csrc/decoder_bwd.cu's order (group, chunk, warp, k-tile,
+    lane, fragment); rows and k zero-padded."""
+    cs, rows, K = w.shape
+    nw, kc = BWD_NW, BWD_KC
+    ng = -(-(-(-rows // 16)) // nw)
+    kp = -(-K // (ks * kc)) * ks * kc
+    wp = w.new_zeros(cs, ng * nw * 16, kp)
+    wp[:, :rows, :K] = w
+    nck = kp // (ks * kc)
+    if ks == 16:   # bf16 m16n8k16: lane (g, t) holds rows g, g+8 by k pairs
+        t = wp.reshape(cs, ng, nw, 2, 8, nck, kc, 2, 4, 2)
+        t = t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3, 9)
+    else:          # tf32 m16n8k8: lane (g, t) holds rows g, g+8, k t, t+4
+        t = wp.reshape(cs, ng, nw, 2, 8, nck, kc, 2, 4)
+        t = t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3)
+    return t.contiguous().reshape(cs, -1).view(torch.uint8)
+
+
+def bwd_stream(kw: dk.KernelWeights, cs: int):
+    """The backward kernel's weight stream, bytes: for each CTA c its own
+    tiles of the projection's rows of its units and context columns, the
+    query weight's rows of its units, its gate columns of [l2_wx; l2_wh]
+    and of [l1_wp; l1_wc; l1_wh] (`pack_weights`' gate split, redone for
+    cs CTAs); then, once for every CTA, pre_w1 and pre_w0
+    (csrc/decoder_bwd.cu's products, in the order it takes them), in the
+    weight dtype. Built from the weights on every call: they change every
+    train step."""
+    U = kw.l2_w.shape[1] // 2
+    M = kw.proj_w.shape[0] - U
+    Uc, Mc = U // cs, M // cs
+    ks = 16 if kw.l1_w.dtype == torch.bfloat16 else 8
+
+    def gates(w):
+        """[kw.cs, K, 4U/kw.cs] -> [cs, K, 4U/cs]"""
+        n, K, g = w.shape
+        w = w.reshape(n, K, 4, g // 4).permute(1, 2, 0, 3).reshape(K, -1)
+        return dk.split_gates(w, cs)
+
+    proj = kw.proj_w
+    proj = torch.cat([proj[:U].reshape(cs, Uc, -1),
+                      proj[U:].reshape(cs, Mc, -1)], 1)
+    own = [proj, kw.wq.reshape(cs, Uc, -1), gates(kw.l2_w), gates(kw.l1_w)]
+    shared = [_stream_tiles(w[None], ks) for w in (kw.pre_w1, kw.pre_w0)]
+    return torch.cat([torch.cat([_stream_tiles(w, ks) for w in own],
+                                1).reshape(-1), *[t[0] for t in shared]])
 
 
 def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
-              drop, zmask, dout, dalign):
+              drop, zmask, dout, dalign, cs=None):
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r, P, U = tc.outputs_per_step, tc.prenet_layers[-1], tc.decoder_lstm_units
     B, T, M = memory.shape
@@ -279,12 +377,12 @@ def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
     bf16 = dk.weight_type(kw, dev) == torch.bfloat16
     rnd = round_bf16 if bf16 else identity
     lib = _bwd_lib()
-    cs = lib.taco_decoder_bwd_cluster_size()
-    if kw.cs != cs:
-        raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
-                         f"the backward runs {cs}")
-    if U % cs or M % cs or (4 * U // cs) % 8 or P % 8 or A % 8:
-        raise ValueError("widths outside the backward kernel's envelope")
+    widths = bwd_widths(cfg, kw, M, T)
+    cs = cs or bwd_cluster_size(widths)
+    if not bwd_supported(widths, cs):
+        raise ValueError(f"widths {widths} outside the backward kernel's "
+                         f"envelope at cluster size {cs}")
+    plan = bwd_plan(widths, cs, not bf16)
     want = dict(align=T, cum_pre=T, q=A, z1=4 * U, z2=4 * U, c1=U, c2=U,
                 h0d=P, hpre=P)
     for k, n in want.items():
@@ -295,30 +393,35 @@ def _bwd_cuda(kw: dk.KernelWeights, cfg: Config, res, keys, memory, coins,
     if (drop.shape != (B, S, 2, P) or zmask.shape != (B, S, 4, U)
             or coins.shape != (S,)):
         raise ValueError("drop, zmask or coins do not match the residuals")
-    smem = lib.taco_decoder_bwd_smem_bytes(T, mels, P, U, M, A, KW, kw.fop,
-                                           r)
-    if smem > dk._SMEM_LIMIT:
-        raise ValueError(f"backward kernel needs {smem} B of shared memory "
-                         f"at T_in={T}")
+    stream = bwd_stream(kw, cs)
+    if stream.numel() != cs * plan["stream"] + plan["shared"]:
+        raise ValueError(f"weight stream of {stream.numel()} bytes, the "
+                         f"kernel reads {cs} x {plan['stream']} + "
+                         f"{plan['shared']}")
+    rows = lib.taco_decoder_bwd_rows()
+    clusters = -(-B // rows)
     wp = rnd(kw.wp)
     keys_eff = (keys.float() + kw.b_eff).contiguous()
     f32 = lambda x: x.to(device=dev, dtype=torch.float32).contiguous()
     e = lambda *shape: torch.empty(*shape, device=dev)
     out = dict(dz1=e(B, S, 4 * U), dz2=e(B, S, 4 * U), da0=e(B, S, P),
                da1=e(B, S, P), dproj=e(B, S, FO), dctx=e(B, S, M),
-               dq=e(B, S, A), dkeys=e(B, T, A), dwp=e(B, cs, KW, A),
-               dva=e(B, cs, A))
-    ptrs = [keys_eff, f32(rnd(memory)), f32(wp), f32(kw.v_a),
-            kw.pre_w0, kw.pre_w1, kw.l1_w, kw.l2_w, kw.wq, kw.proj_w,
+               dq=e(B, S, A), dcum=e(B, S, T), dkeys=e(B, T, A),
+               dwp=e(clusters, cs, KW, A), dva=e(B, cs, A))
+    scratch = torch.empty(clusters * plan["scratch"], dtype=torch.uint8,
+                          device=dev)
+    mem_w = memory.to(device=dev, dtype=kw.l1_w.dtype).contiguous()
+    ptrs = [stream, keys_eff, mem_w, f32(wp), f32(kw.v_a),
             *[f32(res[k]) for k in ("align", "cum_pre", "q", "z1", "z2",
                                     "c1", "c2", "h0d", "hpre")],
             f32(drop), zmask.to(device=dev, dtype=torch.uint8).contiguous(),
             coins.to(device=dev, dtype=torch.int32).contiguous(),
             f32(dout), f32(dalign),
             *[out[k] for k in ("dz1", "dz2", "da0", "da1", "dproj", "dctx",
-                               "dq", "dkeys", "dwp", "dva")]]
+                               "dq", "dcum", "dkeys", "dwp", "dva")],
+            scratch]
     ints = dict(B=B, T=T, S=S, mels=mels, P=P, U=U, M=M, A=A, KW=KW, r=r,
-                FOp=kw.fop, f32_weights=int(not bf16))
+                FOp=kw.fop, f32_weights=int(not bf16), cs=cs)
     assert len(ptrs) == lib.taco_decoder_bwd_n_ptr()
     assert len(_BWD_INTS) == lib.taco_decoder_bwd_n_int()
     rc = lib.taco_decoder_bwd_launch(

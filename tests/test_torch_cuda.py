@@ -203,7 +203,8 @@ def _decoder_case(dev, B, T, steps, seed=0, wd="bfloat16", **tc):
                              device=dev)
     keys = torch.as_tensor(rng.normal(size=(B, T, A)) * 0.3,
                            dtype=torch.float32, device=dev)
-    lens = torch.as_tensor([T - 7 * i for i in range(B)], device=dev)
+    lens = torch.as_tensor([max(T - 7 * i, min(T, 3)) for i in range(B)],
+                           device=dev)
     mask = torch.arange(T, device=dev)[None] < lens[:, None]
     dp = dk.extract_decoder_params(decoder_tree(seed), cfg, device=dev)
     drop = drop_masks(cfg, B, steps, torch.Generator(dev).manual_seed(1), dev)
@@ -413,7 +414,8 @@ def emt_case(dev, kind, with_ref, B=3, T=24, Te=5, seed=3, wd="bfloat16"):
     t = lambda *s: torch.as_tensor(rng.normal(size=s) * 0.5,
                                    dtype=torch.float32, device=dev)
     memory, keys = t(B, T, M), t(B, T, A) * 0.6
-    lens = torch.as_tensor([T - 7 * i for i in range(B)], device=dev)
+    lens = torch.as_tensor([max(T - 7 * i, min(T, 3)) for i in range(B)],
+                           device=dev)
     mask = torch.arange(T, device=dev)[None] < lens[:, None]
     emt = emt_operands(ep, cfg, t(B, Te, V), t(B, 128) if with_ref else None)
     return (cfg, dp, dk.pack_weights(dp, emt=ep), keys, memory, mask, emt)
@@ -564,34 +566,115 @@ def _train_case(dev, B, T, steps, coins, seed=0, wd="bfloat16"):
     bargs = (dp, cfg, res, keys, memory, mask, coins, drop, zmask, dout,
              dalign)
     b_k = tk.teacher_forced_bwd(*bargs, kernel_weights=kw)
-    b_p = tk.teacher_forced_bwd_plain(*bargs)
+    # bf16: the plain backward replayed on the kernel's own gradients (a
+    # rounding that another sum order moved cannot feed earlier steps),
+    # and the same without the gradient rounding as the control
+    replay = b_k if wd == "bfloat16" else None
+    b_p = tk.teacher_forced_bwd_plain(*bargs, replay=replay)
+    b_c = (tk.teacher_forced_bwd_plain(*bargs, round_gradients=False,
+                                       replay=replay) if replay else None)
     torch.cuda.synchronize()
     n = (tk.train_launches - n0[0], tk.bwd_launches - n0[1])
-    return got, want, b_k, b_p, n
+    return got, want, b_k, b_p, n, b_c, (bargs, kw)
 
 
+# kernel 4b with bf16 weights against its plain version replayed on its
+# gradients (chip_smoke.py's phase 16 gate): each gradient's largest
+# difference within BWD_CAP_STEPS bf16 steps of its largest magnitude, its
+# mean difference at most BWD_MEAN_SHARE of the unrounded control's; what
+# the rounding does not reach (the control gives it bit for bit) within
+# BWD_RTOL
+BWD_CAP_STEPS, BWD_MEAN_SHARE = 4, 0.1
+
+
+def _bwd_close(b_k, b_p, b_c):
+    assert set(b_k) == set(b_p)
+    for name, x in b_k.items():
+        y = b_p[name]
+        assert x.shape == y.shape, name
+        d = (x - y).abs()
+        err = float(d.max()) / max(float(y.abs().max()), 1e-6)
+        if b_c is None or torch.equal(b_c[name], y):
+            assert err <= BWD_RTOL, (name, err)
+            continue
+        assert err <= BWD_CAP_STEPS * 2.0 ** -8, (name, err)
+        share = float(d.mean()) / float((b_c[name] - y).abs().mean())
+        assert share <= BWD_MEAN_SHARE, (name, share)
+
+
+@pytest.mark.parametrize("B", [3, 8, 9, 16])
 @pytest.mark.parametrize("wd", ["bfloat16", "float32"])
 @pytest.mark.parametrize("coins", ["ones", "mixed"])
-def test_train_kernels_match_plain(dev, coins, wd):
+def test_train_kernels_match_plain(dev, coins, wd, B):
     """Kernel 4a's train mode (outputs and every residual) and kernel 4b
     (every activation gradient and per-row sum) against their plain
     versions, zoneout 0.1 and prenet dropout on injected masks; bf16 and
-    f32 train weights."""
-    B, T, steps = 3, 24, 12
+    f32 train weights, batches that fill, pad and span kernel 4b's 8-row
+    clusters."""
+    T, steps = 24, 12
     pick = {"ones": [1] * steps, "mixed": [1, 0, 0, 1, 1, 0] * 2}[coins]
-    got, want, b_k, b_p, n = _train_case(dev, B, T, steps, pick, wd=wd)
+    got, want, b_k, b_p, n, b_c, _ = _train_case(dev, B, T, steps, pick,
+                                                 wd=wd)
     assert n == (1, 1)
     _teacher_forced_close(got[:3], want[:3])
     for name in tk.RES_NAMES:
         atol = 1e-4 if name == "cum_pre" else 1e-3
         np.testing.assert_allclose(got[3][name].cpu(), want[3][name].cpu(),
                                    atol=atol, rtol=0, err_msg=name)
-    assert set(b_k) == set(b_p)
-    for name, x in b_k.items():
-        y = b_p[name]
-        assert x.shape == y.shape, name
-        err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-6)
-        assert err <= BWD_RTOL, (name, err)
+    _bwd_close(b_k, b_p, b_c)
+
+
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("cs", [8, 16])
+def test_train_bwd_reruns_bit_for_bit(dev, wd, cs):
+    """Kernel 4b's sums go in a fixed order: a rerun gives the same bits,
+    at either cluster size; and either size holds the plain version."""
+    _, _, b_k, b_p, _, b_c, (bargs, kw) = _train_case(
+        dev, 9, 24, 12, [1, 0, 0, 1, 1, 0] * 2, wd=wd)
+    again = [tk.teacher_forced_bwd(*bargs, kernel_weights=kw, cs=cs)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for name in b_k:
+        assert torch.equal(again[0][name], again[1][name]), name
+    replay = again[0] if wd == "bfloat16" else None
+    _bwd_close(again[0], tk.teacher_forced_bwd_plain(*bargs, replay=replay),
+               None if replay is None else tk.teacher_forced_bwd_plain(
+                   *bargs, round_gradients=False, replay=replay))
+
+
+def test_train_bwd_envelope_holds_the_previous_kernel(dev):
+    """Every (T_in, widths) kernel 4b took before its 8-row clusters (one
+    8-CTA cluster a row: U and M multiples of 8, 4U/8 of 8, P and A of 8,
+    and its shared-memory formula within 227 KB) `bwd_supported` still
+    takes, at either cluster size where the widths split 16 ways, at T_in
+    up to 640 and widths up to 4096 (the function says nothing of B: every
+    B runs, in ceil(B/8) clusters)."""
+    cfg = torch_cfg()
+
+    def previous(T, mels, P, U, M, A, KW, FOp, r):
+        Uc, Mc, Tc = U // 8, M // 8, -(-T // 8)
+        floats = (FOp + 5 * T + 3 * A + 2 * KW * A + 4 * Tc * A + Tc * KW
+                  + A + 2 * T + A + Uc + 2 * Mc + 4 * Uc + 2 * Uc + 4 * Uc
+                  + 2 * U + (P + M + U) + 4 * P + mels + 32)
+        return (U % 8 == 0 and M % 8 == 0 and (4 * U // 8) % 8 == 0
+                and P % 8 == 0 and A % 8 == 0 and floats * 4 <= 232448)
+
+    taken = missed = 0
+    for T in (1, 24, 96, 200, 400, 560, 640):
+        for U in (16, 64, 512, 1024, 2048, 4096):
+            for M in (8, 48, 512, 1024, 1536):
+                for P in (8, 256, 1024):
+                    for A in (8, 128, 256):
+                        for KW, mels, r in ((31, 80, 1), (7, 20, 2)):
+                            FOp = -(-(r * mels + r) // 8) * 8
+                            w = (T, mels, P, U, M, A, KW, FOp, r)
+                            if not previous(*w):
+                                continue
+                            taken += 1
+                            missed += not tk.bwd_supported(w, 8)
+                            if U % 32 == 0 and M % 16 == 0:
+                                missed += not tk.bwd_supported(w, 16)
+    assert taken > 1000 and missed == 0, (taken, missed)
 
 
 @pytest.mark.parametrize("route,n_fft", [("fft", 2048), ("dft", 2000)])
