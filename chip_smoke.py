@@ -8,7 +8,8 @@ one NVIDIA GPU (H100).
 Phases, each printing its wall seconds:
 
 1. the device, and its name and power limit as nvidia-smi reports them;
-2. build the five CUDA sources (`csrc/decoder.cu`, `csrc/decoder_bwd.cu`,
+2. build the six CUDA sources (`csrc/decoder.cu`, `csrc/decoder_rows.cu`,
+   `csrc/decoder_bwd.cu`,
    `csrc/sampler.cu`, `csrc/griffin_lim.cu`, `csrc/wavenet_train.cu`) with
    nvcc for sm_90a, in parallel;
 3. load the trained r5 checkpoints (artifacts/e2e_demo_r5/*.msgpack) with
@@ -162,6 +163,11 @@ Phases, each printing its wall seconds:
     SAMPLER_F32_ATOL, bf16 by phase 5's replay gate), each row bit for bit
     the B=8 run's on its window; the Griffin-Lim launches by route on the eval
     and Griffin-Lim serving paths (FFT only at n_fft 2,048);
+23. (p) the serve decode kernel (`csrc/decoder_rows.cu`, one cluster for 8
+    rows) at B=1, 9 and 16 on rows of the serve call: each held against
+    its plain version by phase 5's replay gate and, row for row, bit for
+    bit the B=8 run's; `WaveNetSynthesizer` at R 120, which the sampler
+    kernel refuses, sampling through the plain version on the card;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode and Griffin-Lim route.
 
@@ -438,7 +444,8 @@ def decode_bound_s(dp, cfg, B, T, M, steps_total, row_steps, align,
     of other inputs read once, frames/stops and optionally alignments
     written once) over HBM and its operations (the
     products at the rate of the weights' type: bf16 on the tensor cores,
-    f32 at the f32 rate; the f32 attention at the f32 rate) for the
+    f32 as 3xTF32 or, under emt_attn, at the f32 rate; the f32 attention at
+    the f32 rate) for the
     row-steps this run's data needs (its rows step together: row_steps / B
     steps). Under emt_attn (`emt`, the call's EmtOperands) also the emt
     weights and operands read once, LSTM1's E extra rows and the scorer's
@@ -453,7 +460,10 @@ def decode_bound_s(dp, cfg, B, T, M, steps_total, row_steps, align,
     w_bytes = sum(t.numel() * t.element_size() for t in dp)
     d_bytes = (w_bytes + 4 * B * T * (A + M + 1) + row_steps * 2 * P * 4
                + B * steps_total * (FO + (T if align else 0)) * 4 + in_bytes)
-    mm_rate = F32_FLOPS if dp.l1_wp.element_size() == 4 else BF16_FLOPS
+    # csrc/decoder_rows.cu runs f32 products as 3xTF32 (495 / 3 TFLOP/s),
+    # csrc/decoder.cu's emt mode on the FP32 cores
+    mm_rate = (BF16_FLOPS if dp.l1_wp.element_size() == 2 else
+               F32_FLOPS if emt is not None else TF32_FLOPS / 3)
     mac_bf16 = (mels * P + P * P + (P + M + U) * 4 * U + 2 * U * 4 * U
                 + U * A + (U + M) * FO)
     op_f32 = T * A * (2 * KW + 4) + 2 * T * M + 6 * T + 20 * U
@@ -1692,13 +1702,14 @@ def paper_phase(texts, gt, seed):
     lengths = np.asarray([len(sq) for sq in seqs])
     refs = np.stack([g[:T_REF] for g in gt[:Bp]]).astype(np.float32)
     first = prog._seed
-    dk.launches = wk.launches = 0
+    dk.rows_launches = wk.launches = 0
     torch.cuda.synchronize()
     ts = time.time()
     samples, wav_len, mel, stops, mel_len = prog(ids, lengths, refs, refs)
     torch.cuda.synchronize()
     serve_s = time.time() - ts
-    launches = {"tacotron_decoder": dk.launches, "wavenet_sampler": wk.launches}
+    launches = {"tacotron_decoder": dk.rows_launches,
+                "wavenet_sampler": wk.launches}
     # the decode kernel against its plain version at this preset's shapes
     # (memory width 768, no GST), on the served call's own inputs
     im = prog.intermediates
@@ -2157,13 +2168,13 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     synth32 = TacotronSynthesizer(cfg32, tparams, stats, device="cuda",
                                   seed=1234, keep_intermediates=True)
     assert synth32.dec_kernel.l1_w.dtype == torch.float32
-    dk.launches = 0
+    dk.rows_launches = 0
     sync()
     ts = time.time()
     out32 = synth32.synthesize(texts, refs, refs, max_steps=MAX_STEPS)
     sync()
     eval32_s = time.time() - ts
-    n1 = dk.launches
+    n1 = dk.rows_launches
     im1 = dict(synth32.intermediates)
     print(f"f32 eval: {eval32_s:.3f} s for {B} utterances; route "
           f"{im1['route']}; decode launches {n1}")
@@ -2223,17 +2234,17 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
           f"({bnd1[1]}); {weight_rereads(dp32, -(-run32 // B))}")
     entries.append(dict(
         common, name="tacotron_decoder_f32",
-        source="tacotron2_tpu_torch/csrc/decoder.cu",
+        source="tacotron2_tpu_torch/csrc/decoder_rows.cu",
         replaces="tacotron2_tpu/ops/tacotron_decoder_kernel.py:842",
         launches=n1, max_abs_err=err1, ms=ms1, plain_ms=plain1,
         bound_ms=1e3 * bnd1[0], bound_by=bnd1[1]))
 
     # ---- (2) f32 long inputs: kernel 3 in f32, its first block against
     # the plain block decode
-    dk.launches = 0
+    dk.rows_launches = 0
     out9 = synth32.synthesize(long_texts, refs[:4], refs[:4])
     sync()
-    n3 = dk.launches
+    n3 = dk.rows_launches
     im3 = dict(synth32.intermediates)
     B9, T9, M9 = im3["memory"].shape
     kf = im3["k"]
@@ -2258,7 +2269,7 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
           f"{1e3 * bnd3[0]:.4f} ms ({bnd3[1]}); {weight_rereads(dp32, kf)}")
     entries.append(dict(
         common, name="tacotron_decoder_block_f32",
-        source="tacotron2_tpu_torch/csrc/decoder.cu",
+        source="tacotron2_tpu_torch/csrc/decoder_rows.cu",
         replaces="tacotron2_tpu/ops/tacotron_decoder_kernel.py:321",
         launches=n3, max_abs_err=err3, ms=ms3, plain_ms=plain3,
         bound_ms=1e3 * bnd3[0], bound_by=bnd3[1]))
@@ -2269,10 +2280,10 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     synth_s = TacotronSynthesizer(cfg_s, tparams, stats, device="cuda",
                                   seed=1234, keep_intermediates=True)
     dps, kws = synth_s.dec_params, synth_s.dec_kernel
-    dk.launches = 0
+    dk.rows_launches = 0
     out_s = synth_s.synthesize(texts, refs, refs, max_steps=MAX_STEPS)
     sync()
-    n1s = dk.launches
+    n1s = dk.rows_launches
     ims = dict(synth_s.intermediates)
     assert ims["route"] == "fused" and n1s > 0
     assert all(np.isfinite(x).all() for x in out_s["mels"])
@@ -2296,10 +2307,10 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
                            early_stop_block=K, kernel_weights=kws)
     assert np.array_equal(s_re.cpu().numpy(), out_s["stop_tokens"]), \
         "smoothing decode kernel is not deterministic"
-    dk.launches = 0
+    dk.rows_launches = 0
     out_sl = synth_s.synthesize(long_texts, refs[:4], refs[:4])
     sync()
-    n3s = dk.launches
+    n3s = dk.rows_launches
     iml = dict(synth_s.intermediates)
     assert iml["route"] == "block" and n3s > 0
     assert all(np.isfinite(x).all() for x in out_sl["mels"])
@@ -2339,7 +2350,7 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
             ("tacotron_decoder_block_smoothing", 321, n3s, err3s, ms3s,
              plain3s, bnd3s)):
         entries.append(dict(
-            common, name=name, source="tacotron2_tpu_torch/csrc/decoder.cu",
+            common, name=name, source="tacotron2_tpu_torch/csrc/decoder_rows.cu",
             replaces=f"tacotron2_tpu/ops/tacotron_decoder_kernel.py:{rep}",
             launches=n, max_abs_err=err, ms=ms, plain_ms=pl,
             bound_ms=1e3 * bnd[0], bound_by=bnd[1]))
@@ -2352,12 +2363,12 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
                               device="cuda", seed=1234,
                               vocoder="griffin_lim")
     assert prog32.dec_kernel.l1_w.dtype == torch.float32
-    dk.launches = 0
+    dk.rows_launches = 0
     wavs = prog32.synthesize(texts, refs, refs)
     sync()
     print(f"f32 TextToWavProgram(vocoder=griffin_lim): decode launches "
-          f"{dk.launches}, wav samples {[len(w) for w in wavs]}")
-    assert dk.launches > 0 and all(len(w) and np.isfinite(w).all()
+          f"{dk.rows_launches}, wav samples {[len(w) for w in wavs]}")
+    assert dk.rows_launches > 0 and all(len(w) and np.isfinite(w).all()
                                    for w in wavs)
     train_texts = corpus_texts()[:GTA_BATCH]
     train_mels = [np.load(os.path.join(R5, "corpus", "mels", f"mel-{i}.npy"))
@@ -2535,14 +2546,14 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
               "tacotron.fused_decoder_dtype=float32,"
               "tacotron.fused_train_dtype=float32,tacotron.smoothing=true")
         ckpt = os.path.join(R5, "taco_ckpt.msgpack")
-        dk.launches = 0
+        dk.rows_launches = 0
         map_path = cli.main([
             "--hparams", hp, "synthesize", "--model", "Tacotron", "--mode",
             "eval", "--checkpoint", ckpt, "--ref-mel-emt", ref_path,
             "--text-list", tl, "--output-dir", os.path.join(tmp, "syn")])
         rows_cli = open(map_path, encoding="utf-8").read().splitlines()
-        n_syn = dk.launches
-        dk.launches = 0
+        n_syn = dk.rows_launches
+        dk.rows_launches = 0
         with open(os.path.join(tmp, "short.txt"), "w") as f:
             f.write(texts[1] + "\n")
         cli.main(["--hparams", hp, "serve", "--checkpoint", ckpt,
@@ -2551,7 +2562,7 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
                   os.path.join(tmp, "srv"), "--serve-batch", "1", "--steps",
                   str(MAX_STEPS)])
         served = glob.glob(os.path.join(tmp, "srv", "serve", "*.wav"))
-        n_srv = dk.launches
+        n_srv = dk.rows_launches
         os.symlink(os.path.join(R5, "corpus"), os.path.join(tmp, "corpus"))
         train_txt = os.path.join(tmp, "train.txt")
         hop = a.effective_hop
@@ -3090,6 +3101,89 @@ def routes_phase(cfg, prog, batch, gl_routes, y_k8, y_kb8, W):
     return entry
 
 
+# phase 23: the decode at other batch sizes, on the serve call's rows
+ROWS_SETS = {1: [3], 9: list(range(8)) + [5],
+             16: list(range(8)) + list(range(7, -1, -1))}
+ROWS_STEPS = 32
+# phase 23: WaveNet synthesis at a width the sampler kernel refuses (its
+# 16-wide tiles), frames of each of two ground-truth mels
+R_PLAIN, R_PLAIN_FRAMES = 120, 4
+
+
+def rows_phase(cfg, prog, gt, seed):
+    """Phase 23: kernel 1 (csrc/decoder_rows.cu) at B=1, 9 and 16 (1, 2
+    and 2 clusters of 8 rows; B=9's second cluster holds one row) on rows
+    of the serve call, each held against the plain version by
+    `replay_gate` over its first ROWS_STEPS steps and, row for row, bit for
+    bit the B=8 run's; then `WaveNetSynthesizer` at R=R_PLAIN on the card:
+    the sampler kernel refuses the width, so it samples through the plain
+    version, to finished, finite wavs, with no kernel launch."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.models.tacotron.decoder import WHOLE
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    from tacotron2_tpu_torch.synth.wavenet_synth import WaveNetSynthesizer
+    t0 = phase(23, "(p) the serve decode at B=1, 9 and 16; WaveNet "
+                   f"synthesis at R={R_PLAIN} on the card")
+    im = prog.intermediates
+    T, M = im["memory"].shape[1:]
+    dp, kw = prog.dec_params, prog.dec_kernel
+    dp_u = f32_activations(dp)
+
+    def operands(ix):
+        ix_t = torch.as_tensor(ix, device="cuda")
+        args = (cfg, *(im[k][ix_t].contiguous()
+                       for k in ("keys", "memory", "mask")))
+        drop = im["drop"][ix_t, :ROWS_STEPS].contiguous()
+        return args, dk.init_decoder_state(cfg, len(ix), T, M, "cuda"), drop
+
+    args8, st8, drop8 = operands(list(range(8)))
+    f8 = dk.decode_block(dp, *args8, st8, drop8, casts=WHOLE,
+                         kernel_weights=kw)[0]
+    plan = dk.rows_plan(dk.rows_widths(cfg, M, T), kw.rows.cs, False)
+    print(f"decode plan at T_in={T}: {kw.rows.cs} CTAs a cluster, {plan}")
+    for Bn, ix in ROWS_SETS.items():
+        args, st, drop = operands(ix)
+        dk.rows_launches = dk.launches = 0
+        full = dk.decode_block(dp, *args, st, drop, casts=WHOLE,
+                               kernel_weights=kw)
+        n_launch = dk.rows_launches
+        err = replay_gate(
+            f"decoder at B={Bn} over the first {ROWS_STEPS} steps",
+            lambda s_, d: dk.decode_block(dp, *args, s_, d, casts=WHOLE,
+                                          kernel_weights=kw),
+            lambda s_, d: dk.decode_block_plain(dp, *args, s_, d,
+                                                casts=WHOLE),
+            lambda s_, d: dk.decode_block_plain(dp_u, *args, s_, d),
+            st, drop, full)
+        same = [bool(torch.equal(full[0][i], f8[j]))
+                for i, j in enumerate(ix)]
+        print(f"B={Bn}: {-(-Bn // 8)} clusters, launches {n_launch}, max "
+              f"|kernel - plain| {err:.3e}; rows bit for bit the B=8 "
+              f"run's: {sum(same)} of {Bn}")
+        assert n_launch == 1 and dk.launches == 0 and all(same)
+
+    cfg_w = cfg.with_overrides(f"wavenet.residual_channels={R_PLAIN}")
+    assert wk.sampler_supported(cfg) and not any(
+        wk.sampler_supported(cfg_w, dt)
+        for dt in (torch.float32, torch.bfloat16))
+    ws = WaveNetSynthesizer(cfg_w, random_wavenet_tree(cfg_w, seed),
+                            device="cuda", seed=seed)
+    assert ws.sampler_kernel is None
+    wk.launches = 0
+    ts = time.time()
+    wavs = ws.synthesize([g[:R_PLAIN_FRAMES] for g in gt[:2]])
+    n = R_PLAIN_FRAMES * cfg_w.audio.effective_hop
+    print(f"WaveNetSynthesizer at R={R_PLAIN}: route plain, sampler kernel "
+          f"launches {wk.launches}, wavs {[len(w) for w in wavs]} samples, "
+          f"finite {all(np.isfinite(w).all() for w in wavs)}, "
+          f"{time.time() - ts:.3f} s")
+    assert wk.launches == 0 and all(len(w) == n and np.isfinite(w).all()
+                                    for w in wavs)
+    done(23, t0)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3138,8 +3232,8 @@ def main(argv=None):
 
     # ---- 2. build the kernels, one nvcc each, started together
     t0 = phase(2, "build kernels (nvcc, sm_90a)")
-    paths = build.build(["decoder", "decoder_bwd", "sampler",
-                         "griffin_lim", "wavenet_train"])
+    paths = build.build(["decoder", "decoder_rows", "decoder_bwd",
+                         "sampler", "griffin_lim", "wavenet_train"])
     for name, path in paths.items():
         print(f"built {name}: {os.path.relpath(path, ROOT)}")
         entry = ""
@@ -3184,16 +3278,18 @@ def main(argv=None):
           for i in HELD_ROWS]
     refs = np.stack([m[:T_REF] for m in gt]).astype(np.float32)
 
-    dk.launches = 0
+    dk.rows_launches = dk.launches = 0
     wk.launches = 0
     torch.cuda.synchronize()
     ts = time.time()
     samples, wav_len, mel, stops, mel_len = prog(ids, lengths, refs, refs)
     torch.cuda.synchronize()
     serve_s = time.time() - ts
-    launches = {"tacotron_decoder": dk.launches, "wavenet_sampler": wk.launches}
+    launches = {"tacotron_decoder": dk.rows_launches,
+                "wavenet_sampler": wk.launches}
     print(f"serve: {serve_s:.3f} s for {B} utterances; launches {launches}")
     assert all(n > 0 for n in launches.values()), launches
+    assert dk.launches == 0, "the serve decode left csrc/decoder_rows.cu"
 
     samples, wav_len = samples.cpu().numpy(), wav_len.cpu().numpy()
     mel, mel_len = mel.cpu().numpy(), mel_len.cpu().numpy()
@@ -3330,7 +3426,7 @@ def main(argv=None):
 
     kernels = [
         {"name": "tacotron_decoder", "route": "cuda",
-         "source": "tacotron2_tpu_torch/csrc/decoder.cu",
+         "source": "tacotron2_tpu_torch/csrc/decoder_rows.cu",
          "replaces": "tacotron2_tpu/ops/tacotron_decoder_kernel.py:842",
          "launches": None, "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms,
@@ -3397,7 +3493,7 @@ def main(argv=None):
     synth = TacotronSynthesizer(cfg, tparams, stats, device="cuda",
                                 seed=1234, keep_intermediates=True)
     ref_list = [g[:T_REF] for g in gt]
-    dk.launches = 0
+    dk.rows_launches = 0
     glk.launches = glk.launches_fft = glk.launches_dft = 0
     torch.cuda.synchronize()
     ts = time.time()
@@ -3405,7 +3501,7 @@ def main(argv=None):
     wavs8 = synth.mels_to_wavs(out8["mels"])
     torch.cuda.synchronize()
     eval_s = time.time() - ts
-    eval_launches = {"tacotron_decoder": dk.launches,
+    eval_launches = {"tacotron_decoder": dk.rows_launches,
                      "griffin_lim": glk.launches}
     gl_routes = {"eval": (glk.launches_fft, glk.launches_dft)}
     im8 = synth.intermediates
@@ -3455,13 +3551,13 @@ def main(argv=None):
                 <= 256:
             parts.append(held[(8 * i + len(parts)) % len(held)])
         long_texts.append(" ".join(parts))
-    dk.launches = 0
+    dk.rows_launches = 0
     torch.cuda.synchronize()
     ts = time.time()
     out9 = synth.synthesize(long_texts, ref_list[:4], ref_list[:4])
     torch.cuda.synchronize()
     long_s = time.time() - ts
-    long_launches = dk.launches
+    long_launches = dk.rows_launches
     im9 = synth.intermediates
     B9, T9, M9 = im9["memory"].shape
     kf = im9["k"]
@@ -3587,11 +3683,11 @@ def main(argv=None):
                                steps=MAX_STEPS, t_in=T_IN, t_ref=T_REF,
                                device="cuda", seed=1234,
                                vocoder="griffin_lim")
-    dk.launches = 0
+    dk.rows_launches = 0
     glk.launches = glk.launches_fft = glk.launches_dft = 0
     wavs_gl = prog_gl.synthesize(texts, ref_list, ref_list)
     torch.cuda.synchronize()
-    gl_prog_launches = {"tacotron_decoder": dk.launches,
+    gl_prog_launches = {"tacotron_decoder": dk.rows_launches,
                         "griffin_lim": glk.launches}
     gl_routes["griffin_lim serve"] = (glk.launches_fft, glk.launches_dft)
     q_gl = [wav_quality(w, np.clip(out8["mels"][b], -m, m), gt[b], a)[0]
@@ -3642,7 +3738,7 @@ def main(argv=None):
         eval_launches["tacotron_decoder"]
     kernels[1:1] = [
         {"name": "tacotron_decoder_block", "route": "cuda",
-         "source": "tacotron2_tpu_torch/csrc/decoder.cu",
+         "source": "tacotron2_tpu_torch/csrc/decoder_rows.cu",
          "replaces": "tacotron2_tpu/ops/tacotron_decoder_kernel.py:321",
          "launches": long_launches, "max_abs_err": blk_err,
          "ms": blk_ms, "plain_ms": blk_plain_ms,
@@ -3667,7 +3763,7 @@ def main(argv=None):
             f.write("".join(f"{t}\n" for t in texts))
         ref_path = os.path.join(tmp, "ref.npy")
         np.save(ref_path, ref_list[0])
-        dk.launches = 0
+        dk.rows_launches = 0
         wk.launches = 0
         glk.launches = 0
         torch.cuda.synchronize()
@@ -3683,7 +3779,7 @@ def main(argv=None):
             "--seed", str(seed)])
         torch.cuda.synchronize()
         t2_s = time.time() - ts
-        t2_launches = {"tacotron_decoder": dk.launches,
+        t2_launches = {"tacotron_decoder": dk.rows_launches,
                        "griffin_lim": glk.launches,
                        "wavenet_sampler": wk.launches}
         rows_t2 = open(os.path.join(tmp, "out", "eval", "map.txt"),
@@ -3816,6 +3912,9 @@ def main(argv=None):
     # ---- 22. (o) Griffin-Lim's DFT route; the sampler at B=1, 16, 32
     kernels.append(routes_phase(cfg, prog, batch.astype(np.float32),
                                 gl_routes, *smp8, W))
+
+    # ---- 23. (p) the decode at B=1, 9, 16; the sampler's route by width
+    rows_phase(cfg, prog, gt, seed)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

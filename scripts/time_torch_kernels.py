@@ -26,6 +26,13 @@ r5 EMA weights): the median of 5 runs of each, in bf16 weights and, where
 the copy takes them, f32, with checksums of the outputs (equal checksums
 across roots: the same bits).
 
+    python scripts/time_torch_kernels.py --decode [PORT_ROOT ...]
+
+times the decode alone (kernels 1 and 3 on the serve call's inputs) with
+bf16 and with f32 decode weights: the median of 5 runs of the 480-step
+whole decode, of 320 steps without early stop and of one 256-step block,
+with the frames' checksums.
+
     python scripts/time_torch_kernels.py --bwd [PORT_ROOT ...]
 
 times the Tacotron BPTT backward (kernel 4b) at chip_smoke.py phase 16's
@@ -44,7 +51,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def time_one(root):
+def _serve_inputs(root):
+    """The r5 serving program of `root`'s port and the memory pass of the
+    8 held-out texts: (cfg, the r5 checkpoints, prog, keys, memory, mask,
+    dropout multipliers, a generator)."""
     sys.path.insert(0, root)
     sys.path.insert(1, REPO)
     import numpy as np
@@ -54,8 +64,6 @@ def time_one(root):
     import tacotron2_tpu_torch
     from tacotron2_tpu_torch.convert import load_checkpoints
     from tacotron2_tpu_torch.models.tacotron.decoder import drop_masks
-    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
-    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
     from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
     from tacotron2_tpu_torch.text import text_to_sequence
 
@@ -78,11 +86,73 @@ def time_one(root):
         np.load(os.path.join(cs.R5, "corpus", "mels", f"mel-{i}.npy"))
         [:cs.T_REF] for i in cs.HELD_ROWS]), device=dev)
     g = torch.Generator(dev).manual_seed(0)
-    W, K = cs.SAMPLER_WINDOW, cfg.tacotron.early_stop_block
     with torch.no_grad():
         keys, mem, mask, _, _ = prog.taco.synthesis_memory_ext(
             torch.as_tensor(ids, device=dev), lens, refs, refs)
-        drop = drop_masks(cfg, B, cs.MAX_STEPS, g, dev)
+    drop = drop_masks(cfg, B, cs.MAX_STEPS, g, dev)
+    prog.serve_inputs = (ids, lens.cpu().numpy(), refs.cpu().numpy())
+    return cfg, (tp, st, wp), prog, keys, mem, mask, drop, g
+
+
+def time_decode(root):
+    """The decode alone (kernels 1 and 3), bf16 and f32 decode weights:
+    the 480-step whole decode (early stop per 64-step block), 320 steps
+    without early stop and one 256-step block from the zero state, with
+    the frames' checksums; and the median of 3 serve calls (the program's
+    bf16 sampler), host clock around a synchronised call."""
+    cfg, (tp, _, _), prog, keys, mem, mask, drop, _ = _serve_inputs(root)
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    B, T, M = mem.shape
+    K = cfg.tacotron.early_stop_block
+    out = {"root": root}
+    with torch.no_grad():
+        for wd in ("bfloat16", "float32"):
+            cfg_w = cfg.with_overrides(f"tacotron.fused_decoder_dtype={wd}")
+            dp = dk.extract_decoder_params(tp, cfg_w, device="cuda")
+            kw = dk.pack_weights(dp)
+            st0 = dk.init_decoder_state(cfg_w, B, T, M, "cuda")
+            runs = {
+                "": lambda: dk.decode(dp, cfg_w, keys, mem, mask, drop,
+                                      steps=cs.MAX_STEPS, early_stop_block=K,
+                                      emit_alignments=False,
+                                      kernel_weights=kw),
+                "_320_steps_no_early_stop": lambda: dk.decode(
+                    dp, cfg_w, keys, mem, mask, drop[:, :320].contiguous(),
+                    steps=320, early_stop_block=0, emit_alignments=False,
+                    kernel_weights=kw),
+                "_block_256_steps": lambda: dk.decode_block(
+                    dp, cfg_w, keys, mem, mask, st0,
+                    drop[:, :256].contiguous(), kernel_weights=kw)}
+            for name, fn in runs.items():
+                out[f"decoder_{wd}{name}_sum"] = float(fn()[0].sum())
+                out[f"decoder_{wd}{name}_ms"] = cs.cuda_ms(fn, 5)
+    serve = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        prog(*prog.serve_inputs, prog.serve_inputs[2])
+        torch.cuda.synchronize()
+        serve.append(time.time() - t0)
+    out["serve_s"] = float(np.median(serve[1:]))   # the first warms up
+    print(json.dumps(out), flush=True)
+
+
+def time_one(root):
+    cfg, _, prog, keys, mem, mask, drop, g = _serve_inputs(root)
+    import torch
+
+    import chip_smoke as cs
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    B, dev = len(cs.HELD_ROWS), "cuda"
+    W, K = cs.SAMPLER_WINDOW, cfg.tacotron.early_stop_block
+    with torch.no_grad():
         dec = lambda: dk.decode(prog.dec_params, cfg, keys, mem, mask, drop,
                                 steps=cs.MAX_STEPS, early_stop_block=K,
                                 kernel_weights=prog.dec_kernel)
@@ -291,12 +361,12 @@ def time_bwd(root):
 
 def main(argv):
     modes = {"--one": time_one, "--one-stack": time_stack,
-             "--one-bwd": time_bwd}
+             "--one-bwd": time_bwd, "--one-decode": time_decode}
     if len(argv) == 2 and argv[0] in modes:
         modes[argv[0]](os.path.abspath(argv[1]))
         return 0
     mode = "--one"
-    if argv[:1] in (["--stack"], ["--bwd"]):
+    if argv[:1] in (["--stack"], ["--bwd"], ["--decode"]):
         mode, argv = f"--one-{argv[0][2:]}", argv[1:]
     for root in argv or [REPO]:
         subprocess.run([sys.executable, os.path.abspath(__file__), mode,

@@ -1,6 +1,7 @@
 // Shared device helpers for the port's CUDA kernels (decoder.cu and the
 // sampler's head in sampler.cu; the 3xTF32 split of griffin_lim.cu,
-// wavenet_train.cu and sampler.cu).
+// wavenet_train.cu and sampler.cu; the weight stream of decoder_bwd.cu and
+// decoder_rows.cu).
 //
 // The decoder is a latency-bound loop of matrix-vector products: each
 // batch row walks every decode step inside one cluster, with its state in
@@ -185,6 +186,100 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah,
 #pragma unroll
   for (int e = 0; e < 4; ++e) d[e] += part[e];
 }
+
+// ------------------------------------------------------ weight streams
+//
+// The cluster kernels that share each weight tile between 8 rows
+// (decoder_bwd.cu, decoder_rows.cu) take their weights as a stream of mma
+// A-fragment tiles (512 bytes a 16-row tile, 16 bytes a lane; a product's
+// m-tiles in groups of kStreamWarps, one a warp; kStreamKC k-tiles a warp
+// in each kChunk-byte chunk), and multiply them by the 8 rows in k-steps
+// (`Step`).
+constexpr int kStreamWarps = 16;
+constexpr int kStreamKC = 4;
+constexpr int kTile = 512;
+constexpr int kChunk = kStreamWarps * kStreamKC * kTile;
+
+// (not volatile: no side effects, so independent k-steps may interleave)
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k-step of a warp: `load` takes the lane's A fragment (16 × KS) and
+// brings B = rows n of G (pitch gp), columns k0 .. k0 + KS, into registers;
+// `run` gives their product in d, from zero.
+template <typename W>
+struct Step;
+
+template <>
+struct Step<__nv_bfloat16> {
+  static constexpr int KS = 16;
+  struct Frag {
+    uint32_t a[4], b[2];
+  };
+  __device__ __forceinline__ static void load(Frag& f, const uint4& v,
+                                              const __nv_bfloat16* G, int gp,
+                                              int k0, int g, int t) {
+    f.a[0] = v.x;
+    f.a[1] = v.y;
+    f.a[2] = v.z;
+    f.a[3] = v.w;
+    const __nv_bfloat16* p = G + g * gp + k0 + 2 * t;
+    f.b[0] = *reinterpret_cast<const uint32_t*>(p);
+    f.b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+  }
+  __device__ __forceinline__ static void run(float* d, const Frag& f) {
+    d[0] = d[1] = d[2] = d[3] = 0.f;
+    mma_bf16_16816(d, f.a, f.b);
+  }
+};
+
+template <>
+struct Step<float> {
+  static constexpr int KS = 8;
+  struct Frag {
+    uint4 a;
+    float b[2];
+  };
+  __device__ __forceinline__ static void load(Frag& f, const uint4& v,
+                                              const float* G, int gp, int k0,
+                                              int g, int t) {
+    f.a = v;
+    const float* p = G + g * gp + k0 + t;
+    f.b[0] = p[0];
+    f.b[1] = p[4];
+  }
+  // three TF32 products, each from zero, added in f32: (lo·hi + hi·lo) +
+  // hi·hi
+  __device__ __forceinline__ static void run(float* d, const Frag& f) {
+    uint32_t bh[2], bl[2], ah[4], al[4];
+    split_tf32(f.b[0], bh[0], bl[0]);
+    split_tf32(f.b[1], bh[1], bl[1]);
+    split_tf32(__uint_as_float(f.a.x), ah[0], al[0]);
+    split_tf32(__uint_as_float(f.a.y), ah[1], al[1]);
+    split_tf32(__uint_as_float(f.a.z), ah[2], al[2]);
+    split_tf32(__uint_as_float(f.a.w), ah[3], al[3]);
+    float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
+    d[0] = d[1] = d[2] = d[3] = 0.f;
+    mma_tf32_1688(p1, al, bh);
+    mma_tf32_1688(p2, ah, bl);
+    mma_tf32_1688(d, ah, bh);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += p1[e] + p2[e];
+  }
+};
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));

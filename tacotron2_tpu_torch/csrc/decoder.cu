@@ -1,13 +1,15 @@
-// Tacotron decode, autoregressive (a block of steps from explicit state) or
-// teacher-forced, one thread-block cluster per row.
+// Tacotron decode, autoregressive under emt_attn (a block of steps from
+// explicit state) or teacher-forced, one thread-block cluster per row.
 //
-// Replaces three TPU kernels: of tacotron2_tpu/ops/tacotron_decoder_kernel.py
-// `build_decoder_kernel` (the whole decode, pallas_call at :1105) and
+// Replaces, of tacotron2_tpu/ops/tacotron_decoder_kernel.py,
 // `build_decoder_block_kernel` (K steps from carried state, pallas_call at
-// :700), with its in-kernel emt_attn scorers (:508-553, below); and of
+// :700) with its in-kernel emt_attn scorers (:508-553, below); and of
 // tacotron2_tpu/ops/tacotron_train_kernel.py `build_train_fwd` (pallas_call
 // at :325) in its eval mode (train_zoneout=False) and its train mode,
-// below. Its backward is csrc/decoder_bwd.cu.
+// below. Its backward is csrc/decoder_bwd.cu. The autoregressive decode
+// without emt_attn (`build_decoder_kernel`, :1105, and the block kernel
+// without the scorers) is csrc/decoder_rows.cu, one cluster for 8 rows;
+// the autoregressive mode here is launched with emt_attn only.
 // Semantics of the autoregressive mode are those of
 // Decoder.autoregressive with the stop sigmoid on, as the plain version
 // `tacotron2_tpu_torch/models/tacotron/decoder.py:decode_block` states
@@ -82,9 +84,9 @@
 // gate columns of z1 and z2 in their natural (i, j, f, o) x U order, its
 // own units of c1, h1, c2, h2 and its own context columns.
 //
-// emt_attn mode (`decoder_kernel<W, false, true>`). Six instantiations are
-// launched: autoregressive x {bf16, f32} x {without, with emt_attn} and
-// teacher-forced x {bf16, f32}. The Tacotron_emt_attn variant attends,
+// emt_attn mode (`decoder_kernel<W, false, true>`). Four instantiations are
+// launched: autoregressive with emt_attn x {bf16, f32} and teacher-forced x
+// {bf16, f32}. The Tacotron_emt_attn variant attends,
 // besides the text, over the emotion reference's sequence: Te positions of
 // V values (the emt memory, Te = ceil(T_ref / 64), 16 at a 1,000-frame
 // reference). LSTM1 takes [hpre | ctx | ctx_emt | h1] (E more rows of its
@@ -799,7 +801,8 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
         !a.eout_w != !a.eout_b || a.Te < 1 || a.NH < 1 || a.NH > MAXH ||
         a.A2 % 8 || a.E % 8 || (!a.eout_w && (a.NH != 1 || a.EV != a.E)))
       return (int)cudaErrorInvalidValue;
-  } else if (emt_ptrs) {
+  } else if (emt_ptrs || !a.teacher_forced) {
+    // the autoregressive decode without emt_attn is csrc/decoder_rows.cu
     return (int)cudaErrorInvalidValue;
   }
   using bf16 = __nv_bfloat16;
@@ -807,10 +810,8 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
       a.teacher_forced
           ? (f32w ? decoder_kernel<float, true, false>
                   : decoder_kernel<bf16, true, false>)
-          : a.E ? (f32w ? decoder_kernel<float, false, true>
-                        : decoder_kernel<bf16, false, true>)
-                : (f32w ? decoder_kernel<float, false, false>
-                        : decoder_kernel<bf16, false, false>);
+          : (f32w ? decoder_kernel<float, false, true>
+                  : decoder_kernel<bf16, false, true>);
   const size_t smem =
       taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp,
                               a.E, a.Te, a.A2, a.EV, a.NH);

@@ -352,84 +352,7 @@ __device__ __forceinline__ void sync_compute() {
 
 // ------------------------------------------------------------- products
 
-// (not volatile: no side effects, so independent k-steps may interleave)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k-step of a warp: `load` takes the lane's A fragment (16 × KS) and
-// brings B = rows n of G (pitch gp), columns k0 .. k0 + KS, into registers;
-// `run` gives their product in d, from zero.
-template <typename W>
-struct Step;
-
-template <>
-struct Step<bf16> {
-  struct Frag {
-    uint32_t a[4], b[2];
-  };
-  __device__ __forceinline__ static void load(Frag& f, const uint4& v,
-                                              const bf16* G, int gp, int k0,
-                                              int g, int t) {
-    f.a[0] = v.x;
-    f.a[1] = v.y;
-    f.a[2] = v.z;
-    f.a[3] = v.w;
-    const bf16* p = G + g * gp + k0 + 2 * t;
-    f.b[0] = *reinterpret_cast<const uint32_t*>(p);
-    f.b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-  }
-  __device__ __forceinline__ static void run(float* d, const Frag& f) {
-    d[0] = d[1] = d[2] = d[3] = 0.f;
-    mma_bf16(d, f.a, f.b);
-  }
-};
-
-template <>
-struct Step<float> {
-  struct Frag {
-    uint4 a;
-    float b[2];
-  };
-  __device__ __forceinline__ static void load(Frag& f, const uint4& v,
-                                              const float* G, int gp, int k0,
-                                              int g, int t) {
-    f.a = v;
-    const float* p = G + g * gp + k0 + t;
-    f.b[0] = p[0];
-    f.b[1] = p[4];
-  }
-  // three TF32 products, each from zero, added in f32: (lo·hi + hi·lo) +
-  // hi·hi
-  __device__ __forceinline__ static void run(float* d, const Frag& f) {
-    uint32_t bh[2], bl[2], ah[4], al[4];
-    taco::split_tf32(f.b[0], bh[0], bl[0]);
-    taco::split_tf32(f.b[1], bh[1], bl[1]);
-    taco::split_tf32(__uint_as_float(f.a.x), ah[0], al[0]);
-    taco::split_tf32(__uint_as_float(f.a.y), ah[1], al[1]);
-    taco::split_tf32(__uint_as_float(f.a.z), ah[2], al[2]);
-    taco::split_tf32(__uint_as_float(f.a.w), ah[3], al[3]);
-    float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
-    d[0] = d[1] = d[2] = d[3] = 0.f;
-    mma_tf32(p1, al, bh);
-    mma_tf32(p2, ah, bl);
-    mma_tf32(d, ah, bh);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] += p1[e] + p2[e];
-  }
-};
+using taco::Step;  // one k-step of a warp (common.cuh)
 
 // out[n * ldo + m] = sum_k A[m][k] · G[n][k] for m < rows, n < RB: the
 // product's ng groups of 16 m-tiles (warp w takes m-tile 16·group + w),

@@ -74,9 +74,17 @@ class WaveNet(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         wn = cfg.wavenet
-        assert wn.cin_channels > 0 and wn.upsample_type == "SubPixel", \
-            "the port covers the SubPixel-conditioned vocoder"
-        assert wn.gin_channels <= 0, "global conditioning is not ported"
+        if wn.upsample_type != "SubPixel":
+            raise ValueError("the port covers the SubPixel-conditioned "
+                             "vocoder, not wavenet.upsample_type="
+                             f"{wn.upsample_type!r}")
+        if wn.cin_channels <= 0:
+            raise ValueError("the port covers the locally conditioned "
+                             "vocoder, not wavenet.cin_channels="
+                             f"{wn.cin_channels}")
+        if wn.gin_channels > 0:
+            raise ValueError("global conditioning (wavenet.gin_channels="
+                             f"{wn.gin_channels}) is not ported")
         self.cfg = cfg
         wnorm = wn.weight_normalization
         R, G, S = wn.residual_channels, wn.gate_channels, wn.skip_out_channels

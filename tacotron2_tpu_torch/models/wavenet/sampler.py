@@ -57,8 +57,13 @@ class SamplerParams(NamedTuple):
 def _check_family(cfg: Config):
     wn = cfg.wavenet
     head_kind(cfg)                       # raises for a config without one
-    assert wn.kernel_size == 3 and wn.gin_channels <= 0 and \
-        wn.cin_channels > 0, "kw=3, local conditioning only"
+    if wn.kernel_size != 3:
+        raise ValueError("the sampler takes wavenet.kernel_size=3, not "
+                         f"{wn.kernel_size}")
+    if wn.gin_channels > 0 or wn.cin_channels <= 0:
+        raise ValueError("the sampler takes local conditioning only "
+                         f"(wavenet.cin_channels={wn.cin_channels}, "
+                         f"gin_channels={wn.gin_channels})")
 
 
 def extract_sampler_params(params, cfg: Config, device="cuda"

@@ -7,12 +7,16 @@ emt_attn attention);
 state; `decode_block` is `build_decoder_block_kernel` (:321), K steps from
 explicit state; `decode` is `build_decoder_kernel` (:842), the whole decode
 with the batch-wide early stop, run as a chain of block launches. Both go
-through `csrc/decoder.cu` for CUDA tensors and through the plain versions
+through `csrc/decoder_rows.cu` (one cluster for 8 rows, each weight tile
+read once a step for all of them) for CUDA tensors, under emt_attn through
+`csrc/decoder.cu`'s emt mode, and through the plain versions
 (`models/tacotron/decoder.py:decode_block`, `autoregressive`) for CPU
-tensors. The kernel takes its weights in its own per-CTA layout, which
-`pack_weights` builds once per set of weights (at load time, not per
-call). The kernel's design and its bound are in the note at the top of
-`csrc/decoder.cu`.
+tensors. The kernels take their weights in their own per-CTA layouts,
+which `pack_weights` builds once per set of weights (at load time, not per
+call): `rows_stream` the stream of mma tiles of `decoder_rows.cu`, the
+rest `decoder.cu`'s operands, which the teacher-forced kernels of
+`ops/tacotron_train_kernel.py` share. Each kernel's design and its bound
+are in the note at the top of its source.
 
 Under `gst.emt_attn` the decode also runs the emt attention of the TPU
 block kernel (:508-553) — the `simple` and `multihead` scorers — and
@@ -60,14 +64,23 @@ from ..models.tacotron.decoder import (BLOCK, BLOCK_EMT, TEACHER_FORCED,
                                       ref_rows, round_bf16)
 from ..models.tacotron.decoder import decode_block as decode_block_plain
 
-# kernel launches made by `decode` and `decode_block` (the count a run
-# reads to show that its main path went through the CUDA kernel)
+# kernel launches made by `decode` and `decode_block` (the counts a run
+# reads to show that its main path went through the CUDA kernels):
+# csrc/decoder_rows.cu, and csrc/decoder.cu's emt mode under emt_attn
+rows_launches = 0
 launches = 0
 
 _SMEM_LIMIT = 232448
 # CTAs per row: `CS` in csrc/decoder.cu (checked at launch)
 CLUSTER_SIZE = 8
 _argtypes_set = False
+_rows_argtypes_set = False
+# rows of a cluster of csrc/decoder_rows.cu (`RB`, checked at launch)
+ROWS = 8
+# the weight streams of csrc/decoder_rows.cu and decoder_bwd.cu (common.cuh):
+# a product's m-tiles go in groups of STREAM_NW (the compute warps, one
+# each), STREAM_KC k-tiles a warp in each 32 KB chunk
+STREAM_NW, STREAM_KC = 16, 4
 
 
 def decode_weight_dtype(cfg: Config) -> torch.dtype:
@@ -212,6 +225,23 @@ class KernelWeights(NamedTuple):
     emt_out_w: torch.Tensor = None
     emt_out_b: torch.Tensor = None
     E: int = 0
+    # the autoregressive decode without emt_attn: csrc/decoder_rows.cu's
+    # operands (`pack_rows`), or None
+    rows: "RowsWeights" = None
+
+
+class RowsWeights(NamedTuple):
+    """csrc/decoder_rows.cu's weight operands for a cluster of `cs` CTAs
+    (built once by `pack_rows`): the stream of mma tiles in the decode
+    weight dtype (`rows_stream`) and the f32 biases."""
+
+    stream: torch.Tensor   # bytes: [cs, own] then the shared prenet chunks
+    pre_b0: torch.Tensor   # [P]
+    pre_b1: torch.Tensor   # [P]
+    l1_b: torch.Tensor     # [cs, 4U/cs] (forget bias folded)
+    l2_b: torch.Tensor     # [cs, 4U/cs]
+    proj_b: torch.Tensor   # [r*mels + r]
+    cs: int
 
 
 def decode_plain(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
@@ -303,13 +333,84 @@ def split_gates(w, cs: int):
     return w.reshape(cs, *lead, 4 * (U // cs)).contiguous()
 
 
+def stream_tiles(w, ks: int):
+    """w [cs, rows, K] -> [cs, bytes]: mma A fragments of 16 × ks tiles,
+    m-tiles in groups of STREAM_NW (one a warp), STREAM_KC k-tiles a warp in
+    each chunk, in the order common.cuh's `product` takes them (group,
+    chunk, warp, k-tile, lane, fragment); rows and k zero-padded."""
+    cs, rows, K = w.shape
+    nw, kc = STREAM_NW, STREAM_KC
+    ng = -(-(-(-rows // 16)) // nw)
+    kp = -(-K // (ks * kc)) * ks * kc
+    wp = w.new_zeros(cs, ng * nw * 16, kp)
+    wp[:, :rows, :K] = w
+    nck = kp // (ks * kc)
+    if ks == 16:   # bf16 m16n8k16: lane (g, t) holds rows g, g+8 by k pairs
+        t = wp.reshape(cs, ng, nw, 2, 8, nck, kc, 2, 4, 2)
+        t = t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3, 9)
+    else:          # tf32 m16n8k8: lane (g, t) holds rows g, g+8, k t, t+4
+        t = wp.reshape(cs, ng, nw, 2, 8, nck, kc, 2, 4)
+        t = t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3)
+    return t.contiguous().reshape(cs, -1).view(torch.uint8)
+
+
+def rows_cluster_size(U: int, M: int) -> int:
+    """csrc/decoder_rows.cu's cluster: 16 CTAs (each SM streams half the
+    weight bytes of 8) where the units and the context columns split 16
+    ways, else 8 (its `supported` decides at launch)."""
+    return 16 if U % 16 == 0 and M % 16 == 0 else 8
+
+
+def rows_stream(dp: DecoderParams, cs: int):
+    """csrc/decoder_rows.cu's weight stream, bytes: for each CTA c its own
+    tiles (A = the transposed weights, k over the inputs) of its gate
+    columns of [l1_wp; l1_wc; l1_wh] and of [l2_wx; l2_wh] (`split_gates`
+    for cs CTAs, laid out unit by unit: (i, j, f, o) of each unit), of the
+    query weight's rows of its units and of the projection's rows of its
+    units and context columns; then, once for every CTA, pre_w0 and pre_w1
+    (the kernel's products, in the order it takes them), in the weight
+    dtype."""
+    U, M = dp.l1_wh.shape[0], dp.l1_wc.shape[0]
+    Uc, Mc = U // cs, M // cs
+    ks = 16 if dp.l1_wp.dtype == torch.bfloat16 else 8
+
+    def gates(w):
+        g = split_gates(w, cs)                      # [cs, K, (gate, unit)]
+        K = g.shape[1]
+        g = g.reshape(cs, K, 4, Uc).transpose(2, 3).reshape(cs, K, 4 * Uc)
+        return g.transpose(1, 2)
+    proj = torch.cat([dp.proj_wo, dp.proj_wc], 0)
+    proj = torch.cat([proj[:U].reshape(cs, Uc, -1),
+                      proj[U:].reshape(cs, Mc, -1)], 1)
+    own = [gates(torch.cat([dp.l1_wp, dp.l1_wc, dp.l1_wh], 0)),
+           gates(torch.cat([dp.l2_wx, dp.l2_wh], 0)),
+           dp.wq.reshape(cs, Uc, -1).transpose(1, 2), proj.transpose(1, 2)]
+    shared = [stream_tiles(w.t()[None], ks)[0] for w in (dp.pre_w0,
+                                                          dp.pre_w1)]
+    return torch.cat([torch.cat([stream_tiles(w, ks) for w in own],
+                                1).reshape(-1), *shared])
+
+
+def pack_rows(dp: DecoderParams) -> RowsWeights:
+    """DecoderParams -> csrc/decoder_rows.cu's operands at its cluster
+    size for these widths."""
+    cs = rows_cluster_size(dp.l1_wh.shape[0], dp.l1_wc.shape[0])
+    c = lambda x: x.float().contiguous()
+    return RowsWeights(rows_stream(dp, cs), c(dp.pre_b0), c(dp.pre_b1),
+                       split_gates(dp.l1_b.float(), cs),
+                       split_gates(dp.l2_b.float(), cs), c(dp.proj_b), cs)
+
+
 def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
-                 emt: EmtParams | None = None) -> KernelWeights:
-    """DecoderParams (and under emt_attn its EmtParams) -> the kernel's
+                 emt: EmtParams | None = None,
+                 autoregressive: bool = True) -> KernelWeights:
+    """DecoderParams (and under emt_attn its EmtParams) -> the kernels'
     operands: stacked LSTM kernels split into per-CTA gate columns (LSTM1's
     rows [prenet | context | context_emt | hidden]), the projection padded
     to a multiple of 8 columns, the folded location taps and attention
-    bias, and the emt attention's query weight and output Dense."""
+    bias, and the emt attention's query weight and output Dense; without
+    emt_attn, unless `autoregressive` is False (the teacher-forced kernels'
+    callers), also csrc/decoder_rows.cu's stream (`pack_rows`)."""
     fo = dp.proj_b.shape[0]
     fop = -(-fo // 8) * 8
     proj_w = torch.cat([dp.proj_wo, dp.proj_wc], 0)
@@ -335,7 +436,8 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
         wq=c(dp.wq), wp=c(wp), b_eff=c(b_eff), v_a=c(dp.v_a),
         proj_w=c(torch.nn.functional.pad(proj_w, (0, fop - fo))),
         proj_b=c(torch.nn.functional.pad(dp.proj_b, (0, fop - fo))),
-        fop=fop, cs=cs, **emt_kw)
+        fop=fop, cs=cs, **emt_kw,
+        rows=pack_rows(dp) if emt is None and autoregressive else None)
 
 
 class Launch(NamedTuple):
@@ -412,14 +514,13 @@ def weight_type(kw: KernelWeights, dev) -> torch.dtype:
     return wd
 
 
-def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
-                   teacher_forced: bool = False,
-                   emt: EmtOperands | None = None,
-                   casts: Casts = WHOLE) -> Launch:
-    """Check the operands against the kernel's envelope and lay them out;
-    the teacher-forced mode runs without the window constraint, without
-    emt_attn and without smoothing, and rounds neither the keys nor v_a
-    (`casts` is the autoregressive route's)."""
+def _launch_operands(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
+                     teacher_forced: bool, emt: EmtOperands | None,
+                     casts: Casts):
+    """What every launch of a decode kernel shares, checked and laid out
+    before any library is loaded: (bf16 weights?, keys + folded bias,
+    memory, mask, taps, v_a, each rounded where the route rounds it with
+    bf16 weights; the launch's ints; the emt operands)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     B, T, M = memory.shape
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
@@ -439,20 +540,6 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
     casts = TEACHER_FORCED if teacher_forced else casts
     rc = lambda on, x: rnd(x) if on else x
     emt_ops, emt_ints = _emt_launch_operands(kw, emt, B, U, dev, rnd)
-    lib = _lib()
-    cs = lib.taco_decoder_cluster_size()
-    if kw.cs != cs:
-        raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
-                         f"the kernel runs {cs}")
-    lanes = 8 if bf16 else 4                 # weights a 16-byte load holds
-    if U % (2 * cs) or M % cs or (4 * U // cs) // lanes > 512 or A % 8 \
-            or P % 8:
-        raise ValueError("widths outside the kernel's envelope")
-    smem = lib.taco_decoder_smem_bytes(
-        T, mels, P, U, M, A, KW, kw.fop, *(emt_ints[k] for k in _EMT_INTS))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"decode kernel needs {smem} B of shared memory "
-                         f"at T_in={T}")
     win = int(tc.attention_win_size)
     monotonic = tc.synthesis_constraint_type == "monotonic"
     ints = dict(B=B, T=T, mels=mels, P=P, U=U, M=M, A=A, KW=KW,
@@ -465,12 +552,43 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
                 teacher_forced=int(teacher_forced),
                 f32_weights=int(not bf16), smoothing=int(bool(tc.smoothing)),
                 tanh_bf16=int(bf16 and casts.tanh), **emt_ints)
-    return Launch(lib, kw,
-                  rc(casts.keys, keys.float() + kw.b_eff).contiguous(),
-                  rnd(memory).contiguous(),
-                  mask.to(device=dev, dtype=torch.float32).contiguous(),
-                  rnd(kw.wp).contiguous(), rc(casts.v_a, kw.v_a).contiguous(),
-                  ints, emt_ops)
+    return (bf16, rc(casts.keys, keys.float() + kw.b_eff).contiguous(),
+            rnd(memory).contiguous(),
+            mask.to(device=dev, dtype=torch.float32).contiguous(),
+            rnd(kw.wp).contiguous(), rc(casts.v_a, kw.v_a).contiguous(),
+            ints, emt_ops)
+
+
+def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
+                   teacher_forced: bool = False,
+                   emt: EmtOperands | None = None,
+                   casts: Casts = WHOLE) -> Launch:
+    """Check the operands against csrc/decoder.cu's envelope and lay them
+    out; the teacher-forced mode runs without the window constraint,
+    without emt_attn and without smoothing, and rounds neither the keys
+    nor v_a (`casts` is the autoregressive route's)."""
+    tc, mels = cfg.tacotron, cfg.audio.num_mels
+    B, T, M = memory.shape
+    U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
+    A, KW = kw.wq.shape[1], kw.wp.shape[0]
+    bf16, keys, memory, mask, wp, v_a, ints, emt_ops = _launch_operands(
+        kw, cfg, keys, memory, mask, teacher_forced=teacher_forced, emt=emt,
+        casts=casts)
+    lib = _lib()
+    cs = lib.taco_decoder_cluster_size()
+    if kw.cs != cs:
+        raise ValueError(f"kernel_weights are laid out for {kw.cs} CTAs, "
+                         f"the kernel runs {cs}")
+    lanes = 8 if bf16 else 4                 # weights a 16-byte load holds
+    if U % (2 * cs) or M % cs or (4 * U // cs) // lanes > 512 or A % 8 \
+            or P % 8:
+        raise ValueError("widths outside the kernel's envelope")
+    smem = lib.taco_decoder_smem_bytes(
+        T, mels, P, U, M, A, KW, kw.fop, *(ints[k] for k in _EMT_INTS))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"decode kernel needs {smem} B of shared memory "
+                         f"at T_in={T}")
+    return Launch(lib, kw, keys, memory, mask, wp, v_a, ints, emt_ops)
 
 
 _EMT_INTS = ("E", "Te", "A2", "EV", "NH")
@@ -554,6 +672,150 @@ def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
     check(rc, "taco_decoder_launch")
 
 
+# ------------------------------------------------ csrc/decoder_rows.cu
+
+
+class RowsLaunch(NamedTuple):
+    """What every launch of one decode through csrc/decoder_rows.cu shares
+    (`prepare_rows`)."""
+
+    lib: ctypes.CDLL
+    rw: RowsWeights
+    keys: torch.Tensor    # keys + folded attention bias, f32
+    memory: torch.Tensor  # in the weight dtype
+    mask: torch.Tensor    # f32 1/0
+    wp: torch.Tensor      # folded location taps
+    v_a: torch.Tensor
+    ints: dict
+    scratch: int          # bytes of global scratch a cluster
+
+
+_ROWS_INTS = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M",
+              "A", "KW", "r", "constraint", "win_back", "win_fwd",
+              "stop_at_any", "f32_weights", "smoothing", "tanh_bf16", "cs")
+
+
+def _rows_lib():
+    from ..native import build
+    global _rows_argtypes_set
+    lib = build.load("decoder_rows")
+    if not _rows_argtypes_set:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.taco_rows_launch.argtypes = [vp, ci, vp, ci, ctypes.c_float, vp]
+        lib.taco_rows_launch.restype = ci
+        lib.taco_rows_supported.argtypes = [ci] * 9
+        lib.taco_rows_supported.restype = ci
+        lib.taco_rows_plan.argtypes = [ci] * 10 + [vp]
+        lib.taco_rows_plan.restype = ci
+        for fn in ("rows", "n_ptr", "n_int"):
+            getattr(lib, f"taco_rows_{fn}").argtypes = []
+            getattr(lib, f"taco_rows_{fn}").restype = ci
+        _rows_argtypes_set = True
+    return lib
+
+
+def rows_widths(cfg: Config, memory_width: int, T: int):
+    """(T, mels, P, U, M, A, KW, r): csrc/decoder_rows.cu's widths."""
+    tc = cfg.tacotron
+    return (T, cfg.audio.num_mels, tc.prenet_layers[-1],
+            tc.decoder_lstm_units, memory_width, tc.attention_dim,
+            tc.attention_kernel, tc.outputs_per_step)
+
+
+def rows_plan(widths, cs: int, f32: bool) -> dict:
+    """The launch's plan (csrc/decoder_rows.cu `layout`), in bytes: shared
+    memory, a CTA's own weight stream and the shared one (the prenet's),
+    the global scratch of a cluster and what a CTA spills to it; and the
+    buffers that sit in shared memory."""
+    out = (ctypes.c_longlong * 6)()
+    if _rows_lib().taco_rows_plan(*widths, cs, int(f32),
+                                  ctypes.cast(out, ctypes.c_void_p)):
+        raise ValueError(f"widths {widths} outside the decode kernel's "
+                         f"envelope at cluster size {cs}")
+    keys = ("smem", "stream", "shared", "scratch", "spill", "in_smem")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+def prepare_rows(kw: KernelWeights, cfg: Config, keys, memory, mask,
+                 casts: Casts) -> RowsLaunch:
+    """Check a decode's operands against csrc/decoder_rows.cu's envelope
+    (`taco_rows_supported`) and lay them out once for its launches."""
+    if kw.rows is None:
+        raise ValueError("kernel_weights lack the decode's weight stream: "
+                         "pack_weights(dp) packs it (autoregressive=True, "
+                         "no emt_attn)")
+    bf16, keys, memory, mask, wp, v_a, ints, _ = _launch_operands(
+        kw, cfg, keys, memory, mask, teacher_forced=False, emt=None,
+        casts=casts)
+    rw = kw.rows
+    wd = torch.bfloat16 if bf16 else torch.float32
+    if rw.stream.device != memory.device:
+        raise ValueError(f"the decode's weight stream is on "
+                         f"{rw.stream.device}, not {memory.device}")
+    widths = (ints["T"], ints["mels"], ints["P"], ints["U"], ints["M"],
+              ints["A"], ints["KW"], ints["r"])
+    plan = rows_plan(widths, rw.cs, not bf16)
+    if rw.stream.numel() != rw.cs * plan["stream"] + plan["shared"]:
+        raise ValueError("the decode's weight stream does not match these "
+                         "widths")
+    lib = _rows_lib()
+    if lib.taco_rows_rows() != ROWS:
+        raise ValueError("the decode kernel runs another number of rows a "
+                         "cluster")
+    return RowsLaunch(lib, rw, keys, memory.to(wd).contiguous(), mask, wp,
+                      v_a, dict(ints, cs=rw.cs), plan["scratch"])
+
+
+def pack_rows_state(state: DecoderKernelState):
+    """DecoderKernelState -> csrc/decoder_rows.cu's (vector [B, mels + M +
+    4U] = [xprev | ctx | h1 | h2 | c1 | c2], cum [B, T], pmax [B])."""
+    vec = torch.cat([state.xprev, state.ctx, state.h1, state.h2, state.c1,
+                     state.c2], 1)
+    return (vec.float().contiguous(), state.cum.float().contiguous(),
+            state.pmax.to(torch.int32).contiguous())
+
+
+def unpack_rows_state(vec, cum, pmax, mels: int, M: int
+                      ) -> DecoderKernelState:
+    """The inverse of `pack_rows_state`."""
+    U = (vec.shape[1] - mels - M) // 4
+    part = lambda i: vec[:, mels + M + i * U:mels + M + (i + 1) * U]
+    return DecoderKernelState(
+        xprev=vec[:, :mels].contiguous(), c1=part(2).contiguous(),
+        h1=part(0).contiguous(), c2=part(3).contiguous(),
+        h2=part(1).contiguous(), ctx=vec[:, mels:mels + M].contiguous(),
+        cum=cum, pmax=pmax)
+
+
+def rows_launch(L: RowsLaunch, cfg: Config, drop, state_in, state_out, out,
+                align, fired_in, fired_out, *, t0: int, nsteps: int,
+                s_total: int):
+    """One launch of csrc/decoder_rows.cu: steps t0 .. t0+nsteps-1 of
+    arrays laid out for s_total steps; state_in / state_out are
+    `pack_rows_state` triples. Its scratch, like every operand made here,
+    outlives the kernel (see `launch`). The caller counts the launch."""
+    rw, dev = L.rw, L.memory.device
+    B = L.ints["B"]
+    scratch = torch.empty(-(-B // ROWS) * L.scratch, dtype=torch.uint8,
+                          device=dev)
+    nul = ctypes.c_void_p(None)
+    p = lambda x: nul if x is None else ctypes.c_void_p(x.data_ptr())
+    ptrs = [rw.stream, L.keys, L.memory, L.mask, drop, rw.pre_b0, rw.pre_b1,
+            rw.l1_b, rw.l2_b, L.wp, L.v_a, rw.proj_b, *state_in,
+            *state_out, fired_in, fired_out, out, align, scratch]
+    ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
+    lib = L.lib
+    assert len(ptrs) == lib.taco_rows_n_ptr()
+    assert len(_ROWS_INTS) == lib.taco_rows_n_int()
+    rc = lib.taco_rows_launch(
+        (ctypes.c_void_p * len(ptrs))(*[p(x) for x in ptrs]), len(ptrs),
+        (ctypes.c_int * len(_ROWS_INTS))(*[ints[k] for k in _ROWS_INTS]),
+        len(_ROWS_INTS), float(cfg.tacotron.zoneout_rate),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    from ..native.build import check
+    check(rc, "taco_rows_launch")
+
+
 def _check_state(state: DecoderKernelState, B, T, M, U, mels, E, dev):
     want = dict(xprev=(B, mels), c1=(B, U), h1=(B, U), c2=(B, U), h2=(B, U),
                 ctx=(B, M), cum=(B, T), pmax=(B,))
@@ -572,7 +834,7 @@ def _check_state(state: DecoderKernelState, B, T, M, U, mels, E, dev):
 
 def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
                  early_stop_block, emit_alignments, emt):
-    global launches
+    global launches, rows_launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
@@ -580,7 +842,9 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
     dev = memory.device
     if drop.shape != (B, steps, 2, P) or drop.device != dev:
         raise ValueError(f"drop must be [B, steps, 2, P] on {dev}")
-    L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt)
+    rows = emt is None and kw.E == 0
+    L = (prepare_rows(kw, cfg, keys, memory, mask, WHOLE) if rows
+         else prepare_launch(kw, cfg, keys, memory, mask, emt=emt))
     drop = drop.to(torch.float32).contiguous()
     K = int(early_stop_block)
     if K <= 0 or K >= steps:
@@ -591,16 +855,21 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
     out[..., r * mels:] = 1.0
     align = (torch.zeros(B, steps, T, device=dev) if emit_alignments
              else None)
-    state = pack_state(init_decoder_state(cfg, B, T, M, dev), P, kw.cs)
+    state = init_decoder_state(cfg, B, T, M, dev)
+    state = pack_rows_state(state) if rows else pack_state(state, P, kw.cs)
     # row i: the sticky stop flags after launch i and their count at [B]
     starts = range(0, steps, K)
     fired = torch.zeros(len(starts) + 1, B + 1, dtype=torch.int32,
                         device=dev)
     for i, t0 in enumerate(starts):
-        launch(L, cfg, drop, state, state, out, align, fired[i],
-               fired[i + 1], t0=t0, nsteps=min(K, steps - t0),
-               s_total=steps)
-        launches += 1
+        args = (cfg, drop, state, state, out, align, fired[i], fired[i + 1])
+        step = dict(t0=t0, nsteps=min(K, steps - t0), s_total=steps)
+        if rows:
+            rows_launch(L, *args, **step)
+            rows_launches += 1
+        else:
+            launch(L, *args, **step)
+            launches += 1
     frames = out[..., :r * mels].reshape(B, steps * r, mels)
     stops = out[..., r * mels:].reshape(B, steps * r)
     return frames, stops, (align.transpose(1, 2) if emit_alignments
@@ -609,7 +878,7 @@ def _decode_cuda(kw: KernelWeights, cfg, keys, memory, mask, drop, steps,
 
 def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
                        drop, emt, casts: Casts):
-    global launches
+    global launches, rows_launches
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
@@ -619,15 +888,27 @@ def _decode_block_cuda(kw: KernelWeights, cfg, keys, memory, mask, state,
     if drop.shape != (B, K, 2, P) or drop.device != dev or K < 1:
         raise ValueError(f"drop must be [B, K, 2, P] on {dev}")
     _check_state(state, B, T, M, tc.decoder_lstm_units, mels, kw.E, dev)
-    L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt, casts=casts)
-    state_in = pack_state(state, P, kw.cs)
-    state_out = tuple(torch.empty_like(x) for x in state_in)
+    rows = emt is None and kw.E == 0
     FO = r * mels + r
     out = torch.empty(B, K, FO, device=dev)
     align = torch.empty(B, K, T, device=dev)
-    launch(L, cfg, drop.to(torch.float32).contiguous(), state_in, state_out,
-           out, align, None, None, t0=0, nsteps=K, s_total=K)
-    launches += 1
+    drop = drop.to(torch.float32).contiguous()
+    if rows:
+        L = prepare_rows(kw, cfg, keys, memory, mask, casts)
+        state_in = pack_rows_state(state)
+        state_out = tuple(torch.empty_like(x) for x in state_in)
+        rows_launch(L, cfg, drop, state_in, state_out, out, align, None,
+                    None, t0=0, nsteps=K, s_total=K)
+        rows_launches += 1
+        state_out = unpack_rows_state(*state_out, mels, M)
+    else:
+        L = prepare_launch(kw, cfg, keys, memory, mask, emt=emt, casts=casts)
+        state_in = pack_state(state, P, kw.cs)
+        state_out = tuple(torch.empty_like(x) for x in state_in)
+        launch(L, cfg, drop, state_in, state_out, out, align, None, None,
+               t0=0, nsteps=K, s_total=K)
+        launches += 1
+        state_out = unpack_state(*state_out, mels, P, M, kw.cs, kw.E)
     return (out[..., :r * mels].reshape(B, K * r, mels),
             out[..., r * mels:].reshape(B, K * r), align.transpose(1, 2),
-            unpack_state(*state_out, mels, P, M, kw.cs, kw.E))
+            state_out)

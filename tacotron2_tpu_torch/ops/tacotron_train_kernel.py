@@ -271,9 +271,10 @@ def _bwd_lib():
 
 _BWD_INTS = ("B", "T", "S", "mels", "P", "U", "M", "A", "KW", "r", "FOp",
              "f32_weights", "cs")
-# csrc/decoder_bwd.cu's stream: a product's m-tiles go in groups of BWD_NW
-# (its compute warps, one each), BWD_KC k-tiles a warp in each 32 KB chunk
-BWD_NW, BWD_KC = 16, 4
+# csrc/decoder_bwd.cu's stream (`dk.stream_tiles`): a product's m-tiles go
+# in groups of BWD_NW (its compute warps, one each), BWD_KC k-tiles a warp
+# in each 32 KB chunk
+BWD_NW, BWD_KC = dk.STREAM_NW, dk.STREAM_KC
 
 
 def bwd_widths(cfg: Config, kw: dk.KernelWeights, memory_width: int,
@@ -313,27 +314,6 @@ def bwd_plan(widths, cs: int, f32: bool) -> dict:
     return dict(zip(keys, (int(v) for v in out)))
 
 
-def _stream_tiles(w, ks: int):
-    """w [cs, rows, K] -> [cs, bytes]: mma A fragments of 16 × ks tiles,
-    m-tiles in groups of BWD_NW (one a warp), BWD_KC k-tiles a warp in each
-    chunk, in csrc/decoder_bwd.cu's order (group, chunk, warp, k-tile,
-    lane, fragment); rows and k zero-padded."""
-    cs, rows, K = w.shape
-    nw, kc = BWD_NW, BWD_KC
-    ng = -(-(-(-rows // 16)) // nw)
-    kp = -(-K // (ks * kc)) * ks * kc
-    wp = w.new_zeros(cs, ng * nw * 16, kp)
-    wp[:, :rows, :K] = w
-    nck = kp // (ks * kc)
-    if ks == 16:   # bf16 m16n8k16: lane (g, t) holds rows g, g+8 by k pairs
-        t = wp.reshape(cs, ng, nw, 2, 8, nck, kc, 2, 4, 2)
-        t = t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3, 9)
-    else:          # tf32 m16n8k8: lane (g, t) holds rows g, g+8, k t, t+4
-        t = wp.reshape(cs, ng, nw, 2, 8, nck, kc, 2, 4)
-        t = t.permute(0, 1, 5, 2, 6, 4, 8, 7, 3)
-    return t.contiguous().reshape(cs, -1).view(torch.uint8)
-
-
 def bwd_stream(kw: dk.KernelWeights, cs: int):
     """The backward kernel's weight stream, bytes: for each CTA c its own
     tiles of the projection's rows of its units and context columns, the
@@ -358,8 +338,8 @@ def bwd_stream(kw: dk.KernelWeights, cs: int):
     proj = torch.cat([proj[:U].reshape(cs, Uc, -1),
                       proj[U:].reshape(cs, Mc, -1)], 1)
     own = [proj, kw.wq.reshape(cs, Uc, -1), gates(kw.l2_w), gates(kw.l1_w)]
-    shared = [_stream_tiles(w[None], ks) for w in (kw.pre_w1, kw.pre_w0)]
-    return torch.cat([torch.cat([_stream_tiles(w, ks) for w in own],
+    shared = [dk.stream_tiles(w[None], ks) for w in (kw.pre_w1, kw.pre_w0)]
+    return torch.cat([torch.cat([dk.stream_tiles(w, ks) for w in own],
                                 1).reshape(-1), *[t[0] for t in shared]])
 
 
@@ -547,7 +527,8 @@ class FusedTeacherForced(torch.autograd.Function):
                 zmask, *dp):
         time = timer or (lambda name: contextlib.nullcontext())
         dpw = cast_params(DecoderParams(*dp), train_weight_dtype(cfg))
-        kw = dk.pack_weights(dpw) if memory.device.type == "cuda" else None
+        kw = (dk.pack_weights(dpw, autoregressive=False)
+              if memory.device.type == "cuda" else None)
         with time("train forward (kernel 4a)"):
             frames, stops, aligns, res = teacher_forced_train_fwd(
                 dpw, cfg, keys, memory, mask, teacher, coins, drop, zmask,

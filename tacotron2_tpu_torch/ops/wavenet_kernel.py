@@ -278,6 +278,40 @@ def pack_weights(sp: SamplerParams, cfg: Config, cs: int | None = None, *,
         n_out=n_out, cache_dtype=cache_dtype, weight_dtype=weight_dtype)
 
 
+def sampler_supported(cfg: Config, weight_dtype=torch.float32) -> bool:
+    """Whether the kernel takes the config's WaveNet with `weight_dtype`
+    weights: kernel_size 3 without global conditioning, `slice_layout`'s
+    tiles, and csrc/sampler.cu's `taco_sampler_supported` (the one
+    statement of its envelope; it builds the kernel, so only the last
+    check needs nvcc)."""
+    wn = cfg.wavenet
+    if wn.kernel_size != 3 or wn.gin_channels > 0:
+        return False
+    try:
+        slice_layout(cfg, weight_dtype=weight_dtype)
+    except ValueError:
+        return False
+    kind, _ = head_kind(cfg)
+    n_out = wn.out_channels
+    return bool(_lib().taco_sampler_supported(
+        wn.layers, wn.residual_channels, wn.gate_channels,
+        wn.skip_out_channels, wn.cin_channels, n_out + -n_out % 4, n_out,
+        HEADS[kind], int(weight_dtype == torch.bfloat16)))
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def takes_kernel(cfg: Config, device, weight_dtype=torch.float32) -> bool:
+    """The synthesizers' route, chosen by the widths: the kernel on a CUDA
+    device where `sampler_supported`, else `sample_plain` (on the card
+    too), as the JAX synthesizer takes its scan where its kernel is not
+    eligible (tacotron2_tpu/synth/wavenet_synth.py:37-42). Not a fallback:
+    a launch of a kernel that takes the widths still raises if it fails."""
+    return _on_card(device) and sampler_supported(cfg, weight_dtype)
+
+
 def _dtypes(kernel_weights, cache_dtype, weight_dtype):
     kw = kernel_weights
     f32 = torch.float32

@@ -3,8 +3,9 @@
 Port of tacotron2_tpu/synth/pipeline.py `TextToWavProgram` (:47): Tacotron
 memory pass → the CUDA decode kernel → postnet → stop-length recovery and
 silence masking (:194-207) → [0, 1] rescale (:215-220) → SubPixel
-conditioning upsample → the CUDA sampler kernel, on one device with no host
-round trip between the stages. The sampler takes whichever output head the
+conditioning upsample → the CUDA sampler kernel (its plain version on
+the card at widths the kernel does not take, `wavenet_kernel.takes_kernel`),
+on one device with no host round trip between the stages. The sampler takes whichever output head the
 config names (Gaussian, mixture of logistics, categorical), with the JAX
 program's dtype rule (:127-140): `sampler_bf16=None` runs a bf16 delay
 cache and bf16 weights on a CUDA device and f32 on the CPU;
@@ -24,6 +25,8 @@ are drawn up front and passed into the kernels.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -104,7 +107,8 @@ class TextToWavProgram:
                 wk.pack_weights(self.sampler_params, cfg,
                                 cache_dtype=self.cache_dtype,
                                 weight_dtype=self.weight_dtype)
-                if cuda else None)
+                if wk.takes_kernel(cfg, self.device, self.weight_dtype)
+                else None)
         self.memory_width = self.taco.memory_width
         self.generator = torch.Generator(device=self.device)
         self._seed = seed
@@ -160,10 +164,11 @@ class TextToWavProgram:
             c = (c - lo) / (au.max_abs_value - lo)
         c_up = self.wavenet.upsample(c)
         noise = draw_noise(cfg, B, self.t_audio, g, self.device)
-        samples = wk.sample(self.sampler_params, cfg, c_up, noise,
-                            kernel_weights=self.sampler_kernel,
-                            cache_dtype=self.cache_dtype,
-                            weight_dtype=self.weight_dtype)
+        sample = (wk.sample_plain if self.sampler_kernel is None else
+                  partial(wk.sample, kernel_weights=self.sampler_kernel))
+        samples = sample(self.sampler_params, cfg, c_up, noise,
+                         cache_dtype=self.cache_dtype,
+                         weight_dtype=self.weight_dtype)
         if self.keep_intermediates:
             self.intermediates.update(c_up=c_up, noise=noise)
         return samples, mel_len * self.hop, mel, stops, mel_len

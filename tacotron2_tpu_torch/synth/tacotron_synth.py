@@ -166,8 +166,9 @@ class TacotronSynthesizer:
                     weight_dtype=tk.train_weight_dtype(self.cfg))
                 kernel = (self.device.type == "cuda"
                           and teacher_forced_route(self.cfg) == "kernel")
-                self._tf_weights = (dp, dk.pack_weights(dp) if kernel
-                                    else None)
+                self._tf_weights = (
+                    dp, dk.pack_weights(dp, autoregressive=False) if kernel
+                    else None)
         return self._tf_weights
 
     def _gta_decode(self, keys, memory, mask, teacher):

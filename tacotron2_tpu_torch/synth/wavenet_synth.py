@@ -7,8 +7,9 @@ padded, clipped and rescaled to [0, 1], upsampled, and sampled through
 `ops/wavenet_kernel.sample`: on a CUDA device every output head
 (Gaussian, mixture of logistics, categorical) goes through the CUDA
 sampler kernel, the JAX package's `use_fused_kernel=True` route
-(`fused_incremental_sample`, "all output heads"); on the CPU through its
-plain version. The cache and weight dtypes are the config's
+(`fused_incremental_sample`, "all output heads"), at every width the
+kernel takes (`wavenet_kernel.takes_kernel`); at other widths, and on the
+CPU, through its plain version, as the JAX synthesizer takes its scan. The cache and weight dtypes are the config's
 `wavenet.sampler_cache_dtype` / `sampler_weight_dtype`, as the JAX
 synthesizer passes them to its kernel. Each call draws its noise from a
 `torch.Generator` on the device, reseeded from a counter that starts at
@@ -20,6 +21,7 @@ mulaw-quantize outputs inverted.
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -61,7 +63,8 @@ class WaveNetSynthesizer:
             wk.pack_weights(self.sampler_params, cfg,
                             cache_dtype=self.cache_dtype,
                             weight_dtype=self.weight_dtype)
-            if self.device.type == "cuda" else None)
+            if wk.takes_kernel(cfg, self.device, self.weight_dtype)
+            else None)
         self.generator = torch.Generator(device=self.device)
         self._seed_counter = seed
         self.keep_intermediates = keep_intermediates
@@ -111,10 +114,11 @@ class WaveNetSynthesizer:
         self._seed_counter += 1
         self.generator.manual_seed(self._seed_counter)
         noise = draw_noise(self.cfg, B, T, self.generator, self.device)
-        samples = wk.sample(self.sampler_params, self.cfg, c_up, noise,
-                            kernel_weights=self.sampler_kernel,
-                            cache_dtype=self.cache_dtype,
-                            weight_dtype=self.weight_dtype)
+        sample = (wk.sample_plain if self.sampler_kernel is None else
+                  partial(wk.sample, kernel_weights=self.sampler_kernel))
+        samples = sample(self.sampler_params, self.cfg, c_up, noise,
+                         cache_dtype=self.cache_dtype,
+                         weight_dtype=self.weight_dtype)
         if self.keep_intermediates:
             self.intermediates = dict(c_up=c_up, noise=noise)
         return self._finish(samples.cpu().numpy(), frame_lengths)

@@ -98,8 +98,9 @@ def _w(rng, *shape):
     return (rng.normal(size=shape) / np.sqrt(shape[0])).astype(np.float32)
 
 
-def decoder_tree(seed=0):
+def decoder_tree(seed=0, mw=M):
     rng = np.random.default_rng(seed)
+    M = mw
     d = lambda i, o: {"kernel": _w(rng, i, o), "bias": _w(rng, o)}
     cell = {
         "prenet": {"Dense_0": d(MELS, P), "Dense_1": d(P, P)},
@@ -179,11 +180,11 @@ def test_decoder_kernel_matches_plain(dev):
         [T, 17, 9], device=dev)[:, None]
     dp = dk.extract_decoder_params(tparams, cfg, device=dev)
     drop = drop_masks(cfg, B, steps, torch.Generator(dev).manual_seed(1), dev)
-    before = dk.launches
+    before = dk.rows_launches
     f_k, s_k, a_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
                               early_stop_block=4,
                               kernel_weights=dk.pack_weights(dp))
-    assert dk.launches == before + 2          # one launch per 4-step block
+    assert dk.rows_launches == before + 2          # one launch per 4-step block
     f_p, s_p, a_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
                                     steps=steps, early_stop_block=4)
     torch.cuda.synchronize()
@@ -193,20 +194,20 @@ def test_decoder_kernel_matches_plain(dev):
     np.testing.assert_allclose(a_k.cpu(), a_p.cpu(), atol=1e-4, rtol=0)
 
 
-def _decoder_case(dev, B, T, steps, seed=0, wd="bfloat16", **tc):
+def _decoder_case(dev, B, T, steps, seed=0, wd="bfloat16", mw=M, **tc):
     cfg = torch_cfg()
     cfg = cfg.replace(tacotron=dataclasses.replace(
         cfg.tacotron, dropout_rate=0.5, fused_decoder_dtype=wd,
         fused_train_dtype=wd, **tc))
     rng = np.random.default_rng(seed)
-    memory = torch.as_tensor(rng.normal(size=(B, T, M)), dtype=torch.float32,
-                             device=dev)
+    memory = torch.as_tensor(rng.normal(size=(B, T, mw)),
+                             dtype=torch.float32, device=dev)
     keys = torch.as_tensor(rng.normal(size=(B, T, A)) * 0.3,
                            dtype=torch.float32, device=dev)
     lens = torch.as_tensor([max(T - 7 * i, min(T, 3)) for i in range(B)],
                            device=dev)
     mask = torch.arange(T, device=dev)[None] < lens[:, None]
-    dp = dk.extract_decoder_params(decoder_tree(seed), cfg, device=dev)
+    dp = dk.extract_decoder_params(decoder_tree(seed, mw), cfg, device=dev)
     drop = drop_masks(cfg, B, steps, torch.Generator(dev).manual_seed(1), dev)
     return cfg, dp, keys, memory, mask, drop
 
@@ -215,8 +216,22 @@ def test_decoder_early_stop_waits_for_every_row(dev):
     """Rows that fire in different blocks: the chained launches stop the
     batch at the first boundary where all rows have fired, as the plain
     version (and the TPU kernel) do."""
-    B, T, steps, K = 3, 24, 32, 4
-    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, steps)
+    _early_stop_case(dev, 3)
+
+
+def test_rows_early_stop_spans_clusters(dev):
+    """The same at B=9 (the three rows thrice): two clusters of
+    csrc/decoder_rows.cu, which count their fired rows into one slot a
+    launch; the chain stops only when the rows of both have fired."""
+    _early_stop_case(dev, 9)
+
+
+def _early_stop_case(dev, B):
+    T, steps, K = 24, 32, 4
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, 3, T, steps)
+    rows = torch.arange(B, device=dev) % 3
+    keys, memory, mask, drop = (x[rows].contiguous()
+                                for x in (keys, memory, mask, drop))
     r = cfg.tacotron.outputs_per_step
     # stop projection weights ×10: the stop logits wander over a wider
     # range, so rows cross a threshold at well separated steps
@@ -248,11 +263,11 @@ def test_decoder_early_stop_waits_for_every_row(dev):
     stop_at = K * (max(first) // K + 1)
     dp = dp._replace(proj_b=dp.proj_b.clone())
     dp.proj_b[-r:] += float(shift)
-    before = dk.launches
+    before = dk.rows_launches
     f_k, s_k, a_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
                               early_stop_block=K,
                               kernel_weights=dk.pack_weights(dp))
-    assert dk.launches == before + steps // K
+    assert dk.rows_launches == before + steps // K
     f_p, s_p, a_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
                                     steps=steps, early_stop_block=K)
     torch.cuda.synchronize()
@@ -311,10 +326,10 @@ def test_decoder_envelope_matches_plain(dev, case):
                                                       smoothing=smoothing)
     kw = dk.pack_weights(dp)
     assert kw.l1_w.dtype == getattr(torch, wd)
-    before = dk.launches
+    before = dk.rows_launches
     f_k, s_k, a_k = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
                               early_stop_block=K, kernel_weights=kw)
-    assert dk.launches == before + steps // K
+    assert dk.rows_launches == before + steps // K
     f_p, s_p, a_p = dk.decode_plain(dp, cfg, keys, memory, mask, drop,
                                     steps=steps, early_stop_block=K)
     torch.cuda.synchronize()
@@ -374,6 +389,89 @@ def test_bf16_decode_rounds_where_the_tpu_kernels_round(dev):
     torch.cuda.synchronize()
     near, far = float((f_k - f_p).abs().max()), float((f_k - f_u).abs().max())
     assert near <= 1e-3 and far > 10 * near, (near, far)
+
+
+def _close_decode(got, want):
+    np.testing.assert_allclose(got[0].cpu(), want[0].cpu(), atol=1e-3,
+                               rtol=0)
+    np.testing.assert_allclose(got[1].cpu(), want[1].cpu(), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(got[2].cpu(), want[2].cpu(), atol=1e-4,
+                               rtol=0)
+
+
+def _close_state(st_k, st_p):
+    for name in st_k._fields[:-1]:
+        x, y = getattr(st_k, name), getattr(st_p, name)
+        if name == "pmax":
+            assert torch.equal(x, y)
+        else:
+            np.testing.assert_allclose(x.cpu(), y.cpu(), atol=1e-3, rtol=0,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("mw", [M, 40], ids=["cs16", "cs8"])
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 16])
+def test_rows_decode_matches_plain(dev, B, wd, mw):
+    """csrc/decoder_rows.cu at batch sizes that fill, split and pad its
+    8-row clusters, with 16 CTAs a cluster (M 48) and 8 (M 40, which does
+    not split 16 ways), against the plain version: kernel 1's chain of
+    4-step launches and kernel 3's block route (two chained 4-step blocks,
+    every state field); a rerun repeats every bit."""
+    steps, K = 8, 4
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, 24, steps,
+                                                      wd=wd, mw=mw)
+    kw = dk.pack_weights(dp)
+    assert kw.rows.cs == (16 if mw == M else 8)
+    before = dk.rows_launches
+    got = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                    early_stop_block=K, kernel_weights=kw)
+    assert dk.rows_launches == before + steps // K
+    again = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                      early_stop_block=K, kernel_weights=kw)
+    want = dk.decode_plain(dp, cfg, keys, memory, mask, drop, steps=steps,
+                           early_stop_block=K)
+    torch.cuda.synchronize()
+    _close_decode(got, want)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    st_k = st_p = dk.init_decoder_state(cfg, B, 24, mw, dev)
+    for blk in range(2):
+        d = drop[:, blk * K:(blk + 1) * K]
+        *out_k, st_k = dk.decode_block(dp, cfg, keys, memory, mask, st_k, d,
+                                       kernel_weights=kw)
+        *out_p, st_p = dk.decode_block_plain(dp, cfg, keys, memory, mask,
+                                             st_p, d)
+        torch.cuda.synchronize()
+        _close_decode(out_k, out_p)
+        _close_state(st_k, st_p)
+
+
+def test_rows_decode_spills_past_shared_memory(dev):
+    """At T_in 3,000 the attention's buffers of 8 rows do not fit a CTA's
+    shared memory: they live in the CTA's global scratch (the plan says
+    so), and the block route still matches the plain version, bf16 and
+    f32."""
+    B, T, K = 3, 3000, 2
+    for wd in ("bfloat16", "float32"):
+        cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, 2 * K,
+                                                          wd=wd)
+        kw = dk.pack_weights(dp)
+        plan = dk.rows_plan(dk.rows_widths(cfg, M, T), kw.rows.cs,
+                            wd == "float32")
+        small = dk.rows_plan(dk.rows_widths(cfg, M, 24), kw.rows.cs,
+                             wd == "float32")
+        assert plan["spill"] > 0 and plan["in_smem"] < small["in_smem"]
+        st_k = st_p = dk.init_decoder_state(cfg, B, T, M, dev)
+        for blk in range(2):
+            d = drop[:, blk * K:(blk + 1) * K]
+            *out_k, st_k = dk.decode_block(dp, cfg, keys, memory, mask, st_k,
+                                           d, kernel_weights=kw)
+            *out_p, st_p = dk.decode_block_plain(dp, cfg, keys, memory, mask,
+                                                 st_p, d)
+            torch.cuda.synchronize()
+            _close_decode(out_k, out_p)
+            _close_state(st_k, st_p)
 
 
 EMT_CASES = {"simple": ("simple", True), "simple-no-ref": ("simple", False),
