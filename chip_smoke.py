@@ -168,6 +168,13 @@ Phases, each printing its wall seconds:
     its plain version by phase 5's replay gate and, row for row, bit for
     bit the B=8 run's; `WaveNetSynthesizer` at R 120, which the sampler
     kernel refuses, sampling through the plain version on the card;
+24. (q) kernel 4a (`csrc/decoder_rows.cu`'s teacher-forced mode, which
+    phases 15, 16 and 20 reach) at B=32, 16, 9 and 1 on the r5 weights and
+    the first 32 train texts at phase 16's shapes, with mixed coins: the
+    train mode against its plain version by phase 16's gates (free run and
+    the plain step replayed on the kernel's trajectory), the eval mode by
+    phase 15's shares and mean, each rerun bit for bit and every row bit
+    for bit the B=32 launch's;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode and Griffin-Lim route.
 
@@ -838,6 +845,7 @@ def gta_phase(cfg, tparams, stats, seed):
     import numpy as np
     import torch
     from tacotron2_tpu_torch import cli
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
     from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
     from tacotron2_tpu_torch.ops import wavenet_kernel as wk
     from tacotron2_tpu_torch.synth.tacotron_synth import TacotronSynthesizer
@@ -856,7 +864,7 @@ def gta_phase(cfg, tparams, stats, seed):
     refs = [m[:T_REF] for m in mels]
     synth = TacotronSynthesizer(cfg, tparams, stats, device="cuda",
                                 seed=seed, keep_intermediates=True)
-    tk.launches = 0
+    tk.launches = dk.launches = 0
     torch.cuda.synchronize()
     ts = time.time()
     gta, first = [], None
@@ -874,12 +882,14 @@ def gta_phase(cfg, tparams, stats, seed):
     mae = float(np.mean(maes))
     B, T, M = first["memory"].shape
     steps = first["teacher"].shape[0]
+    kw_rows = synth.teacher_forced_weights()[1].rows
     print(f"GTA: {gta_s:.3f} s for {N_TRAIN} utterances; teacher-forced "
-          f"launches {launches}; first batch B={B}, T_in={T}, {steps} "
-          f"steps; GTA mel MAE vs ground truth mean {mae:.4f} (TPU run "
-          f"{TPU_GTA_MAE}; gate {GTA_MAE_MAX}), rows {min(maes):.4f}-"
-          f"{max(maes):.4f}")
-    assert launches == N_TRAIN // GTA_BATCH, launches
+          f"launches {launches} (csrc/decoder_rows.cu, {-(-B // 8)} clusters "
+          f"of {kw_rows.cs} CTAs; csrc/decoder.cu {dk.launches}); first "
+          f"batch B={B}, T_in={T}, {steps} steps; GTA mel MAE vs ground truth"
+          f" mean {mae:.4f} (TPU run {TPU_GTA_MAE}; gate {GTA_MAE_MAX}), rows"
+          f" {min(maes):.4f}-{max(maes):.4f}")
+    assert launches == N_TRAIN // GTA_BATCH and dk.launches == 0, launches
     assert all(g.shape == m.shape and np.isfinite(g).all()
                for g, m in zip(gta, mels))
     assert mae <= GTA_MAE_MAX, mae
@@ -1042,7 +1052,7 @@ def gta_phase(cfg, tparams, stats, seed):
         assert len(rows) == 4 and max(lens) < MAX_STEPS
     done(15, t0)
     return {"name": "tacotron_teacher_forced", "route": "cuda",
-            "source": "tacotron2_tpu_torch/csrc/decoder.cu",
+            "source": "tacotron2_tpu_torch/csrc/decoder_rows.cu",
             "replaces": "tacotron2_tpu/ops/tacotron_train_kernel.py:118",
             "launches": launches, "max_abs_err": errs["frames max"],
             "ms": tf_ms, "plain_ms": tf_plain_ms,
@@ -1110,6 +1120,50 @@ def rel_err(x, y):
     return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
 
 
+def hold_train_fwd(name, fargs, k_f):
+    """Kernel 4a's train mode (k_f, its launch on fargs, bf16 weights)
+    against its plain version, as the comment above RES_TOL says: the free
+    run's outputs within TF_WITHIN for >= 99% of their elements, its frames'
+    and every residual's mean difference at most 0.1x that of the plain
+    version with f32 activations, and the plain step replayed on the
+    kernel's trajectory within RES_TOL for >= REPLAY_WITHIN of each
+    residual's elements. Prints the readings; returns the free run's
+    spread (`tf_spread`)."""
+    import torch
+    from tacotron2_tpu_torch.models.tacotron.decoder import (
+        teacher_forced_replay)
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    dp = fargs[0]
+    p_f = tk.teacher_forced_train_fwd_plain(*fargs)
+    f_f = tk.teacher_forced_train_fwd_plain(f32_activations(dp), *fargs[1:])
+    torch.cuda.synchronize()
+    spread = {n: tf_spread(x[:3], p_f[:3]) for n, x in (
+        ("kernel", k_f), ("plain with f32 activations", f_f))}
+    for n, d in spread.items():
+        print(f"{name}, {n} vs plain: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in d.items()))
+    errs = spread["kernel"]
+    replay = teacher_forced_replay(*fargs, k_f[3])
+    free, rep_share = {}, {}
+    for field, tol in RES_TOL.items():
+        k, p, f = k_f[3][field], p_f[3][field], f_f[3][field]
+        free[field] = (float((k - p).abs().mean()),
+                       float((f - p).abs().mean()))
+        d = (k - replay[field]).abs()
+        rep_share[field] = float((d <= tol).float().mean())
+        print(f"  {field}: free run mean |kernel - plain| "
+              f"{free[field][0]:.3e} (f32 activations {free[field][1]:.3e});"
+              f" replay max {float(d.max()):.3e}, within {tol:g}: "
+              f"{rep_share[field]:.6f}")
+    del replay
+    assert min(errs[k] for k in TF_WITHIN) >= 0.99, (name, errs)
+    assert errs["frames mean"] <= 0.1 * spread[
+        "plain with f32 activations"]["frames mean"], (name, spread)
+    assert all(k <= 0.1 * f for k, f in free.values()), (name, free)
+    assert min(rep_share.values()) >= REPLAY_WITHIN, (name, rep_share)
+    return errs
+
+
 def train_config():
     """r5_config() with the r5 script's scheduled teacher forcing."""
     cfg = r5_config()
@@ -1169,7 +1223,7 @@ def training_phase(tparams, stats, seed):
                                                       batch_from_rows,
                                                       masked_mel_mae)
     from tacotron2_tpu_torch.models.tacotron.decoder import (
-        drop_masks, teacher_forced_replay, teacher_inputs, zoneout_masks)
+        drop_masks, teacher_inputs, zoneout_masks)
     from tacotron2_tpu_torch.models.tacotron.model import Tacotron
     from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
     from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
@@ -1208,37 +1262,17 @@ def training_phase(tparams, stats, seed):
     drop = drop_masks(cfg, B, S, g, dev)
     zmask = zoneout_masks(cfg, B, S, g, dev)
     fargs = (dp, cfg, keys, memory, mask, teacher, coins, drop, zmask)
+    plan = dk.rows_plan(dk.rows_widths(cfg, M, T), kw.rows.cs, False)
+    print(f"kernel 4a (csrc/decoder_rows.cu, teacher-forced mode) plan: "
+          f"{-(-B // 8)} clusters of {kw.rows.cs} CTAs, 8 rows each; {plan}")
+    dk.launches = tk.train_launches = 0
     k_f = tk.teacher_forced_train_fwd(*fargs, kernel_weights=kw)
-    p_f = tk.teacher_forced_train_fwd_plain(*fargs)
-    f_f = tk.teacher_forced_train_fwd_plain(
-        type(dp)(*[t.float() for t in dp]), *fargs[1:])
-    torch.cuda.synchronize()
     print(f"kernel 4a train mode: {int(coins.sum())} of {S} coins set, "
           f"zoneout masks {float(zmask.float().mean()):.4f} kept, prenet "
-          f"dropout {float((drop > 0).float().mean()):.4f} kept")
-    spread = {n: tf_spread(x[:3], p_f[:3]) for n, x in (
-        ("kernel", k_f), ("plain with f32 activations", f_f))}
-    for n, d in spread.items():
-        print(f"train forward, {n} vs plain: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in d.items()))
-    errs = spread["kernel"]
-    replay = teacher_forced_replay(*fargs, k_f[3])
-    free, rep_share = {}, {}
-    for name, tol in RES_TOL.items():
-        k, p, f = k_f[3][name], p_f[3][name], f_f[3][name]
-        free[name] = (float((k - p).abs().mean()),
-                      float((f - p).abs().mean()))
-        d = (k - replay[name]).abs()
-        rep_share[name] = float((d <= tol).float().mean())
-        print(f"  {name}: free run mean |kernel - plain| {free[name][0]:.3e}"
-              f" (f32 activations {free[name][1]:.3e}); replay max "
-              f"{float(d.max()):.3e}, within {tol:g}: {rep_share[name]:.6f}")
-    del replay
-    assert min(errs[k] for k in TF_WITHIN) >= 0.99, errs
-    assert errs["frames mean"] <= 0.1 * spread[
-        "plain with f32 activations"]["frames mean"], spread
-    assert all(k <= 0.1 * f for k, f in free.values()), free
-    assert min(rep_share.values()) >= REPLAY_WITHIN, rep_share
+          f"dropout {float((drop > 0).float().mean()):.4f} kept; launches: "
+          f"rows kernel {tk.train_launches}, decoder.cu {dk.launches}")
+    assert (tk.train_launches, dk.launches) == (1, 0)
+    errs = hold_train_fwd("train forward", fargs, k_f)
 
     # ---- (2) kernel 4b against its plain version replayed on the kernel's
     # gradients, both on the kernel's residuals; then weight_grads of each
@@ -1317,7 +1351,7 @@ def training_phase(tparams, stats, seed):
           f"(plain {tf_plain_ms:.3f}, bound {1e3 * fb[0]:.4f} ms, {fb[1]}); "
           f"kernel 4b {bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, bound "
           f"{1e3 * bb[0]:.4f} ms, {bb[1]}); weight_grads {wg_ms:.3f} ms")
-    del k_f, p_f, f_f, k_b, k_w, p_w, res
+    del k_f, k_b, k_w, p_w, res
 
     # ---- (3) one whole train step: every parameter gradient through
     # FusedTeacherForced against autograd through the plain decode, the
@@ -1364,7 +1398,7 @@ def training_phase(tparams, stats, seed):
                for i in range(n_b)]
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     order, losses, split = [], [], {}
-    tk.train_launches = tk.bwd_launches = 0
+    tk.train_launches = tk.bwd_launches = dk.launches = 0
     torch.cuda.synchronize()
     ts = time.time()
     for i in range(TRAIN_STEPS):
@@ -1386,8 +1420,8 @@ def training_phase(tparams, stats, seed):
     launches = (tk.train_launches, tk.bwd_launches)
     trainer.timer = None
     print(f"{TRAIN_STEPS} train steps from init_tacotron: {train_s:.3f} s; "
-          f"kernel launches 4a {launches[0]}, 4b {launches[1]}; loss "
-          + " ".join(f"{x:.4f}" for x in losses))
+          f"kernel launches 4a {launches[0]} (csrc/decoder_rows.cu), 4b "
+          f"{launches[1]}; loss " + " ".join(f"{x:.4f}" for x in losses))
     print("ms per step (mean of steps 5-8): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()))
     split["rest of backward"] = (split["backward"]
@@ -1397,6 +1431,7 @@ def training_phase(tparams, stats, seed):
     assert all(np.isfinite(losses)), losses
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
     assert launches == (TRAIN_STEPS, TRAIN_STEPS), launches
+    assert dk.launches == 0, "the train forward left csrc/decoder_rows.cu"
 
     # ---- (5) the r5 checkpoint's natural eval on the 32 held-out rows
     state = TacotronTrainer(cfg).init_state(model=model)
@@ -1442,7 +1477,7 @@ def training_phase(tparams, stats, seed):
     common = {"route": "cuda", "library_ms": None}
     return [
         dict(common, name="tacotron_teacher_forced_train",
-             source="tacotron2_tpu_torch/csrc/decoder.cu",
+             source="tacotron2_tpu_torch/csrc/decoder_rows.cu",
              replaces="tacotron2_tpu/ops/tacotron_train_kernel.py:118",
              launches=launches[0], max_abs_err=errs["frames max"],
              ms=tf_ms, plain_ms=tf_plain_ms, bound_ms=1e3 * fb[0],
@@ -2373,7 +2408,7 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     train_texts = corpus_texts()[:GTA_BATCH]
     train_mels = [np.load(os.path.join(R5, "corpus", "mels", f"mel-{i}.npy"))
                   for i in range(GTA_BATCH)]
-    tk.launches = 0
+    tk.launches = dk.launches = 0
     gta32 = synth32.synthesize(train_texts, [m[:T_REF] for m in train_mels],
                                [m[:T_REF] for m in train_mels],
                                mel_targets=train_mels, gta=True)
@@ -2383,9 +2418,11 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     mae32 = float(np.mean([np.abs(g[:len(t)] - t[:len(g)]).mean()
                            for g, t in zip(gta32["mels"], train_mels)]))
     print(f"f32 GTA of {GTA_BATCH} train texts: teacher-forced launches "
-          f"{tk.launches}, mel MAE vs ground truth {mae32:.4f} (phase 15's "
+          f"{tk.launches} (csrc/decoder_rows.cu; csrc/decoder.cu "
+          f"{dk.launches}), mel MAE vs ground truth {mae32:.4f} (phase 15's "
           f"gate {GTA_MAE_MAX})")
-    assert tk.launches == 1 and mae32 <= GTA_MAE_MAX, mae32
+    assert tk.launches == 1 and dk.launches == 0 and mae32 <= GTA_MAE_MAX, \
+        mae32
 
     # ---- (5) f32 training at phase 16's shapes: kernels 4a and 4b in f32
     cfg_t = with_tacotron(train_config(), fused_train_dtype="float32")
@@ -2414,9 +2451,14 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     drop = drop_masks(cfg_t, Bt, S, g, dev)
     zmask = zoneout_masks(cfg_t, Bt, S, g, dev)
     fargs = (dp, cfg_t, keys, memory, mask, teacher, coins, drop, zmask)
+    dk.launches = tk.train_launches = 0
     k_f = tk.teacher_forced_train_fwd(*fargs, kernel_weights=kw)
     p_f = tk.teacher_forced_train_fwd_plain(*fargs)
     sync()
+    print(f"kernel 4a train mode f32: launches rows kernel "
+          f"{tk.train_launches} ({-(-Bt // 8)} clusters of {kw.rows.cs} "
+          f"CTAs), csrc/decoder.cu {dk.launches}")
+    assert (tk.train_launches, dk.launches) == (1, 0)
     f32_gate("kernel 4a train mode f32 vs plain", {n: k_f[3][n] for n in
              RES_TOL}, {n: p_f[3][n] for n in RES_TOL}, RES_TOL)
     f_err = {"frames": float((k_f[0] - p_f[0]).abs().max())}
@@ -2499,7 +2541,7 @@ def envelope_phase(cfg, tparams, stats, prog, texts, gt, long_texts, out8,
     assert tk.launches == 1 and mae <= HELD_MAE_MAX, mae
     entries.append(dict(
         common, name="tacotron_teacher_forced_train_f32",
-        source="tacotron2_tpu_torch/csrc/decoder.cu",
+        source="tacotron2_tpu_torch/csrc/decoder_rows.cu",
         replaces="tacotron2_tpu/ops/tacotron_train_kernel.py:118",
         launches=launches[0], max_abs_err=f_err["frames"], ms=tf_ms,
         plain_ms=tf_plain, bound_ms=1e3 * fb[0], bound_by=fb[1]))
@@ -3182,6 +3224,102 @@ def rows_phase(cfg, prog, gt, seed):
     assert wk.launches == 0 and all(len(w) == n and np.isfinite(w).all()
                                     for w in wavs)
     done(23, t0)
+
+
+# phase 24: kernel 4a (csrc/decoder_rows.cu's teacher-forced mode) at
+# other batch sizes, on rows 0..B-1 of the first 32 r5 train texts at phase
+# 16's shapes: 1, 2, 2 and 4 clusters of 8 rows (B=9's second cluster
+# holds one row); B=32 runs first, its rows the reference of the others'
+TF_ROWS_BATCHES = (32, 16, 9, 1)
+
+
+def train_rows_phase(tparams, stats, seed):
+    """Phase 24: kernel 4a in train and eval mode at B=32, 16, 9 and 1 on
+    the r5 weights (bf16) with mixed coins (ratio 0.5), phase 16's dropout
+    and zoneout draws: the train mode held against its plain version as
+    phase 16 holds it (`hold_train_fwd`), the eval mode by phase 15's
+    shares (TF_WITHIN) and a mean frame difference at most 0.1x that of
+    the plain version with f32 activations; each mode's rerun bit for bit,
+    and every row bit for bit the B=32 launch's."""
+    import torch
+    from tacotron2_tpu_torch.convert import load_tacotron
+    from tacotron2_tpu_torch.eval.convergence import batch_from_rows
+    from tacotron2_tpu_torch.models.tacotron.decoder import (
+        drop_masks, teacher_inputs, zoneout_masks)
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    cfg = train_config()
+    r = cfg.tacotron.outputs_per_step
+    n_max = max(TF_ROWS_BATCHES)
+    t0 = phase(24, f"(q) kernel 4a at B={TF_ROWS_BATCHES}, train and eval "
+               f"mode, mixed coins")
+    rows = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
+            for i, t in enumerate(corpus_texts()[:n_max])]
+    first = batch_from_rows(rows, os.path.join(R5, "corpus", "mels"), cfg,
+                            pad_text_to=PAD_TEXT, pad_mel_to=PAD_MEL)
+    dev = torch.device("cuda")
+    model = load_tacotron(Tacotron(cfg), tparams, stats).to(dev)
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in first.items()}
+    with torch.no_grad():
+        keys, memory, mask, _, _ = model.synthesis_memory_ext(
+            tb["inputs"], tb["input_lengths"], tb["ref_mel_emt"],
+            tb["ref_mel_spk"])
+        dp = tk.cast_params(tk.extract_params_traced(model.decoder, cfg),
+                            torch.bfloat16)
+    del model
+    kw = dk.pack_weights(dp)
+    S = PAD_MEL // r
+    g = torch.Generator(device=dev).manual_seed(seed)
+    teacher = teacher_inputs(tb["mel_targets"], r)
+    coins = (torch.rand(S, generator=g, device=dev) < 0.5).to(torch.int32)
+    drop = drop_masks(cfg, n_max, S, g, dev)
+    zmask = zoneout_masks(cfg, n_max, S, g, dev)
+    print(f"{int(coins.sum())} of {S} coins set; {kw.rows.cs} CTAs a "
+          f"cluster")
+    ref = None
+    for Bn in TF_ROWS_BATCHES:
+        sl = slice(0, Bn)
+        fargs = (dp, cfg, keys[sl], memory[sl], mask[sl],
+                 teacher[:, sl].contiguous(), coins, drop[sl], zmask[sl])
+        eargs = fargs[:-1]
+        dk.launches = tk.launches = tk.train_launches = 0
+        k_t, k_t2 = (tk.teacher_forced_train_fwd(*fargs, kernel_weights=kw)
+                     for _ in range(2))
+        k_e, k_e2 = (tk.teacher_forced_fwd(*eargs, kernel_weights=kw)
+                     for _ in range(2))
+        torch.cuda.synchronize()
+        n = (tk.train_launches, tk.launches, dk.launches)
+        rerun = (all(torch.equal(x, y) for x, y in zip(k_t[:3], k_t2[:3]))
+                 and all(torch.equal(k_t[3][k], k_t2[3][k])
+                         for k in tk.RES_NAMES)
+                 and all(torch.equal(x, y) for x, y in zip(k_e, k_e2)))
+        del k_t2, k_e2
+        hold_train_fwd(f"kernel 4a train mode at B={Bn}", fargs, k_t)
+        p_e = tk.teacher_forced_fwd_plain(*eargs)
+        f_e = tk.teacher_forced_fwd_plain(f32_activations(dp), *eargs[1:])
+        torch.cuda.synchronize()
+        spread = {m: tf_spread(x, p_e) for m, x in (
+            ("kernel", k_e), ("plain with f32 activations", f_e))}
+        for m, d in spread.items():
+            print(f"kernel 4a eval mode at B={Bn}, {m} vs plain: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in d.items()))
+        errs = spread["kernel"]
+        assert min(errs[k] for k in TF_WITHIN) >= 0.99, (Bn, errs)
+        assert errs["frames mean"] <= 0.1 * spread[
+            "plain with f32 activations"]["frames mean"], (Bn, spread)
+        outs = [*k_t[:3], *k_e, *(k_t[3][k] for k in tk.RES_NAMES)]
+        if ref is None:
+            ref = outs
+        same = [all(torch.equal(x[i], y[i]) for x, y in zip(outs, ref))
+                for i in range(Bn)]
+        print(f"B={Bn}: {-(-Bn // 8)} clusters; launches: train "
+              f"{n[0]}, eval {n[1]} (csrc/decoder_rows.cu), csrc/decoder.cu "
+              f"{n[2]}; reruns bit-identical {rerun}; rows bit for bit the "
+              f"B={n_max} launch's: {sum(same)} of {Bn}")
+        assert n == (2, 2, 0) and rerun and all(same), (Bn, n, rerun)
+        del k_t, k_e, p_e, f_e, outs
+    done(24, t0)
 
 
 def main(argv=None):
@@ -3915,6 +4053,9 @@ def main(argv=None):
 
     # ---- 23. (p) the decode at B=1, 9, 16; the sampler's route by width
     rows_phase(cfg, prog, gt, seed)
+
+    # ---- 24. (q) kernel 4a at B=1, 9, 16 and 32, train and eval mode
+    train_rows_phase(tparams, stats, seed)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

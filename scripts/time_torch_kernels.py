@@ -40,6 +40,15 @@ shapes (B 16, T_in 96, 448 steps; the r5 weights and the first train
 batch's memory, kernel 4a's residuals, seeded masks and gradients): the
 median of 5 runs of the wrapper (with its weight packing) in bf16 and f32
 weights, with a checksum of every output both versions write.
+
+    python scripts/time_torch_kernels.py --train-fwd [PORT_ROOT ...]
+
+times the teacher-forced forward (kernel 4a) at the same shapes: its train
+mode at B 16 (the first train batch, tfr-0.5 coins, seeded dropout and
+zoneout masks) in bf16 and f32 weights, and its eval mode at B 32 (the
+first 32 train texts, every coin set, as GTA runs it) in bf16: the median
+of 5 runs of the wrapper on weights packed once, with the frames' and
+(train mode) the residuals' checksums.
 """
 
 import inspect
@@ -293,7 +302,11 @@ def time_stack(root):
     print(json.dumps(out), flush=True)
 
 
-def time_bwd(root):
+def _train_inputs(root, n_rows):
+    """`root`'s port with the r5 checkpoints at chip_smoke.py phase 16's
+    shapes: (cfg, the f32 DecoderParams, keys, memory, mask, teacher,
+    tfr-0.5 coins, dropout and zoneout masks) of the first n_rows train
+    texts."""
     sys.path.insert(0, root)
     sys.path.insert(1, REPO)
     import torch
@@ -305,7 +318,6 @@ def time_bwd(root):
     from tacotron2_tpu_torch.models.tacotron.decoder import (
         drop_masks, teacher_inputs, zoneout_masks)
     from tacotron2_tpu_torch.models.tacotron.model import Tacotron
-    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
     from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
 
     assert tacotron2_tpu_torch.__file__.startswith(root)
@@ -315,7 +327,7 @@ def time_bwd(root):
                                  os.path.join(cs.R5, "wn_ckpt.msgpack"))
     rows = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
             for i, t in enumerate(cs.corpus_texts())]
-    first = batch_from_rows(rows[:cs.TRAIN_BATCH],
+    first = batch_from_rows(rows[:n_rows],
                             os.path.join(cs.R5, "corpus", "mels"), cfg,
                             pad_text_to=cs.PAD_TEXT, pad_mel_to=cs.PAD_MEL)
     model = load_tacotron(Tacotron(cfg), tp, st).to(dev)
@@ -333,6 +345,19 @@ def time_bwd(root):
     coins = (torch.rand(S, generator=g, device=dev) < 0.5).to(torch.int32)
     drop = drop_masks(cfg, B, S, g, dev)
     zmask = zoneout_masks(cfg, B, S, g, dev)
+    return cfg, dp32, keys, memory, mask, teacher, coins, drop, zmask
+
+
+def time_bwd(root):
+    cfg, dp32, keys, memory, mask, teacher, coins, drop, zmask = \
+        _train_inputs(root, 16)
+    import torch
+
+    import chip_smoke as cs
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    B, T, _ = memory.shape
+    S = teacher.shape[0]
     names = ("dz1", "dz2", "da0", "da1", "dproj", "dctx", "dq", "dkeys",
              "dwp", "dva")
     out = {"root": root}
@@ -359,14 +384,53 @@ def time_bwd(root):
     print(json.dumps(out), flush=True)
 
 
+def time_train_fwd(root):
+    """Kernel 4a: the train mode at B 16 in bf16 and f32 weights, the eval
+    mode at B 32 (every coin set) in bf16."""
+    cfg, dp32, keys, memory, mask, teacher, coins, drop, zmask = \
+        _train_inputs(root, 32)
+    import torch
+
+    import chip_smoke as cs
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    b16 = slice(0, cs.TRAIN_BATCH)
+    out = {"root": root}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).replace("torch.", "")
+        with torch.no_grad():
+            dp = tk.cast_params(dp32, dt)
+        kw = dk.pack_weights(dp)
+        train = (dp, cfg, keys[b16], memory[b16], mask[b16],
+                 teacher[:, b16].contiguous(), coins, drop[b16], zmask[b16])
+        k = tk.teacher_forced_train_fwd(*train, kernel_weights=kw)
+        torch.cuda.synchronize()
+        out[f"train_fwd_ms_{name}"] = cs.cuda_ms(
+            lambda: tk.teacher_forced_train_fwd(*train, kernel_weights=kw), 5)
+        out[f"train_fwd_sum_{name}"] = float(
+            k[0].double().abs().sum() + sum(k[3][n].double().abs().sum()
+                                            for n in tk.RES_NAMES))
+        if dt == torch.bfloat16:
+            ones = torch.ones_like(coins)
+            ev = (dp, cfg, keys, memory, mask, teacher, ones, drop)
+            f = tk.teacher_forced_fwd(*ev, kernel_weights=kw)[0]
+            torch.cuda.synchronize()
+            out["eval_fwd_ms_bfloat16_b32"] = cs.cuda_ms(
+                lambda: tk.teacher_forced_fwd(*ev, kernel_weights=kw), 5)
+            out["eval_fwd_sum_bfloat16_b32"] = float(f.double().abs().sum())
+        del k
+    print(json.dumps(out), flush=True)
+
+
 def main(argv):
     modes = {"--one": time_one, "--one-stack": time_stack,
-             "--one-bwd": time_bwd, "--one-decode": time_decode}
+             "--one-bwd": time_bwd, "--one-decode": time_decode,
+             "--one-train-fwd": time_train_fwd}
     if len(argv) == 2 and argv[0] in modes:
         modes[argv[0]](os.path.abspath(argv[1]))
         return 0
     mode = "--one"
-    if argv[:1] in (["--stack"], ["--bwd"], ["--decode"]):
+    if argv[:1] in (["--stack"], ["--bwd"], ["--decode"], ["--train-fwd"]):
         mode, argv = f"--one-{argv[0][2:]}", argv[1:]
     for root in argv or [REPO]:
         subprocess.run([sys.executable, os.path.abspath(__file__), mode,

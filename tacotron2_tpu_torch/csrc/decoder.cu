@@ -1,107 +1,72 @@
-// Tacotron decode, autoregressive under emt_attn (a block of steps from
-// explicit state) or teacher-forced, one thread-block cluster per row.
+// Tacotron decode under emt_attn: a block of autoregressive steps from
+// explicit state, one thread-block cluster per row.
 //
 // Replaces, of tacotron2_tpu/ops/tacotron_decoder_kernel.py,
 // `build_decoder_block_kernel` (K steps from carried state, pallas_call at
-// :700) with its in-kernel emt_attn scorers (:508-553, below); and of
-// tacotron2_tpu/ops/tacotron_train_kernel.py `build_train_fwd` (pallas_call
-// at :325) in its eval mode (train_zoneout=False) and its train mode,
-// below. Its backward is csrc/decoder_bwd.cu. The autoregressive decode
-// without emt_attn (`build_decoder_kernel`, :1105, and the block kernel
-// without the scorers) is csrc/decoder_rows.cu, one cluster for 8 rows;
-// the autoregressive mode here is launched with emt_attn only.
-// Semantics of the autoregressive mode are those of
+// :700) with its in-kernel emt_attn scorers (:508-553, below). Every other
+// decode is csrc/decoder_rows.cu, one cluster for 8 rows: the
+// autoregressive decode without emt_attn (`build_decoder_kernel`, :1105,
+// and the block kernel without the scorers) and the teacher-forced decode
+// (tacotron2_tpu/ops/tacotron_train_kernel.py `build_train_fwd`, :325);
+// this source keeps the emt mode alone. Semantics are those of
 // Decoder.autoregressive with the stop sigmoid on, as the plain version
 // `tacotron2_tpu_torch/models/tacotron/decoder.py:decode_block` states
 // them: per step, prenet 2×FC with the caller's dropout multipliers, zoneout
-// LSTM1 on [prenet | ctx | h1], LSTM2 on [h1 | h2], location-sensitive
-// attention (the location conv folded with its projection into wp [K, A],
-// its constant part folded into the keys by the wrapper), window
-// constraint, masked softmax, cumulative weights, context, and the fused
-// frame + stop projection.
+// LSTM1 on [prenet | ctx | ctx_emt | h1], LSTM2 on [h1 | h2], the emt
+// attention, location-sensitive attention (the location conv folded with
+// its projection into wp [K, A], its constant part folded into the keys by
+// the wrapper), window constraint, masked softmax, cumulative weights,
+// context, and the fused frame + stop projection.
 //
 // One launch runs `nsteps` steps (global steps t0 .. t0+nsteps-1 of arrays
 // laid out for s_total steps) from the state (xprev, c1, h1, c2, h2, ctx,
-// cum, pmax) in global memory and writes the state after them, the frames
-// and stop probabilities, optionally the alignments, and the row's sticky
-// stop flag (set once all r stop probabilities of a step exceed 0.5, or any
-// with stop_at_any). The TPU kernels' early stop — skip the rest once every
-// row of the batch has fired at a block boundary — is a chain of launches on
-// one stream: each launch counts its fired rows into a fresh slot; given
-// fired_in, a launch first reads the previous launch's count and returns
-// at once if all rows have fired (counting them forward), and the
-// wrapper has pre-filled the outputs with what a skipped step reads as
-// (frames 0, stop 1.0, alignments 0). Stream order
-// makes the previous launch's flags visible; no launch waits on another
-// CTA outside its own cluster. State in and out may alias: every read of it
-// precedes the first cluster.sync(), every write follows the last.
+// ctx_emt, cum, pmax) in global memory and writes the state after them,
+// the frames and stop probabilities, optionally the alignments, and the
+// row's sticky stop flag (set once all r stop probabilities of a step
+// exceed 0.5, or any with stop_at_any). The TPU kernels' early stop — skip
+// the rest once every row of the batch has fired at a block boundary — is
+// a chain of launches on one stream: each launch counts its fired rows
+// into a fresh slot; given fired_in, a launch first reads the previous
+// launch's count and returns at once if all rows have fired (counting them
+// forward), and the wrapper has pre-filled the outputs with what a skipped
+// step reads as (frames 0, stop 1.0, alignments 0). Stream order makes the
+// previous launch's flags visible; no launch waits on another CTA outside
+// its own cluster. State in and out may alias: every read of it precedes
+// the first cluster.sync(), every write follows the last.
 //
 // Weights and rounding. The kernel is a template on the weight type W of
 // every matmul weight (`__nv_bfloat16` or `float`, one type for all,
-// `tacotron.fused_decoder_dtype` / `fused_train_dtype`). With bf16 weights
-// every activation is rounded to bf16 where it enters a product — the
-// matvec inputs, the cumulative weights of the location features, the
-// alignment of the context, the emt alignment — as the TPU kernels do
+// `tacotron.fused_decoder_dtype`). With bf16 weights every activation is
+// rounded to bf16 where it enters a product — the matvec inputs, the
+// cumulative weights of the location features, the alignment of the
+// context, the emt alignment — as the TPU kernels do
 // (`x.astype(weight_dtype)`); the wrapper rounds the memory, the location
-// taps, the emt keys and memory once, and as the route's TPU kernel does
-// the keys (autoregressive) and v_a (block route); the energies' tanh is
-// rounded at runtime flag `tanh_bf16` (the block kernel's default "vmat"
-// energy mode without emt_attn). Each such value is rounded once, where it
-// is made, into a copy in shared memory that the products read (`put`), not
-// once per column group inside the product loop. Sums and the carried
-// state stay f32. With f32 weights nothing is rounded and the products run on the FP32 cores
-// (no tensor cores, no TF32: JAX's f32 kernel is the scan's function up to
-// op order). `smoothing` (runtime) normalises the masked sigmoids of the
-// energies in place of the softmax, as both TPU kernels do (:1012-1014,
-// :598-600); the argmax, the cumulative sum and the context are shared.
+// taps, the emt keys and memory once, and as the block kernel does the
+// keys and v_a. Each such value is rounded once, where it is made, into a
+// copy in shared memory that the products read (`put`), not once per
+// column group inside the product loop. Sums and the carried state stay
+// f32. With f32 weights nothing is rounded and the products run on the
+// FP32 cores (no tensor cores, no TF32: JAX's f32 kernel is the scan's
+// function up to op order). `smoothing` (runtime) normalises the masked
+// sigmoids of the energies in place of the softmax, as the TPU kernel does
+// (:598-600); the argmax, the cumulative sum and the context are shared.
 //
-// Teacher-forced mode (`decoder_kernel<W, true, false>`; the wrapper is
-// tacotron2_tpu_torch/ops/tacotron_train_kernel.py, the plain version
-// models/tacotron/decoder.py:teacher_forced). It is the same step, so it
-// is a launch mode of this kernel and not a copy: the two modes differ in
-// four places, each a compile-time branch. (1) Step t's input frame is
-// teacher[t] ([steps, B, mels]) where coins[t] is set, else the previous
-// step's last frame (one coin per step, shared by the batch, as JAX's
-// Decoder.teacher_forced draws them). (2) The stop head writes logits, no
-// sigmoid. (3) No sticky stop flag and no early stop: the wrapper runs
-// every step in one launch (t0 = 0, nsteps = steps) with the window
-// constraint off and softmax attention (build_train_fwd asserts it). (4)
-// Alignments are always written. The wrapper rounds neither the keys nor
-// v_a there (build_train_fwd keeps both f32). Zoneout is the EMA mix
-// (train_zoneout=False) in eval mode.
-//
-// Train mode (the same instantiation, a runtime mode: the wrapper passes
-// zoneout masks and residual buffers; wrapper tacotron_train_kernel.py:
-// teacher_forced_train_fwd, plain version decoder.py:teacher_forced_train;
-// replaces build_train_fwd with train_zoneout=True). Zoneout is Bernoulli
-// from masks the caller drew, zmask [B, s_total, 4, U] uint8 for (c1, h1,
-// c2, h2), 1 where the new value is taken: c = m ? new : previous, and the
-// same for h (JAX :212-236, whose masks come from the TPU PRNG; the
-// backward reads the same tensor). Each step writes the residuals the
-// backward reads, f32 [B, s_total, ·], where this loop computes them:
-// rank 0 the vectors every CTA holds (the cumulative alignments before the
-// step, the prenet outputs h0d and hpre, the query q), each rank its own
-// gate columns of z1 and z2 in their natural (i, j, f, o) x U order, its
-// own units of c1, h1, c2, h2 and its own context columns.
-//
-// emt_attn mode (`decoder_kernel<W, false, true>`). Four instantiations are
-// launched: autoregressive with emt_attn x {bf16, f32} and teacher-forced x
-// {bf16, f32}. The Tacotron_emt_attn variant attends,
-// besides the text, over the emotion reference's sequence: Te positions of
-// V values (the emt memory, Te = ceil(T_ref / 64), 16 at a 1,000-frame
-// reference). LSTM1 takes [hpre | ctx | ctx_emt | h1] (E more rows of its
-// gate columns) and its bias as a per-row operand (`l1_brow`, [B, CS,
-// 4U/CS]: the wrapper folds ref_spk's addend in where it is fed). After
-// LSTM2 each CTA computes the next ctx_emt from h2 (the plain version is
-// models/tacotron/decoder.py:_step, `emt_context`):
-// qe = h2 · W2e ([U, A2]); per position t and score row h, e_h[t] =
-// score[h] · tanh(ekeys[t] + qe), every constant of the keys folded in by
-// the wrapper; a softmax over t per row; the row's context, the weighted sum
-// of the emt memory rows. `simple` has one score row (v) and its context is
-// ctx_emt (E = V); `multihead` has H rows, row h the normed v in head h's
-// columns and 0 elsewhere (one tanh for all heads, as the TPU kernel does),
-// and its H contexts [H·V] go through the attn_emt_out Dense [H·V, E] + b.
-// The emt keys, memory and score rows are loaded into shared memory once a
+// The emt attention. The Tacotron_emt_attn variant attends, besides the
+// text, over the emotion reference's sequence: Te positions of V values
+// (the emt memory, Te = ceil(T_ref / 64), 16 at a 1,000-frame reference).
+// LSTM1 takes [hpre | ctx | ctx_emt | h1] (E more rows of its gate
+// columns) and its bias as a per-row operand (`l1_brow`, [B, CS, 4U/CS]:
+// the wrapper folds ref_spk's addend in where it is fed). After LSTM2 each
+// CTA computes the next ctx_emt from h2 (the plain version is
+// models/tacotron/decoder.py:_step, `emt_context`): qe = h2 · W2e ([U,
+// A2]); per position t and score row h, e_h[t] = score[h] · tanh(ekeys[t]
+// + qe), every constant of the keys folded in by the wrapper; a softmax
+// over t per row; the row's context, the weighted sum of the emt memory
+// rows. `simple` has one score row (v) and its context is ctx_emt (E =
+// V); `multihead` has H rows, row h the normed v in head h's columns and 0
+// elsewhere (one tanh for all heads, as the TPU kernel does), and its H
+// contexts [H·V] go through the attn_emt_out Dense [H·V, E] + b. The emt
+// keys, memory and score rows are loaded into shared memory once a
 // launch. Every CTA computes the scorer on identical data, as it does the
 // location attention, so no barrier or exchange is added; that reads W2e
 // (512 KB bf16 for simple at the default width) and attn_emt_out (256 KB)
@@ -122,27 +87,24 @@
 // cluster's hardware barrier. The bf16 weights (~36 MB at the default
 // width) are read from global memory every step and stay resident in the
 // 50 MB L2; activations and sums are f32. The f32 weights (~73 MB) do not
-// fit it: the same cluster split is kept (each CTA streams its 1/CS of the
-// gate columns, 4 f32 weights a 16-byte load), so every step reads the part
-// the L2 does not hold from HBM again, shared by the rows that step
-// together (PERF.md §6 has its cost). The attention works at any input
-// length T that fits shared memory (one warp per input position).
+// fit it: every step reads the part the L2 does not hold from HBM again.
+// The attention works at any input length T that fits shared memory (one
+// warp per input position).
 //
 // Bound: the kernel is latency-bound on the L2 reads of each step's LSTM
 // weights (per row, each CTA streams 1/CS of them) and on the cluster
 // barriers between the products, far above its bytes or operations bound;
-// sharing each weight tile between the rows of a batch (wgmma on a tile of
-// rows) is the next step.
+// csrc/decoder_rows.cu's design (one cluster for 8 rows, each weight tile
+// read once for all of them on the tensor cores) is the next step here.
 //
 // Shared memory per CTA (floats, default width, T = input length):
 // xprev mels + prenet 2P + [hpre P | ctx M | ctx_emt E | h1 U | h2 U | ctx2
 // M] + own c1, c2, new h slice 3·U/CS + gates 4U/CS + new ctx slice M/CS +
 // matvec partials 512·8 + q A + cum, align 2T + proj FOp + wp K·A + 32,
 // and the rounded copies of the head, cum and align (mels + 2P + 2M + E +
-// 2U + 2T; the f32 kernel reserves them too) ≈ 17.2k + 4T floats ≈ 69 KB
-// + 16T bytes, under the 227 KB a CTA may use up to T ≈ 9,800. emt_attn
-// adds E + Te·(A2 + V) + NH·(A2 + Te + V) + A2 floats (≈ 43 KB at Te = 16,
-// A2 = V = 256).
+// 2U + 2T; the f32 kernel reserves them too) + the emt operands E +
+// Te·(A2 + V) + NH·(A2 + Te + V) + A2 floats (≈ 43 KB at Te = 16, A2 = V =
+// 256): ≈ 112 KB + 16T bytes, under the 227 KB a CTA may use.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -162,19 +124,16 @@ constexpr float NEG_INF = -4294967295.0f;  // -(2^32) + 1, attention.py:214
 // Pointer and integer operands, in the order the C entry point takes them.
 enum Ptr {
   P_KEYS, P_MEMORY, P_MASK, P_DROP,
-  P_PRE_W0, P_PRE_B0, P_PRE_W1, P_PRE_B1, P_L1_W, P_L1_B, P_L2_W, P_L2_B,
+  P_PRE_W0, P_PRE_B0, P_PRE_W1, P_PRE_B1, P_L1_W, P_L2_W, P_L2_B,
   P_WQ, P_WP, P_V_A, P_PROJ_W, P_PROJ_B,
   P_STATE_IN, P_CUM_IN, P_PMAX_IN, P_STATE_OUT, P_CUM_OUT, P_PMAX_OUT,
-  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN, P_TEACHER, P_COINS, P_ZMASK,
-  P_RES_CUM, P_RES_Q, P_RES_Z1, P_RES_Z2, P_RES_H0D, P_RES_HPRE, P_RES_CTX,
-  P_RES_H1, P_RES_C1, P_RES_H2, P_RES_C2,
+  P_FIRED_IN, P_FIRED_OUT, P_OUT, P_ALIGN,
   P_EKEYS, P_ESCORE, P_EMEM, P_L1_BROW, P_W2E, P_EOUT_W, P_EOUT_B, N_PTR
 };
 enum Int {
   I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
   I_FOP, I_CONSTRAINT, I_WIN_BACK, I_WIN_FWD, I_STOP_AT_ANY,
-  I_TEACHER_FORCED, I_E, I_TE, I_A2, I_EV, I_NH, I_F32_WEIGHTS, I_SMOOTHING,
-  I_TANH_BF16, N_INT
+  I_E, I_TE, I_A2, I_EV, I_NH, I_F32_WEIGHTS, I_SMOOTHING, I_TANH_BF16, N_INT
 };
 
 // The matmul weights (`const void*`) are of the kernel's weight type W:
@@ -190,7 +149,6 @@ struct DecArgs {
   const float* pre_b1;          // [P]
   const void* l1_w;             // [CS, P + M + E + U, 4U/CS] per-rank gate
                                 // columns, rows [prenet | ctx | ctx_emt | h1]
-  const float* l1_b;            // [CS, 4U/CS] (forget bias folded)
   const void* l2_w;             // [CS, 2U, 4U/CS]
   const float* l2_b;            // [CS, 4U/CS]
   const void* wq;               // [U, A]
@@ -213,19 +171,11 @@ struct DecArgs {
                         // their count at [B], or null
   int* fired_out;       // [B + 1] after it (the count starts at 0), or null
   float* out;           // [B, s_total, FO] frames | stop probabilities
-                        // (stop logits when teacher-forced)
   float* align;         // [B, s_total, T] alignments, or null
-  const float* teacher;  // [s_total, B, mels] teacher frames, or null
-  const int* coins;      // [s_total] 1: step t takes teacher[t], or null
-  // train mode (all given) or eval (all null): zoneout masks [B, s_total,
-  // 4, U] and the residuals [B, s_total, T | A | 4U | 4U | P | P | M | U x4]
-  const uint8_t* zmask;
-  float *res_cum, *res_q, *res_z1, *res_z2, *res_h0d, *res_hpre, *res_ctx,
-      *res_h1, *res_c1, *res_h2, *res_c2;
-  // emt_attn mode (E > 0; all null otherwise): keys with their constants
-  // folded [B, Te, A2], score rows [NH, A2], emt memory [B, Te, EV], the
-  // per-row LSTM1 bias [B, CS, 4U/CS] (replaces l1_b; may be null), the
-  // query weight [U, A2], and for multihead the output Dense [NH·EV, E], [E]
+  // the emt attention: keys with their constants folded [B, Te, A2], score
+  // rows [NH, A2], emt memory [B, Te, EV], the per-row LSTM1 bias [B, CS,
+  // 4U/CS] (forget bias folded), the query weight [U, A2], and for
+  // multihead the output Dense [NH·EV, E], [E] (else null)
   const float* ekeys;
   const float* escore;
   const float* emem;
@@ -234,7 +184,7 @@ struct DecArgs {
   const void* eout_w;
   const float* eout_b;
   int T, t0, nsteps, s_total, mels, P, U, M, A, KW, r, FOp;
-  int B, constraint, win_back, win_fwd, stop_at_any, teacher_forced;
+  int B, constraint, win_back, win_fwd, stop_at_any;
   int E, Te, A2, EV, NH;
   int smoothing;  // normalised sigmoids in place of the softmax
   int tanh_bf16;  // round the energies' tanh where it meets v_a
@@ -266,44 +216,21 @@ __device__ __forceinline__ void mv(const void* w, const float* bias,
   taco::matvec<DEPTH, W>(static_cast<const W*>(w), bias, x, K, N, out, part);
 }
 
-// Residual rows of one step (train mode): z [4U], c and h [U], or null.
-struct LstmRes {
-  float* z;
-  float* c;
-  float* h;
-};
-
-// Zoneout LSTM update of this rank's Uc units: gates z = [i | j | f | o]
-// (Uc each), own cell state c, the full previous h; the new h slice goes to
-// hnew. Zoneout is the EMA mix, or with m ([c | h] masks of all U units)
-// the Bernoulli select; train mode writes the residual rows. Then every CTA
-// of the cluster receives the new h at h[rank*Uc ...] and its rounded copy
-// at hr (see `put`).
+// Zoneout LSTM update (the EMA mix) of this rank's Uc units: gates z =
+// [i | j | f | o] (Uc each), own cell state c, the full previous h; the new
+// h slice goes to hnew. Then every CTA of the cluster receives the new h at
+// h[rank*Uc ...] and its rounded copy at hr (see `put`).
 template <typename W>
 __device__ void lstm_update_and_share(cg::cluster_group& cluster, int rank,
                                       const float* z, float* c, float* h,
                                       float* hr, float* hnew, int Uc,
-                                      float zo, const uint8_t* m,
-                                      LstmRes res) {
-  const int U = Uc * CS;
+                                      float zo) {
   for (int u = threadIdx.x; u < Uc; u += NT) {
     const float nc = taco::sigmoidf(z[2 * Uc + u]) * c[u] +
                      taco::sigmoidf(z[u]) * tanhf(z[Uc + u]);
     const float nh = taco::sigmoidf(z[3 * Uc + u]) * tanhf(nc);
-    const int unit = rank * Uc + u;
-    if (m) {
-      c[u] = m[unit] ? nc : c[u];
-      hnew[u] = m[U + unit] ? nh : h[unit];
-    } else {
-      c[u] = (1.f - zo) * nc + zo * c[u];
-      hnew[u] = (1.f - zo) * nh + zo * h[unit];
-    }
-    if (res.z) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g) res.z[g * U + unit] = z[g * Uc + u];
-      res.c[unit] = c[u];
-      res.h[unit] = hnew[u];
-    }
+    c[u] = (1.f - zo) * nc + zo * c[u];
+    hnew[u] = (1.f - zo) * nh + zo * h[rank * Uc + u];
   }
   cluster.sync();  // every CTA is done reading the previous h
   for (int i = threadIdx.x; i < CS * Uc; i += NT)
@@ -385,7 +312,7 @@ __device__ void emt_attention(const DecArgs& a, const float* h2r,
   }
 }
 
-template <typename W, bool TF, bool EMT>
+template <typename W>
 __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     decoder_kernel(const DecArgs a) {
   extern __shared__ float sm[];
@@ -395,7 +322,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   const int T = a.T, P = a.P, U = a.U, M = a.M, A = a.A, mels = a.mels;
   const int Uc = U / CS, Mc = M / CS;
   const int FO = a.r * mels + a.r;
-  const int E = EMT ? a.E : 0;  // ctx_emt width
+  const int E = a.E;  // ctx_emt width
   const int K1 = P + M + E + U;
   __shared__ int ired[32];
   __shared__ int s_pmax, s_fired;
@@ -433,18 +360,19 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* proj = al + T;
   float* wp = proj + a.FOp;
   float* red = wp + a.KW * A;
-  // emt_attn: keys, memory, score rows, qe, energies, head contexts
+  // the emt attention: keys, memory, score rows, qe, energies, head
+  // contexts
   float* ekeys = red + 32;
-  float* emem = ekeys + (EMT ? a.Te * a.A2 : 0);
-  float* escore = emem + (EMT ? a.Te * a.EV : 0);
-  float* qe = escore + (EMT ? a.NH * a.A2 : 0);
-  float* een = qe + (EMT ? a.A2 : 0);
-  float* ctxmh = een + (EMT ? a.NH * a.Te : 0);
+  float* emem = ekeys + a.Te * a.A2;
+  float* escore = emem + a.Te * a.EV;
+  float* qe = escore + a.NH * a.A2;
+  float* een = qe + a.A2;
+  float* ctxmh = een + a.NH * a.Te;
   // with bf16 weights the rounded copies of what enters a product (see
   // `put`): of the head xprev .. ctx2 at the same offsets (R), of cum and
   // of the alignments; with f32 weights the copies are the values
   const int n_head = (int)(c1 - sm);  // xprev .. ctx2
-  float* const smr = rounds<W>() ? ctxmh + (EMT ? a.NH * a.EV : 0) : sm;
+  float* const smr = rounds<W>() ? ctxmh + a.NH * a.EV : sm;
   float* const cumr = rounds<W>() ? smr + n_head : cum;
   float* const alr = rounds<W>() ? cumr + T : al;
   const auto R = [&](float* p) { return smr + (p - sm); };
@@ -456,8 +384,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   float* out = a.out + (size_t)b * a.s_total * FO;
   const W* l1_w = static_cast<const W*>(a.l1_w) + (size_t)rank * K1 * 4 * Uc;
   const W* l2_w = static_cast<const W*>(a.l2_w) + (size_t)rank * 2 * U * 4 * Uc;
-  const float* l1_b = EMT ? a.l1_brow + ((size_t)b * CS + rank) * 4 * Uc
-                          : a.l1_b + rank * 4 * Uc;
+  const float* l1_b = a.l1_brow + ((size_t)b * CS + rank) * 4 * Uc;
   const float* l2_b = a.l2_b + rank * 4 * Uc;
 
   // ---- load the carried state: every CTA its full copy, c its own units
@@ -468,7 +395,7 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
   for (int i = tid; i < T; i += NT)
     put<W>(cum, cumr, i, a.cum_in[(size_t)b * T + i]);
   for (int i = tid; i < a.KW * A; i += NT) wp[i] = a.wp[i];
-  if constexpr (EMT) {
+  {
     const int nk = a.Te * a.A2, nm = a.Te * a.EV;
     for (int i = tid; i < nk; i += NT) ekeys[i] = a.ekeys[(size_t)b * nk + i];
     for (int i = tid; i < nm; i += NT) emem[i] = a.emem[(size_t)b * nm + i];
@@ -486,28 +413,6 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
 
   for (int s = 0; s < a.nsteps; ++s) {
     const int t = a.t0 + s;  // global step: drop, out and align index
-    // train mode: this step's masks and residual rows
-    const size_t row = (size_t)b * a.s_total + t;
-    const bool train = TF && a.zmask;
-    const uint8_t* zm = train ? a.zmask + row * 4 * U : nullptr;
-    LstmRes res1{nullptr, nullptr, nullptr}, res2 = res1;
-    if (train) {
-      res1 = {a.res_z1 + row * 4 * U, a.res_c1 + row * U, a.res_h1 + row * U};
-      res2 = {a.res_z2 + row * 4 * U, a.res_c2 + row * U, a.res_h2 + row * U};
-      if (rank == 0)
-        for (int i = tid; i < T; i += NT) a.res_cum[row * T + i] = cum[i];
-    }
-
-    // ---- teacher-forced: the input frame is the teacher's where the coin
-    // is set. The last step's final cluster.sync() ordered every read of
-    // xprev before this write.
-    if constexpr (TF) {
-      if (a.coins[t]) {
-        const float* tf = a.teacher + ((size_t)t * a.B + b) * mels;
-        for (int i = tid; i < mels; i += NT) put<W>(xprev, R(xprev), i, tf[i]);
-      }
-      __syncthreads();
-    }
 
     // ---- prenet: 2x (FC + ReLU + dropout multiplier), on every CTA
     mv<W>(a.pre_w0, a.pre_b0, R(xprev), mels, P, hp0, part);
@@ -516,35 +421,25 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
              fmaxf(hp0[i], 0.f) * drop[(size_t)(2 * t) * P + i]);
     __syncthreads();
     mv<W>(a.pre_w1, a.pre_b1, R(hp0), P, P, hpre, part);
-    for (int i = tid; i < P; i += NT) {
+    for (int i = tid; i < P; i += NT)
       put<W>(hpre, R(hpre), i,
              fmaxf(hpre[i], 0.f) * drop[(size_t)(2 * t + 1) * P + i]);
-      if (train && rank == 0) {
-        a.res_h0d[row * P + i] = hp0[i];
-        a.res_hpre[row * P + i] = hpre[i];
-      }
-    }
     __syncthreads();
 
     // ---- zoneout LSTM1 on [hpre | ctx | h1], LSTM2 on [h1 | h2]; this
     // rank's gate columns, then the new h slices are shared
     mv<W>(l1_w, l1_b, R(vec), K1, 4 * Uc, z, part);
-    lstm_update_and_share<W>(cluster, rank, z, c1, h1, R(h1), hnew, Uc, zo,
-                             zm, res1);
+    lstm_update_and_share<W>(cluster, rank, z, c1, h1, R(h1), hnew, Uc, zo);
     mv<W>(l2_w, l2_b, R(h1), 2 * U, 4 * Uc, z, part);
-    lstm_update_and_share<W>(cluster, rank, z, c2, h2, R(h2), hnew, Uc, zo,
-                             zm ? zm + 2 * U : nullptr, res2);
+    lstm_update_and_share<W>(cluster, rank, z, c2, h2, R(h2), hnew, Uc, zo);
 
     // ---- emt attention: the next step's ctx_emt, on every CTA. LSTM1's
     // reads of ctx_emt ended before the first exchange above.
-    if constexpr (EMT)
-      emt_attention<W>(a, R(h2), ekeys, escore, emem, qe, een, ctxmh, cte,
-                       R(cte), part);
+    emt_attention<W>(a, R(h2), ekeys, escore, emem, qe, een, ctxmh, cte,
+                     R(cte), part);
 
     // ---- location-sensitive energies, one warp per input position
     mv<W>(a.wq, nullptr, R(h2), U, A, q, part);
-    if (train && rank == 0)
-      for (int i = tid; i < A; i += NT) a.res_q[row * A + i] = q[i];
     const int pmax = s_pmax;
     for (int tt = warp; tt < T; tt += NT / 32) {
       float acc = 0.f;
@@ -609,7 +504,6 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
       for (int tt = 0; tt < T; ++tt)
         acc = fmaf(alr[tt], mem[(size_t)tt * M + col], acc);
       cnew[mm] = acc;
-      if (train) a.res_ctx[row * M + col] = acc;
     }
     __syncthreads();
     for (int i = tid; i < CS * Mc; i += NT) {
@@ -627,12 +521,11 @@ __global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(NT, 1)
     if (rank == 0) {
       for (int i = tid; i < nf; i += NT) out[(size_t)t * FO + i] = proj[i];
       for (int i = tid; i < a.r; i += NT)
-        out[(size_t)t * FO + nf + i] =
-            TF ? proj[nf + i] : taco::sigmoidf(proj[nf + i]);
+        out[(size_t)t * FO + nf + i] = taco::sigmoidf(proj[nf + i]);
     }
     for (int i = tid; i < mels; i += NT)
       put<W>(xprev, R(xprev), i, proj[(a.r - 1) * mels + i]);
-    if (!TF && rank == 0 && tid == 0) {
+    if (rank == 0 && tid == 0) {
       float lo = 1.f, hi = 0.f;
       for (int i = 0; i < a.r; ++i) {
         const float sp = taco::sigmoidf(proj[nf + i]);
@@ -674,7 +567,7 @@ extern "C" int taco_decoder_state_floats(int mels, int P, int U, int M,
   return mels + 2 * P + 2 * M + E + 2 * U + 2 * U;
 }
 
-// E, Te, A2, EV, NH: the emt_attn widths (all 0 without emt_attn).
+// E, Te, A2, EV, NH: the emt_attn widths.
 extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
                                           int M, int A, int KW, int FOp,
                                           int E, int Te, int A2, int EV,
@@ -690,12 +583,10 @@ extern "C" size_t taco_decoder_smem_bytes(int T, int mels, int P, int U,
   return floats * sizeof(float);
 }
 
-// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out, align,
-// teacher, coins, zmask and the residuals may be null; the teacher-forced
-// mode needs teacher, coins and align, its train mode also zmask and every
-// residual; emt_attn (E > 0, autoregressive only) needs ekeys, escore,
-// emem, l1_brow and w2e, eout_w and eout_b for multihead);
-// ints: N_INT values in `Int` order. Returns a CUDA error code, or 0.
+// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out and
+// align may be null; ekeys, escore, emem, l1_brow and w2e are needed,
+// eout_w and eout_b for multihead); ints: N_INT values in `Int` order.
+// Returns a CUDA error code, or 0.
 extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
                                    const int* ints, int n_int, float zoneout,
                                    void* stream) {
@@ -710,7 +601,6 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.pre_w1 = ptrs[P_PRE_W1];
   a.pre_b1 = (const float*)ptrs[P_PRE_B1];
   a.l1_w = ptrs[P_L1_W];
-  a.l1_b = (const float*)ptrs[P_L1_B];
   a.l2_w = ptrs[P_L2_W];
   a.l2_b = (const float*)ptrs[P_L2_B];
   a.wq = ptrs[P_WQ];
@@ -728,17 +618,6 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.fired_out = (int*)ptrs[P_FIRED_OUT];
   a.out = (float*)ptrs[P_OUT];
   a.align = (float*)ptrs[P_ALIGN];
-  a.teacher = (const float*)ptrs[P_TEACHER];
-  a.coins = (const int*)ptrs[P_COINS];
-  a.zmask = (const uint8_t*)ptrs[P_ZMASK];
-  float** res[] = {&a.res_cum, &a.res_q,   &a.res_z1, &a.res_z2,
-                   &a.res_h0d, &a.res_hpre, &a.res_ctx, &a.res_h1,
-                   &a.res_c1,  &a.res_h2,  &a.res_c2};
-  int n_res = 0;
-  for (int i = 0; i < 11; ++i) {
-    *res[i] = (float*)ptrs[P_RES_CUM + i];
-    n_res += *res[i] != nullptr;
-  }
   a.ekeys = (const float*)ptrs[P_EKEYS];
   a.escore = (const float*)ptrs[P_ESCORE];
   a.emem = (const float*)ptrs[P_EMEM];
@@ -763,7 +642,6 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.win_back = ints[I_WIN_BACK];
   a.win_fwd = ints[I_WIN_FWD];
   a.stop_at_any = ints[I_STOP_AT_ANY];
-  a.teacher_forced = ints[I_TEACHER_FORCED];
   a.E = ints[I_E];
   a.Te = ints[I_TE];
   a.A2 = ints[I_A2];
@@ -775,43 +653,19 @@ extern "C" int taco_decoder_launch(const void* const* ptrs, int n_ptr,
   a.zoneout = zoneout;
   if (a.nsteps < 1 || a.t0 < 0 || a.t0 + a.nsteps > a.s_total)
     return (int)cudaErrorInvalidValue;
-  // teacher-forced: teacher, coins and alignments given, no stop flags, no
-  // window constraint and softmax attention (as build_train_fwd)
-  if (a.teacher_forced &&
-      (!a.teacher || !a.coins || !a.align || a.fired_in || a.fired_out ||
-       a.constraint || a.smoothing))
-    return (int)cudaErrorInvalidValue;
   // f32 weights: 16-byte loads of 4 of them, so every product's width and
   // row stride is a multiple of 4; the tanh is rounded only with bf16
   if (f32w && a.tanh_bf16) return (int)cudaErrorInvalidValue;
-  // train mode: the teacher-forced mode with the masks and every residual
-  // buffer, all steps in one launch
-  if ((a.zmask || n_res) &&
-      (!a.teacher_forced || !a.zmask || n_res != 11 || a.t0 != 0 ||
-       a.nsteps != a.s_total))
+  // the emt operands: simple (no output Dense) has one score row and E =
+  // EV; the output Dense's width E and the products' widths are multiples
+  // of 8 (16-byte weight loads). Every decode without emt_attn is
+  // csrc/decoder_rows.cu.
+  if (a.E < 1 || !a.ekeys || !a.escore || !a.emem || !a.l1_brow || !a.w2e ||
+      !a.eout_w != !a.eout_b || a.Te < 1 || a.NH < 1 || a.NH > MAXH ||
+      a.A2 % 8 || a.E % 8 || (!a.eout_w && (a.NH != 1 || a.EV != a.E)))
     return (int)cudaErrorInvalidValue;
-  // emt_attn: its operands, autoregressive only; simple (no output
-  // Dense) has one score row and E = EV; the output Dense's width E and
-  // the products' widths are multiples of 8 (16-byte weight loads)
-  const bool emt_ptrs = a.ekeys || a.escore || a.emem || a.l1_brow ||
-                        a.w2e || a.eout_w || a.eout_b;
-  if (a.E) {
-    if (a.teacher_forced || !a.ekeys || !a.escore || !a.emem ||
-        !a.l1_brow || !a.w2e ||
-        !a.eout_w != !a.eout_b || a.Te < 1 || a.NH < 1 || a.NH > MAXH ||
-        a.A2 % 8 || a.E % 8 || (!a.eout_w && (a.NH != 1 || a.EV != a.E)))
-      return (int)cudaErrorInvalidValue;
-  } else if (emt_ptrs || !a.teacher_forced) {
-    // the autoregressive decode without emt_attn is csrc/decoder_rows.cu
-    return (int)cudaErrorInvalidValue;
-  }
-  using bf16 = __nv_bfloat16;
   void (*kernel)(const DecArgs) =
-      a.teacher_forced
-          ? (f32w ? decoder_kernel<float, true, false>
-                  : decoder_kernel<bf16, true, false>)
-          : (f32w ? decoder_kernel<float, false, true>
-                  : decoder_kernel<bf16, false, true>);
+      f32w ? decoder_kernel<float> : decoder_kernel<__nv_bfloat16>;
   const size_t smem =
       taco_decoder_smem_bytes(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.FOp,
                               a.E, a.Te, a.A2, a.EV, a.NH);

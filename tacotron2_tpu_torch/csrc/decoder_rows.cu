@@ -1,13 +1,19 @@
-// Tacotron autoregressive decode (the serve and eval decode), one
-// thread-block cluster for 8 rows of the batch.
+// Tacotron decode, autoregressive (the serve and eval decode) or
+// teacher-forced (GTA, `embed`, the train forward), one thread-block
+// cluster for 8 rows of the batch.
 //
 // Replaces, of tacotron2_tpu/ops/tacotron_decoder_kernel.py,
 // `build_decoder_kernel` (the whole decode, pallas_call at :1105) and
 // `build_decoder_block_kernel` (K steps from carried state, pallas_call at
 // :700) without emt_attn; the block kernel's emt_attn scorers stay in
-// csrc/decoder.cu. The wrapper is tacotron2_tpu_torch/ops/
-// tacotron_decoder_kernel.py (`decode`, `decode_block`), the plain version
-// models/tacotron/decoder.py:decode_block, whose docstrings state the
+// csrc/decoder.cu. And of tacotron2_tpu/ops/tacotron_train_kernel.py
+// `build_train_fwd` (pallas_call at :325) in its eval mode
+// (train_zoneout=False) and its train mode: the teacher-forced mode below.
+// The wrappers are tacotron2_tpu_torch/ops/tacotron_decoder_kernel.py
+// (`decode`, `decode_block`) and ops/tacotron_train_kernel.py
+// (`teacher_forced_fwd`, `teacher_forced_train_fwd`), the plain versions
+// models/tacotron/decoder.py:decode_block and `teacher_forced`,
+// `teacher_forced_train`, whose docstrings state the
 // function: per step, prenet 2×FC with the caller's dropout multipliers,
 // zoneout LSTM1 on [prenet | ctx | h1], LSTM2 on [h1 | h2], location-
 // sensitive attention (the location conv folded with its projection into
@@ -15,12 +21,12 @@
 // constraint, masked softmax (or with `smoothing` the normalised sigmoids),
 // cumulative weights, context, and the fused frame + stop projection.
 //
-// Launch contract (as csrc/decoder.cu's autoregressive mode had it). One
-// launch runs `nsteps` steps, global steps t0 .. t0+nsteps-1 of arrays laid
-// out for s_total steps, from the state (each row's [xprev | ctx | h1 | h2 |
-// c1 | c2], cum, pmax) and writes the state after them (in and out may
-// alias: every read of it precedes the first cluster barrier, every write
-// follows the last), the frames and stop probabilities, optionally the
+// Launch contract of the autoregressive mode. One launch runs `nsteps`
+// steps, global steps t0 .. t0+nsteps-1 of arrays laid out for s_total
+// steps, from the state (each row's [xprev | ctx | h1 | h2 | c1 | c2], cum,
+// pmax) and writes the state after them (in and out may alias: every read
+// of it precedes the first cluster barrier, every write follows the
+// last), the frames and stop probabilities, optionally the
 // alignments, and each row's sticky stop flag (all r stop probabilities of
 // a step above 0.5, or any with stop_at_any). The TPU kernels' early stop
 // is a chain of launches on one stream: each launch counts its fired rows
@@ -28,6 +34,32 @@
 // the previous launch's count and returns at once if every row has fired
 // (counting them forward); the wrapper has pre-filled what a skipped step
 // reads as (frames 0, stop 1.0, alignments 0).
+//
+// Teacher-forced mode (`decoder_rows_kernel<W, CSX, FIX, true>`). It is the
+// same step, so it is a compile-time mode of this kernel and not a copy
+// (the autoregressive instantiations compile without a line of it); it
+// differs in five places. (1) Step t's input frame is teacher[t] ([s_total,
+// B, mels]) where coins[t] is set, written into the prenet's operand at the
+// top of the step over the frame fed back after the previous step's
+// barrier D, else that fed-back frame (one coin per step, shared by the
+// batch, as JAX's Decoder.teacher_forced draws them). (2) The stop head
+// writes logits, no sigmoid. (3) No sticky stop flag and no early stop:
+// the wrapper runs every step in one launch (t0 = 0, nsteps = s_total)
+// with the window constraint off and softmax attention (build_train_fwd
+// asserts both); it rounds neither the keys nor v_a (build_train_fwd keeps
+// both f32). (4) Alignments are always written. (5) Train mode, a runtime
+// mode of the same instantiation (the caller passes zmask and the
+// residual buffers; build_train_fwd with train_zoneout=True): zoneout is
+// the Bernoulli select from zmask [B, s_total, 4, U] uint8 for (c1, h1,
+// c2, h2), c = m ? new : previous and the same for h, in `lstm_frag`
+// beside the eval mode's EMA mix; and each step writes the residuals that
+// csrc/decoder_bwd.cu reads, f32 [B, s_total, width] in `Res` order: rank
+// 0 what every CTA holds (the cumulative alignments before the step, in
+// the softmax's loop; the prenet outputs after dropout h0d and hpre, in
+// the prenet's epilogues; the summed query q), each rank its own units of
+// c1, h1, c2, h2 (after zoneout) and its gate columns of z1 and z2 in the
+// natural (i, j, f, o) x U order, from the fragment by unit and gate (the
+// stream lays them out unit by unit), and its own context columns.
 //
 // Rounding. The kernel is a template on the weight type W of every matmul
 // weight (`__nv_bfloat16` or `float`). With bf16 weights every activation
@@ -101,7 +133,9 @@
 // CTA in bf16, ~5 MB in f32 at the default widths and CS 16), at what one
 // SM of the cluster's GPC draws from L2 (~35 µs of a ~62 µs bf16 step; the
 // f32 weights, 73 MB, come partly from HBM); the operations are far below.
-// scripts/profile_taco_decode.py times each phase of the step.
+// The train mode adds its residual writes (~27 KB a CTA a step at B 16).
+// scripts/profile_taco_decode.py times each phase of the step, in either
+// mode.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -129,16 +163,22 @@ constexpr float NEG_INF = -4294967295.0f;  // -(2^32) + 1, attention.py:214
 // keep an instantiation with fixed loop bounds
 constexpr int FIX_KW = 31, FIX_A = 128;
 
+// The train mode's residuals, in tacotron_train_kernel.RES_NAMES order:
+// widths T, A, 4U, 4U, P, P, M, U, U, U, U.
+enum Res {
+  R_CUM, R_Q, R_Z1, R_Z2, R_H0D, R_HPRE, R_CTX, R_H1, R_C1, R_H2, R_C2, N_RES
+};
 enum Ptr {
   P_STREAM, P_KEYS, P_MEMORY, P_MASK, P_DROP, P_PRE_B0, P_PRE_B1, P_L1_B,
   P_L2_B, P_WP, P_V_A, P_PROJ_B, P_STATE_IN, P_CUM_IN, P_PMAX_IN,
   P_STATE_OUT, P_CUM_OUT, P_PMAX_OUT, P_FIRED_IN, P_FIRED_OUT, P_OUT,
-  P_ALIGN, P_SCRATCH, N_PTR
+  P_ALIGN, P_TEACHER, P_COINS, P_ZMASK, P_RES, P_SCRATCH = P_RES + N_RES,
+  N_PTR
 };
 enum Int {
   I_B, I_T, I_T0, I_NSTEPS, I_STOTAL, I_MELS, I_P, I_U, I_M, I_A, I_KW, I_R,
   I_CONSTRAINT, I_WIN_BACK, I_WIN_FWD, I_STOP_AT_ANY, I_F32_WEIGHTS,
-  I_SMOOTHING, I_TANH_BF16, I_CS, N_INT
+  I_SMOOTHING, I_TANH_BF16, I_CS, I_TEACHER_FORCED, N_INT
 };
 // The products: a CTA's own, then the prenet's, which every CTA reads.
 enum Prod { PR_L1, PR_L2, PR_WQ, PR_PROJ, PR_PRE0, PR_PRE1, N_PROD };
@@ -279,7 +319,15 @@ struct RowsArgs {
                         // their count at [B], or null
   int* fired_out;       // [B + 1] after it (the count starts at 0), or null
   float* out;           // [B, s_total, FO] frames | stop probabilities
+                        // (stop logits when teacher-forced)
   float* align;         // [B, s_total, T] alignments, or null
+  // the teacher-forced mode: teacher frames [s_total, B, mels], coins
+  // [s_total]; its train mode also the zoneout masks [B, s_total, 4, U]
+  // and the residuals f32 [B, s_total, width] (`Res`); else null
+  const float* teacher;
+  const int* coins;
+  const unsigned char* zmask;
+  float* res[N_RES];
   unsigned char* scratch;  // [clusters, layout.cluster] bytes
   int B, T, t0, nsteps, s_total, mels, P, U, M, A, KW, r;
   int constraint, win_back, win_fwd, stop_at_any, smoothing, tanh_bf16;
@@ -412,19 +460,32 @@ __device__ void gather(const float* src, int w, W* dst, int gp) {
   }
 }
 
-// The zoneout LSTM update (the EMA mix) from an LSTM product's fragment:
-// the stream lays a CTA's gate columns out unit by unit, (i, j, f, o) of
-// each, so the four lanes of a quad-column (lane bits 2-3) hold the four
-// gates of two units for two rows; each takes one (unit, row) and gathers
-// its four gates by shuffles (every lane of the warp calls it). c and h
-// (f32, own units, [RB][Uc]) in place; the new h to the cluster's exchange
-// row hg [RB][U] and, with hr, rounded to the query's and projection's
-// operand.
-template <typename W>
+// One LSTM's train-mode operands at a step, for the cluster's first row
+// (null pointers outside the train mode): its zoneout masks ([c | h] of U
+// units) and its residual rows z [4U], both of row stride s4, c and h [U]
+// (row stride s1); nb rows are real.
+struct TrainRows {
+  const unsigned char* m;
+  float *z, *c, *h;
+  size_t s4, s1;
+  int nb;
+};
+
+// The zoneout LSTM update from an LSTM product's fragment: the stream lays
+// a CTA's gate columns out unit by unit, (i, j, f, o) of each, so the four
+// lanes of a quad-column (lane bits 2-3) hold the four gates of two units
+// for two rows; each takes one (unit, row) and gathers its four gates by
+// shuffles (every lane of the warp calls it). Zoneout is the EMA mix, or
+// with tr.m (teacher-forced train mode) the Bernoulli select, which also
+// writes the row's gates, c and h to its residual rows. c and h (f32, own
+// units, [RB][Uc]) in place; the new h to the cluster's exchange row hg
+// [RB][U] and, with hr, rounded to the query's and projection's operand.
+template <typename W, bool TF>
 __device__ __forceinline__ void lstm_frag(int m, int n0, const float* d,
                                           const float* bias, float* c,
                                           float* h, float* hg, W* hr, int gp,
-                                          int rank, int Uc, int U, float zo) {
+                                          int rank, int Uc, int U, float zo,
+                                          const TrainRows& tr) {
   const int lane = threadIdx.x & 31, gate = (lane >> 2) & 3;
   float z[4];
 #pragma unroll
@@ -440,13 +501,28 @@ __device__ __forceinline__ void lstm_frag(int m, int n0, const float* d,
   }
   const int u = m / 4 + 2 * (gate >> 1), n = n0 + (gate & 1);
   if (u >= Uc) return;
-  const float nc = taco::sigmoidf(z[2] + bias[2 * Uc + u]) * c[n * Uc + u] +
-                   taco::sigmoidf(z[0] + bias[u]) *
-                       tanhf(z[1] + bias[Uc + u]);
-  const float nh = taco::sigmoidf(z[3] + bias[3 * Uc + u]) * tanhf(nc);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) z[g] += bias[g * Uc + u];
   const int i = n * Uc + u;
-  c[i] = (1.f - zo) * nc + zo * c[i];
-  const float hn = (1.f - zo) * nh + zo * h[i];
+  const float nc = taco::sigmoidf(z[2]) * c[i] +
+                   taco::sigmoidf(z[0]) * tanhf(z[1]);
+  const float nh = taco::sigmoidf(z[3]) * tanhf(nc);
+  float cn = (1.f - zo) * nc + zo * c[i];
+  float hn = (1.f - zo) * nh + zo * h[i];
+  if constexpr (TF) {
+    if (tr.m && n < tr.nb) {
+      const int unit = rank * Uc + u;
+      const unsigned char* mk = tr.m + n * tr.s4;
+      cn = mk[unit] ? nc : c[i];
+      hn = mk[U + unit] ? nh : h[i];
+      float* rz = tr.z + n * tr.s4;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) rz[g * U + unit] = z[g];
+      tr.c[n * tr.s1 + unit] = cn;
+      tr.h[n * tr.s1 + unit] = hn;
+    }
+  }
+  c[i] = cn;
   h[i] = hn;
   hg[n * U + rank * Uc + u] = hn;
   if (hr) {
@@ -538,7 +614,7 @@ __device__ void energies(const RowsArgs& a, int b0, int nb, int tp0, int nT,
 #define PHASE(i)
 #endif
 
-template <typename W, int CSX, bool FIX>
+template <typename W, int CSX, bool FIX, bool TF>
 __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
     decoder_rows_kernel(const RowsArgs a) {
   constexpr bool kBf16 = std::is_same<W, bf16>::value;
@@ -661,6 +737,7 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
   const float* l2_b = a.l2_b + rank * 4 * Uc;
   const W* memw = static_cast<const W*>(a.memory);
 
+  const bool train = TF && a.zmask;  // the teacher-forced train mode
   for (int s = 0; s < a.nsteps; ++s) {
     const int t = a.t0 + s;  // global step: drop, out and align index
     auto drop = [&](int n, int layer, int p) {
@@ -668,19 +745,53 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
                                  P + p]
                     : 0.f;
     };
+    // train mode: row n's residual r at this step, of width w
+    auto res = [&](int r, int n, int w) {
+      return a.res[r] + ((size_t)(b0 + n) * a.s_total + t) * w;
+    };
+    TrainRows tr1{}, tr2{};
+    if constexpr (TF) {
+      if (train) {
+        const size_t row = (size_t)b0 * a.s_total + t;
+        const size_t s4 = (size_t)a.s_total * 4 * U, s1 = (size_t)a.s_total * U;
+        const unsigned char* mk = a.zmask + row * 4 * U;
+        tr1 = {mk, a.res[R_Z1] + row * 4 * U, a.res[R_C1] + row * U,
+               a.res[R_H1] + row * U, s4, s1, nb};
+        tr2 = {mk + 2 * U, a.res[R_Z2] + row * 4 * U, a.res[R_C2] + row * U,
+               a.res[R_H2] + row * U, s4, s1, nb};
+      }
+      // the teacher's frame where the coin is set, over the fed-back one
+      // (the previous step's last barrier ordered every read of it)
+      if (a.coins[t]) {
+        for (int i = tid; i < nb * mels; i += NT) {
+          const int n = i / mels, j = i % mels;
+          put<W>(XP + n * gxp + j,
+                 rg(a.teacher[((size_t)t * a.B + b0 + n) * mels + j]));
+        }
+        __syncthreads();
+      }
+    }
 
     // ---- prenet: 2x (FC + ReLU + dropout multiplier), every CTA, each
     // layer's epilogue on its products' outputs
     product_each<W>(tiles(PR_PRE0), y.ng[PR_PRE0], y.nck[PR_PRE0], XP, gxp,
                     P, [&](int p, int n, float v) {
-                      put<W>(HP + n * ghp + p,
-                             rg(fmaxf(v + a.pre_b0[p], 0.f) * drop(n, 0, p)));
+                      const float x = fmaxf(v + a.pre_b0[p], 0.f) *
+                                      drop(n, 0, p);
+                      put<W>(HP + n * ghp + p, rg(x));
+                      if constexpr (TF)
+                        if (train && rank == 0 && n < nb)
+                          res(R_H0D, n, P)[p] = x;
                     });
     __syncthreads();
     product_each<W>(tiles(PR_PRE1), y.ng[PR_PRE1], y.nck[PR_PRE1], HP, ghp,
                     P, [&](int p, int n, float v) {
-                      put<W>(X + n * gx + p,
-                             rg(fmaxf(v + a.pre_b1[p], 0.f) * drop(n, 1, p)));
+                      const float x = fmaxf(v + a.pre_b1[p], 0.f) *
+                                      drop(n, 1, p);
+                      put<W>(X + n * gx + p, rg(x));
+                      if constexpr (TF)
+                        if (train && rank == 0 && n < nb)
+                          res(R_HPRE, n, P)[p] = x;
                     });
     __syncthreads();
     PHASE(0)
@@ -688,8 +799,8 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
     // ---- LSTM1 on [hpre | ctx | h1]: own gate columns, own units
     product<W>(tiles(PR_L1), y.ng[PR_L1], y.nck[PR_L1], X, gx,
                [&](int m, int n0, const float* d) {
-                 lstm_frag<W>(m, n0, d, l1_b, C1, H1, h1g, (W*)nullptr, ggp,
-                              rank, Uc, U, zo);
+                 lstm_frag<W, TF>(m, n0, d, l1_b, C1, H1, h1g, (W*)nullptr,
+                                  ggp, rank, Uc, U, zo, tr1);
                });
     PHASE(1)
     cluster.sync();  // A: h1 is complete
@@ -701,8 +812,8 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
     // ---- LSTM2 on [h1 | h2]; the query's partial over own units
     product<W>(tiles(PR_L2), y.ng[PR_L2], y.nck[PR_L2], X + P + M, gx,
                [&](int m, int n0, const float* d) {
-                 lstm_frag<W>(m, n0, d, l2_b, C2, H2, h2g, GP, ggp, rank, Uc,
-                              U, zo);
+                 lstm_frag<W, TF>(m, n0, d, l2_b, C2, H2, h2g, GP, ggp, rank,
+                                  Uc, U, zo, tr2);
                });
     __syncthreads();
     PHASE(4)
@@ -718,6 +829,8 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
       float v = 0.f;
       for (int r = 0; r < CSX; ++r) v += __ldcg(qg + r * RB * A + i);
       Q[i] = v;
+      if constexpr (TF)
+        if (train && rank == 0 && i / A < nb) res(R_Q, i / A, A)[i % A] = v;
     }
     __syncthreads();
     PHASE(7)
@@ -772,6 +885,8 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
         const float v = ALR[n * T + i] / sum;
         if (a.align && rank == 0)
           a.align[((size_t)b * a.s_total + t) * T + i] = v;
+        if constexpr (TF)
+          if (train && rank == 0) res(R_CUM, n, T)[i] = CUM[n * T + i];
         const float c = CUM[n * T + i] + v;
         CUM[n * T + i] = c;
         CUMR[n * TP + pad + i] = rg(c);
@@ -853,6 +968,8 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
           for (int w = 0; w < WPR; ++w) v += Z[(n2 * WPR + w) * Mc + m];
           cg_[n2 * M + rank * Mc + m] = v;
           put<W>(GP + n2 * ggp + Uc + m, rg(v));
+          if constexpr (TF)
+            if (train) res(R_CTX, n2, M)[rank * Mc + m] = v;
         }
       } else {
         for (int task = warp; task < nb * Mc; task += NW) {
@@ -867,6 +984,8 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
           if (lane == 0) {
             cg_[n * M + rank * Mc + m] = acc;
             put<W>(GP + n * ggp + Uc + m, rg(acc));
+            if constexpr (TF)
+              if (train) res(R_CTX, n, M)[rank * Mc + m] = acc;
           }
         }
       }
@@ -891,6 +1010,7 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
     __syncthreads();
     PHASE(14)
     // the next input frame; rank 0 writes the outputs and the stop flags
+    // (teacher-forced: the stop logits, no flags)
     for (int i = tid; i < RB * mels; i += NT) {
       const int n = i / mels, j = i % mels;
       put<W>(XP + n * gxp + j, rg(PROJ[n * FO + fb0 + j]));
@@ -900,9 +1020,9 @@ __global__ void __cluster_dims__(CSX, 1, 1) __launch_bounds__(NT, 1)
         const int n = i / FO, f = i % FO;
         const float v = PROJ[i];
         a.out[((size_t)(b0 + n) * a.s_total + t) * FO + f] =
-            f < nf ? v : taco::sigmoidf(v);
+            TF || f < nf ? v : taco::sigmoidf(v);
       }
-      if (tid < nb) {
+      if (!TF && tid < nb) {
         float lo = 1.f, hi = 0.f;
         for (int i = 0; i < a.r; ++i) {
           const float sp = taco::sigmoidf(PROJ[tid * FO + nf + i]);
@@ -967,9 +1087,9 @@ bool supported(int T, int mels, int P, int U, int M, int A, int KW, int r,
          U % cs == 0 && M % cs == 0 && M % 2 == 0;
 }
 
-template <typename W, int CSX, bool FIX>
+template <typename W, int CSX, bool FIX, bool TF>
 int launch(RowsArgs& a, cudaStream_t stream) {
-  void (*kernel)(const RowsArgs) = decoder_rows_kernel<W, CSX, FIX>;
+  void (*kernel)(const RowsArgs) = decoder_rows_kernel<W, CSX, FIX, TF>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.y.smem);
   if (err == cudaSuccess && CSX > 8)
@@ -979,6 +1099,12 @@ int launch(RowsArgs& a, cudaStream_t stream) {
   const int clusters = (a.B + RB - 1) / RB;
   kernel<<<clusters * CSX, NT, a.y.smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename W, int CSX, bool FIX>
+int launch_mode(RowsArgs& a, cudaStream_t stream, bool teacher_forced) {
+  return teacher_forced ? launch<W, CSX, FIX, true>(a, stream)
+                        : launch<W, CSX, FIX, false>(a, stream);
 }
 
 }  // namespace
@@ -1013,15 +1139,18 @@ extern "C" int taco_rows_plan(int T, int mels, int P, int U, int M, int A,
   return 0;
 }
 
-// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out and
-// align may be null); ints: N_INT values in `Int` order. Returns a CUDA
-// error code, or 0.
+// ptrs: N_PTR device pointers in `Ptr` order (fired_in, fired_out, align,
+// teacher, coins, zmask and the residuals may be null: the teacher-forced
+// mode needs teacher, coins and align, its train mode also zmask and every
+// residual, and the autoregressive mode none of these five); ints: N_INT
+// values in `Int` order. Returns a CUDA error code, or 0.
 extern "C" int taco_rows_launch(const void* const* ptrs, int n_ptr,
                                 const int* ints, int n_int, float zoneout,
                                 void* stream) {
   if (n_ptr != N_PTR || n_int != N_INT) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < N_PTR; ++i)
-    if (!ptrs[i] && i != P_FIRED_IN && i != P_FIRED_OUT && i != P_ALIGN)
+    if (!ptrs[i] && i != P_FIRED_IN && i != P_FIRED_OUT && i != P_ALIGN &&
+        (i < P_TEACHER || i >= P_RES + N_RES))
       return (int)cudaErrorInvalidValue;
   RowsArgs a;
   a.stream = (const unsigned char*)ptrs[P_STREAM];
@@ -1046,6 +1175,14 @@ extern "C" int taco_rows_launch(const void* const* ptrs, int n_ptr,
   a.fired_out = (int*)ptrs[P_FIRED_OUT];
   a.out = (float*)ptrs[P_OUT];
   a.align = (float*)ptrs[P_ALIGN];
+  a.teacher = (const float*)ptrs[P_TEACHER];
+  a.coins = (const int*)ptrs[P_COINS];
+  a.zmask = (const unsigned char*)ptrs[P_ZMASK];
+  int n_res = 0;
+  for (int r = 0; r < N_RES; ++r) {
+    a.res[r] = (float*)ptrs[P_RES + r];
+    n_res += a.res[r] != nullptr;
+  }
   a.scratch = (unsigned char*)ptrs[P_SCRATCH];
   a.B = ints[I_B];
   a.T = ints[I_T];
@@ -1067,17 +1204,31 @@ extern "C" int taco_rows_launch(const void* const* ptrs, int n_ptr,
   a.tanh_bf16 = ints[I_TANH_BF16];
   a.zoneout = zoneout;
   const int f32 = ints[I_F32_WEIGHTS], cs = ints[I_CS];
+  const bool tf = ints[I_TEACHER_FORCED] != 0;
   if (a.B < 1 || a.nsteps < 1 || a.t0 < 0 || a.t0 + a.nsteps > a.s_total ||
       (f32 && a.tanh_bf16) ||
       !supported(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.r, cs))
+    return (int)cudaErrorInvalidValue;
+  // teacher-forced: teacher, coins and alignments, no stop flags, no window
+  // constraint, softmax attention, the tanh unrounded (build_train_fwd);
+  // its train mode: the masks and every residual, all steps in one launch
+  const bool train = a.zmask || n_res;
+  if (tf ? (!a.teacher || !a.coins || !a.align || a.fired_in ||
+            a.fired_out || a.constraint || a.smoothing || a.tanh_bf16 ||
+            (train && (!a.zmask || n_res != N_RES || a.t0 != 0 ||
+                       a.nsteps != a.s_total)))
+         : (a.teacher || a.coins || train))
     return (int)cudaErrorInvalidValue;
   a.y = layout(a.T, a.mels, a.P, a.U, a.M, a.A, a.KW, a.r, cs, f32);
   cudaStream_t st = (cudaStream_t)stream;
   const bool fix = a.KW == FIX_KW && a.A == FIX_A;
   if (cs == 16) {
     if (f32)
-      return fix ? launch<float, 16, true>(a, st) : launch<float, 16, false>(a, st);
-    return fix ? launch<bf16, 16, true>(a, st) : launch<bf16, 16, false>(a, st);
+      return fix ? launch_mode<float, 16, true>(a, st, tf)
+                 : launch_mode<float, 16, false>(a, st, tf);
+    return fix ? launch_mode<bf16, 16, true>(a, st, tf)
+               : launch_mode<bf16, 16, false>(a, st, tf);
   }
-  return f32 ? launch<float, 8, false>(a, st) : launch<bf16, 8, false>(a, st);
+  return f32 ? launch_mode<float, 8, false>(a, st, tf)
+             : launch_mode<bf16, 8, false>(a, st, tf);
 }

@@ -307,8 +307,8 @@ class Tacotron(nn.Module):
             with torch.no_grad():
                 dpw = tk.cast_params(dp, tk.train_weight_dtype(cfg))
                 if kernel:
-                    kw = (dk.pack_weights(dpw, autoregressive=False)
-                          if dev.type == "cuda" else None)
+                    kw = (dk.pack_weights(dpw) if dev.type == "cuda"
+                          else None)
                     frames, stops, aligns = tk.teacher_forced_fwd(
                         dpw, cfg, keys, memory, mask, teacher, coins, drop,
                         kernel_weights=kw)

@@ -9,14 +9,16 @@ explicit state; `decode` is `build_decoder_kernel` (:842), the whole decode
 with the batch-wide early stop, run as a chain of block launches. Both go
 through `csrc/decoder_rows.cu` (one cluster for 8 rows, each weight tile
 read once a step for all of them) for CUDA tensors, under emt_attn through
-`csrc/decoder.cu`'s emt mode, and through the plain versions
+`csrc/decoder.cu`, and through the plain versions
 (`models/tacotron/decoder.py:decode_block`, `autoregressive`) for CPU
-tensors. The kernels take their weights in their own per-CTA layouts,
-which `pack_weights` builds once per set of weights (at load time, not per
-call): `rows_stream` the stream of mma tiles of `decoder_rows.cu`, the
-rest `decoder.cu`'s operands, which the teacher-forced kernels of
-`ops/tacotron_train_kernel.py` share. Each kernel's design and its bound
-are in the note at the top of its source.
+tensors. The teacher-forced decode of `ops/tacotron_train_kernel.py` is
+`decoder_rows.cu`'s teacher-forced mode, launched through `prepare_rows` /
+`rows_launch` here. The kernels take their weights in their own per-CTA
+layouts, which `pack_weights` builds once per set of weights (at load
+time, not per call): `rows_stream` the stream of mma tiles of
+`decoder_rows.cu`, the rest `decoder.cu`'s operands, which the backward
+kernel (`tacotron_train_kernel.bwd_stream`) repacks. Each kernel's design
+and its bound are in the note at the top of its source.
 
 Under `gst.emt_attn` the decode also runs the emt attention of the TPU
 block kernel (:508-553) — the `simple` and `multihead` scorers — and
@@ -66,7 +68,8 @@ from ..models.tacotron.decoder import decode_block as decode_block_plain
 
 # kernel launches made by `decode` and `decode_block` (the counts a run
 # reads to show that its main path went through the CUDA kernels):
-# csrc/decoder_rows.cu, and csrc/decoder.cu's emt mode under emt_attn
+# csrc/decoder_rows.cu, and csrc/decoder.cu under emt_attn (the
+# teacher-forced launches count in ops/tacotron_train_kernel.py)
 rows_launches = 0
 launches = 0
 
@@ -225,8 +228,8 @@ class KernelWeights(NamedTuple):
     emt_out_w: torch.Tensor = None
     emt_out_b: torch.Tensor = None
     E: int = 0
-    # the autoregressive decode without emt_attn: csrc/decoder_rows.cu's
-    # operands (`pack_rows`), or None
+    # every decode without emt_attn: csrc/decoder_rows.cu's operands
+    # (`pack_rows`), or None under emt_attn
     rows: "RowsWeights" = None
 
 
@@ -402,15 +405,14 @@ def pack_rows(dp: DecoderParams) -> RowsWeights:
 
 
 def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
-                 emt: EmtParams | None = None,
-                 autoregressive: bool = True) -> KernelWeights:
+                 emt: EmtParams | None = None) -> KernelWeights:
     """DecoderParams (and under emt_attn its EmtParams) -> the kernels'
     operands: stacked LSTM kernels split into per-CTA gate columns (LSTM1's
     rows [prenet | context | context_emt | hidden]), the projection padded
     to a multiple of 8 columns, the folded location taps and attention
     bias, and the emt attention's query weight and output Dense; without
-    emt_attn, unless `autoregressive` is False (the teacher-forced kernels'
-    callers), also csrc/decoder_rows.cu's stream (`pack_rows`)."""
+    emt_attn also csrc/decoder_rows.cu's stream (`pack_rows`), which the
+    autoregressive and the teacher-forced decode read."""
     fo = dp.proj_b.shape[0]
     fop = -(-fo // 8) * 8
     proj_w = torch.cat([dp.proj_wo, dp.proj_wc], 0)
@@ -437,7 +439,7 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
         proj_w=c(torch.nn.functional.pad(proj_w, (0, fop - fo))),
         proj_b=c(torch.nn.functional.pad(dp.proj_b, (0, fop - fo))),
         fop=fop, cs=cs, **emt_kw,
-        rows=pack_rows(dp) if emt is None and autoregressive else None)
+        rows=pack_rows(dp) if emt is None else None)
 
 
 class Launch(NamedTuple):
@@ -560,19 +562,16 @@ def _launch_operands(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
 
 
 def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
-                   teacher_forced: bool = False,
                    emt: EmtOperands | None = None,
                    casts: Casts = WHOLE) -> Launch:
-    """Check the operands against csrc/decoder.cu's envelope and lay them
-    out; the teacher-forced mode runs without the window constraint,
-    without emt_attn and without smoothing, and rounds neither the keys
-    nor v_a (`casts` is the autoregressive route's)."""
+    """Check an emt_attn decode's operands against csrc/decoder.cu's
+    envelope and lay them out (`casts`: the route's roundings)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     B, T, M = memory.shape
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
     A, KW = kw.wq.shape[1], kw.wp.shape[0]
     bf16, keys, memory, mask, wp, v_a, ints, emt_ops = _launch_operands(
-        kw, cfg, keys, memory, mask, teacher_forced=teacher_forced, emt=emt,
+        kw, cfg, keys, memory, mask, teacher_forced=False, emt=emt,
         casts=casts)
     lib = _lib()
     cs = lib.taco_decoder_cluster_size()
@@ -594,8 +593,8 @@ def prepare_launch(kw: KernelWeights, cfg: Config, keys, memory, mask, *,
 _EMT_INTS = ("E", "Te", "A2", "EV", "NH")
 _INT_ORDER = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M", "A",
               "KW", "r", "FOp", "constraint", "win_back", "win_fwd",
-              "stop_at_any", "teacher_forced", *_EMT_INTS, "f32_weights",
-              "smoothing", "tanh_bf16")
+              "stop_at_any", *_EMT_INTS, "f32_weights", "smoothing",
+              "tanh_bf16")
 
 
 def pack_state(state: DecoderKernelState, P: int,
@@ -634,14 +633,10 @@ def unpack_state(vec, cum, pmax, mels: int, P: int, M: int,
 
 
 def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
-           fired_in, fired_out, *, t0: int, nsteps: int, s_total: int,
-           teacher=None, coins=None, zmask=None, res=None):
-    """One launch: steps t0 .. t0+nsteps-1 of arrays laid out for s_total
-    steps; state_in / state_out are `pack_state` triples; teacher [s_total,
-    B, mels] f32 and coins [s_total] int32 in the teacher-forced mode, and
-    in its train mode zmask [B, s_total, 4, U] uint8 and the residual
-    buffers `res` (f32 [B, s_total, ·] in `tacotron_train_kernel.RES_NAMES`
-    order).
+           fired_in, fired_out, *, t0: int, nsteps: int, s_total: int):
+    """One launch of csrc/decoder.cu: steps t0 .. t0+nsteps-1 of arrays
+    laid out for s_total steps; state_in / state_out are `pack_state`
+    triples.
     Operands made by the caller are freed after it returns, maybe before
     the kernel ends; PyTorch's caching allocator reuses a freed block only
     for work queued later on the same stream, so they outlive the kernel.
@@ -650,10 +645,9 @@ def launch(L: Launch, cfg: Config, drop, state_in, state_out, out, align,
     nul = ctypes.c_void_p(None)
     p = lambda x: nul if x is None else ctypes.c_void_p(x.data_ptr())
     ptrs = [L.keys, L.memory, L.mask, drop, kw.pre_w0, kw.pre_b0, kw.pre_w1,
-            kw.pre_b1, kw.l1_w, kw.l1_b, kw.l2_w, kw.l2_b, kw.wq, L.wp,
-            L.v_a, kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
-            fired_out, out, align, teacher, coins, zmask,
-            *(res or [None] * 11), *L.emt, kw.w2e, kw.emt_out_w,
+            kw.pre_b1, kw.l1_w, kw.l2_w, kw.l2_b, kw.wq, L.wp, L.v_a,
+            kw.proj_w, kw.proj_b, *state_in, *state_out, fired_in,
+            fired_out, out, align, *L.emt, kw.w2e, kw.emt_out_w,
             kw.emt_out_b]
     ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
     lib = L.lib
@@ -692,7 +686,11 @@ class RowsLaunch(NamedTuple):
 
 _ROWS_INTS = ("B", "T", "t0", "nsteps", "s_total", "mels", "P", "U", "M",
               "A", "KW", "r", "constraint", "win_back", "win_fwd",
-              "stop_at_any", "f32_weights", "smoothing", "tanh_bf16", "cs")
+              "stop_at_any", "f32_weights", "smoothing", "tanh_bf16", "cs",
+              "teacher_forced")
+# the train mode's residuals, in csrc/decoder_rows.cu's `Res` order
+RES_NAMES = ("cum_pre", "q", "z1", "z2", "h0d", "hpre", "ctx", "h1", "c1",
+             "h2", "c2")
 
 
 def _rows_lib():
@@ -737,16 +735,19 @@ def rows_plan(widths, cs: int, f32: bool) -> dict:
 
 
 def prepare_rows(kw: KernelWeights, cfg: Config, keys, memory, mask,
-                 casts: Casts) -> RowsLaunch:
+                 casts: Casts, *, teacher_forced: bool = False
+                 ) -> RowsLaunch:
     """Check a decode's operands against csrc/decoder_rows.cu's envelope
-    (`taco_rows_supported`) and lay them out once for its launches."""
+    (`taco_rows_supported`) and lay them out once for its launches; the
+    teacher-forced mode runs without the window constraint, emt_attn or
+    smoothing and rounds as `build_train_fwd` does (`TEACHER_FORCED`, not
+    `casts`)."""
     if kw.rows is None:
         raise ValueError("kernel_weights lack the decode's weight stream: "
-                         "pack_weights(dp) packs it (autoregressive=True, "
-                         "no emt_attn)")
+                         "pack_weights(dp) packs it (no emt_attn)")
     bf16, keys, memory, mask, wp, v_a, ints, _ = _launch_operands(
-        kw, cfg, keys, memory, mask, teacher_forced=False, emt=None,
-        casts=casts)
+        kw, cfg, keys, memory, mask, teacher_forced=teacher_forced,
+        emt=None, casts=casts)
     rw = kw.rows
     wd = torch.bfloat16 if bf16 else torch.float32
     if rw.stream.device != memory.device:
@@ -789,11 +790,16 @@ def unpack_rows_state(vec, cum, pmax, mels: int, M: int
 
 def rows_launch(L: RowsLaunch, cfg: Config, drop, state_in, state_out, out,
                 align, fired_in, fired_out, *, t0: int, nsteps: int,
-                s_total: int):
+                s_total: int, teacher=None, coins=None, zmask=None,
+                res=None):
     """One launch of csrc/decoder_rows.cu: steps t0 .. t0+nsteps-1 of
     arrays laid out for s_total steps; state_in / state_out are
-    `pack_rows_state` triples. Its scratch, like every operand made here,
-    outlives the kernel (see `launch`). The caller counts the launch."""
+    `pack_rows_state` triples; in the teacher-forced mode (`prepare_rows(
+    teacher_forced=True)`) teacher [s_total, B, mels] f32 and coins
+    [s_total] int32, and in its train mode zmask [B, s_total, 4, U] uint8
+    and the residual buffers `res` (f32 [B, s_total, ·] in `RES_NAMES`
+    order). Its scratch, like every operand made here, outlives the kernel
+    (see `launch`). The caller counts the launch."""
     rw, dev = L.rw, L.memory.device
     B = L.ints["B"]
     scratch = torch.empty(-(-B // ROWS) * L.scratch, dtype=torch.uint8,
@@ -802,7 +808,8 @@ def rows_launch(L: RowsLaunch, cfg: Config, drop, state_in, state_out, out,
     p = lambda x: nul if x is None else ctypes.c_void_p(x.data_ptr())
     ptrs = [rw.stream, L.keys, L.memory, L.mask, drop, rw.pre_b0, rw.pre_b1,
             rw.l1_b, rw.l2_b, L.wp, L.v_a, rw.proj_b, *state_in,
-            *state_out, fired_in, fired_out, out, align, scratch]
+            *state_out, fired_in, fired_out, out, align, teacher, coins,
+            zmask, *(res or [None] * len(RES_NAMES)), scratch]
     ints = dict(L.ints, t0=t0, nsteps=nsteps, s_total=s_total)
     lib = L.lib
     assert len(ptrs) == lib.taco_rows_n_ptr()

@@ -18,19 +18,26 @@ Port of tacotron2_tpu/ops/tacotron_train_kernel.py:
   autograd glue, and `extract_params_traced` (:844) the differentiable
   extraction of the decoder's parameters.
 
-The three launch `csrc/decoder.cu` (`decoder_kernel<W, true, false>`, eval or train
-mode; its note has the design) and `csrc/decoder_bwd.cu` for CUDA tensors,
-and raise if they cannot; CPU tensors take the plain versions in
-models/tacotron/decoder.py (`teacher_forced`, `teacher_forced_train`,
-`teacher_forced_bwd_plain`). Each counts its launches.
+The two forwards launch the teacher-forced mode of `csrc/decoder_rows.cu`
+(`decoder_rows_kernel<W, CSX, FIX, true>`, eval or train mode: one
+cluster for 8 rows, each weight tile read once a step for all of them on
+the tensor cores; its note has the design), through
+`ops/tacotron_decoder_kernel.py`'s `prepare_rows` / `rows_launch`, and
+the backward `csrc/decoder_bwd.cu`, for CUDA tensors, and raise if they
+cannot (a ValueError naming the widths outside the kernel's envelope);
+nothing falls back to another kernel or to the plain versions. CPU
+tensors take the plain versions in models/tacotron/decoder.py
+(`teacher_forced`, `teacher_forced_train`, `teacher_forced_bwd_plain`).
+Each counts its launches.
 
 The weights are `ops/tacotron_decoder_kernel.py`'s: matmul weights in
 `tacotron.fused_train_dtype`, bf16 (the default) or f32, one type for all
-(kernels and plain versions alike), laid out for the cluster by
-`pack_weights`. With bf16 weights every activation is rounded to bf16
-where it enters a product (the memory and the location taps too, not the
-keys or v_a) and sums are f32, as in `build_train_fwd`; with f32 weights
-nothing is rounded. Prenet dropout
+(kernels and plain versions alike), laid out by `pack_weights` once per
+set of weights (the forward's stream of mma tiles, `rows`; the backward
+repacks the rest on every call, `bwd_stream`). With bf16 weights every
+activation is rounded to bf16 where it enters a product (the memory and
+the location taps too, not the keys or v_a) and sums are f32, as in
+`build_train_fwd`; with f32 weights nothing is rounded. Prenet dropout
 (`drop_masks`) and zoneout (`zoneout_masks`) come from the caller: the
 TPU kernels draw them from the TPU PRNG per (seed, step) and draw them
 again in the backward; the port draws them once, from a torch.Generator,
@@ -61,8 +68,9 @@ import torch
 
 from ..config import Config
 from ..models.tacotron.attention import identity
-from ..models.tacotron.decoder import (DecoderParams, init_decoder_state,
-                                      round_bf16, teacher_forced,
+from ..models.tacotron.decoder import (TEACHER_FORCED, DecoderParams,
+                                      init_decoder_state, round_bf16,
+                                      teacher_forced,
                                       teacher_forced_bwd_plain,
                                       teacher_forced_train)
 from . import tacotron_decoder_kernel as dk
@@ -75,9 +83,8 @@ launches = 0
 train_launches = 0
 bwd_launches = 0
 _bwd_argtypes_set = False
-# the residuals the train forward writes, in csrc/decoder.cu's order
-RES_NAMES = ("cum_pre", "q", "z1", "z2", "h0d", "hpre", "ctx", "h1", "c1",
-             "h2", "c2")
+# the residuals the train forward writes, in csrc/decoder_rows.cu's order
+RES_NAMES = dk.RES_NAMES
 
 
 def train_weight_dtype(cfg: Config) -> torch.dtype:
@@ -156,15 +163,17 @@ def _check_tf_operands(cfg, memory, teacher, coins, drop):
 
 def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
                          mask, teacher, coins, drop, zmask=None):
-    """One launch of all steps; with zmask [B, steps, 4, U] the train mode,
-    which also returns the residuals."""
+    """One launch of csrc/decoder_rows.cu's teacher-forced mode for all
+    steps; with zmask [B, steps, 4, U] the train mode, which also returns
+    the residuals."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r, P, U = tc.outputs_per_step, tc.prenet_layers[-1], tc.decoder_lstm_units
     B, T, M = memory.shape
     dev = memory.device
     steps = _check_tf_operands(cfg, memory, teacher, coins, drop)
-    L = dk.prepare_launch(kw, cfg, keys, memory, mask, teacher_forced=True)
-    state = dk.pack_state(init_decoder_state(cfg, B, T, M, dev), P, kw.cs)
+    L = dk.prepare_rows(kw, cfg, keys, memory, mask, TEACHER_FORCED,
+                        teacher_forced=True)
+    state = dk.pack_rows_state(init_decoder_state(cfg, B, T, M, dev))
     out = torch.empty(B, steps, r * mels + r, device=dev)
     align = torch.empty(B, steps, T, device=dev)
     res = None
@@ -176,13 +185,14 @@ def _teacher_forced_cuda(kw: dk.KernelWeights, cfg: Config, keys, memory,
                      ctx=M, h1=U, c1=U, h2=U, c2=U)
         res = {k: torch.empty(B, steps, width[k], device=dev)
                for k in RES_NAMES}
-    dk.launch(L, cfg, drop.to(torch.float32).contiguous(), state, state, out,
-              align, None, None, t0=0, nsteps=steps, s_total=steps,
-              teacher=teacher.to(torch.float32).contiguous(),
-              coins=coins.to(device=dev, dtype=torch.int32).contiguous(),
-              zmask=(None if zmask is None
-                     else zmask.to(torch.uint8).contiguous()),
-              res=None if res is None else [res[k] for k in RES_NAMES])
+    dk.rows_launch(L, cfg, drop.to(torch.float32).contiguous(), state,
+                   state, out, align, None, None, t0=0, nsteps=steps,
+                   s_total=steps,
+                   teacher=teacher.to(torch.float32).contiguous(),
+                   coins=coins.to(device=dev, dtype=torch.int32).contiguous(),
+                   zmask=(None if zmask is None
+                          else zmask.to(torch.uint8).contiguous()),
+                   res=None if res is None else [res[k] for k in RES_NAMES])
     frames = out[..., :r * mels].reshape(B, steps * r, mels)
     stops = out[..., r * mels:].reshape(B, steps * r)
     if res is None:
@@ -527,8 +537,8 @@ class FusedTeacherForced(torch.autograd.Function):
                 zmask, *dp):
         time = timer or (lambda name: contextlib.nullcontext())
         dpw = cast_params(DecoderParams(*dp), train_weight_dtype(cfg))
-        kw = (dk.pack_weights(dpw, autoregressive=False)
-              if memory.device.type == "cuda" else None)
+        kw = (dk.pack_weights(dpw) if memory.device.type == "cuda"
+              else None)
         with time("train forward (kernel 4a)"):
             frames, stops, aligns, res = teacher_forced_train_fwd(
                 dpw, cfg, keys, memory, mask, teacher, coins, drop, zmask,

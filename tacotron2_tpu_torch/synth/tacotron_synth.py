@@ -167,8 +167,7 @@ class TacotronSynthesizer:
                 kernel = (self.device.type == "cuda"
                           and teacher_forced_route(self.cfg) == "kernel")
                 self._tf_weights = (
-                    dp, dk.pack_weights(dp, autoregressive=False) if kernel
-                    else None)
+                    dp, dk.pack_weights(dp) if kernel else None)
         return self._tf_weights
 
     def _gta_decode(self, keys, memory, mask, teacher):

@@ -636,16 +636,17 @@ def test_teacher_forced_kernel_past_256(dev):
     _teacher_forced_close(got, want)
 
 
-def _train_case(dev, B, T, steps, coins, seed=0, wd="bfloat16"):
+def _train_case(dev, B, T, steps, coins, seed=0, wd="bfloat16", mw=M):
     """The train forward (kernel and plain, same masks), then the backward
-    (kernel and plain) on the kernel's residuals; train weights in `wd`."""
+    (kernel and plain) on the kernel's residuals; train weights in `wd`,
+    memory width mw."""
     cfg, _, keys, memory, mask, drop = _decoder_case(dev, B, T, steps, seed,
-                                                     wd)
+                                                     wd, mw=mw)
     cfg = cfg.replace(tacotron=dataclasses.replace(cfg.tacotron,
                                                    zoneout_rate=0.1))
     g = torch.Generator(device=dev).manual_seed(seed)
     zmask = zoneout_masks(cfg, B, steps, g, device=dev)
-    dp = tk.extract_params(decoder_tree(seed), cfg, device=dev)
+    dp = tk.extract_params(decoder_tree(seed, mw), cfg, device=dev)
     kw = dk.pack_weights(dp)
     rng = np.random.default_rng(seed + 1)
     teacher = torch.as_tensor(rng.uniform(-4, 4, (steps, B, MELS)),
@@ -720,6 +721,70 @@ def test_train_kernels_match_plain(dev, coins, wd, B):
         np.testing.assert_allclose(got[3][name].cpu(), want[3][name].cpu(),
                                    atol=atol, rtol=0, err_msg=name)
     _bwd_close(b_k, b_p, b_c)
+
+
+# kernel 4a against its plain version: f32 weights, every element within
+# its tolerance (frames, residuals 1e-3; stop logits 1e-3 of max(1, |l|);
+# alignments, cumulative alignments 1e-4); bf16, where another sum order
+# may move a rounding by a step that the fed-back frames carry on (chip_
+# smoke.py's TF_WITHIN rule), at least TF_SHARE of each field's elements
+# within it and none past BWD_CAP_STEPS bf16 steps of max(1, its scale)
+TF_SHARE = 0.99
+
+
+def _train_fwd_close(got, want, wd):
+    for name, y in want.items():
+        d = (got[name] - y).abs()
+        tol = 1e-4 if name in ("align", "cum_pre") else 1e-3
+        if name == "stops":
+            d = d / y.abs().clamp(min=1)
+        within = float((d <= tol).float().mean())
+        if wd == "float32":
+            assert within == 1.0, (name, float(d.max()))
+            continue
+        cap = BWD_CAP_STEPS * 2.0 ** -8 * max(1.0, float(y.abs().max()))
+        assert within >= TF_SHARE and float(d.max()) <= cap, (
+            name, within, float(d.max()))
+
+
+@pytest.mark.parametrize("mw", [M, 40], ids=["cs16", "cs8"])
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B", [1, 9, 16, 32])
+def test_teacher_forced_rows_kernel_matches_plain(dev, B, wd, mw):
+    """Kernel 4a, csrc/decoder_rows.cu's teacher-forced mode, at batch sizes
+    that fill, pad and span its 8-row clusters, with 16 CTAs a cluster (M
+    48) and 8 (M 40), mixed coins: the eval mode and the train mode
+    (outputs and every residual) against their plain versions, one launch
+    each, reruns bit for bit; and kernel 4b on the new residuals against
+    its plain backward."""
+    T, steps = 24, 12
+    pick = [1, 0, 0, 1, 1, 0] * 2
+    got, want, b_k, b_p, n, b_c, (bargs, kw) = _train_case(
+        dev, B, T, steps, pick, wd=wd, mw=mw)
+    assert kw.rows.cs == (16 if mw == M else 8)
+    assert n == (1, 1)
+    fields = lambda o: dict(zip(("frames", "stops", "align"), o[:3]),
+                            **{k: o[3][k] for k in tk.RES_NAMES})
+    _train_fwd_close(fields(got), fields(want), wd)
+    _bwd_close(b_k, b_p, b_c)
+    dp, cfg, res, keys, memory, mask, coins, drop, zmask = bargs[:9]
+    teacher = torch.as_tensor(
+        np.random.default_rng(1).uniform(-4, 4, (steps, B, MELS)),
+        dtype=torch.float32, device=dev)
+    fargs = (dp, cfg, keys, memory, mask, teacher, coins, drop)
+    again = [tk.teacher_forced_train_fwd(*fargs, zmask, kernel_weights=kw)
+             for _ in range(2)]
+    before = tk.launches
+    ev = [tk.teacher_forced_fwd(*fargs, kernel_weights=kw) for _ in range(2)]
+    assert tk.launches == before + 2
+    ev_p = tk.teacher_forced_fwd_plain(*fargs)
+    torch.cuda.synchronize()
+    _train_fwd_close(dict(zip(("frames", "stops", "align"), ev[0])),
+                     dict(zip(("frames", "stops", "align"), ev_p)), wd)
+    assert all(torch.equal(x, y) for x, y in zip(ev[0], ev[1]))
+    assert all(torch.equal(x, y) for x, y in zip(again[0][:3], again[1][:3]))
+    assert all(torch.equal(again[0][3][k], again[1][3][k])
+               for k in tk.RES_NAMES)
 
 
 @pytest.mark.parametrize("wd", ["bfloat16", "float32"])

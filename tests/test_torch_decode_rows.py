@@ -371,8 +371,9 @@ def test_rows_stream_holds_each_ctas_tiles(wd, cs):
     """`dk.rows_stream` read back through the mma fragment positions gives
     each CTA's gate columns of both LSTMs, its rows of the query weight and
     of the projection, and the prenet once, zero past the real rows and k;
-    `pack_weights` packs it at the cluster size the widths take and only
-    for the autoregressive decode."""
+    `pack_weights` packs it at the cluster size the widths take, for the
+    autoregressive and the teacher-forced decode alike (the latter's
+    weights in the train dtype)."""
     params = _setup(3)[0]
     _, cfg = _cfgs(wd)
     dp = dk.extract_decoder_params({"decoder": params}, cfg, device="cpu")
@@ -380,7 +381,10 @@ def test_rows_stream_holds_each_ctas_tiles(wd, cs):
     kw = dk.pack_weights(dp)
     assert kw.rows.cs == dk.rows_cluster_size(32, M) == 16
     assert torch.equal(kw.rows.stream, dk.rows_stream(dp, 16))
-    assert dk.pack_weights(dp, autoregressive=False).rows is None
+    other = torch.float32 if wd == "bfloat16" else torch.bfloat16
+    dp_t = tk.cast_params(dp, other)
+    assert torch.equal(dk.pack_weights(dp_t).rows.stream,
+                       dk.rows_stream(dp_t, 16))
     assert dk.rows_cluster_size(32, 40) == 8
 
 
