@@ -175,6 +175,13 @@ Phases, each printing its wall seconds:
     the plain step replayed on the kernel's trajectory), the eval mode by
     phase 15's shares and mean, each rerun bit for bit and every row bit
     for bit the B=32 launch's;
+25. (r) kernels 5a and 5b (`csrc/wavenet_train.cu`, a wgmma mainloop fed by
+    a TMA ring) at B=1, 3 and 32 (N = B·1,007 rows, not a multiple of the
+    128-row tile) on the r5 EMA weights in both weight types: phase 19's
+    bf16 gates and phase 21's f32 gate against the plain versions, reruns
+    bit for bit, the kernel launches a layer (a pre-pass and one a layer
+    forward; at most 4 a layer backward), and each launch kind's device
+    time at phase 19's shapes under torch.profiler;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode and Griffin-Lim route.
 
@@ -3322,6 +3329,140 @@ def train_rows_phase(tparams, stats, seed):
     done(24, t0)
 
 
+# phase 25: kernels 5a and 5b at B=1, 3 and 32 (N = B·1,007 rows, not a
+# multiple of the 128-row tile) on the r5 EMA weights, both weight types,
+# held by phase 19's bf16 gates and phase 21's f32 gates, reruns bit for
+# bit; the kernel launches a layer; each launch kind's device time at
+# phase 19's shapes (B 16 × 8,000 samples) under torch.profiler
+WN_ROWS_BATCHES, WN_ROWS_T = (1, 3, 32), 1007
+STACK_KINDS = ("fwd_pre_kernel", "fwd_layer_kernel", "bwd_gate_kernel",
+               "bwd_dx_kernel", "wgrad_kernel", "reduce_kernel")
+WGRAD_PRODUCTS = ("tap 0", "tap 1", "tap 2", "cin", "out|skip")
+
+
+def stack_launch_split(fn, kinds=STACK_KINDS, by_product=False):
+    """{kernel name: [ms, launches]} of one fn() under torch.profiler, the
+    wrappers' PyTorch operations as "other". With by_product, a version
+    that launches one weight-gradient kernel a product has those launches
+    split by product (the k-th after each gate launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [next((k for k in kinds if k in e.name), "other") for e in evs]
+    split = by_product and names.count("wgrad_kernel") > names.count(
+        "bwd_gate_kernel")
+    out, nth = {}, 0
+    for e, kind in zip(evs, names):
+        if kind == "bwd_gate_kernel":
+            nth = 0
+        elif kind == "wgrad_kernel" and split:
+            kind = f"wgrad_kernel {WGRAD_PRODUCTS[nth % 5]}"
+            nth += 1
+        slot = out.setdefault(kind, [0.0, 0])
+        slot[0] += e.time_range.elapsed_us() / 1e3
+        slot[1] += 1
+    return out
+
+
+def stack_rows_phase(wparams, seed):
+    """Phase 25: kernels 5a and 5b at B=1, 3 and 32 against their plain
+    versions, reruns bit for bit, launches a layer, the launch kinds'
+    times."""
+    import torch
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.models.wavenet.modules import round_bf16
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    cfg = r5_config()
+    t0 = phase(25, f"(r) the WaveNet stack kernels at B={WN_ROWS_BATCHES} "
+               f"(T {WN_ROWS_T}), launches a layer, each launch kind's time")
+    dev = torch.device("cuda")
+    model = convert.wavenet_from_flax(cfg, wparams, dev, trainable=True)
+    sp = wtk.StackParams(*(t.detach() for t in wtk.extract_stack_params(
+        model.residual_blocks, cfg)))
+    wn = cfg.wavenet
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def inputs(N):
+        x2 = torch.randn(N, wn.residual_channels, generator=g,
+                         device=dev) * 0.5
+        c2 = round_bf16(torch.rand(N, wn.cin_channels, generator=g,
+                                   device=dev))
+        dskip = torch.randn(N, wn.skip_out_channels, generator=g,
+                            device=dev) * 1e-3
+        return x2, c2, dskip
+
+    per_layer = []
+    for B in WN_ROWS_BATCHES:
+        N = B * WN_ROWS_T
+        x2, c2, dskip = inputs(N)
+        plan = wtk.make_plan(cfg, B)
+        plan32 = dataclasses.replace(plan, weight_bf16=False)
+        f_s, _ = wtk.stack_fwd_plain(plan32, sp, x2, c2, seed)
+        for pl in (plan, plan32):
+            n0 = (wtk.fwd_kernel_launches, wtk.bwd_kernel_launches)
+            k_s, k_a = wtk.stack_fwd_cuda(pl, sp, x2, c2, seed)
+            k_b = wtk.stack_bwd_cuda(pl, sp, k_a, c2, dskip, seed)
+            per_layer.append(((wtk.fwd_kernel_launches - n0[0]) / pl.L,
+                              (wtk.bwd_kernel_launches - n0[1]) / pl.L))
+            p_s, _ = wtk.stack_fwd_plain(pl, sp, x2, c2, seed)
+            p_b = wtk.stack_bwd_plain(pl, sp, k_a, c2, dskip, seed)
+            k_s2, k_a2 = wtk.stack_fwd_cuda(pl, sp, x2, c2, seed)
+            k_b2 = wtk.stack_bwd_cuda(pl, sp, k_a, c2, dskip, seed)
+            torch.cuda.synchronize()
+            got, want = stack_outputs(k_s, k_b), stack_outputs(p_s, p_b)
+            name = (f"B={B} (N {N}), {'bf16' if pl.weight_bf16 else 'f32'} "
+                    f"weights")
+            if pl.weight_bf16:
+                bf16_stack_gate(name, got, want, f_s)
+            else:
+                f32_stack_gate(name, got, want)
+            again = stack_outputs(k_s2, k_b2)
+            exact = torch.equal(k_a, k_a2) and all(
+                torch.equal(got[n], again[n]) for n in got)
+            print(f"{name}: reruns bit-exact {exact}")
+            assert exact, name
+    fwd_pl, bwd_pl = max(x for x, _ in per_layer), max(y for _, y in
+                                                       per_layer)
+    print(f"kernel launches a layer: forward {fwd_pl:.3f} (a pre-pass and "
+          f"one a layer), backward {bwd_pl:.3f}")
+    assert bwd_pl <= 4, per_layer
+
+    B, T = len(WN_ROWS), WN_CROP_FRAMES * 200
+    x2, c2, dskip = inputs(B * T)
+    for wd in ("bfloat16", "float32"):
+        pl = wtk.make_plan(cfg.replace(wavenet=dataclasses.replace(
+            wn, compute_dtype=wd)), B)
+        _, k_a = wtk.stack_fwd_cuda(pl, sp, x2, c2, seed)
+        for what, fn, kinds in (
+                ("5a", lambda: wtk.stack_fwd_cuda(pl, sp, x2, c2, seed),
+                 STACK_KINDS[:2]),
+                ("5b", lambda: wtk.stack_bwd_cuda(pl, sp, k_a, c2, dskip,
+                                                  seed), STACK_KINDS[2:])):
+            n0 = wtk.fwd_kernel_launches + wtk.bwd_kernel_launches
+            split = stack_launch_split(fn)
+            # the wrappers' counts (two passes) against the profiler's
+            counted = (wtk.fwd_kernel_launches + wtk.bwd_kernel_launches
+                       - n0) // 2
+            seen = sum(split.get(k, (0, 0))[1] for k in kinds)
+            print(f"{what} {wd} at B={B}, T={T}, launch kinds (ms, "
+                  f"launches): " + ", ".join(
+                      f"{k} {v[0]:.3f} ({v[1]})" for k, v in split.items())
+                  + f"; kernel launches counted {counted}, profiled {seen}")
+            assert counted == seen, (what, wd, counted, seen)
+            assert what == "5a" or seen <= 4 * pl.L, (wd, seen, pl.L)
+        del k_a
+    torch.cuda.empty_cache()
+    done(25, t0)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4056,6 +4197,9 @@ def main(argv=None):
 
     # ---- 24. (q) kernel 4a at B=1, 9, 16 and 32, train and eval mode
     train_rows_phase(tparams, stats, seed)
+
+    # ---- 25. (r) kernels 5a and 5b at B=1, 3 and 32; launches a layer
+    stack_rows_phase(wparams, seed)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

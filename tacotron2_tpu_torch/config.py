@@ -229,12 +229,11 @@ class WaveNetConfig:
     # fused-sampler weight storage: 'bfloat16' engages the MXU's native bf16
     # rate (drift-bounded by tests); 'float32' is bit-exact
     sampler_weight_dtype: str = "float32"
-    # keep delay lines of dilations above this threshold in HBM with windowed
-    # prefetch (build_sampler_kernel_hbm) — frees ~88% of the VMEM cache and
-    # unlocks synthesis batch 256/chip; 0/None disables (all-VMEM kernel,
-    # whose [sum(d), B, 2R] delay buffer caps B at ~32 on v5e). Default is
-    # the measured-best production point (r4: the old all-VMEM default made
-    # the production synthesizer OOM at B=256 where the bench config ran)
+    # the JAX sampler kernel's placement of delay lines (dilations above
+    # this threshold in device memory with windowed prefetch,
+    # build_sampler_kernel_hbm; 0/None: all in fast memory). It does not
+    # change the samples, and the port's sampler (csrc/sampler.cu) has no
+    # counterpart: the field is kept for configs shared with the JAX package
     sampler_hbm_delay_threshold: int = 32
     # HBM prefetch window (rows per DMA); shrunk automatically until it
     # divides every HBM-resident dilation with d/W >= 4. The measured best
@@ -286,16 +285,17 @@ class WaveNetConfig:
     # TPU-native analog of the reference's swap_memory offload
     # (hparams.py:326).
     remat_conv_stack: bool = False
-    # run the training-time gated residual stack through the fused Pallas
-    # fwd+bwd kernels (ops/wavenet_train_kernel.py): whole-stack streaming
-    # with VMEM-resident weights, in-kernel dropout PRNG, halo-carried
-    # dilated convs. Falls back to the XLA path off-TPU, under an active
-    # mesh, at init, or for unsupported configs (gin, kernel_size != 3).
+    # run the training-time gated residual stack through the stack kernels
+    # (ops/wavenet_train_kernel.py): on a CUDA tensor with a config that
+    # `stack_supported` admits, kernel 5a forward and 5b backward of
+    # csrc/wavenet_train.cu (dropout from a counter-based hash of the row
+    # and channel); on CPU tensors their plain PyTorch versions. Configs it
+    # refuses (gin, kernel_size != 3) take the layer loop, where the JAX
+    # package takes its XLA path.
     use_fused_train_stack: bool = False
     # mixed-precision training: compute the residual stack in bfloat16
-    # (params and the distribution head stay float32). The stack is
-    # HBM-bandwidth-bound at training crop lengths; halving activation
-    # bytes measures ~1.45x (B=8) to ~2x (B=32) on the conv stack.
+    # (params and the distribution head stay float32): bf16 weights and
+    # operands with f32 sums, as the JAX model rounds them.
     compute_dtype: str = "float32"      # {float32, bfloat16}
 
     @property

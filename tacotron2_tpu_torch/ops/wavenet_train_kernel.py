@@ -10,7 +10,12 @@ custom VJP (:483-556) as the `FusedStack` autograd function, and
 design); `stack_fwd_plain` and `stack_bwd_plain` are their plain PyTorch
 versions, which CPU tensors take. CUDA tensors launch the kernels or
 raise. Each wrapper counts its calls (`fwd_launches`, `bwd_launches`),
-one a pass over the whole stack (L layer launches).
+one a pass over the whole stack, and the kernel launches inside them
+(`fwd_kernel_launches`: a pre-pass and one a layer; `bwd_kernel_launches`:
+BWD_LAYER_LAUNCHES a layer). With f32 weights the wrappers hand the
+kernels each weight as its TF32 hi and lo planes (`split_tf32`), split
+once a call; `mainloop_product` and `wgrad_product` run the kernels'
+mainloop alone, for tests.
 
 Layout: activations are [N = T·B, channels] with row = t·B + b, so a
 dilation shift of d samples is a shift of d·B rows. T need not be a
@@ -67,12 +72,16 @@ from ..config import Config
 # calls of the CUDA forward and backward (each runs every layer)
 fwd_launches = 0
 bwd_launches = 0
+# the kernel launches inside them (a diagnostic: the forward launches a
+# pre-pass and one a layer, the backward BWD_LAYER_LAUNCHES a layer)
+fwd_kernel_launches = 0
+bwd_kernel_launches = 0
+BWD_LAYER_LAUNCHES = 4
 _argtypes_set = False
 
 M32 = 0xFFFFFFFF
-# rows a CTA of the weight-gradient kernel sums before the fixed-order
-# reduction of the partials
-WGRAD_ROWS = 1024
+# the weight-gradient launch's row splits: a multiple of its stage depth
+WGRAD_ROW_STEP = 64
 
 
 class StackParams(NamedTuple):
@@ -460,22 +469,20 @@ def _lib():
     global _argtypes_set
     lib = build.load("wavenet_train")
     if not _argtypes_set:
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         cu, cf = ctypes.c_uint32, ctypes.c_float
         # widths: R (the hash's), then the padded R, Ch, S, cin
         wid = [ci] * 5
-        lib.wn_fwd_layer.argtypes = ([vp] * 11 + [cl, ci, ci] + wid
-                                     + [cu, cu, cf, ci, cf, cf, ci, ci, ci,
-                                        vp])
-        lib.wn_bwd_gate.argtypes = ([vp] * 12 + [cl] + wid
-                                    + [cu, cu, cf, ci, cf, cf, ci, ci, ci,
-                                       vp])
-        lib.wn_bwd_dx.argtypes = ([vp] * 4 + [cl, ci, ci, ci, ci, ci]
-                                  + [cu, cu, cf, ci, cf, ci, vp])
-        lib.wn_wgrad.argtypes = [vp, ci, ci, vp, ci, ci, cl, cl, cl, vp, vp,
-                                 ci, vp]
-        for fn in (lib.wn_fwd_layer, lib.wn_bwd_gate, lib.wn_bwd_dx,
-                   lib.wn_wgrad):
+        lib.wn_fwd.argtypes = ([vp] * 16 + [ci] * 3 + [vp] * 3 + wid
+                               + [cu, cf, ci, cf, ci, ci, vp,
+                                  ctypes.POINTER(ci)])
+        lib.wn_bwd_layer.argtypes = ([vp] * 22 + [ci] * 5 + wid
+                                     + [cu, cu, cf, ci, cf, cf]
+                                     + [ci] * 5 + [vp, ctypes.POINTER(ci)])
+        lib.wn_mm_test.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.wn_wgrad_test.argtypes = [vp, vp, vp, vp] + [ci] * 7 + [vp]
+        for fn in (lib.wn_fwd, lib.wn_bwd_layer, lib.wn_mm_test,
+                   lib.wn_wgrad_test):
             fn.restype = ci
         _argtypes_set = True
     return lib
@@ -531,21 +538,33 @@ def _types(plan: StackPlan):
                                               torch.float32)
 
 
+def split_tf32(w):
+    """(hi, lo) with w ≈ hi + lo, each a TF32 value: the kernels'
+    `taco::split_tf32` (cvt.rna twice, ties away from zero) on f32 tensors.
+    The f32 kernels take their weights' planes from here, once a call."""
+    def rna(x):
+        b = x.contiguous().view(torch.int32)
+        return ((b + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
 def _width_args(plan: StackPlan, pp: StackPlan):
     return (plan.C, pp.C, pp.Ch, pp.S, pp.Ci)
 
 
 def stack_fwd_cuda(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
-    """Kernel 5a: the same contract as `stack_fwd_plain`, on CUDA tensors."""
+    """Kernel 5a: the same contract as `stack_fwd_plain`, on CUDA tensors;
+    a pre-pass and one kernel launch a layer."""
     from ..native.build import check
-    global fwd_launches
+    global fwd_launches, fwd_kernel_launches
     _check_cuda(plan, x0, c2, widths=(plan.C, plan.Ci), weights=sp)
     lib, dev, L, N = _lib(), x0.device, plan.L, x0.shape[0]
     pp = pad_plan(plan)
     spp = pad_params(plan, pp, sp)
     wd, w_f32, a_f32 = _types(plan)
     C, G, S, Ci, Ch = pp.C, pp.G, pp.S, pp.Ci, pp.Ch
-    x_in = pad_cols(x0, C)
+    x_in = pad_cols(x0, C).contiguous()
     cb = pad_cols(c2, Ci).to(wd).contiguous()
     conv = spp.conv_w.reshape(L, 3 * C, G)
     w1t = torch.cat([conv, spp.cin_w.reshape(L, Ci, G)], 1).to(wd) \
@@ -553,37 +572,61 @@ def stack_fwd_cuda(plan: StackPlan, sp: StackParams, x0, c2, seed: int):
     w2t = torch.cat([spp.skip_w.reshape(L, Ch, S),
                      spp.out_w.reshape(L, Ch, C)], 2).to(wd) \
         .transpose(1, 2).contiguous()
+    los = (None, None)
+    if not plan.weight_bf16:    # the f32 products take TF32 hi, lo planes
+        (w1t, w1_lo), (w2t, w2_lo) = split_tf32(w1t), split_tf32(w2t)
+        los = (w1_lo, w2_lo)
     b1 = (spp.conv_b + spp.cin_b).float().contiguous()
     skip_b = spp.skip_b.float().contiguous()
     out_b = spp.out_b.float().contiguous()
     skip = torch.empty(N, S, device=dev)
     acts = torch.empty(L, 3, N, pp.AW, dtype=plan.acts_dtype, device=dev)
     h = torch.empty(N, Ch, dtype=wd, device=dev)
-    bufs = (torch.empty(N, C, device=dev), torch.empty(N, C, device=dev))
+    xds = [torch.empty(N, C, dtype=wd, device=dev) for _ in range(2)]
+    xs = [torch.empty(N, C, device=dev) for _ in range(2)]
     keep24, inv_keep, drop = _keep_args(plan)
-    wid = _width_args(plan, pp)
-    for l, d in enumerate(plan.dil):
-        x_out = bufs[l % 2] if l < L - 1 else None
-        check(lib.wn_fwd_layer(
-            _ptr(x_in), _ptr(x_out), _ptr(cb), _ptr(acts[l]), _ptr(skip),
-            _ptr(h), _ptr(w1t[l]), _ptr(b1[l]), _ptr(w2t[l]),
-            _ptr(skip_b[l]), _ptr(out_b[l]), N, plan.B, d, *wid,
-            layer_key(seed, l), keep24, inv_keep, drop, plan.scales[l],
-            plan.c_res, int(l == 0), w_f32, a_f32, _stream(dev)),
-            "wn_fwd_layer")
-        x_in = x_out
+    dil = np.asarray(plan.dil, np.int32)
+    keys = np.asarray([layer_key(seed, l) for l in range(L)], np.uint32)
+    scales = np.asarray(plan.scales, np.float32)
+    arr = lambda v: v.ctypes.data_as(ctypes.c_void_p)
+    n = ctypes.c_int(0)
+    check(lib.wn_fwd(
+        _ptr(x_in), _ptr(cb), _ptr(w1t), _ptr(los[0]), _ptr(w2t),
+        _ptr(los[1]), _ptr(b1), _ptr(skip_b), _ptr(out_b), _ptr(acts),
+        _ptr(skip), _ptr(h), _ptr(xds[0]), _ptr(xds[1]), _ptr(xs[0]),
+        _ptr(xs[1]), N, plan.B, L, arr(dil), arr(keys), arr(scales),
+        *_width_args(plan, pp), keep24, inv_keep, drop, plan.c_res, w_f32,
+        a_f32, _stream(dev), ctypes.byref(n)), "wn_fwd")
+    fwd_kernel_launches += n.value
     fwd_launches += 1
     if S != plan.S:
         skip = skip[:, :plan.S].contiguous()
     return skip, unpad_acts(plan, pp, acts)
 
 
+def wgrad_tiles(pp: StackPlan) -> int:
+    """128 × 128 output tiles of a layer's five weight gradients at the
+    padded widths: three taps [C, G], cin [Ci, G], out | skip [Ch, C + S]."""
+    C, G, S, Ci, Ch = pp.C, pp.G, pp.S, pp.Ci, pp.Ch
+    return (3 * (C // 128) + _up(Ci, 128) // 128) * (G // 128) + \
+        (Ch // 128) * ((C + S) // 128)
+
+
+def wgrad_splits(pp: StackPlan, N: int, sms: int) -> Tuple[int, int]:
+    """(rows a split, splits) of the weight-gradient launch: about one CTA
+    (an output tile over a row split) per SM, each split a multiple of
+    WGRAD_ROW_STEP rows."""
+    want = max(1, min(-(-N // WGRAD_ROW_STEP), sms // wgrad_tiles(pp)))
+    rows = _up(-(-N // want), WGRAD_ROW_STEP)
+    return rows, -(-N // rows)
+
+
 def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
                    seed: int):
     """Kernel 5b: the same contract as `stack_bwd_plain`, on CUDA
-    tensors."""
+    tensors; BWD_LAYER_LAUNCHES kernel launches a layer."""
     from ..native.build import check
-    global bwd_launches
+    global bwd_launches, bwd_kernel_launches
     _check_cuda(plan, c2, dskip, widths=(plan.Ci, plan.S), weights=sp)
     want = (plan.L, 3, c2.shape[0], plan.AW)
     if acts.dtype != plan.acts_dtype or not acts.is_contiguous() or \
@@ -603,17 +646,22 @@ def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
                      spp.skip_w.reshape(L, Ch, S)], 2).to(wd).contiguous()
     wcin = spp.cin_w.reshape(L, Ci, G).to(wd).contiguous()
     wconv = spp.conv_w.reshape(L, 3, C, G).to(wd).contiguous()
-    go = torch.empty(N, C + S, dtype=wd, device=dev)
+    los = (None, None, None)
+    if not plan.weight_bf16:    # the f32 products take TF32 hi, lo planes
+        (wos, wos_lo), (wcin, wcin_lo), (wconv, wconv_lo) = (
+            split_tf32(t) for t in (wos, wcin, wconv))
+        los = (wos_lo, wcin_lo, wconv_lo)
+    # the top layer has no residual gradient: go's residual half stays 0
+    go = torch.zeros(N, C + S, dtype=wd, device=dev)
     dy = torch.empty(N, G, dtype=wd, device=dev)
     xd = torch.empty(N, C, dtype=wd, device=dev)
     h = torch.empty(N, Ch, dtype=wd, device=dev)
     dc = torch.empty(N, Ci, device=dev)
-    tiles = (N + 127) // 128
-    part = torch.empty(tiles, G + C + S, device=dev)
+    bpart = torch.empty(-(-N // 128), G + C + S, device=dev)
     sums = torch.empty(L, G + C + S, device=dev)
-    splits = (N + WGRAD_ROWS - 1) // WGRAD_ROWS
-    wpart = torch.empty(splits * max(C * G, Ci * G, Ch * (C + S)),
-                        device=dev)
+    rows_per, splits = wgrad_splits(
+        pp, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    wpart = torch.empty(splits * wgrad_tiles(pp) * 16384, device=dev)
     d_conv = torch.empty(L, 3, C, G, device=dev)
     d_cin = torch.empty(L, Ci, G, device=dev)
     d_os = torch.empty(L, Ch, C + S, device=dev)
@@ -621,30 +669,19 @@ def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
     keep24, inv_keep, drop = _keep_args(plan)
     wid = _width_args(plan, pp)
     st = _stream(dev)
-
-    def wgrad(P, Q, qoff, out):
-        check(lib.wn_wgrad(_ptr(P), P.shape[1], P.shape[1], _ptr(Q),
-                           Q.shape[1], Q.shape[1], qoff, N, WGRAD_ROWS,
-                           _ptr(wpart), _ptr(out), w_f32, st), "wn_wgrad")
-
+    n = ctypes.c_int(0)
     dres = None
     for l in reversed(range(L)):
-        d, key = plan.dil[l], layer_key(seed, l)
-        check(lib.wn_bwd_gate(
-            _ptr(dres), _ptr(dskip), _ptr(acts[l]), _ptr(wos[l]),
-            _ptr(wcin[l]), _ptr(go), _ptr(dy), _ptr(xd), _ptr(h), _ptr(dc),
-            _ptr(part), _ptr(sums[l]), N, *wid, key, keep24, inv_keep, drop,
-            plan.scales[l], plan.c_res, int(l < L - 1), w_f32, a_f32, st),
-            "wn_bwd_gate")
         out = bufs[l % 2]
-        check(lib.wn_bwd_dx(_ptr(dy), _ptr(wconv[l]), _ptr(dres), _ptr(out),
-                            N, plan.B, d, plan.C, C, Ch, key, keep24,
-                            inv_keep, drop, plan.c_res, w_f32, st),
-              "wn_bwd_dx")
-        for k in range(3):
-            wgrad(xd, dy, (2 - k) * d * plan.B, d_conv[l, k])
-        wgrad(cb, dy, 0, d_cin[l])
-        wgrad(h, go, 0, d_os[l])
+        check(lib.wn_bwd_layer(
+            _ptr(dres), _ptr(dskip), _ptr(acts[l]), _ptr(cb), _ptr(wos),
+            _ptr(wcin), _ptr(wconv), *(_ptr(t) for t in los), _ptr(go), _ptr(dy), _ptr(xd), _ptr(h),
+            _ptr(dc), _ptr(bpart), _ptr(wpart), _ptr(out), _ptr(d_conv[l]),
+            _ptr(d_cin[l]), _ptr(d_os[l]), _ptr(sums[l]), N, plan.B,
+            plan.dil[l], l, L, *wid, layer_key(seed, l), keep24, inv_keep,
+            drop, plan.scales[l], plan.c_res, int(l < L - 1), rows_per,
+            splits, w_f32, a_f32, st, ctypes.byref(n)), "wn_bwd_layer")
+        bwd_kernel_launches += n.value
         dres = out
     bwd_launches += 1
     dysum = sums[:, :G]
@@ -661,6 +698,42 @@ def stack_bwd_cuda(plan: StackPlan, sp: StackParams, acts, c2, dskip,
     if Ci != plan.Ci:
         dc = dc[:, :plan.Ci].contiguous()
     return d_sp, dres, dc
+
+
+def mainloop_product(a, b):
+    """The kernels' shared mainloop alone, on CUDA tensors: a [M, K] ·
+    b [Nc, K]ᵀ in f32 (bf16 operands on wgmma, f32 ones as 3xTF32), for
+    tests. Nc a multiple of 128; K a multiple of 64 (bf16) or 32 (f32)."""
+    from ..native.build import check
+    M, K = a.shape
+    out = torch.empty(M, b.shape[0], device=a.device)
+    b_lo = None
+    if a.dtype == torch.float32:
+        b, b_lo = split_tf32(b)
+    check(_lib().wn_mm_test(_ptr(a), _ptr(b), _ptr(b_lo), _ptr(out), M,
+                            b.shape[0], K,
+                            int(a.dtype == torch.float32),
+                            _stream(a.device)), "wn_mm_test")
+    return out
+
+
+def wgrad_product(p, q, qoff: int, splits: int):
+    """The weight-gradient launch and its reduction alone, on CUDA
+    tensors: Σ_r p[r]ᵀ · q[r + qoff] (q rows past the end read 0) in
+    `splits` row splits, for tests. q's width a multiple of 128."""
+    from ..native.build import check
+    rows, K1 = p.shape
+    K2 = q.shape[1]
+    rows_per = _up(-(-rows // splits), WGRAD_ROW_STEP)
+    splits = -(-rows // rows_per)
+    out = torch.empty(K1, K2, device=p.device)
+    part = torch.empty(splits * (_up(K1, 128) // 128) * (K2 // 128) * 16384,
+                       device=p.device)
+    check(_lib().wn_wgrad_test(_ptr(p), _ptr(q), _ptr(out), _ptr(part), rows,
+                               K1, K2, qoff, rows_per, splits,
+                               int(p.dtype == torch.float32),
+                               _stream(p.device)), "wn_wgrad_test")
+    return out
 
 
 def stack_fwd(plan: StackPlan, sp: StackParams, x0, c2, seed: int):

@@ -1094,10 +1094,12 @@ STACK_WIDTHS = {"r5": (128, 256, 128, 80, 4, 2),
 
 
 def _wavenet_stack_case(dev, B=4, T=300, widths="r5", wd="bfloat16",
-                        acts="bfloat16"):
+                        acts="bfloat16", layers_stacks=None):
     from tacotron2_tpu_torch import convert
     from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
     R, G, S, Ci, layers, stacks = STACK_WIDTHS[widths]
+    if layers_stacks:
+        layers, stacks = layers_stacks
     cfg = Config()
     cfg = cfg.replace(wavenet=dataclasses.replace(
         cfg.wavenet, layers=layers, stacks=stacks, residual_channels=R,
@@ -1121,9 +1123,17 @@ def test_wavenet_stack_kernels_match_plain(dev, widths, wd, acts):
     gradient, dx0, dc) against stack_fwd_plain / stack_bwd_plain, dropout
     0.05 from one seed, per weight type, saved-activation type and width
     set; a rerun is bit-exact; each wrapper counts its call."""
-    cfg, wtk, plan, sp, x0, c2, dskip = _wavenet_stack_case(
-        dev, widths=widths, wd=wd, acts=acts)
-    n0 = (wtk.fwd_launches, wtk.bwd_launches)
+    _hold_stack(*_wavenet_stack_case(dev, widths=widths, wd=wd, acts=acts),
+                wd, acts)
+
+
+def _hold_stack(cfg, wtk, plan, sp, x0, c2, dskip, wd, acts):
+    """Both kernels against their plain versions at one case; a backward
+    rerun is bit-exact; each wrapper counts its call, the forward a
+    pre-pass and one kernel launch a layer, the backward at most 4 a
+    layer."""
+    n0 = (wtk.fwd_launches, wtk.bwd_launches, wtk.bwd_kernel_launches,
+          wtk.fwd_kernel_launches)
     ks, ka = wtk.stack_fwd_cuda(plan, sp, x0, c2, 7)
     ps, pa = wtk.stack_fwd_plain(plan, sp, x0, c2, 7)
     kb = wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, 7)
@@ -1131,6 +1141,9 @@ def test_wavenet_stack_kernels_match_plain(dev, widths, wd, acts):
     again = wtk.stack_bwd_cuda(plan, sp, ka, c2, dskip, 7)
     torch.cuda.synchronize()
     assert (wtk.fwd_launches - n0[0], wtk.bwd_launches - n0[1]) == (1, 2)
+    per_layer = (wtk.bwd_kernel_launches - n0[2]) / (2 * plan.L)
+    assert per_layer <= 4, per_layer
+    assert wtk.fwd_kernel_launches - n0[3] == plan.L + 1
     assert ka.dtype == pa.dtype and ka.shape == pa.shape
     rel = lambda a, b: float((a - b).abs().max()) / float(b.abs().max())
     scale = lambda b: max(1.0, float(b.abs().max()))
@@ -1153,6 +1166,51 @@ def test_wavenet_stack_kernels_match_plain(dev, widths, wd, acts):
         assert rel(a, b) <= bwd_tol, name
     for a, b in zip([*kb[0], kb[1], kb[2]], [*again[0], again[1], again[2]]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_wavenet_stack_rows_and_dilations(dev, B, wd):
+    """The stack kernels at B 1, 3 and 16 with N = B·1,007 rows (not a
+    multiple of the 128-row tile) and 16 layers in 2 stacks, whose top
+    dilation shifts the taps 2·128·B rows, past a tile: against the plain
+    versions as above, bit-exact reruns, at most 4 launches a backward
+    layer."""
+    _hold_stack(*_wavenet_stack_case(dev, B=B, T=1007, wd=wd,
+                                     layers_stacks=(16, 2)), wd, "bfloat16")
+
+
+# The stack kernels' mainloop alone against torch.matmul (a yardstick in a
+# test only, TF32 off) at the r5 backward's shapes, N = 128,000 rows: dh =
+# go [N, 256] · W_os [128, 256]ᵀ (K-major on the ring) and the tap and cin
+# weight gradients Σ_r P[r]ᵀ·Q[r + 2·512·16] (MN-major, 13 row splits
+# summed in a fixed order). bf16 operands are exact in f32, so the two
+# differ in sum order only; f32 runs as 3xTF32 (each product ~2^-22 of
+# itself off) in another order: max |d| within these shares of max |ref|.
+MAINLOOP_RTOL = {"kmajor": 1e-5, "wgrad": 1e-4}
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_stack_mainloop_matches_matmul(dev, dt):
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(dev).manual_seed(5)
+    N, shift = 128_000, 2 * 512 * 16
+    a = torch.randn(N, 256, generator=g, device=dev).to(dt)
+    b = torch.randn(128, 256, generator=g, device=dev).to(dt)
+    got = wtk.mainloop_product(a, b)
+    want = a.float() @ b.float().t()
+    torch.cuda.synchronize()
+    rel = lambda x, y: float((x - y).abs().max()) / float(y.abs().max())
+    assert rel(got, want) <= MAINLOOP_RTOL["kmajor"]
+    q = torch.randn(N, 256, generator=g, device=dev).to(dt)
+    for K1 in (128, 80):
+        p = torch.randn(N, K1, generator=g, device=dev).to(dt)
+        got = wtk.wgrad_product(p, q, shift, 13)
+        want = p[:N - shift].float().t() @ q[shift:].float()
+        torch.cuda.synchronize()
+        assert got.shape == (K1, 256)
+        assert rel(got, want) <= MAINLOOP_RTOL["wgrad"], K1
 
 
 @pytest.mark.parametrize("wd", ["bfloat16", "float32"])
