@@ -182,6 +182,23 @@ Phases, each printing its wall seconds:
     bit for bit, the kernel launches a layer (a pre-pass and one a layer
     forward; at most 4 a layer backward), and each launch kind's device
     time at phase 19's shapes under torch.profiler;
+26. (s) the fork's Tacotron training modes at phase 16's shapes on a
+    train.txt over the r5 corpus's 128 train rows with synthetic labels
+    (emotion i mod 4, speaker (i // 4) mod 8, emt4 on even rows), the r5
+    weights and seeded new heads: with the unpaired/intercross pass, the
+    adversarial heads, nat-GAN, the refnet optimizer and the pretrained
+    classifiers all on, 8 nat-GAN discriminator-pretraining steps on one
+    batch (its 3-class loss falling, only nat-GAN's tensors moving, the
+    step at 0), then 8 feeder steps (every term finite, each optimizer
+    moving its masked tensors, the pretrained ones held, kernel 4a
+    launching 2 times and 4b 4 times a step, counted by the wrappers and
+    held against torch.profiler's launches by kernel name), the step's
+    time and split beside phase 16's; one step's three gradients in f32
+    through the fused route against autograd's backward on the same
+    forward values within 1e-4 of each one's largest magnitude (against
+    autograd through the plain decode printed beside); `emt_only` and the
+    `paper` preset's Tacotron from a fresh init, 8 steps on one batch, the
+    loss falling;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode and Griffin-Lim route.
 
@@ -194,6 +211,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1218,6 +1236,11 @@ def train_bound_s(dp, cfg, B, T, M, S, backward):
                                  else "bytes")
 
 
+# the step splits (ms) of the Tacotron training phases, for phase 26's
+# side-by-side print
+STEP_SPLITS = {}
+
+
 def training_phase(tparams, stats, seed):
     """Phase 16: Tacotron training at the r5 shapes. Returns the `kernels`
     entries of kernel 4a's train mode and kernel 4b."""
@@ -1435,6 +1458,7 @@ def training_phase(tparams, stats, seed):
                                  - split["backward (kernel 4b)"]
                                  - split["weight_grads"])
     print(f"  rest of backward {split['rest of backward']:.3f} ms")
+    STEP_SPLITS["phase 16"] = dict(split)
     assert all(np.isfinite(losses)), losses
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
     assert launches == (TRAIN_STEPS, TRAIN_STEPS), launches
@@ -3463,6 +3487,264 @@ def stack_rows_phase(wparams, seed):
     done(25, t0)
 
 
+# phase 26: the fork's Tacotron training modes at phase 16's shapes (B 16,
+# text padded to 96, mels to 448, bf16 compute). (b)'s tolerance, written
+# before the first run: the f32 fused route and autograd through the
+# plain decode compute one function, 4b's f32 products (3xTF32) against
+# cuBLAS's f32 ones in another order, so each whole gradient is held to
+# phase 20's BWD_RTOL (1e-4) of its largest magnitude. The first reading
+# (fused against decode="autograd") missed it in 'loss' (4.4e-4) and
+# 'd_loss' (5.8e-3), in nat-GAN's encoder alone, while 'loss_no_mo_up',
+# whose gradient crosses both passes' 4b, read 7e-8: nat-GAN's gradients
+# follow the difference of near-equal mels (targets, outputs), so the two
+# forwards' last digits (4a against the plain decode) move them, and
+# 'd_loss' reaches no decode backward at all. The gate therefore holds the
+# fused route against decode="replay" (autograd's backward through the
+# plain decode on the fused route's forward values), at the same 1e-4;
+# the fused-against-autograd reading is printed beside it.
+VARIANT_FLAGS = dict(use_unpaired=True, adv_emb_disc=True, nat_gan=True,
+                     opt_ref_no_mo=True, pretrained_emb_disc=True)
+VARIANT_STEPS, VARIANT_PRE_STEPS = 8, 8
+VARIANT_GRAD_RTOL = BWD_RTOL
+# kernel launches a step of the all-on trainer: 4a once a pass; 4b once a
+# pass for 'loss' and again for 'loss_no_mo_up' (both reach the two passes,
+# the second through nat-GAN's g_loss_up), none for 'd_loss'
+VARIANT_LAUNCHES = (2, 4)
+TF_KERNELS = ("decoder_rows_kernel", "decoder_bwd_kernel")
+
+
+def _graft(tree, r5):
+    """`tree` with the leaves that the r5 tree also holds taken from it."""
+    if not isinstance(tree, dict):
+        return r5 if r5 is not None else tree
+    return {k: _graft(v, r5.get(k) if isinstance(r5, dict) else None)
+            for k, v in tree.items()}
+
+
+def variant_train_txt(tmp, texts, cfg):
+    """A train.txt over the r5 corpus's train rows under `tmp`, with
+    synthetic labels: emotion i mod 4, speaker (i // 4) mod 8, dataset emt4
+    on even rows and vctk on odd ones (both directories link the corpus).
+    The labels exist only so that the feeder's reference and unpaired
+    draws cross classes; the corpus has none."""
+    for ds in ("emt4", "vctk"):
+        os.symlink(os.path.join(R5, "corpus"), os.path.join(tmp, ds))
+    hop = cfg.audio.effective_hop
+    path = os.path.join(tmp, "train.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        for i, t in enumerate(texts[:N_TRAIN]):
+            n = len(t) * int(0.06 * cfg.audio.sample_rate) // hop + 1
+            f.write(f"{'vctk' if i % 2 else 'emt4'}|audio-{i}.npy|"
+                    f"mel-{i}.npy|l|e|{n * hop}|{n}|{t}|{i % 4}|"
+                    f"{(i // 4) % 8}|utt{i}.wav|F\n")
+    return path
+
+
+def variants_phase(tparams, stats, seed, smi):
+    """Phase 26: the fork's Tacotron training modes on kernels 4a/4b."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron2_tpu_torch.convert import (flax_named_parameters,
+                                             init_tacotron, load_tacotron,
+                                             tacotron_to_flax)
+    from tacotron2_tpu_torch.data.feeder import TacotronFeeder
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    from tacotron2_tpu_torch.train.tacotron_step import (MODEL_FLAGS,
+                                                         StepTimer,
+                                                         TacotronTrainer)
+    cfg = train_config()
+    t0 = phase(26, f"(s) the fork's training modes: unpaired/intercross, "
+               f"adversarial heads, nat-GAN, the refnet optimizer, "
+               f"pretrained classifiers; emt_only; the paper preset (B="
+               f"{TRAIN_BATCH}, T_in {PAD_TEXT}, {PAD_MEL} steps)")
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="variants_")
+    feeder = TacotronFeeder(
+        cfg, variant_train_txt(tmp, corpus_texts(), cfg), unpaired=True,
+        intercross_both=True, batches_per_group=8,
+        pad_text_multiple=PAD_TEXT, pad_mel_multiple=PAD_MEL, seed=seed)
+    assert len(feeder.train_meta) == N_TRAIN, len(feeder.train_meta)
+    batches = feeder.train_batches(TRAIN_BATCH)
+    first = next(batches)
+    assert first["inputs"].shape == (TRAIN_BATCH, PAD_TEXT)
+    assert first["ref_mel_up_emt"].shape[:2] == (TRAIN_BATCH, PAD_MEL)
+    print(f"feeder: {len(feeder.train_meta)} train rows, crossed labels "
+          f"(emotion, speaker) of the first batch "
+          f"{list(zip(first['emt_up_labels'], first['spk_up_labels']))[:4]}")
+
+    # ---- (a) all on: the r5 weights, the new heads from a seeded draw
+    mflags = {k: v for k, v in VARIANT_FLAGS.items() if k in MODEL_FLAGS}
+    fresh = init_tacotron(cfg, torch.Generator().manual_seed(seed), "cpu",
+                          **mflags)
+    p0, s0 = tacotron_to_flax(fresh)
+    model = load_tacotron(Tacotron(cfg, **mflags), _graft(p0, tparams),
+                          _graft(s0, stats))
+    trainer = TacotronTrainer(cfg, **VARIANT_FLAGS)
+    state = trainer.init_state(model=model)
+    named = flax_named_parameters(state.model)
+    snap = lambda: [p.detach().clone() for _, p in named]
+    moved = lambda a, b: [not torch.equal(x, y) for x, y in zip(a, b)]
+    masks = {t: o.mask for t, o in state.optimizers()}
+    print("optimizers (masked-on tensors): " + ", ".join(
+        f"{t} {sum(m)}" for t, m in masks.items()) + f"; pretrained "
+        f"{sum('pretrained' in n for n, _ in named)}, of {len(named)}")
+
+    before = snap()
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    d_losses, d3 = [], []
+    tk.train_launches = tk.bwd_launches = 0
+    for _ in range(VARIANT_PRE_STEPS):
+        state, dm = trainer.disc_pretrain_step(state, first, gen)
+        d_losses.append(float(dm["d_loss"]))
+        d3.append(sum(float(dm[k])
+                      for k in ("d_loss_targ", "d_loss_p", "d_loss_up")))
+    pre_launches = (tk.train_launches, tk.bwd_launches)
+    changed = moved(before, snap())
+    off = [n for (n, _), c in zip(named, changed) if c and "nat_gan" not in n]
+    print(f"nat-GAN discriminator pretraining, {VARIANT_PRE_STEPS} steps on "
+          f"one batch: d_loss " + " ".join(f"{x:.4f}" for x in d_losses)
+          + "; its 3-class part " + " ".join(f"{x:.4f}" for x in d3)
+          + f"; tensors moved {sum(changed)} (nat_gan "
+          f"{sum(masks['d_loss'])}), outside nat_gan {off}; step "
+          f"{state.step}; launches 4a {pre_launches[0]}, 4b "
+          f"{pre_launches[1]}")
+    # the gate is on d_loss's 3-class part, which the discriminator
+    # minimises: its 0.1-weighted emotion and speaker terms reach the
+    # encoder through gradient reversal, which trains it to raise them
+    assert np.isfinite(d_losses).all() and d3[-1] < d3[0], d3
+    assert not off and state.step == 0 and sum(changed) > 0
+    assert pre_launches == (2 * VARIANT_PRE_STEPS, 0), pre_launches
+
+    before = snap()
+    steps, split, bad = [], {}, []
+    tk.train_launches = tk.bwd_launches = 0
+    for i in range(VARIANT_STEPS):
+        timed = i >= 4
+        trainer.timer = StepTimer() if timed else None
+        torch.cuda.synchronize()
+        ts = time.time()
+        state, m = trainer.train_step(state, next(batches), gen)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.time() - ts)
+        steps.append({k: float(v) for k, v in m.items()})
+        bad += [(i, k) for k, v in steps[-1].items() if not np.isfinite(v)]
+        if timed:
+            for k, v in trainer.timer.totals().items():
+                split[k] = split.get(k, 0.0) + v / 4
+            split["step (host clock)"] = split.get(
+                "step (host clock)", 0.0) + ms / 4
+    trainer.timer = None
+    launches = (tk.train_launches, tk.bwd_launches)
+    changed = moved(before, snap())
+    per_opt = {t: (sum(c for c, on in zip(changed, mk) if on), sum(mk))
+               for t, mk in masks.items()}
+    held = [n for (n, _), c in zip(named, changed)
+            if "pretrained" in n and c]
+    print(f"{VARIANT_STEPS} all-on train steps: loss " + " ".join(
+        f"{s_['loss']:.4f}" for s_ in steps) + "; last step's terms " +
+        ", ".join(f"{k} {v:.4f}" for k, v in steps[-1].items()))
+    print(f"moved by each optimizer (tensors moved / masked on): {per_opt}; "
+          f"pretrained tensors moved: {held}; kernel launches 4a "
+          f"{launches[0]}, 4b {launches[1]} "
+          f"({launches[0] / VARIANT_STEPS:g} / "
+          f"{launches[1] / VARIANT_STEPS:g} a step)")
+    assert not bad, bad
+    assert all(got >= 0.9 * n for got, n in per_opt.values()), per_opt
+    assert not held, held
+    assert launches == tuple(VARIANT_STEPS * n for n in VARIANT_LAUNCHES)
+
+    # the wrappers' counts of one more step against torch.profiler's
+    n0 = (tk.train_launches, tk.bwd_launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.train_step(state, next(batches), gen)
+        torch.cuda.synchronize()
+    counted = (tk.train_launches - n0[0], tk.bwd_launches - n0[1])
+    seen = tuple(sum(name in e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                 for name in TF_KERNELS)
+    print(f"one all-on step: launches counted by the wrappers {counted}, "
+          f"seen by torch.profiler by kernel name {seen}")
+    assert counted == seen == VARIANT_LAUNCHES, (counted, seen)
+
+    split["rest of backward"] = (split["backward"]
+                                 - split["backward (kernel 4b)"]
+                                 - split["weight_grads"])
+    base = STEP_SPLITS.get("phase 16", {})
+    print(f"all-on bf16 step, ms (mean of steps 5-8; {smi}), beside phase "
+          f"16's default step:")
+    for k in ("step (host clock)", "memory pass forward",
+              "train forward (kernel 4a)", "backward (kernel 4b)",
+              "weight_grads", "rest of backward", "backward", "optimizer",
+              "optimizer (refnet)", "optimizer (nat-GAN)"):
+        print(f"  {k}: {split.get(k, 0.0):.3f}"
+              + (f" (phase 16: {base[k]:.3f})" if k in base else ""))
+    STEP_SPLITS["phase 26"] = dict(split)
+    del state, trainer
+
+    # ---- (b) the three gradients of one step in f32, fused route against
+    # autograd through the plain decode, the same weights, batch and draws
+    cfg32 = with_tacotron(cfg, fused_train_dtype="float32")
+    trainer = TacotronTrainer(cfg32, **VARIANT_FLAGS)
+    state = trainer.init_state(model=model)
+    bufs = {n: b.clone() for n, b in model.named_buffers()}
+    got = {}
+    for route in ("fused", "autograd", "replay"):
+        for n, b in model.named_buffers():
+            b.copy_(bufs[n])
+        tk.train_launches = tk.bwd_launches = 0
+        terms, _, grads, _ = trainer.step_gradients(
+            state, first, torch.Generator(device=dev).manual_seed(seed),
+            decode=route)
+        got[route] = (float(terms["loss"].detach()), {
+            t: torch.cat([x.flatten() for x in g if x is not None])
+            for t, g in grads.items()}, (tk.train_launches, tk.bwd_launches))
+    for n, b in model.named_buffers():
+        b.copy_(bufs[n])
+    errs = {ref: {t: float((got["fused"][1][t] - y).abs().max())
+                  / float(y.abs().max()) for t, y in got[ref][1].items()}
+            for ref in ("autograd", "replay")}
+    print(f"f32 gradients (launches 4a, 4b: " + ", ".join(
+        f"{r} {got[r][2]}" for r in got) + "; loss " + " / ".join(
+        f"{got[r][0]:.6f}" for r in got) + "), max |fused - reference| / "
+        "max |reference| per target: " + "; ".join(
+            f"against {ref}: " + ", ".join(f"{t} {v:.2e}"
+                                            for t, v in e.items())
+            for ref, e in errs.items()))
+    assert (got["fused"][2], got["autograd"][2], got["replay"][2]) == (
+        VARIANT_LAUNCHES, (0, 0), (VARIANT_LAUNCHES[0], 0)), got
+    assert set(errs["replay"]) == {"loss", "loss_no_mo_up", "d_loss"}
+    assert max(errs["replay"].values()) <= VARIANT_GRAD_RTOL, errs
+    del got, state, trainer, model
+
+    # ---- (c) emt_only, then the paper preset's Tacotron, from a fresh init
+    paper = cfg.replace(gst=dataclasses.replace(
+        cfg.gst, use_gst=False, use_style_emb_disc=False,
+        use_orthog_loss=False))
+    for name, c, flags in (("emt_only", cfg, dict(emt_only=True)),
+                           ("paper (use_gst=False)", paper, {})):
+        trainer = TacotronTrainer(c, **flags)
+        state = trainer.init_state(torch.Generator().manual_seed(seed))
+        g_c = torch.Generator(device=dev).manual_seed(seed + 4)
+        losses = []
+        tk.train_launches = tk.bwd_launches = 0
+        for _ in range(VARIANT_STEPS):
+            state, m = trainer.train_step(state, first, g_c)
+            losses.append(float(m["loss"]))
+        print(f"{name}: {VARIANT_STEPS} steps on one batch from init_tacotron"
+              f", memory width {state.model.memory_width}: loss " + " ".join(
+                  f"{x:.4f}" for x in losses) + f"; launches 4a "
+              f"{tk.train_launches}, 4b {tk.bwd_launches}")
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        assert (tk.train_launches, tk.bwd_launches) == (VARIANT_STEPS,
+                                                       VARIANT_STEPS)
+        del state, trainer
+    shutil.rmtree(tmp, ignore_errors=True)
+    done(26, t0)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4200,6 +4482,9 @@ def main(argv=None):
 
     # ---- 25. (r) kernels 5a and 5b at B=1, 3 and 32; launches a layer
     stack_rows_phase(wparams, seed)
+
+    # ---- 26. (s) the fork's Tacotron training modes on kernels 4a/4b
+    variants_phase(tparams, stats, seed, smi)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

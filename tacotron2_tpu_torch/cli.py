@@ -35,8 +35,12 @@ in <output-dir>/serve/speech-NNNNN.wav.
 checkpointing under <base-dir>/logs-<model>:
 - `--model Tacotron`: the Tacotron trainer (`train/tacotron_train.py`) on
   the train.txt of --input-path (checkpoints in taco_pretrained/, the
-  curve in taco_curve.jsonl); the default trainer only (the fork's
-  training flags raise);
+  curve in taco_curve.jsonl), with the fork's training flags, which reach
+  the feeder and the trainer as the JAX command passes them (`--emt-only`,
+  `--intercross-both`, `--unpaired`, `--adv-emb-disc`, `--nat-gan`,
+  `--opt-ref-no-mo`, `--pretrained-emb-disc(-all)`, `--remove-long-samps`,
+  `--test-inputs`, `--test-max-len`); `--pretrained-disc-emt/-spk` and
+  `--save-output-vars` exit with their names;
 - `--model WaveNet`: the vocoder trainer (`train/wavenet_train.py`) on a
   GTA map.txt (or a train.txt with --no-gta) of (audio, mel) pairs
   (checkpoints in wave_pretrained/, which `synthesize
@@ -275,10 +279,11 @@ def read_seq(path: str) -> set:
 def cmd_train(args):
     """Train Tacotron, WaveNet, or both with GTA synthesis between; returns
     the last stage's checkpoint directory."""
-    on = [f for f in TRAIN_FLAGS if getattr(args, f.replace("-", "_"))]
-    if on or args.pretrained_disc_emt or args.pretrained_disc_spk:
-        raise SystemExit(f"train: {on or ['--pretrained-disc-*']} is not in "
-                         "the port (the default trainer only)")
+    off = [f"--{f.replace('_', '-')}" for f in (
+        "pretrained_disc_emt", "pretrained_disc_spk", "save_output_vars")
+        if getattr(args, f)]
+    if off:
+        raise SystemExit(f"train: {' '.join(off)} is not in the port")
     cfg = get_config(args.preset, args.hparams)
     log_dir = os.path.join(args.base_dir, f"logs-{args.model}")
     os.makedirs(log_dir, exist_ok=True)
@@ -292,13 +297,33 @@ def cmd_train(args):
     return _train_sequencer(cfg, args, log_dir)
 
 
+def feeder_kwargs(args) -> dict:
+    """The feeder's options of the train flags (JAX cli.py:88-93)."""
+    return dict(emt_only=args.emt_only,
+                intercross_both=args.intercross_both,
+                unpaired=args.unpaired,
+                remove_long_samples=args.remove_long_samps,
+                test_inputs=args.test_inputs,
+                test_max_len=args.test_max_len)
+
+
+def trainer_kwargs(args) -> dict:
+    """The trainer's flags of the train flags (JAX cli.py:94-98)."""
+    return dict(emt_only=args.emt_only, adv_emb_disc=args.adv_emb_disc,
+                nat_gan=args.nat_gan, use_unpaired=args.unpaired,
+                opt_ref_no_mo=args.opt_ref_no_mo,
+                pretrained_emb_disc=args.pretrained_emb_disc,
+                pretrained_emb_disc_all=args.pretrained_emb_disc_all)
+
+
 def _train_tacotron(cfg, args, log_dir):
     from .train.tacotron_train import tacotron_train
     ckpt_dir, _ = tacotron_train(
         cfg, args.input_path, log_dir, train_steps=args.train_steps,
         restore=args.restore, batch_size=args.batch_size,
         device=args.device, checkpoint_interval=args.checkpoint_interval,
-        eval_interval=args.eval_interval)
+        eval_interval=args.eval_interval, feeder_kwargs=feeder_kwargs(args),
+        trainer_kwargs=trainer_kwargs(args))
     return ckpt_dir
 
 
@@ -334,7 +359,10 @@ def _train_sequencer(cfg, args, log_dir):
         mgr = CheckpointManager(taco_dir)
         tree = flax_msgpack.load(mgr.path(mgr.latest_step()))
         synth = TacotronSynthesizer(cfg, tree["params"], tree["batch_stats"],
-                                    device=args.device)
+                                    device=args.device,
+                                    emt_only=args.emt_only,
+                                    pretrained_emb_disc_all=(
+                                        args.pretrained_emb_disc_all))
         run_gta_synthesis(synth, args.input_path, out_dir,
                           batch_size=args.batch_size or 32)
         done.add("GTA")
@@ -446,6 +474,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--eval-interval", type=int, default=None)
     tr.add_argument("--pretrained-disc-emt", default=None)
     tr.add_argument("--pretrained-disc-spk", default=None)
+    tr.add_argument("--save-output-vars", action="store_true")
     for flag in TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", action="store_true")
     tr.add_argument("--device", default="cuda")

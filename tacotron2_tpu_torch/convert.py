@@ -14,8 +14,11 @@ Takes what the JAX package trains and checkpoints — the Tacotron
   emt_attn variant's BiGRU or 8 GRU heads), GST tokens and attention, the
   decoder (flax layout as it is, with the emt attention's W1/W2/V or
   q_proj/k_proj/attention_* and attn_emt_out), postnet and its
-  projection, the style classifier heads; `init_tacotron` draws a fresh
-  one from the flax initialisers' distributions;
+  projection, the style classifier heads and the training heads (the
+  adversarial `style_disc_*_adv`, nat-GAN's `nat_gan_enc` and
+  `nat_gan_disc*`, the frozen `pretrained_ref_enc_*` encoders and their
+  `_dense` heads); `init_tacotron` draws a fresh one from the flax
+  initialisers' distributions;
 - `WaveNet` (models/wavenet/model.py), both ways (`wavenet_from_flax`,
   `wavenet_to_flax`): the SubPixel upsample convs and the conv stack,
   weight-normed convs as their `v`, `g` and `bias`; `init_wavenet` draws
@@ -60,6 +63,9 @@ def _set(param: torch.Tensor, value) -> None:
 # rule (the flax trees as models/tacotron/model.py's JAX Tacotron builds
 # them). Conv kernels change layout on the way (`_LAYOUT`); the encoder
 # LSTM biases carry the folded forget bias (`_lstm_offset`).
+# the reference encoders: the model's two, the frozen pretrained
+# classifiers' and nat-GAN's
+_REF = r"(refnet_\w+?|pretrained_ref_enc_(?:emt|spk)|nat_gan_enc)"
 _RULES = [
     (r"embedding", "inputs_embedding/embedding"),
     (r"(encoder_conv|postnet)\.layers\.(\d+)\.weight",
@@ -69,20 +75,21 @@ _RULES = [
     (r"(encoder_conv|postnet)\.layers\.(\d+)\.bn\.(\w+)",
      r"\1/ConvBlock_\2/BatchNorm_0/\3"),
     (r"encoder_lstm\.(fw|bw)\.(kernel|bias)", r"encoder_lstm/\1/\2"),
-    (r"(refnet_\w+?)\.convs\.(\d+)", r"\1/conv2d_\2/kernel"),
-    (r"(refnet_\w+?)\.conv_biases\.(\d+)", r"\1/conv2d_\2/bias"),
-    (r"(refnet_\w+?)\.bns\.(\d+)\.(\w+)", r"\1/BatchNorm_\2/\3"),
-    (r"(refnet_\w+?)\.gru\.(\w+)", r"\1/GRU_0/GRUCell_0/\2"),
-    (r"(refnet_\w+?)\.dense\.(\w+)", r"\1/Dense_0/\2"),
-    (r"(refnet_\w+?)\.bigru\.(fw|bw)\.(\w+)", r"\1/BiGRU_0/\2/GRUCell_0/\3"),
-    (r"(refnet_\w+?)\.grus\.(\d+)\.(\w+)", r"\1/gru_\2/GRUCell_0/\3"),
-    (r"(refnet_\w+?)\.denses\.(\d+)\.(\w+)", r"\1/dense_\2/\3"),
+    (_REF + r"\.convs\.(\d+)", r"\1/conv2d_\2/kernel"),
+    (_REF + r"\.conv_biases\.(\d+)", r"\1/conv2d_\2/bias"),
+    (_REF + r"\.bns\.(\d+)\.(\w+)", r"\1/BatchNorm_\2/\3"),
+    (_REF + r"\.gru\.(\w+)", r"\1/GRU_0/GRUCell_0/\2"),
+    (_REF + r"\.dense\.(\w+)", r"\1/Dense_0/\2"),
+    (_REF + r"\.bigru\.(fw|bw)\.(\w+)", r"\1/BiGRU_0/\2/GRUCell_0/\3"),
+    (_REF + r"\.grus\.(\d+)\.(\w+)", r"\1/gru_\2/GRUCell_0/\3"),
+    (_REF + r"\.denses\.(\d+)\.(\w+)", r"\1/dense_\2/\3"),
     (r"(gst_attn_\w+?)\.(q_proj|k_proj)\.(\w+)", r"\1/\2/\3"),
     (r"(gst_attn_\w+?)\.(attention_\w)", r"\1/\2"),
     (r"(style_tokens_\w+)", r"\1"),
     (r"decoder\.(.+)", lambda m: "decoder/cell/" + m.group(1).replace(".", "/")),
-    (r"(postnet_projection|style_disc_\w+?)\.(kernel|bias)",
-     r"\1/Dense_0/\2"),
+    (r"(postnet_projection|style_disc_\w+?|nat_gan_disc\w*?)\."
+     r"(kernel|bias)", r"\1/Dense_0/\2"),
+    (r"(pretrained_ref_enc_(?:emt|spk)_dense)\.(kernel|bias)", r"\1/\2"),
 ]
 # flax layout of a torch conv weight: [out, in, k] -> [k, in, out];
 # [out, in, kh, kw] -> [kh, kw, in, out]
@@ -181,10 +188,13 @@ def load_tacotron(model: Tacotron, params: Mapping,
 
 
 def tacotron_from_flax(cfg: Config, params: Mapping, batch_stats: Mapping,
-                       device="cuda", emt_only: bool = False) -> Tacotron:
+                       device="cuda", emt_only: bool = False,
+                       pretrained_emb_disc_all: bool = False) -> Tacotron:
     """Build the port's Tacotron for inference (eval mode, parameters
-    frozen) from flax `params`/`batch_stats`."""
-    m = load_tacotron(Tacotron(cfg, emt_only), params, batch_stats)
+    frozen) from flax `params`/`batch_stats`; `pretrained_emb_disc_all`
+    for weights trained with it (its style path bypasses GST)."""
+    m = load_tacotron(Tacotron(cfg, emt_only, pretrained_emb_disc_all=
+                               pretrained_emb_disc_all), params, batch_stats)
     return m.to(device).eval().requires_grad_(False)
 
 
@@ -198,15 +208,16 @@ def _glorot(shape, g) -> torch.Tensor:
 
 
 def init_tacotron(cfg: Config, generator=None, device="cuda",
-                  emt_only: bool = False) -> Tacotron:
+                  emt_only: bool = False, **flags) -> Tacotron:
     """A freshly initialised Tacotron, drawn from the distributions of the
     JAX package's flax initialisers (not their values): glorot-uniform
     kernels and embedding, zero biases, GRU gate biases 1, BatchNorm scale
     1, style tokens truncated-normal(0.5) within ±2σ, the GST scorer's v
     uniform ±sqrt(6/hd) and g sqrt(1/hd); BatchNorm statistics (0, 1), as
-    the module starts them."""
+    the module starts them. `flags` are the model's training heads
+    (`Tacotron`'s keywords)."""
     g = generator if generator is not None else torch.Generator()
-    model = Tacotron(cfg, emt_only)
+    model = Tacotron(cfg, emt_only, **flags)
     params, stats = tacotron_to_flax(model)
     new = {}
     for name, _ in model.named_parameters():

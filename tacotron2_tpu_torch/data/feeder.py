@@ -17,11 +17,23 @@ path (the JAX package's native loader falls back to `np.load`,
 - reference mels: emt4/emth rows take a random same-emotion row's mel as
   the emotion reference and their own as the speaker reference; other
   rows a random same-speaker row's as the speaker reference and their own
-  as the emotion reference;
+  as the emotion reference; with `emt_only` a same-emotion emt4/emth
+  row's as the emotion reference and no speaker reference; with
+  `intercross_both` a same-speaker row's as the speaker reference and
+  their own as the emotion reference (`intercross_spk_only`: emotion or
+  speaker, drawn);
+- `unpaired`: crossed references for the second decode pass, a random
+  emotion and speaker class (of the classes present, without class "0"
+  under `no_general`) and a random row of each, or the paired references
+  with `up_ref_match_p`; their keys (ref_mel_up_emt / _spk,
+  emt_up_labels / spk_up_labels) go into train batches only;
+- the debug options: `remove_long_samples` (rows named *_021.wav or
+  *_023.wav, or of 500 frames or more, dropped), `test_inputs` (constant
+  30-frame examples) and `test_max_len` (longest rows first);
 - `prefetch`, a background thread.
 
-The emt_only, intercross, unpaired and debug (test_inputs, test_max_len,
-remove_long_samples) options are not ported.
+The random draws come from one numpy Generator in the JAX feeder's
+order, so that the two feeders give the same batches.
 """
 
 from __future__ import annotations
@@ -67,11 +79,22 @@ class TacotronFeeder:
     """Batched example stream for Tacotron training."""
 
     def __init__(self, cfg: Config, metadata_path: str, *,
+                 emt_only: bool = False, intercross_both: bool = False,
+                 intercross_spk_only: bool = False, unpaired: bool = False,
+                 up_ref_match_p: bool = False, no_general: bool = False,
+                 remove_long_samples: bool = False,
                  batches_per_group: Optional[int] = None,
                  pad_text_multiple: int = 1, pad_mel_multiple: int = 1,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, test_inputs: bool = False,
+                 test_max_len: bool = False):
         self.cfg = cfg
         self.data_folder = os.path.dirname(metadata_path)
+        self.emt_only = emt_only
+        self.intercross_both = intercross_both
+        self.intercross_spk_only = intercross_spk_only
+        self.unpaired = unpaired
+        self.up_ref_match_p = up_ref_match_p
+        self.test_inputs = test_inputs
         self.pad_text_multiple = pad_text_multiple
         self.pad_mel_multiple = pad_mel_multiple
         self.batches_per_group = batches_per_group or cfg.data.batches_per_group
@@ -80,6 +103,12 @@ class TacotronFeeder:
             seed if seed is not None else cfg.train.tacotron_data_random_state)
         with open(metadata_path, encoding="utf-8") as f:
             meta = [line.strip().split("|") for line in f if line.strip()]
+        if remove_long_samples:
+            before = len(meta)
+            meta = [m for m in meta if not m[10].endswith(("_023.wav",
+                                                           "_021.wav"))]
+            meta = [m for m in meta if int(m[6]) < 500]
+            print(f"Removed long samples: {before} -> {len(meta)}")
         self.metadata = meta
         hop_s = cfg.audio.effective_hop / cfg.audio.sample_rate
         hours = sum(int(m[6]) for m in meta) * hop_s / 3600
@@ -91,6 +120,15 @@ class TacotronFeeder:
         self.train_meta = [meta[i] for i in train_idx]
         self.test_meta = [meta[i] for i in test_idx]
         self._train_offset = 0
+        if test_max_len:
+            for rows in (self.train_meta, self.test_meta):
+                rows.sort(key=lambda m: int(m[6]), reverse=True)
+            print("TESTING MAX LENGTH FOR SAMPLES TO FIND MAX BATCH SIZE")
+        emts, spks = sorted({m[8] for m in meta}), sorted({m[9] for m in meta})
+        if no_general:
+            emts = [e for e in emts if e != "0"]
+            spks = [x for x in spks if x != "0"]
+        self.emt_list, self.spk_list = emts, spks
         self._target_pad = (-cfg.audio.max_abs_value
                             if cfg.audio.symmetric_mels else 0.0)
 
@@ -109,22 +147,65 @@ class TacotronFeeder:
         """One example with its reference mels (feeder.py:332-450)."""
         dataset, text = meta[0], meta[7]
         emt_label, spk_label = meta[8], meta[9]
+        nm = self.cfg.audio.num_mels
+        if self.test_inputs:
+            mel = np.ones((30, nm), np.float32)
+            return dict(
+                inputs=np.asarray(text_to_sequence("hello", self.cleaners),
+                                  np.int32),
+                mel_target=mel, token_target=np.zeros((29,), np.float32),
+                emt_label=int(emt_label), spk_label=int(spk_label),
+                ref_mel_emt=mel, ref_mel_spk=mel,
+                emt_up_label=int(float(emt_label)),
+                spk_up_label=int(float(spk_label)),
+                ref_mel_up_emt=mel, ref_mel_up_spk=mel, mel_length=30)
         inputs = np.asarray(text_to_sequence(text, self.cleaners), np.int32)
         mel = self._load_mel(meta)
         rows = self.train_meta
-        if dataset in ("emt4", "emth"):
+        load = lambda row: self._load_mel(row) if row is not None else mel
+        emotional = lambda m: m[0] in ("emt4", "emth") and m[8] == emt_label
+        if self.emt_only:
+            ref_spk = np.zeros((1, nm), np.float32)
+            ref_emt = load(self._random_row_where(rows, emotional))
+        elif self.intercross_both or self.intercross_spk_only:
+            chosen = (self.rng.choice(["emt", "spk"])
+                      if self.intercross_spk_only else "spk")
+            label, col = ((emt_label, 8) if chosen == "emt"
+                          else (spk_label, 9))
+            same = load(self._random_row_where(
+                rows, lambda m: m[col] == label))
+            ref_emt, ref_spk = ((same, mel) if chosen == "emt"
+                                else (mel, same))
+        elif dataset in ("emt4", "emth"):
             ref_spk = mel
-            row = self._random_row_where(
-                rows, lambda m: m[0] in ("emt4", "emth") and m[8] == emt_label)
-            ref_emt = self._load_mel(row) if row is not None else mel
+            ref_emt = load(self._random_row_where(rows, emotional))
         else:
             ref_emt = mel
-            row = self._random_row_where(rows, lambda m: m[9] == spk_label)
-            ref_spk = self._load_mel(row) if row is not None else mel
+            ref_spk = load(self._random_row_where(
+                rows, lambda m: m[9] == spk_label))
+        up_emt = up_spk = np.zeros((1, nm), np.float32)
+        emt_up, spk_up = emt_label, spk_label
+        if self.unpaired:
+            if self.up_ref_match_p:
+                up_emt, up_spk = ref_emt, ref_spk
+            else:
+                emt_up = str(self.rng.choice(self.emt_list))
+                spk_up = str(self.rng.choice(self.spk_list))
+                row_e = self._random_row_where(rows,
+                                               lambda m: m[8] == emt_up)
+                row_s = self._random_row_where(rows,
+                                               lambda m: m[9] == spk_up)
+                if row_e is not None:
+                    up_emt = self._load_mel(row_e)
+                if row_s is not None:
+                    up_spk = self._load_mel(row_s)
         return dict(inputs=inputs, mel_target=mel,
                     token_target=np.zeros((len(mel) - 1,), np.float32),
                     emt_label=int(emt_label), spk_label=int(spk_label),
                     ref_mel_emt=ref_emt, ref_mel_spk=ref_spk,
+                    emt_up_label=int(float(emt_up)),
+                    spk_up_label=int(float(spk_up)),
+                    ref_mel_up_emt=up_emt, ref_mel_up_spk=up_spk,
                     mel_length=len(mel))
 
     def _next_train_example(self) -> Dict:
@@ -138,8 +219,10 @@ class TacotronFeeder:
 
     # --------------------------------------------------------------- batches
 
-    def _pad_batch(self, examples: List[Dict]) -> Dict[str, np.ndarray]:
-        """Pad and stack one batch (feeder.py:458-585)."""
+    def _pad_batch(self, examples: List[Dict], train: bool
+                   ) -> Dict[str, np.ndarray]:
+        """Pad and stack one batch (feeder.py:458-585); a train batch of
+        the unpaired feeder also carries the crossed references."""
         r = self.cfg.tacotron.outputs_per_step
         lengths = np.asarray([len(e["inputs"]) for e in examples], np.int32)
         in_max = _round_up(int(lengths.max()), self.pad_text_multiple)
@@ -160,7 +243,7 @@ class TacotronFeeder:
         tokens = np.stack([
             np.pad(e["token_target"], (0, tok_max - len(e["token_target"])),
                    constant_values=1.0) for e in examples])
-        return dict(
+        batch = dict(
             inputs=inputs, input_lengths=lengths,
             mel_targets=pad_targets("mel_target"),
             stop_token_targets=tokens.astype(np.float32),
@@ -172,6 +255,13 @@ class TacotronFeeder:
                                   np.int32),
             ref_mel_emt=pad_targets("ref_mel_emt"),
             ref_mel_spk=pad_targets("ref_mel_spk"))
+        if train and self.unpaired:
+            for k in ("emt", "spk"):
+                batch[f"{k}_up_labels"] = np.asarray(
+                    [e[f"{k}_up_label"] for e in examples], np.int32)
+            for k in ("emt", "spk"):
+                batch[f"ref_mel_up_{k}"] = pad_targets(f"ref_mel_up_{k}")
+        return batch
 
     def train_batches(self, batch_size: Optional[int] = None
                       ) -> Iterator[Dict]:
@@ -185,14 +275,14 @@ class TacotronFeeder:
             self.rng.shuffle(batches)
             for b in batches:
                 if len(b) == n:
-                    yield self._pad_batch(b)
+                    yield self._pad_batch(b, train=True)
 
     def test_batches(self, batch_size: Optional[int] = None) -> List[Dict]:
         """Fixed eval batches over the whole test split."""
         n = batch_size or self.cfg.train.tacotron_batch_size
         examples = [self._get_example(m) for m in self.test_meta]
         examples.sort(key=lambda e: e["mel_length"])
-        return [self._pad_batch(examples[i:i + n])
+        return [self._pad_batch(examples[i:i + n], train=False)
                 for i in range(0, len(examples), n) if i + n <= len(examples)]
 
     def prefetch(self, iterator: Iterator[Dict], depth: int = 8

@@ -1,15 +1,22 @@
 """Tacotron loss assembly (PyTorch).
 
 Counterpart of tacotron2_tpu/models/tacotron/losses.py `compute_losses`
-(:115) for the default trainer flags: before and after MSE (masked or not,
-as `mask_decoder` says), the stop-token cross-entropy on logits, the L2
-regularisation with the reference's name-based exclusions over the
-flax-named parameters (:95-113) and `tacotron_scale_regularization`, the
-style-embedding softmax cross-entropy of both classifier heads, and the
-orthogonality term 0.02·‖E_emt·E_spkᵀ‖_F. The unpaired, nat-GAN,
-adversarial and pretrained-discriminator terms are not ported: their
-flags raise (`train/tacotron_step.py`), and their entries read 0 here, as
-they do in JAX with those flags off.
+(:115-268): before and after MSE (masked or not, as `mask_decoder` says),
+the stop-token cross-entropy on logits, the L2 regularisation with the
+reference's name-based exclusions over the flax-named parameters
+(:95-113) and `tacotron_scale_regularization`, the style-embedding
+softmax cross-entropy of both classifier heads and, with `adv_emb_disc`,
+of the adversarial heads against the other label; the unpaired pass's
+terms (its own heads on the crossed references' labels, and the heads on
+`mel_outputs_up`, derated by `unpaired_loss_derate`), or under
+`pretrained_emb_disc_all` the cosine terms between the crossed references'
+embeddings and those of `mel_outputs_up`; the orthogonality term
+0.02·‖E_emt·E_spkᵀ‖_F over both passes (none under `emt_only`);
+nat-GAN's 3-class discriminator loss `d_loss` with its 0.1-weighted
+emotion and speaker heads, and the generator terms `g_loss_p` /
+`g_loss_up` derated by `nat_gan_derate`; `loss` and `loss_no_mo_up` as
+JAX assembles them. Not ported: the linear loss (`predict_linear`) and
+`l2_spk_emb` (emt_attn training), which the trainer refuses.
 """
 
 from __future__ import annotations
@@ -24,11 +31,8 @@ from ...config import Config
 # parameter-path tokens the L2 term leaves out (tacotron.py:862-867)
 L2_EXCLUDED = ("bias", "projection", "inputs_embedding", "lstm", "rnn", "gru",
                "fw", "bw")
-# the JAX terms that stay 0 without the unported flags
-ZERO_TERMS = ("linear_loss", "style_emb_loss_up_emt", "style_emb_loss_up_spk",
-              "style_emb_loss_mel_out_up_emt",
-              "style_emb_loss_mel_out_up_spk", "g_loss_p", "g_loss_up",
-              "d_loss")
+# the JAX term that stays 0 without `predict_linear`
+ZERO_TERMS = ("linear_loss",)
 
 
 def sequence_mask(lengths, max_len: int):
@@ -80,16 +84,29 @@ def l2_regularization(named_params: Iterable[Tuple[str, torch.Tensor]],
     return total * reg_weight
 
 
-def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config
-                   ) -> Dict[str, torch.Tensor]:
-    """Every loss term, 'loss' (the optimizer's target) and 'loss_no_mo_up'
-    (equal to it without the unpaired terms). `out` is
-    `Tacotron.forward`'s dict, `batch` holds mel_targets,
-    stop_token_targets, targets_lengths, emt_labels and spk_labels as
+def cossim(x, y):
+    """Cosine similarity of two whole tensors (tacotron.py:1267-1276)."""
+    xn = torch.sqrt((x ** 2).sum() + 1e-6)
+    yn = torch.sqrt((y ** 2).sum() + 1e-6)
+    return (x * y).sum() / xn / yn
+
+
+def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
+                   use_unpaired: bool = False, nat_gan: bool = False,
+                   adv_emb_disc: bool = False, emt_only: bool = False,
+                   pretrained_emb_disc_all: bool = False,
+                   nat_gan_derate: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Every loss term and the three optimizer targets: 'loss' (the main
+    optimizer's), 'loss_no_mo_up' (the refnet optimizer's: 'loss' without
+    the terms on `mel_outputs_up`) and 'd_loss' (nat-GAN's
+    discriminator's). `out` is `Tacotron.forward`'s dict, `batch` holds
+    mel_targets, stop_token_targets, targets_lengths, emt_labels and
+    spk_labels (with use_unpaired emt_up_labels and spk_up_labels) as
     tensors, `named_params` the (flax path, parameter) pairs of
-    `convert.flax_named_parameters`."""
+    `convert.flax_named_parameters`. The flags are the trainer's."""
     tc, gst, au = cfg.tacotron, cfg.gst, cfg.audio
     tgt = batch["mel_targets"]
+    B = tgt.shape[0]
     if tc.mask_decoder:
         lengths = batch["targets_lengths"]
         before = masked_mse(tgt, out["decoder_output"], lengths)
@@ -109,16 +126,86 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config
     zero = tgt.new_zeros(())
     reg = l2_regularization(named_params, reg_weight) + zero
     style_emt = style_spk = orthog = zero
-    if out.get("style_emb_logit_emt") is not None:
-        style_emt = softmax_ce(out["style_emb_logit_emt"], batch["emt_labels"])
-        style_spk = softmax_ce(out["style_emb_logit_spk"], batch["spk_labels"])
-    if gst.use_orthog_loss and not gst.adain:
+    style_up_emt = style_up_spk = mo_up_emt = mo_up_spk = zero
+    style_emt_adv = style_spk_adv = zero
+    g_loss = g_loss_p = g_loss_up = d_loss = zero
+    emt, spk = batch["emt_labels"], batch["spk_labels"]
+    derate = tc.unpaired_loss_derate
+    if pretrained_emb_disc_all and out.get("refnet_out_mel_up_emt") \
+            is not None:
+        mo_up_emt, mo_up_spk = (derate * ((B - cossim(
+            out[f"refnet_out_up_{k}"], out[f"refnet_out_mel_up_{k}"])) / B)
+            for k in ("emt", "spk"))
+    elif out.get("style_emb_logit_emt") is not None:
+        style_emt = softmax_ce(out["style_emb_logit_emt"], emt)
+        if adv_emb_disc and out.get("style_emb_logit_emt_adv") is not None:
+            style_emt_adv = softmax_ce(out["style_emb_logit_emt_adv"], spk)
+        if not emt_only and out.get("style_emb_logit_spk") is not None:
+            style_spk = softmax_ce(out["style_emb_logit_spk"], spk)
+            if adv_emb_disc and out.get("style_emb_logit_spk_adv") \
+                    is not None:
+                style_spk_adv = softmax_ce(out["style_emb_logit_spk_adv"],
+                                           emt)
+    if use_unpaired and not pretrained_emb_disc_all and \
+            out.get("style_emb_logit_up_emt") is not None:
+        emt_up, spk_up = batch["emt_up_labels"], batch["spk_up_labels"]
+        style_up_emt = softmax_ce(out["style_emb_logit_up_emt"], emt_up)
+        if out.get("style_emb_logit_mel_out_up_emt") is not None:
+            mo_up_emt = derate * softmax_ce(
+                out["style_emb_logit_mel_out_up_emt"], emt_up)
+        if not emt_only:
+            style_up_spk = softmax_ce(out["style_emb_logit_up_spk"], spk_up)
+            if out.get("style_emb_logit_mel_out_up_spk") is not None:
+                mo_up_spk = derate * softmax_ce(
+                    out["style_emb_logit_mel_out_up_spk"], spk_up)
+    # orthogonality (tacotron.py:840-848); under emt_attn JAX takes the
+    # l2_spk_emb penalty instead, which the port does not train
+    if not gst.emt_attn and gst.use_orthog_loss and not emt_only and \
+            not gst.adain and not pretrained_emb_disc_all and \
+            out.get("refnet_out_spk") is not None:
         orthog = 0.02 * torch.linalg.norm(
             out["refnet_out_emt"] @ out["refnet_out_spk"].t())
-    loss = before + after + stop + reg + style_emt + style_spk + orthog
+        if use_unpaired and out.get("refnet_out_up_spk") is not None:
+            orthog = orthog + 0.02 * torch.linalg.norm(
+                out["refnet_out_up_emt"] @ out["refnet_out_up_spk"].t())
     terms = dict(before_loss=before, after_loss=after, stop_token_loss=stop,
-                 regularization_loss=reg, style_emb_loss_emt=style_emt,
-                 style_emb_loss_spk=style_spk, style_emb_orthog_loss=orthog)
+                 regularization_loss=reg)
+    # nat-GAN, 3 classes: real, paired, unpaired (tacotron.py:869-893)
+    ng = out.get("nat_gan") or {}
+    if nat_gan and ng:
+        cls = lambda c: torch.full((B,), c, dtype=torch.long,
+                                   device=tgt.device)
+        d = {k: softmax_ce(ng[f"logits_{k}"], cls(c))
+             for c, k in enumerate(("targets", "mel_p", "mel_up"))
+             if f"logits_{k}" in ng}
+        d_loss = sum(d.values())
+        for head, labels in (("emt", "emt"), ("spk", "spk")):
+            for k in d:
+                lab = batch[f"{labels}_up_labels" if k == "mel_up"
+                            else f"{labels}_labels"]
+                d_loss = d_loss + 0.1 * softmax_ce(
+                    ng[f"logits_{k}_{head}"], lab)
+        g_loss_p = nat_gan_derate * softmax_ce(ng["logits_mel_p"], cls(0))
+        if "logits_mel_up" in ng:
+            g_loss_up = nat_gan_derate * softmax_ce(ng["logits_mel_up"],
+                                                    cls(0))
+        g_loss = g_loss_p + g_loss_up
+        terms.update(d_loss_targ=d["targets"], d_loss_p=d["mel_p"],
+                     d_loss_up=d.get("mel_up", zero))
+    terms.update(
+        style_emb_loss_emt=style_emt, style_emb_loss_spk=style_spk,
+        style_emb_loss_emt_adv=style_emt_adv,
+        style_emb_loss_spk_adv=style_spk_adv,
+        style_emb_orthog_loss=orthog,
+        style_emb_loss_up_emt=style_up_emt,
+        style_emb_loss_up_spk=style_up_spk,
+        style_emb_loss_mel_out_up_emt=mo_up_emt,
+        style_emb_loss_mel_out_up_spk=mo_up_spk,
+        g_loss_p=g_loss_p, g_loss_up=g_loss_up, d_loss=d_loss)
     terms.update({k: zero for k in ZERO_TERMS})
-    terms.update(loss_no_mo_up=loss, loss=loss)
+    loss_no_mo_up = (before + after + stop + reg + style_emt + style_spk
+                     + orthog + style_up_emt + style_up_spk + g_loss
+                     + style_emt_adv + style_spk_adv)
+    terms.update(loss_no_mo_up=loss_no_mo_up,
+                 loss=loss_no_mo_up + mo_up_emt + mo_up_spk)
     return terms

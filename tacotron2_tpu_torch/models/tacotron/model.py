@@ -22,10 +22,14 @@ two reference encoders or, with `emt_only`, the emotion one alone; the
 and `emt_ref_gru` modes), whose emotion reference encoder returns a
 sequence that the decoder attends over and whose mean feeds the style
 attention (JAX model.py:174-277); `se_concat=True`; the `style_disc_emt` /
-`style_disc_spk` heads of `use_style_emb_disc`. Not ported: AdaIN,
-`se_concat=False`. GTA and training refuse `emt_attn`: their decode is
-the teacher-forced kernel, which does not run the emt attention (the JAX
-package takes its XLA scan there).
+`style_disc_spk` heads of `use_style_emb_disc`; the fork's training
+heads: the adversarial heads (`adv_emb_disc`, through `flip_gradient`),
+the unpaired second pass (`forward(use_unpaired=True)`), the frozen
+pretrained classifiers (`pretrained_emb_disc`) or the style path that
+bypasses GST (`pretrained_emb_disc_all`), and nat-GAN's encoder and heads
+(`nat_gan`). Not ported: AdaIN, `se_concat=False`. GTA and training
+refuse `emt_attn`: their decode is the teacher-forced kernel, which does
+not run the emt attention (the JAX package takes its XLA scan there).
 """
 
 from __future__ import annotations
@@ -36,20 +40,30 @@ import torch
 from torch import nn
 
 from ...config import Config
+from ...ops.grad_reversal import flip_gradient
 from ...text.symbols import symbols
 from .decoder import (Decoder, drop_masks, emt_context_width, ref_rows,
                       round_bf16, teacher_forced, teacher_forced_route,
                       teacher_forced_train, teacher_inputs, zoneout_masks)
 from .modules import (REF_EMB, BiLSTMEncoder, Dense, EncoderConvStack,
-                      MultiheadStyleAttention, Postnet, ReferenceEncoder)
+                      MultiheadStyleAttention, Postnet, ReferenceEncoder,
+                      clear_live)
 
 
 class Tacotron(nn.Module):
     """Tacotron-2 with style conditioning; weights come from `convert.py`
-    (`tacotron_from_flax`, `init_tacotron`). `emt_only` mirrors the flax
-    attribute: no speaker reference encoder."""
+    (`tacotron_from_flax`, `init_tacotron`). `emt_only`, `adv_emb_disc`,
+    `nat_gan`, `pretrained_emb_disc` and `pretrained_emb_disc_all` mirror
+    the flax attributes (no speaker reference encoder; the adversarial,
+    nat-GAN and pretrained heads); the module holds the parameters that
+    the flax train forward with `use_unpaired` creates (the pretrained
+    classifiers only run on the unpaired pass)."""
 
-    def __init__(self, cfg: Config, emt_only: bool = False):
+    def __init__(self, cfg: Config, emt_only: bool = False, *,
+                 adv_emb_disc: bool = False, nat_gan: bool = False,
+                 pretrained_emb_disc: bool = False,
+                 pretrained_emb_disc_all: bool = False,
+                 use_unpaired: bool = False):
         super().__init__()
         tc, gst, au = cfg.tacotron, cfg.gst, cfg.audio
         if gst.adain:
@@ -61,6 +75,12 @@ class Tacotron(nn.Module):
                 "simple", "multihead", "style_tokens"):
             raise ValueError(f"emt_attn_type={gst.emt_attn_type!r}")
         self.cfg, self.emt_only = cfg, emt_only
+        self.adv_emb_disc, self.nat_gan = adv_emb_disc, nat_gan
+        self.pretrained_emb_disc = pretrained_emb_disc
+        self.pretrained_emb_disc_all = pretrained_emb_disc_all
+        # GST attention and the style heads that the flax module calls
+        gst_attn = gst.use_gst and not pretrained_emb_disc_all
+        heads = gst.use_style_emb_disc and not pretrained_emb_disc_all
         bf16 = tc.compute_dtype == "bfloat16"
         self.embedding = nn.Parameter(
             torch.zeros(len(symbols), tc.embedding_dim))
@@ -84,6 +104,7 @@ class Tacotron(nn.Module):
                 torch.zeros(gst.num_gst, tok_dim))
             self.style_tokens_spk = nn.Parameter(
                 torch.zeros(gst.num_gst, tok_dim))
+        if gst_attn:
             self.gst_attn_emt = MultiheadStyleAttention(
                 w_emt, tok_dim, gst.num_heads, gst.style_att_dim,
                 gst.style_att_type)
@@ -113,10 +134,29 @@ class Tacotron(nn.Module):
                                tc.postnet_channels, tc.postnet_kernel_size,
                                tc.batch_norm_position, bf16, tc.dropout_rate)
         self.postnet_projection = Dense(tc.postnet_channels, au.num_mels)
-        if gst.use_style_emb_disc:
+        # the flax tree holds a module's parameters only where the train
+        # forward (use_unpaired as the trainer says) calls it
+        if heads:
             self.style_disc_emt = Dense(w_emt, gst.n_emt)
             if not emt_only:
                 self.style_disc_spk = Dense(REF_EMB, gst.n_spk)
+            if adv_emb_disc:
+                self.style_disc_emt_adv = Dense(w_emt, gst.n_spk)
+                if not emt_only:
+                    self.style_disc_spk_adv = Dense(REF_EMB, gst.n_emt)
+        if heads and pretrained_emb_disc and use_unpaired:
+            for name, n in (("emt", gst.n_emt), ("spk", gst.n_spk)):
+                if name == "spk" and emt_only:
+                    continue
+                setattr(self, f"pretrained_ref_enc_{name}",
+                        ReferenceEncoder(*refs))
+                setattr(self, f"pretrained_ref_enc_{name}_dense",
+                        Dense(REF_EMB, n))
+        if nat_gan:
+            self.nat_gan_enc = ReferenceEncoder(*refs)
+            self.nat_gan_disc = Dense(REF_EMB, 3)
+            self.nat_gan_disc_emt = Dense(REF_EMB, gst.n_emt)
+            self.nat_gan_disc_spk = Dense(REF_EMB, gst.n_spk)
 
     @property
     def memory_layer(self):
@@ -141,7 +181,8 @@ class Tacotron(nn.Module):
         with emt_only), and under emt_attn the emotion reference's sequence
         `emt_memory` [B, T', V], else None) — JAX `_style_embeddings`
         (model.py:174-205): with GST each embedding queries its tokens,
-        without it the embeddings join as they are."""
+        without it (or under `pretrained_emb_disc_all`, :200-205) the
+        embeddings join as they are."""
         B = ref_mel_emt.shape[0]
         ref_emt = self.refnet_emt(ref_mel_emt, train)
         emt_memory = None
@@ -154,7 +195,7 @@ class Tacotron(nn.Module):
                                   (ref_spk, "style_tokens_spk", "spk")):
             if ref is None:
                 continue
-            if self.cfg.gst.use_gst:
+            if hasattr(self, f"gst_attn_{name}"):
                 value = torch.tanh(getattr(self, tokens))[None].expand(
                     B, -1, -1)
                 parts.append(getattr(self, f"gst_attn_{name}")(
@@ -252,54 +293,146 @@ class Tacotron(nn.Module):
     # ---------------------------------------------------------- training
 
     def forward(self, inputs, input_lengths, mel_targets, ref_mel_emt,
-                ref_mel_spk, *, teacher_forcing_ratio: float = 1.0,
-                generator=None, train: bool = True, decode: str = "fused",
-                timer=None):
-        """The train forward (JAX `Tacotron.__call__(train=True)` for the
-        default flags, :287-352), or with train=False its eval forward
-        (dropout off but the prenet's, zoneout the EMA mix, BatchNorm on
-        the running statistics). Encoder, style embeddings, memory and keys,
-        the teacher-forced decode — step t takes the target frame where
-        its coin (one per step, a uniform draw below the ratio) is set,
-        else its own previous frame — the postnet between two clips, and
-        the style classifier heads. Random draws (dropout, zoneout, coins)
-        come from `generator`.
+                ref_mel_spk, ref_mel_up_emt=None, ref_mel_up_spk=None, *,
+                teacher_forcing_ratio: float = 1.0, generator=None,
+                train: bool = True, decode: str = "fused", timer=None,
+                use_unpaired: bool = False):
+        """The train forward (JAX `Tacotron.__call__(train=True)`,
+        :287-409), or with train=False its eval forward (dropout off but the
+        prenet's, zoneout the EMA mix, BatchNorm on the running
+        statistics). Encoder, style embeddings, memory and keys, the
+        teacher-forced decode — step t takes the target frame where its
+        coin (one per step, a uniform draw below the ratio) is set, else
+        its own previous frame — the postnet between two clips, and the
+        style classifier heads, with `adv_emb_disc` the adversarial ones
+        through `flip_gradient`. With `use_unpaired` (:355-389) a second
+        pass on the crossed references `ref_mel_up_*`: their style
+        embeddings, a second teacher-forced decode with its own coins and
+        masks, its postnet, and the heads on it — the pretrained
+        classifiers (`pretrained_emb_disc`) or the model's own reference
+        encoders and heads in eval mode on `mel_outputs_up`. With `nat_gan`
+        (:391-408) the naturalness encoder in train mode on the targets,
+        the outputs and the unpaired outputs, its 3-class head directly
+        and its emotion and speaker heads through `flip_gradient`. The
+        calls run in the flax module's order, and BatchNorm's running
+        statistics move in place at each train-mode call, so that the
+        eval-mode calls after them read what flax reads. Random draws
+        (dropout, zoneout, coins) come from `generator`.
 
         In train mode `decode` is "fused" (`FusedTeacherForced`: the CUDA
         train forward and backward kernels on a CUDA device, their plain
-        versions on the CPU) or "autograd" (autograd through the plain
-        decode, the reference the fused route is held to); the eval
+        versions on the CPU), "autograd" (autograd through the plain
+        decode, the reference the fused route is held to) or "replay" (the
+        fused route's forward values with autograd's backward through the
+        plain decode: the fused backward's reference on the same forward,
+        for a loss whose gradient is sensitive to the forward's last
+        digits, as nat-GAN's are); the eval
         forward runs the eval kernel, without gradient. Under
         `tacotron.smoothing` both take the plain decode whatever `decode`
         says (`teacher_forced_route`: JAX scans it), so no teacher-forced
         kernel launches. `timer(name)`, a
         context manager (`train/tacotron_step.py:StepTimer`), times the
-        memory pass and the decode's kernels when given.
+        memory passes and the decodes' kernels when given.
 
         Returns the dict `compute_losses` reads: decoder_output,
         mel_outputs [B, T_out, mels], stop_token_prediction (logits) [B,
         T_out], alignments [B, T_in, steps], refnet_out_emt /
-        refnet_out_spk [B, 128], style_emb_logit_emt / _spk."""
-        from ...ops import tacotron_decoder_kernel as dk
-        from ...ops import tacotron_train_kernel as tk
-        if decode not in ("fused", "autograd"):
+        refnet_out_spk [B, 128], style_emb_logit_emt / _spk (/ _emt_adv /
+        _spk_adv); with use_unpaired decoder_output_up, mel_outputs_up,
+        refnet_out_up_emt / _spk, style_emb_logit_up_emt / _spk,
+        refnet_out_mel_up_emt / _spk, style_emb_logit_mel_out_up_emt /
+        _spk; with nat_gan the dict "nat_gan" of the heads' logits, JAX's
+        keys."""
+        if decode not in ("fused", "autograd", "replay"):
             raise ValueError(f"decode={decode!r}")
         self._refuse_emt_attn("training and its eval forward")
+        clear_live(self)
+        try:
+            return self._forward(
+                inputs, input_lengths, mel_targets, ref_mel_emt, ref_mel_spk,
+                ref_mel_up_emt, ref_mel_up_spk, teacher_forcing_ratio,
+                generator, train, decode, timer, use_unpaired)
+        finally:
+            clear_live(self)
+
+    def _forward(self, inputs, input_lengths, mel_targets, ref_mel_emt,
+                 ref_mel_spk, ref_mel_up_emt, ref_mel_up_spk,
+                 teacher_forcing_ratio, generator, train, decode, timer,
+                 use_unpaired):
+        g, one = generator, not self.emt_only
+        time = timer or (lambda name: nullcontext())
+        with time("memory pass forward"):
+            enc = self.encode(inputs, input_lengths, train, g)
+            style, ref_emt, ref_spk, _ = self.style_embeddings(
+                ref_mel_emt, ref_mel_spk, train)
+        dec, mel, stops, aligns = self._decode_pass(
+            enc, style, input_lengths, mel_targets, teacher_forcing_ratio,
+            g, train, decode, time)
+        out = dict(decoder_output=dec, mel_outputs=mel,
+                   stop_token_prediction=stops, alignments=aligns,
+                   refnet_out_emt=ref_emt, refnet_out_spk=ref_spk)
+        heads = hasattr(self, "style_disc_emt")
+        if heads:
+            out["style_emb_logit_emt"] = self.style_disc_emt(ref_emt)
+            if one:
+                out["style_emb_logit_spk"] = self.style_disc_spk(ref_spk)
+            if self.adv_emb_disc:
+                out["style_emb_logit_emt_adv"] = self.style_disc_emt_adv(
+                    flip_gradient(ref_emt))
+                if one:
+                    out["style_emb_logit_spk_adv"] = self.style_disc_spk_adv(
+                        flip_gradient(ref_spk))
+        if use_unpaired:
+            with time("memory pass forward"):
+                style_up, up_emt, up_spk, _ = self.style_embeddings(
+                    ref_mel_up_emt, ref_mel_up_spk, train)
+            dec_up, mel_up, _, _ = self._decode_pass(
+                enc, style_up, input_lengths, mel_targets,
+                teacher_forcing_ratio, g, train, decode, time)
+            out.update(decoder_output_up=dec_up, mel_outputs_up=mel_up,
+                       refnet_out_up_emt=up_emt, refnet_out_up_spk=up_spk)
+            if self.pretrained_emb_disc_all:
+                out["refnet_out_mel_up_emt"] = self.refnet_emt(mel_up)
+                if one:
+                    out["refnet_out_mel_up_spk"] = self.refnet_spk(mel_up)
+            elif heads:
+                out["style_emb_logit_up_emt"] = self.style_disc_emt(up_emt)
+                if one:
+                    out["style_emb_logit_up_spk"] = self.style_disc_spk(
+                        up_spk)
+                for name in ("emt", "spk") if one else ("emt",):
+                    if self.pretrained_emb_disc:
+                        logit = getattr(self, f"pretrained_ref_enc_{name}_dense")(
+                            getattr(self, f"pretrained_ref_enc_{name}")(mel_up))
+                    else:
+                        r = getattr(self, f"refnet_{name}")(mel_up)
+                        out[f"refnet_out_mel_up_{name}"] = r
+                        logit = getattr(self, f"style_disc_{name}")(r)
+                    out[f"style_emb_logit_mel_out_up_{name}"] = logit
+        if self.nat_gan:
+            out["nat_gan"] = self._nat_gan_heads(
+                mel_targets, mel, out.get("mel_outputs_up"), train)
+        return out
+
+    def _decode_pass(self, enc, style, input_lengths, mel_targets, ratio,
+                     g, train, decode, time):
+        """Memory and keys, the teacher-forced decode with its coins and
+        masks drawn from `g`, the postnet between two clips (JAX
+        `_decode_pass`, :207-232) -> (decoder_output, mel_outputs, stop
+        logits, alignments)."""
+        from ...ops import tacotron_decoder_kernel as dk
+        from ...ops import tacotron_train_kernel as tk
         cfg = self.cfg
         r = cfg.tacotron.outputs_per_step
         dev = mel_targets.device
         B, T_out = mel_targets.shape[:2]
         steps = T_out // r
-        g = generator
-        with timer("memory pass forward") if timer else nullcontext():
-            enc = self.encode(inputs, input_lengths, train, g)
-            style, ref_emt, ref_spk, _ = self.style_embeddings(
-                ref_mel_emt, ref_mel_spk, train)
+        with time("memory pass forward"):
             keys, memory, mask = self._keys_memory_mask(enc, style,
                                                         input_lengths)
         teacher = teacher_inputs(mel_targets, r)
         coins = (torch.rand(steps, generator=g, device=dev)
-                 < teacher_forcing_ratio).to(torch.int32)
+                 < ratio).to(torch.int32)
         drop = drop_masks(cfg, B, steps, g, dev)
         dp = tk.extract_params_traced(self.decoder, cfg)
         kernel = teacher_forced_route(cfg) == "kernel"
@@ -319,7 +452,7 @@ class Tacotron(nn.Module):
             zmask = zoneout_masks(cfg, B, steps, g, dev)
             if decode == "fused" and kernel:
                 frames, stops, aligns = tk.FusedTeacherForced.apply(
-                    cfg, timer, keys, memory, mask, teacher, coins, drop,
+                    cfg, time, keys, memory, mask, teacher, coins, drop,
                     zmask, *dp)
             else:
                 bf16 = tk.train_weight_dtype(cfg) == torch.bfloat16
@@ -328,15 +461,31 @@ class Tacotron(nn.Module):
                 frames, stops, aligns, _ = teacher_forced_train(
                     dpr, cfg, keys, memory, mask, teacher, coins, drop,
                     zmask, bf16_inputs=bf16)
+                if decode == "replay" and kernel:
+                    with torch.no_grad():
+                        fwd = tk.FusedTeacherForced.apply(
+                            cfg, time, keys, memory, mask, teacher, coins,
+                            drop, zmask, *dp)
+                    frames, stops, aligns = (x + (y - x).detach() for x, y
+                                             in zip((frames, stops, aligns),
+                                                    fwd))
         dec = self._clip(frames)
         mel = self._clip(dec + self.postnet_projection(
             self.postnet(dec, train, g)))
-        out = dict(decoder_output=dec, mel_outputs=mel,
-                   stop_token_prediction=stops, alignments=aligns,
-                   refnet_out_emt=ref_emt, refnet_out_spk=ref_spk)
-        if self.cfg.gst.use_style_emb_disc:
-            out.update(style_emb_logit_emt=self.style_disc_emt(ref_emt))
-            if not self.emt_only:
-                out.update(style_emb_logit_spk=self.style_disc_spk(ref_spk))
-        return out
+        return dec, mel, stops, aligns
 
+    def _nat_gan_heads(self, mel_targets, mel, mel_up, train):
+        """nat-GAN's logits (JAX :391-408): the naturalness encoder on the
+        targets, the outputs and (unpaired) the unpaired outputs, each into
+        the 3-class head and, through gradient reversal, the emotion and
+        speaker heads."""
+        ng = {}
+        for key, x in (("targets", mel_targets), ("mel_p", mel),
+                       ("mel_up", mel_up)):
+            if x is None:
+                continue
+            e = self.nat_gan_enc(x, train)
+            ng[f"logits_{key}"] = self.nat_gan_disc(e)
+            ng[f"logits_{key}_emt"] = self.nat_gan_disc_emt(flip_gradient(e))
+            ng[f"logits_{key}_spk"] = self.nat_gan_disc_spk(flip_gradient(e))
+        return ng

@@ -61,7 +61,14 @@ class BatchNorm(nn.Module):
     """BatchNorm over the last axis (flax nn.BatchNorm, epsilon 1e-3). In
     train mode it normalises with the batch's mean and biased variance
     over every other axis (flax's fast variance, E[x²] - E[x]²) and moves
-    the running statistics toward them in place."""
+    the running statistics toward them in place.
+
+    Within one model forward flax's updated statistics stay traced: an
+    eval-mode call after a train-mode call of the same module (the
+    unpaired pass's reference encoders on its output) normalises with them
+    and its gradient reaches the parameters through them. `live` holds
+    them so, the graph's (mean, var) since the last `clear_live`; the
+    buffers hold their values."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -69,20 +76,32 @@ class BatchNorm(nn.Module):
         self.bias = _zeros(channels)
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.live = None
 
     def forward(self, x, train: bool = False):
         x = x.float()
         if not train:
-            mean, var = self.mean, self.var
+            mean, var = self.live or (self.mean, self.var)
         else:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
             var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            m = BN_MOMENTUM
+            old_mean, old_var = self.live or (self.mean, self.var)
+            self.live = (m * old_mean + (1.0 - m) * mean,
+                         m * old_var + (1.0 - m) * var)
             with torch.no_grad():
-                m = BN_MOMENTUM
-                self.mean.mul_(m).add_((1.0 - m) * mean)
-                self.var.mul_(m).add_((1.0 - m) * var)
+                self.mean.copy_(self.live[0])
+                self.var.copy_(self.live[1])
         return (x - mean) * torch.rsqrt(var + BN_EPS) * self.scale + self.bias
+
+
+def clear_live(module: nn.Module) -> None:
+    """Drop every BatchNorm's traced statistics under `module` (each model
+    forward starts and ends with it)."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.live = None
 
 
 def _same_pad(size: int, k: int, stride: int):

@@ -530,7 +530,11 @@ class FusedTeacherForced(torch.autograd.Function):
     steps*r, mels], stop logits [B, steps*r], alignments [B, T, steps]),
     with gradients for keys, memory and every field of dp. The weights are
     cast to `fused_train_dtype` inside; their gradients come back f32. The
-    teacher frames, mask, coins and masks get none (:832-839)."""
+    teacher frames, mask, coins and masks get none (:832-839). The saved
+    residuals live as long as the graph: each backward over one forward
+    (`torch.autograd.grad(..., retain_graph=True)`, one a loss target, as
+    the JAX step takes up to three gradients of one forward) launches the
+    backward again on them."""
 
     @staticmethod
     def forward(ctx, cfg, timer, keys, memory, mask, teacher, coins, drop,
@@ -551,7 +555,6 @@ class FusedTeacherForced(torch.autograd.Function):
     def backward(ctx, dframes, dstops, daligns):
         (cfg, time, dpw, kw, res, keys, memory, mask, teacher, coins, drop,
          zmask) = ctx.saved
-        del ctx.saved
         B, S = res["out"].shape[:2]
         dout = torch.cat([dframes.reshape(B, S, -1),
                           dstops.reshape(B, S, -1)], -1)

@@ -98,10 +98,12 @@ class TacotronSynthesizer:
 
     def __init__(self, cfg: Config, params, batch_stats=None, *,
                  device="cuda", seed: int = 0,
-                 keep_intermediates: bool = False, emt_only: bool = False):
+                 keep_intermediates: bool = False, emt_only: bool = False,
+                 pretrained_emb_disc_all: bool = False):
         self.cfg, self.device = cfg, torch.device(device)
-        self.taco = convert.tacotron_from_flax(cfg, params, batch_stats or {},
-                                               device, emt_only)
+        self.taco = convert.tacotron_from_flax(
+            cfg, params, batch_stats or {}, device, emt_only,
+            pretrained_emb_disc_all=pretrained_emb_disc_all)
         self.dec_params = dk.extract_decoder_params(params, cfg,
                                                     device=device,
                                                     emt_only=emt_only)

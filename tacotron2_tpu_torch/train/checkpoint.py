@@ -12,8 +12,15 @@ of:
 - "batch_stats": the BatchNorm statistics, likewise;
 - "opt_state": {"count": updates made, "mu", "nu": the Adam moments as
   flax-named trees in the parameters' layout, of the masked-on
-  parameters};
+  parameters}, the main optimizer's; "opt_state_refnet" and
+  "opt_state_nat" alike, the refnet and nat-GAN optimizers', where the
+  state holds them (the JAX TrainState's three optimizer states);
 - "step": the train step.
+
+Restoring a Tacotron state can keep the fresh values of the parameters
+whose flax path a predicate names (`keep_fresh`: the host loop keeps the
+`pretrained` subtrees, as JAX `tacotron_train.py:73-77` does with
+`partial_restore`).
 
 A WaveNet training state is a map of "params" and "ema_params" (flax-
 named trees of `convert.wavenet_to_flax`: `convert.load_wavenet` hands
@@ -39,38 +46,59 @@ from .tacotron_step import TrainState
 from .wavenet_step import WaveNetTrainState
 
 
-def state_tree(state: TrainState) -> dict:
-    """The checkpoint's tree of a TrainState."""
-    params, stats = convert.tacotron_to_flax(state.model)
+OPT_KEYS = (("opt", "opt_state"), ("opt_refnet", "opt_state_refnet"),
+            ("opt_nat", "opt_state_nat"))
+
+
+def _opt_tree(model, opt) -> dict:
     mu, nu = {}, {}
-    for (name, _), m, v in zip(state.model.named_parameters(), state.opt.mu,
-                               state.opt.nu):
+    for (name, _), m, v in zip(model.named_parameters(), opt.mu, opt.nu):
         if m is not None:
             path = convert.flax_path(name)
             convert.tree_set(mu, path, convert.to_flax_array(
                 name, m, offset=False))
             convert.tree_set(nu, path, convert.to_flax_array(
                 name, v, offset=False))
-    return dict(params=params, batch_stats=stats,
-                opt_state=dict(count=int(state.opt.count), mu=mu, nu=nu),
-                step=int(state.step))
+    return dict(count=int(opt.count), mu=mu, nu=nu)
 
 
-def load_state_tree(state: TrainState, tree: dict) -> TrainState:
-    """Fill a TrainState (its model and optimizer) from a checkpoint's
-    tree."""
+def state_tree(state: TrainState) -> dict:
+    """The checkpoint's tree of a TrainState."""
+    params, stats = convert.tacotron_to_flax(state.model)
+    tree = dict(params=params, batch_stats=stats, step=int(state.step))
+    for attr, key in OPT_KEYS:
+        if getattr(state, attr) is not None:
+            tree[key] = _opt_tree(state.model, getattr(state, attr))
+    return tree
+
+
+def load_state_tree(state: TrainState, tree: dict,
+                    keep_fresh: Optional[Callable[[str], bool]] = None
+                    ) -> TrainState:
+    """Fill a TrainState (its model and optimizers) from a checkpoint's
+    tree; with `keep_fresh`, the parameters whose lower-case flax path it
+    names keep their values (`partial_restore`)."""
     import torch
-    convert.load_tacotron(state.model, tree["params"], tree["batch_stats"])
-    opt = tree["opt_state"]
-    with torch.no_grad():
-        for i, (name, p) in enumerate(state.model.named_parameters()):
-            if state.opt.mu[i] is None:
-                continue
-            path = convert.flax_path(name)
-            for mom, key in ((state.opt.mu, "mu"), (state.opt.nu, "nu")):
-                mom[i].copy_(torch.from_numpy(convert.from_flax_array(
-                    name, convert.tree_get(opt[key], path), offset=False)))
-    state.opt.count = int(opt["count"])
+    params = tree["params"]
+    if keep_fresh is not None:
+        params = partial_restore(params, convert.tacotron_to_flax(
+            state.model)[0], keep_fresh)
+    convert.load_tacotron(state.model, params, tree["batch_stats"])
+    for attr, key in OPT_KEYS:
+        opt = getattr(state, attr)
+        if opt is None:
+            continue
+        sub = tree[key]
+        with torch.no_grad():
+            for i, (name, p) in enumerate(state.model.named_parameters()):
+                if opt.mu[i] is None:
+                    continue
+                path = convert.flax_path(name)
+                for mom, k in ((opt.mu, "mu"), (opt.nu, "nu")):
+                    mom[i].copy_(torch.from_numpy(convert.from_flax_array(
+                        name, convert.tree_get(sub[k], path),
+                        offset=False)))
+        opt.count = int(sub["count"])
     state.step = int(tree["step"])
     return state
 
@@ -113,11 +141,11 @@ def save(path: str, state) -> None:
     flax_msgpack.save(path, tree)
 
 
-def restore(path: str, state):
+def restore(path: str, state, keep_fresh=None):
     tree = flax_msgpack.load(path)
     if isinstance(state, WaveNetTrainState):
         return load_wavenet_state_tree(state, tree)
-    return load_state_tree(state, tree)
+    return load_state_tree(state, tree, keep_fresh)
 
 
 class CheckpointManager:
@@ -151,11 +179,11 @@ class CheckpointManager:
             os.remove(self.path(old))
         return path
 
-    def restore(self, state, step: Optional[int] = None):
+    def restore(self, state, step: Optional[int] = None, keep_fresh=None):
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        return restore(self.path(step), state)
+        return restore(self.path(step), state, keep_fresh)
 
 
 def partial_restore(restored: Any, fresh: Any,

@@ -11,9 +11,13 @@ written out as plain tensor arithmetic so that it follows optax's
 operations: the global norm over the masked-on gradients, scaling by
 1/norm when it is at least 1; moments (1-b)·g + b·m; bias correction by
 1 - b^count; eps outside the square root; the step's learning rate at the
-count before the update; no update, and no moments, off the mask. The
-refnet and nat-GAN optimizers (`opt_ref_no_mo`, `nat_gan`) are not
-ported.
+count before the update; no update, and no moments, off the mask.
+`tacotron_masks` gives the masks of the up to three optimizers (:147-173):
+the main one (`main_update_predicate`), the refnet optimizer's
+(`is_refnet_var`, with `opt_ref_no_mo` or `pretrained_emb_disc_all`) and
+nat-GAN's (`is_nat_gan_var`), disjoint; each is a `MaskedAdam` of its
+own, whose clipping and moments see its masked-on gradients alone, as
+optax's `masked_only` does.
 
 WaveNet: `wavenet_lr_schedule` (:73, exponential or noam) and
 `make_wavenet_optimizer` (:176) as `WaveNetAdam`, optax's chain in its
@@ -123,6 +127,19 @@ def main_update_predicate(opt_ref_no_mo: bool, pretrained_emb_disc_all: bool,
 def make_mask(names: Sequence[str], predicate) -> List[bool]:
     """predicate of each (lower-case) flax path."""
     return [bool(predicate(n.lower())) for n in names]
+
+
+def tacotron_masks(names: Sequence[str], *, opt_ref_no_mo: bool = False,
+                   pretrained_emb_disc_all: bool = False,
+                   nat_gan: bool = False, fine_tuning: bool = False):
+    """(main, refnet or None, nat-GAN or None): the masks over the flax
+    paths `names` of `make_tacotron_optimizer`'s three optimizers."""
+    main = make_mask(names, main_update_predicate(
+        opt_ref_no_mo, pretrained_emb_disc_all, fine_tuning))
+    refnet = (make_mask(names, is_refnet_var)
+              if opt_ref_no_mo or pretrained_emb_disc_all else None)
+    nat = make_mask(names, is_nat_gan_var) if nat_gan else None
+    return main, refnet, nat
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -1,37 +1,54 @@
 """Tacotron train and eval steps (PyTorch).
 
-Counterpart of tacotron2_tpu/train/tacotron_step.py for the default
-trainer, `TacotronTrainer(cfg)` as scripts/train_e2e_demo_r5_tpu.py builds
-it: one masked Adam over every parameter (`train/optim.py`), the loss of
-`models/tacotron/losses.py`, the teacher-forcing ratio of the schedule at
-the state's step, and under `tacotron.compute_dtype="bfloat16"` a bf16
+Counterpart of tacotron2_tpu/train/tacotron_step.py: `TacotronTrainer(cfg,
+**flags)` with the JAX trainer's flags — `emt_only`, `adv_emb_disc`,
+`nat_gan`, `pretrained_emb_disc`, `pretrained_emb_disc_all`,
+`use_unpaired`, `opt_ref_no_mo`, `nat_gan_derate` — and `gst.use_gst=False`.
+Up to three masked Adams (`train/optim.py:tacotron_masks`): the main one,
+the refnet optimizer's and nat-GAN's, over disjoint parameters; the loss
+of `models/tacotron/losses.py`; the teacher-forcing ratio of the schedule
+at the state's step; and under `tacotron.compute_dtype="bfloat16"` a bf16
 compute copy of the parameters (tacotron_step.py:97-107): the forward sees
 every parameter rounded to bf16, while the master parameters, the
-optimizer, BatchNorm and the losses stay f32. The rounding passes the
+optimizers, BatchNorm and the losses stay f32. The rounding passes the
 gradient through unchanged, so the gradients stay f32 (JAX's pass through
-the bf16 copy). On a CUDA device the teacher-forced decode runs the train
-forward and BPTT backward kernels (`ops/tacotron_train_kernel.py:
-FusedTeacherForced`), on the CPU their plain versions.
+the bf16 copy). On a CUDA device each teacher-forced decode (one a pass:
+two with `use_unpaired`) runs the train forward kernel and its BPTT
+backward kernel (`ops/tacotron_train_kernel.py:FusedTeacherForced`), on
+the CPU their plain versions.
+
+A train step runs one forward, then `torch.autograd.grad` once a target
+over that graph: 'loss' over every parameter (its global norm is
+`grad_norm`, as `optax.global_norm` takes it), 'loss_no_mo_up' over the
+refnet optimizer's parameters, 'd_loss' over nat-GAN's. JAX takes the
+extra gradients at the step's parameters with the same draws, i.e. of the
+same forward, and optax's `masked_only` clips and adapts over the
+masked-on leaves alone, so this is the JAX step exactly. Each target
+whose parameters feed a decode launches that decode's backward again:
+'loss' and 'loss_no_mo_up' reach both passes, 'd_loss' neither.
+`disc_pretrain_step` is nat-GAN's discriminator pretraining (only its
+parameters move; the step does not advance).
 
 Random draws — dropout, zoneout, the scheduled-sampling coins — come from
 the `torch.Generator` each step is given. `eval_step` is the natural eval
 (`tacotron_natural_eval`: ratio 0, every step takes its own previous
-frame) in eval mode through the eval forward's kernel. Under
-`tacotron.smoothing` the decode trains by autograd through its plain
-version, as the JAX trainer scans it (`models/tacotron/decoder.py:
-teacher_forced_route`).
+frame) in eval mode through the eval forward's kernel, of the paired pass
+alone: its terms are those of the JAX eval with `use_unpaired=False`
+(JAX's own unpaired eval fails on test batches, which carry no crossed
+references). Under `tacotron.smoothing` the decode trains by autograd
+through its plain version, as the JAX trainer scans it
+(`models/tacotron/decoder.py:teacher_forced_route`).
 
-What the port refuses raises ValueError with the option's name: the
-unpaired/intercross pass, nat-GAN, the adversarial heads, pretrained
-discriminators, the refnet optimizer, `emt_attn`, AdaIN, `emt_only`,
-`predict_linear`.
+What the port refuses raises ValueError with the option's name:
+`emt_attn`, AdaIN, `se_concat=False`, `predict_linear`, unequal prenet
+widths.
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,28 +59,30 @@ from ..convert import flax_named_parameters, init_tacotron
 from ..models.tacotron.losses import compute_losses
 from ..models.tacotron.decoder import round_bf16
 from ..models.tacotron.model import Tacotron
-from .optim import (MaskedAdam, global_norm, main_update_predicate,
-                    make_mask, teacher_forcing_schedule)
+from .optim import (MaskedAdam, global_norm, tacotron_masks,
+                    teacher_forcing_schedule)
 
-UNPORTED_FLAGS = ("use_unpaired", "nat_gan", "adv_emb_disc",
-                  "pretrained_emb_disc", "pretrained_emb_disc_all",
-                  "opt_ref_no_mo", "emt_only")
+TRAINER_FLAGS = ("emt_only", "adv_emb_disc", "nat_gan",
+                 "pretrained_emb_disc", "pretrained_emb_disc_all",
+                 "use_unpaired", "opt_ref_no_mo", "nat_gan_derate")
+# the model's keywords among them
+MODEL_FLAGS = ("emt_only", "adv_emb_disc", "nat_gan", "pretrained_emb_disc",
+               "pretrained_emb_disc_all", "use_unpaired")
 BATCH_KEYS = ("inputs", "input_lengths", "mel_targets", "stop_token_targets",
               "targets_lengths", "emt_labels", "spk_labels", "ref_mel_emt",
               "ref_mel_spk")
+UP_KEYS = ("ref_mel_up_emt", "ref_mel_up_spk", "emt_up_labels",
+           "spk_up_labels")
 
 
 def check_trainable(cfg: Config, **flags) -> None:
-    """Raise ValueError on a trainer flag or a config the port does not
-    train."""
+    """Raise TypeError on an unknown trainer flag, ValueError on a config
+    the port does not train."""
     for name in flags:
-        if name not in UNPORTED_FLAGS:
+        if name not in TRAINER_FLAGS:
             raise TypeError(f"unknown trainer option {name!r}")
-        if flags[name]:
-            raise ValueError(f"{name} training is not in the port")
     gst, tc = cfg.gst, cfg.tacotron
     for name, bad in (("gst.emt_attn", gst.emt_attn), ("gst.adain", gst.adain),
-                      ("gst.use_gst=False", not gst.use_gst),
                       ("gst.se_concat=False", not gst.se_concat),
                       ("tacotron.predict_linear", tc.predict_linear),
                       (f"tacotron.prenet_layers={tuple(tc.prenet_layers)} "
@@ -76,11 +95,21 @@ def check_trainable(cfg: Config, **flags) -> None:
 @dataclass
 class TrainState:
     """The step count, the model (master parameters and BatchNorm
-    statistics) and the optimizer's state."""
+    statistics) and the optimizers' states: the main one, and the refnet
+    and nat-GAN ones where the flags ask for them."""
 
     step: int
     model: Tacotron
     opt: MaskedAdam
+    opt_refnet: Optional[MaskedAdam] = None
+    opt_nat: Optional[MaskedAdam] = None
+
+    def optimizers(self):
+        """(target, optimizer) of each optimizer the state holds."""
+        return [(t, o) for t, o in (("loss", self.opt),
+                                    ("loss_no_mo_up", self.opt_refnet),
+                                    ("d_loss", self.opt_nat))
+                if o is not None]
 
 
 class StepTimer:
@@ -108,13 +137,23 @@ class StepTimer:
         return out
 
 
+# the optimizers' names in a step's StepTimer split
+OPT_TIMER = {"loss": "optimizer", "loss_no_mo_up": "optimizer (refnet)",
+             "d_loss": "optimizer (nat-GAN)"}
+
+
 class TacotronTrainer:
-    """Owns the config and the step functions; the state holds the
-    model."""
+    """Owns the config, the flags and the step functions; the state holds
+    the model and the optimizers."""
 
     def __init__(self, cfg: Config, *, device="cuda", **flags):
         check_trainable(cfg, **flags)
         self.cfg, self.device = cfg, torch.device(device)
+        self.flags = {k: bool(flags.get(k, False)) for k in TRAINER_FLAGS
+                      if k != "nat_gan_derate"}
+        self.nat_gan_derate = float(flags.get("nat_gan_derate", 1.0))
+        for k, v in self.flags.items():
+            setattr(self, k, v)
         self.tfr_schedule = teacher_forcing_schedule(cfg)
         self.timer = None   # a StepTimer to split the step's time
 
@@ -123,87 +162,143 @@ class TacotronTrainer:
     def init_state(self, generator=None, model: Tacotron | None = None
                    ) -> TrainState:
         """A fresh model (`convert.init_tacotron`, drawn from `generator`)
-        or the one given, and a fresh optimizer."""
+        or the one given, and fresh optimizers."""
+        mflags = {k: self.flags[k] for k in MODEL_FLAGS}
         if model is None:
-            model = init_tacotron(self.cfg, generator, self.device)
+            model = init_tacotron(self.cfg, generator, self.device, **mflags)
         model = model.to(self.device).requires_grad_(True)
         named = flax_named_parameters(model)
-        t = self.cfg.train
-        mask = make_mask([n for n, _ in named], main_update_predicate(
-            False, False, t.tacotron_fine_tuning))
-        return TrainState(0, model, MaskedAdam(self.cfg, [p for _, p in named],
-                                               mask))
+        params = [p for _, p in named]
+        masks = tacotron_masks(
+            [n for n, _ in named], opt_ref_no_mo=self.opt_ref_no_mo,
+            pretrained_emb_disc_all=self.pretrained_emb_disc_all,
+            nat_gan=self.nat_gan,
+            fine_tuning=self.cfg.train.tacotron_fine_tuning)
+        opts = [MaskedAdam(self.cfg, params, m) if m is not None else None
+                for m in masks]
+        return TrainState(0, model, *opts)
 
     # ------------------------------------------------------------------ fwd
 
     def batch_to_device(self, batch) -> Dict[str, torch.Tensor]:
         out = {}
-        for k in BATCH_KEYS:
+        for k in BATCH_KEYS + UP_KEYS:
+            if k not in batch:
+                continue
             v = batch[k]
             v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
             out[k] = v.to(self.device)
         return out
 
     def _forward(self, model, b, generator, tfr, *, train: bool,
-                 decode: str = "fused"):
+                 decode: str = "fused", use_unpaired: bool = False):
         args = (b["inputs"], b["input_lengths"], b["mel_targets"],
-                b["ref_mel_emt"], b["ref_mel_spk"])
+                b["ref_mel_emt"], b["ref_mel_spk"], b.get("ref_mel_up_emt"),
+                b.get("ref_mel_up_spk"))
         kwargs = dict(teacher_forcing_ratio=tfr, generator=generator,
-                      train=train, decode=decode, timer=self.timer)
+                      train=train, decode=decode, timer=self.timer,
+                      use_unpaired=use_unpaired)
         if self.cfg.tacotron.compute_dtype != "bfloat16":
             return model(*args, **kwargs)
         params = {n: round_bf16(p) for n, p in model.named_parameters()}
         return functional_call(model, params, args, kwargs)
+
+    def _losses(self, out, b, model, use_unpaired: bool):
+        return compute_losses(
+            out, b, flax_named_parameters(model), self.cfg,
+            use_unpaired=use_unpaired, nat_gan=self.nat_gan,
+            adv_emb_disc=self.adv_emb_disc, emt_only=self.emt_only,
+            pretrained_emb_disc_all=self.pretrained_emb_disc_all,
+            nat_gan_derate=self.nat_gan_derate)
 
     def _time(self, name):
         return self.timer(name) if self.timer else contextlib.nullcontext()
 
     # ----------------------------------------------------------------- step
 
-    def gradients(self, state: TrainState, batch, generator=None, *,
-                  decode: str = "fused"):
-        """The train forward and backward of `batch` (numpy arrays or
-        tensors, the feeder's keys), without the update: returns (the loss
-        terms, the parameters and their gradients, in the module's order,
-        and the teacher-forcing ratio). decode="autograd" takes the
-        decode's backward by autograd through its plain version (the
-        reference the fused route is held to). BatchNorm's running
-        statistics move, as in a step."""
+    def step_gradients(self, state: TrainState, batch, generator=None, *,
+                       decode: str = "fused", targets=None):
+        """The train forward of `batch` (numpy arrays or tensors, the
+        feeder's keys) and the gradient of each target, without the
+        update: returns (the loss terms, the parameters in the module's
+        order, {target: gradients}, the teacher-forcing ratio). 'loss'
+        has a gradient for every parameter (zero where it does not reach),
+        'loss_no_mo_up' and 'd_loss' for their optimizer's masked-on ones
+        (None elsewhere). `targets` defaults to those of the state's
+        optimizers. decode="autograd" (or "replay": on the fused
+        forward's values, `Tacotron.forward`) takes the decodes' backward by
+        autograd through their plain version (the reference the fused
+        route is held to). BatchNorm's running statistics move, as in a
+        step."""
         b = self.batch_to_device(batch)
         tfr = float(self.tfr_schedule(state.step))
         out = self._forward(state.model, b, generator, tfr, train=True,
-                            decode=decode)
-        named = flax_named_parameters(state.model)
-        terms = compute_losses(out, b, named, self.cfg)
-        params = [p for _, p in named]
+                            decode=decode, use_unpaired=self.use_unpaired)
+        terms = self._losses(out, b, state.model, self.use_unpaired)
+        params = [p for _, p in flax_named_parameters(state.model)]
+        masks = {t: o.mask for t, o in state.optimizers()}
+        targets = list(targets or masks)
+        grads = {}
         with self._time("backward"):
-            grads = torch.autograd.grad(terms["loss"], params,
-                                        allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+            for i, t in enumerate(targets):
+                on = [j for j, m in enumerate(masks.get(t, []))
+                      if m] if t != "loss" else list(range(len(params)))
+                got = torch.autograd.grad(
+                    terms[t], [params[j] for j in on], allow_unused=True,
+                    retain_graph=i < len(targets) - 1)
+                g = [None] * len(params)
+                for j, x in zip(on, got):
+                    g[j] = torch.zeros_like(params[j]) if x is None else x
+                grads[t] = g
         return terms, params, grads, tfr
+
+    def gradients(self, state: TrainState, batch, generator=None, *,
+                  decode: str = "fused"):
+        """`step_gradients` of 'loss' alone: (terms, parameters, the
+        gradient of 'loss' for each, ratio)."""
+        terms, params, grads, tfr = self.step_gradients(
+            state, batch, generator, decode=decode, targets=["loss"])
+        return terms, params, grads["loss"], tfr
 
     def train_step(self, state: TrainState, batch, generator=None):
         """One optimizer step on `batch`; returns (state, metrics): every
-        loss term, grad_norm (of all gradients, before clipping) and
-        teacher_forcing_ratio."""
-        terms, params, grads, tfr = self.gradients(state, batch, generator)
+        loss term, grad_norm (of all of 'loss''s gradients, before
+        clipping) and teacher_forcing_ratio. The optimizers update their
+        disjoint parameters, each from its own target's gradients."""
+        terms, params, grads, tfr = self.step_gradients(state, batch,
+                                                        generator)
         metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = global_norm(grads["loss"])
         metrics["teacher_forcing_ratio"] = tfr
-        with self._time("optimizer"):
-            state.opt.step(params, grads)
+        for t, opt in state.optimizers():
+            with self._time(OPT_TIMER[t]):
+                opt.step(params, grads[t])
         state.step += 1
         return state, metrics
+
+    def disc_pretrain_step(self, state: TrainState, batch, generator=None):
+        """nat-GAN's discriminator alone (JAX :176-205, the reference's
+        pretraining at step 0): the train forward, 'd_loss''s gradient over
+        nat-GAN's parameters and their update; the step does not advance.
+        Returns (state, {d_loss, g_loss_p, g_loss_up} and the 3-class
+        terms d_loss_targ, d_loss_p, d_loss_up)."""
+        if state.opt_nat is None:
+            raise ValueError("disc pretraining needs nat_gan=True")
+        terms, params, grads, _ = self.step_gradients(
+            state, batch, generator, targets=["d_loss"])
+        with self._time(OPT_TIMER["d_loss"]):
+            state.opt_nat.step(params, grads["d_loss"])
+        return state, {k: terms[k].detach() for k in (
+            "d_loss", "g_loss_p", "g_loss_up", "d_loss_targ", "d_loss_p",
+            "d_loss_up")}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, generator=None):
         """The eval forward (ratio 0 with `tacotron_natural_eval`, else the
-        schedule's) and its loss terms; returns (outputs, terms)."""
+        schedule's) of the paired pass and its loss terms; returns
+        (outputs, terms)."""
         b = self.batch_to_device(batch)
         tfr = (0.0 if self.cfg.train.tacotron_natural_eval
                else float(self.tfr_schedule(state.step)))
         out = self._forward(state.model, b, generator, tfr, train=False)
-        terms = compute_losses(out, b, flax_named_parameters(state.model),
-                               self.cfg)
-        return out, terms
+        return out, self._losses(out, b, state.model, False)

@@ -1,13 +1,17 @@
 """Tacotron training host loop.
 
 Counterpart of tacotron2_tpu/train/tacotron_train.py: the feeder with its
-prefetch thread, `TacotronTrainer` steps, rolling loss windows and the
-per-step log line, the loss-explosion abort (NaN or > 100), checkpoints
+prefetch thread (`feeder_kwargs`: the variant options), `TacotronTrainer`
+steps (`trainer_kwargs`: the trainer's flags), with nat-GAN the
+discriminator's pretraining at step 0 (`nat_gan_pretrain_steps`, or
+`nat_gan_pretrain_steps_unpaired` with the unpaired pass; :113-128),
+rolling loss windows and the per-step log line, the loss-explosion abort (NaN or > 100), checkpoints
 every `checkpoint_interval` steps (and at step 300 and the last), and
 every `eval_interval` steps the held-out losses and an eval synthesis of
 the reference's sentences (wavs; the alignment and mel plots need
 matplotlib and are not written), each eval path behind an
-`EvalFailureGuard`. The curve goes to <log_dir>/taco_curve.jsonl, one JSON
+`EvalFailureGuard`. A restore keeps the fresh `pretrained` parameters
+(JAX :73-77). The curve goes to <log_dir>/taco_curve.jsonl, one JSON
 object per logged step, as scripts/train_e2e_demo_r5_tpu.py writes its
 taco_curve.jsonl: step, loss, tfr, elapsed_s, and at eval steps the
 held-out loss, `held_mel_mae` and `held_tf_diag`.
@@ -37,7 +41,17 @@ from .tacotron_step import TacotronTrainer
 
 LOSS_WINDOWS = ("loss", "before_loss", "after_loss", "stop_token_loss",
                 "regularization_loss", "style_emb_loss_emt",
-                "style_emb_loss_spk", "style_emb_orthog_loss")
+                "style_emb_loss_spk", "style_emb_orthog_loss",
+                "style_emb_loss_emt_adv", "style_emb_loss_spk_adv",
+                "style_emb_loss_up_emt", "style_emb_loss_up_spk",
+                "style_emb_loss_mel_out_up_emt",
+                "style_emb_loss_mel_out_up_spk", "d_loss", "g_loss_p",
+                "g_loss_up")
+# the variants' windows in the log line, when a flag makes them move
+VARIANT_LOG = {"adv_emb_disc": ("style_emb_loss_emt_adv",),
+               "use_unpaired": ("style_emb_loss_up_emt",
+                                "style_emb_loss_mel_out_up_emt"),
+               "nat_gan": ("d_loss", "g_loss_p", "g_loss_up")}
 
 
 class ValueWindow:
@@ -60,7 +74,8 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                    checkpoint_interval: Optional[int] = None,
                    eval_interval: Optional[int] = None,
                    pad_text_multiple: int = 16, pad_mel_multiple: int = 128,
-                   eval_sentences=None):
+                   eval_sentences=None, feeder_kwargs: Optional[dict] = None,
+                   trainer_kwargs: Optional[dict] = None):
     """Train the spectrogram predictor from the train.txt at `input_path`;
     returns (checkpoint directory, final TrainState)."""
     t = cfg.train
@@ -72,10 +87,11 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
     eval_dir = os.path.join(log_dir, "eval-dir")
     os.makedirs(eval_dir, exist_ok=True)
 
-    trainer = TacotronTrainer(cfg, device=device)
+    trainer = TacotronTrainer(cfg, device=device, **(trainer_kwargs or {}))
     feeder = TacotronFeeder(cfg, input_path,
                             pad_text_multiple=pad_text_multiple,
-                            pad_mel_multiple=pad_mel_multiple)
+                            pad_mel_multiple=pad_mel_multiple,
+                            **(feeder_kwargs or {}))
     batches = feeder.prefetch(feeder.train_batches(bs), depth=8)
     first = next(batches)
     state = trainer.init_state(
@@ -85,8 +101,22 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
         f"{n_params / 1e6:.3f} Million.")
     mgr = CheckpointManager(ckpt_dir, t.max_checkpoints_to_keep)
     if restore and mgr.latest_step() is not None:
-        state = mgr.restore(state)
+        state = mgr.restore(state, keep_fresh=lambda n: "pretrained" in n)
         log(f"Restored checkpoint at step {state.step}")
+
+    if trainer.nat_gan and state.step == 0:
+        n_disc = (t.nat_gan_pretrain_steps_unpaired if trainer.use_unpaired
+                  else t.nat_gan_pretrain_steps)
+        if n_disc:
+            log(f"Pretraining nat-GAN discriminator for {n_disc} steps")
+            pre = torch.Generator(device=trainer.device)
+            pre.manual_seed(t.tacotron_random_seed + 2)
+            for i in range(n_disc):
+                state, dm = trainer.disc_pretrain_step(state, next(batches),
+                                                       pre)
+                if i % 50 == 0 or i == n_disc - 1:
+                    log(f"nat-GAN disc pretrain {i}: "
+                        f"d_loss={float(dm['d_loss']):.5f}")
 
     windows = {k: ValueWindow(100) for k in LOSS_WINDOWS}
     time_window = ValueWindow(100)
@@ -105,7 +135,8 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
             loss = float(metrics["loss"])
             time_window.append(time.time() - t0)
             for k in windows:
-                windows[k].append(float(metrics[k]))
+                if k in metrics:
+                    windows[k].append(float(metrics[k]))
             step = state.step
             rec = dict(step=step, loss=round(loss, 4),
                        tfr=round(float(metrics["teacher_forcing_ratio"]), 3),
@@ -117,7 +148,10 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                     f"avg_loss={windows['loss'].average:.5f}, "
                     f"before={windows['before_loss'].average:.5f}, "
                     f"after={windows['after_loss'].average:.5f}, "
-                    f"stop={windows['stop_token_loss'].average:.5f}]")
+                    f"stop={windows['stop_token_loss'].average:.5f}"
+                    + "".join(f", {k}={windows[k].average:.5f}"
+                              for flag, keys in VARIANT_LOG.items()
+                              if trainer.flags[flag] for k in keys) + "]")
             if math.isnan(loss) or loss > 100.0:
                 log(f"Loss exploded to {loss:.5f} at step {step}")
                 raise RuntimeError(f"Loss exploded to {loss} at step {step}")
@@ -130,7 +164,7 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                 rec.update(_eval_losses(trainer, state, feeder, bs, step,
                                         loss_guard))
                 _eval_synthesis(cfg, state, first, eval_dir, step,
-                                eval_sentences, synth_guard, trainer.device)
+                                eval_sentences, synth_guard, trainer)
             curve.write(json.dumps(rec) + "\n")
             curve.flush()
     finally:
@@ -176,7 +210,7 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
 
 
 def _eval_synthesis(cfg, state, sample_batch, eval_dir, step, sentences,
-                    guard, device):
+                    guard, trainer):
     """Synthesize the fixed eval sentences (hparams.py:370-395) to wavs
     under eval-dir/step_<step//500>/wavs (reference tacotron/train.py:
     602-706), the reference mels cycled from a train batch."""
@@ -186,7 +220,10 @@ def _eval_synthesis(cfg, state, sample_batch, eval_dir, step, sentences,
     os.makedirs(bucket, exist_ok=True)
     try:
         params, stats = tacotron_to_flax(state.model)
-        synth = TacotronSynthesizer(cfg, params, stats, device=device)
+        synth = TacotronSynthesizer(
+            cfg, params, stats, device=trainer.device,
+            emt_only=trainer.emt_only,
+            pretrained_emb_disc_all=trainer.pretrained_emb_disc_all)
         texts = (sentences or EVAL_SENTENCES)[:max(
             1, cfg.train.eval_num_sentences)]
         re_, rs = sample_batch["ref_mel_emt"], sample_batch["ref_mel_spk"]

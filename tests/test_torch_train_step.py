@@ -299,15 +299,29 @@ def test_init_and_round_trip_match_the_flax_tree(jax_state):
         np.testing.assert_array_equal(leaf, v)
 
 
-@pytest.mark.parametrize("flag", ["use_unpaired", "nat_gan", "adv_emb_disc",
-                                  "pretrained_emb_disc", "opt_ref_no_mo"])
+@pytest.mark.parametrize("flag", ["emt_attn", "adain", "predict_linear",
+                                  "se_concat", "prenet_layers",
+                                  "unknown_option"])
 def test_unported_training_options_raise(flag):
+    """What the trainer still refuses raises with the option's name: the
+    emt_attn, AdaIN, linear-output and se_concat=False configs, an unequal
+    prenet (ValueError), a flag the JAX trainer does not have
+    (TypeError)."""
     _, tcfg = cfgs()
+    sec, over = {"emt_attn": ("gst", dict(emt_attn=True)),
+                 "adain": ("gst", dict(adain=True)),
+                 "predict_linear": ("tacotron", dict(predict_linear=True)),
+                 "se_concat": ("gst", dict(se_concat=False)),
+                 "prenet_layers": ("tacotron", dict(prenet_layers=(16, 8))),
+                 "unknown_option": ("gst", {})}[flag]
+    cfg = tcfg.replace(**{sec: dataclasses.replace(getattr(tcfg, sec),
+                                                   **over)})
+    if flag == "unknown_option":
+        with pytest.raises(TypeError, match=flag):
+            TacotronTrainer(cfg, device="cpu", **{flag: True})
+        return
     with pytest.raises(ValueError, match=flag):
-        TacotronTrainer(tcfg, device="cpu", **{flag: True})
-    emt = tcfg.replace(gst=dataclasses.replace(tcfg.gst, emt_attn=True))
-    with pytest.raises(ValueError, match="emt_attn"):
-        TacotronTrainer(emt, device="cpu")
+        TacotronTrainer(cfg, device="cpu")
 
 
 # ------------------------------------------------- feeder, checkpoints, CLI
@@ -442,4 +456,4 @@ def test_cli_train_three_steps(tmp_path, monkeypatch):
     assert os.listdir(wavs) == ["step-3-eval-0.wav"]
     with pytest.raises(SystemExit):
         cli.main(["train", "--model", "Tacotron", "--input-path", path,
-                  "--nat-gan", "--device", "cpu"])
+                  "--pretrained-disc-emt", "disc", "--device", "cpu"])
