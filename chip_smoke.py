@@ -199,6 +199,30 @@ Phases, each printing its wall seconds:
     autograd through the plain decode printed beside); `emt_only` and the
     `paper` preset's Tacotron from a fresh init, 8 steps on one batch, the
     loss falling;
+27. (t) the style discriminators (`disc/`) at the r5 config's full width
+    over phase 26's train.txt: `cli disc-train` 200 steps of an emotion
+    CE and a speaker GE2E discriminator (the loss finite and its last 20
+    steps' mean below its first 20's: the labels are synthetic and carry
+    no signal, so this shows only that the rows are memorized), one CE
+    step on the card against the same step on the CPU (embeddings,
+    gradients, statistics and the updated parameters within the
+    tolerances stated at DISC_EMB_ATOL, at most DISC_FLIP_SHARE of a
+    tensor's elements exempt as sign flips),
+    `cli emt-disc-train` for 40 steps with its val line every 10, `cli
+    disc-preprocess` of the r5 audio of rows 0-15 written as wavs of two
+    speakers and `disc-train --stacks-dir` on its stacks for 50 steps;
+    `cli train --unpaired --pretrained-emb-disc` with both
+    discriminators grafted for 4 steps, with `--save-output-vars` and a
+    torch.profiler window over steps 3-4 (the grafted encoders and
+    statistics bit for bit the discs' at the graft and at step 4;
+    4a and 4b counted by the wrappers, 2 each a step, and equal to the
+    trace's launches by kernel name; metrics.jsonl, train.log, the step-1
+    output vars); `cli synthesize --mode synthesis` of 16 rows on kernel 1
+    classified by `cli disc-test` (its predictions equal the same
+    checkpoint's `disc-test --device cpu` row for row, acc the confusion
+    matrix's trace over 16, 16 rows in it and in the CSV, the plot skipped
+    with a logged line where matplotlib is missing); `overfit` of 8 r5 rows for 20 steps,
+    the loss falling;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode and Griffin-Lim route.
 
@@ -3745,6 +3769,345 @@ def variants_phase(tparams, stats, seed, smi):
     done(26, t0)
 
 
+# phase 27: the style discriminators and their graft into Tacotron
+# training, at the r5 config's full width (default GST widths: reference
+# filters (32, 32, 64, 64, 128, 128), GRU 128) over phase 26's train.txt
+# (synthetic labels: emotion i mod 4, speaker (i // 4) mod 8). (b)'s
+# tolerances, written before the first reading: one CE step of the same
+# weights and batch on the card and on the CPU, f32 (TF32 off) in another
+# sum order. The embeddings (unit vectors) within DISC_EMB_ATOL; each
+# gradient within DISC_GRAD_RTOL of its tensor's largest, but the conv
+# biases right before train-mode BatchNorm, whose gradient is zero in
+# exact arithmetic (rounding noise on both sides), within
+# DISC_NOISE_REL of the largest gradient of any tensor; the running
+# statistics the step moved within DISC_STAT_RTOL of their scale; the
+# parameters after Adam's first step (lr·g/(|g| + 1e-8): lr·sign(g) for
+# any but tiny |g|) within DISC_PARAM_ATOL, but the elements whose CPU
+# gradient lies within 10× their tensor's card-CPU gradient difference
+# (a sign that rounding may flip) within 2·lr, the most Adam's first step
+# lets any element differ; so that this exemption cannot widen with a
+# wrong gradient, at most DISC_FLIP_SHARE of each tensor's elements take
+# it (the conv biases before BatchNorm, all noise, excepted; written
+# before its first reading). The first reading on an
+# H100 missed DISC_NOISE_REL, then 1e-5: conv2d_0's bias read
+# 2.15e-5 (conv2d_1's 1.9e-6, the deeper ones less), everything else
+# within its tolerance (gradients 1.05e-4, statistics 3.5e-7, embeddings
+# 4.6e-7). Such a bias sums the cancelling gradients of every position of
+# its layer (81,920 for conv2d_0 at B 32), so its noise grows with them;
+# the gate has been 1e-4 since.
+DISC_EMB_ATOL = 1e-4
+DISC_GRAD_RTOL = 1e-3
+DISC_NOISE_REL = 1e-4
+DISC_STAT_RTOL = 1e-4
+DISC_PARAM_ATOL = 1e-6
+DISC_FLIP_SHARE = 0.05
+DISC_STEPS, EMT_DISC_STEPS, STACK_STEPS, GRAFT_STEPS = 200, 40, 50, 4
+OVERFIT_STEPS, OVERFIT_ROWS = 20, 8
+STYLE_ROWS = 16
+
+
+def _flat(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{pre}{k}/"))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def disc_phase(seed, smi):
+    """Phase 27: `disc-train` (CE and GE2E), a disc step on the card
+    against the CPU, `emt-disc-train`, `disc-preprocess` and GE2E on its
+    stacks, Tacotron training with the grafted discriminators (summaries,
+    output vars, a torch.profiler window), style-transfer synthesis on
+    kernel 1 classified by `disc-test`, and `overfit`."""
+    import copy
+
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import cli, convert
+    from tacotron2_tpu_torch.data.audio import save_wav
+    from tacotron2_tpu_torch.disc import model as dm
+    from tacotron2_tpu_torch.disc import train as dt
+    from tacotron2_tpu_torch.eval.convergence import batch_from_rows, overfit
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    from tacotron2_tpu_torch.train.checkpoint import CheckpointManager
+    from tacotron2_tpu_torch.train.tacotron_train import \
+        import_pretrained_disc
+    cfg = train_config()
+    t0 = phase(27, "(t) the style discriminators: disc-train (CE, GE2E), "
+               "a disc step card vs CPU, emt-disc-train, disc-preprocess "
+               "and GE2E on its stacks, Tacotron training with the grafted "
+               "discriminators, style transfer classified by disc-test, "
+               "overfit")
+    tmp = tempfile.mkdtemp(prefix="discs_")
+    texts = corpus_texts()
+    train_txt = variant_train_txt(tmp, texts, cfg)
+    hp = "tacotron.compute_dtype=bfloat16,audio.trim_silence=false"
+    secs = {}
+
+    def curve(path):
+        return [json.loads(x) for x in open(path, encoding="utf-8")]
+
+    # ---- (a) disc-train: emotion CE, speaker GE2E softmax. The labels
+    # are synthetic and carry no signal (the CE loss sits near ln 4), so
+    # the falling loss shows only that the rows are memorized.
+    discs = {}
+    for kind, loss_type in (("emt", "ce"), ("spk", "softmax")):
+        ts = time.time()
+        discs[kind] = cli.main([
+            "--hparams", hp, "disc-train", "--input-path", train_txt,
+            "--base-dir", tmp, "--kind", kind, "--loss-type", loss_type,
+            "--train-steps", str(DISC_STEPS)])
+        secs[f"disc-train {kind}"] = time.time() - ts
+        losses = [r["loss"] for r in curve(os.path.join(
+            tmp, f"disc_{kind}_curve.jsonl"))]
+        first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+        print(f"disc-train --kind {kind} --loss-type {loss_type}: "
+              f"{len(losses)} steps in {secs[f'disc-train {kind}']:.3f} s, "
+              f"loss mean of the first 20 {first:.4f}, of the last 20 "
+              f"{last:.4f}; checkpoints {os.listdir(discs[kind])}")
+        assert len(losses) == DISC_STEPS and np.isfinite(losses).all()
+        assert last < first, (kind, first, last)
+
+    # ---- (b) one CE step on the card against the same step on the CPU
+    ts = time.time()
+    feeder = dt.DiscFeeder(cfg, train_txt, kind="emt", seed=seed)
+    b = next(feeder.batches(M=8))
+    base = dm.DiscriminatorModel(cfg, feeder.n_classes)
+    convert.init_params(base, cfg, torch.Generator().manual_seed(seed))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        tr = dt.DiscTrainer(copy.deepcopy(base).to(dev), feeder.n_classes,
+                            use_ce=True)
+        loss, _, emb = tr.loss(b["mels"], b["labels"], b["N"], b["M"])
+        grads = torch.autograd.grad(loss, tr.params)
+        tr.opt.step(tr.params, grads)
+        params, stats = convert.disc_to_flax(tr.model)
+        names = [convert.flax_path(n) for n, _ in tr.model.named_parameters()]
+        got[dev] = dict(loss=float(loss.detach()),
+                        emb=emb.detach().cpu().numpy(),
+                        grads={n: convert.to_flax_array(m, g) for n, (m, _), g
+                               in zip(names, tr.model.named_parameters(),
+                                      grads)},
+                        params=_flat(params), stats=_flat(stats))
+    c, h = got["cuda"], got["cpu"]
+    lr = tr.opt.lr
+    emb_err = float(np.abs(c["emb"] - h["emb"]).max())
+    g_top = max(float(np.abs(g).max()) for g in h["grads"].values())
+    noise = {n for n in h["grads"] if re.search(r"conv2d_\d+/bias$", n)}
+    g_err, p_err, share, flips = {}, {}, {}, 0
+    for n, g in h["grads"].items():
+        d = np.abs(c["grads"][n] - g)
+        g_err[n] = float(d.max()) / (g_top if n in noise
+                                     else max(float(np.abs(g).max()), 1e-30))
+        flip = np.abs(g) <= 10 * d.max()
+        tol = np.where(flip, 2 * lr, DISC_PARAM_ATOL)
+        e = np.abs(c["params"][n] - h["params"][n])
+        flips += int(flip.sum())
+        if n not in noise:
+            share[n] = float(flip.mean())
+        p_err[n] = float((e / tol).max())
+    s_err = {n: float(np.abs(c["stats"][n] - v).max()
+                      / max(float(np.abs(v).max()), 1e-30))
+             for n, v in h["stats"].items()}
+    worst = max(share, key=share.get)
+    secs["card vs CPU step"] = time.time() - ts
+    print(f"one CE step, card vs CPU (B {len(b['labels'])} crops of 128 "
+          f"frames): loss {c['loss']:.6f} / {h['loss']:.6f}; embeddings max "
+          f"|diff| {emb_err:.2e}; gradients, max |diff| / scale: largest "
+          f"{max(v for n, v in g_err.items() if n not in noise):.2e}, conv "
+          f"biases before BatchNorm {max(g_err[n] for n in noise):.2e} of "
+          f"the largest gradient; statistics {max(s_err.values()):.2e}; "
+          f"parameters, worst share of the tolerance {max(p_err.values()):.3f}"
+          f" ({flips} elements of near-zero gradient held to 2·lr = "
+          f"{2 * lr:g}; the largest share of such elements outside the "
+          f"noise-only biases {share[worst]:.4f}, {worst})")
+    assert emb_err <= DISC_EMB_ATOL, emb_err
+    assert all(v <= (DISC_NOISE_REL if n in noise else DISC_GRAD_RTOL)
+               for n, v in g_err.items()), g_err
+    assert max(s_err.values()) <= DISC_STAT_RTOL, s_err
+    assert max(p_err.values()) <= 1.0, p_err
+    assert share[worst] <= DISC_FLIP_SHARE, (worst, share[worst])
+
+    # ---- (c) emt-disc-train with its val line every 10 steps
+    ts = time.time()
+    e_dir = cli.main(["--hparams", hp, "emt-disc-train", "--input-path",
+                      train_txt, "--base-dir", tmp, "--train-steps",
+                      str(EMT_DISC_STEPS)])
+    secs["emt-disc-train"] = time.time() - ts
+    recs = curve(os.path.join(tmp, "emt_disc_curve.jsonl"))
+    vals = [(r["step"], round(r["val_loss"], 4), round(r["val_acc"], 3))
+            for r in recs if "val_loss" in r]
+    print(f"emt-disc-train: {len(recs)} steps in {secs['emt-disc-train']:.3f}"
+          f" s, (step, val loss, val acc) {vals}; checkpoints "
+          f"{sorted(os.listdir(e_dir))}")
+    assert len(recs) == EMT_DISC_STEPS and [v[0] for v in vals] == [
+        10, 20, 30, 40]
+    assert np.isfinite([r["loss"] for r in recs] + [v[1] for v in vals]).all()
+
+    # ---- (d) disc-preprocess on the r5 audio of rows 0-15 as wavs (two
+    # speakers of 8), then GE2E on its stacks
+    ts = time.time()
+    a = cfg.audio
+    for i in range(16):
+        d = os.path.join(tmp, "speakers", f"spk{i // 8}")
+        os.makedirs(d, exist_ok=True)
+        save_wav(np.load(os.path.join(R5, "corpus", "audio",
+                                      f"audio-{i}.npy")),
+                 os.path.join(d, f"utt{i}.wav"), a.sample_rate)
+    out = cli.main(["--hparams", hp, "disc-preprocess", "--corpus-dir",
+                    os.path.join(tmp, "speakers"), "--output-dir",
+                    os.path.join(tmp, "tisv"), "--test-fraction", "0"])
+    shapes = [np.load(os.path.join(out["train"], f"speaker{i}.npy")).shape
+              for i in range(2)]
+    s_dir = cli.main(["--hparams", hp, "disc-train", "--stacks-dir",
+                      out["train"], "--base-dir", os.path.join(tmp, "st"),
+                      "--kind", "spk", "--train-steps", str(STACK_STEPS),
+                      "--n-per-class", "4"])
+    st_loss = [r["loss"] for r in curve(os.path.join(
+        tmp, "st", "disc_spk_curve.jsonl"))]
+    secs["disc-preprocess + stacks"] = time.time() - ts
+    print(f"disc-preprocess: stacks {shapes} ([windows, 40 mels, 140 "
+          f"frames]); disc-train --stacks-dir {STACK_STEPS} steps: loss "
+          f"{st_loss[0]:.4f} -> {st_loss[-1]:.4f}, "
+          f"{secs['disc-preprocess + stacks']:.3f} s; {os.listdir(s_dir)}")
+    assert all(sh[0] > 0 and sh[1:] == (40, 140) for sh in shapes), shapes
+    assert len(st_loss) == STACK_STEPS and np.isfinite(st_loss).all()
+
+    # ---- (e) Tacotron training with the grafted discriminators
+    fresh = convert.init_tacotron(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu", pretrained_emb_disc=True,
+                                  use_unpaired=True)
+    want = {k: dt.load_pretrained_disc(d) for k, d in discs.items()}
+
+    def held(params, stats, when):
+        for kind, w in want.items():
+            sc = f"pretrained_ref_enc_{kind}"
+            for tree, sub in ((params, w["params"]),
+                              (stats, w["batch_stats"])):
+                g = _flat(convert.tree_get(tree, sc))
+                for k, v in _flat(sub).items():
+                    assert np.array_equal(g[k], v), (when, sc, k)
+    for kind, d in discs.items():
+        import_pretrained_disc(fresh, kind, d)
+    held(*convert.tacotron_to_flax(fresh), "grafted")
+    ts = time.time()
+    tk.train_launches = tk.bwd_launches = tk.launches = 0
+    base_dir = os.path.join(tmp, "taco")
+    ckpt_dir = cli.main([
+        "--hparams", hp + ",train.summary_interval=1", "train", "--model",
+        "Tacotron",
+        "--input-path", train_txt, "--base-dir", base_dir, "--train-steps",
+        str(GRAFT_STEPS), "--batch-size", str(TRAIN_BATCH),
+        "--eval-interval", "0", "--unpaired", "--pretrained-emb-disc",
+        "--pretrained-disc-emt", discs["emt"], "--pretrained-disc-spk",
+        discs["spk"], "--save-output-vars", "--profile-start", "2",
+        "--profile-end", "4"])
+    secs["graft train"] = time.time() - ts
+    counted = (tk.train_launches, tk.bwd_launches)
+    mgr = CheckpointManager(ckpt_dir)
+    assert mgr.steps() == [GRAFT_STEPS], mgr.steps()
+    tree = mgr.load()
+    held(tree["params"], tree["batch_stats"], f"step {GRAFT_STEPS}")
+    log_dir = os.path.dirname(ckpt_dir)
+    rows = [json.loads(x) for x in open(os.path.join(log_dir,
+                                                     "metrics.jsonl"))]
+    log = open(os.path.join(log_dir, "train.log")).read()
+    ov = sorted(os.listdir(os.path.join(log_dir, "output_vars")))
+    trace_path = os.path.join(log_dir, "profile", "trace-2.json")
+    events = json.load(open(trace_path))["traceEvents"]
+    seen = tuple(sum(1 for e in events
+                     if str(e.get("cat", "")).lower() == "kernel"
+                     and k in e.get("name", "")) for k in TF_KERNELS)
+    per_step = tuple(n // GRAFT_STEPS for n in counted)
+    curve_t = curve(os.path.join(log_dir, "taco_curve.jsonl"))
+    # each step's host-clock seconds from the running mean the loop logs
+    avg = [r["tacotron/sec_per_step"] for r in rows
+           if "tacotron/sec_per_step" in r]
+    step_ms = [1e3 * ((k + 1) * v - k * (avg[k - 1] if k else 0.0))
+               for k, v in enumerate(avg)]
+    print(f"cli train --unpaired --pretrained-emb-disc with the grafted "
+          f"discriminators, {GRAFT_STEPS} steps in {secs['graft train']:.3f}"
+          f" s; step ms (host clock, 3-4 under the profiler; {smi}) "
+          + " ".join(f"{x:.3f}" for x in step_ms) + "; loss " + " ".join(
+              f"{r['loss']:.4f}" for r in curve_t) + f"; launches 4a, 4b "
+          f"{counted} ({per_step} a step), the trace of steps 3-4 by "
+          f"kernel name {seen}; metrics.jsonl {len(rows)} rows, output_vars "
+          f"{ov}, grafted encoders and statistics equal the discs' at the "
+          f"graft and at step {GRAFT_STEPS}")
+    assert counted == (2 * GRAFT_STEPS, 2 * GRAFT_STEPS), counted
+    assert seen == tuple(2 * n for n in per_step), (seen, per_step)
+    assert sorted({r["step"] for r in rows}) == list(
+        range(1, GRAFT_STEPS + 1))
+    assert "Imported pretrained spk discriminator (msgpack)" in log
+    assert {"mels-1.csv", "align-1.csv", "stop-1.csv"} <= set(ov)
+
+    # ---- (f) style-transfer synthesis of 16 rows on kernel 1, then
+    # disc-test with (a)'s emotion discriminator on its map.txt
+    ts = time.time()
+    dk.rows_launches = 0
+    map_path = cli.main([
+        "--hparams", hp + f",tacotron.max_iters={MAX_STEPS}", "synthesize",
+        "--model", "Tacotron", "--mode", "synthesis", "--input-path",
+        train_txt, "--limit", str(STYLE_ROWS), "--checkpoint",
+        os.path.join(R5, "taco_ckpt.msgpack"), "--output-dir",
+        os.path.join(tmp, "style"), "--seed", str(seed)])
+    k1 = dk.rows_launches
+    acc, cm = cli.main(["--hparams", hp, "disc-test", "--checkpoint",
+                        discs["emt"], "--map-path", map_path, "--kind",
+                        "emt", "--base-dir", tmp])
+    secs["style transfer + disc-test"] = time.time() - ts
+    # the same checkpoint on the same mels on the CPU: the same predictions
+    acc_h, cm_h = cli.main(["--hparams", hp, "disc-test", "--checkpoint",
+                            discs["emt"], "--map-path", map_path, "--kind",
+                            "emt", "--base-dir", tmp, "--output-dir",
+                            os.path.join(tmp, "disc_test_cpu"), "--device",
+                            "cpu"])
+
+    def csv_of(sub):
+        return open(os.path.join(tmp, sub, "disc_test_emt.csv")
+                    ).read().strip().split("\n")[1:]
+    csv_rows, csv_h = csv_of("disc_test"), csv_of("disc_test_cpu")
+    same = sum(a_ == b_ for a_, b_ in zip(csv_rows, csv_h))
+    plot = os.path.exists(os.path.join(tmp, "disc_test", "confusion_emt.png"))
+    print(f"synthesize --mode synthesis, {STYLE_ROWS} rows: kernel 1 "
+          f"launches {k1}; disc-test --kind emt: acc {acc:.4f}, confusion "
+          f"matrix {cm.tolist()}, {len(csv_rows)} CSV rows, predictions "
+          f"equal to the CPU's in {same} of {len(csv_h)} rows (CPU acc "
+          f"{acc_h:.4f}), confusion plot "
+          f"{'written' if plot else 'skipped (no matplotlib)'}; "
+          f"{secs['style transfer + disc-test']:.3f} s")
+    assert k1 > 0 and cm.sum() == STYLE_ROWS
+    assert len(csv_rows) == STYLE_ROWS and csv_rows == csv_h, (csv_rows,
+                                                                csv_h)
+    assert np.array_equal(cm, cm_h) and acc == acc_h
+    assert acc == np.trace(cm) / STYLE_ROWS, (acc, cm)
+
+    # ---- (g) overfit one r5 batch of 8
+    ts = time.time()
+    rows_o = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
+              for i, t in enumerate(texts[:OVERFIT_ROWS])]
+    batch = batch_from_rows(rows_o, os.path.join(R5, "corpus", "mels"), cfg,
+                            pad_text_to=PAD_TEXT, pad_mel_to=PAD_MEL)
+    rep, hist = overfit(cfg, batch, OVERFIT_STEPS, seed=seed, eval_every=10,
+                        device="cuda")
+    secs["overfit"] = time.time() - ts
+    print(f"overfit, {OVERFIT_STEPS} steps on {OVERFIT_ROWS} r5 rows: "
+          f"history (step, loss, mel MAE, diagonality) " + ", ".join(
+              f"({s_}, {l_:.4f}, {m_:.4f}, {d_:.3f})"
+              for s_, l_, m_, d_ in hist) + f"; {secs['overfit']:.3f} s")
+    assert [h_[0] for h_ in hist] == [1, 10, 20], hist
+    assert np.isfinite([h_[1] for h_ in hist]).all()
+    assert hist[-1][1] < hist[0][1], hist
+    print("phase 27 seconds: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in secs.items()))
+    shutil.rmtree(tmp, ignore_errors=True)
+    done(27, t0)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4485,6 +4848,9 @@ def main(argv=None):
 
     # ---- 26. (s) the fork's Tacotron training modes on kernels 4a/4b
     variants_phase(tparams, stats, seed, smi)
+
+    # ---- 27. (t) the style discriminators, grafted into training
+    disc_phase(seed, smi)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -1,5 +1,6 @@
 """Command line of the PyTorch port: `python -m tacotron2_tpu_torch.cli
-serve | synthesize | train`.
+serve | synthesize | train | disc-train | emt-disc-train | disc-preprocess
+| disc-test | fixed-eval-set`.
 
 `serve`, port of tacotron2_tpu/cli.py `serve` (:382): text → wav through
 one `TextToWavProgram` per padded-text bucket, built on first use and
@@ -39,8 +40,11 @@ checkpointing under <base-dir>/logs-<model>:
   the feeder and the trainer as the JAX command passes them (`--emt-only`,
   `--intercross-both`, `--unpaired`, `--adv-emb-disc`, `--nat-gan`,
   `--opt-ref-no-mo`, `--pretrained-emb-disc(-all)`, `--remove-long-samps`,
-  `--test-inputs`, `--test-max-len`); `--pretrained-disc-emt/-spk` and
-  `--save-output-vars` exit with their names;
+  `--test-inputs`, `--test-max-len`); `--pretrained-disc-emt/-spk`
+  graft a discriminator (a `disc-train` checkpoint directory or a
+  reference TF checkpoint) into `pretrained_ref_enc_{emt,spk}`,
+  `--save-output-vars` dumps the eval forward's tensors as CSVs under
+  output_vars/;
 - `--model WaveNet`: the vocoder trainer (`train/wavenet_train.py`) on a
   GTA map.txt (or a train.txt with --no-gta) of (audio, mel) pairs
   (checkpoints in wave_pretrained/, which `synthesize
@@ -48,11 +52,27 @@ checkpointing under <base-dir>/logs-<model>:
 - `--model Tacotron-2`: the sequencer: Tacotron training, GTA synthesis
   of the train.txt into <base-dir>/tacotron_output/gta/, then WaveNet
   training on its map.txt (--wavenet-train-steps, --wavenet-batch-size),
-  resumable through <base-dir>/state_log.
+  resumable through <base-dir>/state_log;
+- every model: train.log in the log directory (`--slack-url` posts the
+  run's milestones, `--verbose` logs the whole config), metrics.jsonl,
+  and with `--profile-start N [--profile-end M]` a torch.profiler trace
+  of the steps between under profile/.
+
+The style discriminators (`disc/`, JAX cli.py:447-497, 642-697):
+`disc-train` (an emotion, speaker or accent discriminator on a train.txt,
+or on `disc-preprocess`'s TI-SV stacks with --stacks-dir; CE head or
+GE2E; checkpoints in <base-dir>/disc_<kind>/), `emt-disc-train` (the
+standalone emotion classifier, <base-dir>/emt_disc/), `disc-preprocess`
+(<corpus>/<speaker>/**/*.wav -> per-speaker log-mel window stacks),
+`disc-test` (classify a synthesis map.txt's or a train.txt's mels: the
+accuracy, disc_test_<kind>.csv and confusion_<kind>.png) and
+`fixed-eval-set` (a style-transfer eval manifest from a train.txt).
 
 Weights are the JAX package's flax msgpack checkpoints (Tacotron
 {params, batch_stats}, WaveNet EMA params), read without flax; reference
-mels are `.npy` files. Everything runs on `--device` (default cuda).
+mels are `.npy` files. Every command that puts tensors on a device runs
+on `--device` (default cuda); `disc-preprocess` and `fixed-eval-set` run
+on the host.
 
     python -m tacotron2_tpu_torch.cli serve \
         --checkpoint artifacts/e2e_demo_r5/taco_ckpt.msgpack \
@@ -74,6 +94,14 @@ mels are `.npy` files. Everything runs on `--device` (default cuda).
         --input-path data/train.txt --base-dir runs --train-steps 1000
     python -m tacotron2_tpu_torch.cli train --model WaveNet \
         --input-path runs/tacotron_output/gta/map.txt --base-dir runs
+    python -m tacotron2_tpu_torch.cli disc-train --kind emt \
+        --loss-type ce --input-path data/train.txt --base-dir runs
+    python -m tacotron2_tpu_torch.cli train --model Tacotron \
+        --input-path data/train.txt --base-dir runs --unpaired \
+        --pretrained-emb-disc --pretrained-disc-emt runs/disc_emt \
+        --pretrained-disc-spk runs/disc_spk
+    python -m tacotron2_tpu_torch.cli disc-test --kind emt \
+        --checkpoint runs/disc_emt --map-path out/natural/map.txt
 """
 
 from __future__ import annotations
@@ -88,7 +116,7 @@ import numpy as np
 
 from .config import get_config
 from .data.audio import save_wav
-from .utils import log
+from .utils import infolog_init, log
 
 
 def make_serve_fn(args):
@@ -279,15 +307,13 @@ def read_seq(path: str) -> set:
 def cmd_train(args):
     """Train Tacotron, WaveNet, or both with GTA synthesis between; returns
     the last stage's checkpoint directory."""
-    off = [f"--{f.replace('_', '-')}" for f in (
-        "pretrained_disc_emt", "pretrained_disc_spk", "save_output_vars")
-        if getattr(args, f)]
-    if off:
-        raise SystemExit(f"train: {' '.join(off)} is not in the port")
     cfg = get_config(args.preset, args.hparams)
     log_dir = os.path.join(args.base_dir, f"logs-{args.model}")
     os.makedirs(log_dir, exist_ok=True)
-    log(f"Training {args.model} on {args.device}")
+    infolog_init(os.path.join(log_dir, "train.log"), args.model,
+                 args.slack_url)
+    log(cfg.debug_string() if args.verbose else
+        f"Training {args.model} on {args.device}")
     if args.model == "Tacotron":
         return _train_tacotron(cfg, args, log_dir)
     if args.model == "WaveNet":
@@ -323,7 +349,11 @@ def _train_tacotron(cfg, args, log_dir):
         restore=args.restore, batch_size=args.batch_size,
         device=args.device, checkpoint_interval=args.checkpoint_interval,
         eval_interval=args.eval_interval, feeder_kwargs=feeder_kwargs(args),
-        trainer_kwargs=trainer_kwargs(args))
+        trainer_kwargs=trainer_kwargs(args),
+        pretrained_disc_emt=args.pretrained_disc_emt,
+        pretrained_disc_spk=args.pretrained_disc_spk,
+        save_output_vars=args.save_output_vars,
+        profile_start=args.profile_start, profile_end=args.profile_end)
     return ckpt_dir
 
 
@@ -333,7 +363,8 @@ def _train_wavenet(cfg, args, log_dir, input_path, steps, batch_size, gta):
         cfg, input_path, log_dir, train_steps=steps, restore=args.restore,
         gta=gta, batch_size=batch_size, device=args.device,
         checkpoint_interval=args.checkpoint_interval,
-        eval_interval=args.eval_interval)
+        eval_interval=args.eval_interval, profile_start=args.profile_start,
+        profile_end=args.profile_end)
     return ckpt_dir
 
 
@@ -376,8 +407,62 @@ def _train_sequencer(cfg, args, log_dir):
             args.wavenet_batch_size, gta=True)
         done.add("wave")
         save_seq(state_path, done)
-    log("Tacotron-2 pipeline complete")
+    log("Tacotron-2 pipeline complete", slack=True)
     return ckpt_dir
+
+
+def cmd_disc_train(args):
+    """Returns the checkpoint directory."""
+    from .disc.train import disc_train
+    cfg = get_config(args.preset, args.hparams)
+    ckpt_dir, _ = disc_train(
+        cfg, args.input_path, args.base_dir, kind=args.kind,
+        train_steps=args.train_steps, n_per_class=args.n_per_class,
+        loss_type=args.loss_type, remove_long_samps=args.remove_long_samps,
+        stacks_dir=args.stacks_dir, device=args.device)
+    return ckpt_dir
+
+
+def cmd_emt_disc_train(args):
+    """Returns the checkpoint directory."""
+    from .disc.train import emt_disc_train
+    cfg = get_config(args.preset, args.hparams)
+    ckpt_dir, _ = emt_disc_train(
+        cfg, args.input_path, args.base_dir, train_steps=args.train_steps,
+        batch_size=args.batch_size, n_classes=args.n_classes,
+        device=args.device)
+    return ckpt_dir
+
+
+def cmd_disc_preprocess(args):
+    """Returns {split: its stacks directory}."""
+    from .disc.data_preprocess import build_speaker_stacks
+    cfg = get_config(args.preset, args.hparams)
+    return build_speaker_stacks(
+        args.corpus_dir, args.output_dir, cfg.audio, n_mels=args.n_mels,
+        tisv_frame=args.tisv_frame, top_db=args.top_db,
+        edges_only=args.edges_only, test_fraction=args.test_fraction,
+        n_jobs=args.n_jobs)
+
+
+def cmd_disc_test(args):
+    """Returns (accuracy, confusion matrix)."""
+    from .disc.train import disc_test
+    cfg = get_config(args.preset, args.hparams)
+    return disc_test(cfg, args.checkpoint, args.map_path,
+                     args.output_dir or os.path.join(args.base_dir,
+                                                     "disc_test"),
+                     kind=args.kind, n_classes=args.n_classes,
+                     device=args.device)
+
+
+def cmd_fixed_eval_set(args):
+    """Returns the manifest's path."""
+    from .data.feeder import create_fixed_eval_set
+    return create_fixed_eval_set(args.input_path, args.out_path,
+                                 n_texts=args.n_texts,
+                                 n_refs_per_class=args.n_refs_per_class,
+                                 min_frames=args.min_frames)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -472,13 +557,93 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--restore", action="store_true")
     tr.add_argument("--checkpoint-interval", type=int, default=None)
     tr.add_argument("--eval-interval", type=int, default=None)
-    tr.add_argument("--pretrained-disc-emt", default=None)
-    tr.add_argument("--pretrained-disc-spk", default=None)
+    tr.add_argument("--slack-url", default=None,
+                    help="webhook that receives the run's milestones")
+    tr.add_argument("--verbose", action="store_true",
+                    help="log the whole config at the start")
+    tr.add_argument("--profile-start", type=int, default=None,
+                    help="step after which a torch.profiler trace starts")
+    tr.add_argument("--profile-end", type=int, default=None,
+                    help="step after which it stops (default start + 5)")
+    tr.add_argument("--pretrained-disc-emt", default=None,
+                    help="emotion discriminator to graft into "
+                         "pretrained_ref_enc_emt (a disc-train checkpoint "
+                         "directory or a TF checkpoint)")
+    tr.add_argument("--pretrained-disc-spk", default=None,
+                    help="speaker discriminator for pretrained_ref_enc_spk")
     tr.add_argument("--save-output-vars", action="store_true")
     for flag in TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", action="store_true")
     tr.add_argument("--device", default="cuda")
     tr.set_defaults(func=cmd_train)
+
+    dt = sub.add_parser("disc-train", help="emotion / speaker / accent "
+                        "discriminator (GE2E or CE)")
+    dt.add_argument("--input-path", default=None,
+                    help="train.txt metadata (omit with --stacks-dir)")
+    dt.add_argument("--base-dir", default="runs")
+    dt.add_argument("--kind", default="emt",
+                    choices=("emt", "spk", "accent"))
+    dt.add_argument("--train-steps", type=int, default=10000)
+    dt.add_argument("--n-per-class", type=int, default=8)
+    dt.add_argument("--loss-type", default="softmax",
+                    choices=("softmax", "contrast", "ce"))
+    dt.add_argument("--remove-long-samps", action="store_true")
+    dt.add_argument("--stacks-dir", default=None,
+                    help="train on disc-preprocess's TI-SV speaker stacks "
+                         "instead of train.txt metadata")
+    dt.add_argument("--device", default="cuda")
+    dt.set_defaults(func=cmd_disc_train)
+
+    et = sub.add_parser("emt-disc-train", help="standalone CNN+GRU emotion "
+                        "classifier (reference emt_disc/train.py)")
+    et.add_argument("--input-path", required=True)
+    et.add_argument("--base-dir", default="runs")
+    et.add_argument("--train-steps", type=int, default=2000)
+    et.add_argument("--batch-size", type=int, default=32)
+    et.add_argument("--n-classes", type=int, default=4)
+    et.add_argument("--device", default="cuda")
+    et.set_defaults(func=cmd_emt_disc_train)
+
+    dp = sub.add_parser("disc-preprocess", help="TI-SV per-speaker log-mel "
+                        "stacks from a <corpus>/<speaker>/**/*.wav layout "
+                        "(reference spk_disc/data_preprocess.py)")
+    dp.add_argument("--corpus-dir", required=True)
+    dp.add_argument("--output-dir", required=True)
+    dp.add_argument("--n-mels", type=int, default=40)
+    dp.add_argument("--tisv-frame", type=int, default=140)
+    dp.add_argument("--top-db", type=float, default=20.0)
+    dp.add_argument("--edges-only", action="store_true",
+                    help="keep only the first and last window of each "
+                         "voiced interval (the VCTK variant)")
+    dp.add_argument("--test-fraction", type=float, default=0.1)
+    dp.add_argument("--n-jobs", type=int, default=None)
+    dp.set_defaults(func=cmd_disc_preprocess)
+
+    dx = sub.add_parser("disc-test", help="classify synthesized mels with a "
+                        "trained discriminator (reference test_disc)")
+    dx.add_argument("--checkpoint", required=True,
+                    help="a disc-train checkpoint directory")
+    dx.add_argument("--map-path", required=True,
+                    help="synthesis map.txt or train.txt")
+    dx.add_argument("--base-dir", default="runs")
+    dx.add_argument("--kind", default="emt",
+                    choices=("emt", "spk", "accent"))
+    dx.add_argument("--n-classes", type=int, default=None)
+    dx.add_argument("--output-dir", default=None,
+                    help="default <base-dir>/disc_test")
+    dx.add_argument("--device", default="cuda")
+    dx.set_defaults(func=cmd_disc_test)
+
+    fe = sub.add_parser("fixed-eval-set", help="a reproducible style-"
+                        "transfer eval manifest (reference "
+                        "create_test_samps_fixed)")
+    fe.add_argument("--input-path", required=True, help="train.txt")
+    fe.add_argument("--out-path", required=True)
+    fe.add_argument("--n-texts", type=int, default=5)
+    fe.add_argument("--n-refs-per-class", type=int, default=5)
+    fe.add_argument("--min-frames", type=int, default=200)
+    fe.set_defaults(func=cmd_fixed_eval_set)
     return p
 
 

@@ -64,8 +64,8 @@ def _set(param: torch.Tensor, value) -> None:
 # them). Conv kernels change layout on the way (`_LAYOUT`); the encoder
 # LSTM biases carry the folded forget bias (`_lstm_offset`).
 # the reference encoders: the model's two, the frozen pretrained
-# classifiers' and nat-GAN's
-_REF = r"(refnet_\w+?|pretrained_ref_enc_(?:emt|spk)|nat_gan_enc)"
+# classifiers' and nat-GAN's; a style discriminator's (`disc/model.py`)
+_REF = r"(refnet_\w+?|pretrained_ref_enc(?:_emt|_spk)?|nat_gan_enc|emt_disc)"
 _RULES = [
     (r"embedding", "inputs_embedding/embedding"),
     (r"(encoder_conv|postnet)\.layers\.(\d+)\.weight",
@@ -89,7 +89,9 @@ _RULES = [
     (r"decoder\.(.+)", lambda m: "decoder/cell/" + m.group(1).replace(".", "/")),
     (r"(postnet_projection|style_disc_\w+?|nat_gan_disc\w*?)\."
      r"(kernel|bias)", r"\1/Dense_0/\2"),
-    (r"(pretrained_ref_enc_(?:emt|spk)_dense)\.(kernel|bias)", r"\1/\2"),
+    (r"(pretrained_ref_enc(?:_emt|_spk)?_dense|emt_disc_logit)\."
+     r"(kernel|bias)", r"\1/\2"),
+    (r"(w|b)", r"\1"),     # a GE2E discriminator's scale and bias
 ]
 # flax layout of a torch conv weight: [out, in, k] -> [k, in, out];
 # [out, in, kh, kw] -> [kh, kw, in, out]
@@ -187,6 +189,20 @@ def load_tacotron(model: Tacotron, params: Mapping,
     return model
 
 
+def disc_to_flax(model) -> tuple:
+    """A style discriminator's (`disc/model.py`: DiscriminatorModel or
+    EmtDisc) parameters and BatchNorm statistics -> (params, batch_stats),
+    the flax trees of the JAX modules: {pretrained_ref_enc: ...,
+    pretrained_ref_enc_dense | w, b} or {emt_disc: ..., emt_disc_logit}."""
+    return tacotron_to_flax(model)
+
+
+def load_disc(model, params: Mapping, batch_stats: Mapping):
+    """Fill a style discriminator from its flax trees (`disc_to_flax`'s
+    inverse)."""
+    return load_tacotron(model, params, batch_stats)
+
+
 def tacotron_from_flax(cfg: Config, params: Mapping, batch_stats: Mapping,
                        device="cuda", emt_only: bool = False,
                        pretrained_emb_disc_all: bool = False) -> Tacotron:
@@ -217,14 +233,24 @@ def init_tacotron(cfg: Config, generator=None, device="cuda",
     the module starts them. `flags` are the model's training heads
     (`Tacotron`'s keywords)."""
     g = generator if generator is not None else torch.Generator()
-    model = Tacotron(cfg, emt_only, **flags)
+    return init_params(Tacotron(cfg, emt_only, **flags), cfg, g).to(device)
+
+
+def init_params(model: torch.nn.Module, cfg: Config, g) -> torch.nn.Module:
+    """Draw every parameter of a module that `flax_path` names (a Tacotron
+    or a style discriminator) from its flax initialiser's distribution
+    with the generator `g`, in place; BatchNorm statistics stay as the
+    module starts them. A GE2E discriminator's w and b start at 10 and -5
+    (disc/model.py:40-41)."""
     params, stats = tacotron_to_flax(model)
     new = {}
     for name, _ in model.named_parameters():
         path = flax_path(name)
         shape = tree_get(params, path).shape
         leaf = path.split("/")[-1]
-        if leaf == "gates_bias" or (leaf == "scale" and "BatchNorm" in path):
+        if path in ("w", "b"):
+            v = torch.full(shape, 10.0 if path == "w" else -5.0)
+        elif leaf == "gates_bias" or (leaf == "scale" and "BatchNorm" in path):
             v = torch.ones(shape)
         elif leaf in ("bias", "candidate_bias", "attention_b",
                       "attention_bias"):
@@ -241,7 +267,7 @@ def init_tacotron(cfg: Config, generator=None, device="cuda",
         else:
             v = _glorot(shape, g)
         tree_set(new, path, v.numpy())
-    return load_tacotron(model, new, stats).to(device)
+    return load_tacotron(model, new, stats)
 
 
 def _wavenet_convs(model: WaveNet):

@@ -1,10 +1,13 @@
-"""Host-side (numpy) audio: preemphasis, wav writing, the mel spectrogram.
+"""Host-side (numpy) audio: wav reading and writing, preemphasis, the
+voice-activity split, the mel spectrogram.
 
-The part of tacotron2_tpu/data/audio.py that synthesis and its quality
-checks use: `preemphasis` / `inv_preemphasis` (:61,68), `save_wav` (:45),
-`_stft_np` and `mel_spectrogram` (:143,211). The filterbank and the dB
-normalisation follow `ops/stft.py`'s numpy bases, so host and device
-features agree.
+The part of tacotron2_tpu/data/audio.py that synthesis, its quality checks
+and the discriminators' preprocessing use: `load_wav` (:23, scipy's wav
+reader and `resample_poly`), `save_wav` (:45), `preemphasis` /
+`inv_preemphasis` (:61,68), `split_silence` (:104, librosa.effects.split's
+behaviour), `_stft_np` and `mel_spectrogram` (:143,211). The filterbank
+and the dB normalisation follow `ops/stft.py`'s numpy bases, so host and
+device features agree.
 """
 
 from __future__ import annotations
@@ -16,6 +19,28 @@ from scipy import signal
 
 from ..config import AudioConfig
 from ..ops import stft as _stft
+
+
+def load_wav(path: str, sr: int) -> np.ndarray:
+    """A wav as float32 in [-1, 1], channels averaged, resampled to `sr`
+    (librosa.core.load; reference audio.py:9-10)."""
+    from scipy.io import wavfile
+    file_sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        wav = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        wav = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        wav = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        wav = data.astype(np.float32)
+    if wav.ndim == 2:
+        wav = wav.mean(axis=1)
+    if file_sr != sr:
+        g = np.gcd(int(file_sr), int(sr))
+        wav = signal.resample_poly(wav, sr // g,
+                                   file_sr // g).astype(np.float32)
+    return wav
 
 
 def save_wav(wav: np.ndarray, path: str, sr: int) -> None:
@@ -47,6 +72,32 @@ def inv_preemphasis(wav: np.ndarray, k: float,
     if inv_preemphasize:
         return signal.lfilter([1], [1, -k], wav).astype(np.float32)
     return wav
+
+
+def split_silence(wav: np.ndarray, top_db: float = 20.0,
+                  frame_length: int = 2048, hop_length: int = 512
+                  ) -> np.ndarray:
+    """Non-silent intervals [[start, end), ...] in samples: frame RMS
+    (centred, zero-padded frames) in dB of the loudest frame, runs above
+    -top_db (librosa.effects.split; the discriminators' voice-activity
+    split, spk_disc/data_preprocess.py:118,175)."""
+    wav = np.asarray(wav)
+    if len(wav) == 0:
+        return np.zeros((0, 2), np.int64)
+    padded = np.pad(wav, (frame_length // 2, frame_length // 2))
+    num = 1 + (len(padded) - frame_length) // hop_length
+    idx = (np.arange(num)[:, None] * hop_length
+           + np.arange(frame_length)[None, :])
+    rms = np.sqrt(np.mean(padded[idx] ** 2, axis=1))
+    ref = np.max(rms)
+    if ref <= 0:
+        return np.zeros((0, 2), np.int64)
+    nonsilent = 20.0 * np.log10(np.maximum(rms, 1e-10) / ref) > -top_db
+    edges = np.diff(nonsilent.astype(np.int8), prepend=0, append=0)
+    starts = np.flatnonzero(edges == 1) * hop_length
+    ends = np.flatnonzero(edges == -1) * hop_length
+    return np.stack([np.minimum(starts, len(wav)),
+                     np.minimum(ends, len(wav))], axis=1).astype(np.int64)
 
 
 def _stft_np(y: np.ndarray, cfg: AudioConfig) -> np.ndarray:

@@ -30,7 +30,9 @@ path (the JAX package's native loader falls back to `np.load`,
 - the debug options: `remove_long_samples` (rows named *_021.wav or
   *_023.wav, or of 500 frames or more, dropped), `test_inputs` (constant
   30-frame examples) and `test_max_len` (longest rows first);
-- `prefetch`, a background thread.
+- `prefetch`, a background thread;
+- `create_fixed_eval_set`, the style-transfer eval manifest of `cli
+  fixed-eval-set` (JAX :331): the same rows from the same seed.
 
 The random draws come from one numpy Generator in the JAX feeder's
 order, so that the two feeders give the same batches.
@@ -48,6 +50,7 @@ import numpy as np
 
 from ..config import Config
 from ..text import text_to_sequence
+from ..utils import log
 
 
 def _round_up(x: int, m: int) -> int:
@@ -304,3 +307,43 @@ class TacotronFeeder:
             if item is stop:
                 return
             yield item
+
+
+def create_fixed_eval_set(metadata_path: str, out_path: str, *,
+                          n_texts: int = 5, n_refs_per_class: int = 5,
+                          min_frames: int = 200, class_col: int = 8,
+                          seed: int = 0) -> str:
+    """A reproducible style-transfer eval manifest (reference feeder.py:
+    585-687, `create_test_samps_fixed`): `n_texts` utterances longer than
+    `min_frames` as the texts, each crossed with `n_refs_per_class`
+    references of every class, in the synthesis metadata schema (train.txt
+    columns, [12] the emotion reference 'dataset/mel', [13] a tag for the
+    output names, [14] 'same': the speaker reference is the row's own mel)
+    that `synthesize --mode synthesis` reads."""
+    rng = np.random.default_rng(seed)
+    with open(metadata_path, encoding="utf-8") as f:
+        meta = [line.strip().split("|") for line in f if line.strip()]
+    long_rows = [m for m in meta if int(m[6]) > min_frames] or meta
+    by_class: Dict[str, list] = {}
+    for m in long_rows:
+        by_class.setdefault(m[class_col], []).append(m)
+
+    text_rows = [long_rows[i] for i in
+                 rng.choice(len(long_rows), min(n_texts, len(long_rows)),
+                            replace=False)]
+    out_rows = []
+    for t_row in text_rows:
+        for cls in sorted(by_class):
+            cands = by_class[cls]
+            picks = rng.choice(len(cands), min(n_refs_per_class, len(cands)),
+                               replace=False)
+            for k, ci in enumerate(picks):
+                ref = cands[int(ci)]
+                row = list(t_row[:12])
+                row[8] = cls
+                row += [f"{ref[0]}/{ref[2]}", f"e{cls}_{k + 1}", "same"]
+                out_rows.append("|".join(str(x) for x in row))
+    with open(out_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(out_rows) + "\n")
+    log(f"Wrote {len(out_rows)} fixed eval rows -> {out_path}")
+    return out_path

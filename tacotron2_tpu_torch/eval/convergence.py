@@ -5,8 +5,13 @@ training batch from train.txt rows, feeder padding: inputs 0, targets
 -max_abs_value, stop targets 1), `masked_mel_mae` (the mean over rows of
 each row's mel MAE within its length) and `alignment_diagonality` (the
 Pearson correlation of the attention's expected input position per
-decoder step with the linear text-to-frame ramp). The JAX module's
-`overfit` harness is not ported.
+decoder step with the linear text-to-frame ramp); and `overfit` (:95),
+the overfit-one-batch harness: train on one batch, evaluate (the natural
+eval's mel MAE and diagonality) at step 1, every `eval_every` steps and
+the last, stop early once both `stop_diag` and `stop_mae` are met, and
+return JAX's report keys and history tuples (step, loss, mel MAE, mean
+diagonality). The JAX harness starts from PRNGKey(seed); the port's from
+`init_tacotron` with a `torch.Generator` seeded so, or from `model`.
 """
 
 from __future__ import annotations
@@ -74,3 +79,55 @@ def masked_mel_mae(mel_out, batch: Dict) -> float:
     mel_out = np.asarray(mel_out)
     return float(np.mean([np.abs(mel_out[b, :int(n)] - tgt[b, :int(n)]).mean()
                           for b, n in enumerate(lens)]))
+
+
+def overfit(cfg: Config, batch: Dict, steps: int, *, seed: int = 0,
+            eval_every: int = 50, stop_diag: float = None,
+            stop_mae: float = None, return_state: bool = False,
+            device="cuda", model=None):
+    """Train on one batch for `steps`; returns (report, history), or
+    (report, history, the trained TrainState) with `return_state`."""
+    import torch
+
+    from ..train.tacotron_step import TacotronTrainer
+
+    trainer = TacotronTrainer(cfg, device=device)
+    state = trainer.init_state(torch.Generator().manual_seed(seed),
+                               model=model)
+    gen = torch.Generator(device=trainer.device).manual_seed(seed + 1)
+    r = cfg.tacotron.outputs_per_step
+    history = []
+
+    def evaluate():
+        g = torch.Generator(device=trainer.device).manual_seed(123)
+        out, _ = trainer.eval_step(state, batch, g)
+        mel = out["mel_outputs"].float().cpu().numpy()
+        aligns = out["alignments"].float().cpu().numpy()
+        diag = alignment_diagonality(aligns, batch["input_lengths"],
+                                     batch["targets_lengths"], r)
+        return masked_mel_mae(mel, batch), diag, aligns
+
+    metrics = None
+    steps_done = 0
+    for i in range(steps):
+        state, metrics = trainer.train_step(state, batch, gen)
+        steps_done = i + 1
+        if (i + 1) % eval_every == 0 or i == 0 or i == steps - 1:
+            mae, diag, _ = evaluate()
+            history.append((i + 1, float(metrics["loss"]), mae,
+                            float(np.mean(diag))))
+            if (stop_diag is not None and stop_mae is not None
+                    and float(np.mean(diag)) > stop_diag
+                    and mae < stop_mae):
+                break
+    mae, diag, aligns = evaluate()
+    report = dict(final_loss=(float(metrics["loss"])
+                              if metrics is not None else None),
+                  final_mel_mae=mae,
+                  diagonality=diag, mean_diagonality=float(np.mean(diag)),
+                  steps=steps_done,
+                  initial_mel_mae=history[0][2] if history else None,
+                  alignments=aligns)
+    if return_state:
+        return report, history, state
+    return report, history

@@ -4,11 +4,13 @@ Port of tacotron2_tpu/synth/tacotron_synth.py: `TacotronSynthesizer` with
 `prepare_inputs` (:273), `_pad_refs` (:283), `get_output_lengths` (:290),
 `synthesize` (:311, eval and GTA), `mel_to_wav`, `mels_to_wavs` (:388),
 `embed` (:427) and `gl_pad_value` (:36); and the drivers of every
-`synthesize --mode` of the Tacotron stage, without their plots:
-`run_eval` (:453), `run_gta_synthesis` (:497), `run_style_transfer`
-(:578), `run_synthesis_random` (:631), `run_synthesis_multiple` (:692)
-and `run_style_embs` (:780), with `_read_meta` (:534) and `_resolve_refs`
-(:540). Their numpy RNG picks the same rows as the JAX drivers'.
+`synthesize --mode` of the Tacotron stage: `run_eval` (:453, with its
+alignment and mel plots under eval/plots/), `run_gta_synthesis` (:497),
+`run_style_transfer` (:578, alignment plots under natural/plots/; the
+plots where matplotlib imports, `utils/plot.py`), `run_synthesis_random`
+(:631), `run_synthesis_multiple` (:692) and `run_style_embs` (:780),
+with `_read_meta` (:534) and `_resolve_refs` (:540). Their numpy RNG
+picks the same rows as the JAX functions'.
 
 The decode takes the routes the JAX synthesizer takes on the TPU
 (:350-365), both through the CUDA decode kernel (`ops/tacotron_decoder_
@@ -74,6 +76,7 @@ from ..ops import tacotron_decoder_kernel as dk
 from ..ops import tacotron_train_kernel as tk
 from ..text import text_to_sequence
 from ..utils import log
+from ..utils.plot import plot_alignment, plot_spectrogram
 
 
 def _round_up(x: int, m: int) -> int:
@@ -407,6 +410,7 @@ def run_eval(synth: TacotronSynthesizer, sentences: Sequence[str],
     os.makedirs(os.path.join(eval_dir, "mels"), exist_ok=True)
     if save_wavs:
         os.makedirs(os.path.join(eval_dir, "wavs"), exist_ok=True)
+        os.makedirs(os.path.join(eval_dir, "plots"), exist_ok=True)
     result = synth.synthesize(sentences, ref_mels_emt, ref_mels_spk)
     wavs = synth.mels_to_wavs(result["mels"]) if save_wavs else []
     sr = synth.cfg.audio.sample_rate
@@ -419,6 +423,10 @@ def run_eval(synth: TacotronSynthesizer, sentences: Sequence[str],
             wav = np.concatenate([wavs[i], np.zeros(sr // 2, np.float32)])
             host_audio.save_wav(wav, os.path.join(eval_dir, "wavs",
                                                   f"wav-eval-{i}.wav"), sr)
+            plot_alignment(result["alignments"][i], os.path.join(
+                eval_dir, "plots", f"alignment-eval-{i}.png"), title=text)
+            plot_spectrogram(mel, os.path.join(
+                eval_dir, "plots", f"mel-eval-{i}.png"), title=text)
     map_path = os.path.join(eval_dir, "map.txt")
     with open(map_path, "w", encoding="utf-8") as f:
         f.write("\n".join(map_rows) + "\n")
@@ -505,10 +513,12 @@ def _resolve_refs(meta: List[List[str]], input_dir: str,
 
 def _synthesize_and_save(synth: TacotronSynthesizer, texts, refs_emt,
                          refs_spk, mel_path, wav_path, batch_size: int,
-                         save_wavs: bool = True, on_batch=None):
+                         save_wavs: bool = True, on_batch=None,
+                         align_path=None):
     """Synthesize `texts` with the reference mels at the given paths in
-    batches, saving mel i to mel_path(i) and its Griffin-Lim wav to
-    wav_path(i); on_batch(start, end, result) runs after each batch."""
+    batches, saving mel i to mel_path(i), its Griffin-Lim wav to
+    wav_path(i) and, with `align_path`, its alignment plot to
+    align_path(i); on_batch(start, end, result) runs after each batch."""
     sr = synth.cfg.audio.sample_rate
     for start in range(0, len(texts), batch_size):
         sl = slice(start, start + batch_size)
@@ -520,6 +530,10 @@ def _synthesize_and_save(synth: TacotronSynthesizer, texts, refs_emt,
             np.save(mel_path(start + j), mel, allow_pickle=False)
             if save_wavs:
                 host_audio.save_wav(wavs[j], wav_path(start + j), sr)
+                if align_path is not None:
+                    plot_alignment(result["alignments"][j],
+                                   align_path(start + j),
+                                   title=texts[start + j])
         if on_batch:
             on_batch(start, start + len(result["mels"]), result)
 
@@ -534,7 +548,7 @@ def run_style_transfer(synth: TacotronSynthesizer, synth_metadata_path: str,
     wavs/wav-<base>.wav} and a map.txt of rows
     `mel_path|text|emt_label|spk_label`. Returns the path of map.txt."""
     synth_dir = os.path.abspath(os.path.join(output_dir, "natural"))
-    for sub in ("mels", "wavs"):
+    for sub in ("mels", "wavs", "plots"):
         os.makedirs(os.path.join(synth_dir, sub), exist_ok=True)
     meta = _read_meta(synth_metadata_path)
     if limit:
@@ -557,7 +571,9 @@ def run_style_transfer(synth: TacotronSynthesizer, synth_metadata_path: str,
     _synthesize_and_save(
         synth, texts, refs_emt, refs_spk, mel_path,
         lambda i: os.path.join(synth_dir, "wavs", f"wav-{basenames[i]}.wav"),
-        batch_size, save_wavs, on_batch)
+        batch_size, save_wavs, on_batch,
+        lambda i: os.path.join(synth_dir, "plots",
+                               f"alignment-{basenames[i]}.png"))
     map_path = os.path.join(synth_dir, "map.txt")
     with open(map_path, "w", encoding="utf-8") as f:
         f.write("\n".join(map_rows) + "\n")

@@ -2,7 +2,8 @@
 
 Port of tacotron2_tpu/synth/wavenet_synth.py: `WaveNetSynthesizer` (:25)
 with `_prepare_mels` (:50), `synthesize` (:64) and `synthesize_debug`
-(:108), and `run_synthesis` (:143) without its wave plots. The mels are
+(:108), and `run_synthesis` (:143, each wav's wave plot under plots/
+where matplotlib imports). The mels are
 padded, clipped and rescaled to [0, 1], upsampled, and sampled through
 `ops/wavenet_kernel.sample`: on a CUDA device every output head
 (Gaussian, mixture of logistics, categorical) goes through the CUDA
@@ -37,6 +38,7 @@ from ..models.wavenet.sampler import extract_sampler_params
 from ..ops import wavenet_kernel as wk
 from ..ops.mulaw import inv_mulaw, inv_mulaw_quantize, mulaw_quantize
 from ..utils import log
+from ..utils.plot import waveplot
 
 
 def sampler_dtype(name: str) -> torch.dtype:
@@ -178,7 +180,9 @@ def run_synthesis(synth: WaveNetSynthesizer, map_path: str, output_dir: str,
     to the full batch with repeats of its last mel, whose results are
     dropped. Returns the wav paths."""
     out_dir = os.path.join(output_dir, "wavs")
+    plot_dir = os.path.join(output_dir, "plots")
     os.makedirs(out_dir, exist_ok=True)
+    os.makedirs(plot_dir, exist_ok=True)
     with open(map_path, encoding="utf-8") as f:
         rows = [line.strip().split("|") for line in f if line.strip()]
     if limit:
@@ -197,6 +201,8 @@ def run_synthesis(synth: WaveNetSynthesizer, map_path: str, output_dir: str,
             name = os.path.splitext(os.path.basename(p))[0]
             wav_path = os.path.join(out_dir, f"wavenet-{name}.wav")
             host_audio.save_wav(wav, wav_path, synth.cfg.audio.sample_rate)
+            waveplot(os.path.join(plot_dir, f"wavenet-{name}.png"), wav,
+                     None, synth.cfg.audio.sample_rate)
             paths.append(wav_path)
         log(f"vocoded {min(start + bs, len(rows))}/{len(rows)}")
     return paths

@@ -28,9 +28,14 @@ the EMA tree to `WaveNetSynthesizer` and `cli synthesize
 --wavenet-checkpoint`), "opt_state" {"count", "mu", "nu"} in the same
 layout, and "step".
 
+A style discriminator's checkpoint (`disc/train.py`) is its flax tree as
+it is: {"params", "batch_stats"}.
+
 `CheckpointManager` keeps `<dir>/ckpt-<step>.msgpack`, the newest
 `max_to_keep`; `partial_restore` keeps fresh values for the subtrees a
-predicate names (the reference's filtered savers).
+predicate names (the reference's filtered savers);
+`import_pretrained_subtree` / `graft_pretrained` take a discriminator's
+encoder into the Tacotron's `pretrained_ref_enc_{emt,spk}` (JAX :71).
 """
 
 from __future__ import annotations
@@ -136,8 +141,14 @@ def load_wavenet_state_tree(state: WaveNetTrainState, tree: dict
 
 
 def save(path: str, state) -> None:
-    tree = (wavenet_state_tree(state) if isinstance(state, WaveNetTrainState)
-            else state_tree(state))
+    """Write a TrainState, a WaveNetTrainState or a tree (a map of numpy
+    arrays, as a style discriminator's {"params", "batch_stats"})."""
+    if isinstance(state, dict):
+        tree = state
+    elif isinstance(state, WaveNetTrainState):
+        tree = wavenet_state_tree(state)
+    else:
+        tree = state_tree(state)
     flax_msgpack.save(path, tree)
 
 
@@ -180,10 +191,17 @@ class CheckpointManager:
         return path
 
     def restore(self, state, step: Optional[int] = None, keep_fresh=None):
+        return restore(self._path_of(step), state, keep_fresh)
+
+    def load(self, step: Optional[int] = None) -> dict:
+        """The checkpoint's own tree (the newest without `step`)."""
+        return flax_msgpack.load(self._path_of(step))
+
+    def _path_of(self, step: Optional[int]) -> str:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        return restore(self.path(step), state, keep_fresh)
+        return self.path(step)
 
 
 def partial_restore(restored: Any, fresh: Any,
@@ -197,3 +215,31 @@ def partial_restore(restored: Any, fresh: Any,
                                    f"{_path}/{k}" if _path else str(k))
                 for k in restored}
     return fresh if skip_predicate(_path.lower()) else restored
+
+
+def import_pretrained_subtree(params: Any, pretrained: Any,
+                              target_prefix: str) -> Any:
+    """`params` with its subtree `target_prefix` replaced by `pretrained`
+    (the reference's pretrained emt/spk discriminator import,
+    tacotron/train.py:280-285); KeyError naming it where the model has no
+    such subtree."""
+    if target_prefix not in params:
+        raise KeyError(f"model has no subtree {target_prefix!r}")
+    new = dict(params)
+    new[target_prefix] = pretrained
+    return new
+
+
+def graft_pretrained(model, pretrained: Any, pretrained_stats: Any,
+                     target_prefix: str):
+    """Graft a discriminator's encoder subtree and its BatchNorm
+    statistics into the port Tacotron's `target_prefix`
+    (`pretrained_ref_enc_{emt,spk}`; JAX tacotron_train.py:81-108): the
+    parameters by `import_pretrained_subtree`, the statistics where the
+    disc has some and the model keeps that subtree's. Returns the model."""
+    params, stats = convert.tacotron_to_flax(model)
+    params = import_pretrained_subtree(params, pretrained, target_prefix)
+    if pretrained_stats and target_prefix in stats:
+        stats = dict(stats)
+        stats[target_prefix] = pretrained_stats
+    return convert.load_tacotron(model, params, stats)

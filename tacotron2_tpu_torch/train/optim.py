@@ -1,29 +1,30 @@
-"""Schedules, parameter masks and the masked Adam of Tacotron training.
+"""Schedules, parameter masks and the Adam of the port's trainers.
 
 Counterpart of tacotron2_tpu/train/optim.py for the default trainer:
 `tacotron_lr_schedule` (tf.train.exponential_decay clipped to [final,
 init]), `teacher_forcing_schedule` (constant, or 'scheduled': the narrow
 exponential decay after `start_decay`), `make_mask`,
-`main_update_predicate`, and the main optimizer of
-`make_tacotron_optimizer` (:147-173): optax's
-`masked_only(chain(clip_by_global_norm(1.0), adam(lr, b1, b2, eps)))`,
-written out as plain tensor arithmetic so that it follows optax's
-operations: the global norm over the masked-on gradients, scaling by
-1/norm when it is at least 1; moments (1-b)·g + b·m; bias correction by
-1 - b^count; eps outside the square root; the step's learning rate at the
-count before the update; no update, and no moments, off the mask.
-`tacotron_masks` gives the masks of the up to three optimizers (:147-173):
-the main one (`main_update_predicate`), the refnet optimizer's
-(`is_refnet_var`, with `opt_ref_no_mo` or `pretrained_emb_disc_all`) and
-nat-GAN's (`is_nat_gan_var`), disjoint; each is a `MaskedAdam` of its
-own, whose clipping and moments see its masked-on gradients alone, as
-optax's `masked_only` does.
+`main_update_predicate`, and the optimizers. One `Adam` writes out
+optax's Adam chain as plain tensor arithmetic that follows optax's
+operations; the trainers differ only in its settings:
 
-WaveNet: `wavenet_lr_schedule` (:73, exponential or noam) and
-`make_wavenet_optimizer` (:176) as `WaveNetAdam`, optax's chain in its
-order: `clip_by_global_norm(wavenet_gradient_max_norm)` (t / norm · max
-when the norm is not below max), `clip(wavenet_gradient_max_value)` by
-value, then Adam as above with the WaveNet betas and eps.
+- `MaskedAdam`, the main optimizer of `make_tacotron_optimizer`
+  (:147-173): `masked_only(chain(clip_by_global_norm(1.0), adam(lr, b1,
+  b2, eps)))`, the step's learning rate at the count before the update,
+  no update and no moments off the mask. `tacotron_masks` gives the masks
+  of the up to three optimizers: the main one (`main_update_predicate`),
+  the refnet optimizer's (`is_refnet_var`, with `opt_ref_no_mo` or
+  `pretrained_emb_disc_all`) and nat-GAN's (`is_nat_gan_var`), disjoint;
+  each is a `MaskedAdam` of its own, whose clipping and moments see its
+  masked-on gradients alone, as optax's `masked_only` does.
+- `WaveNetAdam`, `make_wavenet_optimizer` (:176) with
+  `wavenet_lr_schedule` (:73, exponential or noam): optax's chain in its
+  order, `clip_by_global_norm(wavenet_gradient_max_norm)`,
+  `clip(wavenet_gradient_max_value)` by value, then Adam with the WaveNet
+  betas and eps.
+- The style discriminators' `chain(clip_by_global_norm(3.0), adam(lr))`
+  and plain `adam(1e-4)` (disc/train.py): `Adam(params, lr,
+  max_norm=...)` with optax's default betas and eps.
 """
 
 from __future__ import annotations
@@ -147,19 +148,25 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-class MaskedAdam:
-    """`masked_only(chain(clip_by_global_norm(1.0), adam(...)))` on a list
-    of parameters, updated in place. `mu`, `nu` hold the moments of the
-    masked-on parameters (None off the mask), `count` the updates made."""
+class Adam:
+    """optax's `chain([clip_by_global_norm(max_norm)], [clip(max_value)],
+    adam(lr, b1, b2, eps))` on a list of parameters, updated in place as
+    multi-tensor (foreach) ops: the global norm, scaling by max_norm/norm
+    when the norm is not below max_norm; clipping by value; moments
+    (1-b)·g + b·m; bias correction by 1 - b^count; eps outside the square
+    root; `lr` a constant or a schedule of the count before the update.
+    Where `mask` is given the chain is `masked_only`: its clipping and
+    moments see the masked-on gradients alone, and `mu`, `nu` are None off
+    the mask. `count` is the updates made."""
 
-    def __init__(self, cfg: Config, params: Sequence[torch.Tensor],
-                 mask: Sequence[bool]):
-        t = cfg.train
-        self.lr = tacotron_lr_schedule(cfg)
-        self.b1, self.b2 = t.tacotron_adam_beta1, t.tacotron_adam_beta2
-        self.eps = t.tacotron_adam_epsilon
-        self.clip = t.tacotron_clip_gradients
-        self.mask = list(mask)
+    def __init__(self, params: Sequence[torch.Tensor], lr, *,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 max_norm: float | None = None,
+                 max_value: float | None = None,
+                 mask: Sequence[bool] | None = None):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.max_norm, self.max_value = max_norm, max_value
+        self.mask = [True] * len(params) if mask is None else list(mask)
         self.mu = [torch.zeros_like(p, dtype=torch.float32) if m else None
                    for p, m in zip(params, self.mask)]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) if m else None
@@ -170,60 +177,48 @@ class MaskedAdam:
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor]) -> None:
         on = [i for i, m in enumerate(self.mask) if m]
-        g = {i: grads[i].float() for i in on}
-        if self.clip:
-            norm = global_norm(g.values())
-            if float(norm) >= 1.0:
-                g = {i: v / norm for i, v in g.items()}
-        lr = self.lr(self.count)
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
-        for i, gi in g.items():
-            self.mu[i].mul_(self.b1).add_((1.0 - self.b1) * gi)
-            self.nu[i].mul_(self.b2).add_((1.0 - self.b2) * (gi * gi))
-            upd = (self.mu[i] / c1) / (torch.sqrt(self.nu[i] / c2) + self.eps)
-            params[i].sub_(lr * upd)
-
-
-class WaveNetAdam:
-    """`make_wavenet_optimizer`'s chain on a list of parameters, updated in
-    place; `mu`, `nu` hold the Adam moments, `count` the updates made."""
-
-    def __init__(self, cfg: Config, params: Sequence[torch.Tensor]):
-        t = cfg.train
-        self.lr = wavenet_lr_schedule(cfg)
-        self.b1, self.b2 = t.wavenet_adam_beta1, t.wavenet_adam_beta2
-        self.eps = t.wavenet_adam_epsilon
-        self.clip = t.wavenet_clip_gradients
-        self.max_norm = t.wavenet_gradient_max_norm
-        self.max_value = t.wavenet_gradient_max_value
-        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        self.count = 0
-
-    @torch.no_grad()
-    def step(self, params: Sequence[torch.Tensor],
-             grads: Sequence[torch.Tensor]) -> None:
-        """One update, as multi-tensor (foreach) ops over the parameters."""
-        params = list(params)
-        g = [x.float() for x in grads]
-        if self.clip:
+        p = [params[i] for i in on]
+        mu = [self.mu[i] for i in on]
+        nu = [self.nu[i] for i in on]
+        g = [grads[i].float() for i in on]
+        if self.max_norm is not None:
             norm = float(global_norm(g))
             if norm >= self.max_norm:
                 g = torch._foreach_mul(torch._foreach_div(g, norm),
                                        self.max_norm)
+        if self.max_value is not None:
             g = torch._foreach_clamp_max(
                 torch._foreach_clamp_min(g, -self.max_value), self.max_value)
-        lr = self.lr(self.count)
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, c2))
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, c2))
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(torch._foreach_div(self.mu, c1), denom)
-        torch._foreach_add_(params, upd, alpha=-lr)
+        upd = torch._foreach_div(torch._foreach_div(mu, c1), denom)
+        torch._foreach_add_(p, upd, alpha=-lr)
+
+
+def MaskedAdam(cfg: Config, params: Sequence[torch.Tensor],
+               mask: Sequence[bool]) -> Adam:
+    """`masked_only(chain(clip_by_global_norm(1.0), adam(...)))`: a
+    Tacotron optimizer of `make_tacotron_optimizer`."""
+    t = cfg.train
+    return Adam(params, tacotron_lr_schedule(cfg), b1=t.tacotron_adam_beta1,
+                b2=t.tacotron_adam_beta2, eps=t.tacotron_adam_epsilon,
+                max_norm=1.0 if t.tacotron_clip_gradients else None,
+                mask=mask)
+
+
+def WaveNetAdam(cfg: Config, params: Sequence[torch.Tensor]) -> Adam:
+    """`make_wavenet_optimizer`'s chain."""
+    t = cfg.train
+    clip = t.wavenet_clip_gradients
+    return Adam(params, wavenet_lr_schedule(cfg), b1=t.wavenet_adam_beta1,
+                b2=t.wavenet_adam_beta2, eps=t.wavenet_adam_epsilon,
+                max_norm=t.wavenet_gradient_max_norm if clip else None,
+                max_value=t.wavenet_gradient_max_value if clip else None)

@@ -59,7 +59,7 @@ from ..convert import flax_named_parameters, init_tacotron
 from ..models.tacotron.losses import compute_losses
 from ..models.tacotron.decoder import round_bf16
 from ..models.tacotron.model import Tacotron
-from .optim import (MaskedAdam, global_norm, tacotron_masks,
+from .optim import (Adam, MaskedAdam, global_norm, tacotron_masks,
                     teacher_forcing_schedule)
 
 TRAINER_FLAGS = ("emt_only", "adv_emb_disc", "nat_gan",
@@ -100,9 +100,9 @@ class TrainState:
 
     step: int
     model: Tacotron
-    opt: MaskedAdam
-    opt_refnet: Optional[MaskedAdam] = None
-    opt_nat: Optional[MaskedAdam] = None
+    opt: Adam
+    opt_refnet: Optional[Adam] = None
+    opt_nat: Optional[Adam] = None
 
     def optimizers(self):
         """(target, optimizer) of each optimizer the state holds."""

@@ -5,16 +5,26 @@ prefetch thread (`feeder_kwargs`: the variant options), `TacotronTrainer`
 steps (`trainer_kwargs`: the trainer's flags), with nat-GAN the
 discriminator's pretraining at step 0 (`nat_gan_pretrain_steps`, or
 `nat_gan_pretrain_steps_unpaired` with the unpaired pass; :113-128),
-rolling loss windows and the per-step log line, the loss-explosion abort (NaN or > 100), checkpoints
-every `checkpoint_interval` steps (and at step 300 and the last), and
-every `eval_interval` steps the held-out losses and an eval synthesis of
-the reference's sentences (wavs; the alignment and mel plots need
-matplotlib and are not written), each eval path behind an
-`EvalFailureGuard`. A restore keeps the fresh `pretrained` parameters
-(JAX :73-77). The curve goes to <log_dir>/taco_curve.jsonl, one JSON
-object per logged step, as scripts/train_e2e_demo_r5_tpu.py writes its
-taco_curve.jsonl: step, loss, tfr, elapsed_s, and at eval steps the
-held-out loss, `held_mel_mae` and `held_tf_diag`.
+rolling loss windows and the per-step log line, the loss-explosion abort
+(NaN or > 100), checkpoints every `checkpoint_interval` steps (and at step
+300 and the last), and every `eval_interval` steps the held-out losses
+and an eval synthesis of the reference's sentences (wavs under
+eval-dir/step_<step//500>/wavs, alignment and mel plots under its plots/
+where matplotlib imports), each eval path behind an `EvalFailureGuard`.
+A restore keeps the fresh `pretrained` parameters (JAX :73-77); then
+`pretrained_disc_emt/_spk` graft a discriminator's encoder and its
+BatchNorm statistics into `pretrained_ref_enc_{emt,spk}` (:81-108), from
+a port disc checkpoint directory (`disc/train.py`) or a reference TF
+checkpoint (`disc/tf_import.py`). The scalars go to <log_dir>/
+metrics.jsonl every `summary_interval` steps ("tacotron/" and, at evals,
+"eval/"; `utils/summary.py`), `profile_start`/`profile_end` trace the
+steps between them with torch.profiler, and `save_output_vars` dumps the
+eval forward's tensors of the first step's and each eval step's batch as
+CSVs under <log_dir>/output_vars/ (:199-230). The curve goes to
+<log_dir>/taco_curve.jsonl, one JSON object per logged step, as
+scripts/train_e2e_demo_r5_tpu.py writes its taco_curve.jsonl: step, loss,
+tfr, elapsed_s, and at eval steps the held-out loss, `held_mel_mae` and
+`held_tf_diag`.
 """
 
 from __future__ import annotations
@@ -23,7 +33,6 @@ import json
 import math
 import os
 import time
-from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -34,8 +43,10 @@ from ..convert import tacotron_to_flax
 from ..data.audio import save_wav
 from ..data.feeder import TacotronFeeder
 from ..eval.convergence import alignment_diagonality, masked_mel_mae
-from ..utils import log
-from .checkpoint import CheckpointManager
+from ..utils import ValueWindow, log
+from ..utils.plot import plot_alignment, plot_spectrogram
+from ..utils.summary import ProfilerHook, SummaryWriter
+from .checkpoint import CheckpointManager, graft_pretrained
 from .eval_guard import EvalFailureGuard
 from .tacotron_step import TacotronTrainer
 
@@ -54,20 +65,6 @@ VARIANT_LOG = {"adv_emb_disc": ("style_emb_loss_emt_adv",),
                "nat_gan": ("d_loss", "g_loss_p", "g_loss_up")}
 
 
-class ValueWindow:
-    """The mean of the last `size` values."""
-
-    def __init__(self, size: int = 100):
-        self.values = deque(maxlen=size)
-
-    def append(self, x: float) -> None:
-        self.values.append(x)
-
-    @property
-    def average(self) -> float:
-        return float(np.mean(self.values)) if self.values else 0.0
-
-
 def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                    train_steps: Optional[int] = None, restore: bool = False,
                    batch_size: Optional[int] = None, device="cuda",
@@ -75,7 +72,12 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                    eval_interval: Optional[int] = None,
                    pad_text_multiple: int = 16, pad_mel_multiple: int = 128,
                    eval_sentences=None, feeder_kwargs: Optional[dict] = None,
-                   trainer_kwargs: Optional[dict] = None):
+                   trainer_kwargs: Optional[dict] = None,
+                   pretrained_disc_emt: Optional[str] = None,
+                   pretrained_disc_spk: Optional[str] = None,
+                   profile_start: Optional[int] = None,
+                   profile_end: Optional[int] = None,
+                   save_output_vars: bool = False):
     """Train the spectrogram predictor from the train.txt at `input_path`;
     returns (checkpoint directory, final TrainState)."""
     t = cfg.train
@@ -103,6 +105,12 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
     if restore and mgr.latest_step() is not None:
         state = mgr.restore(state, keep_fresh=lambda n: "pretrained" in n)
         log(f"Restored checkpoint at step {state.step}")
+    for kind, path in (("emt", pretrained_disc_emt),
+                       ("spk", pretrained_disc_spk)):
+        if path:
+            src = import_pretrained_disc(state.model, kind, path)
+            log(f"Imported pretrained {kind} discriminator ({src}) from "
+                f"{path}")
 
     if trainer.nat_gan and state.step == 0:
         n_disc = (t.nat_gan_pretrain_steps_unpaired if trainer.use_unpaired
@@ -124,6 +132,8 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
     gen.manual_seed(t.tacotron_random_seed + 1)
     loss_guard = EvalFailureGuard("tacotron eval losses")
     synth_guard = EvalFailureGuard("tacotron eval synthesis")
+    summary = SummaryWriter(log_dir)
+    profiler = ProfilerHook(log_dir, profile_start, profile_end)
     start_step, t_start = state.step, time.time()
     curve = open(os.path.join(log_dir, "taco_curve.jsonl"), "a",
                  encoding="utf-8")
@@ -138,6 +148,13 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                 if k in metrics:
                     windows[k].append(float(metrics[k]))
             step = state.step
+            profiler.step(step)
+            if step % t.summary_interval == 0:
+                summary.scalars(step, {k: float(v) for k, v in
+                                       metrics.items() if np.ndim(v) == 0},
+                                prefix="tacotron/")
+                summary.scalars(step, {"sec_per_step": time_window.average},
+                                prefix="tacotron/")
             rec = dict(step=step, loss=round(loss, 4),
                        tfr=round(float(metrics["teacher_forcing_ratio"]), 3),
                        grad_norm=round(float(metrics["grad_norm"]), 4),
@@ -153,33 +170,91 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                               for flag, keys in VARIANT_LOG.items()
                               if trainer.flags[flag] for k in keys) + "]")
             if math.isnan(loss) or loss > 100.0:
-                log(f"Loss exploded to {loss:.5f} at step {step}")
+                log(f"Loss exploded to {loss:.5f} at step {step}",
+                    slack=True)
                 raise RuntimeError(f"Loss exploded to {loss} at step {step}")
             if (ckpt_interval > 0 and step % ckpt_interval == 0) \
                     or step == 300 or step == steps:
                 mgr.save(step, state)
                 log(f"Saved checkpoint at step {step}")
-            if eval_interval and step % eval_interval == 0 \
-                    and step > start_step:
+            do_eval = eval_interval and step % eval_interval == 0
+            if do_eval and step > start_step:
                 rec.update(_eval_losses(trainer, state, feeder, bs, step,
-                                        loss_guard))
+                                        loss_guard, summary))
                 _eval_synthesis(cfg, state, first, eval_dir, step,
                                 eval_sentences, synth_guard, trainer)
+            if save_output_vars and (step == start_step + 1 or do_eval):
+                _save_output_vars(trainer, state, batch,
+                                  os.path.join(log_dir, "output_vars"), step)
             curve.write(json.dumps(rec) + "\n")
             curve.flush()
     finally:
         curve.close()
+        summary.close()
+        profiler.close()
     if mgr.latest_step() != state.step:
         mgr.save(state.step, state)
-    log(f"Tacotron training complete at step {state.step}")
+    log(f"Tacotron training complete at step {state.step}", slack=True)
     return ckpt_dir, state
 
 
+def import_pretrained_disc(model, kind: str, path: str) -> str:
+    """Graft the discriminator checkpoint at `path` (a TF checkpoint or a
+    port disc checkpoint directory) into the model's
+    `pretrained_ref_enc_<kind>`; returns the source kind ("TF" or
+    "msgpack"). KeyError where the model has no such subtree."""
+    from ..disc.tf_import import is_tf_checkpoint, load_tf_disc_checkpoint
+    if is_tf_checkpoint(path):
+        loaded, src = load_tf_disc_checkpoint(path), "TF"
+    else:
+        from ..disc.train import load_pretrained_disc
+        loaded, src = load_pretrained_disc(path), "msgpack"
+    graft_pretrained(model, loaded["params"], loaded["batch_stats"],
+                     f"pretrained_ref_enc_{kind}")
+    return src
+
+
+def _save_output_vars(trainer, state, batch, out_dir, step):
+    """CSV dumps of the eval forward's tensors on `batch` (reference
+    --save_output_vars, code/train.py:140, tacotron/train.py:446-449):
+    <name>-<step>.csv, "%.6g", for the first row's mels, decoder output,
+    alignments and targets, and every row's stop logits, inputs and
+    lengths. A failure is logged and never stops training."""
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        gen = torch.Generator(device=trainer.device).manual_seed(0)
+        out, _ = trainer.eval_step(state, batch, gen)
+        f = lambda x: x.detach().float().cpu().numpy()
+        dumps = {
+            "mels": f(out["mel_outputs"])[0],
+            "dec_out": f(out["decoder_output"])[0],
+            "stop": f(out["stop_token_prediction"]),
+            "align": f(out["alignments"])[0],
+            "inp": np.asarray(batch["inputs"]),
+            "inp_len": np.asarray(batch["input_lengths"])[:, None],
+            "targ": np.asarray(batch["mel_targets"])[0],
+        }
+        if "target_lengths" in batch:
+            dumps["targ_len"] = np.asarray(batch["target_lengths"])[:, None]
+        if "stop_token_targets" in batch:
+            dumps["stop_targ"] = np.asarray(batch["stop_token_targets"])
+        if out.get("refnet_out_emt") is not None:
+            dumps["emb"] = f(out["refnet_out_emt"])
+        for name, arr in dumps.items():
+            np.savetxt(os.path.join(out_dir, f"{name}-{step}.csv"),
+                       np.asarray(arr, np.float32).reshape(arr.shape[0], -1),
+                       delimiter=",", fmt="%.6g")
+        log(f"Dumped output vars for step {step} -> {out_dir}")
+    except Exception as e:  # a debug dump must never kill training
+        log(f"save_output_vars failed at step {step}: {e}")
+
+
 def _eval_losses(trainer, state, feeder, batch_size, step, guard,
-                 max_batches: int = 4) -> dict:
+                 summary=None, max_batches: int = 4) -> dict:
     """Losses, mel MAE and alignment diagonality of the natural eval on the
     held-out split (reference eval model scalars, tacotron/train.py:
-    92-102, 602-650); {} when there is no held-out batch."""
+    92-102, 602-650), the mean of each scalar term to `summary` under
+    "eval/"; {} when there is no held-out batch."""
     try:
         eval_bs = min(batch_size, max(1, len(feeder.test_meta)))
         batches = feeder.test_batches(eval_bs)[:max_batches]
@@ -187,9 +262,13 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
             return {}
         gen = torch.Generator(device=trainer.device).manual_seed(0)
         acc = {"loss": [], "held_mel_mae": [], "held_tf_diag": []}
+        terms_acc = {}
         r = trainer.cfg.tacotron.outputs_per_step
         for b in batches:
             out, terms = trainer.eval_step(state, b, gen)
+            for k, v in terms.items():
+                if np.ndim(v) == 0:
+                    terms_acc.setdefault(k, []).append(float(v))
             acc["loss"].append(float(terms["loss"]))
             acc["held_mel_mae"].append(masked_mel_mae(
                 out["mel_outputs"].float().cpu().numpy(), b))
@@ -197,6 +276,10 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
                 out["alignments"].float().cpu().numpy(), b["input_lengths"],
                 b["targets_lengths"], r))))
         means = {k: round(float(np.mean(v)), 4) for k, v in acc.items()}
+        if summary is not None:
+            summary.scalars(step, {k: float(np.mean(v))
+                                   for k, v in terms_acc.items()},
+                            prefix="eval/")
         log(f"Eval step {step}: loss={means['loss']:.5f} "
             f"held_mel_mae={means['held_mel_mae']:.4f} "
             f"held_tf_diag={means['held_tf_diag']:.3f}")
@@ -212,12 +295,15 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
 def _eval_synthesis(cfg, state, sample_batch, eval_dir, step, sentences,
                     guard, trainer):
     """Synthesize the fixed eval sentences (hparams.py:370-395) to wavs
-    under eval-dir/step_<step//500>/wavs (reference tacotron/train.py:
-    602-706), the reference mels cycled from a train batch."""
+    under eval-dir/step_<step//500>/wavs and their alignment and mel plots
+    under its plots/ (reference tacotron/train.py:602-706), the reference
+    mels cycled from a train batch."""
     from ..data.eval_sentences import EVAL_SENTENCES
     from ..synth.tacotron_synth import TacotronSynthesizer
     bucket = os.path.join(eval_dir, f"step_{step // 500}", "wavs")
+    plots = os.path.join(eval_dir, f"step_{step // 500}", "plots")
     os.makedirs(bucket, exist_ok=True)
+    os.makedirs(plots, exist_ok=True)
     try:
         params, stats = tacotron_to_flax(state.model)
         synth = TacotronSynthesizer(
@@ -234,6 +320,11 @@ def _eval_synthesis(cfg, state, sample_batch, eval_dir, step, sentences,
         for i, w in enumerate(synth.mels_to_wavs(result["mels"])):
             save_wav(w, os.path.join(bucket, f"step-{step}-eval-{i}.wav"),
                      cfg.audio.sample_rate)
+            title = f"step {step} | {texts[i][:40]}"
+            plot_alignment(result["alignments"][i], os.path.join(
+                plots, f"step-{step}-align-{i}.png"), title=title)
+            plot_spectrogram(result["mels"][i], os.path.join(
+                plots, f"step-{step}-mel-{i}.png"), title=title)
         log(f"Eval synthesis wavs written for step {step} "
             f"({len(texts)} sentences)")
         guard.success()

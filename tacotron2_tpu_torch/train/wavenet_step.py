@@ -30,7 +30,7 @@ from ..convert import init_wavenet, wavenet_named_parameters
 from ..models.wavenet.model import (WaveNet, compute_wavenet_loss,
                                     data_dependent_init)
 from ..utils import log
-from .optim import WaveNetAdam, global_norm
+from .optim import Adam, WaveNetAdam, global_norm
 
 BATCH_KEYS = ("x", "y", "c", "input_lengths")
 
@@ -43,7 +43,7 @@ class WaveNetTrainState:
     step: int
     model: WaveNet
     ema: WaveNet
-    opt: WaveNetAdam
+    opt: Adam
 
 
 class WaveNetTrainer:

@@ -9,12 +9,16 @@ last (params, EMA, optimizer, step: `train/checkpoint.py`), and every
 `eval_interval` steps `_eval_losses` (:150: the EMA weights on the
 held-out split) and `_eval_generation` (:174: the EMA weights through
 `WaveNetSynthesizer`, which runs the sampler kernel on the card, on the
-first batch's first mel; the wav lands in <log_dir>/wave_eval/), each
-behind an `EvalFailureGuard`. The wave and mel plots need matplotlib and
-are not written. The speaker-embedding export is a no-op: global
-conditioning is not ported (`WaveNetTrainer` refuses it). The curve goes
-to <log_dir>/wavenet_curve.jsonl, one JSON object a step: step, loss,
-grad_norm, elapsed_s, and at eval steps eval_loss.
+first batch's first mel; the wav, its wave plot and the plot of its
+mel's reconstruction against the input mel land in <log_dir>/wave_eval/,
+the plots where matplotlib imports), each behind an `EvalFailureGuard`.
+The scalars go to <log_dir>/metrics.jsonl every `summary_interval` steps
+("wavenet/", and "eval/" at evals; `utils/summary.py`), and
+`profile_start`/`profile_end` trace the steps between them with
+torch.profiler (JAX :79-80). The speaker-embedding export is a no-op:
+global conditioning is not ported (`WaveNetTrainer` refuses it). The
+curve goes to <log_dir>/wavenet_curve.jsonl, one JSON object a step:
+step, loss, grad_norm, elapsed_s, and at eval steps eval_loss.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ import torch
 
 from ..config import Config
 from ..convert import wavenet_to_flax
-from ..data.audio import save_wav
+from ..data.audio import mel_spectrogram, preemphasis, save_wav
 from ..data.wavenet_feeder import WaveNetFeeder
-from ..utils import log
+from ..utils import ValueWindow, log
+from ..utils.plot import plot_spectrogram, waveplot
+from ..utils.summary import ProfilerHook, SummaryWriter
 from .checkpoint import CheckpointManager
 from .eval_guard import EvalFailureGuard
-from .tacotron_train import ValueWindow
 from .wavenet_step import WaveNetTrainer
 
 
@@ -43,7 +48,9 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
                   train_steps: Optional[int] = None, restore: bool = False,
                   gta: bool = True, batch_size: Optional[int] = None,
                   device="cuda", checkpoint_interval: Optional[int] = None,
-                  eval_interval: Optional[int] = None):
+                  eval_interval: Optional[int] = None,
+                  profile_start: Optional[int] = None,
+                  profile_end: Optional[int] = None):
     """Train the vocoder on the (audio, mel) pairs of the map.txt or
     train.txt at `input_path`; returns (checkpoint directory, final
     WaveNetTrainState)."""
@@ -83,9 +90,12 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
     loss_guard = EvalFailureGuard("wavenet eval losses")
     gen_guard = EvalFailureGuard("wavenet eval generation")
     gen = torch.Generator().manual_seed(t.wavenet_random_seed + 1)
+    summary = SummaryWriter(log_dir)
+    profiler = ProfilerHook(log_dir, profile_start, profile_end)
     t_start = time.time()
-    with open(os.path.join(log_dir, "wavenet_curve.jsonl"), "a",
-              encoding="utf-8") as curve:
+    curve = open(os.path.join(log_dir, "wavenet_curve.jsonl"), "a",
+                 encoding="utf-8")
+    try:
         for batch in batches:
             if state.step >= steps:
                 break
@@ -95,6 +105,13 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
             time_window.append(time.time() - t0)
             loss_window.append(loss)
             step = state.step
+            profiler.step(step)
+            if step % t.summary_interval == 0:
+                summary.scalars(step, {k: float(v) for k, v in
+                                       metrics.items() if np.ndim(v) == 0},
+                                prefix="wavenet/")
+                summary.scalars(step, {"sec_per_step": time_window.average},
+                                prefix="wavenet/")
             rec = dict(step=step, loss=round(loss, 5),
                        grad_norm=round(float(metrics["grad_norm"]), 4),
                        elapsed_s=round(time.time() - t_start, 1))
@@ -102,7 +119,8 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
                 log(f"Step {step:7d} [{time_window.average:.3f} sec/step, "
                     f"loss={loss:.5f}, avg_loss={loss_window.average:.5f}]")
             if math.isnan(loss) or loss > 100.0:
-                log(f"Loss exploded to {loss:.5f} at step {step}")
+                log(f"Loss exploded to {loss:.5f} at step {step}",
+                    slack=True)
                 raise RuntimeError(f"Loss exploded to {loss} at step {step}")
             if (ckpt_interval > 0 and step % ckpt_interval == 0) \
                     or step == steps:
@@ -110,21 +128,26 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
                 log(f"Saved checkpoint at step {step} (params + EMA shadow)")
             if eval_interval and step % eval_interval == 0:
                 rec.update(_eval_losses(trainer, state, feeder, bs, step,
-                                        loss_guard))
+                                        loss_guard, summary))
                 _eval_generation(cfg, state, first, eval_dir, step, gen_guard,
                                  trainer.device)
             curve.write(json.dumps(rec) + "\n")
             curve.flush()
+    finally:
+        curve.close()
+        summary.close()
+        profiler.close()
     if mgr.latest_step() != state.step:
         mgr.save(state.step, state)
-    log(f"WaveNet training complete at step {state.step}")
+    log(f"WaveNet training complete at step {state.step}", slack=True)
     return ckpt_dir, state
 
 
 def _eval_losses(trainer, state, feeder, batch_size, step, guard,
-                 max_batches: int = 2) -> dict:
+                 summary=None, max_batches: int = 2) -> dict:
     """The EMA weights' loss on the held-out split (reference wavenet eval
-    scalars, train.py:41-64); {} when there is no held-out batch."""
+    scalars, train.py:41-64), to `summary` as "eval/loss"; {} when there
+    is no held-out batch."""
     try:
         eval_bs = min(batch_size, max(1, len(feeder.test_meta)))
         batches = feeder.test_batches(eval_bs)[:max_batches]
@@ -132,6 +155,8 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
             return {}
         loss = float(np.mean([float(trainer.eval_step(state, b)[1]["loss"])
                               for b in batches]))
+        if summary is not None:
+            summary.scalars(step, {"loss": loss}, prefix="eval/")
         log(f"Eval step {step}: loss={loss:.5f}")
         guard.success()
         return {"eval_loss": round(loss, 5)}
@@ -142,7 +167,9 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
 
 def _eval_generation(cfg, state, batch, eval_dir, step, guard, device):
     """Vocode the first batch's first mel with the EMA weights
-    (train.py:89-126) into wave_eval/step-<step>-pred.wav."""
+    (train.py:89-126) into wave_eval/step-<step>-pred.wav, with its wave
+    plot against the target and the plot of the wav's mel (preemphasised,
+    rescaled by its peak as the preprocessing does) against the input."""
     from ..synth.wavenet_synth import WaveNetSynthesizer
     try:
         t0 = time.time()
@@ -159,6 +186,18 @@ def _eval_generation(cfg, state, batch, eval_dir, step, guard, device):
         log(f"eval generation: {len(wav)} samples, {rate:.1f} frames/sec")
         save_wav(wav, os.path.join(eval_dir, f"step-{step}-pred.wav"),
                  cfg.audio.sample_rate)
+        target = np.asarray(batch["y"][0][:len(wav)])
+        waveplot(os.path.join(eval_dir, f"step-{step}-waveplot.png"), wav,
+                 target, cfg.audio.sample_rate)
+        a = cfg.audio
+        pre = preemphasis(wav, a.preemphasis, a.preemphasize)
+        if a.rescale:
+            pre = pre / max(np.abs(pre).max(), 1e-9) * a.rescaling_max
+        mel_rec = mel_spectrogram(pre, a)
+        n = min(len(mel_rec), len(mel))
+        plot_spectrogram(mel_rec[:n], os.path.join(
+            eval_dir, f"step-{step}-mel-comparison.png"),
+            target_spectrogram=mel[:n], title=f"step {step} reconstruction")
         guard.success()
     except Exception as e:  # a transient failure must not kill training
         guard.failure(step, e, log=log)

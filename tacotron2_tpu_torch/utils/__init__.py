@@ -1,5 +1,3 @@
-"""Small shared helpers."""
+"""Small shared helpers; `log` writes through `infolog`."""
 
-
-def log(msg: str) -> None:
-    print(f"[tacotron2_tpu_torch] {msg}", flush=True)
+from .infolog import ValueWindow, init as infolog_init, log  # noqa: F401

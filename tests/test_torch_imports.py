@@ -45,7 +45,10 @@ def test_port_files_exist():
                 "train/tacotron_step.py", "train/checkpoint.py",
                 "train/eval_guard.py", "train/tacotron_train.py",
                 "ops/wavenet_train_kernel.py", "train/wavenet_step.py",
-                "train/wavenet_train.py"):
+                "train/wavenet_train.py", "disc/model.py", "disc/train.py",
+                "disc/data_preprocess.py", "disc/tf_import.py",
+                "utils/summary.py", "utils/infolog.py", "utils/plot.py",
+                "eval/analyze.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 
@@ -73,7 +76,56 @@ def test_importing_the_port_loads_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'msgpack', 'tacotron2_tpu')]\n"
+            "('jax', 'flax', 'msgpack', 'tacotron2_tpu', 'orbax', "
+            "'tensorflow', 'matplotlib')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    env={**os.environ, "PYTHONPATH": ROOT})
+
+
+BLOCKED = ("jax", "flax", "msgpack", "orbax", "tensorflow", "matplotlib",
+           "tensorboard")
+
+
+def test_the_port_runs_with_its_optional_modules_blocked(tmp_path):
+    """Every module of the port imports with jax, flax, msgpack, orbax,
+    tensorflow, matplotlib and tensorboard blocked (an import of any
+    raises ImportError, as on a machine without them); then each plot
+    returns without writing and logs one line, the summary writer writes
+    metrics.jsonl without event files, and a TF discriminator checkpoint
+    still reads."""
+    code = f"""
+import importlib, os, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import numpy as np
+import tacotron2_tpu_torch as p
+for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
+    importlib.import_module(m.name)
+from tacotron2_tpu_torch.eval.analyze import plot_confusion_matrix
+from tacotron2_tpu_torch.utils import plot
+from tacotron2_tpu_torch.utils.summary import SummaryWriter
+from tacotron2_tpu_torch.disc.tf_import import read_tf_checkpoint
+out = {str(tmp_path)!r}
+assert not plot.plot_alignment(np.ones((3, 4)), out + "/a.png")
+assert not plot.plot_spectrogram(np.ones((4, 3)), out + "/m.png")
+assert not plot.waveplot(out + "/w.png", np.ones(9), None, 16000)
+plot_confusion_matrix(np.eye(2, dtype=int), out + "/c.png")
+w = SummaryWriter(out)
+w.scalars(1, {{"loss": 2.0}})
+w.close()
+assert sorted(os.listdir(out)) == ["metrics.jsonl"], os.listdir(out)
+assert len(read_tf_checkpoint(os.path.join(
+    {ROOT!r}, "tests", "fixtures", "tf_disc_small"))) == 21
+bad = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}]
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert res.returncode == 0, res.stderr
+    skipped = [x for x in res.stdout.splitlines() if "plot skipped" in x]
+    assert len(skipped) == 4, res.stdout

@@ -454,6 +454,9 @@ def test_cli_train_three_steps(tmp_path, monkeypatch):
     assert "held_mel_mae" in recs[2] and "held_tf_diag" in recs[2]
     wavs = os.path.join(log_dir, "eval-dir", "step_0", "wavs")
     assert os.listdir(wavs) == ["step-3-eval-0.wav"]
-    with pytest.raises(SystemExit):
+    # --pretrained-disc-emt is taken: a path that holds no checkpoint
+    # stops the run before its first step
+    with pytest.raises(FileNotFoundError, match="nowhere"):
         cli.main(["train", "--model", "Tacotron", "--input-path", path,
-                  "--pretrained-disc-emt", "disc", "--device", "cpu"])
+                  "--base-dir", str(tmp_path / "b"), "--pretrained-disc-emt",
+                  str(tmp_path / "nowhere"), "--device", "cpu"])

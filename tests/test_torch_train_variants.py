@@ -566,11 +566,37 @@ def test_eval_synthesis_of_the_variant(name, tmp_path):
 @pytest.mark.parametrize("argv", [["--pretrained-disc-emt", "x"],
                                   ["--pretrained-disc-spk", "x"],
                                   ["--save-output-vars"]])
-def test_cli_train_refuses_the_left_options(argv, tmp_path):
+def test_cli_train_passes_the_disc_and_dump_options(argv, tmp_path,
+                                                    monkeypatch):
+    """The discriminator grafts and the output-var dumps reach the
+    trainer as the JAX command passes them (tests/test_torch_host_extras.py
+    runs them)."""
     from tacotron2_tpu_torch import cli
-    with pytest.raises(SystemExit, match=argv[0]):
+    from tacotron2_tpu_torch.train import tacotron_train
+    seen = {}
+    monkeypatch.setattr(tacotron_train, "tacotron_train",
+                        lambda *a, **k: seen.update(k) or ("ckpt", None))
+    cli.main(["train", "--model", "Tacotron", "--input-path", _corpus(),
+              "--base-dir", str(tmp_path), "--device", "cpu"] + argv)
+    key = argv[0][2:].replace("-", "_")
+    assert seen[key] == (argv[1] if len(argv) > 1 else True)
+
+
+@pytest.mark.parametrize("argv", [["--pretrained-disc-emt", "missing"],
+                                  ["--pretrained-disc-spk", "missing"],
+                                  ["--pretrained-disc-emt", "empty"]])
+def test_cli_train_refuses_the_left_options(argv, tmp_path):
+    """The discriminator options, which the port once refused outright,
+    are refused by name where their path holds no checkpoint: a path that
+    does not exist, or a directory with none in it."""
+    from tacotron2_tpu_torch import cli
+    path = tmp_path / argv[1]
+    if argv[1] == "empty":
+        path.mkdir()
+    with pytest.raises(FileNotFoundError, match=str(path)):
         cli.main(["train", "--model", "Tacotron", "--input-path", _corpus(),
-                  "--base-dir", str(tmp_path), "--device", "cpu"] + argv)
+                  "--base-dir", str(tmp_path / "run"), "--device", "cpu",
+                  argv[0], str(path)])
 
 
 def test_checkpoint_round_trip_of_three_optimizers(tmp_path):

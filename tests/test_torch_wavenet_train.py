@@ -453,8 +453,13 @@ def test_wavenet_train_loop(tmp_path):
     assert [r["step"] for r in recs] == [1, 2, 3, 4]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert "eval_loss" in recs[1] and "eval_loss" in recs[3]
-    assert sorted(os.listdir(os.path.join(log_dir, "wave_eval"))) == [
+    names = sorted(os.listdir(os.path.join(log_dir, "wave_eval")))
+    assert [n for n in names if n.endswith(".wav")] == [
         "step-2-pred.wav", "step-4-pred.wav"]
+    # the wave and mel-reconstruction plots (matplotlib imports here)
+    assert [n for n in names if n.endswith(".png")] == sorted(
+        f"step-{s}-{k}.png" for s in (2, 4)
+        for k in ("mel-comparison", "waveplot"))
     _, again = wavenet_train(cfg, path, log_dir, train_steps=5, gta=False,
                              device="cpu", restore=True, eval_interval=0)
     assert again.step == 5
