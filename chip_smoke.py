@@ -223,6 +223,22 @@ Phases, each printing its wall seconds:
     matrix's trace over 16, 16 rows in it and in the CSV, the plot skipped
     with a logged line where matplotlib is missing); `overfit` of 8 r5 rows for 20 steps,
     the loss falling;
+28. (u) the Tacotron variants the port once refused, at the r5 widths in
+    bf16 compute on init_tacotron weights (seeded) grafted with the r5
+    checkpoint's where path and shape agree: AdaIN with se_concat=False
+    (memory 640 wide) synthesizes the 8 texts through the rows kernel
+    (held against its plain version by phase 5's replay gate), trains 3
+    steps at phase 16's shapes through kernels 4a and 4b (the wrappers'
+    counts equal to torch.profiler's) and holds one f32 step's fused
+    gradient against decode="replay" at phase 26's 1e-4; predict_linear
+    trains 4 steps on a batch with seeded linear targets [B, T_out, 1025]
+    (the linear loss finite and falling); emt_attn simple, multihead and
+    style_tokens train 2 steps on the plain route (no 4a/4b launch by the
+    counters or the trace) and run GTA and `embed` of the 8 texts, held in
+    f32 against the same computation on the CPU; prenets (256, 128) and
+    (256, 256, 256) synthesize the 8 texts and train 2 steps on the plain
+    route (no decode-kernel launch), the frames held in f32 against the
+    CPU's; each route printed;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode and Griffin-Lim route.
 
@@ -3769,6 +3785,379 @@ def variants_phase(tparams, stats, seed, smi):
     done(26, t0)
 
 
+# phase 28: the Tacotron variants (AdaIN with se_concat=False,
+# predict_linear, emt_attn under training, GTA and embed, prenets other
+# than (P, P)). Gates written before the first run on the card: the rows
+# kernel with AdaIN's 640-wide memory by phase 5's replay gate; the f32
+# fused gradient against decode="replay" within VARIANT_GRAD_RTOL (1e-4)
+# of its largest magnitude, as phase 26; 4a/4b launches counted by the
+# wrappers equal to torch.profiler's by kernel name (AdaIN: one each a
+# step; the plain route: none). Card against CPU, the same plain decode
+# on the same inputs and dropout multipliers with f32 weights (f32 sums in
+# another order, no bf16 rounding to move): GTA and embed's mels, stop
+# logits, alignments and embeddings, and the prenet variants' free-run
+# frames, each within VARIANT_CPU_ATOL (the prediction: ~1e-5). The
+# comparison runs the whole model in f32 (compute_dtype too: the r5
+# config's bf16 encoder convs round differently on the two devices; the
+# first reading, with them, was 1.07e-3 on emt_attn simple's decoder
+# output and 3.7e-3 on its stop logits from the first step on).
+VARIANT_CPU_ATOL = 1e-3
+VARIANT_SYNTH_STEPS = 64
+VARIANT_PLAIN_STEPS = 2
+# the plain route's train batch: phase 16's first 16 rows, mels cut to
+# this many frames (the plain decode is a Python loop of small launches);
+# the step under torch.profiler takes 4 of them and a third of the frames
+VARIANT_PLAIN_FRAMES = 64
+VARIANT_GTA_FRAMES = 64
+VARIANT_PRENETS = ((256, 128), (256, 256, 256))
+
+
+def variant_weights(cfg, tparams, stats, seed):
+    """`init_tacotron` weights for `cfg` (seeded), with the r5 checkpoint's
+    leaves where path and shape agree for every leaf of the layer (a bias
+    stays random where its kernel does), and LSTM1's hidden rows (and its
+    prenet rows where the prenet's last width is r5's); the rest random.
+    Returns (params, batch_stats, grafted, fresh)."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import convert
+    model = convert.init_tacotron(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+    params, bstats = convert.tacotron_to_flax(model)
+    grafted = fresh = 0
+    r5_all = dict(_leaves(tparams, "params/"), **_leaves(stats, "stats/"))
+    mine = dict(_leaves(params, "params/"), **_leaves(bstats, "stats/"))
+    agree = lambda p: (r5_all.get(p) is not None
+                       and np.shape(r5_all[p]) == mine[p].shape)
+    layer = lambda p: p.split("/", 1)[1].rsplit("/", 1)[0]
+    bad = {layer(p) for p in mine if not agree(p)}
+    for path, leaf in mine.items():
+        if layer(path) in bad:
+            fresh += 1
+            continue
+        tree = params if path.startswith("params/") else bstats
+        convert.tree_set(tree, path.split("/", 1)[1],
+                         np.asarray(r5_all[path], np.float32))
+        grafted += 1
+    l1 = convert.tree_get(params, "decoder/cell/lstm1/kernel").copy()
+    r5l1 = np.asarray(convert.tree_get(tparams, "decoder/cell/lstm1/kernel"))
+    U, P = cfg.tacotron.decoder_lstm_units, cfg.tacotron.prenet_layers[-1]
+    l1[-U:] = r5l1[-U:]
+    if P == 256:
+        l1[:P] = r5l1[:P]
+    convert.tree_set(params, "decoder/cell/lstm1/kernel", l1)
+    return params, bstats, grafted, fresh
+
+
+def hold_card_cpu(name, diffs):
+    """The card-against-CPU gate above on {output: |card - CPU|}: frames
+    and stop values [B, steps·r(, ·)], alignments [B, ·, steps] (printed
+    by 16-step window) and the reference encoders' embeddings."""
+    rows = []
+    for k, d in diffs.items():
+        by = ""
+        if not k.startswith("refnet"):
+            steps = d.shape[-1] if k.startswith("alignments") else d.shape[1]
+            win = ((lambda a: d[..., a:a + 16]) if k.startswith("alignments")
+                   else (lambda a: d[:, a:a + 16]))
+            by = " (by 16 steps " + " ".join(
+                f"{float(win(a).max()):.1e}" for a in range(0, steps, 16)) \
+                + ")"
+        rows.append(f"{k} {float(d.max()):.2e}{by}")
+    print(f"{name}, card against CPU (f32): " + "; ".join(rows))
+    worst = {k: float(d.max()) for k, d in diffs.items()}
+    assert max(worst.values()) <= VARIANT_CPU_ATOL, (name, worst)
+
+
+def tf_kernel_events(fn):
+    """Run fn under torch.profiler -> its 4a and 4b launches by kernel
+    name (TF_KERNELS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return tuple(sum(name in e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                 for name in TF_KERNELS)
+
+
+def variant_cases_phase(texts, ref_list, tparams, stats, seed, smi):
+    """Phase 28: the Tacotron variants on their routes."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.convert import load_tacotron
+    from tacotron2_tpu_torch.eval.convergence import batch_from_rows
+    from tacotron2_tpu_torch.models.tacotron.decoder import (
+        WHOLE, teacher_forced, teacher_forced_route)
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    from tacotron2_tpu_torch.synth.tacotron_synth import (
+        TacotronSynthesizer, plain_synthesis)
+    from tacotron2_tpu_torch.train.tacotron_step import TacotronTrainer
+    t0 = phase(28, "(u) the Tacotron variants: AdaIN with se_concat=False, "
+               "predict_linear, emt_attn training, GTA and embed, prenets "
+               f"{VARIANT_PRENETS}")
+    base = train_config()
+    B = len(texts)
+    dev = torch.device("cuda")
+    corpus = corpus_texts()
+    mel_dir = os.path.join(R5, "corpus", "mels")
+    rows = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
+            for i, t in enumerate(corpus)]
+    first = batch_from_rows(rows[:TRAIN_BATCH], mel_dir, base,
+                            pad_text_to=PAD_TEXT, pad_mel_to=PAD_MEL)
+    def cut(rows_, frames):
+        b = {k: v[:rows_] for k, v in first.items()}
+        for k in ("mel_targets", "stop_token_targets"):
+            b[k] = b[k][:, :frames]
+        b["targets_lengths"] = np.minimum(b["targets_lengths"], frames)
+        return b
+
+    F = VARIANT_PLAIN_FRAMES
+    short, probe = cut(TRAIN_BATCH, F), cut(4, F // 3)
+    seconds = {}
+
+    def setup(name, **over):
+        cfg = base
+        for sec, kw in over.items():
+            cfg = cfg.replace(**{sec: dataclasses.replace(getattr(cfg, sec),
+                                                          **kw)})
+        params, bstats, ng, nf = variant_weights(cfg, tparams, stats, seed)
+        print(f"{name}: {ng} tensors from r5, {nf} random; teacher-forced "
+              f"route {teacher_forced_route(cfg)}, free-running route "
+              f"{'plain' if plain_synthesis(cfg) else 'kernel'}")
+        return cfg, params, bstats
+
+    def train(cfg, params, bstats, batch, n, gen_seed, probe_batch=None):
+        """n steps on `batch` -> (terms a step, their 4a/4b launches); with
+        `probe_batch` one more step on it under torch.profiler, and its
+        launches counted by the wrappers and seen in the trace."""
+        trainer = TacotronTrainer(cfg)
+        state = trainer.init_state(model=load_tacotron(
+            Tacotron(cfg), params, bstats))
+        gen = torch.Generator(device=dev).manual_seed(gen_seed)
+        terms = []
+        tk.train_launches = tk.bwd_launches = 0
+        for _ in range(n):
+            state, m = trainer.train_step(state, batch, gen)
+            terms.append({k: float(v) for k, v in m.items()})
+        launches = (tk.train_launches, tk.bwd_launches)
+        if probe_batch is None:
+            return terms, launches, None
+        seen = tf_kernel_events(
+            lambda: trainer.train_step(state, probe_batch, gen))
+        counted = (tk.train_launches - launches[0],
+                   tk.bwd_launches - launches[1])
+        return terms, launches, (counted, seen)
+
+    # ---- (a) AdaIN with se_concat=False: the rows kernel, 4a and 4b
+    ts = time.time()
+    cfg, params, bstats = setup("AdaIN, se_concat=False",
+                                gst=dict(adain=True, se_concat=False))
+    synth = TacotronSynthesizer(cfg, params, bstats, device="cuda",
+                                seed=seed, keep_intermediates=True)
+    dk.rows_launches = dk.launches = 0
+    out = synth.synthesize(texts, ref_list, ref_list, max_steps=MAX_STEPS)
+    im = synth.intermediates
+    Bm, T, M = im["memory"].shape
+    print(f"AdaIN synthesis of the {B} texts: route {im['route']}, memory "
+          f"width {M}, rows-kernel launches {dk.rows_launches}, decoder.cu "
+          f"{dk.launches}; stop steps {[int(x) for x in out['lengths']]}")
+    assert im["route"] == "fused" and M == 640 and dk.rows_launches > 0
+    assert dk.launches == 0
+    assert all(np.isfinite(m_).all() for m_ in out["mels"])
+    dargs = (synth.dec_params, cfg, im["keys"], im["memory"], im["mask"])
+    st0 = dk.init_decoder_state(cfg, Bm, T, M, "cuda")
+    d32 = im["drop"][:, :32].contiguous()
+    full = dk.decode_block(*dargs, st0, d32, casts=WHOLE,
+                           kernel_weights=synth.dec_kernel)
+    replay_gate(
+        "AdaIN rows kernel over the first 32 steps",
+        lambda st, d: dk.decode_block(*dargs, st, d, casts=WHOLE,
+                                      kernel_weights=synth.dec_kernel),
+        lambda st, d: dk.decode_block_plain(*dargs, st, d, casts=WHOLE),
+        lambda st, d: dk.decode_block_plain(
+            f32_activations(dargs[0]), *dargs[1:], st, d),
+        st0, d32, full)
+    del synth
+    terms, launches, (counted, seen) = train(
+        cfg, params, bstats, first, 3, seed + 5, probe_batch=probe)
+    print(f"AdaIN: 3 train steps at phase 16's shapes, loss " + " ".join(
+        f"{t_['loss']:.4f}" for t_ in terms) + f"; launches 4a, 4b "
+        f"{launches}; a fourth step's counted {counted}, seen by "
+        f"torch.profiler {seen}")
+    assert all(np.isfinite(list(t_.values())).all() for t_ in terms)
+    assert launches == (3, 3) and counted == seen == (1, 1), (
+        launches, counted, seen)
+    cfg32 = with_tacotron(cfg, fused_train_dtype="float32")
+    trainer = TacotronTrainer(cfg32)
+    model = load_tacotron(Tacotron(cfg32), params, bstats).to(dev)
+    state = trainer.init_state(model=model)
+    bufs = {n: b.clone() for n, b in model.named_buffers()}
+    got = {}
+    for route in ("fused", "replay"):
+        for n, b in model.named_buffers():
+            b.copy_(bufs[n])
+        _, _, grads, _ = trainer.step_gradients(
+            state, short, torch.Generator(device=dev).manual_seed(seed),
+            decode=route, targets=["loss"])
+        got[route] = torch.cat([x.flatten() for x in grads["loss"]])
+    err = rel_err(got["fused"], got["replay"])
+    print(f"AdaIN f32 step (B {TRAIN_BATCH}, {F} frames): max |fused - "
+          f"replay| / max |replay| of the 'loss' gradient {err:.2e} (gate "
+          f"{VARIANT_GRAD_RTOL:g})")
+    assert err <= VARIANT_GRAD_RTOL, err
+    del got, state, trainer, model
+    seconds["AdaIN"] = time.time() - ts
+    print(f"AdaIN: {seconds['AdaIN']:.3f} s", flush=True)
+
+    # ---- (b) predict_linear on seeded linear targets
+    ts = time.time()
+    cfg, params, bstats = setup("predict_linear",
+                                tacotron=dict(predict_linear=True))
+    lin = dict(first)
+    lin["linear_targets"] = np.random.default_rng(seed).uniform(
+        -4.0, 4.0, first["mel_targets"].shape[:2] + (cfg.audio.num_freq,)
+    ).astype(np.float32)
+    terms, launches, _ = train(cfg, params, bstats, lin, 4, seed + 6)
+    ll = [t_["linear_loss"] for t_ in terms]
+    print(f"predict_linear: 4 steps on one batch with linear targets "
+          f"{lin['linear_targets'].shape}: linear_loss " + " ".join(
+              f"{x:.4f}" for x in ll) + f"; loss " + " ".join(
+              f"{t_['loss']:.4f}" for t_ in terms) + f"; launches 4a, 4b "
+          f"{launches}")
+    assert np.isfinite(ll).all() and ll[-1] < ll[0], ll
+    assert launches == (4, 4), launches
+    seconds["predict_linear"] = time.time() - ts
+    print(f"predict_linear: {seconds['predict_linear']:.3f} s", flush=True)
+
+    # ---- (c) emt_attn: training, GTA and embed on the plain route
+    tgts = [m_[:VARIANT_GTA_FRAMES] for m_ in ref_list]
+    for kind in EMT_TYPES:
+        ts = time.time()
+        cfg, params, bstats = setup(
+            f"emt_attn {kind}", gst=dict(emt_attn=True, emt_attn_type=kind,
+                                         l2_spk_emb=True))
+        terms, launches, (counted, seen) = train(
+            cfg, params, bstats, short, VARIANT_PLAIN_STEPS, seed + 7,
+            probe_batch=probe)
+        print(f"emt_attn {kind}: {VARIANT_PLAIN_STEPS} train steps (B "
+              f"{TRAIN_BATCH}, {F} frames), loss " + " ".join(
+                  f"{t_['loss']:.4f}" for t_ in terms) + f" (l2_spk_emb "
+              f"{terms[-1]['style_emb_orthog_loss']:.4f}); launches 4a, 4b "
+              f"{launches}; a step under torch.profiler counted {counted}, "
+              f"seen {seen}")
+        assert all(np.isfinite(list(t_.values())).all() for t_ in terms)
+        assert launches == (0, 0) and counted == seen == (0, 0)
+        labels = ([i % cfg.gst.n_emt for i in range(B)]
+                  if kind == "style_tokens" else None)
+        synth = TacotronSynthesizer(cfg, params, bstats, device="cuda",
+                                    seed=seed, keep_intermediates=True)
+        tk.launches = 0
+        g_out = synth.synthesize(texts, ref_list, ref_list, mel_targets=tgts,
+                                 gta=True, emt_labels=labels)
+        emb = synth.embed(texts, tgts)
+        print(f"emt_attn {kind}: GTA route {synth.intermediates['route']}, "
+              f"eval-kernel launches {tk.launches}; alignments_emt "
+              f"{g_out['alignments_emt'][0].shape}; embed "
+              f"{ {k: getattr(v, 'shape', None) for k, v in emb.items()} }")
+        assert synth.intermediates["route"] == "teacher_forced_plain"
+        assert tk.launches == 0
+        assert all(np.isfinite(m_).all() for m_ in g_out["mels"])
+        ids, lens = synth.prepare_inputs(texts)
+        tg, refs = np.stack(tgts), synth._pad_refs(ref_list)
+        del synth
+        # the same GTA and embed passes on the card and on the CPU: f32
+        # weights, the same dropout multipliers
+        c32 = with_tacotron(cfg, fused_train_dtype="float32",
+                            compute_dtype="float32")
+        drop = torch.rand(B, VARIANT_GTA_FRAMES, 2, 256,
+                          generator=torch.Generator().manual_seed(seed))
+        drop = (drop < 0.5).float() * 2.0
+        res = {}
+        for where in ("cuda", "cpu"):
+            model = load_tacotron(Tacotron(c32), params, bstats).to(
+                where).eval().requires_grad_(False)
+            dp = tk.cast_params(tk.extract_params_traced(model.decoder, c32),
+                                torch.float32)
+            coins = torch.ones(VARIANT_GTA_FRAMES, dtype=torch.int32)
+            d = drop.to(where)
+
+            def decode(keys, memory, mask, teacher, emt):
+                f, s, a, e = teacher_forced(dp, c32, keys, memory, mask,
+                                            teacher, coins, d, emt=emt)
+                return f, s, a, e
+
+            t = lambda x, dt=torch.float32: torch.as_tensor(
+                np.asarray(x), device=where, dtype=dt)
+            lab = None if labels is None else t(labels, torch.long)
+            gta = model.gta_pass(t(ids, torch.long), t(lens, torch.long),
+                                 t(tg), t(refs), t(refs), decode,
+                                 synth_embeddings=True, emt_labels=lab)
+            res[where] = {k: v.float().cpu() for k, v in gta.items()
+                          if v is not None}
+        assert set(res["cpu"]) == set(res["cuda"])
+        diffs = {k: (res["cuda"][k] - v).abs() for k, v in res["cpu"].items()}
+        hold_card_cpu(f"emt_attn {kind}: GTA and embed", diffs)
+        seconds[f"emt_attn {kind}"] = time.time() - ts
+        print(f"emt_attn {kind}: {seconds[f'emt_attn {kind}']:.3f} s",
+              flush=True)
+
+    # ---- (d) prenets other than (P, P): the plain route throughout
+    for layers in VARIANT_PRENETS:
+        ts = time.time()
+        cfg, params, bstats = setup(
+            f"prenet {layers}", tacotron=dict(prenet_layers=layers,
+                                              fused_decoder_dtype="float32"))
+        synth = TacotronSynthesizer(cfg, params, bstats, device="cuda",
+                                    seed=seed, keep_intermediates=True)
+        dk.rows_launches = dk.launches = 0
+        out = synth.synthesize(texts, ref_list, ref_list,
+                               max_steps=VARIANT_SYNTH_STEPS)
+        im = synth.intermediates
+        kernels = (dk.rows_launches, dk.launches)
+        K = cfg.tacotron.early_stop_block
+        args = lambda dev_: [x.to(dev_) for x in (
+            im["keys"], im["memory"], im["mask"])]
+        f_g, s_g, _ = dk.decode_plain(
+            synth.dec_params, cfg, *args("cuda"), im["drop"],
+            steps=VARIANT_SYNTH_STEPS, early_stop_block=K,
+            prenet=synth.prenet)
+        cpu_p = [(w.cpu(), b.cpu()) for w, b in synth.prenet]
+        dp_c = type(synth.dec_params)(*[None if x is None else x.cpu()
+                                        for x in synth.dec_params])
+        f_c, s_c, _ = dk.decode_plain(
+            dp_c, cfg, *args("cpu"), im["drop"].cpu(),
+            steps=VARIANT_SYNTH_STEPS, early_stop_block=K, prenet=cpu_p)
+        print(f"prenet {layers}: synthesis route {im['route']}, drop "
+              f"{tuple(im['drop'].shape)}, decode-kernel launches (rows, "
+              f"decoder.cu) {kernels}; {VARIANT_SYNTH_STEPS} steps")
+        assert im["route"] == "plain" and kernels == (0, 0)
+        assert all(np.isfinite(m_).all() for m_ in out["mels"])
+        hold_card_cpu(f"prenet {layers}: free run", {
+            "decoder_output": (f_g.cpu() - f_c).abs(),
+            "stop_token_prediction": (s_g.cpu() - s_c).abs()})
+        del synth
+        terms, launches, (counted, seen) = train(
+            cfg, params, bstats, short, VARIANT_PLAIN_STEPS, seed + 8,
+            probe_batch=probe)
+        print(f"prenet {layers}: {VARIANT_PLAIN_STEPS} train steps, loss "
+              + " ".join(f"{t_['loss']:.4f}" for t_ in terms)
+              + f"; launches 4a, 4b {launches}, seen {seen}")
+        assert all(np.isfinite(list(t_.values())).all() for t_ in terms)
+        assert launches == (0, 0) and counted == seen == (0, 0)
+        seconds[f"prenet {layers}"] = time.time() - ts
+        print(f"prenet {layers}: {seconds[f'prenet {layers}']:.3f} s",
+              flush=True)
+    print(f"phase 28 seconds ({smi}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()))
+    torch.cuda.empty_cache()
+    done(28, t0)
+
+
 # phase 27: the style discriminators and their graft into Tacotron
 # training, at the r5 config's full width (default GST widths: reference
 # filters (32, 32, 64, 64, 128, 128), GRU 128) over phase 26's train.txt
@@ -4851,6 +5240,9 @@ def main(argv=None):
 
     # ---- 27. (t) the style discriminators, grafted into training
     disc_phase(seed, smi)
+
+    # ---- 28. (u) the Tacotron variants on their routes
+    variant_cases_phase(texts, gt, tparams, stats, seed, smi)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

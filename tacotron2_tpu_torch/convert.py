@@ -11,10 +11,13 @@ Takes what the JAX package trains and checkpoints — the Tacotron
   BiLSTM (TF gate order kept; the forget bias of 1.0 that the JAX
   `lstm_step` adds each step is folded into the f-gate bias here), the
   reference encoders (conv2d [kh, kw, in, out] -> [out, in, kh, kw]; the
-  emt_attn variant's BiGRU or 8 GRU heads), GST tokens and attention, the
+  emt_attn variant's BiGRU or 8 GRU heads; AdaIN's `reference_encoder`),
+  GST tokens and attention, the
   decoder (flax layout as it is, with the emt attention's W1/W2/V or
   q_proj/k_proj/attention_* and attn_emt_out), postnet and its
-  projection, the style classifier heads and the training heads (the
+  projection, the CBHG head of `predict_linear` (`post_cbhg`: bank and
+  projection convs, highway layers, BiGRU; `cbhg_linear_specs_
+  projection`), the style classifier heads and the training heads (the
   adversarial `style_disc_*_adv`, nat-GAN's `nat_gan_enc` and
   `nat_gan_disc*`, the frozen `pretrained_ref_enc_*` encoders and their
   `_dense` heads); `init_tacotron` draws a fresh one from the flax
@@ -63,17 +66,25 @@ def _set(param: torch.Tensor, value) -> None:
 # rule (the flax trees as models/tacotron/model.py's JAX Tacotron builds
 # them). Conv kernels change layout on the way (`_LAYOUT`); the encoder
 # LSTM biases carry the folded forget bias (`_lstm_offset`).
-# the reference encoders: the model's two, the frozen pretrained
-# classifiers' and nat-GAN's; a style discriminator's (`disc/model.py`)
-_REF = r"(refnet_\w+?|pretrained_ref_enc(?:_emt|_spk)?|nat_gan_enc|emt_disc)"
+# the reference encoders: the model's two (or AdaIN's one), the frozen
+# pretrained classifiers' and nat-GAN's; a style discriminator's
+# (`disc/model.py`)
+_REF = (r"(refnet_\w+?|pretrained_ref_enc(?:_emt|_spk)?|nat_gan_enc|emt_disc"
+        r"|reference_encoder)")
 _RULES = [
     (r"embedding", "inputs_embedding/embedding"),
-    (r"(encoder_conv|postnet)\.layers\.(\d+)\.weight",
+    (r"(encoder_conv|postnet|post_cbhg)\.layers\.(\d+)\.weight",
      r"\1/ConvBlock_\2/Conv_0/kernel"),
-    (r"(encoder_conv|postnet)\.layers\.(\d+)\.conv_bias",
+    (r"(encoder_conv|postnet|post_cbhg)\.layers\.(\d+)\.conv_bias",
      r"\1/ConvBlock_\2/Conv_0/bias"),
-    (r"(encoder_conv|postnet)\.layers\.(\d+)\.bn\.(\w+)",
+    (r"(encoder_conv|postnet|post_cbhg)\.layers\.(\d+)\.bn\.(\w+)",
      r"\1/ConvBlock_\2/BatchNorm_0/\3"),
+    (r"post_cbhg\.dense\.(\w+)", r"post_cbhg/Dense_0/\1"),
+    (r"post_cbhg\.highways\.(\d+)\.(H|T)\.(\w+)",
+     lambda m: f"post_cbhg/highway_{int(m.group(1)) + 1}/{m.group(2)}/"
+               f"{m.group(3)}"),
+    (r"post_cbhg\.bigru\.(fw|bw)\.(\w+)",
+     r"post_cbhg/BiGRU_0/\1/GRUCell_0/\2"),
     (r"encoder_lstm\.(fw|bw)\.(kernel|bias)", r"encoder_lstm/\1/\2"),
     (_REF + r"\.convs\.(\d+)", r"\1/conv2d_\2/kernel"),
     (_REF + r"\.conv_biases\.(\d+)", r"\1/conv2d_\2/bias"),
@@ -87,8 +98,8 @@ _RULES = [
     (r"(gst_attn_\w+?)\.(attention_\w)", r"\1/\2"),
     (r"(style_tokens_\w+)", r"\1"),
     (r"decoder\.(.+)", lambda m: "decoder/cell/" + m.group(1).replace(".", "/")),
-    (r"(postnet_projection|style_disc_\w+?|nat_gan_disc\w*?)\."
-     r"(kernel|bias)", r"\1/Dense_0/\2"),
+    (r"(postnet_projection|cbhg_linear_specs_projection|style_disc_\w+?"
+     r"|nat_gan_disc\w*?)\.(kernel|bias)", r"\1/Dense_0/\2"),
     (r"(pretrained_ref_enc(?:_emt|_spk)?_dense|emt_disc_logit)\."
      r"(kernel|bias)", r"\1/\2"),
     (r"(w|b)", r"\1"),     # a GE2E discriminator's scale and bias
@@ -229,9 +240,9 @@ def init_tacotron(cfg: Config, generator=None, device="cuda",
     JAX package's flax initialisers (not their values): glorot-uniform
     kernels and embedding, zero biases, GRU gate biases 1, BatchNorm scale
     1, style tokens truncated-normal(0.5) within ±2σ, the GST scorer's v
-    uniform ±sqrt(6/hd) and g sqrt(1/hd); BatchNorm statistics (0, 1), as
-    the module starts them. `flags` are the model's training heads
-    (`Tacotron`'s keywords)."""
+    uniform ±sqrt(6/hd) and g sqrt(1/hd), the CBHG's highway T biases -1;
+    BatchNorm statistics (0, 1), as the module starts them. `flags` are
+    the model's training heads (`Tacotron`'s keywords)."""
     g = generator if generator is not None else torch.Generator()
     return init_params(Tacotron(cfg, emt_only, **flags), cfg, g).to(device)
 
@@ -252,6 +263,8 @@ def init_params(model: torch.nn.Module, cfg: Config, g) -> torch.nn.Module:
             v = torch.full(shape, 10.0 if path == "w" else -5.0)
         elif leaf == "gates_bias" or (leaf == "scale" and "BatchNorm" in path):
             v = torch.ones(shape)
+        elif re.fullmatch(r".*/highway_\d+/T/bias", path):
+            v = torch.full(shape, -1.0)
         elif leaf in ("bias", "candidate_bias", "attention_b",
                       "attention_bias"):
             v = torch.zeros(shape)

@@ -113,7 +113,8 @@ def emt_context(qe, ekeys, score, emem, rnd=identity):
     in, score [nh, A2] the score rows, emem [B, Te, V] the values. Head h
     scores e_h = score[h] · tanh(ekeys + qe) over the Te positions and
     takes the softmax-weighted sum of the values (`rnd` rounds the weights
-    where they enter it); returns the nh contexts joined, [B, nh·V]."""
+    where they enter it); returns the nh contexts joined, [B, nh·V], and
+    the weights [B, nh, Te]."""
     e = torch.tanh(ekeys + qe[:, None, :])                 # [B, Te, A2]
     w = torch.softmax(torch.einsum("bta,ha->bht", e, score.float()), -1)
-    return torch.bmm(rnd(w), emem).reshape(emem.shape[0], -1)
+    return torch.bmm(rnd(w), emem).reshape(emem.shape[0], -1), w

@@ -17,9 +17,16 @@ backward. `Decoder` holds the decoder's parameters in flax layout.
 The `Tacotron_emt_attn` variant (`gst.emt_attn`) adds a second attention,
 over the emotion reference's sequence (`emt_memory`), whose context feeds
 LSTM1 at the next step (JAX decoder.py:97-129): `EmtParams` holds its
-weights, `emt_operands` lays out one call's operands, and the free-running
-decode (`decode_block`, `autoregressive`) takes them as `emt`. Only eval
-synthesis runs it; the teacher-forced decode and training do not.
+weights, `emt_operands` lays out one call's operands, and every plain
+decode (`decode_block`, `autoregressive`, `teacher_forced`,
+`teacher_forced_train`) takes them as `emt`; the teacher-forced ones then
+also return the emt attention's alignments (JAX decoder.py:299-420).
+
+The prenet is a list of layers, each with its own width and its own row
+of dropout multipliers. `DecoderParams` holds the kernels' prenet, two
+layers of one width (`kernel_prenet`); any other prenet comes to the plain
+decode as `prenet`, a tuple of (kernel, bias) pairs, and its
+`DecoderParams` leaves the prenet fields None.
 
 These are the plain versions of the CUDA kernels
 (`ops/tacotron_decoder_kernel.py`, `ops/tacotron_train_kernel.py`,
@@ -55,6 +62,8 @@ class DecoderParams(NamedTuple):
 
     Matmul weights carry the decode weight dtype (bf16 or f32); biases and
     attention vectors are f32. `l1_b`/`l2_b` hold the folded forget bias.
+    The prenet fields are the kernels' prenet (`kernel_prenet`), None for
+    any other, which the plain decode takes as `prenet`.
     """
 
     pre_w0: torch.Tensor   # [mels, P]
@@ -205,14 +214,23 @@ def emt_operands(ep: EmtParams, cfg: Config, emt_memory, ref_spk=None,
                        ep.l1_we.to(wq.dtype), wq.contiguous(), out_w, out_b)
 
 
+def kernel_prenet(cfg: Config) -> bool:
+    """Whether the prenet is the kernels' own: two layers of one width
+    (the TPU kernels assert (P, P), ops/tacotron_decoder_kernel.py:374)."""
+    layers = tuple(cfg.tacotron.prenet_layers)
+    return layers == (layers[-1], layers[-1])
+
+
 def drop_masks(cfg: Config, batch: int, steps: int, generator=None,
                device="cuda") -> torch.Tensor:
-    """Prenet dropout multipliers [B, steps, 2, P]: 1/keep where a uniform
-    draw is below keep, else 0 (all ones at dropout_rate 0)."""
+    """Prenet dropout multipliers [B, steps, L, P], one row a prenet layer
+    (L layers, P the widest; layer i reads the first prenet_layers[i] of
+    its row): 1/keep where a uniform draw is below keep, else 0 (all ones
+    at dropout_rate 0). The kernels' prenet (P, P) takes [B, steps, 2,
+    P]."""
     tc = cfg.tacotron
-    P = tc.prenet_layers[-1]
     keep = 1.0 - float(tc.dropout_rate)
-    shape = (batch, steps, 2, P)
+    shape = (batch, steps, len(tc.prenet_layers), max(tc.prenet_layers))
     if keep >= 1.0:
         return torch.ones(shape, device=device)
     u = torch.rand(shape, generator=generator, device=device)
@@ -341,6 +359,7 @@ class _Cell(NamedTuple):
     v_a: torch.Tensor
     rnd_tanh: object
     emt: EmtOperands | None = None
+    prenet: tuple = ()
 
 
 def round_bf16(x):
@@ -352,10 +371,22 @@ def round_bf16(x):
     return x + (r - x).detach() if x.requires_grad else r
 
 
+def prenet_of(dp: DecoderParams, prenet=None) -> tuple:
+    """The prenet's (kernel, bias) pairs: `prenet` where given, else the
+    two layers of `dp`."""
+    if prenet is not None:
+        return tuple(prenet)
+    if dp.pre_w0 is None:
+        raise ValueError("a prenet other than two layers of one width comes "
+                         "to the plain decode as `prenet`")
+    return ((dp.pre_w0, dp.pre_b0), (dp.pre_w1, dp.pre_b1))
+
+
 def _cell(dp: DecoderParams, keys, memory, mask,
           round_inputs: bool = False, emt: EmtOperands | None = None,
-          casts: Casts = TEACHER_FORCED) -> _Cell:
-    w = {k: v.float() for k, v in dp._asdict().items()}
+          casts: Casts = TEACHER_FORCED, prenet=None) -> _Cell:
+    w = {k: v.float() for k, v in dp._asdict().items() if v is not None}
+    layers = tuple((k.float(), b.float()) for k, b in prenet_of(dp, prenet))
     wp, b_eff = fold_location(dp.loc_k, dp.loc_b, dp.wloc, dp.b_a)
     rnd = round_bf16 if round_inputs else identity
     rc = lambda on, x: rnd(x) if on else x
@@ -372,18 +403,20 @@ def _cell(dp: DecoderParams, keys, memory, mask,
                  rc(casts.keys, keys.float() + b_eff), rnd(memory.float()),
                  mask.float().to(memory.device), rnd,
                  rc(casts.v_a, w["v_a"]), rnd if casts.tanh else identity,
-                 emt)
+                 emt, layers)
 
 
 def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
           constraint: bool, zm_t=None):
     """One decoder step on input frame x [B, mels] with prenet multipliers
-    drop_t [B, 2, P]: prenet, both zoneout LSTMs (EMA mix, or with train
+    drop_t [B, L, P]: prenet, both zoneout LSTMs (EMA mix, or with train
     masks zm_t [B, 4, U] the Bernoulli select), attention, the fused frame
     + stop projection. Returns (proj [B, r*mels + r] with the stop logits
     last, align [B, T], the state after the step, whose xprev is the
-    step's last frame, and the step's prenet outputs h0d, hpre, gates z1,
-    z2 and query q, which the backward reads).
+    step's last frame, and the step's first and last prenet outputs h0d,
+    hpre, gates z1, z2 and query q, which the backward reads, and under
+    emt_attn align_emt, the emt attention's weights [B, Te] (simple) or
+    zeros [B, 1] (the multi-head types), as JAX records them).
 
     `cell.rnd` rounds every activation where it enters a product — the
     frame, both prenet inputs, the LSTM inputs, the query's and the
@@ -405,8 +438,11 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     w, rnd, emt = cell.w, cell.rnd, cell.emt
     c1, h1, c2, h2 = state.c1, state.h1, state.c2, state.h2
     ctx, cum, pmax, ctx_emt = state.ctx, state.cum, state.pmax, state.ctx_emt
-    h0d = torch.relu(rnd(x) @ w["pre_w0"] + w["pre_b0"]) * drop_t[:, 0]
-    hpre = torch.relu(rnd(h0d) @ w["pre_w1"] + w["pre_b1"]) * drop_t[:, 1]
+    h, outs = x, []
+    for i, (pw, pb) in enumerate(cell.prenet):
+        h = torch.relu(rnd(h) @ pw + pb) * drop_t[:, i, :pw.shape[1]]
+        outs.append(h)
+    h0d, hpre = outs[0], outs[-1]
     x1 = [hpre, ctx, h1] if emt is None else [hpre, ctx, ctx_emt, h1]
     z1 = rnd(torch.cat(x1, -1)) @ cell.l1_w + w["l1_b"]
     if emt is not None and emt.rs_add is not None:
@@ -414,11 +450,15 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     c1, h1 = _lstm(z1, c1, h1, zo, None if zm_t is None else zm_t[:, :2])
     z2 = rnd(torch.cat([h1, h2], -1)) @ cell.l2_w + w["l2_b"]
     c2, h2 = _lstm(z2, c2, h2, zo, None if zm_t is None else zm_t[:, 2:])
+    extra = {}
     if emt is not None:
-        ctx_emt = emt_context(rnd(h2) @ emt.wq, emt.ekeys, emt.score,
-                              emt.emem, rnd)
+        ctx_emt, w_emt = emt_context(rnd(h2) @ emt.wq, emt.ekeys, emt.score,
+                                     emt.emem, rnd)
         if emt.out_w is not None:
             ctx_emt = rnd(ctx_emt) @ emt.out_w + emt.out_b.float()
+        extra["align_emt"] = (w_emt[:, 0]
+                              if cfg.gst.emt_attn_type == "simple"
+                              else w_emt.new_zeros(w_emt.shape[0], 1))
     q = rnd(h2) @ w["wq"]
     ctx, align, cum, pmax = attention_step(
         q, cell.keys_eff, cell.memory, cell.mask, cum, pmax, cell.wp,
@@ -430,18 +470,18 @@ def _step(cell: _Cell, cfg: Config, x, drop_t, state: DecoderKernelState,
     return (proj, align,
             DecoderKernelState(xprev, c1, h1, c2, h2, ctx, cum, pmax,
                                ctx_emt),
-            dict(h0d=h0d, hpre=hpre, z1=z1, z2=z2, q=q))
+            dict(h0d=h0d, hpre=hpre, z1=z1, z2=z2, q=q, **extra))
 
 
 def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
                  state: DecoderKernelState, drop,
                  emt: EmtOperands | None = None, *,
-                 casts: Casts | None = None):
+                 casts: Casts | None = None, prenet=None):
     """K = drop.shape[1] free-running steps from `state`. keys [B, T, A],
-    memory [B, T, M], mask [B, T] (bool or 1/0), drop [B, K, 2, P], and
-    under emt_attn `emt` (`emt_operands`). Returns (frames [B, K*r, mels],
-    stop_probs [B, K*r], alignments [B, T, K], the state after the block),
-    all f32. With bf16 weights it rounds what `casts` says (default: the
+    memory [B, T, M], mask [B, T] (bool or 1/0), drop [B, K, L, P], under
+    emt_attn `emt` (`emt_operands`), and `prenet` where it is not dp's.
+    Returns (frames [B, K*r, mels], stop_probs [B, K*r], alignments [B, T,
+    K], the state after the block), all f32. With bf16 weights it rounds what `casts` says (default: the
     TPU block kernel at its default energy_mode, `BLOCK` or `BLOCK_EMT`;
     `WHOLE` steps the whole decode's function)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
@@ -453,7 +493,7 @@ def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
         raise ValueError("an emt_attn decode needs both emt operands and "
                          "state.ctx_emt; any other decode neither")
     cell = _cell(dp, keys, memory, mask, dp.l1_wp.dtype == torch.bfloat16,
-                 emt, casts)
+                 emt, casts, prenet)
     state = state._replace(pmax=state.pmax.long())
     frames_l, stops_l, aligns_l = [], [], []
     for t in range(K):
@@ -471,16 +511,16 @@ def decode_block(dp: DecoderParams, cfg: Config, keys, memory, mask,
 def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
                    steps: int, drop, early_stop_block: int = 0,
                    emit_alignments: bool = True,
-                   emt: EmtOperands | None = None):
+                   emt: EmtOperands | None = None, prenet=None):
     """Free-running decode of `steps` steps as a loop of `decode_block`.
 
     early_stop_block=K (0 < K < steps) applies the TPU kernel's rule
     (tacotron_decoder_kernel.py:1053-1070): every row decodes until the
     first K-step boundary at which every row's sticky stop flag has fired
     (all r stop probs > 0.5, or any with `stop_at_any`); the steps after it
-    read as frames 0, stop probability 1.0 and alignments 0. `emt`: as
-    `decode_block`. With bf16 weights it rounds as the TPU whole-decode
-    kernel does (`WHOLE`). Returns (frames [B, steps*r, mels], stop_probs
+    read as frames 0, stop probability 1.0 and alignments 0. `emt` and
+    `prenet`: as `decode_block`. With bf16 weights it rounds as the TPU
+    whole-decode kernel does (`WHOLE`). Returns (frames [B, steps*r, mels], stop_probs
     [B, steps*r], alignments [B, T, steps] or None)."""
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
@@ -497,7 +537,8 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
     for t0 in range(0, steps, K):
         n = min(K, steps - t0)
         f, s, a, state = decode_block(dp, cfg, keys, memory, mask, state,
-                                      drop[:, t0:t0 + n], emt, casts=WHOLE)
+                                      drop[:, t0:t0 + n], emt, casts=WHOLE,
+                                      prenet=prenet)
         frames[:, t0 * r:(t0 + n) * r] = f
         stops[:, t0 * r:(t0 + n) * r] = s
         aligns[:, :, t0:t0 + n] = a
@@ -510,11 +551,14 @@ def autoregressive(dp: DecoderParams, cfg: Config, keys, memory, mask,
 def teacher_forced_route(cfg: Config) -> str:
     """The route of the teacher-forced decode (training, its eval forward,
     GTA, `embed`), chosen from the config before anything is launched:
-    "plain" (`teacher_forced` / `teacher_forced_train`, on any device) under
-    `tacotron.smoothing`, as the JAX package sends smoothing to its flax
-    scan and not to a kernel (tacotron2_tpu/models/tacotron/decoder.py:
-    312-315); else "kernel" (ops/tacotron_train_kernel.py)."""
-    return "plain" if cfg.tacotron.smoothing else "kernel"
+    "plain" (`teacher_forced` / `teacher_forced_train`, on any device and
+    on its tensors) under `tacotron.smoothing`, `gst.emt_attn` or a prenet
+    other than the kernels' (P, P), as the JAX package sends each of them
+    to its flax scan and not to a kernel (tacotron2_tpu/models/tacotron/
+    decoder.py:311-316); else "kernel" (ops/tacotron_train_kernel.py)."""
+    plain = (cfg.tacotron.smoothing or cfg.gst.emt_attn
+             or not kernel_prenet(cfg))
+    return "plain" if plain else "kernel"
 
 
 def teacher_inputs(targets, r: int):
@@ -529,7 +573,8 @@ def teacher_inputs(targets, r: int):
 
 
 def teacher_forced(dp: DecoderParams, cfg: Config, keys, memory, mask,
-                   teacher, coins, drop):
+                   teacher, coins, drop, *, emt: EmtOperands | None = None,
+                   prenet=None):
     """Teacher-forced decode in eval mode (JAX `Decoder.teacher_forced` with
     train=False, decoder.py:299-420): step t takes teacher[t] where
     coins[t] is set, else the previous step's last frame — one coin per
@@ -537,18 +582,26 @@ def teacher_forced(dp: DecoderParams, cfg: Config, keys, memory, mask,
     masked softmax with cumulative weights, no window constraint.
 
     keys [B, T, A], memory [B, T, M], mask [B, T], teacher [steps, B, mels],
-    coins [steps] (0/1), drop [B, steps, 2, P]. With bf16 weights every
+    coins [steps] (0/1), drop [B, steps, L, P]. With bf16 weights every
     activation is rounded to bf16 where it enters a product, as the TPU
     kernel `build_train_fwd` does (see `_step`). Returns (frames [B,
     steps*r, mels], stop logits [B, steps*r], alignments [B, T, steps]),
-    all f32."""
-    return _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins,
-                           drop, None)[:3]
+    all f32. Under emt_attn (`emt`, the call's `emt_operands`) LSTM1 takes
+    the emt attention's context, and a fourth output is its alignments
+    [B, Te, steps] (simple) or zeros [B, 1, steps] (JAX decoder.py:
+    132-146); `prenet` where it is not dp's."""
+    frames, stops, aligns, res = _teacher_forced(
+        dp, cfg, keys, memory, mask, teacher, coins, drop, None, emt=emt,
+        prenet=prenet)
+    if emt is None:
+        return frames, stops, aligns
+    return frames, stops, aligns, res["align_emt"]
 
 
 def teacher_forced_train(dp: DecoderParams, cfg: Config, keys, memory,
                          mask, teacher, coins, drop, zmask,
-                         bf16_inputs: bool | None = None):
+                         bf16_inputs: bool | None = None, *,
+                         emt: EmtOperands | None = None, prenet=None):
     """`teacher_forced` in train mode, the plain version of the train
     forward (JAX `build_train_fwd` with train_zoneout=True, :118):
     Bernoulli zoneout from zmask [B, steps, 4, U] bool (`zoneout_masks`),
@@ -561,26 +614,30 @@ def teacher_forced_train(dp: DecoderParams, cfg: Config, keys, memory,
     keys and memory: autograd through it is the reference the fused
     backward is held to. `bf16_inputs` rounds the activations as with bf16
     weights (default: when dp's weights are bf16), for f32 weights that
-    hold bf16 values and need f32 gradients."""
+    hold bf16 values and need f32 gradients. `emt` and `prenet` as in
+    `teacher_forced`; under emt_attn res also holds align_emt, the emt
+    alignments [B, Te or 1, steps]."""
     return _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins,
-                           drop, zmask, bf16_inputs)
+                           drop, zmask, bf16_inputs, emt=emt, prenet=prenet)
 
 
 def _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins, drop,
-                    zmask, bf16_inputs=None):
+                    zmask, bf16_inputs=None, *, emt=None, prenet=None):
     tc, mels = cfg.tacotron, cfg.audio.num_mels
     r = tc.outputs_per_step
     B, T, M = memory.shape
     steps = teacher.shape[0]
     if bf16_inputs is None:
         bf16_inputs = dp.l1_wp.dtype == torch.bfloat16
-    cell = _cell(dp, keys, memory, mask, round_inputs=bf16_inputs)
+    cell = _cell(dp, keys, memory, mask, round_inputs=bf16_inputs, emt=emt,
+                 prenet=prenet)
     state = init_decoder_state(cfg, B, T, M, memory.device)
     state = state._replace(pmax=state.pmax.long())
     teacher = teacher.float()
     keep = ("out", "align", "cum_pre", "q", "z1", "z2", "h0d", "hpre", "ctx",
             "h1", "c1", "h2", "c2")
     res = {k: [] for k in keep}
+    align_emt = []
     for t, coin in enumerate(coins.tolist()):
         x = teacher[t] if coin else state.xprev
         cum_pre = state.cum
@@ -589,12 +646,16 @@ def _teacher_forced(dp, cfg, keys, memory, mask, teacher, coins, drop,
             None if zmask is None else zmask[:, t])
         res["out"].append(proj)
         res["align"].append(align)
+        if emt is not None:
+            align_emt.append(step_res.pop("align_emt"))
         if zmask is not None:
             step_res.update(cum_pre=cum_pre, ctx=state.ctx, h1=state.h1,
                             c1=state.c1, h2=state.h2, c2=state.c2)
             for k, v in step_res.items():
                 res[k].append(v)
     res = {k: torch.stack(v, 1) for k, v in res.items() if v}
+    if align_emt:
+        res["align_emt"] = torch.stack(align_emt, 2)
     out = res["out"]
     frames = out[..., :r * mels].reshape(B, steps * r, mels)
     stops = out[..., r * mels:].reshape(B, steps * r)
@@ -795,6 +856,7 @@ class Decoder(nn.Module):
         U, A, r = tc.decoder_lstm_units, tc.attention_dim, tc.outputs_per_step
         dims = [mels] + list(tc.prenet_layers)
         M = memory_width
+        self.memory_width, self.ref_width = M, ref_width
         E = emt_context_width(cfg)
         self.prenet = nn.ModuleDict({
             f"Dense_{i}": Dense(dims[i], dims[i + 1])

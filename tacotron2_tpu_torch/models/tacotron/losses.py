@@ -11,12 +11,13 @@ terms (its own heads on the crossed references' labels, and the heads on
 `mel_outputs_up`, derated by `unpaired_loss_derate`), or under
 `pretrained_emb_disc_all` the cosine terms between the crossed references'
 embeddings and those of `mel_outputs_up`; the orthogonality term
-0.02·‖E_emt·E_spkᵀ‖_F over both passes (none under `emt_only`);
+0.02·‖E_emt·E_spkᵀ‖_F over both passes (none under `emt_only` or AdaIN),
+which emt_attn replaces by `l2_spk_emb`'s 0.1·‖E_spk‖_F (:204-215); the
+linear L1 loss of `predict_linear`, masked or not (:66-78,143-149);
 nat-GAN's 3-class discriminator loss `d_loss` with its 0.1-weighted
 emotion and speaker heads, and the generator terms `g_loss_p` /
 `g_loss_up` derated by `nat_gan_derate`; `loss` and `loss_no_mo_up` as
-JAX assembles them. Not ported: the linear loss (`predict_linear`) and
-`l2_spk_emb` (emt_attn training), which the trainer refuses.
+JAX assembles them.
 """
 
 from __future__ import annotations
@@ -31,10 +32,6 @@ from ...config import Config
 # parameter-path tokens the L2 term leaves out (tacotron.py:862-867)
 L2_EXCLUDED = ("bias", "projection", "inputs_embedding", "lstm", "rnn", "gru",
                "fw", "bw")
-# the JAX term that stays 0 without `predict_linear`
-ZERO_TERMS = ("linear_loss",)
-
-
 def sequence_mask(lengths, max_len: int):
     """[B] -> [B, max_len] float mask of t < length."""
     t = torch.arange(max_len, device=lengths.device)[None, :]
@@ -65,6 +62,23 @@ def stop_ce(targets, logits):
     """Unmasked sigmoid cross-entropy (the default, tacotron.py:778-779)."""
     return (torch.relu(logits) - logits * targets
             + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def linear_loss(targets, outputs, cfg: Config, lengths=None):
+    """L1 with priority below 2 kHz (tacotron.py:781-787): half the mean
+    over every bin, half over the bins below 2 kHz; with `lengths` [B] the
+    frames past each length masked out of both sums and the count
+    (MaskedLinearLoss, modules.py:577-605)."""
+    au = cfg.audio
+    n_priority = int(2000 / (au.sample_rate * 0.5) * au.num_freq)
+    l1 = (targets - outputs).abs()
+    if lengths is None:
+        return 0.5 * l1.mean() + 0.5 * l1[:, :, :n_priority].mean()
+    mask = sequence_mask(lengths, targets.shape[1])[:, :, None].expand_as(
+        targets)
+    l1 = l1 * mask
+    denom = mask.sum().clamp(min=1.0)
+    return 0.5 * l1.sum() / denom + 0.5 * l1[:, :, :n_priority].sum() / denom
 
 
 def softmax_ce(logits, labels):
@@ -103,7 +117,9 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
     mel_targets, stop_token_targets, targets_lengths, emt_labels and
     spk_labels (with use_unpaired emt_up_labels and spk_up_labels) as
     tensors, `named_params` the (flax path, parameter) pairs of
-    `convert.flax_named_parameters`. The flags are the trainer's."""
+    `convert.flax_named_parameters`; with `predict_linear` also
+    linear_targets [B, T_out, num_freq] (which the JAX feeder does not load
+    either: a caller builds them). The flags are the trainer's."""
     tc, gst, au = cfg.tacotron, cfg.gst, cfg.audio
     tgt = batch["mel_targets"]
     B = tgt.shape[0]
@@ -158,9 +174,19 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
             if out.get("style_emb_logit_mel_out_up_spk") is not None:
                 mo_up_spk = derate * softmax_ce(
                     out["style_emb_logit_mel_out_up_spk"], spk_up)
-    # orthogonality (tacotron.py:840-848); under emt_attn JAX takes the
-    # l2_spk_emb penalty instead, which the port does not train
-    if not gst.emt_attn and gst.use_orthog_loss and not emt_only and \
+    # orthogonality (tacotron.py:840-848); under emt_attn the optional
+    # l2_spk_emb penalty 0.1·‖E_spk‖_F instead, over both passes
+    # (tacotron_emt_attn.py:691-695)
+    if gst.emt_attn:
+        if gst.l2_spk_emb and not emt_only and \
+                gst.emt_attn_type != "style_tokens" and \
+                out.get("refnet_out_spk") is not None:
+            orthog = 0.1 * torch.linalg.norm(out["refnet_out_spk"])
+            if use_unpaired and out.get("refnet_out_up_spk") is not None:
+                orthog = 0.1 * (torch.linalg.norm(out["refnet_out_spk"])
+                                + torch.linalg.norm(
+                                    out["refnet_out_up_spk"]))
+    elif gst.use_orthog_loss and not emt_only and \
             not gst.adain and not pretrained_emb_disc_all and \
             out.get("refnet_out_spk") is not None:
         orthog = 0.02 * torch.linalg.norm(
@@ -168,8 +194,18 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
         if use_unpaired and out.get("refnet_out_up_spk") is not None:
             orthog = orthog + 0.02 * torch.linalg.norm(
                 out["refnet_out_up_emt"] @ out["refnet_out_up_spk"].t())
+    lin = zero
+    if tc.predict_linear and out.get("linear_outputs") is not None:
+        if "linear_targets" not in batch:
+            raise ValueError(
+                "tacotron.predict_linear trains on batch['linear_targets'] "
+                "[B, T_out, num_freq], which the feeder does not load (nor "
+                "does the JAX feeder): the caller builds them")
+        lin = linear_loss(batch["linear_targets"], out["linear_outputs"],
+                          cfg, batch["targets_lengths"] if tc.mask_decoder
+                          else None)
     terms = dict(before_loss=before, after_loss=after, stop_token_loss=stop,
-                 regularization_loss=reg)
+                 linear_loss=lin, regularization_loss=reg)
     # nat-GAN, 3 classes: real, paired, unpaired (tacotron.py:869-893)
     ng = out.get("nat_gan") or {}
     if nat_gan and ng:
@@ -202,10 +238,9 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
         style_emb_loss_mel_out_up_emt=mo_up_emt,
         style_emb_loss_mel_out_up_spk=mo_up_spk,
         g_loss_p=g_loss_p, g_loss_up=g_loss_up, d_loss=d_loss)
-    terms.update({k: zero for k in ZERO_TERMS})
-    loss_no_mo_up = (before + after + stop + reg + style_emt + style_spk
-                     + orthog + style_up_emt + style_up_spk + g_loss
-                     + style_emt_adv + style_spk_adv)
+    loss_no_mo_up = (before + after + stop + reg + lin + style_emt
+                     + style_spk + orthog + style_up_emt + style_up_spk
+                     + g_loss + style_emt_adv + style_spk_adv)
     terms.update(loss_no_mo_up=loss_no_mo_up,
                  loss=loss_no_mo_up + mo_up_emt + mo_up_spk)
     return terms

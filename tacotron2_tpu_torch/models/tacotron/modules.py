@@ -429,3 +429,117 @@ class MultiheadStyleAttention(nn.Module):
         w = torch.softmax(add, dim=-1)                     # [B, H, Tq, Tv]
         ctx = w @ value[:, None]                           # [B, H, Tq, Dv]
         return ctx.transpose(1, 2).reshape(B, Tq, -1)
+
+
+# ------------------------------------------------------------------- CBHG
+
+
+class HighwayNet(nn.Module):
+    """H·T + x·(1 - T), H = relu(Dense H), T = sigmoid(Dense T) (JAX
+    `HighwayNet`, modules.py:308; T's bias starts at -1, `convert.py`)."""
+
+    def __init__(self, units: int):
+        super().__init__()
+        self.H = Dense(units, units)
+        self.T = Dense(units, units)
+
+    def forward(self, x):
+        t = torch.sigmoid(self.T(x))
+        return F.relu(self.H(x)) * t + x * (1.0 - t)
+
+
+class CBHG(nn.Module):
+    """The mel -> linear post-processing net (JAX `CBHG`, modules.py:322):
+    a bank of K convs (kernel 1..K, relu, BatchNorm) joined, a stride-1
+    max-pool of width `pool_size` (SAME, -inf padding), two projection
+    convs (relu, then linear) plus the input as a residual, a Dense to
+    the highway width where the widths differ, the highway layers and a
+    BiGRU over the whole sequence -> [B, T, 2·rnn_units]. Its convs run in
+    f32 (the JAX CBHG gives them no compute dtype). `layers` holds the K
+    bank convs then the two projections (flax ConvBlock_0..K+1)."""
+
+    def __init__(self, c_in: int, K: int, conv_channels: int, pool_size: int,
+                 projections: Sequence[int], projection_kernel_size: int,
+                 num_highway_layers: int, highway_units: int,
+                 rnn_units: int, bnorm: str = "after"):
+        super().__init__()
+        bank = [ConvBlock(c_in, conv_channels, k, "relu", bnorm)
+                for k in range(1, K + 1)]
+        self.layers = nn.ModuleList(bank + [
+            ConvBlock(K * conv_channels, projections[0],
+                      projection_kernel_size, "relu", bnorm),
+            ConvBlock(projections[0], projections[1],
+                      projection_kernel_size, None, bnorm)])
+        self.K, self.pool_size = K, pool_size
+        self.dense = (Dense(projections[1], highway_units)
+                      if projections[1] != highway_units else None)
+        self.highways = nn.ModuleList(HighwayNet(highway_units)
+                                      for _ in range(num_highway_layers))
+        self.bigru = BiGRU(highway_units, rnn_units)
+
+    def forward(self, x, train: bool = False):
+        x = x.float()
+        bank = torch.cat([self.layers[k](x, train) for k in range(self.K)],
+                         -1)
+        lo = (self.pool_size - 1) // 2
+        padded = F.pad(bank.transpose(1, 2),
+                       (lo, self.pool_size - 1 - lo), value=-float("inf"))
+        pooled = F.max_pool1d(padded, self.pool_size, 1).transpose(1, 2)
+        proj = self.layers[self.K + 1](self.layers[self.K](pooled, train),
+                                       train)
+        h = proj + x
+        if self.dense is not None:
+            h = self.dense(h)
+        for hw in self.highways:
+            h = hw(h)
+        return self.bigru(h)
+
+
+class ReferenceEncoderAdaIn(nn.Module):
+    """The AdaIN reference encoder (JAX `ReferenceEncoderAdaIn`,
+    modules.py:416-444): one conv stack (3×3, SAME, strides (2, 2) twice
+    then (1, 1), relu, no BatchNorm) over both references; the speaker
+    features renormalised with the emotion features' moments over time
+    and frequency, (xs - μs)·rsqrt(σ²s + 1e-9)·σ²e + μe (the variance, as
+    the reference scales it), mixed 90/10 with the speaker features; a
+    GRU over time and tanh(Dense(128)) on its last output -> [B, 128]."""
+
+    STRIDES = ((2, 2), (2, 2), (1, 1), (1, 1), (1, 1), (1, 1))
+
+    def __init__(self, num_mels: int, filters: Sequence[int], depth: int):
+        super().__init__()
+        chans = [1] + list(filters)
+        self.convs = nn.ParameterList(
+            _zeros(chans[i + 1], chans[i], 3, 3) for i in range(len(filters)))
+        self.conv_biases = nn.ParameterList(_zeros(c) for c in filters)
+        f = num_mels
+        for i in range(len(filters)):
+            f = -(-f // self.STRIDES[i][1])
+        self.gru = GRUCell(f * filters[-1], depth)
+        self.dense = Dense(depth, REF_EMB)
+        self.depth = depth
+
+    def _conv(self, x, i):
+        st, sf = self.STRIDES[i]
+        t_lo, t_hi = _same_pad(x.shape[2], 3, st)
+        f_lo, f_hi = _same_pad(x.shape[3], 3, sf)
+        return F.relu(F.conv2d(F.pad(x, (f_lo, f_hi, t_lo, t_hi)),
+                               self.convs[i], self.conv_biases[i],
+                               stride=(st, sf)))
+
+    def forward(self, ref_spk, ref_emt):
+        xs, xe = ref_spk.float()[:, None], ref_emt.float()[:, None]
+        for i in range(len(self.convs)):
+            xs, xe = self._conv(xs, i), self._conv(xe, i)
+        # [B, C, T, F]: moments over (T, F), biased variance
+        var = lambda x: x.var((2, 3), unbiased=False, keepdim=True)
+        mean = lambda x: x.mean((2, 3), keepdim=True)
+        norm = ((xs - mean(xs)) * torch.rsqrt(var(xs) + 1e-9) * var(xe)
+                + mean(xe))
+        xs = xs * 0.9 + norm * 0.1
+        B, C, T, Fq = xs.shape
+        seq = xs.permute(0, 2, 3, 1).reshape(B, T, Fq * C)
+        h = seq.new_zeros(B, self.depth)
+        for t in range(T):
+            h = self.gru(h, seq[:, t])
+        return torch.tanh(self.dense(h))

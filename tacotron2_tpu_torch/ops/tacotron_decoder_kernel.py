@@ -2,7 +2,8 @@
 
 Port of tacotron2_tpu/ops/tacotron_decoder_kernel.py: `extract_decoder_
 params` (:94) flattens the flax decoder subtree (`extract_emt_params` its
-emt_attn attention);
+emt_attn attention, `extract_prenet` a prenet of any shape for the plain
+decode; the kernels take two prenet layers of one width);
 `DecoderKernelState` / `init_decoder_state` (:239, :258) are the carried
 state; `decode_block` is `build_decoder_block_kernel` (:321), K steps from
 explicit state; `decode` is `build_decoder_kernel` (:842), the whole decode
@@ -63,7 +64,7 @@ from ..models.tacotron.decoder import (BLOCK, BLOCK_EMT, TEACHER_FORCED,
                                       DecoderParams, EmtOperands, EmtParams,
                                       autoregressive,
                                       emt_context_width, init_decoder_state,
-                                      ref_rows, round_bf16)
+                                      kernel_prenet, ref_rows, round_bf16)
 from ..models.tacotron.decoder import decode_block as decode_block_plain
 
 # kernel launches made by `decode` and `decode_block` (the counts a run
@@ -102,16 +103,13 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
     context | context_emt (E) | ref_spk (R)], whose emt rows
     `extract_emt_params` takes); the forget bias of 1.0 is folded into the
     f-gate bias. Matmul weights are cast to `weight_dtype` (default: the
-    config's decode dtype). Two prenet layers of equal width, or
-    ValueError.
+    config's decode dtype). Any prenet: the fields hold the kernels' two
+    layers of one width, and are None for any other prenet, which
+    `extract_prenet` gives the plain decode.
     """
     tc = cfg.tacotron
     wd = weight_dtype or decode_weight_dtype(cfg)
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
-    if tuple(tc.prenet_layers) != (P, P):
-        raise ValueError("the decode takes two prenet layers of equal width, "
-                         f"not tacotron.prenet_layers="
-                         f"{tuple(tc.prenet_layers)}")
     r, mels = tc.outputs_per_step, cfg.audio.num_mels
     cell = params["decoder"]["cell"]
     f32 = lambda a: np.asarray(a, np.float32)
@@ -132,10 +130,12 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
     proj_w = np.concatenate([f32(fp["kernel"]), f32(sp["kernel"])], axis=1)
     proj_b = np.concatenate([f32(fp["bias"]), f32(sp["bias"])])
     assert proj_w.shape == (U + M, r * mels + r), proj_w.shape
-    pre = cell["prenet"]
+    pre = dict.fromkeys(("pre_w0", "pre_b0", "pre_w1", "pre_b1"))
+    if kernel_prenet(cfg):
+        (pre["pre_w0"], pre["pre_b0"]), (pre["pre_w1"], pre["pre_b1"]) = \
+            extract_prenet(params, cfg, device=device, weight_dtype=wd)
     return DecoderParams(
-        pre_w0=t(pre["Dense_0"]["kernel"], wd), pre_b0=t(pre["Dense_0"]["bias"]),
-        pre_w1=t(pre["Dense_1"]["kernel"], wd), pre_b1=t(pre["Dense_1"]["bias"]),
+        **pre,
         l1_wp=t(l1k[:P], wd), l1_wc=t(l1k[P:P + M], wd),
         l1_wh=t(l1k[P + M + E + R:], wd),
         l1_b=t(l1b), l2_wx=t(l2k[:U], wd), l2_wh=t(l2k[U:], wd), l2_b=t(l2b),
@@ -146,6 +146,20 @@ def extract_decoder_params(params, cfg: Config, *, device="cuda",
         v_a=t(f32(att["attention_variable_projection"])[:, 0]),
         b_a=t(att["attention_bias"]),
         proj_wo=t(proj_w[:U], wd), proj_wc=t(proj_w[U:], wd), proj_b=t(proj_b))
+
+
+def extract_prenet(params, cfg: Config, *, device="cuda",
+                   weight_dtype=None) -> tuple:
+    """The prenet's layers as (kernel [in, out] in `weight_dtype`, default
+    the decode dtype; bias [out] f32) pairs, for a prenet of any shape
+    (the plain decode's `prenet`)."""
+    wd = weight_dtype or decode_weight_dtype(cfg)
+    pre = params["decoder"]["cell"]["prenet"]
+    t = lambda a, dtype=torch.float32: torch.from_numpy(
+        np.array(a, np.float32)).to(device=device, dtype=dtype)
+    return tuple((t(pre[f"Dense_{i}"]["kernel"], wd),
+                  t(pre[f"Dense_{i}"]["bias"]))
+                 for i in range(len(cfg.tacotron.prenet_layers)))
 
 
 def extract_emt_params(params, cfg: Config, *, device="cuda",
@@ -250,10 +264,12 @@ class RowsWeights(NamedTuple):
 def decode_plain(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
                  steps: int, early_stop_block: int = 0,
                  emit_alignments: bool = True,
-                 emt: EmtOperands | None = None):
-    """The kernel's plain PyTorch version (same contract as `decode`)."""
+                 emt: EmtOperands | None = None, prenet=None):
+    """The kernel's plain PyTorch version (same contract as `decode`), on
+    any device; `prenet` (`extract_prenet`) for a prenet other than the
+    kernels'."""
     return autoregressive(dp, cfg, keys, memory, mask, steps, drop,
-                          early_stop_block, emit_alignments, emt)
+                          early_stop_block, emit_alignments, emt, prenet)
 
 
 def decode(dp: DecoderParams, cfg: Config, keys, memory, mask, drop, *,
@@ -412,7 +428,13 @@ def pack_weights(dp: DecoderParams, cs: int = CLUSTER_SIZE, *,
     to a multiple of 8 columns, the folded location taps and attention
     bias, and the emt attention's query weight and output Dense; without
     emt_attn also csrc/decoder_rows.cu's stream (`pack_rows`), which the
-    autoregressive and the teacher-forced decode read."""
+    autoregressive and the teacher-forced decode read. The kernels' prenet
+    is two layers of one width (`kernel_prenet`); for any other
+    (`dp.pre_w0` None) ValueError."""
+    if dp.pre_w0 is None or dp.pre_w1.shape != (dp.pre_w0.shape[1],) * 2:
+        raise ValueError("the decode kernels take a prenet of two layers of "
+                         "one width (tacotron.prenet_layers (P, P)); any "
+                         "other decodes through the plain version")
     fo = dp.proj_b.shape[0]
     fop = -(-fo // 8) * 8
     proj_w = torch.cat([dp.proj_wo, dp.proj_wc], 0)

@@ -52,11 +52,12 @@ On a CUDA device the kernels run whatever `use_fused_train_decoder` says:
 that flag chooses between two TPU implementations of one function (the
 Pallas kernels or the flax scan), as `use_fused_decoder` does for the
 autoregressive decode, which the port ignores alike. What the JAX dispatch
-sends to the scan instead (`decoder.py:312-315`) these kernels refuse
-(`check_config`): `emt_attn` and unequal prenet widths, which the port
-does not train, and smoothing attention, which the model sends to the
-plain teacher-forced decode as JAX sends it to the scan
-(`models/tacotron/decoder.py:teacher_forced_route`).
+sends to the scan instead (`decoder.py:311-316`) these kernels refuse
+(`check_config`): `emt_attn`, a prenet other than two layers of one width
+and smoothing attention, which the model and the synthesizer send to the
+plain teacher-forced decode as JAX sends them to the scan
+(`models/tacotron/decoder.py:teacher_forced_route`), so only a caller
+that asks for the kernel by name meets the refusal.
 """
 
 from __future__ import annotations
@@ -69,7 +70,9 @@ import torch
 from ..config import Config
 from ..models.tacotron.attention import identity
 from ..models.tacotron.decoder import (TEACHER_FORCED, DecoderParams,
-                                      init_decoder_state, round_bf16,
+                                      EmtParams, emt_context_width,
+                                      init_decoder_state, kernel_prenet,
+                                      round_bf16,
                                       teacher_forced,
                                       teacher_forced_bwd_plain,
                                       teacher_forced_train)
@@ -95,13 +98,12 @@ def train_weight_dtype(cfg: Config) -> torch.dtype:
 def check_config(cfg: Config) -> None:
     """Raise on what the teacher-forced decode does not take."""
     tc = cfg.tacotron
-    P = tc.prenet_layers[-1]
     if cfg.gst.emt_attn:
         raise ValueError("the teacher-forced decode has no emt_attn scorers")
     if tc.smoothing:
         raise ValueError("the teacher-forced decode takes softmax attention "
                          "only, not smoothing")
-    if tuple(tc.prenet_layers) != (P, P):
+    if not kernel_prenet(cfg):
         raise ValueError("the teacher-forced decode takes two prenet layers "
                          f"of equal width, not {tuple(tc.prenet_layers)}")
 
@@ -481,22 +483,28 @@ def extract_params_traced(dec, cfg: Config) -> DecoderParams:
     """The decoder module's flax-layout parameters (models/tacotron/
     decoder.py:Decoder) -> DecoderParams in f32, differentiably, so that
     gradients reach the flax-named parameters (JAX `extract_decoder_
-    params_traced`, :844): the LSTM kernels split by input, the forget
-    bias folded, frame and stop projections joined."""
+    params_traced`, :844): the LSTM kernels split by input (under emt_attn
+    without the emt rows, which `extract_emt_params_traced` takes), the
+    forget bias folded, frame and stop projections joined. The prenet
+    fields are None for a prenet other than the kernels' (`prenet_traced`
+    gives its layers)."""
     tc = cfg.tacotron
     U, P = tc.decoder_lstm_units, tc.prenet_layers[-1]
     pre, att = dec.prenet, dec.attention
     l1k, l2k = dec.lstm1.kernel, dec.lstm2.kernel
-    M = l1k.shape[0] - P - U
+    M, ER = dec.memory_width, emt_context_width(cfg) + dec.ref_width
     fold = torch.zeros(4 * U, device=l1k.device)
     fold[2 * U:3 * U] = 1.0
     fp, sp = dec.frame_projection["Dense_0"], dec.stop_projection["Dense_0"]
     proj_w = torch.cat([fp.kernel, sp.kernel], 1)
     conv = att.location_features_convolution
+    two = kernel_prenet(cfg)
     return DecoderParams(
-        pre_w0=pre["Dense_0"].kernel, pre_b0=pre["Dense_0"].bias,
-        pre_w1=pre["Dense_1"].kernel, pre_b1=pre["Dense_1"].bias,
-        l1_wp=l1k[:P], l1_wc=l1k[P:P + M], l1_wh=l1k[P + M:],
+        pre_w0=pre["Dense_0"].kernel if two else None,
+        pre_b0=pre["Dense_0"].bias if two else None,
+        pre_w1=pre["Dense_1"].kernel if two else None,
+        pre_b1=pre["Dense_1"].bias if two else None,
+        l1_wp=l1k[:P], l1_wc=l1k[P:P + M], l1_wh=l1k[P + M + ER:],
         l1_b=dec.lstm1.bias + fold, l2_wx=l2k[:U], l2_wh=l2k[U:],
         l2_b=dec.lstm2.bias + fold, wq=att.query_layer.kernel,
         loc_k=conv.kernel[:, 0], loc_b=conv.bias,
@@ -506,14 +514,55 @@ def extract_params_traced(dec, cfg: Config) -> DecoderParams:
         proj_b=torch.cat([fp.bias, sp.bias]))
 
 
+def prenet_traced(dec) -> tuple:
+    """The decoder module's prenet as (kernel, bias) pairs, one a layer,
+    differentiably (the plain decode's `prenet`)."""
+    return tuple((d.kernel, d.bias) for d in dec.prenet.values())
+
+
+def extract_emt_params_traced(dec, cfg: Config) -> EmtParams | None:
+    """The emt_attn attention's weights of the decoder module, in f32 and
+    differentiably (the layout of `ops/tacotron_decoder_kernel.
+    extract_emt_params`): LSTM1's context_emt and ref_spk rows, and the
+    simple attention's W1, W2, V or the multi-head attention's q_proj,
+    k_proj, scorer and (multihead) attn_emt_out. None without emt_attn."""
+    gst = cfg.gst
+    if not gst.emt_attn:
+        return None
+    P = cfg.tacotron.prenet_layers[-1]
+    l1k, M = dec.lstm1.kernel, dec.memory_width
+    E, R = emt_context_width(cfg), dec.ref_width
+    ae = dec.attention_emt
+    ep = dict(l1_we=l1k[P + M:P + M + E],
+              l1_wr=l1k[P + M + E:P + M + E + R] if R else None)
+    if gst.emt_attn_type == "simple":
+        ep.update(emt_w1=ae.W1.kernel, emt_b1=ae.W1.bias,
+                  emt_w2=ae.W2.kernel, emt_b2=ae.W2.bias,
+                  emt_v=ae.V.kernel[:, 0])
+    else:
+        ep.update(mh_q_w=ae.q_proj.kernel, mh_q_b=ae.q_proj.bias,
+                  mh_k_w=ae.k_proj.kernel, mh_k_b=ae.k_proj.bias,
+                  mh_v=ae.attention_v, mh_g=ae.attention_g,
+                  mh_b=ae.attention_b)
+        if gst.emt_attn_type == "multihead":
+            ep.update(mh_out_w=dec.attn_emt_out.kernel,
+                      mh_out_b=dec.attn_emt_out.bias)
+    return EmtParams(**ep)
+
+
 MATMUL = ("pre_w0", "pre_w1", "l1_wp", "l1_wc", "l1_wh", "l2_wx", "l2_wh",
-           "wq", "proj_wo", "proj_wc")
+          "wq", "proj_wo", "proj_wc")
+# the emt_attn weights that the step loop multiplies (the decode weight
+# dtype in `extract_emt_params`)
+EMT_MATMUL = ("l1_we", "emt_w2", "mh_q_w", "mh_out_w")
 
 
 def cast_params(dp: DecoderParams, weight_dtype) -> DecoderParams:
     """Matmul weights in `weight_dtype`, the rest f32 (the layout of
-    `ops/tacotron_decoder_kernel.extract_decoder_params`)."""
+    `ops/tacotron_decoder_kernel.extract_decoder_params`); absent fields
+    stay None."""
     return DecoderParams(*[
+        None if v is None else
         v.detach().to(weight_dtype if k in MATMUL else torch.float32)
         for k, v in dp._asdict().items()])
 

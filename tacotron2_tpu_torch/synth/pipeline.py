@@ -33,7 +33,7 @@ import torch
 
 from .. import convert
 from ..config import Config
-from ..models.tacotron.decoder import drop_masks
+from ..models.tacotron.decoder import drop_masks, kernel_prenet
 from ..models.wavenet.distributions import draw_noise
 from ..models.wavenet.sampler import extract_sampler_params
 from ..ops import griffin_lim
@@ -72,6 +72,12 @@ class TextToWavProgram:
         if cfg.gst.emt_attn:
             raise ValueError("TextToWavProgram refuses emt_attn, as the JAX "
                              "program does: TacotronSynthesizer serves it")
+        if not kernel_prenet(cfg):
+            raise ValueError(
+                f"TextToWavProgram refuses tacotron.prenet_layers="
+                f"{tuple(tc.prenet_layers)}: its decode kernel takes two "
+                "layers of one width, as the JAX program's does; "
+                "TacotronSynthesizer serves any prenet")
         if t_in > 256:
             raise ValueError(f"t_in={t_in}: the program serves up to 256 "
                              "padded characters, as the JAX program's "

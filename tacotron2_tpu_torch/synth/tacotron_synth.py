@@ -33,19 +33,29 @@ length (on the TPU its block kernel with the emt scorers; here the CUDA
 kernel's emt mode), and else one chain of blocks without an early stop
 (route "fused"); `style_tokens`, which the JAX package decodes with its XLA
 scan and no kernel on every device, decodes through the plain version on
-every device (route "plain"), all steps, with the emotion labels
-(`synthesize(emt_labels=...)`, label 0 when none are given). GTA and
-`embed` refuse emt_attn (their teacher-forced decode kernel does not run
-the emt attention).
+the synthesizer's device (route "plain"), all steps, with the emotion
+labels (`synthesize(emt_labels=...)`, label 0 when none are given). A
+prenet other than two layers of one width, which the JAX synthesizer
+sends to its scan (its eligibility, :167,185, admits three equal layers,
+which its kernels then refuse), decodes through the plain version too
+(route "plain"), with the batch-wide early stop every early_stop_block
+steps as the JAX scan's blocks (:230-246), none under style_tokens
+(`plain_synthesis` is the one predicate).
 
 GTA synthesis and `embed` run `Tacotron.gta_pass`, whose teacher-forced
 decode takes every coin as 1 (`ops/tacotron_train_kernel.py`: the
 teacher-forced mode of the decode kernel on a CUDA device, its plain
 version on the CPU; route "teacher_forced"), with weights in
 `tacotron.fused_train_dtype`; it returns stop logits, as the JAX GTA route
-does. Under `tacotron.smoothing` that decode is the plain version on every
-device (route "teacher_forced_plain"), as the JAX package scans it
-(`models/tacotron/decoder.py:teacher_forced_route`).
+does. Under `tacotron.smoothing`, `gst.emt_attn` or a prenet other than
+(P, P) that decode is the plain version on the synthesizer's device (route
+"teacher_forced_plain"), as the JAX package scans it
+(`models/tacotron/decoder.py:teacher_forced_route`); under emt_attn it
+attends over the emotion reference's sequence, with `emt_labels` for
+style_tokens (label 0 without, as JAX), and GTA returns its alignments.
+AdaIN's style (the speaker embedding of its one reference encoder) runs
+in every mode; `embed` then gives no emotion embedding, and `style_embs`
+raises there, and under emt_attn, as JAX's `run_style_embs` fails.
 
 Every route reads its weight dtype from the config (`fused_decoder_dtype`
 for the free-running decode, `fused_train_dtype` for the teacher-forced
@@ -69,7 +79,8 @@ import torch
 from .. import convert
 from ..config import Config
 from ..data import audio as host_audio
-from ..models.tacotron.decoder import (drop_masks, emt_operands, stop_fired,
+from ..models.tacotron.decoder import (drop_masks, emt_operands,
+                                      kernel_prenet, stop_fired,
                                       teacher_forced, teacher_forced_route)
 from ..ops import griffin_lim
 from ..ops import tacotron_decoder_kernel as dk
@@ -81,6 +92,15 @@ from ..utils.plot import plot_alignment, plot_spectrogram
 
 def _round_up(x: int, m: int) -> int:
     return x if x % m == 0 else x + m - x % m
+
+
+def plain_synthesis(cfg: Config) -> bool:
+    """Whether the free-running decode takes the plain version on every
+    device, as the JAX synthesizer scans it: style_tokens, or a prenet
+    other than two layers of one width."""
+    gst = cfg.gst
+    return ((gst.emt_attn and gst.emt_attn_type == "style_tokens")
+            or not kernel_prenet(cfg))
 
 
 def gl_pad_value(a) -> float:
@@ -112,9 +132,11 @@ class TacotronSynthesizer:
                                                     emt_only=emt_only)
         self.emt_params = dk.extract_emt_params(params, cfg, device=device,
                                                 emt_only=emt_only)
-        # style_tokens decodes through the plain version: no kernel weights
-        self.plain_decode = (cfg.gst.emt_attn
-                             and cfg.gst.emt_attn_type == "style_tokens")
+        # a prenet other than the kernels' (None for theirs)
+        self.prenet = (None if kernel_prenet(cfg)
+                       else dk.extract_prenet(params, cfg, device=device))
+        # the plain decode takes no kernel weights
+        self.plain_decode = plain_synthesis(cfg)
         self.dec_kernel = (dk.pack_weights(self.dec_params,
                                            emt=self.emt_params)
                            if self.device.type == "cuda"
@@ -160,23 +182,35 @@ class TacotronSynthesizer:
         """(DecoderParams, KernelWeights or None) of the teacher-forced
         decode in `fused_train_dtype`: the autoregressive decode's own
         where the two dtypes agree, else extracted once (kernel weights on
-        the kernel route on a CUDA device only)."""
+        the kernel route on a CUDA device only); `teacher_forced_prenet`
+        gives a prenet other than (P, P) in that dtype."""
         if self._tf_weights is None:
-            if tk.train_weight_dtype(self.cfg) == dk.decode_weight_dtype(
-                    self.cfg):
+            wd = tk.train_weight_dtype(self.cfg)
+            if wd == dk.decode_weight_dtype(self.cfg):
                 self._tf_weights = (self.dec_params, self.dec_kernel)
             else:
                 dp = dk.extract_decoder_params(
                     self._params, self.cfg, device=self.device,
-                    weight_dtype=tk.train_weight_dtype(self.cfg))
+                    weight_dtype=wd)
                 kernel = (self.device.type == "cuda"
                           and teacher_forced_route(self.cfg) == "kernel")
                 self._tf_weights = (
                     dp, dk.pack_weights(dp) if kernel else None)
         return self._tf_weights
 
-    def _gta_decode(self, keys, memory, mask, teacher):
-        """The teacher-forced decode with every coin 1 (GTA's ratio)."""
+    def teacher_forced_prenet(self):
+        """The plain teacher-forced decode's `prenet` in
+        `fused_train_dtype` (None for the kernels' (P, P))."""
+        wd = tk.train_weight_dtype(self.cfg)
+        if self.prenet is None or wd == dk.decode_weight_dtype(self.cfg):
+            return self.prenet
+        return dk.extract_prenet(self._params, self.cfg, device=self.device,
+                                 weight_dtype=wd)
+
+    def _gta_decode(self, keys, memory, mask, teacher, emt=None):
+        """The teacher-forced decode with every coin 1 (GTA's ratio), with
+        the emt operands under emt_attn -> (frames, stop logits,
+        alignments, alignments_emt or None)."""
         B, steps = memory.shape[0], teacher.shape[0]
         drop = drop_masks(self.cfg, B, steps, self.generator, self.device)
         coins = torch.ones(steps, dtype=torch.int32, device=self.device)
@@ -188,13 +222,16 @@ class TacotronSynthesizer:
                 coins=coins, drop=drop)
         dp, kw = self.teacher_forced_weights()
         if not kernel:
-            return teacher_forced(dp, self.cfg, keys, memory, mask, teacher,
-                                  coins, drop)
-        return tk.teacher_forced_fwd(dp, self.cfg, keys, memory, mask,
-                                     teacher, coins, drop, kernel_weights=kw)
+            out = teacher_forced(dp, self.cfg, keys, memory, mask, teacher,
+                                 coins, drop, emt=emt,
+                                 prenet=self.teacher_forced_prenet())
+            return out if emt is not None else (*out, None)
+        return (*tk.teacher_forced_fwd(dp, self.cfg, keys, memory, mask,
+                                       teacher, coins, drop,
+                                       kernel_weights=kw), None)
 
     def _gta_pass(self, texts, refs_emt, refs_spk, targets,
-                  synth_embeddings=False):
+                  synth_embeddings=False, emt_labels=None):
         """Padded refs and targets (numpy) -> `Tacotron.gta_pass`'s dict and
         the input lengths."""
         inputs, input_lengths = self.prepare_inputs(texts)
@@ -203,7 +240,9 @@ class TacotronSynthesizer:
             t(inputs, torch.long), t(input_lengths, torch.long),
             t(targets, torch.float32), t(refs_emt, torch.float32),
             t(refs_spk, torch.float32), self._gta_decode,
-            synth_embeddings=synth_embeddings)
+            synth_embeddings=synth_embeddings,
+            emt_labels=(None if emt_labels is None
+                        else t(np.asarray(emt_labels), torch.long)))
         return out, input_lengths
 
     def _memory(self, inputs, input_lengths, refs_emt, refs_spk):
@@ -227,14 +266,22 @@ class TacotronSynthesizer:
         return frames, stops, aligns
 
     def _plain_synth(self, keys, memory, mask, steps: int, emt):
-        """style_tokens: every step through the plain decode, as the JAX
-        package's XLA scan decodes that variant (on every device)."""
+        """The plain decode, as the JAX package's XLA scan decodes
+        style_tokens (every step) and any prenet other than (P, P) (blocks
+        of early_stop_block steps with the batch-wide early stop), on the
+        synthesizer's device."""
         B = memory.shape[0]
+        tc, gst = self.cfg.tacotron, self.cfg.gst
+        k = tc.early_stop_block
+        if gst.emt_attn and gst.emt_attn_type == "style_tokens" \
+                or not 0 < k < steps:
+            k = 0
         drop = drop_masks(self.cfg, B, steps, self.generator, self.device)
         if self.keep_intermediates:
             self.intermediates.update(route="plain", drop=drop)
         return dk.decode_plain(self.dec_params, self.cfg, keys, memory, mask,
-                               drop, steps=steps, emt=emt)
+                               drop, steps=steps, early_stop_block=k,
+                               emt=emt, prenet=self.prenet)
 
     def _fused_block_synth(self, keys, memory, mask, steps: int, k: int,
                            emt=None):
@@ -278,9 +325,11 @@ class TacotronSynthesizer:
         probabilities, lengths from the stops. GTA (`gta=True`, the
         targets [T_i, mels] given): teacher-forced on the targets padded
         with -max_abs_value to a multiple of max(r, 64) frames, stop
-        logits, the targets' lengths. `emt_labels` (one emotion id a text)
-        drive the style_tokens emt_attn variant's attention query; it takes
-        label 0 without them (JAX :319-321)."""
+        logits, the targets' lengths, and under emt_attn
+        `alignments_emt`, the emt attention's alignments of each row [Te or
+        1, steps]. `emt_labels` (one emotion id a text) drive the
+        style_tokens emt_attn variant's attention query; it takes label 0
+        without them (JAX :319-321)."""
         tc, gst = self.cfg.tacotron, self.cfg.gst
         refs_emt = self._pad_refs(ref_mels_emt)
         refs_spk = self._pad_refs(ref_mels_spk)
@@ -290,10 +339,15 @@ class TacotronSynthesizer:
             targets = self._pad_refs(mel_targets,
                                      max(tc.outputs_per_step, 64))
             out, input_lengths = self._gta_pass(texts, refs_emt, refs_spk,
-                                                targets)
-            return self._trim(out["mel_outputs"], out["alignments"],
-                              out["stop_token_prediction"].cpu().numpy(),
-                              [len(m) for m in mel_targets], input_lengths)
+                                                targets,
+                                                emt_labels=emt_labels)
+            got = self._trim(out["mel_outputs"], out["alignments"],
+                             out["stop_token_prediction"].cpu().numpy(),
+                             [len(m) for m in mel_targets], input_lengths)
+            if out["alignments_emt"] is not None:
+                got["alignments_emt"] = list(
+                    out["alignments_emt"].cpu().numpy())
+            return got
         inputs, input_lengths = self.prepare_inputs(texts)
         steps = max_steps or tc.max_iters
         k = tc.early_stop_block
@@ -346,11 +400,16 @@ class TacotronSynthesizer:
         """The embed-only pass: teacher-forced on the reference mels
         themselves (padded to a multiple of 64 frames), which are also both
         style references; returns the reference encoders' embeddings of the
-        references and of the output mel, [B, 128] each."""
+        references and of the output mel, [B, 128] each (under emt_attn the
+        emotion reference's mean [B, V] and the output mel's sequence [B,
+        T', V], as JAX's); None where the model has no such encoder
+        (emt_only's speaker, AdaIN's emotion and both output ones). Under
+        style_tokens the decode queries with label 0, as JAX's `embed`."""
         refs = self._pad_refs(mel_refs)
         out, _ = self._gta_pass(texts, refs, refs, refs,
                                 synth_embeddings=True)
-        return {k: out[v].cpu().numpy() for k, v in (
+        return {k: None if out.get(v) is None else out[v].cpu().numpy()
+                for k, v in (
             ("emb_emt", "refnet_out_emt"), ("emb_spk", "refnet_out_spk"),
             ("emb_mo_emt", "refnet_out_mel_emt"),
             ("emb_mo_spk", "refnet_out_mel_spk"))}
@@ -710,7 +769,18 @@ def run_style_embs(synth: TacotronSynthesizer, train_txt: str, input_dir: str,
     each, chosen by a numpy RNG seeded with `seed`, through `embed` ->
     <output_dir>/embeddings/{emb_emt.tsv, emb_spk.tsv} (the references'
     embeddings, then the output mels') and meta.tsv labelling the rows
-    real / synth. Returns the directory."""
+    real / synth. Returns the directory. Under AdaIN (no emotion
+    embedding) and emt_attn (the output mel's emotion embedding is a
+    sequence) it raises ValueError, where the JAX `run_style_embs` fails
+    writing the table."""
+    gst = synth.cfg.gst
+    if gst.adain or gst.emt_attn:
+        raise ValueError(
+            "style_embs under " + ("gst.adain: the model has no emotion "
+                                   "embedding" if gst.adain else
+                                   "gst.emt_attn: the output mel's emotion "
+                                   "embedding is a sequence")
+            + "; the JAX run_style_embs fails writing emb_emt.tsv there too")
     rng = np.random.default_rng(seed)
     emb_dir = os.path.join(output_dir, "embeddings")
     os.makedirs(emb_dir, exist_ok=True)
@@ -733,9 +803,12 @@ def run_style_embs(synth: TacotronSynthesizer, train_txt: str, input_dir: str,
                           [np.load(os.path.join(input_dir, m[0], "mels",
                                                 m[2])) for m in batch])
         for k, v in out.items():
-            embs[k].append(v)
+            if v is not None:
+                embs[k].append(v)
     for name, real, syn in (("emb_emt.tsv", "emb_emt", "emb_mo_emt"),
                             ("emb_spk.tsv", "emb_spk", "emb_mo_spk")):
+        if not embs[real]:
+            continue
         np.savetxt(os.path.join(emb_dir, name),
                    np.vstack(embs[real] + embs[syn]), delimiter="\t",
                    fmt="%.6f")

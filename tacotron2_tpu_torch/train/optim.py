@@ -177,6 +177,9 @@ class Adam:
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor]) -> None:
         on = [i for i, m in enumerate(self.mask) if m]
+        if not on:          # every tensor masked off: only the count moves
+            self.count += 1
+            return
         p = [params[i] for i in on]
         mu = [self.mu[i] for i in on]
         nu = [self.nu[i] for i in on]

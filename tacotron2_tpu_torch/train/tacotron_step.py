@@ -35,13 +35,17 @@ the `torch.Generator` each step is given. `eval_step` is the natural eval
 frame) in eval mode through the eval forward's kernel, of the paired pass
 alone: its terms are those of the JAX eval with `use_unpaired=False`
 (JAX's own unpaired eval fails on test batches, which carry no crossed
-references). Under `tacotron.smoothing` the decode trains by autograd
-through its plain version, as the JAX trainer scans it
-(`models/tacotron/decoder.py:teacher_forced_route`).
-
-What the port refuses raises ValueError with the option's name:
-`emt_attn`, AdaIN, `se_concat=False`, `predict_linear`, unequal prenet
-widths.
+references). Under `tacotron.smoothing`, `gst.emt_attn` or a prenet other
+than two layers of one width the decode trains by autograd through its
+plain version, on the device of the batch, as the JAX trainer scans it
+(`models/tacotron/decoder.py:teacher_forced_route`); AdaIN,
+`se_concat=False` and `predict_linear` (whose batches carry
+`linear_targets`, built by the caller as for the JAX trainer) train
+through the kernels as the default model does. The refnet optimizer
+takes the parameters JAX's name predicate gives it (`refnet`,
+`style_disc`): AdaIN's `reference_encoder` trains under the main one.
+Under emt_attn the batch's emotion labels drive style_tokens' query, as
+in the JAX step.
 """
 
 from __future__ import annotations
@@ -70,26 +74,16 @@ MODEL_FLAGS = ("emt_only", "adv_emb_disc", "nat_gan", "pretrained_emb_disc",
                "pretrained_emb_disc_all", "use_unpaired")
 BATCH_KEYS = ("inputs", "input_lengths", "mel_targets", "stop_token_targets",
               "targets_lengths", "emt_labels", "spk_labels", "ref_mel_emt",
-              "ref_mel_spk")
+              "ref_mel_spk", "linear_targets")
 UP_KEYS = ("ref_mel_up_emt", "ref_mel_up_spk", "emt_up_labels",
            "spk_up_labels")
 
 
 def check_trainable(cfg: Config, **flags) -> None:
-    """Raise TypeError on an unknown trainer flag, ValueError on a config
-    the port does not train."""
+    """Raise TypeError on a flag the JAX trainer does not have."""
     for name in flags:
         if name not in TRAINER_FLAGS:
             raise TypeError(f"unknown trainer option {name!r}")
-    gst, tc = cfg.gst, cfg.tacotron
-    for name, bad in (("gst.emt_attn", gst.emt_attn), ("gst.adain", gst.adain),
-                      ("gst.se_concat=False", not gst.se_concat),
-                      ("tacotron.predict_linear", tc.predict_linear),
-                      (f"tacotron.prenet_layers={tuple(tc.prenet_layers)} "
-                       "(two of equal width)", len(tc.prenet_layers) != 2
-                       or len(set(tc.prenet_layers)) != 1)):
-        if bad:
-            raise ValueError(f"{name} training is not in the port")
 
 
 @dataclass
@@ -197,7 +191,8 @@ class TacotronTrainer:
                 b.get("ref_mel_up_spk"))
         kwargs = dict(teacher_forcing_ratio=tfr, generator=generator,
                       train=train, decode=decode, timer=self.timer,
-                      use_unpaired=use_unpaired)
+                      use_unpaired=use_unpaired,
+                      emt_labels=b.get("emt_labels"))
         if self.cfg.tacotron.compute_dtype != "bfloat16":
             return model(*args, **kwargs)
         params = {n: round_bf16(p) for n, p in model.named_parameters()}
@@ -243,9 +238,11 @@ class TacotronTrainer:
             for i, t in enumerate(targets):
                 on = [j for j, m in enumerate(masks.get(t, []))
                       if m] if t != "loss" else list(range(len(params)))
+                # an optimizer may mask every tensor off (the refnet one
+                # under AdaIN, whose reference_encoder the main one trains)
                 got = torch.autograd.grad(
                     terms[t], [params[j] for j in on], allow_unused=True,
-                    retain_graph=i < len(targets) - 1)
+                    retain_graph=i < len(targets) - 1) if on else ()
                 g = [None] * len(params)
                 for j, x in zip(on, got):
                     g[j] = torch.zeros_like(params[j]) if x is None else x

@@ -57,7 +57,7 @@ LOSS_WINDOWS = ("loss", "before_loss", "after_loss", "stop_token_loss",
                 "style_emb_loss_up_emt", "style_emb_loss_up_spk",
                 "style_emb_loss_mel_out_up_emt",
                 "style_emb_loss_mel_out_up_spk", "d_loss", "g_loss_p",
-                "g_loss_up")
+                "g_loss_up", "linear_loss")
 # the variants' windows in the log line, when a flag makes them move
 VARIANT_LOG = {"adv_emb_disc": ("style_emb_loss_emt_adv",),
                "use_unpaired": ("style_emb_loss_up_emt",
@@ -168,7 +168,9 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                     f"stop={windows['stop_token_loss'].average:.5f}"
                     + "".join(f", {k}={windows[k].average:.5f}"
                               for flag, keys in VARIANT_LOG.items()
-                              if trainer.flags[flag] for k in keys) + "]")
+                              if trainer.flags[flag] for k in keys)
+                    + (f", linear={windows['linear_loss'].average:.5f}"
+                       if cfg.tacotron.predict_linear else "") + "]")
             if math.isnan(loss) or loss > 100.0:
                 log(f"Loss exploded to {loss:.5f} at step {step}",
                     slack=True)

@@ -787,6 +787,96 @@ def test_teacher_forced_rows_kernel_matches_plain(dev, B, wd, mw):
                for k in tk.RES_NAMES)
 
 
+# AdaIN's memory: the encoder's 512 states and its 128-wide speaker
+# embedding
+ADAIN_M = 640
+
+
+@pytest.mark.parametrize("wd", ["bfloat16", "float32"])
+def test_kernels_at_adain_memory_width(dev, wd):
+    """The rows kernel (kernel 1's chain of launches), kernel 4a (train
+    mode) and kernel 4b at AdaIN's 640-wide memory, against their plain
+    versions, as the tests above hold them at M 48."""
+    B, T, steps, K = 9, 24, 8, 4
+    cfg, dp, keys, memory, mask, drop = _decoder_case(dev, B, T, steps,
+                                                      wd=wd, mw=ADAIN_M)
+    kw = dk.pack_weights(dp)
+    assert kw.rows.cs == 16
+    before = dk.rows_launches
+    got = dk.decode(dp, cfg, keys, memory, mask, drop, steps=steps,
+                    early_stop_block=K, kernel_weights=kw)
+    assert dk.rows_launches == before + steps // K
+    want = dk.decode_plain(dp, cfg, keys, memory, mask, drop, steps=steps,
+                           early_stop_block=K)
+    torch.cuda.synchronize()
+    _close_decode(got, want)
+    got, want, b_k, b_p, n, b_c, _ = _train_case(
+        dev, B, T, 12, [1, 0, 0, 1, 1, 0] * 2, wd=wd, mw=ADAIN_M)
+    assert n == (1, 1)
+    fields = lambda o: dict(zip(("frames", "stops", "align"), o[:3]),
+                            **{k: o[3][k] for k in tk.RES_NAMES})
+    _train_fwd_close(fields(got), fields(want), wd)
+    _bwd_close(b_k, b_p, b_c)
+
+
+@pytest.mark.parametrize("variant", ["prenet_16_8", "emt_simple"])
+def test_plain_route_runs_on_cuda_tensors(dev, variant):
+    """A prenet other than (P, P) and emt_attn take the plain decode on the
+    card: synthesis (the prenet), GTA and a train step run on CUDA tensors
+    and launch no decode kernel (the rows kernel, decoder.cu, 4a, 4b)."""
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.synth.tacotron_synth import TacotronSynthesizer
+    from tacotron2_tpu_torch.train.tacotron_step import TacotronTrainer
+    cfg = torch_cfg()
+    cfg = cfg.replace(
+        tacotron=dataclasses.replace(
+            cfg.tacotron, embedding_dim=32, enc_conv_num_layers=2,
+            enc_conv_channels=32, encoder_lstm_units=16,
+            postnet_num_layers=2, postnet_channels=32,
+            fused_train_dtype="float32",
+            prenet_layers=(16, 8) if variant == "prenet_16_8" else (P, P)),
+        gst=dataclasses.replace(
+            cfg.gst, num_gst=4, num_heads=2, style_embed_depth=8,
+            style_att_dim=8, reference_filters=(4, 4), reference_depth=8,
+            n_emt=4, n_spk=3, emt_attn=variant == "emt_simple"))
+    model = convert.init_tacotron(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    params, stats = convert.tacotron_to_flax(model)
+    synth = TacotronSynthesizer(cfg, params, stats, device="cuda",
+                                keep_intermediates=True)
+    rng = np.random.default_rng(0)
+    mels = [rng.uniform(-4, 4, (f, MELS)).astype(np.float32)
+            for f in (24, 30)]
+    counts = lambda: (dk.rows_launches, dk.launches, tk.launches,
+                      tk.train_launches, tk.bwd_launches)
+    before = counts()
+    if variant == "prenet_16_8":
+        out = synth.synthesize(["a b c.", "d e."], mels, mels, max_steps=6)
+        assert synth.intermediates["route"] == "plain"
+        assert synth.intermediates["memory"].is_cuda
+        assert all(np.isfinite(m).all() for m in out["mels"])
+    out = synth.synthesize(["a b c.", "d e."], mels, mels, mel_targets=mels,
+                           gta=True)
+    assert synth.intermediates["route"] == "teacher_forced_plain"
+    assert synth.intermediates["memory"].is_cuda
+    assert all(np.isfinite(m).all() for m in out["mels"])
+    trainer = TacotronTrainer(cfg)
+    state = trainer.init_state(model=model)
+    batch = dict(
+        inputs=rng.integers(2, 60, (2, 10)), input_lengths=np.array([10, 7]),
+        mel_targets=np.stack([m[:24] for m in mels]),
+        stop_token_targets=np.zeros((2, 24), np.float32),
+        targets_lengths=np.array([24, 20]), emt_labels=np.array([0, 1]),
+        spk_labels=np.array([1, 2]), ref_mel_emt=np.stack([m[:24] for m in
+                                                           mels]),
+        ref_mel_spk=np.stack([m[:24] for m in mels]))
+    state, m = trainer.train_step(state, batch,
+                                  torch.Generator(device=dev).manual_seed(0))
+    assert next(state.model.parameters()).is_cuda
+    assert np.isfinite(float(m["loss"]))
+    assert counts() == before
+
+
 @pytest.mark.parametrize("wd", ["bfloat16", "float32"])
 @pytest.mark.parametrize("cs", [8, 16])
 def test_train_bwd_reruns_bit_for_bit(dev, wd, cs):

@@ -522,13 +522,17 @@ def test_f32_synthesizer_and_program_match_jax():
 
 
 def test_unequal_prenet_widths_raise_value_error():
-    tparams, stats, _ = flax_weights()
+    """The decode kernels' weights and the program refuse a prenet other
+    than two layers of one width (the synthesizer decodes it through the
+    plain version: tests/test_torch_variant_routes.py)."""
+    from tacotron2_tpu_torch import convert
     cfg_t = _tc(torch_cfg(), prenet_layers=(32, 16))
+    tparams, stats = convert.tacotron_to_flax(convert.init_tacotron(
+        cfg_t, torch.Generator().manual_seed(0), "cpu"))
+    dp = dk.extract_decoder_params(tparams, cfg_t, device="cpu")
     with pytest.raises(ValueError, match="prenet"):
-        dk.extract_decoder_params(tparams, cfg_t, device="cpu")
-    with pytest.raises(ValueError):
-        tts.TacotronSynthesizer(cfg_t, tparams, stats, device="cpu")
-    with pytest.raises(ValueError):
+        dk.pack_weights(dp)
+    with pytest.raises(ValueError, match="prenet"):
         TextToWavProgram(cfg_t, tparams, stats, None, batch=B, steps=STEPS,
                          t_in=T_IN, device="cpu", vocoder="griffin_lim")
 

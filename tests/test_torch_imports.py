@@ -28,10 +28,14 @@ def test_port_files_exist():
     csrc = os.path.join(ROOT, "tacotron2_tpu_torch", "csrc")
     for src in ("decoder_bwd.cu", "wavenet_train.cu"):
         assert os.path.exists(os.path.join(csrc, src)), src
-    # the decode kernels' envelope (bf16 rounding, smoothing, f32 weights)
-    # and the WaveNet stack kernels' (f32, f32 activations, every width)
+    # the decode kernels' envelope (bf16 rounding, smoothing, f32 weights),
+    # the WaveNet stack kernels' (f32, f32 activations, every width) and
+    # the Tacotron variants' parity and routes (HighwayNet, CBHG and
+    # ReferenceEncoderAdaIn in models/tacotron/modules.py)
     for name in ("test_torch_decode_envelope.py",
-                 "test_torch_wavenet_stack_envelope.py"):
+                 "test_torch_wavenet_stack_envelope.py",
+                 "test_torch_model_variants.py",
+                 "test_torch_variant_routes.py"):
         assert os.path.exists(os.path.join(ROOT, "tests", name))
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
@@ -48,7 +52,8 @@ def test_port_files_exist():
                 "train/wavenet_train.py", "disc/model.py", "disc/train.py",
                 "disc/data_preprocess.py", "disc/tf_import.py",
                 "utils/summary.py", "utils/infolog.py", "utils/plot.py",
-                "eval/analyze.py"):
+                "eval/analyze.py", "models/tacotron/modules.py",
+                "models/tacotron/decoder.py", "synth/pipeline.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 

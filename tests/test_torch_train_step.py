@@ -303,10 +303,12 @@ def test_init_and_round_trip_match_the_flax_tree(jax_state):
                                   "se_concat", "prenet_layers",
                                   "unknown_option"])
 def test_unported_training_options_raise(flag):
-    """What the trainer still refuses raises with the option's name: the
-    emt_attn, AdaIN, linear-output and se_concat=False configs, an unequal
-    prenet (ValueError), a flag the JAX trainer does not have
-    (TypeError)."""
+    """The configs the trainer once refused now train: the emt_attn,
+    AdaIN, linear-output (its batch carrying linear_targets) and
+    se_concat=False configs and an unequal prenet each build a trainer and
+    take one CPU step with finite terms; a flag the JAX trainer does not
+    have still raises TypeError with its name (their parity with JAX:
+    tests/test_torch_model_variants.py)."""
     _, tcfg = cfgs()
     sec, over = {"emt_attn": ("gst", dict(emt_attn=True)),
                  "adain": ("gst", dict(adain=True)),
@@ -320,8 +322,17 @@ def test_unported_training_options_raise(flag):
         with pytest.raises(TypeError, match=flag):
             TacotronTrainer(cfg, device="cpu", **{flag: True})
         return
-    with pytest.raises(ValueError, match=flag):
-        TacotronTrainer(cfg, device="cpu")
+    trainer = TacotronTrainer(cfg, device="cpu")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    b = batch4()
+    if flag == "predict_linear":
+        b["linear_targets"] = np.random.default_rng(1).uniform(
+            -4, 4, (4, 12, cfg.audio.num_freq)).astype(np.float32)
+    state, m = trainer.train_step(state, b, torch.Generator().manual_seed(0))
+    assert state.step == 1
+    assert all(np.isfinite(float(v)) for v in m.values()), m
+    if flag == "predict_linear":
+        assert float(m["linear_loss"]) > 0
 
 
 # ------------------------------------------------- feeder, checkpoints, CLI
