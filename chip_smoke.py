@@ -239,8 +239,24 @@ Phases, each printing its wall seconds:
     (256, 256, 256) synthesize the 8 texts and train 2 steps on the plain
     route (no decode-kernel launch), the frames held in f32 against the
     CPU's; each route printed;
+29. (v) the WaveNet variants at the r5 widths (bf16 stack) on seeded
+    `init_wavenet` weights grafted with the r5 EMA checkpoint's where path
+    and shape agree: the 1D, 2D, Resize and NearestNeighbor upsamples
+    (each upsample on the card against the CPU's in f32; 2 train steps at
+    phase 19's shapes through kernels 5a and 5b, the wrappers' and the C
+    side's counts against torch.profiler's; 512 samples of 8 rows through
+    the bf16 sampler kernel held by phase 5's replay gate), the Resize
+    vocoder serving the 8 held-out texts through `TextToWavProgram`;
+    global conditioning (16 channels, 4 speakers: 2 steps on the layer
+    loop with no stack launch, the speaker-embedding export, sampling
+    through the kernel without the speaker, as the JAX synthesizer does);
+    kernel_size 2 (2 layer-loop steps, the plain sampler on the card
+    against the CPU's replay); cin_channels -1 (2 steps; the synthesizer
+    raises); then `cli create-metadata`, `preprocess` and
+    `wavenet-preprocess` of 16 r5 wavs and `cli train --model WaveNet`
+    (1D upsample) for 3 steps on the map.txt; each route printed;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
-mode and Griffin-Lim route.
+mode, Griffin-Lim route and WaveNet variant sampled.
 
 The last line is {"ok": true, "device": {...}}; any failure raises and
 exits non-zero before it. Without a CUDA device it exits with code 2 and
@@ -696,7 +712,9 @@ def suppress_mol_noise(tree):
 
 def to_cpu(x):
     """A tensor, or a (named) tuple of them such as SamplerParams, on
-    the CPU."""
+    the CPU (None stays None: a layer without gin weights)."""
+    if x is None:
+        return None
     if hasattr(x, "_fields"):
         return type(x)(*map(to_cpu, x))
     return tuple(map(to_cpu, x)) if isinstance(x, tuple) else x.cpu()
@@ -4497,6 +4515,388 @@ def disc_phase(seed, smi):
     done(27, t0)
 
 
+# phase 29: the WaveNet variants at the r5 widths (20 layers, R 128, G 256,
+# S 128, bf16 stack compute, hop 200 = (8, 25)) on seeded init_wavenet
+# weights grafted with the r5 EMA checkpoint's where path and shape agree.
+# The upsample on the card against the CPU's in f32 (TF32 off on both: the
+# same function in another sum order) within WN_VAR_UP_RTOL of max(1, the
+# CPU output's largest magnitude); 2 train steps at phase 19's shapes;
+# the sampler over the first SAMPLER_WINDOW samples of WN_VAR_FRAMES
+# frames of the 8 held-out mels, held by phase 5's replay gate
+# (`hold_variant_samplers`); from the grafted weights the first Adam step
+# lifts the loss to the hundreds (ROADMAP.md queue 3), so the steps hold
+# finiteness only; kernel_size 2's plain
+# sampler on the card against the same plain sampler on the CPU replaying
+# the card's trajectory (f32, sum order only) within WN_VAR_KS_ATOL.
+WN_VARIANTS = ("1D", "2D", "Resize", "NearestNeighbor")
+WN_VAR_SERVE = "Resize"
+WN_VAR_STEPS = 2
+WN_VAR_FRAMES = 3
+WN_VAR_UP_RTOL = 1e-4
+WN_VAR_KS_ATOL = 1e-4
+WN_VAR_GIN, WN_VAR_SPEAKERS = 16, 4
+WN_VAR_PRE_ROWS = 16
+
+
+def with_wavenet(cfg, **wn):
+    return cfg.replace(wavenet=dataclasses.replace(cfg.wavenet, **wn))
+
+
+def wavenet_variant_tree(cfg, wparams, seed, global_conditioning=False):
+    """`init_wavenet` weights for `cfg` (seeded) as a flax tree, with the r5
+    EMA checkpoint's leaves where path and shape agree. Returns (tree,
+    grafted, fresh)."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import convert
+    tree = convert.wavenet_to_flax(convert.init_wavenet(
+        cfg, torch.Generator().manual_seed(seed), "cpu",
+        global_conditioning=global_conditioning))
+    r5 = _leaves(wparams)
+    grafted = 0
+    mine = _leaves(tree)
+    for path, leaf in mine.items():
+        if path in r5 and np.shape(r5[path]) == leaf.shape:
+            convert.tree_set(tree, path, np.asarray(r5[path], np.float32))
+            grafted += 1
+    return tree, grafted, len(mine) - grafted
+
+
+def stack_steps(trainer, state, batches, gen):
+    """Train steps, the last under torch.profiler (device activity only):
+    (state, losses, host ms a step of the unprofiled ones, the wrappers'
+    launches (5a, 5b) over all of them, and over the last the C side's
+    kernel launches and the trace's stack kernels by name, each (forward,
+    backward)). PyTorch's own kernels (at::native's reduce_kernel among
+    them) are told apart by their namespace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    losses = []
+    torch.cuda.synchronize()
+    ts = time.time()
+    for b in batches[:-1]:
+        state, m = trainer.train_step(state, b, gen)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.time() - ts) / max(1, len(batches) - 1)
+    n0 = (wtk.fwd_kernel_launches, wtk.bwd_kernel_launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, m = trainer.train_step(state, batches[-1], gen)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    ours = lambda n, kinds: any(k in n for k in kinds) and not any(
+        lib in n for lib in ("at::", "cudnn", "cutlass", "cublas"))
+    evs = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = tuple(sum(ours(n, kinds) for n in evs)
+                 for kinds in (STACK_KINDS[:2], STACK_KINDS[2:]))
+    counted = (wtk.fwd_kernel_launches - n0[0],
+               wtk.bwd_kernel_launches - n0[1])
+    return (state, losses, ms, (wtk.fwd_launches, wtk.bwd_launches),
+            counted, seen)
+
+
+def hold_variant_samplers(runs, W):
+    """Phase 29's sampler runs [(name, config, WaveNetSynthesizer, wavs,
+    launches)], whose kernel weights are one set (the variants differ in
+    the upsample and the gin weights, which the kernel drops; checked),
+    each repeated by the kernel over its first W samples, timed, and held
+    by phase 5's gate (`check_head`'s for the Gaussian head) against the
+    plain version replaying the kernel's trajectory: the replays, bf16 and
+    f32, run once over all the runs' rows (a Python loop of launches a
+    step, so its time hardly depends on the rows). Returns the `kernels`
+    entries; each plain_ms is that bf16 replay's."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    _, cfg, ws0, _, _ = runs[0]
+    dts = dict(cache_dtype=ws0.cache_dtype, weight_dtype=ws0.weight_dtype)
+    sp, kw0 = ws0.sampler_params, ws0.sampler_kernel
+    c_all, n_all, y_all, times = [], [], [], []
+    for name, cfg_v, ws, wavs, _ in runs:
+        assert torch.equal(ws.sampler_kernel.slices, kw0.slices), name
+        c_w = ws.intermediates["c_up"][:, :W].contiguous()
+        n_w = ws.intermediates["noise"][:, :, :W].contiguous()
+        run = lambda: wk.sample(ws.sampler_params, cfg_v, c_w, n_w,
+                                kernel_weights=ws.sampler_kernel, **dts)
+        y_k = run()
+        assert np.array_equal(y_k.cpu().numpy(), np.stack(
+            [w_[:W] for w_ in wavs])), f"{name}: not the synthesizer's"
+        times.append(cuda_ms(run, 3))
+        c_all.append(c_w)
+        n_all.append(n_w)
+        y_all.append(y_k)
+    B = y_all[0].shape[0]
+    c_all, n_all = torch.cat(c_all, 0), torch.cat(n_all, 1)
+    y_all = torch.cat(y_all, 0)
+    torch.cuda.synchronize()
+    ts = time.time()
+    y_r, _ = wk.teacher_forced_replay(sp, cfg, c_all, n_all, y_all, **dts)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - ts)
+    y_r32, _ = wk.teacher_forced_replay(sp, cfg, c_all, n_all, y_all)
+    bound_s, bound_by = sampler_bound_s(sp, cfg, B, W, True)
+    print(f"the plain version replaying {len(runs)} runs' trajectories "
+          f"at once ({len(runs) * B} rows x {W} samples): bf16 "
+          f"{plain_ms:.3f} ms; each run's bound {1e3 * bound_s:.4f} ms "
+          f"({bound_by})")
+    entries = []
+    for i, (name, _, _, _, n_launch) in enumerate(runs):
+        rows = slice(i * B, (i + 1) * B)
+        err = float((y_all[rows] - y_r[rows]).abs().max())
+        err32 = float((y_all[rows] - y_r32[rows]).abs().max())
+        print(f"wavenet_sampler_{name}_bf16: {B}x{W} samples, kernel "
+              f"{times[i]:.3f} ms ({chain_us(times[i], W, cfg)}); max "
+              f"|kernel - replay| {err:.3e} (the f32 replay's {err32:.3e})")
+        assert err <= SAMPLER_REPLAY_ATOL["bfloat16"], (name, err)
+        assert err <= 0.5 * err32, (name, err, err32)
+        entries.append({
+            "name": f"wavenet_sampler_{name}_bf16", "route": "cuda",
+            "source": "tacotron2_tpu_torch/csrc/sampler.cu",
+            "replaces": "tacotron2_tpu/ops/wavenet_kernel.py:180",
+            "launches": n_launch, "max_abs_err": err, "ms": times[i],
+            "plain_ms": plain_ms, "bound_ms": 1e3 * bound_s,
+            "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
+def wavenet_variants_phase(serve_in, gt, tparams, stats, wparams, seed):
+    """Phase 29: the WaveNet variants on JAX's routes. Returns the
+    `kernels` entries of the sampler kernel for each variant it
+    samples."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch import cli, convert
+    from tacotron2_tpu_torch.data.audio import save_wav
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
+    from tacotron2_tpu_torch.synth.wavenet_synth import WaveNetSynthesizer
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    from tacotron2_tpu_torch.train.wavenet_train import \
+        _export_speaker_embeddings
+    cfg = r5_config()
+    B, F, W = len(WN_ROWS), WN_CROP_FRAMES, SAMPLER_WINDOW
+    t0 = phase(29, f"(v) the WaveNet variants: upsample {WN_VARIANTS}, "
+               f"gin_channels {WN_VAR_GIN}, kernel_size 2, cin_channels -1;"
+               f" B={B} crops of {F * 200} samples; preprocessing")
+    dev = torch.device("cuda")
+    pairs = r5_wavenet_rows(os.path.join(R5, "corpus"), WN_ROWS)
+    rng = np.random.default_rng(seed + 29)
+    batches = [wavenet_batch(pairs, [int(rng.integers(0, len(m) - F + 1))
+                                     for _, m in pairs])
+               for _ in range(WN_VAR_STEPS)]
+    mels = [m[:WN_VAR_FRAMES] for m in gt]
+    bf16 = ("wavenet.sampler_cache_dtype=bfloat16,"
+            "wavenet.sampler_weight_dtype=bfloat16")
+
+    def train(name, cfg_v, tree, batches_v, fused):
+        tr = WaveNetTrainer(cfg_v)
+        st = tr.init_state(model=convert.wavenet_from_flax(
+            cfg_v, tree, dev, trainable=True))
+        st, losses, ms, wrapped, counted, seen = stack_steps(
+            tr, st, batches_v, torch.Generator().manual_seed(seed))
+        route = "kernels 5a/5b" if fused else "the layer loop"
+        print(f"{name}: {len(batches_v)} train steps on {route}, the "
+              f"first {ms:.1f} ms (host clock), the last profiled; losses "
+              + " ".join(f"{x:.4f}" for x in losses) + f"; 5a/5b launches "
+              f"{wrapped}; the last step's kernel launches counted "
+              f"{counted}, profiled {seen}")
+        assert np.isfinite(losses).all(), losses
+        assert counted == seen, (name, counted, seen)
+        n = len(batches_v) if fused else 0
+        assert wrapped == (n, n), (name, wrapped)
+        assert (min(counted) > 0) == fused, (name, counted)
+        return st
+
+    def sample(name, cfg_v, tree):
+        cfg_s = cfg_v.with_overrides(bf16)
+        ws = WaveNetSynthesizer(cfg_s, tree, device="cuda", seed=seed,
+                                keep_intermediates=True)
+        assert ws.sampler_kernel is not None, name
+        wk.launches = 0
+        torch.cuda.synchronize()
+        ts = time.time()
+        wavs = ws.synthesize(mels)
+        torch.cuda.synchronize()
+        n_launch = wk.launches
+        print(f"{name}: WaveNetSynthesizer on {len(mels)} mels of "
+              f"{WN_VAR_FRAMES} frames through the bf16 sampler kernel, "
+              f"{1e3 * (time.time() - ts):.1f} ms, launches {n_launch}")
+        assert n_launch > 0 and all(
+            len(w_) == WN_VAR_FRAMES * 200 and np.isfinite(w_).all()
+            for w_ in wavs)
+        runs.append((name, cfg_s, ws, wavs, n_launch))
+
+    runs = []
+    # ---- the upsample variants: upsample, training on 5a/5b, sampling
+    for v in WN_VARIANTS:
+        cfg_v = with_wavenet(cfg, upsample_type=v)
+        tree, n_g, n_f = wavenet_variant_tree(cfg_v, wparams, seed)
+        c = torch.as_tensor(batches[0]["c"])
+        up_g = convert.wavenet_from_flax(cfg_v, tree, dev).upsample(
+            c.to(dev)).cpu()
+        up_c = convert.wavenet_from_flax(cfg_v, tree, "cpu").upsample(c)
+        up_err = float((up_g - up_c).abs().max())
+        scale = max(1.0, float(up_c.abs().max()))
+        print(f"{v}: {n_g} leaves from r5, {n_f} fresh; upsample "
+              f"{tuple(c.shape)} -> {tuple(up_g.shape)}, card against CPU "
+              f"(f32) max |d| {up_err:.3e} (scale {scale:.3f})")
+        assert up_g.shape == (B, F * 200, cfg.wavenet.cin_channels)
+        assert up_err <= WN_VAR_UP_RTOL * scale, (v, up_err)
+        train(v, cfg_v, tree, batches, fused=True)
+        sample(v, cfg_v, tree)
+        if v == WN_VAR_SERVE:
+            serve_tree = tree
+
+    # ---- one variant served through TextToWavProgram (kernels 1 and 2)
+    cfg_r = with_wavenet(cfg, upsample_type=WN_VAR_SERVE)
+    ids, lengths, refs = serve_in
+    prog = TextToWavProgram(cfg_r, tparams, stats, serve_tree,
+                            batch=len(ids), steps=MAX_STEPS, t_in=T_IN,
+                            t_ref=T_REF, device="cuda", seed=seed)
+    dk.rows_launches = wk.launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    samples, wav_len, mel, _, mel_len = prog(ids, lengths, refs, refs)
+    torch.cuda.synchronize()
+    serve_s = time.time() - ts
+    launches = (dk.rows_launches, wk.launches)
+    samples, wav_len = samples.cpu().numpy(), wav_len.cpu().numpy()
+    mel_len = mel_len.cpu().numpy()
+    print(f"{WN_VAR_SERVE} vocoder served through TextToWavProgram: "
+          f"{len(ids)} texts in {serve_s:.3f} s, wav samples "
+          f"{wav_len.tolist()}, launches (decode, sampler) {launches}")
+    assert min(launches) > 0, launches
+    assert np.isfinite(samples).all()
+    assert (wav_len == mel_len * prog.hop).all() and wav_len.min() > 0
+
+    # ---- global conditioning: 4 speakers, the layer loop, the export,
+    # sampling through the kernel without the speaker (as in JAX)
+    cfg_g = with_wavenet(cfg, gin_channels=WN_VAR_GIN,
+                         use_speaker_embedding=True,
+                         n_speakers=WN_VAR_SPEAKERS)
+    tree_g, n_g, n_f = wavenet_variant_tree(cfg_g, wparams, seed,
+                                            global_conditioning=True)
+    gb = [dict(b, g=np.arange(B, dtype=np.int32) % WN_VAR_SPEAKERS)
+          for b in batches]
+    print(f"gin_channels {WN_VAR_GIN}, {WN_VAR_SPEAKERS} speakers: {n_g} "
+          f"leaves from r5, {n_f} fresh")
+    st = train("gin", cfg_g, tree_g, gb, fused=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        _export_speaker_embeddings(cfg_g, st, tmp)
+        d = os.path.join(tmp, "speaker_embeddings")
+        rows = open(os.path.join(d, "embeddings.tsv")).read().splitlines()
+        meta = open(os.path.join(d, "metadata.tsv")).read().split()
+        print(f"gin: speaker export {len(rows)} rows of "
+              f"{len(rows[0].split())} values, metadata {meta}")
+        assert len(rows) == WN_VAR_SPEAKERS and meta == [
+            f"speaker_{i}" for i in range(WN_VAR_SPEAKERS)]
+        assert all(len(r.split("\t")) == WN_VAR_GIN for r in rows)
+    del st
+    # the grafted weights: after 2 steps the EMA carries Adam's first
+    # step from r5's trained state (the loss in the hundreds), where the
+    # bf16 and f32 replays no longer part as phase 5's gate needs
+    sample("gin", cfg_g, tree_g)
+    entries = hold_variant_samplers(runs, W)
+
+    # ---- kernel_size 2: the layer loop, then the plain sampler on the card
+    cfg_k = with_wavenet(cfg, kernel_size=2)
+    tree_k, n_g, n_f = wavenet_variant_tree(cfg_k, wparams, seed)
+    print(f"kernel_size 2: {n_g} leaves from r5, {n_f} fresh")
+    train("kernel_size 2", cfg_k, tree_k, batches, fused=False)
+    ws = WaveNetSynthesizer(cfg_k, tree_k, device="cuda", seed=seed,
+                            keep_intermediates=True)
+    assert ws.sampler_kernel is None
+    wk.launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    wavs = ws.synthesize(mels)
+    torch.cuda.synchronize()
+    ks_ms = 1e3 * (time.time() - ts)
+    y_card = torch.as_tensor(np.stack([w_[:W] for w_ in wavs]))
+    c_w = ws.intermediates["c_up"][:, :W].cpu()
+    n_w = ws.intermediates["noise"][:, :, :W].cpu()
+    y_cpu, _ = wk.teacher_forced_replay(to_cpu(ws.sampler_params), cfg_k,
+                                        c_w, n_w, y_card)
+    ks_err = float((y_card - y_cpu).abs().max())
+    print(f"kernel_size 2: the plain sampler on the card, {len(wavs)}x"
+          f"{len(wavs[0])} samples in {ks_ms:.1f} ms (sampler kernel "
+          f"launches {wk.launches}); the CPU's replay of its first {W}: "
+          f"max |d| {ks_err:.3e}")
+    assert wk.launches == 0 and np.isfinite(y_card.numpy()).all()
+    assert ks_err <= WN_VAR_KS_ATOL, ks_err
+
+    # ---- no local conditioning: the layer loop; the synthesizer raises
+    cfg_u = with_wavenet(cfg, cin_channels=-1)
+    tree_u, n_g, n_f = wavenet_variant_tree(cfg_u, wparams, seed)
+    print(f"cin_channels -1: {n_g} leaves from r5, {n_f} fresh")
+    train("cin_channels -1", cfg_u, tree_u, batches, fused=False)
+    try:
+        WaveNetSynthesizer(cfg_u, tree_u, device="cuda").synthesize(mels)
+    except ValueError as e:
+        print(f"cin_channels -1: WaveNetSynthesizer raises ValueError: {e}")
+    else:
+        raise AssertionError("an unconditioned WaveNet vocoded mels")
+
+    # ---- the preprocessing commands on 16 r5 wavs, then train --model
+    # WaveNet on the map.txt they write
+    hp = ("tacotron.compute_dtype=bfloat16,wavenet.compute_dtype=bfloat16,"
+          "wavenet.use_fused_train_stack=true,audio.trim_silence=false,"
+          f"train.max_time_steps={F * 200}")
+    texts = corpus_texts()
+    with tempfile.TemporaryDirectory() as tmp:
+        lj = os.path.join(tmp, "lj")
+        os.makedirs(os.path.join(lj, "wavs"))
+        with open(os.path.join(lj, "metadata.csv"), "w",
+                  encoding="utf-8") as f:
+            for i in range(WN_VAR_PRE_ROWS):
+                save_wav(np.load(os.path.join(R5, "corpus", "audio",
+                                              f"audio-{i}.npy")),
+                         os.path.join(lj, "wavs", f"r5-{i:02d}.wav"),
+                         cfg.audio.sample_rate)
+                f.write(f"r5-{i:02d}|{texts[i]}|{texts[i]}\n")
+        ts = time.time()
+        meta = cli.main(["--hparams", hp, "create-metadata", "--in-dir", lj,
+                         "--out-path", os.path.join(tmp, "meta.txt")])
+        train_txt = cli.main(["--hparams", hp, "preprocess", "--dataset",
+                              "lj", "--in-dir", lj, "--metadata", meta,
+                              "--out-dir", os.path.join(tmp, "taco"),
+                              "--write-audio", "--n-jobs", "4"])
+        map_txt = cli.main(["--hparams", hp, "wavenet-preprocess",
+                            "--in-dir", os.path.join(lj, "wavs"),
+                            "--out-dir", os.path.join(tmp, "wn"),
+                            "--serial"])
+        pre_s = time.time() - ts
+        rows_t = open(train_txt, encoding="utf-8").read().splitlines()
+        rows_m = open(map_txt, encoding="utf-8").read().splitlines()
+        for r in rows_m:
+            a, m = np.load(r.split("|")[0]), np.load(r.split("|")[1])
+            assert m.shape[1] == cfg.audio.num_mels and \
+                len(a) == m.shape[0] * 200 and np.isfinite(m).all(), r
+        print(f"create-metadata, preprocess (4 spawned workers) and "
+              f"wavenet-preprocess (serial) of {WN_VAR_PRE_ROWS} r5 wavs: "
+              f"{pre_s:.3f} s; train.txt "
+              f"{len(rows_t)} rows, map.txt {len(rows_m)} rows")
+        assert len(rows_t) == len(rows_m) == WN_VAR_PRE_ROWS
+        wtk.fwd_launches = 0
+        ckpt_dir = cli.main(["--hparams", hp + ",wavenet.upsample_type=1D",
+                             "train", "--model", "WaveNet", "--input-path",
+                             map_txt, "--base-dir", os.path.join(tmp, "run"),
+                             "--train-steps", "3", "--batch-size", str(B),
+                             "--eval-interval", "0"])
+        saved = sorted(os.listdir(ckpt_dir))
+        print(f"cli train --model WaveNet (1D upsample) on that map.txt: "
+              f"checkpoints {saved}, stack forward launches "
+              f"{wtk.fwd_launches}")
+        assert saved == ["ckpt-3.msgpack"] and wtk.fwd_launches == 3
+    done(29, t0)
+    return entries
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5243,6 +5643,10 @@ def main(argv=None):
 
     # ---- 28. (u) the Tacotron variants on their routes
     variant_cases_phase(texts, gt, tparams, stats, seed, smi)
+
+    # ---- 29. (v) the WaveNet variants on their routes; preprocessing
+    kernels.extend(wavenet_variants_phase((ids, lengths, refs), gt,
+                                          tparams, stats, wparams, seed))
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -1,6 +1,19 @@
 """Command line of the PyTorch port: `python -m tacotron2_tpu_torch.cli
+preprocess | wavenet-preprocess | create-metadata | vctk-accent-relabel |
 serve | synthesize | train | disc-train | emt-disc-train | disc-preprocess
 | disc-test | fixed-eval-set`.
+
+The preprocessing commands, ports of tacotron2_tpu/cli.py (:41-71,
+:504-544) over `data/preprocess.py`, run on the host (`--n-jobs` spawned
+workers, or `--serial`): `create-metadata` writes a corpus manifest
+`path|text|emt|spk|sex` (--layout ljspeech, folders, emt4, jessa, emth,
+librispeech or vctk); `preprocess` turns it (--metadata, else
+<in-dir>/metadata_<dataset>.txt) into <out-dir>/<dataset>/mels (with
+--write-audio the audio, with --write-linear the linear spectrograms) and
+<out-dir>/train.txt; `wavenet-preprocess` turns a folder of wavs into
+<out-dir>/audio and mels and the map.txt that `train --model WaveNet`
+reads; `vctk-accent-relabel` rewrites a VCTK train.txt's emotion column
+with accent ids.
 
 `serve`, port of tacotron2_tpu/cli.py `serve` (:382): text → wav through
 one `TextToWavProgram` per padded-text bucket, built on first use and
@@ -456,6 +469,44 @@ def cmd_disc_test(args):
                      device=args.device)
 
 
+def cmd_preprocess(args):
+    """Returns the train.txt path."""
+    from .data.preprocess import build_from_path, write_metadata
+    cfg = get_config(args.preset, args.hparams)
+    meta_path = args.metadata or os.path.join(
+        args.in_dir, f"metadata_{args.dataset}.txt")
+    rows = build_from_path(cfg, meta_path, args.in_dir, args.out_dir,
+                           args.dataset, n_jobs=args.n_jobs,
+                           serial=args.serial, write_audio=args.write_audio,
+                           write_linear=args.write_linear, limit=args.limit)
+    return write_metadata(rows, args.out_dir, cfg)
+
+
+def cmd_wavenet_preprocess(args):
+    """Returns the map.txt path."""
+    from .data.preprocess import (wavenet_build_from_path,
+                                  write_wavenet_metadata)
+    cfg = get_config(args.preset, args.hparams)
+    rows = wavenet_build_from_path(cfg, args.in_dir, args.out_dir,
+                                   n_jobs=args.n_jobs, serial=args.serial,
+                                   limit=args.limit)
+    return write_wavenet_metadata(rows, args.out_dir, cfg)
+
+
+def cmd_create_metadata(args):
+    """Returns the manifest's path."""
+    from .data.preprocess import create_metadata
+    return create_metadata(args.in_dir, args.out_path, layout=args.layout,
+                           emt_label=args.emt_label, sex=args.sex)
+
+
+def cmd_vctk_accent(args):
+    """Returns the relabelled train.txt's path."""
+    from .data.preprocess import vctk_accent_relabel
+    return vctk_accent_relabel(args.train_path, args.speaker_info,
+                               args.out_path)
+
+
 def cmd_fixed_eval_set(args):
     """Returns the manifest's path."""
     from .data.feeder import create_fixed_eval_set
@@ -471,6 +522,49 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hparams", default="",
                    help="dotted config overrides, e.g. tacotron.max_iters=500")
     sub = p.add_subparsers(dest="command", required=True)
+    pp = sub.add_parser("preprocess", help="corpus wavs -> mel npy (and "
+                        "audio / linear npy) + train.txt")
+    pp.add_argument("--dataset", required=True)
+    pp.add_argument("--in-dir", required=True)
+    pp.add_argument("--out-dir", required=True)
+    pp.add_argument("--metadata", default=None,
+                    help="default <in-dir>/metadata_<dataset>.txt")
+    pp.add_argument("--n-jobs", type=int, default=os.cpu_count())
+    pp.add_argument("--serial", action="store_true")
+    pp.add_argument("--write-audio", action="store_true")
+    pp.add_argument("--write-linear", action="store_true")
+    pp.add_argument("--limit", type=int, default=None)
+    pp.set_defaults(func=cmd_preprocess)
+
+    wp = sub.add_parser("wavenet-preprocess",
+                        help="wav folder -> audio/mel npy + map.txt "
+                             "(non-GTA vocoder training)")
+    wp.add_argument("--in-dir", required=True)
+    wp.add_argument("--out-dir", required=True)
+    wp.add_argument("--n-jobs", type=int, default=os.cpu_count())
+    wp.add_argument("--serial", action="store_true")
+    wp.add_argument("--limit", type=int, default=None)
+    wp.set_defaults(func=cmd_wavenet_preprocess)
+
+    cm = sub.add_parser("create-metadata",
+                        help="corpus layout -> metadata_<ds>.txt manifest")
+    cm.add_argument("--in-dir", required=True)
+    cm.add_argument("--out-path", required=True)
+    cm.add_argument("--layout", default="ljspeech",
+                    choices=["ljspeech", "folders", "emt4", "jessa", "emth",
+                             "librispeech", "vctk"])
+    cm.add_argument("--emt-label", type=int, default=0)
+    cm.add_argument("--sex", default="U")
+    cm.set_defaults(func=cmd_create_metadata)
+
+    va = sub.add_parser("vctk-accent-relabel",
+                        help="rewrite a VCTK train.txt with accent-index "
+                             "labels (reference metadata.py:232-261)")
+    va.add_argument("--train-path", required=True)
+    va.add_argument("--speaker-info", required=True)
+    va.add_argument("--out-path", required=True)
+    va.set_defaults(func=cmd_vctk_accent)
+
     sv = sub.add_parser("serve", help="text -> wav through TextToWavProgram")
     sv.add_argument("--checkpoint", required=True,
                     help="Tacotron flax msgpack ({params, batch_stats})")

@@ -23,7 +23,9 @@ Takes what the JAX package trains and checkpoints — the Tacotron
   `_dense` heads); `init_tacotron` draws a fresh one from the flax
   initialisers' distributions;
 - `WaveNet` (models/wavenet/model.py), both ways (`wavenet_from_flax`,
-  `wavenet_to_flax`): the SubPixel upsample convs and the conv stack,
+  `wavenet_to_flax`): the upsample layers of every `upsample_type` (none
+  without local conditioning), the speaker table `gc_embedding` and the
+  blocks' `gin_conv` where the tree has them, and the conv stack,
   weight-normed convs as their `v`, `g` and `bias`; `init_wavenet` draws
   a fresh one;
 - the decoder and sampler parameter tuples through
@@ -285,27 +287,35 @@ def init_params(model: torch.nn.Module, cfg: Config, g) -> torch.nn.Module:
 
 def _wavenet_convs(model: WaveNet):
     """(flax prefix, module, kind) of every conv of the port's WaveNet:
-    kind "up" (a SubPixel conv), "conv" (causal) or "dense" (1×1)."""
-    for i, layer in enumerate(model.upsample_network.layers):
-        yield f"upsample_network/up_{i}", layer, "up"
+    kind "up" (an upsample layer, `modules._Up`), "conv" (causal) or
+    "dense" (1×1); the blocks' cin_conv and gin_conv where the model has
+    them."""
+    if model.upsample_network is not None:
+        for i, layer in enumerate(model.upsample_network.layers):
+            yield f"upsample_network/up_{i}", layer, "up"
     yield "input_convolution", model.input_convolution, "dense"
     for i, blk in enumerate(model.residual_blocks):
         p = f"residual_block_{i}"
         yield f"{p}/causal_conv", blk.causal_conv, "conv"
-        for name in ("cin_conv", "skip_conv", "out_conv"):
-            yield f"{p}/{name}", getattr(blk, name), "dense"
+        for name in ("cin_conv", "gin_conv", "skip_conv", "out_conv"):
+            if getattr(blk, name) is not None:
+                yield f"{p}/{name}", getattr(blk, name), "dense"
     for name in ("final_convolution_1", "final_convolution_2"):
         yield name, getattr(model, name), "dense"
 
 
 def _wavenet_leaves(model: WaveNet):
     """(flax path, attribute, module, kind) of every WaveNet parameter, in
-    the module's order: plain convs nest under Conv_0 / Dense_0, weight-
-    normed ones hold v, g and bias directly (the JAX modules' trees)."""
+    the module's order: the speaker table `gc_embedding/embedding` where
+    the model has one; plain convs nest under Conv_0 / Dense_0 (an
+    upsample layer under its `leaves`), weight-normed ones hold v, g and
+    bias directly (the JAX modules' trees)."""
+    if model.gc_embedding is not None:
+        yield "gc_embedding/embedding", "gc_embedding", model, "embed"
     for prefix, mod, kind in _wavenet_convs(model):
         if kind == "up":
-            yield f"{prefix}/Conv_0/kernel", "weight", mod, kind
-            yield f"{prefix}/Conv_0/bias", "bias", mod, kind
+            for leaf, attr in mod.leaves:
+                yield f"{prefix}/{leaf}", attr, mod, kind
             continue
         if mod.is_weight_normed:
             names, inner = ("v", "g", "bias"), prefix
@@ -317,11 +327,18 @@ def _wavenet_leaves(model: WaveNet):
                 yield f"{inner}/{n}", n, mod, kind
 
 
+def _torch_layout_kernel(path: str) -> bool:
+    """An upsample Conv_0 kernel, held in torch's conv2d layout."""
+    return path.startswith("upsample_network") and \
+        path.endswith("Conv_0/kernel")
+
+
 def wavenet_flax_array(path: str, x: torch.Tensor) -> np.ndarray:
     """A WaveNet tensor (a parameter or its Adam moment) in its flax
-    layout: SubPixel kernels [scale, 1, kh, kw] -> [kh, kw, 1, scale]."""
+    layout: the SubPixel and Resize kernels [out, in, kh, kw] -> [kh, kw,
+    in, out]; the rest are held in it."""
     a = x.detach().float().cpu().numpy()
-    if path.startswith("upsample_network") and path.endswith("kernel"):
+    if _torch_layout_kernel(path):
         a = a.transpose(2, 3, 1, 0)
     return np.array(a, np.float32, order="C")
 
@@ -329,7 +346,7 @@ def wavenet_flax_array(path: str, x: torch.Tensor) -> np.ndarray:
 def wavenet_port_array(path: str, a) -> np.ndarray:
     """The inverse of `wavenet_flax_array`."""
     a = _np(a)
-    if path.startswith("upsample_network") and path.endswith("kernel"):
+    if _torch_layout_kernel(path):
         a = a.transpose(3, 2, 0, 1)
     return np.array(a, np.float32, order="C")
 
@@ -354,13 +371,15 @@ def load_wavenet_params(model: WaveNet, params: Mapping) -> WaveNet:
     """Fill the port WaveNet from flax WaveNet params. A plain module
     takes a weight-normed tree's materialised kernel
     (`modules.effective_kernel`); a bias the tree lacks is zero."""
+    if model.gc_embedding is not None:
+        _set(model.gc_embedding, tree_get(params, "gc_embedding/embedding"))
     for prefix, mod, kind in _wavenet_convs(model):
         sub = tree_get(params, prefix)
         if kind == "up":
-            conv = sub["Conv_0"]
-            _set(mod.weight, wavenet_port_array(f"{prefix}/Conv_0/kernel",
-                                                conv["kernel"]))
-            _set(mod.bias, conv["bias"])
+            for leaf, attr in mod.leaves:
+                path = f"{prefix}/{leaf}"
+                _set(getattr(mod, attr),
+                     wavenet_port_array(path, tree_get(params, path)))
             continue
         inner = sub.get("Conv_0", sub.get("Dense_0", sub))
         if mod.is_weight_normed:
@@ -377,33 +396,48 @@ def load_wavenet_params(model: WaveNet, params: Mapping) -> WaveNet:
     return model
 
 
+def has_global_conditioning(params: Mapping) -> bool:
+    """Whether a flax WaveNet tree holds the speaker input's weights (flax
+    makes them only where its init saw `g`)."""
+    return "gc_embedding" in params or \
+        "gin_conv" in params.get("residual_block_0", {})
+
+
 def wavenet_from_flax(cfg: Config, params: Mapping, device="cuda", *,
                       trainable: bool = False) -> WaveNet:
-    """Build the port's WaveNet from flax WaveNet params: for inference
-    (eval mode, parameters frozen), or `trainable`."""
-    m = load_wavenet_params(WaveNet(cfg), params).to(device)
+    """Build the port's WaveNet from flax WaveNet params (with the speaker
+    input where the tree has its weights): for inference (eval mode,
+    parameters frozen), or `trainable`."""
+    m = load_wavenet_params(
+        WaveNet(cfg, has_global_conditioning(params)), params).to(device)
     return m if trainable else m.eval().requires_grad_(False)
 
 
-def init_wavenet(cfg: Config, generator=None, device="cuda") -> WaveNet:
+def init_wavenet(cfg: Config, generator=None, device="cuda", *,
+                 global_conditioning: bool = True) -> WaveNet:
     """A freshly initialised WaveNet, drawn from the distributions of the
     JAX package's flax initialisers: glorot-uniform kernels (and v, with
-    g = ‖v‖ · init_scale per output channel), zero biases, and the
-    SubPixel convs' nn_init kernel (`wavenet.nn_init`, scaled by
-    nn_scaler^(1/layers)) or glorot."""
+    g = ‖v‖ · init_scale per output channel), zero biases, the speaker
+    table normal with std 0.1, and the upsample layers' nn_init kernels
+    (`wavenet.nn_init`, scaled by nn_scaler^(1/layers); flax's values bit
+    for bit) or glorot. `global_conditioning=False` leaves out the speaker
+    input (`WaveNet`)."""
     g = generator if generator is not None else torch.Generator()
     wn = cfg.wavenet
-    model = WaveNet(cfg)
-    pow_scaler = wn.nn_scaler ** (1.0 / len(wn.upsample_scales))
+    model = WaveNet(cfg, global_conditioning)
+    pow_scaler = (wn.nn_scaler ** (1.0 / len(wn.upsample_scales))
+                  if wn.upsample_scales else 1.0)
     with torch.no_grad():
+        if model.gc_embedding is not None:
+            model.gc_embedding.copy_(torch.randn(
+                model.gc_embedding.shape, generator=g) * 0.1)
         for _, mod, kind in _wavenet_convs(model):
             if kind == "up":
                 if wn.nn_init:
                     mod.nn_init(pow_scaler)
                 else:
-                    flax_shape = mod.weight.permute(2, 3, 1, 0).shape
-                    mod.weight.copy_(_glorot(flax_shape, g).permute(3, 2, 0, 1))
-                    mod.bias.zero_()
+                    mod.set_flax_kernel(
+                        _glorot(mod.flax_kernel().shape, g).numpy())
                 continue
             if mod.is_weight_normed:
                 mod.v.copy_(_glorot(mod.v.shape, g))

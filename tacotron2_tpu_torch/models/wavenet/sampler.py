@@ -3,8 +3,10 @@
 Counterpart of tacotron2_tpu/models/wavenet/sampler.py: `extract_sampler_
 params` (:72) flattens the flax WaveNet tree into matmul-ready tensors and
 `incremental_sample` (:110) runs the sample loop with one ring buffer of
-width (kw-1)·d + 1 per layer. Per sample and layer: the kw=3 dilated conv
-over the ring taps, the 1×1 conditioning projection, the tanh·σ gate, the
+width (kw-1)·d + 1 per layer, at any kernel_size. Per sample and layer:
+the dilated conv over the kw ring taps, the 1×1 local conditioning
+projection (none without local conditioning) and the global one's where
+a speaker vector `g_vec` is given, the tanh·σ gate, the
 skip and residual 1×1s with √0.5 scaling; then the ReLU head and a draw
 from the config's output head (`distributions.py`): Gaussian, mixture of
 logistics, or categorical (mulaw-quantize, whose input is the one-hot of
@@ -36,12 +38,14 @@ from .modules import conv1x1_params, effective_kernel
 class LayerParams(NamedTuple):
     conv_w: torch.Tensor     # [kw·R, G] taps oldest -> newest
     conv_b: torch.Tensor     # [G]
-    cin_w: torch.Tensor      # [cin, G]
-    cin_b: torch.Tensor      # [G]
+    cin_w: Optional[torch.Tensor]   # [cin, G]; None without local cond.
+    cin_b: Optional[torch.Tensor]   # [G]
     skip_w: torch.Tensor     # [G/2, S]
     skip_b: torch.Tensor     # [S]
     out_w: torch.Tensor      # [G/2, R]
     out_b: torch.Tensor      # [R]
+    gin_w: Optional[torch.Tensor] = None   # [gin, G]; None without global
+    gin_b: Optional[torch.Tensor] = None   # [G]
 
 
 class SamplerParams(NamedTuple):
@@ -54,18 +58,6 @@ class SamplerParams(NamedTuple):
     final2_b: torch.Tensor   # [out]
 
 
-def _check_family(cfg: Config):
-    wn = cfg.wavenet
-    head_kind(cfg)                       # raises for a config without one
-    if wn.kernel_size != 3:
-        raise ValueError("the sampler takes wavenet.kernel_size=3, not "
-                         f"{wn.kernel_size}")
-    if wn.gin_channels > 0 or wn.cin_channels <= 0:
-        raise ValueError("the sampler takes local conditioning only "
-                         f"(wavenet.cin_channels={wn.cin_channels}, "
-                         f"gin_channels={wn.gin_channels})")
-
-
 def extract_sampler_params(params, cfg: Config, device="cuda"
                            ) -> SamplerParams:
     """Flax WaveNet param tree (numpy leaves) -> SamplerParams (f32).
@@ -73,12 +65,22 @@ def extract_sampler_params(params, cfg: Config, device="cuda"
     CausalConv1D kernels are [kw, R, G] (tap j multiplies x_{t-(kw-1-j)d}),
     so flattening in j order lists the taps oldest -> newest. Weight norm is
     materialised; missing biases become zeros. The first conv is [in, R]:
-    [1, R] for scalar input, [Q, R] for the one-hot categorical input.
+    [1, R] for scalar input, [Q, R] for the one-hot categorical input. The
+    cin_conv and gin_conv weights are None where the tree has no such conv
+    (JAX :90-94).
     """
-    _check_family(cfg)
+    head_kind(cfg)                       # raises for a config without one
     wn = cfg.wavenet
     t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
     zero = lambda n: np.zeros((n,), np.float32)
+    opt = lambda b, n: t(zero(n) if b is None else b)
+
+    def dense(p, name):
+        if name not in p:
+            return None, None
+        w, b = conv1x1_params(p[name])
+        return t(w), opt(b, w.shape[1])
+
     layers = []
     for i in range(wn.layers):
         p = params[f"residual_block_{i}"]
@@ -89,19 +91,17 @@ def extract_sampler_params(params, cfg: Config, device="cuda"
         else:
             ck, cb = effective_kernel(cc), cc.get("bias")
         kw, R, G = ck.shape
-        cin_w, cin_b = conv1x1_params(p["cin_conv"])
-        skip_w, skip_b = conv1x1_params(p["skip_conv"])
-        out_w, out_b = conv1x1_params(p["out_conv"])
+        cin_w, cin_b = dense(p, "cin_conv")
+        gin_w, gin_b = dense(p, "gin_conv")
+        skip_w, skip_b = dense(p, "skip_conv")
+        out_w, out_b = dense(p, "out_conv")
         layers.append(LayerParams(
-            t(ck.reshape(kw * R, G)), t(zero(G) if cb is None else cb),
-            t(cin_w), t(zero(G) if cin_b is None else cin_b),
-            t(skip_w), t(zero(skip_w.shape[1]) if skip_b is None else skip_b),
-            t(out_w), t(zero(R) if out_b is None else out_b)))
+            t(ck.reshape(kw * R, G)), opt(cb, G), cin_w, cin_b,
+            skip_w, skip_b, out_w, out_b, gin_w, gin_b))
     (fw, fb), (f1w, f1b), (f2w, f2b) = (
         conv1x1_params(params[k]) for k in (
             "input_convolution", "final_convolution_1",
             "final_convolution_2"))
-    opt = lambda b, n: t(zero(n) if b is None else b)
     return SamplerParams(t(fw), opt(fb, fw.shape[1]), tuple(layers),
                          t(f1w), opt(f1b, f1w.shape[1]),
                          t(f2w), opt(f2b, f2w.shape[1]))
@@ -129,16 +129,18 @@ def first_input(cfg: Config, B: int, device) -> torch.Tensor:
 def incremental_sample(sp: SamplerParams, cfg: Config, c_up, noise,
                        initial_input: Optional[torch.Tensor] = None,
                        test_inputs: Optional[torch.Tensor] = None, *,
+                       g_vec: Optional[torch.Tensor] = None,
                        cache_dtype=torch.float32, weight_dtype=torch.float32,
                        return_y_hat: bool = False):
-    """Generate samples. c_up [B, T, cin] upsampled conditioning; noise
-    [planes, B, T] (or [B, T] for one plane): standard normals for the
-    Gaussian head, (0, 1) uniforms for the mixture (pick, logistic) and
-    categorical (pick) heads. test_inputs [B, T, in] overrides each step's
-    fed-back input (teacher forcing, sampler.py:216-218). Returns samples
-    [B, T] f32 (the class index for the categorical head), and y_hat
-    [B, T, out] with return_y_hat."""
-    _check_family(cfg)
+    """Generate samples. c_up [B, T, cin] upsampled conditioning ([B, T,
+    0] for a model without local conditioning); noise [planes, B, T] (or
+    [B, T] for one plane): standard normals for the Gaussian head, (0, 1)
+    uniforms for the mixture (pick, logistic) and categorical (pick)
+    heads. g_vec [B, gin]: the global conditioning, where the layers have
+    gin weights (JAX :174-178). test_inputs [B, T, in] overrides each
+    step's fed-back input (teacher forcing, sampler.py:216-218). Returns
+    samples [B, T] f32 (the class index for the categorical head), and
+    y_hat [B, T, out] with return_y_hat."""
     wn = cfg.wavenet
     kind, planes = head_kind(cfg)
     B, T, _ = c_up.shape
@@ -147,14 +149,16 @@ def incremental_sample(sp: SamplerParams, cfg: Config, c_up, noise,
     if tuple(noise.shape) != (planes, B, T):
         raise ValueError(f"the {kind} head takes noise [{planes}, {B}, {T}],"
                          f" got {tuple(noise.shape)}")
-    R = wn.residual_channels
+    R, kw = wn.residual_channels, wn.kernel_size
     dils = wn.dilations
-    widths = [(wn.kernel_size - 1) * d + 1 for d in dils]
+    widths = [(kw - 1) * d + 1 for d in dils]
     scale = float(np.sqrt(np.float32(0.5)))
     dev = c_up.device
     rw = _rounder(weight_dtype)
-    layers = [lp._replace(conv_w=rw(lp.conv_w), cin_w=rw(lp.cin_w),
-                          skip_w=rw(lp.skip_w), out_w=rw(lp.out_w))
+    rwo = lambda w: None if w is None else rw(w)
+    layers = [lp._replace(conv_w=rw(lp.conv_w), cin_w=rwo(lp.cin_w),
+                          gin_w=rwo(lp.gin_w), skip_w=rw(lp.skip_w),
+                          out_w=rw(lp.out_w))
               for lp in sp.layers]
     first_w = rw(sp.first_w) if kind == "categorical" else sp.first_w
     rings = [torch.zeros(B, w, R, device=dev, dtype=cache_dtype)
@@ -162,18 +166,27 @@ def incremental_sample(sp: SamplerParams, cfg: Config, c_up, noise,
     x_in = (first_input(cfg, B, dev) if initial_input is None
             else initial_input.float())
     c_up, noise = c_up.float(), noise.float()
+    # the speaker's gate terms are the same at every step
+    g_terms = [None if lp.gin_w is None or g_vec is None
+               else rw(g_vec.float().to(dev)) @ lp.gin_w + lp.gin_b
+               for lp in layers]
     out = torch.empty(B, T, device=dev)
     y_hats = []
     for t in range(T):
         x = x_in @ first_w + sp.first_b
         ct = rw(c_up[:, t])
         skips = None
-        for lp, ring, d, w in zip(layers, rings, dils, widths):
+        for lp, gt, ring, d, w in zip(layers, g_terms, rings, dils, widths):
             ring[:, t % w] = x.to(cache_dtype)
-            taps = torch.cat([rw(ring[:, (t - 2 * d) % w].float()),
-                              rw(ring[:, (t - d) % w].float()), rw(x)],
-                             dim=-1)
-            g = taps @ lp.conv_w + lp.conv_b + ct @ lp.cin_w + lp.cin_b
+            # tap j reads x_{t-(kw-1-j)d}; the newest is x itself
+            taps = torch.cat(
+                [rw(ring[:, (t - (kw - 1 - j) * d) % w].float())
+                 for j in range(kw - 1)] + [rw(x)], dim=-1)
+            g = taps @ lp.conv_w + lp.conv_b
+            if lp.cin_w is not None:
+                g = g + ct @ lp.cin_w + lp.cin_b
+            if gt is not None:
+                g = g + gt
             a, b = g.chunk(2, dim=-1)
             h = rw(torch.tanh(a) * torch.sigmoid(b))
             s = h @ lp.skip_w + lp.skip_b

@@ -161,7 +161,9 @@ def _pad_to(w, dim: int, n: int):
 
 def stack_weights(sp: SamplerParams, cfg: Config, cs: int | None = None,
                   weight_dtype=torch.float32):
-    """SamplerParams -> (slices, f2w, f2b). slices: bytes [cs, L, bytes of
+    """SamplerParams -> (slices, f2w, f2b); the gin weights are left out,
+    as the TPU kernel's `_stack_weights` leaves them (JAX
+    ops/wavenet_kernel.py:591-626). slices: bytes [cs, L, bytes of
     `slice_layout`], CTA c's operands of layer l, in `weight_dtype`: the
     gate product's A tiles over the x_t rows, then over the x_{t-2d},
     x_{t-d} and c_t rows (zero-padded to c16), m-tile mt holding units
@@ -176,10 +178,15 @@ def stack_weights(sp: SamplerParams, cfg: Config, cs: int | None = None,
     lay = slice_layout(cfg, cs, weight_dtype)
     st = lambda name: torch.stack([getattr(lp, name) for lp in sp.layers])
     conv = st("conv_w")                                    # [L, 3R, G]
-    old = _pad_to(torch.cat([conv[:, :2 * R], st("cin_w")], 1), 1,
+    if sp.layers[0].cin_w is None:     # no local conditioning: zero rows
+        cin_w = conv.new_zeros(conv.shape[0], max(wn.cin_channels, 0), G)
+        cin_b = conv.new_zeros(conv.shape[0], G)
+    else:
+        cin_w, cin_b = st("cin_w"), st("cin_b")
+    old = _pad_to(torch.cat([conv[:, :2 * R], cin_w], 1), 1,
                   2 * R + lay.c16).transpose(1, 2)         # [L, G, 2R + c16]
     xw = conv[:, 2 * R:].transpose(1, 2)                   # [L, G, R]
-    czb = st("conv_b") + st("cin_b")
+    czb = st("conv_b") + cin_b
     # gate rows: per CTA c and m-tile mt, units 8mt .. 8mt + 7 of c's gc
     # (a columns, then their b columns); units past gc are zero rows
     i = torch.arange(8)
@@ -280,12 +287,14 @@ def pack_weights(sp: SamplerParams, cfg: Config, cs: int | None = None, *,
 
 def sampler_supported(cfg: Config, weight_dtype=torch.float32) -> bool:
     """Whether the kernel takes the config's WaveNet with `weight_dtype`
-    weights: kernel_size 3 without global conditioning, `slice_layout`'s
-    tiles, and csrc/sampler.cu's `taco_sampler_supported` (the one
-    statement of its envelope; it builds the kernel, so only the last
-    check needs nvcc)."""
+    weights: kernel_size 3, `slice_layout`'s tiles, and csrc/sampler.cu's
+    `taco_sampler_supported` (the one statement of its envelope; it builds
+    the kernel, so only the last check needs nvcc). A model with global
+    conditioning is taken, without its speaker: the JAX synthesizer's gate
+    does not look at gin_channels, its kernel drops the gin weights and
+    its scan is called without g_vec (synth/wavenet_synth.py:37-48)."""
     wn = cfg.wavenet
-    if wn.kernel_size != 3 or wn.gin_channels > 0:
+    if wn.kernel_size != 3:
         return False
     try:
         slice_layout(cfg, weight_dtype=weight_dtype)
@@ -398,9 +407,8 @@ def _sample_cuda(kw: KernelWeights, cfg: Config, c_up, noise):
     if kw.slices.shape[1] != L:
         raise ValueError(f"kernel_weights hold {kw.slices.shape[1]} layers, "
                          f"the config {L}")
-    if wn.kernel_size != 3 or wn.gin_channels > 0:
-        raise ValueError("the sampler kernel takes kernel_size 3 and no "
-                         "global conditioning")
+    if wn.kernel_size != 3:
+        raise ValueError("the sampler kernel takes kernel_size 3")
     lib = _lib()
     wbf = int(kw.weight_dtype == torch.bfloat16)
     cs = lib.taco_sampler_cluster_size(wbf)

@@ -2,21 +2,26 @@
 
 Port of tacotron2_tpu/synth/pipeline.py `TextToWavProgram` (:47): Tacotron
 memory pass → the CUDA decode kernel → postnet → stop-length recovery and
-silence masking (:194-207) → [0, 1] rescale (:215-220) → SubPixel
-conditioning upsample → the CUDA sampler kernel (its plain version on
-the card at widths the kernel does not take, `wavenet_kernel.takes_kernel`),
-on one device with no host round trip between the stages. The sampler takes whichever output head the
-config names (Gaussian, mixture of logistics, categorical), with the JAX
+silence masking (:194-207) → [0, 1] rescale (:215-220) → the conditioning
+upsample of any `upsample_type` (:221-229) → the CUDA sampler kernel (its
+plain version on the card at widths the kernel does not take,
+`wavenet_kernel.takes_kernel`), on one device with no host round trip
+between the stages. The sampler takes whichever output head the config
+names (Gaussian, mixture of logistics, categorical), with the JAX
 program's dtype rule (:127-140): `sampler_bf16=None` runs a bf16 delay
 cache and bf16 weights on a CUDA device and f32 on the CPU;
 `wavenet.sampler_cache_dtype` / `sampler_weight_dtype` = "bfloat16" force
-bf16 for either. With `vocoder="griffin_lim"` (:209-213) the
-masked mel goes through Griffin-Lim (the CUDA Griffin-Lim kernel) instead
-of the upsample and the sampler. CPU tensors run the same chain through the
-kernels' plain versions (that is how the tests hold it against the JAX
-program). Each stage runs once over the whole batch: the decode kernel
-runs one thread-block cluster per row, so the TPU program's split into
-decode chunks of at most 64 rows has no counterpart.
+bf16 for either. With `vocoder="griffin_lim"` (:209-213) the masked mel
+goes through Griffin-Lim (the CUDA Griffin-Lim kernel) instead of the
+upsample and the sampler. A vocoder with global conditioning is sampled
+without its speaker, as the JAX program does; one without local
+conditioning (cin_channels <= 0) raises ValueError at the upsample on the
+first call, where the JAX program fails with an AttributeError. CPU
+tensors run the same chain through the kernels' plain versions (that is
+how the tests hold it against the JAX program). Each stage runs once over
+the whole batch: the decode kernel runs one thread-block cluster per row,
+so the TPU program's split into decode chunks of at most 64 rows has no
+counterpart.
 
 Random numbers come from one `torch.Generator` on the program's device,
 reseeded per call from a counter: the prenet dropout multipliers of every
@@ -78,6 +83,13 @@ class TextToWavProgram:
                 f"{tuple(tc.prenet_layers)}: its decode kernel takes two "
                 "layers of one width, as the JAX program's does; "
                 "TacotronSynthesizer serves any prenet")
+        if vocoder == "wavenet" and wn.kernel_size != 3:
+            raise ValueError(
+                f"TextToWavProgram refuses wavenet.kernel_size="
+                f"{wn.kernel_size}: its sampler's delay lines take 3 taps, "
+                "as the JAX program's kernel asserts "
+                "(ops/wavenet_kernel.py:219); WaveNetSynthesizer samples "
+                "any kernel_size")
         if t_in > 256:
             raise ValueError(f"t_in={t_in}: the program serves up to 256 "
                              "padded characters, as the JAX program's "

@@ -10,7 +10,10 @@ padded, clipped and rescaled to [0, 1], upsampled, and sampled through
 sampler kernel, the JAX package's `use_fused_kernel=True` route
 (`fused_incremental_sample`, "all output heads"), at every width the
 kernel takes (`wavenet_kernel.takes_kernel`); at other widths, and on the
-CPU, through its plain version, as the JAX synthesizer takes its scan. The cache and weight dtypes are the config's
+CPU, through its plain version, as the JAX synthesizer takes its scan.
+Every upsample type is taken; a model with global conditioning is
+sampled without its speaker, as in JAX; kernel_size != 3 takes the plain
+sampler. The cache and weight dtypes are the config's
 `wavenet.sampler_cache_dtype` / `sampler_weight_dtype`, as the JAX
 synthesizer passes them to its kernel. Each call draws its noise from a
 `torch.Generator` on the device, reseeded from a counter that starts at
@@ -108,8 +111,12 @@ class WaveNetSynthesizer:
                    speaker_ids: Optional[Sequence[int]] = None
                    ) -> List[np.ndarray]:
         """Batched mels [frames, num_mels] → waveforms trimmed to their
-        true lengths. `speaker_ids` is accepted for the JAX signature; the
-        port has no global conditioning."""
+        true lengths. `speaker_ids` is accepted and unused, as in the JAX
+        synthesizer (:64-90): a model with global conditioning is sampled
+        without its speaker (its kernel drops the gin weights, its scan
+        gets no g_vec). An unconditioned model (cin_channels <= 0) raises
+        ValueError at the upsample, where the JAX one fails with an
+        AttributeError."""
         c, frame_lengths = self._prepare_mels(mels)
         c_up = self.model.upsample(torch.as_tensor(c, device=self.device))
         B, T, _ = c_up.shape

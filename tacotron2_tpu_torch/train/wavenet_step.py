@@ -10,7 +10,10 @@ default). Each train step draws one dropout seed from the generator it is
 given; the model takes its masks from it (`models/wavenet/model.py`). On
 a CUDA device with `wavenet.use_fused_train_stack` the gated stack runs
 kernels 5a and 5b (`ops/wavenet_train_kernel.py`) in either compute dtype
-and at any width `stack_supported` admits; `timer`, a
+and at any width `stack_supported` admits, for every upsample type; the
+globally conditioned (a batch's "g", speaker ids or features), the
+unconditioned and the kernel_size != 3 models take the layer loop, as the
+JAX model does. `timer`, a
 `train/tacotron_step.StepTimer`,
 splits a step's time into the forward, the backward and the optimizer.
 """
@@ -51,9 +54,6 @@ class WaveNetTrainer:
     weights."""
 
     def __init__(self, cfg: Config, *, device="cuda"):
-        if cfg.wavenet.gin_channels > 0:
-            raise ValueError("global conditioning (wavenet.gin_channels > 0) "
-                             "is not in the port")
         self.cfg, self.device = cfg, torch.device(device)
         self.timer = None   # a StepTimer to split the step's time
 
@@ -63,16 +63,19 @@ class WaveNetTrainer:
                    ) -> WaveNetTrainState:
         """A fresh model (`convert.init_wavenet`, drawn from `generator`)
         or the one given, with the data-dependent init on `batch` when the
-        config asks for it, an EMA copy and a fresh optimizer."""
+        config asks for it, an EMA copy and a fresh optimizer. A fresh
+        model has the speaker input where the config has gin_channels > 0
+        and `batch` carries "g", as the JAX init makes it (:38-41)."""
         wn = self.cfg.wavenet
         if model is None:
-            model = init_wavenet(self.cfg, generator, self.device)
+            b = self.batch_to_device(batch) if batch is not None else {}
+            model = init_wavenet(self.cfg, generator, self.device,
+                                 global_conditioning="g" in b)
             if (wn.weight_normalization and wn.data_dependent_init
                     and not skip_data_dependent_init):
                 log("Applying weight normalization data-dependent init "
                     "forward pass (reference wavenet train.py:287-298)")
-                b = self.batch_to_device(batch)
-                data_dependent_init(model, b["x"], b["c"],
+                data_dependent_init(model, b["x"], b["c"], b.get("g"),
                                     init_scale=wn.init_scale)
         model = model.to(self.device).requires_grad_(True)
         ema = copy.deepcopy(model).requires_grad_(False)
@@ -80,8 +83,14 @@ class WaveNetTrainer:
         return WaveNetTrainState(0, model, ema, WaveNetAdam(self.cfg, params))
 
     def batch_to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's tensors on the device; its speaker input "g" (ids
+        [B] or features [B, gin]) only where the config has
+        gin_channels > 0 (JAX :38, :62, :100)."""
+        keys = list(BATCH_KEYS)
+        if self.cfg.wavenet.gin_channels > 0 and batch.get("g") is not None:
+            keys.append("g")
         out = {}
-        for k in BATCH_KEYS:
+        for k in keys:
             v = batch[k]
             v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
             out[k] = v.to(self.device)
@@ -91,8 +100,8 @@ class WaveNetTrainer:
         return self.timer(name) if self.timer else contextlib.nullcontext()
 
     def _loss(self, model, b, *, train: bool, seed=None):
-        y_hat, _ = model.train_forward(b["x"], b["c"], train=train,
-                                       seed=seed)
+        y_hat, _ = model.train_forward(b["x"], b["c"], b.get("g"),
+                                       train=train, seed=seed)
         return compute_wavenet_loss(y_hat, b["y"], b["input_lengths"],
                                     self.cfg)
 
@@ -143,6 +152,7 @@ class WaveNetTrainer:
         terms)."""
         b = self.batch_to_device(batch)
         model = state.ema if use_ema else state.model
-        y_hat, _ = model.train_forward(b["x"], b["c"], train=False)
+        y_hat, _ = model.train_forward(b["x"], b["c"], b.get("g"),
+                                       train=False)
         return y_hat, compute_wavenet_loss(y_hat, b["y"], b["input_lengths"],
                                            self.cfg)

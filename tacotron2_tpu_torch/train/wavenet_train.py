@@ -15,9 +15,12 @@ the plots where matplotlib imports), each behind an `EvalFailureGuard`.
 The scalars go to <log_dir>/metrics.jsonl every `summary_interval` steps
 ("wavenet/", and "eval/" at evals; `utils/summary.py`), and
 `profile_start`/`profile_end` trace the steps between them with
-torch.profiler (JAX :79-80). The speaker-embedding export is a no-op:
-global conditioning is not ported (`WaveNetTrainer` refuses it). The
-curve goes to <log_dir>/wavenet_curve.jsonl, one JSON object a step:
+torch.profiler (JAX :79-80). At each checkpoint a model with a speaker
+table (gin_channels > 0, `use_speaker_embedding`, and a first batch that
+carries "g") writes it for the embedding projector,
+`_export_speaker_embeddings` (:127-147): <log_dir>/speaker_embeddings/
+embeddings.tsv and metadata.tsv; without one it writes nothing, as in
+JAX. The curve goes to <log_dir>/wavenet_curve.jsonl, one JSON object a step:
 step, loss, grad_norm, elapsed_s, and at eval steps eval_loss.
 """
 
@@ -126,6 +129,7 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
                     or step == steps:
                 mgr.save(step, state)
                 log(f"Saved checkpoint at step {step} (params + EMA shadow)")
+                _export_speaker_embeddings(cfg, state, log_dir)
             if eval_interval and step % eval_interval == 0:
                 rec.update(_eval_losses(trainer, state, feeder, bs, step,
                                         loss_guard, summary))
@@ -141,6 +145,26 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
         mgr.save(state.step, state)
     log(f"WaveNet training complete at step {state.step}", slack=True)
     return ckpt_dir, state
+
+
+def _export_speaker_embeddings(cfg, state, log_dir):
+    """The speaker table of the trained weights in the embedding
+    projector's TSV layout (reference wavenet_vocoder/train.py:26-39,
+    327-334): embeddings.tsv, one tab-separated row a speaker, and
+    metadata.tsv, one label a row; nothing without the table."""
+    wn = cfg.wavenet
+    table = state.model.gc_embedding
+    if wn.gin_channels <= 0 or not wn.use_speaker_embedding or table is None:
+        return
+    emb_dir = os.path.join(log_dir, "speaker_embeddings")
+    os.makedirs(emb_dir, exist_ok=True)
+    arr = table.detach().float().cpu().numpy()
+    with open(os.path.join(emb_dir, "embeddings.tsv"), "w") as f:
+        for row in arr:
+            f.write("\t".join(f"{x:.6f}" for x in row) + "\n")
+    with open(os.path.join(emb_dir, "metadata.tsv"), "w") as f:
+        f.write("\n".join(f"speaker_{i}" for i in range(len(arr))) + "\n")
+    log(f"Speaker embedding projector export updated ({arr.shape})")
 
 
 def _eval_losses(trainer, state, feeder, batch_size, step, guard,
@@ -169,7 +193,9 @@ def _eval_generation(cfg, state, batch, eval_dir, step, guard, device):
     """Vocode the first batch's first mel with the EMA weights
     (train.py:89-126) into wave_eval/step-<step>-pred.wav, with its wave
     plot against the target and the plot of the wav's mel (preemphasised,
-    rescaled by its peak as the preprocessing does) against the input."""
+    rescaled by its peak as the preprocessing does) against the input.
+    An unconditioned model cannot vocode a mel: its synthesizer raises
+    where the JAX one does, and the guard counts the failure."""
     from ..synth.wavenet_synth import WaveNetSynthesizer
     try:
         t0 = time.time()

@@ -584,47 +584,61 @@ def test_sample_without_kernel_weights_still_raises_on_cuda_tensors():
         wk.sample(None, cfg, _Cuda(), None)
 
 
-REFUSALS = {"upsample_type": dict(upsample_type="1D"),
+REFUSALS = {"upsample_type": dict(upsample_type="Bilinear"),
             "cin_channels": dict(cin_channels=0),
             "gin_channels": dict(gin_channels=4),
             "kernel_size": dict(kernel_size=2)}
+# the options whose variants the JAX package fails on as well: an unknown
+# upsample type (its UpsampleNetwork raises ValueError) and vocoding
+# without local conditioning (no upsample network: an AttributeError)
+RAISES = ("upsample_type", "cin_channels")
+
+
+def _build_or_vocode(cfg):
+    """Build the WaveNet and upsample one mel, as a synthesizer does."""
+    model = TorchWaveNet(cfg)
+    model.upsample(torch.zeros(1, 3, cfg.wavenet.cin_channels))
+    return model
 
 
 @pytest.mark.parametrize("option", list(REFUSALS))
 def test_wavenet_refusals_raise_value_error(option):
-    """The WaveNet variants the port does not cover raise ValueError naming
-    the option (they were bare asserts): the model's upsample, local and
-    global conditioning, and the sampler's kernel_size."""
+    """The WaveNet options the JAX package fails on raise ValueError
+    naming the option (not bare asserts): an unknown upsample type when
+    the model is built, cin_channels <= 0 when a mel is vocoded. Global
+    conditioning and kernel_size 2 are taken: the model builds, vocodes
+    and gives the sampler its parameters."""
     cfg = head_cfg("gaussian", TorchConfig)
     cfg = cfg.replace(wavenet=dataclasses.replace(cfg.wavenet,
                                                   **REFUSALS[option]))
-    with pytest.raises(ValueError, match=option):
-        if option == "kernel_size":
-            extract_sampler_params({}, cfg, "cpu")
-        else:
-            TorchWaveNet(cfg)
+    if option in RAISES:
+        with pytest.raises(ValueError, match=option):
+            _build_or_vocode(cfg)
+        return
+    from tacotron2_tpu_torch.convert import wavenet_to_flax
+    model = _build_or_vocode(cfg)
+    sp = extract_sampler_params(wavenet_to_flax(model), cfg, "cpu")
+    assert len(sp.layers) == cfg.wavenet.layers
 
 
 def test_wavenet_refusals_hold_under_python_O():
     """`python -O` strips asserts; the refusals still raise."""
     code = ("import dataclasses\n"
+            "import torch\n"
             "from tacotron2_tpu_torch.config import Config\n"
             "from tacotron2_tpu_torch.models.wavenet.model import WaveNet\n"
-            "from tacotron2_tpu_torch.models.wavenet.sampler import "
-            "extract_sampler_params\n"
             "assert False, 'asserts run'\n")
     checks = ("cfg = Config()\n"
               "for kw in ({opts}):\n"
               "    c = cfg.replace(wavenet=dataclasses.replace(cfg.wavenet, "
               "**kw))\n"
               "    try:\n"
-              "        (extract_sampler_params({{}}, c, 'cpu') if 'kernel_size'"
-              " in kw else WaveNet(c))\n"
+              "        WaveNet(c).upsample(torch.zeros(1, 3, 80))\n"
               "    except ValueError:\n"
               "        continue\n"
               "    raise SystemExit(f'no ValueError for {{kw}}')\n"
               "print('refused')\n").format(
-        opts=", ".join(repr(v) for v in REFUSALS.values()))
+        opts=", ".join(repr(REFUSALS[k]) for k in RAISES))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-O", "-c", code + checks],
                          capture_output=True, text=True, cwd=root,

@@ -31,11 +31,15 @@ def test_port_files_exist():
     # the decode kernels' envelope (bf16 rounding, smoothing, f32 weights),
     # the WaveNet stack kernels' (f32, f32 activations, every width) and
     # the Tacotron variants' parity and routes (HighwayNet, CBHG and
-    # ReferenceEncoderAdaIn in models/tacotron/modules.py)
+    # ReferenceEncoderAdaIn in models/tacotron/modules.py), the WaveNet
+    # variants' (the upsamplers in models/wavenet/modules.py) and the
+    # preprocessing's
     for name in ("test_torch_decode_envelope.py",
                  "test_torch_wavenet_stack_envelope.py",
                  "test_torch_model_variants.py",
-                 "test_torch_variant_routes.py"):
+                 "test_torch_variant_routes.py",
+                 "test_torch_wavenet_variants.py",
+                 "test_torch_preprocess.py"):
         assert os.path.exists(os.path.join(ROOT, "tests", name))
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
@@ -53,7 +57,8 @@ def test_port_files_exist():
                 "disc/data_preprocess.py", "disc/tf_import.py",
                 "utils/summary.py", "utils/infolog.py", "utils/plot.py",
                 "eval/analyze.py", "models/tacotron/modules.py",
-                "models/tacotron/decoder.py", "synth/pipeline.py"):
+                "models/tacotron/decoder.py", "synth/pipeline.py",
+                "data/preprocess.py", "models/wavenet/modules.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 

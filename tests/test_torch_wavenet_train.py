@@ -335,9 +335,23 @@ def test_paper_preset_mol_train_step():
 
 
 def test_trainer_refuses_global_conditioning():
-    cfg = port_cfg(tiny_wn_config(gin_channels=4))
-    with pytest.raises(ValueError, match="gin_channels"):
-        WaveNetTrainer(cfg, device="cpu")
+    """The trainer takes global conditioning: from a batch that carries
+    speaker ids "g" it builds the gin_channels=4 model with its speaker
+    table and gin convs, and its steps are finite and move the table
+    (tests/test_torch_wavenet_variants.py holds them against JAX)."""
+    cfg = port_cfg(tiny_wn_config(gin_channels=4, use_speaker_embedding=True,
+                                  n_speakers=3))
+    batch = dict(make_batch(cfg), g=np.asarray([1, 2], np.int32))
+    trainer = WaveNetTrainer(cfg, device="cpu")
+    state = trainer.init_state(torch.Generator().manual_seed(0), batch)
+    assert state.model.gc_embedding.shape == (3, 4)
+    table = state.model.gc_embedding.detach().clone()
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        state, metrics = trainer.train_step(state, batch, gen)
+        assert np.isfinite(float(metrics["loss"]))
+    moved = (state.model.gc_embedding - table).abs().amax(1)
+    assert moved[1] > 0 and moved[2] > 0 and moved[0] == 0
 
 
 # ------------------------------------------- feeder, checkpoints, the loop
