@@ -255,6 +255,25 @@ Phases, each printing its wall seconds:
     raises); then `cli create-metadata`, `preprocess` and
     `wavenet-preprocess` of 16 r5 wavs and `cli train --model WaveNet`
     (1D upsample) for 3 steps on the map.txt; each route printed;
+30. (w) data parallelism (`tacotron2_tpu_torch/parallel/`): (a) an nccl
+    group of one rank in this process, a bf16 Tacotron step and a WaveNet
+    step through the data-parallel trainers against the plain ones; (b)
+    two gloo ranks spawned on the one card (nccl refuses two ranks on one
+    device), each from the r5 checkpoints: 2 Tacotron steps on 8 of 16
+    train rows a rank (each padded to its own longest; the group pads to
+    the global batch's) in bf16 and in f32 compute, 2 WaveNet steps from
+    init_wavenet on 8 of phase 19's 16 crops at dropout 0, the serving
+    program's sharded
+    call over the 8 held-out texts (4 a rank) and the sharded sampler on
+    phase 5's [8, 512] window; each held against the one-process run on
+    the card that this process makes meanwhile (f32 terms 1e-5 of
+    themselves, bf16 1e-3 of the step's loss as phase 16's whole-step
+    gate, the program and sampler bit for bit), the ranks' parameters bit
+    for bit alike, the launches of 4a/4b, 5a/5b and kernels 1 and 2
+    counted on each rank and those of 1 and 2 equal to the one-process
+    program's; a rank that fails or outlives
+    DP_TIMEOUT_S fails the phase. Its times are of two ranks sharing one
+    card, no scaling figure;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode, Griffin-Lim route and WaveNet variant sampled.
 
@@ -4897,6 +4916,419 @@ def wavenet_variants_phase(serve_in, gt, tparams, stats, wparams, seed):
     return entries
 
 
+# phase 30: data parallelism (tacotron2_tpu_torch/parallel/dist.py). (a)
+# An nccl group of one rank in this process: the data-parallel wrappers of
+# the Tacotron and WaveNet steps against the plain steps, one step each.
+# (b) Two gloo ranks spawned on this one card (nccl refuses two ranks on
+# one device), each loading the r5 checkpoints: Tacotron steps at the r5
+# width on DP_TACO_ROWS train rows (each rank its half, padded to its own
+# longest, the group padding them to the global batch's) in bf16 and in
+# f32 compute, held to the one-process step on the global batch on the
+# card; WaveNet steps from init_wavenet on phase 19's crops at dropout 0
+# (the ranks' stack dropout seeds are seed + rank, as JAX's are, so only
+# there do the two agree), held likewise; the serving program's sharded
+# call over the 8 held-out texts and the sharded sampler on phase 5's
+# [8, 512] window, each rank's rows held to the one-process program and
+# sampler on those rows with that rank's seed. Gates: f32 DP_F32_RTOL on
+# every loss term and grad_norm (the same function, the group's sums in
+# another order); bf16 DP_BF16_RTOL of the step's loss on every term
+# (phase 16's whole-step gate: an f32 sum order may move an isolated bf16
+# rounding) and DP_BF16_NORM_RTOL on grad_norm; the two ranks'
+# parameters bit for bit alike after the steps; the serving outputs and
+# the samples of the same kernels on the same rows and numbers equal,
+# lengths exactly, each kernel's launches on a rank those of the
+# one-process program on its rows (kernel 1 launches the decode's chain of
+# blocks, kernel 2 once). The ranks share one card, so no time of this
+# phase is a scaling figure.
+DP_WORLD = 2
+DP_TACO_ROWS, DP_STEPS = 16, 2
+DP_TIMEOUT_S = 600
+DP_F32_RTOL = 1e-5
+DP_BF16_RTOL = 1e-3
+DP_BF16_NORM_RTOL = 1e-2
+DP_SERVE_ATOL = 1e-6
+DP_PROG_SEED = 30
+DP_TERMS = ("loss", "before_loss", "after_loss", "stop_token_loss",
+            "regularization_loss", "style_emb_loss_emt",
+            "style_emb_loss_spk", "style_emb_orthog_loss")
+
+
+def dp_taco_cfgs():
+    """{name: config} of phase 30's Tacotron runs: the r5 training config
+    (bf16 compute, bf16 kernels 4a/4b) and its f32 version."""
+    cfg = train_config()
+    return {"taco_bf16": cfg,
+            "taco_f32": with_tacotron(cfg, compute_dtype="float32",
+                                      fused_train_dtype="float32")}
+
+
+def dp_wavenet_cfg():
+    cfg = r5_config()
+    return cfg.replace(wavenet=dataclasses.replace(cfg.wavenet, dropout=0.0))
+
+
+def dp_taco_batches(cfg):
+    """(the global batch of the first DP_TACO_ROWS train rows, padded to
+    its longest, [each rank's rows padded to its own longest])."""
+    from tacotron2_tpu_torch.eval.convergence import batch_from_rows
+    texts = corpus_texts()
+    mel_dir = os.path.join(R5, "corpus", "mels")
+    rows = [("corpus", f"audio-{i}.npy", f"mel-{i}.npy", "", "", "", "", t)
+            for i, t in enumerate(texts[:DP_TACO_ROWS])]
+    n = DP_TACO_ROWS // DP_WORLD
+    return (batch_from_rows(rows, mel_dir, cfg),
+            [batch_from_rows(rows[r * n:(r + 1) * n], mel_dir, cfg)
+             for r in range(DP_WORLD)])
+
+
+def dp_wavenet_batches(seed):
+    """(phase 19's crops of rows 0-15 as one global batch, [each rank's
+    rows])."""
+    import numpy as np
+    pairs = r5_wavenet_rows(os.path.join(R5, "corpus"), WN_ROWS)
+    rng = np.random.default_rng(seed + 30)
+    b = wavenet_batch(pairs, [int(rng.integers(0, len(m) - WN_CROP_FRAMES
+                                               + 1)) for _, m in pairs])
+    n = len(WN_ROWS) // DP_WORLD
+    return b, [{k: v[r * n:(r + 1) * n] for k, v in b.items()}
+               for r in range(DP_WORLD)]
+
+
+def params_digest(model):
+    import hashlib
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_taco_run(cfg, tparams, stats, batch, seed, dp, steps=DP_STEPS):
+    """`steps` Tacotron steps from the r5 weights on `batch`, through
+    `TacotronTrainer(dp=dp)` (the plain trainer for None), the generator
+    of step i seeded seed + i: each step's scalars, kernel 4a's and 4b's
+    launches, the seconds and the parameters' digest."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.convert import load_tacotron
+    from tacotron2_tpu_torch.models.tacotron.model import Tacotron
+    from tacotron2_tpu_torch.ops import tacotron_train_kernel as tk
+    from tacotron2_tpu_torch.train.tacotron_step import TacotronTrainer
+    dev = dp.device if dp is not None else torch.device("cuda")
+    trainer = TacotronTrainer(cfg, device=dev, dp=dp)
+    state = trainer.init_state(
+        model=load_tacotron(Tacotron(cfg), tparams, stats).to(dev))
+    metrics = []
+    tk.train_launches = tk.bwd_launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    for i in range(steps):
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        state, m = trainer.train_step(state, batch, gen)
+        metrics.append({k: float(v) for k, v in m.items()
+                        if np.ndim(v) == 0})
+    torch.cuda.synchronize()
+    return dict(metrics=metrics, seconds=time.time() - ts,
+                launches=(tk.train_launches, tk.bwd_launches),
+                digest=params_digest(state.model))
+
+
+def dp_wavenet_run(batch, seed, dp, steps=DP_STEPS):
+    """`steps` WaveNet steps at dropout 0 through `WaveNetTrainer(dp=dp)`
+    from `init_wavenet`'s draw of `seed` (as phase 19's run: from the r5
+    EMA weights Adam's first step throws the Gaussian loss to the
+    hundreds, where the second step's loss magnifies every difference):
+    scalars, kernel 5a's and 5b's launches, seconds, digest."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    cfg = dp_wavenet_cfg()
+    dev = dp.device if dp is not None else torch.device("cuda")
+    trainer = WaveNetTrainer(cfg, device=dev, dp=dp)
+    state = trainer.init_state(torch.Generator().manual_seed(seed), batch)
+    gen = torch.Generator().manual_seed(seed + 1)
+    metrics = []
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    for _ in range(steps):
+        state, m = trainer.train_step(state, batch, gen)
+        metrics.append({k: float(v) for k, v in m.items()
+                        if np.ndim(v) == 0})
+    torch.cuda.synchronize()
+    return dict(metrics=metrics, seconds=time.time() - ts,
+                launches=(wtk.fwd_launches, wtk.bwd_launches),
+                digest=params_digest(state.model))
+
+
+def dp_program(tparams, stats, wparams, batch, seed, device):
+    from tacotron2_tpu_torch.synth.pipeline import TextToWavProgram
+    return TextToWavProgram(r5_config(), tparams, stats, wparams,
+                            batch=batch, steps=MAX_STEPS, t_in=T_IN,
+                            t_ref=T_REF, device=device, seed=seed)
+
+
+def dp_rank(rank, world, port, spec_path, out_dir):
+    """One rank of phase 30 (b), started by torch.multiprocessing: the
+    group from torchrun's env with gloo on the shared card, the r5
+    checkpoints, then each run with its kernel counts set to 0 just before
+    and read just after; its results pickled to <out_dir>/rank<r>.pkl."""
+    import pickle
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+    from tacotron2_tpu_torch.convert import load_checkpoints
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    from tacotron2_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp = dist.maybe_initialize_distributed(backend="gloo", device="cuda:0",
+                                           timeout_s=DP_TIMEOUT_S)
+    assert (dp.rank, dp.world, str(dp.device)) == (rank, world, "cuda:0")
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    tparams, stats, wparams = load_checkpoints(
+        os.path.join(R5, "taco_ckpt.msgpack"),
+        os.path.join(R5, "wn_ckpt.msgpack"))
+    seed, out = spec["seed"], {}
+    try:
+        for name, cfg in dp_taco_cfgs().items():
+            out[name] = dp_taco_run(cfg, tparams, stats,
+                                    spec[name][rank], seed, dp)
+        out["wavenet"] = dp_wavenet_run(spec["wavenet"][rank], seed, dp)
+        B = len(spec["serve"][0])
+        prog = dp_program(tparams, stats, wparams, B // world,
+                          DP_PROG_SEED, dp.device)
+        dk.rows_launches = wk.launches = 0
+        torch.cuda.synchronize()
+        ts = time.time()
+        served = prog.sharded_call(dp, *spec["serve"])
+        torch.cuda.synchronize()
+        out["serve"] = dict(
+            seconds=time.time() - ts,
+            launches=(dk.rows_launches, wk.launches),
+            outputs=[x.cpu().numpy() for x in served])
+        c_w = torch.as_tensor(spec["c_w"], device=dp.device)
+        wk.launches = 0
+        torch.cuda.synchronize()
+        ts = time.time()
+        s = wk.sharded_sample(prog.sampler_params, r5_config(), c_w,
+                              seed, dp, kernel_weights=prog.sampler_kernel)
+        torch.cuda.synchronize()
+        out["sample"] = dict(seconds=time.time() - ts, launches=wk.launches,
+                             samples=s.cpu().numpy())
+    finally:
+        dist.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def hold_dp(name, got, want, rtol, norm_rtol, scale="term"):
+    """Each step's loss terms within rtol of the one-process step's: of
+    each term's own value (scale "term", with an absolute floor of rtol ·
+    1e-3 for the terms near 0), or of the step's loss (scale "loss",
+    phase 16's whole-step gate: a bf16 rounding that an f32 sum order
+    moves shifts a small term such as the stop loss by more than rtol of
+    itself); grad_norm within norm_rtol of itself. Returns the largest
+    relative differences, each of its own term."""
+    worst = {}
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k in [t for t in DP_TERMS if t in w] + ["grad_norm"]:
+            d = abs(g[k] - w[k])
+            if k == "grad_norm":
+                bound = norm_rtol * abs(w[k])
+            elif scale == "loss":
+                bound = rtol * abs(w["loss"])
+            else:
+                bound = rtol * abs(w[k]) + rtol * 1e-3
+            assert d <= bound, (name, i, k, g[k], w[k])
+            worst[k] = max(worst.get(k, 0.0), d / max(abs(w[k]), 1e-12))
+    print(f"{name}: largest relative difference from the one-process "
+          f"step over {len(want['metrics'])} step(s): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def dp_phase(tparams, stats, wparams, serve_in, c_w, seed, smi):
+    """Phase 30: data parallelism, (a) nccl at world 1 in this process,
+    (b) two gloo ranks on the card. Returns {kernels entry name: [its
+    launches on rank 0, on rank 1]} of the ranks' runs."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from tacotron2_tpu_torch.models.wavenet.distributions import draw_noise
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    from tacotron2_tpu_torch.parallel import dist
+    t0 = phase(30, f"(w) data parallelism: nccl at world 1; {DP_WORLD} gloo "
+               f"ranks on one card: Tacotron ({DP_TACO_ROWS} rows, bf16 and "
+               f"f32), WaveNet ({len(WN_ROWS)} crops), the served program "
+               f"and the sampler, sharded")
+    print(f"{smi}; the ranks share one card: no time of this phase is a "
+          f"scaling figure")
+    taco = {name: dp_taco_batches(cfg) for name, cfg in dp_taco_cfgs().items()}
+    wn_global, wn_ranks = dp_wavenet_batches(seed)
+
+    # ---- (a) an nccl group of one rank in this process
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dp1 = dist.maybe_initialize_distributed()
+        assert dp1 is not None and dp1.world == 1
+        assert torch.distributed.get_backend() == "nccl"
+        try:
+            dist.rank_device("cuda:0", "nccl", 0, 2)
+            raise AssertionError("nccl was given two ranks on one card")
+        except ValueError as e:
+            print(f"two ranks on one card under nccl: ValueError: {e}")
+        cfg = dp_taco_cfgs()["taco_bf16"]
+        glob = taco["taco_bf16"][0]
+        got = dp_taco_run(cfg, tparams, stats, glob, seed, dp1, steps=1)
+        want = dp_taco_run(cfg, tparams, stats, glob, seed, None, steps=1)
+        hold_dp("(a) Tacotron bf16, nccl world 1", got, want, DP_BF16_RTOL,
+                DP_BF16_NORM_RTOL, scale="loss")
+        assert got["launches"] == want["launches"] == (1, 1), got
+        got = dp_wavenet_run(wn_global, seed, dp1, steps=1)
+        want = dp_wavenet_run(wn_global, seed, None, steps=1)
+        hold_dp("(a) WaveNet bf16, nccl world 1", got, want, DP_BF16_RTOL,
+                DP_BF16_NORM_RTOL, scale="loss")
+        assert got["launches"] == want["launches"] == (1, 1), got
+    finally:
+        dist.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # ---- (b) two gloo ranks sharing the card; the one-process references
+    # run here meanwhile
+    tmp = tempfile.mkdtemp(prefix="dp30_")
+    spec = dict(seed=seed, wavenet=wn_ranks, serve=serve_in, c_w=c_w,
+                **{name: ranks for name, (_, ranks) in taco.items()})
+    spec_path = os.path.join(tmp, "spec.pkl")
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    ts = time.time()
+    ctx = mp.spawn(dp_rank, args=(DP_WORLD, free_port(), spec_path, tmp),
+                   nprocs=DP_WORLD, join=False)
+    cfg5 = r5_config()
+    n = len(serve_in[0]) // DP_WORLD
+    try:
+        want = {name: dp_taco_run(cfg, tparams, stats, taco[name][0], seed,
+                                  None)
+                for name, cfg in dp_taco_cfgs().items()}
+        want["wavenet"] = dp_wavenet_run(wn_global, seed, None)
+        c_dev = torch.as_tensor(c_w, device="cuda")
+        serve_ref, sample_ref, ref_launches = [], [], []
+        for r in range(DP_WORLD):
+            rows = slice(r * n, (r + 1) * n)
+            # the program's first call seeds seed + 1: shard r of the
+            # sharded call seeds DP_PROG_SEED + world + r
+            prog = dp_program(tparams, stats, wparams, n,
+                              DP_PROG_SEED + DP_WORLD + r - 1, "cuda")
+            dk.rows_launches = wk.launches = 0
+            serve_ref.append([x.cpu().numpy() for x in
+                              prog(*(x[rows] for x in serve_in))])
+            ref_launches.append((dk.rows_launches, wk.launches))
+            gen = torch.Generator(device="cuda").manual_seed(
+                seed + r * wk.SHARD_SEED_STRIDE)
+            noise = draw_noise(cfg5, n, c_dev.shape[1], gen, "cuda")
+            sample_ref.append(wk.sample(
+                prog.sampler_params, cfg5, c_dev[rows].contiguous(), noise,
+                kernel_weights=prog.sampler_kernel).cpu().numpy())
+            del prog
+        while not ctx.join(timeout=max(1.0, ts + DP_TIMEOUT_S - time.time())):
+            if time.time() >= ts + DP_TIMEOUT_S:
+                raise TimeoutError(f"phase 30's ranks still run after "
+                                   f"{DP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.time() - ts
+    res = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"ranks and the one-process references: {ranks_s:.3f} s")
+
+    counts = {}
+    names = dict(taco_bf16=("tacotron_teacher_forced_train", "tacotron_bptt"),
+                 taco_f32=("tacotron_teacher_forced_train_f32",
+                           "tacotron_bptt_f32"),
+                 wavenet=("wavenet_stack_fwd", "wavenet_stack_bwd"))
+    for name, rtol, nrtol, scale in (
+            ("taco_bf16", DP_BF16_RTOL, DP_BF16_NORM_RTOL, "loss"),
+            ("taco_f32", DP_F32_RTOL, DP_F32_RTOL, "term"),
+            ("wavenet", DP_BF16_RTOL, DP_BF16_NORM_RTOL, "loss")):
+        r0, r1 = res[0][name], res[1][name]
+        assert r0["metrics"] == r1["metrics"], name
+        assert r0["digest"] == r1["digest"], f"{name}: the ranks drifted"
+        hold_dp(f"(b) {name}, {DP_WORLD} gloo ranks", r0, want[name], rtol,
+                nrtol, scale)
+        per = [r[name]["launches"] for r in res]
+        print(f"(b) {name}: {DP_STEPS} steps; launches per rank "
+              f"{names[name][0]}/{names[name][1]} {per}; seconds per rank "
+              + ", ".join(f"{r[name]['seconds']:.3f}" for r in res)
+              + f" (one process, the global batch: "
+                f"{want[name]['seconds']:.3f})")
+        assert all(c == (DP_STEPS, DP_STEPS) for c in per), per
+        for j, k in enumerate(names[name]):
+            counts[k] = [c[j] for c in per]
+
+    served = [r["serve"]["outputs"] for r in res]
+    for out in served[1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(out, served[0]))
+    samples, wav_len, mel, _, mel_len = served[0]
+    for r in range(DP_WORLD):
+        rows = slice(r * n, (r + 1) * n)
+        s_r, wl_r, m_r, _, ml_r = serve_ref[r]
+        assert np.array_equal(wav_len[rows], wl_r), (r, wav_len, wl_r)
+        assert np.array_equal(mel_len[rows], ml_r), (r, mel_len, ml_r)
+        dm = float(np.abs(mel[rows] - m_r).max())
+        ds = float(np.abs(samples[rows] - s_r).max())
+        dw = float(np.abs(res[0]["sample"]["samples"][rows]
+                          - sample_ref[r]).max())
+        print(f"(b) rank {r}'s rows against the one-process program seeded "
+              f"{DP_PROG_SEED + DP_WORLD + r} and the sampler seeded "
+              f"{seed + r * wk.SHARD_SEED_STRIDE}: max |mel difference| "
+              f"{dm:.3e}, |sample difference| {ds:.3e}, sharded sampler "
+              f"{dw:.3e}")
+        assert max(dm, ds, dw) <= DP_SERVE_ATOL, (r, dm, ds, dw)
+    per = [r["serve"]["launches"] for r in res]
+    per_s = [r["sample"]["launches"] for r in res]
+    print(f"(b) sharded_call of {len(serve_in[0])} texts: launches per rank "
+          f"(kernel 1, kernel 2) {per} (the one-process program on each "
+          f"rank's rows: {ref_launches}); seconds per rank "
+          + ", ".join(f"{r['serve']['seconds']:.3f}" for r in res))
+    print(f"(b) sharded_sample [{c_w.shape[0]}, {c_w.shape[1]}]: launches "
+          f"per rank {per_s}; seconds per rank "
+          + ", ".join(f"{r['sample']['seconds']:.3f}" for r in res))
+    # kernel 1 launches the decode's chain of blocks, kernel 2 once
+    assert per == ref_launches and all(c[1] == 1 for c in per), per
+    assert per_s == [1] * DP_WORLD, per_s
+    counts["tacotron_decoder"] = [c[0] for c in per]
+    counts["wavenet_sampler_bf16"] = [c[1] + s for c, s in zip(per, per_s)]
+    done(30, t0)
+    return counts
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5079,6 +5511,7 @@ def main(argv=None):
 
     W = SAMPLER_WINDOW
     c_w = im["c_up"][:, :W].contiguous()
+    c_w30 = c_w.float().cpu().numpy()       # phase 30's sampler window
     n_w = im["noise"][:, :, :W].contiguous()
     sp = prog.sampler_params
     bf16 = dict(cache_dtype=torch.bfloat16, weight_dtype=torch.bfloat16)
@@ -5647,6 +6080,13 @@ def main(argv=None):
     # ---- 29. (v) the WaveNet variants on their routes; preprocessing
     kernels.extend(wavenet_variants_phase((ids, lengths, refs), gt,
                                           tparams, stats, wparams, seed))
+
+    # ---- 30. (w) data parallelism: nccl at world 1, two gloo ranks
+    p30 = dp_phase(tparams, stats, wparams, (ids, lengths, refs, refs),
+                   c_w30, seed, smi)
+    for entry in kernels:
+        if entry["name"] in p30:
+            entry["launches_phase30_per_rank"] = p30[entry["name"]]
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

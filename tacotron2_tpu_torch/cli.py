@@ -66,6 +66,9 @@ checkpointing under <base-dir>/logs-<model>:
   of the train.txt into <base-dir>/tacotron_output/gta/, then WaveNet
   training on its map.txt (--wavenet-train-steps, --wavenet-batch-size),
   resumable through <base-dir>/state_log;
+- under `torchrun --nproc_per_node N -m tacotron2_tpu_torch.cli train
+  ...` one data-parallel rank a card (`parallel/dist.py`): each steps on
+  batch_size / N rows of one global batch, rank 0 alone writes;
 - every model: train.log in the log directory (`--slack-url` posts the
   run's milestones, `--verbose` logs the whole config), metrics.jsonl,
   and with `--profile-start N [--profile-end M]` a torch.profiler trace
@@ -319,12 +322,23 @@ def read_seq(path: str) -> set:
 
 def cmd_train(args):
     """Train Tacotron, WaveNet, or both with GTA synthesis between; returns
-    the last stage's checkpoint directory."""
+    the last stage's checkpoint directory. Under torchrun's env the
+    data-parallel group starts first (JAX cli.py:73-78), one rank a card
+    (`--dist-backend`: nccl by default on the card, gloo on the CPU or
+    for ranks that share a card); rank 0 alone writes train.log."""
+    from .parallel import dist
     cfg = get_config(args.preset, args.hparams)
+    dp = dist.maybe_initialize_distributed(args.dist_backend, args.device,
+                                           cfg.mesh)
     log_dir = os.path.join(args.base_dir, f"logs-{args.model}")
-    os.makedirs(log_dir, exist_ok=True)
-    infolog_init(os.path.join(log_dir, "train.log"), args.model,
-                 args.slack_url)
+    if dist.is_chief():
+        os.makedirs(log_dir, exist_ok=True)
+        infolog_init(os.path.join(log_dir, "train.log"), args.model,
+                     args.slack_url)
+    if dp is not None:
+        args.device = str(dp.device)
+        log(f"Data-parallel group: rank {dp.rank} of {dp.world} on "
+            f"{dp.device} ({args.dist_backend or 'default'} backend)")
     log(cfg.debug_string() if args.verbose else
         f"Training {args.model} on {args.device}")
     if args.model == "Tacotron":
@@ -384,11 +398,15 @@ def _train_wavenet(cfg, args, log_dir, input_path, steps, batch_size, gta):
 def _train_sequencer(cfg, args, log_dir):
     """Tacotron training -> GTA synthesis -> WaveNet training (reference
     train.py:43-90), each stage recorded in <base-dir>/state_log so that
-    a rerun resumes after the last finished one."""
+    a rerun resumes after the last finished one. Under a data-parallel
+    group both trainings run on every rank; rank 0 alone runs the GTA
+    synthesis and writes the state_log, and the others wait for it."""
     from .synth.tacotron_synth import TacotronSynthesizer, run_gta_synthesis
     from .train.checkpoint import CheckpointManager
+    from .parallel import dist
     from .utils import flax_msgpack
 
+    chief = dist.is_chief()
     state_path = os.path.join(args.base_dir, "state_log")
     done = read_seq(state_path)
     out_dir = os.path.join(args.base_dir, "tacotron_output")
@@ -397,8 +415,9 @@ def _train_sequencer(cfg, args, log_dir):
         log("Tacotron Train")
         taco_dir = _train_tacotron(cfg, args, log_dir)
         done.add("taco")
-        save_seq(state_path, done)
-    if "GTA" not in done:
+        if chief:
+            save_seq(state_path, done)
+    if "GTA" not in done and chief:
         log("GTA Synthesis")
         mgr = CheckpointManager(taco_dir)
         tree = flax_msgpack.load(mgr.path(mgr.latest_step()))
@@ -411,6 +430,7 @@ def _train_sequencer(cfg, args, log_dir):
                           batch_size=args.batch_size or 32)
         done.add("GTA")
         save_seq(state_path, done)
+    dist.barrier()                  # the GTA map.txt is written
     ckpt_dir = os.path.join(log_dir, "wave_pretrained")
     if "wave" not in done:
         log("WaveNet Train")
@@ -419,7 +439,8 @@ def _train_sequencer(cfg, args, log_dir):
             args.wavenet_train_steps or args.train_steps,
             args.wavenet_batch_size, gta=True)
         done.add("wave")
-        save_seq(state_path, done)
+        if chief:
+            save_seq(state_path, done)
     log("Tacotron-2 pipeline complete", slack=True)
     return ckpt_dir
 
@@ -669,6 +690,10 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in TRAIN_FLAGS:
         tr.add_argument(f"--{flag}", action="store_true")
     tr.add_argument("--device", default="cuda")
+    tr.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun: the process group's backend "
+                         "(default nccl on the card, gloo on the CPU; gloo "
+                         "for ranks that share a card)")
     tr.set_defaults(func=cmd_train)
 
     dt = sub.add_parser("disc-train", help="emotion / speaker / accent "

@@ -31,6 +31,10 @@ path (the JAX package's native loader falls back to `np.load`,
   *_023.wav, or of 500 frames or more, dropped), `test_inputs` (constant
   30-frame examples) and `test_max_len` (longest rows first);
 - `prefetch`, a background thread;
+- `shard_by_host`: under a data-parallel group rank r of n takes the
+  stride shard r::n of the train split and the shuffle stream seeded
+  base + r (the test split stays whole on every rank), as the JAX feeder
+  does over its processes;
 - `create_fixed_eval_set`, the style-transfer eval manifest of `cli
   fixed-eval-set` (JAX :331): the same rows from the same seed.
 
@@ -49,6 +53,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ..config import Config
+from ..parallel.dist import rank_world
 from ..text import text_to_sequence
 from ..utils import log
 
@@ -89,7 +94,7 @@ class TacotronFeeder:
                  batches_per_group: Optional[int] = None,
                  pad_text_multiple: int = 1, pad_mel_multiple: int = 1,
                  seed: Optional[int] = None, test_inputs: bool = False,
-                 test_max_len: bool = False):
+                 test_max_len: bool = False, shard_by_host: bool = True):
         self.cfg = cfg
         self.data_folder = os.path.dirname(metadata_path)
         self.emt_only = emt_only
@@ -123,6 +128,15 @@ class TacotronFeeder:
         self.train_meta = [meta[i] for i in train_idx]
         self.test_meta = [meta[i] for i in test_idx]
         self._train_offset = 0
+        # a data-parallel group's rank takes its stride shard of the train
+        # split with its own shuffle stream; the test split is replicated
+        # (JAX feeder.py:107-118)
+        rank, world = rank_world()
+        if shard_by_host and world > 1:
+            self.train_meta = self.train_meta[rank::world]
+            base = (seed if seed is not None
+                    else cfg.train.tacotron_data_random_state)
+            self.rng = np.random.default_rng(base + rank)
         if test_max_len:
             for rows in (self.train_meta, self.test_meta):
                 rows.sort(key=lambda m: int(m[6]), reverse=True)

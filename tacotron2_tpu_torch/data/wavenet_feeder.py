@@ -27,6 +27,7 @@ import numpy as np
 
 from ..config import Config
 from ..ops.mulaw import is_mulaw_quantize
+from ..parallel.dist import rank_world
 from .feeder import train_test_split_indices
 
 
@@ -49,7 +50,8 @@ class WaveNetFeeder:
 
     def __init__(self, cfg: Config, metadata_path: str,
                  base_dir: Optional[str] = None, *, gta: bool = True,
-                 batches_per_group: int = 64, seed: Optional[int] = None):
+                 batches_per_group: int = 64, seed: Optional[int] = None,
+                 shard_by_host: bool = True):
         self.cfg = cfg
         self.gta = gta
         self.data_dir = os.path.dirname(metadata_path)
@@ -69,6 +71,14 @@ class WaveNetFeeder:
         self.train_meta = [self.metadata[i] for i in train_idx]
         self.test_meta = [self.metadata[i] for i in test_idx]
         self._train_offset = 0
+        # a data-parallel group's rank takes its stride shard of the train
+        # split with its own shuffle stream; the test split is replicated
+        # (JAX wavenet_feeder.py:69-78)
+        rank, world = rank_world()
+        if shard_by_host and world > 1:
+            self.train_meta = self.train_meta[rank::world]
+            base = seed if seed is not None else t.wavenet_data_random_state
+            self.rng = np.random.default_rng(base + rank)
 
     # -------------------------------------------------------------- loading
 

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...config import Config
+from ...parallel import dist
 from .attention import (SimpleBahdanauAttention, attention_step,
                         emt_context, fold_location, identity,
                         location_features)
@@ -227,13 +228,14 @@ def drop_masks(cfg: Config, batch: int, steps: int, generator=None,
     (L layers, P the widest; layer i reads the first prenet_layers[i] of
     its row): 1/keep where a uniform draw is below keep, else 0 (all ones
     at dropout_rate 0). The kernels' prenet (P, P) takes [B, steps, 2,
-    P]."""
+    P]. In a data-parallel step (`parallel.dist`) the rank's rows of the
+    global batch's draw."""
     tc = cfg.tacotron
     keep = 1.0 - float(tc.dropout_rate)
     shape = (batch, steps, len(tc.prenet_layers), max(tc.prenet_layers))
     if keep >= 1.0:
         return torch.ones(shape, device=device)
-    u = torch.rand(shape, generator=generator, device=device)
+    u = dist.rand_rows(shape, generator, device)
     return (u < keep).float() * (1.0 / keep)
 
 
@@ -242,13 +244,14 @@ def zoneout_masks(cfg: Config, batch: int, steps: int, generator=None,
     """Train-mode zoneout masks [B, steps, 4, U] bool for (c1, h1, c2, h2):
     True (the new state is taken) where a uniform draw is below 1 - z, as
     the TPU train kernel draws them (tacotron_train_kernel.py:212-236); all
-    True at zoneout_rate 0."""
+    True at zoneout_rate 0; in a data-parallel step the rank's rows of the
+    global batch's draw."""
     U = cfg.tacotron.decoder_lstm_units
     zo = float(cfg.tacotron.zoneout_rate)
     shape = (batch, steps, 4, U)
     if zo <= 0.0:
         return torch.ones(shape, dtype=torch.bool, device=device)
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - zo
+    return dist.rand_rows(shape, generator, device) < 1.0 - zo
 
 
 def _lstm(z, c, h, zo: float, m=None):

@@ -18,6 +18,15 @@ nat-GAN's 3-class discriminator loss `d_loss` with its 0.1-weighted
 emotion and speaker heads, and the generator terms `g_loss_p` /
 `g_loss_up` derated by `nat_gan_derate`; `loss` and `loss_no_mo_up` as
 JAX assembles them.
+
+In a data-parallel step (`parallel.dist.activate`) every term is the
+rank's share of the global batch's term, so that the shares sum to it
+over the group and so do their gradients: means divide by the global
+batch's count (the masked ones by counts all-reduced without gradient),
+the whole-batch norms and cosines take their sums over the group, and a
+term computed whole on every rank (the L2 term, the norms, the cosines)
+is counted once (`dist.once`). Outside a step each is the one-process
+term.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ...config import Config
+from ...parallel import dist
 
 # parameter-path tokens the L2 term leaves out (tacotron.py:862-867)
 L2_EXCLUDED = ("bias", "projection", "inputs_embedding", "lstm", "rnn", "gru",
@@ -43,7 +53,7 @@ def masked_mse(targets, outputs, lengths):
     mask = sequence_mask(lengths, targets.shape[1])[:, :, None].expand_as(
         targets)
     se = (targets - outputs) ** 2 * mask
-    return se.sum() / mask.sum().clamp(min=1.0)
+    return se.sum() / dist.global_count(mask.sum()).clamp(min=1.0)
 
 
 def masked_stop_ce(targets, logits, lengths, pos_weight: float = 1.0):
@@ -55,13 +65,14 @@ def masked_stop_ce(targets, logits, lengths, pos_weight: float = 1.0):
               + log_w * (torch.log1p(torch.exp(-logits.abs()))
                          + torch.relu(-logits)))
     masked = losses * mask
-    return masked.sum() / (masked != 0).float().sum().clamp(min=1.0)
+    return masked.sum() / dist.global_count(
+        (masked != 0).float().sum()).clamp(min=1.0)
 
 
 def stop_ce(targets, logits):
     """Unmasked sigmoid cross-entropy (the default, tacotron.py:778-779)."""
-    return (torch.relu(logits) - logits * targets
-            + torch.log1p(torch.exp(-logits.abs()))).mean()
+    return dist.batch_mean(torch.relu(logits) - logits * targets
+                           + torch.log1p(torch.exp(-logits.abs())))
 
 
 def linear_loss(targets, outputs, cfg: Config, lengths=None):
@@ -73,18 +84,19 @@ def linear_loss(targets, outputs, cfg: Config, lengths=None):
     n_priority = int(2000 / (au.sample_rate * 0.5) * au.num_freq)
     l1 = (targets - outputs).abs()
     if lengths is None:
-        return 0.5 * l1.mean() + 0.5 * l1[:, :, :n_priority].mean()
+        return (0.5 * dist.batch_mean(l1)
+                + 0.5 * dist.batch_mean(l1[:, :, :n_priority]))
     mask = sequence_mask(lengths, targets.shape[1])[:, :, None].expand_as(
         targets)
     l1 = l1 * mask
-    denom = mask.sum().clamp(min=1.0)
+    denom = dist.global_count(mask.sum()).clamp(min=1.0)
     return 0.5 * l1.sum() / denom + 0.5 * l1[:, :, :n_priority].sum() / denom
 
 
 def softmax_ce(logits, labels):
     """Mean softmax cross-entropy against integer labels."""
-    return -F.log_softmax(logits, -1).gather(
-        -1, labels.long()[:, None]).mean()
+    return dist.batch_mean(-F.log_softmax(logits, -1).gather(
+        -1, labels.long()[:, None]))
 
 
 def l2_regularization(named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -99,10 +111,20 @@ def l2_regularization(named_params: Iterable[Tuple[str, torch.Tensor]],
 
 
 def cossim(x, y):
-    """Cosine similarity of two whole tensors (tacotron.py:1267-1276)."""
-    xn = torch.sqrt((x ** 2).sum() + 1e-6)
-    yn = torch.sqrt((y ** 2).sum() + 1e-6)
-    return (x * y).sum() / xn / yn
+    """Cosine similarity of two whole tensors (tacotron.py:1267-1276), of
+    the global batch's rows in a data-parallel step."""
+    xx, yy, xy = dist.batch_sum(torch.stack([
+        (x ** 2).sum(), (y ** 2).sum(), (x * y).sum()])).unbind()
+    xn = torch.sqrt(xx + 1e-6)
+    yn = torch.sqrt(yy + 1e-6)
+    return xy / xn / yn
+
+
+def frobenius(x):
+    """‖x‖_F over the global batch's rows."""
+    if dist.active() is None:
+        return torch.linalg.norm(x)
+    return torch.sqrt(dist.batch_sum((x * x).sum()))
 
 
 def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
@@ -123,6 +145,7 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
     tc, gst, au = cfg.tacotron, cfg.gst, cfg.audio
     tgt = batch["mel_targets"]
     B = tgt.shape[0]
+    B_all = dist.global_rows(B)
     if tc.mask_decoder:
         lengths = batch["targets_lengths"]
         before = masked_mse(tgt, out["decoder_output"], lengths)
@@ -131,8 +154,8 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
                               out["stop_token_prediction"], lengths,
                               tc.cross_entropy_pos_weight)
     else:
-        before = ((tgt - out["decoder_output"]) ** 2).mean()
-        after = ((tgt - out["mel_outputs"]) ** 2).mean()
+        before = dist.batch_mean((tgt - out["decoder_output"]) ** 2)
+        after = dist.batch_mean((tgt - out["mel_outputs"]) ** 2)
         stop = stop_ce(batch["stop_token_targets"],
                        out["stop_token_prediction"])
     reg_weight = cfg.train.tacotron_reg_weight
@@ -140,7 +163,7 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
         reg_weight *= (1.0 / (2 * au.max_abs_value) if au.symmetric_mels
                        else 1.0 / au.max_abs_value)
     zero = tgt.new_zeros(())
-    reg = l2_regularization(named_params, reg_weight) + zero
+    reg = dist.once(l2_regularization(named_params, reg_weight)) + zero
     style_emt = style_spk = orthog = zero
     style_up_emt = style_up_spk = mo_up_emt = mo_up_spk = zero
     style_emt_adv = style_spk_adv = zero
@@ -149,9 +172,9 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
     derate = tc.unpaired_loss_derate
     if pretrained_emb_disc_all and out.get("refnet_out_mel_up_emt") \
             is not None:
-        mo_up_emt, mo_up_spk = (derate * ((B - cossim(
-            out[f"refnet_out_up_{k}"], out[f"refnet_out_mel_up_{k}"])) / B)
-            for k in ("emt", "spk"))
+        mo_up_emt, mo_up_spk = (dist.once(derate * ((B_all - cossim(
+            out[f"refnet_out_up_{k}"], out[f"refnet_out_mel_up_{k}"]))
+            / B_all)) for k in ("emt", "spk"))
     elif out.get("style_emb_logit_emt") is not None:
         style_emt = softmax_ce(out["style_emb_logit_emt"], emt)
         if adv_emb_disc and out.get("style_emb_logit_emt_adv") is not None:
@@ -181,19 +204,22 @@ def compute_losses(out: Dict, batch: Dict, named_params, cfg: Config, *,
         if gst.l2_spk_emb and not emt_only and \
                 gst.emt_attn_type != "style_tokens" and \
                 out.get("refnet_out_spk") is not None:
-            orthog = 0.1 * torch.linalg.norm(out["refnet_out_spk"])
+            orthog = 0.1 * frobenius(out["refnet_out_spk"])
             if use_unpaired and out.get("refnet_out_up_spk") is not None:
-                orthog = 0.1 * (torch.linalg.norm(out["refnet_out_spk"])
-                                + torch.linalg.norm(
-                                    out["refnet_out_up_spk"]))
+                orthog = 0.1 * (frobenius(out["refnet_out_spk"])
+                                + frobenius(out["refnet_out_up_spk"]))
+            orthog = dist.once(orthog)
     elif gst.use_orthog_loss and not emt_only and \
             not gst.adain and not pretrained_emb_disc_all and \
             out.get("refnet_out_spk") is not None:
+        rows = dist.gather_rows
         orthog = 0.02 * torch.linalg.norm(
-            out["refnet_out_emt"] @ out["refnet_out_spk"].t())
+            rows(out["refnet_out_emt"]) @ rows(out["refnet_out_spk"]).t())
         if use_unpaired and out.get("refnet_out_up_spk") is not None:
             orthog = orthog + 0.02 * torch.linalg.norm(
-                out["refnet_out_up_emt"] @ out["refnet_out_up_spk"].t())
+                rows(out["refnet_out_up_emt"])
+                @ rows(out["refnet_out_up_spk"]).t())
+        orthog = dist.once(orthog)
     lin = zero
     if tc.predict_linear and out.get("linear_outputs") is not None:
         if "linear_targets" not in batch:

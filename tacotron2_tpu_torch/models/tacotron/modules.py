@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel import dist
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
 
@@ -36,11 +38,12 @@ def _zeros(*shape):
 
 def dropout(x, rate: float, generator):
     """Inverted dropout with a uniform draw from `generator` (flax
-    nn.Dropout in train mode)."""
+    nn.Dropout in train mode); in a data-parallel step the rank's rows of
+    the global batch's draw."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = dist.rand_rows(x.shape, generator, x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -68,7 +71,13 @@ class BatchNorm(nn.Module):
     unpaired pass's reference encoders on its output) normalises with them
     and its gradient reaches the parameters through them. `live` holds
     them so, the graph's (mean, var) since the last `clear_live`; the
-    buffers hold their values."""
+    buffers hold their values.
+
+    In a data-parallel step (`parallel.dist.activate`) the statistics are
+    the global batch's: the sums of x and x² and the count, all-reduced
+    with autograd, so every rank normalises alike and moves its running
+    statistics alike (torch's SyncBatchNorm does not run on the CPU and
+    keeps torch's epsilon and variance)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -84,8 +93,16 @@ class BatchNorm(nn.Module):
             mean, var = self.live or (self.mean, self.var)
         else:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            if dist.active() is None:
+                mean = x.mean(dims)
+                sq = (x * x).mean(dims)
+            else:
+                C = x.shape[-1]
+                s = dist.batch_sum(torch.cat([
+                    x.sum(dims), (x * x).sum(dims),
+                    x.new_full((1,), x.numel() // C)]))
+                mean, sq = s[:C] / s[-1], s[C:2 * C] / s[-1]
+            var = torch.clamp(sq - mean * mean, min=0.0)
             m = BN_MOMENTUM
             old_mean, old_var = self.live or (self.mean, self.var)
             self.live = (m * old_mean + (1.0 - m) * mean,
@@ -261,14 +278,16 @@ class BiLSTMEncoder(nn.Module):
 
     def forward(self, x, lengths, train: bool = False, generator=None):
         """In train mode with zoneout > 0 each direction's masks [T, 2, B,
-        U] (c, h) are Bernoulli(1 - z) draws from `generator`."""
+        U] (c, h) are Bernoulli(1 - z) draws from `generator` (in a
+        data-parallel step the rank's rows of the global batch's)."""
         x = x.float()
         B, T, _ = x.shape
         masks = [None, None]
         if train and self.fw.zoneout > 0:
             keep = 1.0 - self.fw.zoneout
-            masks = [torch.rand(T, 2, B, self.units, generator=generator,
-                                device=x.device) < keep for _ in range(2)]
+            masks = [dist.rand_rows((T, 2, B, self.units), generator,
+                                    x.device, dim=2) < keep
+                     for _ in range(2)]
         fw = self._run(self.fw, x, masks[0])
         bw = reverse_sequence(
             self._run(self.bw, reverse_sequence(x, lengths), masks[1]),

@@ -5,7 +5,9 @@ The losses, in f32 and differentiable, are the port of
 tacotron2_tpu/models/wavenet/distributions.py's `log_sum_exp` (:19),
 `discretized_mix_logistic_loss` (:26), `gaussian_mle_loss` (:88, with
 `use_cdf`), `masked_cross_entropy_loss` (:118) and
-`masked_distribution_loss` (:131); [B, T, C] layout.
+`masked_distribution_loss` (:131); [B, T, C] layout. In a data-parallel
+step (`parallel.dist.activate`) the masked means divide by the global
+batch's count: each rank's loss is its share of the global batch's.
 
 The port's counterparts of tacotron2_tpu/models/wavenet/distributions.py
 (`sample_from_gaussian` :110, `sample_from_discretized_mix_logistic` :65)
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 
 from ...config import Config
 from ...ops.mulaw import is_scalar_input
+from ...parallel import dist
 
 
 def head_kind(cfg: Config) -> Tuple[str, int]:
@@ -201,7 +204,8 @@ def masked_cross_entropy_loss(outputs, targets, lengths):
     losses = -torch.gather(torch.log_softmax(outputs, -1), -1,
                            targets.long()[..., None])[..., 0]
     masked = losses * mask
-    return masked.sum() / torch.clamp((masked != 0).float().sum(), min=1.0)
+    return masked.sum() / torch.clamp(
+        dist.global_count((masked != 0).float().sum()), min=1.0)
 
 
 def masked_distribution_loss(loss_fn, y_hat, y, lengths):
@@ -210,4 +214,5 @@ def masked_distribution_loss(loss_fn, y_hat, y, lengths):
     per = loss_fn(y_hat, y)
     mask = _length_mask(y.shape[1], lengths, y_hat.device)[..., None]
     mask = mask.expand_as(per)
-    return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (per * mask).sum() / torch.clamp(dist.global_count(mask.sum()),
+                                            min=1.0)

@@ -2,7 +2,9 @@
 
 Port of tacotron2_tpu/ops/wavenet_kernel.py: `build_sampler_kernel` (:180)
 and its HBM-delay variant (:337), which compute the same samples, become
-`csrc/sampler.cu`; `fused_incremental_sample` (:678) becomes `sample`.
+`csrc/sampler.cu`; `fused_incremental_sample` (:678) becomes `sample`,
+`sharded_incremental_sample` (:629) `sharded_sample` (rows over a
+data-parallel group).
 Gaussian, mixture-of-logistics and categorical heads (`_HeadPlan`, :56),
 each with an f32 or bf16 delay cache and f32 or bf16 layer weights
 (`cache_dtype` / `weight_dtype`, as the TPU kernel takes them). CUDA
@@ -462,6 +464,34 @@ def _sample_cuda(kw: KernelWeights, cfg: Config, c_up, noise):
     check(rc, "taco_sampler_launch")
     launches += 1
     return out
+
+
+# seed step between the ranks' noise streams (JAX wavenet_kernel.py:671)
+SHARD_SEED_STRIDE = 9973
+
+
+def sharded_sample(sp: SamplerParams, cfg: Config, c_up, seed: int, dp, *,
+                   kernel_weights: KernelWeights | None = None,
+                   cache_dtype=None, weight_dtype=None):
+    """Sampling over a data-parallel group (JAX `sharded_incremental_sample`,
+    wavenet_kernel.py:629-680): c_up [B, T, cin], the global batch, alike
+    on every rank; rank r samples its B/world rows [r·B/n, (r+1)·B/n) with
+    the noise drawn from a generator seeded seed + r·9973 on its device
+    (`distributions.draw_noise`), through the kernel on a CUDA tensor (its
+    plain version on the CPU, as `sample`). The ranks' rows are gathered in
+    order: returns the samples [B, T] on every rank. B must divide by the
+    world size. No collective runs inside the sample loop."""
+    from ..models.wavenet.distributions import draw_noise
+    from ..parallel import dist
+    B, T, _ = c_up.shape
+    assert B % dp.world == 0, f"batch {B} not divisible by {dp.world} ranks"
+    c_local = dist.shard_batch(c_up, dp).contiguous()
+    gen = torch.Generator(device=c_local.device)
+    gen.manual_seed(seed + dp.rank * SHARD_SEED_STRIDE)
+    noise = draw_noise(cfg, B // dp.world, T, gen, c_local.device)
+    out = sample(sp, cfg, c_local, noise, kernel_weights=kernel_weights,
+                 cache_dtype=cache_dtype, weight_dtype=weight_dtype)
+    return dist.all_gather_rows(out, dp)
 
 
 # ------------------------------------------------ checks against the plain

@@ -198,6 +198,36 @@ class TextToWavProgram:
         mel [B, frames, mels], stop_probs [B, frames], mel_lengths [B]) as
         tensors on the program's device. Trim with
         `samples[i, :wav_lengths[i]]`."""
+        args = self._operands(inputs, input_lengths, refs_emt, refs_spk)
+        self._seed += 1
+        self.generator.manual_seed(self._seed)
+        return self._forward(*args)
+
+    def sharded_call(self, dp, inputs, input_lengths, refs_emt, refs_spk):
+        """Serving over a data-parallel group (JAX `sharded_call`,
+        pipeline.py:259-295): the inputs are the global batch, world × the
+        program's batch rows, alike on every rank; rank r runs the whole
+        program on its rows [r·batch, (r+1)·batch) with its generator
+        seeded as JAX seeds shard r (`seed + r·n_chunks`, one chunk a call
+        here): the call counter moves by the world size, and rank r takes
+        the counter + r. No collective runs inside the program; the five
+        outputs are gathered in row order and returned on every rank."""
+        from ..parallel import dist
+        n = len(inputs)
+        if n != dp.world * self.batch:
+            raise ValueError(f"global batch {n} != {dp.world} ranks x "
+                             f"{self.batch}")
+        rows = slice(dp.rank * self.batch, (dp.rank + 1) * self.batch)
+        args = self._operands(inputs[rows], input_lengths[rows],
+                              refs_emt[rows], refs_spk[rows])
+        self._seed += dp.world
+        self.generator.manual_seed(self._seed + dp.rank)
+        return tuple(dist.all_gather_rows(o.contiguous(), dp)
+                     for o in self._forward(*args))
+
+    def _operands(self, inputs, input_lengths, refs_emt, refs_spk):
+        """The call's inputs as tensors on the device, their shapes
+        checked."""
         nm = self.cfg.audio.num_mels
         dev = self.device
         inputs = torch.as_tensor(np.asarray(inputs), device=dev).long()
@@ -212,9 +242,7 @@ class TextToWavProgram:
                 raise ValueError(f"{name} must be "
                                  f"{(self.batch, self.t_ref, nm)}, got "
                                  f"{tuple(ref.shape)}")
-        self._seed += 1
-        self.generator.manual_seed(self._seed)
-        return self._forward(inputs, lengths, refs_emt, refs_spk)
+        return inputs, lengths, refs_emt, refs_spk
 
     def synthesize(self, texts, ref_mels_emt, ref_mels_spk):
         """Texts and reference mels -> list of trimmed float32 wavs.

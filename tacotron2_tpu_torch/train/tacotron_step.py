@@ -46,6 +46,21 @@ takes the parameters JAX's name predicate gives it (`refnet`,
 `style_disc`): AdaIN's `reference_encoder` trains under the main one.
 Under emt_attn the batch's emotion labels drive style_tokens' query, as
 in the JAX step.
+
+Data parallelism (`dp=`, a `parallel.dist.DataParallel`): each rank steps
+on its rows of one global batch, and the step is the step over the
+global batch, as the JAX trainer's is under a mesh
+(tacotron2_tpu/train/tacotron_train.py:110-145). The batch's padded axes
+are padded to their longest over the group first (the loss means of
+`mask_decoder=False` and BatchNorm's statistics count the padding, as
+JAX's over the global batch's); inside `dist.activate` the BatchNorms
+take the global batch's statistics, the loss terms are the rank's shares
+of the global ones, and the random draws of dropout and zoneout are the
+rank's rows of the global batch's (the coins are alike on every rank);
+after each target's backward its gradients are summed over the group,
+one flat bucket a target. Clipping and the optimizers then see the same
+gradients on every rank, so the parameters stay the same without a
+broadcast. The metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -63,6 +78,7 @@ from ..convert import flax_named_parameters, init_tacotron
 from ..models.tacotron.losses import compute_losses
 from ..models.tacotron.decoder import round_bf16
 from ..models.tacotron.model import Tacotron
+from ..parallel import dist
 from .optim import (Adam, MaskedAdam, global_norm, tacotron_masks,
                     teacher_forcing_schedule)
 
@@ -140,9 +156,10 @@ class TacotronTrainer:
     """Owns the config, the flags and the step functions; the state holds
     the model and the optimizers."""
 
-    def __init__(self, cfg: Config, *, device="cuda", **flags):
+    def __init__(self, cfg: Config, *, device="cuda",
+                 dp: Optional[dist.DataParallel] = None, **flags):
         check_trainable(cfg, **flags)
-        self.cfg, self.device = cfg, torch.device(device)
+        self.cfg, self.device, self.dp = cfg, torch.device(device), dp
         self.flags = {k: bool(flags.get(k, False)) for k in TRAINER_FLAGS
                       if k != "nat_gan_derate"}
         self.nat_gan_derate = float(flags.get("nat_gan_derate", 1.0))
@@ -182,7 +199,19 @@ class TacotronTrainer:
             v = batch[k]
             v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
             out[k] = v.to(self.device)
+        if self.dp is not None:
+            out = dist.pad_to_group(out, self.pad_values(), self.dp)
         return out
+
+    def pad_values(self) -> Dict[str, float]:
+        """The feeder's pad value of each padded batch key (inputs 0, mels
+        the target pad, stop tokens 1; linear targets, which callers
+        build, the target pad)."""
+        au = self.cfg.audio
+        mel = -au.max_abs_value if au.symmetric_mels else 0.0
+        return dict(inputs=0, mel_targets=mel, stop_token_targets=1.0,
+                    ref_mel_emt=mel, ref_mel_spk=mel, ref_mel_up_emt=mel,
+                    ref_mel_up_spk=mel, linear_targets=mel)
 
     def _forward(self, model, b, generator, tfr, *, train: bool,
                  decode: str = "fused", use_unpaired: bool = False):
@@ -224,12 +253,14 @@ class TacotronTrainer:
         forward's values, `Tacotron.forward`) takes the decodes' backward by
         autograd through their plain version (the reference the fused
         route is held to). BatchNorm's running statistics move, as in a
-        step."""
+        step. Under `dp` the gradients are the global batch's (summed over
+        the group) and the terms its values, without graph."""
         b = self.batch_to_device(batch)
         tfr = float(self.tfr_schedule(state.step))
-        out = self._forward(state.model, b, generator, tfr, train=True,
-                            decode=decode, use_unpaired=self.use_unpaired)
-        terms = self._losses(out, b, state.model, self.use_unpaired)
+        with dist.activate(self.dp):
+            out = self._forward(state.model, b, generator, tfr, train=True,
+                                decode=decode, use_unpaired=self.use_unpaired)
+            terms = self._losses(out, b, state.model, self.use_unpaired)
         params = [p for _, p in flax_named_parameters(state.model)]
         masks = {t: o.mask for t, o in state.optimizers()}
         targets = list(targets or masks)
@@ -246,7 +277,10 @@ class TacotronTrainer:
                 g = [None] * len(params)
                 for j, x in zip(on, got):
                     g[j] = torch.zeros_like(params[j]) if x is None else x
-                grads[t] = g
+                grads[t] = (g if self.dp is None
+                            else dist.all_reduce_grads(g, self.dp))
+        if self.dp is not None:
+            terms = dist.reduce_metrics(terms, self.dp)
         return terms, params, grads, tfr
 
     def gradients(self, state: TrainState, batch, generator=None, *,
@@ -297,5 +331,9 @@ class TacotronTrainer:
         b = self.batch_to_device(batch)
         tfr = (0.0 if self.cfg.train.tacotron_natural_eval
                else float(self.tfr_schedule(state.step)))
-        out = self._forward(state.model, b, generator, tfr, train=False)
-        return out, self._losses(out, b, state.model, False)
+        with dist.activate(self.dp):
+            out = self._forward(state.model, b, generator, tfr, train=False)
+            terms = self._losses(out, b, state.model, False)
+        if self.dp is not None:
+            terms = dist.reduce_metrics(terms, self.dp)
+        return out, terms

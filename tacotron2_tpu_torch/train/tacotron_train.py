@@ -25,6 +25,16 @@ CSVs under <log_dir>/output_vars/ (:199-230). The curve goes to
 scripts/train_e2e_demo_r5_tpu.py writes its taco_curve.jsonl: step, loss,
 tfr, elapsed_s, and at eval steps the held-out loss, `held_mel_mae` and
 `held_tf_diag`.
+
+Under a data-parallel group (`parallel.dist.maybe_initialize_distributed`,
+e.g. `torchrun --nproc_per_node N -m tacotron2_tpu_torch.cli train`) each
+rank runs this loop on its device: its feeder takes its stride shard of
+the train split and builds batches of batch_size / world rows, the
+trainer steps on the global batch of batch_size rows (`dp=`), every rank
+restores from the same checkpoint, the held-out losses are the global
+batch's over the replicated test split (each rank its rows of each test
+batch), and rank 0 alone writes checkpoints, summaries, the curve, plots,
+output vars and the eval synthesis.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..convert import tacotron_to_flax
 from ..data.audio import save_wav
 from ..data.feeder import TacotronFeeder
 from ..eval.convergence import alignment_diagonality, masked_mel_mae
+from ..parallel import dist
 from ..utils import ValueWindow, log
 from ..utils.plot import plot_alignment, plot_spectrogram
 from ..utils.summary import ProfilerHook, SummaryWriter
@@ -87,14 +98,21 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
     bs = batch_size or t.tacotron_batch_size
     ckpt_dir = os.path.join(log_dir, "taco_pretrained")
     eval_dir = os.path.join(log_dir, "eval-dir")
-    os.makedirs(eval_dir, exist_ok=True)
+    dp, device, local_bs = dist.host_rows(bs, device)
+    chief = dist.is_chief()
+    if chief:
+        os.makedirs(eval_dir, exist_ok=True)
+    if dp is not None:
+        log(f"Data parallel: rank {dp.rank} of {dp.world} on {device}, "
+            f"{local_bs} of the {bs} rows of each step")
 
-    trainer = TacotronTrainer(cfg, device=device, **(trainer_kwargs or {}))
+    trainer = TacotronTrainer(cfg, device=device, dp=dp,
+                              **(trainer_kwargs or {}))
     feeder = TacotronFeeder(cfg, input_path,
                             pad_text_multiple=pad_text_multiple,
                             pad_mel_multiple=pad_mel_multiple,
                             **(feeder_kwargs or {}))
-    batches = feeder.prefetch(feeder.train_batches(bs), depth=8)
+    batches = feeder.prefetch(feeder.train_batches(local_bs), depth=8)
     first = next(batches)
     state = trainer.init_state(
         torch.Generator().manual_seed(t.tacotron_random_seed))
@@ -132,11 +150,12 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
     gen.manual_seed(t.tacotron_random_seed + 1)
     loss_guard = EvalFailureGuard("tacotron eval losses")
     synth_guard = EvalFailureGuard("tacotron eval synthesis")
-    summary = SummaryWriter(log_dir)
-    profiler = ProfilerHook(log_dir, profile_start, profile_end)
+    summary = SummaryWriter(log_dir) if chief else None
+    profiler = (ProfilerHook(log_dir, profile_start, profile_end) if chief
+                else ProfilerHook(log_dir))
     start_step, t_start = state.step, time.time()
-    curve = open(os.path.join(log_dir, "taco_curve.jsonl"), "a",
-                 encoding="utf-8")
+    curve = (open(os.path.join(log_dir, "taco_curve.jsonl"), "a",
+                  encoding="utf-8") if chief else None)
     try:
         while state.step < steps:
             batch = next(batches)
@@ -149,7 +168,7 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                     windows[k].append(float(metrics[k]))
             step = state.step
             profiler.step(step)
-            if step % t.summary_interval == 0:
+            if chief and step % t.summary_interval == 0:
                 summary.scalars(step, {k: float(v) for k, v in
                                        metrics.items() if np.ndim(v) == 0},
                                 prefix="tacotron/")
@@ -175,26 +194,29 @@ def tacotron_train(cfg: Config, input_path: str, log_dir: str, *,
                 log(f"Loss exploded to {loss:.5f} at step {step}",
                     slack=True)
                 raise RuntimeError(f"Loss exploded to {loss} at step {step}")
-            if (ckpt_interval > 0 and step % ckpt_interval == 0) \
-                    or step == 300 or step == steps:
+            if chief and ((ckpt_interval > 0 and step % ckpt_interval == 0)
+                          or step == 300 or step == steps):
                 mgr.save(step, state)
                 log(f"Saved checkpoint at step {step}")
             do_eval = eval_interval and step % eval_interval == 0
             if do_eval and step > start_step:
                 rec.update(_eval_losses(trainer, state, feeder, bs, step,
                                         loss_guard, summary))
-                _eval_synthesis(cfg, state, first, eval_dir, step,
-                                eval_sentences, synth_guard, trainer)
+                if chief:
+                    _eval_synthesis(cfg, state, first, eval_dir, step,
+                                    eval_sentences, synth_guard, trainer)
             if save_output_vars and (step == start_step + 1 or do_eval):
                 _save_output_vars(trainer, state, batch,
                                   os.path.join(log_dir, "output_vars"), step)
-            curve.write(json.dumps(rec) + "\n")
-            curve.flush()
+            if chief:
+                curve.write(json.dumps(rec) + "\n")
+                curve.flush()
     finally:
-        curve.close()
-        summary.close()
+        if chief:
+            curve.close()
+            summary.close()
         profiler.close()
-    if mgr.latest_step() != state.step:
+    if chief and mgr.latest_step() != state.step:
         mgr.save(state.step, state)
     log(f"Tacotron training complete at step {state.step}", slack=True)
     return ckpt_dir, state
@@ -221,11 +243,15 @@ def _save_output_vars(trainer, state, batch, out_dir, step):
     --save_output_vars, code/train.py:140, tacotron/train.py:446-449):
     <name>-<step>.csv, "%.6g", for the first row's mels, decoder output,
     alignments and targets, and every row's stop logits, inputs and
-    lengths. A failure is logged and never stops training."""
-    os.makedirs(out_dir, exist_ok=True)
+    lengths. A failure is logged and never stops training. Under a
+    data-parallel group every rank runs the eval forward on its rows and
+    rank 0 writes its own."""
     try:
         gen = torch.Generator(device=trainer.device).manual_seed(0)
         out, _ = trainer.eval_step(state, batch, gen)
+        if not dist.is_chief():
+            return
+        os.makedirs(out_dir, exist_ok=True)
         f = lambda x: x.detach().float().cpu().numpy()
         dumps = {
             "mels": f(out["mel_outputs"])[0],
@@ -256,10 +282,16 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
     """Losses, mel MAE and alignment diagonality of the natural eval on the
     held-out split (reference eval model scalars, tacotron/train.py:
     92-102, 602-650), the mean of each scalar term to `summary` under
-    "eval/"; {} when there is no held-out batch."""
+    "eval/"; {} when there is no held-out batch. Under a data-parallel
+    group each rank runs its rows of each test batch (of a multiple of the
+    world's rows) and the values are the whole batch's."""
+    dp = trainer.dp
+    world = dp.world if dp is not None else 1
     try:
         eval_bs = min(batch_size, max(1, len(feeder.test_meta)))
-        batches = feeder.test_batches(eval_bs)[:max_batches]
+        eval_bs -= eval_bs % world
+        batches = feeder.test_batches(eval_bs)[:max_batches] \
+            if eval_bs else []
         if not batches:
             return {}
         gen = torch.Generator(device=trainer.device).manual_seed(0)
@@ -267,15 +299,20 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
         terms_acc = {}
         r = trainer.cfg.tacotron.outputs_per_step
         for b in batches:
-            out, terms = trainer.eval_step(state, b, gen)
+            lb = b if dp is None else dist.shard_batch(b, dp)
+            out, terms = trainer.eval_step(state, lb, gen)
+            mel, align = out["mel_outputs"], out["alignments"]
+            if dp is not None:
+                mel = dist.all_gather_rows(mel, dp)
+                align = dist.all_gather_rows(align, dp)
             for k, v in terms.items():
                 if np.ndim(v) == 0:
                     terms_acc.setdefault(k, []).append(float(v))
             acc["loss"].append(float(terms["loss"]))
             acc["held_mel_mae"].append(masked_mel_mae(
-                out["mel_outputs"].float().cpu().numpy(), b))
+                mel.float().cpu().numpy(), b))
             acc["held_tf_diag"].append(float(np.mean(alignment_diagonality(
-                out["alignments"].float().cpu().numpy(), b["input_lengths"],
+                align.float().cpu().numpy(), b["input_lengths"],
                 b["targets_lengths"], r))))
         means = {k: round(float(np.mean(v)), 4) for k, v in acc.items()}
         if summary is not None:

@@ -16,6 +16,16 @@ unconditioned and the kernel_size != 3 models take the layer loop, as the
 JAX model does. `timer`, a
 `train/tacotron_step.StepTimer`,
 splits a step's time into the forward, the backward and the optimizer.
+
+Data parallelism (`dp=`, a `parallel.dist.DataParallel`): each rank steps
+on its rows of one global batch, padded first to the group's longest
+rows; the loss is the rank's share of the global batch's (masked means
+over the global count), the gradients are summed over the group in one
+flat bucket before the optimizer, and the EMA moves alike on every rank.
+The dropout seed is the step's draw plus the rank, as the JAX stack
+kernels' per-shard seed is (`seed + axis_index`,
+tacotron2_tpu/models/wavenet/model.py:148-150), so a data-parallel step
+equals the one-process step on the global batch at dropout 0.
 """
 
 from __future__ import annotations
@@ -30,8 +40,11 @@ import torch
 
 from ..config import Config
 from ..convert import init_wavenet, wavenet_named_parameters
+from ..data.wavenet_feeder import interp_to_unit
 from ..models.wavenet.model import (WaveNet, compute_wavenet_loss,
                                     data_dependent_init)
+from ..ops.mulaw import is_mulaw_quantize
+from ..parallel import dist
 from ..utils import log
 from .optim import Adam, WaveNetAdam, global_norm
 
@@ -53,8 +66,9 @@ class WaveNetTrainer:
     """Owns the config and the step functions; the state holds the
     weights."""
 
-    def __init__(self, cfg: Config, *, device="cuda"):
-        self.cfg, self.device = cfg, torch.device(device)
+    def __init__(self, cfg: Config, *, device="cuda",
+                 dp: dist.DataParallel | None = None):
+        self.cfg, self.device, self.dp = cfg, torch.device(device), dp
         self.timer = None   # a StepTimer to split the step's time
 
     def init_state(self, generator=None, batch: Dict[str, Any] | None = None,
@@ -65,10 +79,15 @@ class WaveNetTrainer:
         or the one given, with the data-dependent init on `batch` when the
         config asks for it, an EMA copy and a fresh optimizer. A fresh
         model has the speaker input where the config has gin_channels > 0
-        and `batch` carries "g", as the JAX init makes it (:38-41)."""
+        and `batch` carries "g", as the JAX init makes it (:38-41). Under
+        `dp` the init runs on the global batch (the ranks' rows gathered),
+        so every rank starts from the same weights."""
         wn = self.cfg.wavenet
         if model is None:
             b = self.batch_to_device(batch) if batch is not None else {}
+            if self.dp is not None:     # the global batch's statistics
+                b = {k: dist.all_gather_rows(v, self.dp)
+                     for k, v in b.items()}
             model = init_wavenet(self.cfg, generator, self.device,
                                  global_conditioning="g" in b)
             if (wn.weight_normalization and wn.data_dependent_init
@@ -94,7 +113,23 @@ class WaveNetTrainer:
             v = batch[k]
             v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
             out[k] = v.to(self.device)
+        if self.dp is not None:
+            out = dist.pad_to_group(out, self.pad_values(), self.dp)
         return out
+
+    def pad_values(self) -> Dict[str, Any]:
+        """The feeder's pad of x, y and c (`WaveNetFeeder._pad_batch`):
+        zeros, or class 127 one-hot under mulaw-quantize; the mel pad
+        clipped and rescaled as the feeder rescales c."""
+        cfg = self.cfg
+        au = cfg.audio
+        spec = -au.max_abs_value if au.symmetric_mels else 0.0
+        c = interp_to_unit(spec, cfg) if au.normalize_for_wavenet else spec
+        if is_mulaw_quantize(cfg.wavenet.input_type):
+            x = torch.zeros(cfg.wavenet.quantize_channels)
+            x[127] = 1.0
+            return dict(x=x, y=127, c=c)
+        return dict(x=0.0, y=0.0, c=c)
 
     def _time(self, name):
         return self.timer(name) if self.timer else contextlib.nullcontext()
@@ -107,10 +142,14 @@ class WaveNetTrainer:
 
     def gradients(self, state: WaveNetTrainState, batch, seed: int):
         """The train forward and backward of `batch` with dropout seed
-        `seed`, without the update: (loss terms, parameters, gradients)."""
+        `seed`, without the update: (loss terms, parameters, gradients).
+        Under `dp` the rank's dropout seed is `seed` + rank, and the terms
+        and gradients are the global batch's."""
         b = self.batch_to_device(batch)
         named = wavenet_named_parameters(state.model)
-        with self._time("forward"):
+        if self.dp is not None:
+            seed = seed + self.dp.rank
+        with self._time("forward"), dist.activate(self.dp):
             terms = self._loss(state.model, b, train=True, seed=seed)
         params = [p for _, p in named]
         with self._time("backward"):
@@ -118,6 +157,9 @@ class WaveNetTrainer:
                                         allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if self.dp is not None:
+            grads = dist.all_reduce_grads(grads, self.dp)
+            terms = dist.reduce_metrics(terms, self.dp)
         return terms, params, grads
 
     def train_step(self, state: WaveNetTrainState, batch, generator=None):
@@ -154,5 +196,9 @@ class WaveNetTrainer:
         model = state.ema if use_ema else state.model
         y_hat, _ = model.train_forward(b["x"], b["c"], b.get("g"),
                                        train=False)
-        return y_hat, compute_wavenet_loss(y_hat, b["y"], b["input_lengths"],
-                                           self.cfg)
+        with dist.activate(self.dp):
+            terms = compute_wavenet_loss(y_hat, b["y"], b["input_lengths"],
+                                         self.cfg)
+        if self.dp is not None:
+            terms = dist.reduce_metrics(terms, self.dp)
+        return y_hat, terms

@@ -22,6 +22,15 @@ carries "g") writes it for the embedding projector,
 embeddings.tsv and metadata.tsv; without one it writes nothing, as in
 JAX. The curve goes to <log_dir>/wavenet_curve.jsonl, one JSON object a step:
 step, loss, grad_norm, elapsed_s, and at eval steps eval_loss.
+
+Under a data-parallel group (`parallel.dist`) each rank runs this loop on
+its device with its stride shard of the train split in batches of
+batch_size / world rows, and the trainer steps on the global batch
+(`WaveNetTrainer(dp=)`); every rank restores from the same checkpoint,
+the held-out loss is the global batch's over the replicated test split,
+and rank 0 alone writes checkpoints, summaries, the curve, the speaker
+export and the eval generation. (The JAX loop builds no mesh: under
+several processes each of its processes steps alone.)
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from ..config import Config
 from ..convert import wavenet_to_flax
 from ..data.audio import mel_spectrogram, preemphasis, save_wav
 from ..data.wavenet_feeder import WaveNetFeeder
+from ..parallel import dist
 from ..utils import ValueWindow, log
 from ..utils.plot import plot_spectrogram, waveplot
 from ..utils.summary import ProfilerHook, SummaryWriter
@@ -64,11 +74,17 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
     bs = batch_size or t.wavenet_batch_size
     ckpt_dir = os.path.join(log_dir, "wave_pretrained")
     eval_dir = os.path.join(log_dir, "wave_eval")
-    os.makedirs(eval_dir, exist_ok=True)
+    dp, device, local_bs = dist.host_rows(bs, device)
+    chief = dist.is_chief()
+    if chief:
+        os.makedirs(eval_dir, exist_ok=True)
+    if dp is not None:
+        log(f"Data parallel: rank {dp.rank} of {dp.world} on {device}, "
+            f"{local_bs} of the {bs} rows of each step")
 
     feeder = WaveNetFeeder(cfg, input_path, gta=gta)
-    batches = iter(feeder.train_batches(bs))
-    trainer = WaveNetTrainer(cfg, device=device)
+    batches = iter(feeder.train_batches(local_bs))
+    trainer = WaveNetTrainer(cfg, device=device, dp=dp)
     try:
         first = next(batches)
     except (IOError, FileNotFoundError) as e:
@@ -93,11 +109,12 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
     loss_guard = EvalFailureGuard("wavenet eval losses")
     gen_guard = EvalFailureGuard("wavenet eval generation")
     gen = torch.Generator().manual_seed(t.wavenet_random_seed + 1)
-    summary = SummaryWriter(log_dir)
-    profiler = ProfilerHook(log_dir, profile_start, profile_end)
+    summary = SummaryWriter(log_dir) if chief else None
+    profiler = (ProfilerHook(log_dir, profile_start, profile_end) if chief
+                else ProfilerHook(log_dir))
     t_start = time.time()
-    curve = open(os.path.join(log_dir, "wavenet_curve.jsonl"), "a",
-                 encoding="utf-8")
+    curve = (open(os.path.join(log_dir, "wavenet_curve.jsonl"), "a",
+                  encoding="utf-8") if chief else None)
     try:
         for batch in batches:
             if state.step >= steps:
@@ -109,7 +126,7 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
             loss_window.append(loss)
             step = state.step
             profiler.step(step)
-            if step % t.summary_interval == 0:
+            if chief and step % t.summary_interval == 0:
                 summary.scalars(step, {k: float(v) for k, v in
                                        metrics.items() if np.ndim(v) == 0},
                                 prefix="wavenet/")
@@ -125,23 +142,26 @@ def wavenet_train(cfg: Config, input_path: str, log_dir: str, *,
                 log(f"Loss exploded to {loss:.5f} at step {step}",
                     slack=True)
                 raise RuntimeError(f"Loss exploded to {loss} at step {step}")
-            if (ckpt_interval > 0 and step % ckpt_interval == 0) \
-                    or step == steps:
+            if chief and ((ckpt_interval > 0 and step % ckpt_interval == 0)
+                          or step == steps):
                 mgr.save(step, state)
                 log(f"Saved checkpoint at step {step} (params + EMA shadow)")
                 _export_speaker_embeddings(cfg, state, log_dir)
             if eval_interval and step % eval_interval == 0:
                 rec.update(_eval_losses(trainer, state, feeder, bs, step,
                                         loss_guard, summary))
-                _eval_generation(cfg, state, first, eval_dir, step, gen_guard,
-                                 trainer.device)
-            curve.write(json.dumps(rec) + "\n")
-            curve.flush()
+                if chief:
+                    _eval_generation(cfg, state, first, eval_dir, step,
+                                     gen_guard, trainer.device)
+            if chief:
+                curve.write(json.dumps(rec) + "\n")
+                curve.flush()
     finally:
-        curve.close()
-        summary.close()
+        if chief:
+            curve.close()
+            summary.close()
         profiler.close()
-    if mgr.latest_step() != state.step:
+    if chief and mgr.latest_step() != state.step:
         mgr.save(state.step, state)
     log(f"WaveNet training complete at step {state.step}", slack=True)
     return ckpt_dir, state
@@ -171,14 +191,22 @@ def _eval_losses(trainer, state, feeder, batch_size, step, guard,
                  summary=None, max_batches: int = 2) -> dict:
     """The EMA weights' loss on the held-out split (reference wavenet eval
     scalars, train.py:41-64), to `summary` as "eval/loss"; {} when there
-    is no held-out batch."""
+    is no held-out batch. Under a data-parallel group each rank runs its
+    rows of each test batch (of a multiple of the world's rows), and the
+    loss is the whole batch's."""
+    dp = trainer.dp
+    world = dp.world if dp is not None else 1
     try:
         eval_bs = min(batch_size, max(1, len(feeder.test_meta)))
-        batches = feeder.test_batches(eval_bs)[:max_batches]
+        eval_bs -= eval_bs % world
+        batches = feeder.test_batches(eval_bs)[:max_batches] \
+            if eval_bs else []
         if not batches:
             return {}
-        loss = float(np.mean([float(trainer.eval_step(state, b)[1]["loss"])
-                              for b in batches]))
+        rows = (lambda b: b) if dp is None else (
+            lambda b: dist.shard_batch(b, dp))
+        loss = float(np.mean([float(trainer.eval_step(
+            state, rows(b))[1]["loss"]) for b in batches]))
         if summary is not None:
             summary.scalars(step, {"loss": loss}, prefix="eval/")
         log(f"Eval step {step}: loss={loss:.5f}")

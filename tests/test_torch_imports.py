@@ -1,6 +1,7 @@
-"""The port stands alone: neither `tacotron2_tpu_torch` nor `chip_smoke.py`
-imports JAX, flax, msgpack or anything of the JAX package, and importing
-the port pulls none of them in."""
+"""The port stands alone: neither `tacotron2_tpu_torch`, `chip_smoke.py`
+nor the data-parallel tests' rank module imports JAX, flax, msgpack or
+anything of the JAX package, and importing the port pulls none of them
+in."""
 
 import os
 import re
@@ -16,7 +17,9 @@ FORBIDDEN = re.compile(
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    # the ranks of the data-parallel tests run this module alone
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_parallel_worker.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "tacotron2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -28,7 +31,7 @@ def test_port_files_exist():
     csrc = os.path.join(ROOT, "tacotron2_tpu_torch", "csrc")
     for src in ("decoder_bwd.cu", "wavenet_train.cu"):
         assert os.path.exists(os.path.join(csrc, src)), src
-    # the decode kernels' envelope (bf16 rounding, smoothing, f32 weights),
+    # data parallelism's parity tests; the decode kernels' envelope (bf16 rounding, smoothing, f32 weights),
     # the WaveNet stack kernels' (f32, f32 activations, every width) and
     # the Tacotron variants' parity and routes (HighwayNet, CBHG and
     # ReferenceEncoderAdaIn in models/tacotron/modules.py), the WaveNet
@@ -39,7 +42,8 @@ def test_port_files_exist():
                  "test_torch_model_variants.py",
                  "test_torch_variant_routes.py",
                  "test_torch_wavenet_variants.py",
-                 "test_torch_preprocess.py"):
+                 "test_torch_preprocess.py", "test_torch_parallel.py",
+                 "test_torch_parallel_wavenet.py"):
         assert os.path.exists(os.path.join(ROOT, "tests", name))
     rel = {os.path.relpath(f, ROOT) for f in files}
     for mod in ("ops/stft.py", "ops/griffin_lim.py",
@@ -58,7 +62,8 @@ def test_port_files_exist():
                 "utils/summary.py", "utils/infolog.py", "utils/plot.py",
                 "eval/analyze.py", "models/tacotron/modules.py",
                 "models/tacotron/decoder.py", "synth/pipeline.py",
-                "data/preprocess.py", "models/wavenet/modules.py"):
+                "data/preprocess.py", "models/wavenet/modules.py",
+                "parallel/__init__.py", "parallel/dist.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 
