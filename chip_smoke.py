@@ -274,6 +274,34 @@ Phases, each printing its wall seconds:
     program's; a rank that fails or outlives
     DP_TIMEOUT_S fails the phase. Its times are of two ranks sharing one
     card, no scaling figure;
+31. (x) tensor parallelism and the long tail: (a) a (data 2 × model 2)
+    gloo group of four processes spawned on the card, each from the r5
+    checkpoints: the sharded r5 EMA WaveNet's f32 eval forward (the
+    channel-split layer loop) on 10-frame crops of phase 19's 16 rows, 2
+    bf16 and 2 f32 TP train steps from init_wavenet (kernels 5a/5b on
+    weights gathered over 'model', on each data shard's 8 rows) and a
+    bf16 Tacotron step on 8 of phase 30's 16 rows a data shard (kernels
+    4a/4b), each held against the one-process run this process makes
+    meanwhile at phase 30's gates, the forward within TP_FWD_RTOL, every
+    process's gathered state bit for bit alike, the launches counted on
+    each process (the kernels line's `launches_phase31_per_process`);
+    (b) Griffin-Lim's bf16 mode on the FFT route (n_fft 2,048) and the DFT
+    route (n_fft 1,000) on [8, 321, 1025] x 60 from a seeded random-phase
+    start: against the route's plain version, which rounds where the
+    route does (`griffin_lim_fft_plain` / `griffin_lim_plain`, bf16), at
+    0 iterations within GL_BF16_ITER0_RTOL of the peak and at 1 within
+    GL_BF16_ITER1_MED (median error), and more than GL_BF16_APART times
+    those gates away from the f32 kernel at both; at 60 within
+    GL_BF16_F32_DRIFT of the f32 kernel's spectral consistency (JAX's own
+    bound); timed beside the f32 kernel and cuFFT, launched once through
+    `inv_mel_spectrogram(gl_compute_dtype="bfloat16")`; (c)
+    `griffin_lim_tf` at 2 and 60 iterations on the card against the CPU
+    (GL_TF_CPU_RTOL) and against the TF fixture at the fixture's gates
+    (GL_TF_FIXTURE_RTOL); (d)
+    the native data-IO runtime built by the host compiler and bit-equal to
+    np.load on the 160 r5 corpus mels; (e) `cli live --pipeline` over two
+    stdin lines (kernels 1 and 2 counted). Times of (a) are of four
+    processes sharing one card, no scaling figure;
 then the `kernels` line, one entry for every kernel, sampler head, dtype,
 mode, Griffin-Lim route and WaveNet variant sampled.
 
@@ -5329,6 +5357,446 @@ def dp_phase(tparams, stats, wparams, serve_in, c_w, seed, smi):
     return counts
 
 
+# phase 31: tensor parallelism and the long tail. (a) a (data 2 × model 2)
+# gloo group of four processes sharing the card, each from the r5
+# checkpoints: the sharded WaveNet's eval forward (the channel-split layer
+# loop, f32) on short crops of phase 19's rows, two bf16 and two f32 TP
+# train steps (kernels 5a/5b on weights gathered over 'model') and a
+# Tacotron step under the 2-D group (kernels 4a/4b), each held against the
+# one-process run this process makes meanwhile; (b) Griffin-Lim's bf16
+# mode on both routes against its plain version, timed beside the f32
+# kernel and cuFFT; (c) griffin_lim_tf on the card against the CPU; (d)
+# the native data-IO runtime built and bit-equal to np.load; (e) `cli live
+# --pipeline` over two stdin lines.
+TP_DP, TP_MP = 2, 2
+TP_WN_FRAMES = 10                # 2,000 samples a crop
+TP_TIMEOUT_S = 300
+TP_FWD_RTOL = 1e-4               # of max(1, |y|): f32 in another sum order
+TP_STEPS = 2
+GL_BF16_FRAMES = 321
+# bf16 Griffin-Lim, kernel vs the route's plain version (both round to bf16
+# at the same points; the f32 transforms and sums differ in order). On the
+# CPU from a random-phase start (a chirp at n_fft 2,048; noise and tones at
+# 512 and 1,024), two f32 FFTs of the same rounded operands differ by at
+# most 1.8e-7 of the peak at 0 iterations and, at 1, by a median |diff| of
+# 9.6e-7 of the median |sample| (a rare bf16 rounding that flips between
+# the two can move a near-zero bin's phase, so the median, not the sum);
+# leaving out the analysis' rounding moves that median by 2.8e-4 to 2.2e-3
+GL_BF16_ITER0_RTOL = 2e-5        # max |kernel - plain| of the peak, iters 0
+GL_BF16_ITER1_MED = 2e-5         # median |kernel - plain| / median |plain|
+GL_BF16_APART = 10               # bf16 vs the f32 kernel: > this x the gates
+GL_BF16_F32_DRIFT = 0.10         # bf16 vs the f32 kernel (JAX's own bound)
+# griffin_lim_tf, of the peak. Card vs CPU, both the same f32 function in
+# another sum order: read 2.8e-4 / 1.0e-4 (default / paper) at 2
+# iterations and 1.27e-3 / 4.69e-3 at 60, where iterating amplifies f32
+# sum-order noise in the phase of near-zero bins (the CPU itself sits
+# 8.8e-4 / 4.4e-3 from the TF fixture at 60); gates about 2x above the
+# larger reading. Card vs the TF fixture: the fixture's own gates
+# (tests/test_reference_parity.py:112, :130)
+GL_TF_CPU_RTOL = {2: 1e-3, 60: 1e-2}
+GL_TF_FIXTURE_RTOL = {2: 2e-3, 60: 0.05}
+LIVE_STEPS = 160
+
+
+def tp_cfgs():
+    """{name: config} of phase 31's WaveNet runs: phase 30's (bf16 stack,
+    dropout 0) and its f32 version."""
+    cfg = dp_wavenet_cfg()
+    return {"wn_bf16": cfg, "wn_f32": cfg.replace(wavenet=dataclasses.replace(
+        cfg.wavenet, compute_dtype="float32"))}
+
+
+def tp_wavenet_batches(seed):
+    """(TP_WN_FRAMES-frame crops of phase 19's 16 rows as one global
+    batch, [each data shard's rows])."""
+    import numpy as np
+    pairs = r5_wavenet_rows(os.path.join(R5, "corpus"), WN_ROWS)
+    rng = np.random.default_rng(seed + 31)
+    b = wavenet_batch(pairs, [int(rng.integers(0, len(m) - TP_WN_FRAMES + 1))
+                              for _, m in pairs], frames=TP_WN_FRAMES)
+    n = len(WN_ROWS) // TP_DP
+    return b, [{k: v[d * n:(d + 1) * n] for k, v in b.items()}
+               for d in range(TP_DP)]
+
+
+def tp_forward(wparams, batch, dp):
+    """The r5 EMA WaveNet's f32 eval forward of `batch` (sharded over
+    'model' under a 2-D `dp`: the channel-split layer loop)."""
+    import torch
+    from tacotron2_tpu_torch.convert import wavenet_from_flax
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    cfg = dp_wavenet_cfg()
+    dev = dp.device if dp is not None else torch.device("cuda")
+    state = WaveNetTrainer(cfg, device=dev, dp=dp).init_state(
+        model=wavenet_from_flax(cfg, wparams, dev, trainable=True))
+    x = torch.as_tensor(batch["x"], device=dev)
+    c = torch.as_tensor(batch["c"], device=dev)
+    torch.cuda.synchronize()
+    ts = time.time()
+    y, _ = state.model(x, c)
+    torch.cuda.synchronize()
+    return dict(y=y.cpu().numpy(), seconds=time.time() - ts)
+
+
+def tp_wavenet_run(cfg, batch, seed, dp, steps=TP_STEPS):
+    """`dp_wavenet_run` at `cfg` under a (data × model) group (or none):
+    the state is sharded at init, and gathered whole for the digest."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    from tacotron2_tpu_torch.parallel import partition
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    dev = dp.device if dp is not None else torch.device("cuda")
+    trainer = WaveNetTrainer(cfg, device=dev, dp=dp)
+    state = trainer.init_state(torch.Generator().manual_seed(seed), batch)
+    gen = torch.Generator().manual_seed(seed + 1)
+    metrics = []
+    wtk.fwd_launches = wtk.bwd_launches = 0
+    torch.cuda.synchronize()
+    ts = time.time()
+    for _ in range(steps):
+        state, m = trainer.train_step(state, batch, gen)
+        metrics.append({k: float(v) for k, v in m.items()
+                        if np.ndim(v) == 0})
+    torch.cuda.synchronize()
+    seconds = time.time() - ts
+    launches = (wtk.fwd_launches, wtk.bwd_launches)
+    whole = partition.gather_wavenet_state(state)
+    return dict(metrics=metrics, seconds=seconds, launches=launches,
+                digest=params_digest(whole.model))
+
+
+def tp_rank(rank, world, port, spec_path, out_dir):
+    """One process of phase 31 (a), started by torch.multiprocessing: the
+    (data × model) group from torchrun's env with gloo on the shared card,
+    the r5 checkpoints, then each run with its kernel counts set to 0 just
+    before and read just after; results pickled to <out_dir>/rank<r>.pkl."""
+    import pickle
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+    from tacotron2_tpu_torch.config import MeshConfig
+    from tacotron2_tpu_torch.convert import load_checkpoints
+    from tacotron2_tpu_torch.parallel import dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp = dist.maybe_initialize_distributed(
+        backend="gloo", device="cuda:0",
+        mesh=MeshConfig(model_parallelism=TP_MP), timeout_s=TP_TIMEOUT_S)
+    assert (dp.rank, dp.model_rank) == divmod(rank, TP_MP), dp
+    assert (dp.world, dp.model_world) == (TP_DP, TP_MP), dp
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    tparams, stats, wparams = load_checkpoints(
+        os.path.join(R5, "taco_ckpt.msgpack"),
+        os.path.join(R5, "wn_ckpt.msgpack"))
+    seed, out, d = spec["seed"], {}, dp.rank
+    try:
+        out["forward"] = tp_forward(wparams, spec["wn"][d], dp)
+        for name, cfg in tp_cfgs().items():
+            out[name] = tp_wavenet_run(cfg, spec["wn"][d], seed, dp)
+        out["taco"] = dp_taco_run(dp_taco_cfgs()["taco_bf16"], tparams,
+                                  stats, spec["taco"][d], seed, dp, steps=1)
+    finally:
+        dist.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def tp_group_phase(tparams, stats, wparams, seed):
+    """Phase 31 (a). Returns {kernels entry name: [its launches on each
+    process]}."""
+    import pickle
+
+    import numpy as np
+    import torch.multiprocessing as mp
+    world = TP_DP * TP_MP
+    wn_global, wn_shards = tp_wavenet_batches(seed)
+    taco_global, taco_shards = dp_taco_batches(dp_taco_cfgs()["taco_bf16"])
+    tmp = tempfile.mkdtemp(prefix="tp31_")
+    spec_path = os.path.join(tmp, "spec.pkl")
+    with open(spec_path, "wb") as f:
+        pickle.dump(dict(seed=seed, wn=wn_shards, taco=taco_shards), f)
+    ts = time.time()
+    ctx = mp.spawn(tp_rank, args=(world, free_port(), spec_path, tmp),
+                   nprocs=world, join=False)
+    try:
+        want = {"forward": tp_forward(wparams, wn_global, None)}
+        for name, cfg in tp_cfgs().items():
+            want[name] = tp_wavenet_run(cfg, wn_global, seed, None)
+        want["taco"] = dp_taco_run(dp_taco_cfgs()["taco_bf16"], tparams,
+                                   stats, taco_global, seed, None, steps=1)
+        while not ctx.join(timeout=max(1.0, ts + TP_TIMEOUT_S - time.time())):
+            if time.time() >= ts + TP_TIMEOUT_S:
+                raise TimeoutError(f"phase 31's processes still run after "
+                                   f"{TP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    print(f"(a) {world} processes and the one-process references: "
+          f"{time.time() - ts:.3f} s")
+    res = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    y = np.concatenate([res[d * TP_MP]["forward"]["y"] for d in range(TP_DP)])
+    for r in range(world):
+        mate = res[(r // TP_MP) * TP_MP]["forward"]["y"]
+        assert np.array_equal(res[r]["forward"]["y"], mate), r
+    yw = want["forward"]["y"]
+    err = float(np.abs(y - yw).max())
+    scale = max(1.0, float(np.abs(yw).max()))
+    print(f"(a) sharded eval forward (channel-split layer loop, f32) of "
+          f"{yw.shape[0]} crops of {yw.shape[1]} samples: max |sharded - "
+          f"one process| {err:.3e} (outputs up to {scale:.3f}); seconds "
+          f"per process " + ", ".join(f"{x['forward']['seconds']:.3f}"
+                                      for x in res)
+          + f" (one process {want['forward']['seconds']:.3f})")
+    assert err <= TP_FWD_RTOL * scale, err
+
+    counts = {}
+    names = dict(wn_bf16=("wavenet_stack_fwd", "wavenet_stack_bwd"),
+                 wn_f32=("wavenet_stack_fwd_f32", "wavenet_stack_bwd_f32"),
+                 taco=("tacotron_teacher_forced_train", "tacotron_bptt"))
+    for name, rtol, nrtol, scale, steps in (
+            ("wn_bf16", DP_BF16_RTOL, DP_BF16_NORM_RTOL, "loss", TP_STEPS),
+            ("wn_f32", DP_F32_RTOL, DP_F32_RTOL, "term", TP_STEPS),
+            ("taco", DP_BF16_RTOL, DP_BF16_NORM_RTOL, "loss", 1)):
+        assert all(x[name]["metrics"] == res[0][name]["metrics"]
+                   for x in res), name
+        assert len({x[name]["digest"] for x in res}) == 1, \
+            f"{name}: the processes drifted"
+        hold_dp(f"(a) {name}, {TP_DP}x{TP_MP} processes", res[0][name],
+                want[name], rtol, nrtol, scale)
+        per = [x[name]["launches"] for x in res]
+        print(f"(a) {name}: {steps} step(s); launches per process "
+              f"{names[name][0]}/{names[name][1]} {per}; seconds per "
+              f"process " + ", ".join(f"{x[name]['seconds']:.3f}"
+                                      for x in res)
+              + f" (one process, the global batch: "
+                f"{want[name]['seconds']:.3f})")
+        assert all(c == (steps, steps) for c in per), per
+        for j, k in enumerate(names[name]):
+            counts[k] = [c[j] for c in per]
+    return counts
+
+
+def gl_bf16_phase(batch, cfg, smi):
+    """Phase 31 (b): the bf16 mode on both routes. Returns its two
+    `kernels` entries."""
+    import math
+
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.ops import griffin_lim as gl
+    from tacotron2_tpu_torch.ops import griffin_lim_kernel as glk
+    from tacotron2_tpu_torch.ops import stft as tst
+    m = cfg.audio.max_abs_value
+    mels = np.full((batch.shape[0], GL_BF16_FRAMES, batch.shape[2]), -m,
+                   np.float32)
+    n = min(GL_BF16_FRAMES, batch.shape[1])
+    mels[:, :n] = batch[:, :n]
+    rel_med = lambda a, b: float((a - b).abs().median() / b.abs().median())
+    entries = []
+    for n_fft, name in ((cfg.audio.n_fft, "griffin_lim_bf16"),
+                        (GL_DFT_NFFT, "griffin_lim_dft_bf16")):
+        a = cfg.with_overrides(f"audio.n_fft={n_fft}").audio
+        hop, win, iters = a.effective_hop, a.win_size, a.griffin_lim_iters
+        kind = glk.route(n_fft)
+        plain = (glk.griffin_lim_fft_plain if kind == "fft"
+                 else glk.griffin_lim_plain)
+        S = gl_magnitudes(mels, a, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        phase = torch.rand(S.shape, generator=gen, device="cuda") \
+            * (2 * math.pi)
+        re0, im0 = S * torch.cos(phase), S * torch.sin(phase)
+        run = lambda it, bf16=True: glk.fused_griffin_lim(
+            S, re0, im0, n_fft, hop, win, it, bf16=bf16)
+        glk.launches_bf16 = 0
+        y_k = {it: run(it) for it in (0, 1, iters)}
+        y_f = {it: run(it, False) for it in (0, 1, iters)}
+        assert glk.launches_bf16 == 3, glk.launches_bf16
+        y_p = {it: plain(S, re0, im0, n_fft, hop, win, it, True)
+               for it in (0, 1, iters)}
+        peak0 = float(y_p[0].abs().max())
+        abs0 = float((y_k[0] - y_p[0]).abs().max())
+        err0, err1 = abs0 / peak0, rel_med(y_k[1], y_p[1])
+        apart0 = float((y_k[0] - y_f[0]).abs().max()) / peak0
+        apart1 = rel_med(y_k[1], y_f[1])
+        err_n = rel_med(y_k[iters], y_p[iters])
+        cons = lambda y: float((tst.stft_mag(y.contiguous(), n_fft, hop, win)
+                                - S).abs().mean())
+        c_k, c_p, c_f = cons(y_k[iters]), cons(y_p[iters]), cons(y_f[iters])
+        # the user's path: inv_mel_spectrogram in the bf16 mode, counted
+        a16 = dataclasses.replace(a, gl_compute_dtype="bfloat16")
+        glk.launches = glk.launches_bf16 = 0
+        y_u = gl.inv_mel_spectrogram(torch.as_tensor(mels, device="cuda"),
+                                     a16)
+        torch.cuda.synchronize()
+        launches = glk.launches_bf16
+        assert launches == glk.launches == 1 and torch.isfinite(y_u).all()
+        ms = cuda_ms(lambda: run(iters), 3)
+        f32_ms = cuda_ms(lambda: run(iters, False), 3)
+        plain_ms = cuda_ms(lambda: plain(S, re0, im0, n_fft, hop, win, iters,
+                                         True), 1)
+        lib_ms = cuda_ms(lambda: library_griffin_lim(S, n_fft, hop, win,
+                                                     iters, re0, im0), 3)
+        Bg, Fg, Kg = S.shape
+        ops_s = griffin_lim_flops(Bg, Fg, n_fft, win, iters) / F32_FLOPS
+        # S in f32, the start (re, im) in bf16, the waveform in f32
+        bytes_s = (Bg * Fg * Kg * (4 + 2 * 2)
+                   + Bg * hop * (Fg - 1) * 4) / HBM_BYTES_PER_S
+        print(f"(b) bf16 mode, {kind} route, n_fft {n_fft} [{Bg}, {Fg}, "
+              f"{Kg}] x {iters}, random-phase start, against "
+              f"{plain.__name__}(bf16): iters 0 max |kernel - plain| "
+              f"{abs0:.3e} ({err0:.3e} of the peak {peak0:.3e}; the f32 "
+              f"kernel {apart0:.3e}), iters 1 median error {err1:.3e} (the "
+              f"f32 kernel {apart1:.3e}), iters {iters} {err_n:.3e} (not "
+              f"gated); spectral consistency kernel {c_k:.6f} plain "
+              f"{c_p:.6f}, f32 kernel {c_f:.6f} (ratio {c_k / c_f:.5f}); "
+              f"kernel {ms:.3f} ms, f32 kernel {f32_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, cuFFT f32 {lib_ms:.3f} ms, bound "
+              f"{1e3 * max(ops_s, bytes_s):.4f} ms; {smi}")
+        assert err0 <= GL_BF16_ITER0_RTOL, err0
+        assert err1 <= GL_BF16_ITER1_MED, err1
+        assert apart0 > GL_BF16_APART * GL_BF16_ITER0_RTOL, apart0
+        assert apart1 > GL_BF16_APART * GL_BF16_ITER1_MED, apart1
+        assert c_k <= (1 + GL_BF16_F32_DRIFT) * c_f, (c_k, c_f)
+        entries.append(
+            {"name": name, "route": "cuda", "gl_route": kind,
+             "source": "tacotron2_tpu_torch/csrc/griffin_lim.cu",
+             "replaces": "tacotron2_tpu/ops/griffin_lim_kernel.py:108",
+             "launches": launches, "max_abs_err": abs0, "ms": ms,
+             "plain_ms": plain_ms, "f32_ms": f32_ms,
+             "bound_ms": 1e3 * max(ops_s, bytes_s),
+             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+             "library_ms": lib_ms})
+    return entries
+
+
+def tf_gl_phase():
+    """Phase 31 (c): griffin_lim_tf on the card against the CPU and the TF
+    fixture, both presets."""
+    import numpy as np
+    import torch
+    from tacotron2_tpu_torch.config import get_config
+    from tacotron2_tpu_torch.ops import griffin_lim as gl
+    g = np.load(os.path.join(ROOT, "tests", "fixtures", "golden_dsp.npz"))
+    for preset in ("default", "paper"):
+        a = get_config(preset).audio
+        S = torch.from_numpy(g[f"{preset}/gl_input_pow"])
+        for iters in (2, 60):
+            args = (a.n_fft, a.effective_hop, a.win_size, iters)
+            ts = time.time()
+            y_c = gl.griffin_lim_tf(S.cuda(), *args)
+            torch.cuda.synchronize()
+            card_s = time.time() - ts
+            ts = time.time()
+            y_h = gl.griffin_lim_tf(S, *args).numpy()
+            cpu_s = time.time() - ts
+            y_c = y_c.cpu().numpy()
+            ref = g[f"{preset}/gl_tf_iters{iters}"]
+            peak = float(np.abs(ref).max())
+            d = float(np.abs(y_c - y_h).max()) / peak
+            d_ref = float(np.abs(y_c - ref).max()) / peak
+            d_cpu = float(np.abs(y_h - ref).max()) / peak
+            print(f"(c) griffin_lim_tf {preset} [{S.shape[0]}, "
+                  f"{S.shape[1]}] x {iters} on the card, of the peak: max "
+                  f"|card - CPU| {d:.3e} (gate {GL_TF_CPU_RTOL[iters]:g}), "
+                  f"|card - TF fixture| {d_ref:.3e} (gate "
+                  f"{GL_TF_FIXTURE_RTOL[iters]:g}; the CPU's {d_cpu:.3e}); "
+                  f"card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+            assert d <= GL_TF_CPU_RTOL[iters], (preset, iters, d)
+            assert d_ref <= GL_TF_FIXTURE_RTOL[iters], (preset, iters, d_ref)
+
+
+def native_phase():
+    """Phase 31 (d): the native data-IO runtime built with the host
+    compiler and bit-equal to np.load on the r5 corpus mels."""
+    import numpy as np
+    from tacotron2_tpu_torch.native import build
+    from tacotron2_tpu_torch.native import io as nat
+    ts = time.time()
+    assert nat.available(), "the native data-IO runtime did not build"
+    build_s = time.time() - ts
+    mel_dir = os.path.join(R5, "corpus", "mels")
+    paths = sorted(os.path.join(mel_dir, f) for f in os.listdir(mel_dir))
+    ts = time.time()
+    got = nat.read_npy_batch_f32(paths)
+    native_s = time.time() - ts
+    ts = time.time()
+    want = [np.load(p).astype(np.float32) for p in paths]
+    numpy_s = time.time() - ts
+    same = all(a.shape == b.shape and np.array_equal(a, b)
+               for a, b in zip(got, want))
+    print(f"(d) native runtime ({build.cxx_path()}, built or loaded in "
+          f"{build_s:.3f} s): {len(paths)} r5 mels bit-equal to np.load: "
+          f"{same}; parallel read {native_s:.4f} s, np.load {numpy_s:.4f} "
+          f"s (warm page cache)")
+    assert same and len(paths) == 160
+
+
+def live_phase(texts):
+    """Phase 31 (e): `cli live --pipeline` of two stdin lines on the r5
+    checkpoints; kernels 1 and 2 counted."""
+    import io as stdio
+
+    import numpy as np
+    from tacotron2_tpu_torch import cli
+    from tacotron2_tpu_torch.data import audio as host_audio
+    from tacotron2_tpu_torch.ops import tacotron_decoder_kernel as dk
+    from tacotron2_tpu_torch.ops import wavenet_kernel as wk
+    hp = ("tacotron.compute_dtype=bfloat16,audio.trim_silence=false,"
+          "wavenet.sampler_hbm_delay_threshold=0")
+    stdin = sys.stdin
+    with tempfile.TemporaryDirectory() as tmp:
+        sys.stdin = stdio.StringIO("\n".join(texts[:2]) + "\n")
+        dk.rows_launches = wk.launches = 0
+        ts = time.time()
+        try:
+            paths = cli.main([
+                "--hparams", hp, "live", "--pipeline", "--checkpoint",
+                os.path.join(R5, "taco_ckpt.msgpack"),
+                "--wavenet-checkpoint", os.path.join(R5, "wn_ckpt.msgpack"),
+                "--output-dir", tmp, "--serve-batch", "2", "--steps",
+                str(LIVE_STEPS), "--t-ref", str(T_REF), "--buckets",
+                str(T_IN)])
+        finally:
+            sys.stdin = stdin
+        live_s = time.time() - ts
+        sr = r5_config().audio.sample_rate
+        wavs = [host_audio.load_wav(p, sr) for p in paths]
+        lens = [len(w) for w in wavs]
+        ok = all(np.isfinite(w).all() for w in wavs)
+    print(f"(e) cli live --pipeline, 2 stdin lines: wavs "
+          f"{[os.path.basename(p) for p in paths]} of {lens} samples; "
+          f"launches kernel 1 {dk.rows_launches}, kernel 2 {wk.launches}; "
+          f"{live_s:.3f} s")
+    assert len(paths) == 2 and ok and min(lens) > 0
+    assert dk.rows_launches > 0 and wk.launches == 2
+
+
+def tail_phase(tparams, stats, wparams, batch, cfg, texts, seed, smi):
+    """Phase 31. Returns ({kernels entry name: launches per process of
+    (a)}, the bf16 Griffin-Lim entries)."""
+    t0 = phase(31, f"(x) tensor parallelism on a {TP_DP}x{TP_MP} gloo group "
+                   f"sharing the card; Griffin-Lim's bf16 mode, "
+                   f"griffin_lim_tf, the native runtime, cli live")
+    print(f"{smi}; the processes share one card: no time of (a) is a "
+          f"scaling figure")
+    counts = tp_group_phase(tparams, stats, wparams, seed)
+    entries = gl_bf16_phase(batch, cfg, smi)
+    tf_gl_phase()
+    native_phase()
+    live_phase(texts)
+    done(31, t0)
+    return counts, entries
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6087,6 +6555,15 @@ def main(argv=None):
     for entry in kernels:
         if entry["name"] in p30:
             entry["launches_phase30_per_rank"] = p30[entry["name"]]
+
+    # ---- 31. (x) tensor parallelism; the long tail
+    p31, gl_bf16 = tail_phase(tparams, stats, wparams,
+                              batch.astype(np.float32), cfg, texts, seed,
+                              smi)
+    for entry in kernels:
+        if entry["name"] in p31:
+            entry["launches_phase31_per_process"] = p31[entry["name"]]
+    kernels.extend(gl_bf16)
 
     assert all(k["launches"] for k in kernels), kernels
     print(f"total {time.time() - t_start:.3f} s", flush=True)

@@ -123,6 +123,7 @@ on the host.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import os
 import sys
@@ -297,6 +298,41 @@ def cmd_synthesize(args):
     return paths
 
 
+def cmd_live(args):
+    """Interactive synthesis (JAX cli.py:409-444, the reference's live
+    mode): each stdin line through the warm TextToWavProgram with
+    --pipeline, else through `cmd_synthesize` in eval mode; the newest wav
+    plays through aplay or play where one is on PATH, and is only saved
+    where none is. An empty line or the end of stdin ends it. Returns the
+    newest wav of each line."""
+    import shutil
+    import subprocess
+    args.mode = "eval"
+    player = shutil.which("aplay") or shutil.which("play")
+    serve_run = make_serve_fn(args)[0] if args.pipeline else None
+    print("live mode: type a sentence, empty line to exit"
+          + ("" if player else " (no audio player found; wavs saved only)"),
+          flush=True)
+    newest = []
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            break
+        if serve_run is not None:
+            wavs = serve_run([line])
+        else:
+            args.sentence, args.text_list = line, None
+            cmd_synthesize(args)
+            wavs = sorted(glob.glob(os.path.join(
+                args.output_dir, "eval", "wavs", "*.wav")),
+                key=os.path.getmtime)
+        if wavs:
+            newest.append(wavs[-1])
+            if player:
+                subprocess.run([player, wavs[-1]], check=False)
+    return newest
+
+
 TRAIN_FLAGS = ("emt-only", "intercross-both", "unpaired", "adv-emb-disc",
                "nat-gan", "opt-ref-no-mo", "pretrained-emb-disc",
                "pretrained-emb-disc-all", "remove-long-samps", "test-inputs",
@@ -328,13 +364,26 @@ def cmd_train(args):
     for ranks that share a card); rank 0 alone writes train.log."""
     from .parallel import dist
     cfg = get_config(args.preset, args.hparams)
+    # the host loops put every rank on 'data', as JAX's build the default
+    # mesh (tacotron_train.py:110; the WaveNet loop builds none): the
+    # 'model' axis is the library's (WaveNetTrainer under a 2-D group)
+    mesh = cfg.mesh
+    if mesh.model_parallelism > 1:
+        mesh = dataclasses.replace(mesh, data_parallelism=-1,
+                                   model_parallelism=1)
     dp = dist.maybe_initialize_distributed(args.dist_backend, args.device,
-                                           cfg.mesh)
+                                           mesh)
     log_dir = os.path.join(args.base_dir, f"logs-{args.model}")
     if dist.is_chief():
         os.makedirs(log_dir, exist_ok=True)
         infolog_init(os.path.join(log_dir, "train.log"), args.model,
                      args.slack_url)
+    if mesh is not cfg.mesh:
+        log(f"mesh.model_parallelism={cfg.mesh.model_parallelism} and "
+            f"mesh.data_parallelism={cfg.mesh.data_parallelism} are not "
+            "used: `train` puts every rank on 'data', as the JAX "
+            "package's host loops do; model parallelism is "
+            "WaveNetTrainer's under a (data x model) group")
     if dp is not None:
         args.device = str(dp.device)
         log(f"Data-parallel group: rank {dp.rank} of {dp.world} on "
@@ -586,23 +635,26 @@ def build_parser() -> argparse.ArgumentParser:
     va.add_argument("--out-path", required=True)
     va.set_defaults(func=cmd_vctk_accent)
 
+    def add_serve_args(sp):
+        sp.add_argument("--vocoder", default="wavenet",
+                        choices=("wavenet", "griffin_lim"))
+        sp.add_argument("--serve-batch", type=int, default=8)
+        sp.add_argument("--steps", type=int, default=250)
+        sp.add_argument("--t-ref", type=int, default=64)
+        sp.add_argument("--buckets", default="64,128,256")
+
     sv = sub.add_parser("serve", help="text -> wav through TextToWavProgram")
     sv.add_argument("--checkpoint", required=True,
                     help="Tacotron flax msgpack ({params, batch_stats})")
     sv.add_argument("--wavenet-checkpoint", default=None,
                     help="WaveNet flax msgpack (EMA params); needed with "
                          "--vocoder wavenet")
-    sv.add_argument("--vocoder", default="wavenet",
-                    choices=("wavenet", "griffin_lim"))
     sv.add_argument("--output-dir", default=".")
     sv.add_argument("--text-list", default=None)
     sv.add_argument("--sentence", default=None)
     sv.add_argument("--ref-mel-emt", default=None)
     sv.add_argument("--ref-mel-spk", default=None)
-    sv.add_argument("--serve-batch", type=int, default=8)
-    sv.add_argument("--steps", type=int, default=250)
-    sv.add_argument("--t-ref", type=int, default=64)
-    sv.add_argument("--buckets", default="64,128,256")
+    add_serve_args(sv)
     sv.add_argument("--device", default="cuda")
     sv.add_argument("--seed", type=int, default=0)
     sv.set_defaults(func=cmd_serve)
@@ -650,6 +702,21 @@ def build_parser() -> argparse.ArgumentParser:
     sy.add_argument("--device", default="cuda")
     sy.add_argument("--seed", type=int, default=0)
     sy.set_defaults(func=cmd_synthesize)
+
+    lv = sub.add_parser("live", help="synthesize each stdin line and play "
+                        "it (synthesize's options; --pipeline: through the "
+                        "warm TextToWavProgram)")
+    for a in sy._actions[1:]:
+        lv.add_argument(*a.option_strings, default=a.default,
+                        help=a.help, **(
+                            {"action": "store_true"} if isinstance(
+                                a, argparse._StoreTrueAction) else
+                            dict(type=a.type, choices=a.choices)))
+    lv.add_argument("--pipeline", action="store_true",
+                    help="each line through the warm single-program "
+                         "serving path (TextToWavProgram)")
+    add_serve_args(lv)
+    lv.set_defaults(func=cmd_live, model="Tacotron", mode="eval")
 
     tr = sub.add_parser("train", help="Tacotron training on a train.txt, "
                         "WaveNet training on a GTA map.txt, or both "

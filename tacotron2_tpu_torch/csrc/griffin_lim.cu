@@ -65,6 +65,14 @@
 // nearest; the tensor cores' own accumulation truncates). Its dense
 // products are 2·iters+1 of 2·F·W·2K operations a row, over 50× the
 // transforms as FFTs, and its tile loop is latency-bound (PERF.md).
+//
+// The bf16 mode (`bf16` = 1, gl_compute_dtype="bfloat16"): the spectrum
+// entering each synthesis and each signal sample entering an analysis are
+// rounded to bf16 as they are loaded, and the caller hands in its window-
+// folded operands rounded to bf16 (the DFT route's bases, the FFT route's
+// window); every sum, the transforms and the projection stay f32, and so
+// does the output. On the DFT route the rounded operands are exact in
+// TF32, so the 3xTF32 products of the mode are exact f32 products.
 #include "common.cuh"
 
 namespace {
@@ -72,22 +80,30 @@ namespace {
 constexpr int NT = 256;
 constexpr int BM = 128, BN = 128, BK = 16;
 
+__device__ __forceinline__ float rbf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // A operand of the synthesis product: [re | im] of the current estimate.
 struct SynA {
   const float* est;  // [B, F, 2K]: initial (re | im), or the last analysis
   const float* S;    // [B, F, K] target magnitude
   int F, K;
   int project;       // 1: apply the magnitude projection on load
+  int bf16;          // 1: round the operand to bf16
   __device__ __forceinline__ float operator()(int b, int f, int kk) const {
     const int K2 = 2 * K;
     if (f >= F || kk >= K2) return 0.f;
     const float* row = est + ((size_t)b * F + f) * K2;
-    if (!project) return row[kk];
-    const int k = kk < K ? kk : kk - K;
-    const float er = row[k], ei = row[K + k];
-    const float mag = fmaxf(sqrtf(er * er + ei * ei), 1e-8f);
-    const float s = S[((size_t)b * F + f) * K + k];
-    return s * (kk < K ? er : ei) / mag;
+    float v = row[kk];
+    if (project) {
+      const int k = kk < K ? kk : kk - K;
+      const float er = row[k], ei = row[K + k];
+      const float mag = fmaxf(sqrtf(er * er + ei * ei), 1e-8f);
+      const float s = S[((size_t)b * F + f) * K + k];
+      v = s * (kk < K ? er : ei) / mag;
+    }
+    return bf16 ? rbf16(v) : v;
   }
 };
 
@@ -95,9 +111,11 @@ struct SynA {
 struct AnaA {
   const float* y;  // [B, total]
   int F, W, hop, lpad, total;
+  int bf16;        // 1: round the operand to bf16
   __device__ __forceinline__ float operator()(int b, int f, int j) const {
     if (f >= F || j >= W) return 0.f;
-    return y[(size_t)b * total + (size_t)f * hop + lpad + j];
+    const float v = y[(size_t)b * total + (size_t)f * hop + lpad + j];
+    return bf16 ? rbf16(v) : v;
   }
 };
 
@@ -278,14 +296,17 @@ __global__ void __launch_bounds__(FT)
                         const float* __restrict__ win,
                         const float2* __restrict__ tw,
                         float* __restrict__ frames, int F, int K, int W,
-                        int lpad, int M) {
+                        int lpad, int M, int bf16) {
   extern __shared__ float2 fsm[];
   float2* A = fsm;           // M + 1 points
   float2* Bf = fsm + M + 1;  // M points
   const int f = blockIdx.x, b = blockIdx.y;
   const float* row = spec + ((size_t)b * F + f) * 2 * K;
-  for (int k = threadIdx.x; k <= M; k += FT)
-    A[k] = make_float2(row[k], (k == 0 || k == M) ? 0.f : row[K + k]);
+  for (int k = threadIdx.x; k <= M; k += FT) {
+    float re = row[k], im = (k == 0 || k == M) ? 0.f : row[K + k];
+    if (bf16) re = rbf16(re), im = rbf16(im);
+    A[k] = make_float2(re, im);
+  }
   __syncthreads();
   for (int k = threadIdx.x; k < M; k += FT) {
     const float2 xk = A[k], xm = A[M - k];  // conj(X[M-k]) = (xm.x, -xm.y)
@@ -318,7 +339,8 @@ __global__ void __launch_bounds__(FT)
                        const float* __restrict__ win,
                        const float2* __restrict__ tw,
                        const float* __restrict__ S, float* __restrict__ spec,
-                       int F, int K, int W, int hop, int lpad, int M) {
+                       int F, int K, int W, int hop, int lpad, int M,
+                       int bf16) {
   extern __shared__ float2 fsm[];
   float2* A = fsm;
   float2* Bf = fsm + M + 1;
@@ -329,9 +351,12 @@ __global__ void __launch_bounds__(FT)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int j = 2 * m + e - lpad;
-      v[e] = (j >= 0 && j < W)
-                 ? win[j] * ola_at(fb, g, f * hop + 2 * m + e, F, W, hop, lpad)
-                 : 0.f;
+      float yv = 0.f;
+      if (j >= 0 && j < W) {
+        yv = ola_at(fb, g, f * hop + 2 * m + e, F, W, hop, lpad);
+        if (bf16) yv = rbf16(yv);
+      }
+      v[e] = (j >= 0 && j < W) ? win[j] * yv : 0.f;
     }
     A[m] = make_float2(v[0], v[1]);
   }
@@ -355,8 +380,8 @@ __global__ void __launch_bounds__(FT)
 
 int launch_synthesis(const float* est, const float* S, int project,
                      const float* bsyn, float* frames, int B, int F, int K,
-                     int W, cudaStream_t st) {
-  SynA al{est, S, F, K, project};
+                     int W, int bf16, cudaStream_t st) {
+  SynA al{est, S, F, K, project, bf16};
   dim3 grid((W + BN - 1) / BN, (F + BM - 1) / BM, B);
   gemm_kernel<SynA><<<grid, NT, 0, st>>>(al, bsyn, frames, F, W, 2 * K);
   return (int)cudaGetLastError();
@@ -377,11 +402,12 @@ int launch_ola(const float* frames, const float* g, float* y, int B, int F,
 //   bana [W, 2K]; g [total]; scratch frames [B, F, W], est [B, F, 2K];
 //   y [B, total] (total = n_fft + hop·(F-1)) receives the last
 //   overlap-add, whose centre-trimmed span [n_fft/2, n_fft/2 + hop·(F-1))
-//   is the waveform. Returns the first CUDA error code, or 0.
+//   is the waveform; bf16 = 1 runs the bf16 mode. Returns the first CUDA
+//   error code, or 0.
 extern "C" int taco_griffin_lim_launch(
     const void* reim0, const void* S, const void* bsyn, const void* bana,
     const void* g, void* frames, void* est, void* y, int B, int F, int K,
-    int W, int hop, int lpad, int n_fft, int iters, void* stream) {
+    int W, int hop, int lpad, int n_fft, int iters, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int total = n_fft + hop * (F - 1);
   const float* Sf = (const float*)S;
@@ -389,18 +415,19 @@ extern "C" int taco_griffin_lim_launch(
   float* es = (float*)est;
   float* yy = (float*)y;
   int rc = launch_synthesis((const float*)reim0, Sf, 0, (const float*)bsyn,
-                            fr, B, F, K, W, st);
+                            fr, B, F, K, W, bf16, st);
   if (rc) return rc;
   rc = launch_ola(fr, (const float*)g, yy, B, F, W, hop, lpad, total, st);
   if (rc) return rc;
   for (int it = 0; it < iters; ++it) {
-    AnaA al{yy, F, W, hop, lpad, total};
+    AnaA al{yy, F, W, hop, lpad, total, bf16};
     dim3 grid((2 * K + BN - 1) / BN, (F + BM - 1) / BM, B);
     gemm_kernel<AnaA><<<grid, NT, 0, st>>>(al, (const float*)bana, es, F,
                                            2 * K, W);
     rc = (int)cudaGetLastError();
     if (rc) return rc;
-    rc = launch_synthesis(es, Sf, 1, (const float*)bsyn, fr, B, F, K, W, st);
+    rc = launch_synthesis(es, Sf, 1, (const float*)bsyn, fr, B, F, K, W,
+                          bf16, st);
     if (rc) return rc;
     rc = launch_ola(fr, (const float*)g, yy, B, F, W, hop, lpad, total, st);
     if (rc) return rc;
@@ -412,11 +439,12 @@ extern "C" int taco_griffin_lim_launch(
 //   reim0 [B, F, 2K] initial (re | im); S [B, F, K]; win [W] the window
 //   over its support; tw [2M] complex e^{-2πi t/2M}; g [total]; scratch
 //   frames [B, F, W], spec [B, F, 2K]; y [B, total] as above.
-// 2·iters + 2 launches. Returns the first CUDA error code, or 0.
+// 2·iters + 2 launches; bf16 = 1 runs the bf16 mode. Returns the first
+// CUDA error code, or 0.
 extern "C" int taco_griffin_lim_fft_launch(
     const void* reim0, const void* S, const void* win, const void* tw,
     const void* g, void* frames, void* spec, void* y, int B, int F, int K,
-    int W, int hop, int lpad, int n_fft, int iters, void* stream) {
+    int W, int hop, int lpad, int n_fft, int iters, int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int M = n_fft / 2, total = n_fft + hop * (F - 1);
   if (n_fft < 4 || (n_fft & (n_fft - 1)) || K != M + 1 || W > n_fft)
@@ -440,15 +468,15 @@ extern "C" int taco_griffin_lim_fft_launch(
   float* sp = (float*)spec;
   const dim3 grid(F, B);
   gl_synthesis_kernel<<<grid, FT, smem, st>>>((const float*)reim0, wf, t2, fr,
-                                              F, K, W, lpad, M);
+                                              F, K, W, lpad, M, bf16);
   int rc = (int)cudaGetLastError();
   for (int it = 0; it < iters && !rc; ++it) {
     gl_analysis_kernel<<<grid, FT, smem, st>>>(fr, gf, wf, t2, Sf, sp, F, K,
-                                               W, hop, lpad, M);
+                                               W, hop, lpad, M, bf16);
     rc = (int)cudaGetLastError();
     if (rc) break;
     gl_synthesis_kernel<<<grid, FT, smem, st>>>(sp, wf, t2, fr, F, K, W,
-                                                lpad, M);
+                                                lpad, M, bf16);
     rc = (int)cudaGetLastError();
   }
   if (rc) return rc;

@@ -53,6 +53,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ..config import Config
+from ..native import io as native_io
 from ..parallel.dist import rank_world
 from ..text import text_to_sequence
 from ..utils import log
@@ -152,7 +153,12 @@ class TacotronFeeder:
     # ------------------------------------------------------------- examples
 
     def _load_mel(self, row) -> np.ndarray:
-        return np.load(os.path.join(self.data_folder, row[0], "mels", row[2]))
+        """Through the native runtime where it is built (JAX
+        feeder.py:147-153)."""
+        path = os.path.join(self.data_folder, row[0], "mels", row[2])
+        if native_io.available():
+            return native_io.read_npy_f32(path)
+        return np.load(path)
 
     def _random_row_where(self, rows: List, pred) -> Optional[List]:
         cands = [m for m in rows if pred(m)]

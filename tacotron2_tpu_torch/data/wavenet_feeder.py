@@ -26,6 +26,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ..config import Config
+from ..native import io as native_io
 from ..ops.mulaw import is_mulaw_quantize
 from ..parallel.dist import rank_world
 from .feeder import train_test_split_indices
@@ -101,6 +102,21 @@ class WaveNetFeeder:
         g = int(float(row[9])) if len(row) > 9 else 0
         return x, c, g
 
+    def _load_group(self, rows):
+        """A group's (audio, mel) pairs through the native runtime's
+        parallel loader where it is built, else np.load one by one (JAX
+        wavenet_feeder.py:179-201); the crops follow in row order either
+        way, so the batches are the same."""
+        if not native_io.available():
+            return [self._load_example(r)[:2] for r in rows]
+        arrs = native_io.read_npy_batch_f32(
+            [p for r in rows for p in (self._resolve(r, "audio"),
+                                       self._resolve(r, "mel"))])
+        quantized = is_mulaw_quantize(self.cfg.wavenet.input_type)
+        # int16 class ids come back as exact f32: restore the integers
+        return [(arrs[2 * i].astype(np.int64) if quantized else arrs[2 * i],
+                 arrs[2 * i + 1]) for i in range(len(rows))]
+
     # ------------------------------------------------------------- batching
 
     def _assert_upsample_ready(self, x, c):
@@ -174,8 +190,8 @@ class WaveNetFeeder:
             rows = [self._next_train_row()
                     for _ in range(n * self.batches_per_group)]
             group = []
-            for row in rows:
-                x, c, g = self._load_example(row)
+            for row, (x, c) in zip(rows, self._load_group(rows)):
+                g = int(float(row[9])) if len(row) > 9 else 0
                 x, c = self._crop(x, c)
                 group.append((x, c, g))
             group.sort(key=lambda e: len(e[0]))

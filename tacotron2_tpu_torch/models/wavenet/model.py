@@ -34,9 +34,18 @@ on a CUDA device. There it launches kernels 5a and 5b in the compute
 dtype: bf16 weights, or at the default f32 compute (the `paper` preset's
 too) f32 weights, with bf16 saved activations either way, as the JAX
 model calls `fused_stack_apply` (model.py:164), at any width
-`stack_supported` admits and after any upsample type; the multi-device
-branch is not ported. The globally conditioned, the unconditioned and the
-kernel_size != 3 models take the layer loop, as in JAX. On a CUDA device
+`stack_supported` admits and after any upsample type. The globally
+conditioned, the unconditioned and the kernel_size != 3 models take the
+layer loop, as in JAX.
+
+Sharded over 'model' (`tp`, set by `parallel.partition.
+shard_wavenet_state`), the model takes JAX's mesh branches (:102-164): the
+fused stack where the gate is open and 'data' > 1, on whole weights
+all-gathered over the model group (the shard_map with P() weights; on the
+CPU its plain version, as JAX runs its kernels in interpret mode on CPU
+meshes), and everywhere else the channel-split layer loop
+(`partition.split_block`), each process on its share of the gate
+channels, the skip and out partial sums all-reduced a layer. On a CUDA device
 the convolutions run with cuDNN's TF32 off (`_f32_convs`), so f32 means
 f32 as in the JAX package.
 """
@@ -53,6 +62,7 @@ from torch import nn
 from ...config import Config
 from ...ops import wavenet_train_kernel as wtk
 from ...ops.mulaw import is_mulaw_quantize, is_scalar_input
+from ...parallel import partition
 from . import distributions as D
 from .modules import (Conv1x1, ResidualConv1DGLU, UpsampleNetwork,
                       _WeightNormed, no_round, rounding)
@@ -104,6 +114,7 @@ class WaveNet(nn.Module):
             for d in wn.dilations)
         self.final_convolution_1 = Conv1x1(S, S, True, wnorm)
         self.final_convolution_2 = Conv1x1(S, wn.out_channels, True, wnorm)
+        self.tp = None      # the group of a model sharded over 'model'
 
     @property
     def global_conditioning(self) -> bool:
@@ -136,13 +147,16 @@ class WaveNet(nn.Module):
     # ------------------------------------------------------------- helpers
 
     def use_fused_stack(self, train: bool, x, c, g) -> bool:
-        """The JAX gate (model.py:102-118) on one device: training,
+        """The JAX gate (model.py:102-118): training,
         `use_fused_train_stack`, local conditioning and no global one, a
-        supported config, a CUDA tensor."""
+        supported config; then on one device a CUDA tensor, and sharded
+        over 'model' a data axis of more than one (JAX's `ndata > 1`
+        under a mesh)."""
         wn = self.cfg.wavenet
-        return bool(train and wn.use_fused_train_stack and c is not None
-                    and g is None and wtk.stack_supported(self.cfg)
-                    and x.is_cuda)
+        if not (train and wn.use_fused_train_stack and c is not None
+                and g is None and wtk.stack_supported(self.cfg)):
+            return False
+        return self.tp.world > 1 if self.tp is not None else x.is_cuda
 
     def _layer_loop(self, x, c, g, rnd, seed: Optional[int]):
         wn = self.cfg.wavenet
@@ -150,6 +164,10 @@ class WaveNet(nn.Module):
         keep = 1.0 - wn.dropout
         half = rnd(torch.tensor(np.sqrt(0.5), dtype=torch.float32,
                                 device=x.device))
+        tp = self.tp
+        if tp is not None:
+            c, g = partition.copy_to_model(c, tp), \
+                partition.copy_to_model(g, tp)
         res_rnd = rnd
         skips = None
         for l, blk in enumerate(self.residual_blocks):
@@ -158,7 +176,10 @@ class WaveNet(nn.Module):
                 kept = wtk.keep_bits(wtk.layer_key(seed, l), 0, T * B, R,
                                      keep, x.device)
                 kept = kept.reshape(T, B, R).transpose(0, 1)
-            x, h = blk(x, c, g, kept=kept, keep=keep, rnd=rnd,
+            run = blk if tp is None else (
+                lambda *a, blk=blk, **k: partition.split_block(blk, tp, *a,
+                                                               **k))
+            x, h = run(x, c, g, kept=kept, keep=keep, rnd=rnd,
                        res_rnd=res_rnd)
             if wn.residual_legacy:
                 res_rnd = no_round      # the block output is f32 from here
@@ -179,7 +200,9 @@ class WaveNet(nn.Module):
                 x.shape[0], x.shape[1], g_vec.shape[-1]))
         x = self.input_convolution(x, rnd)
         if self.use_fused_stack(train, x, c, g):
-            sp = wtk.extract_stack_params(self.residual_blocks, self.cfg)
+            sp = (wtk.extract_stack_params(self.residual_blocks, self.cfg)
+                  if self.tp is None else partition.gathered_stack_params(
+                      self.residual_blocks, self.cfg, self.tp))
             skips = wtk.fused_stack_apply(self.cfg, sp, x, c, seed)
         else:
             skips = self._layer_loop(x, c, g, rnd, seed if train else None)
@@ -267,6 +290,9 @@ def data_dependent_init(model: WaveNet, x, c, g=None, *,
     its output on this batch (eval mode), then g <- g · init_scale /
     sqrt(v + 1e-10) and bias <- -m · that scale. Sequential, one forward a
     conv, so each sees the ones before it initialised."""
+    if model.tp is not None:
+        raise ValueError("the data-dependent init runs on the whole model, "
+                         "before shard_wavenet_state")
     convs = [m for m in model.modules()
              if isinstance(m, _WeightNormed) and m.is_weight_normed]
 

@@ -129,8 +129,12 @@ class Conv1x1(_WeightNormed):
                  weight_norm: bool = False):
         super().__init__((in_c, out_c), use_bias, weight_norm)
 
+    def product(self, x, w, rnd: Rounding = no_round):
+        """x @ w without the bias, rounded as the conv rounds."""
+        return rnd(rnd(x) @ rnd(w))
+
     def forward(self, x, rnd: Rounding = no_round):
-        return self._finish(rnd(rnd(x) @ rnd(self.weight())), rnd)
+        return self._finish(self.product(x, self.weight(), rnd), rnd)
 
 
 class CausalConv1D(_WeightNormed):
@@ -143,12 +147,17 @@ class CausalConv1D(_WeightNormed):
         super().__init__((kernel_size, in_c, out_c), use_bias, weight_norm)
         self.kernel_size, self.dilation = kernel_size, dilation
 
-    def forward(self, x, rnd: Rounding = no_round):
+    def product(self, x, w, rnd: Rounding = no_round):
+        """The causal conv of x with kernel w [kw, in, out], without the
+        bias, rounded as the conv rounds."""
         pad = (self.kernel_size - 1) * self.dilation
-        k = rnd(self.weight()).permute(2, 1, 0)          # [out, in, kw]
+        k = rnd(w).permute(2, 1, 0)                      # [out, in, kw]
         y = F.conv1d(F.pad(rnd(x).transpose(1, 2), (pad, 0)), k,
                      dilation=self.dilation).transpose(1, 2)
-        return self._finish(rnd(y), rnd)
+        return rnd(y)
+
+    def forward(self, x, rnd: Rounding = no_round):
+        return self._finish(self.product(x, self.weight(), rnd), rnd)
 
 
 class ResidualConv1DGLU(nn.Module):

@@ -6,6 +6,11 @@ plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
+The host C++ runtime (`csrc/<name>.cc`, the data-IO library) builds alike
+with the host compiler (`build_host`), with the JAX package's
+native/Makefile flags; as those take -march=native, its hash also covers
+the host CPU.
+
 No PyTorch headers, no `torch.utils.cpp_extension`, no ninja: a build takes
 seconds. The output lands in `tacotron2_tpu_torch/_build/` (git-ignored),
 keyed by a hash of the sources and flags, so an unchanged kernel is built
@@ -19,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from typing import Dict, Iterable
@@ -28,6 +34,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+             "-shared", "-pthread"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
@@ -45,13 +54,69 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def cxx_path() -> str | None:
+    """The host C++ compiler ($CXX, else g++ or c++ on PATH), or None."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    return None
+
+
+def _host_cpu() -> str:
+    """The machine and its CPU's model and feature flags, which
+    -march=native compiles for: a checkout that moves to another CPU
+    rebuilds the host library rather than loading one that may use
+    instructions that CPU lacks."""
+    info = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    info.append(line.strip())
+                if line.strip() == "" and len(info) > 1:
+                    break       # the first processor's entry
+    except OSError:
+        info.append(platform.processor())
+    return "\n".join(info)
+
+
+def _lib_path(name: str, host: bool = False) -> str:
+    flags = CXX_FLAGS if host else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
+    if host:
+        h.update(_host_cpu().encode())
     for fn in sorted(os.listdir(CSRC)):
-        if fn == f"{name}.cu" or fn.endswith(".cuh"):
+        if fn == f"{name}.{'cc' if host else 'cu'}" or (
+                not host and fn.endswith(".cuh")):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile `csrc/<name>.cc` with the host C++ compiler unless it is
+    built already; returns the library's path. Raises with the compiler's
+    output where it fails, or where there is no compiler."""
+    path = _lib_path(name, host=True)
+    if os.path.exists(path):
+        return path
+    cxx = cxx_path()
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (g++) on PATH")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    p = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp,
+                        os.path.join(CSRC, f"{name}.cc")],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    build_logs[name] = p.stdout
+    if p.returncode != 0:
+        raise RuntimeError(f"host build of {name}.cc failed (rc "
+                           f"{p.returncode}):\n{p.stdout}")
+    os.replace(tmp, path)
+    return path
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

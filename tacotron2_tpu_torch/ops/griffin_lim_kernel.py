@@ -17,6 +17,20 @@ window-folded synthesis and analysis bases over the support
 (`kernel_bases`). Both are built once per (n_fft, hop, win, device); the
 overlap-add normalisation `g` (`overlap_add_norm`) is made for each call's
 frame count.
+
+The bf16 mode (`bf16=True`, `gl_compute_dtype="bfloat16"`; JAX casts at
+ops/griffin_lim.py:47-55 and ops/stft.py:196-228) rounds to bf16 where
+JAX's operands are bf16: the spectrum entering each synthesis (the start
+and each projected estimate), each signal sample entering an analysis, and
+the window-folded DFT operands (the DFT route's two bases; on the FFT
+route the window, while the transform's twiddles and butterflies stay
+f32, which no bf16 DFT basis reproduces). Products and overlap-adds
+accumulate in f32, the magnitude projection is f32, and the output is f32.
+Each route is held elementwise to a plain version that rounds where it
+does: the DFT route to `griffin_lim_plain`, the FFT route to
+`griffin_lim_fft_plain` (f32 torch.fft transforms of the same rounded
+operands). The two plain versions, whose roundings differ, are held to
+JAX's bf16 path by a drift bound on spectral consistency.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from . import stft as _stft
 launches = 0
 launches_fft = 0
 launches_dft = 0
+launches_bf16 = 0   # of them in the bf16 mode
 # the largest n_fft of the FFT route (its two buffers, 16·n_fft bytes of
 # shared memory a CTA)
 FFT_MAX = 16384
@@ -41,16 +56,78 @@ FFT_MAX = 16384
 _argtypes_set = False
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), kept f32."""
+    return x.to(torch.bfloat16).float()
+
+
 def griffin_lim_plain(S, re0, im0, n_fft: int, hop: int, win_size: int,
-                      iters: int):
+                      iters: int, bf16: bool = False):
     """The kernel's plain version: y = iSTFT(re0, im0), then `iters` times
     est = STFT(y), y = iSTFT(S·est/max(|est|, 1e-8)). [B, F, K] ->
-    [B, hop·(F-1)]."""
-    y = _stft.istft(re0, im0, n_fft, hop, win_size)
+    [B, hop·(F-1)]. With `bf16` the bf16 mode: each iSTFT takes its
+    spectrum rounded to bf16 and each STFT its signal, against the
+    window-folded bases rounded to bf16 (`kernel_bases`), with f32 sums."""
+    if not bf16:
+        istft = lambda re, im: _stft.istft(re, im, n_fft, hop, win_size)
+        stft = lambda y: _stft.stft(y, n_fft, hop, win_size)
+    else:
+        ops = kernel_bases(n_fft, hop, win_size, S.device)
+        syn, ana = bf16_round(ops.bsyn), bf16_round(ops.bana)
+        K = n_fft // 2 + 1
+
+        def istft(re, im):
+            frames = bf16_round(torch.cat([re, im], -1)) @ syn
+            F = frames.shape[-2]
+            y = _stft.overlap_add(frames, n_fft, hop, ops.lpad) \
+                * overlap_add_norm(n_fft, hop, win_size, F, S.device)
+            pad = n_fft // 2
+            return y[:, pad: pad + hop * (F - 1)]
+
+        def stft(y):
+            est = _stft.frame_signal(bf16_round(y), n_fft, hop,
+                                     win_size) @ ana
+            return est[..., :K], est[..., K:]
+    return _iterate(S, re0, im0, iters, istft, stft)
+
+
+def griffin_lim_fft_plain(S, re0, im0, n_fft: int, hop: int, win_size: int,
+                          iters: int, bf16: bool = False):
+    """The FFT route's plain version: the iterations of `griffin_lim_plain`
+    with f32 real FFTs (torch.fft) in place of the DFT products. With
+    `bf16` it rounds where that route does: the spectrum entering each
+    synthesis (Im X[0] and Im X[n_fft/2] dropped, as irfft drops them),
+    the window, and each signal sample entering an analysis."""
+    lpad, window = _stft.support(n_fft, win_size)
+    W = window.shape[0]
+    rnd = bf16_round if bf16 else (lambda x: x)
+    win = rnd(_to(window, S.device))
+    F = S.shape[-2]
+    g = overlap_add_norm(n_fft, hop, win_size, F, S.device)
+    edge = torch.ones(n_fft // 2 + 1, device=S.device)
+    edge[0] = edge[-1] = 0.0
+    pad = n_fft // 2
+
+    def istft(re, im):
+        x = torch.complex(rnd(re), rnd(im) * edge)
+        frames = torch.fft.irfft(x, n=n_fft)[..., lpad:lpad + W] * win
+        y = _stft.overlap_add(frames, n_fft, hop, lpad) * g
+        return y[:, pad: pad + hop * (F - 1)]
+
+    def stft(y):
+        frames = _stft.frame_signal(rnd(y), n_fft, hop, win_size) * win
+        est = torch.fft.rfft(torch.nn.functional.pad(
+            frames, (lpad, n_fft - lpad - W)), n=n_fft)
+        return est.real, est.imag
+    return _iterate(S, re0, im0, iters, istft, stft)
+
+
+def _iterate(S, re0, im0, iters, istft, stft):
+    y = istft(re0, im0)
     for _ in range(iters):
-        er, ei = _stft.stft(y, n_fft, hop, win_size)
+        er, ei = stft(y)
         mag = torch.clamp(torch.sqrt(er * er + ei * ei), min=1e-8)
-        y = _stft.istft(S * er / mag, S * ei / mag, n_fft, hop, win_size)
+        y = istft(S * er / mag, S * ei / mag)
     return y
 
 
@@ -143,23 +220,25 @@ def _lib():
     if not _argtypes_set:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in ("taco_griffin_lim_launch", "taco_griffin_lim_fft_launch"):
-            getattr(lib, fn).argtypes = [vp] * 8 + [ci] * 8 + [vp]
+            getattr(lib, fn).argtypes = [vp] * 8 + [ci] * 9 + [vp]
             getattr(lib, fn).restype = ci
         _argtypes_set = True
     return lib
 
 
 def fused_griffin_lim(S, re0, im0, n_fft: int, hop: int, win_size: int,
-                      iters: int = 60):
-    """S, re0, im0 [B, F, K] f32 -> waveform [B, hop·(F-1)]. CPU tensors
-    take `griffin_lim_plain`; CUDA tensors launch the kernel or raise."""
+                      iters: int = 60, bf16: bool = False):
+    """S, re0, im0 [B, F, K] f32 -> waveform [B, hop·(F-1)], in the bf16
+    mode where `bf16`. CPU tensors take `griffin_lim_plain`; CUDA tensors
+    launch the kernel or raise."""
     if S.device.type == "cpu":
-        return griffin_lim_plain(S, re0, im0, n_fft, hop, win_size, iters)
-    return _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters)
+        return griffin_lim_plain(S, re0, im0, n_fft, hop, win_size, iters,
+                                 bf16)
+    return _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters, bf16)
 
 
-def _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters):
-    global launches, launches_fft, launches_dft
+def _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters, bf16):
+    global launches, launches_fft, launches_dft, launches_bf16
     if S.dim() != 3:
         raise ValueError(f"S must be [B, F, K], got {tuple(S.shape)}")
     B, F, K = S.shape
@@ -183,11 +262,13 @@ def _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters):
     if kind == "fft":
         ops = fft_operands(n_fft, win_size, dev)
         W, fn = ops.win.shape[0], "taco_griffin_lim_fft_launch"
-        a, b = ops.win, ops.tw
+        a, b = (bf16_round(ops.win) if bf16 else ops.win), ops.tw
     else:
         ops = kernel_bases(n_fft, hop, win_size, dev)
         W, fn = ops.bana.shape[0], "taco_griffin_lim_launch"
         a, b = ops.bsyn, ops.bana
+        if bf16:
+            a, b = bf16_round(a), bf16_round(b)
     frames = torch.empty(B, F, W, device=dev)
     est = torch.empty(B, F, 2 * K, device=dev)
     y = torch.empty(B, total, device=dev)
@@ -195,11 +276,12 @@ def _griffin_lim_cuda(S, re0, im0, n_fft, hop, win_size, iters):
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     rc = getattr(lib, fn)(
         ptr(reim0), ptr(S), ptr(a), ptr(b), ptr(g), ptr(frames), ptr(est),
-        ptr(y), B, F, K, W, hop, ops.lpad, n_fft, int(iters),
+        ptr(y), B, F, K, W, hop, ops.lpad, n_fft, int(iters), int(bf16),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     from ..native.build import check
     check(rc, fn)
     launches += 1
+    launches_bf16 += int(bf16)
     if kind == "fft":
         launches_fft += 1
     else:

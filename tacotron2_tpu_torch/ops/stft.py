@@ -242,6 +242,57 @@ def istft(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
     return y.reshape(*batch_shape, y.shape[-1])
 
 
+# ------------------------------------------ TF-semantics STFT (GL_on_GPU)
+#
+# The reference's in-graph Griffin-Lim (audio.py:163-176) frames with
+# tf.signal: win_size frames with no centring, hann(win_size), the rfft
+# zero-padded to n_fft, and on the inverse a raw hann-windowed overlap-add
+# (no window-sum-square normalisation). JAX ops/stft.py:267-329; plain
+# products on the caller's device, as JAX computes them in XLA outside any
+# Pallas kernel.
+
+
+def frame_uncentered(y: torch.Tensor, frame_len: int,
+                     hop: int) -> torch.Tensor:
+    """[..., T] -> [..., frames, frame_len], no padding (TF framing)."""
+    num = 1 + (y.shape[-1] - frame_len) // hop
+    return y[..., :(num - 1) * hop + frame_len].unfold(-1, frame_len, hop)
+
+
+def _tf_bases(n_fft: int, win_size: int, device) -> Tuple[torch.Tensor, ...]:
+    """`_bases` of the TF framing: the first win_size samples of each
+    n_fft frame, hann(win_size) (cached)."""
+    key = ("tf", n_fft, win_size, str(device))
+    if key not in _device_bases:
+        cos_b, sin_b = _dft_bases(n_fft)
+        ci, si = _idft_bases(n_fft)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        _device_bases[key] = (
+            t(cos_b[:win_size]), t(sin_b[:win_size]), t(ci[:, :win_size]),
+            t(si[:, :win_size]), t(hann_window(win_size)))
+    return _device_bases[key]
+
+
+def stft_tf(y: torch.Tensor, n_fft: int, hop: int, win_size: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tf.signal.stft: uncentred hann(win) frames, the rfft at n_fft."""
+    cos_b, sin_b, _, _, window = _tf_bases(n_fft, win_size, y.device)
+    frames = frame_uncentered(y, win_size, hop) * window
+    return frames @ cos_b, -(frames @ sin_b)
+
+
+def istft_tf(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop: int,
+             win_size: int) -> torch.Tensor:
+    """tf.signal.inverse_stft with its default hann window: the irfft at
+    n_fft cut to win_size, windowed, raw overlap-add. [..., frames, K] ->
+    [..., hop·(frames-1) + win_size]."""
+    _, _, ci, si, window = _tf_bases(n_fft, win_size, re.device)
+    frames = (re @ ci - im @ si) * window
+    num = frames.shape[-2]
+    y = overlap_add(frames.reshape(-1, num, win_size), win_size, hop, 0)
+    return y.reshape(*frames.shape[:-2], y.shape[-1])
+
+
 # ----------------------------------------------------------- dB / normalise
 
 

@@ -98,19 +98,24 @@ class StackParams(NamedTuple):
     out_b: torch.Tensor    # [L, C]
 
 
-def extract_stack_params(blocks: Sequence, cfg: Config) -> StackParams:
+def extract_stack_params(blocks: Sequence, cfg: Config,
+                         wb=None) -> StackParams:
     """The port's `ResidualConv1DGLU` blocks -> StackParams, differentiable
-    (weight norm applied; missing biases are zeros)."""
-    def wb(conv):
+    (weight norm applied; missing biases are zeros). `wb(conv, name)`, name
+    one of conv / cin / skip / out, gives a conv's (weight, bias) where the
+    module's own do not serve (a model sharded over 'model':
+    `parallel.partition.gathered_stack_params`)."""
+    def own(conv, name):
         w = conv.weight()
         b = conv.bias if conv.bias is not None else w.new_zeros(w.shape[-1])
         return w, b
 
+    wb = wb or own
     parts = {f: [] for f in StackParams._fields}
     for blk in blocks:
         for name, conv in (("conv", blk.causal_conv), ("cin", blk.cin_conv),
                            ("skip", blk.skip_conv), ("out", blk.out_conv)):
-            w, b = wb(conv)
+            w, b = wb(conv, name)
             parts[f"{name}_w"].append(w.reshape(-1, w.shape[-1]))
             parts[f"{name}_b"].append(b)
     return StackParams(**{f: (torch.cat(v, 0) if f.endswith("_w")

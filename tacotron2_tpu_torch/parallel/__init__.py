@@ -1,9 +1,10 @@
-"""Parallelism: data parallelism over a torch.distributed process group.
+"""Parallelism over a torch.distributed process group.
 
 Counterpart of tacotron2_tpu/parallel/: the JAX package's ('data',
-'model') mesh becomes one process per card, each stepping on its rows of
-the global batch (`dist.py`). The 'model' axis (WaveNet channel sharding,
-JAX `parallel/partition.py`) is not ported.
+'model') mesh becomes one process per card laid out as (data × model)
+(`dist.py`): each data shard steps on its rows of the global batch, and
+the 'model' axis channel-shards the WaveNet's residual blocks
+(`partition.py`).
 """
 
 from .dist import (DataParallel, activate, all_gather_rows,  # noqa: F401

@@ -1,12 +1,22 @@
-"""Data parallelism over a `torch.distributed` process group.
+"""A (data × model) layout over a `torch.distributed` process group.
 
-Counterpart of the data-parallel half of tacotron2_tpu/parallel/mesh.py.
-The JAX package lays its devices out as a ('data', 'model') mesh and steps
-on one global batch sharded over 'data'; here each card runs one process
-(torchrun's env contract: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
-MASTER_PORT), rank r holds rows [r·B/n, (r+1)·B/n) of the global batch of
-B rows, and the group's collectives make every step the step over the
-global batch, not a mean of per-rank steps:
+Counterpart of tacotron2_tpu/parallel/mesh.py. The JAX package lays its
+devices out as a ('data', 'model') mesh (`make_mesh`, mesh.py:108-121)
+and steps on one global batch sharded over 'data'; here each card runs one
+process (torchrun's env contract: RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR, MASTER_PORT). With `mesh.model_parallelism` = mp, process r
+sits at mesh position (d, m) = divmod(r, mp), where
+`np.asarray(devices).reshape(dp, mp)` puts JAX's device r; it belongs to
+one data group (the dp processes of its m) and one model group (the mp
+processes of its d). `DataParallel` is the process's view of the 'data'
+axis: `rank` = d, `world` = dp and `group` = its data group (the default
+group where mp = 1), so the batch collectives below run over 'data', and
+the processes of one model group hold the same rows, as P('data', ...)
+places them on a 2-D mesh. `model_rank`, `model_world` and `model_group`
+are its place on 'model', which only the WaveNet's channel sharding
+(`partition.py`) reads. Data shard d holds rows [d·B/dp, (d+1)·B/dp) of
+the global batch of B rows, and the group's collectives make every step
+the step over the global batch, not a mean of per-rank steps:
 
 - `maybe_initialize_distributed` starts the group from that env (a no-op
   without it), with an explicit backend: nccl on the card, gloo where
@@ -26,7 +36,7 @@ global batch, not a mean of per-rank steps:
   loops', the feeders' and the serving paths'.
 
 Only all_reduce, broadcast and all_gather are used, the collectives gloo
-takes on CUDA tensors too. Tensor parallelism ('model' > 1) is not ported.
+takes on CUDA tensors too.
 """
 
 from __future__ import annotations
@@ -44,38 +54,60 @@ import torch.distributed as tdist
 from ..config import MeshConfig
 
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-TENSOR_PARALLEL_ITEM = ("ROADMAP.md queue 1 item 2b (WaveNet tensor "
-                        "parallelism, tacotron2_tpu/parallel/partition.py)")
 
 
 @dataclass(frozen=True)
 class DataParallel:
-    """One rank of a data-parallel group: its index, the group's size, the
-    rank's device and the process group (None: the default one)."""
+    """One process of a (data × model) group: its index d on 'data', the
+    data axis' size, its device and its data group (None: the default
+    one); its index m on 'model', that axis' size and its model group
+    (None where the size is 1)."""
 
     rank: int
     world: int
     device: torch.device
     group: object = None
+    model_rank: int = 0
+    model_world: int = 1
+    model_group: object = None
+
+    @property
+    def global_rank(self) -> int:
+        """The process's rank in the whole group: d·mp + m."""
+        return self.rank * self.model_world + self.model_rank
 
 
 _CURRENT: Optional[DataParallel] = None     # set by the initialization
 _ACTIVE: Optional[DataParallel] = None      # set inside a step
 
 
-def check_mesh(mesh: Optional[MeshConfig], world: int) -> None:
-    """MeshConfig against the group: every rank on 'data'
-    (`data_parallelism` -1 or the world size); 'model' > 1 is not
-    ported."""
+def check_mesh(mesh: Optional[MeshConfig], world: int) -> tuple:
+    """MeshConfig against the group, as `make_mesh` checks it against the
+    devices: (dp, mp), with dp = `data_parallelism` or, at -1, world / mp;
+    raises where mp does not divide the world or dp·mp is not it."""
     mesh = mesh or MeshConfig()
-    if mesh.model_parallelism > 1:
-        raise NotImplementedError(
-            f"mesh.model_parallelism={mesh.model_parallelism}: the port runs "
-            f"data parallelism only; tensor parallelism waits in "
-            f"{TENSOR_PARALLEL_ITEM}")
-    if mesh.data_parallelism > 0 and mesh.data_parallelism != world:
-        raise ValueError(f"mesh.data_parallelism={mesh.data_parallelism} "
-                         f"but the group has {world} ranks")
+    mp = max(1, mesh.model_parallelism)
+    if world % mp:
+        raise ValueError(f"{world} ranks not divisible by "
+                         f"model_parallelism={mp}")
+    dp = mesh.data_parallelism if mesh.data_parallelism > 0 else world // mp
+    if dp * mp != world:
+        raise ValueError(f"mesh {dp}x{mp} != {world} ranks")
+    return dp, mp
+
+
+def mesh_groups(rank: int, dp: int, mp: int) -> tuple:
+    """(data group, model group) of process `rank` on a dp × mp layout:
+    every process creates every group, in one order (`new_group`'s rule),
+    and keeps its two. Where mp is 1 the data group is the default one."""
+    if mp == 1:
+        return None, None
+    d, m = divmod(rank, mp)
+    data = [tdist.new_group([i * mp + j for i in range(dp)])
+            for j in range(mp)]
+    model = [tdist.new_group([i * mp + j for j in range(mp)])
+             for i in range(dp)]
+    return data[m], model[d]
 
 
 def rank_device(device, backend: str, local_rank: int,
@@ -126,7 +158,7 @@ def maybe_initialize_distributed(backend: Optional[str] = None,
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local_rank = int(os.environ["LOCAL_RANK"])
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    check_mesh(mesh, world)
+    dp_size, mp = check_mesh(mesh, world)
     cpu = torch.device(device if device is not None else "cuda").type \
         == "cpu"
     backend = backend or ("gloo" if cpu else "nccl")
@@ -140,7 +172,9 @@ def maybe_initialize_distributed(backend: Optional[str] = None,
     tdist.init_process_group(
         backend, init_method="env://", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
-    _CURRENT = DataParallel(rank, world, dev)
+    data_group, model_group = mesh_groups(rank, dp_size, mp)
+    d, m = divmod(rank, mp)
+    _CURRENT = DataParallel(d, dp_size, dev, data_group, m, mp, model_group)
     return _CURRENT
 
 
@@ -164,15 +198,17 @@ def barrier() -> None:
 
 
 def rank_world() -> tuple:
-    """(rank, world) of the started group, (0, 1) without one."""
+    """(d, dp), the process's place on 'data' in the started group, (0, 1)
+    without one: what the feeders and host loops shard by."""
     dp = _CURRENT
     return (dp.rank, dp.world) if dp is not None else (0, 1)
 
 
 def is_chief() -> bool:
-    """Whether this process writes the run's files: rank 0, or a process
-    without a group."""
-    return rank_world()[0] == 0
+    """Whether this process writes the run's files: rank 0 of the whole
+    group, or a process without a group."""
+    dp = _CURRENT
+    return dp is None or dp.global_rank == 0
 
 
 def host_rows(batch_size: int, device):
@@ -188,15 +224,16 @@ def host_rows(batch_size: int, device):
 
 
 def host_shard_indices(n: int) -> np.ndarray:
-    """This rank's stride shard of range(n) (JAX mesh.py:102)."""
+    """This data shard's stride shard of range(n) (JAX mesh.py:102)."""
     rank, world = rank_world()
     return np.arange(rank, n, world)
 
 
 def shard_batch(batch, dp: DataParallel):
-    """Rank `dp.rank`'s rows of a global batch: the block [r·B/n,
-    (r+1)·B/n) of every array's leading axis, as the JAX mesh shards
-    P('data') (mesh.py:132). B must divide by the world size."""
+    """Data shard `dp.rank`'s rows of a global batch: the block [d·B/dp,
+    (d+1)·B/dp) of every array's leading axis, as the JAX mesh shards
+    P('data') (mesh.py:132); the processes of one model group get the
+    same rows. B must divide by the data axis' size."""
     def rows(x):
         if not (torch.is_tensor(x) or isinstance(x, np.ndarray)) \
                 or x.ndim == 0:
@@ -365,21 +402,42 @@ def pad_to_group(batch: Dict[str, torch.Tensor], pads: Dict[str, object],
     return out
 
 
-def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]],
-                     dp: DataParallel) -> list:
-    """The gradients summed over the group, as one flat bucket a dtype
-    (None entries stay None)."""
-    out = list(grads)
+def _buckets(grads, keep) -> Dict[torch.dtype, list]:
     by_dtype: Dict[torch.dtype, list] = {}
     for i, g in enumerate(grads):
-        if g is not None:
+        if g is not None and keep(i):
             by_dtype.setdefault(g.dtype, []).append(i)
-    for idx in by_dtype.values():
+    return by_dtype
+
+
+def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]],
+                     dp: DataParallel,
+                     replicated: Optional[Sequence[bool]] = None) -> list:
+    """The gradients summed over the data group, as one flat bucket a
+    dtype (None entries stay None). Under a (data × model) group the
+    gradients of tensors replicated over 'model' (every one, unless
+    `replicated` says which) are then broadcast from the model group's
+    first process: its processes compute them alike, but a backward that
+    is not deterministic (cuDNN's, atomics) would let their copies of the
+    weights drift apart, where JAX's devices along 'model' stay equal."""
+    out = list(grads)
+    for idx in _buckets(grads, lambda i: True).values():
         flat = torch.cat([grads[i].reshape(-1) for i in idx])
         tdist.all_reduce(flat, group=dp.group)
         for i, part in zip(idx, torch.split(
                 flat, [grads[i].numel() for i in idx])):
             out[i] = part.view_as(grads[i])
+    if dp.model_world == 1:
+        return out
+    rep = (lambda i: True) if replicated is None else \
+        (lambda i: replicated[i])
+    for idx in _buckets(out, rep).values():
+        flat = torch.cat([out[i].reshape(-1) for i in idx])
+        tdist.broadcast(flat, src=dp.rank * dp.model_world,
+                        group=dp.model_group)
+        for i, part in zip(idx, torch.split(
+                flat, [out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
     return out
 
 

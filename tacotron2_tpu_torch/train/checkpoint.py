@@ -109,7 +109,12 @@ def load_state_tree(state: TrainState, tree: dict,
 
 
 def wavenet_state_tree(state: WaveNetTrainState) -> dict:
-    """The checkpoint's tree of a WaveNetTrainState."""
+    """The checkpoint's tree of a whole WaveNetTrainState (a state sharded
+    over 'model' is made whole first by `partition.gather_wavenet_state`,
+    on every process)."""
+    if state.model.tp is not None:
+        raise ValueError("a sharded WaveNet state: gather_wavenet_state on "
+                         "every process first, then save the whole one")
     mu, nu = {}, {}
     for (path, _), m, v in zip(convert.wavenet_named_parameters(state.model),
                                state.opt.mu, state.opt.nu):

@@ -157,7 +157,9 @@ class Adam:
     root; `lr` a constant or a schedule of the count before the update.
     Where `mask` is given the chain is `masked_only`: its clipping and
     moments see the masked-on gradients alone, and `mu`, `nu` are None off
-    the mask. `count` is the updates made."""
+    the mask. `count` is the updates made. `step` computes the global norm
+    of the masked-on gradients unless the caller gives it (a model sharded
+    over 'model': `parallel.partition.sharded_global_norm`)."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr, *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -175,7 +177,8 @@ class Adam:
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
-             grads: Sequence[torch.Tensor]) -> None:
+             grads: Sequence[torch.Tensor],
+             norm: torch.Tensor | None = None) -> None:
         on = [i for i, m in enumerate(self.mask) if m]
         if not on:          # every tensor masked off: only the count moves
             self.count += 1
@@ -185,7 +188,7 @@ class Adam:
         nu = [self.nu[i] for i in on]
         g = [grads[i].float() for i in on]
         if self.max_norm is not None:
-            norm = float(global_norm(g))
+            norm = float(global_norm(g) if norm is None else norm)
             if norm >= self.max_norm:
                 g = torch._foreach_mul(torch._foreach_div(g, norm),
                                        self.max_norm)

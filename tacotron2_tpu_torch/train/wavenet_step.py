@@ -26,6 +26,21 @@ The dropout seed is the step's draw plus the rank, as the JAX stack
 kernels' per-shard seed is (`seed + axis_index`,
 tacotron2_tpu/models/wavenet/model.py:148-150), so a data-parallel step
 equals the one-process step on the global batch at dropout 0.
+
+Tensor parallelism (`dp` of a (data × model) group, `model_world` > 1):
+the rank is data shard `dp.rank` of the batch as above, and `init_state`
+cuts the whole state to the process's slices over 'model'
+(`parallel.partition.shard_wavenet_state`: the residual blocks' weights,
+their EMA and Adam moments). The model then runs JAX's mesh branches
+(`models/wavenet/model.py`), the gradients are each slice's, summed over
+the data group, and Adam, value clipping and the EMA work on the slices;
+the global-norm clipping and `grad_norm` take one norm, which sums the
+slices' squares over the model group and counts the replicated tensors
+once, the unsharded norm (`partition.sharded_global_norm`, computed in
+`train_step` and handed to Adam); the replicated tensors' gradients come
+from the model group's first process, so its copies stay alike.
+`partition.gather_wavenet_state` makes the whole state again, on every
+process, for a checkpoint.
 """
 
 from __future__ import annotations
@@ -44,9 +59,9 @@ from ..data.wavenet_feeder import interp_to_unit
 from ..models.wavenet.model import (WaveNet, compute_wavenet_loss,
                                     data_dependent_init)
 from ..ops.mulaw import is_mulaw_quantize
-from ..parallel import dist
+from ..parallel import dist, partition
 from ..utils import log
-from .optim import Adam, WaveNetAdam, global_norm
+from .optim import Adam, WaveNetAdam
 
 BATCH_KEYS = ("x", "y", "c", "input_lengths")
 
@@ -81,7 +96,8 @@ class WaveNetTrainer:
         model has the speaker input where the config has gin_channels > 0
         and `batch` carries "g", as the JAX init makes it (:38-41). Under
         `dp` the init runs on the global batch (the ranks' rows gathered),
-        so every rank starts from the same weights."""
+        so every rank starts from the same weights; under a (data × model)
+        group the whole state is then cut to the process's slices."""
         wn = self.cfg.wavenet
         if model is None:
             b = self.batch_to_device(batch) if batch is not None else {}
@@ -99,7 +115,11 @@ class WaveNetTrainer:
         model = model.to(self.device).requires_grad_(True)
         ema = copy.deepcopy(model).requires_grad_(False)
         params = [p for _, p in wavenet_named_parameters(model)]
-        return WaveNetTrainState(0, model, ema, WaveNetAdam(self.cfg, params))
+        state = WaveNetTrainState(0, model, ema, WaveNetAdam(self.cfg,
+                                                             params))
+        if self.dp is not None and self.dp.model_world > 1:
+            state = partition.shard_wavenet_state(state, self.dp)
+        return state
 
     def batch_to_device(self, batch) -> Dict[str, torch.Tensor]:
         """The batch's tensors on the device; its speaker input "g" (ids
@@ -158,7 +178,10 @@ class WaveNetTrainer:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         if self.dp is not None:
-            grads = dist.all_reduce_grads(grads, self.dp)
+            rep = None if state.model.tp is None else [
+                partition.param_axis(path, p.dim()) is None
+                for path, p in named]
+            grads = dist.all_reduce_grads(grads, self.dp, rep)
             terms = dist.reduce_metrics(terms, self.dp)
         return terms, params, grads
 
@@ -170,9 +193,10 @@ class WaveNetTrainer:
                                  device=gen.device))
         terms, params, grads = self.gradients(state, batch, seed)
         metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        norm = partition.sharded_global_norm(state.model, grads)
+        metrics["grad_norm"] = norm
         with self._time("optimizer"):
-            state.opt.step(params, grads)
+            state.opt.step(params, grads, norm)
             # in f32, as the JAX step computes it
             one = np.float32(1.0)
             t = np.float32(state.step) + one

@@ -176,15 +176,20 @@ def _stockham(z, tw, plan):
     return a
 
 
-def _fft_route_replay(S, re0, im0, n_fft, hop, win, iters):
+def _fft_route_replay(S, re0, im0, n_fft, hop, win, iters, bf16=False):
     """csrc/griffin_lim.cu's FFT route in PyTorch: per frame, the inverse
     real FFT (E + iO packed, conjugated through the forward passes, Im X[0]
     and Im X[M] dropped) times the window over its support; the analysis
     gathering each support sample's overlap-add with g, the forward real
-    FFT and the magnitude projection; one overlap-add at the end."""
+    FFT and the magnitude projection; one overlap-add at the end. With
+    `bf16` the spectrum entering each synthesis, the window and each
+    gathered sample are rounded to bf16, as the kernel's bf16 mode loads
+    them."""
     B, F, K = S.shape
     M = n_fft // 2
     ops = glk.fft_operands(n_fft, win, "cpu")
+    rnd = glk.bf16_round if bf16 else (lambda x: x)
+    ops = ops._replace(win=rnd(ops.win))
     W, lpad = ops.win.shape[0], ops.lpad
     tw = torch.complex(ops.tw[:, 0], ops.tw[:, 1])
     plan = glk.fft_plan(n_fft)
@@ -201,7 +206,7 @@ def _fft_route_replay(S, re0, im0, n_fft, hop, win, iters):
     k = torch.arange(M)
 
     def synthesis(X):
-        X = torch.complex(X.real, X.imag * ((torch.arange(K) > 0)
+        X = torch.complex(rnd(X.real), rnd(X.imag) * ((torch.arange(K) > 0)
                                             & (torch.arange(K) < M)))
         xk, xm = X[..., :M], X[..., M - k].conj()
         E, D = 0.5 * (xk + xm), 0.5 * (xk - xm)
@@ -214,7 +219,7 @@ def _fft_route_replay(S, re0, im0, n_fft, hop, win, iters):
 
     def analysis(frames):
         x = torch.zeros(B, F, n_fft)
-        x[..., lpad:lpad + W] = ola(frames)[:, sup] * ops.win
+        x[..., lpad:lpad + W] = rnd(ola(frames)[:, sup]) * ops.win
         Z = _stockham(torch.complex(x[..., 0::2], x[..., 1::2]), tw, plan)
         kk = torch.arange(M + 1)
         zk, zm = Z[..., kk % M], Z[..., (M - kk) % M].conj()
@@ -241,6 +246,41 @@ def test_fft_route_replays_the_plain_version(n_fft, hop, win):
         want = glk.griffin_lim_plain(S, re0, im0, n_fft, hop, win, iters)
         got = _fft_route_replay(S, re0, im0, n_fft, hop, win, iters)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n_fft,hop,win", [(512, 128, 400),
+                                           (1024, 256, 1024)])
+def test_fft_plain_replays_the_fft_route(n_fft, hop, win, bf16):
+    """`griffin_lim_fft_plain`, the FFT route's plain version (torch.fft),
+    against the route's replay, in both modes, from a random-phase start:
+    at 0 iterations to atol 1e-5 (f32 transforms in another order), at 1
+    to a median |diff| within 2e-5 of the median |sample| (chip_smoke.py's
+    gate; a bf16 rounding that flips between the two can move a near-zero
+    bin's phase). In f32 it is the DFT plain version; in bf16 it stays
+    more than 10x the gates away from its f32 self."""
+    _, S = _noise(n_fft, hop, win, F=9)
+    S = torch.as_tensor(S)
+    g = torch.Generator().manual_seed(1)
+    phase = torch.rand(S.shape, generator=g) * 6.2831855
+    re0, im0 = S * torch.cos(phase), S * torch.sin(phase)
+    rel_med = lambda a, b: float((a - b).abs().median() / b.abs().median())
+    got = {it: glk.griffin_lim_fft_plain(S, re0, im0, n_fft, hop, win, it,
+                                         bf16) for it in (0, 1)}
+    want = {it: _fft_route_replay(S, re0, im0, n_fft, hop, win, it, bf16)
+            for it in (0, 1)}
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    assert rel_med(got[1], want[1]) <= 2e-5
+    if not bf16:
+        for it in (0, 1):
+            np.testing.assert_allclose(
+                got[it], glk.griffin_lim_plain(S, re0, im0, n_fft, hop, win,
+                                               it), rtol=0, atol=1e-5)
+    else:
+        f32 = {it: glk.griffin_lim_fft_plain(S, re0, im0, n_fft, hop, win,
+                                             it) for it in (0, 1)}
+        assert float((got[0] - f32[0]).abs().max()) > 1e-4
+        assert rel_med(got[1], f32[1]) > 2e-4
 
 
 @pytest.mark.parametrize("n_fft", [8, 512, 1024, 2048, 4096])
@@ -283,8 +323,15 @@ def test_random_phase_start_runs_through_the_same_function():
     torch.testing.assert_close(got, want)
     assert not torch.allclose(got, tgl.griffin_lim(S, n_fft, hop, win,
                                                    iters=2))
-    with pytest.raises(NotImplementedError):
-        tgl.griffin_lim(S, n_fft, hop, win, compute_dtype="bfloat16")
+    # gl_compute_dtype="bfloat16" runs the kernel's bf16 mode (its plain
+    # version here); another dtype raises
+    torch.testing.assert_close(
+        tgl.griffin_lim(S, n_fft, hop, win, iters=2,
+                        compute_dtype="bfloat16"),
+        glk.griffin_lim_plain(S, S, torch.zeros_like(S), n_fft, hop, win, 2,
+                              bf16=True))
+    with pytest.raises(ValueError):
+        tgl.griffin_lim(S, n_fft, hop, win, compute_dtype="float16")
 
 
 @pytest.mark.parametrize("iters,atol", [(0, 1e-5), (4, 1e-3)])

@@ -29,15 +29,16 @@ def test_port_files_exist():
     files = _port_files()
     assert os.path.exists(files[0]) and len(files) > 30
     csrc = os.path.join(ROOT, "tacotron2_tpu_torch", "csrc")
-    for src in ("decoder_bwd.cu", "wavenet_train.cu"):
+    for src in ("decoder_bwd.cu", "wavenet_train.cu", "tacodata.cc"):
         assert os.path.exists(os.path.join(csrc, src)), src
     # data parallelism's parity tests; the decode kernels' envelope (bf16 rounding, smoothing, f32 weights),
     # the WaveNet stack kernels' (f32, f32 activations, every width) and
     # the Tacotron variants' parity and routes (HighwayNet, CBHG and
     # ReferenceEncoderAdaIn in models/tacotron/modules.py), the WaveNet
     # variants' (the upsamplers in models/wavenet/modules.py) and the
-    # preprocessing's
+    # preprocessing's; tensor parallelism's and the long tail's
     for name in ("test_torch_decode_envelope.py",
+                 "test_torch_tensor_parallel.py", "test_torch_tail.py",
                  "test_torch_wavenet_stack_envelope.py",
                  "test_torch_model_variants.py",
                  "test_torch_variant_routes.py",
@@ -63,7 +64,9 @@ def test_port_files_exist():
                 "eval/analyze.py", "models/tacotron/modules.py",
                 "models/tacotron/decoder.py", "synth/pipeline.py",
                 "data/preprocess.py", "models/wavenet/modules.py",
-                "parallel/__init__.py", "parallel/dist.py"):
+                "parallel/__init__.py", "parallel/dist.py",
+                "parallel/partition.py", "eval/wer.py", "eval/human_eval.py",
+                "native/io.py"):
         assert os.path.join("tacotron2_tpu_torch", mod) in rel, mod
 
 

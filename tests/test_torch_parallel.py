@@ -356,7 +356,8 @@ def test_maybe_initialize_distributed_env_paths(monkeypatch):
     torchrun's env a world-1 gloo group on the CPU, returned again by a
     second call; two ranks on one card under nccl raise before any group
     starts (ranks on their own cards, or sharing one under gloo, do not);
-    model parallelism raises NotImplementedError."""
+    a mesh the ranks cannot lay out raises JAX make_mesh's ValueErrors
+    before any group starts, and model parallelism is admitted."""
     from tacotron2_tpu.parallel import mesh as jax_mesh
     for k in ENV_KEYS + ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
                          "MEGASCALE_COORDINATOR_ADDRESS", "CLOUD_TPU_TASK_ID",
@@ -383,11 +384,14 @@ def test_maybe_initialize_distributed_env_paths(monkeypatch):
     assert dist.rank_device("cuda", "nccl", 1, 2) == torch.device("cuda", 1)
     with pytest.raises(ValueError, match="gloo"):
         dist.maybe_initialize_distributed("nccl", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not divisible"):
         dist.maybe_initialize_distributed(
-            "gloo", "cpu", MeshConfig(model_parallelism=2))
-    with pytest.raises(ValueError, match="data_parallelism"):
+            "gloo", "cpu", MeshConfig(model_parallelism=3))
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="mesh 4x1 != 2"):
         dist.check_mesh(MeshConfig(data_parallelism=4), 2)
+    assert dist.check_mesh(MeshConfig(model_parallelism=2), 2) == (1, 2)
+    assert dist.check_mesh(MeshConfig(model_parallelism=2), 8) == (4, 2)
 
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")

@@ -1,10 +1,12 @@
-"""One rank of the data-parallel tests (tests/test_torch_parallel*.py).
+"""One rank of the data- and tensor-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel.py).
 
 `run(rank, world, port, spec_path, out_dir)` is what
 `torch.multiprocessing.spawn` starts in each rank: it sets torchrun's env
 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), starts the group
 through `parallel.dist.maybe_initialize_distributed(backend="gloo",
-device="cpu")`, runs each case the pickled spec names on the port alone
+device="cpu", mesh=spec["mesh"])` (all ranks on 'data' where the spec
+names no mesh), runs each case the pickled spec names on the port alone
 (this module imports neither JAX nor the JAX package) and pickles the
 rank's results to <out_dir>/rank<r>.pkl for the parent, which holds them
 against the JAX package and the port's one-process runs.
@@ -115,9 +117,72 @@ def cli_train(dp, s):
                      "--dist-backend", "gloo"])
 
 
+def _counting_stack():
+    """Count the calls of the stack's plain forward and backward (kernels
+    5a/5b's plain versions, which CPU tensors take): {"fwd": n, "bwd": n}."""
+    from tacotron2_tpu_torch.ops import wavenet_train_kernel as wtk
+    calls = {"fwd": 0, "bwd": 0}
+    for kind in calls:
+        name = f"stack_{kind}_plain"
+        fn = getattr(wtk, name)
+
+        def counted(*a, _fn=fn, _kind=kind, **k):
+            calls[_kind] += 1
+            return _fn(*a, **k)
+        setattr(wtk, name, counted)
+    return calls
+
+
+def tp_wavenet(dp, s):
+    """A WaveNet sharded over 'model' (`WaveNetTrainer(dp=)` on a (data ×
+    model) group) from the spec's whole weights: the eval forward of the
+    data shard's rows, the steps' metrics and plain stack calls, the eval
+    terms, the process's stored slices and the gathered whole state."""
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.parallel import partition
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    cfg = s["cfg"]
+    trainer = WaveNetTrainer(cfg, device="cpu", dp=dp)
+    state = trainer.init_state(model=convert.wavenet_from_flax(
+        cfg, s["params"], "cpu", trainable=True))
+    b = s["batches"][dp.rank]
+    y, _ = state.model(torch.from_numpy(b["x"]), torch.from_numpy(b["c"]),
+                       None if b.get("g") is None else torch.from_numpy(
+                           b["g"]))
+    calls = _counting_stack()
+    gen = torch.Generator().manual_seed(0)
+    metrics = []
+    for _ in range(s["steps"]):
+        state, m = trainer.train_step(state, b, gen)
+        metrics.append(_scalars(m))
+    _, terms = trainer.eval_step(state, b)
+    stored = {path: convert.wavenet_flax_array(path, p) for path, p in
+              convert.wavenet_named_parameters(state.model)}
+    whole = partition.gather_wavenet_state(state)
+    return dict(y=y.numpy(), metrics=metrics, calls=dict(calls),
+                eval=_scalars(terms), stored=stored,
+                params=_flat(convert.wavenet_to_flax(whole.model)),
+                ema=_flat(convert.wavenet_to_flax(whole.ema)),
+                mu=[t.numpy() for t in whole.opt.mu],
+                nu=[t.numpy() for t in whole.opt.nu])
+
+
+def tp_init(dp, s):
+    """A fresh WaveNet under a (data × model) group: the data-dependent
+    init on the global batch, sharded, then gathered whole."""
+    from tacotron2_tpu_torch import convert
+    from tacotron2_tpu_torch.parallel import partition
+    from tacotron2_tpu_torch.train.wavenet_step import WaveNetTrainer
+    trainer = WaveNetTrainer(s["cfg"], device="cpu", dp=dp)
+    state = trainer.init_state(torch.Generator().manual_seed(0),
+                               s["batches"][dp.rank])
+    whole = partition.gather_wavenet_state(state)
+    return dict(params=_flat(convert.wavenet_to_flax(whole.model)))
+
+
 CASES = dict(taco_steps=taco_steps, wavenet_steps=wavenet_steps,
              sharded_sample=sharded_sample, sharded_call=sharded_call,
-             cli_train=cli_train)
+             cli_train=cli_train, tp_wavenet=tp_wavenet, tp_init=tp_init)
 
 
 def run(rank, world, port, spec_path, out_dir):
@@ -126,11 +191,12 @@ def run(rank, world, port, spec_path, out_dir):
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.set_num_threads(2)
     from tacotron2_tpu_torch.parallel import dist
-    dp = dist.maybe_initialize_distributed(backend="gloo", device="cpu",
-                                           timeout_s=300)
-    assert dp is not None and (dp.rank, dp.world) == (rank, world)
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
+    dp = dist.maybe_initialize_distributed(backend="gloo", device="cpu",
+                                           mesh=spec.get("mesh"),
+                                           timeout_s=300)
+    assert dp is not None and dp.global_rank == rank
     results = {}
     try:
         for name, case in spec["cases"]:
